@@ -1,0 +1,26 @@
+"""The port's device rule: entry points run on the CUDA card unless the
+caller asks for the CPU, and never fall back to the CPU on their own."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` → ``cuda``. A CUDA device without a card raises; only an
+    explicit ``"cpu"`` runs on the host."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the host")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    return dev
+
+
+def tree_to(tree, device):
+    """Move every tensor leaf of a nested dict to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device=device)

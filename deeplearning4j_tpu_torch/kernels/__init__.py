@@ -1,0 +1,6 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version. Sources live in ``csrc/`` and are built at first use
+(``kernels._build``)."""
+
+#: the ``csrc/<name>.cu`` sources of every kernel of the port
+KERNEL_SOURCES = ("flash_attention_fwd", "paged_attention")

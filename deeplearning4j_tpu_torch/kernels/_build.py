@@ -1,0 +1,109 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled on first use with ``nvcc`` for
+Hopper (``sm_90a``) into a shared library with a plain C interface, and
+loaded with ``ctypes`` — no PyTorch headers, so a build takes seconds.
+Libraries land in ``build/dl4j_torch_kernels/`` beside the package
+(``$DL4J_TORCH_BUILD_DIR`` overrides), named by a hash of their source,
+so an edited kernel is never served from a stale build. A missing
+``nvcc`` or a failed build raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+SRC_DIR = PKG_DIR / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    env = os.environ.get("DL4J_TORCH_BUILD_DIR")
+    return Path(env) if env else PKG_DIR.parent / "build" / "dl4j_torch_kernels"
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): the port's "
+                       "CUDA kernels are built from csrc/ at first use")
+
+
+def _target(name: str) -> Path:
+    src = SRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    return build_dir() / f"{name}-{digest}.so"
+
+
+def _nvcc_cmd(name: str, out: Path):
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out),
+            str(SRC_DIR / f"{name}.cu")]
+
+
+def build(names: Iterable[str], verbose: bool = False) -> Dict[str, Path]:
+    """Compile every named source that has no current build, one
+    ``nvcc`` per source, all started together. Returns name → library
+    path. Raises with the compiler's output if any build fails."""
+    names = list(names)
+    build_dir().mkdir(parents=True, exist_ok=True)
+    targets = {n: _target(n) for n in names}
+    procs = {}
+    for n, out in targets.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = _nvcc_cmd(n, tmp)
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp)
+    failed = []
+    for n, (proc, tmp) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {n}.cu (rc {proc.returncode})\n{log}")
+            continue
+        if verbose and log.strip():
+            print(f"--- nvcc {n}.cu\n{log.rstrip()}")
+        os.replace(tmp, targets[n])
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return targets
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            import torch
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"kernel {name!r} needs a CUDA device")
+            path = build([name])[name]
+            lib = ctypes.CDLL(str(path))
+            _libs[name] = lib
+        return lib
+
+
+def check(rc: int, name: str):
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {rc}")

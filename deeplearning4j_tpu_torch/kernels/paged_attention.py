@@ -1,0 +1,163 @@
+"""Paged-KV decode attention (K2): the CUDA kernel ``csrc/paged_attention.cu``
+and its plain PyTorch version.
+
+Port of ``deeplearning4j_tpu/kernels/paged_attention.py``. One decode
+token per slot attends over that slot's pages of a block-paged pool:
+``q`` (B, H, Dh); ``k_pages``/``v_pages`` (n_pages, page_len, H, Dh) —
+ONE layer's pool; ``table`` (B, P) int32 per-slot page-table rows with
+the sentinel ``n_pages`` for unmapped entries; ``pos`` (B,) int32 cursors
+(rows ``<= pos[b]`` are valid). Returns (B, H, Dh) in q's dtype.
+
+The kernel skips sentinel pages and pages past the cursor and gives zeros
+for a slot with no live row. The plain version is the gather path the
+engine runs with the kernel off: it gathers every table entry, CLAMPING
+the sentinel to the last pool page as a JAX gather does, so a sentinel
+entry below the cursor reads masked-in garbage there, exactly as in the
+reference. Keep every position up to the cursor mapped and the two agree.
+
+Dispatch (:func:`decide`) is ``off`` → gather, ``on`` → kernel, ``auto``
+→ kernel on CUDA and gather on the CPU. The reference's fidelity-gated
+promotion race and its autotune store are not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+
+#: the reference's promotion fidelity budget: max per-position KL, nats
+PROMOTION_MAX_KL = 1e-3
+
+_SOURCE = "paged_attention"
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128
+
+#: launches of the CUDA kernel since the last reset (the plain version on
+#: CPU tensors does not count)
+LAUNCHES = 0
+
+
+def reset_launches():
+    global LAUNCHES
+    LAUNCHES = 0
+
+
+def paged_attention(q, k_pages, v_pages, table, pos):
+    """Fused single-token attention over a block-paged KV pool. CPU
+    tensors take :func:`paged_attention_reference`; CUDA tensors launch
+    the kernel (or raise) — there is no fallback between the two."""
+    dev = q.device.type
+    if dev == "cpu":
+        return paged_attention_reference(q, k_pages, v_pages, table, pos)
+    if dev != "cuda":
+        raise ValueError(f"paged_attention runs on cpu or cuda tensors, "
+                         f"got {q.device}")
+    return _paged_attention_cuda(q, k_pages, v_pages, table, pos)
+
+
+def _paged_attention_cuda(q, k_pages, v_pages, table, pos):
+    global LAUNCHES
+    b, h, dh = q.shape
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"k/v pages must share a (n_pages, page_len, H, "
+                         f"Dh) shape, got {tuple(k_pages.shape)} and "
+                         f"{tuple(v_pages.shape)}")
+    npg, plen, hk, dk = k_pages.shape
+    if (hk, dk) != (h, dh):
+        raise ValueError(f"pages hold (H, Dh)=({hk}, {dk}), q has "
+                         f"({h}, {dh})")
+    if table.dim() != 2 or table.shape[0] != b or pos.shape != (b,):
+        raise ValueError(f"table must be (B, P) and pos (B,) for B={b}, "
+                         f"got {tuple(table.shape)}, {tuple(pos.shape)}")
+    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise ValueError(f"kernel takes float32 or bfloat16 q and pages of "
+                         f"one dtype, got {q.dtype}/{k_pages.dtype}/"
+                         f"{v_pages.dtype}")
+    if table.dtype != torch.int32 or pos.dtype != torch.int32:
+        raise ValueError("table and pos must be int32")
+    if not 1 <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {dh} outside 1..{MAX_HEAD_DIM}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("table", table), ("pos", pos)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if q.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError("paged_attention is a decode kernel and "
+                                  "has no backward")
+    lib = _load()
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.dl4j_paged_attention(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h, dh, npg,
+        plen, table.shape[1], 1.0 / math.sqrt(dh), _DTYPES[q.dtype], stream)
+    _build.check(rc, "paged_attention")
+    LAUNCHES += 1
+    return out
+
+
+def _load():
+    lib = _build.load(_SOURCE)
+    fn = lib.dl4j_paged_attention
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float,
+                       i, p]
+        fn.restype = i
+    return lib
+
+
+def paged_attention_reference(q, k_pages, v_pages, table, pos):
+    """The gather path: materialize each slot's fixed-width table row
+    (sentinel entries clamp to the last pool page — garbage the pos mask
+    never exposes while the slot's rows up to pos are mapped), f32
+    softmax over the masked scores."""
+    b, h, dh = q.shape
+    npg, plen = k_pages.shape[0], k_pages.shape[1]
+    per_slot = table.shape[1]
+    idx = table.long().clamp(0, npg - 1)
+    kg = k_pages[idx].reshape(b, per_slot * plen, h, dh)
+    vg = v_pages[idx].reshape(b, per_slot * plen, h, dh)
+    scale = 1.0 / math.sqrt(dh)
+    scores = torch.einsum("bhd,bshd->bhs", q.float() * scale, kg.float())
+    s = kg.shape[1]
+    mask = torch.arange(s, device=q.device)[None, :] <= pos.long()[:, None]
+    scores = torch.where(mask[:, None, :], scores,
+                         torch.tensor(NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", probs, vg.float())
+    return out.to(q.dtype)
+
+
+def decide(engine, cache, mode: Optional[str] = None) -> str:
+    """``"kernel"`` or ``"gather"`` for one engine × cache. ``mode`` (or
+    the engine's pinned mode, default ``auto``): ``off`` → gather, ``on``
+    → kernel, ``auto`` → the kernel when the pool lies on a CUDA device,
+    else gather. A CUDA pool the kernel cannot take (head dim past
+    ``MAX_HEAD_DIM``) is refused by the kernel's wrapper, never handed to
+    the gather path."""
+    if mode is None:
+        mode = getattr(engine, "paged_kernel_mode", None) or "auto"
+    mode = str(mode).lower()
+    if mode in ("off", "0", "gather"):
+        return "gather"
+    if mode in ("on", "1", "kernel"):
+        return "kernel"
+    if mode == "auto":
+        return "kernel" if cache["k"].device.type == "cuda" else "gather"
+    if mode == "race":
+        raise NotImplementedError(
+            "the fidelity-gated promotion race is not ported yet; use "
+            "paged_kernel='on'|'off'|'auto'")
+    raise ValueError(f"unknown paged-kernel mode {mode!r}; expected "
+                     "off|on|auto")

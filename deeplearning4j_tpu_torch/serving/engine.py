@@ -1,0 +1,536 @@
+"""Generation engine for the Transformer-LM: KV-cache prefill, chunked
+prefill and single-token decode, plus greedy/temperature/top-k sampling.
+Port of ``deeplearning4j_tpu/serving/engine.py``.
+
+- ``prefill`` / ``prefill_slot`` run the prompt through the model's own
+  block stack (``apply_blocks(return_kv=True)`` — so a prompt padded to a
+  bucket of ≥ ``flash_min_seq`` tokens runs the flash kernel on CUDA),
+  write every layer's k/v into the cache and return only the last valid
+  position's logits.
+- ``decode_step`` advances every slot one token: embed at each slot's
+  cursor, run the blocks with the cache, attend against the slot's own
+  prefix — dense lanes, or the block-paged pool through either the gather
+  path or the CUDA paged-attention kernel (``kernels.paged_attention``).
+- ``prefill_chunk`` writes one chunk of a slot's context into its mapped
+  pages (paged pools).
+
+**The cache is updated in place.** The reference donates the cache to
+each jitted call so XLA reuses its buffers; PyTorch has no donation, so
+the engine writes the KV pool (and cursors) in place and returns the same
+tensors. Callers keep the ``(logits, cache)`` calling convention of the
+reference, but the cache they passed in IS the one returned.
+
+Out-of-bounds writes are masked explicitly where a JAX scatter would drop
+them (a paged write on the sentinel page, a dense write past capacity),
+and gathers through the sentinel clamp to the last page as a JAX gather
+does; dynamic-slice starts are bounds-checked instead of clamped.
+
+Not ported yet: int8 weights/KV (the ``quant_*`` knobs raise),
+``verify_chunk``, ``embed_chunk``, ``sample_masked``, compile sentinels.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .._device import resolve_device, tree_to
+from ..kernels import paged_attention as pa
+from ..zoo import transformer as tfm
+from . import kvcache
+
+DEFAULT_PREFILL_BUCKETS = (32, 128, 512, 1024, 2048, 4096, 8192)
+
+_NEG_INF = -1e30  # mask value: finite, softmax-safe in f32
+
+# weights that only ever feed a matmul in the compute dtype — the engine
+# casts them once instead of on every call
+_MATMUL_WEIGHTS = ("wqkv", "wo", "w_in", "w_out")
+
+
+def sample_tokens(logits, temperature, top_k, generator=None):
+    """Vectorized next-token sampling: (B, V) logits, per-slot
+    ``temperature`` (B,) and ``top_k`` (B,). A slot with
+    ``temperature <= 0`` is greedy (argmax, first index on ties); one with
+    ``top_k > 0`` samples only among its k highest logits. Randomness
+    comes from ``generator`` (Gumbel-max over the filtered, tempered
+    logits — the same distribution as ``jax.random.categorical``, not the
+    same draws). Returns (B,) int32 on the logits' device."""
+    logits = logits.float()
+    b, v = logits.shape
+    dev = logits.device
+    greedy = logits.argmax(dim=-1)
+    if not torch.is_tensor(temperature) and \
+            not (np.asarray(temperature) > 0).any():
+        return greedy.to(torch.int32)
+    temperature = torch.as_tensor(temperature, dtype=torch.float32,
+                                  device=dev).reshape(-1)
+    top_k = torch.as_tensor(top_k, dtype=torch.int64, device=dev).reshape(-1)
+    desc = torch.sort(logits, dim=-1, descending=True).values
+    kk = torch.clamp(torch.where(top_k > 0, top_k, torch.full_like(top_k, v)),
+                     1, v)
+    thresh = desc.gather(-1, (kk - 1)[:, None])
+    filtered = torch.where(logits >= thresh, logits,
+                           torch.tensor(_NEG_INF, device=dev))
+    scaled = filtered / torch.clamp(temperature, min=1e-6)[:, None]
+    u = torch.rand((b, v), generator=generator, device=dev)
+    gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
+    sampled = (scaled + gumbel).argmax(dim=-1)
+    return torch.where(temperature <= 0, greedy, sampled).to(torch.int32)
+
+
+def _cached_attention(cfg, q, k, v, pos):
+    """Single-token attention against the cache: q (B, H, Dh) vs k/v
+    (B, S, H, Dh), each slot masked to rows ``<= pos[b]``. Scores in f32
+    whatever the cache dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bhd,bshd->bhs", q.float() * scale, k.float())
+    s = k.shape[1]
+    mask = torch.arange(s, device=q.device)[None, :] <= pos.long()[:, None]
+    scores = torch.where(mask[:, None, :], scores,
+                         torch.tensor(_NEG_INF, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhs,bshd->bhd", probs, v.float())
+    return out.to(cfg.dtype)
+
+
+def _masked_row_write(pool, idx, ok, rows):
+    """Scatter ``rows`` (N, H, Dh) into ``pool`` (R, H, Dh) at flat rows
+    ``idx`` (N,), in range, where ``ok`` (N,) — the rows a JAX scatter
+    would drop (``ok`` False) write nothing. Done without a host sync:
+    a dropped row is redirected to the first live row's target carrying
+    that row's data (or, with no live row at all, to its own target
+    carrying the current contents), so every duplicate index of the one
+    ``index_put_`` writes identical values and the result is exact and
+    deterministic. Live targets must be distinct (one writer per row).
+    (``index_select`` with a one-element index, not ``x[first]``: a 0-d
+    tensor index would copy it to the host and stall the stream.)"""
+    rows = rows.to(pool.dtype)
+    first = torch.argmax(ok.to(torch.int32)).reshape(1)
+    idx_first = idx.index_select(0, first)
+    tgt = torch.where(ok, idx, idx_first)
+    filler = torch.where(ok.any(), rows.index_select(0, first),
+                         pool.index_select(0, idx_first))
+    src = torch.where(ok[:, None, None], rows, filler)
+    pool.index_put_((tgt,), src)
+
+
+class GenerationEngine:
+    """Prefill/decode engine bound to one (cfg, params) pair, on one
+    device. Callers own the cache (``init_cache`` / ``init_paged_cache``)
+    and thread it through the entry points, which update it in place.
+
+    ``device=None`` means the CUDA card (raises without one); tests pass
+    ``device="cpu"``, where the kernels' plain versions run."""
+
+    def __init__(self, cfg, params, *, max_len: Optional[int] = None,
+                 prefill_buckets=DEFAULT_PREFILL_BUCKETS,
+                 prefill_chunk: Optional[int] = None,
+                 paged_kernel: Optional[str] = None,
+                 quant_kv: Optional[str] = None,
+                 quant_weights: Optional[str] = None,
+                 device=None):
+        if getattr(cfg, "n_experts", 0):
+            raise NotImplementedError(
+                "GenerationEngine is dense-only: MoE blocks are not ported")
+        if cfg.use_ring_attention:
+            raise NotImplementedError(
+                "ring attention is a sequence-parallel training path; "
+                "construct the engine with use_ring_attention=False")
+        for name, val in (("quant_kv", quant_kv),
+                          ("quant_weights", quant_weights)):
+            if val is not None and str(val).lower() != "off":
+                raise NotImplementedError(
+                    f"{name}={val!r}: int8 KV pages and weights are not "
+                    "ported yet")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.max_len = int(cfg.max_seq if max_len is None else max_len)
+        if self.max_len > cfg.max_seq:
+            raise ValueError(
+                f"max_len {self.max_len} exceeds cfg.max_seq="
+                f"{cfg.max_seq}: no position rows past the table")
+        self.prefill_buckets = tuple(sorted(
+            {min(b, self.max_len) for b in prefill_buckets} | {self.max_len}))
+        self.chunk_len = int(min(
+            kvcache.DEFAULT_PREFILL_CHUNK if prefill_chunk is None
+            else prefill_chunk, self.max_len))
+        if self.chunk_len < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        self.chunk_buckets = tuple(sorted(
+            {min(b, self.chunk_len) for b in self.prefill_buckets}
+            | {self.chunk_len}))
+        # off|on|auto (None: auto — the kernel on CUDA, gather on the
+        # CPU); kernels.paged_attention.decide reads it
+        self.paged_kernel_mode = paged_kernel
+        self.refresh(params)
+
+    # ------------------------------------------------------------ cache
+    def init_cache(self, n_slots: int):
+        return kvcache.init_cache(self.cfg, n_slots, self.max_len,
+                                  device=self.device)
+
+    def init_paged_cache(self, n_slots: int, n_pages: int,
+                         page_len: int = kvcache.DEFAULT_PAGE_LEN):
+        return kvcache.init_paged_cache(self.cfg, n_slots, n_pages,
+                                        page_len, self.max_len,
+                                        device=self.device)
+
+    def refresh(self, params):
+        """Swap in new params (moved to the engine's device). The matmul
+        weights are cast to the compute dtype once, here."""
+        self.params = tree_to(params, self.device)
+        run = dict(self.params)
+        blocks = dict(run["blocks"])
+        for name in _MATMUL_WEIGHTS:
+            blocks[name] = blocks[name].to(self.cfg.dtype)
+        run["blocks"] = blocks
+        if "head" in run:
+            run["head"] = run["head"].to(self.cfg.dtype)
+        self._run_params = run
+        return self
+
+    # ----------------------------------------------------- device fns
+    def _prefill_trunk(self, tokens):
+        """Shared prompt pass: embedded tokens through the block stack
+        with per-layer k/v capture. Returns (hidden, k, v)."""
+        p = self._run_params
+        x = tfm.embed(p, self.cfg, tokens)
+        x, _, (ks, vs) = tfm.apply_blocks(p["blocks"], self.cfg, x,
+                                          return_kv=True)
+        return x, ks, vs
+
+    def _embed_rows(self, tokens, pos):
+        """Embed one token row per sequence at its own position (clamped
+        into the table, like the reference's take)."""
+        cfg = self.cfg
+        p = self._run_params
+        x = tfm.scale_embedding(cfg, p["embed"][tokens.long()].to(cfg.dtype))
+        rows = p["pos_embed"][pos.long().clamp(0, cfg.max_seq - 1)]
+        return x + rows.to(cfg.dtype)
+
+    def _blocks_with_cache(self, cache, x, *, write, attend):
+        """The ONE block body every cached entry point runs — they differ
+        only in how k/v rows land in the layer cache (``write(layer_pool,
+        rows)``, in place) and how the rows' queries see it
+        (``attend(q, kl, vl) -> (rows, H, Dh)``). Returns the block-stack
+        output rows."""
+        cfg = self.cfg
+        blocks = self._run_params["blocks"]
+        n = x.shape[0]
+        h_, dh = cfg.n_heads, cfg.head_dim
+        for l in range(cfg.n_layers):
+            hh = tfm._rmsnorm(x, blocks["ln1"][l])
+            qkv = hh @ blocks["wqkv"][l]
+            q, k, v = qkv.chunk(3, dim=-1)
+            kl, vl = cache["k"][l], cache["v"][l]
+            write(kl, k.reshape(n, h_, dh))
+            write(vl, v.reshape(n, h_, dh))
+            a = attend(q.reshape(n, h_, dh), kl, vl).reshape(n, h_ * dh)
+            x = x + a @ blocks["wo"][l]
+            h2 = tfm._rmsnorm(x, blocks["ln2"][l])
+            x = x + tfm.gelu(h2 @ blocks["w_in"][l]) @ blocks["w_out"][l]
+        return x
+
+    def _head(self, x):
+        return tfm.head_logits_rows(self._run_params, self.cfg, x)
+
+    def _decode_dense(self, cache, tokens):
+        """One decode step over dense lanes: each slot writes its token's
+        k/v at its own cursor and attends to its own prefix. A slot past
+        capacity writes nothing (the reference's dropped scatter); its
+        output is garbage the scheduler never reads."""
+        cfg = self.cfg
+        pos = cache["pos"]
+        b = tokens.shape[0]
+        s = cache["k"].shape[2]
+        x = self._embed_rows(tokens, pos)
+        ok = (pos >= 0) & (pos < s)
+        idx = torch.arange(b, device=pos.device) * s \
+            + pos.long().clamp(0, s - 1)
+
+        def write(kl, rows):
+            _masked_row_write(kl.view(-1, *kl.shape[2:]), idx, ok, rows)
+
+        x = self._blocks_with_cache(
+            cache, x, write=write,
+            attend=lambda q, kl, vl: _cached_attention(cfg, q, kl, vl, pos))
+        logits = self._head(x)
+        cache["pos"] += 1
+        return logits, cache
+
+    def _paged_write(self, cache, ent, off):
+        """The write closure of the paged paths: rows land at (pool page
+        ``ent``, offset ``off``); an entry on the sentinel writes
+        nothing."""
+        npg, plen = cache["k"].shape[1], cache["k"].shape[2]
+        ok = ent < npg
+        idx = ent.long().clamp(0, npg - 1) * plen + off.long()
+
+        def write(kl, rows):
+            _masked_row_write(kl.view(-1, *kl.shape[2:]), idx, ok, rows)
+        return write
+
+    def _decode_paged(self, cache, tokens, use_kernel=False):
+        """One decode step over the block-paged pool: each slot's k/v row
+        scatters into (page, offset) through its table; attention either
+        gathers the slot's table row, clamping the sentinel
+        (``paged_attention_reference``), or, with ``use_kernel``, runs
+        the paged-attention wrapper on one layer's pool slice — same
+        writes, block math and logits."""
+        pos = cache["pos"]
+        table = cache["pages"]
+        b = tokens.shape[0]
+        npg, plen = cache["k"].shape[1], cache["k"].shape[2]
+        per_slot = table.shape[1]
+        ar = torch.arange(b, device=pos.device)
+        lp = pos.long() // plen
+        ent = table[ar, lp.clamp(0, per_slot - 1)]
+        ent = torch.where(lp < per_slot, ent, torch.full_like(ent, npg))
+        write = self._paged_write(cache, ent, pos.long() % plen)
+        x = self._embed_rows(tokens, pos)
+        fn = pa.paged_attention if use_kernel else pa.paged_attention_reference
+
+        def attend(q, kl, vl):
+            return fn(q.contiguous(), kl, vl, table, pos)
+
+        x = self._blocks_with_cache(cache, x, write=write, attend=attend)
+        logits = self._head(x)
+        cache["pos"] += 1
+        return logits, cache
+
+    def _prefill_chunk_rows(self, cache, tokens, start, length, slot):
+        """One chunked-prefill dispatch: ``tokens`` (C_bucket,) — the
+        slot's context rows ``[start, start+length)`` padded — written
+        into the slot's mapped pages, the chunk's queries attending
+        causally over everything the slot holds. Rows past ``length``
+        are padding: their writes are masked. Returns the last valid
+        row's logits (V,)."""
+        cfg = self.cfg
+        table = cache["pages"]
+        npg, plen = cache["k"].shape[1], cache["k"].shape[2]
+        per_slot = table.shape[1]
+        h_, dh = cfg.n_heads, cfg.head_dim
+        dev = tokens.device
+        c = tokens.shape[0]
+        ar = torch.arange(c, device=dev)
+        gpos = start + ar
+        valid = ar < length
+        row = table[slot]
+        lp = gpos // plen
+        ent = row[lp.clamp(0, per_slot - 1)]
+        ent = torch.where(valid & (lp < per_slot), ent,
+                          torch.full_like(ent, npg))
+        write = self._paged_write(cache, ent, gpos % plen)
+        x = self._embed_rows(tokens, gpos)
+        s_len = per_slot * plen
+        mask = torch.arange(s_len, device=dev)[None, :] <= gpos[:, None]
+        gidx = row.long().clamp(0, npg - 1)
+        scale = 1.0 / math.sqrt(dh)
+        neg = torch.tensor(_NEG_INF, device=dev)
+
+        def attend(q, kl, vl):
+            kg = kl[gidx].reshape(s_len, h_, dh)
+            vg = vl[gidx].reshape(s_len, h_, dh)
+            scores = torch.einsum("qhd,shd->qhs", q.float() * scale,
+                                  kg.float())
+            scores = torch.where(mask[:, None, :], scores, neg)
+            probs = torch.softmax(scores, dim=-1)
+            return torch.einsum("qhs,shd->qhd", probs,
+                                vg.float()).to(cfg.dtype)
+
+        x = self._blocks_with_cache(cache, x, write=write, attend=attend)
+        cache["pos"][slot] = start + length
+        return self._head(x[length - 1:length])[0]
+
+    # ------------------------------------------------------- host API
+    def _tokens(self, tokens):
+        return torch.as_tensor(np.asarray(tokens, np.int64),
+                               device=self.device)
+
+    def copy_page(self, cache, src: int, dst: int):
+        """Copy pool page ``src``'s k/v rows (every layer) into page
+        ``dst``, in place — the device half of a copy-on-write split."""
+        if not kvcache.is_paged(cache):
+            raise ValueError("copy_page needs a paged cache")
+        npg = kvcache.n_pages(cache)
+        if not (0 <= int(src) < npg and 0 <= int(dst) < npg):
+            raise ValueError(f"page copy {src}->{dst} outside the "
+                             f"{npg}-page pool")
+        if int(src) != int(dst):
+            for name in ("k", "v"):
+                cache[name][:, int(dst)] = cache[name][:, int(src)]
+        return cache
+
+    @torch.no_grad()
+    def prefill(self, cache, tokens, lengths=None):
+        """Prefill the whole dense pool: ``tokens`` (B, T) with B == cache
+        slots; ``lengths`` (B,) defaults to T per row. Returns
+        (last-position logits (B, V) f32, cache)."""
+        if kvcache.is_paged(cache):
+            raise ValueError(
+                "prefill is the dense-pool path; a paged cache admits via "
+                "prefill_chunk")
+        tokens = np.asarray(tokens, np.int64)
+        if tokens.ndim != 2:
+            raise ValueError(f"prefill wants (B, T) token ids, got shape "
+                             f"{tokens.shape}")
+        b, t = tokens.shape
+        if t > self.max_len or t > kvcache.cache_len(cache):
+            raise ValueError(f"prompt length {t} exceeds the cache "
+                             f"capacity max_len={self.max_len}")
+        if b != kvcache.cache_slots(cache):
+            raise ValueError(
+                f"prefill batch {b} != cache slots "
+                f"{kvcache.cache_slots(cache)} (use prefill_slot for "
+                "single-request admission)")
+        if lengths is None:
+            lengths = np.full((b,), t, np.int64)
+        lengths = torch.as_tensor(np.asarray(lengths, np.int64),
+                                  device=self.device)
+        x, ks, vs = self._prefill_trunk(self._tokens(tokens))
+        cache["k"][:, :, :t] = ks.to(cache["k"].dtype)
+        cache["v"][:, :, :t] = vs.to(cache["v"].dtype)
+        last = (lengths - 1).clamp(0, t - 1)
+        x_last = x[torch.arange(b, device=self.device), last]
+        cache["pos"].copy_(lengths.to(torch.int32))
+        return self._head(x_last), cache
+
+    @torch.no_grad()
+    def prefill_slot(self, cache, tokens, slot: int):
+        """Admit one 1-D prompt into ``slot``, padded to the next prefill
+        bucket. Only this slot's rows and cursor change. Returns (last
+        logits (V,), cache)."""
+        if kvcache.is_paged(cache):
+            raise ValueError(
+                "prefill_slot is the dense-pool admission path; a paged "
+                "cache admits via prefill_chunk")
+        tokens = np.asarray(tokens, np.int64).reshape(-1)
+        n = tokens.shape[0]
+        if n < 1:
+            raise ValueError("empty prompt")
+        if n > self.max_len:
+            raise ValueError(f"prompt length {n} exceeds cache capacity "
+                             f"max_len={self.max_len}")
+        if not 0 <= int(slot) < kvcache.cache_slots(cache):
+            raise ValueError(f"slot {slot} outside the "
+                             f"{kvcache.cache_slots(cache)}-slot pool")
+        bucket = next(b for b in self.prefill_buckets if b >= n)
+        if bucket > kvcache.cache_len(cache):
+            raise ValueError(f"bucket {bucket} exceeds the cache's "
+                             f"{kvcache.cache_len(cache)} rows")
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :n] = tokens
+        x, ks, vs = self._prefill_trunk(self._tokens(padded))
+        cache["k"][:, int(slot), :bucket] = ks[:, 0].to(cache["k"].dtype)
+        cache["v"][:, int(slot), :bucket] = vs[:, 0].to(cache["v"].dtype)
+        cache["pos"][int(slot)] = n
+        return self._head(x[0, n - 1:n])[0], cache
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens):
+        """One token for every slot: tokens (B,) → (logits (B, V) f32,
+        cache). Dispatches on the cache layout — dense lanes, or the
+        paged pool via the gather path or the CUDA kernel."""
+        tokens = self._tokens(tokens).reshape(-1)
+        if tokens.shape[0] != kvcache.cache_slots(cache):
+            raise ValueError(f"decode_step wants one token per slot "
+                             f"({kvcache.cache_slots(cache)}), got "
+                             f"{tokens.shape[0]}")
+        if kvcache.is_paged(cache):
+            use = pa.decide(self, cache) == "kernel"
+            return self._decode_paged(cache, tokens, use_kernel=use)
+        return self._decode_dense(cache, tokens)
+
+    @torch.no_grad()
+    def prefill_chunk(self, cache, tokens, slot: int, start: int = 0):
+        """Write one chunk of a slot's context (rows ``[start,
+        start+len)``, at most ``chunk_len``) into its mapped pages — every
+        position up to ``start+len`` must already be mapped (the
+        scheduler's job). Pads to a chunk bucket. Returns (last logits
+        (V,), cache); the logits matter only on the final chunk."""
+        if not kvcache.is_paged(cache):
+            raise ValueError("prefill_chunk needs a paged cache "
+                             "(init_paged_cache); dense pools admit via "
+                             "prefill_slot")
+        tokens = np.asarray(tokens, np.int64).reshape(-1)
+        n = tokens.shape[0]
+        if n < 1:
+            raise ValueError("empty chunk")
+        if n > self.chunk_len:
+            raise ValueError(f"chunk of {n} tokens exceeds chunk_len="
+                             f"{self.chunk_len}")
+        if start < 0 or start + n > self.max_len:
+            raise ValueError(f"chunk ends at {start + n}, past cache "
+                             f"capacity max_len={self.max_len}")
+        if not 0 <= int(slot) < kvcache.cache_slots(cache):
+            raise ValueError(f"slot {slot} outside the "
+                             f"{kvcache.cache_slots(cache)}-slot pool")
+        bucket = next(b for b in self.chunk_buckets if b >= n)
+        padded = np.zeros((bucket,), np.int64)
+        padded[:n] = tokens
+        logits = self._prefill_chunk_rows(cache, self._tokens(padded),
+                                          int(start), n, int(slot))
+        return logits, cache
+
+    def make_generator(self, seed: int = 0) -> torch.Generator:
+        """A ``torch.Generator`` on the engine's device."""
+        return torch.Generator(device=self.device).manual_seed(int(seed))
+
+    @torch.no_grad()
+    def sample(self, logits, temperature=0.0, top_k=0, generator=None):
+        """Next tokens (B,) int32 from (B, V) logits; scalar knobs
+        broadcast to the batch, vectors give per-slot control."""
+        bsz = logits.shape[0]
+        temperature = np.broadcast_to(
+            np.asarray(temperature, np.float32), (bsz,))
+        top_k = np.broadcast_to(np.asarray(top_k, np.int64), (bsz,))
+        if generator is None and (temperature > 0).any():
+            generator = self.make_generator()
+        return sample_tokens(logits, temperature, top_k, generator)
+
+    def generate(self, prompt_ids, max_new_tokens=32, *, generator=None,
+                 temperature=0.0, top_k=0, eos_id=None):
+        """One-shot batched generation: prefill the prompt(s), then
+        sample/decode up to ``max_new_tokens``. Returns generated ids
+        (prompt excluded) as numpy — ``(B, n)`` (rows past their eos are
+        padded with ``eos_id``) or ``(n,)`` for a 1-D prompt."""
+        ids = np.asarray(prompt_ids, np.int32)
+        squeeze = ids.ndim == 1
+        if squeeze:
+            ids = ids[None, :]
+        if ids.ndim != 2 or ids.shape[1] < 1:
+            raise ValueError(f"prompt_ids must be (T,) or (B, T) with "
+                             f"T >= 1, got shape {ids.shape}")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        bsz, t = ids.shape
+        # the last sampled token is never written back, hence the -1
+        if t + max_new_tokens - 1 > self.max_len:
+            raise ValueError(
+                f"prompt ({t}) + max_new_tokens ({max_new_tokens}) - 1 "
+                f"exceeds cache capacity max_len={self.max_len}")
+        if generator is None:
+            generator = self.make_generator()
+        cache = self.init_cache(bsz)
+        logits, cache = self.prefill(cache, ids)
+        out = np.zeros((bsz, max_new_tokens), np.int32)
+        done = np.zeros((bsz,), bool)
+        pad = 0 if eos_id is None else int(eos_id)
+        n = 0
+        for i in range(max_new_tokens):
+            toks = self.sample(logits, temperature, top_k,
+                               generator).cpu().numpy()
+            out[:, i] = np.where(done, pad, toks)
+            n = i + 1
+            if eos_id is not None:
+                done |= (toks == eos_id)
+                if done.all():
+                    break
+            if i + 1 < max_new_tokens:
+                logits, cache = self.decode_step(cache, toks)
+        out = out[:, :n]
+        return out[0] if squeeze else out

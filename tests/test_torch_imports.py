@@ -1,0 +1,72 @@
+"""The port stands alone: no module of ``deeplearning4j_tpu_torch`` and
+not ``chip_smoke.py`` imports ``jax`` or anything of ``deeplearning4j_tpu``
+(importing even a jax-free module of the JAX package runs its
+``__init__``, which loads jax), and importing the port leaves ``jax``
+out of ``sys.modules``."""
+
+from __future__ import annotations
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "deeplearning4j_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "deeplearning4j_tpu")
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args and \
+                isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0], node.lineno
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    bad = [(name, line) for name, line in _imported_roots(path)
+           if name in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_has_modules_to_check():
+    names = {p.relative_to(PORT).as_posix() for p in _sources()
+             if PORT in p.parents}
+    assert {"zoo/transformer.py", "kernels/paged_attention.py",
+            "kernels/flash_attention.py", "serving/kvcache.py",
+            "serving/engine.py", "serving/scheduler.py"} <= names
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys\n"
+            "import deeplearning4j_tpu_torch\n"
+            "import deeplearning4j_tpu_torch.serving\n"
+            "import deeplearning4j_tpu_torch.kernels.flash_attention\n"
+            "import deeplearning4j_tpu_torch.kernels.paged_attention\n"
+            "import deeplearning4j_tpu_torch.zoo.transformer\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

@@ -1,0 +1,287 @@
+"""The port's kernel modules against the JAX package's kernels.
+
+On the CPU each wrapper runs its kernel's plain version (the CUDA kernels
+themselves run only on the card: ``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` hold them against these same plain
+versions). Here the plain versions are held against the JAX package's
+Pallas kernels in interpret mode and its own references, in f32 at
+atol 1e-5 (summation order), and the wrappers' refusal paths are pinned:
+no card → raise, never a silent CPU fallback for a CUDA request.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.kernels.paged_attention import (
+    paged_attention as jpaged, paged_attention_reference as jpaged_ref)
+from deeplearning4j_tpu_torch.kernels import _build
+from deeplearning4j_tpu_torch.kernels import flash_attention as tfa
+from deeplearning4j_tpu_torch.kernels import paged_attention as tpa
+
+# the JAX package re-exports the flash_attention FUNCTION under the
+# module's name; import_module reaches the module itself
+jfa = importlib.import_module("deeplearning4j_tpu.kernels.flash_attention")
+
+torch.set_num_threads(2)
+
+KERNEL_ATOL = 1e-5
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def _pool(rng, npg, plen, h, dh, dtype=np.float32):
+    k = rng.standard_normal((npg, plen, h, dh)).astype(dtype)
+    v = rng.standard_normal((npg, plen, h, dh)).astype(dtype)
+    return k, v
+
+
+# ------------------------------------------------------ paged decode (K2)
+
+def test_paged_plain_matches_jax_kernel_at_every_position():
+    """Every decode position of a slot — mapped, partial-fill and
+    sentinel-after-cursor tables, non-contiguous page ids — with the
+    next page mapped as headroom (the verify notes: a slot decoded past
+    its mapped pages differs between kernel and gather by contract)."""
+    rng = np.random.default_rng(0)
+    h, dh, npg, plen, per_slot = 2, 16, 12, 4, 4
+    n = per_slot * plen                  # one slot per position, one call
+    q = rng.standard_normal((n, h, dh)).astype(np.float32)
+    k, v = _pool(rng, npg, plen, h, dh)
+    ids = rng.permutation(npg)[:per_slot]
+    table = np.full((n, per_slot), npg, np.int32)
+    for pos in range(n):
+        mapped = min(per_slot, -(-(pos + 1) // plen) + 1)
+        table[pos, :mapped] = ids[:mapped]
+    p = np.arange(n, dtype=np.int32)
+    ref = jpaged(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                 jnp.asarray(table), jnp.asarray(p), interpret=True)
+    got = tpa.paged_attention(_t(q), _t(k), _t(v), _t(table), _t(p))
+    for pos in range(n):
+        np.testing.assert_allclose(got.numpy()[pos], np.asarray(ref)[pos],
+                                   atol=KERNEL_ATOL, err_msg=f"pos={pos}")
+
+
+def test_paged_plain_matches_jax_mixed_and_cow_slots():
+    """A batch mixing a full slot, partial fills, a single-page slot and
+    two slots SHARING their first pages (a copy-on-write prefix)."""
+    rng = np.random.default_rng(1)
+    b, h, dh, npg, plen, per_slot = 5, 2, 8, 24, 4, 5
+    q = rng.standard_normal((b, h, dh)).astype(np.float32)
+    k, v = _pool(rng, npg, plen, h, dh)
+    table = np.full((b, per_slot), npg, np.int32)
+    table[0, :5] = [3, 7, 1, 9, 11]          # full
+    table[1, :3] = [0, 2, 4]                 # partial
+    table[2, :1] = [5]                       # single page
+    table[3, :4] = [3, 7, 13, 14]            # shares pages 3, 7 with slot 0
+    table[4, :2] = [3, 15]                   # shares page 3
+    pos = np.asarray([19, 9, 2, 14, 6], np.int32)
+    args = [jnp.asarray(a) for a in (q, k, v, table, pos)]
+    ref = jpaged(*args, interpret=True)
+    got = tpa.paged_attention(*(_t(a) for a in (q, k, v, table, pos)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               atol=KERNEL_ATOL)
+
+
+def test_paged_plain_clamps_sentinel_like_jax_gather():
+    """A sentinel entry BELOW the cursor: the plain version gathers the
+    clamped last pool page exactly as the JAX gather reference does."""
+    rng = np.random.default_rng(2)
+    h, dh, npg, plen, per_slot = 2, 8, 6, 4, 3
+    q = rng.standard_normal((2, h, dh)).astype(np.float32)
+    k, v = _pool(rng, npg, plen, h, dh)
+    table = np.asarray([[1, npg, 2], [npg, npg, npg]], np.int32)
+    pos = np.asarray([9, 0], np.int32)
+    ref = jpaged_ref(*(jnp.asarray(a) for a in (q, k, v, table, pos)))
+    got = tpa.paged_attention_reference(
+        *(_t(a) for a in (q, k, v, table, pos)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               atol=KERNEL_ATOL)
+
+
+def test_paged_plain_bf16_pool_matches_jax():
+    rng = np.random.default_rng(3)
+    h, dh, npg, plen, per_slot = 2, 16, 10, 8, 3
+    q = rng.standard_normal((3, h, dh)).astype(np.float32)
+    k, v = _pool(rng, npg, plen, h, dh)
+    table = np.asarray([[4, 1, 0], [2, npg, npg], [5, 6, npg]], np.int32)
+    pos = np.asarray([20, 3, 12], np.int32)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    ref = jpaged(*jb, jnp.asarray(table), jnp.asarray(pos), interpret=True)
+    tb = [_t(a).to(torch.bfloat16) for a in (q, k, v)]
+    got = tpa.paged_attention(*tb, _t(table), _t(pos))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               atol=1e-2, rtol=1e-2)
+
+
+def test_paged_decide_modes():
+    class Eng:
+        paged_kernel_mode = None
+
+    cpu_cache = {"k": torch.zeros((1, 2, 4, 2, 8))}
+    meta_cuda = {"k": torch.empty((1, 2, 4, 2, 8), device="meta")}
+    assert tpa.decide(Eng(), cpu_cache, "off") == "gather"
+    assert tpa.decide(Eng(), cpu_cache, "on") == "kernel"
+    assert tpa.decide(Eng(), cpu_cache, "auto") == "gather"
+    assert tpa.decide(Eng(), meta_cuda, "auto") == "gather"
+    Eng.paged_kernel_mode = "on"                # the engine's pinned mode
+    assert tpa.decide(Eng(), cpu_cache) == "kernel"
+    with pytest.raises(NotImplementedError, match="race"):
+        tpa.decide(Eng(), cpu_cache, "race")
+    with pytest.raises(ValueError):
+        tpa.decide(Eng(), cpu_cache, "bogus")
+
+
+# ----------------------------------------------------- flash forward (K1)
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plain_matches_jax_flash_interpret(causal):
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.standard_normal((2, 2, 32, 16)).astype(np.float32)
+               for _ in range(3))
+    ref = jfa.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                              causal=causal, block_q=8, block_k=8,
+                              interpret=True)
+    got = tfa.flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               atol=KERNEL_ATOL)
+    mha = jfa.mha_reference(*(jnp.asarray(a) for a in (q, k, v)),
+                            causal=causal)
+    np.testing.assert_allclose(
+        tfa.mha_reference(_t(q), _t(k), _t(v), causal=causal).numpy(),
+        np.asarray(mha), atol=KERNEL_ATOL)
+
+
+def test_flash_lse_matches_jax_flash_lse_interpret():
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((1, 2, 24, 16)).astype(np.float32)
+               for _ in range(3))
+    ref_o, ref_lse = jfa.flash_attention_lse(
+        *(jnp.asarray(a) for a in (q, k, v)), causal=True, block_q=8,
+        block_k=8, interpret=True)
+    o, lse = tfa.flash_attention_lse(_t(q), _t(k), _t(v), causal=True)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (1, 2, 24)
+    np.testing.assert_allclose(o.numpy(), np.asarray(ref_o),
+                               atol=KERNEL_ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse),
+                               atol=KERNEL_ATOL)
+    o2, lse2 = tfa.mha_reference_lse(_t(q), _t(k), _t(v), causal=True)
+    torch.testing.assert_close(o2, o, rtol=0, atol=0)
+    torch.testing.assert_close(lse2, lse, rtol=0, atol=0)
+
+
+def test_flash_ntc_matches_jax_ntc_interpret():
+    rng = np.random.default_rng(6)
+    q, k, v = (rng.standard_normal((2, 16, 2, 16)).astype(np.float32)
+               for _ in range(3))
+    ref = jfa.flash_attention_ntc(*(jnp.asarray(a) for a in (q, k, v)),
+                                  causal=True, interpret=True)
+    got = tfa.flash_attention_ntc(_t(q), _t(k), _t(v), causal=True)
+    assert tuple(got.shape) == (2, 16, 2, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               atol=KERNEL_ATOL)
+
+
+# ------------------------------------------------- the refusal paths
+
+def _paged_args():
+    q = torch.zeros((1, 2, 8))
+    k = torch.zeros((3, 4, 2, 8))
+    table = torch.zeros((1, 2), dtype=torch.int32)
+    pos = torch.zeros((1,), dtype=torch.int32)
+    return q, k, k.clone(), table, pos
+
+
+def test_cuda_requests_raise_without_a_card():
+    """The CUDA launch paths, asked to run with no card, raise — they
+    never hand the request to the plain version."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tpa._paged_attention_cuda(*_paged_args())
+    q = torch.zeros((1, 2, 8, 16))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfa._flash_cuda(q, q, q, 0.25, True, "bhtd")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _build.load("paged_attention")
+
+
+def test_wrappers_refuse_other_devices():
+    meta = [t.to("meta") for t in _paged_args()]
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tpa.paged_attention(*meta)
+    q = torch.empty((1, 2, 8, 16), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tfa.flash_attention(q, q, q)
+
+
+def test_flash_kernel_refuses_grad_and_bad_inputs():
+    q = torch.zeros((1, 2, 8, 16), requires_grad=True)
+    with pytest.raises(NotImplementedError, match="training"):
+        tfa._flash_cuda(q, q, q, 0.25, True, "bhtd")
+    q = torch.zeros((1, 2, 8, 24))
+    with pytest.raises(ValueError, match="head dim"):
+        tfa._flash_cuda(q, q, q, 0.25, True, "bhtd")
+    q = torch.zeros((1, 2, 8, 16), dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfa._flash_cuda(q, q, q, 0.25, True, "bhtd")
+
+
+def test_paged_auto_on_cuda_pool_past_max_head_dim_raises():
+    """``auto`` picks the kernel for ANY pool on the card, and the kernel
+    refuses a head dim it cannot take: a Dh > 128 CUDA pool raises rather
+    than running the gather path on the card."""
+    dh = tpa.MAX_HEAD_DIM * 2
+
+    class CudaTyped:                  # a pool tensor's device, without a card
+        device = torch.device("cuda")
+        shape = (1, 3, 4, 2, dh)
+
+    class Eng:
+        paged_kernel_mode = None
+
+    assert tpa.decide(Eng(), {"k": CudaTyped()}, "auto") == "kernel"
+    assert tpa.decide(Eng(), {"k": CudaTyped()}) == "kernel"
+    q = torch.zeros((1, 2, dh))
+    k = torch.zeros((3, 4, 2, dh))
+    table = torch.zeros((1, 2), dtype=torch.int32)
+    pos = torch.zeros((1,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="head dim"):
+        tpa._paged_attention_cuda(q, k, k.clone(), table, pos)
+
+
+def test_paged_kernel_refuses_bad_inputs():
+    q, k, v, table, pos = _paged_args()
+    with pytest.raises(ValueError, match="int32"):
+        tpa._paged_attention_cuda(q, k, v, table.long(), pos)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpa._paged_attention_cuda(q, k.transpose(0, 1), v.transpose(0, 1),
+                                  table, pos)
+    with pytest.raises(ValueError, match="share"):
+        tpa._paged_attention_cuda(q, k, v[:2], table, pos)
+
+
+def test_nvcc_missing_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.nvcc_path()
+
+
+def test_build_dir_is_beside_the_package(monkeypatch, tmp_path):
+    monkeypatch.delenv("DL4J_TORCH_BUILD_DIR", raising=False)
+    assert _build.build_dir() == (_build.PKG_DIR.parent / "build"
+                                  / "dl4j_torch_kernels")
+    monkeypatch.setenv("DL4J_TORCH_BUILD_DIR", str(tmp_path))
+    assert _build.build_dir() == tmp_path
+    assert sorted(p.stem for p in _build.SRC_DIR.glob("*.cu")) == \
+        ["flash_attention_fwd", "paged_attention"]
