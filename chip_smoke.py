@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
     python3 chip_smoke.py --profile        # also profile paged decode
+    python3 chip_smoke.py --profile-train  # also profile one train step
 
 Phases, each fatal on failure:
 
@@ -17,6 +18,12 @@ Phases, each fatal on failure:
 3. K1 (causal flash forward) against ``mha_reference``, O and lse, at
    T 1024/2048, plus the strided (B, T, H, D) layout the transformer uses,
    with ``F.scaled_dot_product_attention`` timed as a yardstick only;
+3b. the flash backward kernels (dQ, dK/dV) against
+   ``flash_attention_bwd_reference`` on the same inputs, through strided
+   (B, T, H, D) views of one qkv buffer, at B1 H8 D64 T 1024/2048/4096
+   bf16, T 2048 f32, T 200 causal and T 256 non-causal, and at the train
+   path's B32 T1024 bf16; the autograd Function's grads against autograd
+   through ``mha_reference``; SDPA's backward timed as a yardstick only;
 4. the main path at full width: the 120M Transformer-LM with seeded
    random weights served by a dense and a paged
    ``ContinuousBatchingScheduler``; every request must resolve with its
@@ -25,7 +32,16 @@ Phases, each fatal on failure:
    the paged run, and one K1
    prefill and one K2 decode step must match the plain path (kernels off)
    with KL <= 1e-3 per row;
-5. a ``kernels`` JSON line, then the result line.
+6. the training path at full width: the 120M LM of ``bench.py``'s
+   ``transformer`` row (T 1024, bf16, fused loss, remat "save_attn"),
+   batch 32 of seeded random ids, trained by ``make_train_step`` with
+   AdamW (optax's defaults) on the kernel path (flash forward and
+   backward kernels) and on the plain path (plain attention, f32
+   scores) from identical params: step-1 grads within relative L2
+   2e-2 per leaf, loss within 2e-2 nats at each of 5 steps and falling;
+   the launch counts are set to 0 just before the kernel path and K1,
+   dQ and dK/dV must launch in every step;
+5. a ``kernels`` JSON line, then the result line (printed last).
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -43,6 +59,10 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM, NVIDIA data sheet
+BWD_F32_ATOL = 1e-4                      # flash backward, f32 grads
+BWD_BF16_REL_L2 = 1e-2                   # flash backward, bf16 grads
+TRAIN_GRAD_REL_L2 = 2e-2                 # kernel vs plain path, per leaf
+TRAIN_LOSS_ATOL = 2e-2                   # nats, at every step
 PEAK_FLOPS = {torch.bfloat16: 989e12,    # dense tensor-core bf16
               torch.float32: 67e12}      # f32 outside the tensor cores
 MAX_KL = 1e-3                            # the reference's PROMOTION_MAX_KL
@@ -207,6 +227,104 @@ def check_flash(fa, dtype, b, t, gen, h=8, d=64):
             "bound_ms": bms, "bound_by": by}
 
 
+# --------------------------------------------------------------- phase 3b
+
+def rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def grad_ok(got, ref, dtype):
+    """f32: max |err| <= 1e-4; bf16: relative L2 <= 1e-2."""
+    if dtype == torch.float32:
+        return (got - ref).abs().max().item() <= BWD_F32_ATOL
+    return rel_l2(got, ref) <= BWD_BF16_REL_L2
+
+
+def bwd_bounds(dtype, b, h, t, d, causal):
+    """(dq, dkv) bounds: operations 6 (dQ) and 8 (dK/dV) · D per live
+    (query, key) pair; bytes each operand read once (q, k, v, dO, lse,
+    delta) and each output written once."""
+    pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
+    item = torch.finfo(dtype).bits // 8
+    rows = b * h * t
+    dq = bound_ms(5 * rows * d * item + 2 * rows * 4, 6 * d * pairs, dtype)
+    dkv = bound_ms(6 * rows * d * item + 2 * rows * 4, 8 * d * pairs, dtype)
+    return dq, dkv
+
+
+def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64):
+    """The dQ and dK/dV kernels vs ``flash_attention_bwd_reference`` on
+    the same inputs, q/k/v strided (B, T, H, D) views of one qkv buffer
+    as in the transformer; the Function (K1 + both kernels) vs autograd
+    through ``mha_reference``; kernel, plain and SDPA-backward times."""
+    dev = "cuda"
+    scale = d ** -0.5
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen, device=dev).to(dtype)
+    q, k, v = (x.reshape(b, t, h, d) for x in qkv.chunk(3, dim=-1))
+    do = torch.randn((b, t, h, d), generator=gen, device=dev).to(dtype)
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    o, lse = fa.mha_reference_lse(qh, kh, vh, causal=causal)
+    delta = (doh.float() * o.float()).sum(-1).contiguous()
+    del o
+    ref = fa.flash_attention_bwd_reference(qh, kh, vh, doh, lse, delta,
+                                           scale, causal)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal,
+                                   "bthd")
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                        causal, "bthd")
+    torch.cuda.synchronize()
+    got = [x.transpose(1, 2) for x in (dq, dk, dv)]
+    ok = all(grad_ok(g, r, dtype) for g, r in zip(got, ref))
+    err = [(g.float() - r.float()).abs().max().item()
+           for g, r in zip(got, ref)]
+    rel = [rel_l2(g, r) for g, r in zip(got, ref)]
+    del ref, got, dq, dk, dv
+
+    # the autograd Function against autograd through the plain forward
+    x = qkv.detach().requires_grad_(True)
+    views = [c.reshape(b, t, h, d) for c in x.chunk(3, dim=-1)]
+    (g_fn,) = torch.autograd.grad(
+        fa.flash_attention_ntc(*views, causal=causal), x, do)
+    ref_out = fa.mha_reference(*(c.transpose(1, 2) for c in views),
+                               causal=causal)
+    (g_ref,) = torch.autograd.grad(ref_out, x, doh)
+    del ref_out
+    fn_ok = grad_ok(g_fn, g_ref, dtype)
+    fn_rel = rel_l2(g_fn, g_ref)
+    del g_fn, g_ref, x, views
+
+    ms_dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, scale, causal, "bthd"), iters=5, warmup=1)
+    ms_dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv(
+        q, k, v, do, lse, delta, scale, causal, "bthd"), iters=5, warmup=1)
+    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(
+        qh, kh, vh, doh, lse, delta, scale, causal), iters=3, warmup=1)
+    qs, ks, vs = (y.contiguous().requires_grad_(True) for y in (qh, kh, vh))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=causal)
+    doc = doh.contiguous()
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        out, (qs, ks, vs), doc, retain_graph=True), iters=10)
+    del out
+    (bq, byq), (bkv, bykv) = bwd_bounds(dtype, b, h, t, d, causal)
+    log(f"flash bwd {str(dtype)[6:]} B{b} H{h} T{t} D{d} "
+        f"{'causal' if causal else 'non-causal'}: max_abs_err dq/dk/dv "
+        f"{err[0]:.3e}/{err[1]:.3e}/{err[2]:.3e}, rel L2 {rel[0]:.2e}/"
+        f"{rel[1]:.2e}/{rel[2]:.2e}, Function vs autograd rel L2 "
+        f"{fn_rel:.2e}; dq {ms_dq:.4f} ms (bound {bq:.5f}, {byq}), dkv "
+        f"{ms_dkv:.4f} ms (bound {bkv:.5f}, {bykv}), plain backward "
+        f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms -> "
+        f"{'ok' if ok and fn_ok else 'FAIL'}")
+    if not (ok and fn_ok):
+        raise SystemExit(f"flash backward {dtype} B{b} T{t} causal={causal} "
+                         "disagrees with the plain backward")
+    return {"dq": {"max_abs_err": err[0], "ms": ms_dq, "bound_ms": bq,
+                   "bound_by": byq},
+            "dkv": {"max_abs_err": max(err[1:]), "ms": ms_dkv,
+                    "bound_ms": bkv, "bound_by": bykv},
+            "plain_ms": plain_ms, "library_ms": library_ms}
+
+
 # ---------------------------------------------------------------- phase 4
 
 def serve(sched, prompts, n_new):
@@ -316,6 +434,139 @@ def main_path(fa, pa):
     return by_path
 
 
+# ---------------------------------------------------------------- phase 6
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [nl for k, v in tree.items()
+                for nl in _named_leaves(v, f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def train_path(fa, pa, steps=5, batch=32, profile=False):
+    """The 120M LM trained at full width on the kernel path and on the
+    plain path from identical params and one batch."""
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+
+    # bench.py's transformer row (bench.py:594-598)
+    cfg = tfm.TransformerConfig(vocab_size=32000, d_model=512, n_heads=8,
+                                n_layers=8, d_ff=2048, max_seq=1024,
+                                dtype=torch.bfloat16, fused_loss=True,
+                                remat=True, remat_policy="save_attn",
+                                attn_scores_bf16=True)
+    plain_cfg = dataclasses.replace(cfg, use_flash_attention=False,
+                                    attn_scores_bf16=False)
+    init = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (batch, cfg.max_seq))
+    tgt = rng.integers(0, cfg.vocab_size, (batch, cfg.max_seq))
+    ids, tgt = (torch.as_tensor(a, device="cuda") for a in (ids, tgt))
+    tokens = batch * cfg.max_seq
+    runs = {}
+    for path, c in (("kernel", cfg), ("plain", plain_cfg)):
+        params = {k: (v.clone() if torch.is_tensor(v)
+                      else {n: w.clone() for n, w in v.items()})
+                  for k, v in init.items()}
+        opt = torch.optim.AdamW(tfm.param_leaves(params), lr=3e-4,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4)
+        step = tfm.make_train_step(c, opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        pa.reset_launches()
+        losses, secs, per_step = [], [], []
+        for i in range(steps):
+            before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+            t0 = time.perf_counter()
+            loss = step(params, ids, tgt)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+            after = (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+            per_step.append([a - b for a, b in zip(after, before)])
+            if i == 0:
+                grads = {n: p.grad.detach().clone()
+                         for n, p in _named_leaves(params)}
+        run = {"losses": losses, "step_s": secs,
+               "tok_per_s_steps_2_5": tokens * (steps - 1) / sum(secs[1:]),
+               "peak_alloc_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches_per_step": per_step,
+               "paged_launches": pa.LAUNCHES}
+        log(f"train {path} path (B{batch} T{cfg.max_seq}, "
+            f"{'flash kernels' if c is cfg else 'plain attention'}): "
+            f"{json.dumps(run)}")
+        runs[path] = (run, grads)
+        if profile and path == "kernel":
+            profile_train_step(step, params, ids, tgt)
+        del params, opt, step
+        torch.cuda.empty_cache()
+
+    (kr, kg), (pr, pg) = runs["kernel"], runs["plain"]
+    rels = {n: rel_l2(kg[n], pg[n]) for n in pg}
+    finite = all(bool(torch.isfinite(g).all()) for g in kg.values())
+    worst = max(rels, key=rels.get)
+    dloss = [abs(a - b) for a, b in zip(kr["losses"], pr["losses"])]
+    counts_ok = all(min(c) > 0 for c in kr["launches_per_step"])
+    falls = kr["losses"][-1] < kr["losses"][0] \
+        and pr["losses"][-1] < pr["losses"][0]
+    log(f"train kernel vs plain: step-1 grad rel L2 max {rels[worst]:.3e} "
+        f"({worst}; limit {TRAIN_GRAD_REL_L2}), all finite {finite}; "
+        f"|loss delta| per step {[f'{x:.2e}' for x in dloss]} (limit "
+        f"{TRAIN_LOSS_ATOL}); loss falls {falls}; launches per step "
+        f"[K1, dQ, dK/dV] {kr['launches_per_step']}")
+    if not finite or rels[worst] > TRAIN_GRAD_REL_L2:
+        raise SystemExit("train path: step-1 grads disagree with the plain "
+                         "path")
+    if max(dloss) > TRAIN_LOSS_ATOL or not falls:
+        raise SystemExit("train path: losses disagree with the plain path "
+                         "or do not fall")
+    if not counts_ok:
+        raise SystemExit("train path: a flash kernel was not launched in "
+                         "every step")
+    total = [sum(c[i] for c in kr["launches_per_step"]) for i in range(3)]
+    return {"flash_attention_fwd": total[0], "flash_attention_bwd_dq":
+            total[1], "flash_attention_bwd_dkv": total[2],
+            "paged_attention": runs["kernel"][0]["paged_launches"]}
+
+
+def profile_train_step(step, params, ids, tgt):
+    """Where one kernel-path train step's device time goes: the top CUDA
+    kernels by device time under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, ids, tgt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    log("profile (train step, B32 T1024): " + json.dumps(
+        device_rows(prof, wall, 1)))
+
+
+def device_rows(prof, wall, steps):
+    """Wall and device time per step, the device-busy share and the top
+    CUDA kernels by device time, from a ``torch.profiler`` run."""
+    rows = []
+    for ev in prof.key_averages():
+        # device rows only (kernels, copies): an operator's row carries
+        # its kernels' time again as its own "self device time"
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us > 0:
+            rows.append((dev_us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy_us = sum(r[0] for r in rows)
+    return {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
+            "device_ms_per_step": busy_us / 1e3 / steps,
+            "device_busy_share": busy_us / (wall * 1e6),
+            "top_kernels": [{"name": k[:80], "ms_per_step": us / 1e3 / steps,
+                             "calls_per_step": n / steps}
+                            for us, k, n in rows[:12]]}
+
+
 def profile_decode(steps=10):
     """Where a paged decode step's time goes at full width: 8 decoding
     slots (contexts ~600), ``steps`` sweeps under ``torch.profiler``.
@@ -347,24 +598,7 @@ def profile_decode(steps=10):
             sched.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
-    for ev in prof.key_averages():
-        # device rows only (kernels, copies): an operator's row carries
-        # its kernels' time again as its own "self device time"
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((dev_us, ev.key, ev.count))
-    rows.sort(reverse=True)
-    busy_us = sum(r[0] for r in rows)
-    out = {"steps": steps, "wall_ms_per_step": wall * 1e3 / steps,
-           "device_ms_per_step": busy_us / 1e3 / steps,
-           "device_busy_share": busy_us / (wall * 1e6),
-           "top_kernels": [{"name": k[:80], "ms_per_step": us / 1e3 / steps,
-                            "calls_per_step": n / steps}
-                           for us, k, n in rows[:12]]}
+    out = device_rows(prof, wall, steps)
     log("profile (paged decode, 8 slots, ctx ~600): " + json.dumps(out))
     sched.run_until_idle()
 
@@ -375,6 +609,8 @@ def main():
                     help="stop after the kernel build and checks")
     ap.add_argument("--profile", action="store_true",
                     help="also profile paged decode sweeps (torch.profiler)")
+    ap.add_argument("--profile-train", action="store_true",
+                    help="also profile one kernel-path train step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -404,12 +640,23 @@ def main():
     for dt in (torch.bfloat16, torch.float32):
         for b, t in ((1, 1024), (1, 2048), (2, 2048)):
             k1[(dt, b, t)] = check_flash(fa, dt, b, t, gen)
+    bwd = {}
+    for dt, b, t, causal in (
+            (torch.bfloat16, 1, 1024, True), (torch.bfloat16, 1, 2048, True),
+            (torch.bfloat16, 1, 4096, True), (torch.float32, 1, 2048, True),
+            (torch.bfloat16, 2, 200, True), (torch.float32, 2, 200, True),
+            (torch.bfloat16, 2, 256, False), (torch.float32, 2, 256, False),
+            (torch.bfloat16, 32, 1024, True)):       # the train path's
+        bwd[(dt, b, t)] = check_flash_bwd(fa, dt, b, t, causal, gen)
+        torch.cuda.empty_cache()
     if args.kernels_only:
         return 0
 
     by_path = main_path(fa, pa)
+    by_path["train"] = train_path(fa, pa, profile=args.profile_train)
     main_k1 = k1[(torch.bfloat16, 1, 2048)]    # a dense prefill's shape
     main_k2 = k2[torch.bfloat16]
+    main_bwd = bwd[(torch.bfloat16, 32, 1024)]  # the train path's shape
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -422,6 +669,20 @@ def main():
          "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
          "bound_ms": main_k1["bound_ms"], "bound_by": main_k1["bound_by"],
          "library_ms": main_k1["library_ms"]},
+        *({"name": f"flash_attention_bwd_{part}", "route": "cuda",
+           "source": "deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
+           "replaces": f"deeplearning4j_tpu/kernels/flash_attention.py:{line}",
+           "launches": by_path["train"][f"flash_attention_bwd_{part}"],
+           "launches_by_path": {
+               "train": by_path["train"][f"flash_attention_bwd_{part}"]},
+           "max_abs_err": max(r[part]["max_abs_err"]
+                              for (dt, _, _), r in bwd.items()
+                              if dt == torch.bfloat16),
+           "ms": main_bwd[part]["ms"], "plain_ms": main_bwd["plain_ms"],
+           "bound_ms": main_bwd[part]["bound_ms"],
+           "bound_by": main_bwd[part]["bound_by"],
+           "library_ms": main_bwd["library_ms"]}
+          for part, line in (("dq", 146), ("dkv", 186))),
         {"name": "paged_attention", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/paged_attention.cu",
          "replaces": "deeplearning4j_tpu/kernels/paged_attention.py:72",

@@ -1,0 +1,371 @@
+// Flash-attention backward for Hopper (sm_90a), plain C interface: two
+// kernels, dQ and dK/dV.
+//
+// Replaces the TPU kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel` of
+// deeplearning4j_tpu/kernels/flash_attention.py (launched by
+// `_flash_bwd_impl`). Both rebuild the probabilities tile by tile from
+// the forward's log-sum-exp, so the (T, T) matrices never reach device
+// memory:
+//   P  = exp(S - lse), S = Q K^T * scale, masked causally
+//   dP = dO V^T
+//   dS = P * (dP - delta) * scale       (delta = rowsum(dO * O), f32)
+//   dQ = dS K            (dq kernel, one block per query tile)
+//   dV = P^T dO, dK = dS^T Q   (dkv kernel, one block per key tile)
+// dS (and P, for dV) round to the input dtype before their products, as
+// the TPU kernels cast them before the MXU; every sum is f32.
+//
+// What bounds it on the card: operations. dQ does 3*D*T(T+1) flops per
+// causal head and dK/dV 4*D*T(T+1) over ~5-7 * T * D * 2 bytes, hundreds
+// of operations per byte. This first version does its products with f32
+// FMAs on the CUDA cores (no mma.sync / wgmma yet), so it stays well above
+// the tensor-core floor; the tensor-core rewrite is later work.
+//
+// Design. The Pallas grids (b*h, q-block, k-block) and (b*h, k-block,
+// q-block) streamed the other operand through VMEM in order with the
+// accumulator in scratch; here one block owns one (b*h, 64-row tile) of
+// its output and a loop inside it walks the other operand's tiles: the
+// dq kernel the key tiles up to the diagonal, the dkv kernel the query
+// tiles from the diagonal down (the steps the TPU skipped with pl.when
+// are never visited). Keeping the TPU's two-pass schedule means no
+// atomics, so the gradients are deterministic. Each streamed tile goes
+// through shared memory as f32. TPR = D / 16 threads share a row, each
+// holding 16 of its dims (the row's operands and accumulators stay in
+// registers) in interleaved 4-float slices, so a warp's shared reads are
+// broadcast float4 loads without bank conflicts; shuffles complete each
+// dot product. A T that is not a multiple of the tile is masked. The
+// kernels take the batch, head and time strides of every (B, H, T, D)
+// operand (the last dimension must be contiguous), so the (B, T, H, D)
+// views of one qkv buffer the transformer holds need no copies.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kRows = 64;  // output rows (queries or keys) per block
+
+template <int D>
+struct Tiling {
+  static constexpr int TPR = D / 16;             // threads per row
+  static constexpr int DPT = D / TPR;            // dims per thread (16)
+  static constexpr int NC = DPT / 4;             // float4 slices per thread
+  static constexpr int THREADS = kRows * TPR;    // 64 .. 512
+  static constexpr int BT = D <= 64 ? 64 : 32;   // streamed rows per tile
+};
+
+// element strides (batch, head, time) of one (B, H, T, D) operand
+struct Str {
+  long long b, h, t;
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+// x rounded to T and back: the cast the TPU kernels make before a product
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f(from_f<T>(x));
+}
+
+// sum over the TPR consecutive lanes that share a row
+template <int TPR> __device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = TPR / 2; o > 0; o >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// the d-th dim of slice c, element e, of lane `part` of a row
+template <int D>
+__device__ __forceinline__ int dim_of(int c, int part, int e) {
+  return 4 * Tiling<D>::TPR * c + 4 * part + e;
+}
+
+// this thread's DPT dims of row `row` of x (zeros past T)
+template <typename T, int D>
+__device__ __forceinline__ void load_row(float* r, const T* base, Str s,
+                                         int row, int Tlen, int part) {
+#pragma unroll
+  for (int c = 0; c < Tiling<D>::NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      r[4 * c + e] = row < Tlen ? to_f(base[row * s.t + dim_of<D>(c, part, e)])
+                                : 0.f;
+}
+
+template <typename T, int D>
+__device__ __forceinline__ void store_row(T* base, Str s, int row,
+                                          const float* r, int part) {
+#pragma unroll
+  for (int c = 0; c < Tiling<D>::NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      base[row * s.t + dim_of<D>(c, part, e)] = from_f<T>(r[4 * c + e]);
+}
+
+// rows [r0, r0 + BT) of a and b into shared f32 tiles (zeros past T)
+template <typename T, int D>
+__device__ __forceinline__ void load_tiles(float (*as)[D], float (*bs)[D],
+                                           const T* a, Str sa, const T* b,
+                                           Str sb, int r0, int Tlen) {
+  using L = Tiling<D>;
+  for (int e = threadIdx.x; e < L::BT * D; e += L::THREADS) {
+    const int r = e / D;
+    const int d = e - r * D;
+    const int row = r0 + r;
+    float av = 0.f, bv = 0.f;
+    if (row < Tlen) {
+      av = to_f(a[row * sa.t + d]);
+      bv = to_f(b[row * sb.t + d]);
+    }
+    as[r][d] = av;
+    bs[r][d] = bv;
+  }
+}
+
+// dQ: one block per (b*h, 64-query tile); walks the key tiles.
+template <typename T, int D>
+__global__ void __launch_bounds__(Tiling<D>::THREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int H, int Tlen, Str sq, Str sk, Str sv, Str sdo,
+                    Str sdq, float scale, int causal) {
+  using L = Tiling<D>;
+  __shared__ __align__(16) float ks[L::BT][D];
+  __shared__ __align__(16) float vs[L::BT][D];
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * kRows;
+  const int part = threadIdx.x % L::TPR;
+  const int qi = q0 + threadIdx.x / L::TPR;
+  const bool live = qi < Tlen;
+
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+  float qr[L::DPT], dor[L::DPT], acc[L::DPT];
+  load_row<T, D>(qr, q + b * sq.b + h * sq.h, sq, qi, Tlen, part);
+  load_row<T, D>(dor, dout + b * sdo.b + h * sdo.h, sdo, qi, Tlen, part);
+#pragma unroll
+  for (int i = 0; i < L::DPT; ++i) acc[i] = 0.f;
+  const long long row = (long long)bh * Tlen + qi;
+  const float lse_i = live ? lse[row] : 0.f;
+  const float delta_i = live ? delta[row] : 0.f;
+
+  const int kend = causal ? min(Tlen, q0 + kRows) : Tlen;
+  for (int k0 = 0; k0 < kend; k0 += L::BT) {
+    __syncthreads();  // the previous tile is consumed
+    load_tiles<T, D>(ks, vs, kb, sk, vb, sv, k0, Tlen);
+    __syncthreads();
+    const int jn = min(L::BT, kend - k0);
+#pragma unroll 2
+    for (int j = 0; j < jn; ++j) {
+      float4 kk[L::NC];
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int c = 0; c < L::NC; ++c) {
+        kk[c] = *reinterpret_cast<const float4*>(&ks[j][dim_of<D>(c, part, 0)]);
+        const float4 vv =
+            *reinterpret_cast<const float4*>(&vs[j][dim_of<D>(c, part, 0)]);
+        s += qr[4 * c] * kk[c].x + qr[4 * c + 1] * kk[c].y
+             + qr[4 * c + 2] * kk[c].z + qr[4 * c + 3] * kk[c].w;
+        dp += dor[4 * c] * vv.x + dor[4 * c + 1] * vv.y
+              + dor[4 * c + 2] * vv.z + dor[4 * c + 3] * vv.w;
+      }
+      s = row_sum<L::TPR>(s);
+      dp = row_sum<L::TPR>(dp);
+      const int kj = k0 + j;
+      const float p = (live && (!causal || kj <= qi))
+                          ? __expf(s * scale - lse_i) : 0.f;
+      const float ds = round_to<T>(p * (dp - delta_i) * scale);
+#pragma unroll
+      for (int c = 0; c < L::NC; ++c) {
+        acc[4 * c] += ds * kk[c].x;
+        acc[4 * c + 1] += ds * kk[c].y;
+        acc[4 * c + 2] += ds * kk[c].z;
+        acc[4 * c + 3] += ds * kk[c].w;
+      }
+    }
+  }
+  if (live) store_row<T, D>(dq + b * sdq.b + h * sdq.h, sdq, qi, acc, part);
+}
+
+// dK, dV: one block per (b*h, 64-key tile); walks the query tiles from
+// the diagonal down.
+template <typename T, int D>
+__global__ void __launch_bounds__(Tiling<D>::THREADS)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int H, int Tlen, Str sq, Str sk,
+                     Str sv, Str sdo, Str sdk, Str sdv, float scale,
+                     int causal) {
+  using L = Tiling<D>;
+  __shared__ __align__(16) float qs[L::BT][D];
+  __shared__ __align__(16) float dos[L::BT][D];
+  __shared__ float ls[L::BT];
+  __shared__ float dls[L::BT];
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.x * kRows;
+  const int part = threadIdx.x % L::TPR;
+  const int kj = k0 + threadIdx.x / L::TPR;
+  const bool live = kj < Tlen;
+
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lseb = lse + (long long)bh * Tlen;
+  const float* deltab = delta + (long long)bh * Tlen;
+  float kr[L::DPT], vr[L::DPT], dka[L::DPT], dva[L::DPT];
+  load_row<T, D>(kr, k + b * sk.b + h * sk.h, sk, kj, Tlen, part);
+  load_row<T, D>(vr, v + b * sv.b + h * sv.h, sv, kj, Tlen, part);
+#pragma unroll
+  for (int i = 0; i < L::DPT; ++i) {
+    dka[i] = 0.f;
+    dva[i] = 0.f;
+  }
+
+  // causal: query rows above the tile's first key see none of its keys
+  for (int i0 = causal ? k0 : 0; i0 < Tlen; i0 += L::BT) {
+    __syncthreads();
+    load_tiles<T, D>(qs, dos, qb, sq, dob, sdo, i0, Tlen);
+    for (int r = threadIdx.x; r < L::BT; r += L::THREADS) {
+      const int row = i0 + r;
+      ls[r] = row < Tlen ? lseb[row] : 0.f;
+      dls[r] = row < Tlen ? deltab[row] : 0.f;
+    }
+    __syncthreads();
+    const int in = min(L::BT, Tlen - i0);
+#pragma unroll 2
+    for (int i = 0; i < in; ++i) {
+      float4 qq[L::NC], dd[L::NC];
+      float s = 0.f, dp = 0.f;
+#pragma unroll
+      for (int c = 0; c < L::NC; ++c) {
+        qq[c] = *reinterpret_cast<const float4*>(&qs[i][dim_of<D>(c, part, 0)]);
+        dd[c] =
+            *reinterpret_cast<const float4*>(&dos[i][dim_of<D>(c, part, 0)]);
+        s += kr[4 * c] * qq[c].x + kr[4 * c + 1] * qq[c].y
+             + kr[4 * c + 2] * qq[c].z + kr[4 * c + 3] * qq[c].w;
+        dp += vr[4 * c] * dd[c].x + vr[4 * c + 1] * dd[c].y
+              + vr[4 * c + 2] * dd[c].z + vr[4 * c + 3] * dd[c].w;
+      }
+      s = row_sum<L::TPR>(s);
+      dp = row_sum<L::TPR>(dp);
+      const int qi = i0 + i;
+      const float p = (live && (!causal || qi >= kj))
+                          ? __expf(s * scale - ls[i]) : 0.f;
+      const float pr = round_to<T>(p);  // P cast to dO's dtype for dV
+      const float ds = round_to<T>(p * (dp - dls[i]) * scale);
+#pragma unroll
+      for (int c = 0; c < L::NC; ++c) {
+        dva[4 * c] += pr * dd[c].x;
+        dva[4 * c + 1] += pr * dd[c].y;
+        dva[4 * c + 2] += pr * dd[c].z;
+        dva[4 * c + 3] += pr * dd[c].w;
+        dka[4 * c] += ds * qq[c].x;
+        dka[4 * c + 1] += ds * qq[c].y;
+        dka[4 * c + 2] += ds * qq[c].z;
+        dka[4 * c + 3] += ds * qq[c].w;
+      }
+    }
+  }
+  if (live) {
+    store_row<T, D>(dk + b * sdk.b + h * sdk.h, sdk, kj, dka, part);
+    store_row<T, D>(dv + b * sdv.b + h * sdv.h, sdv, kj, dva, part);
+  }
+}
+
+Str str_at(const long long* s, int i) { return Str{s[3 * i], s[3 * i + 1],
+                                                    s[3 * i + 2]}; }
+
+template <typename T, int D>
+int launch_dq(dim3 grid, cudaStream_t st, const void* q, const void* k,
+              const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq, int H, int Tlen,
+              const long long* s, float scale, int causal) {
+  flash_bwd_dq_kernel<T, D><<<grid, Tiling<D>::THREADS, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dq), H, Tlen, str_at(s, 0), str_at(s, 1),
+      str_at(s, 2), str_at(s, 3), str_at(s, 4), scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dkv(dim3 grid, cudaStream_t st, const void* q, const void* k,
+               const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, int H, int Tlen,
+               const long long* s, float scale, int causal) {
+  flash_bwd_dkv_kernel<T, D><<<grid, Tiling<D>::THREADS, 0, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), H, Tlen, str_at(s, 0),
+      str_at(s, 1), str_at(s, 2), str_at(s, 3), str_at(s, 4), str_at(s, 5),
+      scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// the kernel for (dtype, D): dtype 0 = float32, 1 = bfloat16
+#define DL4J_BWD_DISPATCH(LAUNCH, ...)                                       \
+  switch (dtype * 1000 + D) {                                                \
+    case 16: return LAUNCH<float, 16>(__VA_ARGS__);                          \
+    case 32: return LAUNCH<float, 32>(__VA_ARGS__);                          \
+    case 64: return LAUNCH<float, 64>(__VA_ARGS__);                          \
+    case 128: return LAUNCH<float, 128>(__VA_ARGS__);                        \
+    case 1016: return LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__);                \
+    case 1032: return LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__);                \
+    case 1064: return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);                \
+    case 1128: return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);               \
+    default: return (int)cudaErrorInvalidValue;                              \
+  }
+
+}  // namespace
+
+// q, k, v, dout, dq: (B, H, T, D) addressed by the element strides in
+// `strides` (batch, head, time of each, in that order; the D stride is
+// 1); lse, delta: contiguous (B, H, T) f32. Returns cudaGetLastError()
+// after the launch.
+extern "C" int dl4j_flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int B, int H, int T,
+    int D, const long long* strides, float scale, int causal, int dtype,
+    void* stream) {
+  if (B < 1 || H < 1 || T < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((T + kRows - 1) / kRows, B * H);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  DL4J_BWD_DISPATCH(launch_dq, grid, st, q, k, v, dout, lse, delta, dq, H,
+                    T, strides, scale, causal)
+}
+
+// As above, with the strides of q, k, v, dout, dk, dv.
+extern "C" int dl4j_flash_attention_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int B, int H,
+    int T, int D, const long long* strides, float scale, int causal,
+    int dtype, void* stream) {
+  if (B < 1 || H < 1 || T < 1 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((T + kRows - 1) / kRows, B * H);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  DL4J_BWD_DISPATCH(launch_dkv, grid, st, q, k, v, dout, lse, delta, dk, dv,
+                    H, T, strides, scale, causal)
+}

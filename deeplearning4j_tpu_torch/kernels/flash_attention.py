@@ -1,17 +1,23 @@
-"""Flash attention forward (K1): the CUDA kernel ``csrc/flash_attention_fwd.cu``
-and its plain PyTorch version.
+"""Flash attention: the forward kernel (K1, ``csrc/flash_attention_fwd.cu``),
+the two backward kernels (dQ and dK/dV, ``csrc/flash_attention_bwd.cu``)
+and their plain PyTorch versions.
 
-Port of the forward half of ``deeplearning4j_tpu/kernels/flash_attention.py``:
-online-softmax attention that keeps the (T, T) score matrix out of device
-memory and writes O in the input dtype plus the per-row log-sum-exp in
-f32. ``flash_attention`` and ``flash_attention_lse`` take the (B, H, T, D)
+Port of ``deeplearning4j_tpu/kernels/flash_attention.py``: online-softmax
+attention that keeps the (T, T) score matrix out of device memory and
+writes O in the input dtype plus the per-row log-sum-exp in f32; its
+backward rebuilds the probabilities tile by tile from that lse, in the
+TPU's two passes (dQ over query tiles, dK/dV over key tiles).
+``flash_attention`` and ``flash_attention_lse`` take the (B, H, T, D)
 layout; ``flash_attention_ntc`` takes the (B, T, H, D) layout the
-transformer holds and passes its strides to the kernel, so it copies
+transformer holds and passes its strides to the kernels, so it copies
 nothing.
 
-CPU tensors take :func:`mha_reference` (and its lse twin); CUDA tensors
-launch the kernel or raise. The backward kernels (dQ, dK/dV) come with the
-training slice: reaching the kernel with inputs that require grad raises.
+All three are one ``torch.autograd.Function`` (:class:`FlashAttention`):
+it saves q, k, v, O and lse, computes ``delta = rowsum(dO·O)`` in f32 as
+plain torch (minus the lse cotangent for the lse variant) and runs the
+backward. CPU tensors take :func:`mha_reference_lse` and
+:func:`flash_attention_bwd_reference`; CUDA tensors launch the kernels
+or raise — there is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -27,16 +33,20 @@ from . import _build
 NEG_INF = -1e30
 
 _SOURCE = "flash_attention_fwd"
+_BWD_SOURCE = "flash_attention_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 
-#: launches of the CUDA kernel since the last reset
+#: launches of each CUDA kernel since the last reset (the plain versions
+#: on CPU tensors do not count): K1, the dQ kernel, the dK/dV kernel
 LAUNCHES = 0
+LAUNCHES_BWD_DQ = 0
+LAUNCHES_BWD_DKV = 0
 
 
 def reset_launches():
-    global LAUNCHES
-    LAUNCHES = 0
+    global LAUNCHES, LAUNCHES_BWD_DQ, LAUNCHES_BWD_DKV
+    LAUNCHES = LAUNCHES_BWD_DQ = LAUNCHES_BWD_DKV = 0
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None,
@@ -49,7 +59,8 @@ def flash_attention(q, k, v, scale: Optional[float] = None,
 def flash_attention_lse(q, k, v, scale: Optional[float] = None,
                         causal: bool = False):
     """Like :func:`flash_attention`, plus the per-row log-sum-exp
-    ``lse`` (B, H, T) f32."""
+    ``lse`` (B, H, T) f32. Both outputs are differentiable: the lse
+    cotangent folds into delta."""
     return _dispatch(q, k, v, scale, causal, layout="bhtd")
 
 
@@ -63,51 +74,122 @@ def flash_attention_ntc(q, k, v, causal: bool = False,
 def _dispatch(q, k, v, scale, causal, layout):
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    dev = q.device.type
-    if dev == "cpu":
-        if layout == "bthd":
-            q, k, v = (t.transpose(1, 2) for t in (q, k, v))
-        out, lse = _reference_lse(q, k, v, scale, causal)
-        if layout == "bthd":
-            out = out.transpose(1, 2)
-        return out, lse
-    if dev != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash attention runs on cpu or cuda tensors, "
                          f"got {q.device}")
-    return _flash_cuda(q, k, v, float(scale), causal, layout)
+    return FlashAttention.apply(q, k, v, float(scale), bool(causal), layout)
 
 
-def _flash_cuda(q, k, v, scale, causal, layout):
-    global LAUNCHES
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        raise NotImplementedError(
-            "the CUDA flash-attention kernel is forward-only; its backward "
-            "(dQ and dK/dV kernels) comes with slice 2 of the port, the "
-            "training slice")
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q, k, v must share a 4-D shape, got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"kernel takes float32 or bfloat16 q/k/v of one "
-                         f"dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _bhtd(layout, *ts):
+    """(B, H, T, D) views of tensors held in ``layout``."""
+    if layout == "bthd":
+        return tuple(t.transpose(1, 2) for t in ts)
+    return ts
+
+
+class FlashAttention(torch.autograd.Function):
+    """``(q, k, v, scale, causal, layout) → (O, lse)`` with the flash
+    backward. ``layout`` is ``"bhtd"`` or ``"bthd"``; lse is (B, H, T)
+    f32 in both."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, layout):
+        if q.device.type == "cpu":
+            qh, kh, vh = _bhtd(layout, q, k, v)
+            out, lse = _reference_lse(qh, kh, vh, scale, causal)
+            (out,) = _bhtd(layout, out)
+        else:
+            out, lse = _flash_cuda(q, k, v, scale, causal, layout)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal, ctx.layout = scale, causal, layout
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout is None:               # only lse was used
+            dout = torch.zeros_like(out)
+        if dout.stride(-1) != 1:
+            dout = dout.contiguous()
+        delta = (dout.float() * out.float()).sum(-1)
+        if ctx.layout == "bthd":
+            delta = delta.transpose(1, 2)
+        if dlse is not None:
+            delta = delta - dlse.float()
+        dq, dk, dv = flash_attention_bwd(q, k, v, dout, lse,
+                                         delta.contiguous(), ctx.scale,
+                                         ctx.causal, ctx.layout)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
+                        layout="bhtd"):
+    """The flash backward: ``(dq, dk, dv)`` in q's dtype and layout, from
+    the forward's lse and ``delta`` = rowsum(dO·O) (minus dLSE), both
+    (B, H, T) f32. CPU tensors take :func:`flash_attention_bwd_reference`;
+    CUDA tensors launch the dQ and the dK/dV kernels."""
+    if q.device.type == "cpu":
+        qh, kh, vh, doh = _bhtd(layout, q, k, v, dout)
+        grads = flash_attention_bwd_reference(qh, kh, vh, doh, lse, delta,
+                                              scale, causal)
+        return _bhtd(layout, *grads)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash attention runs on cpu or cuda tensors, "
+                         f"got {q.device}")
+    dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, causal,
+                                layout)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale,
+                                     causal, layout)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------- CUDA
+
+def _check_qkv(layout, q, k, v, dout=None):
+    """Shapes, dtypes, devices and strides the kernels take; returns
+    (b, h, t, d) and the (B, H, T, D) views of q, k, v (and dout)."""
+    named = [("q", q), ("k", k), ("v", v)]
+    if dout is not None:
+        named.append(("dout", dout))
+    if q.dim() != 4:
+        raise ValueError(f"q must be 4-D, got {tuple(q.shape)}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    for name, t in named:
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"{name} is {tuple(t.shape)} {t.dtype}, q is "
+                             f"{tuple(q.shape)} {q.dtype}: the kernel takes "
+                             f"float32 or bfloat16 operands of one shape")
         if t.device != q.device:
             raise ValueError(f"{name} on {t.device}, q on {q.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s last dimension must be contiguous")
-    if layout == "bthd":
-        b, t, h, d = q.shape
-        out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
-        # view everything as (B, H, T, D) — the kernel reads strides
-        q_, k_, v_, o_ = (x.transpose(1, 2) for x in (q, k, v, out))
-    else:
-        b, h, t, d = q.shape
-        out = torch.empty((b, h, t, d), dtype=q.dtype, device=q.device)
-        q_, k_, v_, o_ = q, k, v, out
+    views = _bhtd(layout, *(t for _, t in named))
+    b, h, t, d = views[0].shape
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    return (b, h, t, d), views
+
+
+def _check_rows(name, x, q, bhtd):
+    if x.dtype != torch.float32 or tuple(x.shape) != bhtd[:3] \
+            or x.device != q.device or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 {bhtd[:3]} "
+                         f"tensor on {q.device}, got {tuple(x.shape)} "
+                         f"{x.dtype} on {x.device}")
+
+
+def _strides(*views):
+    flat = [s for x in views for s in x.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _flash_cuda(q, k, v, scale, causal, layout):
+    global LAUNCHES
+    (b, h, t, d), (q_, k_, v_) = _check_qkv(layout, q, k, v)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    (o_,) = _bhtd(layout, out)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     lib = _load()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -121,6 +203,56 @@ def _flash_cuda(q, k, v, scale, causal, layout):
     return out, lse
 
 
+def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, causal,
+                           layout="bhtd"):
+    """dQ of the flash backward in q's layout: the dQ kernel on CUDA
+    tensors, the plain backward's dq on CPU tensors."""
+    global LAUNCHES_BWD_DQ
+    if q.device.type == "cpu":
+        return flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
+                                   layout)[0]
+    bhtd, (q_, k_, v_, do_) = _check_qkv(layout, q, k, v, dout)
+    _check_rows("lse", lse, q, bhtd)
+    _check_rows("delta", delta, q, bhtd)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    (dq_,) = _bhtd(layout, dq)
+    lib = _load_bwd()
+    rc = lib.dl4j_flash_attention_bwd_dq(
+        q_.data_ptr(), k_.data_ptr(), v_.data_ptr(), do_.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq_.data_ptr(), *bhtd,
+        _strides(q_, k_, v_, do_, dq_), float(scale), int(bool(causal)),
+        _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_attention_bwd_dq")
+    LAUNCHES_BWD_DQ += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, causal,
+                            layout="bhtd"):
+    """(dK, dV) of the flash backward in q's layout: the dK/dV kernel on
+    CUDA tensors, the plain backward's dk, dv on CPU tensors."""
+    global LAUNCHES_BWD_DKV
+    if q.device.type == "cpu":
+        return flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
+                                   layout)[1:]
+    bhtd, (q_, k_, v_, do_) = _check_qkv(layout, q, k, v, dout)
+    _check_rows("lse", lse, q, bhtd)
+    _check_rows("delta", delta, q, bhtd)
+    dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk_, dv_ = _bhtd(layout, dk, dv)
+    lib = _load_bwd()
+    rc = lib.dl4j_flash_attention_bwd_dkv(
+        q_.data_ptr(), k_.data_ptr(), v_.data_ptr(), do_.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk_.data_ptr(), dv_.data_ptr(),
+        *bhtd, _strides(q_, k_, v_, do_, dk_, dv_), float(scale),
+        int(bool(causal)), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(rc, "flash_attention_bwd_dkv")
+    LAUNCHES_BWD_DKV += 1
+    return dk, dv
+
+
 def _load():
     lib = _build.load(_SOURCE)
     fn = lib.dl4j_flash_attention_fwd
@@ -132,13 +264,30 @@ def _load():
     return lib
 
 
+def _load_bwd():
+    lib = _build.load(_BWD_SOURCE)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ll = ctypes.POINTER(ctypes.c_longlong)
+    for name, n_ptr in (("dl4j_flash_attention_bwd_dq", 7),
+                        ("dl4j_flash_attention_bwd_dkv", 8)):
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = [p] * n_ptr + [i] * 4 + [ll, f, i, i, p]
+            fn.restype = i
+    return lib
+
+
+# --------------------------------------------------------------- plain
+
+def _causal_mask(t, device):
+    return torch.tril(torch.ones((t, t), dtype=torch.bool, device=device))
+
+
 def _scores(q, k, scale, causal):
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
     if causal:
-        t = q.shape[2]
-        mask = torch.tril(torch.ones((t, t), dtype=torch.bool,
-                                     device=q.device))
-        s = torch.where(mask, s, torch.tensor(NEG_INF, device=q.device))
+        s = torch.where(_causal_mask(q.shape[2], q.device), s,
+                        torch.tensor(NEG_INF, device=q.device))
     return s
 
 
@@ -148,6 +297,24 @@ def _reference_lse(q, k, v, scale, causal):
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
     return out, lse
+
+
+def flash_attention_bwd_reference(q, k, v, dout, lse, delta, scale,
+                                  causal):
+    """The plain backward, the TPU kernels' formula on (B, H, T, D):
+    P = exp(S − lse) with S masked causally to ``NEG_INF``, dP = dO·Vᵀ,
+    dS = P·(dP − delta)·scale cast to the input dtype before the dS·K and
+    dSᵀ·Q products, dV = Pᵀ·dO with P cast to dO's dtype first; f32
+    sums, outputs in q's dtype."""
+    s = _scores(q, k, scale, causal)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    ds = (p * (dp - delta[..., None]) * scale).to(q.dtype).float()
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(dout.dtype).float(),
+                      dout.float())
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def mha_reference(q, k, v, scale=None, causal=False):

@@ -15,13 +15,20 @@ minimum and takes the softmax in f32, the head matmul runs in the compute
 dtype and then goes to f32. ``gelu`` is the tanh approximation (the
 ``jax.nn.gelu`` default).
 
-Training (``lm_loss``, the chunked CE, the train step, remat), MoE,
-ring/sharded attention and BERT are not ported yet.
+The training half: :func:`lm_loss` (the naive loss over the full
+logits, or the fused chunked cross-entropy that never holds the (N, V)
+f32 logits), per-block rematerialization over ``torch.utils.checkpoint``
+(:func:`_remat_wrap`), and :func:`make_train_step`, one AdamW step in
+place on the params dict. With flash attention engaged, the backward runs
+the port's dQ and dK/dV kernels. MoE, ring/sharded attention and BERT
+are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -29,6 +36,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint as _ckpt
 
 from .._device import resolve_device
 
@@ -44,8 +52,18 @@ class TransformerConfig:
     n_experts: int = 0          # 0 → dense MLP (the only kind ported)
     dtype: Any = torch.bfloat16         # activation/compute dtype
     param_dtype: Any = torch.float32
-    # kept for config parity with the reference; inference never remats
+    # per-block rematerialization when grad is enabled (inference never
+    # remats): "full" saves only the block input; "save_attn" also keeps
+    # the attention output; "dots" / "dots_no_batch" save the matmul
+    # outputs (all, or those without batch dims) and recompute the rest
     remat: bool = True
+    remat_policy: str = "full"
+    # fused (chunked) LM cross-entropy: per chunk of ``loss_chunk`` rows
+    # the head matmul, logsumexp and target gather run under a checkpoint,
+    # so the (N, V) f32 logits never exist. True | False | "auto" (fuse
+    # once the f32 logits would pass 64 MiB)
+    fused_loss: Any = "auto"
+    loss_chunk: int = 1024
     use_ring_attention: bool = False
     # True = always the flash kernel; False = plain attention; "auto" =
     # the kernel on CUDA from ``flash_min_seq`` up. 1024 is the
@@ -260,37 +278,222 @@ def hidden_rows(params, cfg: TransformerConfig, x):
     return _rmsnorm(x, params["ln_f"]).float()
 
 
+def _attn_half(cfg, x, ln1, wqkv):
+    """The block up to its attention output (B, T, H·Dh); also k and v."""
+    h = _rmsnorm(x, ln1)
+    q, k, v = (h @ wqkv.to(h.dtype)).chunk(3, dim=-1)
+    return _attention(cfg, q, k, v), k, v
+
+
+def _mlp_half(cfg, x, a, wo, ln2, w_in, w_out):
+    """The block after its attention: out-projection, residual, MLP."""
+    x = x + a @ wo.to(x.dtype)
+    h2 = _rmsnorm(x, ln2)
+    return x + _dense_mlp(cfg, h2, w_in, w_out)
+
+
+def _block(cfg, x, w):
+    a = _attn_half(cfg, x, w["ln1"], w["wqkv"])[0]
+    return _mlp_half(cfg, x, a, w["wo"], w["ln2"], w["w_in"], w["w_out"])
+
+
+def _checkpoint(fn, *args, **kw):
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _save_ops(ops):
+    """A selective-checkpoint context that saves the outputs of ``ops``
+    and recomputes every other op."""
+    def policy(ctx, op, *args, **kwargs):
+        return (_ckpt.CheckpointPolicy.MUST_SAVE if op in ops
+                else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(_ckpt.create_selective_checkpoint_contexts,
+                             policy)
+
+
+def _remat_wrap(policy: str):
+    """The block ``(cfg, x, w) → x`` under ``torch.utils.checkpoint``
+    with one of the reference's rematerialization policies:
+
+    - ``"full"``: save only the block input, recompute everything;
+    - ``"save_attn"``: also keep the attention output. The block is split
+      by hand around the attention — a checkpoint selection policy sees
+      only dispatcher ops, and the flash kernel is a ctypes launch inside
+      an autograd Function — into two checkpointed halves: the first
+      (norm, qkv, attention) saves only its inputs and returns the
+      attention output, which the second half keeps. As in the
+      reference, backward re-runs the attention forward to rebuild its
+      residuals, and nothing downstream of it re-runs it;
+    - ``"dots"`` / ``"dots_no_batch"``: save the outputs of every matrix
+      product (``mm``/``addmm``/``bmm``/``baddbmm``), or only of those
+      without batch dims (``mm``/``addmm``), and recompute the rest.
+
+    An unknown policy raises ``ValueError``."""
+    aten = torch.ops.aten
+    mm = {aten.mm.default, aten.addmm.default}
+    dots = {"dots": mm | {aten.bmm.default, aten.baddbmm.default},
+            "dots_no_batch": mm}
+    if policy == "full":
+        return lambda cfg, x, w: _checkpoint(_block, cfg, x, w)
+    if policy == "save_attn":
+        def run(cfg, x, w):
+            a = _checkpoint(lambda *xs: _attn_half(*xs)[0], cfg, x,
+                            w["ln1"], w["wqkv"])
+            return _checkpoint(_mlp_half, cfg, x, a, w["wo"], w["ln2"],
+                               w["w_in"], w["w_out"])
+        return run
+    if policy in dots:
+        ctx = _save_ops(dots[policy])
+        return lambda cfg, x, w: _checkpoint(_block, cfg, x, w,
+                                             context_fn=ctx)
+    raise ValueError(f"Unknown remat_policy {policy!r}; expected one of "
+                     f"{sorted(['full', 'save_attn', *dots])}")
+
+
 def apply_blocks(blocks, cfg: TransformerConfig, x, *, return_kv=False):
     """Run the stacked blocks over x (B, T, d). Returns (x, aux_sum);
     ``return_kv=True`` adds each layer's per-head keys/values stacked
-    ``(L, B, T, H, Dh)`` in compute dtype: ``(x, aux_sum, (k, v))``."""
+    ``(L, B, T, H, Dh)`` in compute dtype: ``(x, aux_sum, (k, v))``.
+    Each block is rematerialized under ``cfg.remat_policy`` when
+    ``cfg.remat`` is on, grad is enabled and ``return_kv`` is off."""
     if cfg.n_experts:
         raise NotImplementedError("MoE blocks are not ported yet")
     b, t = x.shape[0], x.shape[1]
+    # one unbind per leaf: its backward stacks the L grads once
+    layers = [dict(zip(blocks, ws))
+              for ws in zip(*(w.unbind(0) for w in blocks.values()))]
+    layers = layers[:cfg.n_layers]
+    block = _block
+    if cfg.remat and torch.is_grad_enabled() and not return_kv:
+        block = _remat_wrap(cfg.remat_policy)
     ks, vs = [], []
-    for l in range(cfg.n_layers):
-        h = _rmsnorm(x, blocks["ln1"][l])
-        qkv = h @ blocks["wqkv"][l].to(h.dtype)
-        q, k, v = qkv.chunk(3, dim=-1)
-        a = _attention(cfg, q, k, v)
-        x = x + a @ blocks["wo"][l].to(h.dtype)
-        h2 = _rmsnorm(x, blocks["ln2"][l])
-        x = x + _dense_mlp(cfg, h2, blocks["w_in"][l], blocks["w_out"][l])
+    for w in layers:
         if return_kv:
+            a, k, v = _attn_half(cfg, x, w["ln1"], w["wqkv"])
+            x = _mlp_half(cfg, x, a, w["wo"], w["ln2"], w["w_in"],
+                          w["w_out"])
             ks.append(k.reshape(b, t, cfg.n_heads, cfg.head_dim))
             vs.append(v.reshape(b, t, cfg.n_heads, cfg.head_dim))
+        else:
+            x = block(cfg, x, w)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_kv:
         return x, aux, (torch.stack(ks), torch.stack(vs))
     return x, aux
 
 
-def forward(params, cfg: TransformerConfig, ids, *, pos_offset=0):
-    """ids (B, T) int → logits (B, T, vocab) f32. Returns (logits, aux)."""
-    with torch.no_grad():
+def forward(params, cfg: TransformerConfig, ids, *, train=False,
+            pos_offset=0):
+    """ids (B, T) int → logits (B, T, vocab) f32. Returns (logits, aux).
+    Runs under ``torch.no_grad()`` unless ``train=True``."""
+    with contextlib.nullcontext() if train else torch.no_grad():
         x = embed(params, cfg, ids, pos_offset)
         x, aux = apply_blocks(params["blocks"], cfg, x)
         return head_logits(params, cfg, x), aux
+
+
+# ---------------------------------------------------------------- training
+
+def _use_fused_loss(cfg: TransformerConfig, n_rows: int) -> bool:
+    if cfg.fused_loss is True:
+        return True
+    if cfg.fused_loss is False:
+        return False
+    # "auto": fuse once the f32 logits would pass ~64 MiB
+    return n_rows * cfg.vocab_size * 4 > 64 * 2 ** 20
+
+
+def _chunk_nll(xc, head, tc, wc, bias):
+    # the product in the compute dtype, then f32 — the reference's rounding
+    logits = (xc @ head).float()
+    if bias is not None:
+        logits = logits + bias.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    tl = logits.gather(-1, tc[:, None].long())[:, 0]
+    return ((lse - tl) * wc).sum()          # pad rows weighted out
+
+
+def _chunked_ce(x, head, targets, chunk, weights=None, bias=None):
+    """Weighted-sum NLL of (N, d) hidden rows against (N,) targets without
+    ever holding the (N, V) f32 logits: a loop over row chunks, each under
+    a checkpoint, so backward recomputes the chunk's logits from its
+    (small) saved rows. Returns sum(w·nll); the caller divides by its own
+    denominator. ``weights`` default to 1 per row; ``bias`` (V,) is an
+    output bias."""
+    n, d = x.shape
+    chunk = min(chunk, n)
+    pad = (-n) % chunk
+    w = (torch.ones((n,), dtype=torch.float32, device=x.device)
+         if weights is None else weights.float())
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, d))])
+        targets = torch.cat([targets, targets.new_zeros((pad,))])
+        w = torch.cat([w, w.new_zeros((pad,))])
+    nll = (_checkpoint if torch.is_grad_enabled() else
+           lambda fn, *a: fn(*a))
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, n + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        total = total + nll(_chunk_nll, x[sl], head, targets[sl], w[sl],
+                            bias)
+    return total
+
+
+def lm_loss(params, cfg: TransformerConfig, ids, targets, *,
+            aux_weight=1e-2, pos_offset=0):
+    """Mean next-token NLL of ``targets`` (B, T) given ``ids`` (B, T),
+    plus ``aux_weight`` · the blocks' auxiliary loss (0 for dense
+    blocks). Differentiable in the params."""
+    b, t = ids.shape
+    if _use_fused_loss(cfg, b * t):
+        x = embed(params, cfg, ids, pos_offset)
+        x, aux = apply_blocks(params["blocks"], cfg, x)
+        x = _rmsnorm(x, params["ln_f"])
+        head = _resolve_head(params, cfg)
+        nll = _chunked_ce(x.reshape(b * t, -1), head.to(x.dtype),
+                          targets.reshape(b * t), cfg.loss_chunk) / (b * t)
+        return nll + aux_weight * aux
+    logits, aux = forward(params, cfg, ids, train=True,
+                          pos_offset=pos_offset)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets[..., None].long())[..., 0]
+    return nll.mean() + aux_weight * aux
+
+
+def param_leaves(params):
+    """The params dict's tensors, in the order of its keys, each set to
+    require grad — what an optimizer for :func:`make_train_step` takes."""
+    if isinstance(params, dict):
+        return [t for v in params.values() for t in param_leaves(v)]
+    return [params.requires_grad_(True)]
+
+
+def make_train_step(cfg: TransformerConfig, optimizer):
+    """One training step: ``step(params, ids, targets) → loss`` runs
+    ``zero_grad``, the backward of :func:`lm_loss` and
+    ``optimizer.step()``, updating the params dict's leaves in place.
+    ``ids``/``targets`` (B, T) may be numpy or tensors.
+
+    The caller builds the optimizer over :func:`param_leaves`. The
+    reference's ``optax.adamw(lr)`` is
+    ``torch.optim.AdamW(param_leaves(params), lr=lr, betas=(0.9, 0.999),
+    eps=1e-8, weight_decay=1e-4)``: the same moments, eps outside the
+    square root, and optax's default decay of 1e-4 (torch's default is
+    1e-2) on every leaf, as optax's mask is None. Torch decays the
+    params before the Adam update, optax adds ``wd·p`` to it; the two
+    agree to rounding."""
+
+    def step(params, ids, targets):
+        dev = params["embed"].device
+        ids = torch.as_tensor(ids, device=dev).long()
+        targets = torch.as_tensor(targets, device=dev).long()
+        optimizer.zero_grad(set_to_none=True)
+        loss = lm_loss(params, cfg, ids, targets)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    return step
 
 
 def generate(params, cfg: TransformerConfig, prompt_ids, max_new_tokens=32,

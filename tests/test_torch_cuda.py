@@ -9,7 +9,10 @@ the test, never at import). On a machine with one:
 port's machines need not have.)
 
 Tolerances: bf16 outputs atol 2e-2 (one bf16 rounding of values of
-order 1), f32 atol 1e-4 (f32 accumulation order), lse atol 1e-3.
+order 1), f32 atol 1e-4 (f32 accumulation order), lse atol 1e-3. The
+backward's bf16 gradients are held to a relative L2 error of 1e-2: the
+kernels and the plain backward round dS and P to bf16 at the same points,
+but a product that lands near a rounding boundary flips one ulp.
 """
 
 from __future__ import annotations
@@ -77,3 +80,87 @@ def test_flash_kernel_matches_plain(gen, dtype, t, causal):
                                  causal=causal)
     torch.testing.assert_close(ntc.transpose(1, 2).float(), ref.float(),
                                atol=ATOL[dtype], rtol=0)
+
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _close(got, ref, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+    else:
+        assert got.dtype == dtype
+        assert _rel_l2(got, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,causal", [(64, True), (200, True), (256, False),
+                                      (200, False)])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_bwd_kernels_match_plain(gen, dtype, t, causal, d):
+    """dQ and dK/dV against the plain backward on the same inputs, in
+    the (B, H, T, D) layout and through strided (B, T, H, D) views of
+    one qkv buffer (the transformer's layout)."""
+    b, h = 2, 3
+    scale = d ** -0.5
+    q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    _, lse = fa.mha_reference_lse(q, k, v, causal=causal)
+    delta = torch.randn((b, h, t), generator=gen, device="cuda")
+    ref = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale,
+                                           causal)
+    before = (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == (before[0] + 1,
+                                                         before[1])
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                        causal)
+    assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == (before[0] + 1,
+                                                         before[1] + 1)
+    torch.cuda.synchronize()
+    for got, want in zip((dq, dk, dv), ref):
+        _close(got, want, dtype)
+    qkv = torch.cat([x.transpose(1, 2).reshape(b, t, h * d)
+                     for x in (q, k, v)], dim=-1)
+    qn, kn, vn = (x.reshape(b, t, h, d) for x in qkv.chunk(3, dim=-1))
+    don = do.transpose(1, 2)                  # a non-contiguous view
+    got = fa.flash_attention_bwd(qn, kn, vn, don, lse, delta, scale, causal,
+                                 layout="bthd")
+    torch.cuda.synchronize()
+    for g, want in zip(got, ref):
+        assert g.shape == (b, t, h, d)
+        _close(g.transpose(1, 2), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_function_grads_match_autograd_reference(gen, dtype, causal):
+    """The autograd Function (K1 forward, dQ and dK/dV backward) through
+    the strided (B, T, H, D) views, against autograd of mha_reference;
+    the lse variant with a nonzero lse cotangent too."""
+    b, t, h, d = 2, 200, 2, 64
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda") \
+        .to(dtype).requires_grad_(True)
+    do = torch.randn((b, t, h, d), generator=gen, device="cuda").to(dtype)
+    counts = (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+    qn, kn, vn = (x.reshape(b, t, h, d) for x in qkv.chunk(3, dim=-1))
+    out = fa.flash_attention_ntc(qn, kn, vn, causal=causal)
+    (g,) = torch.autograd.grad(out, qkv, do)
+    assert (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == \
+        tuple(c + 1 for c in counts)
+    ref_out = fa.mha_reference(*(x.transpose(1, 2) for x in (qn, kn, vn)),
+                               causal=causal).transpose(1, 2)
+    (ref_g,) = torch.autograd.grad(ref_out, qkv, do)
+    torch.cuda.synchronize()
+    _close(g, ref_g, dtype)
+
+    q, k, v = (x.transpose(1, 2).detach().requires_grad_(True)
+               for x in (qn, kn, vn))
+    dl = torch.randn((b, h, t), generator=gen, device="cuda")
+    o, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+    got = torch.autograd.grad((o, lse), (q, k, v), (do.transpose(1, 2), dl))
+    ro, rl = fa.mha_reference_lse(q, k, v, causal=causal)
+    want = torch.autograd.grad((ro, rl), (q, k, v), (do.transpose(1, 2), dl))
+    for a, w in zip(got, want):
+        _close(a, w, dtype)

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -191,6 +192,119 @@ def test_flash_ntc_matches_jax_ntc_interpret():
                                atol=KERNEL_ATOL)
 
 
+# ------------------------------------------- flash backward (dQ, dK/dV)
+
+def _jax_vjp(fn, arrays, cotangent, **kw):
+    _, vjp = jax.vjp(lambda *xs: fn(*xs, **kw),
+                     *(jnp.asarray(a) for a in arrays))
+    return [np.asarray(g) for g in vjp(cotangent)]
+
+
+def _torch_grads(fn, arrays, cotangents, **kw):
+    xs = [_t(a).requires_grad_(True) for a in arrays]
+    outs = fn(*xs, **kw)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    torch.autograd.backward(outs, [_t(c) for c in cotangents])
+    return [x.grad.numpy() for x in xs]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_matches_jax_pallas_vjp(causal):
+    """The Function's grads and flash_attention_bwd_reference itself
+    against jax.vjp through the JAX package's Pallas backward kernels
+    (interpret mode, 8-row blocks, so several tiles per pass)."""
+    rng = np.random.default_rng(8)
+    q, k, v, g = (rng.standard_normal((2, 2, 32, 16)).astype(np.float32)
+                  for _ in range(4))
+    ref = _jax_vjp(jfa.flash_attention, (q, k, v), jnp.asarray(g),
+                   causal=causal, block_q=8, block_k=8, interpret=True)
+    got = _torch_grads(tfa.flash_attention, (q, k, v), (g,), causal=causal)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b, atol=KERNEL_ATOL)
+    o, lse = tfa.mha_reference_lse(_t(q), _t(k), _t(v), causal=causal)
+    delta = (_t(g) * o).sum(-1)
+    plain = tfa.flash_attention_bwd_reference(
+        _t(q), _t(k), _t(v), _t(g), lse, delta, 0.25, causal)
+    for a, b in zip(plain, ref):
+        np.testing.assert_allclose(a.numpy(), b, atol=KERNEL_ATOL)
+
+
+def test_flash_lse_bwd_folds_dlse_like_jax():
+    """A nonzero lse cotangent: delta − dLSE, as the JAX package's
+    ``_flash_bwd_lse`` folds it."""
+    rng = np.random.default_rng(9)
+    q, k, v, g = (rng.standard_normal((1, 2, 24, 16)).astype(np.float32)
+                  for _ in range(4))
+    gl = rng.standard_normal((1, 2, 24)).astype(np.float32)
+    ref = _jax_vjp(jfa.flash_attention_lse, (q, k, v),
+                   (jnp.asarray(g), jnp.asarray(gl)), causal=True,
+                   block_q=8, block_k=8, interpret=True)
+    got = _torch_grads(tfa.flash_attention_lse, (q, k, v), (g, gl),
+                       causal=True)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b, atol=KERNEL_ATOL)
+    only_o = _torch_grads(lambda *x, **kw: tfa.flash_attention_lse(
+        *x, **kw)[0], (q, k, v), (g,), causal=True)
+    assert np.abs(only_o[0] - got[0]).max() > 1e-3   # dLSE did matter
+
+
+def test_flash_ntc_bwd_matches_jax_ntc_vjp():
+    """The (B, T, H, D) layout through strided views of one qkv buffer,
+    against jax.vjp of the JAX package's ``flash_attention_ntc``."""
+    rng = np.random.default_rng(10)
+    b, t, h, d = 2, 16, 2, 16
+    qkv = rng.standard_normal((b, t, 3 * h * d)).astype(np.float32)
+    g = rng.standard_normal((b, t, h, d)).astype(np.float32)
+    q, k, v = (a.reshape(b, t, h, d) for a in np.split(qkv, 3, axis=-1))
+    ref = _jax_vjp(jfa.flash_attention_ntc, (q, k, v), jnp.asarray(g),
+                   causal=True, interpret=True)
+    x = _t(qkv).requires_grad_(True)
+    out = tfa.flash_attention_ntc(
+        *(c.reshape(b, t, h, d) for c in x.chunk(3, dim=-1)), causal=True)
+    out.backward(_t(g))
+    got = [c.reshape(b, t, h, d).numpy() for c in x.grad.chunk(3, dim=-1)]
+    for a, r in zip(got, ref):
+        np.testing.assert_allclose(a, r, atol=KERNEL_ATOL)
+
+
+def test_flash_bwd_bf16_matches_jax_within_2e2():
+    """bf16 inputs: dS and P round to bf16 before their products on both
+    sides; grads agree within 2e-2 (bf16 ulps of values of order 1)."""
+    rng = np.random.default_rng(11)
+    q, k, v, g = (rng.standard_normal((1, 2, 32, 16)).astype(np.float32)
+                  for _ in range(4))
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+    _, vjp = jax.vjp(lambda *xs: jfa.flash_attention(
+        *xs, causal=True, block_q=8, block_k=8, interpret=True), *jb)
+    ref = vjp(jnp.asarray(g, jnp.bfloat16))
+    xs = [_t(a).to(torch.bfloat16).requires_grad_(True) for a in (q, k, v)]
+    tfa.flash_attention(*xs, causal=True).backward(_t(g).to(torch.bfloat16))
+    for x, r in zip(xs, ref):
+        assert x.grad.dtype == torch.bfloat16
+        np.testing.assert_allclose(x.grad.float().numpy(),
+                                   np.asarray(r.astype(jnp.float32)),
+                                   atol=2e-2, rtol=2e-2)
+
+
+def test_flash_bwd_per_kernel_wrappers_split_the_plain_backward():
+    """On CPU tensors the dQ and dK/dV wrappers return the plain
+    backward's outputs and count no launch."""
+    rng = np.random.default_rng(12)
+    q, k, v, g = (_t(rng.standard_normal((1, 2, 16, 16))
+                     .astype(np.float32)) for _ in range(4))
+    o, lse = tfa.mha_reference_lse(q, k, v, causal=True)
+    delta = (g * o).sum(-1)
+    tfa.reset_launches()
+    dq = tfa.flash_attention_bwd_dq(q, k, v, g, lse, delta, 0.25, True)
+    dk, dv = tfa.flash_attention_bwd_dkv(q, k, v, g, lse, delta, 0.25, True)
+    ref = tfa.flash_attention_bwd_reference(q, k, v, g, lse, delta, 0.25,
+                                            True)
+    for a, b in zip((dq, dk, dv), ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (tfa.LAUNCHES, tfa.LAUNCHES_BWD_DQ, tfa.LAUNCHES_BWD_DKV) == \
+        (0, 0, 0)
+
+
 # ------------------------------------------------- the refusal paths
 
 def _paged_args():
@@ -213,6 +327,11 @@ def test_cuda_requests_raise_without_a_card():
         tfa._flash_cuda(q, q, q, 0.25, True, "bhtd")
     with pytest.raises(RuntimeError, match="CUDA"):
         _build.load("paged_attention")
+    q, lse = q.to("meta"), torch.zeros((1, 2, 8), device="meta")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfa.flash_attention_bwd_dq(q, q, q, q, lse, lse, 0.25, True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfa.flash_attention_bwd_dkv(q, q, q, q, lse, lse, 0.25, True)
 
 
 def test_wrappers_refuse_other_devices():
@@ -225,15 +344,33 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_flash_kernel_refuses_grad_and_bad_inputs():
-    q = torch.zeros((1, 2, 8, 16), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training"):
-        tfa._flash_cuda(q, q, q, 0.25, True, "bhtd")
+    """Inputs the kernels do not take raise before any launch: K1's and
+    the backward wrappers' head-dim, dtype and device checks. (Inputs
+    that require grad are no longer refused: the Function runs them
+    through K1 and the backward kernels.)"""
     q = torch.zeros((1, 2, 8, 24))
     with pytest.raises(ValueError, match="head dim"):
         tfa._flash_cuda(q, q, q, 0.25, True, "bhtd")
     q = torch.zeros((1, 2, 8, 16), dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tfa._flash_cuda(q, q, q, 0.25, True, "bhtd")
+    lse = torch.zeros((1, 2, 8))
+    for bwd in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
+        q = torch.zeros((1, 2, 8, 24), device="meta")
+        with pytest.raises(ValueError, match="head dim"):
+            bwd(q, q, q, q, lse.to("meta"), lse.to("meta"), 0.2, True)
+        q = torch.zeros((1, 2, 8, 16), dtype=torch.float16, device="meta")
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            bwd(q, q, q, q, lse.to("meta"), lse.to("meta"), 0.25, True)
+        q = torch.zeros((1, 2, 8, 16), device="meta")
+        with pytest.raises(ValueError, match="dout on cpu"):
+            bwd(q, q, q, torch.zeros((1, 2, 8, 16)), lse.to("meta"),
+                lse.to("meta"), 0.25, True)
+        with pytest.raises(ValueError, match="lse must be"):
+            bwd(q, q, q, q, lse, lse.to("meta"), 0.25, True)
+        with pytest.raises(ValueError, match="delta must be"):
+            bwd(q, q, q, q, lse.to("meta"), lse.to("meta").double(), 0.25,
+                True)
 
 
 def test_paged_auto_on_cuda_pool_past_max_head_dim_raises():
@@ -284,4 +421,4 @@ def test_build_dir_is_beside_the_package(monkeypatch, tmp_path):
     monkeypatch.setenv("DL4J_TORCH_BUILD_DIR", str(tmp_path))
     assert _build.build_dir() == tmp_path
     assert sorted(p.stem for p in _build.SRC_DIR.glob("*.cu")) == \
-        ["flash_attention_fwd", "paged_attention"]
+        ["flash_attention_bwd", "flash_attention_fwd", "paged_attention"]
