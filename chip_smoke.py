@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
     python3 chip_smoke.py --profile        # also profile paged decode
     python3 chip_smoke.py --profile-train  # also profile one train step
+    python3 chip_smoke.py --profile-resnet # also profile one ResNet-50 step
 
 Phases, each fatal on failure:
 
@@ -41,6 +42,24 @@ Phases, each fatal on failure:
    2e-2 per leaf, loss within 2e-2 nats at each of 5 steps and falling;
    the launch counts are set to 0 just before the kernel path and K1,
    dQ and dK/dV must launch in every step;
+7. the fused BatchNorm+activation kernels (K3: normalize+act, stats,
+   backward reduce, backward dx) against their plain versions at all
+   nine (N, C) shapes a ResNet-50 BN gives them at batch 128, relu and
+   identity, bf16 and f32; every activation at one shape; C = 3, 5, 24
+   at N = 1000; a second launch bit for bit equal; kernel, plain and
+   ``F.batch_norm`` (the library yardstick, identity activation) timed
+   beside each kernel's bound;
+8. the ResNet-50 path at full width: ``ResNet50(num_classes=1000,
+   compute_dtype=bf16, updater=Momentum(0.1, 0.9))`` (``bench.py``'s
+   ``resnet50`` row) trained through ``ComputationGraph.fit`` for 5 steps
+   on one seeded batch of 128 224x224x3 inputs, every BN ``fused=True``
+   (the kernel path) and ``fused=False`` (the plain path) from identical
+   params: step-1 loss and running stats held to the plain path, the loss
+   falling, each K3 kernel launched 53 times a step; one f32 step of each
+   path for the step-1 grads; then ``output()`` with the zoo's
+   ``fused="auto"``: 33 normalize launches and per-row KL <= 1e-3 against
+   the plain BNs; every (dtype, N, C, activation) K3 ran at must be one
+   that phase 7 held;
 5. a ``kernels`` JSON line, then the result line (printed last).
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -49,6 +68,7 @@ Without a CUDA device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -63,6 +83,32 @@ BWD_F32_ATOL = 1e-4                      # flash backward, f32 grads
 BWD_BF16_REL_L2 = 1e-2                   # flash backward, bf16 grads
 TRAIN_GRAD_REL_L2 = 2e-2                 # kernel vs plain path, per leaf
 TRAIN_LOSS_ATOL = 2e-2                   # nats, at every step
+# ResNet-50 at init is chaotic (see resnet_path): it is held to the plain
+# path after one step, the bf16 run's forward quantities and the f32
+# run's grads (1e-7 of input noise moved those 3.5%, max per leaf)
+RESNET_GRAD_REL_L2 = 0.1                 # f32 step-1 grads, per leaf
+RESNET_LOSS_ATOL = 2e-2                  # bf16 step-1 loss, nats
+RESNET_F32_LOSS_ATOL = 1e-4              # f32 step-1 loss, nats
+RESNET_STATE_REL_L2 = 2e-2               # bf16 running mean/var, per tensor
+RESNET_F32_STATE_REL_L2 = 1e-4           # f32 running mean/var, per tensor
+K3_SUM_RTOL = 1e-4                       # f32 per-channel sums, reordered
+RESNET_BATCH = 128
+RESNET_HW = 224
+# every (H = W, C) a BN of ResNet-50 at 224x224 hands K3 (N = batch*H*W):
+# the stem's relu BN; per stage the a/b relu BNs at f1 channels (the
+# stride sits on the 1x1 a-conv) and the c/shortcut identity BNs at f3
+K3_PATH_SHAPES = ((112, 64), (56, 64), (56, 256), (28, 128), (28, 512),
+                  (14, 256), (14, 1024), (7, 512), (7, 2048))
+# f32 operations per element (relu where an activation applies): the
+# normalize a multiply, an add and a max; the stats a subtract and two
+# adds and a multiply; the backward passes recompute z, act'(z), dz and
+# x-hat and then sum (reduce) or combine (dx) them
+K3_OPS = {"bn_act": 3, "bn_stats": 4, "bn_bwd_reduce": 9, "bn_bwd_dx": 11}
+# (N, C) tensors each K3 kernel reads and writes, and its (C,) f32 vectors
+K3_ROWS = {"bn_act": 2, "bn_stats": 1, "bn_bwd_reduce": 2, "bn_bwd_dx": 3}
+K3_VECS = {"bn_act": 2, "bn_stats": 3, "bn_bwd_reduce": 6, "bn_bwd_dx": 6}
+K3_LINES = {"bn_act": 76, "bn_stats": 170, "bn_bwd_reduce": 182,
+            "bn_bwd_dx": 202}
 PEAK_FLOPS = {torch.bfloat16: 989e12,    # dense tensor-core bf16
               torch.float32: 67e12}      # f32 outside the tensor cores
 MAX_KL = 1e-3                            # the reference's PROMOTION_MAX_KL
@@ -567,6 +613,492 @@ def device_rows(prof, wall, steps):
                             for us, k, n in rows[:12]]}
 
 
+# ---------------------------------------------------------------- phase 7
+
+def k3_bound(kernel, n, c, dtype):
+    item = torch.finfo(dtype).bits // 8
+    nbytes = K3_ROWS[kernel] * n * c * item + K3_VECS[kernel] * c * 4
+    return bound_ms(nbytes, K3_OPS[kernel] * n * c, torch.float32)
+
+
+def _k3_inputs(gen, n, c, dtype, copies=1):
+    """``copies`` sets of (x, g) — enough that the timed launches cycle
+    through more than the 50 MB L2 — and per-channel vectors."""
+    def rows(scale, offset):
+        return [(torch.randn((n, c), generator=gen, device="cuda") * scale
+                 + offset).to(dtype) for _ in range(copies)]
+    xs, gs = rows(2.0, 1.5), rows(1.0, 0.0)
+    gamma = torch.rand((c,), generator=gen, device="cuda") * 1.5 + 0.5
+    beta = torch.randn((c,), generator=gen, device="cuda")
+    center = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    return xs, gs, gamma, beta, center
+
+
+def _k3_args(fo, x, gamma, beta, center):
+    """mean, inv, scale, shift as the training Function derives them."""
+    mean, var = fo.train_stats_reference(x, center)
+    inv = torch.rsqrt(var + 1e-5)
+    return (mean, inv, *fo._scale_shift(gamma, beta, mean, inv))
+
+
+def check_k3(fo, dtype, n, c, gen, acts=("relu",), hw=None, time_it=True):
+    """The four K3 kernels against their plain versions on one (N, C):
+    outputs within tolerance, a second launch bitwise equal; kernel,
+    plain and library (``F.batch_norm`` on the channels_last NCHW view,
+    identity activation) times at ``hw`` (None: no 4-D view, no library
+    time)."""
+    F = torch.nn.functional
+    item = torch.finfo(dtype).bits // 8
+    copies = max(1, -(-200 * 2**20 // (n * c * item))) if time_it else 1
+    xs, gs, gamma, beta, center = _k3_inputs(gen, n, c, dtype, copies)
+    x, g = xs[0], gs[0]
+    mean, inv, scale, shift = _k3_args(fo, x, gamma, beta, center)
+    errs, rel, ok = {}, {}, True
+    for act in acts:
+        y = fo.bn_act(x, scale, shift, act)
+        ref = fo.bn_act_reference(x, scale, shift, act).to(dtype)
+        errs[f"bn_act/{act}"] = (y.float() - ref.float()).abs().max().item()
+        ok &= errs[f"bn_act/{act}"] <= ATOL[dtype]
+        ok &= torch.equal(y, fo.bn_act(x, scale, shift, act))
+    s = fo.bn_stats(x, center)
+    d = x.float() - center
+    ref = torch.stack([d.sum(0), (d * d).sum(0)])
+    del d
+    # the per-channel sums are held relative to their largest entry
+    errs["bn_stats"] = (s - ref).abs().max().item()
+    rel["bn_stats"] = errs["bn_stats"] / ref.abs().max().item()
+    ok &= rel["bn_stats"] <= K3_SUM_RTOL
+    ok &= torch.equal(s, fo.bn_stats(x, center))
+    for act in acts:
+        if not fo.supported_train_activation(act):
+            continue
+        r = fo.bn_bwd_reduce(x, g, scale, shift, mean, inv, act)
+        dx = fo.bn_bwd_dx(x, g, scale, shift, mean, inv, r / n, act)
+        dx_ref, dgamma, dbeta = fo.bn_bwd_reference(x, g, gamma, beta, mean,
+                                                    inv, act)
+        ref = torch.stack([dbeta, dgamma])
+        errs[f"bn_bwd_reduce/{act}"] = (r - ref).abs().max().item()
+        rel[f"bn_bwd_reduce/{act}"] = \
+            errs[f"bn_bwd_reduce/{act}"] / ref.abs().max().item()
+        errs[f"bn_bwd_dx/{act}"] = (dx.float() - dx_ref.float()).abs() \
+            .max().item()
+        ok &= rel[f"bn_bwd_reduce/{act}"] <= K3_SUM_RTOL
+        ok &= grad_ok(dx, dx_ref, dtype)
+        ok &= torch.equal(r, fo.bn_bwd_reduce(x, g, scale, shift, mean, inv,
+                                              act))
+        del dx, dx_ref
+    torch.cuda.synchronize()
+    name = f"K3 {str(dtype)[6:]} N{n} C{c}"
+    errors = (f"max abs errors {json.dumps(errs)}, sums relative "
+              f"{json.dumps(rel)}")
+    if not ok:
+        log(f"{name}: {errors} -> FAIL")
+        raise SystemExit(f"K3 {dtype} ({n}, {c}) disagrees with its plain "
+                         "version or does not repeat")
+    out = {"max_abs_err": errs}
+    if not time_it:
+        log(f"{name}: {errors} -> ok")
+        return out
+    corr = fo.bn_bwd_reduce(x, g, scale, shift, mean, inv, "relu") / n
+    turn = [0]
+
+    def nxt():
+        turn[0] = (turn[0] + 1) % copies
+        return xs[turn[0]], gs[turn[0]]
+
+    kernels = {
+        "bn_act": lambda: fo.bn_act(nxt()[0], scale, shift, "relu"),
+        "bn_stats": lambda: fo.bn_stats(nxt()[0], center),
+        "bn_bwd_reduce": lambda: fo.bn_bwd_reduce(*nxt(), scale, shift, mean,
+                                                  inv, "relu"),
+        "bn_bwd_dx": lambda: fo.bn_bwd_dx(*nxt(), scale, shift, mean, inv,
+                                          corr, "relu")}
+    plain = {
+        "bn_act": lambda: fo.bn_act_reference(nxt()[0], scale, shift,
+                                              "relu").to(dtype),
+        "bn_stats": lambda: fo.train_stats_reference(nxt()[0], center),
+        "bn_bwd_reduce": lambda: _plain_reduce(fo, *nxt(), scale, shift,
+                                               mean, inv),
+        "bn_bwd_dx": lambda: fo.bn_bwd_reference(*nxt(), gamma, beta, mean,
+                                                 inv, "relu")}
+    lib = {}
+    if hw is not None:
+        b = n // (hw * hw)
+        x4 = [t.view(b, hw, hw, c).permute(0, 3, 1, 2) for t in xs]
+
+        def nxt4():
+            turn[0] = (turn[0] + 1) % copies
+            return x4[turn[0]]
+
+        rm, rv = mean.clone(), 1.0 / inv.square() - 1e-5
+        lib["bn_act"] = cuda_ms(lambda: F.batch_norm(
+            nxt4(), rm, rv, gamma, beta, False, 0.1, 1e-5))
+        lib["bn_stats"] = cuda_ms(lambda: F.batch_norm(
+            nxt4(), None, None, gamma, beta, True, 0.1, 1e-5))
+        xr = x4[0].detach().requires_grad_(True)
+        gr, br = (t.detach().requires_grad_(True) for t in (gamma, beta))
+        yb = F.batch_norm(xr, None, None, gr, br, True, 0.1, 1e-5)
+        g4 = gs[0].view(b, hw, hw, c).permute(0, 3, 1, 2)
+        lib["bn_bwd_reduce"] = lib["bn_bwd_dx"] = cuda_ms(
+            lambda: torch.autograd.grad(yb, (xr, gr, br), g4,
+                                        retain_graph=True), iters=10)
+        del yb, xr
+    res = {}
+    for k in kernels:
+        bms, by = k3_bound(k, n, c, dtype)
+        res[k] = {"ms": cuda_ms(kernels[k]),
+                  "plain_ms": cuda_ms(plain[k], iters=5),
+                  "library_ms": lib.get(k), "bound_ms": bms, "bound_by": by,
+                  "max_abs_err": max(v for e, v in errs.items()
+                                     if e.startswith(k))}
+
+    def fmt(v, digits):
+        return "-" if v is None else f"{v:.{digits}f}"
+
+    log(f"{name}: {errors}; ms (kernel / plain / library / bound) "
+        + ", ".join(
+            f"{k} {fmt(r['ms'], 4)} / {fmt(r['plain_ms'], 4)} / "
+            f"{fmt(r['library_ms'], 4)} / {fmt(r['bound_ms'], 5)}"
+            for k, r in res.items()) + " -> ok")
+    out.update(res)
+    return out
+
+
+def _plain_reduce(fo, x, g, scale, shift, mean, inv):
+    """The plain version of the backward reduce alone: Σdz, Σdz·x̂."""
+    xf = x.float()
+    dz = g.float() * fo._ACT_GRADS["relu"](xf * scale + shift)
+    xhat = (xf - mean) * inv
+    return torch.stack([dz.sum(0), (dz * xhat).sum(0)])
+
+
+def k3_phase(fo, gen):
+    """Phase 7: the path's shapes in bf16 and f32, every activation at one
+    shape, odd shapes. Returns the results at each path shape and the
+    (dtype, N, C, activation) cases checked."""
+    out, checked = {}, set()
+    for dtype in (torch.bfloat16, torch.float32):
+        for hw, c in K3_PATH_SHAPES:
+            n = RESNET_BATCH * hw * hw
+            out[(dtype, n, c)] = check_k3(fo, dtype, n, c, gen,
+                                          acts=("relu", "identity"), hw=hw)
+            checked |= {(dtype, n, c, a) for a in ("relu", "identity")}
+            torch.cuda.empty_cache()
+        check_k3(fo, dtype, RESNET_BATCH * 14 * 14, 1024, gen,
+                 acts=tuple(fo._ACTS), time_it=False)
+        for c in (3, 5, 24):
+            check_k3(fo, dtype, 1000, c, gen, acts=("relu", "tanh"),
+                     time_it=False)
+    return out, checked
+
+
+# ---------------------------------------------------------------- phase 8
+
+def k3_counts(fo):
+    return {"bn_act": fo.LAUNCHES, "bn_stats": fo.LAUNCHES_STATS,
+            "bn_bwd_reduce": fo.LAUNCHES_BWD_REDUCE,
+            "bn_bwd_dx": fo.LAUNCHES_BWD_DX}
+
+
+class _StepLog:
+    """A fit listener: loss, host time and K3 launch counts at the end of
+    each step (``fit`` reads the loss to the host first, which waits for
+    the step's kernels)."""
+
+    def __init__(self, fo):
+        self.fo, self.rows = fo, []
+        self.base = k3_counts(fo)
+
+    def iteration_done(self, net, it, epoch, loss):
+        self.rows.append((loss, time.perf_counter(), k3_counts(self.fo)))
+
+    def launches_per_step(self):
+        before = [self.base] + [r[2] for r in self.rows[:-1]]
+        return [{k: r[2][k] - b[k] for k in r[2]}
+                for r, b in zip(self.rows, before)]
+
+
+def _set_fused(net, fused):
+    from deeplearning4j_tpu_torch.nn.layers.norm import BatchNormalization
+    for node in net.conf.nodes.values():
+        if isinstance(node.op, BatchNormalization):
+            node.op.fused = fused
+
+
+@contextlib.contextmanager
+def _k3_cases(fo):
+    """Record the (dtype, N, C, activation) of every K3 call the BN layers
+    make (``fused_bn_act_train`` and ``fused_bn_act``); the calls
+    themselves run unchanged."""
+    cases = []
+    train_bn, infer_bn = fo.fused_bn_act_train, fo.fused_bn_act
+
+    def train(x2d, gamma, beta, center, eps=1e-5, activation="identity"):
+        cases.append((x2d.dtype, *x2d.shape, activation))
+        return train_bn(x2d, gamma, beta, center, eps, activation)
+
+    def infer(x2d, scale, shift, activation="identity"):
+        cases.append((x2d.dtype, *x2d.shape, activation))
+        return infer_bn(x2d, scale, shift, activation)
+
+    fo.fused_bn_act_train, fo.fused_bn_act = train, infer
+    try:
+        yield cases
+    finally:
+        fo.fused_bn_act_train, fo.fused_bn_act = train_bn, infer_bn
+
+
+def _resnet_run(model, fused, x, y, steps, fo):
+    """Train a fresh ResNet-50 (identical params: the same seed) for
+    ``steps`` steps on one batch, every BN's ``fused`` set as given.
+    Returns the net, its record (losses, K3 launches per step, samples/s
+    over steps 2-5, peak device memory), the step-1 grads (Momentum's
+    trace after one step from v0 = 0) and the running stats after
+    step 1."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+
+    net = ComputationGraph(model.conf())
+    _set_fused(net, fused)
+    net.init()
+    steplog = _StepLog(fo)
+    net.set_listeners(steplog)
+    ds = DataSet(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    net.fit(ds)
+    grads = {f"{n}/{k}": t.clone() for n, p in
+             net._opt_state[1][0]["trace"].items() for k, t in p.items()}
+    states1 = {f"{n}/{k}": t.clone() for n, p in net.states.items()
+               for k, t in p.items()}
+    t1 = time.perf_counter()
+    if steps > 1:
+        net.fit([ds] * (steps - 1))
+    rec = {"losses": [r[0] for r in steplog.rows],
+           "peak_alloc_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "k3_launches_per_step": steplog.launches_per_step()}
+    if steps > 1:
+        rec["samples_per_s_steps_2_5"] = \
+            x.shape[0] * (steps - 1) / (steplog.rows[-1][1] - t1)
+    return net, rec, grads, states1
+
+
+def _worst(a, b):
+    """(max, median, worst key) of the per-entry relative L2 of a vs b."""
+    rels = {k: rel_l2(a[k], b[k]) for k in b}
+    worst = max(rels, key=rels.get)
+    return rels[worst], sorted(rels.values())[len(rels) // 2], worst
+
+
+def _step1(runs, a, b):
+    """Run a against run b after step 1: |loss delta|, and (max, median,
+    worst key) of the per-tensor relative L2 of the running stats and of
+    the grads."""
+    (ra, ga, sa), (rb, gb, sb) = runs[a], runs[b]
+    return (abs(ra["losses"][0] - rb["losses"][0]), _worst(sa, sb),
+            _worst(ga, gb))
+
+
+def resnet_path(fa, pa, fo, checked, steps=5, profile=False):
+    """ResNet-50 at full width trained on the kernel path and the plain
+    path from identical params and one batch, then inference.
+
+    The net at its random init is chaotic: on the card half a bf16
+    rounding of input noise moved the plain path's own step-1 grads by
+    more than 100% (rel L2), 1e-7 of f32 noise by ~3%, and the
+    trajectories part further with each step. So the kernel path is held
+    to the plain path where nothing has diverged yet: the step-1 loss and
+    running stats in bf16 and f32, the step-1 grads in f32, and
+    ``output()``. Later-step losses and the bf16 grads are printed, not
+    held. A second plain run on the identical input (one step) shows how
+    much of the spread is the plain path's own, cuDNN's order of
+    summation. The kernels themselves are held to their plain versions
+    in phase 7 (``checked``) at every (dtype, N, C, activation) this run
+    hands them, which is asserted here."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.train import Momentum
+    from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
+
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(
+        rng.random((RESNET_BATCH, RESNET_HW, RESNET_HW, 3), np.float32),
+        device="cuda")
+    y = torch.as_tensor(np.eye(1000, dtype=np.float32)[
+        rng.integers(0, 1000, RESNET_BATCH)], device="cuda")
+    failed, seen, knet, train_counts = [], set(), None, None
+    # bench.py's resnet50 row (bench.py:786-788, batch 128) is bf16; the
+    # f32 net trains one step, for its grads
+    for dtype, n_steps, loss_atol, state_atol, grad_limit in (
+            (torch.bfloat16, steps, RESNET_LOSS_ATOL, RESNET_STATE_REL_L2,
+             None),
+            (torch.float32, 1, RESNET_F32_LOSS_ATOL,
+             RESNET_F32_STATE_REL_L2, RESNET_GRAD_REL_L2)):
+        model = ResNet50(num_classes=1000, updater=Momentum(0.1, 0.9),
+                         compute_dtype=torch.bfloat16
+                         if dtype == torch.bfloat16 else None,
+                         input_shape=(RESNET_HW, RESNET_HW, 3))
+        runs = {}
+        for path, fused, path_steps in (("kernel", True, n_steps),
+                                        ("plain", False, n_steps),
+                                        ("plain_again", False, 1)):
+            main = dtype == torch.bfloat16 and path == "kernel"
+            if main:                   # the main path's own counts
+                fa.reset_launches()
+                pa.reset_launches()
+                fo.reset_launches()
+            with _k3_cases(fo) as cases:
+                net, rec, g, s1 = _resnet_run(model, fused, x, y,
+                                              path_steps, fo)
+            seen |= set(cases)
+            if main:
+                knet = net
+                train_counts = {
+                    **k3_counts(fo), "flash_attention_fwd": fa.LAUNCHES,
+                    "flash_attention_bwd_dq": fa.LAUNCHES_BWD_DQ,
+                    "flash_attention_bwd_dkv": fa.LAUNCHES_BWD_DKV,
+                    "paged_attention": pa.LAUNCHES}
+                if not all(n == 53 for per in rec["k3_launches_per_step"]
+                           for n in per.values()):
+                    failed.append("K3 launch counts")
+                if profile:
+                    profile_resnet_step(net, DataSet(x, y), fo)
+            log(f"resnet50 train {path} path (B{RESNET_BATCH} {RESNET_HW}x"
+                f"{RESNET_HW}, {str(dtype)[6:]}, BN fused={fused}): "
+                f"{json.dumps(rec)}")
+            runs[path] = (rec, g, s1)
+            del net
+            torch.cuda.empty_cache()
+        tag = str(dtype)[6:]
+        kp = _step1(runs, "kernel", "plain")
+        pp = _step1(runs, "plain_again", "plain")
+        later = [abs(a - b) for a, b in zip(runs["kernel"][0]["losses"],
+                                            runs["plain"][0]["losses"])][1:]
+        finite = all(bool(torch.isfinite(t).all())
+                     for t in runs["kernel"][1].values())
+        log(f"resnet50 step 1, kernel vs plain ({tag}) [plain vs plain on "
+            f"the identical input]: |loss delta| {kp[0]:.3e} [{pp[0]:.3e}] "
+            f"(limit {loss_atol}); running stats rel L2 max {kp[1][0]:.3e} "
+            f"({kp[1][2]}) [{pp[1][0]:.3e}] (limit {state_atol}); grads rel "
+            f"L2 median {kp[2][1]:.3e} max {kp[2][0]:.3e} ({kp[2][2]}) "
+            f"[{pp[2][1]:.3e} / {pp[2][0]:.3e}] (limit "
+            f"{grad_limit or 'none: not held'}); all finite {finite}"
+            + (f"; |loss delta| at steps 2-{n_steps}, not held: "
+               f"{[f'{v:.2e}' for v in later]}" if later else ""))
+        # written as "not (x <= limit)" so that a NaN fails
+        if not finite:
+            failed.append(f"{tag} non-finite grads")
+        if not kp[0] <= loss_atol:
+            failed.append(f"{tag} step-1 loss")
+        if not kp[1][0] <= state_atol:
+            failed.append(f"{tag} running stats")
+        if grad_limit is not None and not kp[2][0] <= grad_limit:
+            failed.append(f"{tag} step-1 grads")
+        if n_steps > 1 and not all(
+                runs[p][0]["losses"][-1] < runs[p][0]["losses"][0]
+                for p in ("kernel", "plain")):
+            failed.append(f"{tag} loss does not fall")
+        del runs
+    log(f"resnet50 K3 launches on the main path, {steps} steps: "
+        f"{json.dumps(train_counts)}")
+    if failed:
+        raise SystemExit(f"resnet50 train path: {failed} disagree with the "
+                         "plain path")
+
+    # inference with the zoo's default fused="auto": the 33 relu BNs run
+    # the normalize kernel, the 20 identity BNs the plain path
+    _set_fused(knet, "auto")
+    fa.reset_launches()
+    pa.reset_launches()
+    fo.reset_launches()
+    with _k3_cases(fo) as cases:
+        out_k = knet.output(x)
+    torch.cuda.synchronize()
+    seen |= set(cases)
+    out_counts = {**k3_counts(fo), "flash_attention_fwd": fa.LAUNCHES,
+                  "flash_attention_bwd_dq": fa.LAUNCHES_BWD_DQ,
+                  "flash_attention_bwd_dkv": fa.LAUNCHES_BWD_DKV,
+                  "paged_attention": pa.LAUNCHES}
+    # the KL is taken on the logits of the same inference forward (bf16
+    # softmax probabilities underflow to 0 once the net has trained)
+    logits = {}
+    with torch.no_grad():
+        for fused in ("auto", False):
+            _set_fused(knet, fused)
+            _, pre, _ = knet._forward(knet.params, knet.states, {"in": x},
+                                      train=False, rng=None,
+                                      stop_at_output_preact=True)
+            logits[fused] = knet.conf.nodes["out"].op.pre_activation(
+                knet.params["out"], pre["out"])
+    kl = kl_rows(logits[False], logits["auto"]).max().item()
+    finite = bool(torch.isfinite(out_k.float()).all())
+    sums = out_k.float().sum(-1)
+    rows_ok = bool(torch.allclose(sums, torch.ones_like(sums), atol=2e-2))
+    agree = (logits["auto"].argmax(-1) == logits[False].argmax(-1)) \
+        .float().mean().item()
+    log(f"resnet50 output() fused=auto vs plain BNs: shape "
+        f"{tuple(out_k.shape)}, finite {finite}, rows sum to 1 {rows_ok}, "
+        f"per-row KL of the logits max {kl:.3e} (limit {MAX_KL}), argmax "
+        f"agree {agree:.3f}, launches {json.dumps(out_counts)} (want "
+        "bn_act 33, K3 others 0)")
+    if out_k.shape != (RESNET_BATCH, 1000) or not finite or not rows_ok \
+            or not kl <= MAX_KL:
+        raise SystemExit("resnet50 output(): logits disagree with the plain "
+                         "path")
+    want = {"bn_act": 33, "bn_stats": 0, "bn_bwd_reduce": 0, "bn_bwd_dx": 0}
+    if {k: out_counts[k] for k in want} != want:
+        raise SystemExit("resnet50 output(): K3 launch counts "
+                         f"{out_counts}, want {want}")
+    unchecked = sorted(f"{str(dt)[6:]} N{n} C{c} {act}"
+                       for dt, n, c, act in seen - checked)
+    log(f"resnet50 K3 cases (dtype, N, C, activation): {len(seen)} on the "
+        f"path, {len(seen) - len(unchecked)} of them held in phase 7")
+    if unchecked:
+        raise SystemExit(f"resnet50: K3 ran at {unchecked}, which phase 7 "
+                         "did not hold to the plain version")
+    return {"resnet_train": train_counts, "resnet_output": out_counts}
+
+
+def profile_resnet_step(net, ds, fo):
+    """One kernel-path train step under ``torch.profiler``: device-busy
+    share, the K3 and conv/GEMM shares of device time, the top kernels,
+    and K3's bound for the step (the four kernels' bounds summed over the
+    (N, C) rows each BN layer of the step hands them)."""
+    from torch.profiler import ProfilerActivity, profile
+    with _k3_cases(fo) as rows, profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = device_rows(prof, wall, 1)
+    shares = {"k3": 0.0, "conv_gemm": 0.0, "other": 0.0}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0.0))
+        key = ev.key.lower()
+        if key.startswith("bn_") or "bn_act_kernel" in key \
+                or "bn_reduce_kernel" in key or "bn_dx_kernel" in key \
+                or "bn_finish_kernel" in key:
+            shares["k3"] += us
+        elif any(t in key for t in ("conv", "gemm", "xmma", "cudnn", "nvjet",
+                                    "cutlass", "implicit", "wgrad", "dgrad",
+                                    "sm90")):
+            shares["conv_gemm"] += us
+        else:
+            shares["other"] += us
+    busy = sum(shares.values())
+    out["device_ms_by_class"] = {k: v / 1e3 for k, v in shares.items()}
+    out["share_of_device"] = {k: v / busy for k, v in shares.items()}
+    out["k3_bn_layers"] = len(rows)
+    out["k3_bound_ms"] = sum(k3_bound(k, n, c, dt)[0]
+                             for dt, n, c, _ in rows for k in K3_OPS)
+    out["k3_ms_over_bound"] = shares["k3"] / 1e3 / out["k3_bound_ms"]
+    log(f"profile (resnet50 train step, B{RESNET_BATCH}, kernel path): "
+        + json.dumps(out))
+
+
 def profile_decode(steps=10):
     """Where a paged decode step's time goes at full width: 8 decoding
     slots (contexts ~600), ``steps`` sweeps under ``torch.profiler``.
@@ -611,12 +1143,15 @@ def main():
                     help="also profile paged decode sweeps (torch.profiler)")
     ap.add_argument("--profile-train", action="store_true",
                     help="also profile one kernel-path train step")
+    ap.add_argument("--profile-resnet", action="store_true",
+                    help="also profile one kernel-path ResNet-50 step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from deeplearning4j_tpu_torch.kernels import KERNEL_SOURCES, _build
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.kernels import fused_ops as fo
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full f32 matmuls
@@ -649,11 +1184,17 @@ def main():
             (torch.bfloat16, 32, 1024, True)):       # the train path's
         bwd[(dt, b, t)] = check_flash_bwd(fa, dt, b, t, causal, gen)
         torch.cuda.empty_cache()
+    k3, k3_checked = k3_phase(fo, gen)
     if args.kernels_only:
         return 0
 
     by_path = main_path(fa, pa)
     by_path["train"] = train_path(fa, pa, profile=args.profile_train)
+    by_path.update(resnet_path(fa, pa, fo, k3_checked,
+                               profile=args.profile_resnet))
+    # the stage-0 BN's shape (N = 128*56*56, C = 256) stands for K3
+    main_k3 = k3[(torch.bfloat16, RESNET_BATCH * 56 * 56, 256)]
+    resnet_paths = ("resnet_train", "resnet_output")
     main_k1 = k1[(torch.bfloat16, 1, 2048)]    # a dense prefill's shape
     main_k2 = k2[torch.bfloat16]
     main_bwd = bwd[(torch.bfloat16, 32, 1024)]  # the train path's shape
@@ -693,6 +1234,19 @@ def main():
          "ms": main_k2["ms"], "plain_ms": main_k2["plain_ms"],
          "bound_ms": main_k2["bound_ms"], "bound_by": main_k2["bound_by"],
          "library_ms": None},
+        *({"name": name, "route": "cuda",
+           "source": "deeplearning4j_tpu_torch/csrc/fused_bn_act.cu",
+           "replaces": f"deeplearning4j_tpu/kernels/fused_ops.py:{line}",
+           "launches": sum(by_path[p][name] for p in resnet_paths),
+           "launches_by_path": {p: by_path[p][name] for p in resnet_paths},
+           "max_abs_err": max(r[name]["max_abs_err"]
+                              for (dt, _, _), r in k3.items()
+                              if dt == torch.bfloat16),
+           "ms": main_k3[name]["ms"], "plain_ms": main_k3[name]["plain_ms"],
+           "bound_ms": main_k3[name]["bound_ms"],
+           "bound_by": main_k3[name]["bound_by"],
+           "library_ms": main_k3[name]["library_ms"]}
+          for name, line in K3_LINES.items()),
     ]
     if args.profile:
         profile_decode()

@@ -6,13 +6,19 @@ and nothing of ``deeplearning4j_tpu``. The kernels the JAX package wrote
 in Pallas for the TPU are CUDA C++ here (``csrc/``), built with ``nvcc``
 at first use and bound with ``ctypes``.
 
-What is ported so far is the serving path of the Transformer-LM:
+What is ported so far:
 
-- ``zoo.transformer`` — config, params, the inference forward, ``generate``;
-- ``kernels.flash_attention`` — the causal flash-attention forward (K1);
+- ``zoo.transformer`` — the Transformer-LM: config, params, forward,
+  ``generate``, and training (``lm_loss``, remat, ``make_train_step``);
+- ``kernels.flash_attention`` — flash attention forward (K1) and its dQ
+  and dK/dV backward kernels;
 - ``kernels.paged_attention`` — the paged-KV decode kernel (K2);
 - ``serving.kvcache`` / ``serving.engine`` / ``serving.scheduler`` — dense
-  and paged KV pools, the generation engine and continuous batching.
+  and paged KV pools, the generation engine and continuous batching;
+- ``nn``, ``train``, ``data``, ``zoo.resnet`` — the DL4J layer API that
+  ResNet-50 needs, through ``ComputationGraph.fit`` / ``output``;
+- ``kernels.fused_ops`` — fused BatchNorm + activation (K3): normalize,
+  batch stats, backward reduce and backward dx kernels.
 
 Entry points take ``device=None``, which means the CUDA card; without one
 they raise unless the caller passed ``device="cpu"``.

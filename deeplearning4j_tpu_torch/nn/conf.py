@@ -1,0 +1,178 @@
+"""NeuralNetConfiguration — port of ``deeplearning4j_tpu/nn/conf.py``
+(``NeuralNetConfiguration.Builder``, global defaults, their resolution
+into each layer).
+
+Global values (updater, weightInit, activation, l1/l2, dropout, dtype
+policy) are defaults that individual layers may override. The dtype
+policy takes torch dtypes: params in f32, compute in bf16 with
+``.data_type(torch.float32, torch.bfloat16)``.
+
+Not ported yet: ``ListBuilder`` / ``MultiLayerConfiguration`` (``list()``
+raises) and the JSON / upstream serde.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Optional
+
+import torch
+
+from ..train.updaters import Sgd, Updater
+from .layers.base import Layer
+
+
+@dataclass
+class GlobalConf:
+    seed: int = 12345
+    updater: Updater = field(default_factory=lambda: Sgd(1e-1))
+    bias_updater: Optional[Updater] = None
+    weight_init: Any = "xavier"
+    activation: Any = None
+    l1: float = 0.0
+    l2: float = 0.0
+    weight_decay: float = 0.0
+    dropout: float = 0.0
+    weight_noise: Any = None          # IWeightNoise (WeightNoise/DropConnect)
+    grad_norm: str = "none"
+    grad_norm_threshold: float = 1.0
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = None         # e.g. torch.bfloat16 for mixed precision
+    mini_batch: bool = True
+    max_num_line_search_iterations: int = 5  # accepted for config parity; unused
+    weight_constraints: Any = None    # constrainWeights(...)
+    bias_constraints: Any = None      # constrainBias(...)
+
+
+class NeuralNetConfiguration:
+    @staticmethod
+    def builder() -> "Builder":
+        return Builder()
+
+
+class Builder:
+    def __init__(self):
+        self._g = GlobalConf()
+
+    # --- fluent setters (reference names, snake_case) ----------------------
+    def seed(self, s):
+        self._g.seed = int(s)
+        return self
+
+    def updater(self, u):
+        self._g.updater = u
+        return self
+
+    def bias_updater(self, u):
+        self._g.bias_updater = u
+        return self
+
+    def weight_init(self, wi):
+        self._g.weight_init = wi
+        return self
+
+    def activation(self, a):
+        self._g.activation = a
+        return self
+
+    def l1(self, v):
+        self._g.l1 = float(v)
+        return self
+
+    def l2(self, v):
+        self._g.l2 = float(v)
+        return self
+
+    def weight_decay(self, v):
+        self._g.weight_decay = float(v)
+        return self
+
+    def drop_out(self, retain_prob):
+        """DL4J semantics: argument is the RETAIN probability."""
+        self._g.dropout = 1.0 - float(retain_prob)
+        return self
+
+    def dropout_rate(self, rate):
+        self._g.dropout = float(rate)
+        return self
+
+    def weight_noise(self, wn):
+        """DL4J Builder.weightNoise(IWeightNoise) — WeightNoise/DropConnect."""
+        self._g.weight_noise = wn
+        return self
+
+    def gradient_normalization(self, gn):
+        self._g.grad_norm = gn
+        return self
+
+    def gradient_normalization_threshold(self, t):
+        self._g.grad_norm_threshold = float(t)
+        return self
+
+    def data_type(self, param_dtype, compute_dtype=None):
+        self._g.param_dtype = param_dtype
+        self._g.compute_dtype = compute_dtype
+        return self
+
+    def mini_batch(self, b):
+        self._g.mini_batch = bool(b)
+        return self
+
+    def constrain_weights(self, *constraints):
+        self._g.weight_constraints = list(constraints)
+        return self
+
+    def constrain_bias(self, *constraints):
+        self._g.bias_constraints = list(constraints)
+        return self
+
+    def constrain_all_parameters(self, *constraints):
+        self._g.weight_constraints = list(constraints)
+        self._g.bias_constraints = list(constraints)
+        return self
+
+    # no-op parity shims (accepted, irrelevant here)
+    def optimization_algo(self, *_):
+        return self
+
+    def cache_mode(self, *_):
+        return self
+
+    def cudnn_algo_mode(self, *_):
+        return self
+
+    def list(self):
+        raise NotImplementedError(
+            "ListBuilder / MultiLayerConfiguration (deeplearning4j_tpu/nn/"
+            "conf.py) are not ported yet; use graph_builder()")
+
+    def graph_builder(self):
+        from .graph import GraphBuilder
+        return GraphBuilder(self._g)
+
+
+def resolve_layer_defaults(layer: Layer, g: GlobalConf) -> Layer:
+    """Apply global defaults where the layer didn't specify (reference
+    precedence: layer > global)."""
+    if layer.weight_init is None:
+        layer.weight_init = g.weight_init
+    if getattr(layer, "activation", "__missing__") is None:
+        layer.activation = g.activation or "identity"
+    if layer.l1 == 0.0 and g.l1:
+        layer.l1 = g.l1
+    if layer.l2 == 0.0 and g.l2:
+        layer.l2 = g.l2
+    if layer.dropout == 0.0 and g.dropout and layer.has_params():
+        layer.dropout = g.dropout
+    if layer.weight_noise is None and g.weight_noise is not None \
+            and layer.has_params():
+        layer.weight_noise = g.weight_noise
+    if layer.constraints is None and g.weight_constraints:
+        layer.constraints = list(g.weight_constraints)
+    if layer.bias_constraints is None and g.bias_constraints:
+        layer.bias_constraints = list(g.bias_constraints)
+    layer.dtype = g.param_dtype if layer.dtype is torch.float32 \
+        else layer.dtype
+    if layer.compute_dtype is None and g.compute_dtype is not None:
+        layer.compute_dtype = g.compute_dtype
+    return layer

@@ -1,1 +1,1 @@
-"""Model zoo of the port: the Transformer-LM (inference)."""
+"""Model zoo of the port: the Transformer-LM and ResNet-50."""

@@ -12,7 +12,10 @@ Tolerances: bf16 outputs atol 2e-2 (one bf16 rounding of values of
 order 1), f32 atol 1e-4 (f32 accumulation order), lse atol 1e-3. The
 backward's bf16 gradients are held to a relative L2 error of 1e-2: the
 kernels and the plain backward round dS and P to bf16 at the same points,
-but a product that lands near a rounding boundary flips one ulp.
+but a product that lands near a rounding boundary flips one ulp. The
+fused BN kernels (K3): outputs as above; their f32 per-channel sums are
+held to a relative 1e-5 (the same terms summed in another order) and
+must repeat bit for bit from launch to launch (no atomics).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+from deeplearning4j_tpu_torch.kernels import fused_ops as fo
 from deeplearning4j_tpu_torch.kernels import paged_attention as pa
 
 torch.set_num_threads(2)
@@ -164,3 +168,98 @@ def test_flash_function_grads_match_autograd_reference(gen, dtype, causal):
     want = torch.autograd.grad((ro, rl), (q, k, v), (do.transpose(1, 2), dl))
     for a, w in zip(got, want):
         _close(a, w, dtype)
+
+
+def _bn_inputs(gen, n, c, dtype, offset=1.5):
+    x = (torch.randn((n, c), generator=gen, device="cuda") * 2 + offset) \
+        .to(dtype)
+    gamma = torch.rand((c,), generator=gen, device="cuda") * 1.5 + 0.5
+    beta = torch.randn((c,), generator=gen, device="cuda")
+    center = torch.randn((c,), generator=gen, device="cuda") * 0.1
+    return x, gamma, beta, center
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,c", [(1000, 3), (384, 24), (517, 64),
+                                 (4096, 256), (98, 2048)])
+@pytest.mark.parametrize("act", sorted(fo._ACTS))
+def test_bn_act_kernel_matches_plain(gen, dtype, n, c, act):
+    x, gamma, beta, _ = _bn_inputs(gen, n, c, dtype)
+    before = fo.LAUNCHES
+    y = fo.bn_act(x, gamma, beta, act)
+    assert fo.LAUNCHES == before + 1
+    ref = fo.bn_act_reference(x, gamma, beta, act).to(dtype)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == x.shape
+    torch.testing.assert_close(y.float(), ref.float(), atol=ATOL[dtype],
+                               rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,c", [(1000, 3), (1000, 5), (384, 24),
+                                 (50176, 64), (6272, 2048)])
+def test_bn_stats_kernel_matches_plain_and_repeats(gen, dtype, n, c):
+    x, _, _, center = _bn_inputs(gen, n, c, dtype)
+    s = fo.bn_stats(x, center)
+    s_again = fo.bn_stats(x, center)
+    d = x.float() - center
+    ref = torch.stack([d.sum(0), (d * d).sum(0)])
+    torch.cuda.synchronize()
+    assert torch.equal(s, s_again)
+    torch.testing.assert_close(s, ref, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,c", [(1000, 3), (384, 24), (50176, 64),
+                                 (6272, 2048)])
+@pytest.mark.parametrize("act", sorted(fo._ACT_GRADS))
+def test_bn_backward_kernels_match_plain(gen, dtype, n, c, act):
+    x, gamma, beta, center = _bn_inputs(gen, n, c, dtype)
+    g = torch.randn((n, c), generator=gen, device="cuda").to(dtype)
+    mean, var = fo.train_stats_reference(x, center)
+    inv = torch.rsqrt(var + 1e-5)
+    scale = gamma * inv
+    shift = beta - mean * scale
+    r = fo.bn_bwd_reduce(x, g, scale, shift, mean, inv, act)
+    r_again = fo.bn_bwd_reduce(x, g, scale, shift, mean, inv, act)
+    dx = fo.bn_bwd_dx(x, g, scale, shift, mean, inv, r / n, act)
+    dx_ref, dgamma, dbeta = fo.bn_bwd_reference(x, g, gamma, beta, mean,
+                                                inv, act)
+    torch.cuda.synchronize()
+    assert torch.equal(r, r_again)
+    torch.testing.assert_close(r, torch.stack([dbeta, dgamma]), rtol=1e-4,
+                               atol=1e-2)
+    assert dx.dtype == dtype
+    _close(dx, dx_ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act", ["identity", "relu"])
+def test_fused_bn_functions_match_plain_autograd(gen, dtype, act):
+    """The two autograd Functions on CUDA (kernels) against the same
+    Functions on the CPU (plain versions), values and grads."""
+    n, c = 2048, 64
+    x, gamma, beta, center = _bn_inputs(gen, n, c, dtype)
+    g = torch.randn((n, c), generator=gen, device="cuda").to(dtype)
+    counts = (fo.LAUNCHES, fo.LAUNCHES_STATS, fo.LAUNCHES_BWD_REDUCE,
+              fo.LAUNCHES_BWD_DX)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        xs, gs, bs = (t.to(dev).detach().requires_grad_(True)
+                      for t in (x, gamma, beta))
+        y, mean, var = fo.fused_bn_act_train(xs, gs, bs, center.to(dev),
+                                             1e-5, act)
+        grads = torch.autograd.grad(y, (xs, gs, bs), g.to(dev))
+        outs[dev] = [t.cpu() for t in (y, mean, var, *grads)]
+    assert (fo.LAUNCHES, fo.LAUNCHES_STATS, fo.LAUNCHES_BWD_REDUCE,
+            fo.LAUNCHES_BWD_DX) == tuple(k + 1 for k in counts)
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        if got.dtype == torch.float32 and dtype == torch.bfloat16 \
+                and got.shape != (n, c):
+            torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-2)
+        else:
+            _close(got, want, dtype)
+    xs = x.detach().requires_grad_(True)
+    y = fo.fused_bn_act(xs, gamma, beta, act)
+    (gx,) = torch.autograd.grad(y, xs, g)
+    assert fo.LAUNCHES == counts[0] + 2 and gx.dtype == dtype

@@ -53,7 +53,13 @@ def test_port_has_modules_to_check():
              if PORT in p.parents}
     assert {"zoo/transformer.py", "kernels/paged_attention.py",
             "kernels/flash_attention.py", "serving/kvcache.py",
-            "serving/engine.py", "serving/scheduler.py"} <= names
+            "serving/engine.py", "serving/scheduler.py",
+            "kernels/fused_ops.py", "nn/activations.py", "nn/weights.py",
+            "nn/layers/base.py", "train/updaters.py", "nn/conf.py",
+            "nn/vertices.py", "nn/graph.py", "nn/preprocessors.py",
+            "nn/losses.py", "nn/layers/core.py", "nn/layers/conv.py",
+            "nn/layers/norm.py", "nn/computation_graph.py",
+            "data/dataset.py", "zoo/base.py", "zoo/resnet.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -63,6 +69,11 @@ def test_importing_the_port_loads_no_jax():
             "import deeplearning4j_tpu_torch.kernels.flash_attention\n"
             "import deeplearning4j_tpu_torch.kernels.paged_attention\n"
             "import deeplearning4j_tpu_torch.zoo.transformer\n"
+            "import deeplearning4j_tpu_torch.kernels.fused_ops\n"
+            "import deeplearning4j_tpu_torch.nn\n"
+            "import deeplearning4j_tpu_torch.train\n"
+            "import deeplearning4j_tpu_torch.data\n"
+            "import deeplearning4j_tpu_torch.zoo.resnet\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
             "print(bad)\n"
