@@ -8,6 +8,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --profile        # also profile paged decode
     python3 chip_smoke.py --profile-train  # also profile one train step
     python3 chip_smoke.py --profile-resnet # also profile one ResNet-50 step
+    python3 chip_smoke.py --profile-charnn # also profile one char-RNN step
 
 Phases, each fatal on failure:
 
@@ -60,6 +61,27 @@ Phases, each fatal on failure:
    ``fused="auto"``: 33 normalize launches and per-row KL <= 1e-3 against
    the plain BNs; every (dtype, N, C, activation) K3 ran at must be one
    that phase 7 held;
+9. the fused whole-sequence LSTM kernel (K4) against its plain version:
+   the char-RNN's shape (B 256, T 60, H 256) in bf16 and f32 with
+   peepholes, with zero peepholes, and with nonzero h0/c0; a ragged
+   B 3, T 7, H 40 and a T 1 shape; a second launch bit for bit equal; the
+   autograd Function's grads against autograd through the plain version;
+   kernel, plain and ``torch.nn.LSTM`` (cuDNN, the library yardstick: it
+   includes the input projection, timed beside it) times at the path shape;
+10. the char-RNN path at full width: ``TextGenerationLSTM(num_classes=77,
+   input_shape=(60, 77), units=256, compute_dtype=bf16)`` (``bench.py``'s
+   ``charnn`` row, batch 256 of seeded one-hot inputs and labels) trained
+   through ``MultiLayerNetwork.fit`` for 5 steps with both GravesLSTMs
+   ``fused=True`` (the kernel path) and ``fused=False`` (the scan) from
+   identical params: K4 launched 2 times in every step and 2 times in
+   ``output()`` (counts set to 0 just before the kernel path), step-1 loss
+   within 2e-2 nats of the plain path, one f32 step of each for the grads
+   (relative L2 per leaf <= 1e-3), the loss falling, ``output()`` logits
+   KL <= 1e-3 per row against the scan; every (dtype, B, H) K4 ran at must
+   be one that phase 9 held;
+11. LeNet at batch 512 bf16 (``bench.py``'s ``lenet`` row) through
+   ``MultiLayerNetwork.fit``, 5 steps on seeded 28x28x1 inputs: the loss
+   falls, ``output()`` rows are finite and sum to 1;
 5. a ``kernels`` JSON line, then the result line (printed last).
 
 Without a CUDA device it exits non-zero before printing any result.
@@ -114,6 +136,15 @@ PEAK_FLOPS = {torch.bfloat16: 989e12,    # dense tensor-core bf16
 MAX_KL = 1e-3                            # the reference's PROMOTION_MAX_KL
 ATOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LSE_ATOL = 1e-3
+# K4: bf16 outputs part from the plain version, which rounds h and c to
+# bf16 at every step while the kernel keeps them in f32 (5.9e-3 measured
+# at T 60); f32 only by the order of the recurrent sums
+LSTM_ATOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+CHARNN_BATCH, CHARNN_T, CHARNN_H, CHARNN_VOCAB = 256, 60, 256, 77
+CHARNN_LOSS_ATOL = 2e-2                  # bf16 step-1 loss, nats
+CHARNN_F32_LOSS_ATOL = 1e-4              # f32 step-1 loss, nats
+CHARNN_GRAD_REL_L2 = 1e-3                # f32 step-1 grads, per leaf
+LENET_BATCH = 512
 
 
 def log(*a):
@@ -1099,6 +1130,345 @@ def profile_resnet_step(net, ds, fo):
         + json.dumps(out))
 
 
+# ---------------------------------------------------------------- phase 9
+
+def lstm_bound(b, t, h, dtype):
+    """xproj and rw read once, hs written once, h0/c0 read once (the
+    inputs' dtype), peepholes f32; the recurrent products 2·B·H·4H·T. The
+    chain of T dependent steps is not in it."""
+    item = torch.finfo(dtype).bits // 8
+    nbytes = (b * t * 4 * h + b * t * h + h * 4 * h + 2 * b * h) * item \
+        + 3 * h * 4
+    return bound_ms(nbytes, 2 * b * h * 4 * h * t, dtype)
+
+
+def check_lstm(fl, dtype, b, t, h, gen, peep=True, state=False,
+               grads=False, time_it=False):
+    """K4 against ``lstm_seq_reference`` on one shape: within
+    ``LSTM_ATOL``, a second launch bitwise equal; optionally the
+    Function's grads against autograd through the plain version, and the
+    kernel, plain, cuDNN and input-projection times."""
+    dev = "cuda"
+    x = torch.randn((b, t, 4 * h), generator=gen, device=dev).to(dtype)
+    rw = (torch.randn((h, 4 * h), generator=gen, device=dev)
+          * h ** -0.5).to(dtype)
+    p = (torch.randn((3, h), generator=gen, device=dev) * 0.1 if peep
+         else torch.zeros((3, h), device=dev))
+    z = torch.zeros((b, h), device=dev)
+    h0 = (torch.randn((b, h), generator=gen, device=dev) * 0.5 if state
+          else z).to(dtype)
+    c0 = (torch.randn((b, h), generator=gen, device=dev) if state
+          else z).to(dtype)
+    ins = (x, rw, p, h0, c0)
+    out = fl.lstm_seq(*ins)
+    again = fl.lstm_seq(*ins)
+    ref = fl.lstm_seq_reference(*ins)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    repeat = torch.equal(out, again)
+    ok = err <= LSTM_ATOL[dtype] and repeat
+    res = {"max_abs_err": err}
+    name = (f"K4 fused_lstm {str(dtype)[6:]} B{b} T{t} H{h}"
+            f"{'' if peep else ' no peepholes'}"
+            f"{' h0/c0 nonzero' if state else ''}")
+    msg = f"max_abs_err {err:.3e} (atol {LSTM_ATOL[dtype]}), repeat {repeat}"
+    if grads:
+        w = torch.randn((b, t, h), generator=gen, device=dev)
+
+        def grad_of(fn):
+            leaves = [v.detach().clone().requires_grad_(True) for v in ins]
+            return torch.autograd.grad((fn(*leaves).float() * w).sum(),
+                                       leaves)
+
+        got, want = grad_of(fl.fused_lstm_seq), grad_of(fl.lstm_seq_reference)
+        res["grad_max_abs_err"] = max((a.float() - b_.float()).abs().max()
+                                      .item() for a, b_ in zip(got, want))
+        ok &= all(grad_ok(a, b_, dtype) for a, b_ in zip(got, want))
+        msg += (f", Function grads vs autograd max abs err "
+                f"{res['grad_max_abs_err']:.3e}")
+        del got, want
+    if time_it:
+        res["ms"] = cuda_ms(lambda: fl.lstm_seq(*ins))
+        res["plain_ms"] = cuda_ms(lambda: fl.lstm_seq_reference(*ins),
+                                  iters=3, warmup=1)
+        # the library yardstick: cuDNN's LSTM at input width H, zero
+        # peepholes, its input projection included; the port never calls it
+        lstm = torch.nn.LSTM(h, h, batch_first=True).to(dev, dtype)
+        lstm.flatten_parameters()
+        xin = torch.randn((b, t, h), generator=gen, device=dev).to(dtype)
+        w_in = torch.randn((h, 4 * h), generator=gen, device=dev).to(dtype)
+        b_in = torch.randn((4 * h,), generator=gen, device=dev).to(dtype)
+        with torch.no_grad():
+            res["library_ms"] = cuda_ms(lambda: lstm(xin))
+        res["proj_ms"] = cuda_ms(
+            lambda: torch.addmm(b_in, xin.view(b * t, h), w_in))
+        res["bound_ms"], res["bound_by"] = lstm_bound(b, t, h, dtype)
+        msg += (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} "
+                f"ms, cuDNN LSTM (incl. input projection) "
+                f"{res['library_ms']:.4f} ms, x@W+b {res['proj_ms']:.4f} ms,"
+                f" bound {res['bound_ms']:.5f} ms ({res['bound_by']}; the T "
+                f"dependent steps not counted), plan "
+                f"{fl.lstm_plan(b, h)}")
+    log(f"{name}: {msg} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"K4 {dtype} B{b} T{t} H{h} disagrees with its "
+                         "plain version or does not repeat")
+    return res
+
+
+def k4_phase(fl, gen):
+    """Phase 9. Returns the results at the path shape (by dtype) and the
+    (dtype, B, H) cases held."""
+    b, t, h = CHARNN_BATCH, CHARNN_T, CHARNN_H
+    out, checked = {}, set()
+    for dtype in (torch.bfloat16, torch.float32):
+        out[dtype] = check_lstm(fl, dtype, b, t, h, gen, grads=True,
+                                time_it=True)
+        check_lstm(fl, dtype, b, t, h, gen, peep=False)
+        check_lstm(fl, dtype, b, t, h, gen, state=True)
+        check_lstm(fl, dtype, 3, 7, 40, gen, state=True, grads=True)
+        check_lstm(fl, dtype, 5, 1, 16, gen, state=True)
+        checked |= {(dtype, b, h), (dtype, 3, 40), (dtype, 5, 16)}
+        torch.cuda.empty_cache()
+    return out, checked
+
+
+# --------------------------------------------------------------- phase 10
+
+def all_counts(fa, pa, fo, fl):
+    return {"fused_lstm": fl.LAUNCHES, **k3_counts(fo),
+            "flash_attention_fwd": fa.LAUNCHES,
+            "flash_attention_bwd_dq": fa.LAUNCHES_BWD_DQ,
+            "flash_attention_bwd_dkv": fa.LAUNCHES_BWD_DKV,
+            "paged_attention": pa.LAUNCHES}
+
+
+def reset_all(*mods):
+    for m in mods:
+        m.reset_launches()
+
+
+class _FitLog:
+    """A fit listener: loss, host time and K4 launches at the end of each
+    step (``fit`` reads the loss to the host first)."""
+
+    def __init__(self, fl):
+        self.fl, self.rows, self.base = fl, [], fl.LAUNCHES
+
+    def iteration_done(self, net, it, epoch, loss):
+        self.rows.append((loss, time.perf_counter(), self.fl.LAUNCHES))
+
+    def record(self, batch, steps):
+        counts = [r[2] for r in self.rows]
+        return {"losses": [r[0] for r in self.rows],
+                "k4_launches_per_step": [a - b for a, b in
+                                         zip(counts, [self.base] + counts)],
+                "samples_per_s_steps_2_5": batch * (steps - 1)
+                / (self.rows[-1][1] - self.rows[0][1]),
+                "peak_alloc_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _set_lstm_fused(net, fused):
+    from deeplearning4j_tpu_torch.nn import LSTM
+    for layer in net.layers:
+        if isinstance(layer, LSTM):
+            layer.fused = fused
+
+
+@contextlib.contextmanager
+def _k4_cases(fl):
+    """Record the (dtype, B, H) of every ``fused_lstm_seq`` call the LSTM
+    layers make; the calls themselves run unchanged."""
+    cases = []
+    real = fl.fused_lstm_seq
+
+    def spy(xproj, rw, peep, h0, c0):
+        cases.append((xproj.dtype, xproj.shape[0], rw.shape[0]))
+        return real(xproj, rw, peep, h0, c0)
+
+    fl.fused_lstm_seq = spy
+    try:
+        yield cases
+    finally:
+        fl.fused_lstm_seq = real
+
+
+def _charnn_logits(net, x):
+    """The RnnOutputLayer's logits of an inference forward, (B·T, V) f32."""
+    with torch.no_grad():
+        h, _ = net._forward(net.params, net.states, x, train=False, rng=None,
+                            stop_before_output=True)
+        out = net.layers[-1]
+        logits = out.pre_activation(net.params[f"layer_{len(net.layers) - 1}"],
+                                    h)
+    return logits.float().reshape(-1, logits.shape[-1])
+
+
+def charnn_path(fa, pa, fo, fl, checked, steps=5, profile=False):
+    """The char-RNN at full width, the kernel path against the scan."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    b, t, v = CHARNN_BATCH, CHARNN_T, CHARNN_VOCAB
+    rng = np.random.default_rng(0)
+    eye = np.eye(v, dtype=np.float32)
+    x = torch.as_tensor(eye[rng.integers(0, v, (b, t))], device="cuda")
+    y = torch.as_tensor(eye[rng.integers(0, v, (b, t))], device="cuda")
+    ds = DataSet(x, y)
+    failed, seen, runs, nets = [], set(), {}, {}
+    for path, fused in (("kernel", True), ("plain", False)):
+        net = TextGenerationLSTM(num_classes=v, input_shape=(t, v),
+                                 units=CHARNN_H,
+                                 compute_dtype=torch.bfloat16).init()
+        _set_lstm_fused(net, fused)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if path == "kernel":                 # the main path's own counts
+            reset_all(fa, pa, fo, fl)
+        steplog = _FitLog(fl)
+        net.set_listeners(steplog)
+        with _k4_cases(fl) as cases:
+            net.fit([ds] * steps)
+        seen |= set(cases)
+        rec = steplog.record(b, steps)
+        if path == "kernel":
+            train_counts = all_counts(fa, pa, fo, fl)
+            if rec["k4_launches_per_step"] != [2] * steps:
+                failed.append("K4 launches per step")
+            if profile:
+                profile_charnn_step(net, ds, fl)
+        log(f"charnn train {path} path (B{b} T{t} H{CHARNN_H} V{v}, bf16, "
+            f"GravesLSTM fused={fused}): {json.dumps(rec)}")
+        runs[path], nets[path] = rec, net
+    knet = nets["kernel"]
+    reset_all(fa, pa, fo, fl)
+    with _k4_cases(fl) as cases:
+        out_k = knet.output(x)
+    torch.cuda.synchronize()
+    seen |= set(cases)
+    out_counts = all_counts(fa, pa, fo, fl)
+    logits = {}
+    for fused in (True, False):
+        _set_lstm_fused(knet, fused)
+        logits[fused] = _charnn_logits(knet, x)
+    kl = kl_rows(logits[False], logits[True]).max().item()
+    finite = bool(torch.isfinite(out_k.float()).all())
+    sums = out_k.float().sum(-1)
+    rows_ok = bool(torch.allclose(sums, torch.ones_like(sums), atol=2e-2))
+    dloss = abs(runs["kernel"]["losses"][0] - runs["plain"]["losses"][0])
+    falls = all(r["losses"][-1] < r["losses"][0] for r in runs.values())
+    del nets, knet
+
+    # one f32 step of each path: the step-1 loss and grads
+    f32 = {}
+    for path, fused in (("kernel", True), ("plain", False)):
+        net = TextGenerationLSTM(num_classes=v, input_shape=(t, v),
+                                 units=CHARNN_H).init()
+        _set_lstm_fused(net, fused)
+        with _k4_cases(fl) as cases:
+            grads, score = net.gradient_and_score(ds)
+        seen |= set(cases)
+        f32[path] = (score, {f"{k}/{n}": g for k, p in grads.items()
+                             for n, g in p.items()})
+        del net
+    rels = {n: rel_l2(f32["kernel"][1][n], f32["plain"][1][n])
+            for n in f32["plain"][1]}
+    worst = max(rels, key=rels.get)
+    f32_dloss = abs(f32["kernel"][0] - f32["plain"][0])
+    log(f"charnn kernel vs plain: bf16 step-1 |loss delta| {dloss:.3e} "
+        f"(limit {CHARNN_LOSS_ATOL}), later steps not held "
+        f"{[f'{abs(a - b_):.2e}' for a, b_ in zip(runs['kernel']['losses'], runs['plain']['losses'])][1:]}; "
+        f"f32 step-1 |loss delta| {f32_dloss:.3e} (limit "
+        f"{CHARNN_F32_LOSS_ATOL}), grads rel L2 max {rels[worst]:.3e} "
+        f"({worst}; limit {CHARNN_GRAD_REL_L2}); loss falls {falls}; "
+        f"output() shape {tuple(out_k.shape)}, finite {finite}, rows sum to "
+        f"1 {rows_ok}, per-row KL of the logits max {kl:.3e} (limit "
+        f"{MAX_KL}); launches {json.dumps(out_counts)} (want fused_lstm 2)")
+    if not dloss <= CHARNN_LOSS_ATOL:
+        failed.append("bf16 step-1 loss")
+    if not f32_dloss <= CHARNN_F32_LOSS_ATOL:
+        failed.append("f32 step-1 loss")
+    if not rels[worst] <= CHARNN_GRAD_REL_L2:
+        failed.append("f32 step-1 grads")
+    if not falls:
+        failed.append("loss does not fall")
+    if out_k.shape != (b, t, v) or not finite or not rows_ok \
+            or not kl <= MAX_KL:
+        failed.append("output()")
+    if out_counts["fused_lstm"] != 2:
+        failed.append("K4 launches in output()")
+    unchecked = sorted(f"{str(dt)[6:]} B{bb} H{hh}"
+                       for dt, bb, hh in seen - checked)
+    log(f"charnn K4 cases (dtype, B, H): {len(seen)} on the path, "
+        f"{len(seen) - len(unchecked)} of them held in phase 9")
+    if unchecked:
+        failed.append(f"K4 ran at {unchecked}, which phase 9 did not hold")
+    if failed:
+        raise SystemExit(f"charnn path: {failed}")
+    return {"charnn_train": train_counts, "charnn_output": out_counts}
+
+
+def profile_charnn_step(net, ds, fl):
+    """One kernel-path char-RNN train step under ``torch.profiler``: wall
+    and device time, the device-busy share, K4's share, the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        net.fit(ds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    out = device_rows(prof, wall, 1)
+    k4_us = sum(getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0.0))
+                for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA
+                and "lstm_seq_kernel" in ev.key)
+    out["k4_device_ms"] = k4_us / 1e3
+    out["k4_share_of_device"] = k4_us / 1e3 / out["device_ms_per_step"]
+    log(f"profile (charnn train step, B{CHARNN_BATCH} T{CHARNN_T}, kernel "
+        "path): " + json.dumps(out))
+
+
+# --------------------------------------------------------------- phase 11
+
+def lenet_path(fa, pa, fo, fl, steps=5):
+    """LeNet at batch 512 bf16 through MultiLayerNetwork.fit."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.random((LENET_BATCH, 28, 28, 1), np.float32),
+                        device="cuda")
+    y = torch.as_tensor(np.eye(10, dtype=np.float32)[
+        rng.integers(0, 10, LENET_BATCH)], device="cuda")
+    net = LeNet(num_classes=10, compute_dtype=torch.bfloat16).init()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all(fa, pa, fo, fl)
+    steplog = _FitLog(fl)
+    net.set_listeners(steplog)
+    net.fit([DataSet(x, y)] * steps)
+    rec = steplog.record(LENET_BATCH, steps)
+    out = net.output(x)
+    torch.cuda.synchronize()
+    counts = all_counts(fa, pa, fo, fl)
+    finite = bool(torch.isfinite(out.float()).all())
+    sums = out.float().sum(-1)
+    rows_ok = bool(torch.allclose(sums, torch.ones_like(sums), atol=2e-2))
+    falls = rec["losses"][-1] < rec["losses"][0]
+    pre = {i: type(p).__name__ for i, p in net._preprocessors.items()}
+    log(f"lenet (B{LENET_BATCH} 28x28x1, bf16): {json.dumps(rec)}; loss "
+        f"falls {falls}; output() shape {tuple(out.shape)}, finite {finite},"
+        f" rows sum to 1 {rows_ok}; preprocessors {pre}; launches "
+        f"{json.dumps(counts)} (no TPU kernel on this path)")
+    if not (falls and finite and rows_ok and out.shape == (LENET_BATCH, 10)
+            and pre == {4: "CnnToFeedForwardPreProcessor"}):
+        raise SystemExit("lenet path: the loss does not fall or output() is "
+                         "wrong")
+    return rec
+
+
 def profile_decode(steps=10):
     """Where a paged decode step's time goes at full width: 8 decoding
     slots (contexts ~600), ``steps`` sweeps under ``torch.profiler``.
@@ -1145,12 +1515,15 @@ def main():
                     help="also profile one kernel-path train step")
     ap.add_argument("--profile-resnet", action="store_true",
                     help="also profile one kernel-path ResNet-50 step")
+    ap.add_argument("--profile-charnn", action="store_true",
+                    help="also profile one kernel-path char-RNN step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from deeplearning4j_tpu_torch.kernels import KERNEL_SOURCES, _build
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.kernels import fused_lstm as fl
     from deeplearning4j_tpu_torch.kernels import fused_ops as fo
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
 
@@ -1185,6 +1558,7 @@ def main():
         bwd[(dt, b, t)] = check_flash_bwd(fa, dt, b, t, causal, gen)
         torch.cuda.empty_cache()
     k3, k3_checked = k3_phase(fo, gen)
+    k4, k4_checked = k4_phase(fl, gen)
     if args.kernels_only:
         return 0
 
@@ -1192,12 +1566,16 @@ def main():
     by_path["train"] = train_path(fa, pa, profile=args.profile_train)
     by_path.update(resnet_path(fa, pa, fo, k3_checked,
                                profile=args.profile_resnet))
+    lstm_paths = charnn_path(fa, pa, fo, fl, k4_checked,
+                             profile=args.profile_charnn)
+    lenet_path(fa, pa, fo, fl)
     # the stage-0 BN's shape (N = 128*56*56, C = 256) stands for K3
     main_k3 = k3[(torch.bfloat16, RESNET_BATCH * 56 * 56, 256)]
     resnet_paths = ("resnet_train", "resnet_output")
     main_k1 = k1[(torch.bfloat16, 1, 2048)]    # a dense prefill's shape
     main_k2 = k2[torch.bfloat16]
     main_bwd = bwd[(torch.bfloat16, 32, 1024)]  # the train path's shape
+    main_k4 = k4[torch.bfloat16]                # the char-RNN's shape
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -1247,6 +1625,16 @@ def main():
            "bound_by": main_k3[name]["bound_by"],
            "library_ms": main_k3[name]["library_ms"]}
           for name, line in K3_LINES.items()),
+        {"name": "fused_lstm", "route": "cuda",
+         "source": "deeplearning4j_tpu_torch/csrc/fused_lstm.cu",
+         "replaces": "deeplearning4j_tpu/kernels/fused_lstm.py:90",
+         "launches": sum(c["fused_lstm"] for c in lstm_paths.values()),
+         "launches_by_path": {p: c["fused_lstm"]
+                              for p, c in lstm_paths.items()},
+         "max_abs_err": main_k4["max_abs_err"],
+         "ms": main_k4["ms"], "plain_ms": main_k4["plain_ms"],
+         "bound_ms": main_k4["bound_ms"], "bound_by": main_k4["bound_by"],
+         "library_ms": main_k4["library_ms"]},
     ]
     if args.profile:
         profile_decode()

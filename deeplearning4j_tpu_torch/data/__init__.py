@@ -1,5 +1,7 @@
-"""Data containers of the port."""
+"""Data containers and iterators of the port."""
 
 from .dataset import DataSet, MultiDataSet
+from .iterators import BaseDatasetIterator, ListDataSetIterator
 
-__all__ = ["DataSet", "MultiDataSet"]
+__all__ = ["BaseDatasetIterator", "DataSet", "ListDataSetIterator",
+           "MultiDataSet"]

@@ -4,4 +4,4 @@ version. Sources live in ``csrc/`` and are built at first use
 
 #: the ``csrc/<name>.cu`` sources of every kernel of the port
 KERNEL_SOURCES = ("flash_attention_fwd", "flash_attention_bwd",
-                  "paged_attention", "fused_bn_act")
+                  "paged_attention", "fused_bn_act", "fused_lstm")

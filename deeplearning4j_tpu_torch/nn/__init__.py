@@ -1,31 +1,42 @@
 """The DL4J layer API of the port (``deeplearning4j_tpu.nn`` analogue):
-builders, the layers ResNet-50 needs, vertices and ComputationGraph."""
+builders, the layers ResNet-50, LeNet and the char-RNN need, vertices,
+ComputationGraph and MultiLayerNetwork."""
 
 from . import activations, losses, weights
 from .computation_graph import ComputationGraph, params_from_numpy
-from .conf import NeuralNetConfiguration
+from .conf import (ListBuilder, MultiLayerConfiguration,
+                   NeuralNetConfiguration)
 from .graph import ComputationGraphConfiguration, GraphBuilder
 from .layers.base import Ctx, InputType, Layer
 from .layers.conv import (ConvolutionLayer, GlobalPoolingLayer, PoolingType,
                           SpaceToDepthLayer, SubsamplingLayer,
                           ZeroPaddingLayer)
-from .layers.core import ActivationLayer, DenseLayer, LossLayer, OutputLayer
+from .layers.core import (ActivationLayer, DenseLayer, LossLayer,
+                          OutputLayer, RnnOutputLayer)
 from .layers.norm import (BatchNormalization, LayerNormalization,
                           LocalResponseNormalization, RMSNorm)
+from .layers.recurrent import (GRU, LSTM, Bidirectional, BidirectionalMode,
+                               GravesBidirectionalLSTM, GravesLSTM,
+                               LastTimeStep, SimpleRnn, TimeDistributed)
+from .multi_layer_network import MultiLayerNetwork
 from .vertices import (ElementWiseVertex, GraphVertex, L2NormalizeVertex,
                        L2Vertex, MergeVertex, PreprocessorVertex,
                        ReshapeVertex, ScaleVertex, ShiftVertex, StackVertex,
                        SubsetVertex, UnstackVertex)
 
-__all__ = ["ActivationLayer", "BatchNormalization", "ComputationGraph",
+__all__ = ["ActivationLayer", "BatchNormalization", "Bidirectional",
+           "BidirectionalMode", "ComputationGraph",
            "ComputationGraphConfiguration", "ConvolutionLayer", "Ctx",
-           "DenseLayer", "ElementWiseVertex", "GlobalPoolingLayer",
-           "GraphBuilder", "GraphVertex", "InputType", "L2NormalizeVertex",
-           "L2Vertex", "Layer", "LayerNormalization",
-           "LocalResponseNormalization", "LossLayer", "MergeVertex",
+           "DenseLayer", "ElementWiseVertex", "GRU", "GlobalPoolingLayer",
+           "GraphBuilder", "GraphVertex", "GravesBidirectionalLSTM",
+           "GravesLSTM", "InputType", "L2NormalizeVertex", "L2Vertex",
+           "LSTM", "LastTimeStep", "Layer", "LayerNormalization",
+           "ListBuilder", "LocalResponseNormalization", "LossLayer",
+           "MergeVertex", "MultiLayerConfiguration", "MultiLayerNetwork",
            "NeuralNetConfiguration", "OutputLayer", "PoolingType",
-           "PreprocessorVertex", "RMSNorm", "ReshapeVertex", "ScaleVertex",
-           "ShiftVertex", "SpaceToDepthLayer", "StackVertex",
-           "SubsamplingLayer", "SubsetVertex", "UnstackVertex",
+           "PreprocessorVertex", "RMSNorm", "ReshapeVertex",
+           "RnnOutputLayer", "ScaleVertex", "ShiftVertex", "SimpleRnn",
+           "SpaceToDepthLayer", "StackVertex", "SubsamplingLayer",
+           "SubsetVertex", "TimeDistributed", "UnstackVertex",
            "ZeroPaddingLayer", "activations", "losses", "params_from_numpy",
            "weights"]

@@ -32,14 +32,9 @@ from .._device import resolve_device, tree_to
 from ..train.updaters import NoOp, build_optimizer, tree_leaves, tree_map
 from .graph import ComputationGraphConfiguration
 from .layers.base import Ctx, Layer
-from .layers.core import DenseLayer, LossLayer, OutputLayer
+from .layers.core import LossLayer, OutputLayer
+from .multi_layer_network import _is_ff_layer
 from .preprocessors import CnnToFeedForwardPreProcessor
-
-
-def _is_ff_layer(layer: Layer) -> bool:
-    """Private copy of the reference's ``multi_layer_network._is_ff_layer``
-    over the layers this port has."""
-    return isinstance(layer, DenseLayer)
 
 
 def params_from_numpy(params, states, device=None):

@@ -1,20 +1,21 @@
 """NeuralNetConfiguration — port of ``deeplearning4j_tpu/nn/conf.py``
 (``NeuralNetConfiguration.Builder``, global defaults, their resolution
-into each layer).
+into each layer, and ``ListBuilder`` / ``MultiLayerConfiguration`` for
+``MultiLayerNetwork``).
 
 Global values (updater, weightInit, activation, l1/l2, dropout, dtype
 policy) are defaults that individual layers may override. The dtype
 policy takes torch dtypes: params in f32, compute in bf16 with
 ``.data_type(torch.float32, torch.bfloat16)``.
 
-Not ported yet: ``ListBuilder`` / ``MultiLayerConfiguration`` (``list()``
-raises) and the JSON / upstream serde.
+Not ported yet: the JSON and upstream serde of a configuration (raise).
 """
 
 from __future__ import annotations
 
+import copy
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, List, Optional
 
 import torch
 
@@ -141,10 +142,8 @@ class Builder:
     def cudnn_algo_mode(self, *_):
         return self
 
-    def list(self):
-        raise NotImplementedError(
-            "ListBuilder / MultiLayerConfiguration (deeplearning4j_tpu/nn/"
-            "conf.py) are not ported yet; use graph_builder()")
+    def list(self) -> "ListBuilder":
+        return ListBuilder(self._g)
 
     def graph_builder(self):
         from .graph import GraphBuilder
@@ -175,4 +174,68 @@ def resolve_layer_defaults(layer: Layer, g: GlobalConf) -> Layer:
         else layer.dtype
     if layer.compute_dtype is None and g.compute_dtype is not None:
         layer.compute_dtype = g.compute_dtype
+    # wrapped layers (Bidirectional, LastTimeStep, TimeDistributed)
+    for attr in ("fwd", "inner"):
+        sub = getattr(layer, attr, None)
+        if isinstance(sub, Layer):
+            resolve_layer_defaults(sub, g)
     return layer
+
+
+class ListBuilder:
+    """``NeuralNetConfiguration.builder().list()``: a stack of layers."""
+
+    def __init__(self, g: GlobalConf):
+        self._g = g
+        self._layers: List[Layer] = []
+        self._input_type = None
+
+    def layer(self, *args):
+        """.layer(L) or .layer(index, L) (index must be append-order)."""
+        self._layers.append(args[-1])
+        return self
+
+    def set_input_type(self, it):
+        self._input_type = it
+        return self
+
+    input_type = set_input_type
+
+    # accepted for parity, no effect (truncated BPTT is not modelled)
+    def backprop_type(self, *_):
+        return self
+
+    def t_bptt_length(self, *_):
+        return self
+
+    def build(self) -> "MultiLayerConfiguration":
+        return MultiLayerConfiguration(
+            self._g, [copy.deepcopy(l) for l in self._layers],
+            self._input_type)
+
+
+@dataclass
+class MultiLayerConfiguration:
+    globals_: GlobalConf
+    layers: List[Layer]
+    input_type: Any = None
+
+    def __post_init__(self):
+        for lyr in self.layers:
+            resolve_layer_defaults(lyr, self.globals_)
+
+    def to_json(self) -> str:
+        raise NotImplementedError(
+            "MultiLayerConfiguration.to_json (deeplearning4j_tpu/nn/conf.py)"
+            " is not ported yet")
+
+    def to_upstream_json(self) -> str:
+        raise NotImplementedError(
+            "MultiLayerConfiguration.to_upstream_json (deeplearning4j_tpu/"
+            "serde/upstream_dl4j.py) is not ported yet")
+
+    @staticmethod
+    def from_upstream_json(data: str) -> "MultiLayerConfiguration":
+        raise NotImplementedError(
+            "MultiLayerConfiguration.from_upstream_json (deeplearning4j_tpu/"
+            "serde/upstream_dl4j.py) is not ported yet")

@@ -14,6 +14,8 @@ Shape convention (batch dim excluded everywhere):
   feed-forward: (nIn,)
   recurrent:    (T, nIn)  [NTC]
   convolutional:(H, W, C) [NHWC]
+
+:func:`apply_time_mask` zeroes the padded steps of an NTC sequence.
 """
 
 from __future__ import annotations
@@ -122,3 +124,10 @@ class Layer:
                                  input_shape)
         return sum(p.numel() for p in params.values())
 
+
+
+def apply_time_mask(y, mask):
+    """Zero padded timesteps: y (B, T, C), mask (B, T) → masked y."""
+    if mask is None:
+        return y
+    return y * mask[..., None].to(y.dtype)

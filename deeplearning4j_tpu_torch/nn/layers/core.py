@@ -1,10 +1,11 @@
 """Core feed-forward layers — port of the part of
-``deeplearning4j_tpu/nn/layers/core.py`` that ResNet-50 needs:
-``DenseLayer``, ``ActivationLayer``, ``LossLayer``, ``OutputLayer``.
+``deeplearning4j_tpu/nn/layers/core.py`` that ResNet-50, LeNet and the
+char-RNN need: ``DenseLayer``, ``ActivationLayer``, ``LossLayer``,
+``OutputLayer``, ``RnnOutputLayer``.
 
 Not ported yet: the dropout family, embeddings, ElementWiseMultiplication,
-PReLU and the other heads (CnnLoss, RnnOutput, CenterLoss, OCNN), Mask,
-Reshape and Permute layers.
+PReLU and the other heads (CnnLoss, CenterLoss, OCNN), Mask, Reshape and
+Permute layers.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 from .. import losses as _losses
-from .base import Ctx, Layer
+from .base import Ctx, Layer, apply_time_mask
 
 
 @dataclass
@@ -114,3 +115,31 @@ class OutputLayer(DenseLayer):
             return fused(labels, logits, mask=mask)
         return _losses.get(self.loss)(labels, self.activation_fn()(logits),
                                       mask=mask)
+
+
+@dataclass
+class RnnOutputLayer(OutputLayer):
+    """Per-timestep output head: (B, T, nIn) → (B, T, nOut). ``apply``
+    zeroes masked steps; the loss flattens (B, T) into rows, the label
+    mask (B, T) weighting them."""
+
+    def init(self, gen, input_shape):
+        params, state, _ = super().init(gen, input_shape)
+        t = input_shape[0] if len(input_shape) == 2 else None
+        return params, state, (t, self.n_out)
+
+    def apply(self, params, state, x, ctx: Ctx):
+        y, state = DenseLayer.apply(self, params, state, x, ctx)
+        return apply_time_mask(y, ctx.mask), state
+
+    def compute_loss(self, params, x, labels, mask=None):
+        logits = self.pre_activation(params, x)           # (B, T, C)
+        fused = _logits_loss(self.loss, self.activation)
+        if fused is None:
+            return _losses.get(self.loss)(
+                labels, self.activation_fn()(logits), mask=mask)
+        b, t = logits.shape[0], logits.shape[1]
+        flat_labels = labels.reshape(b * t, -1) if labels.dim() == 3 \
+            else labels.reshape(b * t)
+        return fused(flat_labels, logits.reshape(b * t, -1),
+                     mask=None if mask is None else mask.reshape(b * t))

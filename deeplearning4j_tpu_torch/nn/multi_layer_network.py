@@ -1,0 +1,500 @@
+"""MultiLayerNetwork — port of ``deeplearning4j_tpu/nn/multi_layer_network.py``
+(the sequential network: init / fit / output / score / rnn_time_step).
+
+The layer stack runs eagerly on one device. A train step, as in the
+port's ``ComputationGraph``:
+
+1. the loss (output head and L1/L2 terms), with autograd on the leaves
+   of ``params``;
+2. the functional updater (``train/updaters.py``) under ``no_grad``,
+   its updates added to the params in place;
+3. ``states`` replaced by the detached new states.
+
+``device=None`` means the CUDA card (``_device.resolve_device``); only an
+explicit ``"cpu"`` runs on the host. Params and states are nested dicts
+``layer_{i}`` of tensors in the reference's layout, so
+``nn.params_from_numpy`` takes the JAX net's ``net.params`` /
+``net.states`` as numpy trees.
+
+Not ported yet (raise where the reference has the knob): remat segments,
+``fit_scanned``, gradient-anomaly detection, ``evaluate*``,
+``save``/``load``, ``clone``, dropout and weight noise, constraints,
+listeners' deferred score fetch, and async prefetch of the iterator
+(``fit`` iterates directly).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import torch
+
+from .._device import resolve_device, tree_to
+from ..train.updaters import NoOp, build_optimizer, tree_leaves, tree_map
+from .conf import MultiLayerConfiguration
+from .layers.base import Ctx, Layer
+from .layers.core import DenseLayer, LossLayer, OutputLayer
+from .layers.recurrent import (BaseRecurrent, Bidirectional, LastTimeStep,
+                               TimeDistributed)
+from .preprocessors import CnnToFeedForwardPreProcessor
+
+
+def _is_ff_layer(layer: Layer) -> bool:
+    """The reference's ``_is_ff_layer`` over the layers this port has
+    (output heads included: they are DenseLayers)."""
+    return isinstance(layer, DenseLayer)
+
+
+def _unflatten(like, leaves):
+    """Nested dicts shaped like ``like`` from an iterator over leaves in
+    ``tree_leaves`` order (sorted keys)."""
+    if isinstance(like, dict):
+        return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    return next(leaves)
+
+
+def _not_ported(what):
+    raise NotImplementedError(
+        f"MultiLayerNetwork.{what} (deeplearning4j_tpu/nn/"
+        "multi_layer_network.py) is not ported yet")
+
+
+class MultiLayerNetwork:
+    def __init__(self, conf: MultiLayerConfiguration):
+        self.conf = conf
+        self.layers: List[Layer] = conf.layers
+        self._g = conf.globals_
+        self.params: Dict[str, dict] = {}
+        self.states: Dict[str, dict] = {}
+        self._preprocessors: Dict[int, Any] = {}
+        self._optimizer = None
+        self._opt_state = None
+        self._iters_per_epoch = 1
+        self._step_count = 0
+        self.epoch_count = 0
+        self.listeners: List[Any] = []
+        self.initialized = False
+        self.device = None
+        self._gen = torch.Generator().manual_seed(self._g.seed)
+        self._remat_segments = None
+        self._rnn_carries = None
+        self._rnn_carry_batch = None
+
+    @property
+    def remat_segments(self):
+        return self._remat_segments
+
+    @remat_segments.setter
+    def remat_segments(self, n):
+        if n is not None:
+            _not_ported("remat_segments / _forward_remat")
+        self._remat_segments = n
+
+    # ------------------------------------------------------------------ init
+    def init(self, input_shape=None, device=None):
+        """Resolve shapes layer by layer and draw every layer's params on
+        the host from a generator seeded with the configuration's seed,
+        then move them to ``device`` (None → CUDA)."""
+        self.device = resolve_device(device)
+        if input_shape is None:
+            if self.conf.input_type is not None:
+                input_shape = tuple(self.conf.input_type[1])
+            else:
+                n_in = getattr(self.layers[0], "n_in", None)
+                if not n_in:
+                    raise ValueError("Provide input_shape or set_input_type "
+                                     "on the config")
+                input_shape = (int(n_in),)
+        gen = torch.Generator().manual_seed(self._g.seed)
+        shape = tuple(input_shape)
+        self._init_input_shape = shape
+        for i, layer in enumerate(self.layers):
+            # conv activations into a flat feed-forward layer (the
+            # reference's second, OutputLayer-only test never fires: an
+            # OutputLayer is a DenseLayer, flattened here already)
+            if _is_ff_layer(layer) and len(shape) in (3, 4):
+                pp = CnnToFeedForwardPreProcessor()
+                self._preprocessors[i] = pp
+                shape = pp.out_shape(shape)
+            p, s, shape = layer.init(gen, shape)
+            self.params[f"layer_{i}"] = tree_map(
+                lambda t: t.to(self.device).requires_grad_(
+                    t.is_floating_point()), p)
+            self.states[f"layer_{i}"] = tree_to(s, self.device)
+        self.output_shape = shape
+        self.initialized = True
+        return self
+
+    # -------------------------------------------------------------- forward
+    def _apply_one(self, i, params, states, h, new_states, *, train, rng,
+                   fmask, lmask, stop_before_output):
+        """Apply layer ``i`` to ``h``; returns (h, stopped)."""
+        layer = self.layers[i]
+        key = f"layer_{i}"
+        if stop_before_output and i == len(self.layers) - 1 and \
+                isinstance(layer, (OutputLayer, LossLayer)):
+            new_states[key] = states[key]
+            return h, True
+        if train and (layer.dropout > 0.0 or layer.weight_noise is not None):
+            raise NotImplementedError(
+                f"layer {i}: dropout and weight noise (reference _apply_one, "
+                "nn/weightnoise.py) are not ported yet")
+        if i in self._preprocessors:
+            h = self._preprocessors[i](h)
+        ctx = Ctx(train=train, rng=rng, mask=fmask, label_mask=lmask)
+        h, new_states[key] = layer.apply(params[key], states[key], h, ctx)
+        return h, False
+
+    def _forward(self, params, states, x, *, train, rng, fmask=None,
+                 lmask=None, stop_before_output=False):
+        """Returns (activation, new_states)."""
+        new_states = {}
+        h = x
+        for i in range(len(self.layers)):
+            h, stopped = self._apply_one(
+                i, params, states, h, new_states, train=train, rng=rng,
+                fmask=fmask, lmask=lmask,
+                stop_before_output=stop_before_output)
+            if stopped:
+                break
+        return h, new_states
+
+    def _to_device(self, x):
+        return None if x is None else torch.as_tensor(x, device=self.device)
+
+    def output(self, x, train: bool = False):
+        """Inference forward on the net's device (reference output())."""
+        with torch.no_grad():
+            y, _ = self._forward(self.params, self.states, self._to_device(x),
+                                 train=False, rng=None)
+        return y
+
+    def feed_forward(self, x, train: bool = False):
+        """Per-layer activations list (reference feedForward())."""
+        h = self._to_device(x)
+        acts = [h]
+        with torch.no_grad():
+            for i, layer in enumerate(self.layers):
+                if i in self._preprocessors:
+                    h = self._preprocessors[i](h)
+                h, _ = layer.apply(self.params[f"layer_{i}"],
+                                   self.states[f"layer_{i}"], h,
+                                   Ctx(train=train))
+                acts.append(h)
+        return acts
+
+    # ----------------------------------------------------------------- loss
+    def _loss(self, params, states, x, y, rng, fmask, lmask):
+        h, new_states = self._forward(params, states, x, train=True, rng=rng,
+                                      fmask=fmask, lmask=lmask,
+                                      stop_before_output=True)
+        i = len(self.layers) - 1
+        return self._loss_tail(self.layers[i], i, params, new_states, h, y,
+                               lmask)
+
+    def _loss_tail(self, out_layer, i, params, new_states, h, y, lmask):
+        if isinstance(out_layer, OutputLayer):
+            if i in self._preprocessors:
+                h = self._preprocessors[i](h)
+            loss = out_layer.compute_loss(params[f"layer_{i}"], h, y,
+                                          mask=lmask)
+        elif isinstance(out_layer, LossLayer):
+            loss = out_layer.compute_loss(h, y, mask=lmask)
+        else:
+            raise ValueError("Last layer must be an OutputLayer or LossLayer "
+                             "for fit()")
+        return loss + self._reg_score(params), new_states
+
+    def _reg_score(self, params):
+        reg = 0.0
+        for i, layer in enumerate(self.layers):
+            if layer.l1 == 0.0 and layer.l2 == 0.0:
+                continue
+            for k, w in params[f"layer_{i}"].items():
+                if k in ("b", "beta", "mean", "var"):
+                    continue
+                if layer.l1:
+                    reg = reg + layer.l1 * torch.sum(torch.abs(w))
+                if layer.l2:
+                    reg = reg + 0.5 * layer.l2 * torch.sum(torch.square(w))
+        return reg
+
+    # ------------------------------------------------------------ optimizer
+    def _param_labels(self):
+        labels = {}
+        has_override = False
+        for i, layer in enumerate(self.layers):
+            if layer.frozen:
+                lab = "__frozen__"
+                has_override = True
+            elif layer.updater is not None:
+                lab = f"__layer_{i}__"
+                has_override = True
+            else:
+                lab = "__default__"
+            labels[f"layer_{i}"] = tree_map(lambda _, lab=lab: lab,
+                                            self.params[f"layer_{i}"])
+        return labels if has_override else None
+
+    def _build_optimizer(self, iters_per_epoch=1):
+        g = self._g
+        labels = self._param_labels()
+        per_label = None
+        if labels is not None:
+            per_label = {"__default__": g.updater, "__frozen__": NoOp()}
+            for i, layer in enumerate(self.layers):
+                if layer.updater is not None and not layer.frozen:
+                    per_label[f"__layer_{i}__"] = layer.updater
+        # L1/L2 live in the loss (_reg_score), not in the optimizer chain
+        self._optimizer = build_optimizer(
+            g.updater, grad_norm=g.grad_norm,
+            grad_norm_threshold=g.grad_norm_threshold,
+            iters_per_epoch=iters_per_epoch, param_labels=labels,
+            per_label_updaters=per_label)
+        with torch.no_grad():
+            self._opt_state = self._optimizer.init(self.params)
+
+    def _check_constraints(self):
+        for i, layer in enumerate(self.layers):
+            if not layer.frozen and (layer.constraints
+                                     or layer.bias_constraints):
+                raise NotImplementedError(
+                    f"layer {i}: weight constraints (deeplearning4j_tpu/"
+                    "train/constraints.py) are not ported yet")
+
+    def _grads(self, x, y, fmask, lmask):
+        """(loss, new_states, grads tree) of one batch."""
+        leaves = tree_leaves(self.params)
+        loss, new_states = self._loss(self.params, self.states, x, y,
+                                      self._gen, fmask, lmask)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        gtree = _unflatten(self.params, iter(
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)))
+        return loss, new_states, gtree
+
+    def _train_step(self, x, y, fmask, lmask):
+        self._check_constraints()
+        loss, new_states, grads = self._grads(x, y, fmask, lmask)
+        with torch.no_grad():
+            updates, self._opt_state = self._optimizer.update(
+                grads, self._opt_state, self.params)
+            for p, u in zip(tree_leaves(self.params), tree_leaves(updates)):
+                p.add_(u.to(p.dtype))
+        self.states = tree_map(lambda t: t.detach(), new_states)
+        return loss.detach()
+
+    def enable_gradient_anomaly_detection(self, detector=None):
+        _not_ported("enable_gradient_anomaly_detection "
+                    "(train/anomaly.py)")
+
+    # ------------------------------------------------------------------ fit
+    def fit(self, data, labels=None, *, epochs: int = 1, device=None):
+        """fit(DataSetIterator) | fit(DataSet) | fit(features, labels). An
+        uninitialized net is initialized from the first batch's shapes on
+        ``device`` (None → CUDA); an initialized one trains where it lives.
+        Returns the last loss as a float."""
+        from ..data.dataset import DataSet
+        if labels is not None:
+            data = DataSet(data, labels)
+        iterator = [data] if isinstance(data, DataSet) else data
+        if not self.initialized:
+            first = next(iter(iterator))
+            self.init(tuple(first.features.shape[1:]), device=device)
+            if hasattr(iterator, "reset"):
+                iterator.reset()
+        elif device is not None and \
+                torch.device(device).type != self.device.type:
+            raise ValueError(f"the net lives on {self.device}, not {device}")
+        if self._optimizer is None:
+            try:
+                ipe = len(iterator)
+            except TypeError:
+                ipe = 1
+            self._iters_per_epoch = max(int(ipe), 1)
+            self._build_optimizer(self._iters_per_epoch)
+        last = None
+        for _ in range(epochs):
+            for ds in iterator:
+                x = self._to_device(ds.features)
+                self._last_batch_size = int(x.shape[0])
+                loss = self._train_step(
+                    x, self._to_device(ds.labels),
+                    self._to_device(ds.features_mask),
+                    self._to_device(ds.labels_mask))
+                self._step_count += 1
+                last = loss
+                if self.listeners:
+                    lv = float(loss)
+                    for listener in self.listeners:
+                        listener.iteration_done(self, self._step_count,
+                                                self.epoch_count, lv)
+            self.epoch_count += 1
+            if hasattr(iterator, "reset"):
+                iterator.reset()
+            for listener in self.listeners:
+                if hasattr(listener, "on_epoch_end"):
+                    listener.on_epoch_end(self)
+        return None if last is None else float(last)
+
+    def fit_scanned(self, data, *, epochs: int = 1):
+        _not_ported("fit_scanned")
+
+    # ---------------------------------------------------------------- score
+    def score(self, dataset=None):
+        """Loss (incl. regularization) on a DataSet (reference score())."""
+        if dataset is None:
+            raise ValueError("score() requires a DataSet")
+        with torch.no_grad():
+            loss, _ = self._loss(
+                self.params, self.states, self._to_device(dataset.features),
+                self._to_device(dataset.labels), None,
+                self._to_device(dataset.features_mask),
+                self._to_device(dataset.labels_mask))
+        return float(loss)
+
+    def gradient_and_score(self, dataset):
+        """(gradients tree, score) — reference computeGradientAndScore()."""
+        loss, _, grads = self._grads(self._to_device(dataset.features),
+                                     self._to_device(dataset.labels), None,
+                                     None)
+        return grads, float(loss.detach())
+
+    def evaluate(self, iterator, top_n: int = 1):
+        _not_ported("evaluate (deeplearning4j_tpu/eval/)")
+
+    def evaluate_regression(self, iterator):
+        _not_ported("evaluate_regression (deeplearning4j_tpu/eval/)")
+
+    def evaluate_roc(self, iterator, threshold_steps: int = 0):
+        _not_ported("evaluate_roc (deeplearning4j_tpu/eval/)")
+
+    # ------------------------------------------------- streaming inference
+    def rnn_time_step(self, x):
+        """Stateful streaming inference (reference rnnTimeStep): feed one
+        step (B, C) or a chunk (B, T, C); every recurrent layer's state
+        persists across calls until rnn_clear_previous_state(). Each step
+        runs the layers' single-step ``step_apply`` (not K4)."""
+        for layer in self.layers:
+            if isinstance(layer, (Bidirectional, LastTimeStep,
+                                  TimeDistributed)):
+                raise NotImplementedError(
+                    f"rnn_time_step cannot stream through "
+                    f"{type(layer).__name__}: it needs the full sequence "
+                    "(reference rnnTimeStep has the same limit)")
+        x = self._to_device(x)
+        single = x.dim() == 2
+        if single:
+            x = x[:, None, :]
+        batch = x.shape[0]
+        old = self._rnn_carries or {}
+        if self._rnn_carry_batch != batch:
+            old = {}                   # batch changed: stale state is void
+        carries = {}
+        for i, layer in enumerate(self.layers):
+            if isinstance(layer, BaseRecurrent):
+                c = old.get(f"layer_{i}")
+                # the carry dtype is what the cell emits: the post-cast
+                # compute dtype
+                carries[f"layer_{i}"] = c if c is not None else \
+                    layer.init_carry(batch, layer.compute_dtype or x.dtype,
+                                     self.device)
+        ys = []
+        with torch.no_grad():
+            for t in range(x.shape[1]):
+                h = x[:, t]
+                for i, layer in enumerate(self.layers):
+                    key = f"layer_{i}"
+                    if i in self._preprocessors:
+                        h = self._preprocessors[i](h)
+                    if isinstance(layer, BaseRecurrent):
+                        h, carries[key] = layer.step_apply(
+                            self.params[key], carries[key], h,
+                            Ctx(train=False))
+                    else:
+                        h, _ = layer.apply(self.params[key], self.states[key],
+                                           h, Ctx(train=False))
+                ys.append(h)
+        self._rnn_carries = carries
+        self._rnn_carry_batch = batch
+        y = torch.stack(ys, dim=1)
+        return y[:, 0] if single else y
+
+    def rnn_clear_previous_state(self):
+        """Reference rnnClearPreviousState: drop all streaming state."""
+        self._rnn_carries = None
+        self._rnn_carry_batch = None
+
+    def rnn_get_previous_state(self, layer_idx: int):
+        return (self._rnn_carries or {}).get(f"layer_{layer_idx}")
+
+    def rnn_set_previous_state(self, layer_idx: int, state):
+        carries = dict(self._rnn_carries or {})
+        if isinstance(state, (tuple, list)):
+            state = tuple(self._to_device(s) for s in state)
+            batch = state[0].shape[0]
+        else:
+            state = self._to_device(state)
+            batch = state.shape[0]
+        carries[f"layer_{layer_idx}"] = state
+        self._rnn_carries = carries
+        # the injected state's batch, so the next rnn_time_step keeps it
+        self._rnn_carry_batch = batch
+
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+
+    # ----------------------------------------------------------- params API
+    def num_params(self) -> int:
+        return sum(int(p.numel()) for p in tree_leaves(self.params))
+
+    def get_param(self, layer_idx: int, name: str):
+        return self.params[f"layer_{layer_idx}"][name]
+
+    def set_param(self, layer_idx: int, name: str, value):
+        old = self.params[f"layer_{layer_idx}"][name]
+        new = torch.as_tensor(value, dtype=old.dtype, device=self.device)
+        self.params[f"layer_{layer_idx}"][name] = \
+            new.detach().clone().requires_grad_(new.is_floating_point())
+
+    def params_flat(self):
+        """Single flat vector in the reference's order (sorted keys, as
+        jax.tree_util flattens a dict)."""
+        leaves = tree_leaves(self.params)
+        if not leaves:
+            return torch.zeros((0,), device=self.device)
+        return torch.cat([p.detach().reshape(-1) for p in leaves])
+
+    def set_params_flat(self, flat):
+        flat = self._to_device(flat)
+        off = 0
+        with torch.no_grad():
+            for p in tree_leaves(self.params):
+                n = p.numel()
+                p.copy_(flat[off:off + n].reshape(p.shape).to(p.dtype))
+                off += n
+
+    def clone(self):
+        _not_ported("clone")
+
+    def summary(self) -> str:
+        lines = ["=" * 72,
+                 f"{'LayerName (idx)':<28}{'Output Shape':<20}"
+                 f"{'Param Count':<12}",
+                 "=" * 72]
+        total = 0
+        for i, layer in enumerate(self.layers):
+            n = sum(int(v.numel())
+                    for v in tree_leaves(self.params.get(f"layer_{i}", {})))
+            total += n
+            name = layer.name or type(layer).__name__
+            lines.append(f"{name + f' ({i})':<28}{'-':<20}{n:<12}")
+        lines += ["=" * 72, f"Total params: {total}", "=" * 72]
+        return "\n".join(lines)
+
+    def save(self, path, save_updater: bool = False):
+        _not_ported("save (deeplearning4j_tpu/serde/model_serializer.py)")
+
+    @staticmethod
+    def load(path):
+        _not_ported("load (deeplearning4j_tpu/serde/model_serializer.py)")

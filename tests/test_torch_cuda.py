@@ -15,7 +15,11 @@ kernels and the plain backward round dS and P to bf16 at the same points,
 but a product that lands near a rounding boundary flips one ulp. The
 fused BN kernels (K3): outputs as above; their f32 per-channel sums are
 held to a relative 1e-5 (the same terms summed in another order) and
-must repeat bit for bit from launch to launch (no atomics).
+must repeat bit for bit from launch to launch (no atomics). The LSTM
+kernel (K4): f32 atol 1e-5 against its plain version; bf16 atol 2e-2 —
+the kernel keeps h and c in f32 over all T steps while the plain version
+rounds both to bf16 at every step, so they part by a few bf16 ulps
+(5.9e-3 measured at B256 T60 H256, ``chip_smoke.py`` phase 9).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+from deeplearning4j_tpu_torch.kernels import fused_lstm as fl
 from deeplearning4j_tpu_torch.kernels import fused_ops as fo
 from deeplearning4j_tpu_torch.kernels import paged_attention as pa
 
@@ -263,3 +268,55 @@ def test_fused_bn_functions_match_plain_autograd(gen, dtype, act):
     y = fo.fused_bn_act(xs, gamma, beta, act)
     (gx,) = torch.autograd.grad(y, xs, g)
     assert fo.LAUNCHES == counts[0] + 2 and gx.dtype == dtype
+
+
+def _lstm_inputs(gen, b, t, h, dtype, state):
+    x = torch.randn((b, t, 4 * h), generator=gen, device="cuda").to(dtype)
+    rw = (torch.randn((h, 4 * h), generator=gen, device="cuda")
+          * h ** -0.5).to(dtype)
+    peep = torch.randn((3, h), generator=gen, device="cuda") * 0.1
+    z = torch.zeros((b, h), device="cuda")
+    h0 = (torch.randn((b, h), generator=gen, device="cuda") * 0.5 if state
+          else z).to(dtype)
+    c0 = (torch.randn((b, h), generator=gen, device="cuda") if state
+          else z).to(dtype)
+    return x, rw, peep, h0, c0
+
+
+LSTM_ATOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,h,state", [(256, 60, 256, False),
+                                         (3, 7, 40, True), (5, 1, 16, True),
+                                         (133, 4, 64, True)])
+def test_lstm_kernel_matches_plain(gen, dtype, b, t, h, state):
+    ins = _lstm_inputs(gen, b, t, h, dtype, state)
+    before = fl.LAUNCHES
+    out = fl.lstm_seq(*ins)
+    ref = fl.lstm_seq_reference(*ins)
+    again = fl.lstm_seq(*ins)
+    torch.cuda.synchronize()
+    assert fl.LAUNCHES == before + 2
+    assert out.dtype == dtype and out.shape == (b, t, h)
+    torch.testing.assert_close(out.float(), ref.float(),
+                               atol=LSTM_ATOL[dtype], rtol=0)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_lstm_function_grads_match_plain_autograd(gen, dtype):
+    """The Function's forward is the kernel, its backward recomputes the
+    plain version: grads equal autograd through the plain version."""
+    ins = _lstm_inputs(gen, 8, 12, 64, dtype, True)
+    w = torch.randn((8, 12, 64), generator=gen, device="cuda").to(dtype)
+
+    def grads(fn):
+        leaves = [v.detach().clone().requires_grad_(True) for v in ins]
+        return torch.autograd.grad((fn(*leaves) * w).float().sum(), leaves)
+
+    before = fl.LAUNCHES
+    got = grads(fl.fused_lstm_seq)
+    assert fl.LAUNCHES == before + 1
+    for a, b_ in zip(got, grads(fl.lstm_seq_reference)):
+        torch.testing.assert_close(a, b_, atol=1e-6, rtol=0)

@@ -59,7 +59,10 @@ def test_port_has_modules_to_check():
             "nn/vertices.py", "nn/graph.py", "nn/preprocessors.py",
             "nn/losses.py", "nn/layers/core.py", "nn/layers/conv.py",
             "nn/layers/norm.py", "nn/computation_graph.py",
-            "data/dataset.py", "zoo/base.py", "zoo/resnet.py"} <= names
+            "data/dataset.py", "zoo/base.py", "zoo/resnet.py",
+            "kernels/fused_lstm.py", "nn/layers/recurrent.py",
+            "nn/multi_layer_network.py", "data/iterators.py",
+            "zoo/cnn_simple.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -74,6 +77,9 @@ def test_importing_the_port_loads_no_jax():
             "import deeplearning4j_tpu_torch.train\n"
             "import deeplearning4j_tpu_torch.data\n"
             "import deeplearning4j_tpu_torch.zoo.resnet\n"
+            "import deeplearning4j_tpu_torch.kernels.fused_lstm\n"
+            "import deeplearning4j_tpu_torch.nn.multi_layer_network\n"
+            "import deeplearning4j_tpu_torch.zoo.cnn_simple\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
             "print(bad)\n"

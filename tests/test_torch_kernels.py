@@ -422,4 +422,4 @@ def test_build_dir_is_beside_the_package(monkeypatch, tmp_path):
     assert _build.build_dir() == tmp_path
     assert sorted(p.stem for p in _build.SRC_DIR.glob("*.cu")) == \
         ["flash_attention_bwd", "flash_attention_fwd", "fused_bn_act",
-         "paged_attention"]
+         "fused_lstm", "paged_attention"]

@@ -311,8 +311,8 @@ def test_unported_knobs_raise():
     with pytest.raises(NotImplementedError, match="remat"):
         ResNet50(num_classes=10, input_shape=(32, 32, 3),
                  remat_segments=2).init(device="cpu")
-    with pytest.raises(NotImplementedError, match="ListBuilder"):
-        NeuralNetConfiguration.builder().list()
+    with pytest.raises(NotImplementedError, match="to_json"):
+        NeuralNetConfiguration.builder().list().build().to_json()
 
 
 def test_dataset_matches_jax(tmp_path):
