@@ -17,21 +17,27 @@ Phases, each fatal on failure:
 2. K2 (paged decode) against its plain version at the 120M decode shapes,
    bf16 and f32 pools, over mapped, sentinel, partial-tail, CoW-shared and
    empty slots (the empty slot against zeros);
-3. K1 (causal flash forward) against ``mha_reference``, O and lse, at
-   T 1024/2048, plus the strided (B, T, H, D) layout the transformer uses,
-   with ``F.scaled_dot_product_attention`` timed as a yardstick only;
+3. K1 (causal flash forward; bf16 on the tensor-core kernel, f32 on the
+   CUDA-core one) against ``mha_reference``, O and lse, at T 1024/2048
+   and at the train path's B32 T1024 bf16, plus the strided (B, T, H, D)
+   layout the transformer uses; a second launch bit for bit equal; the
+   bf16 kernel's four D 64 tilings timed at B1 T2048 and B32 T1024;
+   ``F.scaled_dot_product_attention`` timed as a yardstick only;
 3b. the flash backward kernels (dQ, dK/dV) against
    ``flash_attention_bwd_reference`` on the same inputs, through strided
    (B, T, H, D) views of one qkv buffer, at B1 H8 D64 T 1024/2048/4096
    bf16, T 2048 f32, T 200 causal and T 256 non-causal, and at the train
-   path's B32 T1024 bf16; the autograd Function's grads against autograd
-   through ``mha_reference``; SDPA's backward timed as a yardstick only;
+   path's B32 T1024 bf16; a second launch of each bit for bit equal, bf16
+   dK/dV on the tensor-core kernel; the autograd Function's grads against
+   autograd through ``mha_reference``; SDPA's backward timed as a
+   yardstick only;
 4. the main path at full width: the 120M Transformer-LM with seeded
    random weights served by a dense and a paged
    ``ContinuousBatchingScheduler``; every request must resolve with its
    token count, the launch counts are set to 0 just before each run and
-   read just after it, K1 must have launched in the dense run and K2 in
-   the paged run, and one K1
+   read just after it, the tensor-core K1 must have launched once a layer
+   in every dense prefill (every bucket >= 1024 tokens) and K2 in the
+   paged run, and one K1
    prefill and one K2 decode step must match the plain path (kernels off)
    with KL <= 1e-3 per row;
 6. the training path at full width: the 120M LM of ``bench.py``'s
@@ -41,8 +47,9 @@ Phases, each fatal on failure:
    backward kernels) and on the plain path (plain attention, f32
    scores) from identical params: step-1 grads within relative L2
    2e-2 per leaf, loss within 2e-2 nats at each of 5 steps and falling;
-   the launch counts are set to 0 just before the kernel path and K1,
-   dQ and dK/dV must launch in every step;
+   the launch counts are set to 0 just before the kernel path, and every
+   step must launch K1 16 times and dQ and dK/dV 8 times each, every K1
+   and dK/dV launch on the tensor-core kernels;
 7. the fused BatchNorm+activation kernels (K3: normalize+act, stats,
    backward reduce, backward dx) against their plain versions at all
    nine (N, C) shapes a ResNet-50 BN gives them at batch 128, relu and
@@ -82,7 +89,8 @@ Phases, each fatal on failure:
 11. LeNet at batch 512 bf16 (``bench.py``'s ``lenet`` row) through
    ``MultiLayerNetwork.fit``, 5 steps on seeded 28x28x1 inputs: the loss
    falls, ``output()`` rows are finite and sum to 1;
-5. a ``kernels`` JSON line, then the result line (printed last).
+5. a ``kernels`` JSON line (with K1's train-shape reading), then the
+   result line (printed last).
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -171,6 +179,38 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Mean device time of one ``fn`` call: the summed durations of the
+    kernels and copies it launches, from a ``torch.profiler`` trace of
+    ``iters`` calls. Unlike :func:`cuda_ms` it leaves out the host's
+    time between launches, which back-to-back event timing measures
+    instead wherever a call's host path outlasts its kernels. A trace
+    with no device time at all (the profiler now and then loses a
+    session's activity) is taken again, twice at most."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_self_device_us(ev) for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+        log(f"torch.profiler recorded no device time (trace {attempt + 1} "
+            "of 3)")
+    raise SystemExit("torch.profiler recorded no device time")
+
+
+def _self_device_us(ev):
+    return getattr(ev, "self_device_time_total",
+                   getattr(ev, "self_cuda_time_total", 0.0))
 
 
 def kl_rows(ref_logits, cand_logits):
@@ -262,13 +302,28 @@ def check_paged(pa, dtype, gen):
 
 # ---------------------------------------------------------------- phase 3
 
+def tc_state(tc_ok, dtype):
+    """How a check's tensor-core counter reads: bf16 must launch the
+    tensor-core kernel, f32 must not."""
+    if dtype == torch.bfloat16:
+        return "ran" if tc_ok else "MISSED"
+    return "not used (f32)" if tc_ok else "RAN for f32"
+
+
 def check_flash(fa, dtype, b, t, gen, h=8, d=64):
     """K1 vs mha_reference (O and lse), causal, (B, H, T, D); the same
-    inputs through the strided (B, T, H, D) entry point; SDPA timed."""
+    inputs through the strided (B, T, H, D) entry point; a second launch
+    bit for bit equal to the first; bf16 must run the tensor-core kernel.
+    SDPA timed."""
     dev = "cuda"
     q, k, v = (torch.randn((b, h, t, d), generator=gen, device=dev)
                .to(dtype) for _ in range(3))
+    tc_before = fa.LAUNCHES_TC
     out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    tc_ok = (fa.LAUNCHES_TC - tc_before) == (dtype == torch.bfloat16)
+    again, lse_again = fa.flash_attention_lse(q, k, v, causal=True)
+    repeats = bool(torch.equal(out, again) and torch.equal(lse, lse_again))
+    del again, lse_again
     ref, ref_lse = fa.mha_reference_lse(q, k, v, causal=True)
     err = (out.float() - ref.float()).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
@@ -279,29 +334,38 @@ def check_flash(fa, dtype, b, t, gen, h=8, d=64):
     out_ntc = fa.flash_attention_ntc(qn, kn, vn, causal=True)
     ntc_err = (out_ntc.transpose(1, 2).float() - ref.float()).abs().max() \
         .item()
+    del ref, ref_lse, out_ntc, qkv, qn, kn, vn
     torch.cuda.synchronize()
     ok = (err <= ATOL[dtype] and ntc_err <= ATOL[dtype]
-          and lse_err <= LSE_ATOL)
-    ms = cuda_ms(lambda: fa.flash_attention_lse(q, k, v, causal=True))
-    plain_ms = cuda_ms(lambda: fa.mha_reference_lse(q, k, v, causal=True),
-                       iters=5)
+          and lse_err <= LSE_ATOL and repeats and tc_ok)
+    # device times (the profiler's); call_ms also counts the host's path
+    # (autograd Function, ctypes), which outlasts a short kernel
+    ms = device_ms(lambda: fa.flash_attention_lse(q, k, v, causal=True))
+    call_ms = cuda_ms(lambda: fa.flash_attention_lse(q, k, v, causal=True))
+    plain_ms = device_ms(lambda: fa.mha_reference_lse(q, k, v, causal=True),
+                         iters=5)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True))
+    library_ms = device_ms(lambda: sdpa(q, k, v, is_causal=True))
+    library_call_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True))
     item = torch.finfo(dtype).bits // 8
     nbytes = 4 * b * h * t * d * item + b * h * t * 4
     flops = 4 * b * h * d * t * (t + 1) // 2
     bms, by = bound_ms(nbytes, flops, dtype)
     log(f"K1 flash_attention_fwd {str(dtype)[6:]} B{b} H{h} T{t} D{d}: "
         f"O err {err:.3e}, ntc err {ntc_err:.3e} (atol {ATOL[dtype]}), "
-        f"lse err {lse_err:.3e} (atol {LSE_ATOL}), kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-        f"{bms:.5f} ms ({by}) -> {'ok' if ok else 'FAIL'}")
+        f"lse err {lse_err:.3e} (atol {LSE_ATOL}), second launch "
+        f"{'identical' if repeats else 'DIFFERS'}, tensor-core kernel "
+        f"{tc_state(tc_ok, dtype)}; device ms: kernel {ms:.4f} (a "
+        f"call with the host's path {call_ms:.4f}), plain {plain_ms:.4f}, "
+        f"sdpa {library_ms:.4f} (a call {library_call_ms:.4f}), bound "
+        f"{bms:.5f} ({by}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"K1 {dtype} B{b} T{t} disagrees with "
-                         "mha_reference")
+                         "mha_reference, does not repeat or missed its "
+                         "kernel")
     return {"max_abs_err": max(err, ntc_err), "lse_err": lse_err, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bms, "bound_by": by}
+            "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": by}
 
 
 # --------------------------------------------------------------- phase 3b
@@ -345,13 +409,23 @@ def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64):
     del o
     ref = fa.flash_attention_bwd_reference(qh, kh, vh, doh, lse, delta,
                                            scale, causal)
+    tc_before = fa.LAUNCHES_BWD_DKV_TC
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal,
                                    "bthd")
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
                                         causal, "bthd")
+    tc_ok = (fa.LAUNCHES_BWD_DKV_TC - tc_before) == (dtype == torch.bfloat16)
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal,
+                                    "bthd")
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                          causal, "bthd")
+    repeats = bool(torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                   and torch.equal(dv, dv2))
+    del dq2, dk2, dv2
     torch.cuda.synchronize()
     got = [x.transpose(1, 2) for x in (dq, dk, dv)]
-    ok = all(grad_ok(g, r, dtype) for g, r in zip(got, ref))
+    ok = all(grad_ok(g, r, dtype) for g, r in zip(got, ref)) and repeats \
+        and tc_ok
     err = [(g.float() - r.float()).abs().max().item()
            for g, r in zip(got, ref)]
     rel = [rel_l2(g, r) for g, r in zip(got, ref)]
@@ -370,17 +444,20 @@ def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64):
     fn_rel = rel_l2(g_fn, g_ref)
     del g_fn, g_ref, x, views
 
-    ms_dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(
+    ms_dq = device_ms(lambda: fa.flash_attention_bwd_dq(
         q, k, v, do, lse, delta, scale, causal, "bthd"), iters=5, warmup=1)
-    ms_dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv(
+    ms_dkv = device_ms(lambda: fa.flash_attention_bwd_dkv(
         q, k, v, do, lse, delta, scale, causal, "bthd"), iters=5, warmup=1)
-    plain_ms = cuda_ms(lambda: fa.flash_attention_bwd_reference(
+    # a call timed by events, host path included
+    call_ms_dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv(
+        q, k, v, do, lse, delta, scale, causal, "bthd"), iters=5, warmup=1)
+    plain_ms = device_ms(lambda: fa.flash_attention_bwd_reference(
         qh, kh, vh, doh, lse, delta, scale, causal), iters=3, warmup=1)
     qs, ks, vs = (y.contiguous().requires_grad_(True) for y in (qh, kh, vh))
     out = torch.nn.functional.scaled_dot_product_attention(
         qs, ks, vs, is_causal=causal)
     doc = doh.contiguous()
-    library_ms = cuda_ms(lambda: torch.autograd.grad(
+    library_ms = device_ms(lambda: torch.autograd.grad(
         out, (qs, ks, vs), doc, retain_graph=True), iters=10)
     del out
     (bq, byq), (bkv, bykv) = bwd_bounds(dtype, b, h, t, d, causal)
@@ -388,13 +465,18 @@ def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64):
         f"{'causal' if causal else 'non-causal'}: max_abs_err dq/dk/dv "
         f"{err[0]:.3e}/{err[1]:.3e}/{err[2]:.3e}, rel L2 {rel[0]:.2e}/"
         f"{rel[1]:.2e}/{rel[2]:.2e}, Function vs autograd rel L2 "
-        f"{fn_rel:.2e}; dq {ms_dq:.4f} ms (bound {bq:.5f}, {byq}), dkv "
-        f"{ms_dkv:.4f} ms (bound {bkv:.5f}, {bykv}), plain backward "
+        f"{fn_rel:.2e}, second launch "
+        f"{'identical' if repeats else 'DIFFERS'}, tensor-core dK/dV "
+        f"{tc_state(tc_ok, dtype)}; device ms: dq {ms_dq:.4f} ms "
+        f"(bound {bq:.5f}, {byq}), dkv "
+        f"{ms_dkv:.4f} ms (a call {call_ms_dkv:.4f}; bound {bkv:.5f}, "
+        f"{bykv}), plain backward "
         f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms -> "
         f"{'ok' if ok and fn_ok else 'FAIL'}")
     if not (ok and fn_ok):
         raise SystemExit(f"flash backward {dtype} B{b} T{t} causal={causal} "
-                         "disagrees with the plain backward")
+                         "disagrees with the plain backward, does not "
+                         "repeat or missed its kernel")
     return {"dq": {"max_abs_err": err[0], "ms": ms_dq, "bound_ms": bq,
                    "bound_by": byq},
             "dkv": {"max_abs_err": max(err[1:]), "ms": ms_dkv,
@@ -463,7 +545,22 @@ def main_path(fa, pa):
         pa.reset_launches()
         res = serve(sched, prompts, n_new)
         by_path[path] = {"flash_attention_fwd": fa.LAUNCHES,
+                         "flash_attention_fwd_tc": fa.LAUNCHES_TC,
                          "paged_attention": pa.LAUNCHES}
+        # every dense prefill whose bucket reaches flash_min_seq runs K1
+        # once a layer, on the tensor cores (bf16); paged prefills in
+        # chunks of 128 never do
+        flash_prefills = sum(
+            next(bk for bk in engine.prefill_buckets if bk >= len(p))
+            >= cfg.flash_min_seq for p in prompts) if path == "dense" else 0
+        want = cfg.n_layers * flash_prefills
+        if (path == "dense" and sched.stats["prefills"] != len(prompts)) \
+                or fa.LAUNCHES_TC != want or fa.LAUNCHES != want:
+            raise SystemExit(
+                f"{path} path: {sched.stats['prefills']} prefills of "
+                f"{len(prompts)} prompts, {fa.LAUNCHES_TC} tensor-core K1 "
+                f"launches of {fa.LAUNCHES} (want {cfg.n_layers} in each of "
+                f"{flash_prefills} prefills >= {cfg.flash_min_seq} tokens)")
         log(f"main path {path} ({sched.n_slots} slots, prompts "
             f"{min(map(len, prompts))}-{max(map(len, prompts))}, {n_new} "
             f"new): {json.dumps(res)}; launches {json.dumps(by_path[path])}")
@@ -554,13 +651,15 @@ def train_path(fa, pa, steps=5, batch=32, profile=False):
         pa.reset_launches()
         losses, secs, per_step = [], [], []
         for i in range(steps):
-            before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+            before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV,
+                      fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DKV_TC)
             t0 = time.perf_counter()
             loss = step(params, ids, tgt)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             losses.append(loss.item())
-            after = (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+            after = (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV,
+                     fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DKV_TC)
             per_step.append([a - b for a, b in zip(after, before)])
             if i == 0:
                 grads = {n: p.grad.detach().clone()
@@ -584,14 +683,19 @@ def train_path(fa, pa, steps=5, batch=32, profile=False):
     finite = all(bool(torch.isfinite(g).all()) for g in kg.values())
     worst = max(rels, key=rels.get)
     dloss = [abs(a - b) for a, b in zip(kr["losses"], pr["losses"])]
-    counts_ok = all(min(c) > 0 for c in kr["launches_per_step"])
+    # K1 runs twice a layer (forward and the save_attn recompute), dQ and
+    # dK/dV once; every K1 and dK/dV launch on the tensor cores (bf16)
+    want = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers, 2 * cfg.n_layers,
+            cfg.n_layers]
+    counts_ok = all(c == want for c in kr["launches_per_step"])
     falls = kr["losses"][-1] < kr["losses"][0] \
         and pr["losses"][-1] < pr["losses"][0]
     log(f"train kernel vs plain: step-1 grad rel L2 max {rels[worst]:.3e} "
         f"({worst}; limit {TRAIN_GRAD_REL_L2}), all finite {finite}; "
         f"|loss delta| per step {[f'{x:.2e}' for x in dloss]} (limit "
         f"{TRAIN_LOSS_ATOL}); loss falls {falls}; launches per step "
-        f"[K1, dQ, dK/dV] {kr['launches_per_step']}")
+        f"[K1, dQ, dK/dV, K1 tensor-core, dK/dV tensor-core] "
+        f"{kr['launches_per_step']} (want {want})")
     if not finite or rels[worst] > TRAIN_GRAD_REL_L2:
         raise SystemExit("train path: step-1 grads disagree with the plain "
                          "path")
@@ -599,11 +703,13 @@ def train_path(fa, pa, steps=5, batch=32, profile=False):
         raise SystemExit("train path: losses disagree with the plain path "
                          "or do not fall")
     if not counts_ok:
-        raise SystemExit("train path: a flash kernel was not launched in "
-                         "every step")
-    total = [sum(c[i] for c in kr["launches_per_step"]) for i in range(3)]
+        raise SystemExit("train path: a flash kernel was not launched as "
+                         "often as wanted in every step")
+    total = [sum(c[i] for c in kr["launches_per_step"]) for i in range(5)]
     return {"flash_attention_fwd": total[0], "flash_attention_bwd_dq":
             total[1], "flash_attention_bwd_dkv": total[2],
+            "flash_attention_fwd_tc": total[3],
+            "flash_attention_bwd_dkv_tc": total[4],
             "paged_attention": runs["kernel"][0]["paged_launches"]}
 
 
@@ -630,8 +736,7 @@ def device_rows(prof, wall, steps):
         # its kernels' time again as its own "self device time"
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
+        dev_us = _self_device_us(ev)
         if dev_us > 0:
             rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
@@ -1545,9 +1650,12 @@ def main():
     k2 = {dt: check_paged(pa, dt, gen)
           for dt in (torch.bfloat16, torch.float32)}
     k1 = {}
-    for dt in (torch.bfloat16, torch.float32):
-        for b, t in ((1, 1024), (1, 2048), (2, 2048)):
-            k1[(dt, b, t)] = check_flash(fa, dt, b, t, gen)
+    for dt, b, t in ((torch.bfloat16, 1, 1024), (torch.bfloat16, 1, 2048),
+                     (torch.bfloat16, 2, 2048), (torch.float32, 1, 1024),
+                     (torch.float32, 1, 2048), (torch.float32, 2, 2048),
+                     (torch.bfloat16, 32, 1024)):     # the train path's
+        k1[(dt, b, t)] = check_flash(fa, dt, b, t, gen)
+        torch.cuda.empty_cache()
     bwd = {}
     for dt, b, t, causal in (
             (torch.bfloat16, 1, 1024, True), (torch.bfloat16, 1, 2048, True),
@@ -1573,6 +1681,7 @@ def main():
     main_k3 = k3[(torch.bfloat16, RESNET_BATCH * 56 * 56, 256)]
     resnet_paths = ("resnet_train", "resnet_output")
     main_k1 = k1[(torch.bfloat16, 1, 2048)]    # a dense prefill's shape
+    train_k1 = k1[(torch.bfloat16, 32, 1024)]  # the train path's shape
     main_k2 = k2[torch.bfloat16]
     main_bwd = bwd[(torch.bfloat16, 32, 1024)]  # the train path's shape
     main_k4 = k4[torch.bfloat16]                # the char-RNN's shape
@@ -1580,20 +1689,27 @@ def main():
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/flash_attention_fwd.cu",
          "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:51",
-         "launches": sum(c["flash_attention_fwd"] for c in by_path.values()),
-         "launches_by_path": {p: c["flash_attention_fwd"]
+         "kernel": "flash_fwd_wgmma_kernel (bf16, tensor cores)",
+         "launches": sum(c.get("flash_attention_fwd_tc", 0)
+                         for c in by_path.values()),
+         "launches_by_path": {p: c.get("flash_attention_fwd_tc", 0)
                               for p, c in by_path.items()},
          "max_abs_err": max(r["max_abs_err"] for (dt, _, _), r in k1.items()
                             if dt == torch.bfloat16),
          "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
          "bound_ms": main_k1["bound_ms"], "bound_by": main_k1["bound_by"],
-         "library_ms": main_k1["library_ms"]},
+         "library_ms": main_k1["library_ms"],
+         "train_shape": {"shape": "B32 H8 T1024 D64",
+                         **{key: train_k1[key] for key in (
+                             "max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms")}}},
         *({"name": f"flash_attention_bwd_{part}", "route": "cuda",
            "source": "deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
            "replaces": f"deeplearning4j_tpu/kernels/flash_attention.py:{line}",
-           "launches": by_path["train"][f"flash_attention_bwd_{part}"],
-           "launches_by_path": {
-               "train": by_path["train"][f"flash_attention_bwd_{part}"]},
+           "kernel": ("flash_bwd_dkv_wgmma_kernel (bf16, tensor cores)"
+                      if part == "dkv" else "flash_bwd_dq_kernel"),
+           "launches": by_path["train"][counter],
+           "launches_by_path": {"train": by_path["train"][counter]},
            "max_abs_err": max(r[part]["max_abs_err"]
                               for (dt, _, _), r in bwd.items()
                               if dt == torch.bfloat16),
@@ -1601,7 +1717,9 @@ def main():
            "bound_ms": main_bwd[part]["bound_ms"],
            "bound_by": main_bwd[part]["bound_by"],
            "library_ms": main_bwd["library_ms"]}
-          for part, line in (("dq", 146), ("dkv", 186))),
+          for part, line, counter in (
+              ("dq", 146, "flash_attention_bwd_dq"),
+              ("dkv", 186, "flash_attention_bwd_dkv_tc"))),
         {"name": "paged_attention", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/paged_attention.cu",
          "replaces": "deeplearning4j_tpu/kernels/paged_attention.py:72",

@@ -16,32 +16,57 @@
 //
 // What bounds it on the card: operations. dQ does 3*D*T(T+1) flops per
 // causal head and dK/dV 4*D*T(T+1) over ~5-7 * T * D * 2 bytes, hundreds
-// of operations per byte. This first version does its products with f32
-// FMAs on the CUDA cores (no mma.sync / wgmma yet), so it stays well above
-// the tensor-core floor; the tensor-core rewrite is later work.
+// of operations per byte: at the train path's B32 H8 T1024 D64 bf16 the
+// floors are 0.0522 ms (dQ) and 0.0696 ms (dK/dV) at 989 TFLOP/s.
 //
-// Design. The Pallas grids (b*h, q-block, k-block) and (b*h, k-block,
+// dK/dV, bf16 (flash_bwd_dkv_wgmma_kernel): the four products run on the
+// tensor cores as wgmma.mma_async (m64nNk16, bf16 -> f32), as the TPU
+// kernel fed its MXU. One block owns one (b*h, 64-key tile), one
+// warpgroup (4 warps of 16 keys); per query tile of 64 rows, from the
+// diagonal down:
+//   Sᵀ = K·Qᵀ·scale, masked; Pᵀ = exp(Sᵀ - lse); dV += bf16(Pᵀ)·dO;
+//   dPᵀ = V·dOᵀ; dSᵀ = bf16(Pᵀ ∘ (dPᵀ - delta)·scale); dK += dSᵀ·Q.
+// The block's K and V tiles load once into shared memory; Q, dO and the
+// lse and delta rows stream through a double-buffered cp.async ring, in
+// the swizzled layouts wgmma reads through its descriptors (K-major for
+// Sᵀ and dPᵀ, MN-major, i.e. transposed, for the dO and Q of dV and dK).
+// dK and dV stay in f32 registers; Pᵀ and dSᵀ go from accumulator
+// fragments to bf16 register A operands, rounded where the TPU kernel
+// cast them; dV's product and dPᵀ's are issued together. The grid's slow
+// dimension walks the key tiles, the heaviest (first) ones first under
+// causal masking. Only query tiles that cross the diagonal or T are
+// masked; query rows >= T read as zeros. (An mma.sync m16n8k16 version
+// with ldmatrix fragments measured 1.1-1.3x slower; PERF.md.)
+//
+// dQ (both dtypes) and f32 dK/dV: the CUDA-core kernels of the first port
+// (f32 stays there: tensor cores would mean TF32, beyond the f32 atol of
+// 1e-4). The Pallas grids (b*h, q-block, k-block) and (b*h, k-block,
 // q-block) streamed the other operand through VMEM in order with the
 // accumulator in scratch; here one block owns one (b*h, 64-row tile) of
 // its output and a loop inside it walks the other operand's tiles: the
 // dq kernel the key tiles up to the diagonal, the dkv kernel the query
 // tiles from the diagonal down (the steps the TPU skipped with pl.when
-// are never visited). Keeping the TPU's two-pass schedule means no
-// atomics, so the gradients are deterministic. Each streamed tile goes
-// through shared memory as f32. TPR = D / 16 threads share a row, each
-// holding 16 of its dims (the row's operands and accumulators stay in
-// registers) in interleaved 4-float slices, so a warp's shared reads are
-// broadcast float4 loads without bank conflicts; shuffles complete each
-// dot product. A T that is not a multiple of the tile is masked. The
-// kernels take the batch, head and time strides of every (B, H, T, D)
-// operand (the last dimension must be contiguous), so the (B, T, H, D)
-// views of one qkv buffer the transformer holds need no copies.
+// are never visited). Each streamed tile goes through shared memory as
+// f32. TPR = D / 16 threads share a row, each holding 16 of its dims (the
+// row's operands and accumulators stay in registers) in interleaved
+// 4-float slices, so a warp's shared reads are broadcast float4 loads
+// without bank conflicts; shuffles complete each dot product.
+//
+// Keeping the TPU's two-pass schedule means no atomics, so all three
+// gradients are deterministic. A T that is not a multiple of the tile is
+// masked. The kernels take the batch, head and time strides of every
+// (B, H, T, D) operand (the last dimension must be contiguous), so the
+// (B, T, H, D) views of one qkv buffer the transformer holds need no
+// copies; the bf16 dK/dV kernel needs 16-byte aligned bases and strides
+// (the Python wrapper checks them and raises).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_mma.cuh"
+
 #include <math.h>
 
 namespace {
+
+using dl4j_mma::Str;
 
 constexpr int kRows = 64;  // output rows (queries or keys) per block
 
@@ -52,11 +77,6 @@ struct Tiling {
   static constexpr int NC = DPT / 4;             // float4 slices per thread
   static constexpr int THREADS = kRows * TPR;    // 64 .. 512
   static constexpr int BT = D <= 64 ? 64 : 32;   // streamed rows per tile
-};
-
-// element strides (batch, head, time) of one (B, H, T, D) operand
-struct Str {
-  long long b, h, t;
 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -291,6 +311,192 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ----------------------------- bf16 dK/dV, warpgroup MMA (wgmma)
+
+template <int D>
+struct DkvCfg {
+  static constexpr int BKV = 64;  // keys per block: one warpgroup
+  static constexpr int BQ = 64;   // query rows per step
+  static constexpr int THREADS = 128;
+  using KT = dl4j_mma::Tile<D, BKV>;
+  using QT = dl4j_mma::Tile<D, BQ>;
+  // K, V, two stages of (Q, dO), then two stages of (lse, delta) rows
+  static constexpr int ROWS = 2 * KT::BYTES + 4 * QT::BYTES;
+  static constexpr int SMEM = ROWS + 4 * BQ * 4 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(DkvCfg<D>::THREADS)
+flash_bwd_dkv_wgmma_kernel(const dl4j_mma::bf16* __restrict__ q,
+                           const dl4j_mma::bf16* __restrict__ k,
+                           const dl4j_mma::bf16* __restrict__ v,
+                           const dl4j_mma::bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           dl4j_mma::bf16* __restrict__ dk,
+                           dl4j_mma::bf16* __restrict__ dv, int H, int Tlen,
+                           Str sq, Str sk, Str sv, Str sdo, Str sdk, Str sdv,
+                           float scale, int causal) {
+  using namespace dl4j_mma;
+  using C = DkvCfg<D>;
+  using KT = typename C::KT;
+  using QT = typename C::QT;
+  constexpr int BQ = C::BQ;
+  constexpr int NS = BQ / 2;  // Sᵀ / dPᵀ accumulators a thread holds
+  constexpr int ND = D / 8;   // n-tiles of dK and dV
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t s_k = base;
+  const uint32_t s_v = s_k + KT::BYTES;
+  const uint32_t s_ring = s_v + KT::BYTES;  // stage st: Q, then dO
+  const uint32_t s_rows = base + C::ROWS;   // stage st: lse, then delta
+  const unsigned char* rows_ptr = smem + (s_rows - smem_u32(smem));
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * C::BKV;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wkey = k0 + warp * 16;  // this warp's first key
+  const float sl2 = scale * kLog2e;
+
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lseb = lse + (long long)bh * Tlen;
+  const float* deltab = delta + (long long)bh * Tlen;
+  // causal: query tiles above the block's first key see none of its keys
+  const int first = causal ? k0 / BQ : 0;
+  const int nqt = (Tlen + BQ - 1) / BQ;
+
+  // query tile `it` into ring stage `st`
+  auto fetch = [&](int it, int st) {
+    const uint32_t tq = s_ring + st * 2 * QT::BYTES;
+    const int i0 = it * BQ;
+    QT::template load<C::THREADS>(tq, qb, sq.t, i0, Tlen, tid);
+    QT::template load<C::THREADS>(tq + QT::BYTES, dob, sdo.t, i0, Tlen, tid);
+    if (tid < BQ) {
+      const int row = i0 + tid;
+      const bool ok = row < Tlen;
+      const uint32_t r = s_rows + st * 2 * BQ * 4;
+      cp_async4(r + 4 * tid, lseb + (ok ? row : 0), ok);
+      cp_async4(r + 4 * (BQ + tid), deltab + (ok ? row : 0), ok);
+    }
+  };
+
+  KT::template load<C::THREADS>(s_k, k + b * sk.b + h * sk.h, sk.t, k0,
+                                Tlen, tid);
+  KT::template load<C::THREADS>(s_v, v + b * sv.b + h * sv.h, sv.t, k0,
+                                Tlen, tid);
+  fetch(first, 0);
+  cp_async_commit();
+
+  float dka[D / 2], dva[D / 2];  // n-tile d of this warp's keys at [4d..]
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int it = first; it < nqt; ++it) {
+    const int st = (it - first) & 1;
+    if (it + 1 < nqt) fetch(it + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage (and K, V) have landed
+    __syncthreads();
+    const uint32_t s_q = s_ring + st * 2 * QT::BYTES;
+    const uint32_t s_do = s_q + QT::BYTES;
+    const float* ls = reinterpret_cast<const float*>(rows_ptr) + st * 2 * BQ;
+    const float* dl = ls + BQ;
+    const int i0 = it * BQ;
+
+    // Sᵀ = K·Qᵀ
+    float sacc[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sacc[i] = 0.f;
+    fence_regs(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQ>(sacc, KT::desc_k(s_k, kk), QT::desc_k(s_q, kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sacc);
+    // Pᵀ = exp(Sᵀ·scale - lse); only tiles that cross the diagonal or T
+    // are masked
+    const bool edge = i0 + BQ > Tlen || (causal && i0 < wkey + 15);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int qi = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      float p = exp2_approx(fmaf(sacc[i], sl2, -ls[qi] * kLog2e));
+      if (edge) {
+        const int row = i0 + qi;
+        const int key = wkey + g + 8 * ((i >> 1) & 1);
+        if (row >= Tlen || (causal && row < key)) p = 0.f;
+      }
+      sacc[i] = p;
+    }
+    // dV += bf16(Pᵀ)·dO and dPᵀ = V·dOᵀ, issued together
+    uint32_t pa[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[kk][i] = pack_bf16(sacc[8 * kk + 2 * i], sacc[8 * kk + 2 * i + 1]);
+    float dp[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) dp[i] = 0.f;
+    fence_regs(dva);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs<D>(dva, pa[kk], QT::desc_mn(s_do, kk));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BQ>(dp, KT::desc_k(s_v, kk), QT::desc_k(s_do, kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(dva);
+    fence_regs(dp);
+    // dSᵀ = Pᵀ ∘ (dPᵀ - delta)·scale, rounded to bf16 for dK += dSᵀ·Q
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 8 * kk + 2 * i;
+        const int qi = 8 * (j >> 2) + 2 * t4;
+        pa[kk][i] = pack_bf16(sacc[j] * (dp[j] - dl[qi]) * scale,
+                              sacc[j + 1] * (dp[j + 1] - dl[qi + 1]) * scale);
+      }
+    fence_regs(dka);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs<D>(dka, pa[kk], QT::desc_mn(s_q, kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(dka);
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+
+  bf16* dkb = dk + b * sdk.b + h * sdk.h;
+  bf16* dvb = dv + b * sdv.b + h * sdv.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = wkey + g + 8 * r;
+    if (key < Tlen) {
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        *reinterpret_cast<uint32_t*>(dkb + key * sdk.t + 8 * d + 2 * t4) =
+            pack_bf16(dka[4 * d + 2 * r], dka[4 * d + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dvb + key * sdv.t + 8 * d + 2 * t4) =
+            pack_bf16(dva[4 * d + 2 * r], dva[4 * d + 2 * r + 1]);
+      }
+    }
+  }
+}
+
 Str str_at(const long long* s, int i) { return Str{s[3 * i], s[3 * i + 1],
                                                     s[3 * i + 2]}; }
 
@@ -313,14 +519,32 @@ int launch_dkv(dim3 grid, cudaStream_t st, const void* q, const void* k,
                const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int H, int Tlen,
                const long long* s, float scale, int causal) {
-  flash_bwd_dkv_kernel<T, D><<<grid, Tiling<D>::THREADS, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Tlen, str_at(s, 0),
-      str_at(s, 1), str_at(s, 2), str_at(s, 3), str_at(s, 4), str_at(s, 5),
-      scale, causal);
-  return (int)cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {  // bf16: the tensor-core kernel
+    using C = DkvCfg<D>;
+    auto kern = flash_bwd_dkv_wgmma_kernel<D>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    // key tiles on the slow dimension: the heaviest (first) go first
+    const dim3 g2(grid.y, (Tlen + C::BKV - 1) / C::BKV);
+    kern<<<g2, C::THREADS, C::SMEM, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dk), static_cast<T*>(dv), H, Tlen, str_at(s, 0),
+        str_at(s, 1), str_at(s, 2), str_at(s, 3), str_at(s, 4),
+        str_at(s, 5), scale, causal);
+    return (int)cudaGetLastError();
+  } else {  // f32: the CUDA-core kernel
+    flash_bwd_dkv_kernel<T, D><<<grid, Tiling<D>::THREADS, 0, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dk), static_cast<T*>(dv), H, Tlen, str_at(s, 0),
+        str_at(s, 1), str_at(s, 2), str_at(s, 3), str_at(s, 4),
+        str_at(s, 5), scale, causal);
+    return (int)cudaGetLastError();
+  }
 }
 
 // the kernel for (dtype, D): dtype 0 = float32, 1 = bfloat16
@@ -369,3 +593,4 @@ extern "C" int dl4j_flash_attention_bwd_dkv(
   DL4J_BWD_DISPATCH(launch_dkv, grid, st, q, k, v, dout, lse, delta, dk, dv,
                     H, T, strides, scale, causal)
 }
+

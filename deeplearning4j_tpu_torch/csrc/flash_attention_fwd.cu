@@ -1,4 +1,6 @@
-// Causal flash-attention forward for Hopper (sm_90a), plain C interface.
+// Causal flash-attention forward (K1) for Hopper (sm_90a), plain C
+// interface: a bf16 kernel on the tensor cores (warpgroup MMA) and an f32
+// kernel on the CUDA cores, chosen by dtype.
 //
 // Replaces the TPU kernel `_fwd_kernel` of
 // deeplearning4j_tpu/kernels/flash_attention.py (launched by `_fwd`):
@@ -6,59 +8,271 @@
 // dtype and the per-row log-sum-exp in f32, so the (T, T) score matrix
 // never reaches device memory.
 //
-// What bounds it on the card: operations. At T = 1024-2048 and D = 64 a
-// causal head does ~T*T*D*2 flops over ~4*T*D*2 bytes, hundreds of
-// operations per byte, so the floor is the flops over the bf16 tensor-core
-// rate. This first version does its products with f32 FMAs on the CUDA
-// cores (no mma.sync / wgmma yet), so it stays well above that floor; the
-// tensor-core rewrite (wgmma fed by TMA) is later work.
+// What bounds it on the card: operations. A causal head does
+// 4 * D * T (T + 1) / 2 flops over ~4 * T * D * 2 bytes, hundreds of
+// operations per byte: at B1 H8 T2048 D64 bf16 the floor is 0.00434 ms
+// (989 TFLOP/s); at the train path's B32 H8 T1024 D64 it is 0.0404 ms,
+// set by the bytes (3.35 TB/s).
 //
-// Design. The Pallas grid (b*h, q-block, k-block) streamed key blocks
-// through VMEM in order with the softmax state in scratch; here one block
-// owns one (b*h, 64-row query tile) and a loop inside it walks the key
-// tiles, stopping at the diagonal when causal (the tiles the TPU kernel
-// skipped with pl.when and clamped its DMA for are never visited). Each
-// K/V tile goes through shared memory as f32. Two threads share a query
-// row, each holding half of the row's q and accumulator in registers, in
-// interleaved 4-float slices so a warp's shared reads are broadcast float4
-// loads without bank conflicts; one shuffle completes each score. The
-// softmax statistics are f32. A T that is not a multiple of the tile is
-// handled by masking keys and not writing rows past T. The kernel takes
-// the batch, head and time strides of q, k, v and o (the last dimension
-// must be contiguous), so the (B, T, H, D) layout the transformer holds
-// needs no transposes.
+// bf16 (flash_fwd_wgmma_kernel). The TPU kernel fed its MXU bf16 operands
+// with f32 sums; here both products are wgmma.mma_async (m64nNk16, bf16 ->
+// f32), the only path to Hopper's full tensor-core rate. A block owns one
+// (b*h, 64-row query tile), one warpgroup (4 warps, 16 rows each), and a
+// loop inside it walks the key tiles, 64 or 128 rows a step (the Pallas
+// grid's sequential key dimension), stopping at the diagonal when causal,
+// so the tiles the TPU kernel skipped with pl.when are never visited and
+// only tiles that cross the diagonal or T are masked. Q, K and V come into
+// shared memory by 16-byte cp.async in the layouts wgmma reads through
+// its descriptors (rows swizzled in 32/64/128-byte atoms at D 16/32/64; at
+// D 128 two 64-column panels); K/V are double-buffered, so the next
+// tile's copy overlaps this tile's products, and a proxy fence hands the
+// copied tiles to wgmma. S = Q·Kᵀ reads both operands from shared memory
+// and lands in registers; the online softmax runs there (row max and sum
+// by quad shuffles, exp2 with the scale folded into log2 e); S's
+// accumulator fragments, packed to bf16x2, are the register A operand of
+// O += P·V (V read transposed from shared memory), so P never touches
+// shared memory and is rounded to bf16 exactly where the TPU kernel cast
+// it (`p.astype(v.dtype)`); the row sums use the f32 P, as there. Under
+// causal masking the grid's slow dimension walks the query tiles
+// heaviest first, to shorten the tail. Rows >= T read as zeros and are
+// never written; keys >= T are masked. (An mma.sync m16n8k16 kernel with
+// ldmatrix fragments measured 1.3x slower at the train shape; PERF.md.)
+//
+// f32 (flash_fwd_kernel): tensor cores would mean TF32, which would break
+// the f32 tolerance of 1e-4, so f32 keeps the CUDA-core kernel: two
+// threads per query row, K/V tiles through shared memory as f32, f32 FMAs.
+//
+// Both take the batch, head and time strides of q, k, v and o (the last
+// dimension contiguous), so the (B, T, H, D) views of one qkv buffer the
+// transformer holds need no copies; the bf16 kernel needs 16-byte aligned
+// bases and strides (the Python wrapper checks them and raises).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_mma.cuh"
+
 #include <math.h>
 
 namespace {
 
+using namespace dl4j_mma;
+
+// ---------------------------------- bf16, warpgroup MMA (wgmma.mma_async)
+
+template <int D, int BK>
+struct FwdCfg {
+  static constexpr int BQ = 64;  // query rows: one warpgroup, 16 a warp
+  static constexpr int THREADS = 128;
+  using QT = Tile<D, BQ>;
+  using KT = Tile<D, BK>;
+  // Q, two stages of (K, V), and room to align the start to 1024 bytes
+  static constexpr int SMEM = QT::BYTES + 4 * KT::BYTES + 1024;
+};
+
+template <int D, int BK>
+__global__ void __launch_bounds__(FwdCfg<D, BK>::THREADS)
+flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       float* __restrict__ lse, int H, int Tlen, Str sq,
+                       Str sk, Str sv, Str so, float scale_log2, int causal) {
+  using C = FwdCfg<D, BK>;
+  using QT = typename C::QT;
+  using KT = typename C::KT;
+  constexpr int BQ = C::BQ;
+  constexpr int NS = BK / 2;  // S accumulators a thread holds
+  constexpr int NO = D / 8;   // n-tiles of O
+  extern __shared__ __align__(1024) unsigned char smem[];
+  // the swizzle atoms repeat every 1024 bytes: align the tiles to that
+  const uint32_t s_q = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t s_kv = s_q + QT::BYTES;  // stage s: K, then V
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wrow = q0 + warp * 16;  // this warp's first query row
+
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int kend = causal ? min(Tlen, q0 + BQ) : Tlen;
+  const int nkt = (kend + BK - 1) / BK;
+
+  QT::template load<C::THREADS>(s_q, q + b * sq.b + h * sq.h, sq.t, q0, Tlen,
+                                tid);
+  KT::template load<C::THREADS>(s_kv, kb, sk.t, 0, Tlen, tid);
+  KT::template load<C::THREADS>(s_kv + KT::BYTES, vb, sv.t, 0, Tlen, tid);
+  cp_async_commit();
+
+  float acc[D / 2];  // O: n-tile d of this warp's rows in acc[4d..4d+3]
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of s·scale·log2 e
+  float l[2] = {0.f, 0.f};              // this lane's share of the row sum
+
+  for (int j = 0; j < nkt; ++j) {
+    const uint32_t s_k = s_kv + (j & 1) * 2 * KT::BYTES;
+    const uint32_t s_v = s_k + KT::BYTES;
+    if (j + 1 < nkt) {
+      const uint32_t n_k = s_kv + ((j + 1) & 1) * 2 * KT::BYTES;
+      KT::template load<C::THREADS>(n_k, kb, sk.t, (j + 1) * BK, Tlen, tid);
+      KT::template load<C::THREADS>(n_k + KT::BYTES, vb, sv.t, (j + 1) * BK,
+                                    Tlen, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and Q) have landed
+    __syncthreads();
+    const int k0 = j * BK;
+    float s[NS];  // S: n-tile n of this warp's rows in s[4n..4n+3]
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BK>(s, QT::desc_k(s_q, kk), KT::desc_k(s_k, kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+
+#pragma unroll
+    for (int i = 0; i < NS; ++i) s[i] *= scale_log2;
+    // only tiles that cross the diagonal or T are masked
+    if (k0 + BK > Tlen || (causal && k0 + BK - 1 > wrow)) {
+#pragma unroll
+      for (int i = 0; i < NS; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const int row = wrow + g + 8 * ((i >> 1) & 1);
+        if (key >= Tlen || (causal && key > row)) s[i] = -INFINITY;
+      }
+    }
+    // the online softmax, rows g (r = 0) and g + 8 (r = 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+        mx = fmaxf(mx, fmaxf(s[4 * n + 2 * r], s[4 * n + 2 * r + 1]));
+      const float mn = fmaxf(m[r], quad_max(mx));
+      const float base = mn == -INFINITY ? 0.f : mn;  // no live key yet
+      const float corr = exp2_approx(m[r] - base);
+      m[r] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[4 * n + e] = exp2_approx(s[4 * n + e] - base);
+          sum += s[4 * n + e];
+        }
+      }
+      l[r] = l[r] * corr + sum;
+#pragma unroll
+      for (int d = 0; d < NO; ++d) {
+        acc[4 * d + 2 * r] *= corr;
+        acc[4 * d + 2 * r + 1] *= corr;
+      }
+    }
+    // bf16(P) as the A fragments of P·V, straight from S's registers
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<D>(acc, pa[kk], KT::desc_mn(s_v, kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+    __syncthreads();  // stage j & 1 is consumed before it is refilled
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    if (l[r] == 0.f) l[r] = 1.f;
+    inv[r] = 1.f / l[r];
+  }
+  bf16* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    if (row < Tlen) {
+#pragma unroll
+      for (int d = 0; d < NO; ++d)
+        *reinterpret_cast<uint32_t*>(ob + row * so.t + 8 * d + 2 * t4) =
+            pack_bf16(acc[4 * d + 2 * r] * inv[r],
+                      acc[4 * d + 2 * r + 1] * inv[r]);
+      if (t4 == 0)
+        lse[(long long)bh * Tlen + row] = (m[r] + log2f(l[r])) * kLn2;
+    }
+  }
+}
+
+template <int D, int BK>
+int launch_wgmma(int BH, int Tlen, cudaStream_t s, const void* q,
+                 const void* k, const void* v, void* o, void* lse, int H,
+                 Str sq, Str sk, Str sv, Str so, float scale, int causal) {
+  using C = FwdCfg<D, BK>;
+  auto kern = flash_fwd_wgmma_kernel<D, BK>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(BH, (Tlen + C::BQ - 1) / C::BQ);
+  kern<<<grid, C::THREADS, C::SMEM, s>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o),
+      static_cast<float*>(lse), H, Tlen, sq, sk, sv, so, scale * kLog2e,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+// The key tile of each head dim: 64 rows, except at D 64 on a grid of
+// fewer than two query tiles per SM, where each block's walk along its
+// row is the critical path and 128-key steps halve its iterations
+// (PERF.md has the tilings measured).
+int launch_bf16(int D, int BH, int Tlen, cudaStream_t s, const void* q,
+                const void* k, const void* v, void* o, void* lse, int H,
+                Str sq, Str sk, Str sv, Str so, float scale, int causal) {
+#define DL4J_WGMMA(DD, BK)                                                   \
+  return launch_wgmma<DD, BK>(BH, Tlen, s, q, k, v, o, lse, H, sq, sk, sv,   \
+                              so, scale, causal)
+  switch (D) {
+    case 16: DL4J_WGMMA(16, 64);
+    case 32: DL4J_WGMMA(32, 64);
+    case 64: {
+      int dev = 0, sms = 0;
+      cudaGetDevice(&dev);
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+      if ((long long)BH * ((Tlen + 63) / 64) < 2LL * sms)
+        DL4J_WGMMA(64, 128);
+      DL4J_WGMMA(64, 64);
+    }
+    case 128: DL4J_WGMMA(128, 64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DL4J_WGMMA
+}
+
+// --------------------------------------------------- f32, CUDA cores
+
 constexpr int kThreads = 128;
 constexpr int kBQ = 64;  // query rows per block (two threads per row)
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int H, int Tlen, long long sqb,
-                 long long sqh, long long sqt, long long skb, long long skh,
-                 long long skt, long long svb, long long svh, long long svt,
-                 long long sob, long long soh, long long sot, float scale,
-                 int causal) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int H, int Tlen, Str sq, Str sk,
+                 Str sv, Str so, float scale, int causal) {
   constexpr int BK = (D <= 64) ? 64 : 32;  // key rows per tile
   constexpr int HALF = D / 2;              // dims held per thread
   constexpr int NC = D / 8;                // 4-float slices per thread
@@ -73,9 +287,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int part = tid & 1;
   const int qi = q0 + (tid >> 1);
 
-  const T* qb = q + b * sqb + h * sqh;
-  const T* kb = k + b * skb + h * skh;
-  const T* vb = v + b * svb + h * svh;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
 
   float qr[HALF];
   float acc[HALF];
@@ -84,7 +298,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = 8 * c + 4 * part + e;
-      qr[4 * c + e] = qi < Tlen ? to_f(qb[qi * sqt + d]) : 0.f;
+      qr[4 * c + e] = qi < Tlen ? qb[qi * sq.t + d] : 0.f;
       acc[4 * c + e] = 0.f;
     }
   }
@@ -100,8 +314,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kj = k0 + r;
       float kv = 0.f, vv = 0.f;
       if (kj < Tlen) {
-        kv = to_f(kb[kj * skt + d]);
-        vv = to_f(vb[kj * svt + d]);
+        kv = kb[kj * sk.t + d];
+        vv = vb[kj * sv.t + d];
       }
       ks[r][d] = kv;
       vs[r][d] = vv;
@@ -153,31 +367,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (qi < Tlen) {
     const float ls = l == 0.f ? 1.f : l;
     const float inv = 1.f / ls;
-    T* ob = o + b * sob + h * soh + qi * sot;
+    float* ob = o + b * so.b + h * so.h + qi * so.t;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        ob[8 * c + 4 * part + e] = from_f<T>(acc[4 * c + e] * inv);
+        ob[8 * c + 4 * part + e] = acc[4 * c + e] * inv;
     }
     if (part == 0) lse[(long long)bh * Tlen + qi] = m + logf(ls);
   }
 }
 
-template <typename T>
-int launch(int D, dim3 grid, cudaStream_t s, const void* q, const void* k,
-           const void* v, void* o, void* lse, int H, int Tlen, long long sqb,
-           long long sqh, long long sqt, long long skb, long long skh,
-           long long skt, long long svb, long long svh, long long svt,
-           long long sob, long long soh, long long sot, float scale,
-           int causal) {
+int launch_f32(int D, int BH, int Tlen, cudaStream_t s, const void* q,
+               const void* k, const void* v, void* o, void* lse, int H,
+               Str sq, Str sk, Str sv, Str so, float scale, int causal) {
+  const dim3 grid((Tlen + kBQ - 1) / kBQ, BH);
 #define DL4J_FLASH_CASE(DD)                                                  \
   case DD:                                                                   \
-    flash_fwd_kernel<T, DD><<<grid, kThreads, 0, s>>>(                       \
-        static_cast<const T*>(q), static_cast<const T*>(k),                  \
-        static_cast<const T*>(v), static_cast<T*>(o),                        \
-        static_cast<float*>(lse), H, Tlen, sqb, sqh, sqt, skb, skh, skt, svb,\
-        svh, svt, sob, soh, sot, scale, causal);                             \
+    flash_fwd_kernel<DD><<<grid, kThreads, 0, s>>>(                          \
+        static_cast<const float*>(q), static_cast<const float*>(k),          \
+        static_cast<const float*>(v), static_cast<float*>(o),                \
+        static_cast<float*>(lse), H, Tlen, sq, sk, sv, so, scale, causal);   \
     break;
   switch (D) {
     DL4J_FLASH_CASE(16)
@@ -194,8 +404,9 @@ int launch(int D, dim3 grid, cudaStream_t s, const void* q, const void* k,
 }  // namespace
 
 // q, k, v, o: (B, H, T, D) addressed by the given element strides (the D
-// stride is 1); lse: contiguous (B, H, T) f32. dtype: 0 = float32,
-// 1 = bfloat16. Returns cudaGetLastError() after the launch.
+// stride is 1); lse: contiguous (B, H, T) f32. dtype: 0 = float32 (the
+// CUDA-core kernel), 1 = bfloat16 (the tensor-core kernel). Returns
+// cudaGetLastError() after the launch.
 extern "C" int dl4j_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int T, int D, long long sqb, long long sqh, long long sqt,
@@ -203,15 +414,14 @@ extern "C" int dl4j_flash_attention_fwd(
     long long svh, long long svt, long long sob, long long soh,
     long long sot, float scale, int causal, int dtype, void* stream) {
   if (B < 1 || H < 1 || T < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + kBQ - 1) / kBQ, B * H);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Str sq{sqb, sqh, sqt}, sk{skb, skh, skt}, sv{svb, svh, svt},
+      so{sob, soh, sot};
   if (dtype == 0)
-    return launch<float>(D, grid, s, q, k, v, o, lse, H, T, sqb, sqh, sqt,
-                         skb, skh, skt, svb, svh, svt, sob, soh, sot, scale,
-                         causal);
+    return launch_f32(D, B * H, T, s, q, k, v, o, lse, H, sq, sk, sv, so,
+                      scale, causal);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(D, grid, s, q, k, v, o, lse, H, T, sqb, sqh,
-                                 sqt, skb, skh, skt, svb, svh, svt, sob, soh,
-                                 sot, scale, causal);
+    return launch_bf16(D, B * H, T, s, q, k, v, o, lse, H, sq, sk, sv,
+                       so, scale, causal);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,8 +5,10 @@ Hopper (``sm_90a``) into a shared library with a plain C interface, and
 loaded with ``ctypes`` — no PyTorch headers, so a build takes seconds.
 Libraries land in ``build/dl4j_torch_kernels/`` beside the package
 (``$DL4J_TORCH_BUILD_DIR`` overrides), named by a hash of their source,
-so an edited kernel is never served from a stale build. A missing
-``nvcc`` or a failed build raises; there is no fallback.
+of every ``csrc/*.cuh`` it includes (``#include "x.cuh"``, followed
+through headers) and of the nvcc flags, so an edited kernel, header or
+flag is never served from a stale build. A missing ``nvcc`` or a failed
+build raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -14,16 +16,18 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = PKG_DIR / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+\.cuh)"', re.M)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -45,10 +49,27 @@ def nvcc_path() -> str:
                        "CUDA kernels are built from csrc/ at first use")
 
 
+def _sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc`` header it includes, directly
+    or through another header, in a fixed order."""
+    seen, todo = [], [SRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        todo.extend(SRC_DIR / inc.decode()
+                    for inc in _INCLUDE.findall(path.read_bytes())
+                    if (SRC_DIR / inc.decode()).exists())
+    return [seen[0], *sorted(seen[1:])]
+
+
 def _target(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return build_dir() / f"{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return build_dir() / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def _nvcc_cmd(name: str, out: Path):

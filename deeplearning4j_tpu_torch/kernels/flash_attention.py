@@ -18,6 +18,16 @@ plain torch (minus the lse cotangent for the lse variant) and runs the
 backward. CPU tensors take :func:`mha_reference_lse` and
 :func:`flash_attention_bwd_reference`; CUDA tensors launch the kernels
 or raise — there is no fallback between the two.
+
+On CUDA the dtype picks the kernel. bfloat16 runs K1 and dK/dV on the
+tensor cores (bf16 products with f32 sums, operands copied into shared
+memory by 16-byte ``cp.async``; counted in ``LAUNCHES_TC`` and
+``LAUNCHES_BWD_DKV_TC`` besides ``LAUNCHES`` and ``LAUNCHES_BWD_DKV``);
+their operands must pass :func:`check_tc_alignment`, or the call
+raises. float32 runs the CUDA-core kernels (tensor cores would mean
+TF32, beyond the f32 tolerance). dQ is the CUDA-core kernel for both
+dtypes. A bf16 launch that fails raises; it never falls back to another
+kernel.
 """
 
 from __future__ import annotations
@@ -38,15 +48,23 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 
 #: launches of each CUDA kernel since the last reset (the plain versions
-#: on CPU tensors do not count): K1, the dQ kernel, the dK/dV kernel
+#: on CPU tensors do not count): K1, the dQ kernel, the dK/dV kernel (any
+#: dtype), and of those the bf16 tensor-core K1 and dK/dV kernels
 LAUNCHES = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_BWD_DKV = 0
+LAUNCHES_TC = 0
+LAUNCHES_BWD_DKV_TC = 0
+
+#: bytes of one cp.async copy of the tensor-core kernels
+TC_ALIGN = 16
 
 
 def reset_launches():
-    global LAUNCHES, LAUNCHES_BWD_DQ, LAUNCHES_BWD_DKV
+    global LAUNCHES, LAUNCHES_BWD_DQ, LAUNCHES_BWD_DKV, LAUNCHES_TC, \
+        LAUNCHES_BWD_DKV_TC
     LAUNCHES = LAUNCHES_BWD_DQ = LAUNCHES_BWD_DKV = 0
+    LAUNCHES_TC = LAUNCHES_BWD_DKV_TC = 0
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None,
@@ -110,8 +128,10 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         if dout is None:               # only lse was used
             dout = torch.zeros_like(out)
-        if dout.stride(-1) != 1:
-            dout = dout.contiguous()
+        if dout.stride(-1) != 1 or (dout.dtype == torch.bfloat16
+                                    and not tc_aligned(dout)):
+            # a fresh copy: contiguous() would keep a misaligned start
+            dout = dout.clone(memory_format=torch.contiguous_format)
         delta = (dout.float() * out.float()).sum(-1)
         if ctx.layout == "bthd":
             delta = delta.transpose(1, 2)
@@ -172,6 +192,32 @@ def _check_qkv(layout, q, k, v, dout=None):
     return (b, h, t, d), views
 
 
+def tc_aligned(x) -> bool:
+    """True when the tensor-core kernels can copy ``x``'s rows in
+    16-byte chunks: its storage starts on a 16-byte boundary and every
+    stride but the last (contiguous) one, of a dimension longer than 1,
+    is a whole number of chunks."""
+    item = x.element_size()
+    return x.data_ptr() % TC_ALIGN == 0 and all(
+        n == 1 or (st * item) % TC_ALIGN == 0
+        for n, st in zip(x.shape[:-1], x.stride()[:-1]))
+
+
+def check_tc_alignment(**views):
+    """Raise ``ValueError`` naming the first of ``views`` (name → tensor)
+    that :func:`tc_aligned` refuses. The bf16 kernels check their
+    operands with it before any launch. The transformer's q/k/v (views
+    of one (B, T, 3·H·D) buffer at offsets of whole heads) pass."""
+    for name, x in views.items():
+        if not tc_aligned(x):
+            raise ValueError(
+                f"{name} (shape {tuple(x.shape)}, strides {x.stride()}, "
+                f"address {x.data_ptr():#x}) is not {TC_ALIGN}-byte aligned "
+                f"for the bf16 tensor-core kernels: its start and its "
+                f"batch, head and time strides must be multiples of "
+                f"{TC_ALIGN} bytes")
+
+
 def _check_rows(name, x, q, bhtd):
     if x.dtype != torch.float32 or tuple(x.shape) != bhtd[:3] \
             or x.device != q.device or not x.is_contiguous():
@@ -186,8 +232,11 @@ def _strides(*views):
 
 
 def _flash_cuda(q, k, v, scale, causal, layout):
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_TC
     (b, h, t, d), (q_, k_, v_) = _check_qkv(layout, q, k, v)
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        check_tc_alignment(q=q_, k=k_, v=v_)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     (o_,) = _bhtd(layout, out)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
@@ -200,6 +249,7 @@ def _flash_cuda(q, k, v, scale, causal, layout):
         _DTYPES[q.dtype], stream)
     _build.check(rc, "flash_attention_fwd")
     LAUNCHES += 1
+    LAUNCHES_TC += tc
     return out, lse
 
 
@@ -231,11 +281,14 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, causal,
                             layout="bhtd"):
     """(dK, dV) of the flash backward in q's layout: the dK/dV kernel on
     CUDA tensors, the plain backward's dk, dv on CPU tensors."""
-    global LAUNCHES_BWD_DKV
+    global LAUNCHES_BWD_DKV, LAUNCHES_BWD_DKV_TC
     if q.device.type == "cpu":
         return flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
                                    layout)[1:]
     bhtd, (q_, k_, v_, do_) = _check_qkv(layout, q, k, v, dout)
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        check_tc_alignment(q=q_, k=k_, v=v_, dout=do_)
     _check_rows("lse", lse, q, bhtd)
     _check_rows("delta", delta, q, bhtd)
     dk = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -250,6 +303,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, causal,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention_bwd_dkv")
     LAUNCHES_BWD_DKV += 1
+    LAUNCHES_BWD_DKV_TC += tc
     return dk, dv
 
 

@@ -74,21 +74,64 @@ def test_paged_kernel_matches_plain(gen, dtype, dh, plen):
     assert out[3].abs().max().item() == 0.0   # empty slot → zeros
 
 
+FLASH_GRID = [(64, True), (200, True), (1000, True), (256, False),
+              (200, False), (1000, False)]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("t,causal", [(200, True), (256, False), (64, True)])
-def test_flash_kernel_matches_plain(gen, dtype, t, causal):
-    b, h, d = 2, 3, 64
+@pytest.mark.parametrize("t,causal", FLASH_GRID)
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_flash_kernel_matches_plain(gen, dtype, t, causal, d):
+    """K1 (the tensor-core kernel in bf16, the CUDA-core one in f32) at
+    every head dim, in the (B, H, T, D) layout and through strided
+    (B, T, H, D) views of one qkv buffer; a second launch repeats the
+    first bit for bit."""
+    b, h = 2, 3
     q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda")
                .to(dtype) for _ in range(3))
+    before = (fa.LAUNCHES, fa.LAUNCHES_TC)
     out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+    tc = int(dtype == torch.bfloat16)
+    assert (fa.LAUNCHES, fa.LAUNCHES_TC) == (before[0] + 1, before[1] + tc)
     ref, ref_lse = fa.mha_reference_lse(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), atol=ATOL[dtype],
                                rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
-    ntc = fa.flash_attention_ntc(*(x.transpose(1, 2) for x in (q, k, v)),
-                                 causal=causal)
+    again, lse_again = fa.flash_attention_lse(q, k, v, causal=causal)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    qkv = torch.cat([x.transpose(1, 2).reshape(b, t, h * d)
+                     for x in (q, k, v)], dim=-1)
+    qn, kn, vn = (x.reshape(b, t, h, d) for x in qkv.chunk(3, dim=-1))
+    ntc = fa.flash_attention_ntc(qn, kn, vn, causal=causal)
     torch.testing.assert_close(ntc.transpose(1, 2).float(), ref.float(),
                                atol=ATOL[dtype], rtol=0)
+
+
+def test_flash_misaligned_bf16_views_raise_before_launch(gen):
+    """A bf16 view that starts off a 16-byte boundary (or has a time
+    stride of an odd number of elements) raises in K1 and in dK/dV, and
+    nothing is launched; the CUDA-core kernels (f32) take it."""
+    b, t, h, d = 1, 70, 2, 16
+    buf = torch.randn((b, t, 3 * h * d + 1), generator=gen, device="cuda")
+    views = [buf[..., 1 + i * h * d:1 + (i + 1) * h * d].reshape(b, t, h, d)
+             for i in range(3)]
+    bf = [x.to(torch.bfloat16) for x in views]          # contiguous copies
+    raw = buf.to(torch.bfloat16)
+    odd = [raw[..., 1 + i * h * d:1 + (i + 1) * h * d].reshape(b, t, h, d)
+           for i in range(3)]
+    lse = torch.zeros((b, h, t), device="cuda")
+    counts = (fa.LAUNCHES, fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DKV,
+              fa.LAUNCHES_BWD_DKV_TC)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_ntc(*odd, causal=True)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_bwd_dkv(*odd, bf[0], lse, lse, 0.25, True, "bthd")
+    assert (fa.LAUNCHES, fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DKV,
+            fa.LAUNCHES_BWD_DKV_TC) == counts
+    out = fa.flash_attention_ntc(*views, causal=True)   # f32: any strides
+    ref = fa.mha_reference(*(x.transpose(1, 2) for x in views), causal=True)
+    torch.testing.assert_close(out.transpose(1, 2), ref, atol=1e-4, rtol=0)
+    assert fa.LAUNCHES == counts[0] + 1
 
 
 def _rel_l2(a, b):
@@ -104,13 +147,13 @@ def _close(got, ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("t,causal", [(64, True), (200, True), (256, False),
-                                      (200, False)])
+@pytest.mark.parametrize("t,causal", FLASH_GRID)
 @pytest.mark.parametrize("d", [16, 32, 64, 128])
 def test_flash_bwd_kernels_match_plain(gen, dtype, t, causal, d):
     """dQ and dK/dV against the plain backward on the same inputs, in
     the (B, H, T, D) layout and through strided (B, T, H, D) views of
-    one qkv buffer (the transformer's layout)."""
+    one qkv buffer (the transformer's layout); a second launch of each
+    repeats the first bit for bit."""
     b, h = 2, 3
     scale = d ** -0.5
     q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda")
@@ -119,17 +162,25 @@ def test_flash_bwd_kernels_match_plain(gen, dtype, t, causal, d):
     delta = torch.randn((b, h, t), generator=gen, device="cuda")
     ref = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale,
                                            causal)
-    before = (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV)
+    before = (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV,
+              fa.LAUNCHES_BWD_DKV_TC)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
     assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == (before[0] + 1,
                                                          before[1])
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
                                         causal)
-    assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == (before[0] + 1,
-                                                         before[1] + 1)
+    tc = int(dtype == torch.bfloat16)
+    assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV,
+            fa.LAUNCHES_BWD_DKV_TC) == (before[0] + 1, before[1] + 1,
+                                        before[2] + tc)
     torch.cuda.synchronize()
     for got, want in zip((dq, dk, dv), ref):
         _close(got, want, dtype)
+    dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                          causal)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) \
+        and torch.equal(dv, dv2)
     qkv = torch.cat([x.transpose(1, 2).reshape(b, t, h * d)
                      for x in (q, k, v)], dim=-1)
     qn, kn, vn = (x.reshape(b, t, h, d) for x in qkv.chunk(3, dim=-1))

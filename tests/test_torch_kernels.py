@@ -423,3 +423,130 @@ def test_build_dir_is_beside_the_package(monkeypatch, tmp_path):
     assert sorted(p.stem for p in _build.SRC_DIR.glob("*.cu")) == \
         ["flash_attention_bwd", "flash_attention_fwd", "fused_bn_act",
          "fused_lstm", "paged_attention"]
+
+
+def _fake_sources(tmp_path, monkeypatch):
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "k.cu").write_text('#include "a.cuh"\n#include <math.h>\n')
+    (src / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (src / "b.cuh").write_text("// b\n")
+    (src / "other.cuh").write_text("// not included\n")
+    monkeypatch.setattr(_build, "SRC_DIR", src)
+    monkeypatch.setenv("DL4J_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    return src
+
+
+def test_build_target_covers_included_headers(monkeypatch, tmp_path):
+    """The library's name hashes the source AND every csrc header it
+    includes, directly or through another header: an edited header is
+    never served from a stale build; a header it does not include does
+    not move the name."""
+    assert [p.name for p in _build._sources("flash_attention_fwd")] == \
+        ["flash_attention_fwd.cu", "flash_mma.cuh"]
+    assert [p.name for p in _build._sources("flash_attention_bwd")] == \
+        ["flash_attention_bwd.cu", "flash_mma.cuh"]
+    src = _fake_sources(tmp_path, monkeypatch)
+    assert [p.name for p in _build._sources("k")] == \
+        ["k.cu", "a.cuh", "b.cuh"]
+    first = _build._target("k")
+    assert first.parent == tmp_path / "build"
+    assert first.name.startswith("k-") and first.suffix == ".so"
+    (src / "other.cuh").write_text("// edited, still not included\n")
+    assert _build._target("k") == first
+    (src / "b.cuh").write_text("// b, edited\n")
+    second = _build._target("k")
+    assert second != first
+    (src / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// x\n')
+    assert _build._target("k") not in (first, second)
+
+
+def test_nvcc_flags_reach_the_command_and_move_the_target(monkeypatch,
+                                                          tmp_path):
+    """``NVCC_FLAGS`` stand on every source's nvcc line, before the
+    output, and are hashed into the library's name: a changed flag is
+    never served from a stale build."""
+    _fake_sources(tmp_path, monkeypatch)
+    monkeypatch.setattr(_build, "nvcc_path", lambda: "nvcc-stub")
+    out = tmp_path / "k.so"
+    assert _build._nvcc_cmd("k", out) == [
+        "nvcc-stub", *_build.NVCC_FLAGS, "-o", str(out),
+        str(tmp_path / "csrc" / "k.cu")]
+    first = _build._target("k")
+    flags = [f for f in _build.NVCC_FLAGS if f != "-lineinfo"]
+    monkeypatch.setattr(_build, "NVCC_FLAGS", flags)
+    assert _build._nvcc_cmd("k", out) == [
+        "nvcc-stub", *flags, "-o", str(out), str(tmp_path / "csrc" / "k.cu")]
+    assert _build._target("k") != first
+
+
+def test_tc_alignment_passes_the_transformers_qkv_views(monkeypatch):
+    """The q/k/v the transformer hands the flash kernel (views of one
+    (B, T, 3·H·D) bf16 buffer at whole-head offsets, time stride 3·H·D)
+    pass the tensor-core kernels' alignment check, at every head dim;
+    a view one element off, or with an odd time stride, fails it."""
+    from deeplearning4j_tpu_torch.zoo import transformer as ttfm
+    seen = []
+    ntc = tfa.flash_attention_ntc
+
+    def spy(q, k, v, causal=False, scale=None):
+        seen.append((q, k, v))
+        return ntc(q, k, v, causal, scale)
+
+    monkeypatch.setattr(tfa, "flash_attention_ntc", spy)
+    for d in tfa.HEAD_DIMS:
+        cfg = ttfm.TransformerConfig(vocab_size=64, d_model=2 * d, n_heads=2,
+                                     n_layers=1, d_ff=64, max_seq=24,
+                                     dtype=torch.bfloat16,
+                                     use_flash_attention=True)
+        params = ttfm.init_params(cfg, torch.Generator().manual_seed(0),
+                                  device="cpu")
+        ids = torch.as_tensor(np.arange(24).reshape(2, 12) % 64)
+        ttfm.forward(params, cfg, ids)
+    assert len(seen) == len(tfa.HEAD_DIMS)
+    for q, k, v in seen:
+        assert q.dtype == torch.bfloat16 and q.stride(1) == 3 * q.shape[2] \
+            * q.shape[3]
+        for x in (q, k, v):
+            assert tfa.tc_aligned(x) and tfa.tc_aligned(x.transpose(1, 2))
+        tfa.check_tc_alignment(q=q, k=k, v=v)
+    b, t, h, d = 2, 12, 2, 16
+    buf = torch.zeros((b, t, 3 * h * d + 8), dtype=torch.bfloat16)
+    ok = buf[..., 8:8 + h * d].reshape(b, t, h, d)          # 16 bytes in
+    off = buf[..., 1:1 + h * d].reshape(b, t, h, d)         # 2 bytes in
+    assert tfa.tc_aligned(ok) and not tfa.tc_aligned(off)
+    odd = torch.zeros((b, t, 3 * h * d + 1), dtype=torch.bfloat16)
+    odd_t = odd[..., :h * d].reshape(b, t, h, d)            # stride 97
+    assert odd_t.data_ptr() % 16 == 0 and not tfa.tc_aligned(odd_t)
+    with pytest.raises(ValueError, match="k .*16-byte aligned"):
+        tfa.check_tc_alignment(q=ok, k=off, v=ok)
+    with pytest.raises(ValueError, match="v .*16-byte aligned"):
+        tfa.check_tc_alignment(q=ok, k=ok, v=odd_t)
+
+
+def test_bf16_kernels_refuse_misaligned_views_before_loading():
+    """K1's and dK/dV's bf16 wrappers raise ValueError on a misaligned
+    operand before they build or launch anything (no card needed to
+    reach the check); the counts do not move. f32 keeps taking any
+    strides (it reaches the build, which needs a card)."""
+    b, t, h, d = 1, 8, 2, 16
+    counts = (tfa.LAUNCHES, tfa.LAUNCHES_TC, tfa.LAUNCHES_BWD_DKV,
+              tfa.LAUNCHES_BWD_DKV_TC)
+    buf = torch.zeros((b, t, 3 * h * d + 1), dtype=torch.bfloat16)
+    q, k, v = (buf[..., 1 + i * h * d:1 + (i + 1) * h * d]
+               .reshape(b, t, h, d) for i in range(3))
+    with pytest.raises(ValueError, match="aligned"):
+        tfa._flash_cuda(q, k, v, 0.25, True, "bthd")
+    meta = buf.to("meta")
+    mq, mk, mv = (meta[..., 1 + i * h * d:1 + (i + 1) * h * d]
+                  .reshape(b, t, h, d) for i in range(3))
+    lse = torch.zeros((b, h, t), device="meta")
+    with pytest.raises(ValueError, match="aligned"):
+        tfa.flash_attention_bwd_dkv(mq, mk, mv, mq, lse, lse, 0.25, True,
+                                    "bthd")
+    assert (tfa.LAUNCHES, tfa.LAUNCHES_TC, tfa.LAUNCHES_BWD_DKV,
+            tfa.LAUNCHES_BWD_DKV_TC) == counts
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tfa._flash_cuda(q.float(), k.float(), v.float(), 0.25, True,
+                            "bthd")
