@@ -14,23 +14,26 @@ Phases, each fatal on failure:
 
 1. print the card's name and power limit; build every kernel from
    ``deeplearning4j_tpu_torch/csrc`` (one nvcc per source, in parallel);
-2. K2 (paged decode) against its plain version at the 120M decode shapes,
-   bf16 and f32 pools, over mapped, sentinel, partial-tail, CoW-shared and
-   empty slots (the empty slot against zeros);
+2. K2 (paged decode, split-K in two passes) against its plain version at
+   the 120M decode shapes, bf16 and f32 pools, over mapped, sentinel,
+   partial-tail, CoW-shared and empty slots (the empty slot against
+   zeros); a second launch bit for bit equal; device time of both passes
+   (``torch.profiler``) with a call timed by CUDA events beside it;
 3. K1 (causal flash forward; bf16 on the tensor-core kernel, f32 on the
-   CUDA-core one) against ``mha_reference``, O and lse, at T 1024/2048
-   and at the train path's B32 T1024 bf16, plus the strided (B, T, H, D)
-   layout the transformer uses; a second launch bit for bit equal; the
-   bf16 kernel's four D 64 tilings timed at B1 T2048 and B32 T1024;
+   CUDA-core one) against ``mha_reference``, O and lse, at T 1024/2048,
+   at head dim 80 (padded to 128 inside the kernel) in both dtypes, and
+   at the train path's B32 T1024 bf16, plus the strided (B, T, H, D)
+   layout the transformer uses; a second launch bit for bit equal;
    ``F.scaled_dot_product_attention`` timed as a yardstick only;
-3b. the flash backward kernels (dQ, dK/dV) against
-   ``flash_attention_bwd_reference`` on the same inputs, through strided
-   (B, T, H, D) views of one qkv buffer, at B1 H8 D64 T 1024/2048/4096
-   bf16, T 2048 f32, T 200 causal and T 256 non-causal, and at the train
-   path's B32 T1024 bf16; a second launch of each bit for bit equal, bf16
-   dK/dV on the tensor-core kernel; the autograd Function's grads against
-   autograd through ``mha_reference``; SDPA's backward timed as a
-   yardstick only;
+3b. the flash backward kernels (dQ, dK/dV; both on the tensor cores in
+   bf16) against ``flash_attention_bwd_reference`` on the same inputs,
+   through strided (B, T, H, D) views of one qkv buffer, at B1 H8 D64
+   T 1024/2048/4096 bf16, T 2048 f32, T 200 causal and T 256 non-causal,
+   head dim 80 in both dtypes, and at the train path's B32 T1024 bf16,
+   causal and non-causal; a second launch of each bit for bit equal; the
+   autograd Function's grads against autograd through ``mha_reference``;
+   dQ's device time against its bound and SDPA's whole backward (timed as
+   a yardstick only);
 4. the main path at full width: the 120M Transformer-LM with seeded
    random weights served by a dense and a paged
    ``ContinuousBatchingScheduler``; every request must resolve with its
@@ -48,8 +51,8 @@ Phases, each fatal on failure:
    scores) from identical params: step-1 grads within relative L2
    2e-2 per leaf, loss within 2e-2 nats at each of 5 steps and falling;
    the launch counts are set to 0 just before the kernel path, and every
-   step must launch K1 16 times and dQ and dK/dV 8 times each, every K1
-   and dK/dV launch on the tensor-core kernels;
+   step must launch K1 16 times and dQ and dK/dV 8 times each, every
+   launch on the tensor-core kernels;
 7. the fused BatchNorm+activation kernels (K3: normalize+act, stats,
    backward reduce, backward dx) against their plain versions at all
    nine (N, C) shapes a ResNet-50 BN gives them at batch 128, relu and
@@ -265,11 +268,16 @@ def check_paged(pa, dtype, gen):
     table, pos = table.to(dev), pos.to(dev)
     empty = [s for s, (_, c) in enumerate(cases) if c == "empty"]
     out = pa.paged_attention(q, k[0], v[0], table, pos)
+    again = pa.paged_attention(q, k[0], v[0], table, pos)
     ref = pa.paged_attention_reference(q, k[0], v[0], table, pos)
     torch.cuda.synchronize()
+    repeats = bool(torch.equal(out, again))
     err = (out[live].float() - ref[live].float()).abs().max().item()
     err_empty = out[empty].float().abs().max().item()
-    ok = err <= ATOL[dtype] and err_empty == 0.0
+    ok = err <= ATOL[dtype] and err_empty == 0.0 and repeats
+    plan = pa.split_plan(b, h, dh, q.element_size(), plen, per_slot,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
     layer = [0]
 
     def run_kernel():
@@ -281,8 +289,11 @@ def check_paged(pa, dtype, gen):
         pa.paged_attention_reference(q, k[layer[0]], v[layer[0]], table,
                                      pos)
 
-    ms = cuda_ms(run_kernel, iters=50)
-    plain_ms = cuda_ms(run_plain, iters=10)
+    # device time of both passes (the profiler's), and a call timed by
+    # events, the host's path included
+    ms = device_ms(run_kernel, iters=50)
+    call_ms = cuda_ms(run_kernel, iters=50)
+    plain_ms = device_ms(run_plain, iters=10)
     item = torch.finfo(dtype).bits // 8
     nbytes = (2 * distinct_rows * h * dh * item + 2 * b * h * dh * item
               + table.numel() * 4 + pos.numel() * 4)
@@ -290,14 +301,18 @@ def check_paged(pa, dtype, gen):
     bms, by = bound_ms(nbytes, flops, dtype)
     log(f"K2 paged_attention {str(dtype)[6:]}: max_abs_err {err:.3e} "
         f"(atol {ATOL[dtype]}), empty slot max |out| {err_empty:.1e}, "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.5f} ms "
-        f"({by}), live rows {rows} ({distinct_rows} distinct) -> "
+        f"second launch {'identical' if repeats else 'DIFFERS'}; split "
+        f"plan {dataclasses.asdict(plan)}; device ms: kernel (both "
+        f"passes) {ms:.4f} (a call with the host's path {call_ms:.4f}), "
+        f"plain {plain_ms:.4f}, bound {bms:.5f} ({by}; kernel "
+        f"{ms / bms:.1f}x), live rows {rows} ({distinct_rows} distinct) -> "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit(f"K2 {dtype} disagrees with its plain version")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "rows": rows,
-            "distinct_rows": distinct_rows}
+        raise SystemExit(f"K2 {dtype} disagrees with its plain version or "
+                         "does not repeat")
+    return {"max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "rows": rows, "distinct_rows": distinct_rows}
 
 
 # ---------------------------------------------------------------- phase 3
@@ -409,12 +424,14 @@ def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64):
     del o
     ref = fa.flash_attention_bwd_reference(qh, kh, vh, doh, lse, delta,
                                            scale, causal)
-    tc_before = fa.LAUNCHES_BWD_DKV_TC
+    tc_before = (fa.LAUNCHES_BWD_DQ_TC, fa.LAUNCHES_BWD_DKV_TC)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal,
                                    "bthd")
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
                                         causal, "bthd")
-    tc_ok = (fa.LAUNCHES_BWD_DKV_TC - tc_before) == (dtype == torch.bfloat16)
+    tc = int(dtype == torch.bfloat16)
+    tc_ok = (fa.LAUNCHES_BWD_DQ_TC - tc_before[0],
+             fa.LAUNCHES_BWD_DKV_TC - tc_before[1]) == (tc, tc)
     dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal,
                                     "bthd")
     dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
@@ -446,6 +463,8 @@ def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64):
 
     ms_dq = device_ms(lambda: fa.flash_attention_bwd_dq(
         q, k, v, do, lse, delta, scale, causal, "bthd"), iters=5, warmup=1)
+    call_ms_dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(
+        q, k, v, do, lse, delta, scale, causal, "bthd"), iters=5, warmup=1)
     ms_dkv = device_ms(lambda: fa.flash_attention_bwd_dkv(
         q, k, v, do, lse, delta, scale, causal, "bthd"), iters=5, warmup=1)
     # a call timed by events, host path included
@@ -466,19 +485,20 @@ def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64):
         f"{err[0]:.3e}/{err[1]:.3e}/{err[2]:.3e}, rel L2 {rel[0]:.2e}/"
         f"{rel[1]:.2e}/{rel[2]:.2e}, Function vs autograd rel L2 "
         f"{fn_rel:.2e}, second launch "
-        f"{'identical' if repeats else 'DIFFERS'}, tensor-core dK/dV "
-        f"{tc_state(tc_ok, dtype)}; device ms: dq {ms_dq:.4f} ms "
-        f"(bound {bq:.5f}, {byq}), dkv "
+        f"{'identical' if repeats else 'DIFFERS'}, tensor-core dQ and "
+        f"dK/dV {tc_state(tc_ok, dtype)}; device ms: dq {ms_dq:.4f} ms (a "
+        f"call {call_ms_dq:.4f}; bound {bq:.5f}, {byq}: {ms_dq / bq:.1f}x; "
+        f"{ms_dq / library_ms:.3f}x sdpa's whole backward), dkv "
         f"{ms_dkv:.4f} ms (a call {call_ms_dkv:.4f}; bound {bkv:.5f}, "
-        f"{bykv}), plain backward "
+        f"{bykv}), dq + dkv {ms_dq + ms_dkv:.4f} ms, plain backward "
         f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms -> "
         f"{'ok' if ok and fn_ok else 'FAIL'}")
     if not (ok and fn_ok):
         raise SystemExit(f"flash backward {dtype} B{b} T{t} causal={causal} "
                          "disagrees with the plain backward, does not "
                          "repeat or missed its kernel")
-    return {"dq": {"max_abs_err": err[0], "ms": ms_dq, "bound_ms": bq,
-                   "bound_by": byq},
+    return {"dq": {"max_abs_err": err[0], "ms": ms_dq, "call_ms": call_ms_dq,
+                   "bound_ms": bq, "bound_by": byq},
             "dkv": {"max_abs_err": max(err[1:]), "ms": ms_dkv,
                     "bound_ms": bkv, "bound_by": bykv},
             "plain_ms": plain_ms, "library_ms": library_ms}
@@ -652,14 +672,16 @@ def train_path(fa, pa, steps=5, batch=32, profile=False):
         losses, secs, per_step = [], [], []
         for i in range(steps):
             before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV,
-                      fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DKV_TC)
+                      fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DQ_TC,
+                      fa.LAUNCHES_BWD_DKV_TC)
             t0 = time.perf_counter()
             loss = step(params, ids, tgt)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             losses.append(loss.item())
             after = (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV,
-                     fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DKV_TC)
+                     fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DQ_TC,
+                     fa.LAUNCHES_BWD_DKV_TC)
             per_step.append([a - b for a, b in zip(after, before)])
             if i == 0:
                 grads = {n: p.grad.detach().clone()
@@ -684,9 +706,9 @@ def train_path(fa, pa, steps=5, batch=32, profile=False):
     worst = max(rels, key=rels.get)
     dloss = [abs(a - b) for a, b in zip(kr["losses"], pr["losses"])]
     # K1 runs twice a layer (forward and the save_attn recompute), dQ and
-    # dK/dV once; every K1 and dK/dV launch on the tensor cores (bf16)
+    # dK/dV once; every launch on the tensor cores (bf16)
     want = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers, 2 * cfg.n_layers,
-            cfg.n_layers]
+            cfg.n_layers, cfg.n_layers]
     counts_ok = all(c == want for c in kr["launches_per_step"])
     falls = kr["losses"][-1] < kr["losses"][0] \
         and pr["losses"][-1] < pr["losses"][0]
@@ -694,7 +716,8 @@ def train_path(fa, pa, steps=5, batch=32, profile=False):
         f"({worst}; limit {TRAIN_GRAD_REL_L2}), all finite {finite}; "
         f"|loss delta| per step {[f'{x:.2e}' for x in dloss]} (limit "
         f"{TRAIN_LOSS_ATOL}); loss falls {falls}; launches per step "
-        f"[K1, dQ, dK/dV, K1 tensor-core, dK/dV tensor-core] "
+        f"[K1, dQ, dK/dV, K1 tensor-core, dQ tensor-core, dK/dV "
+        f"tensor-core] "
         f"{kr['launches_per_step']} (want {want})")
     if not finite or rels[worst] > TRAIN_GRAD_REL_L2:
         raise SystemExit("train path: step-1 grads disagree with the plain "
@@ -705,11 +728,12 @@ def train_path(fa, pa, steps=5, batch=32, profile=False):
     if not counts_ok:
         raise SystemExit("train path: a flash kernel was not launched as "
                          "often as wanted in every step")
-    total = [sum(c[i] for c in kr["launches_per_step"]) for i in range(5)]
+    total = [sum(c[i] for c in kr["launches_per_step"]) for i in range(6)]
     return {"flash_attention_fwd": total[0], "flash_attention_bwd_dq":
             total[1], "flash_attention_bwd_dkv": total[2],
             "flash_attention_fwd_tc": total[3],
-            "flash_attention_bwd_dkv_tc": total[4],
+            "flash_attention_bwd_dq_tc": total[4],
+            "flash_attention_bwd_dkv_tc": total[5],
             "paged_attention": runs["kernel"][0]["paged_launches"]}
 
 
@@ -1649,21 +1673,32 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     k2 = {dt: check_paged(pa, dt, gen)
           for dt in (torch.bfloat16, torch.float32)}
+    # (dtype, B, T, D); D 80 runs padded to 128 inside the kernels
     k1 = {}
-    for dt, b, t in ((torch.bfloat16, 1, 1024), (torch.bfloat16, 1, 2048),
-                     (torch.bfloat16, 2, 2048), (torch.float32, 1, 1024),
-                     (torch.float32, 1, 2048), (torch.float32, 2, 2048),
-                     (torch.bfloat16, 32, 1024)):     # the train path's
-        k1[(dt, b, t)] = check_flash(fa, dt, b, t, gen)
+    for dt, b, t, d in (
+            (torch.bfloat16, 1, 1024, 64), (torch.bfloat16, 1, 2048, 64),
+            (torch.bfloat16, 2, 2048, 64), (torch.float32, 1, 1024, 64),
+            (torch.float32, 1, 2048, 64), (torch.float32, 2, 2048, 64),
+            (torch.bfloat16, 2, 1024, 80), (torch.float32, 2, 1024, 80),
+            (torch.bfloat16, 32, 1024, 64)):     # the train path's
+        k1[(dt, b, t, d)] = check_flash(fa, dt, b, t, gen, d=d)
         torch.cuda.empty_cache()
     bwd = {}
-    for dt, b, t, causal in (
-            (torch.bfloat16, 1, 1024, True), (torch.bfloat16, 1, 2048, True),
-            (torch.bfloat16, 1, 4096, True), (torch.float32, 1, 2048, True),
-            (torch.bfloat16, 2, 200, True), (torch.float32, 2, 200, True),
-            (torch.bfloat16, 2, 256, False), (torch.float32, 2, 256, False),
-            (torch.bfloat16, 32, 1024, True)):       # the train path's
-        bwd[(dt, b, t)] = check_flash_bwd(fa, dt, b, t, causal, gen)
+    for dt, b, t, causal, d in (
+            (torch.bfloat16, 1, 1024, True, 64),
+            (torch.bfloat16, 1, 2048, True, 64),
+            (torch.bfloat16, 1, 4096, True, 64),
+            (torch.float32, 1, 2048, True, 64),
+            (torch.bfloat16, 2, 200, True, 64),
+            (torch.float32, 2, 200, True, 64),
+            (torch.bfloat16, 2, 256, False, 64),
+            (torch.float32, 2, 256, False, 64),
+            (torch.bfloat16, 2, 1024, True, 80),
+            (torch.float32, 2, 1024, True, 80),
+            (torch.bfloat16, 32, 1024, False, 64),
+            (torch.bfloat16, 32, 1024, True, 64)):   # the train path's
+        bwd[(dt, b, t, causal, d)] = check_flash_bwd(fa, dt, b, t, causal,
+                                                     gen, d=d)
         torch.cuda.empty_cache()
     k3, k3_checked = k3_phase(fo, gen)
     k4, k4_checked = k4_phase(fl, gen)
@@ -1680,10 +1715,10 @@ def main():
     # the stage-0 BN's shape (N = 128*56*56, C = 256) stands for K3
     main_k3 = k3[(torch.bfloat16, RESNET_BATCH * 56 * 56, 256)]
     resnet_paths = ("resnet_train", "resnet_output")
-    main_k1 = k1[(torch.bfloat16, 1, 2048)]    # a dense prefill's shape
-    train_k1 = k1[(torch.bfloat16, 32, 1024)]  # the train path's shape
+    main_k1 = k1[(torch.bfloat16, 1, 2048, 64)]    # a dense prefill's shape
+    train_k1 = k1[(torch.bfloat16, 32, 1024, 64)]  # the train path's shape
     main_k2 = k2[torch.bfloat16]
-    main_bwd = bwd[(torch.bfloat16, 32, 1024)]  # the train path's shape
+    main_bwd = bwd[(torch.bfloat16, 32, 1024, True, 64)]  # the train path's
     main_k4 = k4[torch.bfloat16]                # the char-RNN's shape
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
@@ -1694,7 +1729,7 @@ def main():
                          for c in by_path.values()),
          "launches_by_path": {p: c.get("flash_attention_fwd_tc", 0)
                               for p, c in by_path.items()},
-         "max_abs_err": max(r["max_abs_err"] for (dt, _, _), r in k1.items()
+         "max_abs_err": max(r["max_abs_err"] for (dt, *_), r in k1.items()
                             if dt == torch.bfloat16),
          "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
          "bound_ms": main_k1["bound_ms"], "bound_by": main_k1["bound_by"],
@@ -1706,28 +1741,29 @@ def main():
         *({"name": f"flash_attention_bwd_{part}", "route": "cuda",
            "source": "deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
            "replaces": f"deeplearning4j_tpu/kernels/flash_attention.py:{line}",
-           "kernel": ("flash_bwd_dkv_wgmma_kernel (bf16, tensor cores)"
-                      if part == "dkv" else "flash_bwd_dq_kernel"),
+           "kernel": f"flash_bwd_{part}_wgmma_kernel (bf16, tensor cores)",
            "launches": by_path["train"][counter],
            "launches_by_path": {"train": by_path["train"][counter]},
            "max_abs_err": max(r[part]["max_abs_err"]
-                              for (dt, _, _), r in bwd.items()
+                              for (dt, *_), r in bwd.items()
                               if dt == torch.bfloat16),
            "ms": main_bwd[part]["ms"], "plain_ms": main_bwd["plain_ms"],
            "bound_ms": main_bwd[part]["bound_ms"],
            "bound_by": main_bwd[part]["bound_by"],
            "library_ms": main_bwd["library_ms"]}
           for part, line, counter in (
-              ("dq", 146, "flash_attention_bwd_dq"),
+              ("dq", 146, "flash_attention_bwd_dq_tc"),
               ("dkv", 186, "flash_attention_bwd_dkv_tc"))),
         {"name": "paged_attention", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/paged_attention.cu",
          "replaces": "deeplearning4j_tpu/kernels/paged_attention.py:72",
+         "kernel": "paged_partial_kernel + paged_combine_kernel (split-K)",
          "launches": sum(c["paged_attention"] for c in by_path.values()),
          "launches_by_path": {p: c["paged_attention"]
                               for p, c in by_path.items()},
          "max_abs_err": main_k2["max_abs_err"],
-         "ms": main_k2["ms"], "plain_ms": main_k2["plain_ms"],
+         "ms": main_k2["ms"], "call_ms": main_k2["call_ms"],
+         "plain_ms": main_k2["plain_ms"],
          "bound_ms": main_k2["bound_ms"], "bound_by": main_k2["bound_by"],
          "library_ms": None},
         *({"name": name, "route": "cuda",

@@ -19,46 +19,69 @@
 // of operations per byte: at the train path's B32 H8 T1024 D64 bf16 the
 // floors are 0.0522 ms (dQ) and 0.0696 ms (dK/dV) at 989 TFLOP/s.
 //
-// dK/dV, bf16 (flash_bwd_dkv_wgmma_kernel): the four products run on the
-// tensor cores as wgmma.mma_async (m64nNk16, bf16 -> f32), as the TPU
-// kernel fed its MXU. One block owns one (b*h, 64-key tile), one
-// warpgroup (4 warps of 16 keys); per query tile of 64 rows, from the
-// diagonal down:
+// bf16: both kernels run their products on the tensor cores as
+// wgmma.mma_async (m64nNk16, bf16 -> f32), as the TPU kernels fed their
+// MXU, one warpgroup (4 warps of 16 rows) a block, operands copied by
+// 16-byte cp.async into the swizzled layouts wgmma reads through its
+// descriptors (K-major for the score products, MN-major, i.e. transposed,
+// for the operand a gradient is summed over).
+//
+// dK/dV (flash_bwd_dkv_wgmma_kernel). One block owns one (b*h, 64-key
+// tile); per query tile of 64 rows, from the diagonal down:
 //   Sᵀ = K·Qᵀ·scale, masked; Pᵀ = exp(Sᵀ - lse); dV += bf16(Pᵀ)·dO;
 //   dPᵀ = V·dOᵀ; dSᵀ = bf16(Pᵀ ∘ (dPᵀ - delta)·scale); dK += dSᵀ·Q.
 // The block's K and V tiles load once into shared memory; Q, dO and the
-// lse and delta rows stream through a double-buffered cp.async ring, in
-// the swizzled layouts wgmma reads through its descriptors (K-major for
-// Sᵀ and dPᵀ, MN-major, i.e. transposed, for the dO and Q of dV and dK).
-// dK and dV stay in f32 registers; Pᵀ and dSᵀ go from accumulator
-// fragments to bf16 register A operands, rounded where the TPU kernel
-// cast them; dV's product and dPᵀ's are issued together. The grid's slow
-// dimension walks the key tiles, the heaviest (first) ones first under
-// causal masking. Only query tiles that cross the diagonal or T are
-// masked; query rows >= T read as zeros. (An mma.sync m16n8k16 version
-// with ldmatrix fragments measured 1.1-1.3x slower; PERF.md.)
+// lse and delta rows stream through a double-buffered cp.async ring. dK
+// and dV stay in f32 registers; Pᵀ and dSᵀ go from accumulator fragments
+// to bf16 register A operands, rounded where the TPU kernel cast them;
+// dV's product and dPᵀ's are issued together. The grid's slow dimension
+// walks the key tiles, the heaviest (first) ones first under causal
+// masking. (An mma.sync m16n8k16 version with ldmatrix fragments measured
+// 1.1-1.3x slower; PERF.md.)
 //
-// dQ (both dtypes) and f32 dK/dV: the CUDA-core kernels of the first port
-// (f32 stays there: tensor cores would mean TF32, beyond the f32 atol of
-// 1e-4). The Pallas grids (b*h, q-block, k-block) and (b*h, k-block,
-// q-block) streamed the other operand through VMEM in order with the
-// accumulator in scratch; here one block owns one (b*h, 64-row tile) of
-// its output and a loop inside it walks the other operand's tiles: the
-// dq kernel the key tiles up to the diagonal, the dkv kernel the query
-// tiles from the diagonal down (the steps the TPU skipped with pl.when
-// are never visited). Each streamed tile goes through shared memory as
-// f32. TPR = D / 16 threads share a row, each holding 16 of its dims (the
-// row's operands and accumulators stay in registers) in interleaved
-// 4-float slices, so a warp's shared reads are broadcast float4 loads
-// without bank conflicts; shuffles complete each dot product.
+// dQ (flash_bwd_dq_wgmma_kernel), its mirror image. One block owns one
+// (b*h, 64-query tile); per key tile of 64 rows, from key 0 up to the
+// diagonal: S = Q·Kᵀ·scale, masked; P = exp(S - lse); dP = dO·Vᵀ;
+// dS = bf16(P ∘ (dP - delta)·scale); dQ += dS·K. Q and dO stay in shared
+// memory and each thread keeps the lse and delta of its two rows in
+// registers; K and V stream through the double-buffered cp.async ring; S
+// and dP are issued together; dS goes from S's accumulator fragments to
+// a bf16 register A operand and dQ += dS·K reads the same K tile through
+// an MN-major descriptor; dQ stays in f32 registers. The grid's slow
+// dimension walks the query tiles, the heaviest (last) first.
+// In both, only tiles that cross the diagonal or T are masked, and rows
+// >= T read as zeros.
+//
+// f32: the CUDA-core kernels of the first port (tensor cores would mean
+// TF32, beyond the f32 atol of 1e-4). The Pallas grids (b*h, q-block,
+// k-block) and (b*h, k-block, q-block) streamed the other operand through
+// VMEM in order with the accumulator in scratch; here one block owns one
+// (b*h, 64-row tile) of its output and a loop inside it walks the other
+// operand's tiles: the dq kernel the key tiles up to the diagonal, the
+// dkv kernel the query tiles from the diagonal down (the steps the TPU
+// skipped with pl.when are never visited). Each streamed tile goes
+// through shared memory as f32. TPR = D / 16 threads share a row, each
+// holding 16 of its dims (the row's operands and accumulators stay in
+// registers) in interleaved 4-float slices, so a warp's shared reads are
+// broadcast float4 loads without bank conflicts; shuffles complete each
+// dot product.
 //
 // Keeping the TPU's two-pass schedule means no atomics, so all three
-// gradients are deterministic. A T that is not a multiple of the tile is
-// masked. The kernels take the batch, head and time strides of every
-// (B, H, T, D) operand (the last dimension must be contiguous), so the
-// (B, T, H, D) views of one qkv buffer the transformer holds need no
-// copies; the bf16 dK/dV kernel needs 16-byte aligned bases and strides
-// (the Python wrapper checks them and raises).
+// gradients are deterministic: a second launch is bit-identical. A T that
+// is not a multiple of the tile is masked. The kernels take the batch,
+// head and time strides of every (B, H, T, D) operand (the last dimension
+// must be contiguous), so the (B, T, H, D) views of one qkv buffer the
+// transformer holds need no copies; the bf16 kernels need 16-byte aligned
+// bases and strides (the Python wrapper checks them and raises).
+//
+// Head dims: any D up to 128 (bf16: a multiple of 8), as the Pallas
+// block (1, bq, d) takes any d. Each kernel is instantiated on the padded
+// width DP = padded_dim(D) in {16, 32, 64, 128} and told the real D:
+// loaders fill the columns in [D, DP) with zeros (cp.async src-size 0 in
+// bf16, a guard in f32), which add nothing to any dot product, and stores
+// write only the D real columns. D > 128 is refused: dK/dV's two f32
+// accumulators would need DP registers a thread (256 at D 256), and the
+// bf16 dK/dV kernel already spills 64 bytes at D 128.
 
 #include "flash_mma.cuh"
 
@@ -79,23 +102,6 @@ struct Tiling {
   static constexpr int BT = D <= 64 ? 64 : 32;   // streamed rows per tile
 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-// x rounded to T and back: the cast the TPU kernels make before a product
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
 // sum over the TPR consecutive lanes that share a row
 template <int TPR> __device__ __forceinline__ float row_sum(float x) {
 #pragma unroll
@@ -110,42 +116,50 @@ __device__ __forceinline__ int dim_of(int c, int part, int e) {
   return 4 * Tiling<D>::TPR * c + 4 * part + e;
 }
 
-// this thread's DPT dims of row `row` of x (zeros past T)
-template <typename T, int D>
-__device__ __forceinline__ void load_row(float* r, const T* base, Str s,
-                                         int row, int Tlen, int part) {
+// this thread's DPT dims of row `row` of x (zeros past T and past the
+// real head dim dr)
+template <int D>
+__device__ __forceinline__ void load_row(float* r, const float* base, Str s,
+                                         int row, int Tlen, int dr,
+                                         int part) {
 #pragma unroll
   for (int c = 0; c < Tiling<D>::NC; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      r[4 * c + e] = row < Tlen ? to_f(base[row * s.t + dim_of<D>(c, part, e)])
-                                : 0.f;
+    for (int e = 0; e < 4; ++e) {
+      const int d = dim_of<D>(c, part, e);
+      r[4 * c + e] = row < Tlen && d < dr ? base[row * s.t + d] : 0.f;
+    }
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void store_row(T* base, Str s, int row,
-                                          const float* r, int part) {
+// this thread's dims of row `row`, the real ones (< dr) only
+template <int D>
+__device__ __forceinline__ void store_row(float* base, Str s, int row,
+                                          int dr, const float* r, int part) {
 #pragma unroll
   for (int c = 0; c < Tiling<D>::NC; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
-      base[row * s.t + dim_of<D>(c, part, e)] = from_f<T>(r[4 * c + e]);
+    for (int e = 0; e < 4; ++e) {
+      const int d = dim_of<D>(c, part, e);
+      if (d < dr) base[row * s.t + d] = r[4 * c + e];
+    }
 }
 
-// rows [r0, r0 + BT) of a and b into shared f32 tiles (zeros past T)
-template <typename T, int D>
+// rows [r0, r0 + BT) of a and b into shared f32 tiles (zeros past T and
+// past dr)
+template <int D>
 __device__ __forceinline__ void load_tiles(float (*as)[D], float (*bs)[D],
-                                           const T* a, Str sa, const T* b,
-                                           Str sb, int r0, int Tlen) {
+                                           const float* a, Str sa,
+                                           const float* b, Str sb, int r0,
+                                           int Tlen, int dr) {
   using L = Tiling<D>;
   for (int e = threadIdx.x; e < L::BT * D; e += L::THREADS) {
     const int r = e / D;
     const int d = e - r * D;
     const int row = r0 + r;
     float av = 0.f, bv = 0.f;
-    if (row < Tlen) {
-      av = to_f(a[row * sa.t + d]);
-      bv = to_f(b[row * sb.t + d]);
+    if (row < Tlen && d < dr) {
+      av = a[row * sa.t + d];
+      bv = b[row * sb.t + d];
     }
     as[r][d] = av;
     bs[r][d] = bv;
@@ -153,14 +167,15 @@ __device__ __forceinline__ void load_tiles(float (*as)[D], float (*bs)[D],
 }
 
 // dQ: one block per (b*h, 64-query tile); walks the key tiles.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(Tiling<D>::THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int H, int Tlen, Str sq, Str sk, Str sv, Str sdo,
-                    Str sdq, float scale, int causal) {
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int H, int Tlen, int dr, Str sq, Str sk, Str sv,
+                    Str sdo, Str sdq, float scale, int causal) {
   using L = Tiling<D>;
   __shared__ __align__(16) float ks[L::BT][D];
   __shared__ __align__(16) float vs[L::BT][D];
@@ -173,11 +188,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qi = q0 + threadIdx.x / L::TPR;
   const bool live = qi < Tlen;
 
-  const T* kb = k + b * sk.b + h * sk.h;
-  const T* vb = v + b * sv.b + h * sv.h;
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
   float qr[L::DPT], dor[L::DPT], acc[L::DPT];
-  load_row<T, D>(qr, q + b * sq.b + h * sq.h, sq, qi, Tlen, part);
-  load_row<T, D>(dor, dout + b * sdo.b + h * sdo.h, sdo, qi, Tlen, part);
+  load_row<D>(qr, q + b * sq.b + h * sq.h, sq, qi, Tlen, dr, part);
+  load_row<D>(dor, dout + b * sdo.b + h * sdo.h, sdo, qi, Tlen, dr, part);
 #pragma unroll
   for (int i = 0; i < L::DPT; ++i) acc[i] = 0.f;
   const long long row = (long long)bh * Tlen + qi;
@@ -187,7 +202,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kend = causal ? min(Tlen, q0 + kRows) : Tlen;
   for (int k0 = 0; k0 < kend; k0 += L::BT) {
     __syncthreads();  // the previous tile is consumed
-    load_tiles<T, D>(ks, vs, kb, sk, vb, sv, k0, Tlen);
+    load_tiles<D>(ks, vs, kb, sk, vb, sv, k0, Tlen, dr);
     __syncthreads();
     const int jn = min(L::BT, kend - k0);
 #pragma unroll 2
@@ -209,7 +224,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kj = k0 + j;
       const float p = (live && (!causal || kj <= qi))
                           ? __expf(s * scale - lse_i) : 0.f;
-      const float ds = round_to<T>(p * (dp - delta_i) * scale);
+      const float ds = p * (dp - delta_i) * scale;
 #pragma unroll
       for (int c = 0; c < L::NC; ++c) {
         acc[4 * c] += ds * kk[c].x;
@@ -219,19 +234,22 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
-  if (live) store_row<T, D>(dq + b * sdq.b + h * sdq.h, sdq, qi, acc, part);
+  if (live)
+    store_row<D>(dq + b * sdq.b + h * sdq.h, sdq, qi, dr, acc, part);
 }
 
 // dK, dV: one block per (b*h, 64-key tile); walks the query tiles from
 // the diagonal down.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(Tiling<D>::THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Tlen, Str sq, Str sk,
-                     Str sv, Str sdo, Str sdk, Str sdv, float scale,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int Tlen, int dr, Str sq,
+                     Str sk, Str sv, Str sdo, Str sdk, Str sdv, float scale,
                      int causal) {
   using L = Tiling<D>;
   __shared__ __align__(16) float qs[L::BT][D];
@@ -247,13 +265,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kj = k0 + threadIdx.x / L::TPR;
   const bool live = kj < Tlen;
 
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* dob = dout + b * sdo.b + h * sdo.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* dob = dout + b * sdo.b + h * sdo.h;
   const float* lseb = lse + (long long)bh * Tlen;
   const float* deltab = delta + (long long)bh * Tlen;
   float kr[L::DPT], vr[L::DPT], dka[L::DPT], dva[L::DPT];
-  load_row<T, D>(kr, k + b * sk.b + h * sk.h, sk, kj, Tlen, part);
-  load_row<T, D>(vr, v + b * sv.b + h * sv.h, sv, kj, Tlen, part);
+  load_row<D>(kr, k + b * sk.b + h * sk.h, sk, kj, Tlen, dr, part);
+  load_row<D>(vr, v + b * sv.b + h * sv.h, sv, kj, Tlen, dr, part);
 #pragma unroll
   for (int i = 0; i < L::DPT; ++i) {
     dka[i] = 0.f;
@@ -263,7 +281,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // causal: query rows above the tile's first key see none of its keys
   for (int i0 = causal ? k0 : 0; i0 < Tlen; i0 += L::BT) {
     __syncthreads();
-    load_tiles<T, D>(qs, dos, qb, sq, dob, sdo, i0, Tlen);
+    load_tiles<D>(qs, dos, qb, sq, dob, sdo, i0, Tlen, dr);
     for (int r = threadIdx.x; r < L::BT; r += L::THREADS) {
       const int row = i0 + r;
       ls[r] = row < Tlen ? lseb[row] : 0.f;
@@ -290,14 +308,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int qi = i0 + i;
       const float p = (live && (!causal || qi >= kj))
                           ? __expf(s * scale - ls[i]) : 0.f;
-      const float pr = round_to<T>(p);  // P cast to dO's dtype for dV
-      const float ds = round_to<T>(p * (dp - dls[i]) * scale);
+      const float ds = p * (dp - dls[i]) * scale;
 #pragma unroll
       for (int c = 0; c < L::NC; ++c) {
-        dva[4 * c] += pr * dd[c].x;
-        dva[4 * c + 1] += pr * dd[c].y;
-        dva[4 * c + 2] += pr * dd[c].z;
-        dva[4 * c + 3] += pr * dd[c].w;
+        dva[4 * c] += p * dd[c].x;
+        dva[4 * c + 1] += p * dd[c].y;
+        dva[4 * c + 2] += p * dd[c].z;
+        dva[4 * c + 3] += p * dd[c].w;
         dka[4 * c] += ds * qq[c].x;
         dka[4 * c + 1] += ds * qq[c].y;
         dka[4 * c + 2] += ds * qq[c].z;
@@ -306,8 +323,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   if (live) {
-    store_row<T, D>(dk + b * sdk.b + h * sdk.h, sdk, kj, dka, part);
-    store_row<T, D>(dv + b * sdv.b + h * sdv.h, sdv, kj, dva, part);
+    store_row<D>(dk + b * sdk.b + h * sdk.h, sdk, kj, dr, dka, part);
+    store_row<D>(dv + b * sdv.b + h * sdv.h, sdv, kj, dr, dva, part);
   }
 }
 
@@ -335,15 +352,15 @@ flash_bwd_dkv_wgmma_kernel(const dl4j_mma::bf16* __restrict__ q,
                            const float* __restrict__ delta,
                            dl4j_mma::bf16* __restrict__ dk,
                            dl4j_mma::bf16* __restrict__ dv, int H, int Tlen,
-                           Str sq, Str sk, Str sv, Str sdo, Str sdk, Str sdv,
-                           float scale, int causal) {
+                           int dr, Str sq, Str sk, Str sv, Str sdo, Str sdk,
+                           Str sdv, float scale, int causal) {
   using namespace dl4j_mma;
   using C = DkvCfg<D>;
   using KT = typename C::KT;
   using QT = typename C::QT;
   constexpr int BQ = C::BQ;
   constexpr int NS = BQ / 2;  // Sᵀ / dPᵀ accumulators a thread holds
-  constexpr int ND = D / 8;   // n-tiles of dK and dV
+  constexpr int ND = D / 8;   // n-tiles of dK and dV (dc of them real)
   extern __shared__ __align__(1024) unsigned char smem[];
   const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
   const uint32_t s_k = base;
@@ -362,6 +379,7 @@ flash_bwd_dkv_wgmma_kernel(const dl4j_mma::bf16* __restrict__ q,
   const int g = lane >> 2;
   const int t4 = lane & 3;
   const int wkey = k0 + warp * 16;  // this warp's first key
+  const int dc = dr >> 3;           // real 8-column chunks of a row
   const float sl2 = scale * kLog2e;
 
   const bf16* qb = q + b * sq.b + h * sq.h;
@@ -376,8 +394,9 @@ flash_bwd_dkv_wgmma_kernel(const dl4j_mma::bf16* __restrict__ q,
   auto fetch = [&](int it, int st) {
     const uint32_t tq = s_ring + st * 2 * QT::BYTES;
     const int i0 = it * BQ;
-    QT::template load<C::THREADS>(tq, qb, sq.t, i0, Tlen, tid);
-    QT::template load<C::THREADS>(tq + QT::BYTES, dob, sdo.t, i0, Tlen, tid);
+    QT::template load<C::THREADS>(tq, qb, sq.t, i0, Tlen, dc, tid);
+    QT::template load<C::THREADS>(tq + QT::BYTES, dob, sdo.t, i0, Tlen, dc,
+                                  tid);
     if (tid < BQ) {
       const int row = i0 + tid;
       const bool ok = row < Tlen;
@@ -388,9 +407,9 @@ flash_bwd_dkv_wgmma_kernel(const dl4j_mma::bf16* __restrict__ q,
   };
 
   KT::template load<C::THREADS>(s_k, k + b * sk.b + h * sk.h, sk.t, k0,
-                                Tlen, tid);
+                                Tlen, dc, tid);
   KT::template load<C::THREADS>(s_v, v + b * sv.b + h * sv.h, sv.t, k0,
-                                Tlen, tid);
+                                Tlen, dc, tid);
   fetch(first, 0);
   cp_async_commit();
 
@@ -488,11 +507,180 @@ flash_bwd_dkv_wgmma_kernel(const dl4j_mma::bf16* __restrict__ q,
     if (key < Tlen) {
 #pragma unroll
       for (int d = 0; d < ND; ++d) {
-        *reinterpret_cast<uint32_t*>(dkb + key * sdk.t + 8 * d + 2 * t4) =
-            pack_bf16(dka[4 * d + 2 * r], dka[4 * d + 2 * r + 1]);
-        *reinterpret_cast<uint32_t*>(dvb + key * sdv.t + 8 * d + 2 * t4) =
-            pack_bf16(dva[4 * d + 2 * r], dva[4 * d + 2 * r + 1]);
+        if (d < dc) {  // the padded columns are never written
+          *reinterpret_cast<uint32_t*>(dkb + key * sdk.t + 8 * d + 2 * t4) =
+              pack_bf16(dka[4 * d + 2 * r], dka[4 * d + 2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(dvb + key * sdv.t + 8 * d + 2 * t4) =
+              pack_bf16(dva[4 * d + 2 * r], dva[4 * d + 2 * r + 1]);
+        }
       }
+    }
+  }
+}
+
+// ------------------------------- bf16 dQ, warpgroup MMA (wgmma)
+
+template <int D>
+struct DqCfg {
+  static constexpr int BQ = 64;  // query rows per block: one warpgroup
+  static constexpr int BK = 64;  // keys per step
+  static constexpr int THREADS = 128;
+  using QT = dl4j_mma::Tile<D, BQ>;
+  using KT = dl4j_mma::Tile<D, BK>;
+  // Q, dO, then two stages of (K, V), and room to align to 1024 bytes
+  static constexpr int SMEM = 2 * QT::BYTES + 4 * KT::BYTES + 1024;
+};
+
+// dQ, bf16: one block per (b*h, 64-query tile), one warpgroup (4 warps of
+// 16 rows); per key tile of 64 rows, from key 0 up to the diagonal:
+//   S = Q·Kᵀ·scale, masked; P = exp(S - lse); dP = dO·Vᵀ;
+//   dS = bf16(P ∘ (dP - delta)·scale); dQ += dS·K.
+// The mirror image of flash_bwd_dkv_wgmma_kernel: Q and dO stay in shared
+// memory, K and V stream through the double-buffered cp.async ring, S and
+// dP are issued together from K-major descriptors, dS goes from S's
+// accumulator fragments to a bf16 register A operand and meets the same K
+// tile through an MN-major (transposed) descriptor.
+template <int D>
+__global__ void __launch_bounds__(DqCfg<D>::THREADS)
+flash_bwd_dq_wgmma_kernel(const dl4j_mma::bf16* __restrict__ q,
+                          const dl4j_mma::bf16* __restrict__ k,
+                          const dl4j_mma::bf16* __restrict__ v,
+                          const dl4j_mma::bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          dl4j_mma::bf16* __restrict__ dq, int H, int Tlen,
+                          int dr, Str sq, Str sk, Str sv, Str sdo, Str sdq,
+                          float scale, int causal) {
+  using namespace dl4j_mma;
+  using C = DqCfg<D>;
+  using QT = typename C::QT;
+  using KT = typename C::KT;
+  constexpr int BQ = C::BQ;
+  constexpr int BK = C::BK;
+  constexpr int NS = BK / 2;  // S / dP accumulators a thread holds
+  constexpr int ND = D / 8;   // n-tiles of dQ (dc of them real)
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t s_q = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t s_do = s_q + QT::BYTES;
+  const uint32_t s_kv = s_do + QT::BYTES;  // stage st: K, then V
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  // query tiles on the slow dimension, the heaviest (last) first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wrow = q0 + warp * 16;  // this warp's first query row
+  const int dc = dr >> 3;           // real 8-column chunks of a row
+  const float sl2 = scale * kLog2e;
+
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int kend = causal ? min(Tlen, q0 + BQ) : Tlen;
+  const int nkt = (kend + BK - 1) / BK;
+
+  QT::template load<C::THREADS>(s_q, q + b * sq.b + h * sq.h, sq.t, q0, Tlen,
+                                dc, tid);
+  QT::template load<C::THREADS>(s_do, dout + b * sdo.b + h * sdo.h, sdo.t,
+                                q0, Tlen, dc, tid);
+  KT::template load<C::THREADS>(s_kv, kb, sk.t, 0, Tlen, dc, tid);
+  KT::template load<C::THREADS>(s_kv + KT::BYTES, vb, sv.t, 0, Tlen, dc,
+                                tid);
+  cp_async_commit();
+
+  // the lse (times log2 e) and delta of this thread's rows g and g + 8
+  float lr[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    const bool ok = row < Tlen;
+    lr[r] = ok ? lse[(long long)bh * Tlen + row] * kLog2e : 0.f;
+    dl[r] = ok ? delta[(long long)bh * Tlen + row] : 0.f;
+  }
+  float acc[D / 2];  // dQ: n-tile d of this warp's rows in acc[4d..4d+3]
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < nkt; ++j) {
+    const uint32_t s_k = s_kv + (j & 1) * 2 * KT::BYTES;
+    const uint32_t s_v = s_k + KT::BYTES;
+    if (j + 1 < nkt) {
+      const uint32_t n_k = s_kv + ((j + 1) & 1) * 2 * KT::BYTES;
+      KT::template load<C::THREADS>(n_k, kb, sk.t, (j + 1) * BK, Tlen, dc,
+                                    tid);
+      KT::template load<C::THREADS>(n_k + KT::BYTES, vb, sv.t, (j + 1) * BK,
+                                    Tlen, dc, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and Q, dO) have landed
+    __syncthreads();
+    const int k0 = j * BK;
+
+    // S = Q·Kᵀ and dP = dO·Vᵀ, issued together
+    float sacc[NS], dp[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sacc[i] = dp[i] = 0.f;
+    fence_regs(sacc);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BK>(sacc, QT::desc_k(s_q, kk), KT::desc_k(s_k, kk));
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<BK>(dp, QT::desc_k(s_do, kk), KT::desc_k(s_v, kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sacc);
+    fence_regs(dp);
+
+    // dS = P ∘ (dP - delta)·scale, P = exp(S·scale - lse); only tiles that
+    // cross the diagonal or T are masked
+    const bool edge = k0 + BK > Tlen || (causal && k0 + BK - 1 > wrow);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = exp2_approx(fmaf(sacc[i], sl2, -lr[r]));
+      if (edge) {
+        const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const int row = wrow + g + 8 * r;
+        if (key >= Tlen || (causal && key > row)) p = 0.f;
+      }
+      sacc[i] = p * (dp[i] - dl[r]) * scale;
+    }
+    // bf16(dS) as the A fragments of dQ += dS·K, K read transposed
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        da[kk][i] = pack_bf16(sacc[8 * kk + 2 * i], sacc[8 * kk + 2 * i + 1]);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<D>(acc, da[kk], KT::desc_mn(s_k, kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+    __syncthreads();  // stage j & 1 is consumed before it is refilled
+  }
+
+  bf16* dqb = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    if (row < Tlen) {
+#pragma unroll
+      for (int d = 0; d < ND; ++d)
+        if (d < dc)  // the padded columns are never written
+          *reinterpret_cast<uint32_t*>(dqb + row * sdq.t + 8 * d + 2 * t4) =
+              pack_bf16(acc[4 * d + 2 * r], acc[4 * d + 2 * r + 1]);
     }
   }
 }
@@ -501,23 +689,39 @@ Str str_at(const long long* s, int i) { return Str{s[3 * i], s[3 * i + 1],
                                                     s[3 * i + 2]}; }
 
 template <typename T, int D>
-int launch_dq(dim3 grid, cudaStream_t st, const void* q, const void* k,
-              const void* v, const void* dout, const void* lse,
-              const void* delta, void* dq, int H, int Tlen,
+int launch_dq(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
+              const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int H,
               const long long* s, float scale, int causal) {
-  flash_bwd_dq_kernel<T, D><<<grid, Tiling<D>::THREADS, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Tlen, str_at(s, 0), str_at(s, 1),
-      str_at(s, 2), str_at(s, 3), str_at(s, 4), scale, causal);
+  if constexpr (sizeof(T) == 2) {  // bf16: the tensor-core kernel
+    using C = DqCfg<D>;
+    auto kern = flash_bwd_dq_wgmma_kernel<D>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(BH, (Tlen + C::BQ - 1) / C::BQ);
+    kern<<<grid, C::THREADS, C::SMEM, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dq), H, Tlen, dr, str_at(s, 0), str_at(s, 1),
+        str_at(s, 2), str_at(s, 3), str_at(s, 4), scale, causal);
+  } else {  // f32: the CUDA-core kernel
+    const dim3 grid((Tlen + kRows - 1) / kRows, BH);
+    flash_bwd_dq_kernel<D><<<grid, Tiling<D>::THREADS, 0, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dq), H, Tlen, dr, str_at(s, 0), str_at(s, 1),
+        str_at(s, 2), str_at(s, 3), str_at(s, 4), scale, causal);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch_dkv(dim3 grid, cudaStream_t st, const void* q, const void* k,
-               const void* v, const void* dout, const void* lse,
-               const void* delta, void* dk, void* dv, int H, int Tlen,
+int launch_dkv(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
+               const void* k, const void* v, const void* dout,
+               const void* lse, const void* delta, void* dk, void* dv, int H,
                const long long* s, float scale, int causal) {
   if constexpr (sizeof(T) == 2) {  // bf16: the tensor-core kernel
     using C = DkvCfg<D>;
@@ -526,30 +730,33 @@ int launch_dkv(dim3 grid, cudaStream_t st, const void* q, const void* k,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return (int)err;
     // key tiles on the slow dimension: the heaviest (first) go first
-    const dim3 g2(grid.y, (Tlen + C::BKV - 1) / C::BKV);
-    kern<<<g2, C::THREADS, C::SMEM, st>>>(
+    const dim3 grid(BH, (Tlen + C::BKV - 1) / C::BKV);
+    kern<<<grid, C::THREADS, C::SMEM, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), H, Tlen, str_at(s, 0),
+        static_cast<T*>(dk), static_cast<T*>(dv), H, Tlen, dr, str_at(s, 0),
         str_at(s, 1), str_at(s, 2), str_at(s, 3), str_at(s, 4),
         str_at(s, 5), scale, causal);
-    return (int)cudaGetLastError();
   } else {  // f32: the CUDA-core kernel
-    flash_bwd_dkv_kernel<T, D><<<grid, Tiling<D>::THREADS, 0, st>>>(
+    const dim3 grid((Tlen + kRows - 1) / kRows, BH);
+    flash_bwd_dkv_kernel<D><<<grid, Tiling<D>::THREADS, 0, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), H, Tlen, str_at(s, 0),
+        static_cast<T*>(dk), static_cast<T*>(dv), H, Tlen, dr, str_at(s, 0),
         str_at(s, 1), str_at(s, 2), str_at(s, 3), str_at(s, 4),
         str_at(s, 5), scale, causal);
-    return (int)cudaGetLastError();
   }
+  return (int)cudaGetLastError();
 }
 
-// the kernel for (dtype, D): dtype 0 = float32, 1 = bfloat16
+// the kernel for (dtype, D), instantiated on the padded width
+// padded_dim(D): dtype 0 = float32 (any D in 1..128), 1 = bfloat16 (D a
+// multiple of 8: 16-byte rows)
 #define DL4J_BWD_DISPATCH(LAUNCH, ...)                                       \
-  switch (dtype * 1000 + D) {                                                \
+  if (dtype == 1 && D % 8 != 0) return (int)cudaErrorInvalidValue;           \
+  switch (dtype * 1000 + dl4j_mma::padded_dim(D)) {                          \
     case 16: return LAUNCH<float, 16>(__VA_ARGS__);                          \
     case 32: return LAUNCH<float, 32>(__VA_ARGS__);                          \
     case 64: return LAUNCH<float, 64>(__VA_ARGS__);                          \
@@ -574,10 +781,9 @@ extern "C" int dl4j_flash_attention_bwd_dq(
     void* stream) {
   if (B < 1 || H < 1 || T < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + kRows - 1) / kRows, B * H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  DL4J_BWD_DISPATCH(launch_dq, grid, st, q, k, v, dout, lse, delta, dq, H,
-                    T, strides, scale, causal)
+  DL4J_BWD_DISPATCH(launch_dq, B * H, T, D, st, q, k, v, dout, lse, delta,
+                    dq, H, strides, scale, causal)
 }
 
 // As above, with the strides of q, k, v, dout, dk, dv.
@@ -588,9 +794,7 @@ extern "C" int dl4j_flash_attention_bwd_dkv(
     int dtype, void* stream) {
   if (B < 1 || H < 1 || T < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((T + kRows - 1) / kRows, B * H);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  DL4J_BWD_DISPATCH(launch_dkv, grid, st, q, k, v, dout, lse, delta, dk, dv,
-                    H, T, strides, scale, causal)
+  DL4J_BWD_DISPATCH(launch_dkv, B * H, T, D, st, q, k, v, dout, lse, delta,
+                    dk, dv, H, strides, scale, causal)
 }
-

@@ -46,6 +46,14 @@
 // dimension contiguous), so the (B, T, H, D) views of one qkv buffer the
 // transformer holds need no copies; the bf16 kernel needs 16-byte aligned
 // bases and strides (the Python wrapper checks them and raises).
+//
+// Head dims: like the Pallas block (1, bq, d), any D up to 128 (bf16: a
+// multiple of 8, 16-byte rows). Each kernel is instantiated on the padded
+// width DP in {16, 32, 64, 128} (padded_dim) and told the real D: loaders
+// fill the columns in [D, DP) with zeros (the cp.async src-size 0 of
+// flash_mma.cuh in bf16, a guard in f32), the zeros add nothing to Q·Kᵀ,
+// the padded columns of O stay zero and are never stored, and the scale
+// is the real 1/sqrt(D) the wrapper passes.
 
 #include "flash_mma.cuh"
 
@@ -71,14 +79,15 @@ template <int D, int BK>
 __global__ void __launch_bounds__(FwdCfg<D, BK>::THREADS)
 flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
-                       float* __restrict__ lse, int H, int Tlen, Str sq,
-                       Str sk, Str sv, Str so, float scale_log2, int causal) {
+                       float* __restrict__ lse, int H, int Tlen, int dr,
+                       Str sq, Str sk, Str sv, Str so, float scale_log2,
+                       int causal) {
   using C = FwdCfg<D, BK>;
   using QT = typename C::QT;
   using KT = typename C::KT;
   constexpr int BQ = C::BQ;
   constexpr int NS = BK / 2;  // S accumulators a thread holds
-  constexpr int NO = D / 8;   // n-tiles of O
+  constexpr int NO = D / 8;   // n-tiles of O (of which dc are real)
   extern __shared__ __align__(1024) unsigned char smem[];
   // the swizzle atoms repeat every 1024 bytes: align the tiles to that
   const uint32_t s_q = (smem_u32(smem) + 1023) & ~1023u;
@@ -95,6 +104,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2;
   const int t4 = lane & 3;
   const int wrow = q0 + warp * 16;  // this warp's first query row
+  const int dc = dr >> 3;           // real 8-column chunks of a row
 
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
@@ -102,9 +112,10 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int nkt = (kend + BK - 1) / BK;
 
   QT::template load<C::THREADS>(s_q, q + b * sq.b + h * sq.h, sq.t, q0, Tlen,
+                                dc, tid);
+  KT::template load<C::THREADS>(s_kv, kb, sk.t, 0, Tlen, dc, tid);
+  KT::template load<C::THREADS>(s_kv + KT::BYTES, vb, sv.t, 0, Tlen, dc,
                                 tid);
-  KT::template load<C::THREADS>(s_kv, kb, sk.t, 0, Tlen, tid);
-  KT::template load<C::THREADS>(s_kv + KT::BYTES, vb, sv.t, 0, Tlen, tid);
   cp_async_commit();
 
   float acc[D / 2];  // O: n-tile d of this warp's rows in acc[4d..4d+3]
@@ -118,9 +129,10 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint32_t s_v = s_k + KT::BYTES;
     if (j + 1 < nkt) {
       const uint32_t n_k = s_kv + ((j + 1) & 1) * 2 * KT::BYTES;
-      KT::template load<C::THREADS>(n_k, kb, sk.t, (j + 1) * BK, Tlen, tid);
+      KT::template load<C::THREADS>(n_k, kb, sk.t, (j + 1) * BK, Tlen, dc,
+                                    tid);
       KT::template load<C::THREADS>(n_k + KT::BYTES, vb, sv.t, (j + 1) * BK,
-                                    Tlen, tid);
+                                    Tlen, dc, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile j (and Q) have landed
@@ -208,9 +220,10 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (row < Tlen) {
 #pragma unroll
       for (int d = 0; d < NO; ++d)
-        *reinterpret_cast<uint32_t*>(ob + row * so.t + 8 * d + 2 * t4) =
-            pack_bf16(acc[4 * d + 2 * r] * inv[r],
-                      acc[4 * d + 2 * r + 1] * inv[r]);
+        if (d < dc)  // the padded columns are never written
+          *reinterpret_cast<uint32_t*>(ob + row * so.t + 8 * d + 2 * t4) =
+              pack_bf16(acc[4 * d + 2 * r] * inv[r],
+                        acc[4 * d + 2 * r + 1] * inv[r]);
       if (t4 == 0)
         lse[(long long)bh * Tlen + row] = (m[r] + log2f(l[r])) * kLn2;
     }
@@ -218,7 +231,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D, int BK>
-int launch_wgmma(int BH, int Tlen, cudaStream_t s, const void* q,
+int launch_wgmma(int BH, int Tlen, int dr, cudaStream_t s, const void* q,
                  const void* k, const void* v, void* o, void* lse, int H,
                  Str sq, Str sk, Str sv, Str so, float scale, int causal) {
   using C = FwdCfg<D, BK>;
@@ -230,22 +243,23 @@ int launch_wgmma(int BH, int Tlen, cudaStream_t s, const void* q,
   kern<<<grid, C::THREADS, C::SMEM, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), H, Tlen, sq, sk, sv, so, scale * kLog2e,
+      static_cast<float*>(lse), H, Tlen, dr, sq, sk, sv, so, scale * kLog2e,
       causal);
   return (int)cudaGetLastError();
 }
 
-// The key tile of each head dim: 64 rows, except at D 64 on a grid of
-// fewer than two query tiles per SM, where each block's walk along its
-// row is the critical path and 128-key steps halve its iterations
-// (PERF.md has the tilings measured).
+// The kernel of each padded head dim DP: key tiles of 64 rows, except at
+// DP 64 on a grid of fewer than two query tiles per SM, where each
+// block's walk along its row is the critical path and 128-key steps halve
+// its iterations (PERF.md has the tilings measured).
 int launch_bf16(int D, int BH, int Tlen, cudaStream_t s, const void* q,
                 const void* k, const void* v, void* o, void* lse, int H,
                 Str sq, Str sk, Str sv, Str so, float scale, int causal) {
 #define DL4J_WGMMA(DD, BK)                                                   \
-  return launch_wgmma<DD, BK>(BH, Tlen, s, q, k, v, o, lse, H, sq, sk, sv,   \
-                              so, scale, causal)
-  switch (D) {
+  return launch_wgmma<DD, BK>(BH, Tlen, D, s, q, k, v, o, lse, H, sq, sk,    \
+                              sv, so, scale, causal)
+  if (D % 8 != 0) return (int)cudaErrorInvalidValue;  // 16-byte rows
+  switch (padded_dim(D)) {
     case 16: DL4J_WGMMA(16, 64);
     case 32: DL4J_WGMMA(32, 64);
     case 64: {
@@ -271,8 +285,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int H, int Tlen, Str sq, Str sk,
-                 Str sv, Str so, float scale, int causal) {
+                 float* __restrict__ lse, int H, int Tlen, int dr, Str sq,
+                 Str sk, Str sv, Str so, float scale, int causal) {
   constexpr int BK = (D <= 64) ? 64 : 32;  // key rows per tile
   constexpr int HALF = D / 2;              // dims held per thread
   constexpr int NC = D / 8;                // 4-float slices per thread
@@ -298,7 +312,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int d = 8 * c + 4 * part + e;
-      qr[4 * c + e] = qi < Tlen ? qb[qi * sq.t + d] : 0.f;
+      qr[4 * c + e] = qi < Tlen && d < dr ? qb[qi * sq.t + d] : 0.f;
       acc[4 * c + e] = 0.f;
     }
   }
@@ -313,7 +327,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int d = e - r * D;
       const int kj = k0 + r;
       float kv = 0.f, vv = 0.f;
-      if (kj < Tlen) {
+      if (kj < Tlen && d < dr) {
         kv = kb[kj * sk.t + d];
         vv = vb[kj * sv.t + d];
       }
@@ -372,7 +386,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < NC; ++c) {
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        ob[8 * c + 4 * part + e] = acc[4 * c + e] * inv;
+        if (8 * c + 4 * part + e < dr)
+          ob[8 * c + 4 * part + e] = acc[4 * c + e] * inv;
     }
     if (part == 0) lse[(long long)bh * Tlen + qi] = m + logf(ls);
   }
@@ -387,9 +402,10 @@ int launch_f32(int D, int BH, int Tlen, cudaStream_t s, const void* q,
     flash_fwd_kernel<DD><<<grid, kThreads, 0, s>>>(                          \
         static_cast<const float*>(q), static_cast<const float*>(k),          \
         static_cast<const float*>(v), static_cast<float*>(o),                \
-        static_cast<float*>(lse), H, Tlen, sq, sk, sv, so, scale, causal);   \
+        static_cast<float*>(lse), H, Tlen, D, sq, sk, sv, so, scale,         \
+        causal);                                                             \
     break;
-  switch (D) {
+  switch (padded_dim(D)) {
     DL4J_FLASH_CASE(16)
     DL4J_FLASH_CASE(32)
     DL4J_FLASH_CASE(64)

@@ -33,6 +33,15 @@ struct Str {
   long long b, h, t;
 };
 
+// The width a kernel is instantiated on for head dim d in 1..128: the
+// smallest of 16, 32, 64, 128 that holds it (0 past 128). Loaders fill
+// the columns in [d, padded_dim(d)) with zeros, which add nothing to any
+// dot product, and stores write only the d real columns.
+inline int padded_dim(int d) {
+  return d < 1 ? 0 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64
+         : d <= 128 ? 128 : 0;
+}
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -288,12 +297,14 @@ struct Tile {
     const int cc = c % C;
     return (c / C) * PANEL_BYTES + (r * C + (cc ^ ((r / RPL) % SW))) * 16;
   }
-  // rows [r0, r0 + R) of a (T, D) operand with time stride st, by 16-byte
-  // cp.async from NT threads; rows >= T read as 0
+  // rows [r0, r0 + R) of a (T, d) operand with time stride st, by 16-byte
+  // cp.async from NT threads, padded to D columns: rows >= T and the
+  // chunks past the operand's dc = d / 8 real ones read as 0 (a zero-fill
+  // copy of src-size 0 touches no global memory)
   template <int NT>
   __device__ static __forceinline__ void load(uint32_t s, const bf16* g,
                                               long long st, int r0, int T,
-                                              int tid) {
+                                              int dc, int tid) {
     constexpr int CD = D / 8;
 #pragma unroll
     for (int i = 0; i < (R * CD + NT - 1) / NT; ++i) {
@@ -302,8 +313,8 @@ struct Tile {
       const int r = e / CD;
       const int c = e - r * CD;
       const int row = r0 + r;
-      const bool ok = row < T;
-      cp_async16(s + off(r, c), g + (ok ? row : 0) * st + c * 8, ok);
+      const bool ok = row < T && c < dc;
+      cp_async16(s + off(r, c), g + (ok ? row * st + c * 8 : 0), ok);
     }
   }
   // a wgmma shared-memory descriptor: start, leading byte offset, stride

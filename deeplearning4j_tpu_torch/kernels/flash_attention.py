@@ -19,15 +19,21 @@ backward. CPU tensors take :func:`mha_reference_lse` and
 :func:`flash_attention_bwd_reference`; CUDA tensors launch the kernels
 or raise — there is no fallback between the two.
 
-On CUDA the dtype picks the kernel. bfloat16 runs K1 and dK/dV on the
-tensor cores (bf16 products with f32 sums, operands copied into shared
-memory by 16-byte ``cp.async``; counted in ``LAUNCHES_TC`` and
-``LAUNCHES_BWD_DKV_TC`` besides ``LAUNCHES`` and ``LAUNCHES_BWD_DKV``);
-their operands must pass :func:`check_tc_alignment`, or the call
-raises. float32 runs the CUDA-core kernels (tensor cores would mean
-TF32, beyond the f32 tolerance). dQ is the CUDA-core kernel for both
-dtypes. A bf16 launch that fails raises; it never falls back to another
-kernel.
+On CUDA the dtype picks the kernel. bfloat16 runs K1, dQ and dK/dV on
+the tensor cores (bf16 products with f32 sums, operands copied into
+shared memory by 16-byte ``cp.async``; counted in ``LAUNCHES_TC``,
+``LAUNCHES_BWD_DQ_TC`` and ``LAUNCHES_BWD_DKV_TC`` besides ``LAUNCHES``,
+``LAUNCHES_BWD_DQ`` and ``LAUNCHES_BWD_DKV``); their operands must pass
+:func:`check_tc_alignment`, or the call raises. float32 runs the
+CUDA-core kernels (tensor cores would mean TF32, beyond the f32
+tolerance). A bf16 launch that fails raises; it never falls back to
+another kernel.
+
+Head dims: every D from 1 to ``MAX_HEAD_DIM`` (128) in float32 and every
+multiple of 8 up to it in bfloat16 (16-byte rows), as the reference's
+Pallas block ``(1, bq, d)`` takes any d. The kernels are instantiated on
+the padded widths 16, 32, 64 and 128 and zero-fill the columns past D
+inside the kernel (:func:`check_head_dim`).
 """
 
 from __future__ import annotations
@@ -45,15 +51,19 @@ NEG_INF = -1e30
 _SOURCE = "flash_attention_fwd"
 _BWD_SOURCE = "flash_attention_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+#: the largest head dim the kernels take; each D runs on the kernel
+#: instantiated for the smallest of 16, 32, 64, 128 that holds it, the
+#: columns past D zero-filled inside the kernel
+MAX_HEAD_DIM = 128
 
 #: launches of each CUDA kernel since the last reset (the plain versions
 #: on CPU tensors do not count): K1, the dQ kernel, the dK/dV kernel (any
-#: dtype), and of those the bf16 tensor-core K1 and dK/dV kernels
+#: dtype), and of those the bf16 tensor-core K1, dQ and dK/dV kernels
 LAUNCHES = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_BWD_DKV = 0
 LAUNCHES_TC = 0
+LAUNCHES_BWD_DQ_TC = 0
 LAUNCHES_BWD_DKV_TC = 0
 
 #: bytes of one cp.async copy of the tensor-core kernels
@@ -62,9 +72,9 @@ TC_ALIGN = 16
 
 def reset_launches():
     global LAUNCHES, LAUNCHES_BWD_DQ, LAUNCHES_BWD_DKV, LAUNCHES_TC, \
-        LAUNCHES_BWD_DKV_TC
+        LAUNCHES_BWD_DQ_TC, LAUNCHES_BWD_DKV_TC
     LAUNCHES = LAUNCHES_BWD_DQ = LAUNCHES_BWD_DKV = 0
-    LAUNCHES_TC = LAUNCHES_BWD_DKV_TC = 0
+    LAUNCHES_TC = LAUNCHES_BWD_DQ_TC = LAUNCHES_BWD_DKV_TC = 0
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None,
@@ -166,6 +176,20 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
 
 # ---------------------------------------------------------------- CUDA
 
+def check_head_dim(d: int, dtype):
+    """Raise ``ValueError`` unless the kernels take head dim ``d`` in
+    ``dtype``: 1..128 in float32, a multiple of 8 up to 128 in bfloat16."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"head dim {d} outside 1..{MAX_HEAD_DIM}: at D 256 the bf16 "
+            f"dK/dV kernel's two f32 accumulators would need 256 registers "
+            f"a thread, and it already spills 64 bytes at D 128")
+    if dtype == torch.bfloat16 and d % 8:
+        raise ValueError(
+            f"bf16 head dim {d} is not a multiple of 8: the tensor-core "
+            f"kernels copy rows in 16-byte aligned chunks")
+
+
 def _check_qkv(layout, q, k, v, dout=None):
     """Shapes, dtypes, devices and strides the kernels take; returns
     (b, h, t, d) and the (B, H, T, D) views of q, k, v (and dout)."""
@@ -187,8 +211,7 @@ def _check_qkv(layout, q, k, v, dout=None):
             raise ValueError(f"{name}'s last dimension must be contiguous")
     views = _bhtd(layout, *(t for _, t in named))
     b, h, t, d = views[0].shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
+    check_head_dim(d, q.dtype)
     return (b, h, t, d), views
 
 
@@ -257,11 +280,14 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, causal,
                            layout="bhtd"):
     """dQ of the flash backward in q's layout: the dQ kernel on CUDA
     tensors, the plain backward's dq on CPU tensors."""
-    global LAUNCHES_BWD_DQ
+    global LAUNCHES_BWD_DQ, LAUNCHES_BWD_DQ_TC
     if q.device.type == "cpu":
         return flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
                                    layout)[0]
     bhtd, (q_, k_, v_, do_) = _check_qkv(layout, q, k, v, dout)
+    tc = q.dtype == torch.bfloat16
+    if tc:
+        check_tc_alignment(q=q_, k=k_, v=v_, dout=do_)
     _check_rows("lse", lse, q, bhtd)
     _check_rows("delta", delta, q, bhtd)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -274,6 +300,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, causal,
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention_bwd_dq")
     LAUNCHES_BWD_DQ += 1
+    LAUNCHES_BWD_DQ_TC += tc
     return dq
 
 

@@ -8,12 +8,20 @@ ONE layer's pool; ``table`` (B, P) int32 per-slot page-table rows with
 the sentinel ``n_pages`` for unmapped entries; ``pos`` (B,) int32 cursors
 (rows ``<= pos[b]`` are valid). Returns (B, H, Dh) in q's dtype.
 
-The kernel skips sentinel pages and pages past the cursor and gives zeros
-for a slot with no live row. The plain version is the gather path the
-engine runs with the kernel off: it gathers every table entry, CLAMPING
-the sentinel to the last pool page as a JAX gather does, so a sentinel
-entry below the cursor reads masked-in garbage there, exactly as in the
-reference. Keep every position up to the cursor mapped and the two agree.
+The kernel is split-K flash-decoding in two passes
+(``csrc/paged_attention.cu``): pass 1 cuts each slot's page-table row
+into splits of ``pages_per_split`` logical pages and writes each (split,
+head)'s partial softmax state (m, l, acc) in f32 to a workspace this
+wrapper allocates; pass 2 merges a slot's splits in a fixed order, so a
+second launch is bit-identical. :func:`split_plan` is the launcher's
+choice of split, in plain Python. The kernel skips sentinel pages and
+pages past the cursor, gives zeros for a slot with no live row, and
+takes every head dim from 1 to ``MAX_HEAD_DIM`` (256). The plain version
+is the gather path the engine runs with the kernel off: it gathers every
+table entry, CLAMPING the sentinel to the last pool page as a JAX gather
+does, so a sentinel entry below the cursor reads masked-in garbage
+there, exactly as in the reference. Keep every position up to the cursor
+mapped and the two agree.
 
 Dispatch (:func:`decide`) is ``off`` → gather, ``on`` → kernel, ``auto``
 → kernel on CUDA and gather on the CPU. The reference's fidelity-gated
@@ -23,6 +31,7 @@ promotion race and its autotune store are not ported yet.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import Optional
 
@@ -37,10 +46,21 @@ PROMOTION_MAX_KL = 1e-3
 
 _SOURCE = "paged_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+
+#: the most splits a slot's row is cut into (pass 2 merges one a thread)
+MAX_SPLITS = 256
+#: pass-1 blocks per SM the split plan aims at when every table entry is
+#: live (the host cannot see the cursors without a sync)
+BLOCKS_PER_SM = 8
+#: f32 elements of q and of the accumulator one pass-1 block holds in
+#: shared memory: heads beyond them go to another block (a head group)
+BLOCK_ELEMS = 4096
+#: bytes of K and V rows one pass-1 stage holds in shared memory
+STAGE_BYTES = 32768
 
 #: launches of the CUDA kernel since the last reset (the plain version on
-#: CPU tensors does not count)
+#: CPU tensors does not count); one count covers both passes
 LAUNCHES = 0
 
 
@@ -60,6 +80,36 @@ def paged_attention(q, k_pages, v_pages, table, pos):
         raise ValueError(f"paged_attention runs on cpu or cuda tensors, "
                          f"got {q.device}")
     return _paged_attention_cuda(q, k_pages, v_pages, table, pos)
+
+
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How the two passes cut one call: each slot's table row into
+    ``n_splits`` runs of ``pages_per_split`` logical pages, its heads into
+    groups of ``heads_per_block``, and a page's rows into stages of
+    ``rows_per_stage``."""
+    pages_per_split: int
+    n_splits: int
+    heads_per_block: int
+    rows_per_stage: int
+
+
+def split_plan(b: int, h: int, dh: int, item: int, page_len: int,
+               per_slot: int, n_sms: int) -> SplitPlan:
+    """The launcher's split for ``b`` slots of ``per_slot`` table entries,
+    ``h`` heads of ``dh`` elements of ``item`` bytes, on a card of
+    ``n_sms`` SMs: the fewest pages a split (at least one) that still
+    puts ``BLOCKS_PER_SM`` pass-1 blocks on every SM when the table is
+    full, and at most ``MAX_SPLITS`` splits a slot. At the 120M decode
+    shape (8 slots, 128 entries, H 8, Dh 64 bf16, 132 SMs) that is one
+    page a split: 1024 blocks, one for each live page."""
+    hpb = min(h, max(1, BLOCK_ELEMS // dh))
+    groups = -(-h // hpb)
+    pps = max(1, (b * groups * per_slot) // (BLOCKS_PER_SM * n_sms),
+              -(-per_slot // MAX_SPLITS))
+    rows = max(1, min(page_len, STAGE_BYTES // (2 * hpb * dh * item)))
+    return SplitPlan(pages_per_split=pps, n_splits=-(-per_slot // pps),
+                     heads_per_block=hpb, rows_per_stage=rows)
 
 
 def _paged_attention_cuda(q, k_pages, v_pages, table, pos):
@@ -95,12 +145,25 @@ def _paged_attention_cuda(q, k_pages, v_pages, table, pos):
         raise NotImplementedError("paged_attention is a decode kernel and "
                                   "has no backward")
     lib = _load()
+    item = q.element_size()
+    plan = split_plan(b, h, dh, item, plen, table.shape[1],
+                      torch.cuda.get_device_properties(q.device)
+                      .multi_processor_count)
+    # 16-byte loads where a head's row is a whole number of them
+    vec = (dh * item) % 16 == 0 and k_pages.data_ptr() % 16 == 0 \
+        and v_pages.data_ptr() % 16 == 0
     out = torch.empty_like(q)
+    # the partials of pass 1: m and l (n_splits, B, H), acc (.., Dh)
+    rows = plan.n_splits * b * h
+    ws = torch.empty(rows * (dh + 2), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.dl4j_paged_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        table.data_ptr(), pos.data_ptr(), out.data_ptr(), b, h, dh, npg,
-        plen, table.shape[1], 1.0 / math.sqrt(dh), _DTYPES[q.dtype], stream)
+        table.data_ptr(), pos.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        ws.data_ptr() + 4 * rows, ws.data_ptr() + 8 * rows, b, h, dh, npg,
+        plen, table.shape[1], plan.pages_per_split, plan.n_splits,
+        plan.heads_per_block, plan.rows_per_stage, 1.0 / math.sqrt(dh),
+        _DTYPES[q.dtype], int(vec), stream)
     _build.check(rc, "paged_attention")
     LAUNCHES += 1
     return out
@@ -111,8 +174,7 @@ def _load():
     fn = lib.dl4j_paged_attention
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float,
-                       i, p]
+        fn.argtypes = [p] * 9 + [i] * 10 + [ctypes.c_float, i, i, p]
         fn.restype = i
     return lib
 

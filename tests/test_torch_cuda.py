@@ -47,7 +47,8 @@ def gen():
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("dh,plen", [(64, 16), (128, 8), (16, 4)])
+@pytest.mark.parametrize("dh,plen", [(64, 16), (128, 8), (16, 4), (80, 16),
+                                     (256, 16), (20, 6)])
 def test_paged_kernel_matches_plain(gen, dtype, dh, plen):
     b, h, per_slot = 4, 2, 6
     npg = b * per_slot
@@ -72,15 +73,55 @@ def test_paged_kernel_matches_plain(gen, dtype, dh, plen):
     torch.testing.assert_close(out[:3].float(), ref[:3].float(),
                                atol=ATOL[dtype], rtol=0)
     assert out[3].abs().max().item() == 0.0   # empty slot → zeros
+    assert torch.equal(out, pa.paged_attention(q, k, v, table, pos))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [64, 80, 128, 256])
+def test_paged_split_k_long_contexts(gen, dtype, dh):
+    """Split-K at contexts up to 2048 (many splits a slot, several pages
+    a split on the wide tables), CoW-shared pages, a slot with no live
+    row, against the gather path; a second launch is bit-identical."""
+    b, h, plen, per_slot = 6, 4, 16, 160
+    npg = b * per_slot
+    k = torch.randn((npg, plen, h, dh), generator=gen, device="cuda") \
+        .to(dtype)
+    v = torch.randn_like(k)
+    q = torch.randn((b, h, dh), generator=gen, device="cuda").to(dtype)
+    pos = torch.tensor([2047, 1500, 16, 0, 999, 2559], dtype=torch.int32)
+    table = torch.full((b, per_slot), npg, dtype=torch.int32)
+    perm = torch.randperm(npg)
+    for s in (0, 1, 2, 4, 5):
+        need = int(pos[s]) // plen + 1
+        table[s, :need] = perm[s * per_slot:s * per_slot + need].int()
+    table[4, :30] = table[0, :30]             # CoW-shared with slot 0
+    table, pos = table.cuda(), pos.cuda()
+    plan = pa.split_plan(b, h, dh, k.element_size(), plen, per_slot,
+                         torch.cuda.get_device_properties(0)
+                         .multi_processor_count)
+    assert plan.n_splits > 1
+    out = pa.paged_attention(q, k, v, table, pos)
+    ref = pa.paged_attention_reference(q, k, v, table, pos)
+    again = pa.paged_attention(q, k, v, table, pos)
+    torch.cuda.synchronize()
+    live = [0, 1, 2, 4, 5]
+    torch.testing.assert_close(out[live].float(), ref[live].float(),
+                               atol=ATOL[dtype], rtol=0)
+    assert out[3].abs().max().item() == 0.0
+    assert torch.equal(out, again)
 
 
 FLASH_GRID = [(64, True), (200, True), (1000, True), (256, False),
               (200, False), (1000, False)]
 
 
+# the instantiated widths and head dims padded to them inside the kernels
+HEAD_DIMS = [8, 16, 24, 32, 64, 80, 120, 128]
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t,causal", FLASH_GRID)
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 def test_flash_kernel_matches_plain(gen, dtype, t, causal, d):
     """K1 (the tensor-core kernel in bf16, the CUDA-core one in f32) at
     every head dim, in the (B, H, T, D) layout and through strided
@@ -109,8 +150,9 @@ def test_flash_kernel_matches_plain(gen, dtype, t, causal, d):
 
 def test_flash_misaligned_bf16_views_raise_before_launch(gen):
     """A bf16 view that starts off a 16-byte boundary (or has a time
-    stride of an odd number of elements) raises in K1 and in dK/dV, and
-    nothing is launched; the CUDA-core kernels (f32) take it."""
+    stride of an odd number of elements) raises in K1, in dQ and in
+    dK/dV, and nothing is launched; the CUDA-core kernels (f32) take
+    it."""
     b, t, h, d = 1, 70, 2, 16
     buf = torch.randn((b, t, 3 * h * d + 1), generator=gen, device="cuda")
     views = [buf[..., 1 + i * h * d:1 + (i + 1) * h * d].reshape(b, t, h, d)
@@ -120,13 +162,18 @@ def test_flash_misaligned_bf16_views_raise_before_launch(gen):
     odd = [raw[..., 1 + i * h * d:1 + (i + 1) * h * d].reshape(b, t, h, d)
            for i in range(3)]
     lse = torch.zeros((b, h, t), device="cuda")
-    counts = (fa.LAUNCHES, fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DKV,
+    counts = (fa.LAUNCHES, fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DQ,
+              fa.LAUNCHES_BWD_DQ_TC, fa.LAUNCHES_BWD_DKV,
               fa.LAUNCHES_BWD_DKV_TC)
     with pytest.raises(ValueError, match="aligned"):
         fa.flash_attention_ntc(*odd, causal=True)
-    with pytest.raises(ValueError, match="aligned"):
-        fa.flash_attention_bwd_dkv(*odd, bf[0], lse, lse, 0.25, True, "bthd")
-    assert (fa.LAUNCHES, fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DKV,
+    for bwd in (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv):
+        with pytest.raises(ValueError, match="aligned"):
+            bwd(*odd, bf[0], lse, lse, 0.25, True, "bthd")
+        with pytest.raises(ValueError, match="dout .*aligned"):
+            bwd(*bf, odd[0], lse, lse, 0.25, True, "bthd")
+    assert (fa.LAUNCHES, fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DQ,
+            fa.LAUNCHES_BWD_DQ_TC, fa.LAUNCHES_BWD_DKV,
             fa.LAUNCHES_BWD_DKV_TC) == counts
     out = fa.flash_attention_ntc(*views, causal=True)   # f32: any strides
     ref = fa.mha_reference(*(x.transpose(1, 2) for x in views), causal=True)
@@ -148,12 +195,12 @@ def _close(got, ref, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t,causal", FLASH_GRID)
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", HEAD_DIMS)
 def test_flash_bwd_kernels_match_plain(gen, dtype, t, causal, d):
-    """dQ and dK/dV against the plain backward on the same inputs, in
-    the (B, H, T, D) layout and through strided (B, T, H, D) views of
-    one qkv buffer (the transformer's layout); a second launch of each
-    repeats the first bit for bit."""
+    """dQ and dK/dV (both on the tensor cores in bf16) against the plain
+    backward on the same inputs, in the (B, H, T, D) layout and through
+    strided (B, T, H, D) views of one qkv buffer (the transformer's
+    layout); a second launch of each repeats the first bit for bit."""
     b, h = 2, 3
     scale = d ** -0.5
     q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda")
@@ -162,17 +209,18 @@ def test_flash_bwd_kernels_match_plain(gen, dtype, t, causal, d):
     delta = torch.randn((b, h, t), generator=gen, device="cuda")
     ref = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale,
                                            causal)
-    before = (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV,
-              fa.LAUNCHES_BWD_DKV_TC)
+    before = (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DQ_TC,
+              fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DKV_TC)
+    tc = int(dtype == torch.bfloat16)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
-    assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == (before[0] + 1,
-                                                         before[1])
+    assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DQ_TC,
+            fa.LAUNCHES_BWD_DKV) == (before[0] + 1, before[1] + tc,
+                                     before[2])
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
                                         causal)
-    tc = int(dtype == torch.bfloat16)
-    assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV,
-            fa.LAUNCHES_BWD_DKV_TC) == (before[0] + 1, before[1] + 1,
-                                        before[2] + tc)
+    assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DQ_TC, fa.LAUNCHES_BWD_DKV,
+            fa.LAUNCHES_BWD_DKV_TC) == (before[0] + 1, before[1] + tc,
+                                        before[2] + 1, before[3] + tc)
     torch.cuda.synchronize()
     for got, want in zip((dq, dk, dv), ref):
         _close(got, want, dtype)
@@ -224,6 +272,47 @@ def test_flash_function_grads_match_autograd_reference(gen, dtype, causal):
     want = torch.autograd.grad((ro, rl), (q, k, v), (do.transpose(1, 2), dl))
     for a, w in zip(got, want):
         _close(a, w, dtype)
+
+
+def test_head_dim_80_lm_train_step_matches_plain_path(gen):
+    """A bf16 LM with head dim 80 (d_model 640, 8 heads), which raised on
+    the card before the kernels zero-padded D: one train step's grads on
+    the flash kernels (K1, dQ and dK/dV, all on the tensor cores) agree
+    with the plain path's (plain attention, f32 scores) from the same
+    params, relative L2 <= 2e-2 per leaf (chip_smoke.py phase 6's
+    bar)."""
+    import dataclasses
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg = tfm.TransformerConfig(vocab_size=512, d_model=640, n_heads=8,
+                                n_layers=2, d_ff=1024, max_seq=256,
+                                dtype=torch.bfloat16, remat=False,
+                                use_flash_attention=True)
+    plain = dataclasses.replace(cfg, use_flash_attention=False,
+                                attn_scores_bf16=False)
+    assert cfg.head_dim == 80
+    init = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    ids, tgt = (torch.as_tensor(rng.integers(0, 512, (4, 256)),
+                                device="cuda") for _ in range(2))
+    grads = {}
+    for name, c in (("kernel", cfg), ("plain", plain)):
+        params = {k: (v.clone() if torch.is_tensor(v)
+                      else {n: w.clone() for n, w in v.items()})
+                  for k, v in init.items()}
+        leaves = tfm.param_leaves(params)
+        fa.reset_launches()
+        tfm.lm_loss(params, c, ids, tgt).backward()
+        torch.cuda.synchronize()
+        if name == "kernel":
+            assert (fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DQ_TC,
+                    fa.LAUNCHES_BWD_DKV_TC) == (2, 2, 2)
+        grads[name] = [p.grad.float() for p in leaves]
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        assert torch.isfinite(got).all()
+        assert _rel_l2(got, want) <= 2e-2
 
 
 def _bn_inputs(gen, n, c, dtype, offset=1.5):

@@ -11,6 +11,7 @@ no card → raise, never a silent CPU fallback for a CUDA request.
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 import jax
@@ -345,19 +346,27 @@ def test_wrappers_refuse_other_devices():
 
 def test_flash_kernel_refuses_grad_and_bad_inputs():
     """Inputs the kernels do not take raise before any launch: K1's and
-    the backward wrappers' head-dim, dtype and device checks. (Inputs
-    that require grad are no longer refused: the Function runs them
-    through K1 and the backward kernels.)"""
-    q = torch.zeros((1, 2, 8, 24))
-    with pytest.raises(ValueError, match="head dim"):
+    the backward wrappers' head-dim, dtype and device checks. A bf16 head
+    dim that is not a multiple of 8 (rows not a whole number of 16-byte
+    chunks) and any head dim past 128 are refused. (Inputs that require
+    grad are no longer refused: the Function runs them through K1 and the
+    backward kernels.)"""
+    q = torch.zeros((1, 2, 8, 20), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa._flash_cuda(q, q, q, 0.25, True, "bhtd")
+    q = torch.zeros((1, 2, 8, 136))
+    with pytest.raises(ValueError, match="head dim 136"):
         tfa._flash_cuda(q, q, q, 0.25, True, "bhtd")
     q = torch.zeros((1, 2, 8, 16), dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tfa._flash_cuda(q, q, q, 0.25, True, "bhtd")
     lse = torch.zeros((1, 2, 8))
     for bwd in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
-        q = torch.zeros((1, 2, 8, 24), device="meta")
+        q = torch.zeros((1, 2, 8, 136), device="meta")
         with pytest.raises(ValueError, match="head dim"):
+            bwd(q, q, q, q, lse.to("meta"), lse.to("meta"), 0.2, True)
+        q = torch.zeros((1, 2, 8, 20), dtype=torch.bfloat16, device="meta")
+        with pytest.raises(ValueError, match="aligned"):
             bwd(q, q, q, q, lse.to("meta"), lse.to("meta"), 0.2, True)
         q = torch.zeros((1, 2, 8, 16), dtype=torch.float16, device="meta")
         with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -373,11 +382,159 @@ def test_flash_kernel_refuses_grad_and_bad_inputs():
                 True)
 
 
+@pytest.mark.parametrize("d", [8, 24, 40, 80, 96, 120])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_take_every_head_dim_up_to_128(d, dtype):
+    """The repaired rule: the kernels' checks pass every D the reference
+    runs up to 128 (bf16: multiples of 8), in both layouts; f32 also
+    takes the D that are not multiples of 8."""
+    q = torch.zeros((1, 2, 8, d), dtype=dtype)
+    for layout in ("bhtd", "bthd"):
+        (b, h, t, dd), views = tfa._check_qkv(layout, q, q, q, q)
+        assert dd == d and len(views) == 4
+    tfa.check_head_dim(d - 3, torch.float32)       # any f32 D in 1..128
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tfa.check_head_dim(d - 3, torch.bfloat16)
+
+
+def test_flash_head_dim_rule_bounds():
+    assert tfa.MAX_HEAD_DIM == 128
+    for d in (1, 5, 17, 127, 128):
+        tfa.check_head_dim(d, torch.float32)
+    for d in (0, 129, 256):
+        with pytest.raises(ValueError, match=f"head dim {d} outside"):
+            tfa.check_head_dim(d, torch.float32)
+
+
+# --------------------------------------------- K2 split-K plan (CPU side)
+
+# chip_smoke.py phase 2's slots: (cursor, case), 8 slots, page_len 16,
+# 128 table entries, H 8, Dh 64
+PHASE2_CASES = [(1023, "mapped"), (700, "partial-tail"), (5, "single-page"),
+                (900, "cow-shared"), (0, "empty"), (511, "page-boundary"),
+                (512, "page-start"), (333, "sentinel-after-cursor")]
+
+
+def _phase2_pool(h=8, dh=64, plen=16, per_slot=128, npg=256, seed=0):
+    rng = np.random.default_rng(seed)
+    k, v = (torch.as_tensor(a) for a in _pool(rng, npg, plen, h, dh))
+    q = torch.as_tensor(rng.standard_normal((len(PHASE2_CASES), h, dh))
+                        .astype(np.float32))
+    perm = rng.permutation(npg)
+    table = torch.full((len(PHASE2_CASES), per_slot), npg, dtype=torch.int32)
+    pos = torch.tensor([p for p, _ in PHASE2_CASES], dtype=torch.int32)
+    nxt = 0
+    for s, (p, case) in enumerate(PHASE2_CASES):
+        if case == "empty":
+            continue                   # every entry stays the sentinel
+        need = p // plen + 1           # pages up to the cursor only
+        share = 20 if case == "cow-shared" else 0
+        table[s, :share] = table[0, :share]
+        table[s, share:need] = torch.as_tensor(perm[nxt:nxt + need - share])
+        nxt += need - share
+    return q, k, v, table, pos
+
+
+def _split_k_emulation(q, k, v, table, pos, plan):
+    """The kernel's two passes in plain torch, f32: pass 1 gives each
+    (split, slot, head) the softmax partial (m, l, acc) of the live rows
+    of its ``pages_per_split`` logical pages, skipping sentinel pages and
+    pages past the cursor (m = -inf, l = 0 where none is live); pass 2
+    merges each slot's splits in split order with weights exp(m - max m),
+    zeros where no split is live."""
+    b, h, dh = q.shape
+    npg, plen = k.shape[:2]
+    ns, pps = plan.n_splits, plan.pages_per_split
+    assert ns * pps >= table.shape[1]
+    m = torch.full((ns, b, h), float("-inf"))
+    l = torch.zeros((ns, b, h))
+    acc = torch.zeros((ns, b, h, dh))
+    for s in range(ns):
+        for slot in range(b):
+            p = int(pos[slot])
+            ks, vs = [], []
+            for j in range(s * pps, min((s + 1) * pps, table.shape[1])):
+                page = int(table[slot, j])
+                if j * plen > p or not 0 <= page < npg:
+                    continue
+                live = min(plen, p - j * plen + 1)
+                ks.append(k[page, :live])
+                vs.append(v[page, :live])
+            if not ks:
+                continue
+            sc = torch.einsum("hd,nhd->hn", q[slot] / dh ** 0.5,
+                              torch.cat(ks))
+            m[s, slot] = sc.max(-1).values
+            pr = torch.exp(sc - m[s, slot][:, None])
+            l[s, slot] = pr.sum(-1)
+            acc[s, slot] = torch.einsum("hn,nhd->hd", pr, torch.cat(vs))
+    mx = m.max(0).values
+    w = torch.where(l > 0, torch.exp(m - mx), torch.zeros(()))
+    out = torch.zeros((b, h, dh))
+    tot = torch.zeros((b, h))
+    for s in range(ns):                # the fixed order of pass 2
+        out = out + w[s][..., None] * acc[s]
+        tot = tot + w[s] * l[s]
+    return torch.where(tot[..., None] > 0,
+                       out / tot.clamp_min(1e-30)[..., None],
+                       torch.zeros(()))
+
+
+def test_paged_split_plan_at_the_decode_shapes():
+    """The launcher's split: one page a split at the 120M decode shape (8
+    slots, 128 entries, H 8, Dh 64, 132 SMs), all heads in one block,
+    whole pages a stage in bf16; on a full table at least BLOCKS_PER_SM
+    blocks an SM unless a split is already one page; never more than
+    MAX_SPLITS splits a slot, and the splits cover the row."""
+    plan = tpa.split_plan(8, 8, 64, 2, 16, 128, 132)
+    assert plan == tpa.SplitPlan(pages_per_split=1, n_splits=128,
+                                 heads_per_block=8, rows_per_stage=16)
+    assert tpa.split_plan(8, 8, 64, 4, 16, 128, 132).rows_per_stage == 8
+    for b, h, dh, item, plen, per_slot in (
+            (8, 8, 64, 2, 16, 128), (64, 8, 64, 2, 16, 128),
+            (1, 8, 64, 2, 16, 4096), (4, 64, 256, 4, 16, 512),
+            (2, 3, 20, 2, 5, 7), (32, 32, 128, 2, 256, 64)):
+        p = tpa.split_plan(b, h, dh, item, plen, per_slot, 132)
+        groups = -(-h // p.heads_per_block)
+        assert 1 <= p.n_splits <= tpa.MAX_SPLITS
+        assert p.n_splits * p.pages_per_split >= per_slot
+        assert (p.n_splits - 1) * p.pages_per_split < per_slot
+        assert p.heads_per_block * dh <= max(tpa.BLOCK_ELEMS, dh)
+        assert 1 <= p.rows_per_stage <= plen
+        assert p.rows_per_stage == 1 or 2 * p.rows_per_stage \
+            * p.heads_per_block * dh * item <= tpa.STAGE_BYTES
+        assert p.pages_per_split == 1 or p.n_splits == tpa.MAX_SPLITS \
+            or b * groups * p.n_splits >= tpa.BLOCKS_PER_SM * 132 // 2
+
+
+@pytest.mark.parametrize("pages_per_split", [None, 3, 128])
+def test_paged_split_k_emulation_matches_reference(pages_per_split):
+    """Pass 1 and pass 2 of the split-K kernel, emulated in torch on the
+    phase-2 cases (mapped, partial tail, single page, CoW-shared, empty,
+    page boundary, page start, sentinel after the cursor) with the
+    launcher's plan (and with 3 pages and one split a slot), against the
+    gather path at f32 atol 1e-5; the empty slot gives zeros."""
+    q, k, v, table, pos = _phase2_pool()
+    plan = tpa.split_plan(8, 8, 64, 4, 16, 128, 132)
+    if pages_per_split is not None:
+        plan = dataclasses.replace(
+            plan, pages_per_split=pages_per_split,
+            n_splits=-(-128 // pages_per_split))
+    got = _split_k_emulation(q, k, v, table, pos, plan)
+    ref = tpa.paged_attention_reference(q, k, v, table, pos)
+    live = [s for s, (_, c) in enumerate(PHASE2_CASES) if c != "empty"]
+    empty = [s for s, (_, c) in enumerate(PHASE2_CASES) if c == "empty"]
+    np.testing.assert_allclose(got[live].numpy(), ref[live].numpy(),
+                               atol=KERNEL_ATOL, rtol=0)
+    assert got[empty].abs().max().item() == 0.0
+
+
 def test_paged_auto_on_cuda_pool_past_max_head_dim_raises():
     """``auto`` picks the kernel for ANY pool on the card, and the kernel
-    refuses a head dim it cannot take: a Dh > 128 CUDA pool raises rather
+    refuses a head dim it cannot take: a Dh > 256 CUDA pool raises rather
     than running the gather path on the card."""
-    dh = tpa.MAX_HEAD_DIM * 2
+    assert tpa.MAX_HEAD_DIM == 256
+    dh = tpa.MAX_HEAD_DIM + 8
 
     class CudaTyped:                  # a pool tensor's device, without a card
         device = torch.device("cuda")
@@ -494,7 +651,8 @@ def test_tc_alignment_passes_the_transformers_qkv_views(monkeypatch):
         return ntc(q, k, v, causal, scale)
 
     monkeypatch.setattr(tfa, "flash_attention_ntc", spy)
-    for d in tfa.HEAD_DIMS:
+    dims = (8, 16, 24, 32, 64, 80, 120, 128)
+    for d in dims:
         cfg = ttfm.TransformerConfig(vocab_size=64, d_model=2 * d, n_heads=2,
                                      n_layers=1, d_ff=64, max_seq=24,
                                      dtype=torch.bfloat16,
@@ -503,7 +661,7 @@ def test_tc_alignment_passes_the_transformers_qkv_views(monkeypatch):
                                   device="cpu")
         ids = torch.as_tensor(np.arange(24).reshape(2, 12) % 64)
         ttfm.forward(params, cfg, ids)
-    assert len(seen) == len(tfa.HEAD_DIMS)
+    assert len(seen) == len(dims)
     for q, k, v in seen:
         assert q.dtype == torch.bfloat16 and q.stride(1) == 3 * q.shape[2] \
             * q.shape[3]

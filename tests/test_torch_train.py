@@ -337,3 +337,47 @@ def test_train_step_counts_no_cuda_launch_on_cpu(shared_np):
     assert torch.isfinite(loss)
     assert (tfa.LAUNCHES, tfa.LAUNCHES_BWD_DQ, tfa.LAUNCHES_BWD_DKV) == \
         (0, 0, 0)
+
+
+def test_head_dim_80_lm_matches_jax_flash(jax_flash, monkeypatch):
+    """A Transformer-LM with head dim 80 (d_model 160, 2 heads, 2 layers,
+    flash attention on both sides, T 64), the shape the card's kernels
+    now take by zero-padding to 128 inside the kernel: its forward logits
+    and its step-1 grads through the port's plain path against the JAX
+    package's Pallas kernels (interpret mode), whose forward and backward
+    calls are counted to show that they ran. f32 values atol 1e-5, grads
+    atol 1e-4."""
+    import importlib
+    jfa = importlib.import_module(
+        "deeplearning4j_tpu.kernels.flash_attention")
+    calls = {"fwd": 0, "bwd": 0}
+    orig_fwd, orig_bwd = jfa._fwd, jfa._flash_bwd_impl
+
+    def count(name, fn):
+        def wrapped(*a, **kw):
+            calls[name] += 1
+            return fn(*a, **kw)
+        return wrapped
+
+    monkeypatch.setattr(jfa, "_fwd", count("fwd", orig_fwd))
+    monkeypatch.setattr(jfa, "_flash_bwd_impl", count("bwd", orig_bwd))
+    jcfg, tcfg = configs(d_model=160, d_ff=128)
+    assert tcfg.head_dim == 80
+    jp = jtfm.init_params(jax.random.PRNGKey(3), jcfg)
+    tree = jax.tree_util.tree_map(np.asarray, jp)
+    tp = _port_params(tree, tcfg)
+    ids, tgt = _batch((2, 64), seed=7)
+    jl, _ = jtfm.forward(jp, jcfg, jnp.asarray(ids))
+    tl, _ = ttfm.forward(tp, tcfg, _t(ids).long())
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-5,
+                               rtol=1e-5)
+    jloss, jg = jax.value_and_grad(jtfm.lm_loss)(
+        jp, jcfg, jnp.asarray(ids), jnp.asarray(tgt))
+    tloss, tg = _port_loss_and_grads(tp, tcfg, ids, tgt)
+    assert calls["fwd"] and calls["bwd"]
+    np.testing.assert_allclose(tloss.item(), float(jloss), atol=1e-5)
+    jgrads = _leaves_by_path(jax.tree_util.tree_map(np.asarray, jg))
+    assert set(jgrads) == set(tg)
+    for name, g in jgrads.items():
+        np.testing.assert_allclose(tg[name].numpy(), g, err_msg=name,
+                                   atol=1e-4, rtol=1e-4)
