@@ -9,6 +9,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --profile-train  # also profile one train step
     python3 chip_smoke.py --profile-resnet # also profile one ResNet-50 step
     python3 chip_smoke.py --profile-charnn # also profile one char-RNN step
+    python3 chip_smoke.py --k3-times ROOT  # only time the K3 reductions of
+                                           # the port checked out at ROOT
 
 Phases, each fatal on failure:
 
@@ -20,20 +22,24 @@ Phases, each fatal on failure:
    zeros); a second launch bit for bit equal; device time of both passes
    (``torch.profiler``) with a call timed by CUDA events beside it;
 3. K1 (causal flash forward; bf16 on the tensor-core kernel, f32 on the
-   CUDA-core one) against ``mha_reference``, O and lse, at T 1024/2048,
-   at head dim 80 (padded to 128 inside the kernel) in both dtypes, and
-   at the train path's B32 T1024 bf16, plus the strided (B, T, H, D)
-   layout the transformer uses; a second launch bit for bit equal;
-   ``F.scaled_dot_product_attention`` timed as a yardstick only;
+   CUDA-core one, every other head dim on the general CUDA-core kernel)
+   against ``mha_reference``, O and lse, at T 1024/2048, at head dim 80
+   (padded to 128 inside the kernel) in both dtypes, at the train path's
+   B32 T1024 bf16, and on the general kernel at D 12 (bf16), 160 and 256
+   (both dtypes) and 320 (f32), plus the strided (B, T, H, D) layout the
+   transformer uses; the kernel family ``route`` names must run; a second
+   launch bit for bit equal; ``F.scaled_dot_product_attention`` timed as
+   a yardstick only;
 3b. the flash backward kernels (dQ, dK/dV; both on the tensor cores in
-   bf16) against ``flash_attention_bwd_reference`` on the same inputs,
-   through strided (B, T, H, D) views of one qkv buffer, at B1 H8 D64
-   T 1024/2048/4096 bf16, T 2048 f32, T 200 causal and T 256 non-causal,
-   head dim 80 in both dtypes, and at the train path's B32 T1024 bf16,
-   causal and non-causal; a second launch of each bit for bit equal; the
-   autograd Function's grads against autograd through ``mha_reference``;
-   dQ's device time against its bound and SDPA's whole backward (timed as
-   a yardstick only);
+   bf16 up to D 128) against ``flash_attention_bwd_reference`` on the
+   same inputs, through strided (B, T, H, D) views of one qkv buffer, at
+   B1 H8 D64 T 1024/2048/4096 bf16, T 2048 f32, T 200 causal and T 256
+   non-causal, head dim 80 in both dtypes, the train path's B32 T1024
+   bf16, causal and non-causal, and phase 3's general head dims, causal;
+   a second launch of each bit for bit equal; the autograd Function's
+   grads against autograd through ``mha_reference``; dQ's device time
+   against its bound and SDPA's whole backward (timed as a yardstick
+   only);
 4. the main path at full width: the 120M Transformer-LM with seeded
    random weights served by a dense and a paged
    ``ContinuousBatchingScheduler``; every request must resolve with its
@@ -52,14 +58,20 @@ Phases, each fatal on failure:
    2e-2 per leaf, loss within 2e-2 nats at each of 5 steps and falling;
    the launch counts are set to 0 just before the kernel path, and every
    step must launch K1 16 times and dQ and dK/dV 8 times each, every
-   launch on the tensor-core kernels;
+   launch on the tensor-core kernels; then the same LM at head dim 256
+   (2 heads, 2 layers, batch 8) for one step on the general kernels,
+   held to the same bars (its own path: counts set to 0 just before it);
 7. the fused BatchNorm+activation kernels (K3: normalize+act, stats,
    backward reduce, backward dx) against their plain versions at all
    nine (N, C) shapes a ResNet-50 BN gives them at batch 128, relu and
    identity, bf16 and f32; every activation at one shape; C = 3, 5, 24
-   at N = 1000; a second launch bit for bit equal; kernel, plain and
-   ``F.batch_norm`` (the library yardstick, identity activation) timed
-   beside each kernel's bound;
+   at N = 1000; the reductions' sums within 1e-4 of their largest entry,
+   the stats kernel's fused mean, var and inv (and scale, shift; and the
+   backward reduce's sums over N) within 1e-6 relative of the plain
+   versions on the same sums; a second launch bit for bit equal; kernel
+   device time (``torch.profiler``), plain and ``F.batch_norm`` (the
+   library yardstick, identity activation) timed beside each kernel's
+   bound;
 8. the ResNet-50 path at full width: ``ResNet50(num_classes=1000,
    compute_dtype=bf16, updater=Momentum(0.1, 0.9))`` (``bench.py``'s
    ``resnet50`` row) trained through ``ComputationGraph.fit`` for 5 steps
@@ -70,7 +82,9 @@ Phases, each fatal on failure:
    path for the step-1 grads; then ``output()`` with the zoo's
    ``fused="auto"``: 33 normalize launches and per-row KL <= 1e-3 against
    the plain BNs; every (dtype, N, C, activation) K3 ran at must be one
-   that phase 7 held;
+   that phase 7 held; ``--profile-resnet`` profiles one step: K3's device
+   time and launches by kernel (one a stats and a reduce call) and the
+   device-busy share;
 9. the fused whole-sequence LSTM kernel (K4) against its plain version:
    the char-RNN's shape (B 256, T 60, H 256) in bf16 and f32 with
    peepholes, with zero peepholes, and with nonzero h0/c0; a ragged
@@ -125,6 +139,13 @@ RESNET_F32_LOSS_ATOL = 1e-4              # f32 step-1 loss, nats
 RESNET_STATE_REL_L2 = 2e-2               # bf16 running mean/var, per tensor
 RESNET_F32_STATE_REL_L2 = 1e-4           # f32 running mean/var, per tensor
 K3_SUM_RTOL = 1e-4                       # f32 per-channel sums, reordered
+K3_EPILOGUE_RTOL = 1e-6                  # mean/var/inv from the same sums
+# (dtype, B, T, D) of the head-dim-general flash kernels (H 8): a bf16 D
+# that is not a multiple of 8, and D > 128 at 64, 32 and 16 tile rows
+GENERAL_SHAPES = ((torch.bfloat16, 2, 1024, 12),
+                  (torch.bfloat16, 1, 1024, 160), (torch.float32, 1, 1024, 160),
+                  (torch.bfloat16, 1, 1024, 256), (torch.float32, 1, 1024, 256),
+                  (torch.float32, 1, 1024, 320))
 RESNET_BATCH = 128
 RESNET_HW = 224
 # every (H = W, C) a BN of ResNet-50 at 224x224 hands K3 (N = batch*H*W):
@@ -132,6 +153,8 @@ RESNET_HW = 224
 # stride sits on the 1x1 a-conv) and the c/shortcut identity BNs at f3
 K3_PATH_SHAPES = ((112, 64), (56, 64), (56, 256), (28, 128), (28, 512),
                   (14, 256), (14, 1024), (7, 512), (7, 2048))
+# the BN layers of a ResNet-50 train step at each of those shapes (53)
+K3_PATH_LAYERS = (1, 6, 4, 8, 5, 12, 7, 6, 4)
 # f32 operations per element (relu where an activation applies): the
 # normalize a multiply, an add and a max; the stats a subtract and two
 # adds and a multiply; the backward passes recompute z, act'(z), dz and
@@ -139,7 +162,10 @@ K3_PATH_SHAPES = ((112, 64), (56, 64), (56, 256), (28, 128), (28, 512),
 K3_OPS = {"bn_act": 3, "bn_stats": 4, "bn_bwd_reduce": 9, "bn_bwd_dx": 11}
 # (N, C) tensors each K3 kernel reads and writes, and its (C,) f32 vectors
 K3_ROWS = {"bn_act": 2, "bn_stats": 1, "bn_bwd_reduce": 2, "bn_bwd_dx": 3}
-K3_VECS = {"bn_act": 2, "bn_stats": 3, "bn_bwd_reduce": 6, "bn_bwd_dx": 6}
+# (the reductions read their inputs' vectors and write their fused outputs:
+# stats center, gamma, beta in and 7 rows out; backward reduce scale,
+# shift, mean, inv in and 4 rows out)
+K3_VECS = {"bn_act": 2, "bn_stats": 10, "bn_bwd_reduce": 8, "bn_bwd_dx": 6}
 K3_LINES = {"bn_act": 76, "bn_stats": 170, "bn_bwd_reduce": 182,
             "bn_bwd_dx": 202}
 PEAK_FLOPS = {torch.bfloat16: 989e12,    # dense tensor-core bf16
@@ -189,9 +215,12 @@ def device_ms(fn, iters=20, warmup=3):
     kernels and copies it launches, from a ``torch.profiler`` trace of
     ``iters`` calls. Unlike :func:`cuda_ms` it leaves out the host's
     time between launches, which back-to-back event timing measures
-    instead wherever a call's host path outlasts its kernels. A trace
-    with no device time at all (the profiler now and then loses a
-    session's activity) is taken again, twice at most."""
+    instead wherever a call's host path outlasts its kernels. The
+    profiler now and then loses some of a trace's device events (a
+    trace of 20 calls that recorded 19 launches), so each kernel or copy is
+    counted at its mean recorded duration times its launches a call (its
+    recorded count over ``iters``, rounded, at least 1). A trace with no
+    device time at all is taken again, twice at most."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -202,10 +231,13 @@ def device_ms(fn, iters=20, warmup=3):
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(_self_device_us(ev) for ev in prof.key_averages()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA)
+        us = sum(_self_device_us(ev) / ev.count
+                 * max(1, round(ev.count / iters))
+                 for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA
+                 and ev.count)
         if us > 0:
-            return us / 1e3 / iters
+            return us / 1e3
         log(f"torch.profiler recorded no device time (trace {attempt + 1} "
             "of 3)")
     raise SystemExit("torch.profiler recorded no device time")
@@ -317,25 +349,37 @@ def check_paged(pa, dtype, gen):
 
 # ---------------------------------------------------------------- phase 3
 
-def tc_state(tc_ok, dtype):
-    """How a check's tensor-core counter reads: bf16 must launch the
-    tensor-core kernel, f32 must not."""
-    if dtype == torch.bfloat16:
-        return "ran" if tc_ok else "MISSED"
-    return "not used (f32)" if tc_ok else "RAN for f32"
+def route_counts(fa, part=""):
+    """The (tensor-core, general) launch counters of K1 (part "") or of
+    the backward's "dq" or "dkv" kernel."""
+    name = {"": "", "dq": "_BWD_DQ", "dkv": "_BWD_DKV"}[part]
+    return (getattr(fa, f"LAUNCHES{name}_TC"),
+            getattr(fa, f"LAUNCHES{name}_GENERAL"))
+
+
+def route_state(fa, before, part, d, dtype):
+    """(ok, text): the kernel family ``fa.route`` names for (d, dtype)
+    launched once since ``before`` = :func:`route_counts`, and no other
+    counted family did."""
+    kind = fa.route(d, dtype)
+    now = route_counts(fa, part)
+    want = (int(kind == "wgmma"), int(kind == "general"))
+    ok = (now[0] - before[0], now[1] - before[1]) == want
+    return ok, f"{kind} kernel {'ran' if ok else 'MISSED'}"
 
 
 def check_flash(fa, dtype, b, t, gen, h=8, d=64):
     """K1 vs mha_reference (O and lse), causal, (B, H, T, D); the same
     inputs through the strided (B, T, H, D) entry point; a second launch
-    bit for bit equal to the first; bf16 must run the tensor-core kernel.
+    bit for bit equal to the first; the kernel family of ``fa.route``
+    (bf16 tensor cores up to D 128, the general kernel past it) must run.
     SDPA timed."""
     dev = "cuda"
     q, k, v = (torch.randn((b, h, t, d), generator=gen, device=dev)
                .to(dtype) for _ in range(3))
-    tc_before = fa.LAUNCHES_TC
+    before = route_counts(fa)
     out, lse = fa.flash_attention_lse(q, k, v, causal=True)
-    tc_ok = (fa.LAUNCHES_TC - tc_before) == (dtype == torch.bfloat16)
+    tc_ok, route = route_state(fa, before, "", d, dtype)
     again, lse_again = fa.flash_attention_lse(q, k, v, causal=True)
     repeats = bool(torch.equal(out, again) and torch.equal(lse, lse_again))
     del again, lse_again
@@ -369,8 +413,8 @@ def check_flash(fa, dtype, b, t, gen, h=8, d=64):
     log(f"K1 flash_attention_fwd {str(dtype)[6:]} B{b} H{h} T{t} D{d}: "
         f"O err {err:.3e}, ntc err {ntc_err:.3e} (atol {ATOL[dtype]}), "
         f"lse err {lse_err:.3e} (atol {LSE_ATOL}), second launch "
-        f"{'identical' if repeats else 'DIFFERS'}, tensor-core kernel "
-        f"{tc_state(tc_ok, dtype)}; device ms: kernel {ms:.4f} (a "
+        f"{'identical' if repeats else 'DIFFERS'}, {route}; device ms: "
+        f"kernel {ms:.4f} (a "
         f"call with the host's path {call_ms:.4f}), plain {plain_ms:.4f}, "
         f"sdpa {library_ms:.4f} (a call {library_call_ms:.4f}), bound "
         f"{bms:.5f} ({by}) -> {'ok' if ok else 'FAIL'}")
@@ -424,14 +468,14 @@ def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64):
     del o
     ref = fa.flash_attention_bwd_reference(qh, kh, vh, doh, lse, delta,
                                            scale, causal)
-    tc_before = (fa.LAUNCHES_BWD_DQ_TC, fa.LAUNCHES_BWD_DKV_TC)
+    before = route_counts(fa, "dq"), route_counts(fa, "dkv")
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal,
                                    "bthd")
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
                                         causal, "bthd")
-    tc = int(dtype == torch.bfloat16)
-    tc_ok = (fa.LAUNCHES_BWD_DQ_TC - tc_before[0],
-             fa.LAUNCHES_BWD_DKV_TC - tc_before[1]) == (tc, tc)
+    dq_ok, route = route_state(fa, before[0], "dq", d, dtype)
+    dkv_ok, _ = route_state(fa, before[1], "dkv", d, dtype)
+    tc_ok = dq_ok and dkv_ok
     dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal,
                                     "bthd")
     dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
@@ -485,8 +529,8 @@ def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64):
         f"{err[0]:.3e}/{err[1]:.3e}/{err[2]:.3e}, rel L2 {rel[0]:.2e}/"
         f"{rel[1]:.2e}/{rel[2]:.2e}, Function vs autograd rel L2 "
         f"{fn_rel:.2e}, second launch "
-        f"{'identical' if repeats else 'DIFFERS'}, tensor-core dQ and "
-        f"dK/dV {tc_state(tc_ok, dtype)}; device ms: dq {ms_dq:.4f} ms (a "
+        f"{'identical' if repeats else 'DIFFERS'}, dQ and dK/dV: {route}"
+        f"{'' if tc_ok else ' (one MISSED)'}; device ms: dq {ms_dq:.4f} ms (a "
         f"call {call_ms_dq:.4f}; bound {bq:.5f}, {byq}: {ms_dq / bq:.1f}x; "
         f"{ms_dq / library_ms:.3f}x sdpa's whole backward), dkv "
         f"{ms_dkv:.4f} ms (a call {call_ms_dkv:.4f}; bound {bkv:.5f}, "
@@ -637,14 +681,24 @@ def _named_leaves(tree, prefix=""):
     return [(prefix, tree)]
 
 
-def train_path(fa, pa, steps=5, batch=32, profile=False):
-    """The 120M LM trained at full width on the kernel path and on the
-    plain path from identical params and one batch."""
+FLASH_COUNTERS = ("LAUNCHES", "LAUNCHES_BWD_DQ", "LAUNCHES_BWD_DKV",
+                  "LAUNCHES_TC", "LAUNCHES_BWD_DQ_TC", "LAUNCHES_BWD_DKV_TC",
+                  "LAUNCHES_GENERAL", "LAUNCHES_BWD_DQ_GENERAL",
+                  "LAUNCHES_BWD_DKV_GENERAL")
+
+
+def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
+               n_layers=8, tag="train"):
+    """The LM of ``bench.py``'s transformer row trained at full width (T
+    1024, d_model 512; ``n_heads`` and ``n_layers`` as given) on the
+    kernel path and on the plain path from identical params and one
+    batch."""
     from deeplearning4j_tpu_torch.zoo import transformer as tfm
 
     # bench.py's transformer row (bench.py:594-598)
-    cfg = tfm.TransformerConfig(vocab_size=32000, d_model=512, n_heads=8,
-                                n_layers=8, d_ff=2048, max_seq=1024,
+    cfg = tfm.TransformerConfig(vocab_size=32000, d_model=512,
+                                n_heads=n_heads, n_layers=n_layers,
+                                d_ff=2048, max_seq=1024,
                                 dtype=torch.bfloat16, fused_loss=True,
                                 remat=True, remat_policy="save_attn",
                                 attn_scores_bf16=True)
@@ -671,27 +725,24 @@ def train_path(fa, pa, steps=5, batch=32, profile=False):
         pa.reset_launches()
         losses, secs, per_step = [], [], []
         for i in range(steps):
-            before = (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV,
-                      fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DQ_TC,
-                      fa.LAUNCHES_BWD_DKV_TC)
+            before = [getattr(fa, n) for n in FLASH_COUNTERS]
             t0 = time.perf_counter()
             loss = step(params, ids, tgt)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             losses.append(loss.item())
-            after = (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV,
-                     fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DQ_TC,
-                     fa.LAUNCHES_BWD_DKV_TC)
+            after = [getattr(fa, n) for n in FLASH_COUNTERS]
             per_step.append([a - b for a, b in zip(after, before)])
             if i == 0:
                 grads = {n: p.grad.detach().clone()
                          for n, p in _named_leaves(params)}
         run = {"losses": losses, "step_s": secs,
-               "tok_per_s_steps_2_5": tokens * (steps - 1) / sum(secs[1:]),
                "peak_alloc_gib": torch.cuda.max_memory_allocated() / 2**30,
                "launches_per_step": per_step,
                "paged_launches": pa.LAUNCHES}
-        log(f"train {path} path (B{batch} T{cfg.max_seq}, "
+        if steps > 1:
+            run["tok_per_s_steps_2_5"] = tokens * (steps - 1) / sum(secs[1:])
+        log(f"{tag} {path} path (B{batch} T{cfg.max_seq} D{cfg.head_dim}, "
             f"{'flash kernels' if c is cfg else 'plain attention'}): "
             f"{json.dumps(run)}")
         runs[path] = (run, grads)
@@ -706,34 +757,37 @@ def train_path(fa, pa, steps=5, batch=32, profile=False):
     worst = max(rels, key=rels.get)
     dloss = [abs(a - b) for a, b in zip(kr["losses"], pr["losses"])]
     # K1 runs twice a layer (forward and the save_attn recompute), dQ and
-    # dK/dV once; every launch on the tensor cores (bf16)
-    want = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers, 2 * cfg.n_layers,
-            cfg.n_layers, cfg.n_layers]
+    # dK/dV once; every launch on the family fa.route names (bf16: the
+    # tensor cores up to D 128, the general kernels past it)
+    per = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers]
+    kind = fa.route(cfg.head_dim, cfg.dtype)
+    want = per + [x * (kind == "wgmma") for x in per] \
+        + [x * (kind == "general") for x in per]
     counts_ok = all(c == want for c in kr["launches_per_step"])
-    falls = kr["losses"][-1] < kr["losses"][0] \
-        and pr["losses"][-1] < pr["losses"][0]
-    log(f"train kernel vs plain: step-1 grad rel L2 max {rels[worst]:.3e} "
+    falls = steps == 1 or (kr["losses"][-1] < kr["losses"][0]
+                           and pr["losses"][-1] < pr["losses"][0])
+    log(f"{tag} kernel vs plain: step-1 grad rel L2 max {rels[worst]:.3e} "
         f"({worst}; limit {TRAIN_GRAD_REL_L2}), all finite {finite}; "
         f"|loss delta| per step {[f'{x:.2e}' for x in dloss]} (limit "
         f"{TRAIN_LOSS_ATOL}); loss falls {falls}; launches per step "
-        f"[K1, dQ, dK/dV, K1 tensor-core, dQ tensor-core, dK/dV "
-        f"tensor-core] "
+        f"[K1, dQ, dK/dV, of them tensor-core, of them general] "
         f"{kr['launches_per_step']} (want {want})")
-    if not finite or rels[worst] > TRAIN_GRAD_REL_L2:
-        raise SystemExit("train path: step-1 grads disagree with the plain "
-                         "path")
-    if max(dloss) > TRAIN_LOSS_ATOL or not falls:
-        raise SystemExit("train path: losses disagree with the plain path "
+    if not finite or not rels[worst] <= TRAIN_GRAD_REL_L2:
+        raise SystemExit(f"{tag} path: step-1 grads disagree with the "
+                         "plain path")
+    if not max(dloss) <= TRAIN_LOSS_ATOL or not falls:
+        raise SystemExit(f"{tag} path: losses disagree with the plain path "
                          "or do not fall")
     if not counts_ok:
-        raise SystemExit("train path: a flash kernel was not launched as "
+        raise SystemExit(f"{tag} path: a flash kernel was not launched as "
                          "often as wanted in every step")
-    total = [sum(c[i] for c in kr["launches_per_step"]) for i in range(6)]
-    return {"flash_attention_fwd": total[0], "flash_attention_bwd_dq":
-            total[1], "flash_attention_bwd_dkv": total[2],
-            "flash_attention_fwd_tc": total[3],
-            "flash_attention_bwd_dq_tc": total[4],
-            "flash_attention_bwd_dkv_tc": total[5],
+    total = [sum(c[i] for c in kr["launches_per_step"])
+             for i in range(len(FLASH_COUNTERS))]
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    return {**{n: total[i] for i, n in enumerate(names)},
+            **{f"{n}_tc": total[3 + i] for i, n in enumerate(names)},
+            **{f"{n}_general": total[6 + i] for i, n in enumerate(names)},
             "paged_attention": runs["kernel"][0]["paged_launches"]}
 
 
@@ -801,9 +855,25 @@ def _k3_args(fo, x, gamma, beta, center):
     return (mean, inv, *fo._scale_shift(gamma, beta, mean, inv))
 
 
+def _epilogue_rel(fo, s, gamma, beta, center, n):
+    """The stats kernel's fused epilogue against the plain versions on
+    the kernel's own sums: max relative error of mean, var and inv
+    (elementwise), and of scale and shift (over their largest entry)."""
+    mean, var = fo._finish_moments(s[0], s[1], center, n)
+    inv = torch.rsqrt(var + 1e-5)
+    scale, shift = fo._scale_shift(gamma, beta, mean, inv)
+    rel = [((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+           for got, want in zip(s[2:5], (mean, var, inv))]
+    rel += [(got - want).abs().max().item() / want.abs().max().item()
+            for got, want in zip(s[5:], (scale, shift))]
+    return max(rel)
+
+
 def check_k3(fo, dtype, n, c, gen, acts=("relu",), hw=None, time_it=True):
     """The four K3 kernels against their plain versions on one (N, C):
-    outputs within tolerance, a second launch bitwise equal; kernel,
+    outputs within tolerance (the reductions' sums, the stats kernel's
+    fused mean/var/inv/scale/shift, the backward reduce's sums over N), a
+    second launch bitwise equal; kernel device time (``torch.profiler``),
     plain and library (``F.batch_norm`` on the channels_last NCHW view,
     identity activation) times at ``hw`` (None: no 4-D view, no library
     time)."""
@@ -820,29 +890,37 @@ def check_k3(fo, dtype, n, c, gen, acts=("relu",), hw=None, time_it=True):
         errs[f"bn_act/{act}"] = (y.float() - ref.float()).abs().max().item()
         ok &= errs[f"bn_act/{act}"] <= ATOL[dtype]
         ok &= torch.equal(y, fo.bn_act(x, scale, shift, act))
-    s = fo.bn_stats(x, center)
+    s = fo.bn_stats(x, center, gamma, beta, 1e-5)
     d = x.float() - center
     ref = torch.stack([d.sum(0), (d * d).sum(0)])
     del d
     # the per-channel sums are held relative to their largest entry
-    errs["bn_stats"] = (s - ref).abs().max().item()
+    errs["bn_stats"] = (s[:2] - ref).abs().max().item()
     rel["bn_stats"] = errs["bn_stats"] / ref.abs().max().item()
+    rel["bn_stats/epilogue"] = _epilogue_rel(fo, s, gamma, beta, center, n)
     ok &= rel["bn_stats"] <= K3_SUM_RTOL
-    ok &= torch.equal(s, fo.bn_stats(x, center))
+    ok &= rel["bn_stats/epilogue"] <= K3_EPILOGUE_RTOL
+    ok &= torch.equal(s, fo.bn_stats(x, center, gamma, beta, 1e-5))
     for act in acts:
         if not fo.supported_train_activation(act):
             continue
         r = fo.bn_bwd_reduce(x, g, scale, shift, mean, inv, act)
-        dx = fo.bn_bwd_dx(x, g, scale, shift, mean, inv, r / n, act)
+        dx = fo.bn_bwd_dx(x, g, scale, shift, mean, inv, r[2:], act)
         dx_ref, dgamma, dbeta = fo.bn_bwd_reference(x, g, gamma, beta, mean,
                                                     inv, act)
         ref = torch.stack([dbeta, dgamma])
-        errs[f"bn_bwd_reduce/{act}"] = (r - ref).abs().max().item()
+        errs[f"bn_bwd_reduce/{act}"] = (r[:2] - ref).abs().max().item()
         rel[f"bn_bwd_reduce/{act}"] = \
             errs[f"bn_bwd_reduce/{act}"] / ref.abs().max().item()
         errs[f"bn_bwd_dx/{act}"] = (dx.float() - dx_ref.float()).abs() \
             .max().item()
         ok &= rel[f"bn_bwd_reduce/{act}"] <= K3_SUM_RTOL
+        # torch divides by a scalar as a product with its f32 reciprocal;
+        # the kernel divides exactly: an ulp apart at most
+        rel[f"bn_bwd_reduce/{act}/over_n"] = \
+            (r[2:] - r[:2] / n).abs().max().item() \
+            / (r[:2] / n).abs().max().item()
+        ok &= rel[f"bn_bwd_reduce/{act}/over_n"] <= K3_EPILOGUE_RTOL
         ok &= grad_ok(dx, dx_ref, dtype)
         ok &= torch.equal(r, fo.bn_bwd_reduce(x, g, scale, shift, mean, inv,
                                               act))
@@ -859,7 +937,7 @@ def check_k3(fo, dtype, n, c, gen, acts=("relu",), hw=None, time_it=True):
     if not time_it:
         log(f"{name}: {errors} -> ok")
         return out
-    corr = fo.bn_bwd_reduce(x, g, scale, shift, mean, inv, "relu") / n
+    corr = fo.bn_bwd_reduce(x, g, scale, shift, mean, inv, "relu")[2:]
     turn = [0]
 
     def nxt():
@@ -868,7 +946,8 @@ def check_k3(fo, dtype, n, c, gen, acts=("relu",), hw=None, time_it=True):
 
     kernels = {
         "bn_act": lambda: fo.bn_act(nxt()[0], scale, shift, "relu"),
-        "bn_stats": lambda: fo.bn_stats(nxt()[0], center),
+        "bn_stats": lambda: fo.bn_stats(nxt()[0], center, gamma, beta,
+                                        1e-5),
         "bn_bwd_reduce": lambda: fo.bn_bwd_reduce(*nxt(), scale, shift, mean,
                                                   inv, "relu"),
         "bn_bwd_dx": lambda: fo.bn_bwd_dx(*nxt(), scale, shift, mean, inv,
@@ -876,7 +955,8 @@ def check_k3(fo, dtype, n, c, gen, acts=("relu",), hw=None, time_it=True):
     plain = {
         "bn_act": lambda: fo.bn_act_reference(nxt()[0], scale, shift,
                                               "relu").to(dtype),
-        "bn_stats": lambda: fo.train_stats_reference(nxt()[0], center),
+        # the stats kernel's whole output: moments, inv, scale and shift
+        "bn_stats": lambda: _k3_args(fo, nxt()[0], gamma, beta, center),
         "bn_bwd_reduce": lambda: _plain_reduce(fo, *nxt(), scale, shift,
                                                mean, inv),
         "bn_bwd_dx": lambda: fo.bn_bwd_reference(*nxt(), gamma, beta, mean,
@@ -906,7 +986,9 @@ def check_k3(fo, dtype, n, c, gen, acts=("relu",), hw=None, time_it=True):
     res = {}
     for k in kernels:
         bms, by = k3_bound(k, n, c, dtype)
-        res[k] = {"ms": cuda_ms(kernels[k]),
+        # device time (the profiler's); call_ms by events counts the
+        # host's path too, which outlasts a kernel of a few microseconds
+        res[k] = {"ms": device_ms(kernels[k]), "call_ms": cuda_ms(kernels[k]),
                   "plain_ms": cuda_ms(plain[k], iters=5),
                   "library_ms": lib.get(k), "bound_ms": bms, "bound_by": by,
                   "max_abs_err": max(v for e, v in errs.items()
@@ -915,10 +997,12 @@ def check_k3(fo, dtype, n, c, gen, acts=("relu",), hw=None, time_it=True):
     def fmt(v, digits):
         return "-" if v is None else f"{v:.{digits}f}"
 
-    log(f"{name}: {errors}; ms (kernel / plain / library / bound) "
+    log(f"{name}: {errors}; ms (kernel device / a call by events / plain "
+        f"/ library / bound) "
         + ", ".join(
-            f"{k} {fmt(r['ms'], 4)} / {fmt(r['plain_ms'], 4)} / "
-            f"{fmt(r['library_ms'], 4)} / {fmt(r['bound_ms'], 5)}"
+            f"{k} {fmt(r['ms'], 4)} / {fmt(r['call_ms'], 4)} / "
+            f"{fmt(r['plain_ms'], 4)} / {fmt(r['library_ms'], 4)} / "
+            f"{fmt(r['bound_ms'], 5)}"
             for k, r in res.items()) + " -> ok")
     out.update(res)
     return out
@@ -930,6 +1014,62 @@ def _plain_reduce(fo, x, g, scale, shift, mean, inv):
     dz = g.float() * fo._ACT_GRADS["relu"](xf * scale + shift)
     xhat = (xf - mean) * inv
     return torch.stack([dz.sum(0), (dz * xhat).sum(0)])
+
+
+def k3_times(root):
+    """``--k3-times ROOT``: the device time (``torch.profiler``) and a
+    call's time by events of the two K3 reductions, stats and backward
+    reduce (relu), at the nine ResNet-50 path shapes in bf16 and f32, for
+    the port checked out at ROOT; its kernels build under ROOT. Takes the
+    stats wrapper of either API, ``bn_stats(x, center)`` (before the
+    one-launch redesign) or ``bn_stats(x, center, gamma, beta, eps)``, so
+    that two versions are timed in one run. Prints one JSON line."""
+    import importlib
+    import inspect
+    sys.path.insert(0, str(root))
+    fo = importlib.import_module("deeplearning4j_tpu_torch.kernels.fused_ops")
+    log(f"k3-times: fused_ops from {fo.__file__}")
+    fused_stats = "gamma" in inspect.signature(fo.bn_stats).parameters
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for hw, c in K3_PATH_SHAPES:
+            n = RESNET_BATCH * hw * hw
+            item = torch.finfo(dtype).bits // 8
+            copies = max(1, -(-200 * 2**20 // (n * c * item)))
+            xs, gs, gamma, beta, center = _k3_inputs(gen, n, c, dtype,
+                                                     copies)
+            mean, inv, scale, shift = _k3_args(fo, xs[0], gamma, beta,
+                                               center)
+            turn = [0]
+
+            def nxt():
+                turn[0] = (turn[0] + 1) % copies
+                return xs[turn[0]], gs[turn[0]]
+
+            stats_args = (center, gamma, beta) if fused_stats else (center,)
+            fns = {"bn_stats": lambda: fo.bn_stats(nxt()[0], *stats_args),
+                   "bn_bwd_reduce": lambda: fo.bn_bwd_reduce(
+                       *nxt(), scale, shift, mean, inv, "relu")}
+            row = {"dtype": str(dtype)[6:], "n": n, "c": c}
+            for k, fn in fns.items():
+                row[k] = {"ms": device_ms(fn), "call_ms": cuda_ms(fn),
+                          "bound_ms": k3_bound(k, n, c, dtype)[0]}
+            log(f"k3-times {json.dumps(row)}")
+            rows.append(row)
+            del xs, gs
+            torch.cuda.empty_cache()
+    # per ResNet-50 train step: each shape's time times its BN layers
+    step = {}
+    for dt in ("bfloat16", "float32"):
+        mine = [r for r in rows if r["dtype"] == dt]
+        step[dt] = {k: {m: sum(r[k][m] * w
+                               for r, w in zip(mine, K3_PATH_LAYERS))
+                        for m in ("ms", "call_ms", "bound_ms")}
+                    for k in ("bn_stats", "bn_bwd_reduce")}
+    log(json.dumps({"k3_times": rows, "per_resnet_step": step,
+                    "root": str(root)}))
+    return 0
 
 
 def k3_phase(fo, gen):
@@ -1218,30 +1358,38 @@ def resnet_path(fa, pa, fo, checked, steps=5, profile=False):
     return {"resnet_train": train_counts, "resnet_output": out_counts}
 
 
+K3_KERNELS = ("bn_act_kernel", "bn_reduce_kernel", "bn_dx_kernel")
+
+
 def profile_resnet_step(net, ds, fo):
     """One kernel-path train step under ``torch.profiler``: device-busy
-    share, the K3 and conv/GEMM shares of device time, the top kernels,
-    and K3's bound for the step (the four kernels' bounds summed over the
-    (N, C) rows each BN layer of the step hands them)."""
+    share, K3's device time and the conv/GEMM share, the top kernels, the
+    device launches of each K3 kernel beside the wrappers' counts (each
+    reduction wrapper must make exactly one launch), and K3's bound for
+    the step (the four kernels' bounds summed over the (N, C) rows each
+    BN layer of the step hands them)."""
     from torch.profiler import ProfilerActivity, profile
+    before = k3_counts(fo)
     with _k3_cases(fo) as rows, profile(
             activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         net.fit(ds)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    calls = {k: v - before[k] for k, v in k3_counts(fo).items()}
     out = device_rows(prof, wall, 1)
     shares = {"k3": 0.0, "conv_gemm": 0.0, "other": 0.0}
+    launches = dict.fromkeys(K3_KERNELS, 0)
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         key = ev.key.lower()
-        if key.startswith("bn_") or "bn_act_kernel" in key \
-                or "bn_reduce_kernel" in key or "bn_dx_kernel" in key \
-                or "bn_finish_kernel" in key:
+        k3 = [k for k in K3_KERNELS if k in key]
+        if k3:
             shares["k3"] += us
+            launches[k3[0]] += ev.count
         elif any(t in key for t in ("conv", "gemm", "xmma", "cudnn", "nvjet",
                                     "cutlass", "implicit", "wgrad", "dgrad",
                                     "sm90")):
@@ -1255,8 +1403,16 @@ def profile_resnet_step(net, ds, fo):
     out["k3_bound_ms"] = sum(k3_bound(k, n, c, dt)[0]
                              for dt, n, c, _ in rows for k in K3_OPS)
     out["k3_ms_over_bound"] = shares["k3"] / 1e3 / out["k3_bound_ms"]
+    out["k3_device_launches"] = launches
+    out["k3_wrapper_calls"] = calls
     log(f"profile (resnet50 train step, B{RESNET_BATCH}, kernel path): "
         + json.dumps(out))
+    want = {"bn_act_kernel": calls["bn_act"],
+            "bn_reduce_kernel": calls["bn_stats"] + calls["bn_bwd_reduce"],
+            "bn_dx_kernel": calls["bn_bwd_dx"]}
+    if launches != want or not calls["bn_stats"]:
+        raise SystemExit(f"resnet50 profile: K3 device launches {launches}, "
+                         f"want one a wrapper call {want}")
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1646,10 +1802,15 @@ def main():
                     help="also profile one kernel-path ResNet-50 step")
     ap.add_argument("--profile-charnn", action="store_true",
                     help="also profile one kernel-path char-RNN step")
+    ap.add_argument("--k3-times", metavar="ROOT",
+                    help="only time the K3 reductions of the port checked "
+                         "out at ROOT (prints no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.k3_times:
+        return k3_times(args.k3_times)
     from deeplearning4j_tpu_torch.kernels import KERNEL_SOURCES, _build
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import fused_lstm as fl
@@ -1680,7 +1841,8 @@ def main():
             (torch.bfloat16, 2, 2048, 64), (torch.float32, 1, 1024, 64),
             (torch.float32, 1, 2048, 64), (torch.float32, 2, 2048, 64),
             (torch.bfloat16, 2, 1024, 80), (torch.float32, 2, 1024, 80),
-            (torch.bfloat16, 32, 1024, 64)):     # the train path's
+            (torch.bfloat16, 32, 1024, 64),      # the train path's
+            *GENERAL_SHAPES):
         k1[(dt, b, t, d)] = check_flash(fa, dt, b, t, gen, d=d)
         torch.cuda.empty_cache()
     bwd = {}
@@ -1696,7 +1858,8 @@ def main():
             (torch.bfloat16, 2, 1024, True, 80),
             (torch.float32, 2, 1024, True, 80),
             (torch.bfloat16, 32, 1024, False, 64),
-            (torch.bfloat16, 32, 1024, True, 64)):   # the train path's
+            (torch.bfloat16, 32, 1024, True, 64),    # the train path's
+            *((dt, b, t, True, d) for dt, b, t, d in GENERAL_SHAPES)):
         bwd[(dt, b, t, causal, d)] = check_flash_bwd(fa, dt, b, t, causal,
                                                      gen, d=d)
         torch.cuda.empty_cache()
@@ -1707,6 +1870,9 @@ def main():
 
     by_path = main_path(fa, pa)
     by_path["train"] = train_path(fa, pa, profile=args.profile_train)
+    # an LM of head dim 256 (2 heads): one step on the general kernels
+    by_path["train_d256"] = train_path(fa, pa, steps=1, batch=8, n_heads=2,
+                                       n_layers=2, tag="train D256")
     by_path.update(resnet_path(fa, pa, fo, k3_checked,
                                profile=args.profile_resnet))
     lstm_paths = charnn_path(fa, pa, fo, fl, k4_checked,
@@ -1720,6 +1886,10 @@ def main():
     main_k2 = k2[torch.bfloat16]
     main_bwd = bwd[(torch.bfloat16, 32, 1024, True, 64)]  # the train path's
     main_k4 = k4[torch.bfloat16]                # the char-RNN's shape
+    # the general kernels at the D 256 LM's head dim, bf16
+    gen_k1 = k1[(torch.bfloat16, 1, 1024, 256)]
+    gen_bwd = bwd[(torch.bfloat16, 1, 1024, True, 256)]
+    general = {key for key in k1 if fa.route(key[3], key[0]) == "general"}
     kernels = [
         {"name": "flash_attention_fwd", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -1729,8 +1899,8 @@ def main():
                          for c in by_path.values()),
          "launches_by_path": {p: c.get("flash_attention_fwd_tc", 0)
                               for p, c in by_path.items()},
-         "max_abs_err": max(r["max_abs_err"] for (dt, *_), r in k1.items()
-                            if dt == torch.bfloat16),
+         "max_abs_err": max(r["max_abs_err"] for key, r in k1.items()
+                            if fa.route(key[3], key[0]) == "wgmma"),
          "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
          "bound_ms": main_k1["bound_ms"], "bound_by": main_k1["bound_by"],
          "library_ms": main_k1["library_ms"],
@@ -1745,8 +1915,8 @@ def main():
            "launches": by_path["train"][counter],
            "launches_by_path": {"train": by_path["train"][counter]},
            "max_abs_err": max(r[part]["max_abs_err"]
-                              for (dt, *_), r in bwd.items()
-                              if dt == torch.bfloat16),
+                              for key, r in bwd.items()
+                              if fa.route(key[4], key[0]) == "wgmma"),
            "ms": main_bwd[part]["ms"], "plain_ms": main_bwd["plain_ms"],
            "bound_ms": main_bwd[part]["bound_ms"],
            "bound_by": main_bwd[part]["bound_by"],
@@ -1754,6 +1924,34 @@ def main():
           for part, line, counter in (
               ("dq", 146, "flash_attention_bwd_dq_tc"),
               ("dkv", 186, "flash_attention_bwd_dkv_tc"))),
+        {"name": "flash_attention_fwd_general", "route": "cuda",
+         "source": "deeplearning4j_tpu_torch/csrc/flash_attention_fwd.cu",
+         "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:51",
+         "kernel": "flash_fwd_general_kernel (any D, CUDA cores)",
+         "launches": by_path["train_d256"]["flash_attention_fwd_general"],
+         "launches_by_path": {p: c.get("flash_attention_fwd_general", 0)
+                              for p, c in by_path.items()},
+         "max_abs_err": max(k1[key]["max_abs_err"] for key in general),
+         "shape": "B1 H8 T1024 D256 bf16",
+         **{key: gen_k1[key] for key in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")}},
+        *({"name": f"flash_attention_bwd_{part}_general", "route": "cuda",
+           "source": "deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
+           "replaces": f"deeplearning4j_tpu/kernels/flash_attention.py:{line}",
+           "kernel": f"flash_bwd_{part}_general_kernel (any D, CUDA cores)",
+           "launches": by_path["train_d256"][counter],
+           "launches_by_path": {p: c.get(counter, 0)
+                                for p, c in by_path.items()},
+           "max_abs_err": max(bwd[(*key[:3], True, key[3])][part]
+                              ["max_abs_err"] for key in general),
+           "shape": "B1 H8 T1024 D256 bf16 causal",
+           "ms": gen_bwd[part]["ms"], "plain_ms": gen_bwd["plain_ms"],
+           "bound_ms": gen_bwd[part]["bound_ms"],
+           "bound_by": gen_bwd[part]["bound_by"],
+           "library_ms": gen_bwd["library_ms"]}
+          for part, line, counter in (
+              ("dq", 146, "flash_attention_bwd_dq_general"),
+              ("dkv", 186, "flash_attention_bwd_dkv_general"))),
         {"name": "paged_attention", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/paged_attention.cu",
          "replaces": "deeplearning4j_tpu/kernels/paged_attention.py:72",

@@ -74,15 +74,21 @@
 // transformer holds need no copies; the bf16 kernels need 16-byte aligned
 // bases and strides (the Python wrapper checks them and raises).
 //
-// Head dims: any D up to 128 (bf16: a multiple of 8), as the Pallas
-// block (1, bq, d) takes any d. Each kernel is instantiated on the padded
-// width DP = padded_dim(D) in {16, 32, 64, 128} and told the real D:
-// loaders fill the columns in [D, DP) with zeros (cp.async src-size 0 in
-// bf16, a guard in f32), which add nothing to any dot product, and stores
-// write only the D real columns. D > 128 is refused: dK/dV's two f32
-// accumulators would need DP registers a thread (256 at D 256), and the
-// bf16 dK/dV kernel already spills 64 bytes at D 128.
+// Head dims: any D whose tiles fit in a block's shared memory, as the
+// Pallas block (1, bq, d) takes any d. The kernels above take D up to 128
+// (bf16: a multiple of 8); each is instantiated on the padded width
+// DP = padded_dim(D) in {16, 32, 64, 128} and told the real D: loaders
+// fill the columns in [D, DP) with zeros (cp.async src-size 0 in bf16, a
+// guard in f32), which add nothing to any dot product, and stores write
+// only the D real columns. They keep their accumulators in registers, so
+// past 128 dK/dV's two f32 accumulators would need DP registers a thread.
+// Every other D (D > 128 in both dtypes, a bf16 D that is not a multiple
+// of 8) runs the head-dim-general CUDA-core kernels
+// (flash_bwd_dq_general_kernel, flash_bwd_dkv_general_kernel;
+// flash_general.cuh): the same two passes with every tile and accumulator
+// in dynamic shared memory, R = 64..8 rows by D, element-by-element loads.
 
+#include "flash_general.cuh"
 #include "flash_mma.cuh"
 
 #include <math.h>
@@ -751,11 +757,221 @@ int launch_dkv(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
   return (int)cudaGetLastError();
 }
 
-// the kernel for (dtype, D), instantiated on the padded width
-// padded_dim(D): dtype 0 = float32 (any D in 1..128), 1 = bfloat16 (D a
-// multiple of 8: 16-byte rows)
-#define DL4J_BWD_DISPATCH(LAUNCH, ...)                                       \
-  if (dtype == 1 && D % 8 != 0) return (int)cudaErrorInvalidValue;           \
+// ------------------------------ any D, CUDA cores (flash_general.cuh)
+
+// dQ: one block per (b*h, R-query tile), the heaviest first under causal
+// masking; per key tile of R rows up to the diagonal: S = Q·Kᵀ and
+// dP = dO·Vᵀ, then P = exp(S·scale - lse) and dS = P·(dP - delta)·scale
+// rounded to T, then dQ += dS·K; Q, dO and dQ stay in shared memory.
+template <typename T, int R>
+__global__ void __launch_bounds__(dl4j_gen::kGenThreads)
+flash_bwd_dq_general_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v,
+                            const T* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            T* __restrict__ dq, int H, int Tlen, int D,
+                            Str sq, Str sk, Str sv, Str sdo, Str sdq,
+                            float scale, int causal) {
+  using namespace dl4j_gen;
+  extern __shared__ float gsm[];
+  constexpr int SLD = R + 1;
+  const int ld = gen_ld(R, D);
+  float* qs = gsm;
+  float* dos = qs + R * ld;
+  float* dqs = dos + R * ld;
+  float* ks = dqs + R * ld;
+  float* vs = ks + R * ld;
+  float* ss = vs + R * ld;  // S, then dS
+  float* dps = ss + R * SLD;
+  float* lses = dps + R * SLD;
+  float* dls = lses + R;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * R;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+
+  load_tile<T>(qs, ld, q + b * sq.b + h * sq.h, sq.t, q0, R, Tlen, D);
+  load_tile<T>(dos, ld, dout + b * sdo.b + h * sdo.h, sdo.t, q0, R, Tlen, D);
+  zero_tile(dqs, R * ld);
+  load_rows(lses, lse + (long long)bh * Tlen, q0, R, Tlen);
+  load_rows(dls, delta + (long long)bh * Tlen, q0, R, Tlen);
+  const int kend = causal ? min(Tlen, q0 + R) : Tlen;
+  for (int k0 = 0; k0 < kend; k0 += R) {
+    __syncthreads();  // the previous tiles are consumed
+    load_tile<T>(ks, ld, kb, sk.t, k0, R, Tlen, D);
+    load_tile<T>(vs, ld, vb, sv.t, k0, R, Tlen, D);
+    __syncthreads();
+    tile_nt<R>(qs, ks, ld, D, ss, SLD);
+    tile_nt<R>(dos, vs, ld, D, dps, SLD);
+    __syncthreads();
+    for (int e = threadIdx.x; e < R * R; e += kGenThreads) {
+      const int m = e / R;
+      const int j = e - m * R;
+      const int qi = q0 + m;
+      const int key = k0 + j;
+      const bool live =
+          qi < Tlen && key < Tlen && (!causal || key <= qi);
+      const float p =
+          live ? __expf(ss[m * SLD + j] * scale - lses[m]) : 0.f;
+      ss[m * SLD + j] = round_to<T>(p * (dps[m * SLD + j] - dls[m]) * scale);
+    }
+    __syncthreads();
+    tile_nn_acc<R>(ss, SLD, ks, ld, dqs, ld, D, min(R, kend - k0), nullptr);
+  }
+  __syncthreads();
+  store_tile<T>(dq + b * sdq.b + h * sdq.h, sdq.t, dqs, ld, q0, R, Tlen, D,
+                nullptr);
+}
+
+// dK, dV: one block per (b*h, R-key tile); per query tile of R rows from
+// the diagonal down: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, then Pᵀ = exp(Sᵀ·scale -
+// lse) and dSᵀ = Pᵀ·(dPᵀ - delta)·scale, both rounded to T, then
+// dV += Pᵀ·dO and dK += dSᵀ·Q; K, V, dK and dV stay in shared memory.
+template <typename T, int R>
+__global__ void __launch_bounds__(dl4j_gen::kGenThreads)
+flash_bwd_dkv_general_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
+                             const T* __restrict__ dout,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             T* __restrict__ dk, T* __restrict__ dv, int H,
+                             int Tlen, int D, Str sq, Str sk, Str sv,
+                             Str sdo, Str sdk, Str sdv, float scale,
+                             int causal) {
+  using namespace dl4j_gen;
+  extern __shared__ float gsm[];
+  constexpr int SLD = R + 1;
+  const int ld = gen_ld(R, D);
+  float* ks = gsm;
+  float* vs = ks + R * ld;
+  float* dks = vs + R * ld;
+  float* dvs = dks + R * ld;
+  float* qs = dvs + R * ld;
+  float* dos = qs + R * ld;
+  float* pts = dos + R * ld;  // Sᵀ, then Pᵀ
+  float* dsts = pts + R * SLD;  // dPᵀ, then dSᵀ
+  float* lses = dsts + R * SLD;
+  float* dls = lses + R;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.x * R;  // the heaviest (first) key tiles first
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* dob = dout + b * sdo.b + h * sdo.h;
+
+  load_tile<T>(ks, ld, k + b * sk.b + h * sk.h, sk.t, k0, R, Tlen, D);
+  load_tile<T>(vs, ld, v + b * sv.b + h * sv.h, sv.t, k0, R, Tlen, D);
+  zero_tile(dks, R * ld);
+  zero_tile(dvs, R * ld);
+  // causal: query rows above the tile's first key see none of its keys
+  for (int i0 = causal ? k0 : 0; i0 < Tlen; i0 += R) {
+    __syncthreads();  // the previous tiles are consumed
+    load_tile<T>(qs, ld, qb, sq.t, i0, R, Tlen, D);
+    load_tile<T>(dos, ld, dob, sdo.t, i0, R, Tlen, D);
+    load_rows(lses, lse + (long long)bh * Tlen, i0, R, Tlen);
+    load_rows(dls, delta + (long long)bh * Tlen, i0, R, Tlen);
+    __syncthreads();
+    tile_nt<R>(ks, qs, ld, D, pts, SLD);
+    tile_nt<R>(vs, dos, ld, D, dsts, SLD);
+    __syncthreads();
+    for (int e = threadIdx.x; e < R * R; e += kGenThreads) {
+      const int n = e / R;  // key
+      const int m = e - n * R;  // query
+      const int key = k0 + n;
+      const int qi = i0 + m;
+      const bool live =
+          key < Tlen && qi < Tlen && (!causal || qi >= key);
+      const float p =
+          live ? __expf(pts[n * SLD + m] * scale - lses[m]) : 0.f;
+      dsts[n * SLD + m] =
+          round_to<T>(p * (dsts[n * SLD + m] - dls[m]) * scale);
+      pts[n * SLD + m] = round_to<T>(p);
+    }
+    __syncthreads();
+    const int in = min(R, Tlen - i0);
+    tile_nn_acc<R>(pts, SLD, dos, ld, dvs, ld, D, in, nullptr);
+    tile_nn_acc<R>(dsts, SLD, qs, ld, dks, ld, D, in, nullptr);
+  }
+  __syncthreads();
+  store_tile<T>(dk + b * sdk.b + h * sdk.h, sdk.t, dks, ld, k0, R, Tlen, D,
+                nullptr);
+  store_tile<T>(dv + b * sdv.b + h * sdv.h, sdv.t, dvs, ld, k0, R, Tlen, D,
+                nullptr);
+}
+
+template <typename T>
+int launch_dq_general(int BH, int Tlen, int D, cudaStream_t st,
+                      const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, int H, const long long* s, float scale,
+                      int causal) {
+  using namespace dl4j_gen;
+  const int R = gen_rows(kGenDq, D);
+  const size_t smem = gen_smem_bytes(kGenDq, R, D);
+#define DL4J_GEN_DQ(RR)                                                      \
+  case RR:                                                                   \
+    return launch_gen(                                                       \
+        flash_bwd_dq_general_kernel<T, RR>, (Tlen + RR - 1) / RR, BH, smem,  \
+        st, static_cast<const T*>(q), static_cast<const T*>(k),              \
+        static_cast<const T*>(v), static_cast<const T*>(dout),               \
+        static_cast<const float*>(lse), static_cast<const float*>(delta),    \
+        static_cast<T*>(dq), H, Tlen, D, str_at(s, 0), str_at(s, 1),         \
+        str_at(s, 2), str_at(s, 3), str_at(s, 4), scale, causal);
+  switch (R) {
+    DL4J_GEN_DQ(64)
+    DL4J_GEN_DQ(32)
+    DL4J_GEN_DQ(16)
+    DL4J_GEN_DQ(8)
+    default:
+      return (int)cudaErrorInvalidValue;  // no tile fits: D too large
+  }
+#undef DL4J_GEN_DQ
+}
+
+template <typename T>
+int launch_dkv_general(int BH, int Tlen, int D, cudaStream_t st,
+                       const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int H, const long long* s,
+                       float scale, int causal) {
+  using namespace dl4j_gen;
+  const int R = gen_rows(kGenDkv, D);
+  const size_t smem = gen_smem_bytes(kGenDkv, R, D);
+#define DL4J_GEN_DKV(RR)                                                     \
+  case RR:                                                                   \
+    return launch_gen(                                                       \
+        flash_bwd_dkv_general_kernel<T, RR>, (Tlen + RR - 1) / RR, BH, smem, \
+        st, static_cast<const T*>(q), static_cast<const T*>(k),              \
+        static_cast<const T*>(v), static_cast<const T*>(dout),               \
+        static_cast<const float*>(lse), static_cast<const float*>(delta),    \
+        static_cast<T*>(dk), static_cast<T*>(dv), H, Tlen, D, str_at(s, 0),  \
+        str_at(s, 1), str_at(s, 2), str_at(s, 3), str_at(s, 4),              \
+        str_at(s, 5), scale, causal);
+  switch (R) {
+    DL4J_GEN_DKV(64)
+    DL4J_GEN_DKV(32)
+    DL4J_GEN_DKV(16)
+    DL4J_GEN_DKV(8)
+    default:
+      return (int)cudaErrorInvalidValue;  // no tile fits: D too large
+  }
+#undef DL4J_GEN_DKV
+}
+
+// the kernel for (dtype, D): dtype 0 = float32, 1 = bfloat16. D <= 128
+// (bf16: a multiple of 8, 16-byte rows) runs on the kernel instantiated
+// on the padded width padded_dim(D); every other D on the general kernel
+#define DL4J_BWD_DISPATCH(LAUNCH, LAUNCH_GENERAL, ...)                       \
+  if (D > 128 || (dtype == 1 && D % 8 != 0))                                 \
+    return dtype == 0 ? LAUNCH_GENERAL<float>(__VA_ARGS__)                   \
+                      : LAUNCH_GENERAL<__nv_bfloat16>(__VA_ARGS__);          \
   switch (dtype * 1000 + dl4j_mma::padded_dim(D)) {                          \
     case 16: return LAUNCH<float, 16>(__VA_ARGS__);                          \
     case 32: return LAUNCH<float, 32>(__VA_ARGS__);                          \
@@ -782,8 +998,8 @@ extern "C" int dl4j_flash_attention_bwd_dq(
   if (B < 1 || H < 1 || T < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  DL4J_BWD_DISPATCH(launch_dq, B * H, T, D, st, q, k, v, dout, lse, delta,
-                    dq, H, strides, scale, causal)
+  DL4J_BWD_DISPATCH(launch_dq, launch_dq_general, B * H, T, D, st, q, k, v,
+                    dout, lse, delta, dq, H, strides, scale, causal)
 }
 
 // As above, with the strides of q, k, v, dout, dk, dv.
@@ -795,6 +1011,6 @@ extern "C" int dl4j_flash_attention_bwd_dkv(
   if (B < 1 || H < 1 || T < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  DL4J_BWD_DISPATCH(launch_dkv, B * H, T, D, st, q, k, v, dout, lse, delta,
-                    dk, dv, H, strides, scale, causal)
+  DL4J_BWD_DISPATCH(launch_dkv, launch_dkv_general, B * H, T, D, st, q, k,
+                    v, dout, lse, delta, dk, dv, H, strides, scale, causal)
 }

@@ -47,14 +47,20 @@
 // transformer holds need no copies; the bf16 kernel needs 16-byte aligned
 // bases and strides (the Python wrapper checks them and raises).
 //
-// Head dims: like the Pallas block (1, bq, d), any D up to 128 (bf16: a
-// multiple of 8, 16-byte rows). Each kernel is instantiated on the padded
-// width DP in {16, 32, 64, 128} (padded_dim) and told the real D: loaders
-// fill the columns in [D, DP) with zeros (the cp.async src-size 0 of
+// Head dims: like the Pallas block (1, bq, d), any D whose tiles fit in a
+// block's shared memory. The two kernels above take D up to 128 (bf16: a
+// multiple of 8, 16-byte rows); each is instantiated on the padded width
+// DP in {16, 32, 64, 128} (padded_dim) and told the real D: loaders fill
+// the columns in [D, DP) with zeros (the cp.async src-size 0 of
 // flash_mma.cuh in bf16, a guard in f32), the zeros add nothing to Q·Kᵀ,
 // the padded columns of O stay zero and are never stored, and the scale
-// is the real 1/sqrt(D) the wrapper passes.
+// is the real 1/sqrt(D) the wrapper passes. Every other D (D > 128 in both
+// dtypes, a bf16 D that is not a multiple of 8) runs the head-dim-general
+// CUDA-core kernel (flash_fwd_general_kernel, flash_general.cuh): tiles
+// and the O accumulator in dynamic shared memory, R = 64..8 query and key
+// rows by D, element-by-element loads in the input dtype, f32 math.
 
+#include "flash_general.cuh"
 #include "flash_mma.cuh"
 
 #include <math.h>
@@ -417,12 +423,135 @@ int launch_f32(int D, int BH, int Tlen, cudaStream_t s, const void* q,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------ any D, CUDA cores (flash_general.cuh)
+
+// One block per (b*h, R-row query tile), the heaviest first under causal
+// masking; per key tile of R rows up to the diagonal: S = Q·Kᵀ, the online
+// softmax row by row (a warp a row, exp in f32, P rounded to T for P·V,
+// the row sum of the f32 P), O = O·corr + P·V; O and the row state stay
+// in shared memory.
+template <typename T, int R>
+__global__ void __launch_bounds__(dl4j_gen::kGenThreads)
+flash_fwd_general_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, T* __restrict__ o,
+                         float* __restrict__ lse, int H, int Tlen, int D,
+                         Str sq, Str sk, Str sv, Str so, float scale,
+                         int causal) {
+  using namespace dl4j_gen;
+  extern __shared__ float gsm[];
+  constexpr int SLD = R + 1;
+  const int ld = gen_ld(R, D);
+  float* qs = gsm;
+  float* os = qs + R * ld;
+  float* ks = os + R * ld;
+  float* vs = ks + R * ld;
+  float* ss = vs + R * ld;
+  float* ms = ss + R * SLD;  // running max of the scaled scores
+  float* ls = ms + R;        // running row sum
+  float* cs = ls + R;        // this step's correction exp(m_old - m_new)
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * R;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const T* kb = k + b * sk.b + h * sk.h;
+  const T* vb = v + b * sv.b + h * sv.h;
+
+  load_tile<T>(qs, ld, q + b * sq.b + h * sq.h, sq.t, q0, R, Tlen, D);
+  zero_tile(os, R * ld);
+  for (int r = threadIdx.x; r < R; r += kGenThreads) {
+    ms[r] = -INFINITY;
+    ls[r] = 0.f;
+  }
+  const int kend = causal ? min(Tlen, q0 + R) : Tlen;
+  for (int k0 = 0; k0 < kend; k0 += R) {
+    __syncthreads();  // the previous tiles are consumed
+    load_tile<T>(ks, ld, kb, sk.t, k0, R, Tlen, D);
+    load_tile<T>(vs, ld, vb, sv.t, k0, R, Tlen, D);
+    __syncthreads();
+    tile_nt<R>(qs, ks, ld, D, ss, SLD);
+    __syncthreads();
+    for (int m = warp; m < R; m += kGenThreads / 32) {
+      const int qi = q0 + m;
+      float sv_[2];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = lane + 32 * jj;
+        const int key = k0 + j;
+        const bool ok = j < R && key < Tlen && (!causal || key <= qi);
+        sv_[jj] = ok ? ss[m * SLD + j] * scale : -INFINITY;
+        mx = fmaxf(mx, sv_[jj]);
+      }
+      mx = warp_max(mx);
+      const float m_old = ms[m];
+      const float mn = fmaxf(m_old, mx);
+      const float base = mn == -INFINITY ? 0.f : mn;  // no live key yet
+      float sum = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int j = lane + 32 * jj;
+        const float p = __expf(sv_[jj] - base);
+        if (j < R) {
+          sum += p;
+          ss[m * SLD + j] = round_to<T>(p);
+        }
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float corr = __expf(m_old - base);
+        cs[m] = corr;
+        ls[m] = ls[m] * corr + sum;
+        ms[m] = mn;
+      }
+    }
+    __syncthreads();
+    tile_nn_acc<R>(ss, SLD, vs, ld, os, ld, D, min(R, kend - k0), cs);
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < R; r += kGenThreads) {
+    if (ls[r] == 0.f) ls[r] = 1.f;
+    if (q0 + r < Tlen) lse[(long long)bh * Tlen + q0 + r] = ms[r] + logf(ls[r]);
+  }
+  __syncthreads();
+  store_tile<T>(o + b * so.b + h * so.h, so.t, os, ld, q0, R, Tlen, D, ls);
+}
+
+template <typename T>
+int launch_general(int D, int BH, int Tlen, cudaStream_t s, const void* q,
+                   const void* k, const void* v, void* o, void* lse, int H,
+                   Str sq, Str sk, Str sv, Str so, float scale, int causal) {
+  using namespace dl4j_gen;
+  const int R = gen_rows(kGenFwd, D);
+  const size_t smem = gen_smem_bytes(kGenFwd, R, D);
+#define DL4J_GEN_FWD(RR)                                                     \
+  case RR:                                                                   \
+    return launch_gen(flash_fwd_general_kernel<T, RR>, (Tlen + RR - 1) / RR, \
+                      BH, smem, s, static_cast<const T*>(q),                 \
+                      static_cast<const T*>(k), static_cast<const T*>(v),    \
+                      static_cast<T*>(o), static_cast<float*>(lse), H, Tlen, \
+                      D, sq, sk, sv, so, scale, causal);
+  switch (R) {
+    DL4J_GEN_FWD(64)
+    DL4J_GEN_FWD(32)
+    DL4J_GEN_FWD(16)
+    DL4J_GEN_FWD(8)
+    default:
+      return (int)cudaErrorInvalidValue;  // no tile fits: D too large
+  }
+#undef DL4J_GEN_FWD
+}
+
 }  // namespace
 
 // q, k, v, o: (B, H, T, D) addressed by the given element strides (the D
 // stride is 1); lse: contiguous (B, H, T) f32. dtype: 0 = float32 (the
-// CUDA-core kernel), 1 = bfloat16 (the tensor-core kernel). Returns
-// cudaGetLastError() after the launch.
+// CUDA-core kernel for D <= 128), 1 = bfloat16 (the tensor-core kernel
+// for D <= 128, a multiple of 8); every other D runs the head-dim-general
+// kernel in its dtype. Returns cudaGetLastError() after the launch.
 extern "C" int dl4j_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int T, int D, long long sqb, long long sqh, long long sqt,
@@ -434,10 +563,16 @@ extern "C" int dl4j_flash_attention_fwd(
   const Str sq{sqb, sqh, sqt}, sk{skb, skh, skt}, sv{svb, svh, svt},
       so{sob, soh, sot};
   if (dtype == 0)
-    return launch_f32(D, B * H, T, s, q, k, v, o, lse, H, sq, sk, sv, so,
-                      scale, causal);
+    return D <= 128 ? launch_f32(D, B * H, T, s, q, k, v, o, lse, H, sq, sk,
+                                 sv, so, scale, causal)
+                    : launch_general<float>(D, B * H, T, s, q, k, v, o, lse,
+                                            H, sq, sk, sv, so, scale, causal);
   if (dtype == 1)
-    return launch_bf16(D, B * H, T, s, q, k, v, o, lse, H, sq, sk, sv,
-                       so, scale, causal);
+    return D <= 128 && D % 8 == 0
+               ? launch_bf16(D, B * H, T, s, q, k, v, o, lse, H, sq, sk, sv,
+                             so, scale, causal)
+               : launch_general<__nv_bfloat16>(D, B * H, T, s, q, k, v, o,
+                                               lse, H, sq, sk, sv, so, scale,
+                                               causal);
   return (int)cudaErrorInvalidValue;
 }

@@ -29,15 +29,40 @@
 //
 // The TPU kernels carried the (2, C) accumulator resident across a
 // sequential grid axis. Blocks on the card run in no order, so a
-// reduction runs in two launches and uses no atomics: block (g, t) of
-// bn_reduce_kernel sums rows [g*rows_per_chunk, (g+1)*rows_per_chunk) of
-// channel tile t into a partial (G, 2, C) workspace, each thread over a
-// fixed stride of rows, then the block's row lanes in a fixed order; and
-// bn_finish_kernel sums the G partials of each channel in a fixed order.
-// The plan (tile width, rows per chunk, G) depends only on N, C and the
-// load width, so two launches on the same input give bit-identical sums.
-// This first version leaves the finish pass serial over G within a
-// thread group; it reads G*2*C floats that sit in L2.
+// reduction is one launch finished by its last block, with no atomics on
+// the sums: block (g, t) of bn_reduce_kernel sums rows [g*rows_per_chunk,
+// (g+1)*rows_per_chunk) of channel tile t (each thread over a fixed
+// stride of rows, then the block's row lanes in a fixed order) into a
+// partial (G, 2, C) workspace, fences it, and bumps the tile's arrival
+// counter. The block that arrives last at tile t sums the tile's G
+// partials in the fixed order g = 0..G-1, spread over its threads (a
+// fixed stride of g each, in float4s where C allows) and finished by a
+// fixed reduction tree, writes the sums and the fused epilogue, and
+// resets the counter to zero for the next launch. The sum's order does
+// not depend on which block arrives last, and the plan (tile width, rows
+// per chunk, G) depends only on N, C and the load width, so two launches
+// on the same input give bit-identical sums. The plan (reduce_plan in
+// kernels/fused_ops.py) reckons bytes: every block streams at least 16384
+// elements (32 KiB of bf16), channel tiles are 64 bf16 / 32 f32 columns
+// (128-byte row segments), and the grid fills the 132 SMs 4 (stats) or 3
+// (backward reduce) blocks deep in one wave where N allows, so the
+// workspace, and the last block's read of it, stay small (a few hundred
+// KiB at most). The epilogue rounds each step as the plain PyTorch
+// version does (__fdiv_rn, __fmul_rn, no FMA contraction; rsqrtf as
+// torch.rsqrt on the card):
+//   stats (MODE 0): out (7, C) = [sum d; sum d*d; mean = center + s1/N;
+//     var = max(s2/N - (s1/N)^2, 0); inv = rsqrt(var + eps);
+//     scale = gamma * inv; shift = beta - mean * scale];
+//   backward reduce (MODE 1): out (4, C) = [sum dz; sum dz*xhat;
+//     sum dz / N; sum dz*xhat / N] (dbeta, dgamma, and the dx kernel's
+//     corr).
+// The arrival counters are a persistent int32 buffer of the caller's, one
+// entry per channel tile, zeroed once and cleaned by the kernel itself:
+// no memset launch per call, and nothing to re-zero under CUDA-graph
+// capture. Concurrency: launches that share a counter buffer must run in
+// stream order (one stream at a time, as the module gives each (device,
+// stream) its own buffer); two launches in flight at once on one buffer
+// would mix their arrivals.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -207,20 +232,114 @@ bn_act_kernel(const T* __restrict__ x, const float* __restrict__ scale,
   }
 }
 
-// Partial per-channel sums of one (row chunk, channel tile).
-// MODE 0 (stats):    p0 = center;                 sums d, d*d.
+// The finish of channel tile blockIdx.y, run by the block that arrived
+// last: sum the tile's G partials (2 x W channels from cw0) in the fixed
+// order g = 0..G-1, then the epilogue. VF floats per load (4 when C and
+// the tile are whole float4s). Thread t owns slot u = t % S of the
+// S = 2W / VF slots and the g = j, j + P, ... of group j = t / S; the P
+// groups (a power of two) meet in a fixed tree in shared memory `red`.
+template <int MODE, int VF>
+__device__ __forceinline__ void finish_tile(
+    const float* __restrict__ partial, float* __restrict__ out, float* red,
+    const float* __restrict__ p0, const float* __restrict__ p1,
+    const float* __restrict__ p2, int N, int C, int cw0, int W, float eps) {
+  const int t = threadIdx.x;
+  const int S = 2 * W / VF;
+  int P = 1;
+  while (2 * P * S <= (int)blockDim.x) P *= 2;
+  const int u = t % S;
+  const int j = t / S;
+  const int G = gridDim.x;
+  if (j < P) {
+    const int which = u * VF / W;
+    const float* src = partial + (long long)which * C + cw0 + u * VF % W;
+    float acc[VF];
+#pragma unroll
+    for (int e = 0; e < VF; ++e) acc[e] = 0.0f;
+    // kBatch loads in flight before their adds: the partials sit in L2,
+    // and one at a time the last block would wait out G / P round trips
+    constexpr int kBatch = 8;
+    for (int g0 = j; g0 < G; g0 += kBatch * P) {
+      float v[kBatch][VF];
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b) {
+        // past G, reload row j (a valid address); it is never added
+        const int g = g0 + b * P < G ? g0 + b * P : j;
+        const float* p = src + (long long)g * 2 * C;
+        if constexpr (VF == 4) {
+          const float4 q = __ldcg(reinterpret_cast<const float4*>(p));
+          v[b][0] = q.x;
+          v[b][1] = q.y;
+          v[b][2] = q.z;
+          v[b][3] = q.w;
+        } else {
+          v[b][0] = __ldcg(p);
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kBatch; ++b)
+        if (g0 + b * P < G)
+#pragma unroll
+          for (int e = 0; e < VF; ++e) acc[e] = __fadd_rn(acc[e], v[b][e]);
+    }
+#pragma unroll
+    for (int e = 0; e < VF; ++e) red[j * 2 * W + u * VF + e] = acc[e];
+  }
+  for (int half = P / 2; half > 0; half /= 2) {
+    __syncthreads();
+    if (j < half)
+#pragma unroll
+      for (int e = 0; e < VF; ++e)
+        red[j * 2 * W + u * VF + e] = __fadd_rn(
+            red[j * 2 * W + u * VF + e], red[(j + half) * 2 * W + u * VF + e]);
+  }
+  __syncthreads();
+  if (t < W) {
+    const int c = cw0 + t;
+    const float s1 = red[t], s2 = red[W + t];
+    const float nf = (float)N;
+    out[c] = s1;
+    out[C + c] = s2;
+    if (MODE == 0) {  // p0 = center, p1 = gamma, p2 = beta
+      const float m1 = __fdiv_rn(s1, nf);
+      const float mean = __fadd_rn(__ldg(p0 + c), m1);
+      const float var =
+          fmaxf(__fsub_rn(__fdiv_rn(s2, nf), __fmul_rn(m1, m1)), 0.0f);
+      const float inv = rsqrtf(__fadd_rn(var, eps));
+      const float scale = __fmul_rn(__ldg(p1 + c), inv);
+      out[2 * C + c] = mean;
+      out[3 * C + c] = var;
+      out[4 * C + c] = inv;
+      out[5 * C + c] = scale;
+      out[6 * C + c] = __fsub_rn(__ldg(p2 + c), __fmul_rn(mean, scale));
+    } else {
+      out[2 * C + c] = __fdiv_rn(s1, nf);
+      out[3 * C + c] = __fdiv_rn(s2, nf);
+    }
+  }
+}
+
+// Per-channel sums of one (row chunk, channel tile) into the partial
+// workspace; the block that arrives last at its tile finishes it
+// (finish_tile).
+// MODE 0 (stats):    p0 = center, p1 = gamma, p2 = beta; sums d, d*d.
 // MODE 1 (backward): p0 = scale, p1 = shift,
 //                    p2 = mean, p3 = inv, g = dy; sums dz, dz*xhat.
 // blockDim = tcv * R: thread t owns channel vector t % tcv of the tile and
 // rows r0 + t / tcv, r0 + t / tcv + R, ...
+// At most 85 registers a thread, so 3 blocks fit on an SM in every
+// variant; the plan sizes the grid to that depth (4 for the stats kernel,
+// which needs fewer), one wave.
 template <typename T, int MODE, int A, int V>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 bn_reduce_kernel(const T* __restrict__ x, const T* __restrict__ g,
                  const float* __restrict__ p0, const float* __restrict__ p1,
                  const float* __restrict__ p2, const float* __restrict__ p3,
-                 float* __restrict__ partial, int N, int C, int tcv,
-                 int rows_per_chunk) {
-  extern __shared__ float sm[];  // [R][tcv][2][V]
+                 float* __restrict__ partial, float* __restrict__ out,
+                 int* __restrict__ counters, int N, int C, int tcv,
+                 int rows_per_chunk, float eps) {
+  extern __shared__ float sm[];  // [R][tcv][2][V], then the finish's tree
+  __shared__ int last;
   const int t = threadIdx.x;
   const int R = blockDim.x / tcv;
   const int cvl = t % tcv;
@@ -284,32 +403,21 @@ bn_reduce_kernel(const T* __restrict__ x, const T* __restrict__ g,
     const int c = (blockIdx.y * tcv + cv) * V + i % V;
     if (c < C) partial[((long long)blockIdx.x * 2 + which) * C + c] = acc;
   }
-}
-
-// out[w, c] = sum over g of partial[g, w, c], g in a fixed order: lane
-// (threadIdx.x) picks the (w, c) slot, row j of the block sums g = j,
-// j + 8, ..., then the 8 rows add in order.
-__global__ void __launch_bounds__(kThreads)
-bn_finish_kernel(const float* __restrict__ partial, float* __restrict__ out,
-                 int G, int C) {
-  __shared__ float sm[8][32];
-  const int slot = blockIdx.x * 32 + threadIdx.x;
-  const int j = threadIdx.y;
-  float acc = 0.0f;
-  if (slot < 2 * C) {
-    const int which = slot / C, c = slot % C;
-#pragma unroll 4
-    for (int gi = j; gi < G; gi += 8)
-      acc = __fadd_rn(acc, partial[((long long)gi * 2 + which) * C + c]);
-  }
-  sm[j][threadIdx.x] = acc;
+  // publish this block's partial, then take a ticket at the tile's counter
+  __threadfence();
   __syncthreads();
-  if (j == 0 && slot < 2 * C) {
-    float s = 0.0f;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) s = __fadd_rn(s, sm[q][threadIdx.x]);
-    out[slot] = s;
-  }
+  if (t == 0)
+    last = atomicAdd(counters + blockIdx.y, 1) == (int)gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();  // the other blocks' partials are visible past here
+  const int cw0 = blockIdx.y * tcv * V;
+  const int W = min(tcv * V, C - cw0);
+  if (V > 1)
+    finish_tile<MODE, 4>(partial, out, sm, p0, p1, p2, N, C, cw0, W, eps);
+  else
+    finish_tile<MODE, 1>(partial, out, sm, p0, p1, p2, N, C, cw0, W, eps);
+  if (t == 0) counters[blockIdx.y] = 0;  // clean for the next launch
 }
 
 // dx = scale * ((dz - corr0) - xhat * corr1), corr = [sum dz; sum dz*xhat]/N
@@ -380,11 +488,15 @@ int launch_act(int act, const void* x, const void* scale, const void* shift,
   return (int)cudaGetLastError();
 }
 
+// the reduction's launch: (G, channel tiles) blocks of tcv * R threads;
+// the finish (2W floats for each of P <= blockDim / S groups) fits in the
+// [R][tcv][2][V] floats of the block's own sums
 template <typename T, int MODE, int A, int V>
-void launch_reduce_one(const void* x, const void* g, const float* p0,
-                       const float* p1, const float* p2, const float* p3,
-                       float* partial, int N, int C, int tcv,
-                       int rows_per_chunk, int G, cudaStream_t s) {
+int launch_reduce_one(const void* x, const void* g, const float* p0,
+                      const float* p1, const float* p2, const float* p3,
+                      float* partial, float* out, int* counters, int N, int C,
+                      int tcv, int rows_per_chunk, int G, float eps,
+                      cudaStream_t s) {
   const int R = kThreads / tcv;
   const int threads = tcv * R;
   const int cv = C / V;
@@ -392,15 +504,7 @@ void launch_reduce_one(const void* x, const void* g, const float* p0,
   const size_t smem = (size_t)threads * 2 * V * sizeof(float);
   bn_reduce_kernel<T, MODE, A, V><<<grid, threads, smem, s>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), p0, p1, p2, p3,
-      partial, N, C, tcv, rows_per_chunk);
-}
-
-int launch_finish(const float* partial, float* out, int G, int C,
-                  cudaStream_t s) {
-  const int err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  bn_finish_kernel<<<(2 * C + 31) / 32, dim3(32, 8), 0, s>>>(partial, out,
-                                                              G, C);
+      partial, out, counters, N, C, tcv, rows_per_chunk, eps);
   return (int)cudaGetLastError();
 }
 
@@ -408,13 +512,13 @@ template <typename T, int V>
 int launch_bwd_reduce(int act, const void* x, const void* g,
                       const float* scale, const float* shift,
                       const float* mean, const float* inv, float* partial,
-                      int N, int C, int tcv, int rows_per_chunk, int G,
-                      cudaStream_t s) {
+                      float* out, int* counters, int N, int C, int tcv,
+                      int rows_per_chunk, int G, cudaStream_t s) {
 #define DL4J_RED_CASE(A)                                                    \
   case A:                                                                   \
-    launch_reduce_one<T, 1, A, V>(x, g, scale, shift, mean, inv, partial, N, \
-                                  C, tcv, rows_per_chunk, G, s);            \
-    break;
+    return launch_reduce_one<T, 1, A, V>(x, g, scale, shift, mean, inv,     \
+                                         partial, out, counters, N, C, tcv, \
+                                         rows_per_chunk, G, 0.0f, s);
   switch (act) {
     DL4J_RED_CASE(kIdentity)
     DL4J_RED_CASE(kRelu)
@@ -427,7 +531,6 @@ int launch_bwd_reduce(int act, const void* x, const void* g,
       return (int)cudaErrorInvalidValue;
   }
 #undef DL4J_RED_CASE
-  return 0;
 }
 
 template <typename T, int V>
@@ -488,42 +591,49 @@ extern "C" int dl4j_bn_act(const void* x, const void* scale, const void* shift,
                                             s);
 }
 
-// partial: (G, 2, C) f32 workspace; out: (2, C) f32 = [sum d; sum d*d].
-extern "C" int dl4j_bn_stats(const void* x, const void* center, void* partial,
-                             void* out, int N, int C, int dtype, int vec,
-                             int tcv, int rows_per_chunk, int G,
+// partial: (G, 2, C) f32 workspace; counters: int32, one per channel
+// tile, zero on entry and left zero; center, gamma, beta: (C,) f32;
+// out: (7, C) f32 = [sum d; sum d*d; mean; var; inv; scale; shift].
+extern "C" int dl4j_bn_stats(const void* x, const void* center,
+                             const void* gamma, const void* beta,
+                             void* partial, void* out, void* counters, int N,
+                             int C, int dtype, int vec, int tcv,
+                             int rows_per_chunk, int G, float eps,
                              void* stream) {
   if (bad_shape(N, C, vec, dtype) || tcv < 1 || tcv > kThreads || G < 1 ||
       rows_per_chunk < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* c = static_cast<const float*>(center);
+  const float *c = static_cast<const float*>(center),
+              *ga = static_cast<const float*>(gamma),
+              *be = static_cast<const float*>(beta);
   float* p = static_cast<float*>(partial);
-  if (dtype == 0) {
-    if (vec)
-      launch_reduce_one<float, 0, 0, 4>(x, x, c, c, c, c, p, N, C, tcv,
-                                        rows_per_chunk, G, s);
-    else
-      launch_reduce_one<float, 0, 0, 1>(x, x, c, c, c, c, p, N, C, tcv,
-                                        rows_per_chunk, G, s);
-  } else {
-    if (vec)
-      launch_reduce_one<__nv_bfloat16, 0, 0, 8>(x, x, c, c, c, c, p, N, C, tcv,
-                                                rows_per_chunk, G, s);
-    else
-      launch_reduce_one<__nv_bfloat16, 0, 0, 1>(x, x, c, c, c, c, p, N, C, tcv,
-                                                rows_per_chunk, G, s);
-  }
-  return launch_finish(p, static_cast<float*>(out), G, C, s);
+  float* o = static_cast<float*>(out);
+  int* k = static_cast<int*>(counters);
+  if (dtype == 0)
+    return vec ? launch_reduce_one<float, 0, 0, 4>(x, x, c, ga, be, c, p, o,
+                                                   k, N, C, tcv,
+                                                   rows_per_chunk, G, eps, s)
+               : launch_reduce_one<float, 0, 0, 1>(x, x, c, ga, be, c, p, o,
+                                                   k, N, C, tcv,
+                                                   rows_per_chunk, G, eps, s);
+  return vec ? launch_reduce_one<__nv_bfloat16, 0, 0, 8>(
+                   x, x, c, ga, be, c, p, o, k, N, C, tcv, rows_per_chunk, G,
+                   eps, s)
+             : launch_reduce_one<__nv_bfloat16, 0, 0, 1>(
+                   x, x, c, ga, be, c, p, o, k, N, C, tcv, rows_per_chunk, G,
+                   eps, s);
 }
 
-// out: (2, C) f32 = [sum dz; sum dz*xhat].
+// As above; out: (4, C) f32 = [sum dz; sum dz*xhat; sum dz / N;
+// sum dz*xhat / N].
 extern "C" int dl4j_bn_bwd_reduce(const void* x, const void* g,
                                   const void* scale, const void* shift,
                                   const void* mean, const void* inv,
-                                  void* partial, void* out, int N, int C,
-                                  int act, int dtype, int vec, int tcv,
-                                  int rows_per_chunk, int G, void* stream) {
+                                  void* partial, void* out, void* counters,
+                                  int N, int C, int act, int dtype, int vec,
+                                  int tcv, int rows_per_chunk, int G,
+                                  void* stream) {
   if (bad_shape(N, C, vec, dtype) || tcv < 1 || tcv > kThreads || G < 1 ||
       rows_per_chunk < 1)
     return (int)cudaErrorInvalidValue;
@@ -533,21 +643,21 @@ extern "C" int dl4j_bn_bwd_reduce(const void* x, const void* g,
               *mu = static_cast<const float*>(mean),
               *iv = static_cast<const float*>(inv);
   float* p = static_cast<float*>(partial);
-  int rc;
+  float* o = static_cast<float*>(out);
+  int* k = static_cast<int*>(counters);
   if (dtype == 0)
-    rc = vec ? launch_bwd_reduce<float, 4>(act, x, g, sc, sh, mu, iv, p, N, C,
-                                           tcv, rows_per_chunk, G, s)
-             : launch_bwd_reduce<float, 1>(act, x, g, sc, sh, mu, iv, p, N, C,
-                                           tcv, rows_per_chunk, G, s);
-  else
-    rc = vec ? launch_bwd_reduce<__nv_bfloat16, 8>(act, x, g, sc, sh, mu, iv,
-                                                   p, N, C, tcv,
+    return vec ? launch_bwd_reduce<float, 4>(act, x, g, sc, sh, mu, iv, p, o,
+                                             k, N, C, tcv, rows_per_chunk, G,
+                                             s)
+               : launch_bwd_reduce<float, 1>(act, x, g, sc, sh, mu, iv, p, o,
+                                             k, N, C, tcv, rows_per_chunk, G,
+                                             s);
+  return vec ? launch_bwd_reduce<__nv_bfloat16, 8>(act, x, g, sc, sh, mu, iv,
+                                                   p, o, k, N, C, tcv,
                                                    rows_per_chunk, G, s)
              : launch_bwd_reduce<__nv_bfloat16, 1>(act, x, g, sc, sh, mu, iv,
-                                                   p, N, C, tcv,
+                                                   p, o, k, N, C, tcv,
                                                    rows_per_chunk, G, s);
-  if (rc != 0) return rc;
-  return launch_finish(p, static_cast<float*>(out), G, C, s);
 }
 
 // corr: (2, C) f32 = [sum dz; sum dz*xhat] / N.

@@ -29,11 +29,18 @@ CUDA-core kernels (tensor cores would mean TF32, beyond the f32
 tolerance). A bf16 launch that fails raises; it never falls back to
 another kernel.
 
-Head dims: every D from 1 to ``MAX_HEAD_DIM`` (128) in float32 and every
-multiple of 8 up to it in bfloat16 (16-byte rows), as the reference's
-Pallas block ``(1, bq, d)`` takes any d. The kernels are instantiated on
-the padded widths 16, 32, 64 and 128 and zero-fill the columns past D
-inside the kernel (:func:`check_head_dim`).
+Head dims: every D whose tiles fit in the 227 KiB of shared memory a
+block may use on the H100, as the reference's Pallas block ``(1, bq, d)``
+takes any d (:func:`check_head_dim`; every D up to 1200 for all three
+kernels). :func:`route` names the kernel a (D, dtype) runs: D up to 128
+runs the fast kernels, instantiated on the padded widths 16, 32, 64 and
+128 and zero-filling the columns past D inside the kernel (bf16 on the
+tensor cores when D is a multiple of 8, its rows whole 16-byte chunks;
+f32 on the CUDA cores); every other D runs the head-dim-general
+CUDA-core kernels (``csrc/flash_general.cuh``; counted in
+``LAUNCHES_GENERAL``, ``LAUNCHES_BWD_DQ_GENERAL`` and
+``LAUNCHES_BWD_DKV_GENERAL``), whose tile rows shrink from 64 to 8 as D
+grows (:func:`general_rows`).
 """
 
 from __future__ import annotations
@@ -51,20 +58,30 @@ NEG_INF = -1e30
 _SOURCE = "flash_attention_fwd"
 _BWD_SOURCE = "flash_attention_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the largest head dim the kernels take; each D runs on the kernel
-#: instantiated for the smallest of 16, 32, 64, 128 that holds it, the
-#: columns past D zero-filled inside the kernel
-MAX_HEAD_DIM = 128
+#: the largest head dim of the fast kernels; each D up to it runs on the
+#: kernel instantiated for the smallest of 16, 32, 64, 128 that holds it,
+#: the columns past D zero-filled inside the kernel
+FAST_MAX_HEAD_DIM = 128
+#: shared memory a block may use on the H100 (sm_90): 227 KiB
+SMEM_PER_BLOCK = 232448
+#: the head-dim-general kernels' f32 tiles, as in csrc/flash_general.cuh
+#: (gen_smem_bytes): D-wide tiles, R x R score tiles, per-row vectors
+GENERAL_TILES = {"fwd": (4, 1, 3), "dq": (5, 2, 2), "dkv": (6, 2, 2)}
+GENERAL_ROWS = (64, 32, 16, 8)
 
 #: launches of each CUDA kernel since the last reset (the plain versions
 #: on CPU tensors do not count): K1, the dQ kernel, the dK/dV kernel (any
-#: dtype), and of those the bf16 tensor-core K1, dQ and dK/dV kernels
+#: route), of those the bf16 tensor-core K1, dQ and dK/dV kernels, and
+#: the head-dim-general K1, dQ and dK/dV kernels
 LAUNCHES = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_BWD_DKV = 0
 LAUNCHES_TC = 0
 LAUNCHES_BWD_DQ_TC = 0
 LAUNCHES_BWD_DKV_TC = 0
+LAUNCHES_GENERAL = 0
+LAUNCHES_BWD_DQ_GENERAL = 0
+LAUNCHES_BWD_DKV_GENERAL = 0
 
 #: bytes of one cp.async copy of the tensor-core kernels
 TC_ALIGN = 16
@@ -72,9 +89,11 @@ TC_ALIGN = 16
 
 def reset_launches():
     global LAUNCHES, LAUNCHES_BWD_DQ, LAUNCHES_BWD_DKV, LAUNCHES_TC, \
-        LAUNCHES_BWD_DQ_TC, LAUNCHES_BWD_DKV_TC
+        LAUNCHES_BWD_DQ_TC, LAUNCHES_BWD_DKV_TC, LAUNCHES_GENERAL, \
+        LAUNCHES_BWD_DQ_GENERAL, LAUNCHES_BWD_DKV_GENERAL
     LAUNCHES = LAUNCHES_BWD_DQ = LAUNCHES_BWD_DKV = 0
     LAUNCHES_TC = LAUNCHES_BWD_DQ_TC = LAUNCHES_BWD_DKV_TC = 0
+    LAUNCHES_GENERAL = LAUNCHES_BWD_DQ_GENERAL = LAUNCHES_BWD_DKV_GENERAL = 0
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None,
@@ -176,23 +195,64 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
 
 # ---------------------------------------------------------------- CUDA
 
-def check_head_dim(d: int, dtype):
-    """Raise ``ValueError`` unless the kernels take head dim ``d`` in
-    ``dtype``: 1..128 in float32, a multiple of 8 up to 128 in bfloat16."""
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"head dim {d} outside 1..{MAX_HEAD_DIM}: at D 256 the bf16 "
-            f"dK/dV kernel's two f32 accumulators would need 256 registers "
-            f"a thread, and it already spills 64 bytes at D 128")
-    if dtype == torch.bfloat16 and d % 8:
-        raise ValueError(
-            f"bf16 head dim {d} is not a multiple of 8: the tensor-core "
-            f"kernels copy rows in 16-byte aligned chunks")
+def route(d: int, dtype) -> str:
+    """The kernel family head dim ``d`` runs in ``dtype``: ``"wgmma"``
+    (bf16, D <= 128 and a multiple of 8), ``"cuda-core"`` (f32, D <= 128)
+    or ``"general"`` (every other D)."""
+    if d <= FAST_MAX_HEAD_DIM:
+        if dtype == torch.float32:
+            return "cuda-core"
+        if d % 8 == 0:
+            return "wgmma"
+    return "general"
 
 
-def _check_qkv(layout, q, k, v, dout=None):
-    """Shapes, dtypes, devices and strides the kernels take; returns
-    (b, h, t, d) and the (B, H, T, D) views of q, k, v (and dout)."""
+def _general_ld(rows: int, d: int) -> int:
+    """A general tile's row stride (gen_ld): odd at 32 rows and more,
+    else congruent to the lanes that split a dot product, mod 32."""
+    ks = 1 if rows >= 32 else 4 if rows == 16 else 16
+    return d | 1 if ks == 1 else d + (ks - d % 32) % 32
+
+
+def general_smem_bytes(kernel: str, rows: int, d: int) -> int:
+    """Shared bytes of the general ``kernel`` ("fwd", "dq", "dkv") at
+    ``rows`` tile rows and head dim ``d`` (csrc/flash_general.cuh
+    gen_smem_bytes)."""
+    a, b, c = GENERAL_TILES[kernel]
+    return 4 * (a * rows * _general_ld(rows, d) + b * rows * (rows + 1)
+                + c * rows)
+
+
+def general_rows(kernel: str, d: int) -> int:
+    """The general ``kernel``'s tile rows at head dim ``d``: the largest
+    of 64, 32, 16, 8 whose tiles fit in ``SMEM_PER_BLOCK``; 0 if none."""
+    return next((r for r in GENERAL_ROWS
+                 if general_smem_bytes(kernel, r, d) <= SMEM_PER_BLOCK), 0)
+
+
+def check_head_dim(d: int, dtype, kernel: str = "dkv"):
+    """Raise ``ValueError`` unless ``kernel`` ("fwd", "dq" or "dkv";
+    dK/dV, the largest, by default) takes head dim ``d`` in ``dtype``:
+    any D >= 1 whose tiles fit in a block's shared memory (the general
+    kernels' 8-row tiles past 1200 for dK/dV)."""
+    if d < 1:
+        raise ValueError(f"head dim {d} must be at least 1")
+    if route(d, dtype) == "general" and not general_rows(kernel, d):
+        need = general_smem_bytes(kernel, GENERAL_ROWS[-1], d)
+        raise ValueError(
+            f"head dim {d}: the {kernel} kernel's tiles need {need} bytes "
+            f"of shared memory at {GENERAL_ROWS[-1]} rows, past the 227 KiB "
+            f"({SMEM_PER_BLOCK} bytes) a block may use on the H100")
+
+
+#: the largest head dim all three kernels take
+MAX_HEAD_DIM = max(d for d in range(1, 4096) if general_rows("dkv", d))
+
+
+def _check_qkv(layout, kernel, q, k, v, dout=None):
+    """Shapes, dtypes, devices, strides and head dims ``kernel`` takes;
+    returns (b, h, t, d) and the (B, H, T, D) views of q, k, v (and
+    dout)."""
     named = [("q", q), ("k", k), ("v", v)]
     if dout is not None:
         named.append(("dout", dout))
@@ -211,7 +271,7 @@ def _check_qkv(layout, q, k, v, dout=None):
             raise ValueError(f"{name}'s last dimension must be contiguous")
     views = _bhtd(layout, *(t for _, t in named))
     b, h, t, d = views[0].shape
-    check_head_dim(d, q.dtype)
+    check_head_dim(d, q.dtype, kernel)
     return (b, h, t, d), views
 
 
@@ -255,9 +315,10 @@ def _strides(*views):
 
 
 def _flash_cuda(q, k, v, scale, causal, layout):
-    global LAUNCHES, LAUNCHES_TC
-    (b, h, t, d), (q_, k_, v_) = _check_qkv(layout, q, k, v)
-    tc = q.dtype == torch.bfloat16
+    global LAUNCHES, LAUNCHES_TC, LAUNCHES_GENERAL
+    (b, h, t, d), (q_, k_, v_) = _check_qkv(layout, "fwd", q, k, v)
+    kind = route(d, q.dtype)
+    tc = kind == "wgmma"
     if tc:
         check_tc_alignment(q=q_, k=k_, v=v_)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -273,6 +334,7 @@ def _flash_cuda(q, k, v, scale, causal, layout):
     _build.check(rc, "flash_attention_fwd")
     LAUNCHES += 1
     LAUNCHES_TC += tc
+    LAUNCHES_GENERAL += kind == "general"
     return out, lse
 
 
@@ -280,12 +342,13 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, causal,
                            layout="bhtd"):
     """dQ of the flash backward in q's layout: the dQ kernel on CUDA
     tensors, the plain backward's dq on CPU tensors."""
-    global LAUNCHES_BWD_DQ, LAUNCHES_BWD_DQ_TC
+    global LAUNCHES_BWD_DQ, LAUNCHES_BWD_DQ_TC, LAUNCHES_BWD_DQ_GENERAL
     if q.device.type == "cpu":
         return flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
                                    layout)[0]
-    bhtd, (q_, k_, v_, do_) = _check_qkv(layout, q, k, v, dout)
-    tc = q.dtype == torch.bfloat16
+    bhtd, (q_, k_, v_, do_) = _check_qkv(layout, "dq", q, k, v, dout)
+    kind = route(bhtd[3], q.dtype)
+    tc = kind == "wgmma"
     if tc:
         check_tc_alignment(q=q_, k=k_, v=v_, dout=do_)
     _check_rows("lse", lse, q, bhtd)
@@ -301,6 +364,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, causal,
     _build.check(rc, "flash_attention_bwd_dq")
     LAUNCHES_BWD_DQ += 1
     LAUNCHES_BWD_DQ_TC += tc
+    LAUNCHES_BWD_DQ_GENERAL += kind == "general"
     return dq
 
 
@@ -308,12 +372,13 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, causal,
                             layout="bhtd"):
     """(dK, dV) of the flash backward in q's layout: the dK/dV kernel on
     CUDA tensors, the plain backward's dk, dv on CPU tensors."""
-    global LAUNCHES_BWD_DKV, LAUNCHES_BWD_DKV_TC
+    global LAUNCHES_BWD_DKV, LAUNCHES_BWD_DKV_TC, LAUNCHES_BWD_DKV_GENERAL
     if q.device.type == "cpu":
         return flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
                                    layout)[1:]
-    bhtd, (q_, k_, v_, do_) = _check_qkv(layout, q, k, v, dout)
-    tc = q.dtype == torch.bfloat16
+    bhtd, (q_, k_, v_, do_) = _check_qkv(layout, "dkv", q, k, v, dout)
+    kind = route(bhtd[3], q.dtype)
+    tc = kind == "wgmma"
     if tc:
         check_tc_alignment(q=q_, k=k_, v=v_, dout=do_)
     _check_rows("lse", lse, q, bhtd)
@@ -331,6 +396,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, causal,
     _build.check(rc, "flash_attention_bwd_dkv")
     LAUNCHES_BWD_DKV += 1
     LAUNCHES_BWD_DKV_TC += tc
+    LAUNCHES_BWD_DKV_GENERAL += kind == "general"
     return dk, dv
 
 

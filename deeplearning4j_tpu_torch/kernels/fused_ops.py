@@ -9,10 +9,12 @@ view of an NHWC activation (N = B·H·W); per-channel vectors are f32.
   precomputed by the caller. Its backward recomputes through
   :func:`bn_act_reference` and returns dx in x's dtype.
 - :func:`fused_bn_act_train` (training): batch statistics from the
-  one-pass shifted moments (Σd, Σd², d = x − center, summed by the stats
-  kernel; mean and var finished as C-sized math), then the normalize pass.
-  Its backward runs the reduce kernel (Σdz, Σdz·x̂) and the dx kernel.
-  ``center``'s gradient is zero; the returned mean/var carry none.
+  one-pass shifted moments (Σd, Σd², d = x − center), summed by the stats
+  kernel, whose last block also finishes mean, var, inv = rsqrt(var +
+  eps), scale and shift (one launch, no C-sized torch ops), then the
+  normalize pass. Its backward runs the reduce kernel (Σdz, Σdz·x̂ and
+  both over N, one launch) and the dx kernel. ``center``'s gradient is
+  zero; the returned mean/var carry none.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernels
 or raises — there is no fallback between the two, and no "no block fits"
@@ -32,12 +34,26 @@ _SOURCE = "fused_bn_act"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VEC = {torch.float32: 4, torch.bfloat16: 8}   # elements per 16-byte access
 _THREADS = 256
-_TARGET_BLOCKS = 132 * 8                       # H100 SMs x resident blocks
+_SMS = 132                                     # H100 SXM
+#: reduction blocks a kernel keeps resident on an SM, the grid's depth:
+#: the stats kernel 4, the backward reduce 3 (its registers at 256
+#: threads; both built with __launch_bounds__(256, 3)), so the grid is one
+#: full wave and no SM is left with a lone block of a second wave
+_DEPTH = {"stats": 4, "bwd_reduce": 3}
+#: rows x tile columns a reduction block streams at least: 32 KiB of bf16
+_MIN_BLOCK_ELEMS = 16384
+#: channel vectors of a reduction tile: 128-byte row segments of 16-byte
+#: vectors, or 32 channels read one element at a time
+_TILE_VECS, _TILE_SCALARS = 8, 32
+#: the rows of bn_stats's (7, C) and bn_bwd_reduce's (4, C) outputs
+STATS_ROWS = ("sum", "sum_sq", "mean", "var", "inv", "scale", "shift")
+BWD_REDUCE_ROWS = ("sum_dz", "sum_dz_xhat", "sum_dz_over_n",
+                   "sum_dz_xhat_over_n")
 
 #: launches of each CUDA kernel since the last reset (the plain versions
 #: on CPU tensors do not count): the normalize+act pass (inference and the
 #: training forward), the stats reduction, the backward reduction, the dx
-#: pass. A reduction's finishing pass is part of its launch.
+#: pass. Each reduction is one launch, its finish and epilogue included.
 LAUNCHES = 0
 LAUNCHES_STATS = 0
 LAUNCHES_BWD_REDUCE = 0
@@ -200,25 +216,24 @@ class _FusedBnActTrain(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x2d, gamma, beta, center, eps, activation):
-        n = x2d.shape[0]
         if x2d.device.type == "cpu":
             y, mean, var = bn_act_train_reference(x2d, gamma, beta, center,
                                                   eps, activation)
             inv = torch.rsqrt(var + eps)
+            scale = shift = None
         else:
-            s = bn_stats(x2d, center.float())
-            mean, var = _finish_moments(s[0], s[1], center, n)
-            inv = torch.rsqrt(var + eps)
-            y = bn_act(x2d, *_scale_shift(gamma, beta, mean, inv),
-                       activation)
-        ctx.save_for_backward(x2d, gamma, beta, mean, inv)
+            st = bn_stats(x2d, center.float(), gamma.float(), beta.float(),
+                          eps)
+            mean, var, inv, scale, shift = st[2:]
+            y = bn_act(x2d, scale, shift, activation)
+        ctx.save_for_backward(x2d, gamma, beta, mean, inv, scale, shift)
         ctx.activation = activation
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, g, _dmean, _dvar):
-        x2d, gamma, beta, mean, inv = ctx.saved_tensors
+        x2d, gamma, beta, mean, inv, scale, shift = ctx.saved_tensors
         act = ctx.activation
         if g is None:
             g = torch.zeros_like(x2d)
@@ -229,10 +244,9 @@ class _FusedBnActTrain(torch.autograd.Function):
             # autograd may hand a strided or expanded cotangent; the
             # kernels read contiguous rows (copied only in that case)
             g = g.contiguous()
-            n = x2d.shape[0]
-            scale, shift = _scale_shift(gamma, beta, mean, inv)
             r = bn_bwd_reduce(x2d, g, scale, shift, mean, inv, act)
-            dx = bn_bwd_dx(x2d, g, scale, shift, mean, inv, r / n, act)
+            dx = bn_bwd_dx(x2d, g, scale, shift, mean, inv, r[2:], act)
+            # f32 sums: no cast unless the params are in another dtype
             dbeta, dgamma = r[0].to(beta.dtype), r[1].to(gamma.dtype)
         return dx, dgamma, dbeta, None, None, None
 
@@ -255,27 +269,32 @@ def bn_act(x2d, scale, shift, activation):
     return y
 
 
-def bn_stats(x2d, center):
-    """The stats kernel → (2, C) f32 [Σd; Σd²], d = x − center."""
+def bn_stats(x2d, center, gamma, beta, eps: float = 1e-5):
+    """The stats kernel, one launch → (7, C) f32, rows ``STATS_ROWS``:
+    [Σd; Σd²; mean; var; inv; scale; shift], d = x − center, mean and var
+    as :func:`_finish_moments`, inv = rsqrt(var + eps), scale and shift as
+    :func:`_scale_shift`."""
     global LAUNCHES_STATS
     _check_rows("x2d", x2d)
-    _check_vecs(x2d, center=center)
+    _check_vecs(x2d, center=center, gamma=gamma, beta=beta)
     n, c = x2d.shape
     vec = _vec(x2d)
-    tcv, rows, g = reduce_plan(n, c, _VEC[x2d.dtype] if vec else 1)
-    partial = torch.empty((g, 2, c), dtype=torch.float32, device=x2d.device)
-    out = torch.empty((2, c), dtype=torch.float32, device=x2d.device)
-    rc = _load().dl4j_bn_stats(x2d.data_ptr(), center.data_ptr(),
-                               partial.data_ptr(), out.data_ptr(), n, c,
-                               _DTYPES[x2d.dtype], vec, tcv, rows, g,
-                               _stream(x2d))
+    out = torch.empty((len(STATS_ROWS), c), dtype=torch.float32,
+                      device=x2d.device)
+    partial, counters, plan, stream = _workspace(x2d, vec, "stats")
+    rc = _load().dl4j_bn_stats(
+        x2d.data_ptr(), center.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        partial.data_ptr(), out.data_ptr(), counters.data_ptr(), n, c,
+        _DTYPES[x2d.dtype], vec, *plan, float(eps), stream)
     _build.check(rc, "bn_stats")
     LAUNCHES_STATS += 1
     return out
 
 
 def bn_bwd_reduce(x2d, g, scale, shift, mean, inv, activation):
-    """The backward reduce kernel → (2, C) f32 [Σdz; Σdz·x̂]."""
+    """The backward reduce kernel, one launch → (4, C) f32, rows
+    ``BWD_REDUCE_ROWS``: [Σdz; Σdz·x̂; Σdz/N; Σdz·x̂/N] (dβ, dγ, and the
+    dx kernel's ``corr``)."""
     global LAUNCHES_BWD_REDUCE
     _check_train_act(activation)
     _check_rows("x2d", x2d)
@@ -283,17 +302,45 @@ def bn_bwd_reduce(x2d, g, scale, shift, mean, inv, activation):
     _check_vecs(x2d, scale=scale, shift=shift, mean=mean, inv=inv)
     n, c = x2d.shape
     vec = _vec(x2d, g)
-    tcv, rows, gb = reduce_plan(n, c, _VEC[x2d.dtype] if vec else 1)
-    partial = torch.empty((gb, 2, c), dtype=torch.float32, device=x2d.device)
-    out = torch.empty((2, c), dtype=torch.float32, device=x2d.device)
+    out = torch.empty((len(BWD_REDUCE_ROWS), c), dtype=torch.float32,
+                      device=x2d.device)
+    partial, counters, plan, stream = _workspace(x2d, vec, "bwd_reduce")
     rc = _load().dl4j_bn_bwd_reduce(
         x2d.data_ptr(), g.data_ptr(), scale.data_ptr(), shift.data_ptr(),
         mean.data_ptr(), inv.data_ptr(), partial.data_ptr(), out.data_ptr(),
-        n, c, _ACT_CODES[activation], _DTYPES[x2d.dtype], vec, tcv, rows, gb,
-        _stream(x2d))
+        counters.data_ptr(), n, c, _ACT_CODES[activation],
+        _DTYPES[x2d.dtype], vec, *plan, stream)
     _build.check(rc, "bn_bwd_reduce")
     LAUNCHES_BWD_REDUCE += 1
     return out
+
+
+def _workspace(x2d, vec, kernel):
+    """The ``kernel`` reduction's plan over x2d's rows
+    (:func:`reduce_plan`), its (G, 2, C) f32 workspace and this stream's
+    arrival counters → (partial, counters, (tcv, rows, G), stream)."""
+    n, c = x2d.shape
+    width = _VEC[x2d.dtype] if vec else 1
+    plan = reduce_plan(n, c, width, _DEPTH[kernel])
+    tiles = -(-(-(-c // width)) // plan[0])     # ceil(ceil(c / width) / tcv)
+    partial = torch.empty((plan[2], 2, c), dtype=torch.float32,
+                          device=x2d.device)
+    stream = _stream(x2d)
+    return partial, _counters(x2d.device, stream, tiles), plan, stream
+
+
+#: (device index, stream) → the int32 arrival counters of the reduction
+#: kernels, one per channel tile: zeroed once, left zero by every launch
+_COUNTERS = {}
+
+
+def _counters(device, stream, tiles):
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(64, tiles), dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
 
 
 def bn_bwd_dx(x2d, g, scale, shift, mean, inv, corr, activation):
@@ -320,17 +367,23 @@ def bn_bwd_dx(x2d, g, scale, shift, mean, inv, corr, activation):
     return dx
 
 
-def reduce_plan(n: int, c: int, width: int):
+def reduce_plan(n: int, c: int, width: int, depth: int):
     """(channel vectors per tile, rows per chunk, chunks G) of a
-    reduction: a block of 256 threads covers ``tcv`` channel vectors of
-    ``width`` elements × 256//tcv row lanes, and G·tiles blocks fill the
-    card about 8 deep. Depends on (n, c, width) only, so the summation
-    order — and the sums — repeat exactly from launch to launch."""
+    reduction. A block of 256 threads covers ``tcv`` channel vectors of
+    ``width`` elements (a 128-byte row segment of 16-byte vectors, or 32
+    channels) × 256//tcv row lanes over its chunk of rows; G is the
+    fewest of: the chunks that give every block at least
+    ``_MIN_BLOCK_ELEMS`` elements, the chunks that fill the card ``depth``
+    blocks deep in one wave (``_SMS * depth`` blocks over the channel
+    tiles), and one per row lane. Depends on (n, c, width) and the
+    kernel's depth only, so the summation order — and the sums — repeat
+    exactly from launch to launch."""
     cv = -(-c // width)
-    tcv = min(cv, 32)
+    tcv = min(cv, _TILE_VECS if width > 1 else _TILE_SCALARS)
     lanes = _THREADS // tcv
     tiles = -(-cv // tcv)
-    chunks = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-n // lanes)))
+    by_bytes = n * tcv * width // _MIN_BLOCK_ELEMS
+    chunks = max(1, min(by_bytes, _SMS * depth // tiles, -(-n // lanes)))
     rows = -(-n // chunks)
     return tcv, rows, -(-n // rows)
 
@@ -389,9 +442,9 @@ def _load():
     if lib.dl4j_bn_act.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.dl4j_bn_act.argtypes = [p, p, p, p, i, i, i, i, i, p]
-        lib.dl4j_bn_stats.argtypes = [p, p, p, p, i, i, i, i, i, i, i, p]
-        lib.dl4j_bn_bwd_reduce.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
-                                           i, i, i, i, i, p]
+        f = ctypes.c_float
+        lib.dl4j_bn_stats.argtypes = [p] * 7 + [i] * 7 + [f, p]
+        lib.dl4j_bn_bwd_reduce.argtypes = [p] * 9 + [i] * 8 + [p]
         lib.dl4j_bn_bwd_dx.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
                                        i, p]
         for fn in (lib.dl4j_bn_act, lib.dl4j_bn_stats,

@@ -14,8 +14,11 @@ backward's bf16 gradients are held to a relative L2 error of 1e-2: the
 kernels and the plain backward round dS and P to bf16 at the same points,
 but a product that lands near a rounding boundary flips one ulp. The
 fused BN kernels (K3): outputs as above; their f32 per-channel sums are
-held to a relative 1e-5 (the same terms summed in another order) and
-must repeat bit for bit from launch to launch (no atomics). The LSTM
+held to a relative 1e-5 elementwise, or 1e-4 of the largest sum (the
+same terms summed in another order), the stats kernel's fused mean, var
+and inv to a relative 1e-6 of the plain versions on the same sums, and
+both reductions must repeat bit for bit from launch to launch (no
+atomics on the sums; a fixed-order last-block finish). The LSTM
 kernel (K4): f32 atol 1e-5 against its plain version; bf16 atol 2e-2 —
 the kernel keeps h and c in f32 over all T steps while the plain version
 rounds both to bf16 at every step, so they part by a few bf16 ulps
@@ -117,23 +120,35 @@ FLASH_GRID = [(64, True), (200, True), (1000, True), (256, False),
 
 # the instantiated widths and head dims padded to them inside the kernels
 HEAD_DIMS = [8, 16, 24, 32, 64, 80, 120, 128]
+# head dims of the general CUDA-core kernels: bf16 rows that are not whole
+# 16-byte chunks (12; f32 runs its CUDA-core kernel there), and D > 128 at
+# 64, 32 and 16 tile rows
+GENERAL_HEAD_DIMS = [12, 160, 256, 320]
+
+
+def _routes(d, dtype):
+    """(tensor-core, general) launches one call adds at (d, dtype)."""
+    kind = fa.route(d, dtype)
+    return int(kind == "wgmma"), int(kind == "general")
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t,causal", FLASH_GRID)
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS + GENERAL_HEAD_DIMS)
 def test_flash_kernel_matches_plain(gen, dtype, t, causal, d):
-    """K1 (the tensor-core kernel in bf16, the CUDA-core one in f32) at
-    every head dim, in the (B, H, T, D) layout and through strided
-    (B, T, H, D) views of one qkv buffer; a second launch repeats the
-    first bit for bit."""
+    """K1 (the tensor-core kernel in bf16, the CUDA-core one in f32, the
+    general kernel past 128 and for bf16 rows of odd chunks) at every
+    head dim, in the (B, H, T, D) layout and through strided (B, T, H, D)
+    views of one qkv buffer; a second launch repeats the first bit for
+    bit."""
     b, h = 2, 3
     q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda")
                .to(dtype) for _ in range(3))
-    before = (fa.LAUNCHES, fa.LAUNCHES_TC)
+    before = (fa.LAUNCHES, fa.LAUNCHES_TC, fa.LAUNCHES_GENERAL)
     out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
-    tc = int(dtype == torch.bfloat16)
-    assert (fa.LAUNCHES, fa.LAUNCHES_TC) == (before[0] + 1, before[1] + tc)
+    tc, general = _routes(d, dtype)
+    assert (fa.LAUNCHES, fa.LAUNCHES_TC, fa.LAUNCHES_GENERAL) == \
+        (before[0] + 1, before[1] + tc, before[2] + general)
     ref, ref_lse = fa.mha_reference_lse(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), atol=ATOL[dtype],
                                rtol=0)
@@ -195,12 +210,13 @@ def _close(got, ref, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t,causal", FLASH_GRID)
-@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("d", HEAD_DIMS + GENERAL_HEAD_DIMS)
 def test_flash_bwd_kernels_match_plain(gen, dtype, t, causal, d):
-    """dQ and dK/dV (both on the tensor cores in bf16) against the plain
-    backward on the same inputs, in the (B, H, T, D) layout and through
-    strided (B, T, H, D) views of one qkv buffer (the transformer's
-    layout); a second launch of each repeats the first bit for bit."""
+    """dQ and dK/dV (both on the tensor cores in bf16 up to 128, on the
+    general kernels past it) against the plain backward on the same
+    inputs, in the (B, H, T, D) layout and through strided (B, T, H, D)
+    views of one qkv buffer (the transformer's layout); a second launch
+    of each repeats the first bit for bit."""
     b, h = 2, 3
     scale = d ** -0.5
     q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda")
@@ -210,17 +226,19 @@ def test_flash_bwd_kernels_match_plain(gen, dtype, t, causal, d):
     ref = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale,
                                            causal)
     before = (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DQ_TC,
-              fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DKV_TC)
-    tc = int(dtype == torch.bfloat16)
+              fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DKV_TC,
+              fa.LAUNCHES_BWD_DQ_GENERAL, fa.LAUNCHES_BWD_DKV_GENERAL)
+    tc, gn = _routes(d, dtype)
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
     assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DQ_TC,
-            fa.LAUNCHES_BWD_DKV) == (before[0] + 1, before[1] + tc,
-                                     before[2])
+            fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ_GENERAL) == \
+        (before[0] + 1, before[1] + tc, before[2], before[4] + gn)
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
                                         causal)
     assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DQ_TC, fa.LAUNCHES_BWD_DKV,
-            fa.LAUNCHES_BWD_DKV_TC) == (before[0] + 1, before[1] + tc,
-                                        before[2] + 1, before[3] + tc)
+            fa.LAUNCHES_BWD_DKV_TC, fa.LAUNCHES_BWD_DKV_GENERAL) == \
+        (before[0] + 1, before[1] + tc, before[2] + 1, before[3] + tc,
+         before[5] + gn)
     torch.cuda.synchronize()
     for got, want in zip((dq, dk, dv), ref):
         _close(got, want, dtype)
@@ -315,6 +333,52 @@ def test_head_dim_80_lm_train_step_matches_plain_path(gen):
         assert _rel_l2(got, want) <= 2e-2
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_head_dim_256_lm_train_step_matches_plain_path(gen, dtype):
+    """An LM with head dim 256 (d_model 512, 2 heads) at T 1024, which
+    raised on the card before the general kernels: one train step's loss
+    and grads on the flash kernels (K1, dQ and dK/dV, all on the general
+    CUDA-core kernels) agree with the plain path's (plain attention, f32
+    scores) from the same params: loss within 2e-2 nats, grads relative
+    L2 <= 2e-2 per leaf (chip_smoke.py phase 6's bars)."""
+    import dataclasses
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg = tfm.TransformerConfig(vocab_size=512, d_model=512, n_heads=2,
+                                n_layers=2, d_ff=1024, max_seq=1024,
+                                dtype=dtype, remat=False,
+                                use_flash_attention=True)
+    plain = dataclasses.replace(cfg, use_flash_attention=False,
+                                attn_scores_bf16=False)
+    assert cfg.head_dim == 256
+    init = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    ids, tgt = (torch.as_tensor(rng.integers(0, 512, (2, 1024)),
+                                device="cuda") for _ in range(2))
+    losses, grads = {}, {}
+    for name, c in (("kernel", cfg), ("plain", plain)):
+        params = {k: (v.clone() if torch.is_tensor(v)
+                      else {n: w.clone() for n, w in v.items()})
+                  for k, v in init.items()}
+        leaves = tfm.param_leaves(params)
+        fa.reset_launches()
+        loss = tfm.lm_loss(params, c, ids, tgt)
+        loss.backward()
+        torch.cuda.synchronize()
+        if name == "kernel":
+            assert (fa.LAUNCHES_GENERAL, fa.LAUNCHES_BWD_DQ_GENERAL,
+                    fa.LAUNCHES_BWD_DKV_GENERAL, fa.LAUNCHES_TC) == \
+                (2, 2, 2, 0)
+        losses[name] = loss.item()
+        grads[name] = [p.grad.float() for p in leaves]
+    assert abs(losses["kernel"] - losses["plain"]) <= 2e-2
+    for got, want in zip(grads["kernel"], grads["plain"]):
+        assert torch.isfinite(got).all()
+        assert _rel_l2(got, want) <= 2e-2
+
+
 def _bn_inputs(gen, n, c, dtype, offset=1.5):
     x = (torch.randn((n, c), generator=gen, device="cuda") * 2 + offset) \
         .to(dtype)
@@ -344,14 +408,14 @@ def test_bn_act_kernel_matches_plain(gen, dtype, n, c, act):
 @pytest.mark.parametrize("n,c", [(1000, 3), (1000, 5), (384, 24),
                                  (50176, 64), (6272, 2048)])
 def test_bn_stats_kernel_matches_plain_and_repeats(gen, dtype, n, c):
-    x, _, _, center = _bn_inputs(gen, n, c, dtype)
-    s = fo.bn_stats(x, center)
-    s_again = fo.bn_stats(x, center)
+    x, gamma, beta, center = _bn_inputs(gen, n, c, dtype)
+    s = fo.bn_stats(x, center, gamma, beta)
+    s_again = fo.bn_stats(x, center, gamma, beta)
     d = x.float() - center
     ref = torch.stack([d.sum(0), (d * d).sum(0)])
     torch.cuda.synchronize()
-    assert torch.equal(s, s_again)
-    torch.testing.assert_close(s, ref, rtol=1e-5, atol=1e-3)
+    assert s.shape == (7, c) and torch.equal(s, s_again)
+    torch.testing.assert_close(s[:2], ref, rtol=1e-5, atol=1e-3)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -367,15 +431,97 @@ def test_bn_backward_kernels_match_plain(gen, dtype, n, c, act):
     shift = beta - mean * scale
     r = fo.bn_bwd_reduce(x, g, scale, shift, mean, inv, act)
     r_again = fo.bn_bwd_reduce(x, g, scale, shift, mean, inv, act)
-    dx = fo.bn_bwd_dx(x, g, scale, shift, mean, inv, r / n, act)
+    dx = fo.bn_bwd_dx(x, g, scale, shift, mean, inv, r[2:], act)
     dx_ref, dgamma, dbeta = fo.bn_bwd_reference(x, g, gamma, beta, mean,
                                                 inv, act)
     torch.cuda.synchronize()
-    assert torch.equal(r, r_again)
-    torch.testing.assert_close(r, torch.stack([dbeta, dgamma]), rtol=1e-4,
-                               atol=1e-2)
+    assert r.shape == (4, c) and torch.equal(r, r_again)
+    torch.testing.assert_close(r[:2], torch.stack([dbeta, dgamma]),
+                               rtol=1e-4, atol=1e-2)
     assert dx.dtype == dtype
     _close(dx, dx_ref, dtype)
+
+
+# every (N, C) a ResNet-50 BN hands K3 at batch 128, and odd channel counts
+K3_PATH_SHAPES = [(128 * hw * hw, c) for hw, c in (
+    (112, 64), (56, 64), (56, 256), (28, 128), (28, 512), (14, 256),
+    (14, 1024), (7, 512), (7, 2048))]
+K3_ODD_SHAPES = [(1000, 3), (1000, 5), (1000, 24)]
+
+
+def _max_rel(got, want):
+    """max |got - want| over the largest |want| (0 when both are 0)."""
+    top = want.abs().max().item()
+    return (got - want).abs().max().item() / (top if top else 1.0)
+
+
+def _reductions(x, g, gamma, beta, center):
+    st = fo.bn_stats(x, center, gamma, beta, 1e-5)
+    r = fo.bn_bwd_reduce(x, g, st[5], st[6], st[2], st[4], "relu")
+    return st, r
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,c", K3_PATH_SHAPES + K3_ODD_SHAPES)
+def test_bn_reductions_one_launch_repeat_and_fuse_the_epilogue(gen, dtype,
+                                                               n, c):
+    """The stats and backward-reduce kernels, one launch each: their sums
+    within 1e-4 of the largest plain sum (another order of the same f32
+    terms); the fused epilogue (mean, var, inv, then scale and shift;
+    the sums over N) against the plain versions on the kernel's own sums,
+    relative 1e-6; and 100 back-to-back relaunches of each bit for bit
+    equal to the first (the last-block finish sums in a fixed order and
+    leaves its arrival counters at zero)."""
+    x, gamma, beta, center = _bn_inputs(gen, n, c, dtype)
+    g = torch.randn((n, c), generator=gen, device="cuda").to(dtype)
+    before = (fo.LAUNCHES_STATS, fo.LAUNCHES_BWD_REDUCE)
+    st, r = _reductions(x, g, gamma, beta, center)
+    assert (fo.LAUNCHES_STATS, fo.LAUNCHES_BWD_REDUCE) == \
+        (before[0] + 1, before[1] + 1)
+    d = x.float() - center
+    assert _max_rel(st[:2], torch.stack([d.sum(0), (d * d).sum(0)])) <= 1e-4
+    del d
+    mean, var = fo._finish_moments(st[0], st[1], center, n)
+    inv = torch.rsqrt(var + 1e-5)
+    scale, shift = fo._scale_shift(gamma, beta, mean, inv)
+    for got, want in zip(st[2:5], (mean, var, inv)):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    for got, want in zip(st[5:], (scale, shift)):
+        assert _max_rel(got, want) <= 1e-6
+    _, dgamma, dbeta = fo.bn_bwd_reference(x, g, gamma, beta, st[2], st[4],
+                                           "relu")
+    assert _max_rel(r[:2], torch.stack([dbeta, dgamma])) <= 1e-4
+    # torch divides by a scalar as a product with its f32 reciprocal, the
+    # kernel exactly: an ulp apart at most
+    assert _max_rel(r[2:], r[:2] / n) <= 1e-6
+    same = torch.ones((), dtype=torch.bool, device="cuda")
+    for _ in range(100):
+        st2, r2 = _reductions(x, g, gamma, beta, center)
+        same &= (st2 == st).all() & (r2 == r).all()
+    assert bool(same)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("a,b", [((1605632, 64), (6272, 2048)),
+                                 ((1000, 3), (25088, 256)),
+                                 ((100352, 512), (1000, 24))])
+def test_bn_reductions_repeat_across_alternating_shapes(gen, dtype, a, b):
+    """Launches alternating between two shapes (other channel tiles and
+    other chunk counts G, one counter buffer) give each shape its first
+    result bit for bit: a counter left non-zero by one launch would hand
+    the next launch's finish to a block that arrived early."""
+    cases = []
+    for n, c in (a, b):
+        x, gamma, beta, center = _bn_inputs(gen, n, c, dtype)
+        g = torch.randn((n, c), generator=gen, device="cuda").to(dtype)
+        cases.append(((x, g, gamma, beta, center),
+                      _reductions(x, g, gamma, beta, center)))
+    same = torch.ones((), dtype=torch.bool, device="cuda")
+    for _ in range(20):
+        for args, (st, r) in cases:
+            st2, r2 = _reductions(*args)
+            same &= (st2 == st).all() & (r2 == r).all()
+    assert bool(same)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

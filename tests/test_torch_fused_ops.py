@@ -256,16 +256,64 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         tfo.bn_act(x, v, v, "relu")
     with pytest.raises(ValueError, match="CUDA tensor"):
-        tfo.bn_stats(x, v)
+        tfo.bn_stats(x, v, v, v)
 
 
 @pytest.mark.parametrize("n,c,width", [(1605632, 64, 8), (401408, 256, 8),
                                        (6272, 2048, 8), (1000, 3, 1),
                                        (100352, 512, 4)])
 def test_reduce_plan_covers_every_row_once(n, c, width):
-    tcv, rows, chunks = tfo.reduce_plan(n, c, width)
+    tcv, rows, chunks = tfo.reduce_plan(n, c, width, 4)
     lanes = 256 // tcv
     assert 1 <= tcv <= 32 and tcv * lanes <= 256
     assert (chunks - 1) * rows < n <= chunks * rows
     cv = -(-c // width)
     assert -(-cv // tcv) * tcv >= cv
+
+
+# every (N, C) a ResNet-50 BN hands K3 at batch 128 (chip_smoke.py phase
+# 7), with the 16-byte widths of bf16 (8) and f32 (4), plus odd shapes
+PLAN_SHAPES = [(128 * hw * hw, c, w)
+               for hw, c in ((112, 64), (56, 64), (56, 256), (28, 128),
+                             (28, 512), (14, 256), (14, 1024), (7, 512),
+                             (7, 2048))
+               for w in (8, 4)] + [(1000, 3, 1), (1000, 5, 1), (1000, 24, 8),
+                                   (384, 24, 4), (7, 2048, 1), (1, 64, 8)]
+
+
+@pytest.mark.parametrize("depth", [4, 3])
+@pytest.mark.parametrize("n,c,width", PLAN_SHAPES)
+def test_reduce_plan_reckons_bytes(n, c, width, depth):
+    """The one-launch reductions' plan: a function of (n, c, width) and
+    the kernel's depth alone (the fixed summation order rests on it);
+    every row in exactly one chunk; 128-byte channel tiles (8 vectors, or
+    32 scalars); no more blocks than one wave ``depth`` deep holds; every
+    block streams at least _MIN_BLOCK_ELEMS elements unless the plan has
+    one chunk; one chunk for tiny N; and at least 2 blocks per SM
+    wherever N allows it."""
+    plan = tfo.reduce_plan(n, c, width, depth)
+    assert plan == tfo.reduce_plan(n, c, width, depth)
+    tcv, rows, chunks = plan
+    cv = -(-c // width)
+    assert tcv == min(cv, 8 if width > 1 else 32)
+    tiles = -(-cv // tcv)
+    assert (chunks - 1) * rows < n <= chunks * rows
+    assert chunks * tiles <= 132 * depth or chunks == 1
+    elems = tcv * width
+    if chunks > 1:
+        assert rows * elems >= tfo._MIN_BLOCK_ELEMS
+    if n * elems < 2 * tfo._MIN_BLOCK_ELEMS:
+        assert chunks == 1
+    lanes = 256 // tcv
+    if n * elems >= 2 * 132 * tfo._MIN_BLOCK_ELEMS and n >= 264 * lanes:
+        assert chunks * tiles >= 2 * 132
+
+
+def test_reduce_plan_at_the_smallest_resnet_shape():
+    """(6272, 512) bf16, the s3 a/b BNs: about 200 blocks (was 1046),
+    and a workspace of under 0.5 MB (was 2.1 MB)."""
+    for kernel, depth in tfo._DEPTH.items():
+        tcv, rows, chunks = tfo.reduce_plan(6272, 512, 8, depth)
+        tiles = 512 // (8 * tcv)
+        assert (tcv, tiles) == (8, 8) and 100 <= chunks * tiles <= 200
+        assert chunks * 2 * 512 * 4 < 500_000

@@ -346,26 +346,28 @@ def test_wrappers_refuse_other_devices():
 
 def test_flash_kernel_refuses_grad_and_bad_inputs():
     """Inputs the kernels do not take raise before any launch: K1's and
-    the backward wrappers' head-dim, dtype and device checks. A bf16 head
-    dim that is not a multiple of 8 (rows not a whole number of 16-byte
-    chunks) and any head dim past 128 are refused. (Inputs that require
-    grad are no longer refused: the Function runs them through K1 and the
-    backward kernels.)"""
-    q = torch.zeros((1, 2, 8, 20), dtype=torch.bfloat16)
+    the backward wrappers' head-dim, alignment, dtype and device checks.
+    A bf16 view the tensor-core kernels cannot copy in 16-byte chunks and
+    a head dim whose tiles overflow a block's shared memory (1300: past
+    1200 for dK/dV, past 1424 for dQ, past 1808 for K1) are refused.
+    (Inputs that require grad are no longer refused: the Function runs
+    them through K1 and the backward kernels.)"""
+    odd = torch.zeros((1, 2, 8, 17), dtype=torch.bfloat16)[..., 1:]
     with pytest.raises(ValueError, match="aligned"):
-        tfa._flash_cuda(q, q, q, 0.25, True, "bhtd")
-    q = torch.zeros((1, 2, 8, 136))
-    with pytest.raises(ValueError, match="head dim 136"):
+        tfa._flash_cuda(odd, odd, odd, 0.25, True, "bhtd")
+    q = torch.zeros((1, 2, 8, 1900))
+    with pytest.raises(ValueError, match="head dim 1900.*227 KiB"):
         tfa._flash_cuda(q, q, q, 0.25, True, "bhtd")
     q = torch.zeros((1, 2, 8, 16), dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tfa._flash_cuda(q, q, q, 0.25, True, "bhtd")
     lse = torch.zeros((1, 2, 8))
     for bwd in (tfa.flash_attention_bwd_dq, tfa.flash_attention_bwd_dkv):
-        q = torch.zeros((1, 2, 8, 136), device="meta")
-        with pytest.raises(ValueError, match="head dim"):
+        q = torch.zeros((1, 2, 8, 1500), device="meta")
+        with pytest.raises(ValueError, match="head dim 1500.*227 KiB"):
             bwd(q, q, q, q, lse.to("meta"), lse.to("meta"), 0.2, True)
-        q = torch.zeros((1, 2, 8, 20), dtype=torch.bfloat16, device="meta")
+        q = torch.zeros((1, 2, 8, 17), dtype=torch.bfloat16,
+                        device="meta")[..., 1:]
         with pytest.raises(ValueError, match="aligned"):
             bwd(q, q, q, q, lse.to("meta"), lse.to("meta"), 0.2, True)
         q = torch.zeros((1, 2, 8, 16), dtype=torch.float16, device="meta")
@@ -385,25 +387,84 @@ def test_flash_kernel_refuses_grad_and_bad_inputs():
 @pytest.mark.parametrize("d", [8, 24, 40, 80, 96, 120])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_take_every_head_dim_up_to_128(d, dtype):
-    """The repaired rule: the kernels' checks pass every D the reference
-    runs up to 128 (bf16: multiples of 8), in both layouts; f32 also
-    takes the D that are not multiples of 8."""
+    """Up to 128 the fast kernels run: the checks pass every D in both
+    layouts and for each kernel, bf16 multiples of 8 on the tensor cores
+    and f32 on the CUDA-core kernels; a D that is not a multiple of 8
+    runs the CUDA-core kernel in f32 and the general kernel in bf16
+    (rows that are not whole 16-byte chunks)."""
     q = torch.zeros((1, 2, 8, d), dtype=dtype)
-    for layout in ("bhtd", "bthd"):
-        (b, h, t, dd), views = tfa._check_qkv(layout, q, q, q, q)
-        assert dd == d and len(views) == 4
-    tfa.check_head_dim(d - 3, torch.float32)       # any f32 D in 1..128
-    with pytest.raises(ValueError, match="multiple of 8"):
-        tfa.check_head_dim(d - 3, torch.bfloat16)
+    for kernel in ("fwd", "dq", "dkv"):
+        for layout in ("bhtd", "bthd"):
+            (b, h, t, dd), views = tfa._check_qkv(layout, kernel, q, q, q,
+                                                  q)
+            assert dd == d and len(views) == 4
+    bf16 = dtype == torch.bfloat16
+    assert tfa.route(d, dtype) == ("wgmma" if bf16 else "cuda-core")
+    tfa.check_head_dim(d - 3, dtype)
+    assert tfa.route(d - 3, dtype) == ("general" if bf16 else "cuda-core")
 
 
 def test_flash_head_dim_rule_bounds():
-    assert tfa.MAX_HEAD_DIM == 128
-    for d in (1, 5, 17, 127, 128):
-        tfa.check_head_dim(d, torch.float32)
-    for d in (0, 129, 256):
-        with pytest.raises(ValueError, match=f"head dim {d} outside"):
+    """No D in 1..512 is refused, in either dtype, by any kernel; the
+    refusals start where the general kernels' 8-row tiles overflow the
+    227 KiB of shared memory a block may use, and name that limit."""
+    assert tfa.FAST_MAX_HEAD_DIM == 128 and tfa.MAX_HEAD_DIM == 1200
+    for d in range(1, 513):
+        for dtype in (torch.float32, torch.bfloat16):
+            for kernel in ("fwd", "dq", "dkv"):
+                tfa.check_head_dim(d, dtype, kernel)
+    for d in (0, -3):
+        with pytest.raises(ValueError, match=f"head dim {d} must be"):
             tfa.check_head_dim(d, torch.float32)
+    for kernel, last in (("dkv", 1200), ("dq", 1424), ("fwd", 1808)):
+        for dtype in (torch.float32, torch.bfloat16):
+            tfa.check_head_dim(last, dtype, kernel)
+            with pytest.raises(ValueError,
+                               match=rf"head dim {last + 1}: the {kernel} "
+                                     r"kernel.*227 KiB \(232448 bytes\)"):
+                tfa.check_head_dim(last + 1, dtype, kernel)
+
+
+@pytest.mark.parametrize("d,rows", [(12, (64, 64, 64)), (128, (64, 64, 64)),
+                                    (160, (64, 32, 32)), (256, (32, 32, 32)),
+                                    (320, (32, 32, 16)), (512, (16, 16, 16)),
+                                    (1024, (8, 8, 8))])
+def test_flash_general_rows_shrink_as_head_dim_grows(d, rows):
+    """The general kernels' tile rows (fwd, dq, dkv) at each head dim:
+    the largest of 64, 32, 16, 8 whose tiles fit in a block's shared
+    memory, so every D up to 512 fits; a row stride meets 32 banks
+    (odd, or congruent to the lanes that share a dot product)."""
+    assert tuple(tfa.general_rows(k, d) for k in ("fwd", "dq", "dkv")) \
+        == rows
+    for kernel, r in zip(("fwd", "dq", "dkv"), rows):
+        assert tfa.general_smem_bytes(kernel, r, d) <= tfa.SMEM_PER_BLOCK
+        if r < 64:
+            assert tfa.general_smem_bytes(kernel, 2 * r, d) \
+                > tfa.SMEM_PER_BLOCK
+        ld = tfa._general_ld(r, d)
+        assert d <= ld < d + 32
+        assert ld % 2 == 1 if r >= 32 else ld % 32 == (4 if r == 16 else 16)
+
+
+@pytest.mark.parametrize("d,dtype,kind", [
+    (64, torch.bfloat16, "wgmma"), (128, torch.bfloat16, "wgmma"),
+    (12, torch.bfloat16, "general"), (130, torch.bfloat16, "general"),
+    (256, torch.bfloat16, "general"), (12, torch.float32, "cuda-core"),
+    (128, torch.float32, "cuda-core"), (160, torch.float32, "general"),
+    (320, torch.float32, "general")])
+def test_flash_route_by_head_dim_and_dtype(d, dtype, kind):
+    """Which kernel family a (D, dtype) runs; only the tensor-core route
+    checks 16-byte alignment, so a general bf16 D takes any strides."""
+    assert tfa.route(d, dtype) == kind
+    buf = torch.zeros((1, 8, 3 * 2 * d + 1), dtype=dtype)
+    q, k, v = (buf[..., 1 + i * 2 * d:1 + (i + 1) * 2 * d]
+               .reshape(1, 8, 2, d) for i in range(3))
+    if kind == "wgmma":
+        with pytest.raises(ValueError, match="aligned"):
+            tfa._flash_cuda(q, k, v, 0.25, True, "bthd")
+    elif not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tfa._flash_cuda(q, k, v, 0.25, True, "bthd")
 
 
 # --------------------------------------------- K2 split-K plan (CPU side)
@@ -600,9 +661,9 @@ def test_build_target_covers_included_headers(monkeypatch, tmp_path):
     never served from a stale build; a header it does not include does
     not move the name."""
     assert [p.name for p in _build._sources("flash_attention_fwd")] == \
-        ["flash_attention_fwd.cu", "flash_mma.cuh"]
+        ["flash_attention_fwd.cu", "flash_general.cuh", "flash_mma.cuh"]
     assert [p.name for p in _build._sources("flash_attention_bwd")] == \
-        ["flash_attention_bwd.cu", "flash_mma.cuh"]
+        ["flash_attention_bwd.cu", "flash_general.cuh", "flash_mma.cuh"]
     src = _fake_sources(tmp_path, monkeypatch)
     assert [p.name for p in _build._sources("k")] == \
         ["k.cu", "a.cuh", "b.cuh"]

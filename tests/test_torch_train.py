@@ -339,14 +339,13 @@ def test_train_step_counts_no_cuda_launch_on_cpu(shared_np):
         (0, 0, 0)
 
 
-def test_head_dim_80_lm_matches_jax_flash(jax_flash, monkeypatch):
-    """A Transformer-LM with head dim 80 (d_model 160, 2 heads, 2 layers,
-    flash attention on both sides, T 64), the shape the card's kernels
-    now take by zero-padding to 128 inside the kernel: its forward logits
-    and its step-1 grads through the port's plain path against the JAX
-    package's Pallas kernels (interpret mode), whose forward and backward
-    calls are counted to show that they ran. f32 values atol 1e-5, grads
-    atol 1e-4."""
+def _head_dim_lm_parity(monkeypatch, head_dim, **cfg):
+    """A Transformer-LM (2 heads, 2 layers, flash attention on both sides,
+    T 64) of the given head dim: its forward logits and its step-1 grads
+    through the port's plain path against the JAX package's Pallas
+    kernels (interpret mode), whose forward and backward calls are
+    counted to show that they ran. f32 values atol 1e-5, grads atol
+    1e-4."""
     import importlib
     jfa = importlib.import_module(
         "deeplearning4j_tpu.kernels.flash_attention")
@@ -361,8 +360,8 @@ def test_head_dim_80_lm_matches_jax_flash(jax_flash, monkeypatch):
 
     monkeypatch.setattr(jfa, "_fwd", count("fwd", orig_fwd))
     monkeypatch.setattr(jfa, "_flash_bwd_impl", count("bwd", orig_bwd))
-    jcfg, tcfg = configs(d_model=160, d_ff=128)
-    assert tcfg.head_dim == 80
+    jcfg, tcfg = configs(**cfg)
+    assert tcfg.head_dim == head_dim
     jp = jtfm.init_params(jax.random.PRNGKey(3), jcfg)
     tree = jax.tree_util.tree_map(np.asarray, jp)
     tp = _port_params(tree, tcfg)
@@ -381,3 +380,18 @@ def test_head_dim_80_lm_matches_jax_flash(jax_flash, monkeypatch):
     for name, g in jgrads.items():
         np.testing.assert_allclose(tg[name].numpy(), g, err_msg=name,
                                    atol=1e-4, rtol=1e-4)
+
+
+def test_head_dim_80_lm_matches_jax_flash(jax_flash, monkeypatch):
+    """Head dim 80 (d_model 160), the shape the card's kernels take by
+    zero-padding to 128 inside the kernel (see _head_dim_lm_parity)."""
+    _head_dim_lm_parity(monkeypatch, 80, d_model=160, d_ff=128)
+
+
+@pytest.mark.parametrize("head_dim", [160, 256])
+def test_wide_head_dim_lm_matches_jax_flash(jax_flash, monkeypatch,
+                                            head_dim):
+    """Head dims 160 and 256 (d_model 320 and 512), which the card runs
+    on the general CUDA-core kernels (see _head_dim_lm_parity)."""
+    _head_dim_lm_parity(monkeypatch, head_dim, d_model=2 * head_dim,
+                        d_ff=128)
