@@ -6,11 +6,15 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
     python3 chip_smoke.py --profile        # also profile paged decode
-    python3 chip_smoke.py --profile-train  # also profile one train step
+    python3 chip_smoke.py --profile-train  # also profile one train step of
+                                           # the 120M LM and the D 256 LM
     python3 chip_smoke.py --profile-resnet # also profile one ResNet-50 step
     python3 chip_smoke.py --profile-charnn # also profile one char-RNN step
     python3 chip_smoke.py --k3-times ROOT  # only time the K3 reductions of
                                            # the port checked out at ROOT
+    python3 chip_smoke.py --flash-times ROOT  # only time K1, dQ and dK/dV at
+                                             # D 256 and digest K2's outputs
+                                             # of the port at ROOT
 
 Phases, each fatal on failure:
 
@@ -19,23 +23,26 @@ Phases, each fatal on failure:
 2. K2 (paged decode, split-K in two passes) against its plain version at
    the 120M decode shapes, bf16 and f32 pools, over mapped, sentinel,
    partial-tail, CoW-shared and empty slots (the empty slot against
-   zeros); a second launch bit for bit equal; device time of both passes
+   zeros), then at head dim 320 (2 heads, past the old limit of 256); a
+   second launch bit for bit equal; device time of both passes
    (``torch.profiler``) with a call timed by CUDA events beside it;
-3. K1 (causal flash forward; bf16 on the tensor-core kernel, f32 on the
-   CUDA-core one, every other head dim on the general CUDA-core kernel)
-   against ``mha_reference``, O and lse, at T 1024/2048, at head dim 80
-   (padded to 128 inside the kernel) in both dtypes, at the train path's
-   B32 T1024 bf16, and on the general kernel at D 12 (bf16), 160 and 256
-   (both dtypes) and 320 (f32), plus the strided (B, T, H, D) layout the
-   transformer uses; the kernel family ``route`` names must run; a second
-   launch bit for bit equal; ``F.scaled_dot_product_attention`` timed as
-   a yardstick only;
-3b. the flash backward kernels (dQ, dK/dV; both on the tensor cores in
-   bf16 up to D 128) against ``flash_attention_bwd_reference`` on the
-   same inputs, through strided (B, T, H, D) views of one qkv buffer, at
-   B1 H8 D64 T 1024/2048/4096 bf16, T 2048 f32, T 200 causal and T 256
-   non-causal, head dim 80 in both dtypes, the train path's B32 T1024
-   bf16, causal and non-causal, and phase 3's general head dims, causal;
+3. K1 (causal flash forward; bf16 on the tensor-core kernel up to D 256,
+   f32 on the CUDA-core one up to 128, every other head dim on the
+   general CUDA-core kernel) against ``mha_reference``, O and lse, at T
+   1024/2048, at head dim 80 (padded to 128 inside the kernel) in both
+   dtypes, at the train path's B32 T1024 bf16, at D 160 and 256 in bf16
+   (padded to 256 on the tensor cores) and f32 (general), D 12 bf16 and
+   320 in both dtypes (general), and at the D 256 LM's B8 H2 T1024, plus the strided
+   (B, T, H, D) layout the transformer uses; the kernel family ``route``
+   names must run; a second launch bit for bit equal;
+   ``F.scaled_dot_product_attention`` timed as a yardstick only;
+3b. the flash backward kernels (dQ, dK/dV; on the tensor cores in bf16,
+   dQ up to D 128, dK/dV up to 256 on two warpgroups) against
+   ``flash_attention_bwd_reference`` on the same inputs, through strided
+   (B, T, H, D) views of one qkv buffer, at B1 H8 D64 T 1024/2048/4096
+   bf16, T 2048 f32, T 200 causal and T 256 non-causal, head dim 80 in
+   both dtypes, the train path's B32 T1024 bf16, causal and non-causal,
+   and phase 3's head dims past 128 (and D 12), causal;
    a second launch of each bit for bit equal; the autograd Function's
    grads against autograd through ``mha_reference``; dQ's device time
    against its bound and SDPA's whole backward (timed as a yardstick
@@ -59,8 +66,11 @@ Phases, each fatal on failure:
    the launch counts are set to 0 just before the kernel path, and every
    step must launch K1 16 times and dQ and dK/dV 8 times each, every
    launch on the tensor-core kernels; then the same LM at head dim 256
-   (2 heads, 2 layers, batch 8) for one step on the general kernels,
-   held to the same bars (its own path: counts set to 0 just before it);
+   (2 heads, 2 layers, batch 8) for one step, K1 (4 launches) and dK/dV
+   (2) on the tensor cores padded to 256 and dQ (2) on the general
+   kernel, and once more in f32, every launch on the general kernels,
+   each held to the same bars (each its own path: counts set to 0 just
+   before it);
 7. the fused BatchNorm+activation kernels (K3: normalize+act, stats,
    backward reduce, backward dx) against their plain versions at all
    nine (N, C) shapes a ResNet-50 BN gives them at batch 128, relu and
@@ -118,6 +128,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -140,12 +151,19 @@ RESNET_STATE_REL_L2 = 2e-2               # bf16 running mean/var, per tensor
 RESNET_F32_STATE_REL_L2 = 1e-4           # f32 running mean/var, per tensor
 K3_SUM_RTOL = 1e-4                       # f32 per-channel sums, reordered
 K3_EPILOGUE_RTOL = 1e-6                  # mean/var/inv from the same sums
-# (dtype, B, T, D) of the head-dim-general flash kernels (H 8): a bf16 D
-# that is not a multiple of 8, and D > 128 at 64, 32 and 16 tile rows
+# (dtype, B, T, D) past the fast kernels' D 128 and a bf16 D that is not
+# a multiple of 8 (H 8): bf16 D 160 and 256 run K1 and dK/dV padded to 256
+# on the tensor cores, every other one the head-dim-general kernels at 64,
+# 32 and 16 tile rows (bf16 D 320 too, so that the general bf16 kernels
+# stay held past D 128)
 GENERAL_SHAPES = ((torch.bfloat16, 2, 1024, 12),
                   (torch.bfloat16, 1, 1024, 160), (torch.float32, 1, 1024, 160),
                   (torch.bfloat16, 1, 1024, 256), (torch.float32, 1, 1024, 256),
-                  (torch.float32, 1, 1024, 320))
+                  (torch.bfloat16, 1, 1024, 320), (torch.float32, 1, 1024, 320))
+# the D 256 LM's attention (B8 H2 T1024 D256 bf16): phase 6's train_d256
+# path hands K1, dQ and dK/dV this shape
+D256_LM = (torch.bfloat16, 8, 1024, 256)
+D256_LM_HEADS = 2
 RESNET_BATCH = 128
 RESNET_HW = 224
 # every (H = W, C) a BN of ResNet-50 at 224x224 hands K3 (N = batch*H*W):
@@ -257,13 +275,17 @@ def kl_rows(ref_logits, cand_logits):
 
 # ---------------------------------------------------------------- phase 2
 
-def check_paged(pa, dtype, gen):
-    """K2 vs its plain version at the 120M decode shapes: 8 slots,
-    page_len 16, H 8, Dh 64, max_len 2048 (128 table entries), contexts
-    up to 1024. Timed over 4 layers' pools in turn, so each launch reads
-    its pages from device memory rather than from L2."""
+# K2's slots in phase 2 and ``--flash-times``: (cursor, case)
+PAGED_CASES = [(1023, "mapped"), (700, "partial-tail"), (5, "single-page"),
+               (900, "cow-shared"), (0, "empty"), (511, "page-boundary"),
+               (512, "page-start"), (333, "sentinel-after-cursor")]
+
+
+def paged_inputs(gen, dtype, h, dh, n_layers=4):
+    """q (8, h, dh) and ``n_layers`` pools of 1024 pages of 16 rows, and
+    the table and cursors of :data:`PAGED_CASES` (128 entries a slot)."""
     dev = "cuda"
-    n_layers, b, h, dh, plen, per_slot = 4, 8, 8, 64, 16, 128
+    b, plen, per_slot = len(PAGED_CASES), 16, 128
     npg = b * per_slot
     k = torch.randn((n_layers, npg, plen, h, dh), generator=gen,
                     device=dev).to(dtype)
@@ -273,12 +295,8 @@ def check_paged(pa, dtype, gen):
     perm = torch.randperm(npg, generator=torch.Generator().manual_seed(1))
     table = torch.full((b, per_slot), npg, dtype=torch.int32)
     pos = torch.zeros((b,), dtype=torch.int32)
-    # slot: (cursor, case)
-    cases = [(1023, "mapped"), (700, "partial-tail"), (5, "single-page"),
-             (900, "cow-shared"), (0, "empty"), (511, "page-boundary"),
-             (512, "page-start"), (333, "sentinel-after-cursor")]
     nxt = 0
-    for s, (p, case) in enumerate(cases):
+    for s, (p, case) in enumerate(PAGED_CASES):
         pos[s] = p
         if case == "empty":
             continue                       # every entry stays the sentinel
@@ -291,6 +309,19 @@ def check_paged(pa, dtype, gen):
         else:
             table[s, :need] = perm[nxt:nxt + need].int()
             nxt += need
+    return q, k, v, table, pos
+
+
+def check_paged(pa, dtype, gen, h=8, dh=64):
+    """K2 vs its plain version at the 120M decode shapes (8 slots,
+    page_len 16, H 8, Dh 64, max_len 2048: 128 table entries, contexts up
+    to 1024), or at another (h, dh). Timed over 4 layers' pools in turn,
+    so each launch reads its pages from device memory rather than from
+    L2."""
+    dev = "cuda"
+    n_layers, b, plen, per_slot = 4, len(PAGED_CASES), 16, 128
+    q, k, v, table, pos = paged_inputs(gen, dtype, h, dh, n_layers)
+    cases = PAGED_CASES
     live = [s for s, (_, c) in enumerate(cases) if c != "empty"]
     # operations are per (slot, row); bytes per DISTINCT (page, row): the
     # CoW slot's shared pages need reading from device memory only once
@@ -331,7 +362,8 @@ def check_paged(pa, dtype, gen):
               + table.numel() * 4 + pos.numel() * 4)
     flops = 4 * rows * h * dh
     bms, by = bound_ms(nbytes, flops, dtype)
-    log(f"K2 paged_attention {str(dtype)[6:]}: max_abs_err {err:.3e} "
+    log(f"K2 paged_attention {str(dtype)[6:]} H{h} Dh{dh}: max_abs_err "
+        f"{err:.3e} "
         f"(atol {ATOL[dtype]}), empty slot max |out| {err_empty:.1e}, "
         f"second launch {'identical' if repeats else 'DIFFERS'}; split "
         f"plan {dataclasses.asdict(plan)}; device ms: kernel (both "
@@ -340,8 +372,8 @@ def check_paged(pa, dtype, gen):
         f"{ms / bms:.1f}x), live rows {rows} ({distinct_rows} distinct) -> "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit(f"K2 {dtype} disagrees with its plain version or "
-                         "does not repeat")
+        raise SystemExit(f"K2 {dtype} Dh {dh} disagrees with its plain "
+                         "version or does not repeat")
     return {"max_abs_err": err, "ms": ms, "call_ms": call_ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "rows": rows, "distinct_rows": distinct_rows}
@@ -358,10 +390,10 @@ def route_counts(fa, part=""):
 
 
 def route_state(fa, before, part, d, dtype):
-    """(ok, text): the kernel family ``fa.route`` names for (d, dtype)
-    launched once since ``before`` = :func:`route_counts`, and no other
-    counted family did."""
-    kind = fa.route(d, dtype)
+    """(ok, text): the kernel family ``fa.route`` names for (d, dtype) in
+    K1 (part "") or the "dq" or "dkv" kernel launched once since
+    ``before`` = :func:`route_counts`, and no other counted family did."""
+    kind = fa.route(d, dtype, part or "fwd")
     now = route_counts(fa, part)
     want = (int(kind == "wgmma"), int(kind == "general"))
     ok = (now[0] - before[0], now[1] - before[1]) == want
@@ -372,7 +404,7 @@ def check_flash(fa, dtype, b, t, gen, h=8, d=64):
     """K1 vs mha_reference (O and lse), causal, (B, H, T, D); the same
     inputs through the strided (B, T, H, D) entry point; a second launch
     bit for bit equal to the first; the kernel family of ``fa.route``
-    (bf16 tensor cores up to D 128, the general kernel past it) must run.
+    (bf16 tensor cores up to D 256, the general kernel past it) must run.
     SDPA timed."""
     dev = "cuda"
     q, k, v = (torch.randn((b, h, t, d), generator=gen, device=dev)
@@ -473,9 +505,11 @@ def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64):
                                    "bthd")
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
                                         causal, "bthd")
-    dq_ok, route = route_state(fa, before[0], "dq", d, dtype)
-    dkv_ok, _ = route_state(fa, before[1], "dkv", d, dtype)
+    dq_ok, dq_route = route_state(fa, before[0], "dq", d, dtype)
+    dkv_ok, dkv_route = route_state(fa, before[1], "dkv", d, dtype)
     tc_ok = dq_ok and dkv_ok
+    route = (dq_route if dq_route == dkv_route
+             else f"dQ {dq_route}, dK/dV {dkv_route}")
     dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal,
                                     "bthd")
     dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
@@ -681,6 +715,24 @@ def _named_leaves(tree, prefix=""):
     return [(prefix, tree)]
 
 
+def lm_setup(tfm, batch, n_heads, n_layers, dtype):
+    """The LM of ``bench.py``'s transformer row (bench.py:594-598; T 1024,
+    d_model 512) at the given heads, depth and compute dtype: its config,
+    params from seed 0 and one batch of seeded ids and targets."""
+    cfg = tfm.TransformerConfig(vocab_size=32000, d_model=512,
+                                n_heads=n_heads, n_layers=n_layers,
+                                d_ff=2048, max_seq=1024,
+                                dtype=dtype, fused_loss=True,
+                                remat=True, remat_policy="save_attn",
+                                attn_scores_bf16=dtype == torch.bfloat16)
+    init = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, cfg.vocab_size, (batch, cfg.max_seq))
+    tgt = rng.integers(0, cfg.vocab_size, (batch, cfg.max_seq))
+    ids, tgt = (torch.as_tensor(a, device="cuda") for a in (ids, tgt))
+    return cfg, init, ids, tgt
+
+
 FLASH_COUNTERS = ("LAUNCHES", "LAUNCHES_BWD_DQ", "LAUNCHES_BWD_DKV",
                   "LAUNCHES_TC", "LAUNCHES_BWD_DQ_TC", "LAUNCHES_BWD_DKV_TC",
                   "LAUNCHES_GENERAL", "LAUNCHES_BWD_DQ_GENERAL",
@@ -688,27 +740,16 @@ FLASH_COUNTERS = ("LAUNCHES", "LAUNCHES_BWD_DQ", "LAUNCHES_BWD_DKV",
 
 
 def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
-               n_layers=8, tag="train"):
+               n_layers=8, tag="train", dtype=torch.bfloat16):
     """The LM of ``bench.py``'s transformer row trained at full width (T
-    1024, d_model 512; ``n_heads`` and ``n_layers`` as given) on the
-    kernel path and on the plain path from identical params and one
-    batch."""
+    1024, d_model 512; ``n_heads``, ``n_layers`` and the compute dtype as
+    given) on the kernel path and on the plain path from identical params
+    and one batch."""
     from deeplearning4j_tpu_torch.zoo import transformer as tfm
 
-    # bench.py's transformer row (bench.py:594-598)
-    cfg = tfm.TransformerConfig(vocab_size=32000, d_model=512,
-                                n_heads=n_heads, n_layers=n_layers,
-                                d_ff=2048, max_seq=1024,
-                                dtype=torch.bfloat16, fused_loss=True,
-                                remat=True, remat_policy="save_attn",
-                                attn_scores_bf16=True)
+    cfg, init, ids, tgt = lm_setup(tfm, batch, n_heads, n_layers, dtype)
     plain_cfg = dataclasses.replace(cfg, use_flash_attention=False,
                                     attn_scores_bf16=False)
-    init = tfm.init_params(cfg, torch.Generator().manual_seed(0))
-    rng = np.random.default_rng(0)
-    ids = rng.integers(0, cfg.vocab_size, (batch, cfg.max_seq))
-    tgt = rng.integers(0, cfg.vocab_size, (batch, cfg.max_seq))
-    ids, tgt = (torch.as_tensor(a, device="cuda") for a in (ids, tgt))
     tokens = batch * cfg.max_seq
     runs = {}
     for path, c in (("kernel", cfg), ("plain", plain_cfg)):
@@ -742,12 +783,15 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
                "paged_launches": pa.LAUNCHES}
         if steps > 1:
             run["tok_per_s_steps_2_5"] = tokens * (steps - 1) / sum(secs[1:])
-        log(f"{tag} {path} path (B{batch} T{cfg.max_seq} D{cfg.head_dim}, "
+        log(f"{tag} {path} path (B{batch} T{cfg.max_seq} D{cfg.head_dim} "
+            f"{str(dtype)[6:]}, "
             f"{'flash kernels' if c is cfg else 'plain attention'}): "
             f"{json.dumps(run)}")
         runs[path] = (run, grads)
         if profile and path == "kernel":
-            profile_train_step(step, params, ids, tgt)
+            profile_train_step(step, params, ids, tgt,
+                               f"{tag} step, B{batch} T{cfg.max_seq} "
+                               f"D{cfg.head_dim}")
         del params, opt, step
         torch.cuda.empty_cache()
 
@@ -757,12 +801,14 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
     worst = max(rels, key=rels.get)
     dloss = [abs(a - b) for a, b in zip(kr["losses"], pr["losses"])]
     # K1 runs twice a layer (forward and the save_attn recompute), dQ and
-    # dK/dV once; every launch on the family fa.route names (bf16: the
-    # tensor cores up to D 128, the general kernels past it)
+    # dK/dV once; every launch on the family fa.route names for its kernel
+    # (bf16: the tensor cores up to D 256 for K1 and dK/dV and up to 128
+    # for dQ, the general kernels past them; f32 past 128: general)
     per = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers]
-    kind = fa.route(cfg.head_dim, cfg.dtype)
-    want = per + [x * (kind == "wgmma") for x in per] \
-        + [x * (kind == "general") for x in per]
+    kinds = [fa.route(cfg.head_dim, cfg.dtype, kn)
+             for kn in ("fwd", "dq", "dkv")]
+    want = per + [x * (kd == "wgmma") for x, kd in zip(per, kinds)] \
+        + [x * (kd == "general") for x, kd in zip(per, kinds)]
     counts_ok = all(c == want for c in kr["launches_per_step"])
     falls = steps == 1 or (kr["losses"][-1] < kr["losses"][0]
                            and pr["losses"][-1] < pr["losses"][0])
@@ -791,7 +837,7 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
             "paged_attention": runs["kernel"][0]["paged_launches"]}
 
 
-def profile_train_step(step, params, ids, tgt):
+def profile_train_step(step, params, ids, tgt, label):
     """Where one kernel-path train step's device time goes: the top CUDA
     kernels by device time under ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
@@ -801,7 +847,7 @@ def profile_train_step(step, params, ids, tgt):
         step(params, ids, tgt)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    log("profile (train step, B32 T1024): " + json.dumps(
+    log(f"profile ({label}): " + json.dumps(
         device_rows(prof, wall, 1)))
 
 
@@ -1070,6 +1116,109 @@ def k3_times(root):
     log(json.dumps({"k3_times": rows, "per_resnet_step": step,
                     "root": str(root)}))
     return 0
+
+
+def flash_times(root):
+    """``--flash-times ROOT``: the device time (``torch.profiler``) and a
+    call's time by events of K1, dQ and dK/dV, bf16 causal at B1 H8 T1024
+    D256 and the D 256 LM's B8 H2 T1024 D256, for the port checked out at
+    ROOT (its kernels build under ROOT), on the kernel family its route
+    picks there; the D 256 LM's train step (phase 6's ``train_d256``)
+    profiled on ROOT's port: device time a step and its flash kernels'
+    share; then a digest of K2's outputs at Dh 64, 128 and 256 in bf16
+    and f32 on seeded inputs, so that two trees' K2 are held bit for bit.
+    Two versions are compared in one run: parent, change, change,
+    parent. Prints one JSON line."""
+    import hashlib
+    import importlib
+    import inspect
+    sys.path.insert(0, str(root))
+    fa = importlib.import_module(
+        "deeplearning4j_tpu_torch.kernels.flash_attention")
+    pa = importlib.import_module(
+        "deeplearning4j_tpu_torch.kernels.paged_attention")
+    tfm = importlib.import_module("deeplearning4j_tpu_torch.zoo.transformer")
+    log(f"flash-times: kernels from {fa.__file__}")
+    per_kernel = len(inspect.signature(fa.route).parameters) == 3
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for b, h in ((1, 8), (D256_LM[1], D256_LM_HEADS)):
+        dtype, t, d = torch.bfloat16, 1024, 256
+        q, k, v, do = (torch.randn((b, h, t, d), generator=gen,
+                                   device="cuda").to(dtype)
+                       for _ in range(4))
+        scale = d ** -0.5
+        o, lse = fa.flash_attention_lse(q, k, v, causal=True)
+        delta = (do.float() * o.float()).sum(-1).contiguous()
+        fns = {"fwd": lambda: fa.flash_attention_lse(q, k, v, causal=True),
+               "dq": lambda: fa.flash_attention_bwd_dq(
+                   q, k, v, do, lse, delta, scale, True),
+               "dkv": lambda: fa.flash_attention_bwd_dkv(
+                   q, k, v, do, lse, delta, scale, True)}
+        row = {"shape": f"B{b} H{h} T{t} D{d} bf16 causal"}
+        for name, fn in fns.items():
+            row[name] = {"route": (fa.route(d, dtype, name) if per_kernel
+                                   else fa.route(d, dtype)),
+                         "ms": device_ms(fn), "call_ms": cuda_ms(fn)}
+        log(f"flash-times {json.dumps(row)}")
+        rows.append(row)
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    step = lm_step_times(tfm, D256_LM[1], D256_LM_HEADS, 2)
+    log(f"flash-times D 256 LM step {json.dumps(step)}")
+    torch.cuda.empty_cache()
+    digests = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for dh in (64, 128, 256):
+            g2 = torch.Generator(device="cuda").manual_seed(dh)
+            q, k, v, table, pos = paged_inputs(g2, dtype, 4, dh, n_layers=1)
+            out = pa.paged_attention(q, k[0], v[0], table.cuda(), pos.cuda())
+            digests[f"{str(dtype)[6:]} Dh{dh}"] = hashlib.sha256(
+                out.float().cpu().numpy().tobytes()).hexdigest()[:16]
+    log(json.dumps({"flash_times": rows, "d256_lm_step": step,
+                    "k2_digests": digests, "root": str(root)}))
+    return 0
+
+
+def lm_step_times(tfm, batch, n_heads, n_layers, steps=5):
+    """Device time a step of the bf16 LM's kernel-path train step (AdamW,
+    as phase 6 runs it) under ``torch.profiler`` over ``steps`` steps
+    after two warm-up steps: all kernels and copies, and the flash
+    kernels (every kernel named ``flash_*_kernel``) with their launches;
+    the host's wall time a step beside them."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg, params, ids, tgt = lm_setup(tfm, batch, n_heads, n_layers,
+                                     torch.bfloat16)
+    opt = torch.optim.AdamW(tfm.param_leaves(params), lr=3e-4,
+                            weight_decay=1e-4)
+    step = tfm.make_train_step(cfg, opt)
+    for _ in range(2):
+        step(params, ids, tgt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step(params, ids, tgt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof, wall, steps)
+    flash = {}
+    for ev in prof.key_averages():
+        name = re.search(r"flash_\w+_kernel(<[^>]*>)?", ev.key)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and name:
+            us, n = flash.get(name[0], (0.0, 0))
+            flash[name[0]] = (us + _self_device_us(ev), n + ev.count)
+    return {"shape": f"B{batch} T{cfg.max_seq} H{n_heads} D{cfg.head_dim} "
+                     f"{n_layers} layers bf16",
+            "steps": steps,
+            "wall_ms_per_step": rows["wall_ms_per_step"],
+            "device_ms_per_step": rows["device_ms_per_step"],
+            "flash_ms_per_step": sum(us for us, _ in flash.values())
+            / 1e3 / steps,
+            "flash_kernels": {k: {"ms_per_step": us / 1e3 / steps,
+                                  "calls_per_step": n / steps}
+                              for k, (us, n) in flash.items()}}
 
 
 def k3_phase(fo, gen):
@@ -1805,12 +1954,18 @@ def main():
     ap.add_argument("--k3-times", metavar="ROOT",
                     help="only time the K3 reductions of the port checked "
                          "out at ROOT (prints no result line)")
+    ap.add_argument("--flash-times", metavar="ROOT",
+                    help="only time K1, dQ and dK/dV at head dim 256 and "
+                         "digest K2's outputs, for the port checked out at "
+                         "ROOT (prints no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     if args.k3_times:
         return k3_times(args.k3_times)
+    if args.flash_times:
+        return flash_times(args.flash_times)
     from deeplearning4j_tpu_torch.kernels import KERNEL_SOURCES, _build
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import fused_lstm as fl
@@ -1834,6 +1989,9 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     k2 = {dt: check_paged(pa, dt, gen)
           for dt in (torch.bfloat16, torch.float32)}
+    # an LM of head dim 320 (d_model 640, 2 heads): past 256
+    k2_320 = {dt: check_paged(pa, dt, gen, h=2, dh=320)
+              for dt in (torch.bfloat16, torch.float32)}
     # (dtype, B, T, D); D 80 runs padded to 128 inside the kernels
     k1 = {}
     for dt, b, t, d in (
@@ -1845,6 +2003,8 @@ def main():
             *GENERAL_SHAPES):
         k1[(dt, b, t, d)] = check_flash(fa, dt, b, t, gen, d=d)
         torch.cuda.empty_cache()
+    k1[D256_LM] = check_flash(fa, *D256_LM[:3], gen, h=D256_LM_HEADS,
+                              d=D256_LM[3])
     bwd = {}
     for dt, b, t, causal, d in (
             (torch.bfloat16, 1, 1024, True, 64),
@@ -1863,6 +2023,9 @@ def main():
         bwd[(dt, b, t, causal, d)] = check_flash_bwd(fa, dt, b, t, causal,
                                                      gen, d=d)
         torch.cuda.empty_cache()
+    lm_bwd = (*D256_LM[:3], True, D256_LM[3])
+    bwd[lm_bwd] = check_flash_bwd(fa, *lm_bwd[:4], gen, h=D256_LM_HEADS,
+                                  d=D256_LM[3])
     k3, k3_checked = k3_phase(fo, gen)
     k4, k4_checked = k4_phase(fl, gen)
     if args.kernels_only:
@@ -1870,9 +2033,16 @@ def main():
 
     by_path = main_path(fa, pa)
     by_path["train"] = train_path(fa, pa, profile=args.profile_train)
-    # an LM of head dim 256 (2 heads): one step on the general kernels
+    # an LM of head dim 256 (2 heads): one step, bf16 K1 and dK/dV on the
+    # tensor cores and dQ on the general kernel; then in f32, every kernel
+    # on the general family
     by_path["train_d256"] = train_path(fa, pa, steps=1, batch=8, n_heads=2,
-                                       n_layers=2, tag="train D256")
+                                       n_layers=2, tag="train D256",
+                                       profile=args.profile_train)
+    by_path["train_d256_f32"] = train_path(fa, pa, steps=1, batch=8,
+                                           n_heads=2, n_layers=2,
+                                           tag="train D256 f32",
+                                           dtype=torch.float32)
     by_path.update(resnet_path(fa, pa, fo, k3_checked,
                                profile=args.profile_resnet))
     lstm_paths = charnn_path(fa, pa, fo, fl, k4_checked,
@@ -1886,72 +2056,121 @@ def main():
     main_k2 = k2[torch.bfloat16]
     main_bwd = bwd[(torch.bfloat16, 32, 1024, True, 64)]  # the train path's
     main_k4 = k4[torch.bfloat16]                # the char-RNN's shape
-    # the general kernels at the D 256 LM's head dim, bf16
-    gen_k1 = k1[(torch.bfloat16, 1, 1024, 256)]
-    gen_bwd = bwd[(torch.bfloat16, 1, 1024, True, 256)]
-    general = {key for key in k1 if fa.route(key[3], key[0]) == "general"}
-    kernels = [
-        {"name": "flash_attention_fwd", "route": "cuda",
-         "source": "deeplearning4j_tpu_torch/csrc/flash_attention_fwd.cu",
-         "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:51",
-         "kernel": "flash_fwd_wgmma_kernel (bf16, tensor cores)",
-         "launches": sum(c.get("flash_attention_fwd_tc", 0)
-                         for c in by_path.values()),
-         "launches_by_path": {p: c.get("flash_attention_fwd_tc", 0)
-                              for p, c in by_path.items()},
-         "max_abs_err": max(r["max_abs_err"] for key, r in k1.items()
-                            if fa.route(key[3], key[0]) == "wgmma"),
-         "ms": main_k1["ms"], "plain_ms": main_k1["plain_ms"],
-         "bound_ms": main_k1["bound_ms"], "bound_by": main_k1["bound_by"],
-         "library_ms": main_k1["library_ms"],
-         "train_shape": {"shape": "B32 H8 T1024 D64",
-                         **{key: train_k1[key] for key in (
-                             "max_abs_err", "ms", "plain_ms", "bound_ms",
-                             "bound_by", "library_ms")}}},
-        *({"name": f"flash_attention_bwd_{part}", "route": "cuda",
-           "source": "deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
-           "replaces": f"deeplearning4j_tpu/kernels/flash_attention.py:{line}",
-           "kernel": f"flash_bwd_{part}_wgmma_kernel (bf16, tensor cores)",
-           "launches": by_path["train"][counter],
-           "launches_by_path": {"train": by_path["train"][counter]},
-           "max_abs_err": max(r[part]["max_abs_err"]
-                              for key, r in bwd.items()
-                              if fa.route(key[4], key[0]) == "wgmma"),
-           "ms": main_bwd[part]["ms"], "plain_ms": main_bwd["plain_ms"],
-           "bound_ms": main_bwd[part]["bound_ms"],
-           "bound_by": main_bwd[part]["bound_by"],
-           "library_ms": main_bwd["library_ms"]}
-          for part, line, counter in (
-              ("dq", 146, "flash_attention_bwd_dq_tc"),
-              ("dkv", 186, "flash_attention_bwd_dkv_tc"))),
-        {"name": "flash_attention_fwd_general", "route": "cuda",
-         "source": "deeplearning4j_tpu_torch/csrc/flash_attention_fwd.cu",
-         "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:51",
-         "kernel": "flash_fwd_general_kernel (any D, CUDA cores)",
-         "launches": by_path["train_d256"]["flash_attention_fwd_general"],
-         "launches_by_path": {p: c.get("flash_attention_fwd_general", 0)
-                              for p, c in by_path.items()},
-         "max_abs_err": max(k1[key]["max_abs_err"] for key in general),
-         "shape": "B1 H8 T1024 D256 bf16",
-         **{key: gen_k1[key] for key in ("ms", "plain_ms", "bound_ms",
-                                         "bound_by", "library_ms")}},
-        *({"name": f"flash_attention_bwd_{part}_general", "route": "cuda",
-           "source": "deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
-           "replaces": f"deeplearning4j_tpu/kernels/flash_attention.py:{line}",
-           "kernel": f"flash_bwd_{part}_general_kernel (any D, CUDA cores)",
-           "launches": by_path["train_d256"][counter],
-           "launches_by_path": {p: c.get(counter, 0)
-                                for p, c in by_path.items()},
-           "max_abs_err": max(bwd[(*key[:3], True, key[3])][part]
-                              ["max_abs_err"] for key in general),
-           "shape": "B1 H8 T1024 D256 bf16 causal",
-           "ms": gen_bwd[part]["ms"], "plain_ms": gen_bwd["plain_ms"],
-           "bound_ms": gen_bwd[part]["bound_ms"],
-           "bound_by": gen_bwd[part]["bound_by"],
-           "library_ms": gen_bwd["library_ms"]}
-          for part, line, counter in (
-              ("dq", 146, "flash_attention_bwd_dq_general"),
-              ("dkv", 186, "flash_attention_bwd_dkv_general"))),
+    # the padded-256 tensor-core K1 and dK/dV at rows 1g/3g's shape and the
+    # D 256 LM's; the general kernels at the D they still serve (f32 D 256;
+    # dQ: bf16 D 256)
+    d256 = (torch.bfloat16, 1, 1024, 256)
+    d256_bwd = bwd[(*d256[:3], True, 256)]
+    gen_k1 = k1[(torch.float32, 1, 1024, 256)]
+    gen_bwd = {"dq": d256_bwd, "dkv": bwd[(torch.float32, 1, 1024, True,
+                                           256)]}
+    gen_shape = {"dq": "B1 H8 T1024 D256 bf16 causal",
+                 "dkv": "B1 H8 T1024 D256 f32 causal"}
+    gen_dtype = {"dq": "bfloat16", "dkv": "float32"}
+
+    def family(key, kernel, kind, wide=None):
+        """Phase 3/3b keys (dtype, B, T, D) that ``kernel`` runs on
+        ``kind``, past D 128 only (wide True) or up to it (False)."""
+        return fa.route(key[-1], key[0], kernel) == kind and (
+            wide is None or (key[-1] > 128) == wide)
+
+    def tc_launches(name, wide):
+        """Tensor-core launches of ``name`` on the paths at head dim 256
+        (wide) or on every other path."""
+        return {p: c.get(f"{name}_tc", 0) for p, c in by_path.items()
+                if (p == "train_d256") == wide}
+
+    def timed(r, part=None, plain=None, library=None):
+        r = r if part is None else {**r[part], "plain_ms": plain,
+                                    "library_ms": library}
+        return {key: r[key] for key in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}
+
+    kernels = []
+    for wide in (False, True):
+        launches = tc_launches("flash_attention_fwd", wide)
+        main = k1[d256] if wide else main_k1
+        kernels.append({
+            "name": "flash_attention_fwd" + ("_d256" if wide else ""),
+            "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/csrc/flash_attention_fwd.cu",
+            "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:51",
+            "kernel": ("flash_fwd_wgmma_kernel<256, 64> (bf16, tensor "
+                       "cores, padded D 256)" if wide else
+                       "flash_fwd_wgmma_kernel (bf16, tensor cores)"),
+            "dtype": "bfloat16",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max(r["max_abs_err"] for key, r in k1.items()
+                               if family(key, "fwd", "wgmma", wide)),
+            **({"shape": "B1 H8 T1024 D256 bf16"} if wide else {}),
+            **timed(main),
+            **({"lm_shape": {"shape": "B8 H2 T1024 D256 bf16",
+                             **timed(k1[D256_LM])}} if wide else
+               {"train_shape": {"shape": "B32 H8 T1024 D64",
+                                "max_abs_err": train_k1["max_abs_err"],
+                                **timed(train_k1)}})})
+    for part, line in (("dq", 146), ("dkv", 186)):
+        for wide in ((False, True) if part == "dkv" else (False,)):
+            counter = f"flash_attention_bwd_{part}"
+            launches = tc_launches(counter, wide)
+            main = d256_bwd if wide else main_bwd
+            entry = {
+                "name": counter + ("_d256" if wide else ""),
+                "route": "cuda",
+                "source": "deeplearning4j_tpu_torch/csrc/"
+                          "flash_attention_bwd.cu",
+                "replaces": "deeplearning4j_tpu/kernels/"
+                            f"flash_attention.py:{line}",
+                "kernel": ("flash_bwd_dkv_wgmma_split_kernel (bf16, two "
+                           "warpgroups, padded D 256)" if wide else
+                           f"flash_bwd_{part}_wgmma_kernel (bf16, tensor "
+                           "cores)"),
+                "dtype": "bfloat16",
+                "launches": sum(launches.values()),
+                "launches_by_path": launches,
+                "max_abs_err": max(r[part]["max_abs_err"]
+                                   for key, r in bwd.items()
+                                   if family(key, part, "wgmma", wide)),
+                **timed(main, part, main["plain_ms"], main["library_ms"])}
+            if wide:
+                lm = bwd[lm_bwd]
+                entry["shape"] = "B1 H8 T1024 D256 bf16 causal"
+                entry["lm_shape"] = {
+                    "shape": "B8 H2 T1024 D256 bf16 causal",
+                    **timed(lm, part, lm["plain_ms"], lm["library_ms"])}
+            kernels.append(entry)
+    gen_fwd = {p: c.get("flash_attention_fwd_general", 0)
+               for p, c in by_path.items()}
+    kernels.append({
+        "name": "flash_attention_fwd_general_f32", "route": "cuda",
+        "source": "deeplearning4j_tpu_torch/csrc/flash_attention_fwd.cu",
+        "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:51",
+        "kernel": "flash_fwd_general_kernel (any D, CUDA cores)",
+        "dtype": "float32",
+        "launches": sum(gen_fwd.values()), "launches_by_path": gen_fwd,
+        "max_abs_err": max(r["max_abs_err"] for key, r in k1.items()
+                           if family(key, "fwd", "general")),
+        "shape": "B1 H8 T1024 D256 f32", **timed(gen_k1)})
+    for part, line in (("dq", 146), ("dkv", 186)):
+        counter = f"flash_attention_bwd_{part}_general"
+        launches = {p: c.get(counter, 0) for p, c in by_path.items()}
+        g = gen_bwd[part]
+        kernels.append({
+            "name": counter + ("_f32" if gen_dtype[part] == "float32"
+                               else ""),
+            "route": "cuda",
+            "source": "deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
+            "replaces": f"deeplearning4j_tpu/kernels/flash_attention.py:{line}",
+            "kernel": f"flash_bwd_{part}_general_kernel (any D, CUDA cores)",
+            "dtype": gen_dtype[part],
+            "launches": sum(launches.values()), "launches_by_path": launches,
+            "max_abs_err": max(r[part]["max_abs_err"]
+                               for key, r in bwd.items()
+                               if family(key, part, "general")),
+            "shape": gen_shape[part],
+            **timed(g, part, g["plain_ms"], g["library_ms"])})
+    kernels += [
         {"name": "paged_attention", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/paged_attention.cu",
          "replaces": "deeplearning4j_tpu/kernels/paged_attention.py:72",
@@ -1963,7 +2182,10 @@ def main():
          "ms": main_k2["ms"], "call_ms": main_k2["call_ms"],
          "plain_ms": main_k2["plain_ms"],
          "bound_ms": main_k2["bound_ms"], "bound_by": main_k2["bound_by"],
-         "library_ms": None},
+         "library_ms": None,
+         "dh320": {str(dt)[6:]: {key: r[key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+             for dt, r in k2_320.items()}},
         *({"name": name, "route": "cuda",
            "source": "deeplearning4j_tpu_torch/csrc/fused_bn_act.cu",
            "replaces": f"deeplearning4j_tpu/kernels/fused_ops.py:{line}",

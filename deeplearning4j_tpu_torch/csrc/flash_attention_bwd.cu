@@ -81,9 +81,12 @@
 // fill the columns in [D, DP) with zeros (cp.async src-size 0 in bf16, a
 // guard in f32), which add nothing to any dot product, and stores write
 // only the D real columns. They keep their accumulators in registers, so
-// past 128 dK/dV's two f32 accumulators would need DP registers a thread.
-// Every other D (D > 128 in both dtypes, a bf16 D that is not a multiple
-// of 8) runs the head-dim-general CUDA-core kernels
+// past 128 dK/dV's two f32 accumulators would need DP registers a thread:
+// bf16 dK/dV at D 136..256 (a multiple of 8) runs padded to 256 on two
+// warpgroups that split the columns (flash_bwd_dkv_wgmma_split_kernel).
+// Every other D (f32 D > 128, bf16 dQ past 128, bf16 dK/dV past 256, a
+// bf16 D that is not a multiple of 8) runs the head-dim-general CUDA-core
+// kernels
 // (flash_bwd_dq_general_kernel, flash_bwd_dkv_general_kernel;
 // flash_general.cuh): the same two passes with every tile and accumulator
 // in dynamic shared memory, R = 64..8 rows by D, element-by-element loads.
@@ -524,6 +527,251 @@ flash_bwd_dkv_wgmma_kernel(const dl4j_mma::bf16* __restrict__ q,
   }
 }
 
+// ------------- bf16 dK/dV at padded D 256, two warpgroups (wgmma)
+
+// At padded D 256 one warpgroup's dK and dV would be 2 x 128 f32
+// accumulators a thread, past the 255 registers a thread may hold. Two
+// consumer warpgroups (256 threads) share the block's 64 keys instead:
+// warpgroup w owns columns [128 w, 128 w + 128) of dK and dV, 64 + 64
+// accumulators a thread. Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ are computed once,
+// split along their depth D: each warpgroup forms the f32 partial over its
+// own 128 columns (k-steps 8 w .. 8 w + 7), the two trade partials through
+// shared memory (Sᵀ, then dPᵀ; 16 KiB a warpgroup, stored in the
+// accumulators' own fragment order, since thread t of either warpgroup
+// holds the same elements of the 64 x 64 product), and both add the two
+// halves, so both hold bit-identical Pᵀ and dSᵀ. Each feeds them
+// from registers as the A operand of its own N = 128 products, dV += Pᵀ·dO
+// and dK += dSᵀ·Q, reading its column half of dO and Q (panels 2 w and
+// 2 w + 1 of the four) through MN-major descriptors. Shared memory: K and
+// V 64 KiB, two stages of (Q, dO) 128 KiB, the exchange 32 KiB, the lse
+// and delta rows 1 KiB and 1 KiB of alignment, 226 KiB: one block an SM.
+struct DkvSplitCfg {
+  static constexpr int D = 256;
+  static constexpr int DH = D / 2;  // columns of dK, dV a warpgroup owns
+  static constexpr int BKV = 64;    // keys per block
+  static constexpr int BQ = 64;     // query rows per step
+  static constexpr int THREADS = 256;
+  using KT = dl4j_mma::Tile<D, BKV>;
+  using QT = dl4j_mma::Tile<D, BQ>;
+  // K, V, two stages of (Q, dO), the exchange (a 64 x 64 f32 partial a
+  // warpgroup), then two stages of (lse, delta) rows
+  static constexpr int ROWS = 2 * KT::BYTES + 4 * QT::BYTES;
+  static constexpr int XCH = 2 * BKV * BQ * 4;
+  static constexpr int SMEM = ROWS + XCH + 4 * BQ * 4 + 1024;
+};
+static_assert(DkvSplitCfg::SMEM <= 232448, "227 KiB a block on sm_90");
+
+// x = half 0 + half 1 of a 64 x 64 product of which this warpgroup holds
+// one half in x: post it to `mine` (fragment order: float4 j of thread wt
+// at j * 128 + wt), wait for the other warpgroup's, and add the two. One
+// f32 addition of two terms is commutative, so both warpgroups get the
+// same bits.
+template <int N>
+__device__ __forceinline__ void trade_halves(float (&x)[N], float4* mine,
+                                             const float4* theirs,
+                                             int wt) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j)
+    mine[j * 128 + wt] =
+        make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2], x[4 * j + 3]);
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    const float4 o = theirs[j * 128 + wt];
+    x[4 * j] += o.x;
+    x[4 * j + 1] += o.y;
+    x[4 * j + 2] += o.z;
+    x[4 * j + 3] += o.w;
+  }
+}
+
+__global__ void __launch_bounds__(DkvSplitCfg::THREADS, 1)
+flash_bwd_dkv_wgmma_split_kernel(const dl4j_mma::bf16* __restrict__ q,
+                                 const dl4j_mma::bf16* __restrict__ k,
+                                 const dl4j_mma::bf16* __restrict__ v,
+                                 const dl4j_mma::bf16* __restrict__ dout,
+                                 const float* __restrict__ lse,
+                                 const float* __restrict__ delta,
+                                 dl4j_mma::bf16* __restrict__ dk,
+                                 dl4j_mma::bf16* __restrict__ dv, int H,
+                                 int Tlen, int dr, Str sq, Str sk, Str sv,
+                                 Str sdo, Str sdk, Str sdv, float scale,
+                                 int causal) {
+  using namespace dl4j_mma;
+  using C = DkvSplitCfg;
+  using KT = C::KT;
+  using QT = C::QT;
+  constexpr int BQ = C::BQ;
+  constexpr int NS = BQ / 2;        // Sᵀ / dPᵀ accumulators a thread holds
+  constexpr int NX = NS / 4;        // float4s of them
+  constexpr int KH = C::DH / 16;    // k-steps of a half's partial
+  constexpr int NDH = C::DH / 8;    // n-tiles of a warpgroup's dK and dV
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  unsigned char* const gbase = smem + (base - smem_u32(smem));
+  const uint32_t s_k = base;
+  const uint32_t s_v = s_k + KT::BYTES;
+  const uint32_t s_ring = s_v + KT::BYTES;  // stage st: Q, then dO
+  const uint32_t s_rows = base + C::ROWS + C::XCH;  // stage st: lse, delta
+  float4* const xch = reinterpret_cast<float4*>(gbase + C::ROWS);
+  const float* const rows_ptr =
+      reinterpret_cast<const float*>(gbase + C::ROWS + C::XCH);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * C::BKV;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;           // this warpgroup's column half
+  const int wt = tid & 127;          // the thread within its warpgroup
+  const int warp = wt >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wkey = k0 + warp * 16;  // this warp's first key
+  const int dc = dr >> 3;           // real 8-column chunks of a row
+  const float sl2 = scale * kLog2e;
+  // this warpgroup's partials go to `mine`, the other's come from `theirs`
+  float4* const mine = xch + wg * NX * 128;
+  const float4* const theirs = xch + (wg ^ 1) * NX * 128;
+  // the byte offset of this warpgroup's column half (panels 2 wg, 2 wg + 1)
+  // in a tile: its k-steps of Sᵀ and dPᵀ, and its N = 128 of dV and dK
+  const uint32_t half = 2 * wg * QT::PANEL_BYTES;
+  static_assert(KT::PANEL_BYTES == QT::PANEL_BYTES, "one panel size");
+
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lseb = lse + (long long)bh * Tlen;
+  const float* deltab = delta + (long long)bh * Tlen;
+  // causal: query tiles above the block's first key see none of its keys
+  const int first = causal ? k0 / BQ : 0;
+  const int nqt = (Tlen + BQ - 1) / BQ;
+
+  // query tile `it` into ring stage `st`
+  auto fetch = [&](int it, int st) {
+    const uint32_t tq = s_ring + st * 2 * QT::BYTES;
+    const int i0 = it * BQ;
+    QT::template load<C::THREADS>(tq, qb, sq.t, i0, Tlen, dc, tid);
+    QT::template load<C::THREADS>(tq + QT::BYTES, dob, sdo.t, i0, Tlen, dc,
+                                  tid);
+    if (tid < BQ) {
+      const int row = i0 + tid;
+      const bool ok = row < Tlen;
+      const uint32_t r = s_rows + st * 2 * BQ * 4;
+      cp_async4(r + 4 * tid, lseb + (ok ? row : 0), ok);
+      cp_async4(r + 4 * (BQ + tid), deltab + (ok ? row : 0), ok);
+    }
+  };
+  KT::template load<C::THREADS>(s_k, k + b * sk.b + h * sk.h, sk.t, k0,
+                                Tlen, dc, tid);
+  KT::template load<C::THREADS>(s_v, v + b * sv.b + h * sv.h, sv.t, k0,
+                                Tlen, dc, tid);
+  fetch(first, 0);
+  cp_async_commit();
+
+  // n-tile d of this warp's keys, columns 128 wg + 8 d .., at [4d..4d+3]
+  float dka[C::DH / 2], dva[C::DH / 2];
+#pragma unroll
+  for (int i = 0; i < C::DH / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int it = first; it < nqt; ++it) {
+    const int st = (it - first) & 1;
+    if (it + 1 < nqt) fetch(it + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage (and K, V) have landed
+    __syncthreads();
+    const uint32_t s_q = s_ring + st * 2 * QT::BYTES;
+    const uint32_t s_do = s_q + QT::BYTES;
+    const float* ls = rows_ptr + st * 2 * BQ;
+    const float* dl = ls + BQ;
+    const int i0 = it * BQ;
+
+    // this half's partials of Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, issued together
+    float sacc[NS], dp[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sacc[i] = dp[i] = 0.f;
+    fence_regs(sacc);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KH; ++kk)
+      wgmma_ss<BQ>(sacc, KT::desc_k(s_k + half, kk),
+                   QT::desc_k(s_q + half, kk));
+#pragma unroll
+    for (int kk = 0; kk < KH; ++kk)
+      wgmma_ss<BQ>(dp, KT::desc_k(s_v + half, kk),
+                   QT::desc_k(s_do + half, kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sacc);
+    fence_regs(dp);
+    trade_halves(sacc, mine, theirs, wt);
+    __syncthreads();  // both have read the exchange before it is reused
+    trade_halves(dp, mine, theirs, wt);
+
+    // Pᵀ = exp(Sᵀ·scale - lse); only tiles that cross the diagonal or T
+    // are masked
+    const bool edge = i0 + BQ > Tlen || (causal && i0 < wkey + 15);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int qi = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      float p = exp2_approx(fmaf(sacc[i], sl2, -ls[qi] * kLog2e));
+      if (edge) {
+        const int row = i0 + qi;
+        const int key = wkey + g + 8 * ((i >> 1) & 1);
+        if (row >= Tlen || (causal && row < key)) p = 0.f;
+      }
+      sacc[i] = p;
+    }
+    // bf16(Pᵀ) and dSᵀ = bf16(Pᵀ ∘ (dPᵀ - delta)·scale) as A fragments
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 8 * kk + 2 * i;
+        const int qi = 8 * (j >> 2) + 2 * t4;
+        pa[kk][i] = pack_bf16(sacc[j], sacc[j + 1]);
+        da[kk][i] = pack_bf16(sacc[j] * (dp[j] - dl[qi]) * scale,
+                              sacc[j + 1] * (dp[j + 1] - dl[qi + 1]) * scale);
+      }
+    // dV += Pᵀ·dO and dK += dSᵀ·Q over this warpgroup's column half
+    fence_regs(dva);
+    fence_regs(dka);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs<C::DH>(dva, pa[kk], QT::desc_mn(s_do + half, kk));
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs<C::DH>(dka, da[kk], QT::desc_mn(s_q + half, kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(dva);
+    fence_regs(dka);
+    __syncthreads();  // this stage and the exchange are free again
+  }
+
+  bf16* dkb = dk + b * sdk.b + h * sdk.h;
+  bf16* dvb = dv + b * sdv.b + h * sdv.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = wkey + g + 8 * r;
+    if (key < Tlen) {
+#pragma unroll
+      for (int d = 0; d < NDH; ++d) {
+        const int c = NDH * wg + d;  // the 8-column chunk of the row
+        if (c < dc) {  // the padded columns are never written
+          *reinterpret_cast<uint32_t*>(dkb + key * sdk.t + 8 * c + 2 * t4) =
+              pack_bf16(dka[4 * d + 2 * r], dka[4 * d + 2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(dvb + key * sdv.t + 8 * c + 2 * t4) =
+              pack_bf16(dva[4 * d + 2 * r], dva[4 * d + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
 // ------------------------------- bf16 dQ, warpgroup MMA (wgmma)
 
 template <int D>
@@ -701,6 +949,7 @@ int launch_dq(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
               const long long* s, float scale, int causal) {
   if constexpr (sizeof(T) == 2) {  // bf16: the tensor-core kernel
     using C = DqCfg<D>;
+    static_assert(C::SMEM <= 232448, "227 KiB a block on sm_90");
     auto kern = flash_bwd_dq_wgmma_kernel<D>;
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
@@ -729,8 +978,23 @@ int launch_dkv(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
                const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int H,
                const long long* s, float scale, int causal) {
-  if constexpr (sizeof(T) == 2) {  // bf16: the tensor-core kernel
+  if constexpr (sizeof(T) == 2 && D == 256) {  // two warpgroups
+    using C = DkvSplitCfg;
+    auto kern = flash_bwd_dkv_wgmma_split_kernel;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(BH, (Tlen + C::BKV - 1) / C::BKV);
+    kern<<<grid, C::THREADS, C::SMEM, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dk), static_cast<T*>(dv), H, Tlen, dr, str_at(s, 0),
+        str_at(s, 1), str_at(s, 2), str_at(s, 3), str_at(s, 4),
+        str_at(s, 5), scale, causal);
+  } else if constexpr (sizeof(T) == 2) {  // bf16: the tensor-core kernel
     using C = DkvCfg<D>;
+    static_assert(C::SMEM <= 232448, "227 KiB a block on sm_90");
     auto kern = flash_bwd_dkv_wgmma_kernel<D>;
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
@@ -968,6 +1232,7 @@ int launch_dkv_general(int BH, int Tlen, int D, cudaStream_t st,
 // the kernel for (dtype, D): dtype 0 = float32, 1 = bfloat16. D <= 128
 // (bf16: a multiple of 8, 16-byte rows) runs on the kernel instantiated
 // on the padded width padded_dim(D); every other D on the general kernel
+// (the dK/dV entry takes bf16 D 136..256 to its padded-256 kernel first)
 #define DL4J_BWD_DISPATCH(LAUNCH, LAUNCH_GENERAL, ...)                       \
   if (D > 128 || (dtype == 1 && D % 8 != 0))                                 \
     return dtype == 0 ? LAUNCH_GENERAL<float>(__VA_ARGS__)                   \
@@ -1011,6 +1276,10 @@ extern "C" int dl4j_flash_attention_bwd_dkv(
   if (B < 1 || H < 1 || T < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && D > 128 && D <= 256 && D % 8 == 0)
+    return launch_dkv<__nv_bfloat16, 256>(B * H, T, D, st, q, k, v, dout,
+                                          lse, delta, dk, dv, H, strides,
+                                          scale, causal);
   DL4J_BWD_DISPATCH(launch_dkv, launch_dkv_general, B * H, T, D, st, q, k,
                     v, dout, lse, delta, dk, dv, H, strides, scale, causal)
 }

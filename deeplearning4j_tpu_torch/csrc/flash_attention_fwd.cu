@@ -24,11 +24,12 @@
 // only tiles that cross the diagonal or T are masked. Q, K and V come into
 // shared memory by 16-byte cp.async in the layouts wgmma reads through
 // its descriptors (rows swizzled in 32/64/128-byte atoms at D 16/32/64; at
-// D 128 two 64-column panels); K/V are double-buffered, so the next
-// tile's copy overlaps this tile's products, and a proxy fence hands the
-// copied tiles to wgmma. S = Q·Kᵀ reads both operands from shared memory
-// and lands in registers; the online softmax runs there (row max and sum
-// by quad shuffles, exp2 with the scale folded into log2 e); S's
+// D 128 and 256 two and four 64-column panels); K/V are double-buffered,
+// so the next tile's copy overlaps this tile's products, and a proxy fence
+// hands the copied tiles to wgmma. S = Q·Kᵀ reads both operands from
+// shared memory and lands in registers; the online softmax runs there
+// (row max and sum by quad shuffles, exp2 with the scale folded into
+// log2 e); S's
 // accumulator fragments, packed to bf16x2, are the register A operand of
 // O += P·V (V read transposed from shared memory), so P never touches
 // shared memory and is rounded to bf16 exactly where the TPU kernel cast
@@ -48,17 +49,20 @@
 // bases and strides (the Python wrapper checks them and raises).
 //
 // Head dims: like the Pallas block (1, bq, d), any D whose tiles fit in a
-// block's shared memory. The two kernels above take D up to 128 (bf16: a
-// multiple of 8, 16-byte rows); each is instantiated on the padded width
-// DP in {16, 32, 64, 128} (padded_dim) and told the real D: loaders fill
-// the columns in [D, DP) with zeros (the cp.async src-size 0 of
-// flash_mma.cuh in bf16, a guard in f32), the zeros add nothing to Q·Kᵀ,
-// the padded columns of O stay zero and are never stored, and the scale
-// is the real 1/sqrt(D) the wrapper passes. Every other D (D > 128 in both
-// dtypes, a bf16 D that is not a multiple of 8) runs the head-dim-general
-// CUDA-core kernel (flash_fwd_general_kernel, flash_general.cuh): tiles
-// and the O accumulator in dynamic shared memory, R = 64..8 query and key
-// rows by D, element-by-element loads in the input dtype, f32 math.
+// block's shared memory. The bf16 kernel takes D up to 256 and the f32
+// kernel D up to 128 (bf16: a multiple of 8, 16-byte rows); each is
+// instantiated on the padded width DP in {16, 32, 64, 128} (bf16 also
+// 256; padded_dim) and told the real D: loaders fill the columns in
+// [D, DP) with zeros (the cp.async src-size 0 of flash_mma.cuh in bf16, a
+// guard in f32), the zeros add nothing to Q·Kᵀ, the padded columns of O
+// stay zero and are never stored, and the scale is the real 1/sqrt(D) the
+// wrapper passes. At DP 256, O is 128 f32 accumulators a thread
+// (m64n256k16, four 64-column panels of V in one product) beside S's 32.
+// Every other D (f32 D > 128, bf16 D > 256 or not a multiple of 8) runs
+// the head-dim-general CUDA-core kernel (flash_fwd_general_kernel,
+// flash_general.cuh): tiles and the O accumulator in dynamic shared
+// memory, R = 64..8 query and key rows by D, element-by-element loads in
+// the input dtype, f32 math.
 
 #include "flash_general.cuh"
 #include "flash_mma.cuh"
@@ -241,6 +245,7 @@ int launch_wgmma(int BH, int Tlen, int dr, cudaStream_t s, const void* q,
                  const void* k, const void* v, void* o, void* lse, int H,
                  Str sq, Str sk, Str sv, Str so, float scale, int causal) {
   using C = FwdCfg<D, BK>;
+  static_assert(C::SMEM <= 232448, "227 KiB a block on sm_90");
   auto kern = flash_fwd_wgmma_kernel<D, BK>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
@@ -257,7 +262,8 @@ int launch_wgmma(int BH, int Tlen, int dr, cudaStream_t s, const void* q,
 // The kernel of each padded head dim DP: key tiles of 64 rows, except at
 // DP 64 on a grid of fewer than two query tiles per SM, where each
 // block's walk along its row is the critical path and 128-key steps halve
-// its iterations (PERF.md has the tilings measured).
+// its iterations (PERF.md has the tilings measured). DP 256 takes 161 KiB,
+// one block an SM.
 int launch_bf16(int D, int BH, int Tlen, cudaStream_t s, const void* q,
                 const void* k, const void* v, void* o, void* lse, int H,
                 Str sq, Str sk, Str sv, Str so, float scale, int causal) {
@@ -277,6 +283,7 @@ int launch_bf16(int D, int BH, int Tlen, cudaStream_t s, const void* q,
       DL4J_WGMMA(64, 64);
     }
     case 128: DL4J_WGMMA(128, 64);
+    case 256: DL4J_WGMMA(256, 64);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DL4J_WGMMA
@@ -550,7 +557,7 @@ int launch_general(int D, int BH, int Tlen, cudaStream_t s, const void* q,
 // q, k, v, o: (B, H, T, D) addressed by the given element strides (the D
 // stride is 1); lse: contiguous (B, H, T) f32. dtype: 0 = float32 (the
 // CUDA-core kernel for D <= 128), 1 = bfloat16 (the tensor-core kernel
-// for D <= 128, a multiple of 8); every other D runs the head-dim-general
+// for D <= 256, a multiple of 8); every other D runs the head-dim-general
 // kernel in its dtype. Returns cudaGetLastError() after the launch.
 extern "C" int dl4j_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
@@ -568,7 +575,7 @@ extern "C" int dl4j_flash_attention_fwd(
                     : launch_general<float>(D, B * H, T, s, q, k, v, o, lse,
                                             H, sq, sk, sv, so, scale, causal);
   if (dtype == 1)
-    return D <= 128 && D % 8 == 0
+    return D <= 256 && D % 8 == 0
                ? launch_bf16(D, B * H, T, s, q, k, v, o, lse, H, sq, sk, sv,
                              so, scale, causal)
                : launch_general<__nv_bfloat16>(D, B * H, T, s, q, k, v, o,

@@ -41,8 +41,12 @@
 //    reduction tree for the row sum, fixed split groups for acc), so a
 //    second launch is bit-identical, and writes out in q's dtype; a slot
 //    with no live row writes zeros.
-// Head dims: any Dh from 1 to 256 (q and the accumulator live in shared
-// memory, not in one thread's registers).
+// Head dims: any Dh, as the reference's Pallas blocks (1, h, dh) and
+// (1, plen, h, dh) take any dh, whose pass-1 block fits in the 227 KiB
+// (232448 bytes) of shared memory a block may use at one head and one
+// staged row (partial_smem(1, Dh, 1): Dh <= 11621 in f32): q and the
+// accumulator live in shared memory, not in one thread's registers, and
+// pass 2 walks Dh in strides of its 256 threads.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,7 +56,7 @@
 namespace {
 
 constexpr int kThreads = 256;  // both passes
-constexpr int kMaxD = 256;     // head dim limit
+constexpr int kSmemPerBlock = 232448;  // 227 KiB, sm_90
 constexpr int kMaxSplits = kThreads;  // pass 2: one split per thread
 
 __device__ __forceinline__ float to_f(float x) { return x; }
@@ -285,8 +289,20 @@ paged_combine_kernel(const float* __restrict__ ws_m,
   const float L = block_reduce(ws * l, red, false);  // syncs w too
   __syncthreads();  // red is reused below
 
-  // acc: group g of NG sums splits g, g + NG, ... for its element d, in
-  // order; then the groups' sums, in order
+  // acc. Dh <= kThreads: group g of NG sums splits g, g + NG, ... for its
+  // element d, in order; then the groups' sums, in order. Past kThreads:
+  // one group, each thread its elements d = tid, tid + kThreads, ...,
+  // each summing the splits in order.
+  if (D > kThreads) {
+    for (int d = tid; d < D; d += kThreads) {
+      float a = 0.f;
+#pragma unroll 4
+      for (int s = 0; s < n_splits; ++s)
+        if (w[s] != 0.f) a += w[s] * ws_acc[(s * stride + sh) * D + d];
+      out[sh * D + d] = from_f<T>(L > 0.f ? a / L : 0.f);
+    }
+    return;
+  }
   const int DP = (D + 31) & ~31;
   const int NG = kThreads / DP;
   const int g = tid / DP;
@@ -313,6 +329,7 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
            int page_len, int per_slot, int pps, int n_splits, int hb, int R,
            float scale, cudaStream_t s) {
   const size_t smem = partial_smem<T, VEC>(hb, D, R);
+  if (smem > (size_t)kSmemPerBlock) return (int)cudaErrorInvalidValue;
   auto kern = paged_partial_kernel<T, VEC>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -339,8 +356,8 @@ int launch(const void* q, const void* k_pages, const void* v_pages,
 // The split plan (pages_per_split, n_splits, heads_per_block,
 // rows_per_stage) comes from the wrapper; vec selects 16-byte loads (D *
 // item a multiple of 16, 16-byte aligned pools). dtype: 0 = float32, 1 =
-// bfloat16. Returns the first cudaError_t of the two launches (0 =
-// launched).
+// bfloat16. Refuses a plan whose pass-1 block overflows shared memory.
+// Returns the first cudaError_t of the two launches (0 = launched).
 extern "C" int dl4j_paged_attention(
     const void* q, const void* k_pages, const void* v_pages,
     const void* table, const void* pos, void* out, void* ws_m, void* ws_l,
@@ -348,7 +365,7 @@ extern "C" int dl4j_paged_attention(
     int per_slot, int pages_per_split, int n_splits, int heads_per_block,
     int rows_per_stage, float scale, int dtype, int vec, void* stream) {
   const int item = dtype == 0 ? 4 : 2;
-  if (D < 1 || D > kMaxD || B < 1 || H < 1 || page_len < 1 || per_slot < 1
+  if (D < 1 || B < 1 || H < 1 || page_len < 1 || per_slot < 1
       || pages_per_split < 1 || n_splits < 1 || n_splits > kMaxSplits
       || (long long)n_splits * pages_per_split < per_slot
       || heads_per_block < 1 || heads_per_block > H || rows_per_stage < 1

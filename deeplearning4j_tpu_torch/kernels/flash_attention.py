@@ -19,9 +19,10 @@ backward. CPU tensors take :func:`mha_reference_lse` and
 :func:`flash_attention_bwd_reference`; CUDA tensors launch the kernels
 or raise — there is no fallback between the two.
 
-On CUDA the dtype picks the kernel. bfloat16 runs K1, dQ and dK/dV on
-the tensor cores (bf16 products with f32 sums, operands copied into
-shared memory by 16-byte ``cp.async``; counted in ``LAUNCHES_TC``,
+On CUDA the dtype and the head dim pick the kernel (:func:`route`).
+bfloat16 runs K1, dQ and dK/dV on the tensor cores (bf16 products with
+f32 sums, operands copied into shared memory by 16-byte ``cp.async``;
+counted in ``LAUNCHES_TC``,
 ``LAUNCHES_BWD_DQ_TC`` and ``LAUNCHES_BWD_DKV_TC`` besides ``LAUNCHES``,
 ``LAUNCHES_BWD_DQ`` and ``LAUNCHES_BWD_DKV``); their operands must pass
 :func:`check_tc_alignment`, or the call raises. float32 runs the
@@ -32,15 +33,17 @@ another kernel.
 Head dims: every D whose tiles fit in the 227 KiB of shared memory a
 block may use on the H100, as the reference's Pallas block ``(1, bq, d)``
 takes any d (:func:`check_head_dim`; every D up to 1200 for all three
-kernels). :func:`route` names the kernel a (D, dtype) runs: D up to 128
-runs the fast kernels, instantiated on the padded widths 16, 32, 64 and
-128 and zero-filling the columns past D inside the kernel (bf16 on the
-tensor cores when D is a multiple of 8, its rows whole 16-byte chunks;
-f32 on the CUDA cores); every other D runs the head-dim-general
-CUDA-core kernels (``csrc/flash_general.cuh``; counted in
-``LAUNCHES_GENERAL``, ``LAUNCHES_BWD_DQ_GENERAL`` and
-``LAUNCHES_BWD_DKV_GENERAL``), whose tile rows shrink from 64 to 8 as D
-grows (:func:`general_rows`).
+kernels). :func:`route` names the kernel family a (D, dtype) runs in
+each of the three kernels: the fast kernels are instantiated on the
+padded widths 16, 32, 64 and 128 (bf16 K1 and dK/dV also 256) and
+zero-fill the columns past D inside the kernel — bf16 on the tensor
+cores when D is a multiple of 8 (its rows whole 16-byte chunks), up to
+256 for K1 and dK/dV (dK/dV past 128 on two warpgroups that split the
+columns) and up to 128 for dQ; f32 on the CUDA cores up to 128. Every
+other D runs the head-dim-general CUDA-core kernels
+(``csrc/flash_general.cuh``; counted in ``LAUNCHES_GENERAL``,
+``LAUNCHES_BWD_DQ_GENERAL`` and ``LAUNCHES_BWD_DKV_GENERAL``), whose
+tile rows shrink from 64 to 8 as D grows (:func:`general_rows`).
 """
 
 from __future__ import annotations
@@ -62,6 +65,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: kernel instantiated for the smallest of 16, 32, 64, 128 that holds it,
 #: the columns past D zero-filled inside the kernel
 FAST_MAX_HEAD_DIM = 128
+#: the largest bf16 head dim each tensor-core kernel takes: K1 and dK/dV
+#: are also instantiated on the padded width 256
+TC_MAX_HEAD_DIM = {"fwd": 256, "dq": 128, "dkv": 256}
 #: shared memory a block may use on the H100 (sm_90): 227 KiB
 SMEM_PER_BLOCK = 232448
 #: the head-dim-general kernels' f32 tiles, as in csrc/flash_general.cuh
@@ -195,15 +201,15 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
 
 # ---------------------------------------------------------------- CUDA
 
-def route(d: int, dtype) -> str:
-    """The kernel family head dim ``d`` runs in ``dtype``: ``"wgmma"``
-    (bf16, D <= 128 and a multiple of 8), ``"cuda-core"`` (f32, D <= 128)
-    or ``"general"`` (every other D)."""
-    if d <= FAST_MAX_HEAD_DIM:
-        if dtype == torch.float32:
-            return "cuda-core"
-        if d % 8 == 0:
-            return "wgmma"
+def route(d: int, dtype, kernel: str) -> str:
+    """The kernel family head dim ``d`` runs in ``dtype`` for ``kernel``
+    ("fwd", "dq" or "dkv"): ``"wgmma"`` (bf16, a multiple of 8 up to
+    ``TC_MAX_HEAD_DIM[kernel]``: 256 for K1 and dK/dV, 128 for dQ),
+    ``"cuda-core"`` (f32, D <= 128) or ``"general"`` (every other D)."""
+    if dtype == torch.float32:
+        return "cuda-core" if d <= FAST_MAX_HEAD_DIM else "general"
+    if d % 8 == 0 and d <= TC_MAX_HEAD_DIM[kernel]:
+        return "wgmma"
     return "general"
 
 
@@ -237,7 +243,7 @@ def check_head_dim(d: int, dtype, kernel: str = "dkv"):
     kernels' 8-row tiles past 1200 for dK/dV)."""
     if d < 1:
         raise ValueError(f"head dim {d} must be at least 1")
-    if route(d, dtype) == "general" and not general_rows(kernel, d):
+    if route(d, dtype, kernel) == "general" and not general_rows(kernel, d):
         need = general_smem_bytes(kernel, GENERAL_ROWS[-1], d)
         raise ValueError(
             f"head dim {d}: the {kernel} kernel's tiles need {need} bytes "
@@ -317,7 +323,7 @@ def _strides(*views):
 def _flash_cuda(q, k, v, scale, causal, layout):
     global LAUNCHES, LAUNCHES_TC, LAUNCHES_GENERAL
     (b, h, t, d), (q_, k_, v_) = _check_qkv(layout, "fwd", q, k, v)
-    kind = route(d, q.dtype)
+    kind = route(d, q.dtype, "fwd")
     tc = kind == "wgmma"
     if tc:
         check_tc_alignment(q=q_, k=k_, v=v_)
@@ -347,7 +353,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, causal,
         return flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
                                    layout)[0]
     bhtd, (q_, k_, v_, do_) = _check_qkv(layout, "dq", q, k, v, dout)
-    kind = route(bhtd[3], q.dtype)
+    kind = route(bhtd[3], q.dtype, "dq")
     tc = kind == "wgmma"
     if tc:
         check_tc_alignment(q=q_, k=k_, v=v_, dout=do_)
@@ -377,7 +383,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, causal,
         return flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
                                    layout)[1:]
     bhtd, (q_, k_, v_, do_) = _check_qkv(layout, "dkv", q, k, v, dout)
-    kind = route(bhtd[3], q.dtype)
+    kind = route(bhtd[3], q.dtype, "dkv")
     tc = kind == "wgmma"
     if tc:
         check_tc_alignment(q=q_, k=k_, v=v_, dout=do_)

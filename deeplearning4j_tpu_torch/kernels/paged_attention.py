@@ -16,7 +16,10 @@ wrapper allocates; pass 2 merges a slot's splits in a fixed order, so a
 second launch is bit-identical. :func:`split_plan` is the launcher's
 choice of split, in plain Python. The kernel skips sentinel pages and
 pages past the cursor, gives zeros for a slot with no live row, and
-takes every head dim from 1 to ``MAX_HEAD_DIM`` (256). The plain version
+takes every head dim whose pass-1 block fits in a block's shared memory
+at one head and one staged row (:func:`partial_smem`; ``MAX_HEAD_DIM``,
+11621, in both dtypes), as the reference's Pallas blocks take any head
+dim. The plain version
 is the gather path the engine runs with the kernel off: it gathers every
 table entry, CLAMPING the sentinel to the last pool page as a JAX gather
 does, so a sentinel entry below the cursor reads masked-in garbage
@@ -46,7 +49,8 @@ PROMOTION_MAX_KL = 1e-3
 
 _SOURCE = "paged_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 256
+#: shared memory a block may use on the H100 (sm_90): 227 KiB
+SMEM_PER_BLOCK = 232448
 
 #: the most splits a slot's row is cut into (pass 2 merges one a thread)
 MAX_SPLITS = 256
@@ -82,6 +86,24 @@ def paged_attention(q, k_pages, v_pages, table, pos):
     return _paged_attention_cuda(q, k_pages, v_pages, table, pos)
 
 
+def partial_smem(item: int, vec: bool, hb: int, dh: int, rows: int) -> int:
+    """Shared bytes of one pass-1 block (csrc/paged_attention.cu
+    ``partial_smem``): ``rows`` staged K and V rows of ``hb`` heads of
+    ``dh`` elements of ``item`` bytes, then f32 q, the accumulator, the
+    partial dots (one a 16-byte load when ``vec``, else one an element),
+    the scores of a stage and three per-head values."""
+    per_load = 16 // item if vec else 1
+    return 2 * rows * hb * dh * item + 4 * (
+        2 * hb * dh + rows * hb * dh // per_load + rows * hb + 3 * hb)
+
+
+#: the largest head dim the kernel takes in both dtypes: pass 1's block at
+#: one head and one staged row fits in SMEM_PER_BLOCK (f32, scalar loads,
+#: is the largest case)
+MAX_HEAD_DIM = max(d for d in range(1, 16384)
+                   if partial_smem(4, False, 1, d, 1) <= SMEM_PER_BLOCK)
+
+
 @dataclasses.dataclass(frozen=True)
 class SplitPlan:
     """How the two passes cut one call: each slot's table row into
@@ -102,12 +124,21 @@ def split_plan(b: int, h: int, dh: int, item: int, page_len: int,
     puts ``BLOCKS_PER_SM`` pass-1 blocks on every SM when the table is
     full, and at most ``MAX_SPLITS`` splits a slot. At the 120M decode
     shape (8 slots, 128 entries, H 8, Dh 64 bf16, 132 SMs) that is one
-    page a split: 1024 blocks, one for each live page."""
+    page a split: 1024 blocks, one for each live page. The heads a block
+    and the rows a stage shrink, rows first, until pass 1's block fits in
+    ``SMEM_PER_BLOCK`` (scalar loads, the larger case), which they do at
+    one of each for every head dim up to ``MAX_HEAD_DIM``."""
     hpb = min(h, max(1, BLOCK_ELEMS // dh))
+    rows = max(1, min(page_len, STAGE_BYTES // (2 * hpb * dh * item)))
+    while partial_smem(item, False, hpb, dh, rows) > SMEM_PER_BLOCK \
+            and rows * hpb > 1:
+        if rows > 1:
+            rows -= 1
+        else:
+            hpb -= 1
     groups = -(-h // hpb)
     pps = max(1, (b * groups * per_slot) // (BLOCKS_PER_SM * n_sms),
               -(-per_slot // MAX_SPLITS))
-    rows = max(1, min(page_len, STAGE_BYTES // (2 * hpb * dh * item)))
     return SplitPlan(pages_per_split=pps, n_splits=-(-per_slot // pps),
                      heads_per_block=hpb, rows_per_stage=rows)
 
@@ -134,7 +165,11 @@ def _paged_attention_cuda(q, k_pages, v_pages, table, pos):
     if table.dtype != torch.int32 or pos.dtype != torch.int32:
         raise ValueError("table and pos must be int32")
     if not 1 <= dh <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {dh} outside 1..{MAX_HEAD_DIM}")
+        raise ValueError(
+            f"head dim {dh} outside 1..{MAX_HEAD_DIM}: pass 1's block needs "
+            f"{partial_smem(4, False, 1, max(dh, 1), 1)} bytes of shared "
+            f"memory at one head and one staged row (f32), and a block may "
+            f"use 227 KiB ({SMEM_PER_BLOCK} bytes) on the H100")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("table", table), ("pos", pos)):
         if t.device != q.device:
@@ -206,8 +241,8 @@ def decide(engine, cache, mode: Optional[str] = None) -> str:
     the engine's pinned mode, default ``auto``): ``off`` → gather, ``on``
     → kernel, ``auto`` → the kernel when the pool lies on a CUDA device,
     else gather. A CUDA pool the kernel cannot take (head dim past
-    ``MAX_HEAD_DIM``) is refused by the kernel's wrapper, never handed to
-    the gather path."""
+    ``MAX_HEAD_DIM``, 11621) is refused by the kernel's wrapper, never
+    handed to the gather path."""
     if mode is None:
         mode = getattr(engine, "paged_kernel_mode", None) or "auto"
     mode = str(mode).lower()

@@ -51,7 +51,8 @@ def gen():
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("dh,plen", [(64, 16), (128, 8), (16, 4), (80, 16),
-                                     (256, 16), (20, 6)])
+                                     (256, 16), (20, 6), (320, 16),
+                                     (512, 8)])
 def test_paged_kernel_matches_plain(gen, dtype, dh, plen):
     b, h, per_slot = 4, 2, 6
     npg = b * per_slot
@@ -80,7 +81,7 @@ def test_paged_kernel_matches_plain(gen, dtype, dh, plen):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("dh", [64, 80, 128, 256])
+@pytest.mark.parametrize("dh", [64, 80, 128, 256, 320, 512])
 def test_paged_split_k_long_contexts(gen, dtype, dh):
     """Split-K at contexts up to 2048 (many splits a slot, several pages
     a split on the wide tables), CoW-shared pages, a slot with no live
@@ -120,15 +121,18 @@ FLASH_GRID = [(64, True), (200, True), (1000, True), (256, False),
 
 # the instantiated widths and head dims padded to them inside the kernels
 HEAD_DIMS = [8, 16, 24, 32, 64, 80, 120, 128]
-# head dims of the general CUDA-core kernels: bf16 rows that are not whole
-# 16-byte chunks (12; f32 runs its CUDA-core kernel there), and D > 128 at
-# 64, 32 and 16 tile rows
-GENERAL_HEAD_DIMS = [12, 160, 256, 320]
+# head dims past 128: bf16 K1 and dK/dV on the tensor cores padded to 256
+# (136, 160, 200, 256) and dQ and f32 on the general CUDA-core kernels at
+# 64, 32 and 16 tile rows; every kernel general at 320 and for bf16 rows
+# that are not whole 16-byte chunks (12; f32 runs its CUDA-core kernel
+# there)
+GENERAL_HEAD_DIMS = [12, 136, 160, 200, 256, 320]
 
 
-def _routes(d, dtype):
-    """(tensor-core, general) launches one call adds at (d, dtype)."""
-    kind = fa.route(d, dtype)
+def _routes(d, dtype, kernel):
+    """(tensor-core, general) launches one call of ``kernel`` ("fwd",
+    "dq", "dkv") adds at (d, dtype)."""
+    kind = fa.route(d, dtype, kernel)
     return int(kind == "wgmma"), int(kind == "general")
 
 
@@ -136,17 +140,17 @@ def _routes(d, dtype):
 @pytest.mark.parametrize("t,causal", FLASH_GRID)
 @pytest.mark.parametrize("d", HEAD_DIMS + GENERAL_HEAD_DIMS)
 def test_flash_kernel_matches_plain(gen, dtype, t, causal, d):
-    """K1 (the tensor-core kernel in bf16, the CUDA-core one in f32, the
-    general kernel past 128 and for bf16 rows of odd chunks) at every
-    head dim, in the (B, H, T, D) layout and through strided (B, T, H, D)
-    views of one qkv buffer; a second launch repeats the first bit for
-    bit."""
+    """K1 (the tensor-core kernel in bf16 up to 256, the CUDA-core one in
+    f32 up to 128, the general kernel past them and for bf16 rows of odd
+    chunks) at every head dim, in the (B, H, T, D) layout and through
+    strided (B, T, H, D) views of one qkv buffer; a second launch repeats
+    the first bit for bit; the counters name the kernel that ran."""
     b, h = 2, 3
     q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda")
                .to(dtype) for _ in range(3))
     before = (fa.LAUNCHES, fa.LAUNCHES_TC, fa.LAUNCHES_GENERAL)
     out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
-    tc, general = _routes(d, dtype)
+    tc, general = _routes(d, dtype, "fwd")
     assert (fa.LAUNCHES, fa.LAUNCHES_TC, fa.LAUNCHES_GENERAL) == \
         (before[0] + 1, before[1] + tc, before[2] + general)
     ref, ref_lse = fa.mha_reference_lse(q, k, v, causal=causal)
@@ -161,6 +165,21 @@ def test_flash_kernel_matches_plain(gen, dtype, t, causal, d):
     ntc = fa.flash_attention_ntc(qn, kn, vn, causal=causal)
     torch.testing.assert_close(ntc.transpose(1, 2).float(), ref.float(),
                                atol=ATOL[dtype], rtol=0)
+
+
+def test_flash_d256_fwd_matches_plain_over_many_waves(gen):
+    """K1 at padded D 256 (one 161 KiB block an SM) on a grid of 512
+    query tiles, several waves of the SMs, causal, T 1000 (a ragged last
+    tile), against the plain version; counted as a tensor-core launch."""
+    b, h, t, d = 8, 4, 1000, 200
+    q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda")
+               .to(torch.bfloat16) for _ in range(3))
+    before = fa.LAUNCHES_TC
+    out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    assert fa.LAUNCHES_TC == before + 1
+    ref, ref_lse = fa.mha_reference_lse(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
 
 
 def test_flash_misaligned_bf16_views_raise_before_launch(gen):
@@ -212,11 +231,12 @@ def _close(got, ref, dtype):
 @pytest.mark.parametrize("t,causal", FLASH_GRID)
 @pytest.mark.parametrize("d", HEAD_DIMS + GENERAL_HEAD_DIMS)
 def test_flash_bwd_kernels_match_plain(gen, dtype, t, causal, d):
-    """dQ and dK/dV (both on the tensor cores in bf16 up to 128, on the
-    general kernels past it) against the plain backward on the same
-    inputs, in the (B, H, T, D) layout and through strided (B, T, H, D)
-    views of one qkv buffer (the transformer's layout); a second launch
-    of each repeats the first bit for bit."""
+    """dQ and dK/dV (on the tensor cores in bf16, dQ up to 128 and dK/dV
+    up to 256 on two warpgroups past 128, on the general kernels past
+    them) against the plain backward on the same inputs, in the (B, H, T,
+    D) layout and through strided (B, T, H, D) views of one qkv buffer
+    (the transformer's layout); a second launch of each repeats the first
+    bit for bit; the counters name the kernel that ran."""
     b, h = 2, 3
     scale = d ** -0.5
     q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda")
@@ -228,17 +248,18 @@ def test_flash_bwd_kernels_match_plain(gen, dtype, t, causal, d):
     before = (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DQ_TC,
               fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DKV_TC,
               fa.LAUNCHES_BWD_DQ_GENERAL, fa.LAUNCHES_BWD_DKV_GENERAL)
-    tc, gn = _routes(d, dtype)
+    tc, gn = _routes(d, dtype, "dq")
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
     assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DQ_TC,
             fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ_GENERAL) == \
         (before[0] + 1, before[1] + tc, before[2], before[4] + gn)
+    tck, gnk = _routes(d, dtype, "dkv")
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
                                         causal)
     assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DQ_TC, fa.LAUNCHES_BWD_DKV,
             fa.LAUNCHES_BWD_DKV_TC, fa.LAUNCHES_BWD_DKV_GENERAL) == \
-        (before[0] + 1, before[1] + tc, before[2] + 1, before[3] + tc,
-         before[5] + gn)
+        (before[0] + 1, before[1] + tc, before[2] + 1, before[3] + tck,
+         before[5] + gnk)
     torch.cuda.synchronize()
     for got, want in zip((dq, dk, dv), ref):
         _close(got, want, dtype)
@@ -337,10 +358,12 @@ def test_head_dim_80_lm_train_step_matches_plain_path(gen):
 def test_head_dim_256_lm_train_step_matches_plain_path(gen, dtype):
     """An LM with head dim 256 (d_model 512, 2 heads) at T 1024, which
     raised on the card before the general kernels: one train step's loss
-    and grads on the flash kernels (K1, dQ and dK/dV, all on the general
-    CUDA-core kernels) agree with the plain path's (plain attention, f32
-    scores) from the same params: loss within 2e-2 nats, grads relative
-    L2 <= 2e-2 per leaf (chip_smoke.py phase 6's bars)."""
+    and grads on the flash kernels (bf16: K1 and dK/dV on the tensor
+    cores padded to 256, dQ on the general kernel; f32: all three on the
+    general CUDA-core kernels) agree with the plain path's (plain
+    attention, f32 scores) from the same params: loss within 2e-2 nats,
+    grads relative L2 <= 2e-2 per leaf (chip_smoke.py phase 6's
+    bars)."""
     import dataclasses
 
     import numpy as np
@@ -368,9 +391,12 @@ def test_head_dim_256_lm_train_step_matches_plain_path(gen, dtype):
         loss.backward()
         torch.cuda.synchronize()
         if name == "kernel":
+            tc = int(dtype == torch.bfloat16)
+            assert (fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DQ_TC,
+                    fa.LAUNCHES_BWD_DKV_TC) == (2 * tc, 0, 2 * tc)
             assert (fa.LAUNCHES_GENERAL, fa.LAUNCHES_BWD_DQ_GENERAL,
-                    fa.LAUNCHES_BWD_DKV_GENERAL, fa.LAUNCHES_TC) == \
-                (2, 2, 2, 0)
+                    fa.LAUNCHES_BWD_DKV_GENERAL) == \
+                (2 * (1 - tc), 2, 2 * (1 - tc))
         losses[name] = loss.item()
         grads[name] = [p.grad.float() for p in leaves]
     assert abs(losses["kernel"] - losses["plain"]) <= 2e-2

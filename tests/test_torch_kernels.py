@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -90,6 +92,39 @@ def test_paged_plain_matches_jax_mixed_and_cow_slots():
     got = tpa.paged_attention(*(_t(a) for a in (q, k, v, table, pos)))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref),
                                atol=KERNEL_ATOL)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_paged_plain_matches_jax_kernel_at_head_dim_320(dtype):
+    """Head dim 320 (d_model 640, 2 heads), which the CUDA kernel took
+    only up to 256 before: the plain version against the JAX package's
+    paged kernel in interpret mode, at every position of a slot, in f32
+    and with bf16 q and pools."""
+    rng = np.random.default_rng(7)
+    h, dh, npg, plen, per_slot = 2, 320, 9, 4, 3
+    n = per_slot * plen
+    q = rng.standard_normal((n, h, dh)).astype(np.float32)
+    k, v = _pool(rng, npg, plen, h, dh)
+    ids = rng.permutation(npg)[:per_slot]
+    table = np.full((n, per_slot), npg, np.int32)
+    for pos in range(n):
+        mapped = min(per_slot, -(-(pos + 1) // plen) + 1)
+        table[pos, :mapped] = ids[:mapped]
+    p = np.arange(n, dtype=np.int32)
+    if dtype == "bfloat16":
+        jargs = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)]
+        targs = [_t(a).to(torch.bfloat16) for a in (q, k, v)]
+        atol = 1e-2
+    else:
+        jargs = [jnp.asarray(a) for a in (q, k, v)]
+        targs = [_t(a) for a in (q, k, v)]
+        atol = KERNEL_ATOL
+    ref = jpaged(*jargs, jnp.asarray(table), jnp.asarray(p), interpret=True)
+    got = tpa.paged_attention(*targs, _t(table), _t(p))
+    assert got.shape == (n, h, dh) and got.dtype == targs[0].dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               atol=atol, rtol=atol if atol > 1e-4 else 0)
 
 
 def test_paged_plain_clamps_sentinel_like_jax_gather():
@@ -399,9 +434,12 @@ def test_flash_kernels_take_every_head_dim_up_to_128(d, dtype):
                                                   q)
             assert dd == d and len(views) == 4
     bf16 = dtype == torch.bfloat16
-    assert tfa.route(d, dtype) == ("wgmma" if bf16 else "cuda-core")
-    tfa.check_head_dim(d - 3, dtype)
-    assert tfa.route(d - 3, dtype) == ("general" if bf16 else "cuda-core")
+    for kernel in ("fwd", "dq", "dkv"):
+        assert tfa.route(d, dtype, kernel) == ("wgmma" if bf16
+                                               else "cuda-core")
+        tfa.check_head_dim(d - 3, dtype, kernel)
+        assert tfa.route(d - 3, dtype, kernel) == ("general" if bf16
+                                                   else "cuda-core")
 
 
 def test_flash_head_dim_rule_bounds():
@@ -446,25 +484,244 @@ def test_flash_general_rows_shrink_as_head_dim_grows(d, rows):
         assert ld % 2 == 1 if r >= 32 else ld % 32 == (4 if r == 16 else 16)
 
 
-@pytest.mark.parametrize("d,dtype,kind", [
-    (64, torch.bfloat16, "wgmma"), (128, torch.bfloat16, "wgmma"),
-    (12, torch.bfloat16, "general"), (130, torch.bfloat16, "general"),
-    (256, torch.bfloat16, "general"), (12, torch.float32, "cuda-core"),
-    (128, torch.float32, "cuda-core"), (160, torch.float32, "general"),
-    (320, torch.float32, "general")])
-def test_flash_route_by_head_dim_and_dtype(d, dtype, kind):
-    """Which kernel family a (D, dtype) runs; only the tensor-core route
-    checks 16-byte alignment, so a general bf16 D takes any strides."""
-    assert tfa.route(d, dtype) == kind
+_TC, _GN, _CC = "wgmma", "general", "cuda-core"
+
+
+@pytest.mark.parametrize("d,dtype,kinds", [
+    (64, torch.bfloat16, (_TC, _TC, _TC)),
+    (128, torch.bfloat16, (_TC, _TC, _TC)),
+    (12, torch.bfloat16, (_GN, _GN, _GN)),
+    (130, torch.bfloat16, (_GN, _GN, _GN)),
+    (136, torch.bfloat16, (_TC, _GN, _TC)),
+    (256, torch.bfloat16, (_TC, _GN, _TC)),
+    (264, torch.bfloat16, (_GN, _GN, _GN)),
+    (12, torch.float32, (_CC, _CC, _CC)),
+    (128, torch.float32, (_CC, _CC, _CC)),
+    (160, torch.float32, (_GN, _GN, _GN)),
+    (256, torch.float32, (_GN, _GN, _GN)),
+    (320, torch.float32, (_GN, _GN, _GN))])
+def test_flash_route_by_head_dim_and_dtype(d, dtype, kinds):
+    """Which kernel family a (D, dtype) runs in K1, dQ and dK/dV: bf16
+    K1 and dK/dV on the tensor cores up to 256, dQ up to 128; only the
+    tensor-core route checks 16-byte alignment, so a general bf16 D
+    takes any strides, in each of the three wrappers."""
+    assert tuple(tfa.route(d, dtype, kn) for kn in ("fwd", "dq", "dkv")) \
+        == kinds
     buf = torch.zeros((1, 8, 3 * 2 * d + 1), dtype=dtype)
     q, k, v = (buf[..., 1 + i * 2 * d:1 + (i + 1) * 2 * d]
                .reshape(1, 8, 2, d) for i in range(3))
-    if kind == "wgmma":
+    if kinds[0] == _TC:
         with pytest.raises(ValueError, match="aligned"):
             tfa._flash_cuda(q, k, v, 0.25, True, "bthd")
     elif not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tfa._flash_cuda(q, k, v, 0.25, True, "bthd")
+    meta = buf.to("meta")
+    mq, mk, mv = (meta[..., 1 + i * 2 * d:1 + (i + 1) * 2 * d]
+                  .reshape(1, 8, 2, d) for i in range(3))
+    lse = torch.zeros((1, 2, 8), device="meta")
+    for kind, bwd in zip(kinds[1:], (tfa.flash_attention_bwd_dq,
+                                     tfa.flash_attention_bwd_dkv)):
+        if kind == _TC:
+            with pytest.raises(ValueError, match="aligned"):
+                bwd(mq, mk, mv, mq, lse, lse, 0.25, True, "bthd")
+        elif not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                bwd(mq, mk, mv, mq, lse, lse, 0.25, True, "bthd")
+
+
+_CSRC = Path(tfa.__file__).resolve().parent.parent / "csrc"
+
+
+def _csrc_smem(struct, **params):
+    """``struct``'s ``SMEM`` as the csrc sources define it, evaluated from
+    their text for the template arguments ``params``: each ``static
+    constexpr int`` field of the struct, and of the ``Tile<D, R>`` it
+    names by ``using``, is read and evaluated on demand."""
+    src = "".join(f.read_text() for f in sorted(_CSRC.glob("flash_*")))
+
+    def fields(name):
+        body = re.search(rf"struct {name} {{(.*?)\n}};", src, re.S)[1]
+        body = re.sub(r"//[^\n]*", "", body)
+        out = dict(re.findall(r"static constexpr int (\w+) = ([^;]+);",
+                              body))
+        for alias, d, r in re.findall(
+                r"using (\w+) = (?:\w+::)?Tile<(\w+), (\w+)>;", body):
+            out.update({f"{alias}__{k}": (e, (d, r))
+                        for k, e in fields("Tile").items()})
+        return out
+
+    def value(name, env, defs):
+        if name in env:
+            return env[name]
+        expr = defs[name]
+        if isinstance(expr, tuple):     # a Tile's field: Tile<D, R>
+            expr, (d, r) = expr
+            tile_env = {"D": value(d, env, defs), "R": value(r, env, defs)}
+            return value(name.split("__")[1], tile_env, fields("Tile"))
+        names = set(re.findall(r"[A-Za-z_]\w*(?:::\w+)?", expr))
+        scope = {n.replace("::", "__"): value(n.replace("::", "__"), env,
+                                              defs) for n in names}
+        return eval(expr.replace("::", "__"), {}, scope)
+
+    return value("SMEM", dict(params), fields(struct))
+
+
+@pytest.mark.parametrize("struct, params, kib", [
+    ("FwdCfg", {"D": 256, "BK": 64}, 161),
+    ("DkvSplitCfg", {}, 226),
+    ("DkvCfg", {"D": 128}, 98),
+    ("DqCfg", {"D": 128}, 97),
+    ("FwdCfg", {"D": 64, "BK": 128}, 73),
+])
+def test_tensor_core_configs_fit_shared_memory(struct, params, kib):
+    """The tensor-core kernels' shared memory, read from the csrc configs
+    themselves: K1 at padded D 256 takes 161 KiB (Q, two stages of K and
+    V at 64-key steps; one block an SM), the two-warpgroup dK/dV 226 KiB
+    (K, V, two stages of Q and dO, its 32 KiB exchange, the lse and delta
+    rows); each fits in the 227 KiB a block may use."""
+    smem = _csrc_smem(struct, **params)
+    assert smem == kib * 1024
+    assert smem <= tfa.SMEM_PER_BLOCK == 232448
+
+
+# -------------------------------- the tensor-core tiles' layouts (CPU side)
+
+def _tile_off(d, rows, r, c):
+    """Byte offset of 16-byte chunk ``c`` of row ``r`` of a
+    ``Tile<d, rows>`` (csrc/flash_mma.cuh ``Tile::off``)."""
+    panel = 64 if d > 64 else d
+    nc = panel // 8
+    rpl = 1 if nc >= 8 else 8 // nc
+    sw = 8 if nc >= 8 else nc
+    return (c // nc) * rows * panel * 2 \
+        + (r * nc + ((c % nc) ^ ((r // rpl) % sw))) * 16
+
+
+def _elem(d, rows, r, col):
+    return _tile_off(d, rows, r, col // 8) + 2 * (col % 8)
+
+
+def _sw128(addr):
+    """Hopper's 128-byte swizzle: address bits 4-6 XOR bits 7-9."""
+    return addr ^ (((addr >> 7) & 7) << 4)
+
+
+def _hw_k_major(start, sbo, m, k):
+    """The byte a 128-byte-swizzled K-major wgmma operand reads for row
+    ``m``, column ``k`` of one 16-wide k-step from a descriptor at
+    ``start`` (8-row groups ``sbo`` apart)."""
+    return _sw128(start + (m // 8) * sbo + (m % 8) * 128 + 2 * k)
+
+
+def _hw_mn_major(start, lbo, sbo, k, n):
+    """The byte a 128-byte-swizzled MN-major wgmma B operand reads for
+    row ``k`` (of 16), column ``n``: 64-column atoms ``lbo`` apart,
+    8-row groups ``sbo`` apart."""
+    return _sw128(start + (n // 64) * lbo + (k // 8) * sbo + (k % 8) * 128
+                  + 2 * (n % 64))
+
+
+@pytest.mark.parametrize("d,rows", [(64, 64), (128, 64), (256, 64),
+                                    (256, 32)])
+def test_tile_layout_matches_wgmma_descriptors(d, rows):
+    """``Tile<d, rows>`` lane by lane against the addresses wgmma reads
+    through the descriptors the kernels build (``desc_k``, ``desc_mn``),
+    on the hardware's 128-byte swizzle: every element of every k-step of
+    a K-major operand (Q·Kᵀ, K·Qᵀ), of the MN-major B operand over all
+    of D (K1's P·V, N = D) and over each 128-column half (the
+    two-warpgroup dK/dV's dV += Pᵀ·dO, dK += dSᵀ·Q). D 64 and 128 are
+    the layouts the card already runs; D 256 is four 64-column panels,
+    each laid out as a D 64 tile at its panel offset."""
+    panel = 64 if d > 64 else d
+    panel_bytes = rows * panel * 2
+    sbo = 8 * panel * 2
+    offs = sorted(_tile_off(d, rows, r, c)
+                  for r in range(rows) for c in range(d // 8))
+    assert offs == list(range(0, rows * d * 2, 16))    # a bijection
+    for r in range(rows):
+        for c in range(d // 8):
+            assert _tile_off(d, rows, r, c) == (c // 8) * panel_bytes \
+                + _tile_off(64, rows, r, c % 8)
+    for kk in range(d // 16):                 # desc_k(s, kk)
+        start = (16 * kk // panel) * panel_bytes + (16 * kk % panel) * 2
+        for m in range(rows):
+            for k in range(16):
+                assert _hw_k_major(start, sbo, m, k) \
+                    == _elem(d, rows, m, 16 * kk + k)
+    lbo = sbo if panel == d else panel_bytes
+    halves = [(0, d)] + ([(0, 128), (128, 128)] if d == 256 else [])
+    for n0, width in halves:                  # desc_mn(s + n0 panels, kk)
+        for kk in range(rows // 16):
+            start = (n0 // 64) * panel_bytes + 16 * kk * panel * 2
+            for k in range(16):
+                for n in range(width):
+                    assert _hw_mn_major(start, lbo, sbo, k, n) \
+                        == _elem(d, rows, 16 * kk + k, n0 + n)
+
+
+def _dkv_split_emulation(q, k, v, do, lse, delta, scale, causal):
+    """``flash_bwd_dkv_wgmma_split_kernel``'s schedule in torch on bf16
+    (B, H, T, D), D <= 256: columns zero-padded to 256; per 64-key tile
+    and 64-query step (from the diagonal down when causal), Sᵀ = K·Qᵀ and
+    dPᵀ = V·dOᵀ as the f32 partials of the two 128-column halves added
+    half 0 + half 1; Pᵀ = exp(Sᵀ·scale − lse), masked; each half of the
+    columns of dV += bf16(Pᵀ)·dO and dK += bf16(Pᵀ∘(dPᵀ − delta)·scale)·Q
+    on its own, f32 sums, bf16 out."""
+    b, h, t, d = q.shape
+    qf, kf, vf, dof = (torch.nn.functional.pad(x.float(), (0, 256 - d))
+                       for x in (q, k, v, do))
+    dk = torch.zeros((b, h, t, 256))
+    dv = torch.zeros((b, h, t, 256))
+    halves = (slice(0, 128), slice(128, 256))
+    for k0 in range(0, t, 64):
+        ks = slice(k0, min(k0 + 64, t))
+        keys = torch.arange(k0, ks.stop)
+        for i0 in range(k0 if causal else 0, t, 64):
+            qs = slice(i0, min(i0 + 64, t))
+            rows = torch.arange(i0, qs.stop)
+            st, dpt = (
+                sum(a[..., ks, c] @ o[..., qs, c].transpose(-1, -2)
+                    for c in halves)
+                for a, o in ((kf, qf), (vf, dof)))
+            p = torch.exp(st * scale - lse[..., None, qs])
+            if causal:
+                p = torch.where(rows[None, :] >= keys[:, None], p,
+                                torch.zeros(()))
+            ds = (p * (dpt - delta[..., None, qs]) * scale) \
+                .to(torch.bfloat16).float()
+            pb = p.to(torch.bfloat16).float()
+            for c in halves:
+                dv[..., ks, c] += pb @ dof[..., qs, c]
+                dk[..., ks, c] += ds @ qf[..., qs, c]
+    return dk[..., :d].to(torch.bfloat16), dv[..., :d].to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dkv_column_split_matches_plain_backward(d, causal):
+    """Part of the two-warpgroup dK/dV at padded D 256, emulated: the
+    halves' partials of Sᵀ and dPᵀ added in the fixed order give the
+    plain backward's dK and dV within the kernels' bf16 bar (relative L2
+    1e-2), at D 160 (zero-padded columns) and 256, T 200 (a ragged last
+    tile)."""
+    rng = np.random.default_rng(11)
+    b, h, t = 1, 2, 200
+    q, k, v, do = (torch.as_tensor(rng.standard_normal((b, h, t, d))
+                                   .astype(np.float32)).to(torch.bfloat16)
+                   for _ in range(4))
+    scale = d ** -0.5
+    _, lse = tfa.mha_reference_lse(q, k, v, scale, causal)
+    delta = torch.as_tensor(rng.standard_normal((b, h, t))
+                            .astype(np.float32))
+    _, ref_dk, ref_dv = tfa.flash_attention_bwd_reference(
+        q, k, v, do, lse, delta, scale, causal)
+    dk, dv = _dkv_split_emulation(q, k, v, do, lse, delta, scale, causal)
+    for got, want in ((dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        rel = ((got.float() - want.float()).norm()
+               / want.float().norm()).item()
+        assert rel <= 1e-2
 
 
 # --------------------------------------------- K2 split-K plan (CPU side)
@@ -551,11 +808,20 @@ def test_paged_split_plan_at_the_decode_shapes():
     assert plan == tpa.SplitPlan(pages_per_split=1, n_splits=128,
                                  heads_per_block=8, rows_per_stage=16)
     assert tpa.split_plan(8, 8, 64, 4, 16, 128, 132).rows_per_stage == 8
+    # Dh 512 (f32): eight heads of one staged row a block, 82048 bytes
+    big = tpa.split_plan(8, 8, 512, 4, 16, 128, 132)
+    assert (big.heads_per_block, big.rows_per_stage) == (8, 1)
+    assert tpa.partial_smem(4, False, 8, 512, 1) == 82048
     for b, h, dh, item, plen, per_slot in (
             (8, 8, 64, 2, 16, 128), (64, 8, 64, 2, 16, 128),
             (1, 8, 64, 2, 16, 4096), (4, 64, 256, 4, 16, 512),
-            (2, 3, 20, 2, 5, 7), (32, 32, 128, 2, 256, 64)):
+            (2, 3, 20, 2, 5, 7), (32, 32, 128, 2, 256, 64),
+            (8, 2, 320, 2, 16, 128), (8, 8, 512, 4, 16, 128),
+            (8, 8, 512, 2, 16, 128), (2, 2, tpa.MAX_HEAD_DIM, 4, 16, 8)):
         p = tpa.split_plan(b, h, dh, item, plen, per_slot, 132)
+        for vec in (False, True):
+            assert tpa.partial_smem(item, vec, p.heads_per_block, dh,
+                                    p.rows_per_stage) <= tpa.SMEM_PER_BLOCK
         groups = -(-h // p.heads_per_block)
         assert 1 <= p.n_splits <= tpa.MAX_SPLITS
         assert p.n_splits * p.pages_per_split >= per_slot
@@ -592,9 +858,14 @@ def test_paged_split_k_emulation_matches_reference(pages_per_split):
 
 def test_paged_auto_on_cuda_pool_past_max_head_dim_raises():
     """``auto`` picks the kernel for ANY pool on the card, and the kernel
-    refuses a head dim it cannot take: a Dh > 256 CUDA pool raises rather
-    than running the gather path on the card."""
-    assert tpa.MAX_HEAD_DIM == 256
+    refuses a head dim it cannot take: past ``MAX_HEAD_DIM`` (11621, where
+    pass 1's block at one head and one staged f32 row overflows the 227
+    KiB of shared memory a block may use) a CUDA pool raises, naming the
+    limit, rather than running the gather path on the card."""
+    assert tpa.MAX_HEAD_DIM == 11621
+    assert tpa.partial_smem(4, False, 1, tpa.MAX_HEAD_DIM, 1) \
+        <= tpa.SMEM_PER_BLOCK < tpa.partial_smem(4, False, 1,
+                                                 tpa.MAX_HEAD_DIM + 1, 1)
     dh = tpa.MAX_HEAD_DIM + 8
 
     class CudaTyped:                  # a pool tensor's device, without a card
@@ -610,7 +881,8 @@ def test_paged_auto_on_cuda_pool_past_max_head_dim_raises():
     k = torch.zeros((3, 4, 2, dh))
     table = torch.zeros((1, 2), dtype=torch.int32)
     pos = torch.zeros((1,), dtype=torch.int32)
-    with pytest.raises(ValueError, match="head dim"):
+    with pytest.raises(ValueError, match=r"head dim 11629 outside "
+                                         r"1\.\.11621.*232448 bytes"):
         tpa._paged_attention_cuda(q, k, k.clone(), table, pos)
 
 

@@ -388,10 +388,12 @@ def test_head_dim_80_lm_matches_jax_flash(jax_flash, monkeypatch):
     _head_dim_lm_parity(monkeypatch, 80, d_model=160, d_ff=128)
 
 
-@pytest.mark.parametrize("head_dim", [160, 256])
+@pytest.mark.parametrize("head_dim", [160, 200, 256])
 def test_wide_head_dim_lm_matches_jax_flash(jax_flash, monkeypatch,
                                             head_dim):
-    """Head dims 160 and 256 (d_model 320 and 512), which the card runs
-    on the general CUDA-core kernels (see _head_dim_lm_parity)."""
+    """Head dims 160, 200 and 256 (d_model 320, 400 and 512), which the
+    card runs in bf16 with K1 and dK/dV on the tensor cores padded to
+    256 and dQ on the general CUDA-core kernel, and in f32 on the general
+    kernels (see _head_dim_lm_parity)."""
     _head_dim_lm_parity(monkeypatch, head_dim, d_model=2 * head_dim,
                         d_ff=128)
