@@ -13,8 +13,10 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --k3-times ROOT  # only time the K3 reductions of
                                            # the port checked out at ROOT
     python3 chip_smoke.py --flash-times ROOT  # only time K1, dQ and dK/dV at
-                                             # D 256 and digest K2's outputs
-                                             # of the port at ROOT
+                                             # D 256 (bf16 and f32), profile
+                                             # the D 256 LM steps and digest
+                                             # K2's outputs of the port at
+                                             # ROOT
 
 Phases, each fatal on failure:
 
@@ -27,22 +29,26 @@ Phases, each fatal on failure:
    second launch bit for bit equal; device time of both passes
    (``torch.profiler``) with a call timed by CUDA events beside it;
 3. K1 (causal flash forward; bf16 on the tensor-core kernel up to D 256,
-   f32 on the CUDA-core one up to 128, every other head dim on the
-   general CUDA-core kernel) against ``mha_reference``, O and lse, at T
-   1024/2048, at head dim 80 (padded to 128 inside the kernel) in both
-   dtypes, at the train path's B32 T1024 bf16, at D 160 and 256 in bf16
-   (padded to 256 on the tensor cores) and f32 (general), D 12 bf16 and
-   320 in both dtypes (general), and at the D 256 LM's B8 H2 T1024, plus the strided
-   (B, T, H, D) layout the transformer uses; the kernel family ``route``
-   names must run; a second launch bit for bit equal;
-   ``F.scaled_dot_product_attention`` timed as a yardstick only;
-3b. the flash backward kernels (dQ, dK/dV; on the tensor cores in bf16,
-   dQ up to D 128, dK/dV up to 256 on two warpgroups) against
+   f32 on the CUDA-core one up to 128 and in split TF32 on the tensor
+   cores at 129-256, every other head dim on the general CUDA-core
+   kernel) against ``mha_reference``, O and lse, at T 1024/2048, at head
+   dim 80 (padded to 128 inside the kernel) in both dtypes, at the train
+   path's B32 T1024 bf16, at D 160 and 256 in bf16 (padded to 256 on the
+   tensor cores), at D 130, 160, 200 and 256 in f32 (split TF32), D 12
+   bf16 and 320 in both dtypes (general), and at the D 256 LM's B8 H2
+   T1024 in both dtypes, plus the strided (B, T, H, D) layout the
+   transformer uses; the kernel family ``route`` names must run; a second
+   launch bit for bit equal; ``F.scaled_dot_product_attention`` timed as
+   a yardstick only;
+3b. the flash backward kernels (dQ, dK/dV; on the tensor cores in bf16 up
+   to D 256, past 128 on two warpgroups) against
    ``flash_attention_bwd_reference`` on the same inputs, through strided
    (B, T, H, D) views of one qkv buffer, at B1 H8 D64 T 1024/2048/4096
    bf16, T 2048 f32, T 200 causal and T 256 non-causal, head dim 80 in
    both dtypes, the train path's B32 T1024 bf16, causal and non-causal,
-   and phase 3's head dims past 128 (and D 12), causal;
+   phase 3's head dims past 128 (and D 12), causal, and the two-warpgroup
+   dQ at bf16 D 136, 160, 200 and 256, T 200, causal and not, and D 256
+   T 1024 non-causal;
    a second launch of each bit for bit equal; the autograd Function's
    grads against autograd through ``mha_reference``; dQ's device time
    against its bound and SDPA's whole backward (timed as a yardstick
@@ -66,11 +72,10 @@ Phases, each fatal on failure:
    the launch counts are set to 0 just before the kernel path, and every
    step must launch K1 16 times and dQ and dK/dV 8 times each, every
    launch on the tensor-core kernels; then the same LM at head dim 256
-   (2 heads, 2 layers, batch 8) for one step, K1 (4 launches) and dK/dV
-   (2) on the tensor cores padded to 256 and dQ (2) on the general
-   kernel, and once more in f32, every launch on the general kernels,
-   each held to the same bars (each its own path: counts set to 0 just
-   before it);
+   (2 heads, 2 layers, batch 8) for one step, K1 (4 launches), dQ (2) and
+   dK/dV (2) on the tensor cores padded to 256, and once more in f32, K1
+   in split TF32 and dQ and dK/dV on the general kernels, each held to
+   the same bars (each its own path: counts set to 0 just before it);
 7. the fused BatchNorm+activation kernels (K3: normalize+act, stats,
    backward reduce, backward dx) against their plain versions at all
    nine (N, C) shapes a ResNet-50 BN gives them at batch 128, relu and
@@ -116,8 +121,9 @@ Phases, each fatal on failure:
 11. LeNet at batch 512 bf16 (``bench.py``'s ``lenet`` row) through
    ``MultiLayerNetwork.fit``, 5 steps on seeded 28x28x1 inputs: the loss
    falls, ``output()`` rows are finite and sum to 1;
-5. a ``kernels`` JSON line (with K1's train-shape reading), then the
-   result line (printed last).
+5. a ``kernels`` JSON line (every hand-written kernel: its route,
+   launches on each main path, largest error, times and bound at its
+   path shape), then the result line (printed last).
 
 Without a CUDA device it exits non-zero before printing any result.
 """
@@ -152,17 +158,27 @@ RESNET_F32_STATE_REL_L2 = 1e-4           # f32 running mean/var, per tensor
 K3_SUM_RTOL = 1e-4                       # f32 per-channel sums, reordered
 K3_EPILOGUE_RTOL = 1e-6                  # mean/var/inv from the same sums
 # (dtype, B, T, D) past the fast kernels' D 128 and a bf16 D that is not
-# a multiple of 8 (H 8): bf16 D 160 and 256 run K1 and dK/dV padded to 256
-# on the tensor cores, every other one the head-dim-general kernels at 64,
-# 32 and 16 tile rows (bf16 D 320 too, so that the general bf16 kernels
-# stay held past D 128)
-GENERAL_SHAPES = ((torch.bfloat16, 2, 1024, 12),
-                  (torch.bfloat16, 1, 1024, 160), (torch.float32, 1, 1024, 160),
-                  (torch.bfloat16, 1, 1024, 256), (torch.float32, 1, 1024, 256),
-                  (torch.bfloat16, 1, 1024, 320), (torch.float32, 1, 1024, 320))
-# the D 256 LM's attention (B8 H2 T1024 D256 bf16): phase 6's train_d256
-# path hands K1, dQ and dK/dV this shape
+# a multiple of 8 (H 8): bf16 D 160 and 256 run K1, dQ and dK/dV padded to
+# 256 on the tensor cores; f32 D 130-256 run K1 in split TF32 (D 130: rows
+# of whole elements, not 16-byte chunks) and the backward on the general
+# kernels; every other one runs the head-dim-general kernels at 64, 32 and
+# 16 tile rows (D 320 in both dtypes, so that the general kernels stay
+# held)
+WIDE_SHAPES = ((torch.bfloat16, 2, 1024, 12),
+               (torch.bfloat16, 1, 1024, 160), (torch.float32, 1, 1024, 130),
+               (torch.float32, 1, 1024, 160), (torch.float32, 1, 1024, 200),
+               (torch.bfloat16, 1, 1024, 256), (torch.float32, 1, 1024, 256),
+               (torch.bfloat16, 1, 1024, 320), (torch.float32, 1, 1024, 320))
+# the two-warpgroup dQ's own holds (bf16, B, T, causal, D): T 200 (a ragged
+# last tile) at every padded-256 width, causal and not, and B1 T1024 D256
+# non-causal (the causal one is in WIDE_SHAPES)
+DQ_SPLIT_SHAPES = tuple((torch.bfloat16, 2, 200, c, d)
+                        for d in (136, 160, 200, 256) for c in (True, False)) \
+    + ((torch.bfloat16, 1, 1024, False, 256),)
+# the D 256 LM's attention (B8 H2 T1024 D256): phase 6's train_d256 path
+# hands K1, dQ and dK/dV this shape in bf16, train_d256_f32 in f32
 D256_LM = (torch.bfloat16, 8, 1024, 256)
+D256_LM_F32 = (torch.float32, 8, 1024, 256)
 D256_LM_HEADS = 2
 RESNET_BATCH = 128
 RESNET_HW = 224
@@ -187,7 +203,10 @@ K3_VECS = {"bn_act": 2, "bn_stats": 10, "bn_bwd_reduce": 8, "bn_bwd_dx": 6}
 K3_LINES = {"bn_act": 76, "bn_stats": 170, "bn_bwd_reduce": 182,
             "bn_bwd_dx": 202}
 PEAK_FLOPS = {torch.bfloat16: 989e12,    # dense tensor-core bf16
-              torch.float32: 67e12}      # f32 outside the tensor cores
+              torch.float32: 67e12,      # f32 outside the tensor cores
+              "tf32": 495e12}            # dense tensor-core TF32
+# the f32 K1 of split TF32 issues three TF32 products per f32 product
+TF32X3_PASSES = 3
 MAX_KL = 1e-3                            # the reference's PROMOTION_MAX_KL
 ATOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 LSE_ATOL = 1e-3
@@ -382,21 +401,20 @@ def check_paged(pa, dtype, gen, h=8, dh=64):
 # ---------------------------------------------------------------- phase 3
 
 def route_counts(fa, part=""):
-    """The (tensor-core, general) launch counters of K1 (part "") or of
-    the backward's "dq" or "dkv" kernel."""
-    name = {"": "", "dq": "_BWD_DQ", "dkv": "_BWD_DKV"}[part]
-    return (getattr(fa, f"LAUNCHES{name}_TC"),
-            getattr(fa, f"LAUNCHES{name}_GENERAL"))
+    """Each kernel family's launch counter of K1 (part "") or of the
+    backward's "dq" or "dkv" kernel: family → count."""
+    kernel = part or "fwd"
+    return {f: getattr(fa, fa.launch_counter(kernel, f), 0)
+            for f in fa.FAMILY_SUFFIX}
 
 
 def route_state(fa, before, part, d, dtype):
     """(ok, text): the kernel family ``fa.route`` names for (d, dtype) in
     K1 (part "") or the "dq" or "dkv" kernel launched once since
-    ``before`` = :func:`route_counts`, and no other counted family did."""
+    ``before`` = :func:`route_counts`, and no other family did."""
     kind = fa.route(d, dtype, part or "fwd")
     now = route_counts(fa, part)
-    want = (int(kind == "wgmma"), int(kind == "general"))
-    ok = (now[0] - before[0], now[1] - before[1]) == want
+    ok = all(now[f] - before[f] == int(f == kind) for f in now)
     return ok, f"{kind} kernel {'ran' if ok else 'MISSED'}"
 
 
@@ -442,6 +460,12 @@ def check_flash(fa, dtype, b, t, gen, h=8, d=64):
     nbytes = 4 * b * h * t * d * item + b * h * t * 4
     flops = 4 * b * h * d * t * (t + 1) // 2
     bms, by = bound_ms(nbytes, flops, dtype)
+    extra = {}
+    if fa.route(d, dtype, "fwd") == "tf32x3":
+        # the operations it issues: three TF32 products per f32 product;
+        # the f32 CUDA-core bound stays beside it
+        extra["ffma_bound_ms"] = bms
+        bms, by = bound_ms(nbytes, TF32X3_PASSES * flops, "tf32")
     log(f"K1 flash_attention_fwd {str(dtype)[6:]} B{b} H{h} T{t} D{d}: "
         f"O err {err:.3e}, ntc err {ntc_err:.3e} (atol {ATOL[dtype]}), "
         f"lse err {lse_err:.3e} (atol {LSE_ATOL}), second launch "
@@ -449,14 +473,16 @@ def check_flash(fa, dtype, b, t, gen, h=8, d=64):
         f"kernel {ms:.4f} (a "
         f"call with the host's path {call_ms:.4f}), plain {plain_ms:.4f}, "
         f"sdpa {library_ms:.4f} (a call {library_call_ms:.4f}), bound "
-        f"{bms:.5f} ({by}) -> {'ok' if ok else 'FAIL'}")
+        f"{bms:.5f} ({by}){''.join(f', {k} {v:.5f}' for k, v in extra.items())}"
+        f" -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"K1 {dtype} B{b} T{t} disagrees with "
                          "mha_reference, does not repeat or missed its "
                          "kernel")
     return {"max_abs_err": max(err, ntc_err), "lse_err": lse_err, "ms": ms,
             "call_ms": call_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bms, "bound_by": by}
+            "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
+            **extra}
 
 
 # --------------------------------------------------------------- phase 3b
@@ -733,10 +759,27 @@ def lm_setup(tfm, batch, n_heads, n_layers, dtype):
     return cfg, init, ids, tgt
 
 
-FLASH_COUNTERS = ("LAUNCHES", "LAUNCHES_BWD_DQ", "LAUNCHES_BWD_DKV",
-                  "LAUNCHES_TC", "LAUNCHES_BWD_DQ_TC", "LAUNCHES_BWD_DKV_TC",
-                  "LAUNCHES_GENERAL", "LAUNCHES_BWD_DQ_GENERAL",
-                  "LAUNCHES_BWD_DKV_GENERAL")
+# the flash kernels' wrappers, and the key suffix of each kernel family's
+# launches in a path's counts
+FLASH_NAMES = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
+               "dkv": "flash_attention_bwd_dkv"}
+FAMILY_KEYS = {"wgmma": "tc", "cuda-core": "cuda_core", "tf32x3": "tf32x3",
+               "general": "general"}
+# the TPU kernel each replaces: deeplearning4j_tpu/kernels/flash_attention.py
+FLASH_LINES = {"fwd": 51, "dq": 146, "dkv": 186}
+
+
+def flash_counts(fa):
+    """Every flash launch counter, keyed as a path's counts are:
+    ``flash_attention_fwd`` (any family), ``flash_attention_fwd_tc``, ...
+    """
+    out = {}
+    for kernel, name in FLASH_NAMES.items():
+        out[name] = getattr(fa, fa.launch_counter(kernel))
+        for fam, key in FAMILY_KEYS.items():
+            out[f"{name}_{key}"] = getattr(fa, fa.launch_counter(kernel, fam),
+                                           0)
+    return out
 
 
 def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
@@ -766,14 +809,15 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
         pa.reset_launches()
         losses, secs, per_step = [], [], []
         for i in range(steps):
-            before = [getattr(fa, n) for n in FLASH_COUNTERS]
+            before = flash_counts(fa)
             t0 = time.perf_counter()
             loss = step(params, ids, tgt)
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             losses.append(loss.item())
-            after = [getattr(fa, n) for n in FLASH_COUNTERS]
-            per_step.append([a - b for a, b in zip(after, before)])
+            per_step.append({n: c - before[n]
+                             for n, c in flash_counts(fa).items()
+                             if c - before[n]})
             if i == 0:
                 grads = {n: p.grad.detach().clone()
                          for n, p in _named_leaves(params)}
@@ -802,13 +846,13 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
     dloss = [abs(a - b) for a, b in zip(kr["losses"], pr["losses"])]
     # K1 runs twice a layer (forward and the save_attn recompute), dQ and
     # dK/dV once; every launch on the family fa.route names for its kernel
-    # (bf16: the tensor cores up to D 256 for K1 and dK/dV and up to 128
-    # for dQ, the general kernels past them; f32 past 128: general)
-    per = [2 * cfg.n_layers, cfg.n_layers, cfg.n_layers]
-    kinds = [fa.route(cfg.head_dim, cfg.dtype, kn)
-             for kn in ("fwd", "dq", "dkv")]
-    want = per + [x * (kd == "wgmma") for x, kd in zip(per, kinds)] \
-        + [x * (kd == "general") for x, kd in zip(per, kinds)]
+    # (bf16: the tensor cores up to D 256; f32: the CUDA cores up to 128,
+    # K1 in split TF32 up to 256; the general kernels past them)
+    per = {"fwd": 2 * cfg.n_layers, "dq": cfg.n_layers, "dkv": cfg.n_layers}
+    want = {}
+    for kn, name in FLASH_NAMES.items():
+        kind = fa.route(cfg.head_dim, cfg.dtype, kn)
+        want[name] = want[f"{name}_{FAMILY_KEYS[kind]}"] = per[kn]
     counts_ok = all(c == want for c in kr["launches_per_step"])
     falls = steps == 1 or (kr["losses"][-1] < kr["losses"][0]
                            and pr["losses"][-1] < pr["losses"][0])
@@ -816,7 +860,6 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
         f"({worst}; limit {TRAIN_GRAD_REL_L2}), all finite {finite}; "
         f"|loss delta| per step {[f'{x:.2e}' for x in dloss]} (limit "
         f"{TRAIN_LOSS_ATOL}); loss falls {falls}; launches per step "
-        f"[K1, dQ, dK/dV, of them tensor-core, of them general] "
         f"{kr['launches_per_step']} (want {want})")
     if not finite or not rels[worst] <= TRAIN_GRAD_REL_L2:
         raise SystemExit(f"{tag} path: step-1 grads disagree with the "
@@ -827,14 +870,9 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
     if not counts_ok:
         raise SystemExit(f"{tag} path: a flash kernel was not launched as "
                          "often as wanted in every step")
-    total = [sum(c[i] for c in kr["launches_per_step"])
-             for i in range(len(FLASH_COUNTERS))]
-    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
-             "flash_attention_bwd_dkv")
-    return {**{n: total[i] for i, n in enumerate(names)},
-            **{f"{n}_tc": total[3 + i] for i, n in enumerate(names)},
-            **{f"{n}_general": total[6 + i] for i, n in enumerate(names)},
-            "paged_attention": runs["kernel"][0]["paged_launches"]}
+    total = {n: sum(c.get(n, 0) for c in kr["launches_per_step"])
+             for n in flash_counts(fa)}
+    return {**total, "paged_attention": runs["kernel"][0]["paged_launches"]}
 
 
 def profile_train_step(step, params, ids, tgt, label):
@@ -1120,18 +1158,18 @@ def k3_times(root):
 
 def flash_times(root):
     """``--flash-times ROOT``: the device time (``torch.profiler``) and a
-    call's time by events of K1, dQ and dK/dV, bf16 causal at B1 H8 T1024
-    D256 and the D 256 LM's B8 H2 T1024 D256, for the port checked out at
-    ROOT (its kernels build under ROOT), on the kernel family its route
-    picks there; the D 256 LM's train step (phase 6's ``train_d256``)
-    profiled on ROOT's port: device time a step and its flash kernels'
-    share; then a digest of K2's outputs at Dh 64, 128 and 256 in bf16
-    and f32 on seeded inputs, so that two trees' K2 are held bit for bit.
-    Two versions are compared in one run: parent, change, change,
-    parent. Prints one JSON line."""
+    call's time by events of K1, dQ and dK/dV, causal at B1 H8 T1024 D256
+    and the D 256 LM's B8 H2 T1024 D256, in bf16 and in f32, for the port
+    checked out at ROOT (its kernels build under ROOT), on the kernel
+    family its route picks there; the D 256 LM's train step (phase 6's
+    ``train_d256`` and ``train_d256_f32``) profiled on ROOT's port in
+    each dtype: device time a step and its flash kernels' share; then a
+    digest of K2's outputs at Dh 64, 128 and 256 in bf16 and f32 on
+    seeded inputs, so that two trees' K2 are held bit for bit. Two
+    versions are compared in one run: parent, change, change, parent.
+    Prints one JSON line."""
     import hashlib
     import importlib
-    import inspect
     sys.path.insert(0, str(root))
     fa = importlib.import_module(
         "deeplearning4j_tpu_torch.kernels.flash_attention")
@@ -1139,34 +1177,37 @@ def flash_times(root):
         "deeplearning4j_tpu_torch.kernels.paged_attention")
     tfm = importlib.import_module("deeplearning4j_tpu_torch.zoo.transformer")
     log(f"flash-times: kernels from {fa.__file__}")
-    per_kernel = len(inspect.signature(fa.route).parameters) == 3
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for b, h in ((1, 8), (D256_LM[1], D256_LM_HEADS)):
-        dtype, t, d = torch.bfloat16, 1024, 256
-        q, k, v, do = (torch.randn((b, h, t, d), generator=gen,
-                                   device="cuda").to(dtype)
-                       for _ in range(4))
-        scale = d ** -0.5
-        o, lse = fa.flash_attention_lse(q, k, v, causal=True)
-        delta = (do.float() * o.float()).sum(-1).contiguous()
-        fns = {"fwd": lambda: fa.flash_attention_lse(q, k, v, causal=True),
-               "dq": lambda: fa.flash_attention_bwd_dq(
-                   q, k, v, do, lse, delta, scale, True),
-               "dkv": lambda: fa.flash_attention_bwd_dkv(
-                   q, k, v, do, lse, delta, scale, True)}
-        row = {"shape": f"B{b} H{h} T{t} D{d} bf16 causal"}
-        for name, fn in fns.items():
-            row[name] = {"route": (fa.route(d, dtype, name) if per_kernel
-                                   else fa.route(d, dtype)),
-                         "ms": device_ms(fn), "call_ms": cuda_ms(fn)}
-        log(f"flash-times {json.dumps(row)}")
-        rows.append(row)
-        del q, k, v, do, o, lse, delta
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, h in ((1, 8), (D256_LM[1], D256_LM_HEADS)):
+            t, d = 1024, 256
+            q, k, v, do = (torch.randn((b, h, t, d), generator=gen,
+                                       device="cuda").to(dtype)
+                           for _ in range(4))
+            scale = d ** -0.5
+            o, lse = fa.flash_attention_lse(q, k, v, causal=True)
+            delta = (do.float() * o.float()).sum(-1).contiguous()
+            fns = {"fwd": lambda: fa.flash_attention_lse(q, k, v,
+                                                         causal=True),
+                   "dq": lambda: fa.flash_attention_bwd_dq(
+                       q, k, v, do, lse, delta, scale, True),
+                   "dkv": lambda: fa.flash_attention_bwd_dkv(
+                       q, k, v, do, lse, delta, scale, True)}
+            row = {"shape": f"B{b} H{h} T{t} D{d} {str(dtype)[6:]} causal"}
+            for name, fn in fns.items():
+                row[name] = {"route": fa.route(d, dtype, name),
+                             "ms": device_ms(fn), "call_ms": cuda_ms(fn)}
+            log(f"flash-times {json.dumps(row)}")
+            rows.append(row)
+            del q, k, v, do, o, lse, delta
+            torch.cuda.empty_cache()
+    steps = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        key = str(dtype)[6:]
+        steps[key] = lm_step_times(tfm, D256_LM[1], D256_LM_HEADS, 2, dtype)
+        log(f"flash-times D 256 LM step {json.dumps(steps[key])}")
         torch.cuda.empty_cache()
-    step = lm_step_times(tfm, D256_LM[1], D256_LM_HEADS, 2)
-    log(f"flash-times D 256 LM step {json.dumps(step)}")
-    torch.cuda.empty_cache()
     digests = {}
     for dtype in (torch.bfloat16, torch.float32):
         for dh in (64, 128, 256):
@@ -1175,20 +1216,19 @@ def flash_times(root):
             out = pa.paged_attention(q, k[0], v[0], table.cuda(), pos.cuda())
             digests[f"{str(dtype)[6:]} Dh{dh}"] = hashlib.sha256(
                 out.float().cpu().numpy().tobytes()).hexdigest()[:16]
-    log(json.dumps({"flash_times": rows, "d256_lm_step": step,
+    log(json.dumps({"flash_times": rows, "d256_lm_step": steps,
                     "k2_digests": digests, "root": str(root)}))
     return 0
 
 
-def lm_step_times(tfm, batch, n_heads, n_layers, steps=5):
-    """Device time a step of the bf16 LM's kernel-path train step (AdamW,
-    as phase 6 runs it) under ``torch.profiler`` over ``steps`` steps
-    after two warm-up steps: all kernels and copies, and the flash
+def lm_step_times(tfm, batch, n_heads, n_layers, dtype, steps=5):
+    """Device time a step of the LM's kernel-path train step in ``dtype``
+    (AdamW, as phase 6 runs it) under ``torch.profiler`` over ``steps``
+    steps after two warm-up steps: all kernels and copies, and the flash
     kernels (every kernel named ``flash_*_kernel``) with their launches;
     the host's wall time a step beside them."""
     from torch.profiler import ProfilerActivity, profile
-    cfg, params, ids, tgt = lm_setup(tfm, batch, n_heads, n_layers,
-                                     torch.bfloat16)
+    cfg, params, ids, tgt = lm_setup(tfm, batch, n_heads, n_layers, dtype)
     opt = torch.optim.AdamW(tfm.param_leaves(params), lr=3e-4,
                             weight_decay=1e-4)
     step = tfm.make_train_step(cfg, opt)
@@ -1210,7 +1250,7 @@ def lm_step_times(tfm, batch, n_heads, n_layers, steps=5):
             us, n = flash.get(name[0], (0.0, 0))
             flash[name[0]] = (us + _self_device_us(ev), n + ev.count)
     return {"shape": f"B{batch} T{cfg.max_seq} H{n_heads} D{cfg.head_dim} "
-                     f"{n_layers} layers bf16",
+                     f"{n_layers} layers {str(dtype)[6:]}",
             "steps": steps,
             "wall_ms_per_step": rows["wall_ms_per_step"],
             "device_ms_per_step": rows["device_ms_per_step"],
@@ -1955,9 +1995,10 @@ def main():
                     help="only time the K3 reductions of the port checked "
                          "out at ROOT (prints no result line)")
     ap.add_argument("--flash-times", metavar="ROOT",
-                    help="only time K1, dQ and dK/dV at head dim 256 and "
-                         "digest K2's outputs, for the port checked out at "
-                         "ROOT (prints no result line)")
+                    help="only time K1, dQ and dK/dV at head dim 256 in "
+                         "bf16 and f32, profile the D 256 LM's train steps "
+                         "and digest K2's outputs, for the port checked "
+                         "out at ROOT (prints no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2000,11 +2041,12 @@ def main():
             (torch.float32, 1, 2048, 64), (torch.float32, 2, 2048, 64),
             (torch.bfloat16, 2, 1024, 80), (torch.float32, 2, 1024, 80),
             (torch.bfloat16, 32, 1024, 64),      # the train path's
-            *GENERAL_SHAPES):
+            *WIDE_SHAPES):
         k1[(dt, b, t, d)] = check_flash(fa, dt, b, t, gen, d=d)
         torch.cuda.empty_cache()
-    k1[D256_LM] = check_flash(fa, *D256_LM[:3], gen, h=D256_LM_HEADS,
-                              d=D256_LM[3])
+    for lm in (D256_LM, D256_LM_F32):
+        k1[lm] = check_flash(fa, *lm[:3], gen, h=D256_LM_HEADS, d=lm[3])
+        torch.cuda.empty_cache()
     bwd = {}
     for dt, b, t, causal, d in (
             (torch.bfloat16, 1, 1024, True, 64),
@@ -2019,7 +2061,8 @@ def main():
             (torch.float32, 2, 1024, True, 80),
             (torch.bfloat16, 32, 1024, False, 64),
             (torch.bfloat16, 32, 1024, True, 64),    # the train path's
-            *((dt, b, t, True, d) for dt, b, t, d in GENERAL_SHAPES)):
+            *((dt, b, t, True, d) for dt, b, t, d in WIDE_SHAPES),
+            *DQ_SPLIT_SHAPES):
         bwd[(dt, b, t, causal, d)] = check_flash_bwd(fa, dt, b, t, causal,
                                                      gen, d=d)
         torch.cuda.empty_cache()
@@ -2033,9 +2076,9 @@ def main():
 
     by_path = main_path(fa, pa)
     by_path["train"] = train_path(fa, pa, profile=args.profile_train)
-    # an LM of head dim 256 (2 heads): one step, bf16 K1 and dK/dV on the
-    # tensor cores and dQ on the general kernel; then in f32, every kernel
-    # on the general family
+    # an LM of head dim 256 (2 heads): one step, bf16 K1, dQ and dK/dV on
+    # the tensor cores; then in f32, K1 in split TF32 and dQ and dK/dV on
+    # the general kernels
     by_path["train_d256"] = train_path(fa, pa, steps=1, batch=8, n_heads=2,
                                        n_layers=2, tag="train D256",
                                        profile=args.profile_train)
@@ -2056,17 +2099,18 @@ def main():
     main_k2 = k2[torch.bfloat16]
     main_bwd = bwd[(torch.bfloat16, 32, 1024, True, 64)]  # the train path's
     main_k4 = k4[torch.bfloat16]                # the char-RNN's shape
-    # the padded-256 tensor-core K1 and dK/dV at rows 1g/3g's shape and the
-    # D 256 LM's; the general kernels at the D they still serve (f32 D 256;
-    # dQ: bf16 D 256)
+    # the padded-256 kernels at rows 1g/3g's shape and the D 256 LM's, in
+    # bf16 (tensor cores) and f32 (K1's split TF32); the f32 CUDA-core
+    # kernels at B1 H8 T2048 D64; the general kernels at D they still
+    # serve (f32 D 256 backward, f32 D 320 forward)
     d256 = (torch.bfloat16, 1, 1024, 256)
-    d256_bwd = bwd[(*d256[:3], True, 256)]
-    gen_k1 = k1[(torch.float32, 1, 1024, 256)]
-    gen_bwd = {"dq": d256_bwd, "dkv": bwd[(torch.float32, 1, 1024, True,
-                                           256)]}
-    gen_shape = {"dq": "B1 H8 T1024 D256 bf16 causal",
-                 "dkv": "B1 H8 T1024 D256 f32 causal"}
-    gen_dtype = {"dq": "bfloat16", "dkv": "float32"}
+    wide_k1 = {"wgmma": k1[d256],
+               "tf32x3": k1[(torch.float32, 1, 1024, 256)]}
+    wide_k1_lm = {"wgmma": k1[D256_LM], "tf32x3": k1[D256_LM_F32]}
+    f32_k1 = k1[(torch.float32, 1, 2048, 64)]
+    f32_bwd = bwd[(torch.float32, 1, 2048, True, 64)]
+    gen_k1 = k1[(torch.float32, 1, 1024, 320)]
+    gen_bwd = bwd[(torch.float32, 1, 1024, True, 256)]
 
     def family(key, kernel, kind, wide=None):
         """Phase 3/3b keys (dtype, B, T, D) that ``kernel`` runs on
@@ -2074,102 +2118,83 @@ def main():
         return fa.route(key[-1], key[0], kernel) == kind and (
             wide is None or (key[-1] > 128) == wide)
 
-    def tc_launches(name, wide):
-        """Tensor-core launches of ``name`` on the paths at head dim 256
-        (wide) or on every other path."""
-        return {p: c.get(f"{name}_tc", 0) for p, c in by_path.items()
-                if (p == "train_d256") == wide}
+    def launches_of(name, kind, wide=None):
+        """Launches of ``name`` (a FLASH_NAMES value) on ``kind`` by path;
+        the tensor-core ones on the paths at head dim 256 (wide) or on
+        every other path."""
+        key = f"{name}_{FAMILY_KEYS[kind]}"
+        return {p: c.get(key, 0) for p, c in by_path.items()
+                if wide is None or (p == "train_d256") == wide}
 
-    def timed(r, part=None, plain=None, library=None):
-        r = r if part is None else {**r[part], "plain_ms": plain,
-                                    "library_ms": library}
+    def timed(r, part=None):
+        r = r if part is None else {**r[part], "plain_ms": r["plain_ms"],
+                                    "library_ms": r["library_ms"]}
         return {key: r[key] for key in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")}
+                                        "bound_by", "library_ms",
+                                        "ffma_bound_ms") if key in r}
 
-    kernels = []
-    for wide in (False, True):
-        launches = tc_launches("flash_attention_fwd", wide)
-        main = k1[d256] if wide else main_k1
-        kernels.append({
-            "name": "flash_attention_fwd" + ("_d256" if wide else ""),
-            "route": "cuda",
-            "source": "deeplearning4j_tpu_torch/csrc/flash_attention_fwd.cu",
-            "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:51",
-            "kernel": ("flash_fwd_wgmma_kernel<256, 64> (bf16, tensor "
-                       "cores, padded D 256)" if wide else
-                       "flash_fwd_wgmma_kernel (bf16, tensor cores)"),
-            "dtype": "bfloat16",
-            "launches": sum(launches.values()),
-            "launches_by_path": launches,
-            "max_abs_err": max(r["max_abs_err"] for key, r in k1.items()
-                               if family(key, "fwd", "wgmma", wide)),
-            **({"shape": "B1 H8 T1024 D256 bf16"} if wide else {}),
-            **timed(main),
-            **({"lm_shape": {"shape": "B8 H2 T1024 D256 bf16",
-                             **timed(k1[D256_LM])}} if wide else
-               {"train_shape": {"shape": "B32 H8 T1024 D64",
-                                "max_abs_err": train_k1["max_abs_err"],
-                                **timed(train_k1)}})})
-    for part, line in (("dq", 146), ("dkv", 186)):
-        for wide in ((False, True) if part == "dkv" else (False,)):
-            counter = f"flash_attention_bwd_{part}"
-            launches = tc_launches(counter, wide)
-            main = d256_bwd if wide else main_bwd
-            entry = {
-                "name": counter + ("_d256" if wide else ""),
-                "route": "cuda",
-                "source": "deeplearning4j_tpu_torch/csrc/"
-                          "flash_attention_bwd.cu",
-                "replaces": "deeplearning4j_tpu/kernels/"
-                            f"flash_attention.py:{line}",
-                "kernel": ("flash_bwd_dkv_wgmma_split_kernel (bf16, two "
-                           "warpgroups, padded D 256)" if wide else
-                           f"flash_bwd_{part}_wgmma_kernel (bf16, tensor "
-                           "cores)"),
-                "dtype": "bfloat16",
-                "launches": sum(launches.values()),
-                "launches_by_path": launches,
-                "max_abs_err": max(r[part]["max_abs_err"]
-                                   for key, r in bwd.items()
-                                   if family(key, part, "wgmma", wide)),
-                **timed(main, part, main["plain_ms"], main["library_ms"])}
-            if wide:
-                lm = bwd[lm_bwd]
-                entry["shape"] = "B1 H8 T1024 D256 bf16 causal"
-                entry["lm_shape"] = {
-                    "shape": "B8 H2 T1024 D256 bf16 causal",
-                    **timed(lm, part, lm["plain_ms"], lm["library_ms"])}
-            kernels.append(entry)
-    gen_fwd = {p: c.get("flash_attention_fwd_general", 0)
-               for p, c in by_path.items()}
-    kernels.append({
-        "name": "flash_attention_fwd_general_f32", "route": "cuda",
-        "source": "deeplearning4j_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:51",
-        "kernel": "flash_fwd_general_kernel (any D, CUDA cores)",
-        "dtype": "float32",
-        "launches": sum(gen_fwd.values()), "launches_by_path": gen_fwd,
-        "max_abs_err": max(r["max_abs_err"] for key, r in k1.items()
-                           if family(key, "fwd", "general")),
-        "shape": "B1 H8 T1024 D256 f32", **timed(gen_k1)})
-    for part, line in (("dq", 146), ("dkv", 186)):
-        counter = f"flash_attention_bwd_{part}_general"
-        launches = {p: c.get(counter, 0) for p, c in by_path.items()}
-        g = gen_bwd[part]
-        kernels.append({
-            "name": counter + ("_f32" if gen_dtype[part] == "float32"
-                               else ""),
-            "route": "cuda",
-            "source": "deeplearning4j_tpu_torch/csrc/flash_attention_bwd.cu",
-            "replaces": f"deeplearning4j_tpu/kernels/flash_attention.py:{line}",
-            "kernel": f"flash_bwd_{part}_general_kernel (any D, CUDA cores)",
-            "dtype": gen_dtype[part],
-            "launches": sum(launches.values()), "launches_by_path": launches,
-            "max_abs_err": max(r[part]["max_abs_err"]
-                               for key, r in bwd.items()
-                               if family(key, part, "general")),
-            "shape": gen_shape[part],
-            **timed(g, part, g["plain_ms"], g["library_ms"])})
+    def entry(kernel, kind, suffix, what, dtype, results, shape, main,
+              wide=None, lm=None):
+        """One flash kernel's line: launches by path, the largest error
+        over every phase 3/3b shape it ran in ``dtype``, its times at
+        ``shape`` (``main``) and, where given, at a second path shape."""
+        name = FLASH_NAMES[kernel]
+        part = None if kernel == "fwd" else kernel
+        launches = launches_of(name, kind, wide)
+        e = {"name": name + suffix, "route": "cuda",
+             "source": "deeplearning4j_tpu_torch/csrc/flash_attention_"
+                       + ("fwd.cu" if kernel == "fwd" else "bwd.cu"),
+             "replaces": "deeplearning4j_tpu/kernels/flash_attention.py:"
+                         f"{FLASH_LINES[kernel]}",
+             "kernel": what, "dtype": str(dtype)[6:],
+             "launches": sum(launches.values()), "launches_by_path": launches,
+             "max_abs_err": max((r if part is None else r[part])["max_abs_err"]
+                                for key, r in results.items()
+                                if key[0] == dtype
+                                and family(key, kernel, kind, wide)),
+             "shape": shape, **timed(main, part)}
+        if lm is not None:
+            e["lm_shape"] = {"shape": lm[0], **timed(lm[1], part)}
+        return e
+
+    kernels = [
+        entry("fwd", "wgmma", "", "flash_fwd_wgmma_kernel (bf16, tensor "
+              "cores)", torch.bfloat16, k1, "B1 H8 T2048 D64", main_k1,
+              wide=False, lm=("B32 H8 T1024 D64 (the train path's)",
+                              train_k1)),
+        entry("fwd", "wgmma", "_d256", "flash_fwd_wgmma_kernel<256, 64> "
+              "(bf16, tensor cores, padded D 256)", torch.bfloat16, k1,
+              "B1 H8 T1024 D256 bf16", wide_k1["wgmma"], wide=True,
+              lm=("B8 H2 T1024 D256 bf16", wide_k1_lm["wgmma"])),
+        entry("fwd", "tf32x3", "_tf32x3_f32", "flash_fwd_tf32x3_kernel (f32 "
+              "D 129-256, split-TF32 tensor-core products, padded D 256)",
+              torch.float32, k1, "B1 H8 T1024 D256 f32", wide_k1["tf32x3"],
+              lm=("B8 H2 T1024 D256 f32", wide_k1_lm["tf32x3"])),
+        entry("fwd", "cuda-core", "_f32", "flash_fwd_kernel (f32 D <= 128, "
+              "CUDA cores)", torch.float32, k1, "B1 H8 T2048 D64 f32",
+              f32_k1),
+        entry("fwd", "general", "_general_f32", "flash_fwd_general_kernel "
+              "(any D, CUDA cores)", torch.float32, k1,
+              "B1 H8 T1024 D320 f32", gen_k1),
+    ]
+    for part in ("dq", "dkv"):
+        kernels += [
+            entry(part, "wgmma", "", f"flash_bwd_{part}_wgmma_kernel (bf16, "
+                  "tensor cores)", torch.bfloat16, bwd,
+                  "B32 H8 T1024 D64 causal (the train path's)", main_bwd,
+                  wide=False),
+            entry(part, "wgmma", "_d256", f"flash_bwd_{part}_wgmma_split_"
+                  "kernel (bf16, two warpgroups, padded D 256)",
+                  torch.bfloat16, bwd, "B1 H8 T1024 D256 bf16 causal",
+                  bwd[(*d256[:3], True, 256)], wide=True,
+                  lm=("B8 H2 T1024 D256 bf16 causal", bwd[lm_bwd])),
+            entry(part, "cuda-core", "_f32", f"flash_bwd_{part}_kernel (f32 "
+                  "D <= 128, CUDA cores)", torch.float32, bwd,
+                  "B1 H8 T2048 D64 f32 causal", f32_bwd),
+            entry(part, "general", "_general_f32", f"flash_bwd_{part}_"
+                  "general_kernel (any D, CUDA cores)", torch.float32, bwd,
+                  "B1 H8 T1024 D256 f32 causal", gen_bwd),
+        ]
     kernels += [
         {"name": "paged_attention", "route": "cuda",
          "source": "deeplearning4j_tpu_torch/csrc/paged_attention.cu",

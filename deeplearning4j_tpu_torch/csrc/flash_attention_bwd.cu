@@ -52,19 +52,20 @@
 // In both, only tiles that cross the diagonal or T are masked, and rows
 // >= T read as zeros.
 //
-// f32: the CUDA-core kernels of the first port (tensor cores would mean
-// TF32, beyond the f32 atol of 1e-4). The Pallas grids (b*h, q-block,
-// k-block) and (b*h, k-block, q-block) streamed the other operand through
-// VMEM in order with the accumulator in scratch; here one block owns one
-// (b*h, 64-row tile) of its output and a loop inside it walks the other
-// operand's tiles: the dq kernel the key tiles up to the diagonal, the
-// dkv kernel the query tiles from the diagonal down (the steps the TPU
-// skipped with pl.when are never visited). Each streamed tile goes
+// f32: the CUDA-core kernels of the first port (one TF32 pass on the tensor
+// cores would break the f32 atol of 1e-4; the split-TF32 products that K1
+// runs past D 128, flash_attention_fwd.cu, are not yet here). The Pallas
+// grids (b*h, q-block, k-block) and (b*h, k-block, q-block) streamed the
+// other operand through VMEM in order with the accumulator in scratch; here
+// one block owns one (b*h, 64-row tile) of its output and a loop inside it
+// walks the other operand's tiles: the dq kernel the key tiles up to the
+// diagonal, the dkv kernel the query tiles from the diagonal down (the steps
+// the TPU skipped with pl.when are never visited). Each streamed tile goes
 // through shared memory as f32. TPR = D / 16 threads share a row, each
 // holding 16 of its dims (the row's operands and accumulators stay in
 // registers) in interleaved 4-float slices, so a warp's shared reads are
-// broadcast float4 loads without bank conflicts; shuffles complete each
-// dot product.
+// broadcast float4 loads without bank conflicts; shuffles complete each dot
+// product.
 //
 // Keeping the TPU's two-pass schedule means no atomics, so all three
 // gradients are deterministic: a second launch is bit-identical. A T that
@@ -81,12 +82,12 @@
 // fill the columns in [D, DP) with zeros (cp.async src-size 0 in bf16, a
 // guard in f32), which add nothing to any dot product, and stores write
 // only the D real columns. They keep their accumulators in registers, so
-// past 128 dK/dV's two f32 accumulators would need DP registers a thread:
-// bf16 dK/dV at D 136..256 (a multiple of 8) runs padded to 256 on two
-// warpgroups that split the columns (flash_bwd_dkv_wgmma_split_kernel).
-// Every other D (f32 D > 128, bf16 dQ past 128, bf16 dK/dV past 256, a
-// bf16 D that is not a multiple of 8) runs the head-dim-general CUDA-core
-// kernels
+// past 128 one warpgroup's f32 accumulators would need DP (dQ) or 2 DP
+// (dK/dV) registers a thread: bf16 dQ and dK/dV at D 136..256 (a multiple
+// of 8) run padded to 256 on two warpgroups that split the columns
+// (flash_bwd_dq_wgmma_split_kernel, flash_bwd_dkv_wgmma_split_kernel).
+// Every other D (f32 D > 128, bf16 D past 256, a bf16 D that is not a
+// multiple of 8) runs the head-dim-general CUDA-core kernels
 // (flash_bwd_dq_general_kernel, flash_bwd_dkv_general_kernel;
 // flash_general.cuh): the same two passes with every tile and accumulator
 // in dynamic shared memory, R = 64..8 rows by D, element-by-element loads.
@@ -939,6 +940,205 @@ flash_bwd_dq_wgmma_kernel(const dl4j_mma::bf16* __restrict__ q,
   }
 }
 
+// ---------------- bf16 dQ at padded D 256, two warpgroups (wgmma)
+
+// The mirror image of flash_bwd_dkv_wgmma_split_kernel. At padded D 256
+// one warpgroup's dQ would be 128 f32 accumulators a thread beside S and
+// dP's 2 x 32, past the 255 registers a thread may hold. Two consumer
+// warpgroups (256 threads) share the block's 64 query rows instead:
+// warpgroup w owns columns [128 w, 128 w + 128) of dQ, 64 accumulators a
+// thread. S = Q·Kᵀ and dP = dO·Vᵀ are computed once, split along their
+// depth D: each warpgroup forms the f32 partial over its own 128 columns
+// (k-steps 8 w .. 8 w + 7), the two trade partials through shared memory
+// (trade_halves: S, then dP), and both add the two halves, so both hold
+// bit-identical P and dS. Each feeds bf16(dS) from registers as the A
+// operand of its own N = 128 product dQ += dS·K, reading its column half
+// of the K tile (panels 2 w and 2 w + 1) through an MN-major descriptor.
+// Shared memory: Q and dO 64 KiB, two stages of (K, V) 128 KiB, the
+// exchange 32 KiB and 1 KiB of alignment, 225 KiB: one block an SM. Each
+// thread keeps the lse and delta of its two rows in registers.
+struct DqSplitCfg {
+  static constexpr int D = 256;
+  static constexpr int DH = D / 2;  // columns of dQ a warpgroup owns
+  static constexpr int BQ = 64;     // query rows per block
+  static constexpr int BK = 64;     // keys per step
+  static constexpr int THREADS = 256;
+  using QT = dl4j_mma::Tile<D, BQ>;
+  using KT = dl4j_mma::Tile<D, BK>;
+  // Q, dO, two stages of (K, V), then the exchange (a 64 x 64 f32 partial
+  // a warpgroup)
+  static constexpr int ROWS = 2 * QT::BYTES + 4 * KT::BYTES;
+  static constexpr int XCH = 2 * BQ * BK * 4;
+  static constexpr int SMEM = ROWS + XCH + 1024;
+};
+static_assert(DqSplitCfg::SMEM <= 232448, "227 KiB a block on sm_90");
+
+__global__ void __launch_bounds__(DqSplitCfg::THREADS, 1)
+flash_bwd_dq_wgmma_split_kernel(const dl4j_mma::bf16* __restrict__ q,
+                                const dl4j_mma::bf16* __restrict__ k,
+                                const dl4j_mma::bf16* __restrict__ v,
+                                const dl4j_mma::bf16* __restrict__ dout,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                dl4j_mma::bf16* __restrict__ dq, int H,
+                                int Tlen, int dr, Str sq, Str sk, Str sv,
+                                Str sdo, Str sdq, float scale, int causal) {
+  using namespace dl4j_mma;
+  using C = DqSplitCfg;
+  using QT = C::QT;
+  using KT = C::KT;
+  constexpr int BK = C::BK;
+  constexpr int NS = BK / 2;        // S / dP accumulators a thread holds
+  constexpr int NX = NS / 4;        // float4s of them
+  constexpr int KH = C::DH / 16;    // k-steps of a half's partial
+  constexpr int NDH = C::DH / 8;    // n-tiles of a warpgroup's dQ
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  unsigned char* const gbase = smem + (base - smem_u32(smem));
+  const uint32_t s_q = base;
+  const uint32_t s_do = s_q + QT::BYTES;
+  const uint32_t s_kv = s_do + QT::BYTES;  // stage st: K, then V
+  float4* const xch = reinterpret_cast<float4*>(gbase + C::ROWS);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  // query tiles on the slow dimension, the heaviest (last) first
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * C::BQ;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;           // this warpgroup's column half
+  const int wt = tid & 127;          // the thread within its warpgroup
+  const int warp = wt >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wrow = q0 + warp * 16;  // this warp's first query row
+  const int dc = dr >> 3;           // real 8-column chunks of a row
+  const float sl2 = scale * kLog2e;
+  // this warpgroup's partials go to `mine`, the other's come from `theirs`
+  float4* const mine = xch + wg * NX * 128;
+  const float4* const theirs = xch + (wg ^ 1) * NX * 128;
+  // the byte offset of this warpgroup's column half (panels 2 wg, 2 wg + 1)
+  // in a tile: its k-steps of S and dP, and its N = 128 of dQ
+  const uint32_t half = 2 * wg * KT::PANEL_BYTES;
+  static_assert(KT::PANEL_BYTES == QT::PANEL_BYTES, "one panel size");
+
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  const int kend = causal ? min(Tlen, q0 + C::BQ) : Tlen;
+  const int nkt = (kend + BK - 1) / BK;
+
+  QT::template load<C::THREADS>(s_q, q + b * sq.b + h * sq.h, sq.t, q0, Tlen,
+                                dc, tid);
+  QT::template load<C::THREADS>(s_do, dout + b * sdo.b + h * sdo.h, sdo.t,
+                                q0, Tlen, dc, tid);
+  KT::template load<C::THREADS>(s_kv, kb, sk.t, 0, Tlen, dc, tid);
+  KT::template load<C::THREADS>(s_kv + KT::BYTES, vb, sv.t, 0, Tlen, dc,
+                                tid);
+  cp_async_commit();
+
+  // the lse (times log2 e) and delta of this thread's rows g and g + 8
+  float lr[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    const bool ok = row < Tlen;
+    lr[r] = ok ? lse[(long long)bh * Tlen + row] * kLog2e : 0.f;
+    dl[r] = ok ? delta[(long long)bh * Tlen + row] : 0.f;
+  }
+  // dQ: n-tile d of this warp's rows, columns 128 wg + 8 d .., at [4d..]
+  float acc[C::DH / 2];
+#pragma unroll
+  for (int i = 0; i < C::DH / 2; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < nkt; ++j) {
+    const uint32_t s_k = s_kv + (j & 1) * 2 * KT::BYTES;
+    const uint32_t s_v = s_k + KT::BYTES;
+    if (j + 1 < nkt) {
+      const uint32_t n_k = s_kv + ((j + 1) & 1) * 2 * KT::BYTES;
+      KT::template load<C::THREADS>(n_k, kb, sk.t, (j + 1) * BK, Tlen, dc,
+                                    tid);
+      KT::template load<C::THREADS>(n_k + KT::BYTES, vb, sv.t, (j + 1) * BK,
+                                    Tlen, dc, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and Q, dO) have landed
+    __syncthreads();
+    const int k0 = j * BK;
+
+    // this half's partials of S = Q·Kᵀ and dP = dO·Vᵀ, issued together
+    float sacc[NS], dp[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sacc[i] = dp[i] = 0.f;
+    fence_regs(sacc);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KH; ++kk)
+      wgmma_ss<BK>(sacc, QT::desc_k(s_q + half, kk),
+                   KT::desc_k(s_k + half, kk));
+#pragma unroll
+    for (int kk = 0; kk < KH; ++kk)
+      wgmma_ss<BK>(dp, QT::desc_k(s_do + half, kk),
+                   KT::desc_k(s_v + half, kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sacc);
+    fence_regs(dp);
+    trade_halves(sacc, mine, theirs, wt);
+    __syncthreads();  // both have read the exchange before it is reused
+    trade_halves(dp, mine, theirs, wt);
+
+    // dS = P ∘ (dP - delta)·scale, P = exp(S·scale - lse); only tiles that
+    // cross the diagonal or T are masked
+    const bool edge = k0 + BK > Tlen || (causal && k0 + BK - 1 > wrow);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = exp2_approx(fmaf(sacc[i], sl2, -lr[r]));
+      if (edge) {
+        const int key = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+        const int row = wrow + g + 8 * r;
+        if (key >= Tlen || (causal && key > row)) p = 0.f;
+      }
+      sacc[i] = p * (dp[i] - dl[r]) * scale;
+    }
+    // bf16(dS) as the A fragments of dQ += dS·K over this warpgroup's
+    // column half, K read transposed
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        da[kk][i] = pack_bf16(sacc[8 * kk + 2 * i], sacc[8 * kk + 2 * i + 1]);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<C::DH>(acc, da[kk], KT::desc_mn(s_k + half, kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(acc);
+    __syncthreads();  // stage j & 1 and the exchange are free again
+  }
+
+  bf16* dqb = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    if (row < Tlen) {
+#pragma unroll
+      for (int d = 0; d < NDH; ++d) {
+        const int c = NDH * wg + d;  // the 8-column chunk of the row
+        if (c < dc)  // the padded columns are never written
+          *reinterpret_cast<uint32_t*>(dqb + row * sdq.t + 8 * c + 2 * t4) =
+              pack_bf16(acc[4 * d + 2 * r], acc[4 * d + 2 * r + 1]);
+      }
+    }
+  }
+}
+
 Str str_at(const long long* s, int i) { return Str{s[3 * i], s[3 * i + 1],
                                                     s[3 * i + 2]}; }
 
@@ -947,7 +1147,20 @@ int launch_dq(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
               const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int H,
               const long long* s, float scale, int causal) {
-  if constexpr (sizeof(T) == 2) {  // bf16: the tensor-core kernel
+  if constexpr (sizeof(T) == 2 && D == 256) {  // two warpgroups
+    using C = DqSplitCfg;
+    auto kern = flash_bwd_dq_wgmma_split_kernel;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid(BH, (Tlen + C::BQ - 1) / C::BQ);
+    kern<<<grid, C::THREADS, C::SMEM, st>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout),
+        static_cast<const float*>(lse), static_cast<const float*>(delta),
+        static_cast<T*>(dq), H, Tlen, dr, str_at(s, 0), str_at(s, 1),
+        str_at(s, 2), str_at(s, 3), str_at(s, 4), scale, causal);
+  } else if constexpr (sizeof(T) == 2) {  // bf16: the tensor-core kernel
     using C = DqCfg<D>;
     static_assert(C::SMEM <= 232448, "227 KiB a block on sm_90");
     auto kern = flash_bwd_dq_wgmma_kernel<D>;
@@ -1232,7 +1445,7 @@ int launch_dkv_general(int BH, int Tlen, int D, cudaStream_t st,
 // the kernel for (dtype, D): dtype 0 = float32, 1 = bfloat16. D <= 128
 // (bf16: a multiple of 8, 16-byte rows) runs on the kernel instantiated
 // on the padded width padded_dim(D); every other D on the general kernel
-// (the dK/dV entry takes bf16 D 136..256 to its padded-256 kernel first)
+// (both entries take bf16 D 136..256 to their padded-256 kernels first)
 #define DL4J_BWD_DISPATCH(LAUNCH, LAUNCH_GENERAL, ...)                       \
   if (D > 128 || (dtype == 1 && D % 8 != 0))                                 \
     return dtype == 0 ? LAUNCH_GENERAL<float>(__VA_ARGS__)                   \
@@ -1263,6 +1476,10 @@ extern "C" int dl4j_flash_attention_bwd_dq(
   if (B < 1 || H < 1 || T < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && D > 128 && D <= 256 && D % 8 == 0)
+    return launch_dq<__nv_bfloat16, 256>(B * H, T, D, st, q, k, v, dout, lse,
+                                         delta, dq, H, strides, scale,
+                                         causal);
   DL4J_BWD_DISPATCH(launch_dq, launch_dq_general, B * H, T, D, st, q, k, v,
                     dout, lse, delta, dq, H, strides, scale, causal)
 }

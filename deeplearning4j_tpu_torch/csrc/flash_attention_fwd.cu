@@ -1,6 +1,7 @@
 // Causal flash-attention forward (K1) for Hopper (sm_90a), plain C
-// interface: a bf16 kernel on the tensor cores (warpgroup MMA) and an f32
-// kernel on the CUDA cores, chosen by dtype.
+// interface: a bf16 kernel on the tensor cores (warpgroup MMA), an f32
+// kernel on the CUDA cores up to D 128 and an f32 kernel of split-TF32
+// tensor-core products at D 129..256, chosen by dtype and head dim.
 //
 // Replaces the TPU kernel `_fwd_kernel` of
 // deeplearning4j_tpu/kernels/flash_attention.py (launched by `_fwd`):
@@ -39,30 +40,34 @@
 // never written; keys >= T are masked. (An mma.sync m16n8k16 kernel with
 // ldmatrix fragments measured 1.3x slower at the train shape; PERF.md.)
 //
-// f32 (flash_fwd_kernel): tensor cores would mean TF32, which would break
-// the f32 tolerance of 1e-4, so f32 keeps the CUDA-core kernel: two
-// threads per query row, K/V tiles through shared memory as f32, f32 FMAs.
+// f32 up to D 128 (flash_fwd_kernel): the CUDA-core kernel of the first
+// port, two threads per query row, K/V tiles through shared memory as f32,
+// f32 FMAs. f32 at D 129..256 (flash_fwd_tf32x3_kernel): the tensor cores
+// in three TF32 products per f32 product (hi·hi + hi·lo + lo·hi of each
+// operand's split into two TF32 halves), whose error stays near f32's own
+// and inside the f32 tolerance of 1e-4 that one TF32 product would break.
 //
-// Both take the batch, head and time strides of q, k, v and o (the last
+// All take the batch, head and time strides of q, k, v and o (the last
 // dimension contiguous), so the (B, T, H, D) views of one qkv buffer the
 // transformer holds need no copies; the bf16 kernel needs 16-byte aligned
 // bases and strides (the Python wrapper checks them and raises).
 //
 // Head dims: like the Pallas block (1, bq, d), any D whose tiles fit in a
 // block's shared memory. The bf16 kernel takes D up to 256 and the f32
-// kernel D up to 128 (bf16: a multiple of 8, 16-byte rows); each is
-// instantiated on the padded width DP in {16, 32, 64, 128} (bf16 also
-// 256; padded_dim) and told the real D: loaders fill the columns in
-// [D, DP) with zeros (the cp.async src-size 0 of flash_mma.cuh in bf16, a
-// guard in f32), the zeros add nothing to Q·Kᵀ, the padded columns of O
-// stay zero and are never stored, and the scale is the real 1/sqrt(D) the
-// wrapper passes. At DP 256, O is 128 f32 accumulators a thread
-// (m64n256k16, four 64-column panels of V in one product) beside S's 32.
-// Every other D (f32 D > 128, bf16 D > 256 or not a multiple of 8) runs
-// the head-dim-general CUDA-core kernel (flash_fwd_general_kernel,
-// flash_general.cuh): tiles and the O accumulator in dynamic shared
-// memory, R = 64..8 query and key rows by D, element-by-element loads in
-// the input dtype, f32 math.
+// CUDA-core kernel D up to 128 (bf16: a multiple of 8, 16-byte rows); each is
+// instantiated on the padded width DP in {16, 32, 64, 128} (bf16 also 256;
+// padded_dim) and told the real D: loaders fill the columns in [D, DP) with
+// zeros (the cp.async src-size 0 of flash_mma.cuh in bf16, a guard in f32),
+// the zeros add nothing to Q·Kᵀ, the padded columns of O stay zero and are
+// never stored, and the scale is the real 1/sqrt(D) the wrapper passes. At
+// DP 256, O is 128 f32 accumulators a thread (m64n256k16, four 64-column
+// panels of V in one product) beside S's 32. The split-TF32 kernel runs
+// padded to 256 too and takes any f32 D in 129..256 and any strides
+// (element-wise copies where rows are not whole 16-byte chunks). Every other
+// D (f32 D > 256, bf16 D > 256 or not a multiple of 8) runs the head-dim-
+// general CUDA-core kernel (flash_fwd_general_kernel, flash_general.cuh):
+// tiles and the O accumulator in dynamic shared memory, R = 64..8 query and
+// key rows by D, element-by-element loads in the input dtype, f32 math.
 
 #include "flash_general.cuh"
 #include "flash_mma.cuh"
@@ -430,6 +435,394 @@ int launch_f32(int D, int BH, int Tlen, cudaStream_t s, const void* q,
   return (int)cudaGetLastError();
 }
 
+// ------------------- f32 at D 129..256, split-TF32 tensor-core products
+
+// One TF32 product keeps 10 of f32's 23 mantissa bits, an error near 1e-3
+// relative, past the f32 atol of 1e-4. Three keep the f32 bar: each f32
+// operand x splits into hi = tf32(x) (rounded to nearest, ties away, as
+// cvt.rna rounds) and lo = x - hi, which the tensor core reads as TF32,
+// and a·b = hi·hi + hi·lo + lo·hi (lo·lo, below 2^-20 relative, is
+// dropped), each product exact in the f32 accumulator ("3xTF32"). The
+// products run as mma.sync m16n8k8 (TF32 -> f32), not wgmma, because wgmma
+// reads TF32 operands K-major only and P·V would need V transposed in
+// shared memory.
+//
+// A block owns one (b*h, 64-row query tile) and 8 warps: four row groups
+// of 16 rows, and in each row group two warps that split every step's 32
+// keys, 16 each, each with its own online softmax (running max and sum)
+// and its own O, so that two warps share each scheduler. A loop walks the
+// key tiles, stopping at the diagonal when causal (heaviest query tiles
+// first). Q (64 x 256) stays in shared memory; K and V stream through a
+// double-buffered cp.async ring (16-byte copies when every row is whole
+// 16-byte chunks, else one element at a time; columns past D and rows
+// past T are zero-filled). A warp keeps its 16 rows of O (16 x 256) in 128
+// f32 registers a thread and S (16 x 16) in 8; the online softmax runs on
+// S's fragments in f32 (exp2 with the scale folded into log2 e), the row
+// sums take the f32 P, and P itself splits into hi and lo for P·V (it is
+// not rounded to one TF32). At the end the second warp of each row group
+// posts its (max, sum, O) through shared memory in fragment order, and the
+// first merges the two in a fixed order: a second launch is bit-identical.
+//
+// Fragment orders. A sum's terms can be taken in any order, so the k index
+// of each m16n8k8 product is permuted to what a thread can load at once:
+//   S = Q·Kᵀ: a pair of k-steps covers 16 dims; thread (g, t) reads a
+//     float4 of Q's rows g and g + 8 and of K's row g at dims 4t..4t+3,
+//     the first k-step taking dims 4t, 4t+1 as its k indices t, t + 4, the
+//     second 4t+2, 4t+3;
+//   O += P·V: S's accumulator fragments (row g, keys 2t and 2t + 1) are
+//     P's A fragments as they stand when key 2t is k index t and key
+//     2t + 1 is k index t + 4; so thread (g, t) reads V's rows 2t and
+//     2t + 1. O's columns are permuted too: n-tile u of column group c
+//     (32 columns) holds columns 32 c + 4 n + u, so thread g reads a float4
+//     of V at columns 32 c + 4 g .. + 3 for the group's four n-tiles, and
+//     holds O's row g at columns 32 c + 8 t .. 32 c + 8 t + 7.
+// Row strides of D + 16 floats (Q, K) and D + 4 (V) make each of those
+// float4 reads meet all 32 banks.
+//
+// What bounds it: operations, 3 TF32 products for each f32 multiply-add
+// (495 TFLOP/s dense, 165 of f32-exact products) against 67 TFLOP/s of
+// f32 on the CUDA cores; a block holds 201 KiB of shared memory, one block
+// an SM.
+struct Tf32FwdCfg {
+  static constexpr int D = 256;        // the padded head dim
+  static constexpr int BQ = 64;        // query rows: 4 groups of 16
+  static constexpr int BK = 32;        // keys per step
+  static constexpr int THREADS = 256;  // 8 warps: 4 row groups x 2 key halves
+  static constexpr int LDQ = D + 16;   // row stride (floats) of Q and K
+  static constexpr int LDV = D + 4;    // row stride of V
+  static constexpr int Q_BYTES = BQ * LDQ * 4;
+  static constexpr int K_BYTES = BK * LDQ * 4;
+  static constexpr int V_BYTES = BK * LDV * 4;
+  // Q, then two stages of (K, V)
+  static constexpr int SMEM = Q_BYTES + 2 * (K_BYTES + V_BYTES);
+};
+static_assert(Tf32FwdCfg::SMEM <= 232448, "227 KiB a block on sm_90");
+
+// x as hi + lo: hi is x rounded to TF32 as cvt.rna.tf32.f32 rounds a
+// finite x (to nearest, ties away: half of the dropped 13 bits' range
+// added to the magnitude, then the 13 bits cleared) in two integer
+// operations (two cvt instructions a split made the kernel about 1.5x slower
+// on the H100, PERF.md); lo = x - hi is exact in f32, and the tensor core
+// reads it as TF32 by dropping its low 13 bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+// d (16 x 8, f32) += a (16 x 8) · b (8 x 8), TF32 operands
+__device__ __forceinline__ void mma_tf32(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a·b in three TF32 products, the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           uint32_t bh0, uint32_t bh1,
+                                           uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// rows [r0, r0 + R) of a (T, dr) f32 operand (time stride st) into a
+// shared tile of row stride LD floats, D columns: rows >= T and columns
+// >= dr read as 0 (a zero-fill copy touches no global memory); 16-byte
+// copies when `vec` (dr % 4 == 0, 16-byte aligned rows), else 4-byte ones
+template <int R, int LD>
+__device__ __forceinline__ void load_f32_tile(float* dst, const float* src,
+                                              long long st, int r0, int T,
+                                              int dr, bool vec, int tid) {
+  constexpr int CH = Tf32FwdCfg::D / 4;  // 16-byte chunks a row
+#pragma unroll 4
+  for (int e = tid; e < R * CH; e += Tf32FwdCfg::THREADS) {
+    const int r = e / CH;
+    const int c = e - r * CH;
+    const int row = r0 + r;
+    const uint32_t s = smem_u32(dst + r * LD + 4 * c);
+    const float* g = src + (row < T ? row * st + 4 * c : 0);
+    if (vec) {
+      const bool ok = row < T && 4 * c < dr;
+      cp_async16(s, ok ? g : src, ok);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool ok = row < T && 4 * c + i < dr;
+        cp_async4(s + 4 * i, ok ? g + i : src, ok);
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(Tf32FwdCfg::THREADS, 1)
+flash_fwd_tf32x3_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v, float* __restrict__ o,
+                        float* __restrict__ lse, int H, int Tlen, int dr,
+                        Str sq, Str sk, Str sv, Str so, float scale_log2,
+                        int causal, int vec) {
+  using C = Tf32FwdCfg;
+  constexpr int BQ = C::BQ;
+  constexpr int BK = C::BK;
+  constexpr int LDQ = C::LDQ;
+  constexpr int LDV = C::LDV;
+  constexpr int KW = BK / 2;      // keys of a step a warp takes
+  constexpr int NS = KW / 8;      // its n-tiles of S (8 keys each)
+  constexpr int NG = C::D / 32;   // column groups of O (4 n-tiles each)
+  constexpr int STAGE = BK * (LDQ + LDV);  // floats: K, then V
+  extern __shared__ __align__(16) float fsm[];
+  float* const qs = fsm;
+  float* const kvs = fsm + BQ * LDQ;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int rg = warp & 3;          // this warp's 16 query rows
+  const int kh = warp >> 2;         // and its half of each step's keys
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wrow = q0 + rg * 16;    // this warp's first query row
+
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int kend = causal ? min(Tlen, q0 + BQ) : Tlen;
+  const int nkt = (kend + BK - 1) / BK;
+
+  load_f32_tile<BQ, LDQ>(qs, q + b * sq.b + h * sq.h, sq.t, q0, Tlen, dr,
+                         vec, tid);
+  load_f32_tile<BK, LDQ>(kvs, kb, sk.t, 0, Tlen, dr, vec, tid);
+  load_f32_tile<BK, LDV>(kvs + BK * LDQ, vb, sv.t, 0, Tlen, dr, vec, tid);
+  cp_async_commit();
+
+  // O over this warp's keys: n-tile u of column group c in acc[c][u]
+  float acc[NG][4][4];
+#pragma unroll
+  for (int c = 0; c < NG; ++c)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][u][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of s·scale·log2 e
+  float l[2] = {0.f, 0.f};              // this lane's share of the row sum
+  // this thread's float4 of Q's row g (row g + 8 is 8 rows on)
+  const float* qrow = qs + (rg * 16 + g) * LDQ + 4 * t4;
+
+  for (int j = 0; j < nkt; ++j) {
+    if (j + 1 < nkt) {
+      float* nk = kvs + ((j + 1) & 1) * STAGE;
+      load_f32_tile<BK, LDQ>(nk, kb, sk.t, (j + 1) * BK, Tlen, dr, vec,
+                             tid);
+      load_f32_tile<BK, LDV>(nk + BK * LDQ, vb, sv.t, (j + 1) * BK, Tlen,
+                             dr, vec, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and Q) have landed
+    __syncthreads();
+    // this warp's keys of the step: rows kw .. kw + KW - 1 of the stage
+    const int kw = kh * KW;
+    const float* ks = kvs + (j & 1) * STAGE + kw * LDQ;
+    const float* vs = kvs + (j & 1) * STAGE + BK * LDQ + kw * LDV;
+    const int k0 = j * BK + kw;
+
+    // S = Q·Kᵀ: n-tile n (keys k0 + 8n ..) in s[n]
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kp = 0; kp < C::D / 16; ++kp) {
+      const float4 qa = *reinterpret_cast<const float4*>(qrow + 16 * kp);
+      const float4 qb =
+          *reinterpret_cast<const float4*>(qrow + 8 * LDQ + 16 * kp);
+      uint32_t ah[2][4], al[2][4];
+      split_tf32(qa.x, ah[0][0], al[0][0]);
+      split_tf32(qb.x, ah[0][1], al[0][1]);
+      split_tf32(qa.y, ah[0][2], al[0][2]);
+      split_tf32(qb.y, ah[0][3], al[0][3]);
+      split_tf32(qa.z, ah[1][0], al[1][0]);
+      split_tf32(qb.z, ah[1][1], al[1][1]);
+      split_tf32(qa.w, ah[1][2], al[1][2]);
+      split_tf32(qb.w, ah[1][3], al[1][3]);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const float4 kv = *reinterpret_cast<const float4*>(
+            ks + (8 * n + g) * LDQ + 16 * kp + 4 * t4);
+        uint32_t bh[4], bl[4];
+        split_tf32(kv.x, bh[0], bl[0]);
+        split_tf32(kv.y, bh[1], bl[1]);
+        split_tf32(kv.z, bh[2], bl[2]);
+        split_tf32(kv.w, bh[3], bl[3]);
+        mma_3xtf32(s[n], ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+        mma_3xtf32(s[n], ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+      }
+    }
+
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] *= scale_log2;
+    // only key ranges that cross the diagonal or T are masked
+    if (k0 + KW > Tlen || (causal && k0 + KW - 1 > wrow)) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * n + 2 * t4 + (e & 1);
+          const int row = wrow + g + 8 * (e >> 1);
+          if (key >= Tlen || (causal && key > row)) s[n][e] = -INFINITY;
+        }
+    }
+    // the online softmax, rows g (r = 0) and g + 8 (r = 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      const float mn = fmaxf(m[r], quad_max(mx));
+      const float base = mn == -INFINITY ? 0.f : mn;  // no live key yet
+      const float corr = exp2_approx(m[r] - base);
+      m[r] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[n][e] = exp2_approx(s[n][e] - base);
+          sum += s[n][e];
+        }
+      l[r] = l[r] * corr + sum;
+#pragma unroll
+      for (int c = 0; c < NG; ++c)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[c][u][2 * r] *= corr;
+          acc[c][u][2 * r + 1] *= corr;
+        }
+    }
+
+    // O += P·V, keys 8 n .. 8 n + 7 of this warp's a k-step
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[n][0], ph[0], pl[0]);  // row g, key 2t: k index t
+      split_tf32(s[n][2], ph[1], pl[1]);  // row g + 8, key 2t
+      split_tf32(s[n][1], ph[2], pl[2]);  // row g, key 2t + 1: k index t + 4
+      split_tf32(s[n][3], ph[3], pl[3]);  // row g + 8, key 2t + 1
+      const float* v0 = vs + (8 * n + 2 * t4) * LDV + 4 * g;
+#pragma unroll
+      for (int c = 0; c < NG; ++c) {
+        const float4 va = *reinterpret_cast<const float4*>(v0 + 32 * c);
+        const float4 vn =
+            *reinterpret_cast<const float4*>(v0 + LDV + 32 * c);
+        const float x0[4] = {va.x, va.y, va.z, va.w};
+        const float x1[4] = {vn.x, vn.y, vn.z, vn.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(x0[u], bh0, bl0);
+          split_tf32(x1[u], bh1, bl1);
+          mma_3xtf32(acc[c][u], ph, pl, bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+    __syncthreads();  // stage j & 1 is consumed before it is refilled
+  }
+
+  // merge the two key halves of each row group: the second half's warp
+  // posts its (m, l, O) in fragment order (float4 i of lane x at
+  // 32 i + x), the first combines them in a fixed order and stores
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = quad_sum(l[r]);
+  float4* const xo = reinterpret_cast<float4*>(kvs) + rg * (NG * 4 + 1) * 32;
+  if (kh == 1) {
+#pragma unroll
+    for (int c = 0; c < NG; ++c)
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        xo[(4 * c + u) * 32 + lane] = make_float4(
+            acc[c][u][0], acc[c][u][1], acc[c][u][2], acc[c][u][3]);
+    xo[NG * 4 * 32 + lane] = make_float4(m[0], m[1], l[0], l[1]);
+  }
+  __syncthreads();
+  if (kh == 1) return;
+  const float4 ml = xo[NG * 4 * 32 + lane];
+  const float m1[2] = {ml.x, ml.y}, l1[2] = {ml.z, ml.w};
+  float a0[2], a1[2], inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mt = fmaxf(m[r], m1[r]);
+    const float base = mt == -INFINITY ? 0.f : mt;  // a row past T
+    a0[r] = exp2_approx(m[r] - base);
+    a1[r] = exp2_approx(m1[r] - base);
+    float lt = l[r] * a0[r] + l1[r] * a1[r];
+    if (lt == 0.f) lt = 1.f;
+    inv[r] = 1.f / lt;
+    m[r] = mt;
+    l[r] = lt;
+  }
+  float* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    if (row < Tlen) {
+#pragma unroll
+      for (int c = 0; c < NG; ++c)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float4 x = xo[(4 * c + u) * 32 + lane];
+          const float o1[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = 32 * c + 8 * t4 + 4 * e + u;
+            const int i = 2 * r + e;
+            if (col < dr)  // the padded columns are never written
+              ob[row * so.t + col] =
+                  (acc[c][u][i] * a0[r] + o1[i] * a1[r]) * inv[r];
+          }
+        }
+      if (t4 == 0)
+        lse[(long long)bh * Tlen + row] = (m[r] + log2f(l[r])) * kLn2;
+    }
+  }
+}
+
+int launch_tf32x3(int BH, int Tlen, int dr, cudaStream_t s, const void* q,
+                  const void* k, const void* v, void* o, void* lse, int H,
+                  Str sq, Str sk, Str sv, Str so, float scale, int causal) {
+  using C = Tf32FwdCfg;
+  // 16-byte copies need every row of q, k and v on a 16-byte boundary
+  auto al16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  auto st4 = [](const Str& x) {
+    return x.b % 4 == 0 && x.h % 4 == 0 && x.t % 4 == 0;
+  };
+  const bool vec = dr % 4 == 0 && al16(q) && al16(k) && al16(v) && st4(sq)
+                   && st4(sk) && st4(sv);
+  auto kern = flash_fwd_tf32x3_kernel;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(BH, (Tlen + C::BQ - 1) / C::BQ);
+  kern<<<grid, C::THREADS, C::SMEM, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), H, Tlen, dr, sq, sk, sv, so, scale * kLog2e,
+      causal, int(vec));
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------------ any D, CUDA cores (flash_general.cuh)
 
 // One block per (b*h, R-row query tile), the heaviest first under causal
@@ -556,9 +949,10 @@ int launch_general(int D, int BH, int Tlen, cudaStream_t s, const void* q,
 
 // q, k, v, o: (B, H, T, D) addressed by the given element strides (the D
 // stride is 1); lse: contiguous (B, H, T) f32. dtype: 0 = float32 (the
-// CUDA-core kernel for D <= 128), 1 = bfloat16 (the tensor-core kernel
-// for D <= 256, a multiple of 8); every other D runs the head-dim-general
-// kernel in its dtype. Returns cudaGetLastError() after the launch.
+// CUDA-core kernel for D <= 128, the split-TF32 kernel for D <= 256), 1 =
+// bfloat16 (the tensor-core kernel for D <= 256, a multiple of 8); every
+// other D runs the head-dim-general kernel in its dtype. Returns
+// cudaGetLastError() after the launch.
 extern "C" int dl4j_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int T, int D, long long sqb, long long sqh, long long sqt,
@@ -569,11 +963,16 @@ extern "C" int dl4j_flash_attention_fwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Str sq{sqb, sqh, sqt}, sk{skb, skh, skt}, sv{svb, svh, svt},
       so{sob, soh, sot};
-  if (dtype == 0)
-    return D <= 128 ? launch_f32(D, B * H, T, s, q, k, v, o, lse, H, sq, sk,
-                                 sv, so, scale, causal)
-                    : launch_general<float>(D, B * H, T, s, q, k, v, o, lse,
-                                            H, sq, sk, sv, so, scale, causal);
+  if (dtype == 0) {
+    if (D <= 128)
+      return launch_f32(D, B * H, T, s, q, k, v, o, lse, H, sq, sk, sv, so,
+                        scale, causal);
+    if (D <= 256)
+      return launch_tf32x3(B * H, T, D, s, q, k, v, o, lse, H, sq, sk, sv,
+                           so, scale, causal);
+    return launch_general<float>(D, B * H, T, s, q, k, v, o, lse, H, sq, sk,
+                                 sv, so, scale, causal);
+  }
   if (dtype == 1)
     return D <= 256 && D % 8 == 0
                ? launch_bf16(D, B * H, T, s, q, k, v, o, lse, H, sq, sk, sv,

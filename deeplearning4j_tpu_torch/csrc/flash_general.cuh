@@ -3,9 +3,10 @@
 // flash_attention_bwd.cu (flash_bwd_dq_general_kernel,
 // flash_bwd_dkv_general_kernel).
 //
-// These kernels take every head dim the fast paths do not: D > 128 in f32
-// and bf16, and a bf16 D that is not a multiple of 8 (rows that are not
-// whole 16-byte chunks, so every load is one element). Like the Pallas
+// These kernels take every head dim the fast paths do not: D > 256 in
+// both dtypes, f32 D 129..256 in the backward (the f32 forward runs its
+// split-TF32 kernel there), and a bf16 D that is not a multiple of 8 (rows
+// that are not whole 16-byte chunks, so every load is one element). Like the Pallas
 // block (1, bq, d) of the reference, they take any D whose tiles fit in
 // the 227 KiB of shared memory a block may use.
 //
@@ -30,8 +31,8 @@
 //
 // What bounds them: shared-memory bandwidth. Each multiply-add reads one
 // or two shared operands (the micro-tiles reuse some), far from the tensor
-// cores' rate; this is the simple version that is right, and a wgmma
-// instantiation at padded D 256 is later work (ROADMAP.md queue 2).
+// cores' rate; this is the simple version that is right, kept for the D
+// the tensor-core kernels do not take.
 
 #pragma once
 

@@ -22,28 +22,33 @@ or raise — there is no fallback between the two.
 On CUDA the dtype and the head dim pick the kernel (:func:`route`).
 bfloat16 runs K1, dQ and dK/dV on the tensor cores (bf16 products with
 f32 sums, operands copied into shared memory by 16-byte ``cp.async``;
-counted in ``LAUNCHES_TC``,
-``LAUNCHES_BWD_DQ_TC`` and ``LAUNCHES_BWD_DKV_TC`` besides ``LAUNCHES``,
-``LAUNCHES_BWD_DQ`` and ``LAUNCHES_BWD_DKV``); their operands must pass
+counted in ``LAUNCHES_TC``, ``LAUNCHES_BWD_DQ_TC`` and
+``LAUNCHES_BWD_DKV_TC`` besides ``LAUNCHES``, ``LAUNCHES_BWD_DQ`` and
+``LAUNCHES_BWD_DKV``); their operands must pass
 :func:`check_tc_alignment`, or the call raises. float32 runs the
-CUDA-core kernels (tensor cores would mean TF32, beyond the f32
-tolerance). A bf16 launch that fails raises; it never falls back to
-another kernel.
+CUDA-core kernels up to D 128 (``LAUNCHES_CUDA_CORE``,
+``LAUNCHES_BWD_DQ_CUDA_CORE``, ``LAUNCHES_BWD_DKV_CUDA_CORE``). f32 K1 at
+D 129-256 runs on the tensor cores in split TF32 (``LAUNCHES_TF32X3``):
+each f32 operand x becomes hi = tf32(x) and lo = x − hi (read as TF32),
+and each product hi·hi + hi·lo + lo·hi, summed in f32. One TF32 product keeps 10
+mantissa bits, an error near 1e-3, past the f32 tolerance of 1e-4; the
+three keep about 21, near f32's own. It takes any strides. A launch that
+fails raises; it never falls back to another kernel.
 
 Head dims: every D whose tiles fit in the 227 KiB of shared memory a
 block may use on the H100, as the reference's Pallas block ``(1, bq, d)``
 takes any d (:func:`check_head_dim`; every D up to 1200 for all three
 kernels). :func:`route` names the kernel family a (D, dtype) runs in
 each of the three kernels: the fast kernels are instantiated on the
-padded widths 16, 32, 64 and 128 (bf16 K1 and dK/dV also 256) and
-zero-fill the columns past D inside the kernel — bf16 on the tensor
-cores when D is a multiple of 8 (its rows whole 16-byte chunks), up to
-256 for K1 and dK/dV (dK/dV past 128 on two warpgroups that split the
-columns) and up to 128 for dQ; f32 on the CUDA cores up to 128. Every
-other D runs the head-dim-general CUDA-core kernels
-(``csrc/flash_general.cuh``; counted in ``LAUNCHES_GENERAL``,
-``LAUNCHES_BWD_DQ_GENERAL`` and ``LAUNCHES_BWD_DKV_GENERAL``), whose
-tile rows shrink from 64 to 8 as D grows (:func:`general_rows`).
+padded widths 16, 32, 64 and 128 (bf16 also 256) and zero-fill the
+columns past D inside the kernel — bf16 on the tensor cores when D is a
+multiple of 8 (its rows whole 16-byte chunks), up to 256 (dQ and dK/dV
+past 128 on two warpgroups that split the columns); f32 on the CUDA
+cores up to 128, and K1 in split TF32 up to 256. Every other D runs the
+head-dim-general CUDA-core kernels (``csrc/flash_general.cuh``; counted
+in ``LAUNCHES_GENERAL``, ``LAUNCHES_BWD_DQ_GENERAL`` and
+``LAUNCHES_BWD_DKV_GENERAL``), whose tile rows shrink from 64 to 8 as D
+grows (:func:`general_rows`).
 """
 
 from __future__ import annotations
@@ -65,9 +70,11 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: kernel instantiated for the smallest of 16, 32, 64, 128 that holds it,
 #: the columns past D zero-filled inside the kernel
 FAST_MAX_HEAD_DIM = 128
-#: the largest bf16 head dim each tensor-core kernel takes: K1 and dK/dV
-#: are also instantiated on the padded width 256
-TC_MAX_HEAD_DIM = {"fwd": 256, "dq": 128, "dkv": 256}
+#: the largest bf16 head dim the tensor-core kernels take: past 128 they
+#: run instantiated on the padded width 256
+TC_MAX_HEAD_DIM = 256
+#: the largest f32 head dim of K1's split-TF32 kernel (padded to 256)
+TF32X3_MAX_HEAD_DIM = 256
 #: shared memory a block may use on the H100 (sm_90): 227 KiB
 SMEM_PER_BLOCK = 232448
 #: the head-dim-general kernels' f32 tiles, as in csrc/flash_general.cuh
@@ -77,29 +84,48 @@ GENERAL_ROWS = (64, 32, 16, 8)
 
 #: launches of each CUDA kernel since the last reset (the plain versions
 #: on CPU tensors do not count): K1, the dQ kernel, the dK/dV kernel (any
-#: route), of those the bf16 tensor-core K1, dQ and dK/dV kernels, and
-#: the head-dim-general K1, dQ and dK/dV kernels
+#: route), and of those each family's (:data:`FAMILY_SUFFIX`): the bf16
+#: tensor-core, the f32 CUDA-core and the head-dim-general K1, dQ and
+#: dK/dV kernels, and the split-TF32 K1
 LAUNCHES = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_BWD_DKV = 0
 LAUNCHES_TC = 0
 LAUNCHES_BWD_DQ_TC = 0
 LAUNCHES_BWD_DKV_TC = 0
+LAUNCHES_CUDA_CORE = 0
+LAUNCHES_BWD_DQ_CUDA_CORE = 0
+LAUNCHES_BWD_DKV_CUDA_CORE = 0
+LAUNCHES_TF32X3 = 0
 LAUNCHES_GENERAL = 0
 LAUNCHES_BWD_DQ_GENERAL = 0
 LAUNCHES_BWD_DKV_GENERAL = 0
+#: each kernel family's counter suffix (:func:`launch_counter`)
+FAMILY_SUFFIX = {"wgmma": "_TC", "cuda-core": "_CUDA_CORE",
+                 "tf32x3": "_TF32X3", "general": "_GENERAL"}
+_KERNEL = {"fwd": "", "dq": "_BWD_DQ", "dkv": "_BWD_DKV"}
+#: every counter (the split-TF32 family has K1 only)
+COUNTERS = tuple(n for n in globals() if n.startswith("LAUNCHES"))
 
 #: bytes of one cp.async copy of the tensor-core kernels
 TC_ALIGN = 16
 
 
 def reset_launches():
-    global LAUNCHES, LAUNCHES_BWD_DQ, LAUNCHES_BWD_DKV, LAUNCHES_TC, \
-        LAUNCHES_BWD_DQ_TC, LAUNCHES_BWD_DKV_TC, LAUNCHES_GENERAL, \
-        LAUNCHES_BWD_DQ_GENERAL, LAUNCHES_BWD_DKV_GENERAL
-    LAUNCHES = LAUNCHES_BWD_DQ = LAUNCHES_BWD_DKV = 0
-    LAUNCHES_TC = LAUNCHES_BWD_DQ_TC = LAUNCHES_BWD_DKV_TC = 0
-    LAUNCHES_GENERAL = LAUNCHES_BWD_DQ_GENERAL = LAUNCHES_BWD_DKV_GENERAL = 0
+    for name in COUNTERS:
+        globals()[name] = 0
+
+
+def launch_counter(kernel: str, family: Optional[str] = None) -> str:
+    """The name of the counter of ``kernel`` ("fwd", "dq" or "dkv") on
+    kernel ``family`` (a :func:`route` name), or on any family."""
+    return f"LAUNCHES{_KERNEL[kernel]}{FAMILY_SUFFIX.get(family, '')}"
+
+
+def _count(kernel: str, family: str):
+    g = globals()
+    g[launch_counter(kernel)] += 1
+    g[launch_counter(kernel, family)] += 1
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None,
@@ -204,11 +230,15 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
 def route(d: int, dtype, kernel: str) -> str:
     """The kernel family head dim ``d`` runs in ``dtype`` for ``kernel``
     ("fwd", "dq" or "dkv"): ``"wgmma"`` (bf16, a multiple of 8 up to
-    ``TC_MAX_HEAD_DIM[kernel]``: 256 for K1 and dK/dV, 128 for dQ),
-    ``"cuda-core"`` (f32, D <= 128) or ``"general"`` (every other D)."""
+    ``TC_MAX_HEAD_DIM``), ``"cuda-core"`` (f32, D <= 128), ``"tf32x3"``
+    (f32 K1, D 129..256) or ``"general"`` (every other D)."""
     if dtype == torch.float32:
-        return "cuda-core" if d <= FAST_MAX_HEAD_DIM else "general"
-    if d % 8 == 0 and d <= TC_MAX_HEAD_DIM[kernel]:
+        if d <= FAST_MAX_HEAD_DIM:
+            return "cuda-core"
+        if kernel == "fwd" and d <= TF32X3_MAX_HEAD_DIM:
+            return "tf32x3"
+        return "general"
+    if d % 8 == 0 and d <= TC_MAX_HEAD_DIM:
         return "wgmma"
     return "general"
 
@@ -321,11 +351,9 @@ def _strides(*views):
 
 
 def _flash_cuda(q, k, v, scale, causal, layout):
-    global LAUNCHES, LAUNCHES_TC, LAUNCHES_GENERAL
     (b, h, t, d), (q_, k_, v_) = _check_qkv(layout, "fwd", q, k, v)
     kind = route(d, q.dtype, "fwd")
-    tc = kind == "wgmma"
-    if tc:
+    if kind == "wgmma":
         check_tc_alignment(q=q_, k=k_, v=v_)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     (o_,) = _bhtd(layout, out)
@@ -338,9 +366,7 @@ def _flash_cuda(q, k, v, scale, causal, layout):
         lse.data_ptr(), b, h, t, d, *strides, scale, int(bool(causal)),
         _DTYPES[q.dtype], stream)
     _build.check(rc, "flash_attention_fwd")
-    LAUNCHES += 1
-    LAUNCHES_TC += tc
-    LAUNCHES_GENERAL += kind == "general"
+    _count("fwd", kind)
     return out, lse
 
 
@@ -348,14 +374,12 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, causal,
                            layout="bhtd"):
     """dQ of the flash backward in q's layout: the dQ kernel on CUDA
     tensors, the plain backward's dq on CPU tensors."""
-    global LAUNCHES_BWD_DQ, LAUNCHES_BWD_DQ_TC, LAUNCHES_BWD_DQ_GENERAL
     if q.device.type == "cpu":
         return flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
                                    layout)[0]
     bhtd, (q_, k_, v_, do_) = _check_qkv(layout, "dq", q, k, v, dout)
     kind = route(bhtd[3], q.dtype, "dq")
-    tc = kind == "wgmma"
-    if tc:
+    if kind == "wgmma":
         check_tc_alignment(q=q_, k=k_, v=v_, dout=do_)
     _check_rows("lse", lse, q, bhtd)
     _check_rows("delta", delta, q, bhtd)
@@ -368,9 +392,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, causal,
         _strides(q_, k_, v_, do_, dq_), float(scale), int(bool(causal)),
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention_bwd_dq")
-    LAUNCHES_BWD_DQ += 1
-    LAUNCHES_BWD_DQ_TC += tc
-    LAUNCHES_BWD_DQ_GENERAL += kind == "general"
+    _count("dq", kind)
     return dq
 
 
@@ -378,14 +400,12 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, causal,
                             layout="bhtd"):
     """(dK, dV) of the flash backward in q's layout: the dK/dV kernel on
     CUDA tensors, the plain backward's dk, dv on CPU tensors."""
-    global LAUNCHES_BWD_DKV, LAUNCHES_BWD_DKV_TC, LAUNCHES_BWD_DKV_GENERAL
     if q.device.type == "cpu":
         return flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
                                    layout)[1:]
     bhtd, (q_, k_, v_, do_) = _check_qkv(layout, "dkv", q, k, v, dout)
     kind = route(bhtd[3], q.dtype, "dkv")
-    tc = kind == "wgmma"
-    if tc:
+    if kind == "wgmma":
         check_tc_alignment(q=q_, k=k_, v=v_, dout=do_)
     _check_rows("lse", lse, q, bhtd)
     _check_rows("delta", delta, q, bhtd)
@@ -400,9 +420,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, causal,
         int(bool(causal)), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention_bwd_dkv")
-    LAUNCHES_BWD_DKV += 1
-    LAUNCHES_BWD_DKV_TC += tc
-    LAUNCHES_BWD_DKV_GENERAL += kind == "general"
+    _count("dkv", kind)
     return dk, dv
 
 

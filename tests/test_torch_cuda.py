@@ -121,19 +121,33 @@ FLASH_GRID = [(64, True), (200, True), (1000, True), (256, False),
 
 # the instantiated widths and head dims padded to them inside the kernels
 HEAD_DIMS = [8, 16, 24, 32, 64, 80, 120, 128]
-# head dims past 128: bf16 K1 and dK/dV on the tensor cores padded to 256
-# (136, 160, 200, 256) and dQ and f32 on the general CUDA-core kernels at
-# 64, 32 and 16 tile rows; every kernel general at 320 and for bf16 rows
-# that are not whole 16-byte chunks (12; f32 runs its CUDA-core kernel
-# there)
-GENERAL_HEAD_DIMS = [12, 136, 160, 200, 256, 320]
+# head dims past 128: bf16 K1, dQ and dK/dV on the tensor cores padded to
+# 256 (136, 160, 200, 256), f32 K1 in split TF32 padded to 256 (130: rows
+# of whole elements, not 16-byte chunks; 136-256) and the f32 backward on
+# the general CUDA-core kernels at 64, 32 and 16 tile rows; every kernel
+# general at 320 and for bf16 rows that are not whole 16-byte chunks (12,
+# 130; f32 runs its CUDA-core kernel at 12)
+GENERAL_HEAD_DIMS = [12, 130, 136, 160, 200, 256, 320]
 
 
-def _routes(d, dtype, kernel):
-    """(tensor-core, general) launches one call of ``kernel`` ("fwd",
-    "dq", "dkv") adds at (d, dtype)."""
+def _counts(kernel):
+    """``kernel``'s ("fwd", "dq", "dkv") launch counters: its total, then
+    one per kernel family."""
+    return [getattr(fa, fa.launch_counter(kernel))] + [
+        getattr(fa, fa.launch_counter(kernel, f), 0)
+        for f in fa.FAMILY_SUFFIX]
+
+
+def _added(kernel, d, dtype):
+    """What one call of ``kernel`` at (d, dtype) adds to :func:`_counts`:
+    one launch, on the family ``fa.route`` names."""
     kind = fa.route(d, dtype, kernel)
-    return int(kind == "wgmma"), int(kind == "general")
+    return [1] + [int(f == kind) for f in fa.FAMILY_SUFFIX]
+
+
+def _moved(before, kernel, d, dtype):
+    return [a - b for a, b in zip(_counts(kernel), before)] \
+        == _added(kernel, d, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -141,18 +155,17 @@ def _routes(d, dtype, kernel):
 @pytest.mark.parametrize("d", HEAD_DIMS + GENERAL_HEAD_DIMS)
 def test_flash_kernel_matches_plain(gen, dtype, t, causal, d):
     """K1 (the tensor-core kernel in bf16 up to 256, the CUDA-core one in
-    f32 up to 128, the general kernel past them and for bf16 rows of odd
-    chunks) at every head dim, in the (B, H, T, D) layout and through
-    strided (B, T, H, D) views of one qkv buffer; a second launch repeats
-    the first bit for bit; the counters name the kernel that ran."""
+    f32 up to 128, the split-TF32 one in f32 at 129-256, the general
+    kernel past them and for bf16 rows of odd chunks) at every head dim,
+    in the (B, H, T, D) layout and through strided (B, T, H, D) views of
+    one qkv buffer; a second launch repeats the first bit for bit; the
+    counters name the kernel that ran."""
     b, h = 2, 3
     q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda")
                .to(dtype) for _ in range(3))
-    before = (fa.LAUNCHES, fa.LAUNCHES_TC, fa.LAUNCHES_GENERAL)
+    before = _counts("fwd")
     out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
-    tc, general = _routes(d, dtype, "fwd")
-    assert (fa.LAUNCHES, fa.LAUNCHES_TC, fa.LAUNCHES_GENERAL) == \
-        (before[0] + 1, before[1] + tc, before[2] + general)
+    assert _moved(before, "fwd", d, dtype)
     ref, ref_lse = fa.mha_reference_lse(q, k, v, causal=causal)
     torch.testing.assert_close(out.float(), ref.float(), atol=ATOL[dtype],
                                rtol=0)
@@ -179,6 +192,22 @@ def test_flash_d256_fwd_matches_plain_over_many_waves(gen):
     assert fa.LAUNCHES_TC == before + 1
     ref, ref_lse = fa.mha_reference_lse(q, k, v, causal=True)
     torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+def test_flash_tf32x3_fwd_matches_plain_over_many_waves(gen):
+    """f32 K1 in split TF32 (one 201 KiB block an SM) on a grid of 512
+    query tiles, several waves of the SMs, causal, T 1000 (a ragged last
+    tile), D 200, against the plain version at the f32 bars; counted as a
+    split-TF32 launch."""
+    b, h, t, d = 8, 4, 1000, 200
+    q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda")
+               for _ in range(3))
+    before = fa.LAUNCHES_TF32X3
+    out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    assert fa.LAUNCHES_TF32X3 == before + 1
+    ref, ref_lse = fa.mha_reference_lse(q, k, v, causal=True)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
 
 
@@ -231,12 +260,13 @@ def _close(got, ref, dtype):
 @pytest.mark.parametrize("t,causal", FLASH_GRID)
 @pytest.mark.parametrize("d", HEAD_DIMS + GENERAL_HEAD_DIMS)
 def test_flash_bwd_kernels_match_plain(gen, dtype, t, causal, d):
-    """dQ and dK/dV (on the tensor cores in bf16, dQ up to 128 and dK/dV
-    up to 256 on two warpgroups past 128, on the general kernels past
-    them) against the plain backward on the same inputs, in the (B, H, T,
-    D) layout and through strided (B, T, H, D) views of one qkv buffer
-    (the transformer's layout); a second launch of each repeats the first
-    bit for bit; the counters name the kernel that ran."""
+    """dQ and dK/dV (on the tensor cores in bf16 up to 256, each on two
+    warpgroups that split the columns past 128; f32 on the CUDA-core
+    kernels up to 128; the general kernels past them) against the plain
+    backward on the same inputs, in the (B, H, T, D) layout and through
+    strided (B, T, H, D) views of one qkv buffer (the transformer's
+    layout); a second launch of each repeats the first bit for bit; the
+    counters name the kernel that ran."""
     b, h = 2, 3
     scale = d ** -0.5
     q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda")
@@ -245,21 +275,13 @@ def test_flash_bwd_kernels_match_plain(gen, dtype, t, causal, d):
     delta = torch.randn((b, h, t), generator=gen, device="cuda")
     ref = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale,
                                            causal)
-    before = (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DQ_TC,
-              fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DKV_TC,
-              fa.LAUNCHES_BWD_DQ_GENERAL, fa.LAUNCHES_BWD_DKV_GENERAL)
-    tc, gn = _routes(d, dtype, "dq")
+    before = _counts("dq"), _counts("dkv")
     dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, causal)
-    assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DQ_TC,
-            fa.LAUNCHES_BWD_DKV, fa.LAUNCHES_BWD_DQ_GENERAL) == \
-        (before[0] + 1, before[1] + tc, before[2], before[4] + gn)
-    tck, gnk = _routes(d, dtype, "dkv")
+    assert _moved(before[0], "dq", d, dtype) and _counts("dkv") == before[1]
     dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
                                         causal)
-    assert (fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DQ_TC, fa.LAUNCHES_BWD_DKV,
-            fa.LAUNCHES_BWD_DKV_TC, fa.LAUNCHES_BWD_DKV_GENERAL) == \
-        (before[0] + 1, before[1] + tc, before[2] + 1, before[3] + tck,
-         before[5] + gnk)
+    assert _moved(before[0], "dq", d, dtype) \
+        and _moved(before[1], "dkv", d, dtype)
     torch.cuda.synchronize()
     for got, want in zip((dq, dk, dv), ref):
         _close(got, want, dtype)
@@ -358,8 +380,8 @@ def test_head_dim_80_lm_train_step_matches_plain_path(gen):
 def test_head_dim_256_lm_train_step_matches_plain_path(gen, dtype):
     """An LM with head dim 256 (d_model 512, 2 heads) at T 1024, which
     raised on the card before the general kernels: one train step's loss
-    and grads on the flash kernels (bf16: K1 and dK/dV on the tensor
-    cores padded to 256, dQ on the general kernel; f32: all three on the
+    and grads on the flash kernels (bf16: K1, dQ and dK/dV on the tensor
+    cores padded to 256; f32: K1 in split TF32, dQ and dK/dV on the
     general CUDA-core kernels) agree with the plain path's (plain
     attention, f32 scores) from the same params: loss within 2e-2 nats,
     grads relative L2 <= 2e-2 per leaf (chip_smoke.py phase 6's
@@ -393,10 +415,11 @@ def test_head_dim_256_lm_train_step_matches_plain_path(gen, dtype):
         if name == "kernel":
             tc = int(dtype == torch.bfloat16)
             assert (fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DQ_TC,
-                    fa.LAUNCHES_BWD_DKV_TC) == (2 * tc, 0, 2 * tc)
+                    fa.LAUNCHES_BWD_DKV_TC) == (2 * tc, 2 * tc, 2 * tc)
+            assert fa.LAUNCHES_TF32X3 == 2 * (1 - tc)
             assert (fa.LAUNCHES_GENERAL, fa.LAUNCHES_BWD_DQ_GENERAL,
                     fa.LAUNCHES_BWD_DKV_GENERAL) == \
-                (2 * (1 - tc), 2, 2 * (1 - tc))
+                (0, 2 * (1 - tc), 2 * (1 - tc))
         losses[name] = loss.item()
         grads[name] = [p.grad.float() for p in leaves]
     assert abs(losses["kernel"] - losses["plain"]) <= 2e-2

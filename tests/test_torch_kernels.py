@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import math
 import re
 from pathlib import Path
 
@@ -484,7 +485,7 @@ def test_flash_general_rows_shrink_as_head_dim_grows(d, rows):
         assert ld % 2 == 1 if r >= 32 else ld % 32 == (4 if r == 16 else 16)
 
 
-_TC, _GN, _CC = "wgmma", "general", "cuda-core"
+_TC, _GN, _CC, _TF = "wgmma", "general", "cuda-core", "tf32x3"
 
 
 @pytest.mark.parametrize("d,dtype,kinds", [
@@ -492,19 +493,22 @@ _TC, _GN, _CC = "wgmma", "general", "cuda-core"
     (128, torch.bfloat16, (_TC, _TC, _TC)),
     (12, torch.bfloat16, (_GN, _GN, _GN)),
     (130, torch.bfloat16, (_GN, _GN, _GN)),
-    (136, torch.bfloat16, (_TC, _GN, _TC)),
-    (256, torch.bfloat16, (_TC, _GN, _TC)),
+    (136, torch.bfloat16, (_TC, _TC, _TC)),
+    (256, torch.bfloat16, (_TC, _TC, _TC)),
     (264, torch.bfloat16, (_GN, _GN, _GN)),
     (12, torch.float32, (_CC, _CC, _CC)),
     (128, torch.float32, (_CC, _CC, _CC)),
-    (160, torch.float32, (_GN, _GN, _GN)),
-    (256, torch.float32, (_GN, _GN, _GN)),
+    (129, torch.float32, (_TF, _GN, _GN)),
+    (160, torch.float32, (_TF, _GN, _GN)),
+    (256, torch.float32, (_TF, _GN, _GN)),
+    (257, torch.float32, (_GN, _GN, _GN)),
     (320, torch.float32, (_GN, _GN, _GN))])
 def test_flash_route_by_head_dim_and_dtype(d, dtype, kinds):
     """Which kernel family a (D, dtype) runs in K1, dQ and dK/dV: bf16
-    K1 and dK/dV on the tensor cores up to 256, dQ up to 128; only the
-    tensor-core route checks 16-byte alignment, so a general bf16 D
-    takes any strides, in each of the three wrappers."""
+    on the tensor cores up to 256 (multiples of 8); f32 K1 in split TF32
+    at 129..256; only the bf16 tensor-core route checks 16-byte
+    alignment, so a general bf16 D and every f32 D take any strides, in
+    each of the three wrappers."""
     assert tuple(tfa.route(d, dtype, kn) for kn in ("fwd", "dq", "dkv")) \
         == kinds
     buf = torch.zeros((1, 8, 3 * 2 * d + 1), dtype=dtype)
@@ -570,6 +574,8 @@ def _csrc_smem(struct, **params):
 @pytest.mark.parametrize("struct, params, kib", [
     ("FwdCfg", {"D": 256, "BK": 64}, 161),
     ("DkvSplitCfg", {}, 226),
+    ("DqSplitCfg", {}, 225),
+    ("Tf32FwdCfg", {}, 201),
     ("DkvCfg", {"D": 128}, 98),
     ("DqCfg", {"D": 128}, 97),
     ("FwdCfg", {"D": 64, "BK": 128}, 73),
@@ -579,7 +585,10 @@ def test_tensor_core_configs_fit_shared_memory(struct, params, kib):
     themselves: K1 at padded D 256 takes 161 KiB (Q, two stages of K and
     V at 64-key steps; one block an SM), the two-warpgroup dK/dV 226 KiB
     (K, V, two stages of Q and dO, its 32 KiB exchange, the lse and delta
-    rows); each fits in the 227 KiB a block may use."""
+    rows), the two-warpgroup dQ 225 KiB (Q, dO, two stages of K and V,
+    the exchange), the f32 split-TF32 K1 201 KiB (Q, two stages of K and
+    V at 32-key steps, rows padded by 16 and 4 floats); each fits in the
+    227 KiB a block may use."""
     smem = _csrc_smem(struct, **params)
     assert smem == kib * 1024
     assert smem <= tfa.SMEM_PER_BLOCK == 232448
@@ -722,6 +731,184 @@ def test_dkv_column_split_matches_plain_backward(d, causal):
         rel = ((got.float() - want.float()).norm()
                / want.float().norm()).item()
         assert rel <= 1e-2
+
+
+def _dq_split_emulation(q, k, v, do, lse, delta, scale, causal):
+    """``flash_bwd_dq_wgmma_split_kernel``'s schedule in torch on bf16
+    (B, H, T, D), D <= 256: columns zero-padded to 256; per 64-query tile
+    and 64-key step (up to the diagonal when causal), S = Q·Kᵀ and
+    dP = dO·Vᵀ as the f32 partials of the two 128-column halves added
+    half 0 + half 1; P = exp(S·scale − lse), masked; each half of the
+    columns of dQ += bf16(P∘(dP − delta)·scale)·K on its own, f32 sums,
+    bf16 out."""
+    b, h, t, d = q.shape
+    qf, kf, vf, dof = (torch.nn.functional.pad(x.float(), (0, 256 - d))
+                       for x in (q, k, v, do))
+    dq = torch.zeros((b, h, t, 256))
+    halves = (slice(0, 128), slice(128, 256))
+    for q0 in range(0, t, 64):
+        qs = slice(q0, min(q0 + 64, t))
+        rows = torch.arange(q0, qs.stop)
+        for k0 in range(0, min(t, q0 + 64) if causal else t, 64):
+            ks = slice(k0, min(k0 + 64, t))
+            keys = torch.arange(k0, ks.stop)
+            s, dp = (
+                sum(a[..., qs, c] @ o[..., ks, c].transpose(-1, -2)
+                    for c in halves)
+                for a, o in ((qf, kf), (dof, vf)))
+            p = torch.exp(s * scale - lse[..., qs, None])
+            if causal:
+                p = torch.where(keys[None, :] <= rows[:, None], p,
+                                torch.zeros(()))
+            ds = (p * (dp - delta[..., qs, None]) * scale) \
+                .to(torch.bfloat16).float()
+            for c in halves:
+                dq[..., qs, c] += ds @ kf[..., ks, c]
+    return dq[..., :d].to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [160, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dq_column_split_matches_plain_backward(d, causal):
+    """Part of the two-warpgroup dQ at padded D 256, emulated: the halves'
+    partials of S and dP added in the fixed order give the plain
+    backward's dQ within the kernels' bf16 bar (relative L2 1e-2), at D
+    160 (zero-padded columns) and 256, T 200 (a ragged last tile)."""
+    rng = np.random.default_rng(12)
+    b, h, t = 1, 2, 200
+    q, k, v, do = (torch.as_tensor(rng.standard_normal((b, h, t, d))
+                                   .astype(np.float32)).to(torch.bfloat16)
+                   for _ in range(4))
+    scale = d ** -0.5
+    _, lse = tfa.mha_reference_lse(q, k, v, scale, causal)
+    delta = torch.as_tensor(rng.standard_normal((b, h, t))
+                            .astype(np.float32))
+    ref_dq = tfa.flash_attention_bwd_reference(q, k, v, do, lse, delta,
+                                               scale, causal)[0]
+    dq = _dq_split_emulation(q, k, v, do, lse, delta, scale, causal)
+    assert dq.dtype == torch.bfloat16 and dq.shape == ref_dq.shape
+    rel = ((dq.float() - ref_dq.float()).norm()
+           / ref_dq.float().norm()).item()
+    assert rel <= 1e-2
+
+
+def _tf32(x):
+    """f32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it, and as
+    the kernel's two integer operations do: to nearest, ties away from
+    zero, 10 mantissa bits (add half of the 13 dropped bits' range to the
+    magnitude, then clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """f32 ``x`` as the tensor core reads an f32 register as TF32: its low
+    13 mantissa bits dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b in f32 from TF32 products: ``passes`` 3 splits each operand
+    into hi = tf32(x) and lo = x − hi (read as TF32) and sums lo·hi +
+    hi·lo + hi·hi; ``passes`` 1 is one product of the TF32-rounded
+    operands."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32_trunc(a - ah), _tf32_trunc(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _tf32x3_fwd_emulation(q, k, v, scale, causal, passes=3):
+    """``flash_fwd_tf32x3_kernel``'s schedule in torch on f32 (B, H, T,
+    D), D <= 256: columns zero-padded to 256; per 64-query tile, two
+    online softmaxes, one over the first 16 keys of every 32-key step and
+    one over the second 16 (up to the diagonal when causal): S = Q·Kᵀ in
+    split TF32, scaled into log2 units, masked; exp2, running max and row
+    sum of the f32 P; O = O·corr + P·V in split TF32 (P split too); then
+    the two halves merged. Returns O and the lse."""
+    b, h, t, d = q.shape
+    qf, kf, vf = (torch.nn.functional.pad(x, (0, 256 - d))
+                  for x in (q, k, v))
+    sl2 = scale * math.log2(math.e)
+    o = torch.zeros((b, h, t, 256))
+    lse = torch.zeros((b, h, t))
+    for q0 in range(0, t, 64):
+        qs = slice(q0, min(q0 + 64, t))
+        rows = torch.arange(q0, qs.stop)
+        n = qs.stop - q0
+        state = []
+        for half in (0, 1):
+            m = torch.full((b, h, n), -math.inf)
+            l = torch.zeros((b, h, n))
+            acc = torch.zeros((b, h, n, 256))
+            for k0 in range(16 * half, min(t, q0 + 64) if causal else t,
+                            32):
+                ks = slice(k0, min(k0 + 16, t))
+                keys = torch.arange(k0, ks.stop)
+                s = _mm_tf32(qf[..., qs, :],
+                             kf[..., ks, :].transpose(-1, -2), passes) * sl2
+                if causal:
+                    s = torch.where(keys[None, :] <= rows[:, None], s,
+                                    torch.tensor(-math.inf))
+                mn = torch.maximum(m, s.max(-1).values)
+                base = torch.where(mn == -math.inf, torch.zeros(()), mn)
+                corr = torch.exp2(m - base)
+                p = torch.exp2(s - base[..., None])
+                l = l * corr + p.sum(-1)
+                acc = acc * corr[..., None] \
+                    + _mm_tf32(p, vf[..., ks, :], passes)
+                m = mn
+            state.append((m, l, acc))
+        (m0, l0, o0), (m1, l1, o1) = state
+        mt = torch.maximum(m0, m1)
+        a0, a1 = torch.exp2(m0 - mt), torch.exp2(m1 - mt)
+        lt = l0 * a0 + l1 * a1
+        o[..., qs, :] = (o0 * a0[..., None] + o1 * a1[..., None]) \
+            / lt[..., None]
+        lse[..., qs] = (mt + torch.log2(lt)) * math.log(2.0)
+    return o[..., :d], lse
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """The emulated ``cvt.rna``: 10 mantissa bits kept, the 13 dropped
+    ones rounded to nearest with ties away from zero, in both signs."""
+    one = 1.0
+    ulp = 2.0 ** -10
+    x = torch.tensor([one + ulp / 4, one + ulp / 2, one + 3 * ulp / 4,
+                      -(one + ulp / 2), one + 1.5 * ulp, 3.0],
+                     dtype=torch.float32)
+    want = torch.tensor([one, one + ulp, one + ulp, -(one + ulp),
+                         one + 2 * ulp, 3.0], dtype=torch.float32)
+    assert torch.equal(_tf32(x), want)
+    y = torch.as_tensor(np.random.default_rng(0).standard_normal(1000)
+                        .astype(np.float32))
+    hi = _tf32(y)
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((hi - y).abs() <= y.abs() * 2.0 ** -11).all()
+
+
+@pytest.mark.parametrize("d", [130, 160, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tf32x3_forward_meets_the_f32_bars(d, causal):
+    """The split-TF32 f32 K1, emulated on its own schedule (64-query tiles,
+    two 16-key halves of each 32-key step with their own online softmax,
+    merged at the end; three TF32 products for Q·Kᵀ and for P·V), against
+    ``mha_reference_lse`` at T 200: O within the f32 atol 1e-4 and lse
+    within 1e-3, at D 130, 160 and 256 (zero-padded to 256); one TF32
+    product instead of three misses the O bar."""
+    rng = np.random.default_rng(13)
+    b, h, t = 1, 2, 200
+    q, k, v = (torch.as_tensor(rng.standard_normal((b, h, t, d))
+                               .astype(np.float32)) for _ in range(3))
+    scale = d ** -0.5
+    ref, ref_lse = tfa.mha_reference_lse(q, k, v, scale, causal)
+    o, lse = _tf32x3_fwd_emulation(q, k, v, scale, causal)
+    err = (o - ref).abs().max().item()
+    assert o.shape == ref.shape and err <= 1e-4
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    o1, _ = _tf32x3_fwd_emulation(q, k, v, scale, causal, passes=1)
+    assert (o1 - ref).abs().max().item() > 1e-4
 
 
 # --------------------------------------------- K2 split-K plan (CPU side)
