@@ -15,8 +15,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --flash-times ROOT  # only time K1, dQ and dK/dV at
                                              # D 256 (bf16 and f32), profile
                                              # the D 256 LM steps and digest
-                                             # K2's outputs of the port at
-                                             # ROOT
+                                             # K1's, the backward's and K2's
+                                             # outputs of the port at ROOT
 
 Phases, each fatal on failure:
 
@@ -46,13 +46,16 @@ Phases, each fatal on failure:
    (B, T, H, D) views of one qkv buffer, at B1 H8 D64 T 1024/2048/4096
    bf16, T 2048 f32, T 200 causal and T 256 non-causal, head dim 80 in
    both dtypes, the train path's B32 T1024 bf16, causal and non-causal,
-   phase 3's head dims past 128 (and D 12), causal, and the two-warpgroup
+   phase 3's head dims past 128 (and D 12), causal, the two-warpgroup
    dQ at bf16 D 136, 160, 200 and 256, T 200, causal and not, and D 256
-   T 1024 non-causal;
+   T 1024 non-causal, the split-TF32 dQ and dK/dV at f32 D 130, 160, 200
+   and 256, T 200, causal and not, and both D 256 LM shapes (B8 H2 T1024,
+   bf16 and f32);
    a second launch of each bit for bit equal; the autograd Function's
-   grads against autograd through ``mha_reference``; dQ's device time
-   against its bound and SDPA's whole backward (timed as a yardstick
-   only);
+   grads against autograd through ``mha_reference``; dQ's and dK/dV's
+   device times against their bounds (the split-TF32 kernels' at the TF32
+   rate, their f32 FFMA bound beside it) and SDPA's whole backward (timed
+   as a yardstick only);
 4. the main path at full width: the 120M Transformer-LM with seeded
    random weights served by a dense and a paged
    ``ContinuousBatchingScheduler``; every request must resolve with its
@@ -73,9 +76,9 @@ Phases, each fatal on failure:
    step must launch K1 16 times and dQ and dK/dV 8 times each, every
    launch on the tensor-core kernels; then the same LM at head dim 256
    (2 heads, 2 layers, batch 8) for one step, K1 (4 launches), dQ (2) and
-   dK/dV (2) on the tensor cores padded to 256, and once more in f32, K1
-   in split TF32 and dQ and dK/dV on the general kernels, each held to
-   the same bars (each its own path: counts set to 0 just before it);
+   dK/dV (2) on the tensor cores padded to 256, and once more in f32, K1,
+   dQ and dK/dV in split TF32 on the tensor cores, each held to the same
+   bars (each its own path: counts set to 0 just before it);
 7. the fused BatchNorm+activation kernels (K3: normalize+act, stats,
    backward reduce, backward dx) against their plain versions at all
    nine (N, C) shapes a ResNet-50 BN gives them at batch 128, relu and
@@ -159,11 +162,10 @@ K3_SUM_RTOL = 1e-4                       # f32 per-channel sums, reordered
 K3_EPILOGUE_RTOL = 1e-6                  # mean/var/inv from the same sums
 # (dtype, B, T, D) past the fast kernels' D 128 and a bf16 D that is not
 # a multiple of 8 (H 8): bf16 D 160 and 256 run K1, dQ and dK/dV padded to
-# 256 on the tensor cores; f32 D 130-256 run K1 in split TF32 (D 130: rows
-# of whole elements, not 16-byte chunks) and the backward on the general
-# kernels; every other one runs the head-dim-general kernels at 64, 32 and
-# 16 tile rows (D 320 in both dtypes, so that the general kernels stay
-# held)
+# 256 on the tensor cores; f32 D 130-256 run all three in split TF32 (D
+# 130: rows of whole elements, not 16-byte chunks); every other one runs
+# the head-dim-general kernels at 64, 32 and 16 tile rows (D 320 in both
+# dtypes, so that the general kernels stay held)
 WIDE_SHAPES = ((torch.bfloat16, 2, 1024, 12),
                (torch.bfloat16, 1, 1024, 160), (torch.float32, 1, 1024, 130),
                (torch.float32, 1, 1024, 160), (torch.float32, 1, 1024, 200),
@@ -175,6 +177,10 @@ WIDE_SHAPES = ((torch.bfloat16, 2, 1024, 12),
 DQ_SPLIT_SHAPES = tuple((torch.bfloat16, 2, 200, c, d)
                         for d in (136, 160, 200, 256) for c in (True, False)) \
     + ((torch.bfloat16, 1, 1024, False, 256),)
+# the split-TF32 dQ's and dK/dV's own holds (f32, B, T, causal, D): T 200
+# (a ragged last tile) at D 130, 160, 200 and 256, causal and not
+TF32_BWD_SHAPES = tuple((torch.float32, 2, 200, c, d)
+                        for d in (130, 160, 200, 256) for c in (True, False))
 # the D 256 LM's attention (B8 H2 T1024 D256): phase 6's train_d256 path
 # hands K1, dQ and dK/dV this shape in bf16, train_d256_f32 in f32
 D256_LM = (torch.bfloat16, 8, 1024, 256)
@@ -205,7 +211,7 @@ K3_LINES = {"bn_act": 76, "bn_stats": 170, "bn_bwd_reduce": 182,
 PEAK_FLOPS = {torch.bfloat16: 989e12,    # dense tensor-core bf16
               torch.float32: 67e12,      # f32 outside the tensor cores
               "tf32": 495e12}            # dense tensor-core TF32
-# the f32 K1 of split TF32 issues three TF32 products per f32 product
+# the split-TF32 kernels issue three TF32 products per f32 product
 TF32X3_PASSES = 3
 MAX_KL = 1e-3                            # the reference's PROMOTION_MAX_KL
 ATOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
@@ -498,15 +504,20 @@ def grad_ok(got, ref, dtype):
     return rel_l2(got, ref) <= BWD_BF16_REL_L2
 
 
-def bwd_bounds(dtype, b, h, t, d, causal):
+def bwd_bounds(dtype, b, h, t, d, causal, peak=None):
     """(dq, dkv) bounds: operations 6 (dQ) and 8 (dK/dV) · D per live
-    (query, key) pair; bytes each operand read once (q, k, v, dO, lse,
-    delta) and each output written once."""
+    (query, key) pair at ``dtype``'s peak, or three times that at the TF32
+    rate (``peak`` "tf32": the split-TF32 kernels' products); bytes each
+    operand read once (q, k, v, dO, lse, delta) and each output written
+    once."""
+    passes = TF32X3_PASSES if peak == "tf32" else 1
     pairs = b * h * (t * (t + 1) // 2 if causal else t * t)
     item = torch.finfo(dtype).bits // 8
     rows = b * h * t
-    dq = bound_ms(5 * rows * d * item + 2 * rows * 4, 6 * d * pairs, dtype)
-    dkv = bound_ms(6 * rows * d * item + 2 * rows * 4, 8 * d * pairs, dtype)
+    dq = bound_ms(5 * rows * d * item + 2 * rows * 4,
+                  passes * 6 * d * pairs, peak or dtype)
+    dkv = bound_ms(6 * rows * d * item + 2 * rows * 4,
+                   passes * 8 * d * pairs, peak or dtype)
     return dq, dkv
 
 
@@ -584,6 +595,15 @@ def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64):
         out, (qs, ks, vs), doc, retain_graph=True), iters=10)
     del out
     (bq, byq), (bkv, bykv) = bwd_bounds(dtype, b, h, t, d, causal)
+    extra = {"dq": {}, "dkv": {}}
+    if fa.route(d, dtype, "dq") == "tf32x3":
+        # the operations they issue: three TF32 products per f32 product;
+        # the f32 CUDA-core bound stays beside it
+        extra = {"dq": {"ffma_bound_ms": bq}, "dkv": {"ffma_bound_ms": bkv}}
+        (bq, byq), (bkv, bykv) = bwd_bounds(dtype, b, h, t, d, causal,
+                                            peak="tf32")
+    ffma = (f", f32 FFMA bounds dq {extra['dq']['ffma_bound_ms']:.5f}, dkv "
+            f"{extra['dkv']['ffma_bound_ms']:.5f}" if extra["dq"] else "")
     log(f"flash bwd {str(dtype)[6:]} B{b} H{h} T{t} D{d} "
         f"{'causal' if causal else 'non-causal'}: max_abs_err dq/dk/dv "
         f"{err[0]:.3e}/{err[1]:.3e}/{err[2]:.3e}, rel L2 {rel[0]:.2e}/"
@@ -594,7 +614,7 @@ def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64):
         f"call {call_ms_dq:.4f}; bound {bq:.5f}, {byq}: {ms_dq / bq:.1f}x; "
         f"{ms_dq / library_ms:.3f}x sdpa's whole backward), dkv "
         f"{ms_dkv:.4f} ms (a call {call_ms_dkv:.4f}; bound {bkv:.5f}, "
-        f"{bykv}), dq + dkv {ms_dq + ms_dkv:.4f} ms, plain backward "
+        f"{bykv}){ffma}, dq + dkv {ms_dq + ms_dkv:.4f} ms, plain backward "
         f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms -> "
         f"{'ok' if ok and fn_ok else 'FAIL'}")
     if not (ok and fn_ok):
@@ -602,9 +622,9 @@ def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64):
                          "disagrees with the plain backward, does not "
                          "repeat or missed its kernel")
     return {"dq": {"max_abs_err": err[0], "ms": ms_dq, "call_ms": call_ms_dq,
-                   "bound_ms": bq, "bound_by": byq},
+                   "bound_ms": bq, "bound_by": byq, **extra["dq"]},
             "dkv": {"max_abs_err": max(err[1:]), "ms": ms_dkv,
-                    "bound_ms": bkv, "bound_by": bykv},
+                    "bound_ms": bkv, "bound_by": bykv, **extra["dkv"]},
             "plain_ms": plain_ms, "library_ms": library_ms}
 
 
@@ -847,7 +867,7 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
     # K1 runs twice a layer (forward and the save_attn recompute), dQ and
     # dK/dV once; every launch on the family fa.route names for its kernel
     # (bf16: the tensor cores up to D 256; f32: the CUDA cores up to 128,
-    # K1 in split TF32 up to 256; the general kernels past them)
+    # split TF32 up to 256; the general kernels past them)
     per = {"fwd": 2 * cfg.n_layers, "dq": cfg.n_layers, "dkv": cfg.n_layers}
     want = {}
     for kn, name in FLASH_NAMES.items():
@@ -1163,10 +1183,12 @@ def flash_times(root):
     checked out at ROOT (its kernels build under ROOT), on the kernel
     family its route picks there; the D 256 LM's train step (phase 6's
     ``train_d256`` and ``train_d256_f32``) profiled on ROOT's port in
-    each dtype: device time a step and its flash kernels' share; then a
-    digest of K2's outputs at Dh 64, 128 and 256 in bf16 and f32 on
-    seeded inputs, so that two trees' K2 are held bit for bit. Two
-    versions are compared in one run: parent, change, change, parent.
+    each dtype: device time a step and its flash kernels' share; then
+    digests of K1's outputs (O, lse) on every route and of the backward's
+    (dQ, dK, dV), keyed by the route each ran, at B1 H2 T256 on seeded
+    inputs, and of K2's outputs at Dh 64, 128 and 256 in bf16 and f32, so
+    that two trees' kernels are held bit for bit where their routes agree.
+    Two versions are compared in one run: parent, change, change, parent.
     Prints one JSON line."""
     import hashlib
     import importlib
@@ -1208,16 +1230,38 @@ def flash_times(root):
         steps[key] = lm_step_times(tfm, D256_LM[1], D256_LM_HEADS, 2, dtype)
         log(f"flash-times D 256 LM step {json.dumps(steps[key])}")
         torch.cuda.empty_cache()
+    def digest(*ts):
+        h = hashlib.sha256()
+        for x in ts:
+            h.update(x.float().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
     digests = {}
+    for dtype, d in ((torch.bfloat16, 64), (torch.bfloat16, 256),
+                     (torch.bfloat16, 12), (torch.float32, 64),
+                     (torch.float32, 130), (torch.float32, 256),
+                     (torch.float32, 320)):
+        g2 = torch.Generator(device="cuda").manual_seed(d)
+        q, k, v, do = (torch.randn((1, 2, 256, d), generator=g2,
+                                   device="cuda").to(dtype)
+                       for _ in range(4))
+        o, lse = fa.flash_attention_lse(q, k, v, causal=True)
+        delta = (do.float() * o.float()).sum(-1).contiguous()
+        tag = f"{str(dtype)[6:]} D{d}"
+        digests[f"k1 {tag} {fa.route(d, dtype, 'fwd')}"] = digest(o, lse)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, d ** -0.5,
+                                       True)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                            d ** -0.5, True)
+        digests[f"bwd {tag} {fa.route(d, dtype, 'dq')}"] = digest(dq, dk, dv)
     for dtype in (torch.bfloat16, torch.float32):
         for dh in (64, 128, 256):
             g2 = torch.Generator(device="cuda").manual_seed(dh)
             q, k, v, table, pos = paged_inputs(g2, dtype, 4, dh, n_layers=1)
             out = pa.paged_attention(q, k[0], v[0], table.cuda(), pos.cuda())
-            digests[f"{str(dtype)[6:]} Dh{dh}"] = hashlib.sha256(
-                out.float().cpu().numpy().tobytes()).hexdigest()[:16]
+            digests[f"k2 {str(dtype)[6:]} Dh{dh}"] = digest(out)
     log(json.dumps({"flash_times": rows, "d256_lm_step": steps,
-                    "k2_digests": digests, "root": str(root)}))
+                    "digests": digests, "root": str(root)}))
     return 0
 
 
@@ -1997,8 +2041,9 @@ def main():
     ap.add_argument("--flash-times", metavar="ROOT",
                     help="only time K1, dQ and dK/dV at head dim 256 in "
                          "bf16 and f32, profile the D 256 LM's train steps "
-                         "and digest K2's outputs, for the port checked "
-                         "out at ROOT (prints no result line)")
+                         "and digest K1's, the backward's and K2's outputs, "
+                         "for the port checked out at ROOT (prints no "
+                         "result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2062,13 +2107,16 @@ def main():
             (torch.bfloat16, 32, 1024, False, 64),
             (torch.bfloat16, 32, 1024, True, 64),    # the train path's
             *((dt, b, t, True, d) for dt, b, t, d in WIDE_SHAPES),
-            *DQ_SPLIT_SHAPES):
+            *DQ_SPLIT_SHAPES, *TF32_BWD_SHAPES):
         bwd[(dt, b, t, causal, d)] = check_flash_bwd(fa, dt, b, t, causal,
                                                      gen, d=d)
         torch.cuda.empty_cache()
     lm_bwd = (*D256_LM[:3], True, D256_LM[3])
-    bwd[lm_bwd] = check_flash_bwd(fa, *lm_bwd[:4], gen, h=D256_LM_HEADS,
-                                  d=D256_LM[3])
+    lm_bwd_f32 = (*D256_LM_F32[:3], True, D256_LM_F32[3])
+    for key in (lm_bwd, lm_bwd_f32):
+        bwd[key] = check_flash_bwd(fa, *key[:4], gen, h=D256_LM_HEADS,
+                                   d=key[4])
+        torch.cuda.empty_cache()
     k3, k3_checked = k3_phase(fo, gen)
     k4, k4_checked = k4_phase(fl, gen)
     if args.kernels_only:
@@ -2077,8 +2125,7 @@ def main():
     by_path = main_path(fa, pa)
     by_path["train"] = train_path(fa, pa, profile=args.profile_train)
     # an LM of head dim 256 (2 heads): one step, bf16 K1, dQ and dK/dV on
-    # the tensor cores; then in f32, K1 in split TF32 and dQ and dK/dV on
-    # the general kernels
+    # the tensor cores; then in f32, all three in split TF32
     by_path["train_d256"] = train_path(fa, pa, steps=1, batch=8, n_heads=2,
                                        n_layers=2, tag="train D256",
                                        profile=args.profile_train)
@@ -2099,10 +2146,10 @@ def main():
     main_k2 = k2[torch.bfloat16]
     main_bwd = bwd[(torch.bfloat16, 32, 1024, True, 64)]  # the train path's
     main_k4 = k4[torch.bfloat16]                # the char-RNN's shape
-    # the padded-256 kernels at rows 1g/3g's shape and the D 256 LM's, in
-    # bf16 (tensor cores) and f32 (K1's split TF32); the f32 CUDA-core
-    # kernels at B1 H8 T2048 D64; the general kernels at D they still
-    # serve (f32 D 256 backward, f32 D 320 forward)
+    # the padded-256 kernels at B1 H8 T1024 D256 and the D 256 LM's, in
+    # bf16 (tensor cores) and f32 (split TF32); the f32 CUDA-core kernels
+    # at B1 H8 T2048 D64; the general kernels at a D they still serve
+    # (f32 D 320)
     d256 = (torch.bfloat16, 1, 1024, 256)
     wide_k1 = {"wgmma": k1[d256],
                "tf32x3": k1[(torch.float32, 1, 1024, 256)]}
@@ -2110,7 +2157,8 @@ def main():
     f32_k1 = k1[(torch.float32, 1, 2048, 64)]
     f32_bwd = bwd[(torch.float32, 1, 2048, True, 64)]
     gen_k1 = k1[(torch.float32, 1, 1024, 320)]
-    gen_bwd = bwd[(torch.float32, 1, 1024, True, 256)]
+    gen_bwd = bwd[(torch.float32, 1, 1024, True, 320)]
+    tf32_bwd = bwd[(torch.float32, 1, 1024, True, 256)]
 
     def family(key, kernel, kind, wide=None):
         """Phase 3/3b keys (dtype, B, T, D) that ``kernel`` runs on
@@ -2188,12 +2236,17 @@ def main():
                   torch.bfloat16, bwd, "B1 H8 T1024 D256 bf16 causal",
                   bwd[(*d256[:3], True, 256)], wide=True,
                   lm=("B8 H2 T1024 D256 bf16 causal", bwd[lm_bwd])),
+            entry(part, "tf32x3", "_tf32x3_f32", f"flash_bwd_{part}_tf32x3_"
+                  "kernel (f32 D 129-256, split-TF32 tensor-core products, "
+                  "padded D 256)", torch.float32, bwd,
+                  "B1 H8 T1024 D256 f32 causal", tf32_bwd,
+                  lm=("B8 H2 T1024 D256 f32 causal", bwd[lm_bwd_f32])),
             entry(part, "cuda-core", "_f32", f"flash_bwd_{part}_kernel (f32 "
                   "D <= 128, CUDA cores)", torch.float32, bwd,
                   "B1 H8 T2048 D64 f32 causal", f32_bwd),
             entry(part, "general", "_general_f32", f"flash_bwd_{part}_"
                   "general_kernel (any D, CUDA cores)", torch.float32, bwd,
-                  "B1 H8 T1024 D256 f32 causal", gen_bwd),
+                  "B1 H8 T1024 D320 f32 causal", gen_bwd),
         ]
     kernels += [
         {"name": "paged_attention", "route": "cuda",

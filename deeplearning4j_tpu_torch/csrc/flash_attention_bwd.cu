@@ -1,5 +1,5 @@
 // Flash-attention backward for Hopper (sm_90a), plain C interface: two
-// kernels, dQ and dK/dV.
+// kernels, dQ and dK/dV, each in a family chosen by dtype and head dim.
 //
 // Replaces the TPU kernels `_bwd_dq_kernel` and `_bwd_dkv_kernel` of
 // deeplearning4j_tpu/kernels/flash_attention.py (launched by
@@ -52,9 +52,9 @@
 // In both, only tiles that cross the diagonal or T are masked, and rows
 // >= T read as zeros.
 //
-// f32: the CUDA-core kernels of the first port (one TF32 pass on the tensor
-// cores would break the f32 atol of 1e-4; the split-TF32 products that K1
-// runs past D 128, flash_attention_fwd.cu, are not yet here). The Pallas
+// f32 up to D 128: the CUDA-core kernels of the first port (one TF32 pass
+// on the tensor cores would break the f32 atol of 1e-4; f32 at D 129..256
+// runs split-TF32 tensor-core kernels, below). The Pallas
 // grids (b*h, q-block, k-block) and (b*h, k-block, q-block) streamed the
 // other operand through VMEM in order with the accumulator in scratch; here
 // one block owns one (b*h, 64-row tile) of its output and a loop inside it
@@ -85,15 +85,18 @@
 // past 128 one warpgroup's f32 accumulators would need DP (dQ) or 2 DP
 // (dK/dV) registers a thread: bf16 dQ and dK/dV at D 136..256 (a multiple
 // of 8) run padded to 256 on two warpgroups that split the columns
-// (flash_bwd_dq_wgmma_split_kernel, flash_bwd_dkv_wgmma_split_kernel).
-// Every other D (f32 D > 128, bf16 D past 256, a bf16 D that is not a
-// multiple of 8) runs the head-dim-general CUDA-core kernels
+// (flash_bwd_dq_wgmma_split_kernel, flash_bwd_dkv_wgmma_split_kernel),
+// and f32 dQ and dK/dV at D 129..256 padded to 256 in split TF32
+// (flash_bwd_dq_tf32x3_kernel, flash_bwd_dkv_tf32x3_kernel). Every other D
+// (f32 D > 256, bf16 D past 256, a bf16 D that is not a multiple of 8)
+// runs the head-dim-general CUDA-core kernels
 // (flash_bwd_dq_general_kernel, flash_bwd_dkv_general_kernel;
 // flash_general.cuh): the same two passes with every tile and accumulator
 // in dynamic shared memory, R = 64..8 rows by D, element-by-element loads.
 
 #include "flash_general.cuh"
 #include "flash_mma.cuh"
+#include "flash_tf32.cuh"
 
 #include <math.h>
 
@@ -1234,6 +1237,579 @@ int launch_dkv(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
   return (int)cudaGetLastError();
 }
 
+// --------- f32 dQ and dK/dV at D 129..256, split-TF32 tensor-core products
+
+// Both kernels run every product on the tensor cores as three TF32
+// products per f32 product (flash_tf32.cuh), mma.sync m16n8k8, padded to
+// D 256 (columns past D zero-filled, never stored); P and dS (and Pᵀ,
+// dSᵀ) split into hi and lo too, as the f32 reference rounds neither.
+// Every tile lives in shared memory as rows of 256 floats in the
+// swizzled layout of flash_tf32.cuh (swz), because each streamed operand
+// is read two ways: K in dQ as the B operand of S = Q·Kᵀ (k = dim) and of
+// dQ += dS·K (k = key), Q and dO in dK/dV as the B operands of Sᵀ = K·Qᵀ
+// and dPᵀ = V·dOᵀ (k = dim) and of dK += dSᵀ·Q and dV += Pᵀ·dO (k =
+// query). The k index of each product is permuted as in K1's split-TF32
+// kernel: over the head dim a pair of k-steps covers 16 dims and thread
+// (g, t) reads a float4 at dims 4t..4t+3 (the first k-step taking 4t,
+// 4t+1 as k indices t, t + 4, the second 4t+2, 4t+3); over a tile's rows,
+// the accumulator fragments of S (dP, Sᵀ, dPᵀ) are the A fragments of the
+// next product with row 2t as k index t and 2t + 1 as t + 4, so thread
+// (g, t) reads rows 2t and 2t + 1 of the B operand, and the output's
+// columns are permuted (n-tile u of column group c holds columns
+// 32 c + 4 n + u) so that it reads them as float4s at columns 32 c + 4 g.
+// A thread holds an output row g at columns 32 c + 8 t .. + 7. The fixed
+// tiles and fixed-order merges make a second launch bit-identical; there
+// are no atomics.
+//
+// What bounds them: operations, 3 TF32 products per f32 multiply-add
+// (495 TFLOP/s dense) against 67 TFLOP/s of f32 on the CUDA cores, and
+// the shared-memory reads: every warp re-reads the resident operand of
+// each step's products and splits it again.
+
+// dQ: a block owns one (b*h, 32-query tile) and 8 warps: two row groups of
+// 16 rows and in each four warps that split every step's 32 keys, 8 each.
+// Q and dO stay in shared memory (64 KiB); K and V stream through a
+// double-buffered cp.async ring of 32-key stages (128 KiB); each thread
+// keeps the lse (times log2 e) and delta of its rows g and g + 8 in
+// registers. Per step a warp forms S = Q·Kᵀ and dP = dO·Vᵀ (16 x 8 each),
+// then P = exp2(S·scale·log2 e - lse·log2 e) and dS = P∘(dP - delta)·scale
+// on S's fragments, and adds dQ += dS·K to its 16 x 256 partial (128 f32
+// registers a thread). At the end the four warps of a row group post
+// their partials through the ring's 128 KiB in fragment order and each
+// sums two column groups of the four in order 0 + 1 + 2 + 3 and stores
+// them. 32-query tiles (not 64) halve the causal grid's heaviest block,
+// which sets the time of a one-wave grid (B1 H8 T1024: 256 blocks, not
+// 128); the grid's slow dimension walks the query tiles, the heaviest
+// (last) first. 192 KiB: one block an SM.
+struct Tf32DqCfg {
+  static constexpr int D = 256;        // the padded head dim
+  static constexpr int BQ = 32;        // query rows: 2 groups of 16
+  static constexpr int BK = 32;        // keys per step: 4 warps of 8
+  static constexpr int THREADS = 256;  // 8 warps: 2 row groups x 4 key parts
+  static constexpr int TILE = D * 4;   // bytes a row
+  // Q, dO, then two stages of (K, V)
+  static constexpr int SMEM = 2 * BQ * TILE + 2 * 2 * BK * TILE;
+};
+static_assert(Tf32DqCfg::SMEM <= 232448, "227 KiB a block on sm_90");
+static_assert(Tf32DqCfg::D == dl4j_tf32::kD, "the split-TF32 padded width");
+static_assert(Tf32DqCfg::BQ == 32 && Tf32DqCfg::BK == 32,
+              "the warps: two 16-row groups, four 8-key parts");
+
+// the float4 at chunk c of row r of a swizzled tile
+__device__ __forceinline__ float4 ld4(const float* tile, int r, int c) {
+  return *reinterpret_cast<const float4*>(
+      tile + r * dl4j_tf32::kD + 4 * (c ^ dl4j_tf32::swz(r)));
+}
+
+// the A fragments of a pair of k-steps (16 dims at 16 kp) of rows r and
+// r + 8 of a swizzled tile, split: k-step 0 takes dims 4t, 4t+1, k-step 1
+// 4t+2, 4t+3
+__device__ __forceinline__ void a_frags(const float* tile, int r, int kp,
+                                        int t4, uint32_t (&ah)[2][4],
+                                        uint32_t (&al)[2][4]) {
+  using dl4j_tf32::split_tf32;
+  const float4 x = ld4(tile, r, 4 * kp + t4);
+  const float4 y = ld4(tile, r + 8, 4 * kp + t4);
+  split_tf32(x.x, ah[0][0], al[0][0]);
+  split_tf32(y.x, ah[0][1], al[0][1]);
+  split_tf32(x.y, ah[0][2], al[0][2]);
+  split_tf32(y.y, ah[0][3], al[0][3]);
+  split_tf32(x.z, ah[1][0], al[1][0]);
+  split_tf32(y.z, ah[1][1], al[1][1]);
+  split_tf32(x.w, ah[1][2], al[1][2]);
+  split_tf32(y.w, ah[1][3], al[1][3]);
+}
+
+// d (16 x 8) += A·Bᵀ over that pair of k-steps, with B's row r of a
+// swizzled tile (column g of the product) at the same dims
+__device__ __forceinline__ void mma_dims(float (&d)[4], const float* tile,
+                                         int r, int kp, int t4,
+                                         const uint32_t (&ah)[2][4],
+                                         const uint32_t (&al)[2][4]) {
+  using dl4j_tf32::split_tf32;
+  const float4 x = ld4(tile, r, 4 * kp + t4);
+  uint32_t bh[4], bl[4];
+  split_tf32(x.x, bh[0], bl[0]);
+  split_tf32(x.y, bh[1], bl[1]);
+  split_tf32(x.z, bh[2], bl[2]);
+  split_tf32(x.w, bh[3], bl[3]);
+  dl4j_tf32::mma_3xtf32(d, ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
+  dl4j_tf32::mma_3xtf32(d, ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
+}
+
+// acc (16 x 256, permuted columns) += X·B, X an accumulator fragment
+// (16 x 8: rows g, g + 8 of columns 2t, 2t + 1) summed over B's rows
+// r0 .. r0 + 7 of a swizzled tile: column 2t of X is k index t (B's row
+// r0 + 2t), 2t + 1 is k index t + 4
+__device__ __forceinline__ void mma_rows(float (&acc)[8][4][4],
+                                         const float (&x)[4],
+                                         const float* tile, int r0, int g,
+                                         int t4) {
+  using dl4j_tf32::split_tf32;
+  uint32_t xh[4], xl[4];
+  split_tf32(x[0], xh[0], xl[0]);  // row g, column 2t: k index t
+  split_tf32(x[2], xh[1], xl[1]);  // row g + 8, column 2t
+  split_tf32(x[1], xh[2], xl[2]);  // row g, column 2t + 1: k index t + 4
+  split_tf32(x[3], xh[3], xl[3]);  // row g + 8, column 2t + 1
+  const int r = r0 + 2 * t4;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const float4 b0 = ld4(tile, r, 8 * c + g);
+    const float4 b1 = ld4(tile, r + 1, 8 * c + g);
+    const float x0[4] = {b0.x, b0.y, b0.z, b0.w};
+    const float x1[4] = {b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      uint32_t bh0, bl0, bh1, bl1;
+      split_tf32(x0[u], bh0, bl0);
+      split_tf32(x1[u], bh1, bl1);
+      dl4j_tf32::mma_3xtf32(acc[c][u], xh, xl, bh0, bh1, bl0, bl1);
+    }
+  }
+}
+
+// post this warp's 16 x 256 partial at slot w of a fragment-ordered
+// exchange (float4 i of lane x at (32 w + i) * 32 + x)
+__device__ __forceinline__ void post_acc(float4* xo, int w, int lane,
+                                         const float (&acc)[8][4][4]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      xo[(32 * w + 4 * c + u) * 32 + lane] =
+          make_float4(acc[c][u][0], acc[c][u][1], acc[c][u][2], acc[c][u][3]);
+}
+
+// sum column group c (n-tiles 4c .. 4c + 3) of the N partials posted at
+// slots w0, w0 + stride, ..., in that order, and store rows row0 + g and
+// row0 + g + 8 (those < T) at the columns < dr
+template <int N>
+__device__ __forceinline__ void store_sum(float* out, long long st,
+                                          const float4* xo, int w0,
+                                          int stride, int c, int lane,
+                                          int row0, int Tlen, int dr) {
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    float4 x = xo[(32 * w0 + 4 * c + u) * 32 + lane];
+#pragma unroll
+    for (int n = 1; n < N; ++n) {
+      const float4 y = xo[(32 * (w0 + n * stride) + 4 * c + u) * 32 + lane];
+      x.x += y.x;
+      x.y += y.y;
+      x.z += y.z;
+      x.w += y.w;
+    }
+    const float val[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + g + 8 * (i >> 1);
+      const int col = 32 * c + 8 * t4 + 4 * (i & 1) + u;
+      if (row < Tlen && col < dr)  // the padded columns are never written
+        out[row * st + col] = val[i];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(Tf32DqCfg::THREADS, 1)
+flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq, int H, int Tlen, int dr,
+                           Str sq, Str sk, Str sv, Str sdo, Str sdq,
+                           float scale, int causal, int vec) {
+  using namespace dl4j_mma;
+  using dl4j_tf32::load_f32_tile;
+  using C = Tf32DqCfg;
+  constexpr int BQ = C::BQ;
+  constexpr int BK = C::BK;
+  constexpr int D = C::D;
+  constexpr int NT = C::THREADS;
+  constexpr int KW = 8;               // keys of a step a warp takes
+  constexpr int STAGE = 2 * BK * D;   // floats: K, then V
+  extern __shared__ __align__(16) float fsm[];
+  float* const qs = fsm;
+  float* const dos = qs + BQ * D;
+  float* const kvs = dos + BQ * D;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int rg = warp & 1;           // this warp's 16 query rows
+  const int kw = (warp >> 1) * KW;   // and its 8 keys of each step
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wrow = q0 + rg * 16;     // this warp's first query row
+  const float sl2 = scale * kLog2e;
+
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int kend = causal ? min(Tlen, q0 + BQ) : Tlen;
+  const int nkt = (kend + BK - 1) / BK;
+
+  load_f32_tile<BQ, D, NT, true>(qs, q + b * sq.b + h * sq.h, sq.t, q0, Tlen,
+                                 dr, vec, tid);
+  load_f32_tile<BQ, D, NT, true>(dos, dout + b * sdo.b + h * sdo.h, sdo.t,
+                                 q0, Tlen, dr, vec, tid);
+  load_f32_tile<BK, D, NT, true>(kvs, kb, sk.t, 0, Tlen, dr, vec, tid);
+  load_f32_tile<BK, D, NT, true>(kvs + BK * D, vb, sv.t, 0, Tlen, dr, vec,
+                                 tid);
+  cp_async_commit();
+
+  // the lse (times log2 e) and delta of this thread's rows g and g + 8
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    const bool ok = row < Tlen;
+    l2[r] = ok ? lse[(long long)bh * Tlen + row] * kLog2e : 0.f;
+    dl[r] = ok ? delta[(long long)bh * Tlen + row] : 0.f;
+  }
+  float acc[8][4][4];
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][u][e] = 0.f;
+
+  for (int j = 0; j < nkt; ++j) {
+    if (j + 1 < nkt) {
+      float* nk = kvs + ((j + 1) & 1) * STAGE;
+      load_f32_tile<BK, D, NT, true>(nk, kb, sk.t, (j + 1) * BK, Tlen, dr,
+                                     vec, tid);
+      load_f32_tile<BK, D, NT, true>(nk + BK * D, vb, sv.t, (j + 1) * BK,
+                                     Tlen, dr, vec, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // stage j (and Q, dO) have landed
+    __syncthreads();
+    const float* ks = kvs + (j & 1) * STAGE;
+    const float* vs = ks + BK * D;
+    const int k0 = j * BK + kw;
+
+    // S = Q·Kᵀ and dP = dO·Vᵀ over this warp's 8 keys
+    float s[4] = {0.f, 0.f, 0.f, 0.f}, dp[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int kp = 0; kp < D / 16; ++kp) {
+      uint32_t ah[2][4], al[2][4];
+      a_frags(qs, rg * 16 + g, kp, t4, ah, al);
+      mma_dims(s, ks, kw + g, kp, t4, ah, al);
+    }
+#pragma unroll
+    for (int kp = 0; kp < D / 16; ++kp) {
+      uint32_t ah[2][4], al[2][4];
+      a_frags(dos, rg * 16 + g, kp, t4, ah, al);
+      mma_dims(dp, vs, kw + g, kp, t4, ah, al);
+    }
+
+    // P = exp2(S·scale·log2 e - lse·log2 e) and dS = P∘(dP - delta)·scale
+    // in s; only key ranges that cross the diagonal or T are masked
+    const bool edge = k0 + KW > Tlen || (causal && k0 + KW - 1 > wrow);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float p = exp2_approx(fmaf(s[e], sl2, -l2[r]));
+      if (edge) {
+        const int key = k0 + 2 * t4 + (e & 1);
+        if (key >= Tlen || (causal && key > wrow + g + 8 * r)) p = 0.f;
+      }
+      s[e] = p * (dp[e] - dl[r]) * scale;
+    }
+    // dQ += dS·K over this warp's 8 keys (rows kw .. kw + 7 of the stage)
+    mma_rows(acc, s, ks, kw, g, t4);
+    __syncthreads();  // stage j & 1 is consumed before it is refilled
+  }
+
+  // the four partials of each row group through the ring (128 KiB), summed
+  // in order 0 + 1 + 2 + 3; warp (rg, part p) stores column groups 2p and
+  // 2p + 1
+  cp_async_wait<0>();
+  float4* const xo = reinterpret_cast<float4*>(kvs);
+  post_acc(xo, warp, lane, acc);
+  __syncthreads();
+  float* dqb = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    store_sum<4>(dqb, sdq.t, xo, rg, 2, 2 * (warp >> 1) + i, lane, wrow,
+                 Tlen, dr);
+}
+
+// dK/dV: a block owns one (b*h, 32-key tile) and 8 warps in pairs: a dV
+// warp and a dK warp for each of two 16-key groups and each 16-query half
+// of every step. K and V stay in shared memory (64 KiB); Q, dO and the
+// lse and delta rows stream through a double-buffered cp.async ring of
+// 32-query stages (128 KiB), from the diagonal down when causal. Per step
+// the dV warp forms Sᵀ = K·Qᵀ (16 x 16), Pᵀ = exp2(Sᵀ·scale·log2 e -
+// lse·log2 e), posts Pᵀ to its dK warp (1 KiB in fragment order, a named
+// barrier of the two warps) and adds dV += Pᵀ·dO; the dK warp forms
+// dPᵀ = V·dOᵀ meanwhile, takes Pᵀ, and adds dK += dSᵀ·Q with dSᵀ =
+// Pᵀ∘(dPᵀ - delta)·scale. So each warp does two products a step and
+// holds one 16 x 256 f32 partial (128 registers a thread), where dK and dV
+// together would be 256. At the end the two query halves' partials of
+// each output meet through the ring in fragment order, summed in order
+// 0 + 1, each warp storing four of the eight column groups. The grid's
+// slow dimension walks the key tiles, the heaviest (first) first under
+// causal masking. 196.5 KiB: one block an SM.
+struct Tf32DkvCfg {
+  static constexpr int D = 256;        // the padded head dim
+  static constexpr int BKV = 32;       // keys per block: 2 groups of 16
+  static constexpr int BQ = 32;        // query rows per step: 2 halves of 16
+  static constexpr int THREADS = 256;  // 8 warps: (dV, dK) x 2 x 2
+  static constexpr int TILE = D * 4;   // bytes a row
+  // K, V, then two stages of (Q, dO)
+  static constexpr int ROWS = 2 * BKV * TILE + 2 * 2 * BQ * TILE;
+  // then two stages of (lse, delta) rows and each pair's Pᵀ (two n-tiles
+  // of 32 lanes' float4s)
+  static constexpr int SMEM = ROWS + 2 * 2 * BQ * 4 + 4 * 2 * 32 * 16;
+};
+static_assert(Tf32DkvCfg::SMEM <= 232448, "227 KiB a block on sm_90");
+static_assert(Tf32DkvCfg::D == dl4j_tf32::kD, "the split-TF32 padded width");
+static_assert(Tf32DkvCfg::BQ == 32 && Tf32DkvCfg::BKV == 32,
+              "the warps: two 16-key groups, two 16-query halves");
+
+// named barrier `id` of n threads: bar_sync waits, bar_arrive does not
+// (both order this thread's earlier shared-memory writes before the
+// barrier completes)
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__global__ void __launch_bounds__(Tf32DkvCfg::THREADS, 1)
+flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
+                            const float* __restrict__ dout,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            float* __restrict__ dk, float* __restrict__ dv,
+                            int H, int Tlen, int dr, Str sq, Str sk, Str sv,
+                            Str sdo, Str sdk, Str sdv, float scale,
+                            int causal, int vec) {
+  using namespace dl4j_mma;
+  using dl4j_tf32::load_f32_tile;
+  using C = Tf32DkvCfg;
+  constexpr int BKV = C::BKV;
+  constexpr int BQ = C::BQ;
+  constexpr int D = C::D;
+  constexpr int NT = C::THREADS;
+  constexpr int STAGE = 2 * BQ * D;  // floats: Q, then dO
+  extern __shared__ __align__(16) float fsm[];
+  float* const ks = fsm;
+  float* const vs = ks + BKV * D;
+  float* const ring = vs + BKV * D;
+  float* const rows = ring + 2 * STAGE;  // stage st: lse, then delta
+  float4* const xch = reinterpret_cast<float4*>(rows + 2 * 2 * BQ);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * BKV;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int pair = warp & 3;        // (key group, query half)
+  const int kg = warp & 1;          // this warp's 16 keys
+  const int qh = (warp >> 1) & 1;   // and its 16 queries of each step
+  const bool dk_warp = warp >= 4;   // else the dV warp of the pair
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wkey = k0 + kg * 16;    // this warp's first key
+  const float sl2 = scale * kLog2e;
+
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lseb = lse + (long long)bh * Tlen;
+  const float* deltab = delta + (long long)bh * Tlen;
+  // causal: query tiles above the block's first key see none of its keys
+  const int first = causal ? k0 / BQ : 0;
+  const int nqt = (Tlen + BQ - 1) / BQ;
+
+  // query tile `it` into ring stage `st`: Q, dO, and the lse and delta
+  // rows (threads 0 .. 31 and 32 .. 63)
+  auto fetch = [&](int it, int st) {
+    float* tq = ring + st * STAGE;
+    const int i0 = it * BQ;
+    load_f32_tile<BQ, D, NT, true>(tq, qb, sq.t, i0, Tlen, dr, vec, tid);
+    load_f32_tile<BQ, D, NT, true>(tq + BQ * D, dob, sdo.t, i0, Tlen, dr,
+                                   vec, tid);
+    if (tid < 2 * BQ) {
+      const int row = i0 + (tid & (BQ - 1));
+      const bool ok = row < Tlen;
+      const float* src = tid < BQ ? lseb : deltab;
+      cp_async4(smem_u32(rows + st * 2 * BQ + tid), src + (ok ? row : 0),
+                ok);
+    }
+  };
+  load_f32_tile<BKV, D, NT, true>(ks, k + b * sk.b + h * sk.h, sk.t, k0,
+                                  Tlen, dr, vec, tid);
+  load_f32_tile<BKV, D, NT, true>(vs, v + b * sv.b + h * sv.h, sv.t, k0,
+                                  Tlen, dr, vec, tid);
+  fetch(first, 0);
+  cp_async_commit();
+
+  // dV (dV warps) or dK (dK warps) of this warp's keys over its queries
+  float acc[8][4][4];
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][u][e] = 0.f;
+  // the A operand of this warp's first product: K (Sᵀ) or V (dPᵀ)
+  const float* at = dk_warp ? vs : ks;
+  float4* const px = xch + pair * 2 * 32;  // this pair's Pᵀ
+
+  for (int it = first; it < nqt; ++it) {
+    const int st = (it - first) & 1;
+    if (it + 1 < nqt) fetch(it + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage (and K, V) have landed
+    __syncthreads();
+    const float* qst = ring + st * STAGE;
+    const float* dost = qst + BQ * D;
+    const float* ls = rows + st * 2 * BQ + qh * 16;  // this warp's queries
+    const float* dls = ls + BQ;
+    const int wq = it * BQ + qh * 16;  // this warp's first query
+
+    // Sᵀ = K·Qᵀ (dV warp) or dPᵀ = V·dOᵀ (dK warp): n-tile n holds
+    // queries wq + 8 n ..
+    const float* bt = dk_warp ? dost : qst;
+    float x[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[n][e] = 0.f;
+#pragma unroll
+    for (int kp = 0; kp < D / 16; ++kp) {
+      uint32_t ah[2][4], al[2][4];
+      a_frags(at, kg * 16 + g, kp, t4, ah, al);
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+        mma_dims(x[n], bt, qh * 16 + 8 * n + g, kp, t4, ah, al);
+    }
+
+    if (!dk_warp) {
+      // Pᵀ; only tiles that cross the diagonal or T are masked
+      const bool edge = wq + 16 > Tlen || wkey + 16 > Tlen
+                        || (causal && wq < wkey + 15);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * n + 2 * t4 + (e & 1);
+          float p = exp2_approx(fmaf(x[n][e], sl2, -ls[qi] * kLog2e));
+          if (edge) {
+            const int row = wq + qi;
+            const int key = wkey + g + 8 * (e >> 1);
+            if (row >= Tlen || key >= Tlen || (causal && row < key))
+              p = 0.f;
+          }
+          x[n][e] = p;
+        }
+        px[n * 32 + lane] = make_float4(x[n][0], x[n][1], x[n][2], x[n][3]);
+      }
+      bar_arrive(1 + pair, 64);
+    } else {
+      bar_sync(1 + pair, 64);  // the dV warp has posted Pᵀ
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float4 p = px[n * 32 + lane];
+        const float pv[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = 8 * n + 2 * t4 + (e & 1);
+          x[n][e] = pv[e] * (x[n][e] - dls[qi]) * scale;  // dSᵀ
+        }
+      }
+    }
+    // dV += Pᵀ·dO or dK += dSᵀ·Q over this warp's queries: k-step n takes
+    // rows qh·16 + 8 n .. of the stage
+    const float* ct = dk_warp ? qst : dost;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      mma_rows(acc, x[n], ct, qh * 16 + 8 * n, g, t4);
+    __syncthreads();  // this stage and the pairs' Pᵀ are free again
+  }
+
+  // the two query halves' partials of each output through the ring
+  // (128 KiB), summed in order 0 + 1; warp (kg, qh) of each role stores
+  // column groups 4 qh .. 4 qh + 3
+  cp_async_wait<0>();
+  float4* const xo = reinterpret_cast<float4*>(ring);
+  post_acc(xo, warp, lane, acc);
+  __syncthreads();
+  float* out = dk_warp ? dk + b * sdk.b + h * sdk.h
+                       : dv + b * sdv.b + h * sdv.h;
+  const long long ot = dk_warp ? sdk.t : sdv.t;
+  const int w0 = warp & ~2;  // this output's query half 0
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    store_sum<2>(out, ot, xo, w0, 2, 4 * qh + i, lane, wkey, Tlen, dr);
+}
+
+int launch_dq_tf32x3(int BH, int Tlen, int dr, cudaStream_t st,
+                     const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dq, int H, const long long* s, float scale,
+                     int causal) {
+  using C = Tf32DqCfg;
+  const Str sq = str_at(s, 0), sk = str_at(s, 1), sv = str_at(s, 2),
+            sdo = str_at(s, 3);
+  const bool vec = dl4j_tf32::rows_16b(dr, {q, k, v, dout},
+                                       {sq, sk, sv, sdo});
+  auto kern = flash_bwd_dq_tf32x3_kernel;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  // query tiles on the slow dimension: the heaviest (last) go first
+  const dim3 grid(BH, (Tlen + C::BQ - 1) / C::BQ);
+  kern<<<grid, C::THREADS, C::SMEM, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq), H, Tlen, dr, sq, sk, sv, sdo, str_at(s, 4),
+      scale, causal, int(vec));
+  return (int)cudaGetLastError();
+}
+
+int launch_dkv_tf32x3(int BH, int Tlen, int dr, cudaStream_t st,
+                      const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dk, void* dv, int H, const long long* s,
+                      float scale, int causal) {
+  using C = Tf32DkvCfg;
+  const Str sq = str_at(s, 0), sk = str_at(s, 1), sv = str_at(s, 2),
+            sdo = str_at(s, 3);
+  const bool vec = dl4j_tf32::rows_16b(dr, {q, k, v, dout},
+                                       {sq, sk, sv, sdo});
+  auto kern = flash_bwd_dkv_tf32x3_kernel;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  // key tiles on the slow dimension: the heaviest (first) go first
+  const dim3 grid(BH, (Tlen + C::BKV - 1) / C::BKV);
+  kern<<<grid, C::THREADS, C::SMEM, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Tlen, dr, sq, sk,
+      sv, sdo, str_at(s, 4), str_at(s, 5), scale, causal, int(vec));
+  return (int)cudaGetLastError();
+}
+
 // ------------------------------ any D, CUDA cores (flash_general.cuh)
 
 // dQ: one block per (b*h, R-query tile), the heaviest first under causal
@@ -1445,7 +2021,8 @@ int launch_dkv_general(int BH, int Tlen, int D, cudaStream_t st,
 // the kernel for (dtype, D): dtype 0 = float32, 1 = bfloat16. D <= 128
 // (bf16: a multiple of 8, 16-byte rows) runs on the kernel instantiated
 // on the padded width padded_dim(D); every other D on the general kernel
-// (both entries take bf16 D 136..256 to their padded-256 kernels first)
+// (both entries take f32 D 129..256 to their split-TF32 kernels and bf16
+// D 136..256 to their padded-256 kernels first)
 #define DL4J_BWD_DISPATCH(LAUNCH, LAUNCH_GENERAL, ...)                       \
   if (D > 128 || (dtype == 1 && D % 8 != 0))                                 \
     return dtype == 0 ? LAUNCH_GENERAL<float>(__VA_ARGS__)                   \
@@ -1476,6 +2053,9 @@ extern "C" int dl4j_flash_attention_bwd_dq(
   if (B < 1 || H < 1 || T < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D > 128 && D <= 256)
+    return launch_dq_tf32x3(B * H, T, D, st, q, k, v, dout, lse, delta, dq,
+                            H, strides, scale, causal);
   if (dtype == 1 && D > 128 && D <= 256 && D % 8 == 0)
     return launch_dq<__nv_bfloat16, 256>(B * H, T, D, st, q, k, v, dout, lse,
                                          delta, dq, H, strides, scale,
@@ -1493,6 +2073,9 @@ extern "C" int dl4j_flash_attention_bwd_dkv(
   if (B < 1 || H < 1 || T < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && D > 128 && D <= 256)
+    return launch_dkv_tf32x3(B * H, T, D, st, q, k, v, dout, lse, delta, dk,
+                             dv, H, strides, scale, causal);
   if (dtype == 1 && D > 128 && D <= 256 && D % 8 == 0)
     return launch_dkv<__nv_bfloat16, 256>(B * H, T, D, st, q, k, v, dout,
                                           lse, delta, dk, dv, H, strides,

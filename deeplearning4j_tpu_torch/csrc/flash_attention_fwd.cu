@@ -71,12 +71,14 @@
 
 #include "flash_general.cuh"
 #include "flash_mma.cuh"
+#include "flash_tf32.cuh"
 
 #include <math.h>
 
 namespace {
 
 using namespace dl4j_mma;
+using namespace dl4j_tf32;
 
 // ---------------------------------- bf16, warpgroup MMA (wgmma.mma_async)
 
@@ -437,15 +439,8 @@ int launch_f32(int D, int BH, int Tlen, cudaStream_t s, const void* q,
 
 // ------------------- f32 at D 129..256, split-TF32 tensor-core products
 
-// One TF32 product keeps 10 of f32's 23 mantissa bits, an error near 1e-3
-// relative, past the f32 atol of 1e-4. Three keep the f32 bar: each f32
-// operand x splits into hi = tf32(x) (rounded to nearest, ties away, as
-// cvt.rna rounds) and lo = x - hi, which the tensor core reads as TF32,
-// and a·b = hi·hi + hi·lo + lo·hi (lo·lo, below 2^-20 relative, is
-// dropped), each product exact in the f32 accumulator ("3xTF32"). The
-// products run as mma.sync m16n8k8 (TF32 -> f32), not wgmma, because wgmma
-// reads TF32 operands K-major only and P·V would need V transposed in
-// shared memory.
+// Three TF32 products for each f32 product (flash_tf32.cuh says why and
+// how).
 //
 // A block owns one (b*h, 64-row query tile) and 8 warps: four row groups
 // of 16 rows, and in each row group two warps that split every step's 32
@@ -497,66 +492,7 @@ struct Tf32FwdCfg {
   static constexpr int SMEM = Q_BYTES + 2 * (K_BYTES + V_BYTES);
 };
 static_assert(Tf32FwdCfg::SMEM <= 232448, "227 KiB a block on sm_90");
-
-// x as hi + lo: hi is x rounded to TF32 as cvt.rna.tf32.f32 rounds a
-// finite x (to nearest, ties away: half of the dropped 13 bits' range
-// added to the magnitude, then the 13 bits cleared) in two integer
-// operations (two cvt instructions a split made the kernel about 1.5x slower
-// on the H100, PERF.md); lo = x - hi is exact in f32, and the tensor core
-// reads it as TF32 by dropping its low 13 bits
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-// d (16 x 8, f32) += a (16 x 8) · b (8 x 8), TF32 operands
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-// d += a·b in three TF32 products, the small terms first
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
-                                           const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4],
-                                           uint32_t bh0, uint32_t bh1,
-                                           uint32_t bl0, uint32_t bl1) {
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
-}
-
-// rows [r0, r0 + R) of a (T, dr) f32 operand (time stride st) into a
-// shared tile of row stride LD floats, D columns: rows >= T and columns
-// >= dr read as 0 (a zero-fill copy touches no global memory); 16-byte
-// copies when `vec` (dr % 4 == 0, 16-byte aligned rows), else 4-byte ones
-template <int R, int LD>
-__device__ __forceinline__ void load_f32_tile(float* dst, const float* src,
-                                              long long st, int r0, int T,
-                                              int dr, bool vec, int tid) {
-  constexpr int CH = Tf32FwdCfg::D / 4;  // 16-byte chunks a row
-#pragma unroll 4
-  for (int e = tid; e < R * CH; e += Tf32FwdCfg::THREADS) {
-    const int r = e / CH;
-    const int c = e - r * CH;
-    const int row = r0 + r;
-    const uint32_t s = smem_u32(dst + r * LD + 4 * c);
-    const float* g = src + (row < T ? row * st + 4 * c : 0);
-    if (vec) {
-      const bool ok = row < T && 4 * c < dr;
-      cp_async16(s, ok ? g : src, ok);
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool ok = row < T && 4 * c + i < dr;
-        cp_async4(s + 4 * i, ok ? g + i : src, ok);
-      }
-    }
-  }
-}
+static_assert(Tf32FwdCfg::D == kD, "the split-TF32 padded width");
 
 __global__ void __launch_bounds__(Tf32FwdCfg::THREADS, 1)
 flash_fwd_tf32x3_kernel(const float* __restrict__ q,
@@ -597,10 +533,12 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
   const int kend = causal ? min(Tlen, q0 + BQ) : Tlen;
   const int nkt = (kend + BK - 1) / BK;
 
-  load_f32_tile<BQ, LDQ>(qs, q + b * sq.b + h * sq.h, sq.t, q0, Tlen, dr,
-                         vec, tid);
-  load_f32_tile<BK, LDQ>(kvs, kb, sk.t, 0, Tlen, dr, vec, tid);
-  load_f32_tile<BK, LDV>(kvs + BK * LDQ, vb, sv.t, 0, Tlen, dr, vec, tid);
+  constexpr int NT = C::THREADS;
+  load_f32_tile<BQ, LDQ, NT>(qs, q + b * sq.b + h * sq.h, sq.t, q0, Tlen, dr,
+                             vec, tid);
+  load_f32_tile<BK, LDQ, NT>(kvs, kb, sk.t, 0, Tlen, dr, vec, tid);
+  load_f32_tile<BK, LDV, NT>(kvs + BK * LDQ, vb, sv.t, 0, Tlen, dr, vec,
+                             tid);
   cp_async_commit();
 
   // O over this warp's keys: n-tile u of column group c in acc[c][u]
@@ -619,10 +557,10 @@ flash_fwd_tf32x3_kernel(const float* __restrict__ q,
   for (int j = 0; j < nkt; ++j) {
     if (j + 1 < nkt) {
       float* nk = kvs + ((j + 1) & 1) * STAGE;
-      load_f32_tile<BK, LDQ>(nk, kb, sk.t, (j + 1) * BK, Tlen, dr, vec,
-                             tid);
-      load_f32_tile<BK, LDV>(nk + BK * LDQ, vb, sv.t, (j + 1) * BK, Tlen,
-                             dr, vec, tid);
+      load_f32_tile<BK, LDQ, NT>(nk, kb, sk.t, (j + 1) * BK, Tlen, dr, vec,
+                                 tid);
+      load_f32_tile<BK, LDV, NT>(nk + BK * LDQ, vb, sv.t, (j + 1) * BK,
+                                 Tlen, dr, vec, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // tile j (and Q) have landed
@@ -801,15 +739,7 @@ int launch_tf32x3(int BH, int Tlen, int dr, cudaStream_t s, const void* q,
                   const void* k, const void* v, void* o, void* lse, int H,
                   Str sq, Str sk, Str sv, Str so, float scale, int causal) {
   using C = Tf32FwdCfg;
-  // 16-byte copies need every row of q, k and v on a 16-byte boundary
-  auto al16 = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  auto st4 = [](const Str& x) {
-    return x.b % 4 == 0 && x.h % 4 == 0 && x.t % 4 == 0;
-  };
-  const bool vec = dr % 4 == 0 && al16(q) && al16(k) && al16(v) && st4(sq)
-                   && st4(sk) && st4(sv);
+  const bool vec = rows_16b(dr, {q, k, v}, {sq, sk, sv});
   auto kern = flash_fwd_tf32x3_kernel;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);

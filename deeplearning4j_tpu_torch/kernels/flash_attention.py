@@ -27,13 +27,15 @@ counted in ``LAUNCHES_TC``, ``LAUNCHES_BWD_DQ_TC`` and
 ``LAUNCHES_BWD_DKV``); their operands must pass
 :func:`check_tc_alignment`, or the call raises. float32 runs the
 CUDA-core kernels up to D 128 (``LAUNCHES_CUDA_CORE``,
-``LAUNCHES_BWD_DQ_CUDA_CORE``, ``LAUNCHES_BWD_DKV_CUDA_CORE``). f32 K1 at
-D 129-256 runs on the tensor cores in split TF32 (``LAUNCHES_TF32X3``):
-each f32 operand x becomes hi = tf32(x) and lo = x − hi (read as TF32),
-and each product hi·hi + hi·lo + lo·hi, summed in f32. One TF32 product keeps 10
-mantissa bits, an error near 1e-3, past the f32 tolerance of 1e-4; the
-three keep about 21, near f32's own. It takes any strides. A launch that
-fails raises; it never falls back to another kernel.
+``LAUNCHES_BWD_DQ_CUDA_CORE``, ``LAUNCHES_BWD_DKV_CUDA_CORE``). f32 K1, dQ
+and dK/dV at D 129-256 run on the tensor cores in split TF32
+(``LAUNCHES_TF32X3``, ``LAUNCHES_BWD_DQ_TF32X3``,
+``LAUNCHES_BWD_DKV_TF32X3``): each f32 operand x becomes hi = tf32(x) and
+lo = x − hi (read as TF32), and each product hi·hi + hi·lo + lo·hi,
+summed in f32; the probabilities and dS split too. One TF32 product keeps
+10 mantissa bits, an error near 1e-3, past the f32 tolerance of 1e-4; the
+three keep about 21, near f32's own. They take any strides. A launch
+that fails raises; it never falls back to another kernel.
 
 Head dims: every D whose tiles fit in the 227 KiB of shared memory a
 block may use on the H100, as the reference's Pallas block ``(1, bq, d)``
@@ -44,7 +46,7 @@ padded widths 16, 32, 64 and 128 (bf16 also 256) and zero-fill the
 columns past D inside the kernel — bf16 on the tensor cores when D is a
 multiple of 8 (its rows whole 16-byte chunks), up to 256 (dQ and dK/dV
 past 128 on two warpgroups that split the columns); f32 on the CUDA
-cores up to 128, and K1 in split TF32 up to 256. Every other D runs the
+cores up to 128, and in split TF32 up to 256. Every other D runs the
 head-dim-general CUDA-core kernels (``csrc/flash_general.cuh``; counted
 in ``LAUNCHES_GENERAL``, ``LAUNCHES_BWD_DQ_GENERAL`` and
 ``LAUNCHES_BWD_DKV_GENERAL``), whose tile rows shrink from 64 to 8 as D
@@ -73,7 +75,7 @@ FAST_MAX_HEAD_DIM = 128
 #: the largest bf16 head dim the tensor-core kernels take: past 128 they
 #: run instantiated on the padded width 256
 TC_MAX_HEAD_DIM = 256
-#: the largest f32 head dim of K1's split-TF32 kernel (padded to 256)
+#: the largest f32 head dim of the split-TF32 kernels (padded to 256)
 TF32X3_MAX_HEAD_DIM = 256
 #: shared memory a block may use on the H100 (sm_90): 227 KiB
 SMEM_PER_BLOCK = 232448
@@ -85,8 +87,8 @@ GENERAL_ROWS = (64, 32, 16, 8)
 #: launches of each CUDA kernel since the last reset (the plain versions
 #: on CPU tensors do not count): K1, the dQ kernel, the dK/dV kernel (any
 #: route), and of those each family's (:data:`FAMILY_SUFFIX`): the bf16
-#: tensor-core, the f32 CUDA-core and the head-dim-general K1, dQ and
-#: dK/dV kernels, and the split-TF32 K1
+#: tensor-core, the f32 CUDA-core, the f32 split-TF32 and the
+#: head-dim-general K1, dQ and dK/dV kernels
 LAUNCHES = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_BWD_DKV = 0
@@ -97,6 +99,8 @@ LAUNCHES_CUDA_CORE = 0
 LAUNCHES_BWD_DQ_CUDA_CORE = 0
 LAUNCHES_BWD_DKV_CUDA_CORE = 0
 LAUNCHES_TF32X3 = 0
+LAUNCHES_BWD_DQ_TF32X3 = 0
+LAUNCHES_BWD_DKV_TF32X3 = 0
 LAUNCHES_GENERAL = 0
 LAUNCHES_BWD_DQ_GENERAL = 0
 LAUNCHES_BWD_DKV_GENERAL = 0
@@ -104,7 +108,7 @@ LAUNCHES_BWD_DKV_GENERAL = 0
 FAMILY_SUFFIX = {"wgmma": "_TC", "cuda-core": "_CUDA_CORE",
                  "tf32x3": "_TF32X3", "general": "_GENERAL"}
 _KERNEL = {"fwd": "", "dq": "_BWD_DQ", "dkv": "_BWD_DKV"}
-#: every counter (the split-TF32 family has K1 only)
+#: every counter
 COUNTERS = tuple(n for n in globals() if n.startswith("LAUNCHES"))
 
 #: bytes of one cp.async copy of the tensor-core kernels
@@ -231,11 +235,11 @@ def route(d: int, dtype, kernel: str) -> str:
     """The kernel family head dim ``d`` runs in ``dtype`` for ``kernel``
     ("fwd", "dq" or "dkv"): ``"wgmma"`` (bf16, a multiple of 8 up to
     ``TC_MAX_HEAD_DIM``), ``"cuda-core"`` (f32, D <= 128), ``"tf32x3"``
-    (f32 K1, D 129..256) or ``"general"`` (every other D)."""
+    (f32, D 129..256) or ``"general"`` (every other D)."""
     if dtype == torch.float32:
         if d <= FAST_MAX_HEAD_DIM:
             return "cuda-core"
-        if kernel == "fwd" and d <= TF32X3_MAX_HEAD_DIM:
+        if d <= TF32X3_MAX_HEAD_DIM:
             return "tf32x3"
         return "general"
     if d % 8 == 0 and d <= TC_MAX_HEAD_DIM:

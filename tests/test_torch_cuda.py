@@ -122,11 +122,11 @@ FLASH_GRID = [(64, True), (200, True), (1000, True), (256, False),
 # the instantiated widths and head dims padded to them inside the kernels
 HEAD_DIMS = [8, 16, 24, 32, 64, 80, 120, 128]
 # head dims past 128: bf16 K1, dQ and dK/dV on the tensor cores padded to
-# 256 (136, 160, 200, 256), f32 K1 in split TF32 padded to 256 (130: rows
-# of whole elements, not 16-byte chunks; 136-256) and the f32 backward on
-# the general CUDA-core kernels at 64, 32 and 16 tile rows; every kernel
-# general at 320 and for bf16 rows that are not whole 16-byte chunks (12,
-# 130; f32 runs its CUDA-core kernel at 12)
+# 256 (136, 160, 200, 256), f32 K1, dQ and dK/dV in split TF32 padded to
+# 256 (130: rows of whole elements, not 16-byte chunks; 136-256); every
+# kernel general at 320 (64, 32 and 16 tile rows) and for bf16 rows that
+# are not whole 16-byte chunks (12, 130; f32 runs its CUDA-core kernel at
+# 12)
 GENERAL_HEAD_DIMS = [12, 130, 136, 160, 200, 256, 320]
 
 
@@ -211,6 +211,32 @@ def test_flash_tf32x3_fwd_matches_plain_over_many_waves(gen):
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
 
 
+def test_flash_tf32x3_bwd_matches_plain_over_many_waves(gen):
+    """f32 dQ and dK/dV in split TF32 (192 and 196.5 KiB, one block an
+    SM) on grids of 1024 query or key tiles, several waves of the SMs,
+    causal, T 1000 (a ragged last tile), D 200, against the plain backward
+    at the f32 bar; counted as split-TF32 launches; a second launch
+    repeats the first bit for bit."""
+    b, h, t, d = 8, 4, 1000, 200
+    scale = d ** -0.5
+    q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda")
+                   for _ in range(4))
+    o, lse = fa.mha_reference_lse(q, k, v, causal=True)
+    delta = (do * o).sum(-1).contiguous()
+    ref = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale,
+                                           True)
+    before = (fa.LAUNCHES_BWD_DQ_TF32X3, fa.LAUNCHES_BWD_DKV_TF32X3)
+    runs = [(fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale, True),
+             *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                         True)) for _ in range(2)]
+    assert (fa.LAUNCHES_BWD_DQ_TF32X3, fa.LAUNCHES_BWD_DKV_TF32X3) == \
+        (before[0] + 2, before[1] + 2)
+    torch.cuda.synchronize()
+    for got, again, want in zip(*runs, ref):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+        assert torch.equal(got, again)
+
+
 def test_flash_misaligned_bf16_views_raise_before_launch(gen):
     """A bf16 view that starts off a 16-byte boundary (or has a time
     stride of an odd number of elements) raises in K1, in dQ and in
@@ -262,7 +288,8 @@ def _close(got, ref, dtype):
 def test_flash_bwd_kernels_match_plain(gen, dtype, t, causal, d):
     """dQ and dK/dV (on the tensor cores in bf16 up to 256, each on two
     warpgroups that split the columns past 128; f32 on the CUDA-core
-    kernels up to 128; the general kernels past them) against the plain
+    kernels up to 128 and in split TF32 at 129-256; the general kernels
+    past them) against the plain
     backward on the same inputs, in the (B, H, T, D) layout and through
     strided (B, T, H, D) views of one qkv buffer (the transformer's
     layout); a second launch of each repeats the first bit for bit; the
@@ -381,8 +408,8 @@ def test_head_dim_256_lm_train_step_matches_plain_path(gen, dtype):
     """An LM with head dim 256 (d_model 512, 2 heads) at T 1024, which
     raised on the card before the general kernels: one train step's loss
     and grads on the flash kernels (bf16: K1, dQ and dK/dV on the tensor
-    cores padded to 256; f32: K1 in split TF32, dQ and dK/dV on the
-    general CUDA-core kernels) agree with the plain path's (plain
+    cores padded to 256; f32: K1, dQ and dK/dV in split TF32 on the
+    tensor cores) agree with the plain path's (plain
     attention, f32 scores) from the same params: loss within 2e-2 nats,
     grads relative L2 <= 2e-2 per leaf (chip_smoke.py phase 6's
     bars)."""
@@ -416,10 +443,10 @@ def test_head_dim_256_lm_train_step_matches_plain_path(gen, dtype):
             tc = int(dtype == torch.bfloat16)
             assert (fa.LAUNCHES_TC, fa.LAUNCHES_BWD_DQ_TC,
                     fa.LAUNCHES_BWD_DKV_TC) == (2 * tc, 2 * tc, 2 * tc)
-            assert fa.LAUNCHES_TF32X3 == 2 * (1 - tc)
+            assert (fa.LAUNCHES_TF32X3, fa.LAUNCHES_BWD_DQ_TF32X3,
+                    fa.LAUNCHES_BWD_DKV_TF32X3) == (2 * (1 - tc),) * 3
             assert (fa.LAUNCHES_GENERAL, fa.LAUNCHES_BWD_DQ_GENERAL,
-                    fa.LAUNCHES_BWD_DKV_GENERAL) == \
-                (0, 2 * (1 - tc), 2 * (1 - tc))
+                    fa.LAUNCHES_BWD_DKV_GENERAL) == (0, 0, 0)
         losses[name] = loss.item()
         grads[name] = [p.grad.float() for p in leaves]
     assert abs(losses["kernel"] - losses["plain"]) <= 2e-2

@@ -498,15 +498,15 @@ _TC, _GN, _CC, _TF = "wgmma", "general", "cuda-core", "tf32x3"
     (264, torch.bfloat16, (_GN, _GN, _GN)),
     (12, torch.float32, (_CC, _CC, _CC)),
     (128, torch.float32, (_CC, _CC, _CC)),
-    (129, torch.float32, (_TF, _GN, _GN)),
-    (160, torch.float32, (_TF, _GN, _GN)),
-    (256, torch.float32, (_TF, _GN, _GN)),
+    (129, torch.float32, (_TF, _TF, _TF)),
+    (160, torch.float32, (_TF, _TF, _TF)),
+    (256, torch.float32, (_TF, _TF, _TF)),
     (257, torch.float32, (_GN, _GN, _GN)),
     (320, torch.float32, (_GN, _GN, _GN))])
 def test_flash_route_by_head_dim_and_dtype(d, dtype, kinds):
     """Which kernel family a (D, dtype) runs in K1, dQ and dK/dV: bf16
-    on the tensor cores up to 256 (multiples of 8); f32 K1 in split TF32
-    at 129..256; only the bf16 tensor-core route checks 16-byte
+    on the tensor cores up to 256 (multiples of 8); f32 K1, dQ and dK/dV
+    in split TF32 at 129..256; only the bf16 tensor-core route checks 16-byte
     alignment, so a general bf16 D and every f32 D take any strides, in
     each of the three wrappers."""
     assert tuple(tfa.route(d, dtype, kn) for kn in ("fwd", "dq", "dkv")) \
@@ -576,6 +576,8 @@ def _csrc_smem(struct, **params):
     ("DkvSplitCfg", {}, 226),
     ("DqSplitCfg", {}, 225),
     ("Tf32FwdCfg", {}, 201),
+    ("Tf32DqCfg", {}, 192),
+    ("Tf32DkvCfg", {}, 196.5),
     ("DkvCfg", {"D": 128}, 98),
     ("DqCfg", {"D": 128}, 97),
     ("FwdCfg", {"D": 64, "BK": 128}, 73),
@@ -587,7 +589,10 @@ def test_tensor_core_configs_fit_shared_memory(struct, params, kib):
     (K, V, two stages of Q and dO, its 32 KiB exchange, the lse and delta
     rows), the two-warpgroup dQ 225 KiB (Q, dO, two stages of K and V,
     the exchange), the f32 split-TF32 K1 201 KiB (Q, two stages of K and
-    V at 32-key steps, rows padded by 16 and 4 floats); each fits in the
+    V at 32-key steps, rows padded by 16 and 4 floats), the split-TF32 dQ
+    192 KiB (Q and dO of 32 rows, two stages of K and V at 32-key steps)
+    and dK/dV 196.5 KiB (K and V of 32 keys, two stages of Q and dO of
+    32 rows, the lse and delta rows, the pairs' Pᵀ); each fits in the
     227 KiB a block may use."""
     smem = _csrc_smem(struct, **params)
     assert smem == kib * 1024
@@ -911,6 +916,259 @@ def test_tf32x3_forward_meets_the_f32_bars(d, causal):
     assert (o1 - ref).abs().max().item() > 1e-4
 
 
+def _tf32x3_bwd_emulation(q, k, v, do, lse, delta, scale, causal,
+                          passes=3):
+    """``flash_bwd_dq_tf32x3_kernel``'s and ``flash_bwd_dkv_tf32x3_kernel``'s
+    schedules in torch on f32 (B, H, T, D), D <= 256, columns zero-padded
+    to 256; every product in split TF32 (P and dS split too). dQ: per
+    32-query tile and 32-key step (up to the diagonal when causal), one
+    partial per 8 keys of each step: S = Q·Kᵀ, dP = dO·Vᵀ, P = exp2(S·scale
+    ·log2 e − lse·log2 e) masked, dS = P∘(dP − delta)·scale, partial +=
+    dS·K; the four summed 0 + 1 + 2 + 3. dK/dV: per 32-key tile and
+    32-query step (from the diagonal down when causal), one partial of each
+    output per 16 queries of each step: Sᵀ = K·Qᵀ, Pᵀ masked, dV += Pᵀ·dO;
+    dPᵀ = V·dOᵀ, dSᵀ = Pᵀ∘(dPᵀ − delta)·scale, dK += dSᵀ·Q; the two summed
+    0 + 1. Returns dq, dk, dv."""
+    b, h, t, d = q.shape
+    qf, kf, vf, dof = (torch.nn.functional.pad(x, (0, 256 - d))
+                       for x in (q, k, v, do))
+    log2e = math.log2(math.e)
+    sl2, l2 = scale * log2e, lse * log2e
+    zero = torch.zeros(())
+
+    def mm(a, b_):
+        return _mm_tf32(a, b_, passes)
+
+    dq = torch.zeros((b, h, t, 256))
+    for q0 in range(0, t, 32):
+        qs = slice(q0, min(q0 + 32, t))
+        rows = torch.arange(q0, qs.stop)
+        parts = [torch.zeros((b, h, qs.stop - q0, 256)) for _ in range(4)]
+        for k0 in range(0, min(t, q0 + 32) if causal else t, 32):
+            for part in range(4):
+                ks = slice(k0 + 8 * part, min(k0 + 8 * part + 8, t))
+                if ks.start >= t:       # zero-filled keys, masked
+                    continue
+                keys = torch.arange(ks.start, ks.stop)
+                kt = kf[..., ks, :]
+                s = mm(qf[..., qs, :], kt.transpose(-1, -2))
+                dp = mm(dof[..., qs, :], vf[..., ks, :].transpose(-1, -2))
+                p = torch.exp2(s * sl2 - l2[..., qs, None])
+                if causal:
+                    p = torch.where(keys[None, :] <= rows[:, None], p, zero)
+                ds = p * (dp - delta[..., qs, None]) * scale
+                parts[part] += mm(ds, kt)
+        dq[..., qs, :] = ((parts[0] + parts[1]) + parts[2]) + parts[3]
+
+    dk = torch.zeros((b, h, t, 256))
+    dv = torch.zeros((b, h, t, 256))
+    for k0 in range(0, t, 32):
+        ks = slice(k0, min(k0 + 32, t))
+        keys = torch.arange(k0, ks.stop)
+        kt, vt = kf[..., ks, :], vf[..., ks, :]
+        pk = [torch.zeros((b, h, ks.stop - k0, 256)) for _ in range(2)]
+        pv = [torch.zeros((b, h, ks.stop - k0, 256)) for _ in range(2)]
+        for i0 in range(k0 if causal else 0, t, 32):
+            for half in (0, 1):
+                qs = slice(i0 + 16 * half, min(i0 + 16 * half + 16, t))
+                if qs.start >= t:       # zero-filled queries, masked
+                    continue
+                rows = torch.arange(qs.start, qs.stop)
+                qt, dot = qf[..., qs, :], dof[..., qs, :]
+                p = torch.exp2(mm(kt, qt.transpose(-1, -2)) * sl2
+                               - l2[..., None, qs])
+                if causal:
+                    p = torch.where(rows[None, :] >= keys[:, None], p, zero)
+                pv[half] += mm(p, dot)
+                dpt = mm(vt, dot.transpose(-1, -2))
+                pk[half] += mm(p * (dpt - delta[..., None, qs]) * scale, qt)
+        dk[..., ks, :] = pk[0] + pk[1]
+        dv[..., ks, :] = pv[0] + pv[1]
+    return dq[..., :d], dk[..., :d], dv[..., :d]
+
+
+def _bwd_case(d, causal, seed=14, b=1, h=2, t=200):
+    """Seeded f32 (B, H, T, D) q, k, v, dO as numpy, and the plain
+    forward's lse and delta = rowsum(dO·O) on them."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((b, h, t, d)).astype(np.float32)
+              for _ in range(4)]
+    q, k, v, do = (_t(a) for a in arrays)
+    o, lse = tfa.mha_reference_lse(q, k, v, causal=causal)
+    return arrays, (q, k, v, do), lse, (do * o).sum(-1)
+
+
+@pytest.mark.parametrize("d", [130, 160, 200, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tf32x3_backward_meets_the_f32_bars(d, causal):
+    """The split-TF32 f32 dQ and dK/dV, emulated on their own schedules
+    (32-query tiles with four 8-key partials a step; 32-key tiles with two
+    16-query partials a step; fixed-order sums), at T 200 (a ragged last
+    tile) and D 130, 160, 200 (zero-padded to 256) and 256: dq, dk and dv
+    within the f32 atol 1e-4 of ``flash_attention_bwd_reference`` and of
+    jax.vjp through the JAX package's Pallas backward kernels (interpret
+    mode, 40-row blocks)."""
+    arrays, (q, k, v, do), lse, delta = _bwd_case(d, causal)
+    scale = d ** -0.5
+    got = _tf32x3_bwd_emulation(q, k, v, do, lse, delta, scale, causal)
+    plain = tfa.flash_attention_bwd_reference(q, k, v, do, lse, delta,
+                                              scale, causal)
+    pallas = _jax_vjp(jfa.flash_attention, arrays[:3],
+                      jnp.asarray(arrays[3]), causal=causal, block_q=40,
+                      block_k=40, interpret=True)
+    for g, p, j in zip(got, plain, pallas):
+        assert g.shape == p.shape
+        assert (g - p).abs().max().item() <= 1e-4
+        np.testing.assert_allclose(g.numpy(), j, rtol=0, atol=1e-4)
+
+
+def test_one_tf32_product_misses_the_backward_bar():
+    """One TF32 product instead of three (P and dS rounded to one TF32)
+    misses the f32 atol 1e-4 at D 256: the backward needs the split."""
+    _, (q, k, v, do), lse, delta = _bwd_case(256, True)
+    scale = 256 ** -0.5
+    plain = tfa.flash_attention_bwd_reference(q, k, v, do, lse, delta,
+                                              scale, True)
+    one = _tf32x3_bwd_emulation(q, k, v, do, lse, delta, scale, True,
+                                passes=1)
+    assert max((g - p).abs().max().item() for g, p in zip(one, plain)) \
+        > 1e-4
+
+
+# The backward's swizzled tiles (csrc/flash_tf32.cuh swz, and ld4 in
+# csrc/flash_attention_bwd.cu): chunk c of row r at chunk c ^ swz(r) of a
+# row of 256 floats.
+
+def _swz(r):
+    return (r & 6) ^ ((r & 1) << 2)
+
+
+def _ld4(r, c):
+    """Float offsets (physical) of the float4 ``ld4(tile, r, c)`` reads."""
+    return [r * 256 + 4 * (c ^ _swz(r)) + i for i in range(4)]
+
+
+def _phys_to_logical(off):
+    r, x = divmod(off, 256)
+    return r, 4 * ((x // 4) ^ _swz(r)) + x % 4
+
+
+def _lanes():
+    return [(lane, lane >> 2, lane & 3) for lane in range(32)]
+
+
+def _mma_m16n8k8(a_regs, b_regs):
+    """The hardware's m16n8k8: lane (g, t) holds A (g, t), (g + 8, t),
+    (g, t + 4), (g + 8, t + 4) and B (k t, n g), (k t + 4, n g); returns
+    each lane's (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1) of
+    A·B."""
+    a = np.zeros((16, 8))
+    b = np.zeros((8, 8))
+    for lane, g, t in _lanes():
+        a[g, t], a[g + 8, t], a[g, t + 4], a[g + 8, t + 4] = a_regs[lane]
+        b[t, g], b[t + 4, g] = b_regs[lane]
+    d = a @ b
+    return [(d[g, 2 * t], d[g, 2 * t + 1], d[g + 8, 2 * t],
+             d[g + 8, 2 * t + 1]) for _, g, t in _lanes()]
+
+
+def _quarter_conflicts(reads):
+    """Bank conflicts of a warp's float4 reads (lane -> float offsets): the
+    extra wavefronts over one a quarter-warp (8 lanes, 16 bytes each, on 8
+    distinct 16-byte bank groups when conflict-free)."""
+    extra = 0
+    for j in range(4):
+        groups = [(reads[lane][0] // 4) % 8 for lane in range(8 * j, 8 * j + 8)]
+        extra += max(groups.count(x) for x in set(groups)) - 1
+    return extra
+
+
+def test_tf32x3_bwd_fragments_read_what_the_products_need():
+    """The split-TF32 backward's fragment reads, lane by lane, from the
+    swizzled tiles through the hardware's m16n8k8 fragment layout: over the
+    head dim (a_frags on rows r, r + 8 and mma_dims on row r of B, the
+    permuted k indices 4t, 4t+1 | 4t+2, 4t+3 of each 16 dims) every lane's
+    accumulators are S = A·Bᵀ at (g, 2t), (g, 2t + 1), (g + 8, ..); over a
+    tile's rows (mma_rows: S's accumulators as A fragments, B's rows 2t and
+    2t + 1 at columns 32 c + 4 g + u) they are X·B at the permuted columns
+    32 c + 8 t + u and 32 c + 8 t + 4 + u that store_sum writes. Every
+    float4 read of either pattern meets all 8 bank groups in each
+    quarter-warp; a padded row of D + 16 floats (K1's Q and K) would leave
+    3 extra wavefronts a quarter-warp on the second, D + 4 (K1's V) 1 on
+    the first."""
+    rng = np.random.default_rng(15)
+    a = rng.integers(-4, 5, (32, 256)).astype(np.float64)
+    bt = rng.integers(-4, 5, (32, 256)).astype(np.float64)
+    # the tiles as the loader lays them out: logical (r, col) at its
+    # swizzled offset
+    phys_a, phys_b = np.zeros(32 * 256), np.zeros(32 * 256)
+    for r in range(32):
+        for col in range(256):
+            off = _ld4(r, col // 4)[col % 4]
+            assert _phys_to_logical(off) == (r, col)
+            phys_a[off], phys_b[off] = a[r, col], bt[r, col]
+
+    # S = A·Bᵀ over the head dim: A rows ra, ra + 8; B rows rb .. rb + 7
+    for ra, rb in ((0, 8), (16, 24), (16, 0)):
+        acc = [(0.0,) * 4] * 32
+        for kp in range(16):
+            a_regs = [[], []]
+            b_regs = [[], []]
+            reads = {"a": {}, "a8": {}, "b": {}}
+            for lane, g, t in _lanes():
+                x = _ld4(ra + g, 4 * kp + t)
+                y = _ld4(ra + g + 8, 4 * kp + t)
+                z = _ld4(rb + g, 4 * kp + t)
+                reads["a"][lane], reads["a8"][lane], reads["b"][lane] = \
+                    x, y, z
+                xa, ya, zb = phys_a[x], phys_a[y], phys_b[z]
+                a_regs[0].append((xa[0], ya[0], xa[1], ya[1]))
+                a_regs[1].append((xa[2], ya[2], xa[3], ya[3]))
+                b_regs[0].append((zb[0], zb[1]))
+                b_regs[1].append((zb[2], zb[3]))
+            assert all(_quarter_conflicts(r) == 0 for r in reads.values())
+            for s in (0, 1):
+                d = _mma_m16n8k8(a_regs[s], b_regs[s])
+                acc = [tuple(p + q for p, q in zip(u, w))
+                       for u, w in zip(acc, d)]
+        want = a[ra:ra + 16] @ bt[rb:rb + 8].T
+        for lane, g, t in _lanes():
+            assert acc[lane] == (want[g, 2 * t], want[g, 2 * t + 1],
+                                 want[g + 8, 2 * t], want[g + 8, 2 * t + 1])
+
+    # acc (16 x 256) += X·B over B's rows r0 .. r0 + 7, X an accumulator
+    x = rng.integers(-4, 5, (16, 8)).astype(np.float64)
+    for r0 in (0, 8, 24):
+        out = np.zeros((16, 256))
+        xa = [(x[g, 2 * t], x[g + 8, 2 * t], x[g, 2 * t + 1],
+               x[g + 8, 2 * t + 1]) for _, g, t in _lanes()]
+        for c in range(8):
+            reads0 = {lane: _ld4(r0 + 2 * t, 8 * c + g)
+                      for lane, g, t in _lanes()}
+            reads1 = {lane: _ld4(r0 + 2 * t + 1, 8 * c + g)
+                      for lane, g, t in _lanes()}
+            assert _quarter_conflicts(reads0) == 0
+            assert _quarter_conflicts(reads1) == 0
+            for u in range(4):
+                b_regs = [(phys_b[reads0[lane][u]], phys_b[reads1[lane][u]])
+                          for lane in range(32)]
+                d = _mma_m16n8k8(xa, b_regs)
+                for lane, g, t in _lanes():
+                    for i in range(4):
+                        col = 32 * c + 8 * t + 4 * (i & 1) + u
+                        out[g + 8 * (i >> 1), col] = d[lane][i]
+        np.testing.assert_array_equal(out, x @ bt[r0:r0 + 8])
+
+    def padded(ld, rows_of, chunk_of):
+        return _quarter_conflicts({lane: [rows_of(g, t) * ld
+                                          + 4 * chunk_of(g, t)]
+                                   for lane, g, t in _lanes()})
+    assert padded(272, lambda g, t: g, lambda g, t: t) == 0
+    assert padded(272, lambda g, t: 2 * t, lambda g, t: g) == 12
+    assert padded(260, lambda g, t: g, lambda g, t: t) == 4
+    assert padded(260, lambda g, t: 2 * t, lambda g, t: g) == 0
+
+
 # --------------------------------------------- K2 split-K plan (CPU side)
 
 # chip_smoke.py phase 2's slots: (cursor, case), 8 slots, page_len 16,
@@ -1120,9 +1378,11 @@ def test_build_target_covers_included_headers(monkeypatch, tmp_path):
     never served from a stale build; a header it does not include does
     not move the name."""
     assert [p.name for p in _build._sources("flash_attention_fwd")] == \
-        ["flash_attention_fwd.cu", "flash_general.cuh", "flash_mma.cuh"]
+        ["flash_attention_fwd.cu", "flash_general.cuh", "flash_mma.cuh",
+         "flash_tf32.cuh"]
     assert [p.name for p in _build._sources("flash_attention_bwd")] == \
-        ["flash_attention_bwd.cu", "flash_general.cuh", "flash_mma.cuh"]
+        ["flash_attention_bwd.cu", "flash_general.cuh", "flash_mma.cuh",
+         "flash_tf32.cuh"]
     src = _fake_sources(tmp_path, monkeypatch)
     assert [p.name for p in _build._sources("k")] == \
         ["k.cu", "a.cuh", "b.cuh"]

@@ -392,8 +392,8 @@ def test_head_dim_80_lm_matches_jax_flash(jax_flash, monkeypatch):
 def test_wide_head_dim_lm_matches_jax_flash(jax_flash, monkeypatch,
                                             head_dim):
     """Head dims 160, 200 and 256 (d_model 320, 400 and 512), which the
-    card runs in bf16 with K1 and dK/dV on the tensor cores padded to
-    256 and dQ on the general CUDA-core kernel, and in f32 on the general
-    kernels (see _head_dim_lm_parity)."""
+    card runs with K1, dQ and dK/dV padded to 256 on the tensor cores: in
+    bf16 as bf16 products (dQ and dK/dV on two warpgroups), in f32 as
+    split-TF32 products (see _head_dim_lm_parity)."""
     _head_dim_lm_parity(monkeypatch, head_dim, d_model=2 * head_dim,
                         d_ff=128)
