@@ -6,10 +6,13 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
     python3 chip_smoke.py --profile        # also profile paged decode
-    python3 chip_smoke.py --profile-train  # also profile one train step of
-                                           # the 120M LM and the D 256 LM
-    python3 chip_smoke.py --profile-resnet # also profile one ResNet-50 step
-    python3 chip_smoke.py --profile-charnn # also profile one char-RNN step
+    python3 chip_smoke.py --profile-train  # also print the top kernels of a
+                                           # replayed step of the 120M LM
+                                           # and the D 256 LM
+    python3 chip_smoke.py --profile-resnet # also profile one eager ResNet-50
+                                           # step (K3 by kernel)
+    python3 chip_smoke.py --profile-charnn # also profile one eager char-RNN
+                                           # step
     python3 chip_smoke.py --k3-times ROOT  # only time the K3 reductions of
                                            # the port checked out at ROOT
     python3 chip_smoke.py --flash-times ROOT  # only time K1, dQ and dK/dV at
@@ -68,17 +71,28 @@ Phases, each fatal on failure:
 6. the training path at full width: the 120M LM of ``bench.py``'s
    ``transformer`` row (T 1024, bf16, fused loss, remat "save_attn"),
    batch 32 of seeded random ids, trained by ``make_train_step`` with
-   AdamW (optax's defaults) on the kernel path (flash forward and
-   backward kernels) and on the plain path (plain attention, f32
-   scores) from identical params: step-1 grads within relative L2
-   2e-2 per leaf, loss within 2e-2 nats at each of 5 steps and falling;
-   the launch counts are set to 0 just before the kernel path, and every
-   step must launch K1 16 times and dQ and dK/dV 8 times each, every
-   launch on the tensor-core kernels; then the same LM at head dim 256
-   (2 heads, 2 layers, batch 8) for one step, K1 (4 launches), dQ (2) and
-   dK/dV (2) on the tensor cores padded to 256, and once more in f32, K1,
-   dQ and dK/dV in split TF32 on the tensor cores, each held to the same
-   bars (each its own path: counts set to 0 just before it);
+   AdamW (optax's defaults, ``capturable=True``, fused: ``LM_ADAMW``)
+   from identical params three ways: the kernel path (flash forward and
+   backward kernels) with its steps replayed from a CUDA graph — the main
+   path: step 1 eager, step 2 captured and replayed, steps 3-5 replayed —,
+   the kernel path eager (``disable_graphs()``), and the plain path
+   (plain attention, f32 scores; eager); and once more replayed with the
+   ``foreach`` form of AdamW beside the fused one: step-1 grads within
+   relative L2 2e-2 per leaf, every kernel way's loss within 2e-2 nats
+   of the plain path's at each of 5 steps and falling; whether the
+   replayed and the eager trajectories are bit-identical (the first
+   differing leaf if not); wall ms a step (the median over the replays,
+   or over steps 2-5 eager), device ms of one profiled step, busy share,
+   tokens/s and peak memory of each way; the launch counts are set to 0
+   just before the main path, and every step must launch K1 16 times and
+   dQ and dK/dV 8 times each, every launch on the tensor-core kernels (a
+   replay counts the launches its capture recorded: the wrappers do not
+   run in a replay); then the same LM at head dim 256 (2 heads, 2
+   layers, batch 8) for three steps (eager, capture, replay), K1 (4
+   launches), dQ (2) and dK/dV (2) on the tensor cores padded to 256,
+   and once more in f32, K1, dQ and dK/dV in split TF32 on the tensor
+   cores, each held to the same bars (each its own path: counts set to
+   0 just before it);
 7. the fused BatchNorm+activation kernels (K3: normalize+act, stats,
    backward reduce, backward dx) against their plain versions at all
    nine (N, C) shapes a ResNet-50 BN gives them at batch 128, relu and
@@ -94,14 +108,21 @@ Phases, each fatal on failure:
    compute_dtype=bf16, updater=Momentum(0.1, 0.9))`` (``bench.py``'s
    ``resnet50`` row) trained through ``ComputationGraph.fit`` for 5 steps
    on one seeded batch of 128 224x224x3 inputs, every BN ``fused=True``
-   (the kernel path) and ``fused=False`` (the plain path) from identical
-   params: step-1 loss and running stats held to the plain path, the loss
-   falling, each K3 kernel launched 53 times a step; one f32 step of each
-   path for the step-1 grads; then ``output()`` with the zoo's
+   (the kernel path, its steps replayed from a CUDA graph; and eager) and
+   ``fused=False`` (the plain path, eager) from identical params: step-1
+   loss and running stats held to the plain path, the loss falling, each
+   K3 kernel launched 53 times a step (a replay at its capture's count),
+   replayed against eager bit for bit (printed), wall and device ms,
+   busy share, samples/s, peak memory of both kernel ways; one f32 step
+   of each path for the step-1 grads; then ``output()`` with the zoo's
    ``fused="auto"``: 33 normalize launches and per-row KL <= 1e-3 against
-   the plain BNs; every (dtype, N, C, activation) K3 ran at must be one
-   that phase 7 held; ``--profile-resnet`` profiles one step: K3's device
-   time and launches by kernel (one a stats and a reduce call) and the
+   the plain BNs; then ``fit_scanned`` (``bench.py``'s
+   ``resnet50_fitscan`` row) from the same init over 4 copies of the
+   batch, 2 epochs (the second timed: 4 replays) and a profiled third:
+   step 1 within 2e-2 nats of ``fit``'s, the loss falling; every (dtype,
+   N, C, activation) K3 ran at must be one that phase 7 held;
+   ``--profile-resnet`` profiles one eager step: K3's device time and
+   launches by kernel (one a stats and a reduce call) and the
    device-busy share;
 9. the fused whole-sequence LSTM kernel (K4) against its plain version:
    the char-RNN's shape (B 256, T 60, H 256) in bf16 and f32 with
@@ -114,16 +135,23 @@ Phases, each fatal on failure:
    input_shape=(60, 77), units=256, compute_dtype=bf16)`` (``bench.py``'s
    ``charnn`` row, batch 256 of seeded one-hot inputs and labels) trained
    through ``MultiLayerNetwork.fit`` for 5 steps with both GravesLSTMs
-   ``fused=True`` (the kernel path) and ``fused=False`` (the scan) from
-   identical params: K4 launched 2 times in every step and 2 times in
-   ``output()`` (counts set to 0 just before the kernel path), step-1 loss
-   within 2e-2 nats of the plain path, one f32 step of each for the grads
-   (relative L2 per leaf <= 1e-3), the loss falling, ``output()`` logits
-   KL <= 1e-3 per row against the scan; every (dtype, B, H) K4 ran at must
-   be one that phase 9 held;
+   ``fused=True`` (the kernel path, replayed from a CUDA graph and eager)
+   and ``fused=False`` (the scan, eager) from identical params: K4
+   launched 2 times in every step (a replay at its capture's count) and
+   2 times in ``output()`` (counts set to 0 just before the kernel path),
+   step-1 loss within 2e-2 nats of the plain path, one f32 step of each
+   for the grads (relative L2 per leaf <= 1e-3), the loss falling,
+   ``output()`` logits KL <= 1e-3 per row against the scan; replayed
+   against eager bit for bit (printed), wall and device ms, busy share,
+   samples/s and peak memory of both kernel ways; every (dtype, B, H) K4
+   ran at must be one that phase 9 held;
 11. LeNet at batch 512 bf16 (``bench.py``'s ``lenet`` row) through
-   ``MultiLayerNetwork.fit``, 5 steps on seeded 28x28x1 inputs: the loss
-   falls, ``output()`` rows are finite and sum to 1;
+   ``MultiLayerNetwork.fit``, 5 steps on seeded 28x28x1 inputs, replayed
+   from a CUDA graph and eager from one init: the loss falls, the steps
+   replay, ``output()`` rows are finite and sum to 1; then
+   ``fit_scanned`` (``bench.py``'s ``lenet_scan`` row) over 8 copies of
+   the batch, 2 epochs and a profiled third, step 1 within 2e-2 nats of
+   ``fit``'s;
 5. a ``kernels`` JSON line (every hand-written kernel: its route,
    launches on each main path, largest error, times and bound at its
    path shape), then the result line (printed last).
@@ -186,6 +214,17 @@ TF32_BWD_SHAPES = tuple((torch.float32, 2, 200, c, d)
 D256_LM = (torch.bfloat16, 8, 1024, 256)
 D256_LM_F32 = (torch.float32, 8, 1024, 256)
 D256_LM_HEADS = 2
+# the phase 3/3b shapes whose times the kernels line and PERF.md's kernel
+# table report (every other shape is held, not timed): a dense prefill's
+# and the train path's, padded 256 and split TF32 at B1 H8 T1024 D256,
+# the f32 CUDA-core kernels at T2048 D64, the general ones at D 320 (the
+# D 256 LM's B8 H2 shapes are always timed)
+TIMED_K1 = {(torch.bfloat16, 1, 2048, 64), (torch.bfloat16, 32, 1024, 64),
+            (torch.bfloat16, 1, 1024, 256), (torch.float32, 1, 1024, 256),
+            (torch.float32, 1, 2048, 64), (torch.float32, 1, 1024, 320),
+            (torch.bfloat16, 1, 1024, 320)}
+TIMED_BWD = {(dt, b, t, True, d) for dt, b, t, d in TIMED_K1 - {
+    (torch.bfloat16, 1, 2048, 64)}}
 RESNET_BATCH = 128
 RESNET_HW = 224
 # every (H = W, C) a BN of ResNet-50 at 224x224 hands K3 (N = batch*H*W):
@@ -225,6 +264,12 @@ CHARNN_LOSS_ATOL = 2e-2                  # bf16 step-1 loss, nats
 CHARNN_F32_LOSS_ATOL = 1e-4              # f32 step-1 loss, nats
 CHARNN_GRAD_REL_L2 = 1e-3                # f32 step-1 grads, per leaf
 LENET_BATCH = 512
+# the LM's optimizer: AdamW with optax's defaults, capturable (its step
+# count on the card) for the graph; fused=True, one multi-tensor kernel:
+# on the 120M step 98.67 against 100.02 ms of device time for the
+# foreach form, both inside every bar (phase 6, PR 11's first run)
+LM_ADAMW = {"fused": True}
+LENET_LOSS_ATOL = 2e-2                   # bf16 step-1 loss, fit_scanned
 
 
 def log(*a):
@@ -424,12 +469,12 @@ def route_state(fa, before, part, d, dtype):
     return ok, f"{kind} kernel {'ran' if ok else 'MISSED'}"
 
 
-def check_flash(fa, dtype, b, t, gen, h=8, d=64):
+def check_flash(fa, dtype, b, t, gen, h=8, d=64, time_it=True):
     """K1 vs mha_reference (O and lse), causal, (B, H, T, D); the same
     inputs through the strided (B, T, H, D) entry point; a second launch
     bit for bit equal to the first; the kernel family of ``fa.route``
     (bf16 tensor cores up to D 256, the general kernel past it) must run.
-    SDPA timed."""
+    With ``time_it``: kernel, plain and SDPA timed."""
     dev = "cuda"
     q, k, v = (torch.randn((b, h, t, d), generator=gen, device=dev)
                .to(dtype) for _ in range(3))
@@ -453,6 +498,18 @@ def check_flash(fa, dtype, b, t, gen, h=8, d=64):
     torch.cuda.synchronize()
     ok = (err <= ATOL[dtype] and ntc_err <= ATOL[dtype]
           and lse_err <= LSE_ATOL and repeats and tc_ok)
+    held = (f"K1 flash_attention_fwd {str(dtype)[6:]} B{b} H{h} T{t} D{d}: "
+            f"O err {err:.3e}, ntc err {ntc_err:.3e} (atol {ATOL[dtype]}), "
+            f"lse err {lse_err:.3e} (atol {LSE_ATOL}), second launch "
+            f"{'identical' if repeats else 'DIFFERS'}, {route}")
+    if not ok:
+        log(f"{held} -> FAIL")
+        raise SystemExit(f"K1 {dtype} B{b} T{t} disagrees with "
+                         "mha_reference, does not repeat or missed its "
+                         "kernel")
+    if not time_it:
+        log(f"{held} (not timed) -> ok")
+        return {"max_abs_err": max(err, ntc_err), "lse_err": lse_err}
     # device times (the profiler's); call_ms also counts the host's path
     # (autograd Function, ctypes), which outlasts a short kernel
     ms = device_ms(lambda: fa.flash_attention_lse(q, k, v, causal=True))
@@ -472,19 +529,11 @@ def check_flash(fa, dtype, b, t, gen, h=8, d=64):
         # the f32 CUDA-core bound stays beside it
         extra["ffma_bound_ms"] = bms
         bms, by = bound_ms(nbytes, TF32X3_PASSES * flops, "tf32")
-    log(f"K1 flash_attention_fwd {str(dtype)[6:]} B{b} H{h} T{t} D{d}: "
-        f"O err {err:.3e}, ntc err {ntc_err:.3e} (atol {ATOL[dtype]}), "
-        f"lse err {lse_err:.3e} (atol {LSE_ATOL}), second launch "
-        f"{'identical' if repeats else 'DIFFERS'}, {route}; device ms: "
-        f"kernel {ms:.4f} (a "
+    log(f"{held}; device ms: kernel {ms:.4f} (a "
         f"call with the host's path {call_ms:.4f}), plain {plain_ms:.4f}, "
         f"sdpa {library_ms:.4f} (a call {library_call_ms:.4f}), bound "
         f"{bms:.5f} ({by}){''.join(f', {k} {v:.5f}' for k, v in extra.items())}"
-        f" -> {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SystemExit(f"K1 {dtype} B{b} T{t} disagrees with "
-                         "mha_reference, does not repeat or missed its "
-                         "kernel")
+        " -> ok")
     return {"max_abs_err": max(err, ntc_err), "lse_err": lse_err, "ms": ms,
             "call_ms": call_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": bms, "bound_by": by,
@@ -521,11 +570,12 @@ def bwd_bounds(dtype, b, h, t, d, causal, peak=None):
     return dq, dkv
 
 
-def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64):
+def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64, time_it=True):
     """The dQ and dK/dV kernels vs ``flash_attention_bwd_reference`` on
     the same inputs, q/k/v strided (B, T, H, D) views of one qkv buffer
     as in the transformer; the Function (K1 + both kernels) vs autograd
-    through ``mha_reference``; kernel, plain and SDPA-backward times."""
+    through ``mha_reference``; with ``time_it``, kernel, plain and
+    SDPA-backward times."""
     dev = "cuda"
     scale = d ** -0.5
     qkv = torch.randn((b, t, 3 * h * d), generator=gen, device=dev).to(dtype)
@@ -575,6 +625,22 @@ def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64):
     fn_ok = grad_ok(g_fn, g_ref, dtype)
     fn_rel = rel_l2(g_fn, g_ref)
     del g_fn, g_ref, x, views
+    held = (f"flash bwd {str(dtype)[6:]} B{b} H{h} T{t} D{d} "
+            f"{'causal' if causal else 'non-causal'}: max_abs_err dq/dk/dv "
+            f"{err[0]:.3e}/{err[1]:.3e}/{err[2]:.3e}, rel L2 {rel[0]:.2e}/"
+            f"{rel[1]:.2e}/{rel[2]:.2e}, Function vs autograd rel L2 "
+            f"{fn_rel:.2e}, second launch "
+            f"{'identical' if repeats else 'DIFFERS'}, dQ and dK/dV: {route}"
+            f"{'' if tc_ok else ' (one MISSED)'}")
+    if not (ok and fn_ok):
+        log(f"{held} -> FAIL")
+        raise SystemExit(f"flash backward {dtype} B{b} T{t} causal={causal} "
+                         "disagrees with the plain backward, does not "
+                         "repeat or missed its kernel")
+    if not time_it:
+        log(f"{held} (not timed) -> ok")
+        return {"dq": {"max_abs_err": err[0]},
+                "dkv": {"max_abs_err": max(err[1:])}}
 
     ms_dq = device_ms(lambda: fa.flash_attention_bwd_dq(
         q, k, v, do, lse, delta, scale, causal, "bthd"), iters=5, warmup=1)
@@ -604,23 +670,12 @@ def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64):
                                             peak="tf32")
     ffma = (f", f32 FFMA bounds dq {extra['dq']['ffma_bound_ms']:.5f}, dkv "
             f"{extra['dkv']['ffma_bound_ms']:.5f}" if extra["dq"] else "")
-    log(f"flash bwd {str(dtype)[6:]} B{b} H{h} T{t} D{d} "
-        f"{'causal' if causal else 'non-causal'}: max_abs_err dq/dk/dv "
-        f"{err[0]:.3e}/{err[1]:.3e}/{err[2]:.3e}, rel L2 {rel[0]:.2e}/"
-        f"{rel[1]:.2e}/{rel[2]:.2e}, Function vs autograd rel L2 "
-        f"{fn_rel:.2e}, second launch "
-        f"{'identical' if repeats else 'DIFFERS'}, dQ and dK/dV: {route}"
-        f"{'' if tc_ok else ' (one MISSED)'}; device ms: dq {ms_dq:.4f} ms (a "
+    log(f"{held}; device ms: dq {ms_dq:.4f} ms (a "
         f"call {call_ms_dq:.4f}; bound {bq:.5f}, {byq}: {ms_dq / bq:.1f}x; "
         f"{ms_dq / library_ms:.3f}x sdpa's whole backward), dkv "
         f"{ms_dkv:.4f} ms (a call {call_ms_dkv:.4f}; bound {bkv:.5f}, "
         f"{bykv}){ffma}, dq + dkv {ms_dq + ms_dkv:.4f} ms, plain backward "
-        f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms -> "
-        f"{'ok' if ok and fn_ok else 'FAIL'}")
-    if not (ok and fn_ok):
-        raise SystemExit(f"flash backward {dtype} B{b} T{t} causal={causal} "
-                         "disagrees with the plain backward, does not "
-                         "repeat or missed its kernel")
+        f"{plain_ms:.4f} ms, sdpa backward {library_ms:.4f} ms -> ok")
     return {"dq": {"max_abs_err": err[0], "ms": ms_dq, "call_ms": call_ms_dq,
                    "bound_ms": bq, "bound_by": byq, **extra["dq"]},
             "dkv": {"max_abs_err": max(err[1:]), "ms": ms_dkv,
@@ -803,67 +858,85 @@ def flash_counts(fa):
 
 
 def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
-               n_layers=8, tag="train", dtype=torch.bfloat16):
+               n_layers=8, tag="train", dtype=torch.bfloat16,
+               foreach_adamw=False):
     """The LM of ``bench.py``'s transformer row trained at full width (T
     1024, d_model 512; ``n_heads``, ``n_layers`` and the compute dtype as
-    given) on the kernel path and on the plain path from identical params
-    and one batch."""
+    given) from identical params on one batch, three ways: the kernel
+    path with its step replayed from a CUDA graph (the main path), the
+    kernel path eager (``disable_graphs()``), and the plain path (eager),
+    each with ``LM_ADAMW``. ``foreach_adamw`` adds a fourth: the kernel
+    path replayed with the capturable AdamW of the ``foreach`` form."""
+    from deeplearning4j_tpu_torch import disable_graphs
     from deeplearning4j_tpu_torch.zoo import transformer as tfm
 
     cfg, init, ids, tgt = lm_setup(tfm, batch, n_heads, n_layers, dtype)
     plain_cfg = dataclasses.replace(cfg, use_flash_attention=False,
                                     attn_scores_bf16=False)
     tokens = batch * cfg.max_seq
+    ways = [("kernel", cfg, True, LM_ADAMW), ("eager", cfg, False, LM_ADAMW),
+            ("plain", plain_cfg, False, LM_ADAMW)]
+    if foreach_adamw:
+        ways.insert(1, ("kernel_foreach_adamw", cfg, True, {}))
     runs = {}
-    for path, c in (("kernel", cfg), ("plain", plain_cfg)):
+    for path, c, graphs, opt_kw in ways:
         params = {k: (v.clone() if torch.is_tensor(v)
                       else {n: w.clone() for n, w in v.items()})
                   for k, v in init.items()}
         opt = torch.optim.AdamW(tfm.param_leaves(params), lr=3e-4,
                                 betas=(0.9, 0.999), eps=1e-8,
-                                weight_decay=1e-4)
+                                weight_decay=1e-4, capturable=True, **opt_kw)
         step = tfm.make_train_step(c, opt)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fa.reset_launches()
-        pa.reset_launches()
-        losses, secs, per_step = [], [], []
-        for i in range(steps):
-            before = flash_counts(fa)
-            t0 = time.perf_counter()
-            loss = step(params, ids, tgt)
-            torch.cuda.synchronize()
-            secs.append(time.perf_counter() - t0)
-            losses.append(loss.item())
-            per_step.append({n: c - before[n]
-                             for n, c in flash_counts(fa).items()
-                             if c - before[n]})
-            if i == 0:
-                grads = {n: p.grad.detach().clone()
-                         for n, p in _named_leaves(params)}
+        if path == "kernel":           # the main path's own counts
+            fa.reset_launches()
+            pa.reset_launches()
+        losses, secs, per_step, kinds = [], [], [], []
+        with contextlib.nullcontext() if graphs else disable_graphs():
+            for i in range(steps):
+                before = flash_counts(fa)
+                t0 = time.perf_counter()
+                loss = step(params, ids, tgt)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(loss.item())
+                per_step.append({n: c - before[n]
+                                 for n, c in flash_counts(fa).items()
+                                 if c - before[n]})
+                kinds.append(step.compiled.last)
+                if i == 0:             # an eager step: p.grad is its own
+                    grads = {n: p.grad.detach().clone()
+                             for n, p in _named_leaves(params)}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            paged = pa.LAUNCHES
+            final = [(n, p.detach().clone()) for n, p in
+                     _named_leaves(params)] if path != "plain" else None
+            prof = None if path == "plain" else profile_step(
+                lambda: step(params, ids, tgt))
         run = {"losses": losses, "step_s": secs,
-               "peak_alloc_gib": torch.cuda.max_memory_allocated() / 2**30,
-               "launches_per_step": per_step,
-               "paged_launches": pa.LAUNCHES}
-        if steps > 1:
-            run["tok_per_s_steps_2_5"] = tokens * (steps - 1) / sum(secs[1:])
+               "launches_per_step": replay_counts(per_step, kinds),
+               "paged_launches": paged,
+               **way_summary(kinds, secs, tokens, "tok", peak)}
+        if prof is not None:
+            add_profile(run, prof)
         log(f"{tag} {path} path (B{batch} T{cfg.max_seq} D{cfg.head_dim} "
             f"{str(dtype)[6:]}, "
-            f"{'flash kernels' if c is cfg else 'plain attention'}): "
+            f"{'flash kernels' if c is cfg else 'plain attention'}, "
+            f"{'graph replays' if graphs else 'eager'}"
+            f"{', fused AdamW' if opt_kw else ', foreach AdamW'}): "
             f"{json.dumps(run)}")
-        runs[path] = (run, grads)
         if profile and path == "kernel":
-            profile_train_step(step, params, ids, tgt,
-                               f"{tag} step, B{batch} T{cfg.max_seq} "
-                               f"D{cfg.head_dim}")
+            log(f"profile ({tag} step, B{batch} T{cfg.max_seq} "
+                f"D{cfg.head_dim}, graph replay): {json.dumps(prof)}")
+        runs[path] = (run, grads, final)
         del params, opt, step
         torch.cuda.empty_cache()
 
-    (kr, kg), (pr, pg) = runs["kernel"], runs["plain"]
+    (kr, kg, kf), (pr, pg, _) = runs["kernel"], runs["plain"]
     rels = {n: rel_l2(kg[n], pg[n]) for n in pg}
     finite = all(bool(torch.isfinite(g).all()) for g in kg.values())
     worst = max(rels, key=rels.get)
-    dloss = [abs(a - b) for a, b in zip(kr["losses"], pr["losses"])]
     # K1 runs twice a layer (forward and the save_attn recompute), dQ and
     # dK/dV once; every launch on the family fa.route names for its kernel
     # (bf16: the tensor cores up to D 256; f32: the CUDA cores up to 128,
@@ -873,40 +946,45 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
     for kn, name in FLASH_NAMES.items():
         kind = fa.route(cfg.head_dim, cfg.dtype, kn)
         want[name] = want[f"{name}_{FAMILY_KEYS[kind]}"] = per[kn]
-    counts_ok = all(c == want for c in kr["launches_per_step"])
-    falls = steps == 1 or (kr["losses"][-1] < kr["losses"][0]
-                           and pr["losses"][-1] < pr["losses"][0])
-    log(f"{tag} kernel vs plain: step-1 grad rel L2 max {rels[worst]:.3e} "
-        f"({worst}; limit {TRAIN_GRAD_REL_L2}), all finite {finite}; "
-        f"|loss delta| per step {[f'{x:.2e}' for x in dloss]} (limit "
-        f"{TRAIN_LOSS_ATOL}); loss falls {falls}; launches per step "
-        f"{kr['launches_per_step']} (want {want})")
+    failed = []
     if not finite or not rels[worst] <= TRAIN_GRAD_REL_L2:
-        raise SystemExit(f"{tag} path: step-1 grads disagree with the "
-                         "plain path")
-    if not max(dloss) <= TRAIN_LOSS_ATOL or not falls:
-        raise SystemExit(f"{tag} path: losses disagree with the plain path "
-                         "or do not fall")
-    if not counts_ok:
-        raise SystemExit(f"{tag} path: a flash kernel was not launched as "
-                         "often as wanted in every step")
+        failed.append("step-1 grads disagree with the plain path")
+    for path in runs:
+        if path == "plain":
+            continue
+        r = runs[path][0]
+        dloss = [abs(a - b) for a, b in zip(r["losses"], pr["losses"])]
+        falls = steps == 1 or (r["losses"][-1] < r["losses"][0]
+                               and pr["losses"][-1] < pr["losses"][0])
+        counts_ok = all(c == want for c in r["launches_per_step"])
+        graph_ok = path == "eager" or r["step_kinds"] == [
+            "eager", "capture", *["replay"] * (steps - 2)][:steps]
+        diff = None if path == "kernel" else first_diff(runs[path][2], kf)
+        log(f"{tag} {path} vs plain: |loss delta| per step "
+            f"{[f'{x:.2e}' for x in dloss]} (limit {TRAIN_LOSS_ATOL}); loss "
+            f"falls {falls}; launches per step (a replay at its capture's) "
+            f"{r['launches_per_step']} (want {want}); steps "
+            f"{r['step_kinds']}"
+            + ("" if path == "kernel" else
+               f"; vs the replayed kernel path: losses equal "
+               f"{r['losses'] == kr['losses']}, params bit-identical "
+               f"{diff is None}"
+               + ("" if diff is None else f" (first differing leaf {diff})")))
+        if not max(dloss) <= TRAIN_LOSS_ATOL or not falls:
+            failed.append(f"{path}: losses disagree with the plain path or "
+                          "do not fall")
+        if not counts_ok:
+            failed.append(f"{path}: a flash kernel was not launched as "
+                          "often as wanted in every step")
+        if not graph_ok:
+            failed.append(f"{path}: the steps did not replay a graph")
+    log(f"{tag} kernel vs plain: step-1 grad rel L2 max {rels[worst]:.3e} "
+        f"({worst}; limit {TRAIN_GRAD_REL_L2}), all finite {finite}")
+    if failed:
+        raise SystemExit(f"{tag} path: {failed}")
     total = {n: sum(c.get(n, 0) for c in kr["launches_per_step"])
              for n in flash_counts(fa)}
-    return {**total, "paged_attention": runs["kernel"][0]["paged_launches"]}
-
-
-def profile_train_step(step, params, ids, tgt, label):
-    """Where one kernel-path train step's device time goes: the top CUDA
-    kernels by device time under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(params, ids, tgt)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    log(f"profile ({label}): " + json.dumps(
-        device_rows(prof, wall, 1)))
+    return {**total, "paged_attention": kr["paged_launches"]}
 
 
 def device_rows(prof, wall, steps):
@@ -929,6 +1007,73 @@ def device_rows(prof, wall, steps):
             "top_kernels": [{"name": k[:80], "ms_per_step": us / 1e3 / steps,
                              "calls_per_step": n / steps}
                             for us, k, n in rows[:12]]}
+
+
+# ------------------------------------------ eager and replayed steps
+
+def replay_counts(per_step, kinds):
+    """Launches a step of a compiled run made: an eager step and a
+    capture count what their wrappers launched (a capture replays once);
+    a replay runs what its capture recorded and its wrappers do not run,
+    so it counts its capture's launches."""
+    out, captured = [], {}
+    for counts, kind in zip(per_step, kinds):
+        if kind == "capture":
+            captured = counts
+        out.append(captured if kind == "replay" else counts)
+    return out
+
+
+def first_diff(a, b):
+    """The name of the first leaf of two (name, tensor) lists that is not
+    bit for bit equal, or None."""
+    for (n, x), (_, y) in zip(a, b):
+        if not torch.equal(x, y):
+            return n
+    return None
+
+
+def timed_steps(kinds):
+    """The steps a run's wall time and throughput are taken over: a
+    graph run's replays (its eager first step and its capture are left
+    out), an eager run's steps after the first."""
+    if "replay" in kinds:
+        return [i for i, k in enumerate(kinds) if k == "replay"]
+    return list(range(1, len(kinds))) or [0]
+
+
+def way_summary(kinds, step_s, items, unit, peak_gib):
+    """How each step ran, wall ms a step (the median over
+    :func:`timed_steps`: one step in a few now and then takes twice its
+    time on the card's shared host) and ``unit``s/s at it, and peak device
+    memory."""
+    idx = timed_steps(kinds)
+    wall = float(np.median([step_s[i] for i in idx]))
+    return {"step_kinds": kinds, "timed_steps": [i + 1 for i in idx],
+            "wall_ms_per_step": wall * 1e3, f"{unit}_per_s": items / wall,
+            "peak_alloc_gib": peak_gib}
+
+
+def add_profile(rec, prof):
+    """Put a profiled step's device ms beside a run's wall ms a step
+    (busy share = device ms / wall ms)."""
+    rec["device_ms_per_step"] = prof["device_ms_per_step"]
+    rec["busy_share"] = prof["device_ms_per_step"] / rec["wall_ms_per_step"]
+
+
+def profile_step(fn):
+    """One call of ``fn`` under ``torch.profiler``: wall and device ms
+    (kernels and copies, graph replays' included), busy share, top
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return device_rows(prof, wall, 1)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1267,25 +1412,31 @@ def flash_times(root):
 
 def lm_step_times(tfm, batch, n_heads, n_layers, dtype, steps=5):
     """Device time a step of the LM's kernel-path train step in ``dtype``
-    (AdamW, as phase 6 runs it) under ``torch.profiler`` over ``steps``
+    (AdamW as phase 6 builds it) under ``torch.profiler`` over ``steps``
     steps after two warm-up steps: all kernels and copies, and the flash
     kernels (every kernel named ``flash_*_kernel``) with their launches;
-    the host's wall time a step beside them."""
+    the host's wall time a step beside them. The step runs eagerly (under
+    the port's ``disable_graphs()`` where it has one), so that a tree
+    before the compiled step and one after it are timed alike."""
+    import importlib
     from torch.profiler import ProfilerActivity, profile
+    pkg = importlib.import_module("deeplearning4j_tpu_torch")
+    eager = getattr(pkg, "disable_graphs", contextlib.nullcontext)
     cfg, params, ids, tgt = lm_setup(tfm, batch, n_heads, n_layers, dtype)
     opt = torch.optim.AdamW(tfm.param_leaves(params), lr=3e-4,
-                            weight_decay=1e-4)
+                            weight_decay=1e-4, capturable=True, **LM_ADAMW)
     step = tfm.make_train_step(cfg, opt)
-    for _ in range(2):
-        step(params, ids, tgt)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
+    with eager():
+        for _ in range(2):
             step(params, ids, tgt)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step(params, ids, tgt)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     rows = device_rows(prof, wall, steps)
     flash = {}
     for ev in prof.key_averages():
@@ -1334,21 +1485,38 @@ def k3_counts(fo):
 
 
 class _StepLog:
-    """A fit listener: loss, host time and K3 launch counts at the end of
-    each step (``fit`` reads the loss to the host first, which waits for
-    the step's kernels)."""
+    """A fit listener: loss, host time, K3 launch counts and how the
+    compiled step ran ("eager", "capture", "replay"; "direct" under
+    ``disable_graphs()``) at the end of each step (``fit`` reads the loss
+    to the host first, which waits for the step's kernels).
+    ``deferred_score_ok``: ``fit_scanned`` may replay it after an epoch."""
+    deferred_score_ok = True
 
     def __init__(self, fo):
         self.fo, self.rows = fo, []
         self.base = k3_counts(fo)
 
     def iteration_done(self, net, it, epoch, loss):
-        self.rows.append((loss, time.perf_counter(), k3_counts(self.fo)))
+        self.rows.append((loss, time.perf_counter(), k3_counts(self.fo),
+                          net._step_fn.last))
+
+    def kinds(self):
+        return [r[3] for r in self.rows]
+
+    def step_s(self, t0, t1=None):
+        """Host seconds of each step: from ``t0`` to the first step's end,
+        from ``t1`` (default: that end) to the second's, then end to
+        end."""
+        ends = [r[1] for r in self.rows]
+        starts = [t0, ends[0] if t1 is None else t1, *ends[1:-1]]
+        return [b - a for a, b in zip(starts, ends)]
 
     def launches_per_step(self):
+        """K3 launches a step, a replay at its capture's."""
         before = [self.base] + [r[2] for r in self.rows[:-1]]
-        return [{k: r[2][k] - b[k] for k in r[2]}
-                for r, b in zip(self.rows, before)]
+        return replay_counts([{k: r[2][k] - b[k] for k in r[2]}
+                              for r, b in zip(self.rows, before)],
+                             self.kinds())
 
 
 def _set_fused(net, fused):
@@ -1381,15 +1549,19 @@ def _k3_cases(fo):
         fo.fused_bn_act_train, fo.fused_bn_act = train_bn, infer_bn
 
 
-def _resnet_run(model, fused, x, y, steps, fo):
+def _resnet_run(model, fused, x, y, steps, fo, graphs=True):
     """Train a fresh ResNet-50 (identical params: the same seed) for
-    ``steps`` steps on one batch, every BN's ``fused`` set as given.
-    Returns the net, its record (losses, K3 launches per step, samples/s
-    over steps 2-5, peak device memory), the step-1 grads (Momentum's
-    trace after one step from v0 = 0) and the running stats after
-    step 1."""
+    ``steps`` steps on one batch, every BN's ``fused`` set as given, its
+    steps replayed from a CUDA graph or (``graphs`` False) eager. Returns
+    the net, its record (losses, K3 launches per step, how each step ran,
+    wall ms a step and samples/s over the timed steps, peak device
+    memory), the step-1 grads (Momentum's trace after one step from v0 =
+    0), the running stats after step 1 and the final params, states and
+    trace (for the bit-for-bit comparison of two runs)."""
+    from deeplearning4j_tpu_torch import disable_graphs
     from deeplearning4j_tpu_torch.data import DataSet
     from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.nn._compiled import tensors
 
     net = ComputationGraph(model.conf())
     _set_fused(net, fused)
@@ -1399,21 +1571,24 @@ def _resnet_run(model, fused, x, y, steps, fo):
     ds = DataSet(x, y)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    net.fit(ds)
-    grads = {f"{n}/{k}": t.clone() for n, p in
-             net._opt_state[1][0]["trace"].items() for k, t in p.items()}
-    states1 = {f"{n}/{k}": t.clone() for n, p in net.states.items()
-               for k, t in p.items()}
-    t1 = time.perf_counter()
-    if steps > 1:
-        net.fit([ds] * (steps - 1))
+    with contextlib.nullcontext() if graphs else disable_graphs():
+        t0 = time.perf_counter()
+        net.fit(ds)
+        grads = {f"{n}/{k}": t.clone() for n, p in
+                 net._opt_state[1][0]["trace"].items() for k, t in p.items()}
+        states1 = {f"{n}/{k}": t.clone() for n, p in net.states.items()
+                   for k, t in p.items()}
+        t1 = time.perf_counter()
+        if steps > 1:
+            net.fit([ds] * (steps - 1))
+    secs = steplog.step_s(t0, t1)       # step 1's clones left out
     rec = {"losses": [r[0] for r in steplog.rows],
-           "peak_alloc_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "k3_launches_per_step": steplog.launches_per_step()}
-    if steps > 1:
-        rec["samples_per_s_steps_2_5"] = \
-            x.shape[0] * (steps - 1) / (steplog.rows[-1][1] - t1)
-    return net, rec, grads, states1
+           "k3_launches_per_step": steplog.launches_per_step(),
+           **way_summary(steplog.kinds(), secs, x.shape[0], "samples",
+                         torch.cuda.max_memory_allocated() / 2**30)}
+    final = [(f"{i}", t.detach().clone()) for i, t in enumerate(
+        tensors((net.params, net.states, net._opt_state)))]
+    return net, rec, grads, states1, final
 
 
 def _worst(a, b):
@@ -1427,9 +1602,77 @@ def _step1(runs, a, b):
     """Run a against run b after step 1: |loss delta|, and (max, median,
     worst key) of the per-tensor relative L2 of the running stats and of
     the grads."""
-    (ra, ga, sa), (rb, gb, sb) = runs[a], runs[b]
+    (ra, ga, sa, _), (rb, gb, sb, _) = runs[a], runs[b]
     return (abs(ra["losses"][0] - rb["losses"][0]), _worst(sa, sb),
             _worst(ga, gb))
+
+
+class _Scores:
+    """Scores of the steps, replayed by ``fit_scanned`` after an epoch."""
+    deferred_score_ok = True
+
+    def __init__(self):
+        self.scores = []
+
+    def iteration_done(self, net, it, epoch, loss):
+        self.scores.append(loss)
+
+
+def scan_path(tag, net, ds, k, counts, per_step, fit_losses, loss_atol):
+    """``fit_scanned`` of ``net`` (fresh, the init of the ``fit`` run whose
+    losses are ``fit_losses``) over ``k`` copies of ``ds``: a first epoch
+    (eager step, capture, replays), then a timed one (``k`` replays; the
+    first epoch's eager step and capture are left out of the time), and a
+    third under the profiler for the device ms a step. Holds
+    step 1 to ``fit``'s within ``loss_atol``, the losses finite and
+    falling, every step after the first replayed, and each kernel counted
+    by ``counts()`` launched ``per_step`` times in the eager step and in
+    the capture; prints whether the losses equal ``fit``'s bit for bit.
+    Returns the launches of the first ``2k`` steps (each replay at its
+    capture's count)."""
+    scores = _Scores()
+    net.set_listeners(scores)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = counts()
+    net.fit_scanned([ds] * k)
+    mid = counts()
+    t0 = time.perf_counter()
+    last = net.fit_scanned([ds] * k)
+    wall = time.perf_counter() - t0
+    first = {n: mid[n] - before[n] for n in mid}
+    second = {n: counts()[n] - mid[n] for n in mid}
+    n = min(len(fit_losses), k)
+    rec = {"losses": list(scores.scores), "last": last,
+           "equal_to_fit": scores.scores[:n] == fit_losses[:n],
+           "step_calls": dict(net._step_fn.calls),
+           "wall_ms_per_step": wall / k * 1e3,
+           "samples_per_s": k * ds.features.shape[0] / wall,
+           "timed": f"epoch 2: {k} replays (epoch 1's eager step and "
+                    "capture left out; the epoch's stack of its batches "
+                    "included)",
+           "peak_alloc_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches_epoch_1": first, "launches_epoch_2": second}
+    losses = list(scores.scores)
+    # a third epoch under the profiler: device ms a step beside the wall
+    prof = profile_step(lambda: net.fit_scanned([ds] * k))
+    rec["device_ms_per_step"] = prof["device_ms_per_step"] / k
+    rec["busy_share"] = rec["device_ms_per_step"] / rec["wall_ms_per_step"]
+    log(f"{tag} fit_scanned ({k} batches an epoch, 2 epochs and a profiled "
+        f"one): {json.dumps(rec)}")
+    failed = []
+    if not abs(losses[0] - fit_losses[0]) <= loss_atol:
+        failed.append("step-1 loss disagrees with fit's")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        failed.append("losses not finite or not falling")
+    if rec["step_calls"] != {"direct": 0, "eager": 1, "capture": 1,
+                             "replay": 2 * k - 2}:
+        failed.append("the steps did not replay a graph")
+    if first != {n: 2 * per_step for n in first} or any(second.values()):
+        failed.append("kernel launches")
+    if failed:
+        raise SystemExit(f"{tag} fit_scanned: {failed}")
+    return {n: per_step * 2 * k for n in first}
 
 
 def resnet_path(fa, pa, fo, checked, steps=5, profile=False):
@@ -1449,6 +1692,7 @@ def resnet_path(fa, pa, fo, checked, steps=5, profile=False):
     in phase 7 (``checked``) at every (dtype, N, C, activation) this run
     hands them, which is asserted here."""
     from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
     from deeplearning4j_tpu_torch.train import Momentum
     from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
 
@@ -1459,8 +1703,11 @@ def resnet_path(fa, pa, fo, checked, steps=5, profile=False):
     y = torch.as_tensor(np.eye(1000, dtype=np.float32)[
         rng.integers(0, 1000, RESNET_BATCH)], device="cuda")
     failed, seen, knet, train_counts = [], set(), None, None
+    from deeplearning4j_tpu_torch import disable_graphs
     # bench.py's resnet50 row (bench.py:786-788, batch 128) is bf16; the
-    # f32 net trains one step, for its grads
+    # f32 net trains one step, for its grads. The kernel path's steps are
+    # replayed from a CUDA graph (bf16: also run eager, to compare); the
+    # plain path, the yardstick, runs eager
     for dtype, n_steps, loss_atol, state_atol, grad_limit in (
             (torch.bfloat16, steps, RESNET_LOSS_ATOL, RESNET_STATE_REL_L2,
              None),
@@ -1471,36 +1718,67 @@ def resnet_path(fa, pa, fo, checked, steps=5, profile=False):
                          if dtype == torch.bfloat16 else None,
                          input_shape=(RESNET_HW, RESNET_HW, 3))
         runs = {}
-        for path, fused, path_steps in (("kernel", True, n_steps),
-                                        ("plain", False, n_steps),
-                                        ("plain_again", False, 1)):
+        for path, fused, path_steps, graphs in (
+                ("kernel", True, n_steps, True),
+                *((("kernel_eager", True, n_steps, False),)
+                  if n_steps > 1 else ()),
+                ("plain", False, n_steps, False),
+                ("plain_again", False, 1, False)):
             main = dtype == torch.bfloat16 and path == "kernel"
             if main:                   # the main path's own counts
                 fa.reset_launches()
                 pa.reset_launches()
                 fo.reset_launches()
             with _k3_cases(fo) as cases:
-                net, rec, g, s1 = _resnet_run(model, fused, x, y,
-                                              path_steps, fo)
+                net, rec, g, s1, final = _resnet_run(
+                    model, fused, x, y, path_steps, fo, graphs)
             seen |= set(cases)
             if main:
                 knet = net
                 train_counts = {
-                    **k3_counts(fo), "flash_attention_fwd": fa.LAUNCHES,
+                    **{k: sum(per[k] for per in rec["k3_launches_per_step"])
+                       for k in k3_counts(fo)},
+                    "flash_attention_fwd": fa.LAUNCHES,
                     "flash_attention_bwd_dq": fa.LAUNCHES_BWD_DQ,
                     "flash_attention_bwd_dkv": fa.LAUNCHES_BWD_DKV,
                     "paged_attention": pa.LAUNCHES}
                 if not all(n == 53 for per in rec["k3_launches_per_step"]
                            for n in per.values()):
                     failed.append("K3 launch counts")
-                if profile:
-                    profile_resnet_step(net, DataSet(x, y), fo)
+                if rec["step_kinds"] != ["eager", "capture",
+                                         *["replay"] * (n_steps - 2)]:
+                    failed.append("the kernel path did not replay a graph")
+            if path.startswith("kernel") and n_steps > 1:
+                with contextlib.nullcontext() if graphs else \
+                        disable_graphs():
+                    prof = profile_step(lambda: net.fit(DataSet(x, y)))
+                add_profile(rec, prof)
+                if profile and path == "kernel_eager":
+                    with disable_graphs():
+                        profile_resnet_step(net, DataSet(x, y), fo)
             log(f"resnet50 train {path} path (B{RESNET_BATCH} {RESNET_HW}x"
-                f"{RESNET_HW}, {str(dtype)[6:]}, BN fused={fused}): "
+                f"{RESNET_HW}, {str(dtype)[6:]}, BN fused={fused}, "
+                f"{'graph replays' if graphs else 'eager'}): "
                 f"{json.dumps(rec)}")
-            runs[path] = (rec, g, s1)
-            del net
+            runs[path] = (rec, g, s1, final)
+            if not main:
+                del net
             torch.cuda.empty_cache()
+        if "kernel_eager" in runs:
+            (kr, *_, kf), (er, *_, ef) = runs["kernel"], runs["kernel_eager"]
+            diff = first_diff(ef, kf)
+            log(f"resnet50 kernel path, graph replays vs eager: losses "
+                f"equal {kr['losses'] == er['losses']}, params, running "
+                f"stats and trace bit-identical {diff is None}"
+                + ("" if diff is None else
+                   f" (first differing leaf: #{diff} of params, states, "
+                   "trace)")
+                + f"; wall ms a step {kr['wall_ms_per_step']:.2f} vs "
+                f"{er['wall_ms_per_step']:.2f}")
+            if not er["k3_launches_per_step"] == kr["k3_launches_per_step"]:
+                failed.append("K3 launch counts, eager vs graph")
+            if not er["losses"][-1] < er["losses"][0]:
+                failed.append("eager kernel path: the loss does not fall")
         tag = str(dtype)[6:]
         kp = _step1(runs, "kernel", "plain")
         pp = _step1(runs, "plain_again", "plain")
@@ -1581,6 +1859,28 @@ def resnet_path(fa, pa, fo, checked, steps=5, profile=False):
     if {k: out_counts[k] for k in want} != want:
         raise SystemExit("resnet50 output(): K3 launch counts "
                          f"{out_counts}, want {want}")
+    # bench.py's resnet50_fitscan row (bench.py:819): the same bf16 net
+    # through fit_scanned from the same init on the same batch
+    kernel_losses = knet.listeners[0].rows
+    del knet
+    torch.cuda.empty_cache()
+    scan_net = ComputationGraph(ResNet50(
+        num_classes=1000, updater=Momentum(0.1, 0.9),
+        compute_dtype=torch.bfloat16,
+        input_shape=(RESNET_HW, RESNET_HW, 3)).conf())
+    _set_fused(scan_net, True)
+    scan_net.init()
+    fa.reset_launches()
+    pa.reset_launches()
+    fo.reset_launches()
+    with _k3_cases(fo) as cases:
+        scan_counts = scan_path("resnet50", scan_net, DataSet(x, y), 4,
+                                lambda: k3_counts(fo), 53,
+                                [r[0] for r in kernel_losses],
+                                RESNET_LOSS_ATOL)
+    seen |= set(cases)
+    del scan_net
+    torch.cuda.empty_cache()
     unchecked = sorted(f"{str(dt)[6:]} N{n} C{c} {act}"
                        for dt, n, c, act in seen - checked)
     log(f"resnet50 K3 cases (dtype, N, C, activation): {len(seen)} on the "
@@ -1588,7 +1888,8 @@ def resnet_path(fa, pa, fo, checked, steps=5, profile=False):
     if unchecked:
         raise SystemExit(f"resnet50: K3 ran at {unchecked}, which phase 7 "
                          "did not hold to the plain version")
-    return {"resnet_train": train_counts, "resnet_output": out_counts}
+    return {"resnet_train": train_counts, "resnet_output": out_counts,
+            "resnet_fitscan": {**scan_counts, "paged_attention": 0}}
 
 
 K3_KERNELS = ("bn_act_kernel", "bn_reduce_kernel", "bn_dx_kernel")
@@ -1767,23 +2068,32 @@ def reset_all(*mods):
 
 
 class _FitLog:
-    """A fit listener: loss, host time and K4 launches at the end of each
-    step (``fit`` reads the loss to the host first)."""
+    """A fit listener: loss, host time, K4 launches and how the compiled
+    step ran at the end of each step (``fit`` reads the loss to the host
+    first)."""
 
     def __init__(self, fl):
         self.fl, self.rows, self.base = fl, [], fl.LAUNCHES
+        self.t0 = time.perf_counter()
 
     def iteration_done(self, net, it, epoch, loss):
-        self.rows.append((loss, time.perf_counter(), self.fl.LAUNCHES))
+        self.rows.append((loss, time.perf_counter(), self.fl.LAUNCHES,
+                          net._step_fn.last))
 
-    def record(self, batch, steps):
+    def record(self, batch):
+        """Losses, K4 launches a step (a replay at its capture's), and
+        :func:`way_summary` over the timed steps."""
         counts = [r[2] for r in self.rows]
+        kinds = [r[3] for r in self.rows]
+        ends = [r[1] for r in self.rows]
         return {"losses": [r[0] for r in self.rows],
-                "k4_launches_per_step": [a - b for a, b in
-                                         zip(counts, [self.base] + counts)],
-                "samples_per_s_steps_2_5": batch * (steps - 1)
-                / (self.rows[-1][1] - self.rows[0][1]),
-                "peak_alloc_gib": torch.cuda.max_memory_allocated() / 2**30}
+                "k4_launches_per_step": replay_counts(
+                    [a - b for a, b in zip(counts, [self.base] + counts)],
+                    kinds),
+                **way_summary(kinds, [b - a for a, b in
+                                      zip([self.t0] + ends, ends)],
+                              batch, "samples",
+                              torch.cuda.max_memory_allocated() / 2**30)}
 
 
 def _set_lstm_fused(net, fused):
@@ -1834,7 +2144,13 @@ def charnn_path(fa, pa, fo, fl, checked, steps=5, profile=False):
     y = torch.as_tensor(eye[rng.integers(0, v, (b, t))], device="cuda")
     ds = DataSet(x, y)
     failed, seen, runs, nets = [], set(), {}, {}
-    for path, fused in (("kernel", True), ("plain", False)):
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.nn._compiled import tensors
+    # the kernel path replayed from a CUDA graph and eager; the plain
+    # path (the scan), the yardstick, eager
+    for path, fused, graphs in (("kernel", True, True),
+                                ("kernel_eager", True, False),
+                                ("plain", False, False)):
         net = TextGenerationLSTM(num_classes=v, input_shape=(t, v),
                                  units=CHARNN_H,
                                  compute_dtype=torch.bfloat16).init()
@@ -1845,19 +2161,37 @@ def charnn_path(fa, pa, fo, fl, checked, steps=5, profile=False):
             reset_all(fa, pa, fo, fl)
         steplog = _FitLog(fl)
         net.set_listeners(steplog)
-        with _k4_cases(fl) as cases:
-            net.fit([ds] * steps)
+        with contextlib.nullcontext() if graphs else disable_graphs():
+            with _k4_cases(fl) as cases:
+                net.fit([ds] * steps)
+            rec = steplog.record(b)
+            final = [(f"{i}", p.detach().clone()) for i, p in enumerate(
+                tensors((net.params, net.states, net._opt_state)))]
+            if path != "plain":
+                add_profile(rec, profile_step(lambda: net.fit(ds)))
         seen |= set(cases)
-        rec = steplog.record(b, steps)
         if path == "kernel":
-            train_counts = all_counts(fa, pa, fo, fl)
-            if rec["k4_launches_per_step"] != [2] * steps:
-                failed.append("K4 launches per step")
-            if profile:
+            train_counts = {**all_counts(fa, pa, fo, fl), "fused_lstm": sum(
+                rec["k4_launches_per_step"])}
+            if rec["step_kinds"][:steps] != ["eager", "capture",
+                                             *["replay"] * (steps - 2)]:
+                failed.append("the kernel path did not replay a graph")
+        if path != "plain" and rec["k4_launches_per_step"] != [2] * steps:
+            failed.append(f"{path}: K4 launches per step")
+        if profile and path == "kernel_eager":
+            with disable_graphs():
                 profile_charnn_step(net, ds, fl)
         log(f"charnn train {path} path (B{b} T{t} H{CHARNN_H} V{v}, bf16, "
-            f"GravesLSTM fused={fused}): {json.dumps(rec)}")
-        runs[path], nets[path] = rec, net
+            f"GravesLSTM fused={fused}, "
+            f"{'graph replays' if graphs else 'eager'}): {json.dumps(rec)}")
+        runs[path], nets[path] = (rec, final), net
+    diff = first_diff(runs["kernel_eager"][1], runs["kernel"][1])
+    log(f"charnn kernel path, graph replays vs eager: losses equal "
+        f"{runs['kernel'][0]['losses'] == runs['kernel_eager'][0]['losses']}"
+        f", params and updater state bit-identical {diff is None}"
+        + ("" if diff is None else f" (first differing leaf: #{diff})"))
+    runs = {p: r for p, (r, _) in runs.items()}
+    del nets["kernel_eager"]
     knet = nets["kernel"]
     reset_all(fa, pa, fo, fl)
     with _k4_cases(fl) as cases:
@@ -1951,8 +2285,13 @@ def profile_charnn_step(net, ds, fl):
 # --------------------------------------------------------------- phase 11
 
 def lenet_path(fa, pa, fo, fl, steps=5):
-    """LeNet at batch 512 bf16 through MultiLayerNetwork.fit."""
+    """LeNet at batch 512 bf16 through MultiLayerNetwork.fit, replayed
+    from a CUDA graph and eager (``disable_graphs()``) from the same
+    init, then through ``fit_scanned`` (``bench.py``'s ``lenet_scan``
+    row, bench.py:435)."""
+    from deeplearning4j_tpu_torch import disable_graphs
     from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn._compiled import tensors
     from deeplearning4j_tpu_torch.zoo import LeNet
 
     rng = np.random.default_rng(0)
@@ -1960,31 +2299,55 @@ def lenet_path(fa, pa, fo, fl, steps=5):
                         device="cuda")
     y = torch.as_tensor(np.eye(10, dtype=np.float32)[
         rng.integers(0, 10, LENET_BATCH)], device="cuda")
-    net = LeNet(num_classes=10, compute_dtype=torch.bfloat16).init()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_all(fa, pa, fo, fl)
-    steplog = _FitLog(fl)
-    net.set_listeners(steplog)
-    net.fit([DataSet(x, y)] * steps)
-    rec = steplog.record(LENET_BATCH, steps)
+    ds = DataSet(x, y)
+    recs, finals = {}, {}
+    for way, graphs in (("graph", True), ("eager", False)):
+        net = LeNet(num_classes=10, compute_dtype=torch.bfloat16).init()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all(fa, pa, fo, fl)
+        steplog = _FitLog(fl)
+        net.set_listeners(steplog)
+        with contextlib.nullcontext() if graphs else disable_graphs():
+            net.fit([ds] * steps)
+            rec = recs[way] = steplog.record(LENET_BATCH)
+            finals[way] = [(f"{i}", p.detach().clone()) for i, p in
+                           enumerate(tensors((net.params, net.states,
+                                              net._opt_state)))]
+            add_profile(rec, profile_step(lambda: net.fit(ds)))
+            counts = all_counts(fa, pa, fo, fl)
+        log(f"lenet (B{LENET_BATCH} 28x28x1, bf16, "
+            f"{'graph replays' if graphs else 'eager'}): {json.dumps(rec)}")
+        if way == "graph":
+            gnet = net
+    net = gnet
     out = net.output(x)
     torch.cuda.synchronize()
-    counts = all_counts(fa, pa, fo, fl)
     finite = bool(torch.isfinite(out.float()).all())
     sums = out.float().sum(-1)
     rows_ok = bool(torch.allclose(sums, torch.ones_like(sums), atol=2e-2))
-    falls = rec["losses"][-1] < rec["losses"][0]
+    falls = all(r["losses"][-1] < r["losses"][0] for r in recs.values())
+    diff = first_diff(finals["eager"], finals["graph"])
     pre = {i: type(p).__name__ for i, p in net._preprocessors.items()}
-    log(f"lenet (B{LENET_BATCH} 28x28x1, bf16): {json.dumps(rec)}; loss "
-        f"falls {falls}; output() shape {tuple(out.shape)}, finite {finite},"
-        f" rows sum to 1 {rows_ok}; preprocessors {pre}; launches "
+    replayed = recs["graph"]["step_kinds"][:steps] == [
+        "eager", "capture", *["replay"] * (steps - 2)]
+    log(f"lenet: loss falls {falls}; graph replays vs eager: losses equal "
+        f"{recs['graph']['losses'][:steps] == recs['eager']['losses'][:steps]}"
+        f", params and updater state bit-identical {diff is None}"
+        + ("" if diff is None else f" (first differing leaf: #{diff})")
+        + f"; output() shape {tuple(out.shape)}, finite {finite}, rows sum "
+        f"to 1 {rows_ok}; preprocessors {pre}; launches "
         f"{json.dumps(counts)} (no TPU kernel on this path)")
-    if not (falls and finite and rows_ok and out.shape == (LENET_BATCH, 10)
+    if not (falls and finite and rows_ok and replayed
+            and out.shape == (LENET_BATCH, 10)
             and pre == {4: "CnnToFeedForwardPreProcessor"}):
-        raise SystemExit("lenet path: the loss does not fall or output() is "
-                         "wrong")
-    return rec
+        raise SystemExit("lenet path: the loss does not fall, the steps did "
+                         "not replay a graph or output() is wrong")
+    del net, gnet
+    scan_net = LeNet(num_classes=10, compute_dtype=torch.bfloat16).init()
+    scan_path("lenet", scan_net, ds, 8, lambda: {}, 0,
+              recs["graph"]["losses"], LENET_LOSS_ATOL)
+    return recs
 
 
 def profile_decode(steps=10):
@@ -2071,6 +2434,13 @@ def main():
     _build.build(KERNEL_SOURCES, verbose=True)
     log(f"built {len(KERNEL_SOURCES)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
+    seconds, last = {}, [time.perf_counter()]
+
+    def mark(name):
+        """Host seconds of the phases since the last mark."""
+        now = time.perf_counter()
+        seconds[name] = round(now - last[0], 1)
+        last[0] = now
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     k2 = {dt: check_paged(pa, dt, gen)
@@ -2087,7 +2457,8 @@ def main():
             (torch.bfloat16, 2, 1024, 80), (torch.float32, 2, 1024, 80),
             (torch.bfloat16, 32, 1024, 64),      # the train path's
             *WIDE_SHAPES):
-        k1[(dt, b, t, d)] = check_flash(fa, dt, b, t, gen, d=d)
+        k1[(dt, b, t, d)] = check_flash(
+            fa, dt, b, t, gen, d=d, time_it=(dt, b, t, d) in TIMED_K1)
         torch.cuda.empty_cache()
     for lm in (D256_LM, D256_LM_F32):
         k1[lm] = check_flash(fa, *lm[:3], gen, h=D256_LM_HEADS, d=lm[3])
@@ -2108,8 +2479,9 @@ def main():
             (torch.bfloat16, 32, 1024, True, 64),    # the train path's
             *((dt, b, t, True, d) for dt, b, t, d in WIDE_SHAPES),
             *DQ_SPLIT_SHAPES, *TF32_BWD_SHAPES):
-        bwd[(dt, b, t, causal, d)] = check_flash_bwd(fa, dt, b, t, causal,
-                                                     gen, d=d)
+        bwd[(dt, b, t, causal, d)] = check_flash_bwd(
+            fa, dt, b, t, causal, gen, d=d,
+            time_it=(dt, b, t, causal, d) in TIMED_BWD)
         torch.cuda.empty_cache()
     lm_bwd = (*D256_LM[:3], True, D256_LM[3])
     lm_bwd_f32 = (*D256_LM_F32[:3], True, D256_LM_F32[3])
@@ -2117,30 +2489,40 @@ def main():
         bwd[key] = check_flash_bwd(fa, *key[:4], gen, h=D256_LM_HEADS,
                                    d=key[4])
         torch.cuda.empty_cache()
+    mark("2-3b flash and paged kernels")
     k3, k3_checked = k3_phase(fo, gen)
     k4, k4_checked = k4_phase(fl, gen)
+    mark("7, 9 K3 and K4")
     if args.kernels_only:
         return 0
 
     by_path = main_path(fa, pa)
-    by_path["train"] = train_path(fa, pa, profile=args.profile_train)
-    # an LM of head dim 256 (2 heads): one step, bf16 K1, dQ and dK/dV on
-    # the tensor cores; then in f32, all three in split TF32
-    by_path["train_d256"] = train_path(fa, pa, steps=1, batch=8, n_heads=2,
+    mark("4 serving")
+    by_path["train"] = train_path(fa, pa, profile=args.profile_train,
+                                  foreach_adamw=True)
+    # an LM of head dim 256 (2 heads): three steps (eager, capture,
+    # replay), bf16 K1, dQ and dK/dV on the tensor cores; then in f32, all
+    # three in split TF32
+    by_path["train_d256"] = train_path(fa, pa, steps=3, batch=8, n_heads=2,
                                        n_layers=2, tag="train D256",
                                        profile=args.profile_train)
-    by_path["train_d256_f32"] = train_path(fa, pa, steps=1, batch=8,
+    by_path["train_d256_f32"] = train_path(fa, pa, steps=3, batch=8,
                                            n_heads=2, n_layers=2,
                                            tag="train D256 f32",
                                            dtype=torch.float32)
+    mark("6 LM training")
     by_path.update(resnet_path(fa, pa, fo, k3_checked,
                                profile=args.profile_resnet))
+    mark("8 ResNet-50")
     lstm_paths = charnn_path(fa, pa, fo, fl, k4_checked,
                              profile=args.profile_charnn)
+    mark("10 char-RNN")
     lenet_path(fa, pa, fo, fl)
+    mark("11 LeNet")
+    log(f"host seconds by phase (after the build): {json.dumps(seconds)}")
     # the stage-0 BN's shape (N = 128*56*56, C = 256) stands for K3
     main_k3 = k3[(torch.bfloat16, RESNET_BATCH * 56 * 56, 256)]
-    resnet_paths = ("resnet_train", "resnet_output")
+    resnet_paths = ("resnet_train", "resnet_output", "resnet_fitscan")
     main_k1 = k1[(torch.bfloat16, 1, 2048, 64)]    # a dense prefill's shape
     train_k1 = k1[(torch.bfloat16, 32, 1024, 64)]  # the train path's shape
     main_k2 = k2[torch.bfloat16]
@@ -2290,7 +2672,10 @@ def main():
     ]
     if args.profile:
         profile_decode()
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels, "launches_counted": (
+        "train paths replay CUDA graphs: an eager step and a capture count "
+        "their wrappers' launches, each replay its capture's (launches per "
+        "replay x replays)")}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,12 +18,20 @@ What is ported so far:
 - ``nn``, ``train``, ``data``, ``zoo.resnet`` — the DL4J layer API that
   ResNet-50 needs, through ``ComputationGraph.fit`` / ``output``;
 - ``kernels.fused_ops`` — fused BatchNorm + activation (K3): normalize,
-  batch stats, backward reduce and backward dx kernels.
+  batch stats, backward reduce and backward dx kernels;
+- ``nn.MultiLayerNetwork`` with the recurrent layers and LeNet, and
+  ``kernels.fused_lstm`` — the whole-sequence LSTM kernel (K4);
+- ``nn._compiled`` — the compiled train step (the counterpart of
+  ``jax.jit`` with donation): ``fit``, ``fit_scanned`` and the LM's
+  ``make_train_step`` replay CUDA graphs on the card, and
+  :func:`disable_graphs` (the counterpart of ``jax.disable_jit``) keeps
+  them eager.
 
 Entry points take ``device=None``, which means the CUDA card; without one
 they raise unless the caller passed ``device="cpu"``.
 """
 
 from ._device import resolve_device
+from .nn._compiled import disable_graphs
 
-__all__ = ["resolve_device"]
+__all__ = ["disable_graphs", "resolve_device"]

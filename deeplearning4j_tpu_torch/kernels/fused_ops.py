@@ -335,9 +335,19 @@ _COUNTERS = {}
 
 
 def _counters(device, stream, tiles):
+    """This stream's counters, allocated on its first use. A CUDA graph
+    capture must find them allocated (by an eager step on the capture
+    stream, as ``nn/_compiled.py`` runs first): allocated inside the
+    capture they would come from the graph's pool and be zeroed only by
+    the capture's own memset."""
     key = (device.index, stream)
     buf = _COUNTERS.get(key)
     if buf is None or buf.numel() < tiles:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "K3's arrival counters for the capturing stream are not "
+                f"allocated for {tiles} channel tiles: run one eager step "
+                "on that stream before the capture")
         buf = torch.zeros(max(64, tiles), dtype=torch.int32, device=device)
         _COUNTERS[key] = buf
     return buf

@@ -1,0 +1,207 @@
+"""Compiled train steps: the port's counterpart of ``jax.jit`` with
+``donate_argnums`` (the reference compiles every step that way:
+``nn/computation_graph.py:542``, ``nn/multi_layer_network.py:397``,
+``zoo/transformer.py``'s ``make_train_step``).
+
+A *static step* is a callable ``step(*batch) -> loss`` that reads one
+batch (a tuple of tensors, ``None`` for an absent mask) and writes
+everything it trains back in place: the params, the optimizer state, the
+running states. What it allocates for itself may come from a graph's
+pool; nothing the next step reads may.
+
+:class:`CompiledStep` runs one:
+
+- on the CPU, and on CUDA under :func:`disable_graphs`, it calls the step
+  directly (the eager path; the CPU tests thus run the very code that CUDA
+  captures);
+- on CUDA, per input signature (each batch tensor's shape, dtype and
+  device, and which are ``None``): the first call runs the step eagerly
+  on the step's own side stream, as a real training step. That builds the
+  kernels, sets their attributes and allocates per-stream state (K3's
+  arrival counters) before any capture. The second call copies the batch
+  into static input buffers, captures the step into a
+  ``torch.cuda.CUDAGraph`` on the side stream and replays it. Every later
+  call copies the batch in and replays. All graphs of one
+  ``CompiledStep`` share one memory pool, and a call returns a fresh copy
+  of the loss.
+
+A replay runs the kernels the capture recorded on the same buffers, so
+the trajectory is the eager one, step for step. Before each replay the
+step's bindings (the tensors it updates in place, and the host values it
+bakes in) are checked by identity: after a rebinding (``net.params = ...``,
+a new optimizer, a changed learning rate) every graph is dropped and the
+next call of each signature starts again with an eager step.
+
+A failed capture raises :class:`CaptureError` chained to the error of the
+op that failed (a host sync, a pageable copy, an allocation the capture
+forbids). Nothing falls back to eager on its own: the eager path on CUDA
+is only ever :func:`disable_graphs`.
+
+The Python launch counters of the kernel wrappers do not move during a
+replay (the wrappers do not run): a capture counts one replay's launches.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+_DISABLED = 0
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """Run every compiled step eagerly inside the block (the counterpart
+    of ``jax.disable_jit()``). Graphs already captured are kept, and used
+    again after the block."""
+    global _DISABLED
+    _DISABLED += 1
+    try:
+        yield
+    finally:
+        _DISABLED -= 1
+
+
+def graphs_enabled() -> bool:
+    return _DISABLED == 0
+
+
+class CaptureError(RuntimeError):
+    """Capturing a step as a CUDA graph failed; ``__cause__`` is the
+    error of the op that failed."""
+
+
+def tensors(tree):
+    """The tensors of nested dicts (sorted keys), tuples and lists, in
+    order; other leaves are left out."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tensors(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [t for v in tree for t in tensors(v)]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def copy_into(dst, src):
+    """``dst.copy_(src)`` over two trees of one structure, skipping the
+    leaves that are already the same tensor."""
+    if isinstance(dst, dict):
+        for k in dst:
+            copy_into(dst[k], src[k])
+    elif src is not dst:
+        dst.copy_(src)
+
+
+def _same(a, b):
+    """Two binding lists hold the same objects, in order."""
+    return b is not None and len(a) == len(b) and all(
+        x is y for x, y in zip(a, b))
+
+
+class _Graph:
+    __slots__ = ("graph", "inputs", "out")
+
+
+class CompiledStep:
+    """One static step's graph cache (see the module docstring).
+
+    ``bindings()`` returns the objects the step updates in place or bakes
+    into a capture; ``name`` goes into error messages. ``last`` says how
+    the latest call ran ("direct", "eager", "capture" or "replay"; a
+    "capture" call also replays once) and ``calls`` counts each kind."""
+
+    def __init__(self, step, bindings, name):
+        self.step, self.bindings, self.name = step, bindings, name
+        self.last = None
+        self.calls = dict.fromkeys(("direct", "eager", "capture", "replay"),
+                                   0)
+        self._graphs = {}
+        self._bound = None
+        self._stream = None
+        self._pool = None
+
+    def reset(self):
+        """Drop every graph: each signature's next call is eager again."""
+        self._graphs = {}
+        self._bound = None
+
+    def _note(self, kind):
+        self.last = kind
+        self.calls[kind] += 1
+
+    def __call__(self, *batch):
+        dev = next(t.device for t in batch if t is not None)
+        if dev.type != "cuda" or not graphs_enabled():
+            self._note("direct")
+            return self.step(*batch)
+        bound = list(self.bindings())
+        if not _same(bound, self._bound):
+            self.reset()
+            self._bound = bound
+        key = tuple(None if t is None else (tuple(t.shape), t.dtype, t.device)
+                    for t in batch)
+        g = self._graphs.get(key)
+        if g is None:
+            self._graphs[key] = False
+            self._note("eager")
+            out = self._eager(dev, batch)
+            # the step may have allocated state lazily (torch.optim's):
+            # graphs captured before it would not see that state
+            after = list(self.bindings())
+            if not _same(after, bound):
+                self._graphs = {key: False}
+            self._bound = after
+            return out
+        if g is False:
+            g = self._graphs[key] = self._capture(dev, batch)
+            self._note("capture")
+        else:
+            for s, t in zip(g.inputs, batch):
+                if s is not None:
+                    s.copy_(t)
+            self._note("replay")
+        g.graph.replay()
+        return g.out.clone()
+
+    def _side_stream(self, dev):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device=dev)
+        return self._stream
+
+    def _eager(self, dev, batch):
+        """One real step on the side stream, ordered after and before the
+        caller's stream."""
+        cur = torch.cuda.current_stream(dev)
+        side = self._side_stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            out = self.step(*batch)
+        cur.wait_stream(side)
+        return out
+
+    def _capture(self, dev, batch):
+        g = _Graph()
+        g.inputs = [None if t is None else t.clone() for t in batch]
+        g.graph = torch.cuda.CUDAGraph()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        failed = None
+        prev = torch.cuda.current_stream(dev)
+        try:
+            with torch.cuda.graph(g.graph, pool=self._pool,
+                                  stream=self._side_stream(dev)):
+                try:
+                    g.out = self.step(*g.inputs)
+                except Exception as e:      # noqa: BLE001 — re-raised below
+                    failed = e
+                    raise
+        except Exception as e:              # noqa: BLE001 — re-raised
+            # a failed capture_end leaves the capture stream current
+            torch.cuda.set_stream(prev)
+            cause = failed if failed is not None else e
+            raise CaptureError(
+                f"{self.name}: capturing the step as a CUDA graph failed "
+                f"({type(cause).__name__}: {cause}). The step does not fall "
+                "back to eager; run it under deeplearning4j_tpu_torch."
+                "disable_graphs() to train eagerly") from cause
+        return g

@@ -1,13 +1,21 @@
 """ComputationGraph — port of ``deeplearning4j_tpu/nn/computation_graph.py``
-(DAG network runtime: init / fit / output / score).
+(DAG network runtime: init / fit / fit_scanned / output / score).
 
-The topological order runs eagerly on one device. A train step:
+The topological order runs on one device. A train step
+(:meth:`_train_step`, the static step of ``nn/_compiled.py``) updates
+everything in place:
 
-1. the loss, with autograd on the leaves of ``params``;
-2. the functional updater (``train/updaters.py``) under ``no_grad``,
-   its updates added to the params in place;
-3. constraints, if any are set (not ported yet: one that is set raises);
-4. ``states`` replaced by the detached new states.
+1. the loss, with ``torch.autograd.grad`` on the leaves of ``params``;
+2. the in-place updater (``train/updaters.py``) under ``no_grad``, its
+   updates added to the params with one ``_foreach_add_`` per dtype;
+3. the new running states copied into ``states``.
+
+Constraints, if any are set, raise before the first step (not ported
+yet). ``fit`` and ``fit_scanned`` run the step through a
+:class:`CompiledStep`: on CUDA each batch signature's first step is eager,
+its second is captured as a CUDA graph, and later steps replay it
+(``disable_graphs()`` keeps every step eager); on the CPU the step is
+called directly.
 
 ``device=None`` means the CUDA card (``_device.resolve_device``); only an
 explicit ``"cpu"`` runs on the host. Params and states are nested dicts
@@ -15,10 +23,9 @@ of tensors in the reference's layout, so :func:`params_from_numpy` takes
 the JAX net's ``net.params`` / ``net.states`` as numpy trees.
 
 Not ported yet (raise where the reference has the knob): remat segments,
-``fit_scanned``, ``rnn_time_step``, gradient-anomaly detection,
-``evaluate``, ``save``/``load``, ``clone``, dropout and weight noise,
-multi-input layers, and async prefetch of the iterator (``fit`` iterates
-directly).
+``rnn_time_step``, gradient-anomaly detection, ``evaluate``,
+``save``/``load``, ``clone``, dropout and weight noise, multi-input
+layers, and async prefetch of the iterator (``fit`` iterates directly).
 """
 
 from __future__ import annotations
@@ -29,11 +36,14 @@ import numpy as np
 import torch
 
 from .._device import resolve_device, tree_to
-from ..train.updaters import NoOp, build_optimizer, tree_leaves, tree_map
+from ..train.updaters import (NoOp, apply_updates, build_optimizer,
+                              tree_leaves, tree_map)
+from ._compiled import CompiledStep, copy_into, tensors
+from ._scan_common import check_scan_listeners, replay_scan_listeners
 from .graph import ComputationGraphConfiguration
 from .layers.base import Ctx, Layer
 from .layers.core import LossLayer, OutputLayer
-from .multi_layer_network import _is_ff_layer
+from .multi_layer_network import _is_ff_layer, _unflatten
 from .preprocessors import CnnToFeedForwardPreProcessor
 
 
@@ -71,6 +81,7 @@ class ComputationGraph:
         self._gen = torch.Generator().manual_seed(self._g.seed)
         self.output_loss_weights = {name: 1.0 for name in conf.outputs}
         self._remat_segments = None
+        self._step_fn = None
 
     @property
     def remat_segments(self):
@@ -282,23 +293,38 @@ class ComputationGraph:
                     "train/constraints.py) are not ported yet")
 
     def _train_step(self, inputs, labels, fmask, lmask):
-        names = [(n, k) for n in sorted(self.params)
-                 for k in sorted(self.params[n])]
-        leaves = [self.params[n][k] for n, k in names]
+        """The static step: one batch, the params, the updater's state and
+        the running states updated in place. Returns the loss (0-d)."""
+        leaves = tree_leaves(self.params)
         loss, new_states = self._loss(self.params, self.states, inputs,
                                       labels, self._gen, fmask, lmask)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        gtree = {n: {} for n in self.params}
-        for (n, k), p, g in zip(names, leaves, grads):
-            gtree[n][k] = torch.zeros_like(p) if g is None else g
+        gtree = _unflatten(self.params, iter(
+            torch.zeros_like(p) if g is None else g
+            for p, g in zip(leaves, grads)))
         with torch.no_grad():
-            updates, self._opt_state = self._optimizer.update(
-                gtree, self._opt_state, self.params)
-            for (n, k), p in zip(names, leaves):
-                p.add_(updates[n][k].to(p.dtype))
-        self._apply_constraints()
-        self.states = tree_map(lambda t: t.detach(), new_states)
+            updates, _ = self._optimizer.update(gtree, self._opt_state,
+                                                self.params)
+            apply_updates(leaves, tree_leaves(updates))
+            copy_into(self.states, new_states)
         return loss.detach()
+
+    def _compiled_step(self):
+        """The net's :class:`CompiledStep` over :meth:`_train_step`, fed
+        the batch as (inputs in ``conf.inputs`` order, labels in
+        ``conf.outputs`` order, features mask, labels mask)."""
+        if self._step_fn is None:
+            ins, outs = self.conf.inputs, self.conf.outputs
+
+            def step(*flat):
+                return self._train_step(
+                    dict(zip(ins, flat[:len(ins)])),
+                    dict(zip(outs, flat[len(ins):-2])), flat[-2], flat[-1])
+            self._step_fn = CompiledStep(
+                step,
+                lambda: tensors((self.params, self.states, self._opt_state)),
+                "ComputationGraph")
+        return self._step_fn
 
     def enable_gradient_anomaly_detection(self, detector=None):
         raise NotImplementedError(
@@ -336,11 +362,65 @@ class ComputationGraph:
         return None if last is None else float(last)
 
     def fit_scanned(self, data, *, epochs: int = 1):
-        raise NotImplementedError(
-            "ComputationGraph.fit_scanned is not ported yet; use fit()")
+        """The reference's epoch loop in one dispatch
+        (``computation_graph.py:596``), here one replay of the compiled
+        step a batch, with ``MultiLayerNetwork.fit_scanned``'s contract:
+        the batches stacked once on the device and fed by device-to-device
+        copies, equally shaped and mask-free; listeners that take deferred
+        scores, replayed from the epoch's losses (one fetch an epoch); the
+        trajectory of ``fit``, bit for bit. Returns the last loss as a
+        float."""
+        from ..data.dataset import DataSet, MultiDataSet
+        if isinstance(data, (DataSet, MultiDataSet)):
+            batches = [data]
+        else:
+            batches = list(data)
+        if not batches:
+            return None
+
+        def unpack(ds):
+            if isinstance(ds, MultiDataSet):
+                if ds.features_masks is not None or \
+                        ds.labels_masks is not None:
+                    raise ValueError("fit_scanned does not support masked "
+                                     "batches; use fit()")
+                return ds.features, ds.labels
+            if ds.features_mask is not None or ds.labels_mask is not None:
+                raise ValueError("fit_scanned does not support masked "
+                                 "batches; use fit()")
+            return [ds.features], [ds.labels]
+
+        pairs = [unpack(ds) for ds in batches]
+        shapes = {tuple(tuple(a.shape) for a in (*fs, *ls))
+                  for fs, ls in pairs}
+        if len(shapes) > 1:
+            raise ValueError("fit_scanned needs equally-shaped batches; "
+                             "use fit()")
+        check_scan_listeners(self)
+        if not self.initialized:
+            self.init([tuple(f.shape[1:]) for f in pairs[0][0]])
+        if self._optimizer is None:
+            self._build_optimizer(max(len(batches), 1))
+        self._apply_constraints()
+        # one (K, B, ...) tensor per input, then per output
+        cols = [[fs[i] for fs, _ in pairs] for i in range(len(pairs[0][0]))] \
+            + [[ls[i] for _, ls in pairs] for i in range(len(pairs[0][1]))]
+        stacked = [torch.stack([self._to_device(a) for a in col])
+                   for col in cols]
+        step = self._compiled_step()
+        losses = None
+        for _ in range(epochs):
+            losses = torch.stack([step(*(a[k] for a in stacked), None, None)
+                                  for k in range(len(batches))])
+            self._step_count += len(batches)
+            self.epoch_count += 1
+            replay_scan_listeners(self, losses, len(batches))
+        return float(losses[-1])
 
     def _fit_epochs(self, iterator, epochs):
         from ..data.dataset import MultiDataSet
+        self._apply_constraints()
+        step = self._compiled_step()
         last = None
         for e in range(epochs):
             for ds in iterator:
@@ -353,13 +433,10 @@ class ComputationGraph:
                 else:
                     feats, labs = [ds.features], [ds.labels]
                     fmask, lmask = ds.features_mask, ds.labels_mask
-                inputs = {n: self._to_device(f)
-                          for n, f in zip(self.conf.inputs, feats)}
-                labels = {n: self._to_device(l)
-                          for n, l in zip(self.conf.outputs, labs)}
                 fm = None if fmask is None else self._to_device(fmask)
                 lm = None if lmask is None else self._to_device(lmask)
-                loss = self._train_step(inputs, labels, fm, lm)
+                loss = step(*(self._to_device(a) for a in (*feats, *labs)),
+                            fm, lm)
                 self._step_count += 1
                 last = loss
                 if self.listeners:

@@ -1,14 +1,20 @@
 """MultiLayerNetwork — port of ``deeplearning4j_tpu/nn/multi_layer_network.py``
-(the sequential network: init / fit / output / score / rnn_time_step).
+(the sequential network: init / fit / fit_scanned / output / score /
+rnn_time_step).
 
-The layer stack runs eagerly on one device. A train step, as in the
-port's ``ComputationGraph``:
+The layer stack runs on one device. A train step (:meth:`_train_step`,
+the static step of ``nn/_compiled.py``) updates everything in place:
 
-1. the loss (output head and L1/L2 terms), with autograd on the leaves
-   of ``params``;
-2. the functional updater (``train/updaters.py``) under ``no_grad``,
-   its updates added to the params in place;
-3. ``states`` replaced by the detached new states.
+1. the loss (output head and L1/L2 terms), with ``torch.autograd.grad``
+   on the leaves of ``params``;
+2. the in-place updater (``train/updaters.py``) under ``no_grad``, its
+   updates added to the params with one ``_foreach_add_`` per dtype;
+3. the new running states copied into ``states``.
+
+``fit`` and ``fit_scanned`` run it through a :class:`CompiledStep`: on
+CUDA each batch signature's first step is eager, its second is captured
+as a CUDA graph, and later steps replay it (``disable_graphs()`` keeps
+every step eager); on the CPU the step is called directly.
 
 ``device=None`` means the CUDA card (``_device.resolve_device``); only an
 explicit ``"cpu"`` runs on the host. Params and states are nested dicts
@@ -17,10 +23,9 @@ explicit ``"cpu"`` runs on the host. Params and states are nested dicts
 ``net.states`` as numpy trees.
 
 Not ported yet (raise where the reference has the knob): remat segments,
-``fit_scanned``, gradient-anomaly detection, ``evaluate*``,
-``save``/``load``, ``clone``, dropout and weight noise, constraints,
-listeners' deferred score fetch, and async prefetch of the iterator
-(``fit`` iterates directly).
+gradient-anomaly detection, ``evaluate*``, ``save``/``load``, ``clone``,
+dropout and weight noise, constraints, listeners' deferred score fetch in
+``fit``, and async prefetch of the iterator (``fit`` iterates directly).
 """
 
 from __future__ import annotations
@@ -30,7 +35,10 @@ from typing import Any, Dict, List
 import torch
 
 from .._device import resolve_device, tree_to
-from ..train.updaters import NoOp, build_optimizer, tree_leaves, tree_map
+from ..train.updaters import (NoOp, apply_updates, build_optimizer,
+                              tree_leaves, tree_map)
+from ._compiled import CompiledStep, copy_into, tensors
+from ._scan_common import check_scan_listeners, replay_scan_listeners
 from .conf import MultiLayerConfiguration
 from .layers.base import Ctx, Layer
 from .layers.core import DenseLayer, LossLayer, OutputLayer
@@ -79,6 +87,7 @@ class MultiLayerNetwork:
         self._remat_segments = None
         self._rnn_carries = None
         self._rnn_carry_batch = None
+        self._step_fn = None
 
     @property
     def remat_segments(self):
@@ -274,15 +283,24 @@ class MultiLayerNetwork:
         return loss, new_states, gtree
 
     def _train_step(self, x, y, fmask, lmask):
-        self._check_constraints()
+        """The static step: one batch, the params, the updater's state and
+        the running states updated in place. Returns the loss (0-d)."""
         loss, new_states, grads = self._grads(x, y, fmask, lmask)
         with torch.no_grad():
-            updates, self._opt_state = self._optimizer.update(
-                grads, self._opt_state, self.params)
-            for p, u in zip(tree_leaves(self.params), tree_leaves(updates)):
-                p.add_(u.to(p.dtype))
-        self.states = tree_map(lambda t: t.detach(), new_states)
+            updates, _ = self._optimizer.update(grads, self._opt_state,
+                                                self.params)
+            apply_updates(tree_leaves(self.params), tree_leaves(updates))
+            copy_into(self.states, new_states)
         return loss.detach()
+
+    def _compiled_step(self):
+        """The net's :class:`CompiledStep` over :meth:`_train_step`."""
+        if self._step_fn is None:
+            self._step_fn = CompiledStep(
+                self._train_step,
+                lambda: tensors((self.params, self.states, self._opt_state)),
+                "MultiLayerNetwork")
+        return self._step_fn
 
     def enable_gradient_anomaly_detection(self, detector=None):
         _not_ported("enable_gradient_anomaly_detection "
@@ -313,15 +331,16 @@ class MultiLayerNetwork:
                 ipe = 1
             self._iters_per_epoch = max(int(ipe), 1)
             self._build_optimizer(self._iters_per_epoch)
+        self._check_constraints()
+        step = self._compiled_step()
         last = None
         for _ in range(epochs):
             for ds in iterator:
                 x = self._to_device(ds.features)
                 self._last_batch_size = int(x.shape[0])
-                loss = self._train_step(
-                    x, self._to_device(ds.labels),
-                    self._to_device(ds.features_mask),
-                    self._to_device(ds.labels_mask))
+                loss = step(x, self._to_device(ds.labels),
+                            self._to_device(ds.features_mask),
+                            self._to_device(ds.labels_mask))
                 self._step_count += 1
                 last = loss
                 if self.listeners:
@@ -338,7 +357,48 @@ class MultiLayerNetwork:
         return None if last is None else float(last)
 
     def fit_scanned(self, data, *, epochs: int = 1):
-        _not_ported("fit_scanned")
+        """The reference's epoch loop in one dispatch
+        (``multi_layer_network.py:538``), here one replay of the compiled
+        step a batch: the epoch's batches are stacked once on the device,
+        each step is fed by a device-to-device copy into the graph's
+        inputs, and the epoch's losses are gathered in one tensor and
+        fetched once, after its last step. The trajectory is ``fit``'s,
+        bit for bit. Batches must be equally shaped and mask-free, and
+        every listener must take deferred scores (``deferred_score_ok``):
+        they are replayed from the losses after the epoch. Returns the
+        last loss as a float."""
+        from ..data.dataset import DataSet
+        batches = [data] if isinstance(data, DataSet) else list(data)
+        if not batches:
+            return None
+        if any(b.features_mask is not None or b.labels_mask is not None
+               for b in batches):
+            raise ValueError("fit_scanned does not support masked batches; "
+                             "use fit()")
+        shapes = {(tuple(b.features.shape), tuple(b.labels.shape))
+                  for b in batches}
+        if len(shapes) > 1:
+            raise ValueError(f"fit_scanned needs equally-shaped batches, "
+                             f"got {sorted(shapes)}; use fit()")
+        check_scan_listeners(self)
+        if not self.initialized:
+            self.init(tuple(batches[0].features.shape[1:]))
+        if self._optimizer is None:
+            self._iters_per_epoch = len(batches)
+            self._build_optimizer(self._iters_per_epoch)
+        self._check_constraints()
+        xs = torch.stack([self._to_device(b.features) for b in batches])
+        ys = torch.stack([self._to_device(b.labels) for b in batches])
+        self._last_batch_size = int(xs.shape[1])
+        step = self._compiled_step()
+        losses = None
+        for _ in range(epochs):
+            losses = torch.stack([step(xs[i], ys[i], None, None)
+                                  for i in range(len(batches))])
+            self._step_count += len(batches)
+            self.epoch_count += 1
+            replay_scan_listeners(self, losses, len(batches))
+        return float(losses[-1])
 
     # ---------------------------------------------------------------- score
     def score(self, dataset=None):

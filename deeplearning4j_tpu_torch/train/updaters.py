@@ -1,16 +1,31 @@
 """Updaters — port of ``deeplearning4j_tpu/train/updaters.py``.
 
 The reference builds optax chains. Here each updater is the same config
-dataclass, and ``to_transform()`` gives a functional
-:class:`GradientTransformation`: ``init(params) -> state`` and
-``update(grads, state, params) -> (updates, state)`` over nested dicts of
-tensors, with optax's semantics, not ``torch.optim``'s: ``Sgd`` scales by
-−lr; ``Momentum``/``Nesterovs`` keep optax's trace ``v = g + m·v``
-(v₀ = 0); ``Adam`` keeps eps outside the square root; ``AdamW`` adds
-``wd·p`` to the Adam direction before the −lr scale. Updates are applied
-by the caller (``p += u``). :func:`build_optimizer` composes
-gradient normalization → L2 → L1 → weight decay → the updater (or a
-per-label ``multi_transform``), as the reference does.
+dataclass, and ``to_transform()`` gives a :class:`GradientTransformation`
+with optax's semantics, not ``torch.optim``'s: ``Sgd`` scales by −lr;
+``Momentum``/``Nesterovs`` keep optax's trace ``v = g + m·v`` (v₀ = 0);
+``Adam`` keeps eps outside the square root and its step ``count`` as an
+int32 device tensor; ``AdamW`` adds ``wd·p`` to the Adam direction before
+the −lr scale. :func:`build_optimizer` composes gradient normalization →
+L2 → L1 → weight decay → the updater (or a per-label
+``multi_transform``), as the reference does.
+
+Unlike optax, everything happens in place, so that one train step can
+be captured as a CUDA graph and replayed (``nn/_compiled.py``):
+
+- ``init(params)`` allocates the state's tensors once, on the params'
+  device;
+- ``update(grads, state, params) -> (updates, state)`` overwrites the
+  leaves of ``grads`` with the updates and the state's tensors with the
+  new state, and returns the same two objects. The caller hands its
+  grads over. Each transform is a few ``torch._foreach_*`` calls over the
+  leaves it sees (the leaves of one label group under
+  ``multi_transform``) and reads nothing back to the host;
+- :func:`apply_updates` adds the updates to the params, one
+  ``_foreach_add_`` per dtype group.
+
+Trees are nested dicts of tensors, their leaves in sorted-key order
+(:func:`tree_leaves`), as ``jax.tree_util`` flattens a dict.
 
 Not ported yet (raise): learning-rate ``Schedule`` objects, AMSGrad,
 Nadam, AdaMax, AdaDelta, AdaGrad, RmsProp, Lion, Lamb.
@@ -50,6 +65,30 @@ def _zeros_like(tree, dtype=None):
     return tree_map(lambda p: torch.zeros_like(p, dtype=dtype), tree)
 
 
+def apply_updates(params, updates):
+    """``p += u`` over two aligned leaf lists, in place: one
+    ``_foreach_add_`` per parameter dtype, each update cast to its
+    param's dtype first."""
+    groups = {}
+    for p, u in zip(params, updates):
+        ps, us = groups.setdefault(p.dtype, ([], []))
+        ps.append(p)
+        us.append(u if u.dtype == p.dtype else u.to(p.dtype))
+    for ps, us in groups.values():
+        torch._foreach_add_(ps, us)
+
+
+def _stateless(fn):
+    """A transform without state whose ``fn(leaves, param_leaves)``
+    overwrites the update leaves in place (never called on none)."""
+    def update(u, state, params=None):
+        us = tree_leaves(u)
+        if us:
+            fn(us, None if params is None else tree_leaves(params))
+        return u, state
+    return GradientTransformation(lambda params: (), update)
+
+
 # --------------------------------------------------------------- transforms
 
 def identity() -> GradientTransformation:
@@ -58,9 +97,7 @@ def identity() -> GradientTransformation:
 
 
 def scale(step_size: float) -> GradientTransformation:
-    def update(u, state, params=None):
-        return tree_map(lambda g: step_size * g, u), state
-    return GradientTransformation(lambda params: (), update)
+    return _stateless(lambda us, ps: torch._foreach_mul_(us, step_size))
 
 
 def scale_by_learning_rate(lr) -> GradientTransformation:
@@ -74,57 +111,83 @@ def scale_by_learning_rate(lr) -> GradientTransformation:
 def trace(decay: float, nesterov: bool = False,
           accumulator_dtype=None) -> GradientTransformation:
     """optax.trace: t ← g + decay·t; the update is t (or g + decay·t with
-    Nesterov)."""
+    Nesterov). With an ``accumulator_dtype`` the sum is taken in the
+    grads' dtype and only the stored trace is rounded to it."""
     def init(params):
         return {"trace": _zeros_like(params, accumulator_dtype)}
 
     def update(u, state, params=None):
-        f = lambda g, t: g + decay * t  # noqa: E731
-        new_trace = tree_map(f, u, state["trace"])
-        out = tree_map(f, u, new_trace) if nesterov else new_trace
-        if accumulator_dtype is not None:
-            new_trace = tree_map(lambda t: t.to(accumulator_dtype), new_trace)
-        return out, {"trace": new_trace}
+        us, ts = tree_leaves(u), tree_leaves(state["trace"])
+        if not us:
+            return u, state
+        if accumulator_dtype is None:
+            torch._foreach_mul_(ts, decay)
+            torch._foreach_add_(ts, us)
+            new = ts
+        else:
+            new = torch._foreach_add(
+                us, [t.to(g.dtype) for t, g in zip(ts, us)], alpha=decay)
+            torch._foreach_copy_(ts, new)
+        if nesterov:
+            torch._foreach_add_(us, new, alpha=decay)
+        else:
+            torch._foreach_copy_(us, new)
+        return u, state
     return GradientTransformation(init, update)
 
 
 def scale_by_adam(b1=0.9, b2=0.999, eps=1e-8) -> GradientTransformation:
-    """optax.scale_by_adam (eps_root 0): bias-corrected m / (sqrt(v) + eps)."""
+    """optax.scale_by_adam (eps_root 0): bias-corrected m / (sqrt(v) + eps).
+    ``count`` is an int32 0-d tensor on the params' device, and the bias
+    corrections ``1 − βᵏ`` are computed there."""
     def init(params):
-        return {"count": 0, "mu": _zeros_like(params),
-                "nu": _zeros_like(params)}
+        leaves = tree_leaves(params)
+        dev = leaves[0].device if leaves else None
+        return {"count": torch.zeros((), dtype=torch.int32, device=dev),
+                "mu": _zeros_like(params), "nu": _zeros_like(params)}
 
     def update(u, state, params=None):
-        mu = tree_map(lambda g, t: (1 - b1) * g + b1 * t, u, state["mu"])
-        nu = tree_map(lambda g, t: (1 - b2) * (g ** 2) + b2 * t, u,
-                      state["nu"])
-        count = state["count"] + 1
-        c1 = 1 - torch.tensor(b1, dtype=torch.float32) ** count
-        c2 = 1 - torch.tensor(b2, dtype=torch.float32) ** count
-        out = tree_map(lambda m, v: (m / c1.to(m.device, m.dtype))
-                       / (torch.sqrt(v / c2.to(v.device, v.dtype)) + eps),
-                       mu, nu)
-        return out, {"count": count, "mu": mu, "nu": nu}
+        us = tree_leaves(u)
+        if not us:
+            return u, state
+        mu, nu = tree_leaves(state["mu"]), tree_leaves(state["nu"])
+        torch._foreach_mul_(mu, b1)
+        torch._foreach_add_(mu, us, alpha=1 - b1)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_addcmul_(nu, us, us, value=1 - b2)
+        count = state["count"]
+        count.add_(1)
+        k = count.float()
+        den = torch._foreach_div(nu, 1 - b2 ** k)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, eps)
+        torch._foreach_copy_(us, mu)
+        torch._foreach_div_(us, 1 - b1 ** k)
+        torch._foreach_div_(us, den)
+        return u, state
     return GradientTransformation(init, update)
 
 
 def add_decayed_weights(weight_decay: float) -> GradientTransformation:
-    def update(u, state, params=None):
-        return tree_map(lambda g, p: g + weight_decay * p, u, params), state
-    return GradientTransformation(lambda params: (), update)
+    return _stateless(
+        lambda us, ps: torch._foreach_add_(us, ps, alpha=weight_decay))
+
+
+def add_l1_sign(l1: float) -> GradientTransformation:
+    """g + l1·sign(p): the L1 regularization gradient."""
+    return _stateless(lambda us, ps: torch._foreach_add_(
+        us, torch._foreach_sign(ps), alpha=l1))
 
 
 def set_to_zero() -> GradientTransformation:
-    return GradientTransformation(
-        lambda params: (),
-        lambda u, state, params=None: (tree_map(torch.zeros_like, u), state))
+    return _stateless(lambda us, ps: torch._foreach_zero_(us))
 
 
 def clip(max_delta: float) -> GradientTransformation:
-    def update(u, state, params=None):
-        return tree_map(lambda g: torch.clamp(g, -max_delta, max_delta),
-                        u), state
-    return GradientTransformation(lambda params: (), update)
+    def fn(us, ps):
+        torch._foreach_clamp_min_(us, -max_delta)
+        torch._foreach_clamp_max_(us, max_delta)
+    return _stateless(fn)
 
 
 def chain(*transforms) -> GradientTransformation:
@@ -132,42 +195,32 @@ def chain(*transforms) -> GradientTransformation:
         return tuple(t.init(params) for t in transforms)
 
     def update(u, state, params=None):
-        new_state = []
         for t, s in zip(transforms, state):
-            u, s = t.update(u, s, params)
-            new_state.append(s)
-        return u, tuple(new_state)
+            u, _ = t.update(u, s, params)
+        return u, state
     return GradientTransformation(init, update)
 
 
 def multi_transform(transforms, param_labels) -> GradientTransformation:
     """optax.multi_transform: each leaf goes through the transform of its
-    label; every transform sees only its own leaves."""
+    label; every transform sees only its own leaves (and updates them in
+    place, so the result is ``u`` itself)."""
     def select(tree, lab, labels):
         if isinstance(tree, dict):
             out = {k: select(tree[k], lab, labels[k]) for k in tree}
             return {k: v for k, v in out.items() if v is not None}
         return tree if labels == lab else None
 
-    def merge(parts, labels, path=()):
-        if isinstance(labels, dict):
-            return {k: merge(parts, labels[k], path + (k,)) for k in labels}
-        leaf = parts[labels]
-        for k in path:
-            leaf = leaf[k]
-        return leaf
-
     def init(params):
         return {lab: t.init(select(params, lab, param_labels))
                 for lab, t in transforms.items()}
 
     def update(u, state, params=None):
-        parts, new_state = {}, {}
         for lab, t in transforms.items():
-            parts[lab], new_state[lab] = t.update(
-                select(u, lab, param_labels), state[lab],
-                None if params is None else select(params, lab, param_labels))
-        return merge(parts, param_labels), new_state
+            t.update(select(u, lab, param_labels), state[lab],
+                     None if params is None
+                     else select(params, lab, param_labels))
+        return u, state
     return GradientTransformation(init, update)
 
 
@@ -255,10 +308,22 @@ class GradientNormalization:
     CLIP_L2_PER_PARAM_TYPE = "clip_l2_per_param_type"
 
 
-def _map_transform(fn):
-    return GradientTransformation(
-        lambda params: (),
-        lambda u, state, params=None: (tree_map(fn, u), state))
+def _l2_norms(us):
+    """Each leaf's L2 norm, floored at 1e-8: a list of 0-d tensors."""
+    norms = torch._foreach_norm(us)
+    torch._foreach_clamp_min_(norms, 1e-8)
+    return norms
+
+
+def _clip_l2(threshold):
+    """u · min(threshold / ‖u‖, 1) per leaf: unchanged at or under the
+    threshold, scaled onto it above."""
+    def fn(us, ps):
+        factors = torch._foreach_reciprocal(_l2_norms(us))
+        torch._foreach_mul_(factors, threshold)
+        torch._foreach_clamp_max_(factors, 1.0)
+        torch._foreach_mul_(us, factors)
+    return _stateless(fn)
 
 
 def gradient_normalization(kind: str,
@@ -270,19 +335,13 @@ def gradient_normalization(kind: str,
         return identity()
     if kind in (GradientNormalization.RENORMALIZE_L2_PER_LAYER,
                 GradientNormalization.RENORMALIZE_L2_PER_PARAM_TYPE):
-        def renorm(u):
-            n = torch.sqrt(torch.sum(torch.square(u)))
-            return u / torch.clamp(n, min=1e-8)
-        return _map_transform(renorm)
+        return _stateless(
+            lambda us, ps: torch._foreach_div_(us, _l2_norms(us)))
     if kind == GradientNormalization.CLIP_ELEMENT_WISE_ABSOLUTE_VALUE:
         return clip(threshold)
     if kind in (GradientNormalization.CLIP_L2_PER_LAYER,
                 GradientNormalization.CLIP_L2_PER_PARAM_TYPE):
-        def clipl2(u):
-            n = torch.sqrt(torch.sum(torch.square(u)))
-            return torch.where(n > threshold,
-                               u * (threshold / torch.clamp(n, min=1e-8)), u)
-        return _map_transform(clipl2)
+        return _clip_l2(threshold)
     raise ValueError(f"Unknown gradient normalization: {kind}")
 
 
@@ -300,11 +359,7 @@ def build_optimizer(updater: Updater, *, grad_norm: str = "none",
     if l2:
         parts.append(add_decayed_weights(l2))
     if l1:
-        parts.append(GradientTransformation(
-            lambda params: (),
-            lambda u, state, params=None: (
-                tree_map(lambda g, p: g + l1 * torch.sign(p), u, params),
-                state)))
+        parts.append(add_l1_sign(l1))
     if weight_decay:
         parts.append(add_decayed_weights(weight_decay))
     if param_labels is not None and per_label_updaters:

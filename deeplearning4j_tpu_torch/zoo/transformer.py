@@ -208,11 +208,11 @@ def _xla_attention_bf16_scores(q, k, v, causal=True):
     q = (q.float() * scale).to(q.dtype)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
     if causal:
-        neg = torch.tensor(torch.finfo(torch.bfloat16).min / 2,
-                           dtype=torch.bfloat16, device=q.device)
+        # half the bf16 minimum is a bf16 value: the fill is exact
         mask = torch.tril(torch.ones((t, t), dtype=torch.bool,
                                      device=q.device))
-        logits = torch.where(mask, logits, neg)
+        logits = logits.masked_fill(~mask,
+                                    torch.finfo(torch.bfloat16).min / 2)
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
@@ -236,9 +236,10 @@ def _dense_mlp(cfg, x, w_in, w_out):
 def scale_embedding(cfg, x):
     """x · √d_model in the compute dtype. JAX multiplies a weakly-typed
     Python scalar, which takes the array's dtype first — so the constant
-    rounds to bf16 before the product, and so does it here."""
-    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                            device=x.device)
+    rounds to bf16 before the product, and so does it here. The constant
+    is a host scalar (a 0-d CPU tensor), never a copy to the card, so
+    that a captured step holds no host-to-device copy."""
+    return x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
 
 
 def embed(params, cfg: TransformerConfig, ids, pos_offset=0):
@@ -298,7 +299,10 @@ def _block(cfg, x, w):
 
 
 def _checkpoint(fn, *args, **kw):
-    return _ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+    # the LM draws no random numbers, so there is no RNG state to stash
+    # and restore (which a CUDA graph capture refuses)
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False,
+                            preserve_rng_state=False, **kw)
 
 
 def _save_ops(ops):
@@ -470,9 +474,20 @@ def param_leaves(params):
 
 def make_train_step(cfg: TransformerConfig, optimizer):
     """One training step: ``step(params, ids, targets) → loss`` runs
-    ``zero_grad``, the backward of :func:`lm_loss` and
+    ``zero_grad(set_to_none=True)``, the backward of :func:`lm_loss` and
     ``optimizer.step()``, updating the params dict's leaves in place.
     ``ids``/``targets`` (B, T) may be numpy or tensors.
+
+    The step is compiled (``nn/_compiled.py``, the counterpart of the
+    reference's ``jax.jit`` with donation): on CUDA the first call of an
+    (ids, targets) signature runs eagerly, the second is captured as a
+    CUDA graph — ``zero_grad``, the loss, the backward and the optimizer
+    step — and replayed, and later calls copy ids and targets into the
+    graph's static buffers and replay it. The optimizer must then be
+    capturable (``torch.optim.AdamW(..., capturable=True)``); one that is
+    not raises on CUDA. On the CPU, and under ``disable_graphs()``, every
+    call runs eagerly. After a replay the grads (``p.grad``) are the
+    graph's own buffers: read them after an eager step.
 
     The caller builds the optimizer over :func:`param_leaves`. The
     reference's ``optax.adamw(lr)`` is
@@ -482,17 +497,44 @@ def make_train_step(cfg: TransformerConfig, optimizer):
     1e-2) on every leaf, as optax's mask is None. Torch decays the
     params before the Adam update, optax adds ``wd·p`` to it; the two
     agree to rounding."""
+    from ..nn._compiled import CompiledStep, graphs_enabled, tensors
+
+    bound = {}
+
+    def static_step(ids, targets):
+        optimizer.zero_grad(set_to_none=True)
+        loss = lm_loss(bound["params"], cfg, ids, targets)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    def bindings():
+        # the params the step reads, the optimizer's params and state, and
+        # the host values (lr, betas, ...) a capture bakes in
+        groups = optimizer.param_groups
+        return [*tensors(bound["params"]),
+                *(p for g in groups for p in g["params"]),
+                *tensors(list(optimizer.state.values())),
+                *(g[k] for g in groups for k in sorted(g) if k != "params")]
+
+    compiled = CompiledStep(static_step, bindings, "make_train_step")
 
     def step(params, ids, targets):
         dev = params["embed"].device
         ids = torch.as_tensor(ids, device=dev).long()
         targets = torch.as_tensor(targets, device=dev).long()
-        optimizer.zero_grad(set_to_none=True)
-        loss = lm_loss(params, cfg, ids, targets)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        if dev.type == "cuda" and graphs_enabled() and not all(
+                g.get("capturable", False) for g in optimizer.param_groups):
+            raise ValueError(
+                "make_train_step captures the step as a CUDA graph on CUDA, "
+                f"and {type(optimizer).__name__} is not capturable: build "
+                "it with capturable=True (torch.optim.AdamW(..., "
+                "capturable=True)), or run the step under "
+                "deeplearning4j_tpu_torch.disable_graphs()")
+        bound["params"] = params
+        return compiled(ids, targets)
 
+    step.compiled = compiled
     return step
 
 

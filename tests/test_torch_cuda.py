@@ -682,3 +682,209 @@ def test_lstm_function_grads_match_plain_autograd(gen, dtype):
     assert fl.LAUNCHES == before + 1
     for a, b_ in zip(got, grads(fl.lstm_seq_reference)):
         torch.testing.assert_close(a, b_, atol=1e-6, rtol=0)
+
+
+# ------------------------------------------------- compiled steps (graphs)
+
+def _mln_on_card(layers, n_in, seed=0, updater=None):
+    from deeplearning4j_tpu_torch import nn, train
+    b = (nn.NeuralNetConfiguration.builder().seed(seed)
+         .updater(updater or train.Adam(1e-2)).list())
+    for layer in layers:
+        b = b.layer(layer)
+    return nn.MultiLayerNetwork(b.build()).init(n_in, device="cuda")
+
+
+def _fit_both_ways(make, batches, counters):
+    """Train two nets built by ``make`` on ``batches`` one step a fit
+    call: under ``disable_graphs()`` and with graphs. Returns the two
+    nets, their losses, each graph step's kind and the launch counters'
+    deltas of each graph step."""
+    import deeplearning4j_tpu_torch as tpkg
+    from deeplearning4j_tpu_torch.data import DataSet
+    eager, graph = make(), make()
+    le, lg, kinds, deltas = [], [], [], []
+    for x, y in batches:
+        with tpkg.disable_graphs():
+            le.append(eager.fit(DataSet(x, y)))
+        before = counters()
+        lg.append(graph.fit(DataSet(x, y)))
+        deltas.append(counters() - before)
+        kinds.append(graph._step_fn.last)
+    torch.cuda.synchronize()
+    assert eager._step_fn.calls["direct"] == len(batches)
+    return eager, graph, le, lg, kinds, deltas
+
+
+def _assert_nets_equal(a, b):
+    from deeplearning4j_tpu_torch.nn._compiled import tensors
+    for tree in ("params", "states", "_opt_state"):
+        ta, tb = tensors(getattr(a, tree)), tensors(getattr(b, tree))
+        assert len(ta) == len(tb)
+        for x, y in zip(ta, tb):
+            assert torch.equal(x, y), tree
+
+
+def test_graph_replay_equals_eager_with_k3(gen):
+    """An MLN with a fused BN (K3 in both passes): 5 fit steps replayed
+    from a CUDA graph (eager, capture, replay ×3) equal 5 steps under
+    ``disable_graphs()`` bit for bit (losses, params, running stats,
+    Adam's state). K3's wrappers run only at the eager step and the
+    capture (one stats, normalize, reduce and dx launch each), and the
+    arrival counters of the capture stream are zero after the replays."""
+    from deeplearning4j_tpu_torch import nn
+    x = [torch.randn((64, 24), generator=gen, device="cuda")
+         for _ in range(5)]
+    y = torch.eye(6, device="cuda")[torch.arange(64, device="cuda") % 6]
+
+    def make():
+        return _mln_on_card(
+            [nn.DenseLayer(n_in=24, n_out=32, activation="identity"),
+             nn.BatchNormalization(activation="relu", fused=True),
+             nn.OutputLayer(n_in=32, n_out=6, activation="softmax")],
+            (24,))
+
+    counts = lambda: torch.tensor([fo.LAUNCHES, fo.LAUNCHES_STATS,  # noqa
+                                   fo.LAUNCHES_BWD_REDUCE,
+                                   fo.LAUNCHES_BWD_DX])
+    eager, graph, le, lg, kinds, deltas = _fit_both_ways(
+        make, [(xi, y) for xi in x], counts)
+    assert kinds == ["eager", "capture", "replay", "replay", "replay"]
+    assert [d.tolist() for d in deltas] == [[1] * 4] * 2 + [[0] * 4] * 3
+    assert le == lg
+    _assert_nets_equal(eager, graph)
+    side = graph._step_fn._stream
+    buf = fo._COUNTERS[(torch.cuda.current_device(), side.cuda_stream)]
+    assert int(buf.abs().sum()) == 0
+
+
+def test_graph_replay_equals_eager_with_k4(gen):
+    """An MLN with a fused LSTM (K4) and an RNN output: 4 replayed steps
+    equal 4 eager ones bit for bit; K4 launches at the eager step and the
+    capture only."""
+    from deeplearning4j_tpu_torch import nn
+    eye = torch.eye(11, device="cuda")
+    idx = lambda: torch.randint(0, 11, (16, 9), generator=gen,  # noqa
+                                device="cuda")
+    batches = [(eye[idx()], eye[idx()]) for _ in range(4)]
+
+    def make():
+        net = _mln_on_card(
+            [nn.LSTM(n_in=11, n_out=32),
+             nn.RnnOutputLayer(n_in=32, n_out=11, activation="softmax",
+                               loss="mcxent")], (9, 11))
+        net.layers[0].fused = True
+        return net
+
+    eager, graph, le, lg, kinds, deltas = _fit_both_ways(
+        make, batches, lambda: torch.tensor(fl.LAUNCHES))
+    assert kinds == ["eager", "capture", "replay", "replay"]
+    assert [int(d) for d in deltas] == [1, 1, 0, 0]
+    assert le == lg
+    _assert_nets_equal(eager, graph)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_lm_step_replay_equals_eager_with_flash(gen, dtype):
+    """A small LM on the flash kernels (K1 twice a layer with remat
+    "save_attn", dQ and dK/dV once) and AdamW(capturable=True): 4 steps
+    of ``make_train_step`` replayed from a CUDA graph equal 4 under
+    ``disable_graphs()`` bit for bit, losses and params; the flash
+    wrappers run at the eager step and the capture only."""
+    import numpy as np
+
+    import deeplearning4j_tpu_torch as tpkg
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg = tfm.TransformerConfig(vocab_size=256, d_model=128, n_heads=2,
+                                n_layers=2, d_ff=256, max_seq=256,
+                                dtype=dtype, use_flash_attention=True,
+                                fused_loss=True, loss_chunk=128,
+                                remat=True, remat_policy="save_attn")
+    init = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cuda")
+    rng = np.random.default_rng(0)
+    batches = [tuple(rng.integers(0, 256, (2, 256)) for _ in range(2))
+               for _ in range(4)]
+    runs = {}
+    for way in ("eager", "graph"):
+        params = {k: (v.clone() if torch.is_tensor(v)
+                      else {n: w.clone() for n, w in v.items()})
+                  for k, v in init.items()}
+        opt = torch.optim.AdamW(tfm.param_leaves(params), lr=1e-3,
+                                weight_decay=1e-4, capturable=True)
+        step = tfm.make_train_step(cfg, opt)
+        losses, launches = [], []
+        for ids, tgt in batches:
+            before = fa.LAUNCHES + fa.LAUNCHES_BWD_DQ + fa.LAUNCHES_BWD_DKV
+            if way == "eager":
+                with tpkg.disable_graphs():
+                    losses.append(step(params, ids, tgt))
+            else:
+                losses.append(step(params, ids, tgt))
+            launches.append(fa.LAUNCHES + fa.LAUNCHES_BWD_DQ
+                            + fa.LAUNCHES_BWD_DKV - before)
+        torch.cuda.synchronize()
+        runs[way] = (losses, tfm.param_leaves(params), launches,
+                     step.compiled.calls)
+    (le, pe, ne, ce), (lg, pg, ng, cg) = runs["eager"], runs["graph"]
+    assert ce["direct"] == 4 and ne == [8] * 4
+    assert (cg["eager"], cg["capture"], cg["replay"]) == (1, 1, 2)
+    assert ng == [8, 8, 0, 0]
+    for a, b in zip(le, lg):
+        assert torch.equal(a, b)
+    for a, b in zip(pe, pg):
+        assert torch.equal(a, b)
+
+
+def test_lm_step_refuses_an_optimizer_that_is_not_capturable(gen):
+    """On CUDA the compiled LM step needs ``capturable=True``: without it
+    the step raises before it runs, and runs under ``disable_graphs()``."""
+    import numpy as np
+
+    import deeplearning4j_tpu_torch as tpkg
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg = tfm.TransformerConfig(vocab_size=64, d_model=32, n_heads=2,
+                                n_layers=1, d_ff=64, max_seq=16,
+                                dtype=torch.float32, remat=False)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cuda")
+    opt = torch.optim.AdamW(tfm.param_leaves(params), lr=1e-3)
+    step = tfm.make_train_step(cfg, opt)
+    ids = np.zeros((1, 16), np.int64)
+    with pytest.raises(ValueError, match="capturable"):
+        step(params, ids, ids)
+    assert step.compiled.calls == {"direct": 0, "eager": 0, "capture": 0,
+                                   "replay": 0}
+    with tpkg.disable_graphs():
+        assert torch.isfinite(step(params, ids, ids))
+
+
+def test_capture_failure_raises_and_never_runs_eagerly(gen):
+    """A step that reads a value back to the host (``.item()``) runs its
+    first, eager call; the second call's capture fails and raises
+    ``CaptureError`` chained to the sync's error, and so does every later
+    call: the step is never run eagerly again on its own. The card is
+    usable afterwards."""
+    from deeplearning4j_tpu_torch.nn._compiled import (CaptureError,
+                                                       CompiledStep)
+    w = torch.zeros((), device="cuda")
+    runs = []
+
+    def step(x):
+        runs.append(1)
+        w.add_(x.sum())
+        return torch.full((), w.item(), device="cuda")
+
+    compiled = CompiledStep(step, lambda: [w], "syncing step")
+    x = torch.ones(4, device="cuda")
+    assert float(compiled(x)) == 4.0
+    for _ in range(2):
+        with pytest.raises(CaptureError, match="syncing step") as err:
+            compiled(x)
+        assert err.value.__cause__ is not None
+    assert compiled.calls == {"direct": 0, "eager": 1, "capture": 0,
+                              "replay": 0}
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    torch.cuda.synchronize()
+    assert float(w) == 4.0
+    assert float((x * 2).sum()) == 8.0

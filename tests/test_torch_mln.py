@@ -347,7 +347,7 @@ def test_device_rule_and_unported_knobs():
             TextGenerationLSTM(num_classes=5, input_shape=(4, 5)).init()
     net = tnn.MultiLayerNetwork(conf).init((4, 5), device="cpu")
     for call in (lambda: setattr(net, "remat_segments", 2),
-                 lambda: net.fit_scanned([]), lambda: net.evaluate([]),
+                 lambda: net.evaluate([]),
                  lambda: net.save("x"), net.clone,
                  net.enable_gradient_anomaly_detection, conf.to_json):
         with pytest.raises(NotImplementedError, match="not ported"):
