@@ -5,7 +5,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py                  # every phase
     python3 chip_smoke.py --kernels-only   # build + kernel checks only
-    python3 chip_smoke.py --profile        # also profile paged decode
+    python3 chip_smoke.py --profile        # also print phase 4's top
+                                           # kernels of a decode sweep
     python3 chip_smoke.py --profile-train  # also print the top kernels of a
                                            # replayed step of the 120M LM
                                            # and the D 256 LM
@@ -61,13 +62,26 @@ Phases, each fatal on failure:
    as a yardstick only);
 4. the main path at full width: the 120M Transformer-LM with seeded
    random weights served by a dense and a paged
-   ``ContinuousBatchingScheduler``; every request must resolve with its
-   token count, the launch counts are set to 0 just before each run and
-   read just after it, the tensor-core K1 must have launched once a layer
-   in every dense prefill (every bucket >= 1024 tokens) and K2 in the
-   paged run, and one K1
-   prefill and one K2 decode step must match the plain path (kernels off)
-   with KL <= 1e-3 per row;
+   ``ContinuousBatchingScheduler``, two ways, each on its own engine:
+   replayed (the engine's entry points replay CUDA graphs — the main
+   path) and eager (``disable_graphs()``). Per way a warm wave of each
+   path with the timed wave's prompt lengths (it reaches every signature
+   of the timed wave: dense buckets 1024 and 2048, chunk buckets 32 and
+   128), ``engine.mark_warm()``, then each path's timed wave; every
+   request must resolve with its token count and its tokens must be
+   identical replayed and eager; the compile report must show 0 retraces
+   after warm; the launch counts are set to 0 just before each timed wave
+   and read just after it, counted from the captures (a replay counts the
+   launches its capture recorded): the tensor-core K1 must have launched
+   once a layer in every dense prefill (every bucket >= 1024 tokens) and
+   K2 in the paged run; decode tokens/s, TTFT and peak memory of each
+   wave; then steady decode sweeps (every slot decoding, ctx 600): wall
+   and device ms, busy share and the host split (scheduler bookkeeping,
+   ``PageTable.sync``, ``decode_step``'s dispatch, the sampler and the
+   read of its tokens), and one 128-token ``prefill_chunk`` (dispatch,
+   wall and device ms), replayed beside eager; one K1 prefill and one K2
+   decode step must match the plain path (kernels off) with KL <= 1e-3
+   per row;
 6. the training path at full width: the 120M LM of ``bench.py``'s
    ``transformer`` row (T 1024, bf16, fused loss, remat "save_attn"),
    batch 32 of seeded random ids, trained by ``make_train_step`` with
@@ -164,6 +178,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -686,8 +701,11 @@ def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64, time_it=True):
 # ---------------------------------------------------------------- phase 4
 
 def serve(sched, prompts, n_new):
+    """One wave: submit every prompt, run the scheduler until idle. Returns
+    the wave's readings and every request's tokens."""
     futs = [sched.submit(p, max_new_tokens=n_new) for p in prompts]
     t0 = time.perf_counter()
+    st0 = dict(sched.stats)
     sched.run_until_idle()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -699,19 +717,113 @@ def serve(sched, prompts, n_new):
         if not ((r.tokens >= 0) & (r.tokens < 32000)).all():
             raise SystemExit("generated ids outside the vocabulary")
     sched.check_pages()
-    st = sched.stats
+    st = {k: v - st0[k] for k, v in sched.stats.items()}
     ttft = [r.ttft_s for r in results]
     return {"requests": len(results), "wall_s": wall,
             "decode_tok_per_s": st["decode_tokens"] / st["decode_s"],
             "decode_steps": st["decode_steps"],
             "ttft_mean_s": float(np.mean(ttft)),
             "ttft_max_s": float(np.max(ttft)),
-            "preemptions": st["preemptions"]}
+            "preemptions": st["preemptions"]}, [r.tokens for r in results]
 
 
-def main_path(fa, pa):
+def serving_counts(fa, pa):
+    return {"flash_attention_fwd": fa.LAUNCHES,
+            "flash_attention_fwd_tc": fa.LAUNCHES_TC,
+            "paged_attention": pa.LAUNCHES}
+
+
+class StepLaunches:
+    """Kernel launches of the calls through an engine's compiled steps,
+    counted from their captures: a direct, eager or capture call counts
+    what its wrappers launched while its body ran (a capture replays
+    once), a replay what its signature's capture recorded (its wrappers
+    do not run). ``read()`` returns the counts (``serving_counts``) as a
+    dict; :meth:`reset` sets them to 0."""
+
+    def __init__(self, engine, read):
+        self.read, self.total, self._captured, self._last = read, {}, {}, {}
+        for name, sentinel in engine.sentinels.items():
+            step = sentinel._fn
+            step.step = self._counted(step.step)
+            step.hooks.append(
+                lambda kind, key, name=name: self._on(name, kind, key))
+
+    def _counted(self, body):
+        def run(*a, **k):
+            before = self.read()
+            out = body(*a, **k)
+            self._last = {n: c - before[n] for n, c in self.read().items()}
+            return out
+        return run
+
+    def _on(self, name, kind, key):
+        if kind == "capture":
+            self._captured[(name, key)] = self._last
+        got = self._captured[(name, key)] if kind == "replay" else self._last
+        for n, c in got.items():
+            self.total[n] = self.total.get(n, 0) + c
+
+    def reset(self):
+        self.total = {}
+
+
+def compile_summary(engine):
+    """{entry point: [compiles, signatures, retraces after warm]} of the
+    entry points that compiled."""
+    return {n: [r["compiles"], r["signatures"], r["retraces_after_warm"]]
+            for n, r in engine.compile_report().items() if r["compiles"]}
+
+
+def serve_ways(fa, pa, cfg, params, waves, n_new, profile=False):
+    """Phase 4's two ways over every path in ``waves`` (path → scheduler
+    keywords, prompts): ``replayed`` (graphs) and ``eager``
+    (``disable_graphs()``), each on its own engine. Per way: one
+    scheduler a path; a warm wave of each path with the timed wave's
+    prompt lengths (every signature the timed wave reaches); then
+    ``mark_warm()``; then each path's timed wave, its launch counts set
+    to 0 just before it and read just after (from the captures); then
+    each path's steady sweeps (:func:`steady_sweeps`) and, on a fresh
+    engine, one chunk (:func:`chunk_split`)."""
+    from deeplearning4j_tpu_torch import disable_graphs
     from deeplearning4j_tpu_torch.serving import (
-        ContinuousBatchingScheduler, GenerationEngine, PageTable)
+        ContinuousBatchingScheduler, GenerationEngine)
+    out = {}
+    for way in ("replayed", "eager"):
+        engine = GenerationEngine(cfg, params)
+        counts = StepLaunches(engine, lambda: serving_counts(fa, pa))
+        scheds = {path: ContinuousBatchingScheduler(engine, **kw)
+                  for path, (kw, _) in waves.items()}
+        rec = out[way] = {}
+        with contextlib.nullcontext() if way == "replayed" \
+                else disable_graphs():
+            for path, (_, prompts) in waves.items():
+                serve(scheds[path], prompts, n_new)
+            engine.mark_warm()
+            for path, (_, prompts) in waves.items():
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                fa.reset_launches()
+                pa.reset_launches()
+                counts.reset()
+                res, tokens = serve(scheds[path], prompts, n_new)
+                res["peak_alloc_gib"] = torch.cuda.max_memory_allocated() \
+                    / 2**30
+                rec[path] = {"wave": res, "tokens": tokens,
+                             "launches": dict(counts.total),
+                             "wrapper_launches": serving_counts(fa, pa),
+                             "sweep": steady_sweeps(scheds[path], 600,
+                                                    profile=profile)}
+            rec["compiles"] = compile_summary(engine)
+            rec["chunk"] = chunk_split(GenerationEngine(cfg, params))
+        del engine, scheds, counts
+        gc.collect()                  # the graphs go with their engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def main_path(fa, pa, profile=False):
+    from deeplearning4j_tpu_torch.serving import GenerationEngine, PageTable
     from deeplearning4j_tpu_torch.serving import kvcache
     from deeplearning4j_tpu_torch.zoo import transformer as tfm
 
@@ -726,52 +838,61 @@ def main_path(fa, pa):
     paged_prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                      for n in (17, 140, 260, 385, 512, 640, 777, 900)]
     n_new = 32
-    engine = GenerationEngine(cfg, params)
-
-    # warm-up (cuBLAS handles, allocator) outside the counted run
-    warm = ContinuousBatchingScheduler(engine, n_slots=1)
-    serve(warm, [dense_prompts[0][:40]], 2)
-
-    # each path's own counts: set to 0 just before it, read just after
+    waves = {"dense": ({"n_slots": 4}, dense_prompts),
+             "paged": ({"n_slots": 8, "page_len": 16}, paged_prompts)}
+    ways = serve_ways(fa, pa, cfg, params, waves, n_new, profile=profile)
+    rep, eag = ways["replayed"], ways["eager"]
+    buckets = GenerationEngine(cfg, params).prefill_buckets
+    failed = []
     by_path = {}
-    for path, sched, prompts in (
-            ("dense", ContinuousBatchingScheduler(engine, n_slots=4),
-             dense_prompts),
-            ("paged", ContinuousBatchingScheduler(engine, n_slots=8,
-                                                  page_len=16),
-             paged_prompts)):
-        fa.reset_launches()
-        pa.reset_launches()
-        res = serve(sched, prompts, n_new)
-        by_path[path] = {"flash_attention_fwd": fa.LAUNCHES,
-                         "flash_attention_fwd_tc": fa.LAUNCHES_TC,
-                         "paged_attention": pa.LAUNCHES}
+    for path, (_, prompts) in waves.items():
+        r, e = rep[path], eag[path]
+        by_path[path] = r["launches"]
         # every dense prefill whose bucket reaches flash_min_seq runs K1
         # once a layer, on the tensor cores (bf16); paged prefills in
         # chunks of 128 never do
         flash_prefills = sum(
-            next(bk for bk in engine.prefill_buckets if bk >= len(p))
-            >= cfg.flash_min_seq for p in prompts) if path == "dense" else 0
+            next(bk for bk in buckets if bk >= len(p)) >= cfg.flash_min_seq
+            for p in prompts) if path == "dense" else 0
         want = cfg.n_layers * flash_prefills
-        if (path == "dense" and sched.stats["prefills"] != len(prompts)) \
-                or fa.LAUNCHES_TC != want or fa.LAUNCHES != want:
-            raise SystemExit(
-                f"{path} path: {sched.stats['prefills']} prefills of "
-                f"{len(prompts)} prompts, {fa.LAUNCHES_TC} tensor-core K1 "
-                f"launches of {fa.LAUNCHES} (want {cfg.n_layers} in each of "
-                f"{flash_prefills} prefills >= {cfg.flash_min_seq} tokens)")
-        log(f"main path {path} ({sched.n_slots} slots, prompts "
-            f"{min(map(len, prompts))}-{max(map(len, prompts))}, {n_new} "
-            f"new): {json.dumps(res)}; launches {json.dumps(by_path[path])}")
+        same = [bool(np.array_equal(a, b))
+                for a, b in zip(r["tokens"], e["tokens"])]
+        for way, w in (("replayed", r), ("eager", e)):
+            got = w["launches"]
+            log(f"main path {path} {way} ({waves[path][0]}, prompts "
+                f"{min(map(len, prompts))}-{max(map(len, prompts))}, "
+                f"{n_new} new): {json.dumps(w['wave'])}; launches "
+                f"(captures' counts) {json.dumps(got)}, wrappers' own "
+                f"{json.dumps(w['wrapper_launches'])}; steady sweeps "
+                f"{json.dumps(w['sweep'])}")
+            if got.get("flash_attention_fwd_tc", 0) != want \
+                    or got.get("flash_attention_fwd", 0) != want:
+                failed.append(f"{path} {way}: {got} K1 launches, want "
+                              f"{cfg.n_layers} in each of {flash_prefills} "
+                              f"prefills >= {cfg.flash_min_seq} tokens")
+        log(f"main path {path}: tokens identical replayed and eager for "
+            f"{sum(same)} of {len(same)} requests")
+        if not all(same):
+            failed.append(f"{path}: replayed tokens differ from eager")
+    for way, w in ways.items():
+        retr = sum(c[2] for c in w["compiles"].values())
+        log(f"serving {way}: compile report [compiles, signatures, "
+            f"retraces after warm] {json.dumps(w['compiles'])}; one "
+            f"128-token chunk {json.dumps(w['chunk'])}")
+        if retr:
+            failed.append(f"{way}: {retr} retraces after warm")
     # K1 runs in the dense path's prefills (buckets >= 1024), K2 in the
     # paged path's decode sweeps
     for path, name in (("dense", "flash_attention_fwd"),
                        ("paged", "paged_attention")):
-        if by_path[path][name] <= 0:
-            raise SystemExit(f"kernel {name} was not launched on the "
-                             f"{path} main path")
+        if by_path[path].get(name, 0) <= 0:
+            failed.append(f"kernel {name} was not launched on the {path} "
+                          "main path")
+    if failed:
+        raise SystemExit(f"serving: {failed}")
 
     # K1 prefill vs the plain attention arm (kernel off, f32 scores)
+    engine = GenerationEngine(cfg, params)
     plain_cfg = dataclasses.replace(cfg, use_flash_attention=False,
                                     attn_scores_bf16=False)
     plain_eng = GenerationEngine(plain_cfg, params)
@@ -804,6 +925,8 @@ def main_path(fa, pa):
         f"{(l_on.argmax(-1) == l_off.argmax(-1)).float().mean().item():.3f}")
     if not finite or kl1.max().item() > MAX_KL or kl2.max().item() > MAX_KL:
         raise SystemExit("full-width logits disagree with the plain path")
+    del engine, plain_eng, on, off, cache, twin
+    torch.cuda.empty_cache()
     return by_path
 
 
@@ -2350,40 +2473,120 @@ def lenet_path(fa, pa, fo, fl, steps=5):
     return recs
 
 
-def profile_decode(steps=10):
-    """Where a paged decode step's time goes at full width: 8 decoding
-    slots (contexts ~600), ``steps`` sweeps under ``torch.profiler``.
-    Prints the wall time per sweep, the device-busy share and the top
-    CUDA kernels by device time."""
-    from torch.profiler import ProfilerActivity, profile
-    from deeplearning4j_tpu_torch.serving import (
-        ContinuousBatchingScheduler, GenerationEngine)
-    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+class HostClock:
+    """Host seconds spent in named calls of live objects: :meth:`wrap`
+    shadows a bound method with a timed one (an instance attribute),
+    :meth:`restore` takes every wrapper away again."""
 
-    cfg = tfm.TransformerConfig(max_seq=2048, dtype=torch.bfloat16,
-                                remat=False)
-    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
-    sched = ContinuousBatchingScheduler(GenerationEngine(cfg, params),
-                                        n_slots=8, page_len=16)
-    rng = np.random.default_rng(1)
-    for _ in range(8):
-        sched.submit(rng.integers(0, cfg.vocab_size, 600).astype(np.int32),
-                     max_new_tokens=steps + 20)
+    def __init__(self):
+        self.s, self.n, self._undo = {}, {}, []
+
+    def wrap(self, obj, attr, name):
+        fn = getattr(obj, attr)
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.s[name] = self.s.get(name, 0.0) \
+                    + time.perf_counter() - t0
+                self.n[name] = self.n.get(name, 0) + 1
+        setattr(obj, attr, timed)
+        self._undo.append((obj, attr))
+
+    def restore(self):
+        for obj, attr in reversed(self._undo):
+            delattr(obj, attr)
+        self._undo = []
+
+
+def steady_sweeps(sched, prompt_len, steps=20, seed=1, profile=False):
+    """Where a decode sweep's time goes once every slot decodes: fill
+    the scheduler's slots with prompts of ``prompt_len`` tokens, step
+    until none prefills, then time ``steps`` sweeps with the host split
+    of each: (a) the scheduler's own bookkeeping in ``_decode_sweep``,
+    (b) ``PageTable.sync`` (paged), (c) ``engine.decode_step`` from
+    entry until its last launch returns, (d) the sampler and the read of
+    its tokens; and the loop's time outside the sweep. Then ``steps``
+    more under ``torch.profiler``: device ms a sweep and the busy share
+    (device ms over the unprofiled wall ms). Milliseconds a sweep."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = sched.engine
+    rng = np.random.default_rng(seed)
+    for _ in range(sched.n_slots):
+        sched.submit(rng.integers(0, eng.cfg.vocab_size, prompt_len)
+                     .astype(np.int32), max_new_tokens=2 * steps + 8)
     while any(r is None or r.pending is not None for r in sched.slots):
-        sched.step()                 # admit + chunked prefill until decoding
+        sched.step()
     for _ in range(3):
         sched.step()
     torch.cuda.synchronize()
+    clock = HostClock()
+    clock.wrap(sched, "_decode_sweep", "sweep")
+    if sched.paged:
+        clock.wrap(sched._pages, "sync", "sync")
+    clock.wrap(eng, "decode_step", "dispatch")
+    clock.wrap(eng, "sample", "sample")
+    clock.wrap(sched, "_read_tokens", "read")
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        sched.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    clock.restore()
+    ms = {k: v * 1e3 / steps for k, v in clock.s.items()}
+    parts = {"sync": ms.get("sync", 0.0), "dispatch": ms["dispatch"],
+             "sample": ms["sample"], "read": ms.get("read", 0.0)}
+    split = {"bookkeeping": ms["sweep"] - sum(parts.values()), **parts,
+             "outside_sweep": wall * 1e3 / steps - ms["sweep"]}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         for _ in range(steps):
             sched.step()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    out = device_rows(prof, wall, steps)
-    log("profile (paged decode, 8 slots, ctx ~600): " + json.dumps(out))
+        pwall = time.perf_counter() - t1
+    rows = device_rows(prof, pwall, steps)
     sched.run_until_idle()
+    out = {"slots": sched.n_slots, "ctx": prompt_len, "sweeps": steps,
+           "wall_ms": wall * 1e3 / steps, "host_split_ms": split,
+           "device_ms": rows["device_ms_per_step"],
+           "busy_share": rows["device_ms_per_step"] / (wall * 1e3 / steps)}
+    if profile:
+        out["profiled_wall_ms"] = rows["wall_ms_per_step"]
+        out["top_kernels"] = rows["top_kernels"]
+    return out
+
+
+def chunk_split(engine, n=10):
+    """One ``prefill_chunk`` of 128 tokens (slot 0, start 0) into a
+    paged cache of the phase-4 geometry: host ms from entry until its
+    last launch returns, wall ms with a synchronise, device ms."""
+    from deeplearning4j_tpu_torch.serving import PageTable
+    cache = engine.init_paged_cache(8, 8 * 128, 16)
+    table = PageTable.for_cache(cache)
+    table.map(0, 128)
+    table.sync(cache)
+    toks = np.random.default_rng(2).integers(
+        0, engine.cfg.vocab_size, 128).astype(np.int32)
+
+    def call():
+        engine.prefill_chunk(cache, toks, 0, start=0)
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    host, wall = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        call()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        host.append(t1 - t0)
+        wall.append(time.perf_counter() - t0)
+    return {"dispatch_ms": float(np.median(host)) * 1e3,
+            "wall_ms": float(np.median(wall)) * 1e3,
+            "device_ms": device_ms(call, iters=n)}
 
 
 def main():
@@ -2391,7 +2594,8 @@ def main():
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel build and checks")
     ap.add_argument("--profile", action="store_true",
-                    help="also profile paged decode sweeps (torch.profiler)")
+                    help="also print the top kernels of the steady decode "
+                         "sweeps of phase 4, replayed and eager")
     ap.add_argument("--profile-train", action="store_true",
                     help="also profile one kernel-path train step")
     ap.add_argument("--profile-resnet", action="store_true",
@@ -2496,7 +2700,7 @@ def main():
     if args.kernels_only:
         return 0
 
-    by_path = main_path(fa, pa)
+    by_path = main_path(fa, pa, profile=args.profile)
     mark("4 serving")
     by_path["train"] = train_path(fa, pa, profile=args.profile_train,
                                   foreach_adamw=True)
@@ -2670,12 +2874,10 @@ def main():
          "bound_ms": main_k4["bound_ms"], "bound_by": main_k4["bound_by"],
          "library_ms": main_k4["library_ms"]},
     ]
-    if args.profile:
-        profile_decode()
     log(json.dumps({"kernels": kernels, "launches_counted": (
-        "train paths replay CUDA graphs: an eager step and a capture count "
-        "their wrappers' launches, each replay its capture's (launches per "
-        "replay x replays)")}))
+        "the serving and train paths replay CUDA graphs: an eager call and "
+        "a capture count their wrappers' launches, each replay its "
+        "capture's (launches per replay x replays)")}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

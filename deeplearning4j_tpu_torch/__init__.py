@@ -21,11 +21,13 @@ What is ported so far:
   batch stats, backward reduce and backward dx kernels;
 - ``nn.MultiLayerNetwork`` with the recurrent layers and LeNet, and
   ``kernels.fused_lstm`` — the whole-sequence LSTM kernel (K4);
-- ``nn._compiled`` — the compiled train step (the counterpart of
-  ``jax.jit`` with donation): ``fit``, ``fit_scanned`` and the LM's
-  ``make_train_step`` replay CUDA graphs on the card, and
-  :func:`disable_graphs` (the counterpart of ``jax.disable_jit``) keeps
-  them eager.
+- ``nn._compiled`` — the compiled step (the counterpart of ``jax.jit``
+  with donation): ``fit``, ``fit_scanned``, the LM's ``make_train_step``
+  and the serving engine's entry points replay CUDA graphs on the card,
+  and :func:`disable_graphs` (the counterpart of ``jax.disable_jit``)
+  keeps them eager;
+- ``obs.compiles`` — the compile sentinel around each of the engine's
+  entry points (``engine.mark_warm()``, ``engine.compile_report()``).
 
 Entry points take ``device=None``, which means the CUDA card; without one
 they raise unless the caller passed ``device="cpu"``.

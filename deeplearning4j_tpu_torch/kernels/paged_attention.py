@@ -182,8 +182,7 @@ def _paged_attention_cuda(q, k_pages, v_pages, table, pos):
     lib = _load()
     item = q.element_size()
     plan = split_plan(b, h, dh, item, plen, table.shape[1],
-                      torch.cuda.get_device_properties(q.device)
-                      .multi_processor_count)
+                      _n_sms(q.device))
     # 16-byte loads where a head's row is a whole number of them
     vec = (dh * item) % 16 == 0 and k_pages.data_ptr() % 16 == 0 \
         and v_pages.data_ptr() % 16 == 0
@@ -202,6 +201,20 @@ def _paged_attention_cuda(q, k_pages, v_pages, table, pos):
     _build.check(rc, "paged_attention")
     LAUNCHES += 1
     return out
+
+
+_SMS = {}
+
+
+def _n_sms(device) -> int:
+    """The card's SM count, read once per device (every launch, and every
+    capture of a decode step, plans with it)."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx) \
+            .multi_processor_count
+    return _SMS[idx]
 
 
 def _load():
@@ -229,8 +242,9 @@ def paged_attention_reference(q, k_pages, v_pages, table, pos):
     scores = torch.einsum("bhd,bshd->bhs", q.float() * scale, kg.float())
     s = kg.shape[1]
     mask = torch.arange(s, device=q.device)[None, :] <= pos.long()[:, None]
-    scores = torch.where(mask[:, None, :], scores,
-                         torch.tensor(NEG_INF, device=q.device))
+    # a Python fill value, not a tensor copied to the card: the gather
+    # path runs inside a captured decode step
+    scores = scores.masked_fill(~mask[:, None, :], NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhs,bshd->bhd", probs, vg.float())
     return out.to(q.dtype)

@@ -39,11 +39,31 @@ is only ever :func:`disable_graphs`.
 
 The Python launch counters of the kernel wrappers do not move during a
 replay (the wrappers do not run): a capture counts one replay's launches.
+
+Serving steps (``serving/engine.py``) add three things:
+
+- **bound arguments.** A :class:`Bound` argument (the KV cache the step
+  updates in place, the generator a sampler draws from) is passed
+  through by identity, never copied into a static input. A graph bakes
+  its addresses, so the identity of each of its leaves is part of the
+  signature: a graph captured on one cache never replays on another, a
+  second cache of the same shapes gets its own graphs, and the graphs of
+  a cache are dropped when it is freed. A generator leaf is registered
+  with the graph, so a replay draws what the eager call would have drawn
+  from the generator's state; it is held as long as its graphs (it
+  cannot be weakly referenced). Any other non-tensor argument is static
+  (part of the signature by ``repr``) and passed as it is;
+- **tree outputs.** A call returns fresh copies of a tensor or a tuple of
+  tensors, never a graph's static output;
+- **hooks.** Each ``hooks`` entry is called after every call as
+  ``hook(kind, signature)`` — the compile sentinel counts captures (and
+  new signatures of direct calls) through it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import weakref
 
 import torch
 
@@ -98,6 +118,63 @@ def _same(a, b):
         x is y for x, y in zip(a, b))
 
 
+class Bound:
+    """A step argument passed through by identity (see the module
+    docstring): a tensor, a ``torch.Generator`` or nested dicts, tuples
+    and lists of them."""
+    __slots__ = ("tree",)
+
+    def __init__(self, tree):
+        self.tree = tree
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _bound_leaves(batch):
+    return [x for b in batch if isinstance(b, Bound) for x in _leaves(b.tree)]
+
+
+def signature(batch):
+    """A call's input signature: each tensor's shape, dtype and device,
+    ``None`` for an absent one, a :class:`Bound` argument's leaves by
+    identity, any other value by ``repr``."""
+    def one(x):
+        if x is None:
+            return None
+        if isinstance(x, torch.Tensor):
+            return (tuple(x.shape), x.dtype, x.device)
+        if isinstance(x, Bound):
+            return ("bound",) + tuple(
+                (id(o), tuple(o.shape), o.dtype)
+                if isinstance(o, torch.Tensor) else (id(o), type(o).__name__)
+                for o in _leaves(x.tree))
+        return ("static", repr(x))
+    return tuple(one(x) for x in batch)
+
+
+def _unbind(batch):
+    return [b.tree if isinstance(b, Bound) else b for b in batch]
+
+
+def _device(batch):
+    for x in list(batch) + _bound_leaves(batch):
+        if isinstance(x, torch.Tensor):
+            return x.device
+    raise ValueError("a compiled step needs at least one tensor argument")
+
+
+def _clone(out):
+    if isinstance(out, tuple):
+        return tuple(_clone(o) for o in out)
+    return None if out is None else out.clone()
+
+
 class _Graph:
     __slots__ = ("graph", "inputs", "out")
 
@@ -108,14 +185,17 @@ class CompiledStep:
     ``bindings()`` returns the objects the step updates in place or bakes
     into a capture; ``name`` goes into error messages. ``last`` says how
     the latest call ran ("direct", "eager", "capture" or "replay"; a
-    "capture" call also replays once) and ``calls`` counts each kind."""
+    "capture" call also replays once) and ``calls`` counts each kind.
+    ``hooks`` are called after every call with ``(kind, signature)``."""
 
     def __init__(self, step, bindings, name):
         self.step, self.bindings, self.name = step, bindings, name
         self.last = None
         self.calls = dict.fromkeys(("direct", "eager", "capture", "replay"),
                                    0)
+        self.hooks = []
         self._graphs = {}
+        self._watch = {}
         self._bound = None
         self._stream = None
         self._pool = None
@@ -123,45 +203,65 @@ class CompiledStep:
     def reset(self):
         """Drop every graph: each signature's next call is eager again."""
         self._graphs = {}
+        self._watch = {}
         self._bound = None
 
-    def _note(self, kind):
+    def _note(self, kind, key):
         self.last = kind
         self.calls[kind] += 1
+        for hook in self.hooks:
+            hook(kind, key)
+
+    def _forget(self, key, leaves):
+        """Drop ``key``'s graph as soon as one of its bound tensors is
+        freed (its id may then name another object). A generator cannot
+        be weakly referenced: it is held while its graph lives, so that
+        its id names it."""
+        me = weakref.ref(self)
+
+        def gone(_):
+            s = me()
+            if s is not None:
+                s._graphs.pop(key, None)
+                s._watch.pop(key, None)
+        self._watch[key] = [x if isinstance(x, torch.Generator)
+                            else weakref.ref(x, gone) for x in leaves]
 
     def __call__(self, *batch):
-        dev = next(t.device for t in batch if t is not None)
+        dev = _device(batch)
+        key = signature(batch)
         if dev.type != "cuda" or not graphs_enabled():
-            self._note("direct")
-            return self.step(*batch)
+            out = self.step(*_unbind(batch))
+            self._note("direct", key)
+            return out
         bound = list(self.bindings())
         if not _same(bound, self._bound):
             self.reset()
             self._bound = bound
-        key = tuple(None if t is None else (tuple(t.shape), t.dtype, t.device)
-                    for t in batch)
         g = self._graphs.get(key)
         if g is None:
-            self._graphs[key] = False
-            self._note("eager")
             out = self._eager(dev, batch)
             # the step may have allocated state lazily (torch.optim's):
             # graphs captured before it would not see that state
             after = list(self.bindings())
             if not _same(after, bound):
-                self._graphs = {key: False}
+                self.reset()
             self._bound = after
+            self._graphs[key] = False
+            self._forget(key, _bound_leaves(batch))
+            self._note("eager", key)
             return out
         if g is False:
             g = self._graphs[key] = self._capture(dev, batch)
-            self._note("capture")
+            kind = "capture"
         else:
             for s, t in zip(g.inputs, batch):
-                if s is not None:
+                if isinstance(s, torch.Tensor):
                     s.copy_(t)
-            self._note("replay")
+            kind = "replay"
         g.graph.replay()
-        return g.out.clone()
+        self._note(kind, key)
+        return _clone(g.out)
 
     def _side_stream(self, dev):
         if self._stream is None:
@@ -175,23 +275,31 @@ class CompiledStep:
         side = self._side_stream(dev)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            out = self.step(*batch)
+            out = self.step(*_unbind(batch))
         cur.wait_stream(side)
         return out
 
     def _capture(self, dev, batch):
         g = _Graph()
-        g.inputs = [None if t is None else t.clone() for t in batch]
+        inputs = [t.clone() if isinstance(t, torch.Tensor) else t
+                  for t in batch]
+        # the graph keeps its static tensors, never a bound object: a
+        # freed cache must be able to take its graphs with it
+        g.inputs = [t if isinstance(t, torch.Tensor) else None
+                    for t in inputs]
         g.graph = torch.cuda.CUDAGraph()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         failed = None
         prev = torch.cuda.current_stream(dev)
         try:
+            for gen in _bound_leaves(batch):
+                if isinstance(gen, torch.Generator):
+                    g.graph.register_generator_state(gen)
             with torch.cuda.graph(g.graph, pool=self._pool,
                                   stream=self._side_stream(dev)):
                 try:
-                    g.out = self.step(*g.inputs)
+                    g.out = self.step(*_unbind(inputs))
                 except Exception as e:      # noqa: BLE001 — re-raised below
                     failed = e
                     raise
@@ -203,5 +311,5 @@ class CompiledStep:
                 f"{self.name}: capturing the step as a CUDA graph failed "
                 f"({type(cause).__name__}: {cause}). The step does not fall "
                 "back to eager; run it under deeplearning4j_tpu_torch."
-                "disable_graphs() to train eagerly") from cause
+                "disable_graphs() to run it eagerly") from cause
         return g

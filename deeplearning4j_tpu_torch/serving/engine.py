@@ -20,13 +20,41 @@ the engine writes the KV pool (and cursors) in place and returns the same
 tensors. Callers keep the ``(logits, cache)`` calling convention of the
 reference, but the cache they passed in IS the one returned.
 
+**Compiled entry points.** Each entry point is a step body that reads
+only tensors — the slot, start and length of a call reach it as device
+tensors, staged from the host through pinned memory — run by a
+:class:`~deeplearning4j_tpu_torch.nn._compiled.CompiledStep` inside a
+:class:`~deeplearning4j_tpu_torch.obs.compiles.CompileSentinel` named as
+the reference names its jitted functions (``decode_step``,
+``decode_paged``, ``decode_paged_kernel``, ``prefill``,
+``prefill_slot``, ``prefill_chunk``, ``sample_tokens``, ``copy_page``).
+On CUDA each signature's first call is eager, its second is captured as
+a CUDA graph, and later calls copy their inputs in and replay it; on the
+CPU and under ``disable_graphs()`` the same bodies run directly. One
+signature is one prefill or chunk bucket (the slot, start and length are
+data, not part of it), so compiles stay at one per bucket as in the
+reference.
+
+Where the port differs from the reference: a graph bakes the addresses
+of the cache it was captured on, so a signature is the reference's
+abstract signature **plus the identity of the cache** (on the CPU too, so
+that ``compile_report()`` means the same everywhere): a second cache of
+the same shapes starts its own signatures, and a cache's graphs go when
+the cache is freed. ``generate()`` allocates a cache per call, and so
+compiles per call. The weights are the engine's own copies:
+``refresh(params)`` at unchanged shapes copies the new values into them
+in place (no graph is dropped, nothing recompiles); a change of shape
+drops the graphs.
+
 Out-of-bounds writes are masked explicitly where a JAX scatter would drop
 them (a paged write on the sentinel page, a dense write past capacity),
 and gathers through the sentinel clamp to the last page as a JAX gather
-does; dynamic-slice starts are bounds-checked instead of clamped.
+does; dynamic-slice starts are bounds-checked on the host instead of
+clamped.
 
 Not ported yet: int8 weights/KV (the ``quant_*`` knobs raise),
-``verify_chunk``, ``embed_chunk``, ``sample_masked``, compile sentinels.
+``verify_chunk``, ``embed_chunk``, ``sample_masked``, and the sentinels'
+metrics and spans (the observability plane).
 """
 
 from __future__ import annotations
@@ -39,6 +67,8 @@ import torch
 
 from .._device import resolve_device, tree_to
 from ..kernels import paged_attention as pa
+from ..nn._compiled import Bound, CompiledStep, copy_into, tensors
+from ..obs.compiles import CompileSentinel
 from ..zoo import transformer as tfm
 from . import kvcache
 
@@ -59,27 +89,51 @@ def sample_tokens(logits, temperature, top_k, generator=None):
     comes from ``generator`` (Gumbel-max over the filtered, tempered
     logits — the same distribution as ``jax.random.categorical``, not the
     same draws). Returns (B,) int32 on the logits' device."""
-    logits = logits.float()
-    b, v = logits.shape
-    dev = logits.device
-    greedy = logits.argmax(dim=-1)
     if not torch.is_tensor(temperature) and \
             not (np.asarray(temperature) > 0).any():
-        return greedy.to(torch.int32)
+        return _sample_greedy(logits)
+    dev = logits.device
     temperature = torch.as_tensor(temperature, dtype=torch.float32,
                                   device=dev).reshape(-1)
     top_k = torch.as_tensor(top_k, dtype=torch.int64, device=dev).reshape(-1)
+    return _sample_tempered(logits, temperature, top_k, generator)
+
+
+def _sample_greedy(logits):
+    return logits.float().argmax(dim=-1).to(torch.int32)
+
+
+def _sample_tempered(logits, temperature, top_k, generator):
+    """:func:`sample_tokens` on device tensors only (a captured step)."""
+    logits = logits.float()
+    b, v = logits.shape
+    greedy = logits.argmax(dim=-1)
     desc = torch.sort(logits, dim=-1, descending=True).values
     kk = torch.clamp(torch.where(top_k > 0, top_k, torch.full_like(top_k, v)),
                      1, v)
     thresh = desc.gather(-1, (kk - 1)[:, None])
-    filtered = torch.where(logits >= thresh, logits,
-                           torch.tensor(_NEG_INF, device=dev))
+    filtered = logits.masked_fill(~(logits >= thresh), _NEG_INF)
     scaled = filtered / torch.clamp(temperature, min=1e-6)[:, None]
-    u = torch.rand((b, v), generator=generator, device=dev)
+    u = torch.rand((b, v), generator=generator, device=logits.device)
     gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
     sampled = (scaled + gumbel).argmax(dim=-1)
     return torch.where(temperature <= 0, greedy, sampled).to(torch.int32)
+
+
+def _sample_step(logits, temperature, top_k, generator):
+    """The ``sample_tokens`` entry point's body: greedy when no
+    temperature is given (its own signature), else tempered."""
+    if temperature is None:
+        return _sample_greedy(logits)
+    return _sample_tempered(logits, temperature, top_k, generator)
+
+
+def _copy_page_step(cache, pages):
+    """The ``copy_page`` entry point's body: pool page ``pages[0]``'s k/v
+    rows (every layer) into page ``pages[1]``."""
+    src, dst = pages[0:1], pages[1:2]
+    for name in ("k", "v"):
+        cache[name].index_copy_(1, dst, cache[name].index_select(1, src))
 
 
 def _cached_attention(cfg, q, k, v, pos):
@@ -90,8 +144,7 @@ def _cached_attention(cfg, q, k, v, pos):
     scores = torch.einsum("bhd,bshd->bhs", q.float() * scale, k.float())
     s = k.shape[1]
     mask = torch.arange(s, device=q.device)[None, :] <= pos.long()[:, None]
-    scores = torch.where(mask[:, None, :], scores,
-                         torch.tensor(_NEG_INF, device=q.device))
+    scores = scores.masked_fill(~mask[:, None, :], _NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhs,bshd->bhd", probs, v.float())
     return out.to(cfg.dtype)
@@ -118,13 +171,31 @@ def _masked_row_write(pool, idx, ok, rows):
     pool.index_put_((tgt,), src)
 
 
+
+
+def _owned(tree, device):
+    """A copy of every tensor leaf on ``device`` (never the caller's)."""
+    if isinstance(tree, dict):
+        return {k: _owned(v, device) for k, v in tree.items()}
+    return tree.to(device=device, copy=True)
+
+
+def _layout(tree):
+    """Nested keys with each leaf's shape and dtype."""
+    if isinstance(tree, dict):
+        return {k: _layout(v) for k, v in tree.items()}
+    return (tuple(tree.shape), tree.dtype)
+
+
 class GenerationEngine:
     """Prefill/decode engine bound to one (cfg, params) pair, on one
     device. Callers own the cache (``init_cache`` / ``init_paged_cache``)
     and thread it through the entry points, which update it in place.
 
     ``device=None`` means the CUDA card (raises without one); tests pass
-    ``device="cpu"``, where the kernels' plain versions run."""
+    ``device="cpu"``, where the kernels' plain versions run. ``sentinels``
+    maps each compiled entry point's name to its
+    :class:`~deeplearning4j_tpu_torch.obs.compiles.CompileSentinel`."""
 
     def __init__(self, cfg, params, *, max_len: Optional[int] = None,
                  prefill_buckets=DEFAULT_PREFILL_BUCKETS,
@@ -164,9 +235,39 @@ class GenerationEngine:
             {min(b, self.chunk_len) for b in self.prefill_buckets}
             | {self.chunk_len}))
         # off|on|auto (None: auto — the kernel on CUDA, gather on the
-        # CPU); kernels.paged_attention.decide reads it
+        # CPU); kernels.paged_attention.decide reads it, once per cache
+        # geometry (_paged_kernel_choice)
         self.paged_kernel_mode = paged_kernel
+        self._paged_plan = {}
+        self._default_gen = None
+        self.params = None
         self.refresh(params)
+
+        def weights():
+            return tensors(self._run_params)
+
+        def entry(name, body, bindings=weights):
+            return CompileSentinel(name, CompiledStep(body, bindings, name))
+
+        self._decode = entry("decode_step", self._decode_dense)
+        self._decode_paged = entry(
+            "decode_paged",
+            lambda cache, tokens: self._decode_paged_rows(cache, tokens,
+                                                          False))
+        self._decode_paged_kernel = entry(
+            "decode_paged_kernel",
+            lambda cache, tokens: self._decode_paged_rows(cache, tokens,
+                                                          True))
+        self._prefill = entry("prefill", self._prefill_pool)
+        self._prefill_slot = entry("prefill_slot", self._prefill_slot_rows)
+        self._prefill_chunk = entry("prefill_chunk",
+                                    self._prefill_chunk_rows)
+        self._sample = entry("sample_tokens", _sample_step, tuple)
+        self._copy_page = entry("copy_page", _copy_page_step, tuple)
+        self.sentinels = {s.name: s for s in (
+            self._decode, self._prefill, self._prefill_slot, self._sample,
+            self._decode_paged, self._decode_paged_kernel,
+            self._prefill_chunk, self._copy_page)}
 
     # ------------------------------------------------------------ cache
     def init_cache(self, n_slots: int):
@@ -180,9 +281,24 @@ class GenerationEngine:
                                         device=self.device)
 
     def refresh(self, params):
-        """Swap in new params (moved to the engine's device). The matmul
-        weights are cast to the compute dtype once, here."""
-        self.params = tree_to(params, self.device)
+        """Swap in new params. The engine keeps its own copies on its
+        device (never the caller's tensors), with the matmul weights cast
+        to the compute dtype once, here. At the shapes and dtypes it
+        already holds, the new values are copied into the same tensors:
+        the compiled steps keep their graphs (the reference's "no retrace
+        as long as shapes match"). Any other change makes new tensors,
+        and the compiled steps drop their graphs on their next call."""
+        new = tree_to(params, self.device)
+        if self.params is not None and _layout(new) == _layout(self.params):
+            copy_into(self.params, new)
+            run, own = self._run_params, self.params
+            for name in _MATMUL_WEIGHTS:
+                if run["blocks"][name] is not own["blocks"][name]:
+                    run["blocks"][name].copy_(own["blocks"][name])
+            if "head" in run and run["head"] is not own["head"]:
+                run["head"].copy_(own["head"])
+            return self
+        self.params = _owned(new, self.device)
         run = dict(self.params)
         blocks = dict(run["blocks"])
         for name in _MATMUL_WEIGHTS:
@@ -193,7 +309,21 @@ class GenerationEngine:
         self._run_params = run
         return self
 
-    # ----------------------------------------------------- device fns
+    # -------------------------------------------------- compile plane
+    def mark_warm(self):
+        """Declare warmup over on every sentinel: the signatures seen so
+        far are the working set; any compile after this is a warned
+        retrace."""
+        for s in self.sentinels.values():
+            s.mark_warm()
+        return self
+
+    def compile_report(self):
+        """{entry point: {name, compiles, signatures, warm,
+        retraces_after_warm}}."""
+        return {name: s.report() for name, s in self.sentinels.items()}
+
+    # ----------------------------------------------------- step bodies
     def _prefill_trunk(self, tokens):
         """Shared prompt pass: embedded tokens through the block stack
         with per-layer k/v capture. Returns (hidden, k, v)."""
@@ -242,7 +372,7 @@ class GenerationEngine:
         """One decode step over dense lanes: each slot writes its token's
         k/v at its own cursor and attends to its own prefix. A slot past
         capacity writes nothing (the reference's dropped scatter); its
-        output is garbage the scheduler never reads."""
+        output is garbage the scheduler never reads. Returns (B, V)."""
         cfg = self.cfg
         pos = cache["pos"]
         b = tokens.shape[0]
@@ -259,8 +389,8 @@ class GenerationEngine:
             cache, x, write=write,
             attend=lambda q, kl, vl: _cached_attention(cfg, q, kl, vl, pos))
         logits = self._head(x)
-        cache["pos"] += 1
-        return logits, cache
+        pos.add_(1)
+        return logits
 
     def _paged_write(self, cache, ent, off):
         """The write closure of the paged paths: rows land at (pool page
@@ -274,13 +404,13 @@ class GenerationEngine:
             _masked_row_write(kl.view(-1, *kl.shape[2:]), idx, ok, rows)
         return write
 
-    def _decode_paged(self, cache, tokens, use_kernel=False):
+    def _decode_paged_rows(self, cache, tokens, use_kernel):
         """One decode step over the block-paged pool: each slot's k/v row
         scatters into (page, offset) through its table; attention either
         gathers the slot's table row, clamping the sentinel
         (``paged_attention_reference``), or, with ``use_kernel``, runs
         the paged-attention wrapper on one layer's pool slice — same
-        writes, block math and logits."""
+        writes, block math and logits. Returns (B, V)."""
         pos = cache["pos"]
         table = cache["pages"]
         b = tokens.shape[0]
@@ -299,17 +429,18 @@ class GenerationEngine:
 
         x = self._blocks_with_cache(cache, x, write=write, attend=attend)
         logits = self._head(x)
-        cache["pos"] += 1
-        return logits, cache
+        pos.add_(1)
+        return logits
 
-    def _prefill_chunk_rows(self, cache, tokens, start, length, slot):
+    def _prefill_chunk_rows(self, cache, tokens, meta):
         """One chunked-prefill dispatch: ``tokens`` (C_bucket,) — the
         slot's context rows ``[start, start+length)`` padded — written
         into the slot's mapped pages, the chunk's queries attending
-        causally over everything the slot holds. Rows past ``length``
-        are padding: their writes are masked. Returns the last valid
-        row's logits (V,)."""
+        causally over everything the slot holds; ``meta`` (3,) int64 is
+        (slot, start, length). Rows past ``length`` are padding: their
+        writes are masked. Returns the last valid row's logits (V,)."""
         cfg = self.cfg
+        slot, start, length = meta[0:1], meta[1:2], meta[2:3]
         table = cache["pages"]
         npg, plen = cache["k"].shape[1], cache["k"].shape[2]
         per_slot = table.shape[1]
@@ -319,7 +450,7 @@ class GenerationEngine:
         ar = torch.arange(c, device=dev)
         gpos = start + ar
         valid = ar < length
-        row = table[slot]
+        row = table.index_select(0, slot)[0]
         lp = gpos // plen
         ent = row[lp.clamp(0, per_slot - 1)]
         ent = torch.where(valid & (lp < per_slot), ent,
@@ -330,26 +461,65 @@ class GenerationEngine:
         mask = torch.arange(s_len, device=dev)[None, :] <= gpos[:, None]
         gidx = row.long().clamp(0, npg - 1)
         scale = 1.0 / math.sqrt(dh)
-        neg = torch.tensor(_NEG_INF, device=dev)
 
         def attend(q, kl, vl):
             kg = kl[gidx].reshape(s_len, h_, dh)
             vg = vl[gidx].reshape(s_len, h_, dh)
             scores = torch.einsum("qhd,shd->qhs", q.float() * scale,
                                   kg.float())
-            scores = torch.where(mask[:, None, :], scores, neg)
+            scores = scores.masked_fill(~mask[:, None, :], _NEG_INF)
             probs = torch.softmax(scores, dim=-1)
             return torch.einsum("qhs,shd->qhd", probs,
                                 vg.float()).to(cfg.dtype)
 
         x = self._blocks_with_cache(cache, x, write=write, attend=attend)
-        cache["pos"][slot] = start + length
-        return self._head(x[length - 1:length])[0]
+        cache["pos"].index_copy_(0, slot, (start + length).to(torch.int32))
+        last = x.index_select(0, (length - 1).clamp(0, c - 1))
+        return self._head(last)[0]
+
+    def _prefill_pool(self, cache, tokens, lengths):
+        """Whole-pool prefill: ``tokens`` (B, T), ``lengths`` (B,) int64.
+        Returns the last valid position's logits (B, V)."""
+        b, t = tokens.shape
+        x, ks, vs = self._prefill_trunk(tokens)
+        cache["k"][:, :, :t] = ks.to(cache["k"].dtype)
+        cache["v"][:, :, :t] = vs.to(cache["v"].dtype)
+        last = (lengths - 1).clamp(0, t - 1)
+        x_last = x[torch.arange(b, device=x.device), last]
+        cache["pos"].copy_(lengths.to(torch.int32))
+        return self._head(x_last)
+
+    def _prefill_slot_rows(self, cache, tokens, meta):
+        """One prompt into one slot of a dense pool: ``tokens`` (1,
+        bucket), ``meta`` (2,) int64 is (slot, length). Only that slot's
+        first ``bucket`` rows and its cursor change. Returns the last
+        valid row's logits (V,)."""
+        slot, n = meta[0:1], meta[1:2]
+        bucket = tokens.shape[1]
+        x, ks, vs = self._prefill_trunk(tokens)
+        for name, rows in (("k", ks), ("v", vs)):
+            pool = cache[name]
+            pool[:, :, :bucket].index_copy_(1, slot, rows.to(pool.dtype))
+        cache["pos"].index_copy_(0, slot, n.to(torch.int32))
+        last = x[0].index_select(0, (n - 1).clamp(0, bucket - 1))
+        return self._head(last)[0]
 
     # ------------------------------------------------------- host API
-    def _tokens(self, tokens):
-        return torch.as_tensor(np.asarray(tokens, np.int64),
-                               device=self.device)
+    def _stage(self, *arrays, dtype=np.int64):
+        """Host arrays → ``dtype`` tensors on the engine's device, in
+        their shapes. On CUDA they travel as one pinned buffer and one
+        copy that does not block the host (a pageable copy may not run
+        while a graph is captured); on the CPU they are plain tensors."""
+        arrs = [np.asarray(a, dtype) for a in arrays]
+        flat = torch.from_numpy(np.concatenate([a.reshape(-1)
+                                                for a in arrs]))
+        if self.device.type == "cuda":
+            flat = flat.pin_memory().to(self.device, non_blocking=True)
+        out, i = [], 0
+        for a in arrs:
+            out.append(flat[i:i + a.size].view(a.shape))
+            i += a.size
+        return out
 
     def copy_page(self, cache, src: int, dst: int):
         """Copy pool page ``src``'s k/v rows (every layer) into page
@@ -360,9 +530,8 @@ class GenerationEngine:
         if not (0 <= int(src) < npg and 0 <= int(dst) < npg):
             raise ValueError(f"page copy {src}->{dst} outside the "
                              f"{npg}-page pool")
-        if int(src) != int(dst):
-            for name in ("k", "v"):
-                cache[name][:, int(dst)] = cache[name][:, int(src)]
+        (pages,) = self._stage([int(src), int(dst)])
+        self._copy_page(Bound(cache), pages)
         return cache
 
     @torch.no_grad()
@@ -389,15 +558,8 @@ class GenerationEngine:
                 "single-request admission)")
         if lengths is None:
             lengths = np.full((b,), t, np.int64)
-        lengths = torch.as_tensor(np.asarray(lengths, np.int64),
-                                  device=self.device)
-        x, ks, vs = self._prefill_trunk(self._tokens(tokens))
-        cache["k"][:, :, :t] = ks.to(cache["k"].dtype)
-        cache["v"][:, :, :t] = vs.to(cache["v"].dtype)
-        last = (lengths - 1).clamp(0, t - 1)
-        x_last = x[torch.arange(b, device=self.device), last]
-        cache["pos"].copy_(lengths.to(torch.int32))
-        return self._head(x_last), cache
+        toks, lens = self._stage(tokens, np.asarray(lengths).reshape(b))
+        return self._prefill(Bound(cache), toks, lens), cache
 
     @torch.no_grad()
     def prefill_slot(self, cache, tokens, slot: int):
@@ -424,26 +586,37 @@ class GenerationEngine:
                              f"{kvcache.cache_len(cache)} rows")
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :n] = tokens
-        x, ks, vs = self._prefill_trunk(self._tokens(padded))
-        cache["k"][:, int(slot), :bucket] = ks[:, 0].to(cache["k"].dtype)
-        cache["v"][:, int(slot), :bucket] = vs[:, 0].to(cache["v"].dtype)
-        cache["pos"][int(slot)] = n
-        return self._head(x[0, n - 1:n])[0], cache
+        toks, meta = self._stage(padded, [int(slot), n])
+        return self._prefill_slot(Bound(cache), toks, meta), cache
+
+    def _paged_kernel_choice(self, cache) -> str:
+        """``"kernel"`` or ``"gather"`` for this cache geometry — resolved
+        once per (pool shape, dtype, table shape, device) and memoized, so
+        the decode loop never decides again."""
+        key = (tuple(cache["k"].shape), cache["k"].dtype,
+               tuple(cache["pages"].shape), cache["k"].device)
+        got = self._paged_plan.get(key)
+        if got is None:
+            got = self._paged_plan[key] = pa.decide(self, cache)
+        return got
 
     @torch.no_grad()
     def decode_step(self, cache, tokens):
         """One token for every slot: tokens (B,) → (logits (B, V) f32,
         cache). Dispatches on the cache layout — dense lanes, or the
         paged pool via the gather path or the CUDA kernel."""
-        tokens = self._tokens(tokens).reshape(-1)
+        (tokens,) = self._stage(np.asarray(tokens).reshape(-1))
         if tokens.shape[0] != kvcache.cache_slots(cache):
             raise ValueError(f"decode_step wants one token per slot "
                              f"({kvcache.cache_slots(cache)}), got "
                              f"{tokens.shape[0]}")
         if kvcache.is_paged(cache):
-            use = pa.decide(self, cache) == "kernel"
-            return self._decode_paged(cache, tokens, use_kernel=use)
-        return self._decode_dense(cache, tokens)
+            fn = (self._decode_paged_kernel
+                  if self._paged_kernel_choice(cache) == "kernel"
+                  else self._decode_paged)
+        else:
+            fn = self._decode
+        return fn(Bound(cache), tokens), cache
 
     @torch.no_grad()
     def prefill_chunk(self, cache, tokens, slot: int, start: int = 0):
@@ -472,26 +645,40 @@ class GenerationEngine:
         bucket = next(b for b in self.chunk_buckets if b >= n)
         padded = np.zeros((bucket,), np.int64)
         padded[:n] = tokens
-        logits = self._prefill_chunk_rows(cache, self._tokens(padded),
-                                          int(start), n, int(slot))
-        return logits, cache
+        toks, meta = self._stage(padded, [int(slot), int(start), n])
+        return self._prefill_chunk(Bound(cache), toks, meta), cache
 
     def make_generator(self, seed: int = 0) -> torch.Generator:
         """A ``torch.Generator`` on the engine's device."""
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
+    def _seed0_generator(self) -> torch.Generator:
+        """The engine's own generator, reseeded to 0: what a call that
+        passes no generator draws from — the draws of a fresh seed-0
+        generator, through the one sampled signature a graph holds
+        (a sampled graph holds its generator)."""
+        if self._default_gen is None:
+            self._default_gen = self.make_generator()
+        return self._default_gen.manual_seed(0)
+
     @torch.no_grad()
     def sample(self, logits, temperature=0.0, top_k=0, generator=None):
         """Next tokens (B,) int32 from (B, V) logits; scalar knobs
-        broadcast to the batch, vectors give per-slot control."""
+        broadcast to the batch, vectors give per-slot control. Greedy
+        (every temperature <= 0) and sampled calls are two signatures; a
+        sampled one draws from ``generator`` (by default what a fresh
+        seed-0 generator draws) inside its graph."""
         bsz = logits.shape[0]
         temperature = np.broadcast_to(
             np.asarray(temperature, np.float32), (bsz,))
+        if not (temperature > 0).any():
+            return self._sample(logits, None, None, None)
         top_k = np.broadcast_to(np.asarray(top_k, np.int64), (bsz,))
-        if generator is None and (temperature > 0).any():
-            generator = self.make_generator()
-        return sample_tokens(logits, temperature, top_k, generator)
-
+        if generator is None:
+            generator = self._seed0_generator()
+        (k,) = self._stage(top_k)
+        (t,) = self._stage(temperature, dtype=np.float32)
+        return self._sample(logits, t, k, Bound(generator))
     def generate(self, prompt_ids, max_new_tokens=32, *, generator=None,
                  temperature=0.0, top_k=0, eos_id=None):
         """One-shot batched generation: prefill the prompt(s), then
@@ -514,7 +701,7 @@ class GenerationEngine:
                 f"prompt ({t}) + max_new_tokens ({max_new_tokens}) - 1 "
                 f"exceeds cache capacity max_len={self.max_len}")
         if generator is None:
-            generator = self.make_generator()
+            generator = self._seed0_generator()
         cache = self.init_cache(bsz)
         logits, cache = self.prefill(cache, ids)
         out = np.zeros((bsz, max_new_tokens), np.int32)

@@ -155,18 +155,26 @@ class PageTable:
 
     Pages are ref-counted: a page is FREE xor held, slot mappings never
     exceed a page's refcount, and slot maps plus external holds equal the
-    refcount exactly (``check()`` asserts it)."""
+    refcount exactly (``check()`` asserts it).
+
+    ``pinned=True`` (what :meth:`for_cache` passes for a CUDA cache) keeps
+    the mirror in pinned host memory: :meth:`sync` then copies it into
+    the device table without blocking, and every change of the mirror
+    first waits for the last such copy to have read it."""
 
     def __init__(self, n_slots: int, n_pages: int, page_len: int,
-                 pages_per_slot: int):
+                 pages_per_slot: int, pinned: bool = False):
         self.n_slots = int(n_slots)
         self.n_pages = int(n_pages)
         self.page_len = int(page_len)
         self.pages_per_slot = int(pages_per_slot)
         # pop() from the end → pages hand out in increasing id order
         self._free: List[int] = list(range(self.n_pages - 1, -1, -1))
-        self.table = np.full((self.n_slots, self.pages_per_slot),
-                             self.n_pages, np.int32)
+        self._host = torch.full((self.n_slots, self.pages_per_slot),
+                                self.n_pages, dtype=torch.int32,
+                                pin_memory=pinned)
+        self._copied = None      # CUDA event after the last sync's copy
+        self.table = self._host.numpy()
         self.mapped = np.zeros((self.n_slots,), np.int32)
         self.refcount = np.zeros((self.n_pages,), np.int32)
         self.fill = np.zeros((self.n_pages,), np.int32)
@@ -175,7 +183,13 @@ class PageTable:
     @classmethod
     def for_cache(cls, cache) -> "PageTable":
         return cls(cache_slots(cache), n_pages(cache), page_len(cache),
-                   pages_per_slot(cache))
+                   pages_per_slot(cache), pinned=cache["pages"].is_cuda)
+
+    def _before_write(self):
+        """Wait until the last sync's copy has read the mirror."""
+        if self._copied is not None:
+            self._copied.synchronize()
+            self._copied = None
 
     # ------------------------------------------------------- geometry
     def pages_for(self, tokens: int) -> int:
@@ -238,6 +252,7 @@ class PageTable:
             return True
         if need > len(self._free):
             return False
+        self._before_write()
         for j in range(have, want):
             self.table[slot, j] = self._alloc()
         self.mapped[slot] = want
@@ -257,6 +272,7 @@ class PageTable:
         for p in pages:
             if not (0 <= p < self.n_pages) or self.refcount[p] < 1:
                 raise ValueError(f"page {p} is not resident")
+        self._before_write()
         for j, p in enumerate(pages):
             self.table[slot, j] = p
             self.refcount[p] += 1
@@ -295,6 +311,7 @@ class PageTable:
                 f"page {old} is exclusively owned — no split needed")
         if not self._free:
             return None
+        self._before_write()
         new = self._alloc()
         self.fill[new] = int(self.fill[old])
         self.table[slot, j] = new
@@ -318,6 +335,7 @@ class PageTable:
         have = int(self.mapped[slot])
         if have == 0:
             return 0
+        self._before_write()
         for j in range(have - 1, -1, -1):     # LIFO: reuse hot pages
             self.decref(int(self.table[slot, j]))
         self.table[slot, :have] = self.n_pages
@@ -332,6 +350,7 @@ class PageTable:
         have = int(self.mapped[slot])
         if keep >= have:
             return 0
+        self._before_write()
         for j in range(have - 1, keep - 1, -1):
             self.decref(int(self.table[slot, j]))
         self.table[slot, keep:have] = self.n_pages
@@ -341,6 +360,7 @@ class PageTable:
 
     def reset(self):
         """Release everything."""
+        self._before_write()
         self._free = list(range(self.n_pages - 1, -1, -1))
         self.table[:] = self.n_pages
         self.mapped[:] = 0
@@ -351,9 +371,17 @@ class PageTable:
     # --------------------------------------------------------- device
     def sync(self, cache):
         """Copy the host mirror into the cache's device ``pages`` table,
-        in place, iff the mapping changed since the last sync."""
+        in place, iff the mapping changed since the last sync. The table
+        keeps its address (the captured decode and chunk steps read it);
+        from a pinned mirror the copy does not block the host."""
         if self._dirty:
-            cache["pages"].copy_(torch.from_numpy(self.table))
+            dst = cache["pages"]
+            if dst.is_cuda and self._host.is_pinned():
+                dst.copy_(self._host, non_blocking=True)
+                self._copied = torch.cuda.Event()
+                self._copied.record(torch.cuda.current_stream(dst.device))
+            else:
+                dst.copy_(self._host)
             self._dirty = False
         return cache
 

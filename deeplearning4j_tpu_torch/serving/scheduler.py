@@ -140,6 +140,10 @@ class ContinuousBatchingScheduler:
         self._gen = generator if generator is not None \
             else engine.make_generator()
         self._last_tokens = np.zeros((self.n_slots,), np.int32)
+        # sampled tokens come back through one pinned buffer and one
+        # event (made at the first read from the card)
+        self._host_tokens: Optional[torch.Tensor] = None
+        self._read_done: Optional[torch.cuda.Event] = None
         self._next_id = 0
         self._thread: Optional[threading.Thread] = None
         self._stop_evt = threading.Event()
@@ -476,8 +480,8 @@ class ContinuousBatchingScheduler:
     def _first_token(self, slot, req, logits, prefill_s: float):
         """Shared admission tail: sample the first token (the TTFT
         sample), then park it for the next sweep or finish at once."""
-        tok = int(self.engine.sample(logits[None], req.temperature,
-                                     req.top_k, self._gen).cpu()[0])
+        tok = int(self._read_tokens(self.engine.sample(
+            logits[None], req.temperature, req.top_k, self._gen))[0])
         now = time.perf_counter()
         with self._lock:
             self.stats["prefills"] += 1
@@ -517,8 +521,8 @@ class ContinuousBatchingScheduler:
             self._pages.sync(self.cache)
         t0 = time.perf_counter()
         logits, self.cache = self.engine.decode_step(self.cache, tokens_in)
-        toks = self.engine.sample(logits, temps, topks,
-                                  self._gen).cpu().numpy()
+        toks = self._read_tokens(self.engine.sample(logits, temps, topks,
+                                                    self._gen))
         dt = time.perf_counter() - t0
         with self._lock:
             self.stats["decode_steps"] += 1
@@ -537,6 +541,23 @@ class ContinuousBatchingScheduler:
                     self._retire_slot(i)
                     self._finish(req, tok)
         return True
+
+    def _read_tokens(self, toks: torch.Tensor) -> np.ndarray:
+        """Sampled tokens (n,) → host numpy. From the card: one copy
+        into the scheduler's pinned buffer and a wait on one event (only
+        this stream's work up to the copy, not the whole device)."""
+        if not toks.is_cuda:
+            return toks.numpy().copy()
+        if self._host_tokens is None:
+            self._host_tokens = torch.empty((self.n_slots,),
+                                            dtype=torch.int32,
+                                            pin_memory=True)
+            self._read_done = torch.cuda.Event()
+        host = self._host_tokens[:toks.shape[0]]
+        host.copy_(toks, non_blocking=True)
+        self._read_done.record(torch.cuda.current_stream(toks.device))
+        self._read_done.synchronize()
+        return host.numpy().copy()
 
     @staticmethod
     def _done(req: ServingRequest, tok: int) -> bool:

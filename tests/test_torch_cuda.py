@@ -888,3 +888,182 @@ def test_capture_failure_raises_and_never_runs_eagerly(gen):
     torch.cuda.synchronize()
     assert float(w) == 4.0
     assert float((x * 2).sum()) == 8.0
+
+
+# ------------------------------------------- the compiled serving step
+
+def _serving_engine(dtype, **kw):
+    from deeplearning4j_tpu_torch.serving import GenerationEngine
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg = tfm.TransformerConfig(vocab_size=64, d_model=64, n_heads=4,
+                                n_layers=2, d_ff=128, max_seq=64,
+                                dtype=dtype, remat=False)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cuda")
+    return GenerationEngine(cfg, params, prefill_chunk=8, **kw)
+
+
+def _twin(cache):
+    return {k: v.clone() for k, v in cache.items()}
+
+
+def _replay_and_eager(eng, name, call, cache):
+    """``call(cache)`` on ``cache`` through the compiled step and on a
+    clone of it under ``disable_graphs()``: logits and every cache tensor
+    bit for bit equal. Returns how the compiled call ran."""
+    import deeplearning4j_tpu_torch as tpkg
+    twin = _twin(cache)
+    got = call(cache)
+    kind = eng.sentinels[name].last
+    with tpkg.disable_graphs():
+        want = call(twin)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), name
+    for k in cache:
+        assert torch.equal(cache[k], twin[k]), (name, k)
+    return kind
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("kernel", ["on", "off"])
+def test_serving_chunk_and_paged_decode_replay_equal_eager(gen, dtype,
+                                                           kernel):
+    """Chunks at varied (slot, start, length) of one bucket, then paged
+    decode sweeps whose cursors and page tables change between calls:
+    every replay equals an eager call on a cloned cache, bit for bit (a
+    Python value baked into a capture would show here)."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import PageTable
+    eng = _serving_engine(dtype, paged_kernel=kernel)
+    cache = eng.init_paged_cache(3, 24, 4)
+    table = PageTable.for_cache(cache)
+    rng = np.random.default_rng(0)
+    ctx = [rng.integers(0, 64, 40) for _ in range(3)]
+    done = [0, 0, 0]
+    kinds = []
+    for slot, n in ((0, 8), (1, 5), (2, 8), (0, 3), (1, 8), (2, 1),
+                    (0, 8), (1, 2)):
+        table.map(slot, done[slot] + n)
+        table.sync(cache)
+        s0 = done[slot]
+        kinds.append(_replay_and_eager(
+            eng, "prefill_chunk", lambda c: eng.prefill_chunk(
+                c, ctx[slot][s0:s0 + n], slot, start=s0)[0], cache))
+        done[slot] += n
+    assert kinds[:2] == ["eager", "capture"] and set(kinds[2:]) == {"replay"}
+    name = "decode_paged_kernel" if kernel == "on" else "decode_paged"
+    kinds = []
+    for step in range(6):
+        for slot in range(3):          # page growth between sweeps
+            table.map(slot, done[slot] + step + 1)
+        table.sync(cache)
+        toks = rng.integers(0, 64, 3)
+        kinds.append(_replay_and_eager(
+            eng, name, lambda c: eng.decode_step(c, toks)[0], cache))
+    assert kinds[2:] == ["replay"] * 4
+    kinds = [_replay_and_eager(eng, "copy_page", lambda c: (
+        eng.copy_page(c, src, dst), c["pos"].clone())[1], cache)
+        for src, dst in ((0, 20), (5, 21), (1, 22))]
+    assert kinds == ["eager", "capture", "replay"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_serving_slot_prefill_and_dense_decode_replay_equal_eager(gen,
+                                                                  dtype):
+    """Dense admission at varied slots and lengths of one bucket, then
+    dense decode sweeps: replays equal eager calls on cloned caches."""
+    import numpy as np
+    eng = _serving_engine(dtype)
+    cache = eng.init_cache(4)
+    rng = np.random.default_rng(1)
+    kinds = []
+    for slot, n in ((0, 20), (3, 9), (1, 32), (2, 17)):   # bucket 32
+        prompt = rng.integers(0, 64, n)
+        kinds.append(_replay_and_eager(
+            eng, "prefill_slot",
+            lambda c: eng.prefill_slot(c, prompt, slot)[0], cache))
+    assert kinds == ["eager", "capture", "replay", "replay"]
+    kinds = []
+    for _ in range(5):
+        toks = rng.integers(0, 64, 4)
+        kinds.append(_replay_and_eager(
+            eng, "decode_step", lambda c: eng.decode_step(c, toks)[0],
+            cache))
+    assert kinds[2:] == ["replay"] * 3
+    kinds = []
+    for _ in range(3):
+        prompt = rng.integers(0, 64, (4, 16))
+        lens = rng.integers(1, 17, 4)
+        kinds.append(_replay_and_eager(
+            eng, "prefill", lambda c: eng.prefill(c, prompt, lens)[0],
+            cache))
+    assert kinds == ["eager", "capture", "replay"]
+
+
+def test_serving_sampled_replays_draw_what_eager_draws(gen):
+    """A sampled signature draws from the engine's generator inside its
+    graph: replays from a seeded generator give the tokens eager calls
+    give from a twin generator of the same seed."""
+    import numpy as np
+
+    import deeplearning4j_tpu_torch as tpkg
+    eng = _serving_engine(torch.float32)
+    logits = torch.randn((4, 64), generator=gen, device="cuda")
+    temps, topk = np.asarray([0.7, 1.0, 0.0, 1.3]), np.asarray([0, 5, 0, 3])
+    g1, g2 = eng.make_generator(7), eng.make_generator(7)
+    got = [eng.sample(logits, temps, topk, g1) for _ in range(6)]
+    assert eng.sentinels["sample_tokens"].last == "replay"
+    with tpkg.disable_graphs():
+        want = [eng.sample(logits, temps, topk, g2) for _ in range(6)]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not all(torch.equal(got[0], g) for g in got[1:])
+
+
+def test_serving_graph_never_replays_on_a_second_cache(gen):
+    """A graph bakes its cache's addresses: a second cache of the same
+    shapes starts its own signature (eager, then its own capture), and a
+    cache's graphs go when the cache is freed."""
+    import gc
+
+    import numpy as np
+    eng = _serving_engine(torch.bfloat16)
+    step = eng.sentinels["decode_step"]._fn
+    a, b = eng.init_cache(2), eng.init_cache(2)
+    toks = np.asarray([3, 4])
+    kinds = [_replay_and_eager(eng, "decode_step",
+                               lambda c: eng.decode_step(c, toks)[0], a)
+             for _ in range(3)]
+    assert kinds == ["eager", "capture", "replay"]
+    kinds = [_replay_and_eager(eng, "decode_step",
+                               lambda c: eng.decode_step(c, toks)[0], b)
+             for _ in range(3)]
+    assert kinds == ["eager", "capture", "replay"]
+    assert step.calls["capture"] == 2          # one graph for each cache
+    n = len(step._graphs)
+    del a
+    gc.collect()
+    assert len(step._graphs) == n - 1
+
+
+def test_serving_capture_failure_raises_and_restores_the_stream(gen):
+    """A serving step whose body reads a value back to the host fails at
+    capture with ``CaptureError`` chained to the sync's error; the
+    caller's stream is current again and the card usable."""
+    from deeplearning4j_tpu_torch.nn._compiled import (Bound, CaptureError,
+                                                       CompiledStep)
+
+    def body(cache, x):
+        cache["pos"].add_(x)
+        return torch.full((1,), cache["pos"].sum().item(), device="cuda")
+
+    step = CompiledStep(body, tuple, "syncing serving step")
+    cache = {"pos": torch.zeros(2, dtype=torch.int32, device="cuda")}
+    x = torch.ones(2, dtype=torch.int32, device="cuda")
+    step(Bound(cache), x)
+    with pytest.raises(CaptureError, match="syncing serving step") as err:
+        step(Bound(cache), x)
+    assert err.value.__cause__ is not None
+    assert torch.cuda.current_stream() == torch.cuda.default_stream()
+    torch.cuda.synchronize()
+    assert cache["pos"].tolist() == [1, 1]
