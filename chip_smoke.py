@@ -166,6 +166,27 @@ Phases, each fatal on failure:
    ``fit_scanned`` (``bench.py``'s ``lenet_scan`` row) over 8 copies of
    the batch, 2 epochs and a profiled third, step 1 within 2e-2 nats of
    ``fit``'s;
+12. the DL4J workflow around ``fit``, each part's kernel counts set to
+   0 just before it: ResNet-50 B128 bf16 (Momentum under a
+   ``StepSchedule``) fit 12 steps, replayed, with a deferred
+   ``ScoreIterationListener`` (the last 5 timed) and then a synchronous
+   ``CheckpointListener`` (5 more timed, its save left out), the
+   schedule's device count 12, K3 53 launches a step; ``evaluate`` over 4
+   seeded batches (``fused="auto"``: 33 normalize launches a batch),
+   replayed and eager, its confusion matrix equal to one counted from
+   ``output()``, samples/s and the forward's device ms and busy share;
+   ``save(save_updater=True)`` → ``load`` → 2 more steps bit-identical to
+   the original's 2 (seconds of each, zip size); ``clone``, trained,
+   the source bit-identical (memory the clone adds). The char-RNN B256
+   T60 under RmsProp with input dropout 0.2 on both LSTMs (K4): 5
+   replayed steps equal to 5 eager ones bit for bit, the generator's
+   state new after every step and equal to eager's; ``evaluate`` equal
+   to ``output()``'s counts; every K4 shape held in phase 9. LeNet B512:
+   the eight new updaters under a ``StepSchedule``, 3 steps replayed
+   equal to eager; a ``MaxNormConstraint`` holding after every replay;
+   a detector with a NaN batch at a replayed step (a no-op, raised one
+   step late); wall ms a replayed step and peak memory without and with
+   a detector;
 5. a ``kernels`` JSON line (every hand-written kernel: its route,
    launches on each main path, largest error, times and bound at its
    path shape), then the result line (printed last).
@@ -184,6 +205,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -734,17 +756,17 @@ def serving_counts(fa, pa):
 
 
 class StepLaunches:
-    """Kernel launches of the calls through an engine's compiled steps,
+    """Kernel launches of the calls through compiled steps (``steps``:
+    name → ``CompiledStep``; an engine's are its sentinels' ``_fn``),
     counted from their captures: a direct, eager or capture call counts
     what its wrappers launched while its body ran (a capture replays
     once), a replay what its signature's capture recorded (its wrappers
-    do not run). ``read()`` returns the counts (``serving_counts``) as a
-    dict; :meth:`reset` sets them to 0."""
+    do not run). ``read()`` returns the counts as a dict; :meth:`reset`
+    sets them to 0."""
 
-    def __init__(self, engine, read):
+    def __init__(self, steps, read):
         self.read, self.total, self._captured, self._last = read, {}, {}, {}
-        for name, sentinel in engine.sentinels.items():
-            step = sentinel._fn
+        for name, step in steps.items():
             step.step = self._counted(step.step)
             step.hooks.append(
                 lambda kind, key, name=name: self._on(name, kind, key))
@@ -791,7 +813,9 @@ def serve_ways(fa, pa, cfg, params, waves, n_new, profile=False):
     out = {}
     for way in ("replayed", "eager"):
         engine = GenerationEngine(cfg, params)
-        counts = StepLaunches(engine, lambda: serving_counts(fa, pa))
+        counts = StepLaunches({n: st._fn for n, st in
+                               engine.sentinels.items()},
+                              lambda: serving_counts(fa, pa))
         scheds = {path: ContinuousBatchingScheduler(engine, **kw)
                   for path, (kw, _) in waves.items()}
         rec = out[way] = {}
@@ -1611,9 +1635,9 @@ class _StepLog:
     """A fit listener: loss, host time, K3 launch counts and how the
     compiled step ran ("eager", "capture", "replay"; "direct" under
     ``disable_graphs()``) at the end of each step (``fit`` reads the loss
-    to the host first, which waits for the step's kernels).
-    ``deferred_score_ok``: ``fit_scanned`` may replay it after an epoch."""
-    deferred_score_ok = True
+    to the host first, which waits for the step's kernels). It reads the
+    net at the reported step, so it takes no deferred scores."""
+    deferred_score_ok = False
 
     def __init__(self, fo):
         self.fo, self.rows = fo, []
@@ -2473,6 +2497,444 @@ def lenet_path(fa, pa, fo, fl, steps=5):
     return recs
 
 
+# --------------------------------------------------------------- phase 12
+
+WORKFLOW_EVAL_BATCHES = 4
+# the eight updaters ported in the workflow slice, each run under a
+# StepSchedule halving its lr every step from this initial value
+NEW_UPDATERS = {"AMSGrad": 1e-3, "Nadam": 1e-3, "AdaMax": 2e-3,
+                "AdaDelta": 1.0, "AdaGrad": 1e-2, "RmsProp": 1e-3,
+                "Lion": 1e-4, "Lamb": 1e-3}
+LENET_MAX_NORM = 0.5                     # MaxNormConstraint on its dense W
+
+
+def _ms_per_step(net, batches):
+    """Wall ms a step of one ``fit`` over ``batches`` (ends on the card)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(batches)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(batches)
+
+
+def _all_tensors(net):
+    from deeplearning4j_tpu_torch.nn._compiled import tensors
+    return [(f"{i}", t.detach().clone()) for i, t in enumerate(
+        tensors((net.params, net.states, net._opt_state)))]
+
+
+def _confusion(outs, labels, n):
+    """The confusion matrix of ``output()`` results, counted on the host."""
+    m = np.zeros((n, n), np.int64)
+    for o, y in zip(outs, labels):
+        o = o.float().reshape(-1, o.shape[-1]).argmax(-1).cpu().numpy()
+        y = y.reshape(-1, y.shape[-1]).argmax(-1).cpu().numpy()
+        np.add.at(m, (y, o), 1)
+    return m
+
+
+def _eval_pass(net, batches):
+    """Samples/s of one ``evaluate`` over ``batches``, and the result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = net.evaluate(batches)
+    ev.confusion                         # the one read to the host
+    wall = time.perf_counter() - t0
+    return ev, sum(len(b.features) for b in batches) / wall
+
+
+def workflow_resnet(fo, checked):
+    """ResNet-50 B128 through the DL4J workflow: Momentum under a
+    StepSchedule, ``fit`` replayed with a deferred ScoreIterationListener
+    and then with a CheckpointListener, ``evaluate`` replayed and eager,
+    save/load and resume, clone."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import (CheckpointListener,
+                                             ComputationGraph,
+                                             ScoreIterationListener)
+    from deeplearning4j_tpu_torch.train import Momentum, StepSchedule
+    from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
+
+    rng = np.random.default_rng(12)
+
+    def batch():
+        x = rng.random((RESNET_BATCH, RESNET_HW, RESNET_HW, 3), np.float32)
+        y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000,
+                                                         RESNET_BATCH)]
+        return DataSet(torch.as_tensor(x, device="cuda"),
+                       torch.as_tensor(y, device="cuda"))
+
+    ds, more = batch(), [batch() for _ in range(2)]
+    evb = [batch() for _ in range(WORKFLOW_EVAL_BATCHES)]
+    sched = StepSchedule(initial_value=0.1, decay_rate=0.5, step=4)
+    model = ResNet50(num_classes=1000, updater=Momentum(sched, 0.9),
+                     compute_dtype=torch.bfloat16,
+                     input_shape=(RESNET_HW, RESNET_HW, 3))
+    net = ComputationGraph(model.conf())
+    _set_fused(net, True)
+    net.init()
+    fit_n = StepLaunches({"fit": net._compiled_step()},
+                         lambda: k3_counts(fo))
+    out_n = StepLaunches({"output": net._infer_step()},
+                         lambda: k3_counts(fo))
+    scores, failed, rec = [], [], {}
+    sil = ScoreIterationListener(1, log_fn=scores.append)
+    net.set_listeners(sil)
+    with _k3_cases(fo) as cases, tempfile.TemporaryDirectory() as tmp:
+        fo.reset_launches()
+        net.fit([ds, ds])                       # eager step, capture
+        rec["fit_ms_deferred_listener"] = _ms_per_step(net, [ds] * 5)
+        saves = []
+
+        class TimedCheckpoint(CheckpointListener):
+            def _save(self, model, tag):
+                t = time.perf_counter()
+                super()._save(model, tag)
+                saves.append(time.perf_counter() - t)
+
+        ck = TimedCheckpoint(tmp, save_every_n_epochs=3)
+        net.set_listeners(sil, ck)
+        ms = _ms_per_step(net, [ds] * 5)
+        rec["fit_ms_sync_checkpoint_listener"] = ms - sum(saves) * 1e3 / 5
+        rec["checkpoint_save_s"] = saves
+        ck_ok = [p.name for p in Path(tmp).iterdir()] == \
+            ["checkpoint_epoch_3.zip"]
+        count = int(net._opt_state[1][1]["count"])
+        kinds = dict(net._step_fn.calls)
+        its = [int(m.split()[3]) for m in scores]
+        vals = [float(m.split()[-1]) for m in scores]
+        rec.update(step_calls=kinds, schedule_count=count,
+                   lr_now=sched.value_at(count, 0), losses=vals)
+        if its != list(range(1, 13)) or not np.isfinite(vals).all() \
+                or not vals[-1] < vals[0]:
+            failed.append("listener scores (order, finite, falling)")
+        if kinds != {"direct": 0, "eager": 1, "capture": 1, "replay": 10}:
+            failed.append("fit did not replay")
+        if count != 12 or not ck_ok:
+            failed.append("schedule count or checkpoint")
+        fit_launches = dict(fit_n.total)
+
+        # evaluate: the zoo's fused="auto" at inference (33 normalize
+        # launches a batch), replayed and eager
+        _set_fused(net, "auto")
+        ev, sps_first = _eval_pass(net, evb)
+        eval_launches = dict(out_n.total)
+        ev, sps = _eval_pass(net, evb)
+        with disable_graphs():
+            ev_eager, sps_eager = _eval_pass(net, evb)
+            prof_eager = profile_step(lambda: net.output(evb[0].features))
+        prof = profile_step(lambda: net.output(evb[0].features))
+        outs = [net.output(b.features) for b in evb]
+        want = _confusion(outs, [b.labels for b in evb], 1000)
+        rec["evaluate"] = {
+            "samples_per_s_replayed": sps, "samples_per_s_eager": sps_eager,
+            "samples_per_s_first_pass": sps_first,
+            "forward_device_ms_replayed": prof["device_ms_per_step"],
+            "forward_busy_share_replayed": prof["device_busy_share"],
+            "forward_device_ms_eager": prof_eager["device_ms_per_step"],
+            "forward_busy_share_eager": prof_eager["device_busy_share"],
+            "output_calls": dict(net._infer_fn.calls),
+            "accuracy": ev.accuracy()}
+        if not (np.array_equal(ev.confusion, want)
+                and np.array_equal(ev_eager.confusion, want)
+                and ev._conf.device.type == "cuda"
+                and want.sum() == RESNET_BATCH * WORKFLOW_EVAL_BATCHES):
+            failed.append("evaluate's counts disagree with output()'s")
+        if eval_launches.get("bn_act") != 33 * WORKFLOW_EVAL_BATCHES or \
+                any(eval_launches.get(k) for k in ("bn_stats",
+                                                   "bn_bwd_reduce",
+                                                   "bn_bwd_dx")):
+            failed.append(f"evaluate's K3 launches {eval_launches}")
+        _set_fused(net, True)
+
+        # save with the updater, load, two more steps each: bit-identical
+        net.set_listeners()
+        path = Path(tmp) / "resnet.zip"
+        t = time.perf_counter()
+        net.save(path, save_updater=True)
+        rec["save_s"] = time.perf_counter() - t
+        rec["zip_mib"] = path.stat().st_size / 2**20
+        t = time.perf_counter()
+        twin = ComputationGraph.load(path)
+        torch.cuda.synchronize()
+        rec["load_s"] = time.perf_counter() - t
+    cont = [net.fit(d) for d in more]
+    resumed = [twin.fit(d) for d in more]
+    diff = first_diff(_all_tensors(net), _all_tensors(twin))
+    rec["resume"] = {"losses": cont, "loaded_losses": resumed,
+                     "bit_identical": diff is None and cont == resumed}
+    if not rec["resume"]["bit_identical"]:
+        failed.append(f"resume after load (first differing leaf {diff})")
+    del twin
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # clone: real copies; training the clone leaves the source as it was
+    before = _all_tensors(net)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    clone = net.clone()
+    torch.cuda.synchronize()
+    rec["clone_adds_gib"] = (torch.cuda.memory_allocated() - mem0) / 2**30
+    clone.fit([ds, ds])
+    rec["peak_alloc_gib_with_clone_training"] = \
+        torch.cuda.max_memory_allocated() / 2**30
+    untouched = first_diff(before, _all_tensors(net)) is None
+    moved = first_diff(before, _all_tensors(clone)) is not None
+    rec["clone"] = {"source_bit_identical": untouched,
+                    "clone_moved": moved}
+    if not (untouched and moved):
+        failed.append("clone is not independent of its source")
+    del clone, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    unchecked = set(cases) - checked
+    rec["k3_launches"] = {"fit": fit_launches, "evaluate": eval_launches}
+    log(f"workflow resnet50 (B{RESNET_BATCH}, bf16, Momentum under "
+        f"StepSchedule(0.1, 0.5, 4), BN fused): {json.dumps(rec)}")
+    if fit_launches != {k: 53 * 12 for k in k3_counts(fo)}:
+        failed.append(f"fit's K3 launches {fit_launches}")
+    if unchecked:
+        failed.append(f"K3 ran at {unchecked}, which phase 7 did not hold")
+    if failed:
+        raise SystemExit(f"workflow resnet50: {failed}")
+    return {"workflow_resnet_fit": fit_launches,
+            "workflow_resnet_evaluate": {**{k: 0 for k in k3_counts(fo)},
+                                         **eval_launches}}
+
+
+class _RngLog(_FitLog):
+    """``_FitLog`` that also records the train generator's state (its seed
+    and Philox offset) after each step: a replay must advance it, so that
+    each step draws new masks."""
+
+    def iteration_done(self, net, it, epoch, loss):
+        super().iteration_done(net, it, epoch, loss)
+        self.rows[-1] = (*self.rows[-1],
+                         tuple(net._gen.get_state().tolist()))
+
+
+def workflow_charnn(fl, checked):
+    """The char-RNN B256 T60 under RmsProp with input dropout 0.2 on both
+    LSTMs (K4 fused): 5 replayed steps against 5 eager ones, bit for bit,
+    the generator advancing each step; then ``evaluate``."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import LSTM
+    from deeplearning4j_tpu_torch.train import RmsProp
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    b, t, v = CHARNN_BATCH, CHARNN_T, CHARNN_VOCAB
+    rng = np.random.default_rng(13)
+    eye = np.eye(v, dtype=np.float32)
+
+    def data():
+        return DataSet(
+            torch.as_tensor(eye[rng.integers(0, v, (b, t))], device="cuda"),
+            torch.as_tensor(eye[rng.integers(0, v, (b, t))], device="cuda"))
+    ds, held = data(), data()
+    runs, nets, failed = {}, {}, []
+    with _k4_cases(fl) as cases:
+        for way, graphs in (("graph", True), ("eager", False)):
+            net = TextGenerationLSTM(
+                num_classes=v, input_shape=(t, v), units=CHARNN_H,
+                compute_dtype=torch.bfloat16,
+                updater=RmsProp(1e-3)).init()
+            for layer in net.layers:
+                if isinstance(layer, LSTM):
+                    layer.fused, layer.dropout = True, 0.2
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fl.reset_launches()
+            steplog = _RngLog(fl)
+            net.set_listeners(steplog)
+            with contextlib.nullcontext() if graphs else disable_graphs():
+                net.fit([ds] * 5)
+                rec = steplog.record(b)
+                states = [r[4] for r in steplog.rows]
+                final = _all_tensors(net)
+                add_profile(rec, profile_step(lambda: net.fit(ds)))
+            runs[way], nets[way] = (rec, final, states), net
+            log(f"workflow charnn {way} (B{b} T{t} H{CHARNN_H}, bf16, "
+                f"RmsProp(1e-3), LSTM input dropout 0.2, K4 fused): "
+                f"{json.dumps(rec)}")
+        (gr, gf, gs), (er, ef, es) = runs["graph"], runs["eager"]
+        diff = first_diff(ef, gf)
+        steps_ok = gr["step_kinds"][:5] == ["eager", "capture", "replay",
+                                            "replay", "replay"]
+        log(f"workflow charnn: replayed vs eager under dropout: losses "
+            f"equal {gr['losses'] == er['losses']}, params and updater "
+            f"state bit-identical {diff is None}; the generator's state "
+            f"new after every step {len(set(gs)) == len(gs)}, equal to "
+            f"eager's {gs == es}")
+        if not (steps_ok and diff is None and gr["losses"] == er["losses"]
+                and gs == es and len(set(gs)) == len(gs)):
+            failed.append("replayed dropout steps differ from eager or "
+                          "draw the same masks")
+        if gr["k4_launches_per_step"] != [2] * 5:
+            failed.append(f"K4 launches a step {gr['k4_launches_per_step']}")
+        del nets["eager"]
+        net = nets["graph"]
+        fl.reset_launches()
+        ev = net.evaluate([held])
+        outs = [net.output(held.features)]
+        torch.cuda.synchronize()
+        eval_launches = fl.LAUNCHES
+        want = _confusion(outs, [held.labels], v)
+        log(f"workflow charnn evaluate: accuracy {ev.accuracy():.4f}, "
+            f"confusion equal to output()'s {np.array_equal(ev.confusion, want)}"
+            f", K4 launches {eval_launches} (an eager output() and its "
+            "capture)")
+        if not np.array_equal(ev.confusion, want) or want.sum() != b * t \
+                or eval_launches != 4:
+            failed.append("evaluate")
+    unchecked = set(cases) - checked
+    if unchecked:
+        failed.append(f"K4 ran at {unchecked}, which phase 9 did not hold")
+    del net, nets
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"workflow charnn: {failed}")
+    return {"workflow_charnn": {"fused_lstm": sum(
+        gr["k4_launches_per_step"]) + eval_launches}}
+
+
+class _Snapshots:
+    """A synchronous listener: every tensor of the net after each step,
+    and the largest column norm of each constrained W."""
+
+    def __init__(self, keys=()):
+        self.keys, self.snaps, self.norms = keys, [], []
+
+    def iteration_done(self, net, it, epoch, loss):
+        self.snaps.append(_all_tensors(net))
+        self.norms.append(max(
+            float(net.params[k]["W"].detach().float().norm(dim=0).max())
+            for k in self.keys) if self.keys else 0.0)
+
+
+def workflow_lenet():
+    """LeNet B512: each new updater under a StepSchedule, 3 replayed steps
+    against 3 eager; a MaxNormConstraint after every replay; a detector
+    with one NaN batch; step time and peak memory with and without it."""
+    from deeplearning4j_tpu_torch import disable_graphs, train
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import DenseLayer, MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    rng = np.random.default_rng(14)
+
+    def data(bad=False):
+        x = rng.random((LENET_BATCH, 28, 28, 1), np.float32)
+        if bad:
+            x[0, 0, 0, 0] = np.nan
+        y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, LENET_BATCH)]
+        return DataSet(torch.as_tensor(x, device="cuda"),
+                       torch.as_tensor(y, device="cuda"))
+
+    def lenet(updater, max_norm=None):
+        conf = LeNet(num_classes=10, compute_dtype=torch.bfloat16,
+                     updater=updater).conf()
+        keys = []
+        for i, layer in enumerate(conf.layers):
+            if max_norm is not None and isinstance(layer, DenseLayer):
+                layer.constraints = [train.MaxNormConstraint(max_norm)]
+                keys.append(f"layer_{i}")
+        return MultiLayerNetwork(conf).init(), keys
+
+    good = [data() for _ in range(4)]
+    failed, upd = [], {}
+    for name, lr in NEW_UPDATERS.items():
+        res = []
+        for graphs in (True, False):
+            net, _ = lenet(getattr(train, name)(train.StepSchedule(
+                initial_value=lr, decay_rate=0.5, step=1)))
+            with contextlib.nullcontext() if graphs else disable_graphs():
+                losses = [net.fit(d) for d in good[:3]]
+            res.append((losses, _all_tensors(net), dict(net._step_fn.calls)))
+        (lg, tg, cg), (le, te, _) = res
+        ok = lg == le and first_diff(te, tg) is None and \
+            cg == {"direct": 0, "eager": 1, "capture": 1, "replay": 1}
+        upd[name] = {"losses": lg, "replay_equals_eager": ok}
+        if not (ok and np.isfinite(lg).all()):
+            failed.append(name)
+    log(f"workflow lenet (B{LENET_BATCH}, bf16): the eight new updaters, "
+        f"lr a StepSchedule halving each step, 3 steps (eager, capture, "
+        f"replay) against eager: {json.dumps(upd)}")
+
+    net, keys = lenet(train.Adam(1e-2), LENET_MAX_NORM)
+    snaps = _Snapshots(keys)
+    net.set_listeners(snaps)
+    net.fit(good + [good[0]])
+    kinds = dict(net._step_fn.calls)
+    log(f"workflow lenet MaxNormConstraint({LENET_MAX_NORM}) on {keys}: "
+        f"largest column norm after each step {snaps.norms}, steps {kinds}")
+    if not all(n <= LENET_MAX_NORM * (1 + 1e-5) for n in snaps.norms) or \
+            kinds["replay"] != 3:
+        failed.append("MaxNormConstraint")
+
+    net, _ = lenet(train.Adam(1e-3))
+    net.enable_gradient_anomaly_detection()
+    snaps = _Snapshots()
+    net.set_listeners(snaps)
+    raised = False
+    try:
+        net.fit(good[:3] + [data(bad=True), good[3]])
+    except FloatingPointError:
+        raised = True
+    noop = first_diff(snaps.snaps[2], snaps.snaps[3]) is None
+    log(f"workflow lenet detector: NaN batch at step 4 (a {net._step_fn.last}"
+        f" at step {net._step_count}): a no-op {noop}, raised one step late "
+        f"{raised and net._step_count == 5}")
+    if not (noop and raised and net._step_count == 5
+            and net._step_fn.calls["replay"] == 3):
+        failed.append("anomaly gate")
+
+    timing = {}
+    for tag, detect in (("without_detector", False),
+                        ("with_detector", True)):
+        del net
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        net, _ = lenet(train.Adam(1e-3))
+        if detect:
+            net.enable_gradient_anomaly_detection(
+                train.GradientAnomalyDetector(strict=False))
+        net.fit(good[:2])
+        timing[tag] = {
+            "wall_ms_per_step": _ms_per_step(net, good * 5),
+            "peak_alloc_gib_over_held": (torch.cuda.max_memory_allocated()
+                                         - held) / 2**30,
+            "held_before_gib": held / 2**30}
+    log(f"workflow lenet replayed steps (20 a fit): {json.dumps(timing)}")
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"workflow lenet: {failed}")
+
+
+def workflow_path(fa, pa, fo, fl, k3_checked, k4_checked):
+    """Phase 12: the DL4J workflow around ``fit`` at full width (the
+    counts of each part's kernels set to 0 just before it, read after)."""
+    counts = {}
+    reset_all(fa, pa, fo, fl)
+    counts.update(workflow_resnet(fo, k3_checked))
+    reset_all(fa, pa, fo, fl)
+    counts.update(workflow_charnn(fl, k4_checked))
+    reset_all(fa, pa, fo, fl)
+    workflow_lenet()
+    return counts
+
+
 class HostClock:
     """Host seconds spent in named calls of live objects: :meth:`wrap`
     shadows a bound method with a timed one (an instance attribute),
@@ -2723,10 +3185,18 @@ def main():
     mark("10 char-RNN")
     lenet_path(fa, pa, fo, fl)
     mark("11 LeNet")
+    workflow = workflow_path(fa, pa, fo, fl, k3_checked, k4_checked)
+    # the workflow's ResNet-50 paths run K3 only: every other counter 0
+    zero = dict.fromkeys(by_path["resnet_train"], 0)
+    by_path.update({p: {**zero, **c} for p, c in workflow.items()
+                    if p.startswith("workflow_resnet")})
+    lstm_paths["workflow_charnn"] = workflow["workflow_charnn"]
+    mark("12 DL4J workflow")
     log(f"host seconds by phase (after the build): {json.dumps(seconds)}")
     # the stage-0 BN's shape (N = 128*56*56, C = 256) stands for K3
     main_k3 = k3[(torch.bfloat16, RESNET_BATCH * 56 * 56, 256)]
-    resnet_paths = ("resnet_train", "resnet_output", "resnet_fitscan")
+    resnet_paths = ("resnet_train", "resnet_output", "resnet_fitscan",
+                    "workflow_resnet_fit", "workflow_resnet_evaluate")
     main_k1 = k1[(torch.bfloat16, 1, 2048, 64)]    # a dense prefill's shape
     train_k1 = k1[(torch.bfloat16, 32, 1024, 64)]  # the train path's shape
     main_k2 = k2[torch.bfloat16]

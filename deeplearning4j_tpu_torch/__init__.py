@@ -27,7 +27,13 @@ What is ported so far:
   and :func:`disable_graphs` (the counterpart of ``jax.disable_jit``)
   keeps them eager;
 - ``obs.compiles`` — the compile sentinel around each of the engine's
-  entry points (``engine.mark_warm()``, ``engine.compile_report()``).
+  entry points (``engine.mark_warm()``, ``engine.compile_report()``);
+- the DL4J workflow around ``fit``, inside the replayed step: ``eval``
+  and the nets' ``evaluate*``, ``serde`` (``save``/``load``/``clone``,
+  ``load_params``), ``nn.listeners`` with the deferred score read,
+  ``train.schedules`` and all twelve updaters, ``train.constraints``,
+  ``train.anomaly``, ``nn.weightnoise`` and the dropout family, and
+  ``data.normalizers``.
 
 Entry points take ``device=None``, which means the CUDA card; without one
 they raise unless the caller passed ``device="cpu"``.

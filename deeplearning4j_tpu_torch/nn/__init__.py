@@ -11,23 +11,38 @@ from .layers.base import Ctx, InputType, Layer
 from .layers.conv import (ConvolutionLayer, GlobalPoolingLayer, PoolingType,
                           SpaceToDepthLayer, SubsamplingLayer,
                           ZeroPaddingLayer)
-from .layers.core import (ActivationLayer, DenseLayer, LossLayer,
-                          OutputLayer, RnnOutputLayer)
+from .layers.core import (ActivationLayer, AlphaDropout, DenseLayer,
+                          DropoutLayer, GaussianDropout, GaussianNoise,
+                          LossLayer, OutputLayer, RnnOutputLayer,
+                          SpatialDropout)
 from .layers.norm import (BatchNormalization, LayerNormalization,
                           LocalResponseNormalization, RMSNorm)
 from .layers.recurrent import (GRU, LSTM, Bidirectional, BidirectionalMode,
                                GravesBidirectionalLSTM, GravesLSTM,
                                LastTimeStep, SimpleRnn, TimeDistributed)
+from .listeners import (CheckpointListener, CollectScoresListener,
+                        EvaluativeListener, NanScoreWatchdog,
+                        PerformanceListener, ScoreIterationListener,
+                        TimeIterationListener, TrainingListener)
 from .multi_layer_network import MultiLayerNetwork
+from .weightnoise import (BernoulliDistribution, DropConnect,
+                          NormalDistribution, UniformDistribution,
+                          WeightNoise)
 from .vertices import (ElementWiseVertex, GraphVertex, L2NormalizeVertex,
                        L2Vertex, MergeVertex, PreprocessorVertex,
                        ReshapeVertex, ScaleVertex, ShiftVertex, StackVertex,
                        SubsetVertex, UnstackVertex)
 
-__all__ = ["ActivationLayer", "BatchNormalization", "Bidirectional",
-           "BidirectionalMode", "ComputationGraph",
+__all__ = ["ActivationLayer", "AlphaDropout", "BatchNormalization",
+           "BernoulliDistribution", "Bidirectional", "BidirectionalMode",
+           "CheckpointListener", "CollectScoresListener", "ComputationGraph",
            "ComputationGraphConfiguration", "ConvolutionLayer", "Ctx",
-           "DenseLayer", "ElementWiseVertex", "GRU", "GlobalPoolingLayer",
+           "DenseLayer", "DropConnect", "DropoutLayer", "ElementWiseVertex",
+           "EvaluativeListener", "GRU", "GaussianDropout", "GaussianNoise",
+           "GlobalPoolingLayer", "NanScoreWatchdog", "NormalDistribution",
+           "PerformanceListener", "ScoreIterationListener",
+           "SpatialDropout", "TimeIterationListener", "TrainingListener",
+           "UniformDistribution", "WeightNoise",
            "GraphBuilder", "GraphVertex", "GravesBidirectionalLSTM",
            "GravesLSTM", "InputType", "L2NormalizeVertex", "L2Vertex",
            "LSTM", "LastTimeStep", "Layer", "LayerNormalization",

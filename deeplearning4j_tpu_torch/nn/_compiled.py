@@ -26,7 +26,10 @@ pool; nothing the next step reads may.
   of the loss.
 
 A replay runs the kernels the capture recorded on the same buffers, so
-the trajectory is the eager one, step for step. Before each replay the
+the trajectory is the eager one, step for step. A ``torch.Generator``
+among the bindings (the net's, which dropout and weight noise draw from)
+is registered with every graph: a replay draws from the generator's
+current state, as the eager step would, and advances it. Before each replay the
 step's bindings (the tensors it updates in place, and the host values it
 bakes in) are checked by identity: after a rebinding (``net.params = ...``,
 a new optimizer, a changed learning rate) every graph is dropped and the
@@ -293,7 +296,7 @@ class CompiledStep:
         failed = None
         prev = torch.cuda.current_stream(dev)
         try:
-            for gen in _bound_leaves(batch):
+            for gen in _bound_leaves(batch) + list(self._bound):
                 if isinstance(gen, torch.Generator):
                     g.graph.register_generator_state(gen)
             with torch.cuda.graph(g.graph, pool=self._pool,

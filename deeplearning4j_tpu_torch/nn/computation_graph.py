@@ -1,21 +1,21 @@
 """ComputationGraph — port of ``deeplearning4j_tpu/nn/computation_graph.py``
-(DAG network runtime: init / fit / fit_scanned / output / score).
+(DAG network runtime: init / fit / fit_scanned / output / evaluate /
+score / save / load / clone).
 
 The topological order runs on one device. A train step
 (:meth:`_train_step`, the static step of ``nn/_compiled.py``) updates
-everything in place:
+everything in place, as ``MultiLayerNetwork``'s does: the loss and its
+grads (input dropout and weight noise drawn from the net's generator),
+the grad stats and the gate's copy with a detector attached, the
+in-place updater, the weight constraints, the running states, the gate.
 
-1. the loss, with ``torch.autograd.grad`` on the leaves of ``params``;
-2. the in-place updater (``train/updaters.py``) under ``no_grad``, its
-   updates added to the params with one ``_foreach_add_`` per dtype;
-3. the new running states copied into ``states``.
-
-Constraints, if any are set, raise before the first step (not ported
-yet). ``fit`` and ``fit_scanned`` run the step through a
+``fit`` and ``fit_scanned`` run the step through a
 :class:`CompiledStep`: on CUDA each batch signature's first step is eager,
 its second is captured as a CUDA graph, and later steps replay it
 (``disable_graphs()`` keeps every step eager); on the CPU the step is
-called directly.
+called directly. ``fit`` reports steps to the listeners one step late
+where they allow it (``nn/_fit_loop.py``); ``output()`` is a compiled
+step of its own, one graph per input signature.
 
 ``device=None`` means the CUDA card (``_device.resolve_device``); only an
 explicit ``"cpu"`` runs on the host. Params and states are nested dicts
@@ -23,9 +23,8 @@ of tensors in the reference's layout, so :func:`params_from_numpy` takes
 the JAX net's ``net.params`` / ``net.states`` as numpy trees.
 
 Not ported yet (raise where the reference has the knob): remat segments,
-``rnn_time_step``, gradient-anomaly detection, ``evaluate``,
-``save``/``load``, ``clone``, dropout and weight noise, multi-input
-layers, and async prefetch of the iterator (``fit`` iterates directly).
+``rnn_time_step``, multi-input layers, and async prefetch of the iterator
+(``fit`` iterates directly).
 """
 
 from __future__ import annotations
@@ -36,15 +35,18 @@ import numpy as np
 import torch
 
 from .._device import resolve_device, tree_to
-from ..train.updaters import (NoOp, apply_updates, build_optimizer,
-                              tree_leaves, tree_map)
-from ._compiled import CompiledStep, copy_into, tensors
+from ..train.constraints import apply_constraints_
+from ..train.updaters import NoOp, build_optimizer, tree_leaves, tree_map
+from ._compiled import CompiledStep, tensors
+from ._fit_loop import fit_epochs
 from ._scan_common import check_scan_listeners, replay_scan_listeners
 from .graph import ComputationGraphConfiguration
 from .layers.base import Ctx, Layer
-from .layers.core import LossLayer, OutputLayer
-from .multi_layer_network import _is_ff_layer, _unflatten
+from .layers.core import LossLayer, OutputLayer, dropout_apply, keep_mask
+from .multi_layer_network import (_copy_params, _is_ff_layer, _unflatten,
+                                  _update_in_place)
 from .preprocessors import CnnToFeedForwardPreProcessor
+from .weightnoise import maybe_apply_weight_noise
 
 
 def params_from_numpy(params, states, device=None):
@@ -78,10 +80,13 @@ class ComputationGraph:
         self.device = None
         self.epoch_count = 0
         self._step_count = 0
-        self._gen = torch.Generator().manual_seed(self._g.seed)
+        self._gen = None
         self.output_loss_weights = {name: 1.0 for name in conf.outputs}
         self._remat_segments = None
         self._step_fn = None
+        self._infer_fn = None
+        self._anomaly_detector = None
+        self._restored_opt_state = None
 
     @property
     def remat_segments(self):
@@ -100,13 +105,14 @@ class ComputationGraph:
     def init(self, input_shapes=None, device=None):
         """Draw every layer's params on the host from a generator seeded
         with the configuration's seed, then move them to ``device``."""
-        self.device = resolve_device(device)
+        self._bind_device(resolve_device(device))
         if input_shapes is None:
             if self.conf.input_types is None:
                 raise ValueError("Provide input_shapes or set_input_types")
             input_shapes = [tuple(t[1]) for t in self.conf.input_types]
         shapes = {name: tuple(s) for name, s in zip(self.conf.inputs,
                                                     input_shapes)}
+        self._init_shapes = [tuple(s) for s in input_shapes]
         gen = torch.Generator().manual_seed(self._g.seed)
         for name in self.conf.topo_order:
             node = self.conf.nodes[name]
@@ -134,6 +140,11 @@ class ComputationGraph:
         self.initialized = True
         return self
 
+    def _bind_device(self, device):
+        """Live on ``device``, with the train step's generator there."""
+        self.device = device
+        self._gen = torch.Generator(device=device).manual_seed(self._g.seed)
+
     # -------------------------------------------------------------- forward
     def _apply_node(self, name, params, states, acts, pre_acts, new_states,
                     *, train, rng, fmask, lmask, stop_at_output_preact):
@@ -144,21 +155,23 @@ class ComputationGraph:
             new_states[name] = states[name]
             return
         op = node.op
-        if train and (op.dropout > 0.0 or op.weight_noise is not None):
-            raise NotImplementedError(
-                f"node '{name}': dropout and weight noise (reference "
-                "_apply_node_inner, nn/weightnoise.py) are not ported yet")
         h = xs[0]
         if name in self._preprocessors:
             h = self._preprocessors[name](h)
+        noisy = train and rng is not None
+        if noisy and op.dropout > 0.0:
+            keep = 1.0 - op.dropout
+            h = dropout_apply(h, keep_mask(h.shape, keep, rng, h.device),
+                              keep)
         if stop_at_output_preact and name in self.conf.outputs and \
                 isinstance(op, (OutputLayer, LossLayer)):
             pre_acts[name] = h
             new_states[name] = states[name]
             acts[name] = h
             return
+        p_n = maybe_apply_weight_noise(op, params[name], rng, noisy)
         ctx = Ctx(train=train, rng=rng, mask=fmask, label_mask=lmask)
-        h, s_new = op.apply(params[name], states[name], h, ctx)
+        h, s_new = op.apply(p_n, states[name], h, ctx)
         new_states[name] = s_new
         acts[name] = h
 
@@ -201,15 +214,27 @@ class ComputationGraph:
     def _to_device(self, x):
         return torch.as_tensor(x, device=self.device)
 
+    def _infer_step(self):
+        """The compiled inference forward: one CUDA graph per input
+        signature, fresh output tensors a call."""
+        if self._infer_fn is None:
+            def infer(*xs):
+                with torch.no_grad():
+                    acts, _, _ = self._forward(
+                        self.params, self.states,
+                        dict(zip(self.conf.inputs, xs)), train=False,
+                        rng=None)
+                return tuple(acts[o] for o in self.conf.outputs)
+            self._infer_fn = CompiledStep(
+                infer, lambda: tensors((self.params, self.states)),
+                "ComputationGraph.output")
+        return self._infer_fn
+
     def output(self, *inputs):
         """Inference on the net's device; numpy arrays or tensors in, one
         tensor per graph output (a bare tensor for one output)."""
-        ins = {n: self._to_device(x) for n, x in zip(self.conf.inputs,
-                                                     inputs)}
-        with torch.no_grad():
-            acts, _, _ = self._forward(self.params, self.states, ins,
-                                       train=False, rng=None)
-        outs = [acts[o] for o in self.conf.outputs]
+        outs = list(self._infer_step()(*(self._to_device(x)
+                                         for x in inputs)))
         return outs[0] if len(outs) == 1 else outs
 
     def rnn_time_step(self, *inputs):
@@ -282,19 +307,27 @@ class ComputationGraph:
             per_label_updaters=per_label if has_override else None)
         with torch.no_grad():
             self._opt_state = self._optimizer.init(self.params)
+        if self._restored_opt_state is not None:
+            from ..serde.model_serializer import restore_tree_
+            restore_tree_(self._opt_state, self._restored_opt_state,
+                          "updater")
+            self._restored_opt_state = None
 
     def _apply_constraints(self):
+        """Each unfrozen layer node's constraints, in place."""
         for name, node in self.conf.nodes.items():
             op = node.op
-            if isinstance(op, Layer) and not op.frozen and (
-                    op.constraints or op.bias_constraints):
-                raise NotImplementedError(
-                    f"node '{name}': weight constraints (deeplearning4j_tpu/"
-                    "train/constraints.py) are not ported yet")
+            if not isinstance(op, Layer) or op.frozen:
+                continue
+            apply_constraints_(self.params[name], op.constraints,
+                               weights=True)
+            apply_constraints_(self.params[name], op.bias_constraints,
+                               weights=False, biases=True)
 
     def _train_step(self, inputs, labels, fmask, lmask):
         """The static step: one batch, the params, the updater's state and
-        the running states updated in place. Returns the loss (0-d)."""
+        the running states updated in place. Returns the loss (0-d), and
+        the grad stats with a detector attached."""
         leaves = tree_leaves(self.params)
         loss, new_states = self._loss(self.params, self.states, inputs,
                                       labels, self._gen, fmask, lmask)
@@ -302,12 +335,7 @@ class ComputationGraph:
         gtree = _unflatten(self.params, iter(
             torch.zeros_like(p) if g is None else g
             for p, g in zip(leaves, grads)))
-        with torch.no_grad():
-            updates, _ = self._optimizer.update(gtree, self._opt_state,
-                                                self.params)
-            apply_updates(leaves, tree_leaves(updates))
-            copy_into(self.states, new_states)
-        return loss.detach()
+        return _update_in_place(self, loss, new_states, gtree)
 
     def _compiled_step(self):
         """The net's :class:`CompiledStep` over :meth:`_train_step`, fed
@@ -322,14 +350,17 @@ class ComputationGraph:
                     dict(zip(outs, flat[len(ins):-2])), flat[-2], flat[-1])
             self._step_fn = CompiledStep(
                 step,
-                lambda: tensors((self.params, self.states, self._opt_state)),
-                "ComputationGraph")
+                lambda: tensors((self.params, self.states, self._opt_state))
+                + [self._gen], "ComputationGraph")
         return self._step_fn
 
     def enable_gradient_anomaly_detection(self, detector=None):
-        raise NotImplementedError(
-            "gradient anomaly detection (deeplearning4j_tpu/train/anomaly.py)"
-            " is not ported yet")
+        """See ``MultiLayerNetwork.enable_gradient_anomaly_detection``."""
+        from ..train.anomaly import GradientAnomalyDetector
+        self._anomaly_detector = None if detector is False else \
+            (detector or GradientAnomalyDetector())
+        self._step_fn = None
+        return self
 
     # ------------------------------------------------------------------ fit
     def fit(self, data, *, epochs: int = 1, device=None):
@@ -401,7 +432,6 @@ class ComputationGraph:
             self.init([tuple(f.shape[1:]) for f in pairs[0][0]])
         if self._optimizer is None:
             self._build_optimizer(max(len(batches), 1))
-        self._apply_constraints()
         # one (K, B, ...) tensor per input, then per output
         cols = [[fs[i] for fs, _ in pairs] for i in range(len(pairs[0][0]))] \
             + [[ls[i] for _, ls in pairs] for i in range(len(pairs[0][1]))]
@@ -419,38 +449,23 @@ class ComputationGraph:
 
     def _fit_epochs(self, iterator, epochs):
         from ..data.dataset import MultiDataSet
-        self._apply_constraints()
         step = self._compiled_step()
-        last = None
-        for e in range(epochs):
-            for ds in iterator:
-                if isinstance(ds, MultiDataSet):
-                    feats, labs = ds.features, ds.labels
-                    fmask = None if ds.features_masks is None \
-                        else ds.features_masks[0]
-                    lmask = None if ds.labels_masks is None \
-                        else ds.labels_masks[0]
-                else:
-                    feats, labs = [ds.features], [ds.labels]
-                    fmask, lmask = ds.features_mask, ds.labels_mask
-                fm = None if fmask is None else self._to_device(fmask)
-                lm = None if lmask is None else self._to_device(lmask)
-                loss = step(*(self._to_device(a) for a in (*feats, *labs)),
-                            fm, lm)
-                self._step_count += 1
-                last = loss
-                if self.listeners:
-                    lv = float(loss)
-                    for listener in self.listeners:
-                        listener.iteration_done(self, self._step_count,
-                                                self.epoch_count, lv)
-            self.epoch_count += 1
-            if hasattr(iterator, "reset"):
-                iterator.reset()
-            for listener in self.listeners:
-                if hasattr(listener, "on_epoch_end"):
-                    listener.on_epoch_end(self)
-        return last
+
+        def step_batch(ds):
+            if isinstance(ds, MultiDataSet):
+                feats, labs = ds.features, ds.labels
+                fmask = None if ds.features_masks is None \
+                    else ds.features_masks[0]
+                lmask = None if ds.labels_masks is None \
+                    else ds.labels_masks[0]
+            else:
+                feats, labs = [ds.features], [ds.labels]
+                fmask, lmask = ds.features_mask, ds.labels_mask
+            fm = None if fmask is None else self._to_device(fmask)
+            lm = None if lmask is None else self._to_device(lmask)
+            return step(*(self._to_device(a) for a in (*feats, *labs)),
+                        fm, lm)
+        return fit_epochs(self, iterator, epochs, step_batch)
 
     def score(self, ds):
         from ..data.dataset import MultiDataSet
@@ -468,12 +483,25 @@ class ComputationGraph:
         return float(loss)
 
     def evaluate(self, iterator, top_n: int = 1):
-        raise NotImplementedError(
-            "ComputationGraph.evaluate (deeplearning4j_tpu/eval/) is not "
-            "ported yet")
+        """Classification metrics of the first output over ``iterator``,
+        accumulated on the device (reference: ``preds[0]`` of a
+        multi-output graph; no label mask)."""
+        from ..eval.classification import Evaluation
+        ev = Evaluation(top_n=top_n)
+        for ds in iterator:
+            preds = self.output(ds.features)
+            if isinstance(preds, list):
+                preds = preds[0]
+            ev.eval(self._to_device(ds.labels), preds)
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        return ev
 
     def set_listeners(self, *listeners):
         self.listeners = list(listeners)
+
+    def add_listeners(self, *listeners):
+        self.listeners.extend(listeners)
 
     def num_params(self):
         return sum(int(p.numel()) for p in tree_leaves(self.params))
@@ -496,7 +524,21 @@ class ComputationGraph:
                 off += n
 
     def clone(self):
-        raise NotImplementedError("ComputationGraph.clone is not ported yet")
+        """A copy on the same device (reference clone()): config deep-
+        copied, params and states real copies, its own compiled steps and
+        generator, loss weights copied; no updater state."""
+        import copy
+        net = ComputationGraph(copy.deepcopy(self.conf))
+        if self.initialized:
+            net._bind_device(self.device)
+            net.params = _copy_params(self.params)
+            net.states = tree_map(lambda t: t.detach().clone(), self.states)
+            net._preprocessors = dict(self._preprocessors)
+            net.output_shapes = dict(self.output_shapes)
+            net._init_shapes = list(self._init_shapes)
+            net.initialized = True
+        net.output_loss_weights = dict(self.output_loss_weights)
+        return net
 
     def summary(self):
         lines = ["=" * 72, f"{'Node':<26}{'Type':<26}{'Params':<12}", "=" * 72]
@@ -510,13 +552,12 @@ class ComputationGraph:
         lines += ["=" * 72, f"Total params: {total}", "=" * 72]
         return "\n".join(lines)
 
-    def save(self, path, save_updater: bool = False):
-        raise NotImplementedError(
-            "ComputationGraph.save (deeplearning4j_tpu/serde/"
-            "model_serializer.py) is not ported yet")
+    def save(self, path, save_updater: bool = False, normalizer=None):
+        from ..serde.model_serializer import save_model
+        save_model(self, path, save_updater=save_updater,
+                   normalizer=normalizer)
 
     @staticmethod
-    def load(path):
-        raise NotImplementedError(
-            "ComputationGraph.load (deeplearning4j_tpu/serde/"
-            "model_serializer.py) is not ported yet")
+    def load(path, device=None):
+        from ..serde.model_serializer import load_model
+        return load_model(path, device=device)

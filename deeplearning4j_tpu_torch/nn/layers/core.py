@@ -1,9 +1,17 @@
 """Core feed-forward layers — port of the part of
 ``deeplearning4j_tpu/nn/layers/core.py`` that ResNet-50, LeNet and the
 char-RNN need: ``DenseLayer``, ``ActivationLayer``, ``LossLayer``,
-``OutputLayer``, ``RnnOutputLayer``.
+``OutputLayer``, ``RnnOutputLayer``; and the dropout family
+(``DropoutLayer``, ``GaussianDropout``, ``GaussianNoise``,
+``AlphaDropout``, ``SpatialDropout``).
 
-Not ported yet: the dropout family, embeddings, ElementWiseMultiplication,
+Each random layer splits its work in two: a draw from the train step's
+generator (``ctx.rng``, a ``torch.Generator`` on the net's device) and a
+plain ``*_apply`` function of the input and those draws, which the tests
+hold against the reference on the reference's own draws. The layers are
+the identity at inference and where no generator is threaded.
+
+Not ported yet: embeddings, ElementWiseMultiplication,
 PReLU and the other heads (CnnLoss, CenterLoss, OCNN), Mask, Reshape and
 Permute layers.
 """
@@ -12,6 +20,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Optional
+
+import torch
 
 from .. import losses as _losses
 from .base import Ctx, Layer, apply_time_mask
@@ -54,6 +64,124 @@ class ActivationLayer(Layer):
 
     def has_params(self):
         return False
+
+
+# ------------------------------------------------------ the dropout family
+# The reference's SELU fixed point: AlphaDropout's dropped value.
+ALPHA_P = -1.7580993408473766
+
+
+def keep_mask(shape, keep, gen, device):
+    """Bernoulli(keep) draws of ``shape`` (bool)."""
+    return torch.rand(shape, generator=gen, device=device) < keep
+
+
+def dropout_apply(x, mask, keep):
+    """Inverted dropout: kept entries scaled by 1/keep, the rest 0."""
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+def gaussian_dropout_apply(x, z, rate):
+    """x · (1 + std·z), std = sqrt(rate / (1 − rate)), z ~ N(0, 1)."""
+    std = (rate / (1.0 - rate)) ** 0.5
+    return x * (1.0 + std * z)
+
+
+def gaussian_noise_apply(x, z, stddev):
+    return x + stddev * z
+
+
+def alpha_dropout_apply(x, mask, rate):
+    """SELU-compatible dropout: dropped entries set to ALPHA_P, then the
+    affine correction that keeps mean and variance."""
+    keep = 1.0 - rate
+    a = (keep + ALPHA_P ** 2 * keep * (1 - keep)) ** -0.5
+    b = -a * ALPHA_P * (1 - keep)
+    return (a * torch.where(mask, x, ALPHA_P) + b).to(x.dtype)
+
+
+def spatial_mask_shape(x):
+    """One draw per (example, channel): (B, 1, ..., 1, C)."""
+    return (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+
+
+@dataclass
+class _NoiseLayer(Layer):
+    def init(self, gen, input_shape):
+        return {}, {}, input_shape
+
+    def has_params(self):
+        return False
+
+
+@dataclass
+class DropoutLayer(_NoiseLayer):
+    """Inverted dropout; ``rate`` is the DROP probability (DL4J's
+    ``dropOut(p)`` retains with p: :meth:`from_retain`)."""
+
+    rate: float = 0.5
+
+    @classmethod
+    def from_retain(cls, retain_prob):
+        return cls(rate=1.0 - retain_prob)
+
+    def apply(self, params, state, x, ctx: Ctx):
+        if not ctx.train or self.rate <= 0.0 or ctx.rng is None:
+            return x, state
+        keep = 1.0 - self.rate
+        return dropout_apply(x, keep_mask(x.shape, keep, ctx.rng, x.device),
+                             keep), state
+
+
+@dataclass
+class GaussianDropout(_NoiseLayer):
+    rate: float = 0.5
+
+    def apply(self, params, state, x, ctx: Ctx):
+        if not ctx.train or self.rate <= 0.0 or ctx.rng is None:
+            return x, state
+        z = torch.randn(x.shape, generator=ctx.rng, device=x.device,
+                        dtype=x.dtype)
+        return gaussian_dropout_apply(x, z, self.rate), state
+
+
+@dataclass
+class GaussianNoise(_NoiseLayer):
+    stddev: float = 0.1
+
+    def apply(self, params, state, x, ctx: Ctx):
+        if not ctx.train or ctx.rng is None:
+            return x, state
+        z = torch.randn(x.shape, generator=ctx.rng, device=x.device,
+                        dtype=x.dtype)
+        return gaussian_noise_apply(x, z, self.stddev), state
+
+
+@dataclass
+class AlphaDropout(_NoiseLayer):
+    """SELU-compatible dropout (keeps the self-normalizing property)."""
+
+    rate: float = 0.1
+
+    def apply(self, params, state, x, ctx: Ctx):
+        if not ctx.train or self.rate <= 0.0 or ctx.rng is None:
+            return x, state
+        m = keep_mask(x.shape, 1.0 - self.rate, ctx.rng, x.device)
+        return alpha_dropout_apply(x, m, self.rate), state
+
+
+@dataclass
+class SpatialDropout(_NoiseLayer):
+    """Drops whole channels of (B, ..., C). DL4J SpatialDropout."""
+
+    rate: float = 0.5
+
+    def apply(self, params, state, x, ctx: Ctx):
+        if not ctx.train or self.rate <= 0.0 or ctx.rng is None:
+            return x, state
+        keep = 1.0 - self.rate
+        m = keep_mask(spatial_mask_shape(x), keep, ctx.rng, x.device)
+        return dropout_apply(x, m, keep), state
 
 
 def _logits_loss(loss, activation):

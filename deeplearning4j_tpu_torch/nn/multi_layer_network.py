@@ -1,20 +1,30 @@
 """MultiLayerNetwork — port of ``deeplearning4j_tpu/nn/multi_layer_network.py``
-(the sequential network: init / fit / fit_scanned / output / score /
-rnn_time_step).
+(the sequential network: init / fit / fit_scanned / output / evaluate /
+score / save / load / clone / rnn_time_step).
 
 The layer stack runs on one device. A train step (:meth:`_train_step`,
 the static step of ``nn/_compiled.py``) updates everything in place:
 
 1. the loss (output head and L1/L2 terms), with ``torch.autograd.grad``
-   on the leaves of ``params``;
-2. the in-place updater (``train/updaters.py``) under ``no_grad``, its
-   updates added to the params with one ``_foreach_add_`` per dtype;
-3. the new running states copied into ``states``.
+   on the leaves of ``params``; input dropout and weight noise draw from
+   the net's generator (``_gen``, on the net's device);
+2. with a gradient-anomaly detector, the per-layer grad stats, and a copy
+   of params, updater state and running states to gate on
+   (``train/anomaly.py``);
+3. the in-place updater (``train/updaters.py``) under ``no_grad``, its
+   updates added to the params with one ``_foreach_add_`` per dtype, then
+   the weight constraints (``train/constraints.py``);
+4. the new running states copied into ``states``, and the gate: a step
+   with a non-finite gradient puts everything back.
 
 ``fit`` and ``fit_scanned`` run it through a :class:`CompiledStep`: on
 CUDA each batch signature's first step is eager, its second is captured
 as a CUDA graph, and later steps replay it (``disable_graphs()`` keeps
-every step eager); on the CPU the step is called directly.
+every step eager); on the CPU the step is called directly. The generator
+is registered with each graph, so every replay draws new masks. ``fit``
+reports steps to the listeners one step late where they allow it
+(``nn/_fit_loop.py``). ``output()`` (and ``evaluate*`` over it) is a
+compiled step of its own, one graph per input signature.
 
 ``device=None`` means the CUDA card (``_device.resolve_device``); only an
 explicit ``"cpu"`` runs on the host. Params and states are nested dicts
@@ -22,10 +32,12 @@ explicit ``"cpu"`` runs on the host. Params and states are nested dicts
 ``nn.params_from_numpy`` takes the JAX net's ``net.params`` /
 ``net.states`` as numpy trees.
 
-Not ported yet (raise where the reference has the knob): remat segments,
-gradient-anomaly detection, ``evaluate*``, ``save``/``load``, ``clone``,
-dropout and weight noise, constraints, listeners' deferred score fetch in
-``fit``, and async prefetch of the iterator (``fit`` iterates directly).
+A layer's Python attributes (``fused``, ``dropout``, …) are baked into a
+captured graph: after changing one, drop the graphs (``net._step_fn`` and
+``net._infer_fn``'s ``reset()``).
+
+Not ported yet (raise where the reference has the knob): remat segments
+and async prefetch of the iterator (``fit`` iterates directly).
 """
 
 from __future__ import annotations
@@ -35,16 +47,21 @@ from typing import Any, Dict, List
 import torch
 
 from .._device import resolve_device, tree_to
+from ..train.anomaly import gate_, grad_stats, save_for_gate
+from ..train.constraints import apply_constraints_
 from ..train.updaters import (NoOp, apply_updates, build_optimizer,
                               tree_leaves, tree_map)
 from ._compiled import CompiledStep, copy_into, tensors
+from ._fit_loop import fit_epochs
 from ._scan_common import check_scan_listeners, replay_scan_listeners
 from .conf import MultiLayerConfiguration
 from .layers.base import Ctx, Layer
-from .layers.core import DenseLayer, LossLayer, OutputLayer
+from .layers.core import (DenseLayer, LossLayer, OutputLayer, dropout_apply,
+                          keep_mask)
 from .layers.recurrent import (BaseRecurrent, Bidirectional, LastTimeStep,
                                TimeDistributed)
 from .preprocessors import CnnToFeedForwardPreProcessor
+from .weightnoise import maybe_apply_weight_noise
 
 
 def _is_ff_layer(layer: Layer) -> bool:
@@ -83,11 +100,14 @@ class MultiLayerNetwork:
         self.listeners: List[Any] = []
         self.initialized = False
         self.device = None
-        self._gen = torch.Generator().manual_seed(self._g.seed)
+        self._gen = None
         self._remat_segments = None
         self._rnn_carries = None
         self._rnn_carry_batch = None
         self._step_fn = None
+        self._infer_fn = None
+        self._anomaly_detector = None
+        self._restored_opt_state = None
 
     @property
     def remat_segments(self):
@@ -104,7 +124,7 @@ class MultiLayerNetwork:
         """Resolve shapes layer by layer and draw every layer's params on
         the host from a generator seeded with the configuration's seed,
         then move them to ``device`` (None → CUDA)."""
-        self.device = resolve_device(device)
+        self._bind_device(resolve_device(device))
         if input_shape is None:
             if self.conf.input_type is not None:
                 input_shape = tuple(self.conf.input_type[1])
@@ -134,6 +154,13 @@ class MultiLayerNetwork:
         self.initialized = True
         return self
 
+    def _bind_device(self, device):
+        """Live on ``device``, with the train step's generator there (a
+        CPU generator cannot draw a CUDA tensor), seeded from the
+        configuration's seed."""
+        self.device = device
+        self._gen = torch.Generator(device=device).manual_seed(self._g.seed)
+
     # -------------------------------------------------------------- forward
     def _apply_one(self, i, params, states, h, new_states, *, train, rng,
                    fmask, lmask, stop_before_output):
@@ -144,14 +171,17 @@ class MultiLayerNetwork:
                 isinstance(layer, (OutputLayer, LossLayer)):
             new_states[key] = states[key]
             return h, True
-        if train and (layer.dropout > 0.0 or layer.weight_noise is not None):
-            raise NotImplementedError(
-                f"layer {i}: dropout and weight noise (reference _apply_one, "
-                "nn/weightnoise.py) are not ported yet")
         if i in self._preprocessors:
             h = self._preprocessors[i](h)
+        p_i = params[key]
+        if train and rng is not None:
+            if layer.dropout > 0.0:
+                keep = 1.0 - layer.dropout
+                h = dropout_apply(h, keep_mask(h.shape, keep, rng, h.device),
+                                  keep)
+            p_i = maybe_apply_weight_noise(layer, p_i, rng, train)
         ctx = Ctx(train=train, rng=rng, mask=fmask, label_mask=lmask)
-        h, new_states[key] = layer.apply(params[key], states[key], h, ctx)
+        h, new_states[key] = layer.apply(p_i, states[key], h, ctx)
         return h, False
 
     def _forward(self, params, states, x, *, train, rng, fmask=None,
@@ -171,12 +201,24 @@ class MultiLayerNetwork:
     def _to_device(self, x):
         return None if x is None else torch.as_tensor(x, device=self.device)
 
+    def _infer_step(self):
+        """The compiled inference forward (the reference's ``jax.jit``-ed
+        ``_get_infer_fn``): one CUDA graph per input signature, a fresh
+        output tensor a call."""
+        if self._infer_fn is None:
+            def infer(x):
+                with torch.no_grad():
+                    y, _ = self._forward(self.params, self.states, x,
+                                         train=False, rng=None)
+                return y
+            self._infer_fn = CompiledStep(
+                infer, lambda: tensors((self.params, self.states)),
+                "MultiLayerNetwork.output")
+        return self._infer_fn
+
     def output(self, x, train: bool = False):
         """Inference forward on the net's device (reference output())."""
-        with torch.no_grad():
-            y, _ = self._forward(self.params, self.states, self._to_device(x),
-                                 train=False, rng=None)
-        return y
+        return self._infer_step()(self._to_device(x))
 
     def feed_forward(self, x, train: bool = False):
         """Per-layer activations list (reference feedForward())."""
@@ -262,20 +304,30 @@ class MultiLayerNetwork:
             per_label_updaters=per_label)
         with torch.no_grad():
             self._opt_state = self._optimizer.init(self.params)
+        if self._restored_opt_state is not None:
+            from ..serde.model_serializer import restore_tree_
+            restore_tree_(self._opt_state, self._restored_opt_state,
+                          "updater")
+            self._restored_opt_state = None
 
-    def _check_constraints(self):
+    def _apply_constraints(self):
+        """Each unfrozen layer's constraints, in place (reference
+        ``_apply_constraints``; frozen params stay bit-identical)."""
         for i, layer in enumerate(self.layers):
-            if not layer.frozen and (layer.constraints
-                                     or layer.bias_constraints):
-                raise NotImplementedError(
-                    f"layer {i}: weight constraints (deeplearning4j_tpu/"
-                    "train/constraints.py) are not ported yet")
+            if layer.frozen:
+                continue
+            apply_constraints_(self.params[f"layer_{i}"], layer.constraints,
+                               weights=True)
+            apply_constraints_(self.params[f"layer_{i}"],
+                               layer.bias_constraints, weights=False,
+                               biases=True)
 
-    def _grads(self, x, y, fmask, lmask):
-        """(loss, new_states, grads tree) of one batch."""
+    def _grads(self, x, y, fmask, lmask, rng=None):
+        """(loss, new_states, grads tree) of one batch; ``rng`` drives
+        dropout and weight noise (None: none)."""
         leaves = tree_leaves(self.params)
         loss, new_states = self._loss(self.params, self.states, x, y,
-                                      self._gen, fmask, lmask)
+                                      rng, fmask, lmask)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         gtree = _unflatten(self.params, iter(
             torch.zeros_like(p) if g is None else g
@@ -284,27 +336,31 @@ class MultiLayerNetwork:
 
     def _train_step(self, x, y, fmask, lmask):
         """The static step: one batch, the params, the updater's state and
-        the running states updated in place. Returns the loss (0-d)."""
-        loss, new_states, grads = self._grads(x, y, fmask, lmask)
-        with torch.no_grad():
-            updates, _ = self._optimizer.update(grads, self._opt_state,
-                                                self.params)
-            apply_updates(tree_leaves(self.params), tree_leaves(updates))
-            copy_into(self.states, new_states)
-        return loss.detach()
+        the running states updated in place. Returns the loss (0-d), and
+        the grad stats with a detector attached."""
+        loss, new_states, grads = self._grads(x, y, fmask, lmask, self._gen)
+        return _update_in_place(self, loss, new_states, grads)
 
     def _compiled_step(self):
-        """The net's :class:`CompiledStep` over :meth:`_train_step`."""
+        """The net's :class:`CompiledStep` over :meth:`_train_step`; its
+        bindings include the generator, which each graph registers."""
         if self._step_fn is None:
             self._step_fn = CompiledStep(
                 self._train_step,
-                lambda: tensors((self.params, self.states, self._opt_state)),
-                "MultiLayerNetwork")
+                lambda: tensors((self.params, self.states, self._opt_state))
+                + [self._gen], "MultiLayerNetwork")
         return self._step_fn
 
     def enable_gradient_anomaly_detection(self, detector=None):
-        _not_ported("enable_gradient_anomaly_detection "
-                    "(train/anomaly.py)")
+        """Per-layer gradient stats computed inside the train step and
+        checked on the host one step late; a non-finite step is a no-op.
+        Pass a ``train.anomaly.GradientAnomalyDetector`` (None: defaults)
+        or False to disable. Drops the compiled step's graphs."""
+        from ..train.anomaly import GradientAnomalyDetector
+        self._anomaly_detector = None if detector is False else \
+            (detector or GradientAnomalyDetector())
+        self._step_fn = None
+        return self
 
     # ------------------------------------------------------------------ fit
     def fit(self, data, labels=None, *, epochs: int = 1, device=None):
@@ -331,29 +387,15 @@ class MultiLayerNetwork:
                 ipe = 1
             self._iters_per_epoch = max(int(ipe), 1)
             self._build_optimizer(self._iters_per_epoch)
-        self._check_constraints()
         step = self._compiled_step()
-        last = None
-        for _ in range(epochs):
-            for ds in iterator:
-                x = self._to_device(ds.features)
-                self._last_batch_size = int(x.shape[0])
-                loss = step(x, self._to_device(ds.labels),
-                            self._to_device(ds.features_mask),
-                            self._to_device(ds.labels_mask))
-                self._step_count += 1
-                last = loss
-                if self.listeners:
-                    lv = float(loss)
-                    for listener in self.listeners:
-                        listener.iteration_done(self, self._step_count,
-                                                self.epoch_count, lv)
-            self.epoch_count += 1
-            if hasattr(iterator, "reset"):
-                iterator.reset()
-            for listener in self.listeners:
-                if hasattr(listener, "on_epoch_end"):
-                    listener.on_epoch_end(self)
+
+        def step_batch(ds):
+            x = self._to_device(ds.features)
+            self._last_batch_size = int(x.shape[0])
+            return step(x, self._to_device(ds.labels),
+                        self._to_device(ds.features_mask),
+                        self._to_device(ds.labels_mask))
+        last = fit_epochs(self, iterator, epochs, step_batch)
         return None if last is None else float(last)
 
     def fit_scanned(self, data, *, epochs: int = 1):
@@ -386,7 +428,6 @@ class MultiLayerNetwork:
         if self._optimizer is None:
             self._iters_per_epoch = len(batches)
             self._build_optimizer(self._iters_per_epoch)
-        self._check_constraints()
         xs = torch.stack([self._to_device(b.features) for b in batches])
         ys = torch.stack([self._to_device(b.labels) for b in batches])
         self._last_batch_size = int(xs.shape[1])
@@ -420,14 +461,29 @@ class MultiLayerNetwork:
                                      None)
         return grads, float(loss.detach())
 
+    # ------------------------------------------------------------- evaluate
+    def _evaluate(self, ev, iterator, masked=True):
+        """Accumulate ``ev`` over ``iterator``'s batches on the device:
+        the compiled ``output()`` per batch, no host read per batch."""
+        for ds in iterator:
+            preds = self.output(ds.features)
+            mask = self._to_device(ds.labels_mask) if masked else None
+            ev.eval(self._to_device(ds.labels), preds, mask=mask)
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        return ev
+
     def evaluate(self, iterator, top_n: int = 1):
-        _not_ported("evaluate (deeplearning4j_tpu/eval/)")
+        from ..eval.classification import Evaluation
+        return self._evaluate(Evaluation(top_n=top_n), iterator)
 
     def evaluate_regression(self, iterator):
-        _not_ported("evaluate_regression (deeplearning4j_tpu/eval/)")
+        from ..eval.regression import RegressionEvaluation
+        return self._evaluate(RegressionEvaluation(), iterator, masked=False)
 
     def evaluate_roc(self, iterator, threshold_steps: int = 0):
-        _not_ported("evaluate_roc (deeplearning4j_tpu/eval/)")
+        from ..eval.roc import ROC
+        return self._evaluate(ROC(threshold_steps), iterator, masked=False)
 
     # ------------------------------------------------- streaming inference
     def rnn_time_step(self, x):
@@ -504,6 +560,9 @@ class MultiLayerNetwork:
     def set_listeners(self, *listeners):
         self.listeners = list(listeners)
 
+    def add_listeners(self, *listeners):
+        self.listeners.extend(listeners)
+
     # ----------------------------------------------------------- params API
     def num_params(self) -> int:
         return sum(int(p.numel()) for p in tree_leaves(self.params))
@@ -535,7 +594,20 @@ class MultiLayerNetwork:
                 off += n
 
     def clone(self):
-        _not_ported("clone")
+        """A copy on the same device (reference clone()): the config deep-
+        copied, params and states real copies, its own compiled steps and
+        generator; the updater state is not copied (the reference's)."""
+        import copy
+        net = MultiLayerNetwork(copy.deepcopy(self.conf))
+        if self.initialized:
+            net._bind_device(self.device)
+            net.params = _copy_params(self.params)
+            net.states = tree_map(lambda t: t.detach().clone(), self.states)
+            net._preprocessors = dict(self._preprocessors)
+            net._init_input_shape = self._init_input_shape
+            net.output_shape = self.output_shape
+            net.initialized = True
+        return net
 
     def summary(self) -> str:
         lines = ["=" * 72,
@@ -552,9 +624,40 @@ class MultiLayerNetwork:
         lines += ["=" * 72, f"Total params: {total}", "=" * 72]
         return "\n".join(lines)
 
-    def save(self, path, save_updater: bool = False):
-        _not_ported("save (deeplearning4j_tpu/serde/model_serializer.py)")
+    def save(self, path, save_updater: bool = False, normalizer=None):
+        from ..serde.model_serializer import save_model
+        save_model(self, path, save_updater=save_updater,
+                   normalizer=normalizer)
 
     @staticmethod
-    def load(path):
-        _not_ported("load (deeplearning4j_tpu/serde/model_serializer.py)")
+    def load(path, device=None):
+        from ..serde.model_serializer import load_model
+        return load_model(path, device=device)
+
+
+def _copy_params(params):
+    """Real copies of a params tree, float leaves requiring grad."""
+    return tree_map(lambda t: t.detach().clone().requires_grad_(
+        t.is_floating_point()), params)
+
+
+def _update_in_place(net, loss, new_states, grads):
+    """The update half of both nets' static step (see the module
+    docstring): grad stats and the gate's copy when a detector is
+    attached, the updater, the constraints, the running states, the gate.
+    Returns the loss, or (loss, stats) with a detector."""
+    det = net._anomaly_detector
+    trees = (net.params, net.states, net._opt_state)
+    with torch.no_grad():
+        stats = saved = None
+        if det is not None:
+            stats = grad_stats(grads)
+            if det.gate_updates:
+                saved = save_for_gate(trees)
+        updates, _ = net._optimizer.update(grads, net._opt_state, net.params)
+        apply_updates(tree_leaves(net.params), tree_leaves(updates))
+        net._apply_constraints()
+        copy_into(net.states, new_states)
+        if saved is not None:
+            gate_(stats, trees, saved)
+    return loss.detach() if det is None else (loss.detach(), stats)

@@ -1,0 +1,257 @@
+"""ModelSerializer — port of ``deeplearning4j_tpu/serde/model_serializer.py``
+(``org.deeplearning4j.util.ModelSerializer``: writeModel / restore*,
+addNormalizerToModel).
+
+A checkpoint is a zip with the reference's array layout:
+
+- ``params.npz`` / ``states.npz`` (and ``updater.npz`` with
+  ``save_updater=True``): each tree flattened to ``|``-joined path keys
+  (dict keys; ``#i`` for a tuple's i-th entry), bf16 arrays stored as
+  uint16 under the ``__bf16__`` key prefix;
+- the port's own record, ``conf_torch.pkl``: the configuration, the
+  preprocessors, shapes, counters and the train step's generator state;
+  and ``normalizer_torch.pkl`` when a normalizer is given.
+
+The JAX package writes ``conf.pkl`` / ``normalizer.pkl`` (and a pickled
+optax state, ``updater.pkl``): unpickling them would import that package
+and JAX, so this module never does. Such a zip's params and states load
+into a port net built from the equivalent port configuration with
+:func:`load_params`; :func:`load_model` of a zip without the port's
+record raises and names it. The optax state is not mapped onto the
+port's updaters yet.
+
+:func:`load_model` builds a new net (no graphs yet). :func:`load_params`
+copies into an existing net's tensors in place, so graphs captured on
+them stay valid. The arrays are stored uncompressed: weights do not
+compress, and deflating them costs seconds at ResNet-50's size.
+"""
+
+from __future__ import annotations
+
+import io
+import os
+import pickle
+import zipfile
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+
+SEP = "|"
+BF16 = "__bf16__"
+RECORD = "conf_torch.pkl"
+NORMALIZER = "normalizer_torch.pkl"
+JAX_RECORD = "conf.pkl"
+
+
+def flatten_with_paths(tree, prefix=""):
+    """{path key: tensor} of nested dicts (keys in sorted order), tuples
+    and lists (``#i``), as ``jax.tree_util`` paths print."""
+    if isinstance(tree, dict):
+        items = ((str(k), tree[k]) for k in sorted(tree))
+    elif isinstance(tree, (tuple, list)):
+        items = ((f"#{i}", v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tree} if isinstance(tree, torch.Tensor) else {}
+    out = {}
+    for k, v in items:
+        out.update(flatten_with_paths(v, f"{prefix}{SEP}{k}" if prefix
+                                      else k))
+    return out
+
+
+def _save_npz(zf, name, tree):
+    packed = {}
+    for k, t in flatten_with_paths(tree).items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            packed[BF16 + k] = t.view(torch.int16).numpy().view(np.uint16)
+        else:
+            packed[k] = t.numpy()
+    buf = io.BytesIO()
+    np.savez(buf, **packed)
+    zf.writestr(name, buf.getvalue())
+
+
+def _load_npz(zf, name):
+    """{path key: CPU tensor} of one npz member (bf16 restored)."""
+    with zf.open(name) as f:
+        z = np.load(io.BytesIO(f.read()))
+        out = {}
+        for k in z.files:
+            if k.startswith(BF16):
+                out[k[len(BF16):]] = torch.from_numpy(
+                    z[k].view(np.int16)).view(torch.bfloat16)
+            else:
+                out[k] = torch.from_numpy(z[k])
+        return out
+
+
+def restore_tree_(tree, flat, what):
+    """Copy ``flat``'s entries into the tensors of ``tree`` in place (cast
+    to each tensor's dtype); every tensor of ``tree`` must be there."""
+    with torch.no_grad():
+        for k, t in flatten_with_paths(tree).items():
+            if k not in flat:
+                raise KeyError(f"the checkpoint's {what} has no {k}")
+            src = flat[k]
+            if tuple(src.shape) != tuple(t.shape):
+                raise ValueError(f"{what} {k}: checkpoint shape "
+                                 f"{tuple(src.shape)}, net {tuple(t.shape)}")
+            t.copy_(src.to(t.dtype))
+
+
+def _nest(flat, device, grad):
+    out = {}
+    for key, v in flat.items():
+        parts = key.split(SEP)
+        d = out
+        for p in parts[:-1]:
+            d = d.setdefault(p, {})
+        t = v.to(device)
+        d[parts[-1]] = t.requires_grad_(grad and t.is_floating_point())
+    return out
+
+
+def _kind(model):
+    from ..nn.computation_graph import ComputationGraph
+    from ..nn.multi_layer_network import MultiLayerNetwork
+    for cls in (MultiLayerNetwork, ComputationGraph):
+        if isinstance(model, cls):
+            return cls
+    raise TypeError(f"cannot save a {type(model).__name__}")
+
+
+def save_model(model, path, save_updater: bool = False, normalizer=None):
+    """Write ``model`` (an initialized MultiLayerNetwork or
+    ComputationGraph) to the zip at ``path``; with ``save_updater`` also
+    its updater state, so that ``fit`` after :func:`load_model` continues
+    where this net would have."""
+    cls = _kind(model)
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    gen = model._gen
+    record = {
+        "kind": cls.__name__, "conf": model.conf,
+        "preprocessors": model._preprocessors,
+        "epoch_count": model.epoch_count, "step_count": model._step_count,
+        "rng": None if gen is None else (gen.device.type,
+                                         gen.get_state().numpy().tobytes()),
+    }
+    if cls.__name__ == "MultiLayerNetwork":
+        record["shapes"] = (model._init_input_shape, model.output_shape)
+    else:
+        record["shapes"] = (model._init_shapes, model.output_shapes)
+        record["output_loss_weights"] = model.output_loss_weights
+    # write-then-rename: a crash mid-save never corrupts a checkpoint
+    tmp = path.with_name(path.name + ".tmp")
+    with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED) as zf:
+        zf.writestr(RECORD, pickle.dumps(record))
+        _save_npz(zf, "params.npz", model.params)
+        _save_npz(zf, "states.npz", model.states)
+        if save_updater:
+            if model._opt_state is not None:
+                _save_npz(zf, "updater.npz", model._opt_state)
+            elif model._restored_opt_state is not None:
+                _save_npz(zf, "updater.npz", model._restored_opt_state)
+        if normalizer is not None:
+            zf.writestr(NORMALIZER, pickle.dumps(normalizer))
+    os.replace(tmp, path)
+
+
+def _not_ours(path):
+    return ValueError(
+        f"{path} holds no {RECORD}, the port's record: it was not written "
+        "by deeplearning4j_tpu_torch. A zip of the JAX package loads into a "
+        "port net built from the equivalent port configuration with "
+        "deeplearning4j_tpu_torch.serde.load_params(net, path)")
+
+
+def load_model(path, device=None):
+    """A new net from a zip :func:`save_model` wrote, on ``device`` (None →
+    CUDA). Its updater state, if saved, is put into the updater when
+    ``fit`` builds it; a saved normalizer is ``net.normalizer``."""
+    from ..nn.computation_graph import ComputationGraph
+    from ..nn.multi_layer_network import MultiLayerNetwork
+    dev = resolve_device(device)
+    with zipfile.ZipFile(path) as zf:
+        names = zf.namelist()
+        if RECORD not in names:
+            raise _not_ours(path)
+        meta = pickle.loads(zf.read(RECORD))
+        cls = {"MultiLayerNetwork": MultiLayerNetwork,
+               "ComputationGraph": ComputationGraph}[meta["kind"]]
+        net = cls(meta["conf"])
+        net._bind_device(dev)
+        net.params = _nest(_load_npz(zf, "params.npz"), dev, True)
+        net.states = _nest(_load_npz(zf, "states.npz"), dev, False)
+        # layers without params or state leave no keys in the npz
+        keys = [f"layer_{i}" for i in range(len(net.layers))] \
+            if cls is MultiLayerNetwork else list(net.conf.nodes)
+        for k in keys:
+            net.params.setdefault(k, {})
+            net.states.setdefault(k, {})
+        net._preprocessors = meta["preprocessors"]
+        if cls is MultiLayerNetwork:
+            net._init_input_shape, net.output_shape = meta["shapes"]
+        else:
+            net._init_shapes, net.output_shapes = meta["shapes"]
+            net.output_loss_weights = meta["output_loss_weights"]
+        net.epoch_count = meta["epoch_count"]
+        net._step_count = meta["step_count"]
+        rng = meta["rng"]
+        if rng is not None and rng[0] == dev.type:
+            net._gen.set_state(torch.frombuffer(bytearray(rng[1]),
+                                                dtype=torch.uint8))
+        net.initialized = True
+        if "updater.npz" in names:
+            net._restored_opt_state = _load_npz(zf, "updater.npz")
+        if NORMALIZER in names:
+            net.normalizer = pickle.loads(zf.read(NORMALIZER))
+    return net
+
+
+def load_params(net, path, updater: bool = False):
+    """Copy the params and states of the zip at ``path`` — the port's or
+    one the JAX package wrote — into ``net``'s tensors, in place (graphs
+    captured on them stay valid). ``net`` is an initialized port net of
+    the equivalent configuration; every one of its tensors must be in the
+    zip, at its shape (values are cast to its dtypes). With ``updater``
+    the updater state of a port zip is restored too (into the built
+    updater, or when ``fit`` builds it); a JAX zip's optax state raises.
+    Returns ``net``."""
+    with zipfile.ZipFile(path) as zf:
+        names = zf.namelist()
+        restore_tree_(net.params, _load_npz(zf, "params.npz"), "params")
+        restore_tree_(net.states, _load_npz(zf, "states.npz"), "states")
+        if updater:
+            if "updater.npz" in names:
+                flat = _load_npz(zf, "updater.npz")
+                if net._opt_state is None:
+                    net._restored_opt_state = flat
+                else:
+                    restore_tree_(net._opt_state, flat, "updater")
+            elif JAX_RECORD in names:
+                raise NotImplementedError(
+                    f"{path}: the JAX package's updater state (optax's "
+                    "state tree, pickled in updater.pkl) is not mapped onto "
+                    "the port's updaters yet (ROADMAP.md)")
+            else:
+                raise ValueError(f"{path} holds no updater state")
+    return net
+
+
+def restore_normalizer(path):
+    """The normalizer saved with the model at ``path`` (None without one).
+    A JAX-written ``normalizer.pkl`` is never unpickled."""
+    with zipfile.ZipFile(path) as zf:
+        names = zf.namelist()
+        if NORMALIZER in names:
+            return pickle.loads(zf.read(NORMALIZER))
+        if "normalizer.pkl" in names:
+            raise ValueError(
+                f"{path}: its normalizer was pickled by the JAX package; "
+                "unpickling it would import that package")
+    return None

@@ -27,8 +27,10 @@ be captured as a CUDA graph and replayed (``nn/_compiled.py``):
 Trees are nested dicts of tensors, their leaves in sorted-key order
 (:func:`tree_leaves`), as ``jax.tree_util`` flattens a dict.
 
-Not ported yet (raise): learning-rate ``Schedule`` objects, AMSGrad,
-Nadam, AdaMax, AdaDelta, AdaGrad, RmsProp, Lion, Lamb.
+A learning rate is a number or a ``Schedule`` (``train/schedules.py``):
+:func:`scale_by_learning_rate` then keeps its own int32 ``count`` on the
+device, as optax's ``scale_by_schedule`` does, and computes the lr of each
+step there, so a replayed step takes the lr of its own step.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
 import torch
+
+from .schedules import Schedule
 
 
 class GradientTransformation(NamedTuple):
@@ -100,11 +104,50 @@ def scale(step_size: float) -> GradientTransformation:
     return _stateless(lambda us, ps: torch._foreach_mul_(us, step_size))
 
 
-def scale_by_learning_rate(lr) -> GradientTransformation:
+def _count(params):
+    """A transform's int32 step count: a 0-d tensor on the params' device."""
+    leaves = tree_leaves(params)
+    return torch.zeros((), dtype=torch.int32,
+                       device=leaves[0].device if leaves else None)
+
+
+def _by_dtype(us):
+    groups = {}
+    for u in us:
+        groups.setdefault(u.dtype, []).append(u)
+    return groups.items()
+
+
+def scale_by_schedule(step_size_fn) -> GradientTransformation:
+    """optax.scale_by_schedule: update k is scaled by ``step_size_fn(k)``
+    (an f32 0-d tensor computed on the device from the int32 ``count``),
+    cast to each update's dtype; the count is incremented after use."""
+    def init(params):
+        return {"count": _count(params)}
+
+    def update(u, state, params=None):
+        us = tree_leaves(u)
+        count = state["count"]
+        if us:
+            step = step_size_fn(count)
+            for dtype, group in _by_dtype(us):
+                torch._foreach_mul_(group, step.to(dtype))
+        count.add_(1)
+        return u, state
+    return GradientTransformation(init, update)
+
+
+def scale_by_learning_rate(lr, iters_per_epoch: int = 1
+                           ) -> GradientTransformation:
+    """−lr: a number scales by a constant; a ``Schedule`` by its value at
+    each step (EPOCH-typed ones at ``step // iters_per_epoch``)."""
+    if isinstance(lr, Schedule):
+        return scale_by_schedule(
+            lambda count: -lr.at(count, iters_per_epoch))
     if not isinstance(lr, (int, float)):
-        raise NotImplementedError(
-            "learning-rate schedules (deeplearning4j_tpu/train/schedules.py "
-            "resolve) are not ported yet; pass a number")
+        raise TypeError(
+            f"learning rate {lr!r}: pass a number or a train.schedules."
+            "Schedule (its step-side form runs on the device)")
     return scale(-lr)
 
 
@@ -141,10 +184,8 @@ def scale_by_adam(b1=0.9, b2=0.999, eps=1e-8) -> GradientTransformation:
     ``count`` is an int32 0-d tensor on the params' device, and the bias
     corrections ``1 − βᵏ`` are computed there."""
     def init(params):
-        leaves = tree_leaves(params)
-        dev = leaves[0].device if leaves else None
-        return {"count": torch.zeros((), dtype=torch.int32, device=dev),
-                "mu": _zeros_like(params), "nu": _zeros_like(params)}
+        return {"count": _count(params), "mu": _zeros_like(params),
+                "nu": _zeros_like(params)}
 
     def update(u, state, params=None):
         us = tree_leaves(u)
@@ -166,6 +207,194 @@ def scale_by_adam(b1=0.9, b2=0.999, eps=1e-8) -> GradientTransformation:
         torch._foreach_div_(us, den)
         return u, state
     return GradientTransformation(init, update)
+
+
+def _moment(ms, us, decay, order):
+    """optax's ``update_moment``: m ← (1 − decay)·gᵒʳᵈᵉʳ + decay·m."""
+    torch._foreach_mul_(ms, decay)
+    if order == 1:
+        torch._foreach_add_(ms, us, alpha=1 - decay)
+    else:
+        torch._foreach_addcmul_(ms, us, us, value=1 - decay)
+
+
+def scale_by_nadam(b1=0.9, b2=0.999, eps=1e-8) -> GradientTransformation:
+    """optax.scale_by_adam(nesterov=True): the bias-corrected Nesterov
+    moment b1·m/(1 − b1ᵏ⁺¹) + (1 − b1)·g/(1 − b1ᵏ) over sqrt(v̂) + eps."""
+    def init(params):
+        return {"count": _count(params), "mu": _zeros_like(params),
+                "nu": _zeros_like(params)}
+
+    def update(u, state, params=None):
+        us = tree_leaves(u)
+        if not us:
+            return u, state
+        mu, nu = tree_leaves(state["mu"]), tree_leaves(state["nu"])
+        _moment(mu, us, b1, 1)
+        _moment(nu, us, b2, 2)
+        count = state["count"]
+        count.add_(1)
+        k = count.float()
+        mhat = torch._foreach_div(mu, 1 - b1 ** (k + 1))
+        torch._foreach_mul_(mhat, b1)
+        torch._foreach_div_(us, 1 - b1 ** k)
+        torch._foreach_mul_(us, 1 - b1)
+        torch._foreach_add_(us, mhat)
+        den = torch._foreach_div(nu, 1 - b2 ** k)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, eps)
+        torch._foreach_div_(us, den)
+        return u, state
+    return GradientTransformation(init, update)
+
+
+def scale_by_amsgrad(b1=0.9, b2=0.999, eps=1e-8) -> GradientTransformation:
+    """optax.scale_by_amsgrad: m̂ / (sqrt(max over steps of v̂) + eps)."""
+    def init(params):
+        return {"count": _count(params), "mu": _zeros_like(params),
+                "nu": _zeros_like(params), "nu_max": _zeros_like(params)}
+
+    def update(u, state, params=None):
+        us = tree_leaves(u)
+        if not us:
+            return u, state
+        mu, nu = tree_leaves(state["mu"]), tree_leaves(state["nu"])
+        nu_max = tree_leaves(state["nu_max"])
+        _moment(mu, us, b1, 1)
+        _moment(nu, us, b2, 2)
+        count = state["count"]
+        count.add_(1)
+        k = count.float()
+        torch._foreach_maximum_(nu_max, torch._foreach_div(nu, 1 - b2 ** k))
+        den = torch._foreach_sqrt(nu_max)
+        torch._foreach_add_(den, eps)
+        torch._foreach_copy_(us, mu)
+        torch._foreach_div_(us, 1 - b1 ** k)
+        torch._foreach_div_(us, den)
+        return u, state
+    return GradientTransformation(init, update)
+
+
+def scale_by_adamax(b1=0.9, b2=0.999, eps=1e-8) -> GradientTransformation:
+    """optax.scale_by_adamax: m̂ / v with v ← max(|g| + eps, b2·v)."""
+    def init(params):
+        return {"count": _count(params), "mu": _zeros_like(params),
+                "nu": _zeros_like(params)}
+
+    def update(u, state, params=None):
+        us = tree_leaves(u)
+        if not us:
+            return u, state
+        mu, nu = tree_leaves(state["mu"]), tree_leaves(state["nu"])
+        count = state["count"]
+        count.add_(1)
+        _moment(mu, us, b1, 1)
+        absg = torch._foreach_abs(us)
+        torch._foreach_add_(absg, eps)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_maximum_(nu, absg)
+        torch._foreach_copy_(us, mu)
+        torch._foreach_div_(us, 1 - b1 ** count.float())
+        torch._foreach_div_(us, nu)
+        return u, state
+    return GradientTransformation(init, update)
+
+
+def scale_by_adadelta(rho=0.9, eps=1e-6) -> GradientTransformation:
+    """optax.scale_by_adadelta: u = sqrt(E[x²] + eps) / sqrt(E[g²] + eps)·g
+    (E[g²] updated first, E[x²] from the new u)."""
+    def init(params):
+        return {"e_g": _zeros_like(params), "e_x": _zeros_like(params)}
+
+    def update(u, state, params=None):
+        us = tree_leaves(u)
+        if not us:
+            return u, state
+        e_g, e_x = tree_leaves(state["e_g"]), tree_leaves(state["e_x"])
+        _moment(e_g, us, rho, 2)
+        num = torch._foreach_add(e_x, eps)
+        torch._foreach_sqrt_(num)
+        den = torch._foreach_add(e_g, eps)
+        torch._foreach_sqrt_(den)
+        torch._foreach_div_(num, den)
+        torch._foreach_mul_(us, num)
+        _moment(e_x, us, rho, 2)
+        return u, state
+    return GradientTransformation(init, update)
+
+
+def scale_by_rss(initial_accumulator_value=0.1,
+                 eps=1e-7) -> GradientTransformation:
+    """optax.scale_by_rss (AdaGrad): s ← s + g², starting at
+    ``initial_accumulator_value``; u = g·rsqrt(s + eps) where s > 0, else
+    0."""
+    def init(params):
+        return {"sum_of_squares": tree_map(
+            lambda p: torch.full_like(p, initial_accumulator_value), params)}
+
+    def update(u, state, params=None):
+        us = tree_leaves(u)
+        if not us:
+            return u, state
+        ss = tree_leaves(state["sum_of_squares"])
+        torch._foreach_addcmul_(ss, us, us)
+        inv = torch._foreach_add(ss, eps)
+        torch._foreach_rsqrt_(inv)
+        torch._foreach_mul_(inv, [s.gt(0) for s in ss])
+        torch._foreach_mul_(us, inv)
+        return u, state
+    return GradientTransformation(init, update)
+
+
+def scale_by_rms(decay=0.9, eps=1e-8) -> GradientTransformation:
+    """optax.scale_by_rms (initial scale 0, eps inside the root, no bias
+    correction): u = g·rsqrt(v + eps), v ← (1 − decay)·g² + decay·v."""
+    def init(params):
+        return {"nu": _zeros_like(params)}
+
+    def update(u, state, params=None):
+        us = tree_leaves(u)
+        if not us:
+            return u, state
+        nu = tree_leaves(state["nu"])
+        _moment(nu, us, decay, 2)
+        scale_ = torch._foreach_add(nu, eps)
+        torch._foreach_rsqrt_(scale_)
+        torch._foreach_mul_(us, scale_)
+        return u, state
+    return GradientTransformation(init, update)
+
+
+def scale_by_lion(b1=0.9, b2=0.99) -> GradientTransformation:
+    """optax.scale_by_lion: u = sign((1 − b1)·g + b1·m), then
+    m ← (1 − b2)·g + b2·m."""
+    def init(params):
+        return {"count": _count(params), "mu": _zeros_like(params)}
+
+    def update(u, state, params=None):
+        us = tree_leaves(u)
+        if not us:
+            return u, state
+        mu = tree_leaves(state["mu"])
+        new = torch._foreach_mul(us, 1 - b1)
+        torch._foreach_add_(new, mu, alpha=b1)
+        torch._foreach_sign_(new)
+        _moment(mu, us, b2, 1)
+        torch._foreach_copy_(us, new)
+        state["count"].add_(1)
+        return u, state
+    return GradientTransformation(init, update)
+
+
+def scale_by_trust_ratio() -> GradientTransformation:
+    """optax.scale_by_trust_ratio (min_norm 0, coefficient 1, eps 0): each
+    leaf's update times ‖p‖ / ‖u‖, or 1 where either norm is 0."""
+    def fn(us, ps):
+        pn, un = torch._foreach_norm(ps), torch._foreach_norm(us)
+        ratio = [torch.where((p == 0) | (n == 0), 1.0, p / n).to(u.dtype)
+                 for p, n, u in zip(pn, un, us)]
+        torch._foreach_mul_(us, ratio)
+    return _stateless(fn)
 
 
 def add_decayed_weights(weight_decay: float) -> GradientTransformation:
@@ -228,12 +457,15 @@ def multi_transform(transforms, param_labels) -> GradientTransformation:
 
 @dataclass
 class Updater:
-    learning_rate: Any = 1e-3  # float (schedules are not ported yet)
+    learning_rate: Any = 1e-3  # float or Schedule
+
+    def _lr(self, iters_per_epoch=1):
+        return scale_by_learning_rate(self.learning_rate, iters_per_epoch)
 
     def to_transform(self, iters_per_epoch: int = 1) -> GradientTransformation:
         raise NotImplementedError(
-            f"{type(self).__name__} (deeplearning4j_tpu/train/updaters.py) "
-            "is not ported yet")
+            f"{type(self).__name__} is an abstract updater: use one of "
+            "train/updaters.py's subclasses")
 
     def with_lr(self, lr):
         return dataclasses.replace(self, learning_rate=lr)
@@ -244,7 +476,7 @@ class Sgd(Updater):
     learning_rate: Any = 1e-1  # DL4J Sgd.DEFAULT_LR
 
     def to_transform(self, iters_per_epoch=1):
-        return chain(identity(), scale_by_learning_rate(self.learning_rate))
+        return chain(identity(), self._lr(iters_per_epoch))
 
 
 @dataclass
@@ -255,7 +487,7 @@ class Nesterovs(Updater):
 
     def to_transform(self, iters_per_epoch=1):
         return chain(trace(self.momentum, True, self.accumulator_dtype),
-                     scale_by_learning_rate(self.learning_rate))
+                     self._lr(iters_per_epoch))
 
 
 @dataclass
@@ -266,7 +498,7 @@ class Momentum(Updater):
 
     def to_transform(self, iters_per_epoch=1):
         return chain(trace(self.momentum, False, self.accumulator_dtype),
-                     scale_by_learning_rate(self.learning_rate))
+                     self._lr(iters_per_epoch))
 
 
 @dataclass
@@ -278,7 +510,7 @@ class Adam(Updater):
 
     def to_transform(self, iters_per_epoch=1):
         return chain(scale_by_adam(self.beta1, self.beta2, self.epsilon),
-                     scale_by_learning_rate(self.learning_rate))
+                     self._lr(iters_per_epoch))
 
 
 @dataclass
@@ -288,7 +520,89 @@ class AdamW(Adam):
     def to_transform(self, iters_per_epoch=1):
         return chain(scale_by_adam(self.beta1, self.beta2, self.epsilon),
                      add_decayed_weights(self.weight_decay),
-                     scale_by_learning_rate(self.learning_rate))
+                     self._lr(iters_per_epoch))
+
+
+@dataclass
+class AMSGrad(Adam):
+    def to_transform(self, iters_per_epoch=1):
+        return chain(scale_by_amsgrad(self.beta1, self.beta2, self.epsilon),
+                     self._lr(iters_per_epoch))
+
+
+@dataclass
+class Nadam(Adam):
+    def to_transform(self, iters_per_epoch=1):
+        return chain(scale_by_nadam(self.beta1, self.beta2, self.epsilon),
+                     self._lr(iters_per_epoch))
+
+
+@dataclass
+class AdaMax(Adam):
+    learning_rate: Any = 2e-3
+
+    def to_transform(self, iters_per_epoch=1):
+        return chain(scale_by_adamax(self.beta1, self.beta2, self.epsilon),
+                     self._lr(iters_per_epoch))
+
+
+@dataclass
+class AdaDelta(Updater):
+    learning_rate: Any = 1.0  # AdaDelta ignores lr in DL4J; keep 1.0 scale
+    rho: float = 0.95
+    epsilon: float = 1e-6
+
+    def to_transform(self, iters_per_epoch=1):
+        return chain(scale_by_adadelta(self.rho, self.epsilon),
+                     self._lr(iters_per_epoch))
+
+
+@dataclass
+class AdaGrad(Updater):
+    learning_rate: Any = 1e-1
+    epsilon: float = 1e-6
+
+    def to_transform(self, iters_per_epoch=1):
+        return chain(scale_by_rss(0.1, self.epsilon),
+                     self._lr(iters_per_epoch))
+
+
+@dataclass
+class RmsProp(Updater):
+    learning_rate: Any = 1e-1
+    rms_decay: float = 0.95
+    epsilon: float = 1e-8
+
+    def to_transform(self, iters_per_epoch=1):
+        return chain(scale_by_rms(self.rms_decay, self.epsilon),
+                     self._lr(iters_per_epoch))
+
+
+@dataclass
+class Lion(Updater):
+    learning_rate: Any = 1e-4
+    beta1: float = 0.9
+    beta2: float = 0.99
+    weight_decay: float = 0.0
+
+    def to_transform(self, iters_per_epoch=1):
+        return chain(scale_by_lion(self.beta1, self.beta2),
+                     add_decayed_weights(self.weight_decay),
+                     self._lr(iters_per_epoch))
+
+
+@dataclass
+class Lamb(Updater):
+    learning_rate: Any = 1e-3
+    beta1: float = 0.9
+    beta2: float = 0.999
+    epsilon: float = 1e-6
+    weight_decay: float = 0.0
+
+    def to_transform(self, iters_per_epoch=1):
+        return chain(scale_by_adam(self.beta1, self.beta2, self.epsilon),
+                     add_decayed_weights(self.weight_decay),
+                     scale_by_trust_ratio(), self._lr(iters_per_epoch))
 
 
 @dataclass

@@ -1067,3 +1067,214 @@ def test_serving_capture_failure_raises_and_restores_the_stream(gen):
     assert torch.cuda.current_stream() == torch.cuda.default_stream()
     torch.cuda.synchronize()
     assert cache["pos"].tolist() == [1, 1]
+
+
+# -------------------------------------- the DL4J workflow in the graphs
+# The workflow modules run inside the replayed step; each check below is
+# one way that can break silently on the card: (A) an lr baked at capture,
+# (B) a dropout mask drawn once and replayed, (C) an anomaly gate that
+# reads back to the host, (D) a load that leaves graphs on stale tensors,
+# (E) the deferred score read, (F) a replayed output() that hands out the
+# graph's static buffer.
+
+def _batch(gen, n=32, d=12, c=4):
+    x = torch.randn((n, d), generator=gen, device="cuda")
+    y = torch.eye(c, device="cuda")[torch.randint(0, c, (n,), generator=gen,
+                                                  device="cuda")]
+    return x, y
+
+
+def _small(updater, dropout=0.0, seed=3, bn=False):
+    from deeplearning4j_tpu_torch import nn
+    layers = [nn.DenseLayer(n_in=12, n_out=16, activation="tanh")]
+    if bn:
+        layers.append(nn.BatchNormalization(fused=True))
+    layers += [nn.DenseLayer(n_in=16, n_out=16, activation="relu",
+                             dropout=dropout),
+               nn.OutputLayer(n_in=16, n_out=4, activation="softmax")]
+    return _mln_on_card(layers, (12,), seed=seed, updater=updater)
+
+
+def test_scheduled_lr_trace_over_replays(gen):
+    """(A) Sgd under an ExponentialSchedule: over 10 steps (eager,
+    capture, 8 replays) each step's lr, recovered from the update and the
+    step's gradient, is ``value_at`` of its own step; the run equals one
+    under ``disable_graphs()`` bit for bit."""
+    import deeplearning4j_tpu_torch as tpkg
+    from deeplearning4j_tpu_torch import train
+    from deeplearning4j_tpu_torch.data import DataSet
+    sched = train.ExponentialSchedule(initial_value=0.2, gamma=0.8)
+    batches = [_batch(gen) for _ in range(10)]
+    graph, eager = _small(train.Sgd(sched)), _small(train.Sgd(sched))
+    kinds = []
+    for k, (x, y) in enumerate(batches):
+        grads, _ = graph.gradient_and_score(DataSet(x, y))
+        w0 = graph.params["layer_0"]["W"].detach().clone()
+        graph.fit(DataSet(x, y))
+        kinds.append(graph._step_fn.last)
+        g = grads["layer_0"]["W"]
+        delta = graph.params["layer_0"]["W"].detach() - w0
+        lr = -float((delta * g).sum() / (g * g).sum())
+        assert abs(lr - sched.value_at(k, 0)) <= 1e-4 * sched.value_at(k, 0)
+        with tpkg.disable_graphs():
+            eager.fit(DataSet(x, y))
+    assert kinds == ["eager", "capture"] + ["replay"] * 8
+    _assert_nets_equal(eager, graph)
+
+
+def test_dropout_masks_differ_between_replays_and_equal_eager(gen):
+    """(B) Input dropout with lr 0 (the params stay put, so a loss moves
+    only with its mask): the replays' losses on one batch differ from
+    step to step, and equal the eager run's, step for step, under the
+    same seed (the generator is registered with the graph)."""
+    import deeplearning4j_tpu_torch as tpkg
+    from deeplearning4j_tpu_torch import train
+    from deeplearning4j_tpu_torch.data import DataSet
+    x, y = _batch(gen, n=64)
+    graph = _small(train.Sgd(0.0), dropout=0.5)
+    eager = _small(train.Sgd(0.0), dropout=0.5)
+    assert graph._gen.device.type == "cuda"
+    lg = [graph.fit(DataSet(x, y)) for _ in range(6)]
+    with tpkg.disable_graphs():
+        le = [eager.fit(DataSet(x, y)) for _ in range(6)]
+    assert graph._step_fn.calls == {"direct": 0, "eager": 1, "capture": 1,
+                                    "replay": 4}
+    assert lg == le
+    assert len(set(lg)) == len(lg)
+
+
+def test_anomaly_gate_in_a_replay(gen):
+    """(C) A NaN batch at a replayed step leaves params, updater state and
+    BN states (K3 fused) bit-identical with no host read in the step; the
+    strict detector raises at the next step, one step late."""
+    from deeplearning4j_tpu_torch import train
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn._compiled import tensors
+    good = [_batch(gen) for _ in range(4)]
+    bad = (good[0][0].clone(), good[0][1])
+    bad[0][0, 0] = float("nan")
+    net = _small(train.Adam(1e-2), bn=True)
+    net.enable_gradient_anomaly_detection(
+        train.GradientAnomalyDetector(strict=False))
+    for x, y in good[:2]:
+        net.fit(DataSet(x, y))
+    before = [t.clone() for t in tensors((net.params, net.states,
+                                          net._opt_state))]
+    net.fit(DataSet(*bad))
+    assert net._step_fn.last == "replay"
+    after = tensors((net.params, net.states, net._opt_state))
+    assert all(torch.equal(a, b) for a, b in zip(before, after))
+    assert {a.kind for a in net._anomaly_detector.anomalies} == \
+        {"nonfinite"}
+    strict = _small(train.Adam(1e-2), bn=True)
+    strict.enable_gradient_anomaly_detection()
+    with pytest.raises(FloatingPointError):
+        strict.fit([DataSet(*good[0]), DataSet(*good[1]), DataSet(*bad),
+                    DataSet(*good[2])])
+    assert strict._step_count == 4 and strict._step_fn.last == "replay"
+
+
+def test_load_into_a_net_with_graphs(gen, tmp_path):
+    """(D) ``load_params`` into a net whose train step and ``output()``
+    have graphs copies into its tensors in place: the graphs replay on
+    the loaded values — the next step and ``output()`` equal those of a
+    net ``load``-ed from the same zip, run eagerly."""
+    import deeplearning4j_tpu_torch as tpkg
+    from deeplearning4j_tpu_torch import nn, serde, train
+    from deeplearning4j_tpu_torch.data import DataSet
+    batches = [_batch(gen) for _ in range(4)]
+    src = _small(train.Adam(1e-2), seed=9, bn=True)
+    src.fit([DataSet(x, y) for x, y in batches[:2]])
+    path = tmp_path / "src.zip"
+    src.save(path, save_updater=True)
+    net = _small(train.Adam(1e-2), seed=1, bn=True)
+    for x, y in batches[:3]:
+        net.fit(DataSet(x, y))
+        net.output(x)
+    assert net._step_fn.last == "replay" and net._infer_fn.last == "replay"
+    serde.load_params(net, path, updater=True)
+    x, y = batches[3]
+    net.fit(DataSet(x, y))
+    out = net.output(batches[0][0])
+    assert net._step_fn.last == "replay" and net._infer_fn.last == "replay"
+    ref = nn.MultiLayerNetwork.load(path, device="cuda")
+    with tpkg.disable_graphs():
+        ref.fit(DataSet(x, y))
+        want = ref.output(batches[0][0])
+    assert torch.equal(out, want)
+    _assert_nets_equal(ref, net)
+
+
+def test_deferred_score_read_order(gen):
+    """(E) A deferred listener gets step k after step k+1 is queued, the
+    epoch's last before ``on_epoch_end``, each score equal to the loss a
+    synchronous listener reads; a raise mid-epoch still delivers the
+    finished step."""
+    from deeplearning4j_tpu_torch import train
+    from deeplearning4j_tpu_torch.data import DataSet
+    batches = [DataSet(*_batch(gen)) for _ in range(4)]
+
+    class Log:
+        def __init__(self, deferred):
+            self.deferred_score_ok = deferred
+            self.rows = []
+
+        def iteration_done(self, net, it, ep, score):
+            self.rows.append((it, score, net._step_count))
+
+        def on_epoch_end(self, net):
+            self.rows.append(("end", net._step_count))
+
+    a, b = _small(train.Adam(1e-2)), _small(train.Adam(1e-2))
+    la, lb = Log(True), Log(False)
+    a.set_listeners(la)
+    b.set_listeners(lb)
+    a.fit(batches, epochs=2)
+    b.fit(batches, epochs=2)
+    assert [r[1] for r in la.rows if r[0] != "end"] == \
+        [r[1] for r in lb.rows if r[0] != "end"]
+    lags = [r[2] - r[0] for r in la.rows if r[0] != "end"]
+    assert lags == [1, 1, 1, 0] * 2
+    assert [r[0] for r in la.rows][4] == "end"
+
+    def boom():
+        yield batches[0]
+        yield batches[1]
+        raise RuntimeError("source failed")
+    c = _small(train.Adam(1e-2))
+    lc = Log(True)
+    c.set_listeners(lc)
+    with pytest.raises(RuntimeError, match="source failed"):
+        c.fit(boom())
+    assert [r[0] for r in lc.rows] == [1, 2]
+
+
+def test_replayed_output_equals_eager_and_stays_put(gen):
+    """(F) ``output()`` over 5 batches of one shape and a last partial
+    one (its own signature), BN on K3: eager, capture, replays; each
+    result equals ``disable_graphs()``'s bit for bit, and the results
+    handed out earlier are unchanged after later batches; ``evaluate``
+    accumulates on the card and counts what ``output()`` predicts."""
+    import deeplearning4j_tpu_torch as tpkg
+    from deeplearning4j_tpu_torch import train
+    from deeplearning4j_tpu_torch.data import DataSet
+    net = _small(train.Adam(1e-2), bn=True)
+    net.layers[1].fused = "auto"
+    xs = [_batch(gen)[0] for _ in range(5)] + [_batch(gen, n=7)[0]]
+    outs = [net.output(x) for x in xs]
+    kept = [o.clone() for o in outs]
+    assert net._infer_fn.calls == {"direct": 0, "eager": 2, "capture": 1,
+                                   "replay": 3}
+    with tpkg.disable_graphs():
+        want = [net.output(x) for x in xs]
+    for o, k, w in zip(outs, kept, want):
+        assert torch.equal(o, k) and torch.equal(o, w)
+    ys = [torch.eye(4, device="cuda")[torch.randint(
+        0, 4, (len(x),), generator=gen, device="cuda")] for x in xs]
+    ev = net.evaluate([DataSet(x, y) for x, y in zip(xs, ys)])
+    assert ev._conf.device.type == "cuda"
+    conf = torch.zeros((4, 4), dtype=torch.int64)
+    for o, y in zip(want, ys):
+        for t, p in zip(y.argmax(-1).tolist(), o.argmax(-1).tolist()):
+            conf[t, p] += 1
+    assert (ev.confusion == conf.numpy()).all()

@@ -62,7 +62,11 @@ def test_port_has_modules_to_check():
             "data/dataset.py", "zoo/base.py", "zoo/resnet.py",
             "kernels/fused_lstm.py", "nn/layers/recurrent.py",
             "nn/multi_layer_network.py", "data/iterators.py",
-            "zoo/cnn_simple.py"} <= names
+            "zoo/cnn_simple.py", "train/schedules.py",
+            "train/constraints.py", "train/anomaly.py", "nn/weightnoise.py",
+            "nn/listeners.py", "eval/classification.py",
+            "eval/regression.py", "eval/roc.py", "eval/calibration.py",
+            "data/normalizers.py", "serde/model_serializer.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -80,10 +84,62 @@ def test_importing_the_port_loads_no_jax():
             "import deeplearning4j_tpu_torch.kernels.fused_lstm\n"
             "import deeplearning4j_tpu_torch.nn.multi_layer_network\n"
             "import deeplearning4j_tpu_torch.zoo.cnn_simple\n"
+            "import deeplearning4j_tpu_torch.eval\n"
+            "import deeplearning4j_tpu_torch.serde\n"
+            "import deeplearning4j_tpu_torch.nn.listeners\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_loading_a_jax_zip_loads_no_jax(tmp_path):
+    """A zip the JAX package wrote (its ``conf.pkl`` pickles the reference
+    configuration, importing which loads jax): ``load_model`` raises and
+    names ``load_params``, ``restore_normalizer`` refuses the pickled
+    normalizer, and ``load_params`` copies its arrays, all without
+    unpickling either or importing jax."""
+    import io
+    import zipfile
+
+    import numpy as np
+    path = tmp_path / "jax.zip"
+    buf = io.BytesIO()
+    np.savez(buf, **{"layer_0|W": np.ones((3, 2), np.float32),
+                     "layer_0|b": np.zeros(2, np.float32)})
+    with zipfile.ZipFile(path, "w") as zf:
+        # pickles of a jax-only module: loading either would import it
+        zf.writestr("conf.pkl", b"\x80\x04\x95\x10\x00\x00\x00\x00\x00"
+                    b"\x00\x00\x8c\x03jax\x94\x8c\x05Array\x94\x93\x94.")
+        zf.writestr("normalizer.pkl", b"not for the port")
+        zf.writestr("params.npz", buf.getvalue())
+        buf = io.BytesIO()
+        np.savez(buf)
+        zf.writestr("states.npz", buf.getvalue())
+        zf.writestr("updater.pkl", b"optax state")
+    code = (
+        "import sys\n"
+        "import pytest\n"
+        "from deeplearning4j_tpu_torch import nn, serde\n"
+        "conf = (nn.NeuralNetConfiguration.builder().list()\n"
+        "        .layer(nn.OutputLayer(n_in=3, n_out=2)).build())\n"
+        "net = nn.MultiLayerNetwork(conf).init((3,), device='cpu')\n"
+        f"path = {str(path)!r}\n"
+        "with pytest.raises(ValueError, match='load_params'):\n"
+        "    serde.load_model(path, device='cpu')\n"
+        "with pytest.raises(ValueError, match='JAX'):\n"
+        "    serde.restore_normalizer(path)\n"
+        "serde.load_params(net, path)\n"
+        "assert float(net.params['layer_0']['W'].sum()) == 6.0\n"
+        "with pytest.raises(NotImplementedError, match='optax'):\n"
+        "    serde.load_params(net, path, updater=True)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr

@@ -573,7 +573,9 @@ def test_build_optimizer_per_label_multi_transform_matches_optax():
 
 
 def test_unported_updater_features_raise():
-    with pytest.raises(NotImplementedError, match="schedules"):
+    # schedules are ported (tests/test_torch_updaters.py); an lr must be a
+    # number or a Schedule, whose step-side form runs on the device
+    with pytest.raises(TypeError, match="Schedule"):
         tupd.Sgd(learning_rate=lambda step: 0.1).to_transform()
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(NotImplementedError, match="abstract"):
         tupd.Updater().to_transform()
