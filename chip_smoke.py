@@ -138,13 +138,21 @@ Phases, each fatal on failure:
    ``--profile-resnet`` profiles one eager step: K3's device time and
    launches by kernel (one a stats and a reduce call) and the
    device-busy share;
-9. the fused whole-sequence LSTM kernel (K4) against its plain version:
-   the char-RNN's shape (B 256, T 60, H 256) in bf16 and f32 with
-   peepholes, with zero peepholes, and with nonzero h0/c0; a ragged
-   B 3, T 7, H 40 and a T 1 shape; a second launch bit for bit equal; the
-   autograd Function's grads against autograd through the plain version;
-   kernel, plain and ``torch.nn.LSTM`` (cuDNN, the library yardstick: it
-   includes the input projection, timed beside it) times at the path shape;
+9. the fused whole-sequence LSTM kernel (K4) against its plain version,
+   on both routes (``fused_lstm.lstm_route`` picks by shape, and in f32
+   by T against the waves of clusters the card holds): the cluster route
+   (rw resident across a thread-block cluster) and the block route.
+   The char-RNN's shape (B 256, T 60, H 256) in bf16 and f32 on both, with
+   peepholes, with zero peepholes and with nonzero h0/c0; a ragged B 3,
+   T 7, H 40, a T 1, a B 1, a ragged last cluster (B 133) and the route
+   boundary (the largest H the cluster route takes, bf16 384 and f32 256,
+   and the next, which takes the block route), and f32's T boundary (B 33
+   at T 3 and 4, B 256 at T 31 and 32, B 512 at T 60); a second launch bit for
+   bit equal; the autograd Function's grads against autograd through the
+   plain version; each case's route and plan logged, with the clusters
+   the card keeps resident; both routes', plain and ``torch.nn.LSTM``
+   (cuDNN, the library yardstick: it includes the input projection, timed
+   beside it) times at the path shape;
 10. the char-RNN path at full width: ``TextGenerationLSTM(num_classes=77,
    input_shape=(60, 77), units=256, compute_dtype=bf16)`` (``bench.py``'s
    ``charnn`` row, batch 256 of seeded one-hot inputs and labels) trained
@@ -156,9 +164,13 @@ Phases, each fatal on failure:
    step-1 loss within 2e-2 nats of the plain path, one f32 step of each
    for the grads (relative L2 per leaf <= 1e-3), the loss falling,
    ``output()`` logits KL <= 1e-3 per row against the scan; replayed
-   against eager bit for bit (printed), wall and device ms, busy share,
-   samples/s and peak memory of both kernel ways; every (dtype, B, H) K4
-   ran at must be one that phase 9 held;
+   against eager bit for bit (printed), wall and device ms, K4's device
+   share, busy share, samples/s and peak memory of both kernel ways and of
+   a replayed ``output()``; every (dtype, B, H, route) K4 ran at must be
+   one that phase 9 held, and the path runs the cluster route. Then the
+   route A/B: the replayed train step, ``output()`` and ``evaluate`` with
+   K4 forced onto the block route and onto the cluster route, in the
+   order block, cluster, cluster, block (wall and device ms, K4's share);
 11. LeNet at batch 512 bf16 (``bench.py``'s ``lenet`` row) through
    ``MultiLayerNetwork.fit``, 5 steps on seeded 28x28x1 inputs, replayed
    from a CUDA graph and eager from one init: the loss falls, the steps
@@ -181,7 +193,8 @@ Phases, each fatal on failure:
    T60 under RmsProp with input dropout 0.2 on both LSTMs (K4): 5
    replayed steps equal to 5 eager ones bit for bit, the generator's
    state new after every step and equal to eager's; ``evaluate`` equal
-   to ``output()``'s counts; every K4 shape held in phase 9. LeNet B512:
+   to ``output()``'s counts; every K4 (shape, route) held in phase 9.
+   LeNet B512:
    the eight new updaters under a ``StepSchedule``, 3 steps replayed
    equal to eager; a ``MaxNormConstraint`` holding after every replay;
    a detector with a NaN batch at a replayed step (a no-op, raised one
@@ -296,6 +309,12 @@ LSE_ATOL = 1e-3
 # bf16 at every step while the kernel keeps them in f32 (5.9e-3 measured
 # at T 60); f32 only by the order of the recurrent sums
 LSTM_ATOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+# K4's kernels by name (the profiles sum their device time): the block
+# route's and the cluster route's (bf16 mma, f32 ffma)
+K4_KERNEL_NAMES = ("lstm_seq_kernel", "lstm_seq_cluster_")
+# the largest H the cluster route takes (then the next, on the block
+# route), at B 33 T 6
+K4_ROUTE_EDGE = {torch.bfloat16: 384, torch.float32: 256}
 CHARNN_BATCH, CHARNN_T, CHARNN_H, CHARNN_VOCAB = 256, 60, 256, 77
 CHARNN_LOSS_ATOL = 2e-2                  # bf16 step-1 loss, nats
 CHARNN_F32_LOSS_ATOL = 1e-4              # f32 step-1 loss, nats
@@ -1202,16 +1221,27 @@ def way_summary(kinds, step_s, items, unit, peak_gib):
 
 
 def add_profile(rec, prof):
-    """Put a profiled step's device ms beside a run's wall ms a step
-    (busy share = device ms / wall ms)."""
+    """Put a profiled step's device ms (and K4's, where counted) beside a
+    run's wall ms a step (busy share = device ms / wall ms)."""
     rec["device_ms_per_step"] = prof["device_ms_per_step"]
     rec["busy_share"] = prof["device_ms_per_step"] / rec["wall_ms_per_step"]
+    for key in ("k4_device_ms", "k4_share_of_device"):
+        if key in prof:
+            rec[key] = prof[key]
 
 
-def profile_step(fn):
+def k4_device_ms(prof):
+    """K4's device ms in a ``torch.profiler`` run, both routes' kernels."""
+    return sum(_self_device_us(ev) for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA
+               and any(n in ev.key for n in K4_KERNEL_NAMES)) / 1e3
+
+
+def profile_step(fn, k4=False):
     """One call of ``fn`` under ``torch.profiler``: wall and device ms
     (kernels and copies, graph replays' included), busy share, top
-    kernels."""
+    kernels; with ``k4`` also K4's device ms and share of the device
+    time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1220,7 +1250,12 @@ def profile_step(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return device_rows(prof, wall, 1)
+    out = device_rows(prof, wall, 1)
+    if k4:
+        out["k4_device_ms"] = k4_device_ms(prof)
+        out["k4_share_of_device"] = (out["k4_device_ms"]
+                                     / out["device_ms_per_step"])
+    return out
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2109,11 +2144,13 @@ def lstm_bound(b, t, h, dtype):
 
 
 def check_lstm(fl, dtype, b, t, h, gen, peep=True, state=False,
-               grads=False, time_it=False):
-    """K4 against ``lstm_seq_reference`` on one shape: within
-    ``LSTM_ATOL``, a second launch bitwise equal; optionally the
-    Function's grads against autograd through the plain version, and the
-    kernel, plain, cuDNN and input-projection times."""
+               grads=False, time_it=False, route=None):
+    """K4 against ``lstm_seq_reference`` on one shape, on ``route`` ("block"
+    or "cluster"; None: the route ``lstm_seq`` picks by shape): within
+    ``LSTM_ATOL``, a second launch bitwise equal, the launches counted on
+    that route; optionally the Function's grads against autograd through
+    the plain version, and the kernel, plain, cuDNN and input-projection
+    times."""
     dev = "cuda"
     x = torch.randn((b, t, 4 * h), generator=gen, device=dev).to(dtype)
     rw = (torch.randn((h, 4 * h), generator=gen, device=dev)
@@ -2126,18 +2163,28 @@ def check_lstm(fl, dtype, b, t, h, gen, peep=True, state=False,
     c0 = (torch.randn((b, h), generator=gen, device=dev) if state
           else z).to(dtype)
     ins = (x, rw, p, h0, c0)
-    out = fl.lstm_seq(*ins)
-    again = fl.lstm_seq(*ins)
+    shape_route = fl.lstm_route(b, t, h, dtype)
+    route = route or shape_route
+    kernel = {"block": fl.lstm_seq_block,
+              "cluster": fl.lstm_seq_cluster}[route]
+    before = dict(fl.LAUNCHES_BY_ROUTE)
+    out = kernel(*ins)
+    again = kernel(*ins)
     ref = fl.lstm_seq_reference(*ins)
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     repeat = torch.equal(out, again)
-    ok = err <= LSTM_ATOL[dtype] and repeat
-    res = {"max_abs_err": err}
+    counted = fl.LAUNCHES_BY_ROUTE[route] - before[route] == 2
+    ok = err <= LSTM_ATOL[dtype] and repeat and counted
+    plan = (fl.lstm_cluster_plan(b, h, dtype) if route == "cluster"
+            else fl.lstm_plan(b, h))
+    res = {"max_abs_err": err, "route": route, "plan": plan}
     name = (f"K4 fused_lstm {str(dtype)[6:]} B{b} T{t} H{h}"
             f"{'' if peep else ' no peepholes'}"
-            f"{' h0/c0 nonzero' if state else ''}")
-    msg = f"max_abs_err {err:.3e} (atol {LSTM_ATOL[dtype]}), repeat {repeat}"
+            f"{' h0/c0 nonzero' if state else ''} {route} route"
+            f"{'' if route == shape_route else ' (forced; by shape ' + str(shape_route) + ')'}")
+    msg = (f"max_abs_err {err:.3e} (atol {LSTM_ATOL[dtype]}), repeat "
+           f"{repeat}, launches counted on the route {counted}, plan {plan}")
     if grads:
         w = torch.randn((b, t, h), generator=gen, device=dev)
 
@@ -2154,7 +2201,7 @@ def check_lstm(fl, dtype, b, t, h, gen, peep=True, state=False,
                 f"{res['grad_max_abs_err']:.3e}")
         del got, want
     if time_it:
-        res["ms"] = cuda_ms(lambda: fl.lstm_seq(*ins))
+        res["ms"] = cuda_ms(lambda: kernel(*ins))
         res["plain_ms"] = cuda_ms(lambda: fl.lstm_seq_reference(*ins),
                                   iters=3, warmup=1)
         # the library yardstick: cuDNN's LSTM at input width H, zero
@@ -2173,28 +2220,60 @@ def check_lstm(fl, dtype, b, t, h, gen, peep=True, state=False,
                 f"ms, cuDNN LSTM (incl. input projection) "
                 f"{res['library_ms']:.4f} ms, x@W+b {res['proj_ms']:.4f} ms,"
                 f" bound {res['bound_ms']:.5f} ms ({res['bound_by']}; the T "
-                f"dependent steps not counted), plan "
-                f"{fl.lstm_plan(b, h)}")
+                f"dependent steps not counted)")
     log(f"{name}: {msg} -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise SystemExit(f"K4 {dtype} B{b} T{t} H{h} disagrees with its "
-                         "plain version or does not repeat")
+        raise SystemExit(f"K4 {dtype} B{b} T{t} H{h} ({route} route) "
+                         "disagrees with its plain version, does not repeat "
+                         "or was not counted on its route")
     return res
 
 
 def k4_phase(fl, gen):
-    """Phase 9. Returns the results at the path shape (by dtype) and the
-    (dtype, B, H) cases held."""
+    """Phase 9. Returns the results at the path shape (by dtype, then
+    route) and the (dtype, B, H, route) cases held."""
     b, t, h = CHARNN_BATCH, CHARNN_T, CHARNN_H
     out, checked = {}, set()
+
+    def held(dtype, bb, tt, hh, route=None, **kw):
+        r = check_lstm(fl, dtype, bb, tt, hh, gen, route=route, **kw)
+        checked.add((dtype, bb, hh, r["route"]))
+        return r
+
     for dtype in (torch.bfloat16, torch.float32):
-        out[dtype] = check_lstm(fl, dtype, b, t, h, gen, grads=True,
-                                time_it=True)
-        check_lstm(fl, dtype, b, t, h, gen, peep=False)
-        check_lstm(fl, dtype, b, t, h, gen, state=True)
-        check_lstm(fl, dtype, 3, 7, 40, gen, state=True, grads=True)
-        check_lstm(fl, dtype, 5, 1, 16, gen, state=True)
-        checked |= {(dtype, b, h), (dtype, 3, 40), (dtype, 5, 16)}
+        out[dtype] = {
+            "cluster": held(dtype, b, t, h, "cluster", grads=True,
+                            time_it=True),
+            "block": held(dtype, b, t, h, "block", time_it=True)}
+        held(dtype, b, t, h, peep=False)
+        held(dtype, b, t, h, state=True)
+        held(dtype, b, t, h, "block", state=True)
+        held(dtype, 3, 7, 40, state=True, grads=True)
+        held(dtype, 5, 1, 16, state=True)
+        held(dtype, 1, 5, h, state=True)
+        held(dtype, 133, 4, 64, state=True)
+        edge = K4_ROUTE_EDGE[dtype]
+        for hh in (edge, edge + 8):
+            r = held(dtype, 33, 6, hh, state=True)
+            want = "cluster" if hh == edge else "block"
+            if r["route"] != want:
+                raise SystemExit(f"K4 {dtype} H{hh} took the {r['route']} "
+                                 f"route, want {want}")
+        if dtype == torch.float32:
+            # the f32 route's T boundary at one wave (B 33: 3 clusters),
+            # two (B 256: 16 clusters; the card holds 15) and three (B 512)
+            one, two = fl.F32_CLUSTER_MIN_T
+            for bb, tt in ((33, one - 1), (33, one), (b, two - 1), (b, two),
+                           (2 * b, t)):
+                r = held(dtype, bb, tt, h, state=True)
+                log(f"K4 f32 B{bb} T{tt} H{h}: {r['route']} route (the card "
+                    f"holds {fl.cluster_max_active(bb, h, dtype)} clusters, "
+                    f"the grid has {-(-bb // fl.CLUSTER_ROWS)})")
+        active = fl.cluster_max_active(b, h, dtype)
+        out[dtype]["cluster"]["max_active_clusters"] = active
+        log(f"K4 cluster route {str(dtype)[6:]} B{b} H{h}: plan "
+            f"{fl.lstm_cluster_plan(b, h, dtype)}, the card keeps {active} "
+            f"clusters resident (the grid has {-(-b // fl.CLUSTER_ROWS)})")
         torch.cuda.empty_cache()
     return out, checked
 
@@ -2202,7 +2281,9 @@ def k4_phase(fl, gen):
 # --------------------------------------------------------------- phase 10
 
 def all_counts(fa, pa, fo, fl):
-    return {"fused_lstm": fl.LAUNCHES, **k3_counts(fo),
+    return {"fused_lstm": fl.LAUNCHES,
+            **{f"fused_lstm_{r}": n for r, n in fl.LAUNCHES_BY_ROUTE.items()},
+            **k3_counts(fo),
             "flash_attention_fwd": fa.LAUNCHES,
             "flash_attention_bwd_dq": fa.LAUNCHES_BWD_DQ,
             "flash_attention_bwd_dkv": fa.LAUNCHES_BWD_DKV,
@@ -2215,21 +2296,23 @@ def reset_all(*mods):
 
 
 class _FitLog:
-    """A fit listener: loss, host time, K4 launches and how the compiled
-    step ran at the end of each step (``fit`` reads the loss to the host
-    first)."""
+    """A fit listener: loss, host time, K4 launches (all and by route) and
+    how the compiled step ran at the end of each step (``fit`` reads the
+    loss to the host first)."""
 
     def __init__(self, fl):
         self.fl, self.rows, self.base = fl, [], fl.LAUNCHES
+        self.routes = [dict(fl.LAUNCHES_BY_ROUTE)]
         self.t0 = time.perf_counter()
 
     def iteration_done(self, net, it, epoch, loss):
         self.rows.append((loss, time.perf_counter(), self.fl.LAUNCHES,
                           net._step_fn.last))
+        self.routes.append(dict(self.fl.LAUNCHES_BY_ROUTE))
 
     def record(self, batch):
-        """Losses, K4 launches a step (a replay at its capture's), and
-        :func:`way_summary` over the timed steps."""
+        """Losses, K4 launches a step, all and by route (a replay at its
+        capture's), and :func:`way_summary` over the timed steps."""
         counts = [r[2] for r in self.rows]
         kinds = [r[3] for r in self.rows]
         ends = [r[1] for r in self.rows]
@@ -2237,6 +2320,9 @@ class _FitLog:
                 "k4_launches_per_step": replay_counts(
                     [a - b for a, b in zip(counts, [self.base] + counts)],
                     kinds),
+                "k4_launches_by_route_per_step": replay_counts(
+                    [{r: a[r] - b[r] for r in a}
+                     for b, a in zip(self.routes, self.routes[1:])], kinds),
                 **way_summary(kinds, [b - a for a, b in
                                       zip([self.t0] + ends, ends)],
                               batch, "samples",
@@ -2252,14 +2338,20 @@ def _set_lstm_fused(net, fused):
 
 @contextlib.contextmanager
 def _k4_cases(fl):
-    """Record the (dtype, B, H) of every ``fused_lstm_seq`` call the LSTM
-    layers make; the calls themselves run unchanged."""
+    """Record the (dtype, B, H, route) of every ``fused_lstm_seq`` call the
+    LSTM layers make, the route the one whose launch count the call moved
+    (``"none"`` if it launched nothing, several joined by ``+``); the
+    calls themselves run unchanged."""
     cases = []
     real = fl.fused_lstm_seq
 
     def spy(xproj, rw, peep, h0, c0):
-        cases.append((xproj.dtype, xproj.shape[0], rw.shape[0]))
-        return real(xproj, rw, peep, h0, c0)
+        before = dict(fl.LAUNCHES_BY_ROUTE)
+        out = real(xproj, rw, peep, h0, c0)
+        ran = [r for r, n in fl.LAUNCHES_BY_ROUTE.items() if n != before[r]]
+        cases.append((xproj.dtype, xproj.shape[0], rw.shape[0],
+                      "+".join(ran) or "none"))
+        return out
 
     fl.fused_lstm_seq = spy
     try:
@@ -2315,11 +2407,14 @@ def charnn_path(fa, pa, fo, fl, checked, steps=5, profile=False):
             final = [(f"{i}", p.detach().clone()) for i, p in enumerate(
                 tensors((net.params, net.states, net._opt_state)))]
             if path != "plain":
-                add_profile(rec, profile_step(lambda: net.fit(ds)))
+                add_profile(rec, profile_step(lambda: net.fit(ds), k4=True))
         seen |= set(cases)
         if path == "kernel":
             train_counts = {**all_counts(fa, pa, fo, fl), "fused_lstm": sum(
-                rec["k4_launches_per_step"])}
+                rec["k4_launches_per_step"]), **{
+                f"fused_lstm_{r}": sum(s[r] for s in
+                                       rec["k4_launches_by_route_per_step"])
+                for r in fl.LAUNCHES_BY_ROUTE}}
             if rec["step_kinds"][:steps] != ["eager", "capture",
                                              *["replay"] * (steps - 2)]:
                 failed.append("the kernel path did not replay a graph")
@@ -2346,6 +2441,13 @@ def charnn_path(fa, pa, fo, fl, checked, steps=5, profile=False):
     torch.cuda.synchronize()
     seen |= set(cases)
     out_counts = all_counts(fa, pa, fo, fl)
+    # a replayed output() (after its eager call and its capture)
+    knet.output(x)
+    out_prof = profile_step(lambda: knet.output(x), k4=True)
+    log(f"charnn output() replayed (B{b} T{t}, kernel path): "
+        + json.dumps({k: out_prof[k] for k in (
+            "wall_ms_per_step", "device_ms_per_step", "device_busy_share",
+            "k4_device_ms", "k4_share_of_device")}))
     logits = {}
     for fused in (True, False):
         _set_lstm_fused(knet, fused)
@@ -2396,12 +2498,21 @@ def charnn_path(fa, pa, fo, fl, checked, steps=5, profile=False):
         failed.append("output()")
     if out_counts["fused_lstm"] != 2:
         failed.append("K4 launches in output()")
-    unchecked = sorted(f"{str(dt)[6:]} B{bb} H{hh}"
-                       for dt, bb, hh in seen - checked)
-    log(f"charnn K4 cases (dtype, B, H): {len(seen)} on the path, "
+    unchecked = sorted(f"{str(dt)[6:]} B{bb} H{hh} {r}"
+                       for dt, bb, hh, r in seen - checked)
+    log(f"charnn K4 cases (dtype, B, H, route): {len(seen)} on the path, "
         f"{len(seen) - len(unchecked)} of them held in phase 9")
     if unchecked:
         failed.append(f"K4 ran at {unchecked}, which phase 9 did not hold")
+    routes = {r for *_, r in seen}
+    if routes != {"cluster"}:
+        failed.append(f"K4 ran on the routes {routes}, want the cluster "
+                      "route only")
+    for path, c in (("train", train_counts), ("output()", out_counts)):
+        if c["fused_lstm_block"] or c["fused_lstm_cluster"] \
+                != c["fused_lstm"]:
+            failed.append(f"{path}: K4 launches by route {c}, want all "
+                          "on the cluster route")
     if failed:
         raise SystemExit(f"charnn path: {failed}")
     return {"charnn_train": train_counts, "charnn_output": out_counts}
@@ -2418,15 +2529,99 @@ def profile_charnn_step(net, ds, fl):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     out = device_rows(prof, wall, 1)
-    k4_us = sum(getattr(ev, "self_device_time_total",
-                        getattr(ev, "self_cuda_time_total", 0.0))
-                for ev in prof.key_averages()
-                if ev.device_type == torch.autograd.DeviceType.CUDA
-                and "lstm_seq_kernel" in ev.key)
-    out["k4_device_ms"] = k4_us / 1e3
-    out["k4_share_of_device"] = k4_us / 1e3 / out["device_ms_per_step"]
+    out["k4_device_ms"] = k4_device_ms(prof)
+    out["k4_share_of_device"] = (out["k4_device_ms"]
+                                 / out["device_ms_per_step"])
     log(f"profile (charnn train step, B{CHARNN_BATCH} T{CHARNN_T}, kernel "
         "path): " + json.dumps(out))
+
+
+@contextlib.contextmanager
+def _k4_route(fl, route):
+    """Send every K4 launch through one route's wrapper (``lstm_seq``
+    picks by shape otherwise)."""
+    real = fl.lstm_seq
+    fl.lstm_seq = {"block": fl.lstm_seq_block,
+                   "cluster": fl.lstm_seq_cluster}[route]
+    try:
+        yield
+    finally:
+        fl.lstm_seq = real
+
+
+def charnn_k4_ab(fl, steps=5):
+    """The char-RNN's replayed train step, ``output()`` and ``evaluate``
+    (4 batches) with K4 on the block route and on the cluster route, in
+    the order block, cluster, cluster, block, each on a fresh net from the
+    same seed: wall ms (the median over ``steps`` replays), device ms and
+    K4's share (one profiled replay). Returns the runs."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    b, t, v = CHARNN_BATCH, CHARNN_T, CHARNN_VOCAB
+    rng = np.random.default_rng(10)
+    eye = np.eye(v, dtype=np.float32)
+
+    def data():
+        return DataSet(
+            torch.as_tensor(eye[rng.integers(0, v, (b, t))], device="cuda"),
+            torch.as_tensor(eye[rng.integers(0, v, (b, t))], device="cuda"))
+    ds, held = data(), [data() for _ in range(WORKFLOW_EVAL_BATCHES)]
+
+    def walls(fn, n):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+
+    def entry(wall, prof):
+        return {"wall_ms": wall, "device_ms": prof["device_ms_per_step"],
+                "k4_device_ms": prof["k4_device_ms"],
+                "k4_share_of_device": prof["k4_share_of_device"]}
+
+    runs = []
+    for route in ("block", "cluster", "cluster", "block"):
+        with _k4_route(fl, route):
+            fl.reset_launches()
+            torch.manual_seed(0)
+            net = TextGenerationLSTM(num_classes=v, input_shape=(t, v),
+                                     units=CHARNN_H,
+                                     compute_dtype=torch.bfloat16).init()
+            _set_lstm_fused(net, True)
+            net.fit([ds] * 3)                   # eager, capture, replay
+            rec = {"route": route, "train_step": entry(
+                walls(lambda: net.fit(ds), steps),
+                profile_step(lambda: net.fit(ds), k4=True))}
+            for _ in range(2):                  # eager, capture
+                net.output(ds.features)
+            rec["output"] = entry(
+                walls(lambda: net.output(ds.features), steps),
+                profile_step(lambda: net.output(ds.features), k4=True))
+            net.evaluate(held)
+            rec["evaluate"] = entry(
+                walls(lambda: net.evaluate(held).confusion, 2),
+                profile_step(lambda: net.evaluate(held).confusion, k4=True))
+            if net._step_fn.last != "replay" or net._infer_fn.last != "replay":
+                raise SystemExit(f"charnn K4 A/B ({route}): the steps did "
+                                 "not replay")
+            rec["k4_launches_by_route"] = dict(fl.LAUNCHES_BY_ROUTE)
+            if sum(rec["k4_launches_by_route"].values()) \
+                    != rec["k4_launches_by_route"][route] or not \
+                    rec["k4_launches_by_route"][route]:
+                raise SystemExit(f"charnn K4 A/B ({route}): K4 launches by "
+                                 f"route {rec['k4_launches_by_route']}")
+        log(f"charnn K4 route A/B (B{b} T{t} H{CHARNN_H} bf16, replayed; "
+            f"evaluate over {WORKFLOW_EVAL_BATCHES} batches): "
+            + json.dumps(rec))
+        runs.append(rec)
+        del net
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
 
 
 # --------------------------------------------------------------- phase 11
@@ -2784,6 +2979,7 @@ def workflow_charnn(fl, checked):
         outs = [net.output(held.features)]
         torch.cuda.synchronize()
         eval_launches = fl.LAUNCHES
+        eval_routes = dict(fl.LAUNCHES_BY_ROUTE)
         want = _confusion(outs, [held.labels], v)
         log(f"workflow charnn evaluate: accuracy {ev.accuracy():.4f}, "
             f"confusion equal to output()'s {np.array_equal(ev.confusion, want)}"
@@ -2795,13 +2991,22 @@ def workflow_charnn(fl, checked):
     unchecked = set(cases) - checked
     if unchecked:
         failed.append(f"K4 ran at {unchecked}, which phase 9 did not hold")
+    if {r for *_, r in cases} != {"cluster"}:
+        failed.append("K4 left the cluster route")
+    counts = {"fused_lstm": sum(gr["k4_launches_per_step"]) + eval_launches,
+              **{f"fused_lstm_{r}": eval_routes[r] + sum(
+                  s[r] for s in gr["k4_launches_by_route_per_step"])
+                 for r in eval_routes}}
+    log(f"workflow charnn K4 launches (fit and evaluate): {counts}")
+    if counts["fused_lstm_block"] or counts["fused_lstm_cluster"] \
+            != counts["fused_lstm"]:
+        failed.append("K4 launches by route: not all on the cluster route")
     del net, nets
     gc.collect()
     torch.cuda.empty_cache()
     if failed:
         raise SystemExit(f"workflow charnn: {failed}")
-    return {"workflow_charnn": {"fused_lstm": sum(
-        gr["k4_launches_per_step"]) + eval_launches}}
+    return {"workflow_charnn": counts}
 
 
 class _Snapshots:
@@ -3182,6 +3387,7 @@ def main():
     mark("8 ResNet-50")
     lstm_paths = charnn_path(fa, pa, fo, fl, k4_checked,
                              profile=args.profile_charnn)
+    charnn_k4_ab(fl)
     mark("10 char-RNN")
     lenet_path(fa, pa, fo, fl)
     mark("11 LeNet")
@@ -3201,7 +3407,38 @@ def main():
     train_k1 = k1[(torch.bfloat16, 32, 1024, 64)]  # the train path's shape
     main_k2 = k2[torch.bfloat16]
     main_bwd = bwd[(torch.bfloat16, 32, 1024, True, 64)]  # the train path's
-    main_k4 = k4[torch.bfloat16]                # the char-RNN's shape
+    # K4 at the char-RNN's shape, by route, each with the launches the
+    # paths counted on it (charnn_path and workflow_charnn require them
+    # all on the cluster route)
+    k4_kernels = {"cluster": "lstm_seq_cluster_mma_kernel (bf16, tensor "
+                             "cores; f32 lstm_seq_cluster_ffma_kernel)",
+                  "block": "lstm_seq_kernel (CUDA cores, rw re-read from "
+                           "L2 every step)"}
+
+    def k4_entry(route):
+        r = k4[torch.bfloat16][route]
+        launches = {p: c[f"fused_lstm_{route}"]
+                    for p, c in lstm_paths.items()}
+        return {"name": "fused_lstm" + ("" if route == "cluster"
+                                        else "_block"),
+                "route": "cuda",
+                "source": "deeplearning4j_tpu_torch/csrc/fused_lstm.cu",
+                "replaces": "deeplearning4j_tpu/kernels/fused_lstm.py:90",
+                "kernel": k4_kernels[route], "k4_route": route,
+                "shape": f"B{CHARNN_BATCH} T{CHARNN_T} H{CHARNN_H} bf16",
+                "launches": sum(launches.values()),
+                "launches_by_path": launches,
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                "other_route_ms": k4[torch.bfloat16][
+                    "block" if route == "cluster" else "cluster"]["ms"],
+                "plan": list(r["plan"]),
+                "f32": {k: k4[torch.float32][route][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")},
+                **({"max_active_clusters": r["max_active_clusters"]}
+                   if route == "cluster" else {})}
     # the padded-256 kernels at B1 H8 T1024 D256 and the D 256 LM's, in
     # bf16 (tensor cores) and f32 (split TF32); the f32 CUDA-core kernels
     # at B1 H8 T2048 D64; the general kernels at a D they still serve
@@ -3333,16 +3570,7 @@ def main():
            "bound_by": main_k3[name]["bound_by"],
            "library_ms": main_k3[name]["library_ms"]}
           for name, line in K3_LINES.items()),
-        {"name": "fused_lstm", "route": "cuda",
-         "source": "deeplearning4j_tpu_torch/csrc/fused_lstm.cu",
-         "replaces": "deeplearning4j_tpu/kernels/fused_lstm.py:90",
-         "launches": sum(c["fused_lstm"] for c in lstm_paths.values()),
-         "launches_by_path": {p: c["fused_lstm"]
-                              for p, c in lstm_paths.items()},
-         "max_abs_err": main_k4["max_abs_err"],
-         "ms": main_k4["ms"], "plain_ms": main_k4["plain_ms"],
-         "bound_ms": main_k4["bound_ms"], "bound_by": main_k4["bound_by"],
-         "library_ms": main_k4["library_ms"]},
+        *(k4_entry(route) for route in ("cluster", "block")),
     ]
     log(json.dumps({"kernels": kernels, "launches_counted": (
         "the serving and train paths replay CUDA graphs: an eager call and "

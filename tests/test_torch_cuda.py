@@ -19,10 +19,10 @@ same terms summed in another order), the stats kernel's fused mean, var
 and inv to a relative 1e-6 of the plain versions on the same sums, and
 both reductions must repeat bit for bit from launch to launch (no
 atomics on the sums; a fixed-order last-block finish). The LSTM
-kernel (K4): f32 atol 1e-5 against its plain version; bf16 atol 2e-2 —
-the kernel keeps h and c in f32 over all T steps while the plain version
-rounds both to bf16 at every step, so they part by a few bf16 ulps
-(5.9e-3 measured at B256 T60 H256, ``chip_smoke.py`` phase 9).
+kernel (K4), both routes: f32 atol 1e-5 against its plain version; bf16
+atol 2e-2 — the kernels keep h and c in f32 over all T steps while the
+plain version rounds both to bf16 at every step, so they part by a few
+bf16 ulps (5.9e-3 measured at B256 T60 H256, ``chip_smoke.py`` phase 9).
 """
 
 from __future__ import annotations
@@ -632,11 +632,12 @@ def test_fused_bn_functions_match_plain_autograd(gen, dtype, act):
     assert fo.LAUNCHES == counts[0] + 2 and gx.dtype == dtype
 
 
-def _lstm_inputs(gen, b, t, h, dtype, state):
+def _lstm_inputs(gen, b, t, h, dtype, state, peep=True):
     x = torch.randn((b, t, 4 * h), generator=gen, device="cuda").to(dtype)
     rw = (torch.randn((h, 4 * h), generator=gen, device="cuda")
           * h ** -0.5).to(dtype)
-    peep = torch.randn((3, h), generator=gen, device="cuda") * 0.1
+    peep = (torch.randn((3, h), generator=gen, device="cuda") * 0.1 if peep
+            else torch.zeros((3, h), device="cuda"))
     z = torch.zeros((b, h), device="cuda")
     h0 = (torch.randn((b, h), generator=gen, device="cuda") * 0.5 if state
           else z).to(dtype)
@@ -678,10 +679,94 @@ def test_lstm_function_grads_match_plain_autograd(gen, dtype):
         return torch.autograd.grad((fn(*leaves) * w).float().sum(), leaves)
 
     before = fl.LAUNCHES
+    cluster = fl.LAUNCHES_BY_ROUTE["cluster"]
     got = grads(fl.fused_lstm_seq)
     assert fl.LAUNCHES == before + 1
+    assert fl.LAUNCHES_BY_ROUTE["cluster"] == cluster + 1
     for a, b_ in zip(got, grads(fl.lstm_seq_reference)):
         torch.testing.assert_close(a, b_, atol=1e-6, rtol=0)
+
+
+# (B, T, H, peepholes, nonzero state): the char-RNN's shape, a ragged
+# last cluster (B 133), B 1, T 1, no peepholes, and the route boundary:
+# the largest H the cluster route takes in each dtype and the next, and
+# f32 sequences just short of the cluster route
+LSTM_ROUTE_SHAPES = [(256, 60, 256, True, False), (133, 4, 64, True, True),
+                     (1, 5, 256, True, True), (5, 1, 16, True, True),
+                     (17, 7, 64, False, True), (33, 6, 256, True, True),
+                     (33, 6, 264, True, True), (33, 6, 384, True, True),
+                     (33, 6, 392, True, True),
+                     # f32's T boundary: one wave from T 4, two from T 32
+                     (33, 3, 256, True, True), (256, 24, 256, True, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,t,h,peep,state", LSTM_ROUTE_SHAPES)
+def test_lstm_routes_match_plain(gen, dtype, b, t, h, peep, state):
+    """Each route that takes the shape (the block route takes them all)
+    against the plain version; a second launch bit for bit equal; the
+    launch counted on its route; ``lstm_seq`` takes the route
+    ``lstm_route`` names."""
+    ins = _lstm_inputs(gen, b, t, h, dtype, state, peep)
+    ref = fl.lstm_seq_reference(*ins)
+    routes = {"block": fl.lstm_seq_block}
+    if fl.lstm_cluster_plan(b, h, dtype) is not None:
+        routes["cluster"] = fl.lstm_seq_cluster
+    edge = {torch.bfloat16: 384, torch.float32: 256}[dtype]
+    if h in (edge, edge + 8):
+        assert ("cluster" in routes) == (h == edge)
+    for route, kernel in routes.items():
+        before = fl.LAUNCHES_BY_ROUTE[route]
+        out = kernel(*ins)
+        again = kernel(*ins)
+        torch.cuda.synchronize()
+        assert fl.LAUNCHES_BY_ROUTE[route] == before + 2
+        assert out.dtype == dtype and out.shape == (b, t, h)
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=LSTM_ATOL[dtype], rtol=0)
+        assert torch.equal(out, again)
+    want = fl.lstm_route(b, t, h, dtype)
+    before = dict(fl.LAUNCHES_BY_ROUTE)
+    fl.lstm_seq(*ins)
+    assert fl.LAUNCHES_BY_ROUTE[want] == before[want] + 1
+
+
+@pytest.mark.parametrize("route", ["cluster", "block"])
+def test_lstm_state_views_at_any_offset(gen, route):
+    """f32 h0/c0 views that start 4 bytes past a 16-byte boundary run on
+    both routes and give the result of their aligned copies."""
+    x, rw, peep, h0, c0 = _lstm_inputs(gen, 17, 5, 64, torch.bfloat16, True)
+    kernel = {"cluster": fl.lstm_seq_cluster, "block": fl.lstm_seq_block}
+    views = []
+    for v in (h0, c0):
+        flat = torch.empty(1 + v.numel(), device="cuda")
+        flat[1:] = v.float().flatten()
+        views.append(flat[1:].view(v.shape))
+        assert views[-1].data_ptr() % 16
+    got = kernel[route](x, rw, peep, *views)
+    want = kernel[route](x, rw, peep, h0.float(), c0.float())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_lstm_cluster_graph_replay_equals_eager(gen, dtype):
+    """A CUDA graph captured around the cluster kernel replays to the
+    bits of an eager launch on the same inputs."""
+    ins = _lstm_inputs(gen, 133, 9, 256, dtype, True)
+    eager = fl.lstm_seq_cluster(*ins)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fl.lstm_seq_cluster(*ins)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fl.lstm_seq_cluster(*ins)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
 
 
 # ------------------------------------------------- compiled steps (graphs)
