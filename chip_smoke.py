@@ -17,10 +17,12 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --k3-times ROOT  # only time the K3 reductions of
                                            # the port checked out at ROOT
     python3 chip_smoke.py --flash-times ROOT  # only time K1, dQ and dK/dV at
-                                             # D 256 (bf16 and f32), profile
-                                             # the D 256 LM steps and digest
-                                             # K1's, the backward's and K2's
-                                             # outputs of the port at ROOT
+                                             # D 256 and K1 at D 320 and 512
+                                             # (bf16 and f32), profile the
+                                             # D 256 and D 320 LM steps and
+                                             # digest K1's, the backward's
+                                             # and K2's outputs of the port
+                                             # at ROOT
 
 Phases, each fatal on failure:
 
@@ -32,15 +34,19 @@ Phases, each fatal on failure:
    zeros), then at head dim 320 (2 heads, past the old limit of 256); a
    second launch bit for bit equal; device time of both passes
    (``torch.profiler``) with a call timed by CUDA events beside it;
-3. K1 (causal flash forward; bf16 on the tensor-core kernel up to D 256,
-   f32 on the CUDA-core one up to 128 and in split TF32 on the tensor
-   cores at 129-256, every other head dim on the general CUDA-core
-   kernel) against ``mha_reference``, O and lse, at T 1024/2048, at head
-   dim 80 (padded to 128 inside the kernel) in both dtypes, at the train
-   path's B32 T1024 bf16, at D 160 and 256 in bf16 (padded to 256 on the
-   tensor cores), at D 130, 160, 200 and 256 in f32 (split TF32), D 12
-   bf16 and 320 in both dtypes (general), and at the D 256 LM's B8 H2
-   T1024 in both dtypes, plus the strided (B, T, H, D) layout the
+3. K1 (causal flash forward; bf16 on the tensor-core kernel up to D 256
+   and on its two-warpgroup wide kernel at 264-512, f32 on the CUDA-core
+   one up to 128, in split TF32 on the tensor cores at 129-256 and on the
+   wide split-TF32 kernel (warp pairs that split O's columns) at
+   257-512, every other head dim on the general CUDA-core kernel)
+   against ``mha_reference``, O and lse, at T 1024/2048, at head dim 80
+   (padded to 128 inside the kernel) in both dtypes, at the train path's
+   B32 T1024 bf16, at D 160 and 256 in bf16 (padded to 256 on the tensor
+   cores), at D 130, 160, 200 and 256 in f32 (split TF32), at D 264, 320,
+   328, 384, 392 and 512 in both dtypes (wide, padded to 384 and 512, f32
+   also 320), D 12
+   bf16 and 520 in both dtypes (general), and at the D 256 and D 320 LMs'
+   B8 H2 T1024 in both dtypes, plus the strided (B, T, H, D) layout the
    transformer uses; the kernel family ``route`` names must run; a second
    launch bit for bit equal; ``F.scaled_dot_product_attention`` timed as
    a yardstick only;
@@ -50,11 +56,12 @@ Phases, each fatal on failure:
    (B, T, H, D) views of one qkv buffer, at B1 H8 D64 T 1024/2048/4096
    bf16, T 2048 f32, T 200 causal and T 256 non-causal, head dim 80 in
    both dtypes, the train path's B32 T1024 bf16, causal and non-causal,
-   phase 3's head dims past 128 (and D 12), causal, the two-warpgroup
+   phase 3's head dims past 128 (and D 12; D 320, 512 and 520 on the
+   general kernels), causal, the two-warpgroup
    dQ at bf16 D 136, 160, 200 and 256, T 200, causal and not, and D 256
    T 1024 non-causal, the split-TF32 dQ and dK/dV at f32 D 130, 160, 200
-   and 256, T 200, causal and not, and both D 256 LM shapes (B8 H2 T1024,
-   bf16 and f32);
+   and 256, T 200, causal and not, and the D 256 and D 320 LM shapes (B8
+   H2 T1024, bf16 and f32);
    a second launch of each bit for bit equal; the autograd Function's
    grads against autograd through ``mha_reference``; dQ's and dK/dV's
    device times against their bounds (the split-TF32 kernels' at the TF32
@@ -82,6 +89,13 @@ Phases, each fatal on failure:
    wall and device ms), replayed beside eager; one K1 prefill and one K2
    decode step must match the plain path (kernels off) with KL <= 1e-3
    per row;
+4b. an LM of head dim 320 (d_model 640, 2 heads, 2 layers, max_seq 2048,
+   seeded random weights) served the same two ways: a dense wave (4
+   slots) and a paged wave (4 slots, page_len 16), prompts of 1024-1500
+   tokens, 32 new tokens; tokens identical replayed and eager, 0
+   retraces after warm, every dense prefill launching K1 on the bf16 wide
+   kernel once a layer (counted from the captures), K2 at Dh 320 in the
+   paged decode, one K1 prefill against the plain arm with KL <= 1e-3;
 6. the training path at full width: the 120M LM of ``bench.py``'s
    ``transformer`` row (T 1024, bf16, fused loss, remat "save_attn"),
    batch 32 of seeded random ids, trained by ``make_train_step`` with
@@ -105,8 +119,11 @@ Phases, each fatal on failure:
    layers, batch 8) for three steps (eager, capture, replay), K1 (4
    launches), dQ (2) and dK/dV (2) on the tensor cores padded to 256,
    and once more in f32, K1, dQ and dK/dV in split TF32 on the tensor
-   cores, each held to the same bars (each its own path: counts set to
-   0 just before it);
+   cores; then the LM of head dim 320 (d_model 640, 2 heads, 2 layers,
+   batch 8) in bf16 and in f32, K1 on its wide kernels (4 launches a
+   step) and dQ and dK/dV on the general ones (2 each), each profiled for
+   its device ms a step and the flash kernels' share; each held to the
+   same bars (each its own path: counts set to 0 just before it);
 7. the fused BatchNorm+activation kernels (K3: normalize+act, stats,
    backward reduce, backward dx) against their plain versions at all
    nine (N, C) shapes a ResNet-50 BN gives them at batch 128, relu and
@@ -241,14 +258,24 @@ K3_EPILOGUE_RTOL = 1e-6                  # mean/var/inv from the same sums
 # (dtype, B, T, D) past the fast kernels' D 128 and a bf16 D that is not
 # a multiple of 8 (H 8): bf16 D 160 and 256 run K1, dQ and dK/dV padded to
 # 256 on the tensor cores; f32 D 130-256 run all three in split TF32 (D
-# 130: rows of whole elements, not 16-byte chunks); every other one runs
-# the head-dim-general kernels at 64, 32 and 16 tile rows (D 320 in both
-# dtypes, so that the general kernels stay held)
+# 130: rows of whole elements, not 16-byte chunks); D 320 and 512 run K1
+# on its wide kernels (bf16 two warpgroups, f32 split TF32 on warp pairs;
+# padded to 384 and 512) and dQ and dK/dV on the head-dim-general kernels;
+# bf16 D 12 and D 520 (past the wide kernels) run all three general (64,
+# 32, 16 and 8 tile rows), so that the general K1 stays held
 WIDE_SHAPES = ((torch.bfloat16, 2, 1024, 12),
                (torch.bfloat16, 1, 1024, 160), (torch.float32, 1, 1024, 130),
                (torch.float32, 1, 1024, 160), (torch.float32, 1, 1024, 200),
                (torch.bfloat16, 1, 1024, 256), (torch.float32, 1, 1024, 256),
-               (torch.bfloat16, 1, 1024, 320), (torch.float32, 1, 1024, 320))
+               (torch.bfloat16, 1, 1024, 320), (torch.float32, 1, 1024, 320),
+               (torch.bfloat16, 1, 1024, 512), (torch.float32, 1, 1024, 512),
+               (torch.bfloat16, 1, 1024, 520), (torch.float32, 1, 1024, 520))
+# K1's wide kernels at every padded width's edges, K1 only (dtype, B, T,
+# D): D 264, 328 and 384 (bf16 padded to 384; f32 264 to 320, 328 and 384
+# to 384) and 392 (to 512), T 200 (a ragged last tile); with WIDE_SHAPES
+# and the D 320 LM every held D in 264-512
+WIDE_K1_SHAPES = tuple((dt, 2, 200, d) for d in (264, 328, 384, 392)
+                       for dt in (torch.bfloat16, torch.float32))
 # the two-warpgroup dQ's own holds (bf16, B, T, causal, D): T 200 (a ragged
 # last tile) at every padded-256 width, causal and not, and B1 T1024 D256
 # non-causal (the causal one is in WIDE_SHAPES)
@@ -264,17 +291,25 @@ TF32_BWD_SHAPES = tuple((torch.float32, 2, 200, c, d)
 D256_LM = (torch.bfloat16, 8, 1024, 256)
 D256_LM_F32 = (torch.float32, 8, 1024, 256)
 D256_LM_HEADS = 2
+# the LM of head dim 320 (d_model 640, 2 heads; phase 4b serves it, phase
+# 6's train_d320 and train_d320_f32 train it): K1 at B8 H2 T1024 D320 on
+# its wide kernels, dQ and dK/dV general
+D320_LM = (torch.bfloat16, 8, 1024, 320)
+D320_LM_F32 = (torch.float32, 8, 1024, 320)
+D320_D_MODEL = 640
 # the phase 3/3b shapes whose times the kernels line and PERF.md's kernel
 # table report (every other shape is held, not timed): a dense prefill's
 # and the train path's, padded 256 and split TF32 at B1 H8 T1024 D256,
-# the f32 CUDA-core kernels at T2048 D64, the general ones at D 320 (the
-# D 256 LM's B8 H2 shapes are always timed)
+# the f32 CUDA-core kernels at T2048 D64, the wide K1 kernels at D 320 and
+# 512, the general backward at D 320, the general K1 at D 520 (the D 256
+# and D 320 LMs' B8 H2 shapes are always timed)
 TIMED_K1 = {(torch.bfloat16, 1, 2048, 64), (torch.bfloat16, 32, 1024, 64),
             (torch.bfloat16, 1, 1024, 256), (torch.float32, 1, 1024, 256),
             (torch.float32, 1, 2048, 64), (torch.float32, 1, 1024, 320),
-            (torch.bfloat16, 1, 1024, 320)}
+            (torch.bfloat16, 1, 1024, 320), (torch.float32, 1, 1024, 512),
+            (torch.bfloat16, 1, 1024, 512), (torch.float32, 1, 1024, 520)}
 TIMED_BWD = {(dt, b, t, True, d) for dt, b, t, d in TIMED_K1 - {
-    (torch.bfloat16, 1, 2048, 64)}}
+    (torch.bfloat16, 1, 2048, 64)} if d <= 320}
 RESNET_BATCH = 128
 RESNET_HW = 224
 # every (H = W, C) a BN of ResNet-50 at 224x224 hands K3 (N = batch*H*W):
@@ -580,7 +615,7 @@ def check_flash(fa, dtype, b, t, gen, h=8, d=64, time_it=True):
     flops = 4 * b * h * d * t * (t + 1) // 2
     bms, by = bound_ms(nbytes, flops, dtype)
     extra = {}
-    if fa.route(d, dtype, "fwd") == "tf32x3":
+    if fa.route(d, dtype, "fwd") in ("tf32x3", "tf32x3-wide"):
         # the operations it issues: three TF32 products per f32 product;
         # the f32 CUDA-core bound stays beside it
         extra["ffma_bound_ms"] = bms
@@ -771,6 +806,7 @@ def serve(sched, prompts, n_new):
 def serving_counts(fa, pa):
     return {"flash_attention_fwd": fa.LAUNCHES,
             "flash_attention_fwd_tc": fa.LAUNCHES_TC,
+            "flash_attention_fwd_tc_wide": fa.LAUNCHES_TC_WIDE,
             "paged_attention": pa.LAUNCHES}
 
 
@@ -816,16 +852,17 @@ def compile_summary(engine):
             for n, r in engine.compile_report().items() if r["compiles"]}
 
 
-def serve_ways(fa, pa, cfg, params, waves, n_new, profile=False):
+def serve_ways(fa, pa, cfg, params, waves, n_new, profile=False,
+               sweeps=True):
     """Phase 4's two ways over every path in ``waves`` (path → scheduler
     keywords, prompts): ``replayed`` (graphs) and ``eager``
     (``disable_graphs()``), each on its own engine. Per way: one
     scheduler a path; a warm wave of each path with the timed wave's
     prompt lengths (every signature the timed wave reaches); then
     ``mark_warm()``; then each path's timed wave, its launch counts set
-    to 0 just before it and read just after (from the captures); then
-    each path's steady sweeps (:func:`steady_sweeps`) and, on a fresh
-    engine, one chunk (:func:`chunk_split`)."""
+    to 0 just before it and read just after (from the captures); then,
+    with ``sweeps``, each path's steady sweeps (:func:`steady_sweeps`)
+    and, on a fresh engine, one chunk (:func:`chunk_split`)."""
     from deeplearning4j_tpu_torch import disable_graphs
     from deeplearning4j_tpu_torch.serving import (
         ContinuousBatchingScheduler, GenerationEngine)
@@ -854,15 +891,97 @@ def serve_ways(fa, pa, cfg, params, waves, n_new, profile=False):
                     / 2**30
                 rec[path] = {"wave": res, "tokens": tokens,
                              "launches": dict(counts.total),
-                             "wrapper_launches": serving_counts(fa, pa),
-                             "sweep": steady_sweeps(scheds[path], 600,
-                                                    profile=profile)}
+                             "wrapper_launches": serving_counts(fa, pa)}
+                if sweeps:
+                    rec[path]["sweep"] = steady_sweeps(scheds[path], 600,
+                                                       profile=profile)
             rec["compiles"] = compile_summary(engine)
-            rec["chunk"] = chunk_split(GenerationEngine(cfg, params))
+            if sweeps:
+                rec["chunk"] = chunk_split(GenerationEngine(cfg, params))
         del engine, scheds, counts
         gc.collect()                  # the graphs go with their engine
         torch.cuda.empty_cache()
     return out
+
+
+def serve_checked(fa, pa, cfg, params, waves, n_new, tag, k1_key,
+                  profile=False, sweeps=True):
+    """:func:`serve_ways` over ``waves`` and phase 4's holds: every
+    request's tokens identical replayed and eager, 0 retraces after warm,
+    K1 launched once a layer in every dense prefill whose bucket reaches
+    ``flash_min_seq``, each launch on the family whose count is
+    ``k1_key`` (a :func:`serving_counts` key), and K2 in the paged path.
+    Returns path → the replayed timed wave's launch counts."""
+    from deeplearning4j_tpu_torch.serving import GenerationEngine
+    ways = serve_ways(fa, pa, cfg, params, waves, n_new, profile=profile,
+                      sweeps=sweeps)
+    rep, eag = ways["replayed"], ways["eager"]
+    buckets = GenerationEngine(cfg, params).prefill_buckets
+    failed = []
+    by_path = {}
+    for path, (_, prompts) in waves.items():
+        r, e = rep[path], eag[path]
+        by_path[path] = r["launches"]
+        # every dense prefill whose bucket reaches flash_min_seq runs K1
+        # once a layer, on the tensor cores (bf16); paged prefills in
+        # chunks of 128 never do
+        flash_prefills = sum(
+            next(bk for bk in buckets if bk >= len(p)) >= cfg.flash_min_seq
+            for p in prompts) if path == "dense" else 0
+        want = cfg.n_layers * flash_prefills
+        same = [bool(np.array_equal(a, b))
+                for a, b in zip(r["tokens"], e["tokens"])]
+        for way, w in (("replayed", r), ("eager", e)):
+            got = w["launches"]
+            log(f"{tag} {path} {way} ({waves[path][0]}, prompts "
+                f"{min(map(len, prompts))}-{max(map(len, prompts))}, "
+                f"{n_new} new, D{cfg.head_dim}): {json.dumps(w['wave'])}; "
+                f"launches (captures' counts) {json.dumps(got)}, wrappers' "
+                f"own {json.dumps(w['wrapper_launches'])}"
+                + (f"; steady sweeps {json.dumps(w['sweep'])}"
+                   if sweeps else ""))
+            if got.get(k1_key, 0) != want \
+                    or got.get("flash_attention_fwd", 0) != want:
+                failed.append(f"{path} {way}: {got} K1 launches, want "
+                              f"{cfg.n_layers} ({k1_key}) in each of "
+                              f"{flash_prefills} prefills >= "
+                              f"{cfg.flash_min_seq} tokens")
+        log(f"{tag} {path}: tokens identical replayed and eager for "
+            f"{sum(same)} of {len(same)} requests")
+        if not all(same):
+            failed.append(f"{path}: replayed tokens differ from eager")
+    for way, w in ways.items():
+        retr = sum(c[2] for c in w["compiles"].values())
+        log(f"{tag} serving {way}: compile report [compiles, signatures, "
+            f"retraces after warm] {json.dumps(w['compiles'])}"
+            + (f"; one 128-token chunk {json.dumps(w['chunk'])}"
+               if sweeps else ""))
+        if retr:
+            failed.append(f"{way}: {retr} retraces after warm")
+    # K1 runs in the dense path's prefills (buckets >= 1024), K2 in the
+    # paged path's decode sweeps
+    for path, name in (("dense", "flash_attention_fwd"),
+                       ("paged", "paged_attention")):
+        if by_path[path].get(name, 0) <= 0:
+            failed.append(f"kernel {name} was not launched on the {path} "
+                          "main path")
+    if failed:
+        raise SystemExit(f"{tag} serving: {failed}")
+    return by_path
+
+
+def prefill_kl(cfg, params, prompt):
+    """One dense prefill (``prefill_slot``) of ``prompt`` through K1 and
+    through the plain attention arm (kernel off, f32 scores): per-row
+    KL(plain || kernel) and both logits."""
+    from deeplearning4j_tpu_torch.serving import GenerationEngine
+    engine = GenerationEngine(cfg, params)
+    plain_cfg = dataclasses.replace(cfg, use_flash_attention=False,
+                                    attn_scores_bf16=False)
+    plain_eng = GenerationEngine(plain_cfg, params)
+    lk, _ = engine.prefill_slot(engine.init_cache(1), prompt, 0)
+    lp, _ = plain_eng.prefill_slot(plain_eng.init_cache(1), prompt, 0)
+    return kl_rows(lp[None], lk[None]), lk, lp
 
 
 def main_path(fa, pa, profile=False):
@@ -883,66 +1002,11 @@ def main_path(fa, pa, profile=False):
     n_new = 32
     waves = {"dense": ({"n_slots": 4}, dense_prompts),
              "paged": ({"n_slots": 8, "page_len": 16}, paged_prompts)}
-    ways = serve_ways(fa, pa, cfg, params, waves, n_new, profile=profile)
-    rep, eag = ways["replayed"], ways["eager"]
-    buckets = GenerationEngine(cfg, params).prefill_buckets
-    failed = []
-    by_path = {}
-    for path, (_, prompts) in waves.items():
-        r, e = rep[path], eag[path]
-        by_path[path] = r["launches"]
-        # every dense prefill whose bucket reaches flash_min_seq runs K1
-        # once a layer, on the tensor cores (bf16); paged prefills in
-        # chunks of 128 never do
-        flash_prefills = sum(
-            next(bk for bk in buckets if bk >= len(p)) >= cfg.flash_min_seq
-            for p in prompts) if path == "dense" else 0
-        want = cfg.n_layers * flash_prefills
-        same = [bool(np.array_equal(a, b))
-                for a, b in zip(r["tokens"], e["tokens"])]
-        for way, w in (("replayed", r), ("eager", e)):
-            got = w["launches"]
-            log(f"main path {path} {way} ({waves[path][0]}, prompts "
-                f"{min(map(len, prompts))}-{max(map(len, prompts))}, "
-                f"{n_new} new): {json.dumps(w['wave'])}; launches "
-                f"(captures' counts) {json.dumps(got)}, wrappers' own "
-                f"{json.dumps(w['wrapper_launches'])}; steady sweeps "
-                f"{json.dumps(w['sweep'])}")
-            if got.get("flash_attention_fwd_tc", 0) != want \
-                    or got.get("flash_attention_fwd", 0) != want:
-                failed.append(f"{path} {way}: {got} K1 launches, want "
-                              f"{cfg.n_layers} in each of {flash_prefills} "
-                              f"prefills >= {cfg.flash_min_seq} tokens")
-        log(f"main path {path}: tokens identical replayed and eager for "
-            f"{sum(same)} of {len(same)} requests")
-        if not all(same):
-            failed.append(f"{path}: replayed tokens differ from eager")
-    for way, w in ways.items():
-        retr = sum(c[2] for c in w["compiles"].values())
-        log(f"serving {way}: compile report [compiles, signatures, "
-            f"retraces after warm] {json.dumps(w['compiles'])}; one "
-            f"128-token chunk {json.dumps(w['chunk'])}")
-        if retr:
-            failed.append(f"{way}: {retr} retraces after warm")
-    # K1 runs in the dense path's prefills (buckets >= 1024), K2 in the
-    # paged path's decode sweeps
-    for path, name in (("dense", "flash_attention_fwd"),
-                       ("paged", "paged_attention")):
-        if by_path[path].get(name, 0) <= 0:
-            failed.append(f"kernel {name} was not launched on the {path} "
-                          "main path")
-    if failed:
-        raise SystemExit(f"serving: {failed}")
+    by_path = serve_checked(fa, pa, cfg, params, waves, n_new, "main path",
+                            "flash_attention_fwd_tc", profile=profile)
 
     # K1 prefill vs the plain attention arm (kernel off, f32 scores)
-    engine = GenerationEngine(cfg, params)
-    plain_cfg = dataclasses.replace(cfg, use_flash_attention=False,
-                                    attn_scores_bf16=False)
-    plain_eng = GenerationEngine(plain_cfg, params)
-    prompt = dense_prompts[-1]                 # 1500 → bucket 2048
-    lk, _ = engine.prefill_slot(engine.init_cache(1), prompt, 0)
-    lp, _ = plain_eng.prefill_slot(plain_eng.init_cache(1), prompt, 0)
-    kl1 = kl_rows(lp[None], lk[None])
+    kl1, lk, lp = prefill_kl(cfg, params, dense_prompts[-1])  # → 2048
     # K2 decode step vs the gather path on identical paged caches
     on = GenerationEngine(cfg, params, paged_kernel="on")
     off = GenerationEngine(cfg, params, paged_kernel="off")
@@ -968,9 +1032,46 @@ def main_path(fa, pa, profile=False):
         f"{(l_on.argmax(-1) == l_off.argmax(-1)).float().mean().item():.3f}")
     if not finite or kl1.max().item() > MAX_KL or kl2.max().item() > MAX_KL:
         raise SystemExit("full-width logits disagree with the plain path")
-    del engine, plain_eng, on, off, cache, twin
+    del on, off, cache, twin
     torch.cuda.empty_cache()
     return by_path
+
+
+def serve_d320(fa, pa):
+    """Phase 4b: the LM of head dim 320 (d_model 640, 2 heads, 2 layers,
+    d_ff 2560, max_seq 2048; seeded random weights) served through the
+    scheduler as phase 4 serves the 120M LM, replayed and eager: a dense
+    wave of 4 slots and a paged wave of 4 slots (page_len 16), prompts of
+    1024-1500 tokens, 32 new tokens. Every dense prefill launches K1 on
+    the bf16 wide kernel once a layer; the paged decode runs K2 at Dh
+    320; one K1 prefill against the plain arm, per-row KL <= 1e-3.
+    Returns the replayed waves' launch counts by path."""
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg = tfm.TransformerConfig(vocab_size=32000, d_model=D320_D_MODEL,
+                                n_heads=2, n_layers=2,
+                                d_ff=4 * D320_D_MODEL, max_seq=2048,
+                                dtype=torch.bfloat16, remat=False)
+    assert cfg.head_dim == D320_LM[3]
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(3)
+    # two prompts in each prefill bucket (1024 and 2048), so that the
+    # warm wave reaches every signature's capture, as phase 4's does
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (1024, 1024, 1350, 1500)]
+    waves = {"dense": ({"n_slots": 4}, prompts),
+             "paged": ({"n_slots": 4, "page_len": 16}, prompts)}
+    by_path = serve_checked(fa, pa, cfg, params, waves, 32, "serve D320",
+                            "flash_attention_fwd_tc_wide", sweeps=False)
+    kl, lk, lp = prefill_kl(cfg, params, prompts[-1])
+    finite = bool(torch.isfinite(lk).all())
+    log(f"serve D320: KL(plain || kernel) of a K1 prefill (1500 tokens) "
+        f"{kl.max().item():.3e} (limit {MAX_KL}); argmax agree "
+        f"{bool(lk.argmax() == lp.argmax())}")
+    if not finite or not kl.max().item() <= MAX_KL:
+        raise SystemExit("serve D320: K1 prefill disagrees with the plain "
+                         "path")
+    torch.cuda.empty_cache()
+    return {f"serve_d320_{p}": c for p, c in by_path.items()}
 
 
 # ---------------------------------------------------------------- phase 6
@@ -982,11 +1083,12 @@ def _named_leaves(tree, prefix=""):
     return [(prefix, tree)]
 
 
-def lm_setup(tfm, batch, n_heads, n_layers, dtype):
+def lm_setup(tfm, batch, n_heads, n_layers, dtype, d_model=512):
     """The LM of ``bench.py``'s transformer row (bench.py:594-598; T 1024,
-    d_model 512) at the given heads, depth and compute dtype: its config,
+    d_model 512) at the given heads, depth, compute dtype and width
+    (``d_model`` 640 at 2 heads: the LM of head dim 320): its config,
     params from seed 0 and one batch of seeded ids and targets."""
-    cfg = tfm.TransformerConfig(vocab_size=32000, d_model=512,
+    cfg = tfm.TransformerConfig(vocab_size=32000, d_model=d_model,
                                 n_heads=n_heads, n_layers=n_layers,
                                 d_ff=2048, max_seq=1024,
                                 dtype=dtype, fused_loss=True,
@@ -1005,7 +1107,8 @@ def lm_setup(tfm, batch, n_heads, n_layers, dtype):
 FLASH_NAMES = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
                "dkv": "flash_attention_bwd_dkv"}
 FAMILY_KEYS = {"wgmma": "tc", "cuda-core": "cuda_core", "tf32x3": "tf32x3",
-               "general": "general"}
+               "general": "general", "wgmma-wide": "tc_wide",
+               "tf32x3-wide": "tf32x3_wide"}
 # the TPU kernel each replaces: deeplearning4j_tpu/kernels/flash_attention.py
 FLASH_LINES = {"fwd": 51, "dq": 146, "dkv": 186}
 
@@ -1025,10 +1128,11 @@ def flash_counts(fa):
 
 def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
                n_layers=8, tag="train", dtype=torch.bfloat16,
-               foreach_adamw=False):
+               foreach_adamw=False, d_model=512):
     """The LM of ``bench.py``'s transformer row trained at full width (T
-    1024, d_model 512; ``n_heads``, ``n_layers`` and the compute dtype as
-    given) from identical params on one batch, three ways: the kernel
+    1024, d_model 512; ``n_heads``, ``n_layers``, the compute dtype and
+    ``d_model`` as given) from identical params on one batch, three ways:
+    the kernel
     path with its step replayed from a CUDA graph (the main path), the
     kernel path eager (``disable_graphs()``), and the plain path (eager),
     each with ``LM_ADAMW``. ``foreach_adamw`` adds a fourth: the kernel
@@ -1036,7 +1140,8 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
     from deeplearning4j_tpu_torch import disable_graphs
     from deeplearning4j_tpu_torch.zoo import transformer as tfm
 
-    cfg, init, ids, tgt = lm_setup(tfm, batch, n_heads, n_layers, dtype)
+    cfg, init, ids, tgt = lm_setup(tfm, batch, n_heads, n_layers, dtype,
+                                   d_model)
     plain_cfg = dataclasses.replace(cfg, use_flash_attention=False,
                                     attn_scores_bf16=False)
     tokens = batch * cfg.max_seq
@@ -1221,11 +1326,13 @@ def way_summary(kinds, step_s, items, unit, peak_gib):
 
 
 def add_profile(rec, prof):
-    """Put a profiled step's device ms (and K4's, where counted) beside a
-    run's wall ms a step (busy share = device ms / wall ms)."""
+    """Put a profiled step's device ms (and K4's, where counted; and the
+    flash kernels', where they ran) beside a run's wall ms a step (busy
+    share = device ms / wall ms)."""
     rec["device_ms_per_step"] = prof["device_ms_per_step"]
     rec["busy_share"] = prof["device_ms_per_step"] / rec["wall_ms_per_step"]
-    for key in ("k4_device_ms", "k4_share_of_device"):
+    for key in ("k4_device_ms", "k4_share_of_device", "flash_device_ms",
+                "flash_share_of_device", "flash_kernels_ms"):
         if key in prof:
             rec[key] = prof[key]
 
@@ -1237,11 +1344,26 @@ def k4_device_ms(prof):
                and any(n in ev.key for n in K4_KERNEL_NAMES)) / 1e3
 
 
+def flash_kernel_ms(prof, steps=1):
+    """Device ms a step of each flash kernel (every kernel named
+    ``flash_*_kernel``, by name and template arguments) and their
+    launches a step, in a ``torch.profiler`` run of ``steps`` steps."""
+    flash = {}
+    for ev in prof.key_averages():
+        name = re.search(r"flash_\w+_kernel(<[^>]*>)?", ev.key)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and name:
+            us, n = flash.get(name[0], (0.0, 0))
+            flash[name[0]] = (us + _self_device_us(ev), n + ev.count)
+    return {k: {"ms_per_step": us / 1e3 / steps, "calls_per_step": n / steps}
+            for k, (us, n) in flash.items()}
+
+
 def profile_step(fn, k4=False):
     """One call of ``fn`` under ``torch.profiler``: wall and device ms
     (kernels and copies, graph replays' included), busy share, top
-    kernels; with ``k4`` also K4's device ms and share of the device
-    time."""
+    kernels, the flash kernels' device ms by kernel and their share of
+    the device time where any ran; with ``k4`` also K4's device ms and
+    share of the device time."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1251,6 +1373,13 @@ def profile_step(fn, k4=False):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     out = device_rows(prof, wall, 1)
+    flash = flash_kernel_ms(prof)
+    if flash:
+        out["flash_kernels_ms"] = {k: v["ms_per_step"]
+                                   for k, v in flash.items()}
+        out["flash_device_ms"] = sum(out["flash_kernels_ms"].values())
+        out["flash_share_of_device"] = (out["flash_device_ms"]
+                                        / out["device_ms_per_step"])
     if k4:
         out["k4_device_ms"] = k4_device_ms(prof)
         out["k4_share_of_device"] = (out["k4_device_ms"]
@@ -1506,11 +1635,14 @@ def k3_times(root):
 def flash_times(root):
     """``--flash-times ROOT``: the device time (``torch.profiler``) and a
     call's time by events of K1, dQ and dK/dV, causal at B1 H8 T1024 D256
-    and the D 256 LM's B8 H2 T1024 D256, in bf16 and in f32, for the port
-    checked out at ROOT (its kernels build under ROOT), on the kernel
-    family its route picks there; the D 256 LM's train step (phase 6's
-    ``train_d256`` and ``train_d256_f32``) profiled on ROOT's port in
-    each dtype: device time a step and its flash kernels' share; then
+    and the D 256 LM's B8 H2 T1024 D256, and of K1 alone at B1 H8 T1024
+    D320 and D512 and the D 320 LM's B8 H2 T1024 D320, in bf16 and in f32,
+    for the port checked out at ROOT (its kernels build under ROOT), on
+    the kernel family its route picks there (a tree before the wide
+    kernels runs the general K1 past 256); the D 256 and D 320 LMs' train
+    steps (phase 6's ``train_d256``, ``train_d320`` and their f32 twins)
+    profiled on ROOT's port in each dtype: device time a step and its
+    flash kernels' share; then
     digests of K1's outputs (O, lse) on every route and of the backward's
     (dQ, dK, dV), keyed by the route each ran, at B1 H2 T256 on seeded
     inputs, and of K2's outputs at Dh 64, 128 and 256 in bf16 and f32, so
@@ -1551,12 +1683,27 @@ def flash_times(root):
             rows.append(row)
             del q, k, v, do, o, lse, delta
             torch.cuda.empty_cache()
+        for b, h, d in ((1, 8, 320), (1, 8, 512), (D320_LM[1], 2, 320)):
+            q, k, v = (torch.randn((b, h, 1024, d), generator=gen,
+                                   device="cuda").to(dtype)
+                       for _ in range(3))
+            fn = lambda: fa.flash_attention_lse(q, k, v, causal=True)
+            row = {"shape": f"B{b} H{h} T1024 D{d} {str(dtype)[6:]} causal",
+                   "fwd": {"route": fa.route(d, dtype, "fwd"),
+                           "ms": device_ms(fn), "call_ms": cuda_ms(fn)}}
+            log(f"flash-times {json.dumps(row)}")
+            rows.append(row)
+            del q, k, v
+            torch.cuda.empty_cache()
     steps = {}
     for dtype in (torch.bfloat16, torch.float32):
-        key = str(dtype)[6:]
-        steps[key] = lm_step_times(tfm, D256_LM[1], D256_LM_HEADS, 2, dtype)
-        log(f"flash-times D 256 LM step {json.dumps(steps[key])}")
-        torch.cuda.empty_cache()
+        for d_model, heads, lm in ((512, D256_LM_HEADS, "d256"),
+                                   (D320_D_MODEL, 2, "d320")):
+            key = f"{lm} {str(dtype)[6:]}"
+            steps[key] = lm_step_times(tfm, D256_LM[1], heads, 2, dtype,
+                                       d_model=d_model)
+            log(f"flash-times {lm} LM step {json.dumps(steps[key])}")
+            torch.cuda.empty_cache()
     def digest(*ts):
         h = hashlib.sha256()
         for x in ts:
@@ -1565,9 +1712,9 @@ def flash_times(root):
 
     digests = {}
     for dtype, d in ((torch.bfloat16, 64), (torch.bfloat16, 256),
-                     (torch.bfloat16, 12), (torch.float32, 64),
-                     (torch.float32, 130), (torch.float32, 256),
-                     (torch.float32, 320)):
+                     (torch.bfloat16, 12), (torch.bfloat16, 320),
+                     (torch.float32, 64), (torch.float32, 130),
+                     (torch.float32, 256), (torch.float32, 320)):
         g2 = torch.Generator(device="cuda").manual_seed(d)
         q, k, v, do = (torch.randn((1, 2, 256, d), generator=g2,
                                    device="cuda").to(dtype)
@@ -1580,19 +1727,23 @@ def flash_times(root):
                                        True)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                             d ** -0.5, True)
-        digests[f"bwd {tag} {fa.route(d, dtype, 'dq')}"] = digest(dq, dk, dv)
+        # the backward reads K1's O (through delta) and lse: keyed by the
+        # forward's route too
+        digests[f"bwd {tag} {fa.route(d, dtype, 'dq')} (k1 "
+                f"{fa.route(d, dtype, 'fwd')})"] = digest(dq, dk, dv)
     for dtype in (torch.bfloat16, torch.float32):
         for dh in (64, 128, 256):
             g2 = torch.Generator(device="cuda").manual_seed(dh)
             q, k, v, table, pos = paged_inputs(g2, dtype, 4, dh, n_layers=1)
             out = pa.paged_attention(q, k[0], v[0], table.cuda(), pos.cuda())
             digests[f"k2 {str(dtype)[6:]} Dh{dh}"] = digest(out)
-    log(json.dumps({"flash_times": rows, "d256_lm_step": steps,
+    log(json.dumps({"flash_times": rows, "lm_steps": steps,
                     "digests": digests, "root": str(root)}))
     return 0
 
 
-def lm_step_times(tfm, batch, n_heads, n_layers, dtype, steps=5):
+def lm_step_times(tfm, batch, n_heads, n_layers, dtype, steps=5,
+                  d_model=512):
     """Device time a step of the LM's kernel-path train step in ``dtype``
     (AdamW as phase 6 builds it) under ``torch.profiler`` over ``steps``
     steps after two warm-up steps: all kernels and copies, and the flash
@@ -1604,7 +1755,8 @@ def lm_step_times(tfm, batch, n_heads, n_layers, dtype, steps=5):
     from torch.profiler import ProfilerActivity, profile
     pkg = importlib.import_module("deeplearning4j_tpu_torch")
     eager = getattr(pkg, "disable_graphs", contextlib.nullcontext)
-    cfg, params, ids, tgt = lm_setup(tfm, batch, n_heads, n_layers, dtype)
+    cfg, params, ids, tgt = lm_setup(tfm, batch, n_heads, n_layers, dtype,
+                                     d_model)
     opt = torch.optim.AdamW(tfm.param_leaves(params), lr=3e-4,
                             weight_decay=1e-4, capturable=True, **LM_ADAMW)
     step = tfm.make_train_step(cfg, opt)
@@ -1620,22 +1772,15 @@ def lm_step_times(tfm, batch, n_heads, n_layers, dtype, steps=5):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     rows = device_rows(prof, wall, steps)
-    flash = {}
-    for ev in prof.key_averages():
-        name = re.search(r"flash_\w+_kernel(<[^>]*>)?", ev.key)
-        if ev.device_type == torch.autograd.DeviceType.CUDA and name:
-            us, n = flash.get(name[0], (0.0, 0))
-            flash[name[0]] = (us + _self_device_us(ev), n + ev.count)
+    flash = flash_kernel_ms(prof, steps)
     return {"shape": f"B{batch} T{cfg.max_seq} H{n_heads} D{cfg.head_dim} "
                      f"{n_layers} layers {str(dtype)[6:]}",
             "steps": steps,
             "wall_ms_per_step": rows["wall_ms_per_step"],
             "device_ms_per_step": rows["device_ms_per_step"],
-            "flash_ms_per_step": sum(us for us, _ in flash.values())
-            / 1e3 / steps,
-            "flash_kernels": {k: {"ms_per_step": us / 1e3 / steps,
-                                  "calls_per_step": n / steps}
-                              for k, (us, n) in flash.items()}}
+            "flash_ms_per_step": sum(v["ms_per_step"]
+                                     for v in flash.values()),
+            "flash_kernels": flash}
 
 
 def k3_phase(fo, gen):
@@ -3273,11 +3418,11 @@ def main():
                     help="only time the K3 reductions of the port checked "
                          "out at ROOT (prints no result line)")
     ap.add_argument("--flash-times", metavar="ROOT",
-                    help="only time K1, dQ and dK/dV at head dim 256 in "
-                         "bf16 and f32, profile the D 256 LM's train steps "
-                         "and digest K1's, the backward's and K2's outputs, "
-                         "for the port checked out at ROOT (prints no "
-                         "result line)")
+                    help="only time K1, dQ and dK/dV at head dim 256 and "
+                         "K1 at 320 and 512 in bf16 and f32, profile the D "
+                         "256 and D 320 LMs' train steps and digest K1's, "
+                         "the backward's and K2's outputs, for the port "
+                         "checked out at ROOT (prints no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3327,11 +3472,11 @@ def main():
             (torch.float32, 1, 2048, 64), (torch.float32, 2, 2048, 64),
             (torch.bfloat16, 2, 1024, 80), (torch.float32, 2, 1024, 80),
             (torch.bfloat16, 32, 1024, 64),      # the train path's
-            *WIDE_SHAPES):
+            *WIDE_SHAPES, *WIDE_K1_SHAPES):
         k1[(dt, b, t, d)] = check_flash(
             fa, dt, b, t, gen, d=d, time_it=(dt, b, t, d) in TIMED_K1)
         torch.cuda.empty_cache()
-    for lm in (D256_LM, D256_LM_F32):
+    for lm in (D256_LM, D256_LM_F32, D320_LM, D320_LM_F32):
         k1[lm] = check_flash(fa, *lm[:3], gen, h=D256_LM_HEADS, d=lm[3])
         torch.cuda.empty_cache()
     bwd = {}
@@ -3356,7 +3501,9 @@ def main():
         torch.cuda.empty_cache()
     lm_bwd = (*D256_LM[:3], True, D256_LM[3])
     lm_bwd_f32 = (*D256_LM_F32[:3], True, D256_LM_F32[3])
-    for key in (lm_bwd, lm_bwd_f32):
+    lm320_bwd = (*D320_LM[:3], True, D320_LM[3])
+    lm320_bwd_f32 = (*D320_LM_F32[:3], True, D320_LM_F32[3])
+    for key in (lm_bwd, lm_bwd_f32, lm320_bwd, lm320_bwd_f32):
         bwd[key] = check_flash_bwd(fa, *key[:4], gen, h=D256_LM_HEADS,
                                    d=key[4])
         torch.cuda.empty_cache()
@@ -3369,6 +3516,8 @@ def main():
 
     by_path = main_path(fa, pa, profile=args.profile)
     mark("4 serving")
+    by_path.update(serve_d320(fa, pa))
+    mark("4b D320 serving")
     by_path["train"] = train_path(fa, pa, profile=args.profile_train,
                                   foreach_adamw=True)
     # an LM of head dim 256 (2 heads): three steps (eager, capture,
@@ -3381,6 +3530,15 @@ def main():
                                            n_heads=2, n_layers=2,
                                            tag="train D256 f32",
                                            dtype=torch.float32)
+    # the LM of head dim 320 (d_model 640, 2 heads): K1 on its wide
+    # kernels (bf16 two warpgroups, f32 split TF32 on warp pairs), dQ and
+    # dK/dV on the general ones; each its own path
+    for dt, key, tag in ((torch.bfloat16, "train_d320", "train D320"),
+                         (torch.float32, "train_d320_f32",
+                          "train D320 f32")):
+        by_path[key] = train_path(fa, pa, steps=3, batch=D320_LM[1],
+                                  n_heads=2, n_layers=2, tag=tag, dtype=dt,
+                                  d_model=D320_D_MODEL, profile=True)
     mark("6 LM training")
     by_path.update(resnet_path(fa, pa, fo, k3_checked,
                                profile=args.profile_resnet))
@@ -3440,16 +3598,17 @@ def main():
                 **({"max_active_clusters": r["max_active_clusters"]}
                    if route == "cluster" else {})}
     # the padded-256 kernels at B1 H8 T1024 D256 and the D 256 LM's, in
-    # bf16 (tensor cores) and f32 (split TF32); the f32 CUDA-core kernels
-    # at B1 H8 T2048 D64; the general kernels at a D they still serve
-    # (f32 D 320)
+    # bf16 (tensor cores) and f32 (split TF32); the wide K1 kernels at B1
+    # H8 T1024 D320 and the D 320 LM's (D 512 beside them); the f32
+    # CUDA-core kernels at B1 H8 T2048 D64; the general kernels at a D
+    # they still serve (K1 f32 D 520, dQ and dK/dV f32 D 320)
     d256 = (torch.bfloat16, 1, 1024, 256)
     wide_k1 = {"wgmma": k1[d256],
                "tf32x3": k1[(torch.float32, 1, 1024, 256)]}
     wide_k1_lm = {"wgmma": k1[D256_LM], "tf32x3": k1[D256_LM_F32]}
     f32_k1 = k1[(torch.float32, 1, 2048, 64)]
     f32_bwd = bwd[(torch.float32, 1, 2048, True, 64)]
-    gen_k1 = k1[(torch.float32, 1, 1024, 320)]
+    gen_k1 = k1[(torch.float32, 1, 1024, 520)]
     gen_bwd = bwd[(torch.float32, 1, 1024, True, 320)]
     tf32_bwd = bwd[(torch.float32, 1, 1024, True, 256)]
 
@@ -3475,10 +3634,11 @@ def main():
                                         "ffma_bound_ms") if key in r}
 
     def entry(kernel, kind, suffix, what, dtype, results, shape, main,
-              wide=None, lm=None):
+              wide=None, lm=None, more=None):
         """One flash kernel's line: launches by path, the largest error
         over every phase 3/3b shape it ran in ``dtype``, its times at
-        ``shape`` (``main``) and, where given, at a second path shape."""
+        ``shape`` (``main``) and, where given, at a second path shape
+        (``lm``) and at more shapes (``more``: label → result)."""
         name = FLASH_NAMES[kernel]
         part = None if kernel == "fwd" else kernel
         launches = launches_of(name, kind, wide)
@@ -3496,6 +3656,8 @@ def main():
              "shape": shape, **timed(main, part)}
         if lm is not None:
             e["lm_shape"] = {"shape": lm[0], **timed(lm[1], part)}
+        for label, r in (more or {}).items():
+            e[label] = timed(r, part)
         return e
 
     kernels = [
@@ -3511,12 +3673,25 @@ def main():
               "D 129-256, split-TF32 tensor-core products, padded D 256)",
               torch.float32, k1, "B1 H8 T1024 D256 f32", wide_k1["tf32x3"],
               lm=("B8 H2 T1024 D256 f32", wide_k1_lm["tf32x3"])),
+        entry("fwd", "wgmma-wide", "_wide", "flash_fwd_wgmma_kernel<384|512, "
+              "32> (bf16 D 264-512, two warpgroups that split O's "
+              "columns)", torch.bfloat16, k1, "B1 H8 T1024 D320 bf16",
+              k1[(torch.bfloat16, 1, 1024, 320)],
+              lm=("B8 H2 T1024 D320 bf16", k1[D320_LM]),
+              more={"d512": k1[(torch.bfloat16, 1, 1024, 512)]}),
+        entry("fwd", "tf32x3-wide", "_tf32x3_wide_f32",
+              "flash_fwd_tf32x3_wide_kernel<320|384, 64|512, 32> (f32 D "
+              "257-512, split-TF32 products on warp pairs that split O's "
+              "columns)", torch.float32, k1, "B1 H8 T1024 D320 f32",
+              k1[(torch.float32, 1, 1024, 320)],
+              lm=("B8 H2 T1024 D320 f32", k1[D320_LM_F32]),
+              more={"d512": k1[(torch.float32, 1, 1024, 512)]}),
         entry("fwd", "cuda-core", "_f32", "flash_fwd_kernel (f32 D <= 128, "
               "CUDA cores)", torch.float32, k1, "B1 H8 T2048 D64 f32",
               f32_k1),
         entry("fwd", "general", "_general_f32", "flash_fwd_general_kernel "
-              "(any D, CUDA cores)", torch.float32, k1,
-              "B1 H8 T1024 D320 f32", gen_k1),
+              "(D past 512, bf16 D % 8 != 0; CUDA cores)", torch.float32, k1,
+              "B1 H8 T1024 D520 f32", gen_k1),
     ]
     for part in ("dq", "dkv"):
         kernels += [
@@ -3539,7 +3714,10 @@ def main():
                   "B1 H8 T2048 D64 f32 causal", f32_bwd),
             entry(part, "general", "_general_f32", f"flash_bwd_{part}_"
                   "general_kernel (any D, CUDA cores)", torch.float32, bwd,
-                  "B1 H8 T1024 D320 f32 causal", gen_bwd),
+                  "B1 H8 T1024 D320 f32 causal", gen_bwd,
+                  lm=("B8 H2 T1024 D320 f32 causal", bwd[lm320_bwd_f32]),
+                  more={"bf16": bwd[(torch.bfloat16, 1, 1024, True, 320)],
+                        "lm_bf16": bwd[lm320_bwd]}),
         ]
     kernels += [
         {"name": "paged_attention", "route": "cuda",

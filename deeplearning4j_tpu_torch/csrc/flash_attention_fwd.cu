@@ -1,7 +1,8 @@
 // Causal flash-attention forward (K1) for Hopper (sm_90a), plain C
-// interface: a bf16 kernel on the tensor cores (warpgroup MMA), an f32
-// kernel on the CUDA cores up to D 128 and an f32 kernel of split-TF32
-// tensor-core products at D 129..256, chosen by dtype and head dim.
+// interface: a bf16 kernel on the tensor cores (warpgroup MMA; two
+// warpgroups past D 256), an f32 kernel on the CUDA cores up to D 128 and
+// an f32 kernel of split-TF32 tensor-core products at D 129..256 and its
+// column-split form at 257..512, chosen by dtype and head dim.
 //
 // Replaces the TPU kernel `_fwd_kernel` of
 // deeplearning4j_tpu/kernels/flash_attention.py (launched by `_fwd`):
@@ -40,6 +41,25 @@
 // never written; keys >= T are masked. (An mma.sync m16n8k16 kernel with
 // ldmatrix fragments measured 1.3x slower at the train shape; PERF.md.)
 //
+// bf16 past D 256 (the same kernel at padded 384 and 512): O is 64 x 384
+// or 64 x 512 f32, 192 or 256 accumulators a thread on one warpgroup,
+// past the 255 registers a thread may hold. So the block runs two
+// warpgroups on the same 64 rows, each holding one half of O's columns
+// (at most 128 accumulators a thread, as at 256), its P·V an m64n192k16
+// or m64n256k16 product over its half's 64-column panels of V. Each
+// warpgroup computes S = Q·Kᵀ over the whole D itself (design (b)) rather
+// than one computing it and posting bf16 P and the row rescale to the
+// other through shared memory (design (a), FlashMLA's): the two run the
+// same products on the same tiles, so their S, running max and row sums
+// agree bit for bit with no exchange and no barrier between them, at 1.5x
+// the products of one S; a step of 32 keys is short and the block far
+// from the tensor cores' rate, so the extra products cost less than a
+// round trip through shared memory and a barrier every step would. Q
+// stays resident and K and V stream in 32-key steps through two stages:
+// at 512, 64 + 2 x (32 + 32) KiB; at 384, 48 + 2 x (24 + 24) (64-key
+// steps would take 240 KiB there). A half starts on a 64-column panel,
+// so D 264..384 pads to 384 and 392..512 to 512.
+//
 // f32 up to D 128 (flash_fwd_kernel): the CUDA-core kernel of the first
 // port, two threads per query row, K/V tiles through shared memory as f32,
 // f32 FMAs. f32 at D 129..256 (flash_fwd_tf32x3_kernel): the tensor cores
@@ -53,18 +73,20 @@
 // bases and strides (the Python wrapper checks them and raises).
 //
 // Head dims: like the Pallas block (1, bq, d), any D whose tiles fit in a
-// block's shared memory. The bf16 kernel takes D up to 256 and the f32
+// block's shared memory. The bf16 kernel takes D up to 512 and the f32
 // CUDA-core kernel D up to 128 (bf16: a multiple of 8, 16-byte rows); each is
-// instantiated on the padded width DP in {16, 32, 64, 128} (bf16 also 256;
-// padded_dim) and told the real D: loaders fill the columns in [D, DP) with
+// instantiated on the padded width DP in {16, 32, 64, 128} (bf16 also 256,
+// 384, 512; padded_dim, wide_padded_dim) and told the real D: loaders fill the columns in [D, DP) with
 // zeros (the cp.async src-size 0 of flash_mma.cuh in bf16, a guard in f32),
 // the zeros add nothing to Q·Kᵀ, the padded columns of O stay zero and are
 // never stored, and the scale is the real 1/sqrt(D) the wrapper passes. At
 // DP 256, O is 128 f32 accumulators a thread (m64n256k16, four 64-column
 // panels of V in one product) beside S's 32. The split-TF32 kernel runs
 // padded to 256 too and takes any f32 D in 129..256 and any strides
-// (element-wise copies where rows are not whole 16-byte chunks). Every other
-// D (f32 D > 256, bf16 D > 256 or not a multiple of 8) runs the head-dim-
+// (element-wise copies where rows are not whole 16-byte chunks); f32 D
+// 257..512 runs its column-split form (flash_fwd_tf32x3_wide_kernel,
+// padded to 320, 384 or 512). Every other D (past 512, or bf16 not a
+// multiple of 8) runs the head-dim-
 // general CUDA-core kernel (flash_fwd_general_kernel, flash_general.cuh):
 // tiles and the O accumulator in dynamic shared memory, R = 64..8 query and
 // key rows by D, element-by-element loads in the input dtype, f32 math.
@@ -84,8 +106,11 @@ using namespace dl4j_tf32;
 
 template <int D, int BK>
 struct FwdCfg {
-  static constexpr int BQ = 64;  // query rows: one warpgroup, 16 a warp
-  static constexpr int THREADS = 128;
+  static constexpr int BQ = 64;  // query rows: the wgmma M, 16 a warp
+  // warpgroups, each holding DH of O's columns: two past padded 256
+  static constexpr int NWG = D > 256 ? 2 : 1;
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int DH = D / NWG;
   using QT = Tile<D, BQ>;
   using KT = Tile<D, BK>;
   // Q, two stages of (K, V), and room to align the start to 1024 bytes
@@ -103,8 +128,9 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using QT = typename C::QT;
   using KT = typename C::KT;
   constexpr int BQ = C::BQ;
+  constexpr int DH = C::DH;
   constexpr int NS = BK / 2;  // S accumulators a thread holds
-  constexpr int NO = D / 8;   // n-tiles of O (of which dc are real)
+  constexpr int NO = DH / 8;  // n-tiles of this warpgroup's O
   extern __shared__ __align__(1024) unsigned char smem[];
   // the swizzle atoms repeat every 1024 bytes: align the tiles to that
   const uint32_t s_q = (smem_u32(smem) + 1023) & ~1023u;
@@ -116,12 +142,16 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = qt * BQ;
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
+  const int wg = C::NWG > 1 ? tid >> 7 : 0;  // this warpgroup's columns
+  const int warp = (tid >> 5) & 3;           // and its warp's 16 rows
   const int lane = tid & 31;
   const int g = lane >> 2;
   const int t4 = lane & 3;
   const int wrow = q0 + warp * 16;  // this warp's first query row
   const int dc = dr >> 3;           // real 8-column chunks of a row
+  const int c0 = wg * DH;           // the warpgroup's first column of O
+  // and its first 64-column panel of V
+  const uint32_t v_off = (DH / 64) * wg * KT::PANEL_BYTES;
 
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
@@ -135,9 +165,10 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                 tid);
   cp_async_commit();
 
-  float acc[D / 2];  // O: n-tile d of this warp's rows in acc[4d..4d+3]
+  float acc[DH / 2];  // O: n-tile d of the warpgroup's columns, this
+                      // warp's rows, in acc[4d..4d+3]
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};  // running max of s·scale·log2 e
   float l[2] = {0.f, 0.f};              // this lane's share of the row sum
 
@@ -155,7 +186,8 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<1>();  // tile j (and Q) have landed
     __syncthreads();
     const int k0 = j * BK;
-    float s[NS];  // S: n-tile n of this warp's rows in s[4n..4n+3]
+    float s[NS];  // S over all of D: n-tile n of this warp's rows, 4n..
+                  // (each warpgroup computes it whole)
 #pragma unroll
     for (int i = 0; i < NS; ++i) s[i] = 0.f;
     fence_regs(s);
@@ -216,7 +248,7 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<D>(acc, pa[kk], KT::desc_mn(s_v, kk));
+      wgmma_rs<DH>(acc, pa[kk], KT::desc_mn(s_v + v_off, kk));
     wgmma_commit();
     wgmma_wait0();
     fence_regs(acc);
@@ -237,11 +269,12 @@ flash_fwd_wgmma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (row < Tlen) {
 #pragma unroll
       for (int d = 0; d < NO; ++d)
-        if (d < dc)  // the padded columns are never written
-          *reinterpret_cast<uint32_t*>(ob + row * so.t + 8 * d + 2 * t4) =
+        if (c0 / 8 + d < dc)  // the padded columns are never written
+          *reinterpret_cast<uint32_t*>(ob + row * so.t + c0 + 8 * d
+                                       + 2 * t4) =
               pack_bf16(acc[4 * d + 2 * r] * inv[r],
                         acc[4 * d + 2 * r + 1] * inv[r]);
-      if (t4 == 0)
+      if (wg == 0 && t4 == 0)  // every warpgroup holds the same row state
         lse[(long long)bh * Tlen + row] = (m[r] + log2f(l[r])) * kLn2;
     }
   }
@@ -269,7 +302,9 @@ int launch_wgmma(int BH, int Tlen, int dr, cudaStream_t s, const void* q,
 // The kernel of each padded head dim DP: key tiles of 64 rows, except at
 // DP 64 on a grid of fewer than two query tiles per SM, where each
 // block's walk along its row is the critical path and 128-key steps halve
-// its iterations (PERF.md has the tilings measured). DP 256 takes 161 KiB,
+// its iterations (PERF.md has the tilings measured), and at DP 384 and
+// 512, on two warpgroups, where two stages of 64 keys would not fit
+// (240 KiB at 384). DP 256 takes 161 KiB, 384 145 KiB and 512 193 KiB,
 // one block an SM.
 int launch_bf16(int D, int BH, int Tlen, cudaStream_t s, const void* q,
                 const void* k, const void* v, void* o, void* lse, int H,
@@ -278,7 +313,7 @@ int launch_bf16(int D, int BH, int Tlen, cudaStream_t s, const void* q,
   return launch_wgmma<DD, BK>(BH, Tlen, D, s, q, k, v, o, lse, H, sq, sk,    \
                               sv, so, scale, causal)
   if (D % 8 != 0) return (int)cudaErrorInvalidValue;  // 16-byte rows
-  switch (padded_dim(D)) {
+  switch (D <= 256 ? padded_dim(D) : wide_padded_dim(D)) {
     case 16: DL4J_WGMMA(16, 64);
     case 32: DL4J_WGMMA(32, 64);
     case 64: {
@@ -291,6 +326,8 @@ int launch_bf16(int D, int BH, int Tlen, cudaStream_t s, const void* q,
     }
     case 128: DL4J_WGMMA(128, 64);
     case 256: DL4J_WGMMA(256, 64);
+    case 384: DL4J_WGMMA(384, 32);
+    case 512: DL4J_WGMMA(512, 32);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef DL4J_WGMMA
@@ -753,6 +790,329 @@ int launch_tf32x3(int BH, int Tlen, int dr, cudaStream_t s, const void* q,
   return (int)cudaGetLastError();
 }
 
+// ----------- f32 at D 257..512, split TF32 on two warps' column halves
+
+// Three TF32 products for each f32 product, as flash_fwd_tf32x3_kernel
+// (flash_tf32.cuh), padded to 320, 384 or 512 (a half is whole 32-column
+// groups, so D itself where it is a multiple of 64: no fifth of the work
+// on zero columns at D 320). Past 256 one warp cannot hold its 16 rows
+// of O (16 x 320 is 160 f32 registers a thread), so the two warps of
+// each 16-row group split O's columns, at most 256 each (128 registers a
+// thread), instead of the keys.
+//
+// S over the whole D: each step's 16 keys are two n-tiles of 8, and each
+// warp of the pair computes one of them over all of D (its K rows and Q's
+// rows as float4 reads, split on the fly), posts its 16 x 8 tile to
+// shared memory in fragment order (a float4 a lane) and reads its
+// partner's after a barrier of the pair's 64 threads (bar.sync, not the
+// block's). Both then hold the same S and run the same online softmax,
+// bit for bit; this halves S's products against computing S in both
+// warps, which here would cost more than P·V itself (three TF32 products
+// each), for one named barrier and 1 KiB of shared memory a pair. P
+// splits too; each warp runs P·V on its half of V's columns.
+//
+// Fragment orders as flash_fwd_tf32x3_kernel: S's k index permuted to a
+// float4 of Q and K rows; P's A fragments straight from S's accumulators
+// (key 2t as k index t, 2t + 1 as t + 4); O's n-tile u of column group c
+// (32 columns of the warp's half) holds columns c0 + 32 c + 4 n + u, so
+// thread g reads a float4 of V at c0 + 32 c + 4 g and holds O's row g at
+// c0 + 32 c + 8 t .. + 7. Row strides D + 16 (Q, K) and D + 4 (V) floats.
+//
+// Each warp's n-tile of S sums 3 D / 8 products; as one chain of
+// dependent mma.sync it is the step's critical path (measured, PERF.md),
+// so it runs as four partial sums added in a fixed order.
+//
+// Shared memory: Q stays resident, K and V stream in 16-key steps through
+// two stages, and the pairs' S exchange: at 320 with 64 query rows, Q 84
+// KiB, a stage 41.25 KiB, 4 KiB of exchange: 170.5 KiB; at 384 Q 100, a
+// stage 49.25, 4: 202.5 KiB; at 512 Q alone would be 132 KiB at 64 rows,
+// so 32 rows (two row groups): Q 66, a stage 65.25, 2 KiB: 198.5 KiB. One
+// block an SM. Causal query tiles heaviest first; fixed-order sums, so a
+// second launch is bit-identical.
+template <int D, int BQ>
+struct Tf32WideCfg {
+  static constexpr int BK = 16;            // keys a step: two n-tiles
+  static constexpr int RG = BQ / 16;       // row groups of 16 rows
+  static constexpr int THREADS = RG * 64;  // a pair of warps a row group
+  static constexpr int DH = D / 2;         // O's columns a warp holds
+  static constexpr int LDQ = D + 16;       // row stride (floats) of Q and K
+  static constexpr int LDV = D + 4;        // row stride of V
+  static constexpr int Q_BYTES = BQ * LDQ * 4;
+  static constexpr int K_BYTES = BK * LDQ * 4;
+  static constexpr int V_BYTES = BK * LDV * 4;
+  static constexpr int X_BYTES = RG * 2 * 32 * 16;  // a float4 a lane
+  // Q, two stages of (K, V), the S exchange
+  static constexpr int SMEM = Q_BYTES + 2 * (K_BYTES + V_BYTES) + X_BYTES;
+};
+
+// the barrier of the two warps of row group rg (0 is __syncthreads')
+__device__ __forceinline__ void pair_sync(int rg) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + rg) : "memory");
+}
+
+template <int D, int BQ>
+__global__ void __launch_bounds__(Tf32WideCfg<D, BQ>::THREADS, 1)
+flash_fwd_tf32x3_wide_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             float* __restrict__ o, float* __restrict__ lse,
+                             int H, int Tlen, int dr, Str sq, Str sk, Str sv,
+                             Str so, float scale_log2, int causal, int vec) {
+  using C = Tf32WideCfg<D, BQ>;
+  constexpr int BK = C::BK;
+  constexpr int RG = C::RG;
+  constexpr int LDQ = C::LDQ;
+  constexpr int LDV = C::LDV;
+  constexpr int NT = C::THREADS;
+  constexpr int NG = C::DH / 32;  // column groups of O (4 n-tiles each)
+  constexpr int STAGE = BK * (LDQ + LDV);  // floats: K, then V
+  extern __shared__ __align__(16) float fsm[];
+  float* const qs = fsm;
+  float* const kvs = fsm + BQ * LDQ;
+  float4* const xs = reinterpret_cast<float4*>(kvs + 2 * STAGE);
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int rg = warp % RG;          // this warp's 16 query rows
+  const int ch = warp / RG;          // its half of O's columns, its S n-tile
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wrow = q0 + rg * 16;     // this warp's first query row
+  const int c0 = ch * C::DH;         // the half's first column
+
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int kend = causal ? min(Tlen, q0 + BQ) : Tlen;
+  const int nkt = (kend + BK - 1) / BK;
+
+  load_f32_tile<BQ, LDQ, NT, false, D>(qs, q + b * sq.b + h * sq.h, sq.t,
+                                       q0, Tlen, dr, vec, tid);
+  load_f32_tile<BK, LDQ, NT, false, D>(kvs, kb, sk.t, 0, Tlen, dr, vec, tid);
+  load_f32_tile<BK, LDV, NT, false, D>(kvs + BK * LDQ, vb, sv.t, 0, Tlen,
+                                       dr, vec, tid);
+  cp_async_commit();
+
+  // O, this warp's half: n-tile u of column group c in acc[c][u]
+  float acc[NG][4][4];
+#pragma unroll
+  for (int c = 0; c < NG; ++c)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][u][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of s·scale·log2 e
+  float l[2] = {0.f, 0.f};              // this lane's share of the row sum
+  // this thread's float4 of Q's row g (row g + 8 is 8 rows on)
+  const float* qrow = qs + (rg * 16 + g) * LDQ + 4 * t4;
+  float4* const x_mine = xs + (rg * 2 + ch) * 32 + lane;
+  const float4* const x_other = xs + (rg * 2 + (ch ^ 1)) * 32 + lane;
+
+  for (int j = 0; j < nkt; ++j) {
+    if (j + 1 < nkt) {
+      float* nk = kvs + ((j + 1) & 1) * STAGE;
+      load_f32_tile<BK, LDQ, NT, false, D>(nk, kb, sk.t, (j + 1) * BK, Tlen,
+                                           dr, vec, tid);
+      load_f32_tile<BK, LDV, NT, false, D>(nk + BK * LDQ, vb, sv.t,
+                                           (j + 1) * BK, Tlen, dr, vec, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and Q) have landed
+    __syncthreads();
+    const float* ks = kvs + (j & 1) * STAGE;
+    const float* vs = ks + BK * LDQ;
+    const int k0 = j * BK;
+
+    // this warp's n-tile of S = Q·Kᵀ: keys k0 + 8 ch .., in four partial
+    // sums over every fourth 16-dim pair (four independent mma chains,
+    // not one chain of 3 D / 8 dependent products), added in a fixed order
+    float sp[4][4] = {};
+    const float* krow = ks + (8 * ch + g) * LDQ + 4 * t4;
+    for (int k4 = 0; k4 < D / 16; k4 += 4)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int kp = k4 + r;
+      float (&sm)[4] = sp[r];
+      const float4 qa = *reinterpret_cast<const float4*>(qrow + 16 * kp);
+      const float4 qb =
+          *reinterpret_cast<const float4*>(qrow + 8 * LDQ + 16 * kp);
+      const float4 kv = *reinterpret_cast<const float4*>(krow + 16 * kp);
+      uint32_t ah[2][4], al[2][4], kh[4], kl[4];
+      split_tf32(qa.x, ah[0][0], al[0][0]);
+      split_tf32(qb.x, ah[0][1], al[0][1]);
+      split_tf32(qa.y, ah[0][2], al[0][2]);
+      split_tf32(qb.y, ah[0][3], al[0][3]);
+      split_tf32(qa.z, ah[1][0], al[1][0]);
+      split_tf32(qb.z, ah[1][1], al[1][1]);
+      split_tf32(qa.w, ah[1][2], al[1][2]);
+      split_tf32(qb.w, ah[1][3], al[1][3]);
+      split_tf32(kv.x, kh[0], kl[0]);
+      split_tf32(kv.y, kh[1], kl[1]);
+      split_tf32(kv.z, kh[2], kl[2]);
+      split_tf32(kv.w, kh[3], kl[3]);
+      mma_3xtf32(sm, ah[0], al[0], kh[0], kh[1], kl[0], kl[1]);
+      mma_3xtf32(sm, ah[1], al[1], kh[2], kh[3], kl[2], kl[3]);
+    }
+    float sm[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      sm[e] = (sp[0][e] + sp[1][e]) + (sp[2][e] + sp[3][e]);
+    // swap n-tiles with the pair's other warp: both hold all of S
+    *x_mine = make_float4(sm[0], sm[1], sm[2], sm[3]);
+    pair_sync(rg);
+    const float4 xo = *x_other;
+    const float so4[4] = {xo.x, xo.y, xo.z, xo.w};
+    float s[2][4];  // S: n-tile n (keys k0 + 8n ..) in s[n]
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[0][e] = (ch == 0 ? sm[e] : so4[e]) * scale_log2;
+      s[1][e] = (ch == 0 ? so4[e] : sm[e]) * scale_log2;
+    }
+    // only key ranges that cross the diagonal or T are masked
+    if (k0 + BK > Tlen || (causal && k0 + BK - 1 > wrow)) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + 8 * n + 2 * t4 + (e & 1);
+          const int row = wrow + g + 8 * (e >> 1);
+          if (key >= Tlen || (causal && key > row)) s[n][e] = -INFINITY;
+        }
+    }
+    // the online softmax, rows g (r = 0) and g + 8 (r = 1)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mx = fmaxf(fmaxf(s[0][2 * r], s[0][2 * r + 1]),
+                             fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+      const float mn = fmaxf(m[r], quad_max(mx));
+      const float base = mn == -INFINITY ? 0.f : mn;  // no live key yet
+      const float corr = exp2_approx(m[r] - base);
+      m[r] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          s[n][e] = exp2_approx(s[n][e] - base);
+          sum += s[n][e];
+        }
+      l[r] = l[r] * corr + sum;
+#pragma unroll
+      for (int c = 0; c < NG; ++c)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[c][u][2 * r] *= corr;
+          acc[c][u][2 * r + 1] *= corr;
+        }
+    }
+
+    // O += P·V on this warp's half, keys 8 n .. 8 n + 7 a k-step
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[n][0], ph[0], pl[0]);  // row g, key 2t: k index t
+      split_tf32(s[n][2], ph[1], pl[1]);  // row g + 8, key 2t
+      split_tf32(s[n][1], ph[2], pl[2]);  // row g, key 2t + 1: k index t + 4
+      split_tf32(s[n][3], ph[3], pl[3]);  // row g + 8, key 2t + 1
+      const float* v0 = vs + (8 * n + 2 * t4) * LDV + c0 + 4 * g;
+#pragma unroll
+      for (int c = 0; c < NG; ++c) {
+        const float4 va = *reinterpret_cast<const float4*>(v0 + 32 * c);
+        const float4 vn =
+            *reinterpret_cast<const float4*>(v0 + LDV + 32 * c);
+        const float x0[4] = {va.x, va.y, va.z, va.w};
+        const float x1[4] = {vn.x, vn.y, vn.z, vn.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(x0[u], bh0, bl0);
+          split_tf32(x1[u], bh1, bl1);
+          mma_3xtf32(acc[c][u], ph, pl, bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+    // stage j & 1 (and the exchange) are consumed before they are refilled
+    __syncthreads();
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    if (l[r] == 0.f) l[r] = 1.f;
+    inv[r] = 1.f / l[r];
+  }
+  float* ob = o + b * so.b + h * so.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    if (row < Tlen) {
+#pragma unroll
+      for (int c = 0; c < NG; ++c)
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = c0 + 32 * c + 8 * t4 + 4 * e + u;
+            if (col < dr)  // the padded columns are never written
+              ob[row * so.t + col] = acc[c][u][2 * r + e] * inv[r];
+          }
+      if (ch == 0 && t4 == 0)  // both halves hold the same row state
+        lse[(long long)bh * Tlen + row] = (m[r] + log2f(l[r])) * kLn2;
+    }
+  }
+}
+
+template <int D, int BQ>
+int launch_tf32x3_wide_at(int BH, int Tlen, int dr, cudaStream_t s,
+                          const void* q, const void* k, const void* v,
+                          void* o, void* lse, int H, Str sq, Str sk, Str sv,
+                          Str so, float scale, int causal) {
+  using C = Tf32WideCfg<D, BQ>;
+  static_assert(C::SMEM <= 232448, "227 KiB a block on sm_90");
+  const bool vec = rows_16b(dr, {q, k, v}, {sq, sk, sv});
+  auto kern = flash_fwd_tf32x3_wide_kernel<D, BQ>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(BH, (Tlen + BQ - 1) / BQ);
+  kern<<<grid, C::THREADS, C::SMEM, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), H, Tlen, dr, sq, sk, sv, so, scale * kLog2e,
+      causal, int(vec));
+  return (int)cudaGetLastError();
+}
+
+// Padded to 320 (five 32-column groups a half) up to D 320, else to 384
+// or 512 (wide_padded_dim); 64 query rows at 320 and 384, 32 at 512 (Q's
+// 132 KiB at 64 rows leaves no room for two stages)
+int launch_tf32x3_wide(int BH, int Tlen, int dr, cudaStream_t s,
+                       const void* q, const void* k, const void* v, void* o,
+                       void* lse, int H, Str sq, Str sk, Str sv, Str so,
+                       float scale, int causal) {
+  if (dr <= 320)
+    return launch_tf32x3_wide_at<320, 64>(BH, Tlen, dr, s, q, k, v, o, lse,
+                                          H, sq, sk, sv, so, scale, causal);
+  switch (wide_padded_dim(dr)) {
+    case 384:
+      return launch_tf32x3_wide_at<384, 64>(BH, Tlen, dr, s, q, k, v, o,
+                                            lse, H, sq, sk, sv, so, scale,
+                                            causal);
+    case 512:
+      return launch_tf32x3_wide_at<512, 32>(BH, Tlen, dr, s, q, k, v, o,
+                                            lse, H, sq, sk, sv, so, scale,
+                                            causal);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 // ------------------------------------ any D, CUDA cores (flash_general.cuh)
 
 // One block per (b*h, R-row query tile), the heaviest first under causal
@@ -879,10 +1239,11 @@ int launch_general(int D, int BH, int Tlen, cudaStream_t s, const void* q,
 
 // q, k, v, o: (B, H, T, D) addressed by the given element strides (the D
 // stride is 1); lse: contiguous (B, H, T) f32. dtype: 0 = float32 (the
-// CUDA-core kernel for D <= 128, the split-TF32 kernel for D <= 256), 1 =
-// bfloat16 (the tensor-core kernel for D <= 256, a multiple of 8); every
-// other D runs the head-dim-general kernel in its dtype. Returns
-// cudaGetLastError() after the launch.
+// CUDA-core kernel for D <= 128, the split-TF32 kernel for D <= 256 and
+// its column-split wide kernel for D <= 512), 1 = bfloat16 (the
+// tensor-core kernel for D <= 512, a multiple of 8, on two warpgroups
+// past 256); every other D runs the head-dim-general
+// kernel in its dtype. Returns cudaGetLastError() after the launch.
 extern "C" int dl4j_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int T, int D, long long sqb, long long sqh, long long sqt,
@@ -900,15 +1261,18 @@ extern "C" int dl4j_flash_attention_fwd(
     if (D <= 256)
       return launch_tf32x3(B * H, T, D, s, q, k, v, o, lse, H, sq, sk, sv,
                            so, scale, causal);
+    if (wide_padded_dim(D))
+      return launch_tf32x3_wide(B * H, T, D, s, q, k, v, o, lse, H, sq, sk,
+                                sv, so, scale, causal);
     return launch_general<float>(D, B * H, T, s, q, k, v, o, lse, H, sq, sk,
                                  sv, so, scale, causal);
   }
-  if (dtype == 1)
-    return D <= 256 && D % 8 == 0
-               ? launch_bf16(D, B * H, T, s, q, k, v, o, lse, H, sq, sk, sv,
-                             so, scale, causal)
-               : launch_general<__nv_bfloat16>(D, B * H, T, s, q, k, v, o,
-                                               lse, H, sq, sk, sv, so, scale,
-                                               causal);
+  if (dtype == 1) {
+    if (D % 8 == 0 && (D <= 256 || wide_padded_dim(D)))
+      return launch_bf16(D, B * H, T, s, q, k, v, o, lse, H, sq, sk, sv, so,
+                         scale, causal);
+    return launch_general<__nv_bfloat16>(D, B * H, T, s, q, k, v, o, lse, H,
+                                         sq, sk, sv, so, scale, causal);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -2,7 +2,8 @@
 // (flash_attention_fwd.cu, flash_attention_bwd.cu) for sm_90a: 16-byte
 // cp.async into shared tiles laid out as wgmma operands, their wgmma
 // descriptors, and wgmma.mma_async (m64nNk16, bf16 -> f32) with both
-// operands in shared memory or A in registers.
+// operands in shared memory or A in registers (N 32..256; 192 for the
+// column halves of K1 at padded D 384).
 //
 // Fragment layouts (lane = 4 * g + t, g = lane / 4, t = lane % 4; warp w
 // of the warpgroup owns rows 16 w .. 16 w + 15 of the 64-row product):
@@ -41,6 +42,14 @@ struct Str {
 inline int padded_dim(int d) {
   return d < 1 ? 0 : d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64
          : d <= 128 ? 128 : d <= 256 ? 256 : 0;
+}
+
+// The width K1's wide kernels (two warpgroups or warps that split O's
+// columns) are instantiated on for head dim d in 257..512: 384 or 512,
+// six or eight 64-column panels, halves of three or four (0 otherwise;
+// the f32 kernel also takes 320, flash_attention_fwd.cu)
+inline int wide_padded_dim(int d) {
+  return d <= 256 ? 0 : d <= 384 ? 384 : d <= 512 ? 512 : 0;
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -95,6 +104,22 @@ __device__ __forceinline__ float quad_max(float x) {
 }
 
 // ---------------------------------------------- warpgroup MMA (wgmma)
+
+// S (64 x 32, f32) += A · Bᵀ, both bf16 tiles in shared memory
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
 
 // S (64 x 64, f32) += A · Bᵀ, both bf16 tiles in shared memory
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
@@ -245,6 +270,54 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// O (64 x 192, f32) += P · V: P's bf16 A fragments in registers, V (keys
+// x 192) in shared memory, transposed (MN-major)
+__device__ __forceinline__ void wgmma_rs_n192(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // O (64 x 256, f32) += P · V: P's bf16 A fragments in registers, V (keys
 // x 256) in shared memory, transposed (MN-major)
 __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
@@ -308,6 +381,7 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db) {
+  if constexpr (N == 32) wgmma_ss_n32(d, da, db);
   if constexpr (N == 64) wgmma_ss_n64(d, da, db);
   if constexpr (N == 128) wgmma_ss_n128(d, da, db);
 }
@@ -318,6 +392,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   if constexpr (N == 32) wgmma_rs_n32(d, a, db);
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
   if constexpr (N == 128) wgmma_rs_n128(d, a, db);
+  if constexpr (N == 192) wgmma_rs_n192(d, a, db);
   if constexpr (N == 256) wgmma_rs_n256(d, a, db);
 }
 
@@ -342,10 +417,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 // RB = 2 min(D, 64) bytes hold 16-byte chunks whose index is XORed with
 // the row's position in its 8-row group, the hardware's 32/64/128-byte
 // swizzle at D 16/32/64 (8 rows of one chunk column fall on 8 distinct
-// bank groups); D 128 and 256 are two and four such 64-column panels, one
-// after the other, so the columns [64 p, 64 p + 64) of any D lie at panel
-// p's offset p * PANEL_BYTES in the layout of a D 64 tile. The tile's
-// start must be 1024-byte aligned.
+// bank groups); D 128, 256, 384 and 512 are two, four, six and eight such
+// 64-column panels, one after the other, so the columns [64 p, 64 p + 64)
+// of any D lie at panel p's offset p * PANEL_BYTES in the layout of a D 64
+// tile (a half of D 384 or 512 starts on a panel). The tile's start must
+// be 1024-byte aligned.
 template <int D, int R>
 struct Tile {
   static constexpr int PANEL = D > 64 ? 64 : D;      // columns per panel

@@ -1,8 +1,9 @@
 // Split-TF32 tensor-core products shared by the f32 flash kernels at head
 // dims 129..256 (K1 in flash_attention_fwd.cu; dQ and dK/dV in
-// flash_attention_bwd.cu), sm_90a: the split of an f32 operand into two
-// TF32 halves, mma.sync m16n8k8 (TF32 -> f32) in one and in three
-// products, and the loader of a 256-column f32 tile.
+// flash_attention_bwd.cu) and of K1 at 257..512, sm_90a: the split of an
+// f32 operand into two TF32 halves, mma.sync m16n8k8 (TF32 -> f32) in one
+// and in three products, and the loader of a 256-column (or, for K1's
+// wide kernel, 384- or 512-column) f32 tile.
 //
 // One TF32 product keeps 10 of f32's 23 mantissa bits, an error near 1e-3
 // relative, past the f32 atol of 1e-4. Three keep the f32 bar: each f32
@@ -35,7 +36,8 @@ using dl4j_mma::cp_async16;
 using dl4j_mma::cp_async4;
 using dl4j_mma::smem_u32;
 
-constexpr int kD = 256;  // the padded head dim of every split-TF32 kernel
+constexpr int kD = 256;  // the padded head dim of the split-TF32 kernels
+                         // up to D 256 (K1's wide one takes its own)
 
 // x as hi + lo: hi is x rounded to TF32 as cvt.rna.tf32.f32 rounds a
 // finite x (to nearest, ties away: half of the dropped 13 bits' range
@@ -81,16 +83,17 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
 __device__ __forceinline__ int swz(int r) { return (r & 6) ^ ((r & 1) << 2); }
 
 // rows [r0, r0 + R) of a (T, dr) f32 operand (time stride st) into a
-// shared tile of row stride LD floats, kD columns, by THREADS threads:
+// shared tile of row stride LD floats, D columns (kD, or K1's wide 384 or
+// 512), by THREADS threads:
 // rows >= T and columns >= dr read as 0 (a zero-fill copy touches no
 // global memory); 16-byte copies when `vec` (dr % 4 == 0, 16-byte aligned
 // rows), else 4-byte ones; chunk c of row r lands at chunk c ^ swz(r)
 // when SWZ
-template <int R, int LD, int THREADS, bool SWZ = false>
+template <int R, int LD, int THREADS, bool SWZ = false, int D = kD>
 __device__ __forceinline__ void load_f32_tile(float* dst, const float* src,
                                               long long st, int r0, int T,
                                               int dr, bool vec, int tid) {
-  constexpr int CH = kD / 4;  // 16-byte chunks a row
+  constexpr int CH = D / 4;  // 16-byte chunks a row
 #pragma unroll 4
   for (int e = tid; e < R * CH; e += THREADS) {
     const int r = e / CH;

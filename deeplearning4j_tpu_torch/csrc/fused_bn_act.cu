@@ -97,7 +97,9 @@ __device__ __forceinline__ float act_fwd(float z) {
   if (A == kRelu6) return fminf(fmaxf(z, 0.0f), 6.0f);
   if (A == kSigmoid) return sigmoidf_(z);
   if (A == kTanh) return tanhf(z);
-  if (A == kSwish) return z * sigmoidf_(z);
+  // F.silu's own rounding, z / (1 + exp(-z)): z * sigmoid(z) rounds twice
+  // and parts from it by one bf16 ulp now and then (0.03125 at |z| >= 4)
+  if (A == kSwish) return __fdiv_rn(z, __fadd_rn(1.0f, expf(-z)));
   if (A == kLeakyRelu) return z >= 0.0f ? z : 0.01f * z;
   if (A == kElu) return z > 0.0f ? z : expm1f(z);
   if (A == kGelu) {

@@ -42,15 +42,22 @@ block may use on the H100, as the reference's Pallas block ``(1, bq, d)``
 takes any d (:func:`check_head_dim`; every D up to 1200 for all three
 kernels). :func:`route` names the kernel family a (D, dtype) runs in
 each of the three kernels: the fast kernels are instantiated on the
-padded widths 16, 32, 64 and 128 (bf16 also 256) and zero-fill the
+padded widths 16, 32, 64 and 128 (bf16 also 256; K1's wide kernels 384
+and 512, f32 also 320) and zero-fill the
 columns past D inside the kernel — bf16 on the tensor cores when D is a
 multiple of 8 (its rows whole 16-byte chunks), up to 256 (dQ and dK/dV
 past 128 on two warpgroups that split the columns); f32 on the CUDA
-cores up to 128, and in split TF32 up to 256. Every other D runs the
-head-dim-general CUDA-core kernels (``csrc/flash_general.cuh``; counted
-in ``LAUNCHES_GENERAL``, ``LAUNCHES_BWD_DQ_GENERAL`` and
+cores up to 128, and in split TF32 up to 256. K1 past 256, up to 512,
+runs its wide kernels, padded to 384 or 512 (f32 also 320): bf16 (a multiple of 8) on
+two warpgroups that each hold one half of O's columns
+(``LAUNCHES_TC_WIDE``, family ``"wgmma-wide"``, 16-byte alignment as
+above), f32 in split TF32 on pairs of warps that each hold one half
+(``LAUNCHES_TF32X3_WIDE``, ``"tf32x3-wide"``, any strides). Every other
+D runs the head-dim-general CUDA-core kernels (``csrc/flash_general.cuh``;
+counted in ``LAUNCHES_GENERAL``, ``LAUNCHES_BWD_DQ_GENERAL`` and
 ``LAUNCHES_BWD_DKV_GENERAL``), whose tile rows shrink from 64 to 8 as D
-grows (:func:`general_rows`).
+grows (:func:`general_rows`): K1 past 512 and for bf16 rows that are not
+whole 16-byte chunks, dQ and dK/dV past 256.
 """
 
 from __future__ import annotations
@@ -77,6 +84,10 @@ FAST_MAX_HEAD_DIM = 128
 TC_MAX_HEAD_DIM = 256
 #: the largest f32 head dim of the split-TF32 kernels (padded to 256)
 TF32X3_MAX_HEAD_DIM = 256
+#: the largest head dim of K1's wide kernels (padded to 384 or 512, f32
+#: also 320): bf16 on two warpgroups, f32 in split TF32 on two warps, each
+#: holding a half of O's columns; dQ and dK/dV stay general past 256
+WIDE_MAX_HEAD_DIM = 512
 #: shared memory a block may use on the H100 (sm_90): 227 KiB
 SMEM_PER_BLOCK = 232448
 #: the head-dim-general kernels' f32 tiles, as in csrc/flash_general.cuh
@@ -88,7 +99,8 @@ GENERAL_ROWS = (64, 32, 16, 8)
 #: on CPU tensors do not count): K1, the dQ kernel, the dK/dV kernel (any
 #: route), and of those each family's (:data:`FAMILY_SUFFIX`): the bf16
 #: tensor-core, the f32 CUDA-core, the f32 split-TF32 and the
-#: head-dim-general K1, dQ and dK/dV kernels
+#: head-dim-general K1, dQ and dK/dV kernels, and K1's two wide kernels
+#: (bf16 two-warpgroup, f32 split-TF32 column halves) past D 256
 LAUNCHES = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_BWD_DKV = 0
@@ -104,9 +116,14 @@ LAUNCHES_BWD_DKV_TF32X3 = 0
 LAUNCHES_GENERAL = 0
 LAUNCHES_BWD_DQ_GENERAL = 0
 LAUNCHES_BWD_DKV_GENERAL = 0
+LAUNCHES_TC_WIDE = 0
+LAUNCHES_TF32X3_WIDE = 0
 #: each kernel family's counter suffix (:func:`launch_counter`)
 FAMILY_SUFFIX = {"wgmma": "_TC", "cuda-core": "_CUDA_CORE",
-                 "tf32x3": "_TF32X3", "general": "_GENERAL"}
+                 "tf32x3": "_TF32X3", "general": "_GENERAL",
+                 "wgmma-wide": "_TC_WIDE", "tf32x3-wide": "_TF32X3_WIDE"}
+#: the families whose operands :func:`check_tc_alignment` holds
+TC_FAMILIES = ("wgmma", "wgmma-wide")
 _KERNEL = {"fwd": "", "dq": "_BWD_DQ", "dkv": "_BWD_DKV"}
 #: every counter
 COUNTERS = tuple(n for n in globals() if n.startswith("LAUNCHES"))
@@ -235,15 +252,20 @@ def route(d: int, dtype, kernel: str) -> str:
     """The kernel family head dim ``d`` runs in ``dtype`` for ``kernel``
     ("fwd", "dq" or "dkv"): ``"wgmma"`` (bf16, a multiple of 8 up to
     ``TC_MAX_HEAD_DIM``), ``"cuda-core"`` (f32, D <= 128), ``"tf32x3"``
-    (f32, D 129..256) or ``"general"`` (every other D)."""
+    (f32, D 129..256), for K1 only ``"wgmma-wide"`` (bf16, a multiple of
+    8 in 264..``WIDE_MAX_HEAD_DIM``) and ``"tf32x3-wide"`` (f32, D
+    257..512), or ``"general"`` (every other D)."""
+    wide = kernel == "fwd" and d <= WIDE_MAX_HEAD_DIM
     if dtype == torch.float32:
         if d <= FAST_MAX_HEAD_DIM:
             return "cuda-core"
         if d <= TF32X3_MAX_HEAD_DIM:
             return "tf32x3"
-        return "general"
+        return "tf32x3-wide" if wide else "general"
     if d % 8 == 0 and d <= TC_MAX_HEAD_DIM:
         return "wgmma"
+    if d % 8 == 0 and wide:
+        return "wgmma-wide"
     return "general"
 
 
@@ -357,7 +379,7 @@ def _strides(*views):
 def _flash_cuda(q, k, v, scale, causal, layout):
     (b, h, t, d), (q_, k_, v_) = _check_qkv(layout, "fwd", q, k, v)
     kind = route(d, q.dtype, "fwd")
-    if kind == "wgmma":
+    if kind in TC_FAMILIES:
         check_tc_alignment(q=q_, k=k_, v=v_)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     (o_,) = _bhtd(layout, out)
@@ -383,7 +405,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, causal,
                                    layout)[0]
     bhtd, (q_, k_, v_, do_) = _check_qkv(layout, "dq", q, k, v, dout)
     kind = route(bhtd[3], q.dtype, "dq")
-    if kind == "wgmma":
+    if kind in TC_FAMILIES:
         check_tc_alignment(q=q_, k=k_, v=v_, dout=do_)
     _check_rows("lse", lse, q, bhtd)
     _check_rows("delta", delta, q, bhtd)
@@ -409,7 +431,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, causal,
                                    layout)[1:]
     bhtd, (q_, k_, v_, do_) = _check_qkv(layout, "dkv", q, k, v, dout)
     kind = route(bhtd[3], q.dtype, "dkv")
-    if kind == "wgmma":
+    if kind in TC_FAMILIES:
         check_tc_alignment(q=q_, k=k_, v=v_, dout=do_)
     _check_rows("lse", lse, q, bhtd)
     _check_rows("delta", delta, q, bhtd)

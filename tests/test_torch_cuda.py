@@ -123,11 +123,14 @@ FLASH_GRID = [(64, True), (200, True), (1000, True), (256, False),
 HEAD_DIMS = [8, 16, 24, 32, 64, 80, 120, 128]
 # head dims past 128: bf16 K1, dQ and dK/dV on the tensor cores padded to
 # 256 (136, 160, 200, 256), f32 K1, dQ and dK/dV in split TF32 padded to
-# 256 (130: rows of whole elements, not 16-byte chunks; 136-256); every
-# kernel general at 320 (64, 32 and 16 tile rows) and for bf16 rows that
-# are not whole 16-byte chunks (12, 130; f32 runs its CUDA-core kernel at
-# 12)
-GENERAL_HEAD_DIMS = [12, 130, 136, 160, 200, 256, 320]
+# 256 (130: rows of whole elements, not 16-byte chunks; 136-256); at 320
+# K1 on its wide kernels (padded to 384) and dQ and dK/dV general; every
+# kernel general past 512 (520) and for bf16 rows that are not whole
+# 16-byte chunks (12, 130; f32 runs its CUDA-core kernel at 12)
+GENERAL_HEAD_DIMS = [12, 130, 136, 160, 200, 256, 320, 520]
+# K1's wide kernels: bf16 padded to 384 (264, 320, 328, 384) and to 512
+# (392, 512); f32 to 320 (264, 320), 384 (328, 384) and 512 (392, 512)
+WIDE_HEAD_DIMS = [264, 320, 328, 384, 392, 512]
 
 
 def _counts(kernel):
@@ -209,6 +212,79 @@ def test_flash_tf32x3_fwd_matches_plain_over_many_waves(gen):
     ref, ref_lse = fa.mha_reference_lse(q, k, v, causal=True)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,causal", [(200, True), (200, False),
+                                      (1000, True)])
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+def test_flash_wide_fwd_matches_plain(gen, dtype, t, causal, d):
+    """K1's wide kernels at D 264-512 (bf16 on two warpgroups that split
+    O's columns, f32 in split TF32 on pairs of warps that split them),
+    padded to 384 and 512 (f32 also 320), T 200 (a ragged last tile) and 1000, against
+    the plain version: O at the dtype's atol, lse at 1e-3; counted on
+    the wide family and nowhere else; through strided (B, T, H, D) views
+    of one qkv buffer (the transformer's layout); a second launch, in
+    either layout, repeats the first bit for bit."""
+    b, h = 2, 3
+    q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda")
+               .to(dtype) for _ in range(3))
+    kind = "wgmma-wide" if dtype == torch.bfloat16 else "tf32x3-wide"
+    assert fa.route(d, dtype, "fwd") == kind
+    before = _counts("fwd")
+    out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+    assert _moved(before, "fwd", d, dtype)
+    ref, ref_lse = fa.mha_reference_lse(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL[dtype],
+                               rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    again, lse_again = fa.flash_attention_lse(q, k, v, causal=causal)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+    qkv = torch.cat([x.transpose(1, 2).reshape(b, t, h * d)
+                     for x in (q, k, v)], dim=-1)
+    qn, kn, vn = (x.reshape(b, t, h, d) for x in qkv.chunk(3, dim=-1))
+    before = _counts("fwd")
+    ntc = fa.flash_attention_ntc(qn, kn, vn, causal=causal)
+    assert _moved(before, "fwd", d, dtype)
+    torch.testing.assert_close(ntc.transpose(1, 2).float(), ref.float(),
+                               atol=ATOL[dtype], rtol=0)
+    assert torch.equal(ntc, fa.flash_attention_ntc(qn, kn, vn,
+                                                   causal=causal))
+
+
+def test_flash_wide_fwd_over_many_waves(gen):
+    """Both wide kernels on grids of several waves of the SMs (B8 H4
+    T1000 D320, causal: 512 query tiles of 64 rows), against the plain
+    version; the bf16 one from a time stride of 3·H·D (the transformer's
+    qkv buffer), the f32 one from a view whose rows are not 16-byte
+    chunks (element-wise copies)."""
+    b, h, t, d = 8, 4, 1000, 320
+    qkv = torch.randn((b, t, 3 * h * d), generator=gen, device="cuda")
+    for dtype, off, dd in ((torch.bfloat16, 0, d), (torch.float32, 1, 318)):
+        x = qkv.to(dtype)
+        q, k, v = (x[..., off + i * h * dd:off + (i + 1) * h * dd]
+                   .reshape(b, t, h, dd) for i in range(3))
+        before = _counts("fwd")
+        out = fa.flash_attention_ntc(q, k, v, causal=True)
+        assert _moved(before, "fwd", dd, dtype)
+        ref = fa.mha_reference(*(y.transpose(1, 2) for y in (q, k, v)),
+                               causal=True)
+        torch.testing.assert_close(out.transpose(1, 2).float(), ref.float(),
+                                   atol=ATOL[dtype], rtol=0)
+
+
+def test_flash_wide_bf16_refuses_misaligned_views(gen):
+    """The bf16 wide K1 copies 16-byte chunks: a view that starts off a
+    16-byte boundary raises before any launch."""
+    b, t, h, d = 1, 70, 2, 320
+    raw = torch.randn((b, t, 3 * h * d + 1), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    odd = [raw[..., 1 + i * h * d:1 + (i + 1) * h * d].reshape(b, t, h, d)
+           for i in range(3)]
+    before = _counts("fwd")
+    with pytest.raises(ValueError, match="aligned"):
+        fa.flash_attention_ntc(*odd, causal=True)
+    assert _counts("fwd") == before
 
 
 def test_flash_tf32x3_bwd_matches_plain_over_many_waves(gen):
@@ -478,6 +554,21 @@ def test_bn_act_kernel_matches_plain(gen, dtype, n, c, act):
     assert y.dtype == dtype and y.shape == x.shape
     torch.testing.assert_close(y.float(), ref.float(), atol=ATOL[dtype],
                                rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bn_act_swish_rounds_as_silu(gen, dtype):
+    """swish as ``F.silu`` computes it, z / (1 + exp(-z)), on 2^24
+    pre-activations of up to |z| ~ 12: the f32 kernel equals the plain
+    version bit for bit, so the bf16 one never parts from it by a bf16
+    ulp where one ulp passes the atol (|y| >= 4: 0.03125 > 2e-2); z ·
+    sigmoid(z), rounded twice, did now and then."""
+    x, gamma, beta, _ = _bn_inputs(gen, 16384, 1024, dtype, offset=0.0)
+    y = fo.bn_act(x, gamma * 2, beta, "swish")
+    ref = fo.bn_act_reference(x, gamma * 2, beta, "swish")
+    torch.cuda.synchronize()
+    assert ref.abs().max().item() >= 8
+    assert torch.equal(y.float(), ref.to(dtype).float())
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -486,6 +486,7 @@ def test_flash_general_rows_shrink_as_head_dim_grows(d, rows):
 
 
 _TC, _GN, _CC, _TF = "wgmma", "general", "cuda-core", "tf32x3"
+_TCW, _TFW = "wgmma-wide", "tf32x3-wide"
 
 
 @pytest.mark.parametrize("d,dtype,kinds", [
@@ -495,26 +496,34 @@ _TC, _GN, _CC, _TF = "wgmma", "general", "cuda-core", "tf32x3"
     (130, torch.bfloat16, (_GN, _GN, _GN)),
     (136, torch.bfloat16, (_TC, _TC, _TC)),
     (256, torch.bfloat16, (_TC, _TC, _TC)),
-    (264, torch.bfloat16, (_GN, _GN, _GN)),
+    (264, torch.bfloat16, (_TCW, _GN, _GN)),
+    (320, torch.bfloat16, (_TCW, _GN, _GN)),
+    (324, torch.bfloat16, (_GN, _GN, _GN)),
+    (512, torch.bfloat16, (_TCW, _GN, _GN)),
+    (520, torch.bfloat16, (_GN, _GN, _GN)),
     (12, torch.float32, (_CC, _CC, _CC)),
     (128, torch.float32, (_CC, _CC, _CC)),
     (129, torch.float32, (_TF, _TF, _TF)),
     (160, torch.float32, (_TF, _TF, _TF)),
     (256, torch.float32, (_TF, _TF, _TF)),
-    (257, torch.float32, (_GN, _GN, _GN)),
-    (320, torch.float32, (_GN, _GN, _GN))])
+    (257, torch.float32, (_TFW, _GN, _GN)),
+    (320, torch.float32, (_TFW, _GN, _GN)),
+    (512, torch.float32, (_TFW, _GN, _GN)),
+    (513, torch.float32, (_GN, _GN, _GN))])
 def test_flash_route_by_head_dim_and_dtype(d, dtype, kinds):
     """Which kernel family a (D, dtype) runs in K1, dQ and dK/dV: bf16
     on the tensor cores up to 256 (multiples of 8); f32 K1, dQ and dK/dV
-    in split TF32 at 129..256; only the bf16 tensor-core route checks 16-byte
-    alignment, so a general bf16 D and every f32 D take any strides, in
-    each of the three wrappers."""
+    in split TF32 at 129..256; K1 past 256 up to 512 on its wide kernels
+    (bf16 multiples of 8 on two warpgroups, f32 in split TF32 on warp
+    pairs), dQ and dK/dV general there; only the bf16 tensor-core routes
+    check 16-byte alignment, so a general bf16 D and every f32 D take any
+    strides, in each of the three wrappers."""
     assert tuple(tfa.route(d, dtype, kn) for kn in ("fwd", "dq", "dkv")) \
         == kinds
     buf = torch.zeros((1, 8, 3 * 2 * d + 1), dtype=dtype)
     q, k, v = (buf[..., 1 + i * 2 * d:1 + (i + 1) * 2 * d]
                .reshape(1, 8, 2, d) for i in range(3))
-    if kinds[0] == _TC:
+    if kinds[0] in (_TC, _TCW):
         with pytest.raises(ValueError, match="aligned"):
             tfa._flash_cuda(q, k, v, 0.25, True, "bthd")
     elif not torch.cuda.is_available():
