@@ -217,6 +217,29 @@ Phases, each fatal on failure:
    a detector with a NaN batch at a replayed step (a no-op, raised one
    step late); wall ms a replayed step and peak memory without and with
    a detector;
+13. the serving planes on the paged scheduler, the 120M engine at
+   max_seq 1152, 8 slots, page_len 16, 576 pages (``bench.py``'s
+   prefix-shared row): K2 first, over a table in which all 8 slots map
+   one 1024-token prefix's pages (its plain version, a second launch
+   bit for bit, device ms); then, replayed and eager on their own
+   engines (each part's schedulers warmed twice on other prompts of the
+   same lengths, ``mark_warm()``, each part's counts set to 0 just
+   before it), values identical both ways and 0 retraces: (a) prefix
+   sharing — a cold leader, 8 followers one at a time, a wave of 8 (9
+   prompts of 1024 + 8-64 tokens, 16 new): prefix hits >= 8, the
+   slots' pages < their mappings in the wave, greedy tokens equal a
+   scheduler's without the cache; (b) a 3-turn session resumed
+   append-only: first-token KL against a whole-context prefill <= 1e-3,
+   greedy match reported; (c) SCORE of 8 x 512 tokens: 511 finite
+   logprobs each, a verify chunk's last row against ``prefill_chunk``'s
+   logits, KL <= 1e-3; (d) EMBED mean and last of 4 prompts against the
+   plain forward's post-``ln_f`` rows, relative L2 <= 2e-2; (e) BEAM
+   width 4, 256 + 16 tokens: best logprob >= greedy's (scored by SCORE)
+   - 1e-3 nats, shared pages > 0; (f) CONSTRAINED: an all-true mask
+   gives greedy's tokens, a 100-id allowlist keeps every token; K2
+   launched in every part that decodes, never the gather path; TTFT
+   cold and warm, tokens resident per user shared and dense, SCORE
+   tokens/s, BEAM lane tokens/s and gain;
 5. a ``kernels`` JSON line (every hand-written kernel: its route,
    launches on each main path, largest error, times and bound at its
    path shape), then the result line (printed last).
@@ -984,24 +1007,33 @@ def prefill_kl(cfg, params, prompt):
     return kl_rows(lp[None], lk[None]), lk, lp
 
 
+# phase 4's two schedulers: path → keywords
+MAIN_PATHS = {"dense": {"n_slots": 4}, "paged": {"n_slots": 8, "page_len": 16}}
+
+
+def main_config(tfm):
+    """The flagship 120M engine (bench.py's serving engine) at max_seq
+    2048, and its seeded weights."""
+    cfg = tfm.TransformerConfig(vocab_size=32000, d_model=512, n_heads=8,
+                                n_layers=8, d_ff=2048, max_seq=2048,
+                                dtype=torch.bfloat16, remat=False)
+    return cfg, tfm.init_params(cfg, torch.Generator().manual_seed(0))
+
+
 def main_path(fa, pa, profile=False):
     from deeplearning4j_tpu_torch.serving import GenerationEngine, PageTable
     from deeplearning4j_tpu_torch.serving import kvcache
     from deeplearning4j_tpu_torch.zoo import transformer as tfm
 
-    # the flagship 120M engine (bench.py's serving engine) at max_seq 2048
-    cfg = tfm.TransformerConfig(vocab_size=32000, d_model=512, n_heads=8,
-                                n_layers=8, d_ff=2048, max_seq=2048,
-                                dtype=torch.bfloat16, remat=False)
-    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    cfg, params = main_config(tfm)
     rng = np.random.default_rng(0)
     dense_prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                      for n in (600, 900, 1200, 1500)]
     paged_prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                      for n in (17, 140, 260, 385, 512, 640, 777, 900)]
     n_new = 32
-    waves = {"dense": ({"n_slots": 4}, dense_prompts),
-             "paged": ({"n_slots": 8, "page_len": 16}, paged_prompts)}
+    waves = {"dense": (MAIN_PATHS["dense"], dense_prompts),
+             "paged": (MAIN_PATHS["paged"], paged_prompts)}
     by_path = serve_checked(fa, pa, cfg, params, waves, n_new, "main path",
                             "flash_attention_fwd_tc", profile=profile)
 
@@ -1629,6 +1661,32 @@ def k3_times(root):
                     for k in ("bn_stats", "bn_bwd_reduce")}
     log(json.dumps({"k3_times": rows, "per_resnet_step": step,
                     "root": str(root)}))
+    return 0
+
+
+def sweep_times(root, repeats=3):
+    """``--sweep-times ROOT``: phase 4's steady decode sweeps
+    (:func:`steady_sweeps`: every slot decoding at ctx 600, 20 timed
+    sweeps with their host split, 20 profiled) on the dense and the paged
+    scheduler, replayed, of the port checked out at ROOT (its kernels
+    build under ROOT), ``repeats`` times each after one warm round. Two
+    versions are compared in one run: parent, change, change, parent.
+    Prints one JSON line."""
+    import importlib
+    sys.path.insert(0, str(root))
+    serving = importlib.import_module("deeplearning4j_tpu_torch.serving")
+    tfm = importlib.import_module("deeplearning4j_tpu_torch.zoo.transformer")
+    log(f"sweep-times: serving from {serving.__file__}")
+    cfg, params = main_config(tfm)
+    engine = serving.GenerationEngine(cfg, params)
+    rows = {}
+    for path, kw in MAIN_PATHS.items():
+        sched = serving.ContinuousBatchingScheduler(engine, **kw)
+        steady_sweeps(sched, 600)
+        rows[path] = [steady_sweeps(sched, 600) for _ in range(repeats)]
+        for r in rows[path]:
+            log(f"sweep-times {path} {json.dumps(r)}")
+    log(json.dumps({"sweep_times": rows, "root": str(root)}))
     return 0
 
 
@@ -3401,6 +3459,558 @@ def chunk_split(engine, n=10):
             "device_ms": device_ms(call, iters=n)}
 
 
+# --------------------------------------------------------------- phase 13
+
+# the serving planes run on the 120M engine of bench.py:927-940 at the
+# max_seq of bench.py's prefix-shared row (1024 + 128), with that row's
+# dense-equivalent page budget (bench.py:1514): 8 slots x 72 pages of 16
+PLANES_MAX_SEQ = 1152
+PLANES_SLOTS = 8
+PLANES_PAGE_LEN = 16
+PLANES_PREFIX = 1024
+PLANES_NEW = 16
+EMBED_REL_L2 = 2e-2                      # bf16 pooled rows, relative L2
+# SCORE's bf16 log-probabilities against the plain forward's, per token:
+# EMBED_REL_L2 on the rows the head reads, through logits of about unit
+# spread (this model's), as a difference of two logits, at four standard
+# deviations (the extreme of 8 x 511 tokens): 4 sqrt(2) 2e-2 ~ 0.11
+SCORE_LP_ATOL = 0.1                      # nats
+BEAM_GAIN_TOL = 1e-3                     # nats
+
+
+def _sync():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def planes_config(tfm):
+    return tfm.TransformerConfig(vocab_size=32000, d_model=512, n_heads=8,
+                                 n_layers=8, d_ff=2048,
+                                 max_seq=PLANES_MAX_SEQ,
+                                 dtype=torch.bfloat16, remat=False)
+
+
+class LastLogits:
+    """Keeps the logits of an engine's latest ``prefill_chunk`` call (a
+    request's first-token logits, once its final chunk ran)."""
+
+    def __init__(self, engine):
+        self.engine, self.last = engine, None
+        fn = engine.prefill_chunk
+
+        def rec(*a, **k):
+            out = fn(*a, **k)
+            self.last = out[0]
+            return out
+        engine.prefill_chunk = rec
+
+    def restore(self):
+        del self.engine.prefill_chunk
+
+
+def planes_inputs(vocab, seed):
+    """Every part's prompts, from ``default_rng(seed)``: (a) 9 prompts of
+    a common 1024-token prefix and tails of 8-64 tokens (bench.py:1525);
+    (b) a session's first turn (300 tokens) and its users' next two
+    messages (45, 37 tokens); (c) 8 prompts of 512 (bench.py:1629); (d) 4
+    prompts of 96-480; (e) a 256-token prompt (bench.py:1684); (f) a
+    200-token prompt and an allowlist of 100 ids."""
+    rng = np.random.default_rng(seed)
+
+    def ids(n):
+        return rng.integers(0, vocab, n).astype(np.int32)
+    prefix = ids(PLANES_PREFIX)
+    return {
+        "prefix": [np.concatenate([prefix, ids(int(rng.integers(8, 65)))])
+                   for _ in range(9)],
+        "session": [ids(300), ids(45), ids(37)],
+        "score": [ids(512) for _ in range(8)],
+        "embed": [ids(n) for n in (96, 200, 333, 480)],
+        "beam": ids(256),
+        "constrained": (ids(200), np.sort(rng.choice(vocab, 100,
+                                                     replace=False))),
+    }
+
+
+def planes_prefix(sched, prompts):
+    """(a) A cold leader, the followers one at a time (each maps the
+    cached prefix and prefills only its tail), then a wave of 8 sampled
+    for the page census while it decodes."""
+    hits0 = sched.kv_report()["prefix"]["prefix_hits"]
+    leader = sched.submit(prompts[0], PLANES_NEW)
+    sched.run_until_idle()
+    first = leader.result(timeout=0)
+    seq, warm = [first.tokens], []
+    for p in prompts[1:]:
+        f = sched.submit(p, PLANES_NEW)
+        sched.run_until_idle()
+        r = f.result(timeout=0)
+        seq.append(r.tokens)
+        warm.append(r.ttft_s)
+    wave = [sched.submit(p, PLANES_NEW) for p in prompts[:PLANES_SLOTS]]
+    # (active, pages the slots hold, mapped, shared): pages only the
+    # cache holds (the warm-up's and earlier requests') left out
+    best = (0, 0, 0, 0)
+    t0 = time.perf_counter()
+    while sched.step():
+        with sched._lock:
+            active = sum(1 for s in sched.slots if s is not None)
+            if active >= best[0]:
+                best = (active, sched._pages.used_pages
+                        - sched._prefix.cached_pages,
+                        sched._pages.mapped_pages,
+                        sched._pages.shared_pages)
+    _sync()
+    wall = time.perf_counter() - t0
+    wave_tokens = [f.result(timeout=0).tokens for f in wave]
+    active, used, mapped, shared = best
+    rep = sched.kv_report()["prefix"]
+    return {"ttft_cold_s": first.ttft_s,
+            "ttft_warm_median_s": float(np.median(warm)),
+            "ttft_warm_max_s": float(np.max(warm)),
+            "prefix_hits": rep["prefix_hits"] - hits0,
+            "wave_wall_s": wall, "wave_active": active,
+            "wave_used_pages": used, "wave_mapped_pages": mapped,
+            "wave_shared_pages": shared,
+            "tokens_resident_per_user_shared":
+                used * PLANES_PAGE_LEN / max(active, 1),
+            "tokens_resident_per_user_dense":
+                mapped * PLANES_PAGE_LEN / max(active, 1),
+            "check_pages": bool(sched.check_pages())}, \
+        [t.tolist() for t in seq + wave_tokens]
+
+
+def planes_session(sched, turns, sid):
+    """(b) A session of 3 turns: each turn's prompt is the conversation so
+    far plus the user's next message, and resumes append-only from the
+    retained context (at an offset no chunk boundary aligns with). The
+    turns' contexts, tokens and first-token logits."""
+    rec = LastLogits(sched.engine)
+    try:
+        ctx, out = turns[0], []
+        hit0 = sched.kv_report()["prefix"]["prefix_hit_tokens"]
+        for turn in range(3):
+            f = sched.submit(ctx, PLANES_NEW, session_id=sid)
+            sched.run_until_idle()
+            r = f.result(timeout=0)
+            out.append({"ctx": ctx, "tokens": r.tokens,
+                        "logits": rec.last.float().clone(),
+                        "ttft_s": r.ttft_s})
+            if turn < 2:
+                ctx = np.concatenate([ctx, r.tokens, turns[turn + 1]])
+        rep = sched.kv_report()["prefix"]
+    finally:
+        rec.restore()
+    sched.drop_session(sid)
+    return out, rep["prefix_hit_tokens"] - hit0
+
+
+def _split(clock, wall):
+    """Host seconds by wrapped call, and the rest of ``wall``."""
+    got = dict(clock.s)
+    got["rest"] = wall - sum(got.values())
+    return got
+
+
+def planes_score(sched, inp):
+    """(c) SCORE: 8 prompts of 512 in one wave. The wall comes with host
+    seconds by call (the chunk dispatch, the host's log-softmax tally;
+    "rest" holds the reads of logits to the host and the bookkeeping)."""
+    eng = sched.engine
+    futs = [sched.submit(p, kind="score") for p in inp["score"]]
+    clock = HostClock()
+    clock.wrap(eng, "verify_chunk", "verify_chunk")
+    clock.wrap(sched, "_score_rows", "score_rows")
+    t0 = time.perf_counter()
+    sched.run_until_idle()
+    _sync()
+    wall = time.perf_counter() - t0
+    clock.restore()
+    res = [f.result(timeout=0) for f in futs]
+    return ({"wall_s": wall,
+             "tokens_per_s": sum(len(p) for p in inp["score"]) / wall,
+             "host_split_s": _split(clock, wall),
+             "logprobs": [len(r.logprobs) for r in res],
+             "finite": all(bool(np.isfinite(r.logprobs).all())
+                           for r in res),
+             "perplexity_head": [r.perplexity for r in res[:4]]},
+            [r.logprobs.tolist() for r in res])
+
+
+def planes_embed(sched, inp):
+    """(d) EMBED: mean and last pooling of 4 prompts."""
+    futs = [sched.submit(p, kind="embed", pooling=pool)
+            for pool in ("mean", "last") for p in inp["embed"]]
+    sched.run_until_idle()
+    res = [f.result(timeout=0) for f in futs]
+    return ({"dims": [int(r.embedding.shape[0]) for r in res]},
+            [r.embedding for r in res])
+
+
+def planes_beam(sched, inp):
+    """(e) BEAM: width 4, 16 new tokens, the census sampled as it
+    decodes. The wall comes with host seconds by call (the chunk and
+    sweep dispatch, the sampler, the host's joint beam step; "rest"
+    holds the reads of logits to the host and the bookkeeping)."""
+    eng = sched.engine
+    fb = sched.submit(inp["beam"], PLANES_NEW, kind="beam", beam_width=4)
+    shared = 0
+    clock = HostClock()
+    clock.wrap(eng, "prefill_chunk", "prefill_chunk")
+    clock.wrap(eng, "decode_step", "decode_step")
+    clock.wrap(eng, "sample", "sample")
+    clock.wrap(sched, "_advance_beam", "advance_beam")
+    t0 = time.perf_counter()
+    while sched.step():
+        with sched._lock:
+            shared = max(shared, sched._pages.shared_pages)
+    _sync()
+    wall = time.perf_counter() - t0
+    clock.restore()
+    beam = fb.result(timeout=0)
+    return ({"wall_s": wall,
+             "lane_tokens_per_s": len(beam.tokens) * 4 / wall,
+             "host_split_s": _split(clock, wall),
+             "best_logprob": beam.best_logprob,
+             "max_shared_pages": shared,
+             "check_pages": bool(sched.check_pages())},
+            [[s.tolist() for s in beam.sequences], beam.scores,
+             beam.tokens.tolist()])
+
+
+def planes_beam_greedy(sched, inp):
+    """BEAM's reference: greedy over the same horizon, its log-probability
+    scored through SCORE. Its tokens and that log-probability."""
+    p = inp["beam"]
+    fg = sched.submit(p, PLANES_NEW)
+    sched.run_until_idle()
+    greedy = fg.result(timeout=0).tokens
+    fs = sched.submit(np.concatenate([p, greedy]), kind="score")
+    sched.run_until_idle()
+    return greedy.tolist(), float(
+        np.sum(fs.result(timeout=0).logprobs[len(p) - 1:]))
+
+
+def planes_constrained(sched, inp):
+    """(f) CONSTRAINED: an all-true mask beside a plain greedy request,
+    and an allowlist."""
+    from deeplearning4j_tpu_torch.serving import vocab_mask
+    vocab = int(sched.engine.cfg.vocab_size)
+    prompt, allow = inp["constrained"]
+    futs = [sched.submit(prompt, PLANES_NEW, kind="constrained",
+                         token_mask=np.ones(vocab, bool)),
+            sched.submit(prompt, PLANES_NEW),
+            sched.submit(prompt, PLANES_NEW, kind="constrained",
+                         token_mask=vocab_mask(allow, vocab))]
+    sched.run_until_idle()
+    res = [f.result(timeout=0).tokens for f in futs]
+    return ({"all_true_is_greedy": res[0].tolist() == res[1].tolist(),
+             "allowlist_kept": bool(np.isin(res[2], allow).all())},
+            [r.tolist() for r in res])
+
+
+PLANES_KINDS = {"score": planes_score, "embed": planes_embed,
+                "beam": planes_beam, "constrained": planes_constrained}
+
+
+def planes_kinds(sched, inp, timed):
+    """(c)-(f) on one scheduler, each kind through ``timed`` (which sets
+    the launch counts to 0 just before it and reads them just after),
+    then BEAM's greedy reference outside BEAM's window. kind →
+    (readings, values, launches)."""
+    out = {}
+    for name, fn in PLANES_KINDS.items():
+        (rd, vals), n = timed(lambda: fn(sched, inp))
+        out[name] = (rd, vals, n)
+    rd, vals, _ = out["beam"]
+    greedy, greedy_lp = planes_beam_greedy(sched, inp)
+    rd.update(greedy_logprob=greedy_lp, gain=rd["best_logprob"] - greedy_lp,
+              best_is_greedy=vals[2] == greedy)
+    vals.append(greedy)
+    return out
+
+
+def check_paged_shared(pa, dtype):
+    """K2 at phase 13's decode shape (8 slots, H 8, Dh 64, page_len 16,
+    72 table entries): all 8 slots map the same 64 prefix pages, each its
+    own tail, at cursors 1032-1103 — its plain version's output (atol),
+    a second launch bit for bit, device times, and the bound by the
+    DISTINCT rows read."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    b, h, dh, plen, per_slot = PLANES_SLOTS, 8, 64, PLANES_PAGE_LEN, 72
+    npg = PLANES_SLOTS * per_slot
+    k, v = (torch.randn((npg, plen, h, dh), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    q = torch.randn((b, h, dh), generator=gen, device="cuda").to(dtype)
+    rng = np.random.default_rng(13)
+    perm = rng.permutation(npg)
+    shared = perm[:PLANES_PREFIX // plen].tolist()
+    table = torch.full((b, per_slot), npg, dtype=torch.int32)
+    pos = torch.tensor(rng.integers(PLANES_PREFIX + 8,
+                                    PLANES_PREFIX + 80, b), dtype=torch.int32)
+    nxt = len(shared)
+    for s in range(b):
+        need = int(pos[s]) // plen + 1
+        own = perm[nxt:nxt + need - len(shared)].tolist()
+        nxt += len(own)
+        table[s, :need] = torch.tensor(shared + own, dtype=torch.int32)
+    rows = int((pos + 1).sum())
+    distinct = PLANES_PREFIX + sum(int(pos[s]) + 1 - PLANES_PREFIX
+                                   for s in range(b))
+    table, pos = table.cuda(), pos.cuda()
+    out = pa.paged_attention(q, k, v, table, pos)
+    again = pa.paged_attention(q, k, v, table, pos)
+    ref = pa.paged_attention_reference(q, k, v, table, pos)
+    _sync()
+    err = (out.float() - ref.float()).abs().max().item()
+    repeats = bool(torch.equal(out, again))
+    ms = device_ms(lambda: pa.paged_attention(q, k, v, table, pos), 50)
+    plain_ms = device_ms(
+        lambda: pa.paged_attention_reference(q, k, v, table, pos), 10)
+    item = torch.finfo(dtype).bits // 8
+    nbytes = (2 * distinct * h * dh * item + 2 * b * h * dh * item
+              + table.numel() * 4 + pos.numel() * 4)
+    bms, by = bound_ms(nbytes, 4 * rows * h * dh, dtype)
+    ok = err <= ATOL[dtype] and repeats
+    log(f"K2 over shared pages ({str(dtype)[6:]}, 8 slots on one "
+        f"{PLANES_PREFIX}-token prefix, {rows} rows, {distinct} distinct): "
+        f"max_abs_err {err:.3e} (atol {ATOL[dtype]}), second launch "
+        f"{'identical' if repeats else 'DIFFERS'}; device ms kernel "
+        f"{ms:.4f}, plain {plain_ms:.4f}, bound {bms:.5f} ({by}; kernel "
+        f"{ms / bms:.1f}x) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("K2 over shared pages disagrees with its plain "
+                         "version or does not repeat")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "rows": rows,
+            "distinct_rows": distinct}
+
+
+def planes_way(fa, pa, cfg, params, inp, warm_inputs, graphs):
+    """One way (``graphs``: replayed, else eager under
+    ``disable_graphs()``) of phase 13 on its own engine: the schedulers
+    of every part warmed twice (other prompts of the same lengths, so
+    every signature's capture happens in the warm-up), ``mark_warm()``,
+    then each part with its launch counts set to 0 just before it and
+    read just after. Returns part → (readings, values, launches) and the
+    compile report."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.serving import (
+        ContinuousBatchingScheduler, GenerationEngine)
+    engine = GenerationEngine(cfg, params)
+    counts = StepLaunches({n: st._fn for n, st in engine.sentinels.items()},
+                          lambda: serving_counts(fa, pa))
+    kw = dict(n_slots=PLANES_SLOTS, page_len=PLANES_PAGE_LEN,
+              n_pages=PLANES_SLOTS * -(-PLANES_MAX_SEQ // PLANES_PAGE_LEN))
+    out = {}
+    with contextlib.nullcontext() if graphs else disable_graphs():
+        s_prefix = ContinuousBatchingScheduler(engine, prefix_cache=True,
+                                               **kw)
+        s_session = ContinuousBatchingScheduler(engine, prefix_cache=True,
+                                                **kw)
+        s_kinds = ContinuousBatchingScheduler(engine, **kw)
+        for i, w in enumerate(warm_inputs):
+            planes_prefix(s_prefix, w["prefix"])
+            planes_session(s_session, w["session"], f"warm{i}")
+            planes_kinds(s_kinds, w, lambda fn: (fn(), None))
+        engine.mark_warm()
+
+        def timed(fn):
+            _sync()
+            fa.reset_launches()
+            pa.reset_launches()
+            counts.reset()
+            got = fn()
+            _sync()
+            return got, dict(counts.total)
+
+        (rd, vals), n = timed(lambda: planes_prefix(s_prefix,
+                                                     inp["prefix"]))
+        out["prefix"] = (rd, vals, n)
+        (turns, hit_tokens), n = timed(lambda: planes_session(
+            s_session, inp["session"], "timed"))
+        out["session"] = ({"prefix_hit_tokens": hit_tokens,
+                           "ttft_s": [t["ttft_s"] for t in turns]},
+                          [t["tokens"].tolist() for t in turns], n, turns)
+        out.update(planes_kinds(s_kinds, inp, timed))
+        out["compiles"] = compile_summary(engine)
+        out["gather_calls"] = sum(
+            engine.sentinels["decode_paged"].calls.values())
+        out["kernel_choice"] = engine._paged_kernel_choice(s_kinds.cache)
+    del engine, s_prefix, s_session, s_kinds, counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_planes(fa, pa, smi):
+    """Phase 13: prefix sharing, sessions and the typed request kinds on
+    the paged scheduler, the 120M engine (``planes_config``; seeded
+    weights), replayed and eager (tokens and values identical), against a
+    third engine's plain references. Returns path → the replayed ways'
+    launch counts, and K2's check over shared pages."""
+    from deeplearning4j_tpu_torch.serving import (
+        ContinuousBatchingScheduler, GenerationEngine, PageTable)
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg = planes_config(tfm)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    inp = planes_inputs(cfg.vocab_size, 0)
+    warm = [planes_inputs(cfg.vocab_size, s) for s in (100, 101)]
+    k2_shared = check_paged_shared(pa, torch.bfloat16)
+    ways = {"replayed": planes_way(fa, pa, cfg, params, inp, warm, True),
+            "eager": planes_way(fa, pa, cfg, params, inp, warm, False)}
+    rep, eag = ways["replayed"], ways["eager"]
+    failed = []
+    parts = ("prefix", "session", "score", "embed", "beam", "constrained")
+    for part in parts:
+        same = _values_equal(rep[part][1], eag[part][1])
+        log(f"planes {part}: replayed {json.dumps(rep[part][0])}; eager "
+            f"{json.dumps(eag[part][0])}; launches (captures' counts) "
+            f"replayed {json.dumps(rep[part][2])}, eager "
+            f"{json.dumps(eag[part][2])}; replayed = eager: {same}")
+        if not same:
+            failed.append(f"{part}: replayed values differ from eager")
+    for way, w in ways.items():
+        retr = sum(c[2] for c in w["compiles"].values())
+        log(f"planes {way}: compile report [compiles, signatures, retraces "
+            f"after warm] {json.dumps(w['compiles'])}; gather decode calls "
+            f"{w['gather_calls']}, paged route {w['kernel_choice']}")
+        if retr:
+            failed.append(f"{way}: {retr} retraces after warm")
+        if w["gather_calls"] or w["kernel_choice"] != "kernel":
+            failed.append(f"{way}: a paged decode left the kernel route")
+        for part in ("prefix", "session", "beam", "constrained"):
+            if w[part][2].get("paged_attention", 0) <= 0:
+                failed.append(f"{way} {part}: K2 was not launched")
+    a = rep["prefix"][0]
+    if a["prefix_hits"] < 8 or not a["check_pages"] \
+            or not a["wave_used_pages"] < a["wave_mapped_pages"]:
+        failed.append(f"prefix: hits {a['prefix_hits']} (want >= 8), used "
+                      f"{a['wave_used_pages']} vs mapped "
+                      f"{a['wave_mapped_pages']}, check {a['check_pages']}")
+    # the plain references, on a third engine: no prefix cache
+    ref_eng = GenerationEngine(cfg, params)
+    kw = dict(n_slots=PLANES_SLOTS, page_len=PLANES_PAGE_LEN,
+              n_pages=PLANES_SLOTS * -(-PLANES_MAX_SEQ // PLANES_PAGE_LEN))
+    off = ContinuousBatchingScheduler(ref_eng, **kw)
+    seq_off, ttft_off = [], []
+    for p in inp["prefix"]:
+        f = off.submit(p, PLANES_NEW)
+        off.run_until_idle()
+        r = f.result(timeout=0)
+        seq_off.append(r.tokens.tolist())
+        ttft_off.append(r.ttft_s)
+    seq_on = rep["prefix"][1][:len(inp["prefix"])]
+    if seq_on != seq_off:
+        failed.append("prefix: greedy tokens with the prefix cache differ "
+                      "from a scheduler without it")
+    rec = LastLogits(ref_eng)
+    kls, match = [], []
+    for turn in rep["session"][3]:
+        f = off.submit(turn["ctx"], PLANES_NEW)
+        off.run_until_idle()
+        toks = f.result(timeout=0).tokens
+        kls.append(kl_rows(rec.last[None], turn["logits"][None].to(
+            rec.last.device)).item())
+        match.append(float(np.mean(toks == turn["tokens"])))
+    rec.restore()
+    if not max(kls) <= MAX_KL:
+        failed.append(f"session: first-token KL {kls} over {MAX_KL}")
+    # SCORE: the final row of each verify chunk against prefill_chunk's
+    # logits of the same chunk (the head's product runs at another row
+    # count: KL, not bits)
+    cache = ref_eng.init_paged_cache(1, 40, PLANES_PAGE_LEN)
+    table = PageTable.for_cache(cache)
+    prompt = inp["score"][0]
+    table.map(0, len(prompt))
+    table.sync(cache)
+    vkl = []
+    for c0 in range(0, len(prompt), ref_eng.chunk_len):
+        chunk = prompt[c0:c0 + ref_eng.chunk_len]
+        rows, _ = ref_eng.verify_chunk(cache, chunk, 0, start=c0)
+        last, _ = ref_eng.prefill_chunk(cache, chunk, 0, start=c0)
+        vkl.append(kl_rows(last[None], rows[len(chunk) - 1][None]).item())
+    sc = rep["score"][0]
+    if not (sc["finite"] and set(sc["logprobs"]) == {511}
+            and max(vkl) <= MAX_KL):
+        failed.append(f"score: {sc['logprobs']} logprobs, finite "
+                      f"{sc['finite']}, verify-vs-prefill KL {vkl}")
+    # SCORE's log-probabilities and EMBED's vectors against the plain
+    # full forward (kernel off, f32 scores) at the same weights
+    plain_cfg = dataclasses.replace(cfg, use_flash_attention=False,
+                                    attn_scores_bf16=False)
+
+    def plain_rows(p):
+        ids = torch.as_tensor(p, dtype=torch.long,
+                              device=params["embed"].device)[None]
+        x = tfm.embed(params, plain_cfg, ids)
+        x, _ = tfm.apply_blocks(params["blocks"], plain_cfg, x)
+        return ids[0], x[0]
+    lp_err = []
+    with torch.no_grad():
+        for p, got in zip(inp["score"], rep["score"][1]):
+            ids, x = plain_rows(p)
+            lp = torch.log_softmax(
+                tfm.head_logits_rows(params, plain_cfg, x), dim=-1)
+            want = lp[:-1].gather(-1, ids[1:, None])[:, 0].cpu().numpy()
+            lp_err.append(float(np.abs(np.asarray(got) - want).max()))
+        rel = []
+        for i, pool in enumerate(("mean", "last")):
+            for j, p in enumerate(inp["embed"]):
+                hid = tfm.hidden_rows(params, plain_cfg,
+                                      plain_rows(p)[1]).cpu().numpy()
+                want = hid.mean(axis=0) if pool == "mean" else hid[-1]
+                got = rep["embed"][1][i * len(inp["embed"]) + j]
+                rel.append(float(np.linalg.norm(got - want)
+                                 / np.linalg.norm(want)))
+    if not max(lp_err) <= SCORE_LP_ATOL:
+        failed.append(f"score: logprobs off the plain forward's by "
+                      f"{lp_err} nats, over {SCORE_LP_ATOL}")
+    if not max(rel) <= EMBED_REL_L2:
+        failed.append(f"embed: relative L2 {rel} over {EMBED_REL_L2}")
+    bm = rep["beam"][0]
+    if not (bm["gain"] >= -BEAM_GAIN_TOL and bm["max_shared_pages"] > 0
+            and bm["check_pages"]):
+        failed.append(f"beam: {bm}")
+    cn = rep["constrained"][0]
+    if not (cn["all_true_is_greedy"] and cn["allowlist_kept"]):
+        failed.append(f"constrained: {cn}")
+    del ref_eng, off, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"planes summary ({smi}): TTFT cold {a['ttft_cold_s']:.4f} s, "
+        f"warm median {a['ttft_warm_median_s']:.4f} s (no sharing, same "
+        f"prompts: median {float(np.median(ttft_off[1:])):.4f} s); tokens "
+        f"resident per user shared "
+        f"{a['tokens_resident_per_user_shared']:.1f} vs dense "
+        f"{a['tokens_resident_per_user_dense']:.1f} ({a['wave_active']} "
+        f"users); prefix hits {a['prefix_hits']}; greedy with the prefix "
+        f"cache = without: {seq_on == seq_off}; session first-token KL "
+        f"{[f'{k:.3e}' for k in kls]} (limit {MAX_KL}), greedy match "
+        f"{match}, hit tokens {rep['session'][0]['prefix_hit_tokens']}; "
+        f"SCORE {sc['tokens_per_s']:.1f} tokens/s, logprobs vs the plain "
+        f"forward max abs {max(lp_err):.3e} nats (limit {SCORE_LP_ATOL}), "
+        f"verify-vs-prefill KL max {max(vkl):.3e}; EMBED relative L2 max {max(rel):.3e} (limit "
+        f"{EMBED_REL_L2}); BEAM lane {bm['lane_tokens_per_s']:.1f} tokens/s, "
+        f"gain {bm['gain']:.4f} nats (best {bm['best_logprob']:.4f}, greedy "
+        f"{bm['greedy_logprob']:.4f}), shared pages {bm['max_shared_pages']}"
+        f"; CONSTRAINED all-true = greedy {cn['all_true_is_greedy']}, "
+        f"allowlist kept {cn['allowlist_kept']}")
+    if failed:
+        raise SystemExit(f"serving planes: {failed}")
+    return ({f"planes_{p}": rep[p][2] for p in parts}, k2_shared)
+
+
+def _values_equal(a, b):
+    """Nested lists / numbers / arrays equal exactly."""
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return bool(np.array_equal(np.asarray(a), np.asarray(b)))
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(
+            _values_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3423,6 +4033,10 @@ def main():
                          "256 and D 320 LMs' train steps and digest K1's, "
                          "the backward's and K2's outputs, for the port "
                          "checked out at ROOT (prints no result line)")
+    ap.add_argument("--sweep-times", metavar="ROOT",
+                    help="only time phase 4's steady decode sweeps, dense "
+                         "and paged, with their host split, for the port "
+                         "checked out at ROOT (prints no result line)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3431,6 +4045,8 @@ def main():
         return k3_times(args.k3_times)
     if args.flash_times:
         return flash_times(args.flash_times)
+    if args.sweep_times:
+        return sweep_times(args.sweep_times)
     from deeplearning4j_tpu_torch.kernels import KERNEL_SOURCES, _build
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import fused_lstm as fl
@@ -3556,6 +4172,9 @@ def main():
                     if p.startswith("workflow_resnet")})
     lstm_paths["workflow_charnn"] = workflow["workflow_charnn"]
     mark("12 DL4J workflow")
+    planes, k2_shared = serving_planes(fa, pa, smi)
+    by_path.update(planes)
+    mark("13 serving planes")
     log(f"host seconds by phase (after the build): {json.dumps(seconds)}")
     # the stage-0 BN's shape (N = 128*56*56, C = 256) stands for K3
     main_k3 = k3[(torch.bfloat16, RESNET_BATCH * 56 * 56, 256)]
@@ -3734,7 +4353,10 @@ def main():
          "library_ms": None,
          "dh320": {str(dt)[6:]: {key: r[key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
-             for dt, r in k2_320.items()}},
+             for dt, r in k2_320.items()},
+         "shared_pages": {"shape": "phase 13's: 8 slots on one 1024-token "
+                                   "prefix, H8 Dh64 bf16, 72 entries",
+                          **k2_shared}},
         *({"name": name, "route": "cuda",
            "source": "deeplearning4j_tpu_torch/csrc/fused_bn_act.cu",
            "replaces": f"deeplearning4j_tpu/kernels/fused_ops.py:{line}",

@@ -12,7 +12,11 @@ Port of ``deeplearning4j_tpu/serving/engine.py``.
   prefix — dense lanes, or the block-paged pool through either the gather
   path or the CUDA paged-attention kernel (``kernels.paged_attention``).
 - ``prefill_chunk`` writes one chunk of a slot's context into its mapped
-  pages (paged pools).
+  pages (paged pools); ``verify_chunk`` runs the same body and returns
+  every row's logits (SCORE requests), ``embed_chunk`` returns its
+  post-``ln_f`` hidden rows instead (EMBED requests).
+- ``sample_masked`` floors the logits a (B, V) bool mask refuses before
+  the sampler (CONSTRAINED requests).
 
 **The cache is updated in place.** The reference donates the cache to
 each jitted call so XLA reuses its buffers; PyTorch has no donation, so
@@ -27,7 +31,8 @@ tensors, staged from the host through pinned memory — run by a
 :class:`~deeplearning4j_tpu_torch.obs.compiles.CompileSentinel` named as
 the reference names its jitted functions (``decode_step``,
 ``decode_paged``, ``decode_paged_kernel``, ``prefill``,
-``prefill_slot``, ``prefill_chunk``, ``sample_tokens``, ``copy_page``).
+``prefill_slot``, ``prefill_chunk``, ``verify_chunk``, ``embed_chunk``,
+``sample_tokens``, ``sample_tokens_masked``, ``copy_page``).
 On CUDA each signature's first call is eager, its second is captured as
 a CUDA graph, and later calls copy their inputs in and replay it; on the
 CPU and under ``disable_graphs()`` the same bodies run directly. One
@@ -52,9 +57,8 @@ and gathers through the sentinel clamp to the last page as a JAX gather
 does; dynamic-slice starts are bounds-checked on the host instead of
 clamped.
 
-Not ported yet: int8 weights/KV (the ``quant_*`` knobs raise),
-``verify_chunk``, ``embed_chunk``, ``sample_masked``, and the sentinels'
-metrics and spans (the observability plane).
+Not ported yet: int8 weights/KV (the ``quant_*`` knobs raise), and the
+sentinels' metrics and spans (the observability plane).
 """
 
 from __future__ import annotations
@@ -118,6 +122,18 @@ def _sample_tempered(logits, temperature, top_k, generator):
     gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
     sampled = (scaled + gumbel).argmax(dim=-1)
     return torch.where(temperature <= 0, greedy, sampled).to(torch.int32)
+
+
+def _sample_masked_step(logits, temperature, top_k, generator, mask):
+    """The ``sample_tokens_masked`` entry point's body: ``mask`` (B, V)
+    bool — a refused token's logit drops to the mask floor BEFORE the
+    top-k threshold and the greedy argmax, so every token drawn lies
+    inside the mask. One signature a batch size, greedy and tempered rows
+    alike (a greedy row takes the argmax, as ``_sample_greedy`` does, so
+    an all-true mask gives the plain sampler's greedy tokens bit for
+    bit)."""
+    return _sample_tempered(logits.float().masked_fill(~mask, _NEG_INF),
+                            temperature, top_k, generator)
 
 
 def _sample_step(logits, temperature, top_k, generator):
@@ -262,12 +278,25 @@ class GenerationEngine:
         self._prefill_slot = entry("prefill_slot", self._prefill_slot_rows)
         self._prefill_chunk = entry("prefill_chunk",
                                     self._prefill_chunk_rows)
+        # the same chunk body with every row's logits (SCORE) or the
+        # post-ln_f hidden rows (EMBED) in place of the last row's logits
+        self._verify_chunk = entry(
+            "verify_chunk",
+            lambda cache, tokens, meta: self._prefill_chunk_rows(
+                cache, tokens, meta, out="logits"))
+        self._embed_chunk = entry(
+            "embed_chunk",
+            lambda cache, tokens, meta: self._prefill_chunk_rows(
+                cache, tokens, meta, out="hidden"))
         self._sample = entry("sample_tokens", _sample_step, tuple)
+        self._sample_masked = entry("sample_tokens_masked",
+                                    _sample_masked_step, tuple)
         self._copy_page = entry("copy_page", _copy_page_step, tuple)
         self.sentinels = {s.name: s for s in (
             self._decode, self._prefill, self._prefill_slot, self._sample,
             self._decode_paged, self._decode_paged_kernel,
-            self._prefill_chunk, self._copy_page)}
+            self._prefill_chunk, self._verify_chunk, self._copy_page,
+            self._embed_chunk, self._sample_masked)}
 
     # ------------------------------------------------------------ cache
     def init_cache(self, n_slots: int):
@@ -432,13 +461,18 @@ class GenerationEngine:
         pos.add_(1)
         return logits
 
-    def _prefill_chunk_rows(self, cache, tokens, meta):
+    def _prefill_chunk_rows(self, cache, tokens, meta, out="last"):
         """One chunked-prefill dispatch: ``tokens`` (C_bucket,) — the
         slot's context rows ``[start, start+length)`` padded — written
         into the slot's mapped pages, the chunk's queries attending
-        causally over everything the slot holds; ``meta`` (3,) int64 is
-        (slot, start, length). Rows past ``length`` are padding: their
-        writes are masked. Returns the last valid row's logits (V,)."""
+        causally over everything the slot's table row names (pages a
+        prefix shares with other slots are read like its own); ``meta``
+        (3,) int64 is (slot, start, length). Rows past ``length`` are
+        padding: their writes are masked. Returns the last valid row's
+        logits (V,) (``out="last"``), every row's logits (C_bucket, V)
+        (``"logits"``) or every row's post-``ln_f`` hidden state
+        (C_bucket, d) f32 (``"hidden"``); rows past ``length`` are
+        garbage the caller slices off."""
         cfg = self.cfg
         slot, start, length = meta[0:1], meta[1:2], meta[2:3]
         table = cache["pages"]
@@ -474,6 +508,10 @@ class GenerationEngine:
 
         x = self._blocks_with_cache(cache, x, write=write, attend=attend)
         cache["pos"].index_copy_(0, slot, (start + length).to(torch.int32))
+        if out == "logits":
+            return self._head(x)
+        if out == "hidden":
+            return tfm.hidden_rows(self._run_params, cfg, x)
         last = x.index_select(0, (length - 1).clamp(0, c - 1))
         return self._head(last)[0]
 
@@ -532,6 +570,14 @@ class GenerationEngine:
                              f"{npg}-page pool")
         (pages,) = self._stage([int(src), int(dst)])
         self._copy_page(Bound(cache), pages)
+        return cache
+
+    def set_positions(self, cache, slots, value: int):
+        """Set the cursors of ``slots`` to ``value``, in place (the
+        captured steps read ``pos`` at its address): a beam's sibling
+        lanes start at the root's context length without a prefill."""
+        (idx,) = self._stage(np.asarray(slots).reshape(-1))
+        cache["pos"].index_fill_(0, idx, int(value))
         return cache
 
     @torch.no_grad()
@@ -629,6 +675,34 @@ class GenerationEngine:
             raise ValueError("prefill_chunk needs a paged cache "
                              "(init_paged_cache); dense pools admit via "
                              "prefill_slot")
+        return self._chunk(self._prefill_chunk, cache, tokens, slot, start)
+
+    @torch.no_grad()
+    def verify_chunk(self, cache, tokens, slot: int, start: int = 0):
+        """The ``prefill_chunk`` dispatch with the head over EVERY row:
+        returns ((C_bucket, V) f32 logits, cache); row i is the
+        next-token distribution after ``tokens[:i+1]`` (a SCORE request
+        scores its prompt from them). Rows are written into the slot's
+        mapped pages as in ``prefill_chunk``; rows past ``len(tokens)``
+        are garbage the caller slices off."""
+        if not kvcache.is_paged(cache):
+            raise ValueError("verify_chunk needs a paged cache: rollback "
+                             "is a page-table operation")
+        return self._chunk(self._verify_chunk, cache, tokens, slot, start)
+
+    @torch.no_grad()
+    def embed_chunk(self, cache, tokens, slot: int, start: int = 0):
+        """The ``prefill_chunk`` dispatch with the head swapped for the
+        post-``ln_f`` hidden rows: returns ((C_bucket, d) f32, cache);
+        rows past ``len(tokens)`` are garbage the caller slices off."""
+        if not kvcache.is_paged(cache):
+            raise ValueError("embed_chunk needs a paged cache "
+                             "(init_paged_cache)")
+        return self._chunk(self._embed_chunk, cache, tokens, slot, start)
+
+    def _chunk(self, fn, cache, tokens, slot, start):
+        """Check, pad to a chunk bucket and stage one chunk for ``fn`` (a
+        chunk entry point)."""
         tokens = np.asarray(tokens, np.int64).reshape(-1)
         n = tokens.shape[0]
         if n < 1:
@@ -646,7 +720,7 @@ class GenerationEngine:
         padded = np.zeros((bucket,), np.int64)
         padded[:n] = tokens
         toks, meta = self._stage(padded, [int(slot), int(start), n])
-        return self._prefill_chunk(Bound(cache), toks, meta), cache
+        return fn(Bound(cache), toks, meta), cache
 
     def make_generator(self, seed: int = 0) -> torch.Generator:
         """A ``torch.Generator`` on the engine's device."""
@@ -668,17 +742,41 @@ class GenerationEngine:
         (every temperature <= 0) and sampled calls are two signatures; a
         sampled one draws from ``generator`` (by default what a fresh
         seed-0 generator draws) inside its graph."""
-        bsz = logits.shape[0]
         temperature = np.broadcast_to(
-            np.asarray(temperature, np.float32), (bsz,))
+            np.asarray(temperature, np.float32), (logits.shape[0],))
         if not (temperature > 0).any():
             return self._sample(logits, None, None, None)
+        return self._sample(logits, *self._sampling_args(
+            logits.shape[0], temperature, top_k, generator))
+
+    @torch.no_grad()
+    def sample_masked(self, logits, temperature=0.0, top_k=0,
+                      generator=None, mask=None):
+        """:meth:`sample` through the masked sampler: ``mask`` (B, V) or
+        (V,) bool, True admits the token. ``mask=None`` is the plain
+        :meth:`sample`. One signature a batch size (greedy and tempered
+        rows alike); an all-true mask gives :meth:`sample`'s greedy
+        tokens bit for bit."""
+        if mask is None:
+            return self.sample(logits, temperature, top_k, generator)
+        (m,) = self._stage(np.broadcast_to(np.asarray(mask, bool),
+                                           logits.shape), dtype=np.bool_)
+        return self._sample_masked(logits, *self._sampling_args(
+            logits.shape[0], temperature, top_k, generator), m)
+
+    def _sampling_args(self, bsz, temperature, top_k, generator):
+        """A sampled call's per-row temperature and top-k, broadcast to
+        the batch ``bsz`` and staged on the device, and its bound
+        generator (by default what a fresh seed-0 generator draws)."""
+        temperature = np.broadcast_to(
+            np.asarray(temperature, np.float32), (bsz,))
         top_k = np.broadcast_to(np.asarray(top_k, np.int64), (bsz,))
         if generator is None:
             generator = self._seed0_generator()
         (k,) = self._stage(top_k)
         (t,) = self._stage(temperature, dtype=np.float32)
-        return self._sample(logits, t, k, Bound(generator))
+        return t, k, Bound(generator)
+
     def generate(self, prompt_ids, max_new_tokens=32, *, generator=None,
                  temperature=0.0, top_k=0, eos_id=None):
         """One-shot batched generation: prefill the prompt(s), then

@@ -27,13 +27,15 @@ so a freed lane can never corrupt a neighbour's page.
 
 The engine updates these tensors in place — the port's counterpart of
 the reference's buffer donation. Only bf16/f32 pools are ported; the
-int8 layout and the ``PrefixCache`` are not yet. :class:`PageTable` is the
-host-side (numpy) mapping, ported nearly verbatim.
+int8 layout is not yet. :class:`PageTable` is the host-side (numpy)
+mapping and :class:`PrefixCache` the copy-on-write prefix index and
+session retention over it, both ported nearly verbatim.
 """
 
 from __future__ import annotations
 
-from typing import List
+import hashlib
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -433,3 +435,314 @@ class PageTable:
                 "used_pages": self.used_pages,
                 "shared_pages": self.shared_pages,
                 "free_pages": self.free_pages}
+
+
+# --------------------------------------------------------------------------
+# Prefix index over resident pages
+# --------------------------------------------------------------------------
+
+#: hash-chain root: the parent digest of a prompt's first block
+_ROOT = b"dl4j-prefix-root"
+
+
+def _chain_hash(parent: bytes, block: np.ndarray) -> bytes:
+    """Digest of one page-aligned token block chained on its
+    predecessor's digest — radix-style, so a block's key encodes its
+    entire prefix, and two prompts share an entry iff they share every
+    token up to and including that block."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(parent)
+    h.update(np.ascontiguousarray(block, dtype=np.int32).tobytes())
+    return h.digest()
+
+
+class _PrefixEntry:
+    """One FULL page of tokens resident in the pool, keyed by its chained
+    block hash. Holds one table ref on its page for as long as it lives
+    in the index."""
+
+    __slots__ = ("page", "tokens", "parent", "children", "last_used")
+
+    def __init__(self, page: int, tokens: np.ndarray,
+                 parent: Optional[bytes], last_used: int):
+        self.page = int(page)
+        self.tokens = np.array(tokens, dtype=np.int32)  # defensive copy
+        self.parent = parent          # predecessor's digest (chain walk)
+        self.children = 0             # resident entries chained on us
+        self.last_used = last_used
+
+
+class _SessionEntry:
+    """A finished request's written context retained verbatim so that the
+    session's next turn resumes append-only. Holds one table ref per page
+    (the final partial page included — unlike the block index, which
+    keeps only full pages)."""
+
+    __slots__ = ("tokens", "pages", "last_used")
+
+    def __init__(self, tokens: np.ndarray, pages: List[int],
+                 last_used: int):
+        self.tokens = np.array(tokens, dtype=np.int32)
+        self.pages = [int(p) for p in pages]
+        self.last_used = last_used
+
+
+class PrefixCache:
+    """Longest-prefix index + session retention over a :class:`PageTable`.
+
+    Host-side bookkeeping only: entries key page-aligned token blocks by
+    their chained hash and pin the backing pool page with one table ref
+    (``incref``). Admission walks the chain over the incoming prompt's
+    full blocks (:meth:`match`), maps whatever matched straight into the
+    new slot's page table (``map_shared``) and prefills only the tail —
+    the chunk body and the paged-decode kernel read whatever pages a
+    slot's table row names, so sharing changes no device code. Sessions
+    (:meth:`retain_session`) keep a finished request's ENTIRE written
+    context, partial tail page included, so that a follow-up turn resumes
+    append-only (the boundary page is copied on write when appended to).
+
+    Under page pressure the scheduler calls :meth:`evict`: cached pages
+    no slot maps are dropped LRU, leaves first (an inner chain entry
+    never outlives its children — a dangling parent digest would match
+    prompts whose earlier blocks are gone). Eviction runs BEFORE
+    preemption — a cold cache goes before a live request.
+
+    A digest match alone never shares a page: every hit re-checks token
+    equality against the entry's stored block before the page is mapped.
+    """
+
+    def __init__(self, table: PageTable):
+        self.table = table
+        self.entries: Dict[bytes, _PrefixEntry] = {}
+        self.sessions: Dict[str, _SessionEntry] = {}
+        self._holds: Dict[int, int] = {}   # page -> cache hold count
+        self._clock = 0                    # LRU tick, monotonic
+        self.hits = 0                      # admissions with >0 shared pages
+        self.hit_tokens = 0                # prefill tokens skipped
+        self.cow_copies = 0                # device page copies performed
+        self.evictions = 0                 # pages freed by evict()
+
+    # ------------------------------------------------------------ refs
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def _hold(self, page: int):
+        self.table.incref(page)
+        self._holds[page] = self._holds.get(page, 0) + 1
+
+    def _unhold(self, page: int) -> int:
+        n = self._holds[page] - 1
+        if n:
+            self._holds[page] = n
+        else:
+            del self._holds[page]
+        return self.table.decref(page)
+
+    def holds(self) -> Dict[int, int]:
+        """Page -> hold count owed by this cache — feed straight into
+        ``PageTable.check(external=...)``."""
+        return dict(self._holds)
+
+    # ----------------------------------------------------------- match
+    def match(self, tokens: np.ndarray) -> List[int]:
+        """Longest resident prefix of ``tokens``: walk the chain over its
+        full page-aligned blocks, checking token equality at each hop,
+        and return the matched pages in logical order. Bumps the LRU
+        tick of every entry touched."""
+        tokens = np.asarray(tokens, dtype=np.int32)
+        plen = self.table.page_len
+        pages: List[int] = []
+        parent = _ROOT
+        now = self._tick()
+        for j in range(len(tokens) // plen):
+            block = tokens[j * plen:(j + 1) * plen]
+            h = _chain_hash(parent, block)
+            e = self.entries.get(h)
+            if e is None or not np.array_equal(e.tokens, block):
+                break
+            e.last_used = now
+            pages.append(e.page)
+            parent = h
+        return pages
+
+    def insert(self, tokens: np.ndarray, pages: List[int]) -> int:
+        """Register ``tokens``' full page-aligned blocks, backed by the
+        slot's ``pages`` (logical order), into the index. Idempotent:
+        blocks already resident keep their FIRST page (the latecomer's
+        copy stays slot-owned and frees on release); new blocks gain a
+        cache hold on theirs. Returns the number of new entries."""
+        tokens = np.asarray(tokens, dtype=np.int32)
+        plen = self.table.page_len
+        parent = _ROOT
+        now = self._tick()
+        added = 0
+        prev: Optional[_PrefixEntry] = None
+        for j in range(min(len(tokens) // plen, len(pages))):
+            block = tokens[j * plen:(j + 1) * plen]
+            h = _chain_hash(parent, block)
+            e = self.entries.get(h)
+            if e is None or not np.array_equal(e.tokens, block):
+                if e is not None:       # true digest collision: keep old
+                    break
+                e = _PrefixEntry(pages[j], block,
+                                 None if parent is _ROOT else parent, now)
+                self._hold(e.page)
+                self.entries[h] = e
+                if prev is not None:
+                    prev.children += 1
+                added += 1
+            else:
+                e.last_used = now
+            parent = h
+            prev = e
+        return added
+
+    def note_hit(self, tokens_matched: int):
+        """Account one admission that skipped ``tokens_matched`` prefill
+        tokens through the index or a session."""
+        self.hits += 1
+        self.hit_tokens += int(tokens_matched)
+
+    # -------------------------------------------------------- sessions
+    def session_match(self, session_id: str,
+                      tokens: np.ndarray) -> Optional[Tuple[int, List[int]]]:
+        """If ``session_id``'s retained context is a prefix of ``tokens``,
+        return ``(n_retained_tokens, pages)`` — the whole retained
+        mapping, partial tail page included. None on an unknown session
+        or a divergence (the caller falls back to the block index)."""
+        s = self.sessions.get(session_id)
+        if s is None:
+            return None
+        n = len(s.tokens)
+        tokens = np.asarray(tokens, dtype=np.int32)
+        if n > len(tokens) or not np.array_equal(s.tokens, tokens[:n]):
+            return None
+        s.last_used = self._tick()
+        return n, list(s.pages)
+
+    def retain_session(self, session_id: str, tokens: np.ndarray,
+                       pages: List[int]):
+        """Pin a finished request's written context under its session id
+        (one hold per page). Replaces any previous retention for the id —
+        each turn's retention supersedes the last."""
+        self.drop_session(session_id)
+        s = _SessionEntry(np.asarray(tokens, dtype=np.int32), pages,
+                          self._tick())
+        for p in s.pages:
+            self._hold(p)
+        self.sessions[session_id] = s
+
+    def drop_session(self, session_id: str) -> bool:
+        """Release a session's holds (end of the conversation, or
+        supersession by the next turn)."""
+        s = self.sessions.pop(session_id, None)
+        if s is None:
+            return False
+        for p in reversed(s.pages):
+            self._unhold(p)
+        return True
+
+    # -------------------------------------------------------- eviction
+    def _slot_free(self, page: int) -> bool:
+        """True when only this cache holds the page — no slot maps it, so
+        dropping our hold(s) frees it."""
+        return int(self.table.refcount[page]) == self._holds.get(page, 0)
+
+    @property
+    def cached_pages(self) -> int:
+        """Pages resident ONLY because this cache holds them — the
+        evictable headroom the scheduler taps before preempting."""
+        return sum(1 for p in self._holds if self._slot_free(p))
+
+    def _drop_entry(self, h: bytes) -> int:
+        e = self.entries.pop(h)
+        if e.parent is not None:
+            parent = self.entries.get(e.parent)
+            if parent is not None:
+                parent.children -= 1
+        return self._unhold(e.page)
+
+    def evict(self, need: int, protect=frozenset()) -> int:
+        """Free up to ``need`` pages by dropping cold cache state, LRU
+        first: leaf index entries whose page no slot maps, and (by age
+        among them) whole sessions whose every page is slot-free.
+        ``protect`` pins pages the caller just matched but has not yet
+        mapped. Returns the pages actually freed."""
+        freed = 0
+        while freed < need:
+            # candidates: evictable index leaves (inner nodes wait for
+            # their subtree) and whole sessions
+            cand = []
+            for h, e in self.entries.items():
+                if (e.children == 0 and e.page not in protect
+                        and self._slot_free(e.page)):
+                    cand.append((e.last_used, 0, h))
+            for sid, s in self.sessions.items():
+                if s.pages and all(p not in protect and self._slot_free(p)
+                                   for p in s.pages):
+                    cand.append((s.last_used, 1, sid))
+                elif not s.pages:
+                    cand.append((s.last_used, 1, sid))
+            if not cand:
+                break
+            cand.sort(key=lambda c: (c[0], c[1]))
+            _, kind, key = cand[0]
+            if kind == 0:
+                freed += self._drop_entry(key)
+            else:
+                s = self.sessions.pop(key)
+                for p in reversed(s.pages):
+                    freed += self._unhold(p)
+        self.evictions += freed
+        return freed
+
+    def release_page_holds(self, page: int) -> int:
+        """Ownership transfer for copy-on-write starvation: drop EVERY
+        index entry and session touching ``page`` so that the one slot
+        still mapping it becomes its sole owner and writes in place — no
+        copy, no free page needed. Entries chained below a dropped one go
+        too (their prefix is gone). Returns the holds removed from
+        ``page``."""
+        before = self._holds.get(page, 0)
+        if not before:
+            return 0
+        # the subtree rooted at every entry on this page: a child
+        # entry's parent digest would dangle otherwise
+        doomed = {h for h, e in self.entries.items() if e.page == page}
+        while True:
+            grew = {h for h, e in self.entries.items()
+                    if e.parent in doomed and h not in doomed}
+            if not grew:
+                break
+            doomed |= grew
+        for h in doomed:
+            self._drop_entry(h)
+        for sid in [sid for sid, s in self.sessions.items()
+                    if page in s.pages]:
+            self.drop_session(sid)
+        return before - self._holds.get(page, 0)
+
+    # ------------------------------------------------------------ misc
+    @property
+    def n_entries(self) -> int:
+        return len(self.entries)
+
+    @property
+    def n_sessions(self) -> int:
+        return len(self.sessions)
+
+    def forget(self):
+        """Drop all bookkeeping WITHOUT touching table refcounts — the
+        companion of ``PageTable.reset()``, which already zeroed them."""
+        self.entries.clear()
+        self.sessions.clear()
+        self._holds.clear()
+
+    def report(self) -> dict:
+        return {"entries": self.n_entries, "sessions": self.n_sessions,
+                "cached_pages": self.cached_pages,
+                "prefix_hits": self.hits,
+                "prefix_hit_tokens": self.hit_tokens,
+                "cow_copies": self.cow_copies,
+                "evictions": self.evictions}

@@ -10,18 +10,38 @@ One ``GenerationEngine`` cache holds ``n_slots`` sequences; each
     decode: ONE sweep advances every active slot a token; finished
             slots free at once for re-admission
 
-and each request resolves a ``concurrent.futures.Future`` with a
-:class:`GenerationResult`. Paged mode (``page_len``/``n_pages``) admits
-on page availability, grows each slot's mapping a page at a time and
-preempts under page pressure; ``starvation_ms`` preempts the request with
-the most remaining budget when the queue head starves. Preemption is
-recompute: the victim's context re-queues and re-prefills, which leaves
-greedy output unchanged.
+and each request resolves a ``concurrent.futures.Future``. Paged mode
+(``page_len``/``n_pages``) admits on page availability, grows each slot's
+mapping a page at a time and preempts under page pressure;
+``starvation_ms`` preempts the request with the most remaining budget
+when the queue head starves. Preemption is recompute: the victim's
+context re-queues and re-prefills, which leaves greedy output unchanged.
 
-Not ported yet (each knob raises ``NotImplementedError``): the metrics
-registry, spans, SLO tracking, the flight recorder, sampler
-observability, typed request kinds (score/embed/beam/constrained), the
-prefix cache and sessions, and int8 KV.
+On the paged pool:
+
+- ``prefix_cache=True`` shares resident pages between requests: a
+  :class:`~.kvcache.PrefixCache` indexes the full pages of every prefilled
+  context by a chained hash, an admission maps the longest resident
+  prefix of its prompt into its own table row and prefills only the tail,
+  and a slot about to write into a page other holders share copies it
+  first (``engine.copy_page``). ``submit(session_id=...)`` retains a
+  finished turn's whole written context, so that the next turn of the
+  conversation resumes append-only. Under page pressure cold cached
+  pages are evicted (LRU) before any live request is preempted.
+- ``submit(kind=...)`` types a request (:class:`~.workloads.RequestKind`):
+  GENERATE; SCORE (per-token logprobs of the prompt, through
+  ``engine.verify_chunk``); EMBED (the pooled post-``ln_f`` hidden state,
+  through ``engine.embed_chunk``); BEAM (a width-k beam search whose lanes
+  share the prompt's pages and split them on write); CONSTRAINED (a
+  token mask applied inside ``engine.sample_masked``). CONSTRAINED runs
+  on the dense pool too.
+
+Every kind runs through the engine's compiled steps; the decode sweep of
+a paged pool runs the paged-attention kernel (K2) on CUDA whatever pages
+its slots share. Not ported yet (each knob raises
+``NotImplementedError``): the metrics registry, spans, SLO tracking, the
+flight recorder, sampler observability and int8 KV. Plain counters
+stand in for the registry (``stats``, ``kv_report()``).
 """
 
 from __future__ import annotations
@@ -36,21 +56,21 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from . import kvcache
+from . import kvcache, workloads
 from .engine import GenerationEngine
+from .workloads import (BeamResult, BeamState, EmbedResult, RequestKind,
+                        ScoreResult)
 
 # reference knobs of planes this port has not reached yet
 _UNPORTED_SCHEDULER_KNOBS = (
     "replica", "slo", "recorder_requests", "recorder_snapshots",
-    "crash_dump_path", "trace_spans", "sample_obs_every", "prefix_cache",
-    "quant_kv", "key")
-_UNPORTED_SUBMIT_KNOBS = ("session_id", "kind", "beam_width", "pooling",
-                          "token_mask")
+    "crash_dump_path", "trace_spans", "sample_obs_every", "quant_kv",
+    "key")
 
 
 @dataclass
 class GenerationResult:
-    """What a request's future resolves to."""
+    """What a GENERATE or CONSTRAINED request's future resolves to."""
     tokens: np.ndarray          # generated ids, prompt excluded
     finish_reason: str          # "eos" | "length"
     request_id: int
@@ -80,6 +100,20 @@ class ServingRequest:
     done_tokens: int = 0
     prefill_s: float = 0.0
     chunks: int = 0
+    # prefix sharing: the session this request extends (its finish
+    # retains pages under the same id)
+    session_id: Optional[str] = None
+    # the typed-request knobs and the per-kind state the scheduler keeps
+    # on the host
+    kind: RequestKind = RequestKind.GENERATE
+    beam_width: int = 0
+    pooling: str = "mean"
+    token_mask: Optional[workloads.TokenMask] = None
+    beam: Optional[BeamState] = None
+    score_lps: List[float] = field(default_factory=list)
+    embed_acc: Optional[np.ndarray] = None
+    embed_last: Optional[np.ndarray] = None
+    released_pages: int = 0
 
     def context(self) -> np.ndarray:
         """Token ids to prefill on (re-)admission: the prompt plus
@@ -90,7 +124,9 @@ class ServingRequest:
             [self.prompt, np.asarray(self.generated, np.int32)])
 
     def remaining(self) -> int:
-        return self.max_new_tokens - len(self.generated)
+        done = (self.beam.progress() if self.beam is not None
+                else len(self.generated))
+        return self.max_new_tokens - done
 
 
 class ContinuousBatchingScheduler:
@@ -107,7 +143,8 @@ class ContinuousBatchingScheduler:
                  starvation_ms: Optional[float] = None,
                  generator: Optional[torch.Generator] = None,
                  page_len: Optional[int] = None,
-                 n_pages: Optional[int] = None, **unported):
+                 n_pages: Optional[int] = None,
+                 prefix_cache: bool = False, **unported):
         for name in unported:
             if name in _UNPORTED_SCHEDULER_KNOBS:
                 raise NotImplementedError(
@@ -116,6 +153,9 @@ class ContinuousBatchingScheduler:
             raise TypeError(f"unexpected keyword argument {name!r}")
         if n_slots < 1:
             raise ValueError("need at least one decode slot")
+        if prefix_cache and page_len is None and n_pages is None:
+            raise ValueError("prefix_cache rides the paged pool: give "
+                             "page_len and/or n_pages")
         self.engine = engine
         self.n_slots = int(n_slots)
         self.starvation_ms = starvation_ms
@@ -129,16 +169,59 @@ class ContinuousBatchingScheduler:
             self.cache = engine.init_paged_cache(self.n_slots, np_, plen)
             self._pages: Optional[kvcache.PageTable] = \
                 kvcache.PageTable.for_cache(self.cache)
+            self._kv_page_bytes = kvcache.page_nbytes(self.cache)
         else:
             self.cache = engine.init_cache(self.n_slots)
             self._pages = None
+            self._kv_page_bytes = 0
+        self._gen = generator if generator is not None \
+            else engine.make_generator()
+        # a signature is warm after one call on the CPU, after its
+        # capture (the second call) on the card
+        reps = 2 if engine.device.type == "cuda" else 1
+        # copy-on-write prefix sharing over the page pool (opt-in)
+        self._prefix: Optional[kvcache.PrefixCache] = \
+            kvcache.PrefixCache(self._pages) if prefix_cache else None
+        if self.paged:
+            # warm the page copy now (a self-copy changes nothing): the
+            # first real split — of a shared prefix or of a beam's tail —
+            # may come after mark_warm(), and a graph is a signature of
+            # this cache, so no other scheduler's warm-up covers it
+            for _ in range(reps):
+                self.cache = engine.copy_page(self.cache, 0, 0)
+        # warm the masked sampler at both sampling shapes — the sweep
+        # (n_slots, V) and the first token (1, V) — so that the first
+        # CONSTRAINED request after mark_warm() compiles nothing. A graph
+        # holds its generator, so the warm-up draws from this one; its
+        # state is put back, and seeded requests draw as without it
+        vocab = int(engine.cfg.vocab_size)
+        state = self._gen.get_state()
+        for b in sorted({self.n_slots, 1}):
+            for _ in range(reps):
+                engine.sample_masked(
+                    torch.zeros((b, vocab), device=engine.device),
+                    np.zeros((b,), np.float32), np.zeros((b,), np.int64),
+                    self._gen, np.ones((b, vocab), bool))
+        self._gen.set_state(state)
+        # KV residency accounting: allocated bytes are the static pool
+        # under dense slotting and the MAPPED (with the prefix cache: the
+        # held) pages under paging; resident bytes follow the host's
+        # per-slot token counts (no device read)
+        self._kv_allocated = kvcache.cache_nbytes(self.cache)
+        self._kv_token_bytes = kvcache.token_nbytes(self.cache)
+        self._kv_last_resident = 0
+        self._kv_last_alloc = 0 if self.paged else self._kv_allocated
+        self._kv_resident_sum = 0.0
+        self._kv_alloc_sum = 0.0
+        self._kv_samples = 0
+        self._final_res_sum = 0.0
+        self._final_res_n = 0
+        self._peak_active = 0
         self.slots: List[Optional[ServingRequest]] = [None] * self.n_slots
         self._queue: deque = deque()
         self._draining = False
         self._lock = threading.RLock()
         self._step_lock = threading.Lock()
-        self._gen = generator if generator is not None \
-            else engine.make_generator()
         self._last_tokens = np.zeros((self.n_slots,), np.int32)
         # sampled tokens come back through one pinned buffer and one
         # event (made at the first read from the card)
@@ -158,19 +241,46 @@ class ContinuousBatchingScheduler:
     # -------------------------------------------------------- submit
     def submit(self, prompt_ids, max_new_tokens: int = 32, *,
                temperature: float = 0.0, top_k: int = 0,
-               eos_id: Optional[int] = None, **extra) -> Future:
-        """Queue a generation request; returns a Future resolving to a
-        :class:`GenerationResult`. Anything that could never run fails
-        here with a ValueError."""
-        for name in extra:
-            if name in _UNPORTED_SUBMIT_KNOBS:
-                raise NotImplementedError(
-                    f"submit({name}=...) belongs to a serving plane that "
-                    "is not ported yet")
+               eos_id: Optional[int] = None,
+               session_id: Optional[str] = None,
+               kind=RequestKind.GENERATE, beam_width: int = 0,
+               pooling: str = "mean", token_mask=None,
+               **extra) -> Future:
+        """Queue a typed request; returns a Future resolving to a
+        :class:`GenerationResult` (GENERATE, CONSTRAINED), a
+        :class:`~.workloads.ScoreResult` (SCORE), an
+        :class:`~.workloads.EmbedResult` (EMBED) or a
+        :class:`~.workloads.BeamResult` (BEAM). Anything that could never
+        run — a malformed prompt, an unknown keyword, a knob given with
+        the wrong kind, a capacity overrun — fails here with a
+        ValueError.
+
+        ``kind`` takes the enum, its string value or its wire byte:
+
+        - ``GENERATE`` — continuation;
+        - ``SCORE`` — prefill-only per-token logprobs and perplexity of
+          the prompt (paged pool; ``max_new_tokens`` is ignored);
+        - ``EMBED`` — pooled post-``ln_f`` hidden state of the prompt
+          (``pooling``: "mean" | "last"; paged pool; prefill-only);
+        - ``BEAM`` — width-``beam_width`` (default 4) beam search; needs
+          ``beam_width`` free lanes and the paged pool, where the beams
+          share the prompt's pages copy-on-write;
+        - ``CONSTRAINED`` — ``token_mask`` gates every sampled token: a
+          fixed (V,) bool array or a callback ``step(generated_ids) ->
+          (V,) bool`` (grammar stepping).
+
+        ``session_id`` (needs ``prefix_cache=True``) threads a multi-turn
+        conversation: at finish the request's written pages are retained
+        under the id, and the next ``submit`` whose prompt extends the
+        retained context maps them instead of prefilling the history
+        again. Each turn's retention supersedes the last;
+        :meth:`drop_session` releases it."""
         if extra:
             raise ValueError(
-                f"submit() got unknown keyword argument(s) {sorted(extra)}; "
-                "valid: temperature, top_k, eos_id")
+                f"submit() got unknown keyword argument(s) "
+                f"{sorted(extra)}; valid: temperature, top_k, eos_id, "
+                "session_id, kind, beam_width, pooling, token_mask")
+        kind = RequestKind.coerce(kind)
         raw = np.asarray(prompt_ids)
         if raw.size and not np.issubdtype(raw.dtype, np.integer):
             raise ValueError("prompt_ids must be integer token ids "
@@ -184,17 +294,85 @@ class ContinuousBatchingScheduler:
                 f"prompt ids outside the vocabulary [0, {vocab})")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
-        total = prompt.size + max_new_tokens - 1
+        # a knob on the wrong kind fails loudly instead of doing nothing
+        if beam_width and kind is not RequestKind.BEAM:
+            raise ValueError("beam_width is a BEAM knob "
+                             f"(got kind={kind.value!r})")
+        if token_mask is not None and kind is not RequestKind.CONSTRAINED:
+            raise ValueError("token_mask is a CONSTRAINED knob "
+                             f"(got kind={kind.value!r})")
+        if pooling != "mean" and kind is not RequestKind.EMBED:
+            raise ValueError("pooling is an EMBED knob "
+                             f"(got kind={kind.value!r})")
+        if session_id is not None:
+            if self._prefix is None:
+                raise ValueError("session_id needs prefix_cache=True "
+                                 "(and the paged pool)")
+            if kind not in (RequestKind.GENERATE,
+                            RequestKind.CONSTRAINED):
+                raise ValueError("session_id threads multi-turn "
+                                 "generate/constrained requests only "
+                                 f"(got kind={kind.value!r})")
+        if kind in (RequestKind.SCORE, RequestKind.EMBED,
+                    RequestKind.BEAM) and not self.paged:
+            raise ValueError(f"{kind.value} requests need the paged "
+                             "pool (pass page_len and/or n_pages)")
+        if kind is RequestKind.SCORE and prompt.size < 2:
+            raise ValueError("scoring needs at least 2 tokens "
+                             "(position 0 is unconditional)")
+        if kind is RequestKind.EMBED \
+                and pooling not in workloads.POOLING_WIRE:
+            raise ValueError(f"unknown pooling {pooling!r}; expected "
+                             f"one of {sorted(workloads.POOLING_WIRE)}")
+        if kind is RequestKind.CONSTRAINED:
+            if token_mask is None:
+                raise ValueError("constrained decoding needs "
+                                 "token_mask (array or callback)")
+            if not callable(token_mask):
+                # check and normalize a fixed mask once, here
+                token_mask = workloads.resolve_mask(token_mask, [], vocab)
+        if kind is RequestKind.BEAM:
+            beam_width = int(beam_width) or 4
+            if not 1 <= beam_width <= self.n_slots:
+                raise ValueError(
+                    f"beam_width {beam_width} outside "
+                    f"[1, n_slots={self.n_slots}] — the whole group "
+                    "admits together")
+            if temperature > 0 or top_k > 0:
+                raise ValueError("beam search ranks exact log-probs; "
+                                 "temperature/top_k do not apply")
+        else:
+            beam_width = 0
+        if kind in (RequestKind.SCORE, RequestKind.EMBED):
+            # prefill-only: the request retires at its final chunk and
+            # every prompt row's k/v is written (capacity = prompt)
+            max_new_tokens = 1
+            total = int(prompt.size)
+        else:
+            total = prompt.size + max_new_tokens - 1
         if total > self.engine.max_len:
             raise ValueError(
                 f"prompt ({prompt.size}) + budget = {total} exceeds "
                 f"the slot capacity max_len={self.engine.max_len}")
-        if self.paged and self._pages.pages_for(total) > self._pages.n_pages:
-            raise ValueError(
-                f"request needs {self._pages.pages_for(total)} pages "
-                f"({total} tokens at page_len={self._pages.page_len}) but "
-                f"the pool holds {self._pages.n_pages} — it could never "
-                "run even alone")
+        if self.paged:
+            full = self._pages.pages_for(total)
+            if kind is RequestKind.BEAM:
+                # the prompt's FULL pages are shared (one copy across the
+                # group), only the divergent tail is per beam
+                shr = prompt.size // self._pages.page_len
+                need = shr + beam_width * (full - shr)
+                if need > self._pages.n_pages:
+                    raise ValueError(
+                        f"beam fan-out needs {need} pages ({shr} "
+                        f"shared prefix + {beam_width} x {full - shr} "
+                        f"divergent) but the pool holds "
+                        f"{self._pages.n_pages}")
+            elif full > self._pages.n_pages:
+                raise ValueError(
+                    f"request needs {full} pages ({total} tokens at "
+                    f"page_len={self._pages.page_len}) but the pool "
+                    f"holds {self._pages.n_pages} — it could never "
+                    "run even alone")
         now = time.perf_counter()
         fut: Future = Future()
         with self._lock:
@@ -206,7 +384,11 @@ class ContinuousBatchingScheduler:
                 max_new_tokens=int(max_new_tokens),
                 temperature=float(temperature), top_k=int(top_k),
                 eos_id=eos_id, future=fut, submitted_ts=now,
-                queued_ts=now)
+                queued_ts=now, session_id=session_id, kind=kind,
+                beam_width=beam_width, pooling=pooling,
+                token_mask=token_mask)
+            if kind is RequestKind.BEAM:
+                req.beam = BeamState(width=beam_width)
             self._next_id += 1
             self._queue.append(req)
             self.stats["requests"] += 1
@@ -228,6 +410,10 @@ class ContinuousBatchingScheduler:
                     self._admit_one(slot, req)
             did = did or bool(admissions)
             did = self._decode_sweep() or did
+            if did:
+                self._record_snapshot()
+            else:
+                self._record_idle()
         return did
 
     def run_until_idle(self, max_steps: int = 100000):
@@ -275,12 +461,20 @@ class ContinuousBatchingScheduler:
         """Resolve every queued and in-flight future with ``exc`` and
         clear the pool (the serve-loop crash path)."""
         with self._lock:
-            doomed = [r for r in self.slots if r is not None]
-            doomed += list(self._queue)
+            doomed, seen = [], set()
+            for r in list(self.slots) + list(self._queue):
+                # a beam group occupies several lanes — fail it ONCE
+                if r is not None and r.id not in seen:
+                    seen.add(r.id)
+                    doomed.append(r)
             self.slots = [None] * self.n_slots
             self._queue.clear()
             if self.paged:
                 self._pages.reset()
+                if self._prefix is not None:
+                    # reset() zeroed the refcounts the cache's holds
+                    # backed: drop the bookkeeping without a decref
+                    self._prefix.forget()
         for req in doomed:
             try:
                 req.future.set_exception(exc)
@@ -321,19 +515,63 @@ class ContinuousBatchingScheduler:
     def _free_slots(self):
         return [i for i, r in enumerate(self.slots) if r is None]
 
-    def _first_chunk_pages(self, req) -> int:
-        """Pages the request's first prefill chunk needs (paged)."""
+    def _admission_plan(self, req):
+        """Paged-admission plan for ``req`` (caller holds ``_lock``):
+        ``(shared_pages, matched_tokens, need)`` — the resident pages its
+        prompt's prefix already has (the session's retention first, then
+        the block index), the prompt tokens those cover, and the FREE
+        pages its first prefill chunk still needs. The match stops at
+        ``ctx_len - 1`` so that at least one token prefills: the final
+        chunk's logits are the first-token sample."""
         ctx_len = req.prompt.size + len(req.generated)
-        return self._pages.pages_for(min(ctx_len, self.engine.chunk_len))
+        if self._prefix is None or req.kind in (RequestKind.SCORE,
+                                                RequestKind.EMBED):
+            # SCORE needs every position's logits and EMBED every
+            # position's hidden row — a prefix hit would skip them
+            return [], 0, self._pages.pages_for(
+                min(ctx_len, self.engine.chunk_len))
+        ctx = req.context()
+        cap = ctx_len - 1
+        shared: List[int] = []
+        matched = 0
+        if req.session_id is not None:
+            sm = self._prefix.session_match(req.session_id, ctx)
+            if sm is not None:
+                n, shared = sm
+                # an identical resubmit keeps the pages (the tail
+                # position is rewritten into a copy) but leaves one token
+                # to prefill
+                matched = min(n, cap)
+        if not shared:
+            shared = self._prefix.match(ctx)
+            while shared and len(shared) * self._pages.page_len > cap:
+                shared.pop()
+            matched = len(shared) * self._pages.page_len
+        first_end = min(ctx_len, matched + self.engine.chunk_len)
+        need = max(0, self._pages.pages_for(first_end) - len(shared))
+        return shared, matched, need
 
     def _preempt_slot(self, victim_slot: int) -> ServingRequest:
         """Preempt the request in ``victim_slot`` (caller holds
         ``_lock``): free the lane and its pages, reset mid-prefill
-        progress, and re-queue its context at the BACK."""
+        progress, and re-queue its context at the BACK. A beam request
+        preempts as a GROUP (its lanes share pages and advance in
+        lockstep); its rerun restarts from the prompt. Partial SCORE and
+        EMBED tallies reset too."""
         victim = self.slots[victim_slot]
-        self.slots[victim_slot] = None
-        if self.paged:
-            self._pages.release(victim_slot)
+        if victim.beam is not None:
+            for s in range(self.n_slots):
+                if self.slots[s] is victim:
+                    self.slots[s] = None
+                    self._release_pages(s)
+            victim.beam = BeamState(width=victim.beam_width)
+            victim.released_pages = 0
+        else:
+            self.slots[victim_slot] = None
+            self._release_pages(victim_slot)
+        victim.score_lps = []
+        victim.embed_acc = None
+        victim.embed_last = None
         victim.pending = None
         victim.done_tokens = 0
         victim.preemptions += 1
@@ -342,19 +580,43 @@ class ContinuousBatchingScheduler:
         self.stats["preemptions"] += 1
         return victim
 
-    def _retire_slot(self, slot: int) -> int:
-        """Finish-path page release (caller holds ``_lock``). Returns the
-        mappings removed."""
+    def _release_pages(self, slot: int) -> int:
+        """Drop the slot's page holds (paged; a no-op under dense
+        slotting). Pages the prefix cache still holds stay resident."""
         return self._pages.release(slot) if self.paged else 0
+
+    def _retire_slot(self, slot: int, req: ServingRequest) -> int:
+        """Finish-path page release (caller holds ``_lock``). With the
+        prefix cache the request's written context is registered first:
+        full blocks into the index and, for a ``session_id`` request, the
+        whole written mapping (partial tail page included) under the
+        session. The last sampled token's k/v was never written, so the
+        retained context stops one short. Preemption registers nothing
+        (its point is to free pages). Returns the mappings removed."""
+        if not self.paged:
+            return 0
+        if self._prefix is not None:
+            ctx = req.context()
+            written = int(ctx.size) - 1
+            pages = self._pages.slot_pages(slot)
+            if written > 0 and pages:
+                self._pages.note_fill(slot, written)
+                self._prefix.insert(ctx[:written], pages)
+                if req.session_id is not None:
+                    keep = self._pages.pages_for(written)
+                    self._prefix.retain_session(
+                        req.session_id, ctx[:written], pages[:keep])
+        return self._pages.release(slot)
 
     def _maybe_preempt(self) -> bool:
         """Starvation guard: the queue head waited past the deadline and
-        cannot admit → preempt the decoding request with the most
+        cannot admit (no free slot, or not enough free pages for its
+        first chunk) → preempt the decoding request with the most
         remaining budget."""
         if self.starvation_ms is None or not self._queue or self._draining:
             return False
         if self._free_slots() and not (
-                self.paged and self._first_chunk_pages(self._queue[0])
+                self.paged and self._admission_plan(self._queue[0])[2]
                 > self._pages.free_pages):
             return False
         waited_ms = (time.perf_counter() - self._queue[0].queued_ts) * 1e3
@@ -367,7 +629,9 @@ class ContinuousBatchingScheduler:
         if victim_slot is None:
             return False
         victim = self.slots[victim_slot]
-        if victim.remaining() <= 0 or not victim.generated:
+        progress = (victim.beam.progress() if victim.beam is not None
+                    else len(victim.generated))
+        if victim.remaining() <= 0 or not progress:
             return False       # nothing to save / about to finish anyway
         self._preempt_slot(victim_slot)
         return True
@@ -376,20 +640,33 @@ class ContinuousBatchingScheduler:
         """Under the metadata lock: pair free slots with queued requests
         and reserve the slots. A request whose future was cancelled while
         queued is dropped here. Paged mode also gates on the head's first
-        chunk fitting the free list (FIFO holds)."""
+        chunk fitting the free list, after evicting cold cached pages
+        (FIFO holds). A BEAM head reserves its whole group — beam_width
+        lanes — at once (the root lane prefills; the others wait for the
+        fan-out) or waits."""
         out = []
         if self._draining:
             return out
-        reserved = 0
+        reserved = 0            # pages promised to this batch's heads
         while self._queue:
             req = self._queue[0]
+            lanes = req.beam_width if req.kind is RequestKind.BEAM else 1
             free = self._free_slots()
-            if not free:
+            if len(free) < lanes:
                 break
+            shared: List[int] = []
+            matched = need = 0
             if self.paged:
-                need = self._first_chunk_pages(req)
+                shared, matched, need = self._admission_plan(req)
                 if need > self._pages.free_pages - reserved:
-                    break
+                    # evict cold cached pages before refusing; the pages
+                    # the head just matched are protected until mapped
+                    if self._prefix is not None:
+                        self._prefix.evict(
+                            need - (self._pages.free_pages - reserved),
+                            protect=frozenset(shared))
+                    if need > self._pages.free_pages - reserved:
+                        break
             self._queue.popleft()
             # a re-queued preemption victim is already RUNNING
             if not req.future.running() and \
@@ -402,8 +679,24 @@ class ContinuousBatchingScheduler:
                 req.done_tokens = 0
                 req.prefill_s = 0.0
                 req.chunks = 0
+                if shared:
+                    # map the matched prefix in the same lock hold as the
+                    # plan (no eviction between): those tokens never
+                    # prefill, the tail's chunks start past them
+                    self._pages.map_shared(slot, shared)
+                    self._pages.note_fill(slot, matched)
+                    req.done_tokens = matched
+                    self._prefix.note_hit(matched)
                 reserved += need
-            self.slots[slot] = req
+            if req.kind is RequestKind.BEAM:
+                # every lane of the group points at the one request;
+                # only the root (beam.slots[0]) prefills
+                req.beam = BeamState(width=lanes, slots=list(free[:lanes]))
+                req.released_pages = 0
+                for s in free[:lanes]:
+                    self.slots[s] = req
+            else:
+                self.slots[slot] = req
             out.append((slot, req))
         return out
 
@@ -413,15 +706,21 @@ class ContinuousBatchingScheduler:
         ctx = req.context()
         t0 = time.perf_counter()
         logits, self.cache = self.engine.prefill_slot(self.cache, ctx, slot)
-        self._first_token(slot, req, logits, time.perf_counter() - t0)
+        req.prefill_s = time.perf_counter() - t0
+        self._first_token(slot, req, logits)
 
     def _advance_prefills(self) -> bool:
         """Paged mode: advance every prefilling slot by ONE chunk. Pages
-        for the chunk are mapped first (preempting under pressure); the
-        final chunk samples the first token."""
+        for the chunk are mapped first (preempting under pressure) and
+        shared pages it writes into are copied first. The final chunk
+        ends the prefill by kind: GENERATE and CONSTRAINED sample their
+        first token, SCORE and EMBED retire at once, BEAM fans out into
+        its group. A beam group's other lanes never prefill."""
         with self._lock:
             work = [(i, r) for i, r in enumerate(self.slots)
-                    if r is not None and r.pending is not None]
+                    if r is not None and r.pending is not None
+                    and (r.beam is None
+                         or (r.beam.slots and i == r.beam.slots[0]))]
         did = False
         for slot, req in work:
             with self._lock:
@@ -430,15 +729,32 @@ class ContinuousBatchingScheduler:
                 ctx = req.pending
                 done = req.done_tokens
                 n = min(self.engine.chunk_len, len(ctx) - done)
-                ok = self._ensure_pages(slot, req, done + n) \
-                    and self.slots[slot] is req
+                ok = self._ensure_pages(slot, req, done + n)
+                # shared pages this chunk writes into split first:
+                # planned under the lock, copied on the device outside it
+                cows = self._plan_cow(slot, done, done + n) \
+                    if ok and self.slots[slot] is req else []
+                ok = ok and self.slots[slot] is req
             did = True
             if not ok:
                 continue        # a preemption shuffle IS work
+            for src, dst in cows:
+                self.cache = self.engine.copy_page(self.cache, src, dst)
             self._pages.sync(self.cache)
+            chunk = ctx[done:done + n]
             t0 = time.perf_counter()
-            logits, self.cache = self.engine.prefill_chunk(
-                self.cache, ctx[done:done + n], slot, start=done)
+            logits = None
+            if req.kind is RequestKind.SCORE:
+                rows, self.cache = self.engine.verify_chunk(
+                    self.cache, chunk, slot, start=done)
+                self._score_rows(req, ctx, done, n, _host(rows))
+            elif req.kind is RequestKind.EMBED:
+                rows, self.cache = self.engine.embed_chunk(
+                    self.cache, chunk, slot, start=done)
+                self._embed_rows(req, n, _host(rows))
+            else:
+                logits, self.cache = self.engine.prefill_chunk(
+                    self.cache, chunk, slot, start=done)
             elapsed = time.perf_counter() - t0
             with self._lock:
                 req.prefill_s += elapsed
@@ -449,21 +765,53 @@ class ContinuousBatchingScheduler:
                     req.pending = None
                 self.stats["prefill_chunks"] += 1
             if final:
-                self._first_token(slot, req, logits, req.prefill_s)
+                if req.kind in (RequestKind.SCORE, RequestKind.EMBED):
+                    self._finish_prefill_only(slot, req)
+                elif req.beam is not None:
+                    self._expand_beam(slot, req, logits, len(ctx))
+                else:
+                    self._first_token(slot, req, logits)
         return did
 
+    @staticmethod
+    def _score_rows(req, ctx, done: int, n: int, rows):
+        """Fold one verify chunk's row logits (host f32) into the SCORE
+        tally: row i (position ``done+i``) is the next-token distribution
+        after ``ctx[:done+i+1]``, so it scores ``ctx[done+i+1]``; the
+        context's final row has no target and is dropped."""
+        tgt = np.asarray(ctx[done + 1: done + n + 1], np.int64)
+        if not tgt.size:
+            return
+        lg = rows[:tgt.size]
+        mx = lg.max(axis=-1, keepdims=True)
+        lse = mx[:, 0] + np.log(np.exp(lg - mx).sum(axis=-1))
+        req.score_lps.extend(
+            (lg[np.arange(tgt.size), tgt] - lse).tolist())
+
+    @staticmethod
+    def _embed_rows(req, n: int, rows):
+        """Fold one embed chunk's hidden rows (host f32) into the pooling
+        accumulators: a running sum for "mean", the newest valid row for
+        "last" (rows past ``n`` are bucket padding)."""
+        hid = rows[:n]
+        s = hid.sum(axis=0)
+        req.embed_acc = s if req.embed_acc is None else req.embed_acc + s
+        req.embed_last = hid[-1]
+
     def _ensure_pages(self, slot, req, tokens: int) -> bool:
-        """Grow ``slot``'s mapping to cover ``tokens`` rows, preempting
-        under page pressure (caller holds ``_lock``). Victims: decoding
-        slots first, most remaining budget first; then mid-prefill slots,
-        least progress first. If the pool still cannot cover the growth,
+        """Grow ``slot``'s mapping to cover ``tokens`` rows (caller holds
+        ``_lock``). Cold cached pages are evicted first; then victims are
+        preempted: decoding slots first, most remaining budget first;
+        then mid-prefill slots, least progress first. A beam sibling of
+        ``req`` is never a victim (its preemption takes the whole group,
+        ``slot`` included). If the pool still cannot cover the growth,
         ``req`` itself is preempted (False)."""
-        if self._pages.map(slot, tokens):
+        if self._try_map(slot, tokens):
             return True
         while True:
             victim_slot = max(
                 (i for i, r in enumerate(self.slots)
-                 if r is not None and i != slot),
+                 if r is not None and i != slot and r is not req),
                 key=lambda i: (self.slots[i].pending is None,
                                -self.slots[i].done_tokens
                                if self.slots[i].pending is not None
@@ -472,33 +820,121 @@ class ContinuousBatchingScheduler:
             if victim_slot is None:
                 break
             self._preempt_slot(victim_slot)
-            if self._pages.map(slot, tokens):
+            if self._try_map(slot, tokens):
                 return True
         self._preempt_slot(slot)
         return False
 
-    def _first_token(self, slot, req, logits, prefill_s: float):
+    def _try_map(self, slot, tokens: int) -> bool:
+        """``PageTable.map``; when the free list cannot cover the growth,
+        LRU-evict cached prefix pages (a cold cache goes before a live
+        request) and try once more. Caller holds ``_lock``."""
+        tokens = int(tokens)
+        if self._pages.map(slot, tokens):
+            return True
+        if self._prefix is not None:
+            short = (self._pages.pages_for(tokens)
+                     - int(self._pages.mapped[slot])
+                     - self._pages.free_pages)
+            if short > 0 and self._prefix.evict(short) \
+                    and self._pages.map(slot, tokens):
+                return True
+        return False
+
+    def _plan_cow(self, slot, start: int, end: int) -> list:
+        """Split every page ``slot`` is about to write (context rows
+        ``[start, end)``) that has other holders. Caller holds ``_lock``;
+        returns the ``(src, dst)`` page copies the caller runs on the
+        device (``engine.copy_page``) BEFORE the write — device work
+        never runs under the lock. Runs whenever the pool is paged: beam
+        lanes share pages without the prefix cache.
+
+        With no free page for a split: evict cold cache, then transfer
+        sole ownership (drop the cache's holds on the page — the write is
+        then private, no copy), then preempt the other slot mapping it."""
+        if not self.paged or end <= start:
+            return []
+        plen = self._pages.page_len
+        copies = []
+        for j in range(start // plen, (end - 1) // plen + 1):
+            if j >= int(self._pages.mapped[slot]):
+                break
+            while True:
+                p = int(self._pages.table[slot, j])
+                if int(self._pages.refcount[p]) <= 1:
+                    break                      # private: write in place
+                split = self._pages.cow(slot, j)
+                if split is not None:
+                    copies.append(split)
+                    if self._prefix is not None:
+                        self._prefix.cow_copies += 1
+                    break
+                if self._prefix is not None:
+                    if self._prefix.evict(1):
+                        continue
+                    if self._prefix.release_page_holds(p):
+                        continue               # may now be private
+                other = next(
+                    (i for i in range(self.n_slots)
+                     if i != slot and self.slots[i] is not None
+                     and p in self._pages.table[
+                         i, :int(self._pages.mapped[i])]),
+                    None)
+                if other is None:              # refs must come from
+                    break                      # somewhere: cannot happen
+                self._preempt_slot(other)
+                if self.slots[slot] is None:
+                    # ``other`` was a beam sibling: the group preemption
+                    # took this slot too — nothing left to plan
+                    return copies
+        return copies
+
+    def _first_token(self, slot, req, logits):
         """Shared admission tail: sample the first token (the TTFT
-        sample), then park it for the next sweep or finish at once."""
-        tok = int(self._read_tokens(self.engine.sample(
-            logits[None], req.temperature, req.top_k, self._gen))[0])
+        sample) — through the masked sampler for CONSTRAINED — then park
+        it for the next sweep or finish at once. With the prefix cache
+        the just-prefilled context's full blocks are registered, so that
+        CONCURRENT requests with the same prompt share them from their
+        own admission on."""
+        if req.kind is RequestKind.CONSTRAINED:
+            mask = workloads.resolve_mask(
+                req.token_mask, req.generated,
+                int(self.engine.cfg.vocab_size))
+            toks = self.engine.sample_masked(
+                logits[None], req.temperature, req.top_k, self._gen,
+                mask[None])
+        else:
+            toks = self.engine.sample(logits[None], req.temperature,
+                                      req.top_k, self._gen)
+        tok = int(self._read_tokens(toks)[0])
         now = time.perf_counter()
         with self._lock:
             self.stats["prefills"] += 1
             if req.first_token_ts is None:
                 req.first_token_ts = now
+            if self.paged and self._prefix is not None:
+                ctx_now = req.context()
+                self._pages.note_fill(slot, ctx_now.size)
+                self._prefix.insert(ctx_now, self._pages.slot_pages(slot))
             req.generated.append(tok)
             self.stats["tokens"] += 1
             if self._done(req, tok):
                 self.slots[slot] = None
-                self._retire_slot(slot)
-                self._finish(req, tok)
+                released = self._retire_slot(slot, req)
+                self._finish(req, tok, mapped_pages=released)
             else:
                 self._last_tokens[slot] = tok
 
     def _decode_sweep(self) -> bool:
         with self._lock:      # snapshot; only step() (serialized) mutates
+            cows = []
             if self.paged:
+                # a page is shared only under the prefix cache's holds or
+                # when two mappings name it (beam lanes); growth below
+                # maps fresh pages, so a pool with neither has no split
+                # to plan this sweep
+                shared = self._prefix is not None or \
+                    self._pages.mapped_pages != self._pages.used_pages
                 # page growth BEFORE the sweep: each decoding slot's next
                 # write position must be mapped; under pressure
                 # _ensure_pages preempts, so re-derive the active set
@@ -506,40 +942,73 @@ class ContinuousBatchingScheduler:
                     req = self.slots[i]
                     if req is None or req.pending is not None:
                         continue
-                    self._ensure_pages(i, req, self._slot_tokens(req))
+                    w = self._slot_tokens(req)
+                    ok = self._ensure_pages(i, req, w)
+                    if shared and ok and self.slots[i] is req:
+                        # the sweep writes this slot's row w-1: split it
+                        # first if shared (a session's append, beam
+                        # siblings on one tail page)
+                        cows.extend(self._plan_cow(i, w - 1, w))
             active = [i for i, r in enumerate(self.slots)
                       if r is not None and r.pending is None]
             if not active:
                 return False
+            vocab = int(self.engine.cfg.vocab_size)
             temps = np.zeros((self.n_slots,), np.float32)
             topks = np.zeros((self.n_slots,), np.int64)
+            masks = None
             for i in active:
                 temps[i] = self.slots[i].temperature
                 topks[i] = self.slots[i].top_k
+                if self.slots[i].kind is RequestKind.CONSTRAINED:
+                    # the mask for the NEXT token; other lanes stay
+                    # all-true (their tokens are the plain sampler's)
+                    if masks is None:
+                        masks = np.ones((self.n_slots, vocab), bool)
+                    masks[i] = workloads.resolve_mask(
+                        self.slots[i].token_mask,
+                        self.slots[i].generated, vocab)
             tokens_in = self._last_tokens.copy()
         if self.paged:
+            for src, dst in cows:
+                self.cache = self.engine.copy_page(self.cache, src, dst)
             self._pages.sync(self.cache)
         t0 = time.perf_counter()
         logits, self.cache = self.engine.decode_step(self.cache, tokens_in)
-        toks = self._read_tokens(self.engine.sample(logits, temps, topks,
-                                                    self._gen))
+        if masks is None:
+            toks = self.engine.sample(logits, temps, topks, self._gen)
+        else:
+            toks = self.engine.sample_masked(logits, temps, topks,
+                                             self._gen, masks)
+        toks = self._read_tokens(toks)
         dt = time.perf_counter() - t0
         with self._lock:
             self.stats["decode_steps"] += 1
             self.stats["decode_s"] += dt
             self.stats["decode_tokens"] += len(active)
             self.stats["tokens"] += len(active)
+            beams = []
             for i in active:
                 req = self.slots[i]
                 if req is None:
+                    continue
+                if req.beam is not None:
+                    # one joint step a GROUP, below
+                    if all(b is not req for b in beams):
+                        beams.append(req)
                     continue
                 tok = int(toks[i])
                 req.generated.append(tok)
                 self._last_tokens[i] = tok
                 if self._done(req, tok):
                     self.slots[i] = None
-                    self._retire_slot(i)
-                    self._finish(req, tok)
+                    released = self._retire_slot(i, req)
+                    self._finish(req, tok, mapped_pages=released)
+            if beams:
+                # only a sweep with a live beam group reads the logits
+                logits_np = _host(logits)
+                for req in beams:
+                    self._advance_beam(req, logits_np)
         return True
 
     def _read_tokens(self, toks: torch.Tensor) -> np.ndarray:
@@ -567,16 +1036,231 @@ class ContinuousBatchingScheduler:
     @staticmethod
     def _slot_tokens(r: ServingRequest) -> int:
         """Tokens a slot holding ``r`` accounts for: chunk progress while
-        prefilling, prompt + generated when decoding."""
+        prefilling, prompt + generated when decoding (a beam group's
+        lockstep progress on its lanes)."""
         if r.pending is not None:
             return r.done_tokens
+        if r.beam is not None:
+            return r.prompt.size + r.beam.progress()
         return r.prompt.size + len(r.generated)
 
-    def _finish(self, req: ServingRequest, last_tok: int):
+    # ------------------------------------------------------ beam search
+    def _expand_beam(self, root: int, req: ServingRequest, logits,
+                     ctx_tokens: int):
+        """Fan the finished root prefill out into the beam group: rank
+        the root's next-token log-probs (host f32, numpy's stable sort),
+        give the top candidates one reserved lane each — the root keeps
+        its lane, every sibling ``map_shared``s the root's pages, so the
+        prefix costs ONE set of pages and divergence splits lazily in the
+        sweep's copy-on-write pass. This is the TTFT sample. A candidate
+        that is terminal on arrival (instant EOS, budget 1) goes straight
+        to the done list and frees its lane."""
+        lg = _host(logits)
+        lg = lg - lg.max()
+        lsm = lg - np.log(np.exp(lg).sum())
+        now = time.perf_counter()
+        pos_fix = []
+        with self._lock:
+            self.stats["prefills"] += 1
+            beam = req.beam
+            if beam is None or self.slots[root] is not req:
+                return          # group preempted since the last chunk
+            if req.first_token_ts is None:
+                req.first_token_ts = now
+            lanes = list(beam.slots)
+            order = np.argsort(-lsm, kind="stable")[:len(lanes)]
+            root_pages = self._pages.slot_pages(root)
+            self._pages.note_fill(root, ctx_tokens)
+            alive_slots: List[int] = []
+            alive_tokens: List[List[int]] = []
+            alive_scores: List[float] = []
+            root_done = False
+            for rank, t in enumerate(order):
+                t, sc = int(t), float(lsm[int(t)])
+                slot = lanes[rank]
+                finished = ((req.eos_id is not None and t == req.eos_id)
+                            or req.max_new_tokens <= 1)
+                if rank > 0 and not finished:
+                    # the fan-out itself costs no new page
+                    self._pages.map_shared(slot, root_pages)
+                    self._pages.note_fill(slot, ctx_tokens)
+                    pos_fix.append(slot)
+                if finished:
+                    beam.done.append(([t], sc))
+                    if rank == 0:
+                        root_done = True    # release AFTER clones map
+                    else:
+                        self.slots[slot] = None
+                else:
+                    alive_slots.append(slot)
+                    alive_tokens.append([t])
+                    alive_scores.append(sc)
+                    self._last_tokens[slot] = t
+            for slot in lanes[len(order):]:   # vocab < width leftovers
+                self.slots[slot] = None
+            if root_done:
+                req.released_pages += self._pages.release(root)
+                self.slots[root] = None
+            beam.slots, beam.tokens, beam.scores = \
+                alive_slots, alive_tokens, alive_scores
+            beam.expanded = True
+            self.stats["tokens"] += len(order)
+            if not alive_slots:
+                self._finish_beam(req)
+        if pos_fix:
+            # sibling lanes were never prefilled: their cursors start at
+            # the shared context's length (in place, before the sweep)
+            self.cache = self.engine.set_positions(self.cache, pos_fix,
+                                                   ctx_tokens)
+
+    def _advance_beam(self, req: ServingRequest, logits_np):
+        """One joint beam step after the sweep (caller holds ``_lock``):
+        rank score + logprob over every (live beam, token) pair with
+        numpy's stable sort, keep the top ``len(slots)``, and re-point
+        the lanes — a parent's FIRST surviving candidate keeps the
+        parent's lane (and pages) in place; every further candidate of
+        the same parent maps a freed lane onto the parent's pages
+        (``map_shared``; the next sweep's copy-on-write pass splits the
+        written tail page). Finished candidates retire to the done list
+        and shrink the width. At width 1 the candidate is the argmax of
+        the logits: greedy ``generate``'s token."""
+        beam = req.beam
+        if beam is None or not beam.slots:
+            return
+        lanes = list(beam.slots)
+        ka = len(lanes)
+        lg = logits_np[np.asarray(lanes)]
+        lg = lg - lg.max(axis=-1, keepdims=True)
+        lsm = lg - np.log(np.exp(lg).sum(axis=-1, keepdims=True))
+        vocab = lsm.shape[-1]
+        cand = np.asarray(beam.scores, np.float64)[:, None] + lsm
+        order = np.argsort(-cand, axis=None, kind="stable")[:ka]
+        parents = (order // vocab).astype(int)
+        toks = (order % vocab).astype(int)
+        written = req.prompt.size + len(beam.tokens[0])
+        # page lists taken BEFORE any release: a clone increfs its
+        # parent's pages from this list
+        parent_pages = {int(p): self._pages.slot_pages(lanes[int(p)])
+                        for p in set(parents.tolist())}
+        chosen = set(parents.tolist())
+        # lanes of parents with NO surviving candidate free first (no
+        # clone maps FROM them); a chosen parent's pages are released
+        # only after every clone has taken its refs
+        free_lanes = [lanes[p] for p in range(ka) if p not in chosen]
+        for s in free_lanes:
+            req.released_pages += self._pages.release(s)
+        alive_slots: List[int] = []
+        alive_tokens: List[List[int]] = []
+        alive_scores: List[float] = []
+        deferred: List[int] = []
+        first_seen: set = set()
+        for r in range(len(order)):
+            p, t = int(parents[r]), int(toks[r])
+            sc = float(cand[p, t])
+            seq = beam.tokens[p] + [t]
+            finished = ((req.eos_id is not None and t == req.eos_id)
+                        or len(seq) >= req.max_new_tokens)
+            keeps_lane = p not in first_seen
+            first_seen.add(p)
+            if finished:
+                beam.done.append((seq, sc))
+                if keeps_lane:
+                    deferred.append(lanes[p])
+                continue
+            if keeps_lane:
+                slot = lanes[p]
+            else:
+                slot = free_lanes.pop()
+                self._pages.map_shared(slot, parent_pages[p])
+                self._pages.note_fill(slot, written)
+                self.slots[slot] = req
+            self._last_tokens[slot] = t
+            alive_slots.append(slot)
+            alive_tokens.append(seq)
+            alive_scores.append(sc)
+        for s in deferred:
+            # parents whose lane-keeping candidate finished: release only
+            # now — later clones of the same parent hold their refs
+            req.released_pages += self._pages.release(s)
+            self.slots[s] = None
+        for s in free_lanes:    # unselected lanes no clone claimed
+            self.slots[s] = None
+        beam.slots, beam.tokens, beam.scores = \
+            alive_slots, alive_tokens, alive_scores
+        if not alive_slots:
+            self._finish_beam(req)
+
+    # -------------------------------------------------- typed finishes
+    def _finish_prefill_only(self, slot: int, req: ServingRequest):
+        """SCORE and EMBED retire at their final prefill chunk and never
+        take decode-sweep time. The completion instant is also the
+        first-token instant (the prefill is the product)."""
+        now = time.perf_counter()
+        with self._lock:
+            self.stats["prefills"] += 1
+            if self.slots[slot] is not req:
+                return          # preempted between chunk and finish
+            if req.first_token_ts is None:
+                req.first_token_ts = now
+            self.slots[slot] = None
+            released = self._release_pages(slot)
+            n_tok = int(req.prompt.size)
+            if req.kind is RequestKind.SCORE:
+                lps = np.asarray(req.score_lps, np.float32)
+                ppl = (float(np.exp(-lps.mean())) if lps.size
+                       else float("inf"))
+                result = ScoreResult(logprobs=lps, perplexity=ppl,
+                                     prompt_tokens=n_tok)
+            else:
+                emb = (req.embed_last if req.pooling == "last"
+                       else req.embed_acc / float(n_tok))
+                result = EmbedResult(
+                    embedding=np.asarray(emb, np.float32),
+                    pooling=req.pooling, prompt_tokens=n_tok)
+            self._finish_workload(req, result, released, n_tok)
+
+    def _finish_beam(self, req: ServingRequest):
+        """All hypotheses done (caller holds ``_lock``; lanes and pages
+        were released as each finished): resolve the future with the
+        :class:`BeamResult`, best first."""
+        done = req.beam.done
+        order = sorted(range(len(done)), key=lambda i: -done[i][1])
+        seqs = [np.asarray(done[i][0], np.int32) for i in order]
+        scores = [float(done[i][1]) for i in order]
+        reason = ("eos" if (req.eos_id is not None and seqs
+                            and seqs[0].size
+                            and int(seqs[0][-1]) == req.eos_id)
+                  else "length")
+        result = BeamResult(sequences=seqs, scores=scores,
+                            beam_width=req.beam_width,
+                            finish_reason=reason)
+        resident = req.prompt.size + (seqs[0].size if seqs else 0)
+        self._finish_workload(req, result, req.released_pages, resident)
+
+    def _finish_workload(self, req: ServingRequest, result,
+                         mapped_pages: int, resident: int):
+        """Completion tail of the typed results (SCORE, EMBED, BEAM):
+        timings, residency accounting and the future."""
+        now = time.perf_counter()
+        self.stats["completions"] += 1
+        result.latency_s = now - req.submitted_ts
+        result.ttft_s = (None if req.first_token_ts is None
+                         else req.first_token_ts - req.submitted_ts)
+        result.prefill_s = req.prefill_s
+        self._note_final_residency(resident, mapped_pages)
+        try:
+            req.future.set_result(result)
+        except InvalidStateError:
+            pass   # the caller gave up on an in-flight request
+
+    def _finish(self, req: ServingRequest, last_tok: int,
+                mapped_pages: int = 0):
         reason = "eos" if (req.eos_id is not None
                            and last_tok == req.eos_id) else "length"
         now = time.perf_counter()
         self.stats["completions"] += 1
+        self._note_final_residency(req.prompt.size + len(req.generated),
+                                   mapped_pages)
         try:
             req.future.set_result(GenerationResult(
                 tokens=np.asarray(req.generated, np.int32),
@@ -588,11 +1272,159 @@ class ContinuousBatchingScheduler:
         except InvalidStateError:
             pass   # the caller gave up on an in-flight request
 
+    # ------------------------------------------------ KV accounting
+    def _note_final_residency(self, resident: int, mapped_pages: int):
+        """A finished request's final residency: how much of what it
+        reserved it used — the max_len slot under dense slotting, its
+        mapped pages under paging."""
+        resident = min(int(resident), self.engine.max_len)
+        if self.paged:
+            cap = max(1, mapped_pages) * self._pages.page_len
+            ratio = min(1.0, resident / cap)
+        else:
+            ratio = resident / self.engine.max_len
+        self._final_res_sum += ratio
+        self._final_res_n += 1
+
+    def _record_snapshot(self):
+        """Residency accounting of one working step (under ``_lock``, the
+        lock ``kv_report`` and ``reset_kv_window`` take). With the prefix
+        cache a shared page counts ONCE: allocated = pool pages with a
+        holder (slots or cache), resident = the per-page fill census,
+        refreshed here for the active slots."""
+        with self._lock:
+            max_len = self.engine.max_len
+            resident_tokens = 0
+            n_active = 0
+            for r in self.slots:
+                if r is None:
+                    continue
+                n_active += 1
+                t = self._slot_tokens(r)
+                resident_tokens += t if t < max_len else max_len
+            resident = resident_tokens * self._kv_token_bytes
+            if n_active > self._peak_active:
+                self._peak_active = n_active
+            if self.paged and self._prefix is not None:
+                for i, r in enumerate(self.slots):
+                    if r is not None:
+                        self._pages.note_fill(
+                            i, self._slot_tokens(r)
+                            - (0 if r.pending is not None else 1))
+                alloc = self._pages.used_pages * self._kv_page_bytes
+                resident = min(self._pages.resident_tokens
+                               * self._kv_token_bytes, alloc)
+            elif self.paged:
+                # a just-sampled token counts resident one sweep before
+                # its page is mapped: clamp
+                alloc = self._pages.mapped_pages * self._kv_page_bytes
+                resident = min(resident, alloc)
+            else:
+                alloc = self._kv_allocated
+            self._kv_last_resident = resident
+            self._kv_last_alloc = alloc
+            self._kv_resident_sum += resident
+            self._kv_alloc_sum += alloc
+            self._kv_samples += 1
+
+    def _record_idle(self):
+        """An idle step: a paged pool maps nothing, except what the prefix
+        cache still holds (real pool bytes until evicted)."""
+        with self._lock:
+            if self.paged and self._prefix is not None:
+                alloc = self._pages.used_pages * self._kv_page_bytes
+                self._kv_last_alloc = alloc
+                self._kv_last_resident = min(
+                    alloc, self._pages.resident_tokens
+                    * self._kv_token_bytes)
+            else:
+                self._kv_last_resident = 0
+                if self.paged:
+                    self._kv_last_alloc = 0
+
     # ---------------------------------------------------- inspection
+    def queue_depth(self) -> int:
+        with self._lock:
+            return len(self._queue)
+
+    def reset_kv_window(self):
+        """Restart the KV residency accumulators (running means and
+        final-residency samples), e.g. after a warm-up."""
+        with self._lock:
+            self._kv_resident_sum = 0.0
+            self._kv_alloc_sum = 0.0
+            self._kv_samples = 0
+            self._final_res_sum = 0.0
+            self._final_res_n = 0
+            self._peak_active = 0
+        return self
+
+    def kv_report(self) -> dict:
+        """KV residency accounting, plain data: allocated vs resident
+        bytes, the running-mean waste ratio since construction (or the
+        last ``reset_kv_window``), per-token bytes, mean final residency;
+        ``"paged"`` the page census, ``"prefix"`` the prefix cache's
+        counters (hits, hit tokens, copy-on-write copies, evictions)."""
+        with self._lock:
+            mean_res = (self._kv_resident_sum / self._kv_samples
+                        if self._kv_samples else 0.0)
+            if self.paged:
+                alloc_last = self._kv_last_alloc
+                mean_alloc = (self._kv_alloc_sum / self._kv_samples
+                              if self._kv_samples else 0.0)
+                waste_mean = (1.0 - self._kv_resident_sum
+                              / self._kv_alloc_sum
+                              if self._kv_alloc_sum else 0.0)
+            else:
+                alloc_last = mean_alloc = self._kv_allocated
+                waste_mean = (1.0 - mean_res / self._kv_allocated
+                              if self._kv_allocated else 0.0)
+            out = {
+                "allocated_bytes": alloc_last,
+                "allocated_bytes_mean": round(mean_alloc, 1),
+                "pool_bytes": self._kv_allocated,
+                "token_bytes": self._kv_token_bytes,
+                "resident_bytes_last": self._kv_last_resident,
+                "resident_bytes_mean": round(mean_res, 1),
+                "waste_ratio_last": round(1.0 - self._kv_last_resident
+                                          / alloc_last, 6) if alloc_last
+                else 0.0,
+                "waste_ratio_mean": round(waste_mean, 6),
+                "snapshots": self._kv_samples,
+                "peak_concurrent": self._peak_active,
+                "final_residency_mean": round(
+                    self._final_res_sum / self._final_res_n, 6)
+                if self._final_res_n else None,
+                "finished_requests": self._final_res_n,
+            }
+            if self.paged:
+                out["paged"] = self._pages.report()
+                out["kv_dtype"] = str(self.cache["k"].dtype).replace(
+                    "torch.", "")
+            if self._prefix is not None:
+                out["prefix"] = self._prefix.report()
+            return out
+
+    def drop_session(self, session_id: str) -> bool:
+        """Release a session's retained pages (end of the conversation):
+        they stay as cached prefix pages if the block index holds them,
+        else they free. True if the session existed."""
+        with self._lock:
+            if self._prefix is None:
+                return False
+            return self._prefix.drop_session(session_id)
+
     def check_pages(self) -> bool:
-        """Assert the free-XOR-refcounted page invariant. True for dense
-        pools."""
+        """Assert the free-XOR-refcounted page invariant, with the prefix
+        cache's holds as the external refs. True for dense pools."""
         with self._lock:
             if not self.paged:
                 return True
-            return self._pages.check()
+            return self._pages.check(
+                self._prefix.holds() if self._prefix is not None
+                else None)
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """A device tensor's values as host f32 numpy."""
+    return t.detach().float().cpu().numpy()

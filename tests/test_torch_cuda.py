@@ -1245,6 +1245,120 @@ def test_serving_capture_failure_raises_and_restores_the_stream(gen):
     assert cache["pos"].tolist() == [1, 1]
 
 
+# ------------------------------------- shared pages and typed requests
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_kernel_on_pages_shared_by_four_slots(gen, dtype):
+    """K2 over a page table in which 4 slots map the same prefix pages
+    (as prefix followers and beam lanes do) and each its own tail, at
+    cursors ending in different pages: its plain version's output, and
+    a second launch equal bit for bit."""
+    b, h, dh, plen, per_slot = 4, 8, 64, 16, 8
+    npg = 40
+    # every draw from the fixture's generator: the default one may be
+    # left registered with a graph by the capture tests above
+    k, v = (torch.randn((npg, plen, h, dh), generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
+    q = torch.randn((b, h, dh), generator=gen, device="cuda").to(dtype)
+    shared = [7, 3, 19, 30, 11]               # five full prefix pages
+    table = torch.full((b, per_slot), npg, dtype=torch.int32)
+    pos = torch.tensor([5 * plen, 5 * plen + 3, 6 * plen + 9, 7 * plen - 1],
+                       dtype=torch.int32)
+    for s in range(b):
+        need = int(pos[s]) // plen + 1
+        own = [20 + 3 * s + j for j in range(need - len(shared))]
+        table[s, :need] = torch.tensor(shared + own, dtype=torch.int32)
+    table, pos = table.cuda(), pos.cuda()
+    before = pa.LAUNCHES
+    out = pa.paged_attention(q, k, v, table, pos)
+    ref = pa.paged_attention_reference(q, k, v, table, pos)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), atol=ATOL[dtype],
+                               rtol=0)
+    assert torch.equal(out, pa.paged_attention(q, k, v, table, pos))
+
+
+def _result_values(r):
+    """A typed result's numbers, for an exact comparison."""
+    from deeplearning4j_tpu_torch.serving import (BeamResult, EmbedResult,
+                                                  ScoreResult)
+    if isinstance(r, ScoreResult):
+        return r.logprobs.tolist()
+    if isinstance(r, EmbedResult):
+        return r.embedding.tolist()
+    if isinstance(r, BeamResult):
+        return [s.tolist() for s in r.sequences], r.scores
+    return r.tokens.tolist()
+
+
+def _typed_serve(eng, kind):
+    """Two rounds of ``kind``'s requests through one paged scheduler (the
+    first round compiles, the second replays); each round's values."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.serving import (
+        ContinuousBatchingScheduler, vocab_mask)
+    rng = np.random.default_rng(5)
+    prefix = rng.integers(0, 64, 24)
+    prompts = [np.concatenate([prefix, rng.integers(0, 64, n)])
+               for n in (3, 5, 9)]
+    sched = ContinuousBatchingScheduler(
+        eng, n_slots=4, page_len=4, n_pages=96,
+        prefix_cache=kind in ("prefix", "session"))
+    reqs = {"prefix": [((p, 6), {}) for p in prompts],
+            "score": [((p,), {"kind": "score"}) for p in prompts],
+            "embed": [((prompts[0],), {"kind": "embed"}),
+                      ((prompts[1],), {"kind": "embed", "pooling": "last"})],
+            "beam": [((prompts[0], 6), {"kind": "beam", "beam_width": 3})],
+            "constrained": [
+                ((prompts[0], 6), {"kind": "constrained",
+                                   "token_mask": vocab_mask(range(0, 64, 3),
+                                                            64)}),
+                ((prompts[1], 6), {})]}
+    rounds = []
+    for r in range(2):
+        if kind == "session":
+            ctx, vals = prompts[r], []
+            for turn in range(3):
+                f = sched.submit(ctx, 4, session_id=f"s{r}")
+                sched.run_until_idle()
+                toks = f.result(30).tokens
+                vals.append(toks.tolist())
+                ctx = np.concatenate([ctx, toks, rng.integers(0, 64, 3)])
+            rounds.append(vals)
+            continue
+        futs = [sched.submit(*a, **k) for a, k in reqs[kind]]
+        sched.run_until_idle()
+        rounds.append([_result_values(f.result(30)) for f in futs])
+    assert sched.check_pages()
+    return rounds
+
+
+@pytest.mark.parametrize("kind", ["prefix", "session", "score", "embed",
+                                  "beam", "constrained"])
+def test_serving_typed_kinds_replay_equal_eager(gen, kind):
+    """Each request kind served through the replayed steps equals the
+    same serve on a twin engine under ``disable_graphs()``, bit for bit;
+    the kind's own entry point replayed, and the decoding kinds ran K2."""
+    import deeplearning4j_tpu_torch as tpkg
+    eng = _serving_engine(torch.bfloat16, paged_kernel="on")
+    twin = _serving_engine(torch.bfloat16, paged_kernel="on")
+    pa.reset_launches()
+    got = _typed_serve(eng, kind)
+    with tpkg.disable_graphs():
+        want = _typed_serve(twin, kind)
+    assert got == want
+    own = {"score": "verify_chunk", "embed": "embed_chunk",
+           "constrained": "sample_tokens_masked"}.get(
+        kind, "decode_paged_kernel")
+    assert eng.sentinels[own].calls["replay"] > 0, own
+    if kind not in ("score", "embed"):
+        assert pa.LAUNCHES > 0
+    if kind == "session":
+        assert eng.sentinels["copy_page"].calls["replay"] > 0
+
+
 # -------------------------------------- the DL4J workflow in the graphs
 # The workflow modules run inside the replayed step; each check below is
 # one way that can break silently on the card: (A) an lr baked at capture,

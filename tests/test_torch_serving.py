@@ -415,6 +415,29 @@ def test_scheduler_eos_stops_at_first_eos(engine, jengine, paged):
     assert jfut.result(timeout=5).tokens.tolist() == res.tokens.tolist()
 
 
+@pytest.mark.parametrize("paged", [False, True])
+def test_scheduler_warmup_leaves_a_seeded_generator_alone(engine, paged):
+    """Construction warms the masked sampler through the scheduler's own
+    generator and puts its state back: a seeded scheduler's tempered
+    requests draw what ``engine.sample`` draws on a generator seeded the
+    same, from each request's prefill logits in turn."""
+    gen = torch.Generator().manual_seed(5)
+    before = gen.get_state().clone()
+    kw = {"page_len": 4} if paged else {}
+    sched = ContinuousBatchingScheduler(engine, n_slots=1, generator=gen,
+                                        **kw)
+    assert torch.equal(gen.get_state(), before)
+    prompts = [_toks((7,), seed=60 + i) for i in range(6)]
+    futs = [sched.submit(p, max_new_tokens=1, temperature=1.5)
+            for p in prompts]
+    sched.run_until_idle()
+    ref = torch.Generator().manual_seed(5)
+    for p, fut in zip(prompts, futs):
+        logits, _ = engine.prefill_slot(engine.init_cache(1), p, 0)
+        want = engine.sample(logits[None], 1.5, 0, ref)
+        assert fut.result(timeout=0).tokens.tolist() == _np(want).tolist()
+
+
 def test_scheduler_background_thread_and_drain(engine, oracle):
     sched = ContinuousBatchingScheduler(engine, n_slots=2).start()
     try:
@@ -451,18 +474,13 @@ def test_unported_knobs_raise(model, engine):
         GenerationEngine(tcfg, tp, device="cpu", quant_kv="on")
     with pytest.raises(NotImplementedError, match="int8"):
         GenerationEngine(tcfg, tp, device="cpu", quant_weights="int8")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousBatchingScheduler(engine, n_slots=1, page_len=4,
-                                    prefix_cache=True)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ContinuousBatchingScheduler(engine, n_slots=1, slo=object())
+    for kw in ({"quant_kv": "int8"}, {"slo": object()},
+               {"trace_spans": False}, {"replica": "1"}):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            ContinuousBatchingScheduler(engine, n_slots=1, page_len=4,
+                                        **kw)
     with pytest.raises(TypeError):
         ContinuousBatchingScheduler(engine, n_slots=1, bogus=1)
-    sched = ContinuousBatchingScheduler(engine, n_slots=1, page_len=4)
-    for kw in ({"kind": "score"}, {"session_id": "s"},
-               {"beam_width": 2}, {"token_mask": np.ones(VOCAB, bool)}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            sched.submit(_toks((3,)), 2, **kw)
     with pytest.raises(NotImplementedError, match="int8"):
         kvcache.init_cache(tcfg, 1, dtype=torch.int8, device="cpu")
 

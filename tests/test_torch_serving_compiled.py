@@ -40,7 +40,8 @@ VOCAB = 61
 SMALL = dict(vocab_size=VOCAB, d_model=64, n_heads=4, n_layers=2, d_ff=128,
              max_seq=64, remat=False, attn_scores_bf16=False)
 ENTRY_POINTS = {"decode_step", "decode_paged", "decode_paged_kernel",
-                "prefill", "prefill_slot", "prefill_chunk", "sample_tokens",
+                "prefill", "prefill_slot", "prefill_chunk", "verify_chunk",
+                "embed_chunk", "sample_tokens", "sample_tokens_masked",
                 "copy_page"}
 
 
