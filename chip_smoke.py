@@ -17,12 +17,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --k3-times ROOT  # only time the K3 reductions of
                                            # the port checked out at ROOT
     python3 chip_smoke.py --flash-times ROOT  # only time K1, dQ and dK/dV at
-                                             # D 256 and K1 at D 320 and 512
-                                             # (bf16 and f32), profile the
-                                             # D 256 and D 320 LM steps and
-                                             # digest K1's, the backward's
-                                             # and K2's outputs of the port
-                                             # at ROOT
+                                             # D 256, 320 and 512 (bf16 and
+                                             # f32), profile the D 256 and
+                                             # D 320 LM steps and digest
+                                             # K1's, the backward's and K2's
+                                             # outputs of the port at ROOT
 
 Phases, each fatal on failure:
 
@@ -51,13 +50,17 @@ Phases, each fatal on failure:
    launch bit for bit equal; ``F.scaled_dot_product_attention`` timed as
    a yardstick only;
 3b. the flash backward kernels (dQ, dK/dV; on the tensor cores in bf16 up
-   to D 256, past 128 on two warpgroups) against
+   to D 256, past 128 on two warpgroups; past 256, up to 512, their wide
+   kernels: bf16 dQ on two warpgroups, bf16 dK/dV on a cluster of two
+   CTAs, f32 both in split TF32 on a cluster of two CTAs) against
    ``flash_attention_bwd_reference`` on the same inputs, through strided
    (B, T, H, D) views of one qkv buffer, at B1 H8 D64 T 1024/2048/4096
    bf16, T 2048 f32, T 200 causal and T 256 non-causal, head dim 80 in
    both dtypes, the train path's B32 T1024 bf16, causal and non-causal,
-   phase 3's head dims past 128 (and D 12; D 320, 512 and 520 on the
-   general kernels), causal, the two-warpgroup
+   phase 3's head dims past 128 (D 320 and 512 on the wide kernels; D 12
+   and 520 on the general ones), causal, the wide kernels at D 264, 320,
+   328, 384, 392 and 512, T 200, causal and not, in both dtypes, the
+   two-warpgroup
    dQ at bf16 D 136, 160, 200 and 256, T 200, causal and not, and D 256
    T 1024 non-causal, the split-TF32 dQ and dK/dV at f32 D 130, 160, 200
    and 256, T 200, causal and not, and the D 256 and D 320 LM shapes (B8
@@ -120,10 +123,11 @@ Phases, each fatal on failure:
    launches), dQ (2) and dK/dV (2) on the tensor cores padded to 256,
    and once more in f32, K1, dQ and dK/dV in split TF32 on the tensor
    cores; then the LM of head dim 320 (d_model 640, 2 heads, 2 layers,
-   batch 8) in bf16 and in f32, K1 on its wide kernels (4 launches a
-   step) and dQ and dK/dV on the general ones (2 each), each profiled for
-   its device ms a step and the flash kernels' share; each held to the
-   same bars (each its own path: counts set to 0 just before it);
+   batch 8) in bf16 and in f32, K1 (4 launches a step), dQ and dK/dV (2
+   each) on their wide kernels, the replayed steps bit for bit equal to
+   the eager ones, each profiled for its device ms a step and the flash
+   kernels' share; each held to the same bars (each its own path: counts
+   set to 0 just before it);
 7. the fused BatchNorm+activation kernels (K3: normalize+act, stats,
    backward reduce, backward dx) against their plain versions at all
    nine (N, C) shapes a ResNet-50 BN gives them at batch 128, relu and
@@ -281,11 +285,11 @@ K3_EPILOGUE_RTOL = 1e-6                  # mean/var/inv from the same sums
 # (dtype, B, T, D) past the fast kernels' D 128 and a bf16 D that is not
 # a multiple of 8 (H 8): bf16 D 160 and 256 run K1, dQ and dK/dV padded to
 # 256 on the tensor cores; f32 D 130-256 run all three in split TF32 (D
-# 130: rows of whole elements, not 16-byte chunks); D 320 and 512 run K1
-# on its wide kernels (bf16 two warpgroups, f32 split TF32 on warp pairs;
-# padded to 384 and 512) and dQ and dK/dV on the head-dim-general kernels;
-# bf16 D 12 and D 520 (past the wide kernels) run all three general (64,
-# 32, 16 and 8 tile rows), so that the general K1 stays held
+# 130: rows of whole elements, not 16-byte chunks); D 320 and 512 run K1,
+# dQ and dK/dV on their wide kernels (bf16 padded to 384 and 512, f32 to
+# 320 and 512); bf16 D 12 and D 520 (past the wide kernels) run all three
+# general (64, 32, 16 and 8 tile rows), so that the general kernels stay
+# held
 WIDE_SHAPES = ((torch.bfloat16, 2, 1024, 12),
                (torch.bfloat16, 1, 1024, 160), (torch.float32, 1, 1024, 130),
                (torch.float32, 1, 1024, 160), (torch.float32, 1, 1024, 200),
@@ -309,30 +313,37 @@ DQ_SPLIT_SHAPES = tuple((torch.bfloat16, 2, 200, c, d)
 # (a ragged last tile) at D 130, 160, 200 and 256, causal and not
 TF32_BWD_SHAPES = tuple((torch.float32, 2, 200, c, d)
                         for d in (130, 160, 200, 256) for c in (True, False))
+# the wide dQ's and dK/dV's own holds (dtype, B, T, causal, D): every
+# padded width's edges (bf16 264-384 to 384, 392-512 to 512; f32 264-320
+# to 320, 328-384 to 384, 392-512 to 512), T 200, causal and not
+WIDE_BWD_SHAPES = tuple((dt, 2, 200, c, d)
+                        for d in (264, 320, 328, 384, 392, 512)
+                        for c in (True, False)
+                        for dt in (torch.bfloat16, torch.float32))
 # the D 256 LM's attention (B8 H2 T1024 D256): phase 6's train_d256 path
 # hands K1, dQ and dK/dV this shape in bf16, train_d256_f32 in f32
 D256_LM = (torch.bfloat16, 8, 1024, 256)
 D256_LM_F32 = (torch.float32, 8, 1024, 256)
 D256_LM_HEADS = 2
 # the LM of head dim 320 (d_model 640, 2 heads; phase 4b serves it, phase
-# 6's train_d320 and train_d320_f32 train it): K1 at B8 H2 T1024 D320 on
-# its wide kernels, dQ and dK/dV general
+# 6's train_d320 and train_d320_f32 train it): K1, dQ and dK/dV at B8 H2
+# T1024 D320 on their wide kernels
 D320_LM = (torch.bfloat16, 8, 1024, 320)
 D320_LM_F32 = (torch.float32, 8, 1024, 320)
 D320_D_MODEL = 640
 # the phase 3/3b shapes whose times the kernels line and PERF.md's kernel
 # table report (every other shape is held, not timed): a dense prefill's
 # and the train path's, padded 256 and split TF32 at B1 H8 T1024 D256,
-# the f32 CUDA-core kernels at T2048 D64, the wide K1 kernels at D 320 and
-# 512, the general backward at D 320, the general K1 at D 520 (the D 256
-# and D 320 LMs' B8 H2 shapes are always timed)
+# the f32 CUDA-core kernels at T2048 D64, the wide kernels at D 320 and
+# 512, the general kernels at D 520 (the D 256 and D 320 LMs' B8 H2
+# shapes are always timed)
 TIMED_K1 = {(torch.bfloat16, 1, 2048, 64), (torch.bfloat16, 32, 1024, 64),
             (torch.bfloat16, 1, 1024, 256), (torch.float32, 1, 1024, 256),
             (torch.float32, 1, 2048, 64), (torch.float32, 1, 1024, 320),
             (torch.bfloat16, 1, 1024, 320), (torch.float32, 1, 1024, 512),
             (torch.bfloat16, 1, 1024, 512), (torch.float32, 1, 1024, 520)}
 TIMED_BWD = {(dt, b, t, True, d) for dt, b, t, d in TIMED_K1 - {
-    (torch.bfloat16, 1, 2048, 64)} if d <= 320}
+    (torch.bfloat16, 1, 2048, 64)}}
 RESNET_BATCH = 128
 RESNET_HW = 224
 # every (H = W, C) a BN of ResNet-50 at 224x224 hands K3 (N = batch*H*W):
@@ -776,7 +787,7 @@ def check_flash_bwd(fa, dtype, b, t, causal, gen, h=8, d=64, time_it=True):
     del out
     (bq, byq), (bkv, bykv) = bwd_bounds(dtype, b, h, t, d, causal)
     extra = {"dq": {}, "dkv": {}}
-    if fa.route(d, dtype, "dq") == "tf32x3":
+    if fa.route(d, dtype, "dq") in ("tf32x3", "tf32x3-wide"):
         # the operations they issue: three TF32 products per f32 product;
         # the f32 CUDA-core bound stays beside it
         extra = {"dq": {"ffma_bound_ms": bq}, "dkv": {"ffma_bound_ms": bkv}}
@@ -1168,7 +1179,9 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
     path with its step replayed from a CUDA graph (the main path), the
     kernel path eager (``disable_graphs()``), and the plain path (eager),
     each with ``LM_ADAMW``. ``foreach_adamw`` adds a fourth: the kernel
-    path replayed with the capturable AdamW of the ``foreach`` form."""
+    path replayed with the capturable AdamW of the ``foreach`` form.
+    The eager way's losses and params must equal the replayed way's bit
+    for bit."""
     from deeplearning4j_tpu_torch import disable_graphs
     from deeplearning4j_tpu_torch.zoo import transformer as tfm
 
@@ -1281,6 +1294,10 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
                           "often as wanted in every step")
         if not graph_ok:
             failed.append(f"{path}: the steps did not replay a graph")
+        if path == "eager" and (
+                diff is not None or r["losses"] != kr["losses"]):
+            failed.append("eager: losses or params differ from the replayed "
+                          "kernel path's")
     log(f"{tag} kernel vs plain: step-1 grad rel L2 max {rels[worst]:.3e} "
         f"({worst}; limit {TRAIN_GRAD_REL_L2}), all finite {finite}")
     if failed:
@@ -1693,11 +1710,11 @@ def sweep_times(root, repeats=3):
 def flash_times(root):
     """``--flash-times ROOT``: the device time (``torch.profiler``) and a
     call's time by events of K1, dQ and dK/dV, causal at B1 H8 T1024 D256
-    and the D 256 LM's B8 H2 T1024 D256, and of K1 alone at B1 H8 T1024
-    D320 and D512 and the D 320 LM's B8 H2 T1024 D320, in bf16 and in f32,
-    for the port checked out at ROOT (its kernels build under ROOT), on
-    the kernel family its route picks there (a tree before the wide
-    kernels runs the general K1 past 256); the D 256 and D 320 LMs' train
+    and the D 256 LM's B8 H2 T1024 D256, at B1 H8 T1024 D320 and D512 and
+    the D 320 LM's B8 H2 T1024 D320, in bf16 and in f32, for the port
+    checked out at ROOT (its kernels build under ROOT), on the kernel
+    family its route picks there (a tree before the wide backward runs
+    the general dQ and dK/dV past 256); the D 256 and D 320 LMs' train
     steps (phase 6's ``train_d256``, ``train_d320`` and their f32 twins)
     profiled on ROOT's port in each dtype: device time a step and its
     flash kernels' share; then
@@ -1719,8 +1736,9 @@ def flash_times(root):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
-        for b, h in ((1, 8), (D256_LM[1], D256_LM_HEADS)):
-            t, d = 1024, 256
+        for b, h, d in ((1, 8, 256), (D256_LM[1], D256_LM_HEADS, 256),
+                        (1, 8, 320), (1, 8, 512), (D320_LM[1], 2, 320)):
+            t = 1024
             q, k, v, do = (torch.randn((b, h, t, d), generator=gen,
                                        device="cuda").to(dtype)
                            for _ in range(4))
@@ -1740,18 +1758,6 @@ def flash_times(root):
             log(f"flash-times {json.dumps(row)}")
             rows.append(row)
             del q, k, v, do, o, lse, delta
-            torch.cuda.empty_cache()
-        for b, h, d in ((1, 8, 320), (1, 8, 512), (D320_LM[1], 2, 320)):
-            q, k, v = (torch.randn((b, h, 1024, d), generator=gen,
-                                   device="cuda").to(dtype)
-                       for _ in range(3))
-            fn = lambda: fa.flash_attention_lse(q, k, v, causal=True)
-            row = {"shape": f"B{b} H{h} T1024 D{d} {str(dtype)[6:]} causal",
-                   "fwd": {"route": fa.route(d, dtype, "fwd"),
-                           "ms": device_ms(fn), "call_ms": cuda_ms(fn)}}
-            log(f"flash-times {json.dumps(row)}")
-            rows.append(row)
-            del q, k, v
             torch.cuda.empty_cache()
     steps = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -4028,11 +4034,11 @@ def main():
                     help="only time the K3 reductions of the port checked "
                          "out at ROOT (prints no result line)")
     ap.add_argument("--flash-times", metavar="ROOT",
-                    help="only time K1, dQ and dK/dV at head dim 256 and "
-                         "K1 at 320 and 512 in bf16 and f32, profile the D "
-                         "256 and D 320 LMs' train steps and digest K1's, "
-                         "the backward's and K2's outputs, for the port "
-                         "checked out at ROOT (prints no result line)")
+                    help="only time K1, dQ and dK/dV at head dims 256, 320 "
+                         "and 512 in bf16 and f32, profile the D 256 and D "
+                         "320 LMs' train steps and digest K1's, the "
+                         "backward's and K2's outputs, for the port checked "
+                         "out at ROOT (prints no result line)")
     ap.add_argument("--sweep-times", metavar="ROOT",
                     help="only time phase 4's steady decode sweeps, dense "
                          "and paged, with their host split, for the port "
@@ -4110,7 +4116,7 @@ def main():
             (torch.bfloat16, 32, 1024, False, 64),
             (torch.bfloat16, 32, 1024, True, 64),    # the train path's
             *((dt, b, t, True, d) for dt, b, t, d in WIDE_SHAPES),
-            *DQ_SPLIT_SHAPES, *TF32_BWD_SHAPES):
+            *DQ_SPLIT_SHAPES, *TF32_BWD_SHAPES, *WIDE_BWD_SHAPES):
         bwd[(dt, b, t, causal, d)] = check_flash_bwd(
             fa, dt, b, t, causal, gen, d=d,
             time_it=(dt, b, t, causal, d) in TIMED_BWD)
@@ -4146,9 +4152,8 @@ def main():
                                            n_heads=2, n_layers=2,
                                            tag="train D256 f32",
                                            dtype=torch.float32)
-    # the LM of head dim 320 (d_model 640, 2 heads): K1 on its wide
-    # kernels (bf16 two warpgroups, f32 split TF32 on warp pairs), dQ and
-    # dK/dV on the general ones; each its own path
+    # the LM of head dim 320 (d_model 640, 2 heads): K1, dQ and dK/dV on
+    # their wide kernels; each its own path
     for dt, key, tag in ((torch.bfloat16, "train_d320", "train D320"),
                          (torch.float32, "train_d320_f32",
                           "train D320 f32")):
@@ -4217,10 +4222,10 @@ def main():
                 **({"max_active_clusters": r["max_active_clusters"]}
                    if route == "cluster" else {})}
     # the padded-256 kernels at B1 H8 T1024 D256 and the D 256 LM's, in
-    # bf16 (tensor cores) and f32 (split TF32); the wide K1 kernels at B1
-    # H8 T1024 D320 and the D 320 LM's (D 512 beside them); the f32
+    # bf16 (tensor cores) and f32 (split TF32); the wide kernels at B1 H8
+    # T1024 D320 and the D 320 LM's (D 512 beside them); the f32
     # CUDA-core kernels at B1 H8 T2048 D64; the general kernels at a D
-    # they still serve (K1 f32 D 520, dQ and dK/dV f32 D 320)
+    # they still serve (f32 D 520)
     d256 = (torch.bfloat16, 1, 1024, 256)
     wide_k1 = {"wgmma": k1[d256],
                "tf32x3": k1[(torch.float32, 1, 1024, 256)]}
@@ -4228,7 +4233,7 @@ def main():
     f32_k1 = k1[(torch.float32, 1, 2048, 64)]
     f32_bwd = bwd[(torch.float32, 1, 2048, True, 64)]
     gen_k1 = k1[(torch.float32, 1, 1024, 520)]
-    gen_bwd = bwd[(torch.float32, 1, 1024, True, 320)]
+    gen_bwd = bwd[(torch.float32, 1, 1024, True, 520)]
     tf32_bwd = bwd[(torch.float32, 1, 1024, True, 256)]
 
     def family(key, kernel, kind, wide=None):
@@ -4331,12 +4336,30 @@ def main():
             entry(part, "cuda-core", "_f32", f"flash_bwd_{part}_kernel (f32 "
                   "D <= 128, CUDA cores)", torch.float32, bwd,
                   "B1 H8 T2048 D64 f32 causal", f32_bwd),
-            entry(part, "general", "_general_f32", f"flash_bwd_{part}_"
-                  "general_kernel (any D, CUDA cores)", torch.float32, bwd,
-                  "B1 H8 T1024 D320 f32 causal", gen_bwd,
+            entry(part, "wgmma-wide", "_wide", {
+                "dq": "flash_bwd_dq_wgmma_split_kernel<DqSplitCfg<384, 32>|"
+                      "<512, 16>> (bf16 D 264-512, two warpgroups that split "
+                      "dQ's columns)",
+                "dkv": "flash_bwd_dkv_wgmma_cluster_kernel<96|128> (bf16 D "
+                       "264-512, a cluster of two CTAs, four warpgroups "
+                       "that each own a quarter of the columns)"}[part],
+                  torch.bfloat16, bwd, "B1 H8 T1024 D320 bf16 causal",
+                  bwd[(torch.bfloat16, 1, 1024, True, 320)],
+                  lm=("B8 H2 T1024 D320 bf16 causal", bwd[lm320_bwd]),
+                  more={"d512": bwd[(torch.bfloat16, 1, 1024, True, 512)]}),
+            entry(part, "tf32x3-wide", "_tf32x3_wide_f32",
+                  f"flash_bwd_{part}_tf32x3_kernel<Tf32{part.capitalize()}"
+                  "Cfg<320|384|512, 2>> (f32 D 257-512, split-TF32 "
+                  "products on a cluster of two CTAs that split the "
+                  "columns)", torch.float32, bwd,
+                  "B1 H8 T1024 D320 f32 causal",
+                  bwd[(torch.float32, 1, 1024, True, 320)],
                   lm=("B8 H2 T1024 D320 f32 causal", bwd[lm320_bwd_f32]),
-                  more={"bf16": bwd[(torch.bfloat16, 1, 1024, True, 320)],
-                        "lm_bf16": bwd[lm320_bwd]}),
+                  more={"d512": bwd[(torch.float32, 1, 1024, True, 512)]}),
+            entry(part, "general", "_general_f32", f"flash_bwd_{part}_"
+                  "general_kernel (D past 512, bf16 D % 8 != 0; CUDA "
+                  "cores)", torch.float32, bwd,
+                  "B1 H8 T1024 D520 f32 causal", gen_bwd),
         ]
     kernels += [
         {"name": "paged_attention", "route": "cuda",

@@ -87,9 +87,14 @@
 // of 8) run padded to 256 on two warpgroups that split the columns
 // (flash_bwd_dq_wgmma_split_kernel, flash_bwd_dkv_wgmma_split_kernel),
 // and f32 dQ and dK/dV at D 129..256 padded to 256 in split TF32
-// (flash_bwd_dq_tf32x3_kernel, flash_bwd_dkv_tf32x3_kernel). Every other D
-// (f32 D > 256, bf16 D past 256, a bf16 D that is not a multiple of 8)
-// runs the head-dim-general CUDA-core kernels
+// (flash_bwd_dq_tf32x3_kernel, flash_bwd_dkv_tf32x3_kernel). Past 256, up
+// to 512 (the wide family, as K1's): bf16 (a multiple of 8) padded to 384
+// or 512, dQ on the same two warpgroups at 32- and 16-key steps, dK/dV on
+// a cluster of two CTAs whose four warpgroups each own a quarter of the
+// columns (flash_bwd_dkv_wgmma_cluster_kernel); f32 padded to 320, 384 or
+// 512, the split-TF32 kernels on a cluster of two CTAs that each hold
+// one half of the columns. Every other D (past 512, a bf16 D that is not
+// a multiple of 8) runs the head-dim-general CUDA-core kernels
 // (flash_bwd_dq_general_kernel, flash_bwd_dkv_general_kernel;
 // flash_general.cuh): the same two passes with every tile and accumulator
 // in dynamic shared memory, R = 64..8 rows by D, element-by-element loads.
@@ -776,6 +781,310 @@ flash_bwd_dkv_wgmma_split_kernel(const dl4j_mma::bf16* __restrict__ q,
   }
 }
 
+// ------- bf16 dK/dV at padded D 384 and 512, a cluster of two CTAs
+
+// Past D 256 a block's dK and dV (64 keys x 2 D f32) and its tiles (K, V
+// and two stages of Q and dO, 240 KiB at padded 384 with 32 queries a
+// step) fit neither in two warpgroups' registers nor in one block's
+// shared memory. So a thread-block cluster of two CTAs (adjacent in x)
+// shares the 64 keys: CTA c and its warpgroup w own quarter u = 2 c + w of
+// D's columns, DW = D / 4 of them (96 at 384, 128 at 512), and hold only
+// their two quarters of K, V, Q and dO; each warpgroup keeps its quarter's
+// dK and dV, DW / 2 + DW / 2 accumulators a thread. Per 32-query step each
+// warpgroup forms the f32 partials of Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ over its
+// quarter (DW / 16 k-steps), posts them to its CTA's shared memory in
+// fragment order, and after one cluster barrier reads the three other
+// quarters' (its sibling's here, two from the peer CTA through distributed
+// shared memory) and sums them as (u0 + u1) + (u2 + u3), the same order in
+// all four warpgroups, so all four hold bit-identical Pᵀ and dSᵀ; then dV
+// += bf16(Pᵀ)·dO and dK += bf16(dSᵀ)·Q over its quarter from registers
+// (m64nDWk16). The exchange is double-buffered by step parity, so the one
+// barrier a step also frees the buffer of the step before: a warpgroup
+// posts to buffer b only after every warpgroup of the cluster has passed
+// the barrier of the step that read it last. A CTA's tiles are 256
+// columns wide, quarter w at columns 128 w (panels 2 w, 2 w + 1), so each
+// quarter starts on a 64-column panel (an MN-major operand cannot start
+// inside one); at DW 96 columns 96..127 of each quarter are never copied
+// nor read. Shared memory: K and V 64 KiB, two stages of (Q, dO) 64, the
+// exchange 64, the lse and delta rows 0.5 and 1 of alignment: 193.5 KiB,
+// one CTA an SM, at both widths.
+// DW: the columns of dK and dV a warpgroup owns (96, 128), D = 4 DW
+template <int DW>
+struct DkvClusterCfg {
+  static constexpr int DT = 256;    // a CTA's tile: two quarters of 128
+  static constexpr int BKV = 64;    // keys per cluster
+  static constexpr int BQ = 32;     // query rows per step
+  static constexpr int THREADS = 256;
+  using KT = dl4j_mma::Tile<DT, BKV>;
+  using QT = dl4j_mma::Tile<DT, BQ>;
+  // K, V, two stages of (Q, dO), the exchange (two buffers of Sᵀ and dPᵀ
+  // partials, 64 x 32 f32 a warpgroup), then two stages of (lse, delta)
+  static constexpr int ROWS = 2 * KT::BYTES + 4 * QT::BYTES;
+  static constexpr int XCH = 2 * 2 * 2 * BKV * BQ * 4;
+  static constexpr int SMEM = ROWS + XCH + 4 * BQ * 4 + 1024;
+};
+static_assert(DkvClusterCfg<96>::SMEM <= 232448, "227 KiB a block on sm_90");
+static_assert(DkvClusterCfg<128>::SMEM <= 232448, "227 KiB a block on sm_90");
+
+// rows [r0, r0 + R) of the CTA's two quarters (global 8-column chunks
+// (2 rank + w) DW / 8 + j, j < DW / 8) of a (T, d) operand into a
+// Tile<256, R> at columns 128 w + 8 j; rows >= T and chunks past the dc
+// real ones read as 0
+template <int R, int DW, int NT>
+__device__ __forceinline__ void load_quarters(uint32_t s,
+                                              const dl4j_mma::bf16* g,
+                                              long long st, int r0, int T,
+                                              int dc, int rank, int tid) {
+  using TT = dl4j_mma::Tile<256, R>;
+  constexpr int CW = DW / 8;  // chunks of a quarter
+  constexpr int N = R * 2 * CW;
+#pragma unroll
+  for (int i = 0; i < (N + NT - 1) / NT; ++i) {
+    const int e = tid + i * NT;
+    if (N % NT != 0 && e >= N) break;
+    const int r = e / (2 * CW);
+    const int j = e - r * 2 * CW;
+    const int w = j / CW;
+    const int c = j - w * CW;
+    const int gc = (2 * rank + w) * CW + c;
+    const int row = r0 + r;
+    const bool ok = row < T && gc < dc;
+    dl4j_mma::cp_async16(s + TT::off(r, 16 * w + c),
+                         g + (ok ? row * st + gc * 8 : 0), ok);
+  }
+}
+
+// x = (u0 + u1) + (u2 + u3) of a 64 x 32 product of which this warpgroup
+// holds quarter u's partial in x, the others' posted in fragment order
+// (float4 j of thread wt of quarter v at slot v & 1 of CTA v >> 1:
+// slots + (v & 1) * 4 * 128 + j * 128, `slots` at thread wt already)
+template <int N>
+__device__ __forceinline__ void sum_quarters(float (&x)[N],
+                                             const float4* slots, int u) {
+#pragma unroll
+  for (int j = 0; j < N / 4; ++j) {
+    float4 part[4];
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      if (v == u) {
+        part[v] = make_float4(x[4 * j], x[4 * j + 1], x[4 * j + 2],
+                              x[4 * j + 3]);
+      } else {
+        const float4* const src = slots + (v & 1) * (N / 4) * 128 + j * 128;
+        part[v] = dl4j_mma::ld_cluster_f4(
+            dl4j_mma::peer_addr(dl4j_mma::smem_u32(src), v >> 1));
+      }
+    }
+    x[4 * j] = (part[0].x + part[1].x) + (part[2].x + part[3].x);
+    x[4 * j + 1] = (part[0].y + part[1].y) + (part[2].y + part[3].y);
+    x[4 * j + 2] = (part[0].z + part[1].z) + (part[2].z + part[3].z);
+    x[4 * j + 3] = (part[0].w + part[1].w) + (part[2].w + part[3].w);
+  }
+}
+
+// launched in clusters of two CTAs along x (launch_clusters<2>)
+template <int DW>
+__global__ void __launch_bounds__(DkvClusterCfg<DW>::THREADS, 1)
+flash_bwd_dkv_wgmma_cluster_kernel(const dl4j_mma::bf16* __restrict__ q,
+                                   const dl4j_mma::bf16* __restrict__ k,
+                                   const dl4j_mma::bf16* __restrict__ v,
+                                   const dl4j_mma::bf16* __restrict__ dout,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ delta,
+                                   dl4j_mma::bf16* __restrict__ dk,
+                                   dl4j_mma::bf16* __restrict__ dv, int H,
+                                   int Tlen, int dr, Str sq, Str sk, Str sv,
+                                   Str sdo, Str sdk, Str sdv, float scale,
+                                   int causal) {
+  using namespace dl4j_mma;
+  using C = DkvClusterCfg<DW>;
+  using KT = typename C::KT;
+  using QT = typename C::QT;
+  constexpr int BQ = C::BQ;
+  constexpr int NT = C::THREADS;
+  constexpr int NS = BQ / 2;        // Sᵀ / dPᵀ accumulators a thread holds
+  constexpr int NX = NS / 4;        // float4s of them
+  constexpr int KQ = DW / 16;       // k-steps of a quarter's partial
+  constexpr int NDW = DW / 8;       // n-tiles of a warpgroup's dK and dV
+  // float4s of one warpgroup's partial of one product
+  constexpr int SLOT = NX * 128;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (smem_u32(smem) + 1023) & ~1023u;
+  unsigned char* const gbase = smem + (base - smem_u32(smem));
+  const uint32_t s_k = base;
+  const uint32_t s_v = s_k + KT::BYTES;
+  const uint32_t s_ring = s_v + KT::BYTES;  // stage st: Q, then dO
+  const uint32_t s_rows = base + C::ROWS + C::XCH;  // stage st: lse, delta
+  // buffer b, product p (Sᵀ, dPᵀ), warpgroup w at slot (2 b + p) 2 + w
+  float4* const xch = reinterpret_cast<float4*>(gbase + C::ROWS);
+  const float* const rows_ptr =
+      reinterpret_cast<const float*>(gbase + C::ROWS + C::XCH);
+
+  const int rank = (int)cluster_ctarank();  // this CTA's half of D
+  const int bh = blockIdx.x >> 1;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * C::BKV;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int wt = tid & 127;          // the thread within its warpgroup
+  const int warp = wt >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int u = 2 * rank + wg;       // this warpgroup's quarter of D
+  const int wkey = k0 + warp * 16;   // this warp's first key
+  const int dc = dr >> 3;            // real 8-column chunks of a row
+  const float sl2 = scale * kLog2e;
+  // the byte offsets of this warpgroup's quarter (panels 2 wg, 2 wg + 1)
+  // in the K, V and in the Q, dO tiles
+  const uint32_t qk = 2 * wg * KT::PANEL_BYTES;
+  const uint32_t qq = 2 * wg * QT::PANEL_BYTES;
+
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lseb = lse + (long long)bh * Tlen;
+  const float* deltab = delta + (long long)bh * Tlen;
+  // causal: query tiles above the cluster's first key see none of its keys
+  const int first = causal ? k0 / BQ : 0;
+  const int nqt = (Tlen + BQ - 1) / BQ;
+
+  // query tile `it` into ring stage `st`
+  auto fetch = [&](int it, int st) {
+    const uint32_t tq = s_ring + st * 2 * QT::BYTES;
+    const int i0 = it * BQ;
+    load_quarters<BQ, DW, NT>(tq, qb, sq.t, i0, Tlen, dc, rank, tid);
+    load_quarters<BQ, DW, NT>(tq + QT::BYTES, dob, sdo.t, i0, Tlen, dc,
+                              rank, tid);
+    if (tid < BQ) {
+      const int row = i0 + tid;
+      const bool ok = row < Tlen;
+      const uint32_t r = s_rows + st * 2 * BQ * 4;
+      cp_async4(r + 4 * tid, lseb + (ok ? row : 0), ok);
+      cp_async4(r + 4 * (BQ + tid), deltab + (ok ? row : 0), ok);
+    }
+  };
+  load_quarters<C::BKV, DW, NT>(s_k, k + b * sk.b + h * sk.h, sk.t, k0,
+                                Tlen, dc, rank, tid);
+  load_quarters<C::BKV, DW, NT>(s_v, v + b * sv.b + h * sv.h, sv.t, k0,
+                                Tlen, dc, rank, tid);
+  fetch(first, 0);
+  cp_async_commit();
+
+  // n-tile d of this warp's keys, columns DW u + 8 d .., at [4d..4d+3]
+  float dka[DW / 2], dva[DW / 2];
+#pragma unroll
+  for (int i = 0; i < DW / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int it = first; it < nqt; ++it) {
+    const int st = (it - first) & 1;
+    if (it + 1 < nqt) fetch(it + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage (and K, V) have landed
+    __syncthreads();
+    const uint32_t s_q = s_ring + st * 2 * QT::BYTES;
+    const uint32_t s_do = s_q + QT::BYTES;
+    const float* ls = rows_ptr + st * 2 * BQ;
+    const float* dl = ls + BQ;
+    const int i0 = it * BQ;
+
+    // this quarter's partials of Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ
+    float sacc[NS], dp[NS];
+#pragma unroll
+    for (int i = 0; i < NS; ++i) sacc[i] = dp[i] = 0.f;
+    fence_regs(sacc);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk)
+      wgmma_ss<BQ>(sacc, KT::desc_k(s_k + qk, kk), QT::desc_k(s_q + qq, kk));
+#pragma unroll
+    for (int kk = 0; kk < KQ; ++kk)
+      wgmma_ss<BQ>(dp, KT::desc_k(s_v + qk, kk), QT::desc_k(s_do + qq, kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(sacc);
+    fence_regs(dp);
+
+    // post both to buffer st, meet the cluster, then sum the four
+    // quarters' partials as (u0 + u1) + (u2 + u3)
+    float4* const mine = xch + (4 * st + wg) * SLOT + wt;
+#pragma unroll
+    for (int j = 0; j < NX; ++j) {
+      mine[j * 128] = make_float4(sacc[4 * j], sacc[4 * j + 1],
+                                  sacc[4 * j + 2], sacc[4 * j + 3]);
+      mine[2 * SLOT + j * 128] = make_float4(dp[4 * j], dp[4 * j + 1],
+                                             dp[4 * j + 2], dp[4 * j + 3]);
+    }
+    cluster_sync();
+    sum_quarters(sacc, xch + 4 * st * SLOT + wt, u);
+    sum_quarters(dp, xch + (4 * st + 2) * SLOT + wt, u);
+
+    // Pᵀ = exp(Sᵀ·scale - lse); only tiles that cross the diagonal or T
+    // are masked
+    const bool edge = i0 + BQ > Tlen || (causal && i0 < wkey + 15);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int qi = 8 * (i >> 2) + 2 * t4 + (i & 1);
+      float p = exp2_approx(fmaf(sacc[i], sl2, -ls[qi] * kLog2e));
+      if (edge) {
+        const int row = i0 + qi;
+        const int key = wkey + g + 8 * ((i >> 1) & 1);
+        if (row >= Tlen || (causal && row < key)) p = 0.f;
+      }
+      sacc[i] = p;
+    }
+    // bf16(Pᵀ) and dSᵀ = bf16(Pᵀ ∘ (dPᵀ - delta)·scale) as A fragments
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = 8 * kk + 2 * i;
+        const int qi = 8 * (j >> 2) + 2 * t4;
+        pa[kk][i] = pack_bf16(sacc[j], sacc[j + 1]);
+        da[kk][i] = pack_bf16(sacc[j] * (dp[j] - dl[qi]) * scale,
+                              sacc[j + 1] * (dp[j + 1] - dl[qi + 1]) * scale);
+      }
+    // dV += Pᵀ·dO and dK += dSᵀ·Q over this warpgroup's quarter
+    fence_regs(dva);
+    fence_regs(dka);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs<DW>(dva, pa[kk], QT::desc_mn(s_do + qq, kk));
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk)
+      wgmma_rs<DW>(dka, da[kk], QT::desc_mn(s_q + qq, kk));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(dva);
+    fence_regs(dka);
+    __syncthreads();  // this stage is free again
+  }
+  // no CTA leaves while its peer may still read its exchange
+  cluster_sync();
+
+  bf16* dkb = dk + b * sdk.b + h * sdk.h;
+  bf16* dvb = dv + b * sdv.b + h * sdv.h;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = wkey + g + 8 * r;
+    if (key < Tlen) {
+#pragma unroll
+      for (int d = 0; d < NDW; ++d) {
+        const int c = NDW * u + d;  // the 8-column chunk of the row
+        if (c < dc) {  // the padded columns are never written
+          *reinterpret_cast<uint32_t*>(dkb + key * sdk.t + 8 * c + 2 * t4) =
+              pack_bf16(dka[4 * d + 2 * r], dka[4 * d + 2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(dvb + key * sdv.t + 8 * c + 2 * t4) =
+              pack_bf16(dva[4 * d + 2 * r], dva[4 * d + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
 // ------------------------------- bf16 dQ, warpgroup MMA (wgmma)
 
 template <int D>
@@ -960,23 +1269,38 @@ flash_bwd_dq_wgmma_kernel(const dl4j_mma::bf16* __restrict__ q,
 // Shared memory: Q and dO 64 KiB, two stages of (K, V) 128 KiB, the
 // exchange 32 KiB and 1 KiB of alignment, 225 KiB: one block an SM. Each
 // thread keeps the lse and delta of its two rows in registers.
+//
+// The same kernel past D 256, padded to 384 or 512 (wide_padded_dim): each
+// warpgroup owns one half of dQ's columns, 192 or 256 (three or four
+// 64-column panels, so a half starts on a panel: 96 or 128 accumulators a
+// thread), and forms the f32 partials of S and dP over its half (design
+// (a) of K1's wide kernels: the depth split traded through shared memory,
+// as at 256, not S whole in each warpgroup; the trade costs two barriers
+// a step, S whole would cost 2.5 / 1.5 of the products). Q and dO stay
+// resident (96 / 128 KiB), so K and V stream in shorter steps: 32 keys at
+// 384 (two stages 96 KiB, the exchange 16: 209 KiB), 16 at 512 (64 and 8:
+// 201 KiB); one block an SM. DP is the padded D, KB the keys a step.
+template <int DP, int KB>
 struct DqSplitCfg {
-  static constexpr int D = 256;
+  static constexpr int D = DP;
   static constexpr int DH = D / 2;  // columns of dQ a warpgroup owns
   static constexpr int BQ = 64;     // query rows per block
-  static constexpr int BK = 64;     // keys per step
+  static constexpr int BK = KB;     // keys per step
   static constexpr int THREADS = 256;
   using QT = dl4j_mma::Tile<D, BQ>;
   using KT = dl4j_mma::Tile<D, BK>;
-  // Q, dO, two stages of (K, V), then the exchange (a 64 x 64 f32 partial
+  // Q, dO, two stages of (K, V), then the exchange (a 64 x BK f32 partial
   // a warpgroup)
   static constexpr int ROWS = 2 * QT::BYTES + 4 * KT::BYTES;
   static constexpr int XCH = 2 * BQ * BK * 4;
   static constexpr int SMEM = ROWS + XCH + 1024;
 };
-static_assert(DqSplitCfg::SMEM <= 232448, "227 KiB a block on sm_90");
+static_assert(DqSplitCfg<256, 64>::SMEM <= 232448, "227 KiB a block on sm_90");
+static_assert(DqSplitCfg<384, 32>::SMEM <= 232448, "227 KiB a block on sm_90");
+static_assert(DqSplitCfg<512, 16>::SMEM <= 232448, "227 KiB a block on sm_90");
 
-__global__ void __launch_bounds__(DqSplitCfg::THREADS, 1)
+template <typename C>
+__global__ void __launch_bounds__(C::THREADS, 1)
 flash_bwd_dq_wgmma_split_kernel(const dl4j_mma::bf16* __restrict__ q,
                                 const dl4j_mma::bf16* __restrict__ k,
                                 const dl4j_mma::bf16* __restrict__ v,
@@ -987,9 +1311,8 @@ flash_bwd_dq_wgmma_split_kernel(const dl4j_mma::bf16* __restrict__ q,
                                 int Tlen, int dr, Str sq, Str sk, Str sv,
                                 Str sdo, Str sdq, float scale, int causal) {
   using namespace dl4j_mma;
-  using C = DqSplitCfg;
-  using QT = C::QT;
-  using KT = C::KT;
+  using QT = typename C::QT;
+  using KT = typename C::KT;
   constexpr int BK = C::BK;
   constexpr int NS = BK / 2;        // S / dP accumulators a thread holds
   constexpr int NX = NS / 4;        // float4s of them
@@ -1022,10 +1345,11 @@ flash_bwd_dq_wgmma_split_kernel(const dl4j_mma::bf16* __restrict__ q,
   // this warpgroup's partials go to `mine`, the other's come from `theirs`
   float4* const mine = xch + wg * NX * 128;
   const float4* const theirs = xch + (wg ^ 1) * NX * 128;
-  // the byte offset of this warpgroup's column half (panels 2 wg, 2 wg + 1)
-  // in a tile: its k-steps of S and dP, and its N = 128 of dQ
-  const uint32_t half = 2 * wg * KT::PANEL_BYTES;
-  static_assert(KT::PANEL_BYTES == QT::PANEL_BYTES, "one panel size");
+  // the byte offsets of this warpgroup's column half (DH / 64 panels from
+  // panel wg DH / 64) in the Q and dO tiles and in the K and V tiles: its
+  // k-steps of S and dP, and its N = DH of dQ
+  const uint32_t half_q = (C::DH / 64) * wg * QT::PANEL_BYTES;
+  const uint32_t half_k = (C::DH / 64) * wg * KT::PANEL_BYTES;
 
   const bf16* kb = k + b * sk.b + h * sk.h;
   const bf16* vb = v + b * sv.b + h * sv.h;
@@ -1050,7 +1374,7 @@ flash_bwd_dq_wgmma_split_kernel(const dl4j_mma::bf16* __restrict__ q,
     lr[r] = ok ? lse[(long long)bh * Tlen + row] * kLog2e : 0.f;
     dl[r] = ok ? delta[(long long)bh * Tlen + row] : 0.f;
   }
-  // dQ: n-tile d of this warp's rows, columns 128 wg + 8 d .., at [4d..]
+  // dQ: n-tile d of this warp's rows, columns DH wg + 8 d .., at [4d..]
   float acc[C::DH / 2];
 #pragma unroll
   for (int i = 0; i < C::DH / 2; ++i) acc[i] = 0.f;
@@ -1079,12 +1403,12 @@ flash_bwd_dq_wgmma_split_kernel(const dl4j_mma::bf16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KH; ++kk)
-      wgmma_ss<BK>(sacc, QT::desc_k(s_q + half, kk),
-                   KT::desc_k(s_k + half, kk));
+      wgmma_ss<BK>(sacc, QT::desc_k(s_q + half_q, kk),
+                   KT::desc_k(s_k + half_k, kk));
 #pragma unroll
     for (int kk = 0; kk < KH; ++kk)
-      wgmma_ss<BK>(dp, QT::desc_k(s_do + half, kk),
-                   KT::desc_k(s_v + half, kk));
+      wgmma_ss<BK>(dp, QT::desc_k(s_do + half_q, kk),
+                   KT::desc_k(s_v + half_k, kk));
     wgmma_commit();
     wgmma_wait0();
     fence_regs(sacc);
@@ -1119,7 +1443,7 @@ flash_bwd_dq_wgmma_split_kernel(const dl4j_mma::bf16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_rs<C::DH>(acc, da[kk], KT::desc_mn(s_k + half, kk));
+      wgmma_rs<C::DH>(acc, da[kk], KT::desc_mn(s_k + half_k, kk));
     wgmma_commit();
     wgmma_wait0();
     fence_regs(acc);
@@ -1145,14 +1469,41 @@ flash_bwd_dq_wgmma_split_kernel(const dl4j_mma::bf16* __restrict__ q,
 Str str_at(const long long* s, int i) { return Str{s[3 * i], s[3 * i + 1],
                                                     s[3 * i + 2]}; }
 
+// launch `kern` on `grid`, in thread-block clusters of NC CTAs along x
+// where NC > 1 (a grid of whole clusters); cudaGetLastError() after it
+template <int NC, typename... Params, typename... Args>
+int launch_clusters(void (*kern)(Params...), dim3 grid, int threads,
+                    int smem, cudaStream_t st, Args... args) {
+  if constexpr (NC == 1) {
+    kern<<<grid, threads, smem, st>>>(args...);
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = NC;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kern, args...);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch_dq(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
               const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int H,
               const long long* s, float scale, int causal) {
-  if constexpr (sizeof(T) == 2 && D == 256) {  // two warpgroups
-    using C = DqSplitCfg;
-    auto kern = flash_bwd_dq_wgmma_split_kernel;
+  if constexpr (sizeof(T) == 2 && D >= 256) {  // two warpgroups
+    // 64 keys a step at padded 256, 32 at 384, 16 at 512
+    using C = DqSplitCfg<D, D == 256 ? 64 : D == 384 ? 32 : 16>;
+    auto kern = flash_bwd_dq_wgmma_split_kernel<C>;
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
     if (err != cudaSuccess) return (int)err;
@@ -1194,7 +1545,23 @@ int launch_dkv(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
                const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int H,
                const long long* s, float scale, int causal) {
-  if constexpr (sizeof(T) == 2 && D == 256) {  // two warpgroups
+  if constexpr (sizeof(T) == 2 && D > 256) {  // a cluster of two CTAs
+    using C = DkvClusterCfg<D / 4>;
+    auto kern = flash_bwd_dkv_wgmma_cluster_kernel<D / 4>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    // key tiles on the slow dimension: the heaviest (first) go first
+    const dim3 grid(2 * BH, (Tlen + C::BKV - 1) / C::BKV);
+    return launch_clusters<2>(
+        kern, grid, C::THREADS, C::SMEM, st, static_cast<const T*>(q),
+        static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<T*>(dk),
+        static_cast<T*>(dv), H, Tlen, dr, str_at(s, 0), str_at(s, 1),
+        str_at(s, 2), str_at(s, 3), str_at(s, 4), str_at(s, 5), scale,
+        causal);
+  } else if constexpr (sizeof(T) == 2 && D == 256) {  // two warpgroups
     using C = DkvSplitCfg;
     auto kern = flash_bwd_dkv_wgmma_split_kernel;
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1281,35 +1648,75 @@ int launch_dkv(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
 // which sets the time of a one-wave grid (B1 H8 T1024: 256 blocks, not
 // 128); the grid's slow dimension walks the query tiles, the heaviest
 // (last) first. 192 KiB: one block an SM.
+//
+// f32 dQ and dK/dV past D 256, padded to DP = 320, 384 or 512 (a half is
+// whole 32-column groups): a warp's 16-row partial of D columns would be
+// DP / 2 f32 registers a thread (160 to 256) and Q and dO of 32 rows with
+// two stages of K and V 240 KiB at 320. So the split-TF32 kernels below
+// run on a thread-block cluster of two CTAs (adjacent in x) that split D's
+// columns:
+// CTA c holds columns [c DP / 2, (c + 1) DP / 2) of every operand, tiles
+// of D = DP / 2 floats a row (the same swizzle: every row starts on bank
+// 0), and each warp's partials of S and dP (dQ) or of Sᵀ and dPᵀ (dK/dV)
+// are over those columns only. Once a step, after both products, each
+// warp posts its two 16 x 8 tiles (a float4 a lane each) to its CTA's
+// exchange, one cluster barrier, and adds its peer warp's, read through
+// distributed shared memory: x = mine + peer's, one f32 addition, which is
+// commutative, so both CTAs hold the same S and dP bit for bit and
+// compute the same P and dS. The exchange is double-buffered by step
+// parity (the one barrier a step also frees the buffer of the step
+// before). Then each CTA adds its columns of dQ (or dK, dV) as at 256. At
+// DP 512 a CTA is the padded-256 block plus its 16 KiB exchange (dQ 208,
+// dK/dV 212.5 KiB); at 320 and 384 136 / 160 KiB (dQ) and 140.5 / 164.5
+// KiB (dK/dV). One CTA an SM. DP is the padded D, CTAS the CTAs a
+// cluster: (256, 1) is the one-CTA block above, (320 | 384 | 512, 2) a
+// cluster.
+template <int DP, int CTAS>
 struct Tf32DqCfg {
-  static constexpr int D = 256;        // the padded head dim
+  static constexpr int NC = CTAS;      // CTAs a cluster
+  static constexpr int D = DP / NC;    // the columns a CTA holds
   static constexpr int BQ = 32;        // query rows: 2 groups of 16
   static constexpr int BK = 32;        // keys per step: 4 warps of 8
   static constexpr int THREADS = 256;  // 8 warps: 2 row groups x 4 key parts
   static constexpr int TILE = D * 4;   // bytes a row
-  // Q, dO, then two stages of (K, V)
-  static constexpr int SMEM = 2 * BQ * TILE + 2 * 2 * BK * TILE;
+  // on a cluster, two buffers of each warp's S and dP partials (a float4 a
+  // lane each)
+  static constexpr int XS = (NC - 1) * 2 * 8 * 2 * 32 * 16;
+  // Q, dO, two stages of (K, V), then the exchange
+  static constexpr int SMEM = 2 * BQ * TILE + 2 * 2 * BK * TILE + XS;
 };
-static_assert(Tf32DqCfg::SMEM <= 232448, "227 KiB a block on sm_90");
-static_assert(Tf32DqCfg::D == dl4j_tf32::kD, "the split-TF32 padded width");
-static_assert(Tf32DqCfg::BQ == 32 && Tf32DqCfg::BK == 32,
+static_assert(Tf32DqCfg<256, 1>::D == dl4j_tf32::kD,
+              "the split-TF32 padded width");
+static_assert(Tf32DqCfg<256, 1>::BQ == 32 && Tf32DqCfg<256, 1>::BK == 32,
               "the warps: two 16-row groups, four 8-key parts");
 
-// the float4 at chunk c of row r of a swizzled tile
+// x += y, elementwise
+__device__ __forceinline__ void add4(float (&x)[4], float4 y) {
+  x[0] += y.x;
+  x[1] += y.y;
+  x[2] += y.z;
+  x[3] += y.w;
+}
+
+// the float4 at chunk c of row r of a swizzled tile of rows of LD floats
+// (a multiple of 32: every row starts on bank 0)
+template <int LD = dl4j_tf32::kD>
 __device__ __forceinline__ float4 ld4(const float* tile, int r, int c) {
+  static_assert(LD % 32 == 0, "rows of whole 32-float bank lines");
   return *reinterpret_cast<const float4*>(
-      tile + r * dl4j_tf32::kD + 4 * (c ^ dl4j_tf32::swz(r)));
+      tile + r * LD + 4 * (c ^ dl4j_tf32::swz(r)));
 }
 
 // the A fragments of a pair of k-steps (16 dims at 16 kp) of rows r and
 // r + 8 of a swizzled tile, split: k-step 0 takes dims 4t, 4t+1, k-step 1
 // 4t+2, 4t+3
+template <int LD = dl4j_tf32::kD>
 __device__ __forceinline__ void a_frags(const float* tile, int r, int kp,
                                         int t4, uint32_t (&ah)[2][4],
                                         uint32_t (&al)[2][4]) {
   using dl4j_tf32::split_tf32;
-  const float4 x = ld4(tile, r, 4 * kp + t4);
-  const float4 y = ld4(tile, r + 8, 4 * kp + t4);
+  const float4 x = ld4<LD>(tile, r, 4 * kp + t4);
+  const float4 y = ld4<LD>(tile, r + 8, 4 * kp + t4);
   split_tf32(x.x, ah[0][0], al[0][0]);
   split_tf32(y.x, ah[0][1], al[0][1]);
   split_tf32(x.y, ah[0][2], al[0][2]);
@@ -1322,12 +1729,13 @@ __device__ __forceinline__ void a_frags(const float* tile, int r, int kp,
 
 // d (16 x 8) += A·Bᵀ over that pair of k-steps, with B's row r of a
 // swizzled tile (column g of the product) at the same dims
+template <int LD = dl4j_tf32::kD>
 __device__ __forceinline__ void mma_dims(float (&d)[4], const float* tile,
                                          int r, int kp, int t4,
                                          const uint32_t (&ah)[2][4],
                                          const uint32_t (&al)[2][4]) {
   using dl4j_tf32::split_tf32;
-  const float4 x = ld4(tile, r, 4 * kp + t4);
+  const float4 x = ld4<LD>(tile, r, 4 * kp + t4);
   uint32_t bh[4], bl[4];
   split_tf32(x.x, bh[0], bl[0]);
   split_tf32(x.y, bh[1], bl[1]);
@@ -1337,11 +1745,12 @@ __device__ __forceinline__ void mma_dims(float (&d)[4], const float* tile,
   dl4j_tf32::mma_3xtf32(d, ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
 }
 
-// acc (16 x 256, permuted columns) += X·B, X an accumulator fragment
+// acc (16 x 32 NG, permuted columns) += X·B, X an accumulator fragment
 // (16 x 8: rows g, g + 8 of columns 2t, 2t + 1) summed over B's rows
 // r0 .. r0 + 7 of a swizzled tile: column 2t of X is k index t (B's row
 // r0 + 2t), 2t + 1 is k index t + 4
-__device__ __forceinline__ void mma_rows(float (&acc)[8][4][4],
+template <int LD = dl4j_tf32::kD, int NG = LD / 32>
+__device__ __forceinline__ void mma_rows(float (&acc)[NG][4][4],
                                          const float (&x)[4],
                                          const float* tile, int r0, int g,
                                          int t4) {
@@ -1353,9 +1762,9 @@ __device__ __forceinline__ void mma_rows(float (&acc)[8][4][4],
   split_tf32(x[3], xh[3], xl[3]);  // row g + 8, column 2t + 1
   const int r = r0 + 2 * t4;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    const float4 b0 = ld4(tile, r, 8 * c + g);
-    const float4 b1 = ld4(tile, r + 1, 8 * c + g);
+  for (int c = 0; c < NG; ++c) {
+    const float4 b0 = ld4<LD>(tile, r, 8 * c + g);
+    const float4 b1 = ld4<LD>(tile, r + 1, 8 * c + g);
     const float x0[4] = {b0.x, b0.y, b0.z, b0.w};
     const float x1[4] = {b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -1368,22 +1777,23 @@ __device__ __forceinline__ void mma_rows(float (&acc)[8][4][4],
   }
 }
 
-// post this warp's 16 x 256 partial at slot w of a fragment-ordered
-// exchange (float4 i of lane x at (32 w + i) * 32 + x)
+// post this warp's 16 x 32 NG partial at slot w of a fragment-ordered
+// exchange (float4 i of lane x at (4 NG w + i) * 32 + x)
+template <int NG>
 __device__ __forceinline__ void post_acc(float4* xo, int w, int lane,
-                                         const float (&acc)[8][4][4]) {
+                                         const float (&acc)[NG][4][4]) {
 #pragma unroll
-  for (int c = 0; c < 8; ++c)
+  for (int c = 0; c < NG; ++c)
 #pragma unroll
     for (int u = 0; u < 4; ++u)
-      xo[(32 * w + 4 * c + u) * 32 + lane] =
+      xo[(4 * NG * w + 4 * c + u) * 32 + lane] =
           make_float4(acc[c][u][0], acc[c][u][1], acc[c][u][2], acc[c][u][3]);
 }
 
-// sum column group c (n-tiles 4c .. 4c + 3) of the N partials posted at
-// slots w0, w0 + stride, ..., in that order, and store rows row0 + g and
-// row0 + g + 8 (those < T) at the columns < dr
-template <int N>
+// sum column group c (n-tiles 4c .. 4c + 3) of the N partials of NG
+// groups posted at slots w0, w0 + stride, ..., in that order, and store
+// rows row0 + g and row0 + g + 8 (those < T) at the columns < dr
+template <int N, int NG>
 __device__ __forceinline__ void store_sum(float* out, long long st,
                                           const float4* xo, int w0,
                                           int stride, int c, int lane,
@@ -1392,10 +1802,11 @@ __device__ __forceinline__ void store_sum(float* out, long long st,
   const int t4 = lane & 3;
 #pragma unroll
   for (int u = 0; u < 4; ++u) {
-    float4 x = xo[(32 * w0 + 4 * c + u) * 32 + lane];
+    float4 x = xo[(4 * NG * w0 + 4 * c + u) * 32 + lane];
 #pragma unroll
     for (int n = 1; n < N; ++n) {
-      const float4 y = xo[(32 * (w0 + n * stride) + 4 * c + u) * 32 + lane];
+      const float4 y =
+          xo[(4 * NG * (w0 + n * stride) + 4 * c + u) * 32 + lane];
       x.x += y.x;
       x.y += y.y;
       x.z += y.z;
@@ -1412,7 +1823,9 @@ __device__ __forceinline__ void store_sum(float* out, long long st,
   }
 }
 
-__global__ void __launch_bounds__(Tf32DqCfg::THREADS, 1)
+// C: a Tf32DqCfg (one CTA, or a cluster of C::NC = 2 CTAs)
+template <typename C>
+__global__ void __launch_bounds__(C::THREADS, 1)
 flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
@@ -1424,10 +1837,11 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
                            float scale, int causal, int vec) {
   using namespace dl4j_mma;
   using dl4j_tf32::load_f32_tile;
-  using C = Tf32DqCfg;
+  constexpr int NC = C::NC;
   constexpr int BQ = C::BQ;
   constexpr int BK = C::BK;
-  constexpr int D = C::D;
+  constexpr int D = C::D;             // the columns this CTA holds
+  constexpr int NG = D / 32;          // their column groups
   constexpr int NT = C::THREADS;
   constexpr int KW = 8;               // keys of a step a warp takes
   constexpr int STAGE = 2 * BK * D;   // floats: K, then V
@@ -1435,8 +1849,15 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
   float* const qs = fsm;
   float* const dos = qs + BQ * D;
   float* const kvs = dos + BQ * D;
+  // the cluster's exchange: warp w's S (then dP) of buffer b, lane x at
+  // float4 (8 b + w) 64 + x (+ 32)
+  float4* const xs = reinterpret_cast<float4*>(kvs + 2 * STAGE);
 
-  const int bh = blockIdx.x;
+  // this CTA's columns [rank D, rank D + D) and how many of them are real
+  const int rank = NC > 1 ? (int)cluster_ctarank() : 0;
+  const int col0 = rank * D;
+  dr = min(max(dr - col0, 0), D);
+  const int bh = blockIdx.x / NC;
   const int b = bh / H;
   const int h = bh - b * H;
   const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
@@ -1451,18 +1872,18 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
   const int wrow = q0 + rg * 16;     // this warp's first query row
   const float sl2 = scale * kLog2e;
 
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
+  const float* kb = k + b * sk.b + h * sk.h + col0;
+  const float* vb = v + b * sv.b + h * sv.h + col0;
   const int kend = causal ? min(Tlen, q0 + BQ) : Tlen;
   const int nkt = (kend + BK - 1) / BK;
 
-  load_f32_tile<BQ, D, NT, true>(qs, q + b * sq.b + h * sq.h, sq.t, q0, Tlen,
-                                 dr, vec, tid);
-  load_f32_tile<BQ, D, NT, true>(dos, dout + b * sdo.b + h * sdo.h, sdo.t,
-                                 q0, Tlen, dr, vec, tid);
-  load_f32_tile<BK, D, NT, true>(kvs, kb, sk.t, 0, Tlen, dr, vec, tid);
-  load_f32_tile<BK, D, NT, true>(kvs + BK * D, vb, sv.t, 0, Tlen, dr, vec,
-                                 tid);
+  load_f32_tile<BQ, D, NT, true, D>(qs, q + b * sq.b + h * sq.h + col0, sq.t,
+                                    q0, Tlen, dr, vec, tid);
+  load_f32_tile<BQ, D, NT, true, D>(dos, dout + b * sdo.b + h * sdo.h + col0,
+                                    sdo.t, q0, Tlen, dr, vec, tid);
+  load_f32_tile<BK, D, NT, true, D>(kvs, kb, sk.t, 0, Tlen, dr, vec, tid);
+  load_f32_tile<BK, D, NT, true, D>(kvs + BK * D, vb, sv.t, 0, Tlen, dr, vec,
+                                    tid);
   cp_async_commit();
 
   // the lse (times log2 e) and delta of this thread's rows g and g + 8
@@ -1474,9 +1895,9 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
     l2[r] = ok ? lse[(long long)bh * Tlen + row] * kLog2e : 0.f;
     dl[r] = ok ? delta[(long long)bh * Tlen + row] : 0.f;
   }
-  float acc[8][4][4];
+  float acc[NG][4][4];
 #pragma unroll
-  for (int c = 0; c < 8; ++c)
+  for (int c = 0; c < NG; ++c)
 #pragma unroll
     for (int u = 0; u < 4; ++u)
 #pragma unroll
@@ -1485,10 +1906,10 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
   for (int j = 0; j < nkt; ++j) {
     if (j + 1 < nkt) {
       float* nk = kvs + ((j + 1) & 1) * STAGE;
-      load_f32_tile<BK, D, NT, true>(nk, kb, sk.t, (j + 1) * BK, Tlen, dr,
-                                     vec, tid);
-      load_f32_tile<BK, D, NT, true>(nk + BK * D, vb, sv.t, (j + 1) * BK,
-                                     Tlen, dr, vec, tid);
+      load_f32_tile<BK, D, NT, true, D>(nk, kb, sk.t, (j + 1) * BK, Tlen, dr,
+                                        vec, tid);
+      load_f32_tile<BK, D, NT, true, D>(nk + BK * D, vb, sv.t, (j + 1) * BK,
+                                        Tlen, dr, vec, tid);
     }
     cp_async_commit();
     cp_async_wait<1>();  // stage j (and Q, dO) have landed
@@ -1502,14 +1923,24 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int kp = 0; kp < D / 16; ++kp) {
       uint32_t ah[2][4], al[2][4];
-      a_frags(qs, rg * 16 + g, kp, t4, ah, al);
-      mma_dims(s, ks, kw + g, kp, t4, ah, al);
+      a_frags<D>(qs, rg * 16 + g, kp, t4, ah, al);
+      mma_dims<D>(s, ks, kw + g, kp, t4, ah, al);
     }
 #pragma unroll
     for (int kp = 0; kp < D / 16; ++kp) {
       uint32_t ah[2][4], al[2][4];
-      a_frags(dos, rg * 16 + g, kp, t4, ah, al);
-      mma_dims(dp, vs, kw + g, kp, t4, ah, al);
+      a_frags<D>(dos, rg * 16 + g, kp, t4, ah, al);
+      mma_dims<D>(dp, vs, kw + g, kp, t4, ah, al);
+    }
+    if constexpr (NC > 1) {
+      // S and dP over the whole D: this CTA's columns + the peer's
+      float4* const mine = xs + (8 * (j & 1) + warp) * 64 + lane;
+      mine[0] = make_float4(s[0], s[1], s[2], s[3]);
+      mine[32] = make_float4(dp[0], dp[1], dp[2], dp[3]);
+      cluster_sync();
+      const uint32_t peer = peer_addr(smem_u32(mine), rank ^ 1);
+      add4(s, ld_cluster_f4(peer));
+      add4(dp, ld_cluster_f4(peer + 32 * 16));
     }
 
     // P = exp2(S·scale·log2 e - lse·log2 e) and dS = P∘(dP - delta)·scale
@@ -1526,22 +1957,23 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
       s[e] = p * (dp[e] - dl[r]) * scale;
     }
     // dQ += dS·K over this warp's 8 keys (rows kw .. kw + 7 of the stage)
-    mma_rows(acc, s, ks, kw, g, t4);
+    mma_rows<D>(acc, s, ks, kw, g, t4);
     __syncthreads();  // stage j & 1 is consumed before it is refilled
   }
+  // no CTA leaves while its peer may still read its exchange
+  if constexpr (NC > 1) cluster_sync();
 
-  // the four partials of each row group through the ring (128 KiB), summed
-  // in order 0 + 1 + 2 + 3; warp (rg, part p) stores column groups 2p and
-  // 2p + 1
+  // the four partials of each row group through the ring (the size of all
+  // eight), summed in order 0 + 1 + 2 + 3; warp (rg, part p) stores column
+  // groups p, p + 4, ...
   cp_async_wait<0>();
   float4* const xo = reinterpret_cast<float4*>(kvs);
   post_acc(xo, warp, lane, acc);
   __syncthreads();
-  float* dqb = dq + b * sdq.b + h * sdq.h;
+  float* dqb = dq + b * sdq.b + h * sdq.h + col0;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
-    store_sum<4>(dqb, sdq.t, xo, rg, 2, 2 * (warp >> 1) + i, lane, wrow,
-                 Tlen, dr);
+  for (int c = warp >> 1; c < NG; c += 4)
+    store_sum<4, NG>(dqb, sdq.t, xo, rg, 2, c, lane, wrow, Tlen, dr);
 }
 
 // dK/dV: a block owns one (b*h, 32-key tile) and 8 warps in pairs: a dV
@@ -1560,21 +1992,30 @@ flash_bwd_dq_tf32x3_kernel(const float* __restrict__ q,
 // 0 + 1, each warp storing four of the eight column groups. The grid's
 // slow dimension walks the key tiles, the heaviest (first) first under
 // causal masking. 196.5 KiB: one block an SM.
+//
+// Past D 256 the same on a cluster of two CTAs that split D's columns
+// (Tf32DqCfg above): DP the padded D, CTAS the CTAs a cluster, D = DP /
+// CTAS columns a CTA.
+template <int DP, int CTAS>
 struct Tf32DkvCfg {
-  static constexpr int D = 256;        // the padded head dim
+  static constexpr int NC = CTAS;      // CTAs a cluster
+  static constexpr int D = DP / NC;    // the columns a CTA holds
   static constexpr int BKV = 32;       // keys per block: 2 groups of 16
   static constexpr int BQ = 32;        // query rows per step: 2 halves of 16
   static constexpr int THREADS = 256;  // 8 warps: (dV, dK) x 2 x 2
   static constexpr int TILE = D * 4;   // bytes a row
   // K, V, then two stages of (Q, dO)
   static constexpr int ROWS = 2 * BKV * TILE + 2 * 2 * BQ * TILE;
-  // then two stages of (lse, delta) rows and each pair's Pᵀ (two n-tiles
-  // of 32 lanes' float4s)
-  static constexpr int SMEM = ROWS + 2 * 2 * BQ * 4 + 4 * 2 * 32 * 16;
+  // on a cluster, two buffers of each warp's Sᵀ or dPᵀ partial (two
+  // n-tiles, a float4 a lane each)
+  static constexpr int XS = (NC - 1) * 2 * 8 * 2 * 32 * 16;
+  // then two stages of (lse, delta) rows, each pair's Pᵀ (two n-tiles of
+  // 32 lanes' float4s), the exchange
+  static constexpr int SMEM = ROWS + 2 * 2 * BQ * 4 + 4 * 2 * 32 * 16 + XS;
 };
-static_assert(Tf32DkvCfg::SMEM <= 232448, "227 KiB a block on sm_90");
-static_assert(Tf32DkvCfg::D == dl4j_tf32::kD, "the split-TF32 padded width");
-static_assert(Tf32DkvCfg::BQ == 32 && Tf32DkvCfg::BKV == 32,
+static_assert(Tf32DkvCfg<256, 1>::D == dl4j_tf32::kD,
+              "the split-TF32 padded width");
+static_assert(Tf32DkvCfg<256, 1>::BQ == 32 && Tf32DkvCfg<256, 1>::BKV == 32,
               "the warps: two 16-key groups, two 16-query halves");
 
 // named barrier `id` of n threads: bar_sync waits, bar_arrive does not
@@ -1587,7 +2028,9 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
-__global__ void __launch_bounds__(Tf32DkvCfg::THREADS, 1)
+// C: a Tf32DkvCfg (one CTA, or a cluster of C::NC = 2 CTAs)
+template <typename C>
+__global__ void __launch_bounds__(C::THREADS, 1)
 flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
@@ -1600,10 +2043,11 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
                             int causal, int vec) {
   using namespace dl4j_mma;
   using dl4j_tf32::load_f32_tile;
-  using C = Tf32DkvCfg;
+  constexpr int NC = C::NC;
   constexpr int BKV = C::BKV;
   constexpr int BQ = C::BQ;
-  constexpr int D = C::D;
+  constexpr int D = C::D;            // the columns this CTA holds
+  constexpr int NG = D / 32;         // their column groups
   constexpr int NT = C::THREADS;
   constexpr int STAGE = 2 * BQ * D;  // floats: Q, then dO
   extern __shared__ __align__(16) float fsm[];
@@ -1612,8 +2056,15 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
   float* const ring = vs + BKV * D;
   float* const rows = ring + 2 * STAGE;  // stage st: lse, then delta
   float4* const xch = reinterpret_cast<float4*>(rows + 2 * 2 * BQ);
+  // the cluster's exchange: warp w's two n-tiles of buffer b, lane x at
+  // float4 (8 b + w) 64 + 32 n + x
+  float4* const xs = xch + 4 * 2 * 32;
 
-  const int bh = blockIdx.x;
+  // this CTA's columns [rank D, rank D + D) and how many of them are real
+  const int rank = NC > 1 ? (int)cluster_ctarank() : 0;
+  const int col0 = rank * D;
+  dr = min(max(dr - col0, 0), D);
+  const int bh = blockIdx.x / NC;
   const int b = bh / H;
   const int h = bh - b * H;
   const int k0 = blockIdx.y * BKV;
@@ -1629,8 +2080,8 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
   const int wkey = k0 + kg * 16;    // this warp's first key
   const float sl2 = scale * kLog2e;
 
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* dob = dout + b * sdo.b + h * sdo.h;
+  const float* qb = q + b * sq.b + h * sq.h + col0;
+  const float* dob = dout + b * sdo.b + h * sdo.h + col0;
   const float* lseb = lse + (long long)bh * Tlen;
   const float* deltab = delta + (long long)bh * Tlen;
   // causal: query tiles above the block's first key see none of its keys
@@ -1642,9 +2093,9 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
   auto fetch = [&](int it, int st) {
     float* tq = ring + st * STAGE;
     const int i0 = it * BQ;
-    load_f32_tile<BQ, D, NT, true>(tq, qb, sq.t, i0, Tlen, dr, vec, tid);
-    load_f32_tile<BQ, D, NT, true>(tq + BQ * D, dob, sdo.t, i0, Tlen, dr,
-                                   vec, tid);
+    load_f32_tile<BQ, D, NT, true, D>(tq, qb, sq.t, i0, Tlen, dr, vec, tid);
+    load_f32_tile<BQ, D, NT, true, D>(tq + BQ * D, dob, sdo.t, i0, Tlen, dr,
+                                      vec, tid);
     if (tid < 2 * BQ) {
       const int row = i0 + (tid & (BQ - 1));
       const bool ok = row < Tlen;
@@ -1653,17 +2104,17 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
                 ok);
     }
   };
-  load_f32_tile<BKV, D, NT, true>(ks, k + b * sk.b + h * sk.h, sk.t, k0,
-                                  Tlen, dr, vec, tid);
-  load_f32_tile<BKV, D, NT, true>(vs, v + b * sv.b + h * sv.h, sv.t, k0,
-                                  Tlen, dr, vec, tid);
+  load_f32_tile<BKV, D, NT, true, D>(ks, k + b * sk.b + h * sk.h + col0,
+                                     sk.t, k0, Tlen, dr, vec, tid);
+  load_f32_tile<BKV, D, NT, true, D>(vs, v + b * sv.b + h * sv.h + col0,
+                                     sv.t, k0, Tlen, dr, vec, tid);
   fetch(first, 0);
   cp_async_commit();
 
   // dV (dV warps) or dK (dK warps) of this warp's keys over its queries
-  float acc[8][4][4];
+  float acc[NG][4][4];
 #pragma unroll
-  for (int c = 0; c < 8; ++c)
+  for (int c = 0; c < NG; ++c)
 #pragma unroll
     for (int u = 0; u < 4; ++u)
 #pragma unroll
@@ -1695,10 +2146,20 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
 #pragma unroll
     for (int kp = 0; kp < D / 16; ++kp) {
       uint32_t ah[2][4], al[2][4];
-      a_frags(at, kg * 16 + g, kp, t4, ah, al);
+      a_frags<D>(at, kg * 16 + g, kp, t4, ah, al);
 #pragma unroll
       for (int n = 0; n < 2; ++n)
-        mma_dims(x[n], bt, qh * 16 + 8 * n + g, kp, t4, ah, al);
+        mma_dims<D>(x[n], bt, qh * 16 + 8 * n + g, kp, t4, ah, al);
+    }
+    if constexpr (NC > 1) {
+      // Sᵀ or dPᵀ over the whole D: this CTA's columns + the peer's
+      float4* const mine = xs + (8 * st + warp) * 64 + lane;
+      mine[0] = make_float4(x[0][0], x[0][1], x[0][2], x[0][3]);
+      mine[32] = make_float4(x[1][0], x[1][1], x[1][2], x[1][3]);
+      cluster_sync();
+      const uint32_t peer = peer_addr(smem_u32(mine), rank ^ 1);
+      add4(x[0], ld_cluster_f4(peer));
+      add4(x[1], ld_cluster_f4(peer + 32 * 16));
     }
 
     if (!dk_warp) {
@@ -1740,74 +2201,116 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
     const float* ct = dk_warp ? qst : dost;
 #pragma unroll
     for (int n = 0; n < 2; ++n)
-      mma_rows(acc, x[n], ct, qh * 16 + 8 * n, g, t4);
+      mma_rows<D>(acc, x[n], ct, qh * 16 + 8 * n, g, t4);
     __syncthreads();  // this stage and the pairs' Pᵀ are free again
   }
+  // no CTA leaves while its peer may still read its exchange
+  if constexpr (NC > 1) cluster_sync();
 
-  // the two query halves' partials of each output through the ring
-  // (128 KiB), summed in order 0 + 1; warp (kg, qh) of each role stores
-  // column groups 4 qh .. 4 qh + 3
+  // the two query halves' partials of each output through the ring (the
+  // size of all eight), summed in order 0 + 1; warp (kg, qh) of each role
+  // stores column groups qh, qh + 2, ...
   cp_async_wait<0>();
   float4* const xo = reinterpret_cast<float4*>(ring);
   post_acc(xo, warp, lane, acc);
   __syncthreads();
-  float* out = dk_warp ? dk + b * sdk.b + h * sdk.h
-                       : dv + b * sdv.b + h * sdv.h;
+  float* out = dk_warp ? dk + b * sdk.b + h * sdk.h + col0
+                       : dv + b * sdv.b + h * sdv.h + col0;
   const long long ot = dk_warp ? sdk.t : sdv.t;
   const int w0 = warp & ~2;  // this output's query half 0
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    store_sum<2>(out, ot, xo, w0, 2, 4 * qh + i, lane, wkey, Tlen, dr);
+  for (int c = qh; c < NG; c += 2)
+    store_sum<2, NG>(out, ot, xo, w0, 2, c, lane, wkey, Tlen, dr);
 }
 
+// C as the kernels' (C::NC CTAs a cluster)
+template <typename C>
 int launch_dq_tf32x3(int BH, int Tlen, int dr, cudaStream_t st,
                      const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int H, const long long* s, float scale,
                      int causal) {
-  using C = Tf32DqCfg;
+  static_assert(C::SMEM <= 232448, "227 KiB a block on sm_90");
   const Str sq = str_at(s, 0), sk = str_at(s, 1), sv = str_at(s, 2),
             sdo = str_at(s, 3);
   const bool vec = dl4j_tf32::rows_16b(dr, {q, k, v, dout},
                                        {sq, sk, sv, sdo});
-  auto kern = flash_bwd_dq_tf32x3_kernel;
+  constexpr int NC = C::NC;
+  auto kern = flash_bwd_dq_tf32x3_kernel<C>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
   // query tiles on the slow dimension: the heaviest (last) go first
-  const dim3 grid(BH, (Tlen + C::BQ - 1) / C::BQ);
-  kern<<<grid, C::THREADS, C::SMEM, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq), H, Tlen, dr, sq, sk, sv, sdo, str_at(s, 4),
-      scale, causal, int(vec));
-  return (int)cudaGetLastError();
+  const dim3 grid(NC * BH, (Tlen + C::BQ - 1) / C::BQ);
+  return launch_clusters<NC>(
+      kern, grid, C::THREADS, C::SMEM, st, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), H, Tlen, dr,
+      sq, sk, sv, sdo, str_at(s, 4), scale, causal, int(vec));
 }
 
+template <typename C>
 int launch_dkv_tf32x3(int BH, int Tlen, int dr, cudaStream_t st,
                       const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dk, void* dv, int H, const long long* s,
                       float scale, int causal) {
-  using C = Tf32DkvCfg;
+  static_assert(C::SMEM <= 232448, "227 KiB a block on sm_90");
   const Str sq = str_at(s, 0), sk = str_at(s, 1), sv = str_at(s, 2),
             sdo = str_at(s, 3);
   const bool vec = dl4j_tf32::rows_16b(dr, {q, k, v, dout},
                                        {sq, sk, sv, sdo});
-  auto kern = flash_bwd_dkv_tf32x3_kernel;
+  constexpr int NC = C::NC;
+  auto kern = flash_bwd_dkv_tf32x3_kernel<C>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
   // key tiles on the slow dimension: the heaviest (first) go first
-  const dim3 grid(BH, (Tlen + C::BKV - 1) / C::BKV);
-  kern<<<grid, C::THREADS, C::SMEM, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), H, Tlen, dr, sq, sk,
-      sv, sdo, str_at(s, 4), str_at(s, 5), scale, causal, int(vec));
-  return (int)cudaGetLastError();
+  const dim3 grid(NC * BH, (Tlen + C::BKV - 1) / C::BKV);
+  return launch_clusters<NC>(
+      kern, grid, C::THREADS, C::SMEM, st, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), H, Tlen, dr, sq, sk, sv, sdo, str_at(s, 4),
+      str_at(s, 5), scale, causal, int(vec));
+}
+
+// f32 D 129..512: padded to 256 on one CTA, else to 320, 384 or 512 on a
+// cluster of two that split the columns
+int launch_dq_tf32x3_any(int BH, int Tlen, int dr, cudaStream_t st,
+                         const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse,
+                         const void* delta, void* dq, int H,
+                         const long long* s, float scale, int causal) {
+#define DL4J_TF32_DQ(DP, NC)                                                 \
+  return launch_dq_tf32x3<Tf32DqCfg<DP, NC>>(BH, Tlen, dr, st, q, k, v,      \
+                                             dout, lse, delta, dq, H, s,     \
+                                             scale, causal)
+  if (dr <= 256) DL4J_TF32_DQ(256, 1);
+  if (dr <= 320) DL4J_TF32_DQ(320, 2);
+  if (dr <= 384) DL4J_TF32_DQ(384, 2);
+  if (dr <= 512) DL4J_TF32_DQ(512, 2);
+#undef DL4J_TF32_DQ
+  return (int)cudaErrorInvalidValue;
+}
+
+int launch_dkv_tf32x3_any(int BH, int Tlen, int dr, cudaStream_t st,
+                          const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv, int H,
+                          const long long* s, float scale, int causal) {
+#define DL4J_TF32_DKV(DP, NC)                                                \
+  return launch_dkv_tf32x3<Tf32DkvCfg<DP, NC>>(BH, Tlen, dr, st, q, k, v,    \
+                                               dout, lse, delta, dk, dv, H,  \
+                                               s, scale, causal)
+  if (dr <= 256) DL4J_TF32_DKV(256, 1);
+  if (dr <= 320) DL4J_TF32_DKV(320, 2);
+  if (dr <= 384) DL4J_TF32_DKV(384, 2);
+  if (dr <= 512) DL4J_TF32_DKV(512, 2);
+#undef DL4J_TF32_DKV
+  return (int)cudaErrorInvalidValue;
 }
 
 // ------------------------------ any D, CUDA cores (flash_general.cuh)
@@ -2021,8 +2524,8 @@ int launch_dkv_general(int BH, int Tlen, int D, cudaStream_t st,
 // the kernel for (dtype, D): dtype 0 = float32, 1 = bfloat16. D <= 128
 // (bf16: a multiple of 8, 16-byte rows) runs on the kernel instantiated
 // on the padded width padded_dim(D); every other D on the general kernel
-// (both entries take f32 D 129..256 to their split-TF32 kernels and bf16
-// D 136..256 to their padded-256 kernels first)
+// (both entries take f32 D 129..512 to their split-TF32 kernels and bf16
+// D 136..512 to their two-warpgroup and cluster kernels first)
 #define DL4J_BWD_DISPATCH(LAUNCH, LAUNCH_GENERAL, ...)                       \
   if (D > 128 || (dtype == 1 && D % 8 != 0))                                 \
     return dtype == 0 ? LAUNCH_GENERAL<float>(__VA_ARGS__)                   \
@@ -2053,13 +2556,18 @@ extern "C" int dl4j_flash_attention_bwd_dq(
   if (B < 1 || H < 1 || T < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D > 128 && D <= 256)
-    return launch_dq_tf32x3(B * H, T, D, st, q, k, v, dout, lse, delta, dq,
-                            H, strides, scale, causal);
-  if (dtype == 1 && D > 128 && D <= 256 && D % 8 == 0)
-    return launch_dq<__nv_bfloat16, 256>(B * H, T, D, st, q, k, v, dout, lse,
-                                         delta, dq, H, strides, scale,
-                                         causal);
+  if (dtype == 0 && D > 128 && D <= 512)
+    return launch_dq_tf32x3_any(B * H, T, D, st, q, k, v, dout, lse, delta,
+                                dq, H, strides, scale, causal);
+  if (dtype == 1 && D > 128 && D <= 512 && D % 8 == 0) {
+#define DL4J_BF16_DQ(DP)                                                     \
+  return launch_dq<__nv_bfloat16, DP>(B * H, T, D, st, q, k, v, dout, lse,   \
+                                      delta, dq, H, strides, scale, causal)
+    if (D <= 256) DL4J_BF16_DQ(256);
+    if (dl4j_mma::wide_padded_dim(D) == 384) DL4J_BF16_DQ(384);
+    DL4J_BF16_DQ(512);
+#undef DL4J_BF16_DQ
+  }
   DL4J_BWD_DISPATCH(launch_dq, launch_dq_general, B * H, T, D, st, q, k, v,
                     dout, lse, delta, dq, H, strides, scale, causal)
 }
@@ -2073,13 +2581,19 @@ extern "C" int dl4j_flash_attention_bwd_dkv(
   if (B < 1 || H < 1 || T < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D > 128 && D <= 256)
-    return launch_dkv_tf32x3(B * H, T, D, st, q, k, v, dout, lse, delta, dk,
-                             dv, H, strides, scale, causal);
-  if (dtype == 1 && D > 128 && D <= 256 && D % 8 == 0)
-    return launch_dkv<__nv_bfloat16, 256>(B * H, T, D, st, q, k, v, dout,
-                                          lse, delta, dk, dv, H, strides,
-                                          scale, causal);
+  if (dtype == 0 && D > 128 && D <= 512)
+    return launch_dkv_tf32x3_any(B * H, T, D, st, q, k, v, dout, lse, delta,
+                                 dk, dv, H, strides, scale, causal);
+  if (dtype == 1 && D > 128 && D <= 512 && D % 8 == 0) {
+#define DL4J_BF16_DKV(DP)                                                    \
+  return launch_dkv<__nv_bfloat16, DP>(B * H, T, D, st, q, k, v, dout, lse,  \
+                                       delta, dk, dv, H, strides, scale,     \
+                                       causal)
+    if (D <= 256) DL4J_BF16_DKV(256);
+    if (dl4j_mma::wide_padded_dim(D) == 384) DL4J_BF16_DKV(384);
+    DL4J_BF16_DKV(512);
+#undef DL4J_BF16_DKV
+  }
   DL4J_BWD_DISPATCH(launch_dkv, launch_dkv_general, B * H, T, D, st, q, k,
                     v, dout, lse, delta, dk, dv, H, strides, scale, causal)
 }

@@ -3,10 +3,10 @@
 // flash_attention_bwd.cu (flash_bwd_dq_general_kernel,
 // flash_bwd_dkv_general_kernel).
 //
-// These kernels take every head dim the fast paths do not: D > 256 in
-// both dtypes, f32 D 129..256 in the backward (the f32 forward runs its
-// split-TF32 kernel there), and a bf16 D that is not a multiple of 8 (rows
-// that are not whole 16-byte chunks, so every load is one element). Like the Pallas
+// These kernels take every head dim the fast paths do not: D > 512 in
+// both dtypes (K1, dQ and dK/dV run their wide kernels at 257..512) and a
+// bf16 D that is not a multiple of 8 (rows that are not whole 16-byte
+// chunks, so every load is one element). Like the Pallas
 // block (1, bq, d) of the reference, they take any D whose tiles fit in
 // the 227 KiB of shared memory a block may use.
 //

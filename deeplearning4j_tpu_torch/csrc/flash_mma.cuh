@@ -2,8 +2,10 @@
 // (flash_attention_fwd.cu, flash_attention_bwd.cu) for sm_90a: 16-byte
 // cp.async into shared tiles laid out as wgmma operands, their wgmma
 // descriptors, and wgmma.mma_async (m64nNk16, bf16 -> f32) with both
-// operands in shared memory or A in registers (N 32..256; 192 for the
-// column halves of K1 at padded D 384).
+// operands in shared memory or A in registers (N 16..256; 192 for the
+// column halves of K1 and dQ at padded D 384, 96 for the column quarters
+// of dK/dV there), and the thread-block cluster's barrier and shared-
+// memory reads (the wide backward's exchanges between CTAs).
 //
 // Fragment layouts (lane = 4 * g + t, g = lane / 4, t = lane % 4; warp w
 // of the warpgroup owns rows 16 w .. 16 w + 15 of the 64-row product):
@@ -104,6 +106,19 @@ __device__ __forceinline__ float quad_max(float x) {
 }
 
 // ---------------------------------------------- warpgroup MMA (wgmma)
+
+// S (64 x 16, f32) += A · Bᵀ, both bf16 tiles in shared memory
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
 
 // S (64 x 32, f32) += A · Bᵀ, both bf16 tiles in shared memory
 __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
@@ -231,6 +246,36 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O (64 x 96, f32) += P · V: P's bf16 A fragments in registers, V (keys
+// x 96) in shared memory, transposed (MN-major)
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -381,6 +426,7 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128],
 template <int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
                                          uint64_t db) {
+  if constexpr (N == 16) wgmma_ss_n16(d, da, db);
   if constexpr (N == 32) wgmma_ss_n32(d, da, db);
   if constexpr (N == 64) wgmma_ss_n64(d, da, db);
   if constexpr (N == 128) wgmma_ss_n128(d, da, db);
@@ -391,6 +437,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
   if constexpr (N == 16) wgmma_rs_n16(d, a, db);
   if constexpr (N == 32) wgmma_rs_n32(d, a, db);
   if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  if constexpr (N == 96) wgmma_rs_n96(d, a, db);
   if constexpr (N == 128) wgmma_rs_n128(d, a, db);
   if constexpr (N == 192) wgmma_rs_n192(d, a, db);
   if constexpr (N == 256) wgmma_rs_n256(d, a, db);
@@ -405,6 +452,39 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
+// ------------------------------- thread-block clusters (distributed smem)
+
+// this CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+// the shared::cluster address of this CTA's shared address `addr` in the
+// shared memory of the cluster's CTA `rank`
+__device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+// 16 bytes from a shared::cluster address (any CTA of the cluster)
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+// every thread of the cluster meets here; what each wrote to shared
+// memory before it is visible to all of them after it (release, acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // keep the compiler from moving reads or writes of an accumulator across
 // the asynchronous products that own it
 template <int N>

@@ -47,17 +47,22 @@ and 512, f32 also 320) and zero-fill the
 columns past D inside the kernel — bf16 on the tensor cores when D is a
 multiple of 8 (its rows whole 16-byte chunks), up to 256 (dQ and dK/dV
 past 128 on two warpgroups that split the columns); f32 on the CUDA
-cores up to 128, and in split TF32 up to 256. K1 past 256, up to 512,
-runs its wide kernels, padded to 384 or 512 (f32 also 320): bf16 (a multiple of 8) on
-two warpgroups that each hold one half of O's columns
-(``LAUNCHES_TC_WIDE``, family ``"wgmma-wide"``, 16-byte alignment as
-above), f32 in split TF32 on pairs of warps that each hold one half
-(``LAUNCHES_TF32X3_WIDE``, ``"tf32x3-wide"``, any strides). Every other
+cores up to 128, and in split TF32 up to 256. Past 256, up to 512, all
+three run their wide kernels, padded to 384 or 512 (f32 also 320), in
+the families ``"wgmma-wide"`` (bf16, a multiple of 8; 16-byte alignment
+as above) and ``"tf32x3-wide"`` (f32, any strides), counted in
+``LAUNCHES_TC_WIDE``, ``LAUNCHES_BWD_DQ_TC_WIDE``,
+``LAUNCHES_BWD_DKV_TC_WIDE`` and the ``_TF32X3_WIDE`` three: bf16 K1 and
+dQ on two warpgroups that each hold one half of the output's columns,
+bf16 dK/dV on a cluster of two CTAs whose four warpgroups each hold a
+quarter of dK's and dV's columns; f32 K1 in split TF32 on pairs of warps
+that each hold one half, f32 dQ and dK/dV in split TF32 on a cluster of
+two CTAs that each hold one half of every operand's columns. Every other
 D runs the head-dim-general CUDA-core kernels (``csrc/flash_general.cuh``;
 counted in ``LAUNCHES_GENERAL``, ``LAUNCHES_BWD_DQ_GENERAL`` and
 ``LAUNCHES_BWD_DKV_GENERAL``), whose tile rows shrink from 64 to 8 as D
-grows (:func:`general_rows`): K1 past 512 and for bf16 rows that are not
-whole 16-byte chunks, dQ and dK/dV past 256.
+grows (:func:`general_rows`): past 512, and for bf16 rows that are not
+whole 16-byte chunks.
 """
 
 from __future__ import annotations
@@ -84,9 +89,10 @@ FAST_MAX_HEAD_DIM = 128
 TC_MAX_HEAD_DIM = 256
 #: the largest f32 head dim of the split-TF32 kernels (padded to 256)
 TF32X3_MAX_HEAD_DIM = 256
-#: the largest head dim of K1's wide kernels (padded to 384 or 512, f32
-#: also 320): bf16 on two warpgroups, f32 in split TF32 on two warps, each
-#: holding a half of O's columns; dQ and dK/dV stay general past 256
+#: the largest head dim of the wide kernels of K1, dQ and dK/dV (padded to
+#: 384 or 512, f32 also 320): each output's columns split between two
+#: warpgroups or warps (K1, bf16 dQ) or two CTAs of a cluster (dK/dV, f32
+#: dQ)
 WIDE_MAX_HEAD_DIM = 512
 #: shared memory a block may use on the H100 (sm_90): 227 KiB
 SMEM_PER_BLOCK = 232448
@@ -99,8 +105,8 @@ GENERAL_ROWS = (64, 32, 16, 8)
 #: on CPU tensors do not count): K1, the dQ kernel, the dK/dV kernel (any
 #: route), and of those each family's (:data:`FAMILY_SUFFIX`): the bf16
 #: tensor-core, the f32 CUDA-core, the f32 split-TF32 and the
-#: head-dim-general K1, dQ and dK/dV kernels, and K1's two wide kernels
-#: (bf16 two-warpgroup, f32 split-TF32 column halves) past D 256
+#: head-dim-general K1, dQ and dK/dV kernels, and the wide K1, dQ and dK/dV
+#: kernels (bf16, f32 split TF32) past D 256
 LAUNCHES = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_BWD_DKV = 0
@@ -117,7 +123,11 @@ LAUNCHES_GENERAL = 0
 LAUNCHES_BWD_DQ_GENERAL = 0
 LAUNCHES_BWD_DKV_GENERAL = 0
 LAUNCHES_TC_WIDE = 0
+LAUNCHES_BWD_DQ_TC_WIDE = 0
+LAUNCHES_BWD_DKV_TC_WIDE = 0
 LAUNCHES_TF32X3_WIDE = 0
+LAUNCHES_BWD_DQ_TF32X3_WIDE = 0
+LAUNCHES_BWD_DKV_TF32X3_WIDE = 0
 #: each kernel family's counter suffix (:func:`launch_counter`)
 FAMILY_SUFFIX = {"wgmma": "_TC", "cuda-core": "_CUDA_CORE",
                  "tf32x3": "_TF32X3", "general": "_GENERAL",
@@ -252,10 +262,10 @@ def route(d: int, dtype, kernel: str) -> str:
     """The kernel family head dim ``d`` runs in ``dtype`` for ``kernel``
     ("fwd", "dq" or "dkv"): ``"wgmma"`` (bf16, a multiple of 8 up to
     ``TC_MAX_HEAD_DIM``), ``"cuda-core"`` (f32, D <= 128), ``"tf32x3"``
-    (f32, D 129..256), for K1 only ``"wgmma-wide"`` (bf16, a multiple of
-    8 in 264..``WIDE_MAX_HEAD_DIM``) and ``"tf32x3-wide"`` (f32, D
-    257..512), or ``"general"`` (every other D)."""
-    wide = kernel == "fwd" and d <= WIDE_MAX_HEAD_DIM
+    (f32, D 129..256), ``"wgmma-wide"`` (bf16, a multiple of 8 in
+    264..``WIDE_MAX_HEAD_DIM``), ``"tf32x3-wide"`` (f32, D 257..512), or
+    ``"general"`` (every other D); the same in all three kernels."""
+    wide = d <= WIDE_MAX_HEAD_DIM
     if dtype == torch.float32:
         if d <= FAST_MAX_HEAD_DIM:
             return "cuda-core"

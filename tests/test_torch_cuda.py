@@ -124,12 +124,13 @@ HEAD_DIMS = [8, 16, 24, 32, 64, 80, 120, 128]
 # head dims past 128: bf16 K1, dQ and dK/dV on the tensor cores padded to
 # 256 (136, 160, 200, 256), f32 K1, dQ and dK/dV in split TF32 padded to
 # 256 (130: rows of whole elements, not 16-byte chunks; 136-256); at 320
-# K1 on its wide kernels (padded to 384) and dQ and dK/dV general; every
+# all three on their wide kernels (bf16 padded to 384, f32 to 320); every
 # kernel general past 512 (520) and for bf16 rows that are not whole
 # 16-byte chunks (12, 130; f32 runs its CUDA-core kernel at 12)
 GENERAL_HEAD_DIMS = [12, 130, 136, 160, 200, 256, 320, 520]
-# K1's wide kernels: bf16 padded to 384 (264, 320, 328, 384) and to 512
-# (392, 512); f32 to 320 (264, 320), 384 (328, 384) and 512 (392, 512)
+# the wide kernels of K1, dQ and dK/dV: bf16 padded to 384 (264, 320, 328,
+# 384) and to 512 (392, 512); f32 to 320 (264, 320), 384 (328, 384) and
+# 512 (392, 512)
 WIDE_HEAD_DIMS = [264, 320, 328, 384, 392, 512]
 
 
@@ -313,6 +314,79 @@ def test_flash_tf32x3_bwd_matches_plain_over_many_waves(gen):
         assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("t,causal", [(200, True), (200, False),
+                                      (1000, True)])
+@pytest.mark.parametrize("d", WIDE_HEAD_DIMS)
+def test_flash_wide_bwd_matches_plain(gen, dtype, t, causal, d):
+    """dQ and dK/dV past D 256 (bf16: dQ on two warpgroups that split its
+    columns, dK/dV on a cluster of two CTAs whose four warpgroups each
+    own a quarter of the columns; f32: both in split TF32 on a cluster of
+    two CTAs that split every operand's columns), padded to 384 and 512
+    (f32 also 320), T 200 (a ragged last tile) and 1000, against the
+    plain backward: counted on the wide family and nowhere else; through
+    strided (B, T, H, D) views of one qkv buffer too; a second launch
+    repeats the first bit for bit."""
+    b, h = 2, 3
+    scale = d ** -0.5
+    kind = "wgmma-wide" if dtype == torch.bfloat16 else "tf32x3-wide"
+    assert fa.route(d, dtype, "dq") == fa.route(d, dtype, "dkv") == kind
+    q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    _, lse = fa.mha_reference_lse(q, k, v, causal=causal)
+    delta = torch.randn((b, h, t), generator=gen, device="cuda")
+    ref = fa.flash_attention_bwd_reference(q, k, v, do, lse, delta, scale,
+                                           causal)
+    before = _counts("dq"), _counts("dkv")
+    runs = [(fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale,
+                                       causal),
+             *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                         causal)) for _ in range(2)]
+    assert [a - b_ for a, b_ in zip(_counts("dq"), before[0])] \
+        == [2 * x for x in _added("dq", d, dtype)]
+    assert [a - b_ for a, b_ in zip(_counts("dkv"), before[1])] \
+        == [2 * x for x in _added("dkv", d, dtype)]
+    torch.cuda.synchronize()
+    for got, again, want in zip(*runs, ref):
+        _close(got, want, dtype)
+        assert torch.equal(got, again)
+    qkv = torch.cat([x.transpose(1, 2).reshape(b, t, h * d)
+                     for x in (q, k, v)], dim=-1)
+    qn, kn, vn = (x.reshape(b, t, h, d) for x in qkv.chunk(3, dim=-1))
+    got = fa.flash_attention_bwd(qn, kn, vn, do.transpose(1, 2), lse, delta,
+                                 scale, causal, layout="bthd")
+    torch.cuda.synchronize()
+    for g, want in zip(got, ref):
+        _close(g.transpose(1, 2), want, dtype)
+
+
+def test_flash_wide_bwd_over_many_waves(gen):
+    """The wide dQ and dK/dV on grids of several waves of the SMs (B8 H4
+    T1000 D320, causal), against the plain backward: bf16 from a time
+    stride of 3·H·D (the transformer's qkv buffer), f32 from views whose
+    rows are not 16-byte chunks (D 318: element-wise copies); the
+    autograd Function's grads against autograd through the plain
+    forward."""
+    b, h, t = 8, 4, 1000
+    for dtype, off, d in ((torch.bfloat16, 0, 320), (torch.float32, 1, 318)):
+        raw = torch.randn((b, t, off + 3 * h * d), generator=gen,
+                          device="cuda").to(dtype)
+        x = raw[..., off:].detach().requires_grad_(True)
+        q, k, v = (x[..., i * h * d:(i + 1) * h * d].reshape(b, t, h, d)
+                   for i in range(3))
+        do = torch.randn((b, t, h, d), generator=gen, device="cuda") \
+            .to(dtype)
+        before = _counts("dq"), _counts("dkv")
+        (g_fn,) = torch.autograd.grad(
+            fa.flash_attention_ntc(q, k, v, causal=True), x, do)
+        assert _moved(before[0], "dq", d, dtype) \
+            and _moved(before[1], "dkv", d, dtype)
+        ref = fa.mha_reference(*(y.transpose(1, 2) for y in (q, k, v)),
+                               causal=True)
+        (g_ref,) = torch.autograd.grad(ref, x, do.transpose(1, 2))
+        _close(g_fn, g_ref, dtype)
+
+
 def test_flash_misaligned_bf16_views_raise_before_launch(gen):
     """A bf16 view that starts off a 16-byte boundary (or has a time
     stride of an odd number of elements) raises in K1, in dQ and in
@@ -364,8 +438,8 @@ def _close(got, ref, dtype):
 def test_flash_bwd_kernels_match_plain(gen, dtype, t, causal, d):
     """dQ and dK/dV (on the tensor cores in bf16 up to 256, each on two
     warpgroups that split the columns past 128; f32 on the CUDA-core
-    kernels up to 128 and in split TF32 at 129-256; the general kernels
-    past them) against the plain
+    kernels up to 128 and in split TF32 at 129-256; the wide kernels at
+    257-512; the general kernels past them) against the plain
     backward on the same inputs, in the (B, H, T, D) layout and through
     strided (B, T, H, D) views of one qkv buffer (the transformer's
     layout); a second launch of each repeats the first bit for bit; the

@@ -381,16 +381,16 @@ def test_d320_lm_loss_and_grads_match_jax_flash(monkeypatch):
     forward and backward, the JAX package's Pallas kernels in interpret
     mode: its ``flash_engages`` is patched to True, as under this suite's
     8 host devices it returns False); atol 1e-5, rtol 1e-4 (summation
-    order). On the card this LM's K1 takes the wide kernels in both
-    dtypes, its dQ and dK/dV the general ones."""
+    order). On the card this LM's K1, dQ and dK/dV take the wide kernels
+    in both dtypes."""
     monkeypatch.setattr(jtfm, "flash_engages", lambda cfg, t: True)
     jcfg = jtfm.TransformerConfig(dtype=jnp.float32, **D320_LM)
     tcfg = ttfm.TransformerConfig(dtype=torch.float32, **D320_LM)
     assert tcfg.head_dim == 320
     assert [tfa.route(320, dt, kn) for dt in (torch.bfloat16, torch.float32)
             for kn in ("fwd", "dq", "dkv")] == [
-        "wgmma-wide", "general", "general",
-        "tf32x3-wide", "general", "general"]
+        "wgmma-wide", "wgmma-wide", "wgmma-wide",
+        "tf32x3-wide", "tf32x3-wide", "tf32x3-wide"]
     jp = jtfm.init_params(jax.random.PRNGKey(0), jcfg)
     tp = ttfm.params_from_numpy(jax.tree_util.tree_map(np.asarray, jp),
                                 tcfg, device="cpu")

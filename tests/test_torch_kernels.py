@@ -496,26 +496,26 @@ _TCW, _TFW = "wgmma-wide", "tf32x3-wide"
     (130, torch.bfloat16, (_GN, _GN, _GN)),
     (136, torch.bfloat16, (_TC, _TC, _TC)),
     (256, torch.bfloat16, (_TC, _TC, _TC)),
-    (264, torch.bfloat16, (_TCW, _GN, _GN)),
-    (320, torch.bfloat16, (_TCW, _GN, _GN)),
+    (264, torch.bfloat16, (_TCW, _TCW, _TCW)),
+    (320, torch.bfloat16, (_TCW, _TCW, _TCW)),
     (324, torch.bfloat16, (_GN, _GN, _GN)),
-    (512, torch.bfloat16, (_TCW, _GN, _GN)),
+    (512, torch.bfloat16, (_TCW, _TCW, _TCW)),
     (520, torch.bfloat16, (_GN, _GN, _GN)),
     (12, torch.float32, (_CC, _CC, _CC)),
     (128, torch.float32, (_CC, _CC, _CC)),
     (129, torch.float32, (_TF, _TF, _TF)),
     (160, torch.float32, (_TF, _TF, _TF)),
     (256, torch.float32, (_TF, _TF, _TF)),
-    (257, torch.float32, (_TFW, _GN, _GN)),
-    (320, torch.float32, (_TFW, _GN, _GN)),
-    (512, torch.float32, (_TFW, _GN, _GN)),
+    (257, torch.float32, (_TFW, _TFW, _TFW)),
+    (320, torch.float32, (_TFW, _TFW, _TFW)),
+    (512, torch.float32, (_TFW, _TFW, _TFW)),
     (513, torch.float32, (_GN, _GN, _GN))])
 def test_flash_route_by_head_dim_and_dtype(d, dtype, kinds):
     """Which kernel family a (D, dtype) runs in K1, dQ and dK/dV: bf16
     on the tensor cores up to 256 (multiples of 8); f32 K1, dQ and dK/dV
-    in split TF32 at 129..256; K1 past 256 up to 512 on its wide kernels
-    (bf16 multiples of 8 on two warpgroups, f32 in split TF32 on warp
-    pairs), dQ and dK/dV general there; only the bf16 tensor-core routes
+    in split TF32 at 129..256; all three past 256 up to 512 on their wide
+    kernels (bf16 multiples of 8 on the tensor cores, f32 in split TF32),
+    general past 512; only the bf16 tensor-core routes
     check 16-byte alignment, so a general bf16 D and every f32 D take any
     strides, in each of the three wrappers."""
     assert tuple(tfa.route(d, dtype, kn) for kn in ("fwd", "dq", "dkv")) \
@@ -535,7 +535,7 @@ def test_flash_route_by_head_dim_and_dtype(d, dtype, kinds):
     lse = torch.zeros((1, 2, 8), device="meta")
     for kind, bwd in zip(kinds[1:], (tfa.flash_attention_bwd_dq,
                                      tfa.flash_attention_bwd_dkv)):
-        if kind == _TC:
+        if kind in (_TC, _TCW):
             with pytest.raises(ValueError, match="aligned"):
                 bwd(mq, mk, mv, mq, lse, lse, 0.25, True, "bthd")
         elif not torch.cuda.is_available():
@@ -583,10 +583,10 @@ def _csrc_smem(struct, **params):
 @pytest.mark.parametrize("struct, params, kib", [
     ("FwdCfg", {"D": 256, "BK": 64}, 161),
     ("DkvSplitCfg", {}, 226),
-    ("DqSplitCfg", {}, 225),
+    ("DqSplitCfg", {"DP": 256, "KB": 64}, 225),
     ("Tf32FwdCfg", {}, 201),
-    ("Tf32DqCfg", {}, 192),
-    ("Tf32DkvCfg", {}, 196.5),
+    ("Tf32DqCfg", {"DP": 256, "CTAS": 1}, 192),
+    ("Tf32DkvCfg", {"DP": 256, "CTAS": 1}, 196.5),
     ("DkvCfg", {"D": 128}, 98),
     ("DqCfg", {"D": 128}, 97),
     ("FwdCfg", {"D": 64, "BK": 128}, 73),
