@@ -16,6 +16,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
                                            # step
     python3 chip_smoke.py --k3-times ROOT  # only time the K3 reductions of
                                            # the port checked out at ROOT
+    python3 chip_smoke.py --obs-only       # build + phase 14 only
+    python3 chip_smoke.py --sweep-times ROOT  # only time phase 4's steady
+                                             # sweeps of the port at ROOT
+                                             # (with its observability
+                                             # plane, where it has one)
     python3 chip_smoke.py --flash-times ROOT  # only time K1, dQ and dK/dV at
                                              # D 256, 320 and 512 (bf16 and
                                              # f32), profile the D 256 and
@@ -202,9 +207,14 @@ Phases, each fatal on failure:
 12. the DL4J workflow around ``fit``, each part's kernel counts set to
    0 just before it: ResNet-50 B128 bf16 (Momentum under a
    ``StepSchedule``) fit 12 steps, replayed, with a deferred
-   ``ScoreIterationListener`` (the last 5 timed) and then a synchronous
-   ``CheckpointListener`` (5 more timed, its save left out), the
-   schedule's device count 12, K3 53 launches a step; ``evaluate`` over 4
+   ``ScoreIterationListener`` and a ``MetricsListener`` (the last 5
+   timed; the listener's own cost < 2% of their wall, every step and
+   step interval counted, its census's params bytes = the params' numel
+   x element size, ``dl4j_device_memory_bytes{stat="bytes_in_use"}`` =
+   ``torch.cuda.memory_allocated()`` at its poll, the 7 steps equal bit
+   for bit to the same 7 eager on a clone with the listener) and then a
+   synchronous ``CheckpointListener`` (5 more timed, its save left out),
+   the schedule's device count 12, K3 53 launches a step; ``evaluate`` over 4
    seeded batches (``fused="auto"``: 33 normalize launches a batch),
    replayed and eager, its confusion matrix equal to one counted from
    ``output()``, samples/s and the forward's device ms and busy share;
@@ -244,6 +254,29 @@ Phases, each fatal on failure:
    launched in every part that decodes, never the gather path; TTFT
    cold and warm, tokens resident per user shared and dense, SCORE
    tokens/s, BEAM lane tokens/s and gain;
+14. the observability plane on phase 4's 120M engine (max_seq 2048),
+   replayed and eager on their own engines: the paged scheduler (8
+   slots, page_len 16) with ``slo=SLOConfig(...)``, span trees, a sampler
+   observation every 32 events and a crash-dump path, beside one at the
+   plane's minimum (``trace_spans=False``, ``sample_obs_every=0``, no
+   SLO), and phase 4's dense scheduler both ways (its prefills of >= 1024
+   tokens run K1: a paged prefill's chunks of 128 never do); all warmed
+   twice on other prompts of the same lengths, ``mark_warm()``. One wave:
+   16 GENERATE requests of 17-1500 tokens, 32 new, a SCORE of 512 and a
+   BEAM of 256 (width 4). Held: values identical full vs minimum and
+   replayed vs eager, 0 retraces; the registry's deltas equal the run's
+   own counts (requests, tokens, prefills, decode steps, completions by
+   reason, kinds), one TTFT a request, the ITL count = the traces' ITL
+   samples, one ``serving.decode`` span a decode step; the SLO report =
+   one recomputed from the flight recorder's traces; a dump loads back;
+   one sampler observation every 32 events, its entropy (reduced on the
+   card) = the host formula on the same logits within 1e-4; the census's
+   params bytes and ``dl4j_kv_allocated_bytes`` = ``kv_report()``'s; K2
+   on the paged wave, K1 once a layer a dense prefill; replayed, the
+   self-timed plane cost (``trace_overhead_seconds`` + the sentinels')
+   under 2% of the wave's wall, best of 5 waves interleaved full /
+   minimum. Printed: the cost split (registry, trace, spans, sampler,
+   SLO, sentinels), wave walls and steady sweep walls full vs minimum;
 5. a ``kernels`` JSON line (every hand-written kernel: its route,
    launches on each main path, largest error, times and bound at its
    path shape), then the result line (printed last).
@@ -1686,9 +1719,10 @@ def sweep_times(root, repeats=3):
     (:func:`steady_sweeps`: every slot decoding at ctx 600, 20 timed
     sweeps with their host split, 20 profiled) on the dense and the paged
     scheduler, replayed, of the port checked out at ROOT (its kernels
-    build under ROOT), ``repeats`` times each after one warm round. Two
-    versions are compared in one run: parent, change, change, parent.
-    Prints one JSON line."""
+    build under ROOT), ``repeats`` times each after one warm round; a
+    tree with the observability plane serves with it full. Two versions
+    are compared in one run: parent, change, change, parent. Prints one
+    JSON line."""
     import importlib
     sys.path.insert(0, str(root))
     serving = importlib.import_module("deeplearning4j_tpu_torch.serving")
@@ -1698,7 +1732,17 @@ def sweep_times(root, repeats=3):
     engine = serving.GenerationEngine(cfg, params)
     rows = {}
     for path, kw in MAIN_PATHS.items():
-        sched = serving.ContinuousBatchingScheduler(engine, **kw)
+        try:
+            # a tree with the observability plane runs it full: SLO
+            # tracking beside its defaults (span trees, a sampler
+            # observation every 32 events)
+            sched = serving.ContinuousBatchingScheduler(
+                engine, slo=serving.SLOConfig(**OBS_SLO), **kw)
+            plane = True
+        except (AttributeError, NotImplementedError):
+            sched = serving.ContinuousBatchingScheduler(engine, **kw)
+            plane = False
+        log(f"sweep-times {path}: observability plane {plane}")
         steady_sweeps(sched, 600)
         rows[path] = [steady_sweeps(sched, 600) for _ in range(repeats)]
         for r in rows[path]:
@@ -2904,6 +2948,8 @@ def lenet_path(fa, pa, fo, fl, steps=5):
 # --------------------------------------------------------------- phase 12
 
 WORKFLOW_EVAL_BATCHES = 4
+WORKFLOW_MEM_EVERY = 5                   # MetricsListener's memory polls
+OBS_BUDGET = 0.02                        # the plane's share of a wall
 # the eight updaters ported in the workflow slice, each run under a
 # StepSchedule halving its lr every step from this initial value
 NEW_UPDATERS = {"AMSGrad": 1e-3, "Nadam": 1e-3, "AdaMax": 2e-3,
@@ -2950,7 +2996,9 @@ def _eval_pass(net, batches):
 def workflow_resnet(fo, checked):
     """ResNet-50 B128 through the DL4J workflow: Momentum under a
     StepSchedule, ``fit`` replayed with a deferred ScoreIterationListener
-    and then with a CheckpointListener, ``evaluate`` replayed and eager,
+    and a MetricsListener (its cost, counts, census and device memory
+    held; the same 7 steps eager on a clone with the listener, bit for
+    bit), then with a CheckpointListener, ``evaluate`` replayed and eager,
     save/load and resume, clone."""
     import tempfile
 
@@ -2959,6 +3007,9 @@ def workflow_resnet(fo, checked):
     from deeplearning4j_tpu_torch.nn import (CheckpointListener,
                                              ComputationGraph,
                                              ScoreIterationListener)
+    from deeplearning4j_tpu_torch.nn._compiled import tensors
+    from deeplearning4j_tpu_torch.nn.listeners import MetricsListener
+    from deeplearning4j_tpu_torch.obs import MetricsRegistry
     from deeplearning4j_tpu_torch.train import Momentum, StepSchedule
     from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
 
@@ -2980,17 +3031,41 @@ def workflow_resnet(fo, checked):
     net = ComputationGraph(model.conf())
     _set_fused(net, True)
     net.init()
+    # before any step: the same params and states, no updater state yet
+    twin = net.clone()
+    _set_fused(twin, True)
     fit_n = StepLaunches({"fit": net._compiled_step()},
                          lambda: k3_counts(fo))
     out_n = StepLaunches({"output": net._infer_step()},
                          lambda: k3_counts(fo))
     scores, failed, rec = [], [], {}
     sil = ScoreIterationListener(1, log_fn=scores.append)
-    net.set_listeners(sil)
+    polls = []
+
+    class PolledMetrics(MetricsListener):
+        """Notes the allocator's count right after each memory poll."""
+
+        def _poll_memory(self, model=None):
+            super()._poll_memory(model)
+            polls.append(torch.cuda.memory_allocated())
+    reg = MetricsRegistry()
+    ml = PolledMetrics(registry=reg, memory_frequency=WORKFLOW_MEM_EVERY)
+    net.set_listeners(sil, ml)
     with _k3_cases(fo) as cases, tempfile.TemporaryDirectory() as tmp:
         fo.reset_launches()
         net.fit([ds, ds])                       # eager step, capture
+        ov0 = ml.overhead_seconds
         rec["fit_ms_deferred_listener"] = _ms_per_step(net, [ds] * 5)
+        ml_cost = ml.overhead_seconds - ov0
+        after7 = _all_tensors(net)
+        with disable_graphs():
+            twin.set_listeners(MetricsListener(registry=MetricsRegistry(),
+                                               memory_frequency=5))
+            twin.fit([ds, ds])
+            twin.fit([ds] * 5)
+        torch.cuda.synchronize()
+        twin_diff = first_diff(after7, _all_tensors(twin))
+        del twin, after7
         saves = []
 
         class TimedCheckpoint(CheckpointListener):
@@ -3000,7 +3075,7 @@ def workflow_resnet(fo, checked):
                 saves.append(time.perf_counter() - t)
 
         ck = TimedCheckpoint(tmp, save_every_n_epochs=3)
-        net.set_listeners(sil, ck)
+        net.set_listeners(sil, ck, ml)
         ms = _ms_per_step(net, [ds] * 5)
         rec["fit_ms_sync_checkpoint_listener"] = ms - sum(saves) * 1e3 / 5
         rec["checkpoint_save_s"] = saves
@@ -3019,6 +3094,42 @@ def workflow_resnet(fo, checked):
             failed.append("fit did not replay")
         if count != 12 or not ck_ok:
             failed.append("schedule count or checkpoint")
+        # MetricsListener: its own cost under 2% of the replayed fit's
+        # wall, every step and step interval counted (an epoch's first
+        # step has no interval: 3 epochs), the census against the
+        # params, the allocator's bytes against torch's at the poll, and
+        # the replayed steps equal to the eager twin's bit for bit
+        wall = rec["fit_ms_deferred_listener"] * 5 / 1e3
+        params_bytes = sum(t.numel() * t.element_size()
+                           for t in tensors(net.params))
+        mem = reg.get("dl4j_device_memory_bytes")
+        census = reg.get("dl4j_mem_component_bytes")
+        rec["metrics_listener"] = {
+            "overhead_s": ml_cost, "fit_wall_s": wall,
+            "share": ml_cost / wall,
+            "iterations": reg.get("dl4j_train_iterations_total").value(),
+            "step_intervals": reg.get("dl4j_train_step_seconds").count(),
+            "examples": reg.get("dl4j_train_examples_total").value(),
+            "census_params_bytes": census.value(component="params",
+                                                replica="0"),
+            "params_bytes": params_bytes,
+            "bytes_in_use": mem.value(stat="bytes_in_use"),
+            "memory_allocated_at_poll": polls[-1] if polls else None,
+            "polls": len(polls),
+            "replayed_equals_eager": twin_diff is None}
+        m = rec["metrics_listener"]
+        if not m["share"] < OBS_BUDGET:
+            failed.append(f"MetricsListener costs {m['share']:.4f} of the "
+                          f"fit wall (limit {OBS_BUDGET})")
+        if (m["iterations"], m["step_intervals"], m["examples"],
+                m["polls"]) != (12, 9, 12 * RESNET_BATCH, 2):
+            failed.append(f"MetricsListener counts {m}")
+        if m["census_params_bytes"] != params_bytes or \
+                m["bytes_in_use"] != m["memory_allocated_at_poll"]:
+            failed.append(f"MetricsListener census or device memory {m}")
+        if twin_diff is not None:
+            failed.append(f"with MetricsListener, replayed != eager (first "
+                          f"differing leaf #{twin_diff})")
         fit_launches = dict(fit_n.total)
 
         # evaluate: the zoo's fused="auto" at inference (33 normalize
@@ -3405,11 +3516,14 @@ def steady_sweeps(sched, prompt_len, steps=20, seed=1, profile=False):
     clock.wrap(eng, "decode_step", "dispatch")
     clock.wrap(eng, "sample", "sample")
     clock.wrap(sched, "_read_tokens", "read")
+    plane0 = dict(getattr(sched, "_plane_s", {}))
     t0 = time.perf_counter()
     for _ in range(steps):
         sched.step()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    plane = {k: (v - plane0[k]) * 1e3 / steps
+             for k, v in getattr(sched, "_plane_s", {}).items()}
     clock.restore()
     ms = {k: v * 1e3 / steps for k, v in clock.s.items()}
     parts = {"sync": ms.get("sync", 0.0), "dispatch": ms["dispatch"],
@@ -3427,6 +3541,9 @@ def steady_sweeps(sched, prompt_len, steps=20, seed=1, profile=False):
     sched.run_until_idle()
     out = {"slots": sched.n_slots, "ctx": prompt_len, "sweeps": steps,
            "wall_ms": wall * 1e3 / steps, "host_split_ms": split,
+           # a tree with the observability plane: its self-timed parts
+           # a sweep (they overlap the split above)
+           **({"plane_ms": plane} if plane else {}),
            "device_ms": rows["device_ms_per_step"],
            "busy_share": rows["device_ms_per_step"] / (wall * 1e3 / steps)}
     if profile:
@@ -4007,6 +4124,370 @@ def serving_planes(fa, pa, smi):
     return ({f"planes_{p}": rep[p][2] for p in parts}, k2_shared)
 
 
+# --------------------------------------------------------------- phase 14
+
+# the wave: 16 GENERATE prompts of 17-1500 tokens (4 of them >= 1024), 32
+# new tokens each, a SCORE of 512 tokens and a BEAM of 256 (width 4), on
+# phase 4's paged scheduler; the dense scheduler of phase 4 serves the
+# four longest with the plane on too (its prefills run K1: a paged
+# prefill runs in chunks of 128 tokens, which never reach flash_min_seq)
+OBS_LENS = (17, 90, 140, 260, 385, 512, 640, 700, 777, 900, 960, 1000,
+            1024, 1200, 1350, 1500)
+OBS_NEW = 32
+OBS_WAVES = 5                            # best of 5, as the reference
+OBS_SLO = {"ttft_s": 2.0, "itl_s": 0.25}
+OBS_SAMPLE_ATOL = 1e-4                   # entropy, card vs host formula
+
+
+def obs_inputs(vocab, seed):
+    rng = np.random.default_rng(seed)
+
+    def ids(n):
+        return rng.integers(0, vocab, n).astype(np.int32)
+    gen = [ids(n) for n in OBS_LENS]
+    return {"generate": gen, "score": ids(512), "beam": ids(256),
+            "dense": gen[-4:]}
+
+
+def obs_wave(sched, inp):
+    """One wave on the paged scheduler: every request submitted, then run
+    until idle. Returns the results and the wall seconds of the run."""
+    futs = [sched.submit(p, OBS_NEW) for p in inp["generate"]]
+    futs.append(sched.submit(inp["score"], kind="score"))
+    futs.append(sched.submit(inp["beam"], OBS_NEW, kind="beam",
+                             beam_width=4))
+    _sync()
+    t0 = time.perf_counter()
+    sched.run_until_idle()
+    _sync()
+    wall = time.perf_counter() - t0
+    res = [f.result(timeout=0) for f in futs]
+    if not sched.check_pages():
+        raise SystemExit("obs plane: page census broken after a wave")
+    return res, wall
+
+
+def obs_values(res):
+    return [r.tokens.tolist() if not hasattr(r, "logprobs")
+            else r.logprobs.tolist() for r in res] + \
+        [[s.tolist() for s in r.sequences] for r in res
+         if hasattr(r, "sequences")]
+
+
+def obs_dense(sched, prompts):
+    futs = [sched.submit(p, OBS_NEW) for p in prompts]
+    sched.run_until_idle()
+    return [f.result(timeout=0).tokens.tolist() for f in futs]
+
+
+def plane_cost(sched):
+    """The scheduler's self-timed plane seconds by part, and its engine's
+    sentinels'."""
+    return {"trace_overhead": sched.trace_overhead_seconds,
+            "sentinels": sum(s.overhead_seconds
+                             for s in sched.engine.sentinels.values()),
+            **sched._plane_s}
+
+
+def _reg_delta(s0, s1, name):
+    """Counter values or histogram counts gained between two registry
+    snapshots, by label key."""
+    out = {}
+    for key, v in s1.get(name, {}).items():
+        before = s0.get(name, {}).get(key)
+        if isinstance(v, dict):
+            out[key] = v["count"] - (before or {}).get("count", 0)
+        else:
+            out[key] = v - (before or 0.0)
+    return out
+
+
+def host_entropy(rows):
+    """The reference's host formula for a sampler observation's mean
+    next-token entropy, in f32 numpy (phase 14 holds no top-k mass: its
+    requests are greedy)."""
+    lg = np.array(rows, np.float32, copy=True)
+    lg = lg[None] if lg.ndim == 1 else lg
+    lg -= lg.max(axis=-1, keepdims=True)
+    np.exp(lg, out=lg)
+    lg /= lg.sum(axis=-1, keepdims=True)
+    return float((-(lg * np.log(lg + 1e-30)).sum(axis=-1)).mean())
+
+
+def obs_counted(fa, pa, sched, counts, inp):
+    """The counted wave on the fully instrumented scheduler: registry
+    deltas against the scheduler's own counts, spans, the SLO report
+    against one recomputed from the flight recorder's traces, a dump
+    loaded back, the sampler against the host formula, the census.
+    Returns (readings, failures, launches, values)."""
+    from deeplearning4j_tpu_torch.nn._compiled import tensors
+    from deeplearning4j_tpu_torch.obs import (SLOConfig, SLOTracker,
+                                              get_registry, get_tracer,
+                                              load_flight_records)
+    from deeplearning4j_tpu_torch.obs import memory as obs_memory
+    from deeplearning4j_tpu_torch.serving import kvcache
+    reg, tracer = get_registry(), get_tracer()
+    sched.slo = SLOTracker(SLOConfig(**OBS_SLO), replica=sched.replica)
+    tracer.clear()
+    n_req0 = len(sched.flight_recorder.requests())
+    st0, ev0 = dict(sched.stats), sched._obs_events
+    seen = []
+    observe = sched._sample_obs
+
+    def capture(m, rows, topks):
+        h = m["sample_entropy"]
+        before = h.sum()
+        observe(m, rows, topks)
+        seen.append((rows.float().cpu().numpy(), h.sum() - before))
+    sched._sample_obs = capture
+    s0 = reg.snapshot()
+    _sync()
+    fa.reset_launches()
+    pa.reset_launches()
+    counts.reset()
+    res, wall = obs_wave(sched, inp)
+    launches = dict(counts.total)
+    s1 = reg.snapshot()
+    del sched._sample_obs
+    st = {k: sched.stats[k] - st0[k] for k in st0}
+    traces = sched.flight_recorder.requests()[n_req0:]
+
+    def d(name, key=""):
+        return _reg_delta(s0, s1, name).get(key, 0)
+    failed = []
+    reasons = {}
+    for r in res:
+        reasons[r.finish_reason] = reasons.get(r.finish_reason, 0) + 1
+    got = {"requests": d("dl4j_serving_requests_total"),
+           "tokens": d("dl4j_serving_tokens_total"),
+           "prefills": d("dl4j_serving_prefills_total"),
+           "decode_steps": d("dl4j_serving_decode_steps_total"),
+           "completions": {k: v for k, v in _reg_delta(
+               s0, s1, "dl4j_serving_completions_total").items() if v},
+           "ttft_count": d("dl4j_serving_ttft_seconds"),
+           "itl_count": d("dl4j_serving_itl_seconds"),
+           "decode_spans": sum(sp.name == "serving.decode"
+                               for sp in tracer.spans()),
+           "kinds": {k: v for k, v in _reg_delta(
+               s0, s1, "dl4j_workload_requests_total").items() if v}}
+    want = {"requests": len(res), "tokens": st["tokens"],
+            "prefills": st["prefills"], "decode_steps": st["decode_steps"],
+            "completions": reasons, "ttft_count": len(res),
+            "itl_count": sum(len(tr.itl_samples()) for tr in traces),
+            "decode_spans": st["decode_steps"],
+            "kinds": {"generate": len(OBS_LENS), "score": 1, "beam": 1}}
+    for k in want:
+        if got[k] != want[k]:
+            failed.append(f"{k}: registry {got[k]} vs the run's {want[k]}")
+    # SLO: the live report against one from the recorder's traces
+    redo = SLOTracker(SLOConfig(**OBS_SLO), replica=sched.replica,
+                      registry=False)
+    for tr in traces:
+        redo.observe(tr)
+    live, again = sched.slo.report(), redo.report()
+    for rep in (live, again):
+        rep["window"].pop("span_s", None)
+    if live != again or live["window"]["requests"] != len(res):
+        failed.append(f"SLO report {live} vs recomputed {again}")
+    # the flight recorder's dump loads back
+    path = sched.flight_recorder.dump(reason="phase 14")
+    recs = load_flight_records(path)
+    kinds = [r["kind"] for r in recs]
+    dump_ok = (kinds.count("reqtrace")
+               == len(sched.flight_recorder.requests())
+               and kinds.count("snapshot")
+               == len(sched.flight_recorder.snapshots())
+               and "flightrec" in kinds and "memcensus" in kinds)
+    if not dump_ok:
+        failed.append(f"flight-recorder dump: {sorted(set(kinds))}")
+    # the sampler: one observation every 32 events, each equal to the
+    # host formula on the same logits
+    n_obs = d("dl4j_serving_sample_entropy")
+    every = sched.sample_obs_every
+    want_obs = sched._obs_events // every - ev0 // every
+    errs = [abs(v - host_entropy(rows)) for rows, v in seen]
+    if not (n_obs == want_obs == len(seen) > 0
+            and max(errs) <= OBS_SAMPLE_ATOL):
+        failed.append(f"sampler: {n_obs} observations ({want_obs} "
+                      f"expected, {len(seen)} seen), entropy errors {errs}")
+    # the census, and the KV gauge against kv_report()
+    census = next(c for c in obs_memory.latest_censuses()
+                  if (c["source"], c["replica"])
+                  == ("serving", sched.replica))
+    params_bytes = sum(t.numel() * t.element_size()
+                       for t in tensors(sched.engine.params))
+    alloc = reg.get("dl4j_kv_allocated_bytes").value(replica=sched.replica)
+    kv = sched.kv_report()
+    if census["component_bytes"]["params"] != params_bytes or \
+            census["component_bytes"]["kv_cache"] != \
+            kvcache.cache_nbytes(sched.cache) or \
+            alloc != kv["allocated_bytes"]:
+        failed.append(f"census {census['component_bytes']} vs params "
+                      f"{params_bytes}; kv gauge {alloc} vs "
+                      f"{kv['allocated_bytes']}")
+    readings = {"wall_s": wall, **{k: got[k] for k in got},
+                "sampler_observations": n_obs,
+                "sampler_entropy_max_err": max(errs) if errs else None,
+                "slo": {k: live[k] for k in ("goodput", "burn_rate",
+                                             "met")},
+                "ttft_p50_s": live["ttft"]["p50_s"],
+                "itl_p99_s": live["itl"]["p99_s"],
+                "dump_records": len(recs),
+                "census_params_bytes": params_bytes,
+                "kv_allocated_bytes": alloc}
+    return readings, failed, launches, obs_values(res)
+
+
+def obs_way(fa, pa, cfg, params, inp, warm, graphs, tmp):
+    """Phase 14 one way (``graphs``: replayed, else eager) on its own
+    engine: the paged scheduler with the plane full and at its minimum
+    and the dense one likewise, each warmed on two waves of other prompts
+    of the same lengths, ``mark_warm()``; the counted wave; the dense
+    wave with the plane on (K1); then, replayed, the budget waves (full
+    and minimum interleaved, best of 5) and steady sweeps of both."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.obs import SLOConfig
+    from deeplearning4j_tpu_torch.serving import (
+        ContinuousBatchingScheduler, GenerationEngine)
+    engine = GenerationEngine(cfg, params)
+    counts = StepLaunches({n: st._fn for n, st in engine.sentinels.items()},
+                          lambda: serving_counts(fa, pa))
+    way = "replayed" if graphs else "eager"
+    out = {}
+    with contextlib.nullcontext() if graphs else disable_graphs():
+        full = ContinuousBatchingScheduler(
+            engine, replica=f"obs-{way}", slo=SLOConfig(**OBS_SLO),
+            trace_spans=True, crash_dump_path=str(tmp / f"{way}.jsonl"),
+            **MAIN_PATHS["paged"])
+        bare = ContinuousBatchingScheduler(
+            engine, replica=f"obs-{way}-min", trace_spans=False,
+            sample_obs_every=0, **MAIN_PATHS["paged"])
+        dfull = ContinuousBatchingScheduler(
+            engine, replica=f"obs-{way}-dense", slo=SLOConfig(**OBS_SLO),
+            trace_spans=True, **MAIN_PATHS["dense"])
+        dbare = ContinuousBatchingScheduler(
+            engine, replica=f"obs-{way}-dense-min", trace_spans=False,
+            sample_obs_every=0, **MAIN_PATHS["dense"])
+        for w in warm:
+            for s in (full, bare):
+                obs_wave(s, w)
+            for s in (dfull, dbare):
+                obs_dense(s, w["dense"])
+        engine.mark_warm()
+        out["counted"], out["failed"], out["launches"], out["values"] = \
+            obs_counted(fa, pa, full, counts, inp)
+        res, _ = obs_wave(bare, inp)
+        out["values_min"] = obs_values(res)
+        _sync()
+        fa.reset_launches()
+        pa.reset_launches()
+        counts.reset()
+        out["dense_tokens"] = obs_dense(dfull, inp["dense"])
+        out["dense_launches"] = dict(counts.total)
+        out["dense_tokens_min"] = obs_dense(dbare, inp["dense"])
+        if graphs:
+            waves = []
+            for i in range(OBS_WAVES):
+                row = {}
+                for kind, s in ((("full", full), ("min", bare)) if i % 2 == 0
+                                else (("min", bare), ("full", full))):
+                    # a full collection before each timed wave, so that
+                    # one lands in no wave's self-timed parts (the waves
+                    # make a few thousand long-lived objects: spans,
+                    # traces, snapshots)
+                    gc.collect()
+                    c0 = plane_cost(s)
+                    _, wall = obs_wave(s, inp)
+                    c1 = plane_cost(s)
+                    row[kind] = {"wall_s": wall, "cost_s": {
+                        k: c1[k] - c0[k] for k in c0}}
+                waves.append(row)
+            out["waves"] = waves
+            sweeps = {"full": [], "min": []}
+            for _ in range(3):
+                for kind, s in (("full", full), ("min", bare)):
+                    sweeps[kind].append(steady_sweeps(s, 600))
+            out["sweeps"] = sweeps
+        out["compiles"] = compile_summary(engine)
+        out["kernel_choice"] = engine._paged_kernel_choice(full.cache)
+    del engine, full, bare, dfull, dbare, counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def obs_plane(fa, pa, smi):
+    """Phase 14: the observability plane on phase 4's 120M engine (max_seq
+    2048; paged 8 slots, page_len 16; dense 4 slots), replayed and eager,
+    every check of the plane held (see the module docstring). Returns the
+    replayed way's launch counts by path."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg, params = main_config(tfm)
+    inp = obs_inputs(cfg.vocab_size, 14)
+    warm = [obs_inputs(cfg.vocab_size, s) for s in (114, 115)]
+    with tempfile.TemporaryDirectory() as tmp:
+        ways = {"replayed": obs_way(fa, pa, cfg, params, inp, warm, True,
+                                    Path(tmp)),
+                "eager": obs_way(fa, pa, cfg, params, inp, warm, False,
+                                 Path(tmp))}
+    rep, eag = ways["replayed"], ways["eager"]
+    failed = []
+    for way, w in ways.items():
+        failed += [f"{way}: {f}" for f in w["failed"]]
+        retr = sum(c[2] for c in w["compiles"].values())
+        log(f"obs {way}: counted wave {json.dumps(w['counted'])}; "
+            f"launches (captures' counts) paged {json.dumps(w['launches'])}"
+            f", dense {json.dumps(w['dense_launches'])}; compile report "
+            f"{json.dumps(w['compiles'])}; paged route {w['kernel_choice']}")
+        if retr:
+            failed.append(f"{way}: {retr} retraces after warm")
+        if w["values"] != w["values_min"] or \
+                w["dense_tokens"] != w["dense_tokens_min"]:
+            failed.append(f"{way}: the plane changed the tokens")
+        if w["launches"].get("paged_attention", 0) <= 0 or \
+                w["kernel_choice"] != "kernel":
+            failed.append(f"{way}: K2 was not launched")
+        want_k1 = cfg.n_layers * len(inp["dense"])
+        if w["dense_launches"].get("flash_attention_fwd_tc", 0) != want_k1:
+            failed.append(f"{way}: dense K1 launches "
+                          f"{w['dense_launches']}, want {want_k1}")
+    if rep["values"] != eag["values"] or \
+            rep["dense_tokens"] != eag["dense_tokens"]:
+        failed.append("replayed values differ from eager")
+    # the budget: self-timed plane cost over the wave's wall, best of 5
+    narrow, wide = [], []
+    for row in rep["waves"]:
+        c, wall = row["full"]["cost_s"], row["full"]["wall_s"]
+        narrow.append((c["trace_overhead"] + c["sentinels"]) / wall)
+        wide.append((c["sentinels"] + sum(c[k] for k in (
+            "registry", "trace", "spans", "sampler", "slo"))) / wall)
+    best = min(range(OBS_WAVES), key=lambda i: narrow[i])
+    split = {k: v / rep["waves"][best]["full"]["wall_s"]
+             for k, v in rep["waves"][best]["full"]["cost_s"].items()}
+    walls = {k: [row[k]["wall_s"] for row in rep["waves"]]
+             for k in ("full", "min")}
+    sw = {k: [r["wall_ms"] for r in v] for k, v in rep["sweeps"].items()}
+    dev = {k: [r["device_ms"] for r in v] for k, v in rep["sweeps"].items()}
+    log(f"obs summary ({smi}): plane cost / wave wall (trace_overhead + "
+        f"sentinels) by wave {[f'{x:.5f}' for x in narrow]}, best "
+        f"{narrow[best]:.5f} (limit {OBS_BUDGET}); with the registry and "
+        f"dispatch spans {[f'{x:.5f}' for x in wide]}; best wave's split "
+        f"{json.dumps(split)}; wave walls s full {walls['full']} vs "
+        f"minimum {walls['min']}; steady sweep wall ms full {sw['full']} "
+        f"vs minimum {sw['min']} (device ms {dev['full']} vs "
+        f"{dev['min']}); host splits full "
+        f"{json.dumps([r['host_split_ms'] for r in rep['sweeps']['full']])}"
+        f" vs minimum "
+        f"{json.dumps([r['host_split_ms'] for r in rep['sweeps']['min']])}")
+    if not narrow[best] < OBS_BUDGET:
+        failed.append(f"plane cost {narrow[best]:.5f} of the wave wall")
+    if failed:
+        raise SystemExit(f"obs plane: {failed}")
+    return {"obs_paged": rep["launches"], "obs_dense": rep["dense_launches"]}
+
+
 def _values_equal(a, b):
     """Nested lists / numbers / arrays equal exactly."""
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
@@ -4039,6 +4520,10 @@ def main():
                          "320 LMs' train steps and digest K1's, the "
                          "backward's and K2's outputs, for the port checked "
                          "out at ROOT (prints no result line)")
+    ap.add_argument("--obs-only", action="store_true",
+                    help="build the kernels and run phase 14 (the "
+                         "observability plane) only (prints no result "
+                         "line)")
     ap.add_argument("--sweep-times", metavar="ROOT",
                     help="only time phase 4's steady decode sweeps, dense "
                          "and paged, with their host split, for the port "
@@ -4080,6 +4565,9 @@ def main():
         seconds[name] = round(now - last[0], 1)
         last[0] = now
 
+    if args.obs_only:
+        obs_plane(fa, pa, smi)
+        return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     k2 = {dt: check_paged(pa, dt, gen)
           for dt in (torch.bfloat16, torch.float32)}
@@ -4180,6 +4668,10 @@ def main():
     planes, k2_shared = serving_planes(fa, pa, smi)
     by_path.update(planes)
     mark("13 serving planes")
+    serving_zero = dict.fromkeys(serving_counts(fa, pa), 0)
+    by_path.update({p: {**serving_zero, **c}
+                    for p, c in obs_plane(fa, pa, smi).items()})
+    mark("14 obs plane")
     log(f"host seconds by phase (after the build): {json.dumps(seconds)}")
     # the stage-0 BN's shape (N = 128*56*56, C = 256) stands for K3
     main_k3 = k3[(torch.bfloat16, RESNET_BATCH * 56 * 56, 256)]

@@ -26,8 +26,12 @@ What is ported so far:
   and the serving engine's entry points replay CUDA graphs on the card,
   and :func:`disable_graphs` (the counterpart of ``jax.disable_jit``)
   keeps them eager;
-- ``obs.compiles`` — the compile sentinel around each of the engine's
-  entry points (``engine.mark_warm()``, ``engine.compile_report()``);
+- ``obs`` — the observability plane: the metrics registry, spans,
+  request traces and the flight recorder, SLO tracking, the memory
+  census, fidelity probes, and the compile sentinel around each of the
+  engine's entry points (``engine.mark_warm()``,
+  ``engine.compile_report()``) and the nets' train steps; the scheduler,
+  the engine, the nets and ``nn.listeners.MetricsListener`` feed it;
 - the DL4J workflow around ``fit``, inside the replayed step: ``eval``
   and the nets' ``evaluate*``, ``serde`` (``save``/``load``/``clone``,
   ``load_params``), ``nn.listeners`` with the deferred score read,

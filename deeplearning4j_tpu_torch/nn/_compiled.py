@@ -66,6 +66,7 @@ Serving steps (``serving/engine.py``) add three things:
 from __future__ import annotations
 
 import contextlib
+import gc
 import weakref
 
 import torch
@@ -295,6 +296,11 @@ class CompiledStep:
             self._pool = torch.cuda.graph_pool_handle()
         failed = None
         prev = torch.cuda.current_stream(dev)
+        # no cyclic collection during the capture: one could free another
+        # step's graph, which a capturing stream does not permit, and so
+        # invalidate this capture
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             for gen in _bound_leaves(batch) + list(self._bound):
                 if isinstance(gen, torch.Generator):
@@ -315,4 +321,7 @@ class CompiledStep:
                 f"({type(cause).__name__}: {cause}). The step does not fall "
                 "back to eager; run it under deeplearning4j_tpu_torch."
                 "disable_graphs() to run it eagerly") from cause
+        finally:
+            if collecting:
+                gc.enable()
         return g

@@ -13,7 +13,8 @@ in-place updater, the weight constraints, the running states, the gate.
 :class:`CompiledStep`: on CUDA each batch signature's first step is eager,
 its second is captured as a CUDA graph, and later steps replay it
 (``disable_graphs()`` keeps every step eager); on the CPU the step is
-called directly. ``fit`` reports steps to the listeners one step late
+called directly; either way inside the compile sentinel
+``cg_train_step`` (``obs.compiles``). ``fit`` reports steps to the listeners one step late
 where they allow it (``nn/_fit_loop.py``); ``output()`` is a compiled
 step of its own, one graph per input signature.
 
@@ -37,6 +38,7 @@ import torch
 from .._device import resolve_device, tree_to
 from ..train.constraints import apply_constraints_
 from ..train.updaters import NoOp, build_optimizer, tree_leaves, tree_map
+from ..obs.compiles import CompileSentinel
 from ._compiled import CompiledStep, tensors
 from ._fit_loop import fit_epochs
 from ._scan_common import check_scan_listeners, replay_scan_listeners
@@ -84,6 +86,7 @@ class ComputationGraph:
         self.output_loss_weights = {name: 1.0 for name in conf.outputs}
         self._remat_segments = None
         self._step_fn = None
+        self._sentinel = None
         self._infer_fn = None
         self._anomaly_detector = None
         self._restored_opt_state = None
@@ -354,6 +357,15 @@ class ComputationGraph:
                 + [self._gen], "ComputationGraph")
         return self._step_fn
 
+    def _train_sentinel(self):
+        """The compile sentinel ``cg_train_step`` around
+        :meth:`_compiled_step` (made anew with it): ``fit`` and
+        ``fit_scanned`` call the step through it."""
+        step = self._compiled_step()
+        if self._sentinel is None or self._sentinel._fn is not step:
+            self._sentinel = CompileSentinel("cg_train_step", step)
+        return self._sentinel
+
     def enable_gradient_anomaly_detection(self, detector=None):
         """See ``MultiLayerNetwork.enable_gradient_anomaly_detection``."""
         from ..train.anomaly import GradientAnomalyDetector
@@ -437,7 +449,8 @@ class ComputationGraph:
             + [[ls[i] for _, ls in pairs] for i in range(len(pairs[0][1]))]
         stacked = [torch.stack([self._to_device(a) for a in col])
                    for col in cols]
-        step = self._compiled_step()
+        self._last_batch_size = int(stacked[0].shape[1])
+        step = self._train_sentinel()
         losses = None
         for _ in range(epochs):
             losses = torch.stack([step(*(a[k] for a in stacked), None, None)
@@ -449,7 +462,7 @@ class ComputationGraph:
 
     def _fit_epochs(self, iterator, epochs):
         from ..data.dataset import MultiDataSet
-        step = self._compiled_step()
+        step = self._train_sentinel()
 
         def step_batch(ds):
             if isinstance(ds, MultiDataSet):
@@ -463,6 +476,8 @@ class ComputationGraph:
                 fmask, lmask = ds.features_mask, ds.labels_mask
             fm = None if fmask is None else self._to_device(fmask)
             lm = None if lmask is None else self._to_device(lmask)
+            # examples-throughput telemetry (MetricsListener)
+            self._last_batch_size = int(feats[0].shape[0])
             return step(*(self._to_device(a) for a in (*feats, *labs)),
                         fm, lm)
         return fit_epochs(self, iterator, epochs, step_batch)

@@ -9,10 +9,14 @@ after the next step is queued, so the read never stalls the card (see
 step (checkpointing, evaluation, the NaN watchdog) keeps the synchronous
 read.
 
-Not ported yet (raise, naming what is missing): ``MetricsListener``,
-``NumericsListener``, ``ProfilingListener`` and ``StatsListener``, which
-need the observability plane (metrics registry, numerics sentinel,
-profiler, stats storage).
+``MetricsListener`` feeds the observability plane (``obs``): the
+train-step histogram, loss, examples/s, device memory and the memory
+census, and its own cost.
+
+Not ported yet (raise, naming what is missing): ``NumericsListener``,
+``ProfilingListener`` and ``StatsListener``, which need the parts of the
+observability plane the port does not have (the numerics sentinel and
+stat engine, the per-layer profiler, the stats storage and UI).
 """
 
 from __future__ import annotations
@@ -175,26 +179,127 @@ class NanScoreWatchdog(TrainingListener):
                     f"NaN/Inf score at iteration {iteration}: {score}")
 
 
+class MetricsListener(TrainingListener):
+    """Observability-plane listener: feeds the process-wide ``obs``
+    registry (step-time histogram, loss, examples/s, device memory, the
+    memory census) so that a running fit is scrapeable.
+
+    Budgeted: the body is increments and one histogram observe on the
+    host between steps (~µs); its own cumulative cost is exported as
+    ``dl4j_obs_overhead_seconds_total``. Device-memory stats and the
+    census are polled every ``memory_frequency`` iterations only (the
+    one call that can cost more than µs; None on the CPU, where the
+    census still attributes)."""
+
+    deferred_score_ok = True  # pure metrics: fit() may report the
+    # (step, score) pair one dispatch late to keep the device busy
+
+    def __init__(self, registry=None, memory_frequency: int = 50):
+        from ..obs import get_registry
+        reg = registry or get_registry()
+        self.registry = reg
+        self.memory_frequency = max(1, memory_frequency)
+        self._step_seconds = reg.histogram(
+            "dl4j_train_step_seconds",
+            "Wall time between training iterations (host-observed)")
+        self._iterations = reg.counter(
+            "dl4j_train_iterations_total", "Optimizer steps taken")
+        self._examples = reg.counter(
+            "dl4j_train_examples_total", "Training examples consumed")
+        self._epochs = reg.counter(
+            "dl4j_train_epochs_total", "Epochs completed")
+        self._loss = reg.gauge("dl4j_train_loss", "Last reported score")
+        self._eps = reg.gauge(
+            "dl4j_train_examples_per_second",
+            "Examples/s over the last inter-iteration interval")
+        self._mem = reg.gauge(
+            "dl4j_device_memory_bytes",
+            "jax device memory stats (polled every memory_frequency "
+            "iterations; absent on backends without memory_stats)",
+            labelnames=("stat",))
+        self._overhead = reg.counter(
+            "dl4j_obs_overhead_seconds_total",
+            "Cumulative host time spent inside MetricsListener "
+            "(budget: <2% of step time, tests/test_obs.py)")
+        self._last_t: Optional[float] = None
+
+    @property
+    def overhead_seconds(self) -> float:
+        return self._overhead.value()
+
+    def _poll_memory(self, model=None):
+        """The allocator's stats into ``dl4j_device_memory_bytes{stat=}``
+        where there is a card, and the component census — params,
+        optimizer state, running states — into
+        ``dl4j_mem_component_bytes{component, replica}`` on every
+        device."""
+        try:
+            from ..obs import memory as obs_memory
+        except Exception:  # noqa: BLE001 — memory stats are decoration
+            return
+        stats = obs_memory.device_memory_stats()
+        if stats:
+            for key in ("bytes_in_use", "peak_bytes_in_use",
+                        "bytes_limit"):
+                if key in stats:
+                    self._mem.set(float(stats[key]), stat=key)
+        if model is None:
+            return
+        components = {}
+        if getattr(model, "params", None) is not None:
+            components["params"] = model.params
+        if getattr(model, "_opt_state", None) is not None:
+            components["optimizer"] = model._opt_state
+        if getattr(model, "states", None) is not None:
+            components["states"] = model.states
+        if components:
+            try:
+                # per_replica: the replica label means "bytes this device
+                # holds" (one card: the whole tree)
+                obs_memory.emit_census(components, source="train",
+                                       registry=self.registry,
+                                       per_replica=True)
+            except Exception:  # noqa: BLE001 — census is decoration
+                pass
+
+    def iteration_done(self, model, iteration, epoch, score):
+        t0 = time.perf_counter()
+        batch = getattr(model, "_last_batch_size", None)
+        if self._last_t is not None:
+            dt = t0 - self._last_t
+            self._step_seconds.observe(dt)
+            if batch and dt > 0:
+                self._eps.set(batch / dt)
+        self._last_t = t0
+        self._iterations.inc()
+        if batch:
+            self._examples.inc(batch)
+        self._loss.set(float(score))
+        if iteration % self.memory_frequency == 0:
+            self._poll_memory(model)
+        self._overhead.inc(time.perf_counter() - t0)
+
+    def on_epoch_end(self, model):
+        self._epochs.inc()
+        self._last_t = None  # epoch boundary work is not a step interval
+
+
 class _NeedsObs(TrainingListener):
     needs = ""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
             f"{type(self).__name__} (deeplearning4j_tpu/nn/listeners.py) "
-            f"needs the observability plane ({self.needs}), which is not "
-            "ported yet")
-
-
-class MetricsListener(_NeedsObs):
-    needs = "the obs metrics registry and memory census"
+            f"needs a part of the observability plane that is not ported "
+            f"yet ({self.needs})")
 
 
 class NumericsListener(_NeedsObs):
-    needs = "the obs numerics sentinel and stat engine"
+    needs = "obs.numerics: the numerics sentinel and stat engine"
 
 
 class ProfilingListener(_NeedsObs):
-    needs = "the obs profiler"
+    needs = "obs.profiler: per-layer time attribution"
 
 
 class StatsListener(_NeedsObs):

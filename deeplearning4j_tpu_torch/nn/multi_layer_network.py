@@ -20,7 +20,9 @@ the static step of ``nn/_compiled.py``) updates everything in place:
 ``fit`` and ``fit_scanned`` run it through a :class:`CompiledStep`: on
 CUDA each batch signature's first step is eager, its second is captured
 as a CUDA graph, and later steps replay it (``disable_graphs()`` keeps
-every step eager); on the CPU the step is called directly. The generator
+every step eager); on the CPU the step is called directly, inside the
+compile sentinel ``mln_train_step`` (``obs.compiles``: a capture, or a
+new signature of a direct call, counts as a compile). The generator
 is registered with each graph, so every replay draws new masks. ``fit``
 reports steps to the listeners one step late where they allow it
 (``nn/_fit_loop.py``). ``output()`` (and ``evaluate*`` over it) is a
@@ -51,6 +53,7 @@ from ..train.anomaly import gate_, grad_stats, save_for_gate
 from ..train.constraints import apply_constraints_
 from ..train.updaters import (NoOp, apply_updates, build_optimizer,
                               tree_leaves, tree_map)
+from ..obs.compiles import CompileSentinel
 from ._compiled import CompiledStep, copy_into, tensors
 from ._fit_loop import fit_epochs
 from ._scan_common import check_scan_listeners, replay_scan_listeners
@@ -105,6 +108,7 @@ class MultiLayerNetwork:
         self._rnn_carries = None
         self._rnn_carry_batch = None
         self._step_fn = None
+        self._sentinel = None
         self._infer_fn = None
         self._anomaly_detector = None
         self._restored_opt_state = None
@@ -351,6 +355,15 @@ class MultiLayerNetwork:
                 + [self._gen], "MultiLayerNetwork")
         return self._step_fn
 
+    def _train_sentinel(self):
+        """The compile sentinel ``mln_train_step`` around
+        :meth:`_compiled_step` (made anew with it): ``fit`` and
+        ``fit_scanned`` call the step through it."""
+        step = self._compiled_step()
+        if self._sentinel is None or self._sentinel._fn is not step:
+            self._sentinel = CompileSentinel("mln_train_step", step)
+        return self._sentinel
+
     def enable_gradient_anomaly_detection(self, detector=None):
         """Per-layer gradient stats computed inside the train step and
         checked on the host one step late; a non-finite step is a no-op.
@@ -387,7 +400,7 @@ class MultiLayerNetwork:
                 ipe = 1
             self._iters_per_epoch = max(int(ipe), 1)
             self._build_optimizer(self._iters_per_epoch)
-        step = self._compiled_step()
+        step = self._train_sentinel()
 
         def step_batch(ds):
             x = self._to_device(ds.features)
@@ -431,7 +444,7 @@ class MultiLayerNetwork:
         xs = torch.stack([self._to_device(b.features) for b in batches])
         ys = torch.stack([self._to_device(b.labels) for b in batches])
         self._last_batch_size = int(xs.shape[1])
-        step = self._compiled_step()
+        step = self._train_sentinel()
         losses = None
         for _ in range(epochs):
             losses = torch.stack([step(xs[i], ys[i], None, None)

@@ -1,6 +1,8 @@
 """Serving plane of the port: KV cache and prefix cache, generation engine,
-continuous batching, typed requests."""
+continuous batching, typed requests; the SLO plane's config and tracker
+(``obs.slo``) re-exported for the scheduler's ``slo=``."""
 
+from ..obs import SLOConfig, SLOTracker
 from .engine import DEFAULT_PREFILL_BUCKETS, GenerationEngine, sample_tokens
 from .kvcache import PageTable, PrefixCache
 from .scheduler import (ContinuousBatchingScheduler, GenerationResult,
@@ -11,4 +13,5 @@ from .workloads import (BeamResult, EmbedResult, RequestKind, ScoreResult,
 __all__ = ["BeamResult", "ContinuousBatchingScheduler",
            "DEFAULT_PREFILL_BUCKETS", "EmbedResult", "GenerationEngine",
            "GenerationResult", "PageTable", "PrefixCache", "RequestKind",
-           "ScoreResult", "ServingRequest", "sample_tokens", "vocab_mask"]
+           "SLOConfig", "SLOTracker", "ScoreResult", "ServingRequest",
+           "sample_tokens", "vocab_mask"]

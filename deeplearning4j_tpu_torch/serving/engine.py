@@ -57,8 +57,12 @@ and gathers through the sentinel clamp to the last page as a JAX gather
 does; dynamic-slice starts are bounds-checked on the host instead of
 clamped.
 
-Not ported yet: int8 weights/KV (the ``quant_*`` knobs raise), and the
-sentinels' metrics and spans (the observability plane).
+The sentinels feed the observability plane: every compile counts into
+``dl4j_compile_total{component}`` and ``dl4j_compile_seconds``, a retrace
+after ``mark_warm()`` into ``dl4j_compile_retraces_total``, and each lands
+as a ``compile.<name>`` span on the process tracer.
+
+Not ported yet: int8 weights/KV (the ``quant_*`` knobs raise).
 """
 
 from __future__ import annotations

@@ -38,10 +38,46 @@ On the paged pool:
 
 Every kind runs through the engine's compiled steps; the decode sweep of
 a paged pool runs the paged-attention kernel (K2) on CUDA whatever pages
-its slots share. Not ported yet (each knob raises
-``NotImplementedError``): the metrics registry, spans, SLO tracking, the
-flight recorder, sampler observability and int8 KV. Plain counters
-stand in for the registry (``stats``, ``kv_report()``).
+its slots share.
+
+The observability plane rides on top, on the host only — the device
+dispatch sequence is untouched, so greedy output is the same with
+everything below on:
+
+- ``dl4j_serving_*`` on the process registry (slot occupancy, queue
+  depth, TTFT / queue-wait / ITL / latency / decode-sweep histograms,
+  token, prefill, decode and preemption counters), ``dl4j_workload_*``
+  by request kind, ``dl4j_kv_*`` residency (allocated vs resident bytes,
+  the waste ratio, the prefix cache's sharing census), and the
+  ``serving.prefill`` / ``serving.prefill_chunk`` /
+  ``serving.score_chunk`` / ``serving.embed_chunk`` / ``serving.decode``
+  spans; the instruments are resolved once, at construction;
+- every request carries an ``obs.RequestTrace`` (submit → queue → admit
+  → prefill → each token → preempt/requeue → finish/cancel/fail),
+  stitched into the span tracer at completion (``trace_spans``) and
+  feeding ``dl4j_serving_itl_seconds`` per request — a preemption's
+  requeue gap is one (large) ITL sample;
+- a bounded :class:`~..obs.FlightRecorder` keeps the last
+  ``recorder_requests`` traces and ``recorder_snapshots`` per-step
+  snapshots (slot map, queue, occupancy, per-kind census, residency),
+  dumped as JSONL on demand and when the serve loop crashes
+  (``_fail_all``, to ``crash_dump_path``);
+- ``slo=SLOConfig(...)`` (or an ``SLOTracker``) accounts rolling goodput
+  / attainment / burn rate (``dl4j_slo_*{replica}``, ``slo.report()``);
+- a memory census at construction (params and KV under ``replica``);
+- every ``sample_obs_every``-th sampling event (sweeps and first tokens
+  share one counter; 0 disables) observes the model's next-token entropy
+  and top-k mass (``dl4j_serving_sample_entropy``,
+  ``dl4j_serving_topk_mass``), reduced where the logits are (on the
+  card: two floats read back).
+
+The bookkeeping self-times into ``trace_overhead_seconds`` as the
+reference's does (trace events, snapshots, close-out, sampler).
+``stats`` and ``kv_report()`` stay the plain readings of a run.
+
+Not ported yet (each knob raises ``NotImplementedError``): int8 KV
+(``quant_kv``); ``key`` is the reference's JAX PRNG key, for which the
+port takes ``generator=``.
 """
 
 from __future__ import annotations
@@ -51,21 +87,24 @@ import time
 from collections import deque
 from concurrent.futures import Future, InvalidStateError
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
+from ..obs import (FlightRecorder, RequestTrace, SLOConfig, SLOTracker,
+                   emit_census, get_registry, get_tracer)
 from . import kvcache, workloads
 from .engine import GenerationEngine
 from .workloads import (BeamResult, BeamState, EmbedResult, RequestKind,
                         ScoreResult)
 
-# reference knobs of planes this port has not reached yet
-_UNPORTED_SCHEDULER_KNOBS = (
-    "replica", "slo", "recorder_requests", "recorder_snapshots",
-    "crash_dump_path", "trace_spans", "sample_obs_every", "quant_kv",
-    "key")
+# reference knobs this port does not take: int8 KV is not ported yet, and
+# ``key`` is a JAX PRNG key (the port takes ``generator=``)
+_UNPORTED_SCHEDULER_KNOBS = ("quant_kv", "key")
+# the parts of the plane's host cost the scheduler self-times
+# (``_plane_s``; ``trace_overhead_seconds`` is the reference's share)
+PLANE_PARTS = ("registry", "trace", "spans", "sampler", "slo")
 
 
 @dataclass
@@ -93,6 +132,7 @@ class ServingRequest:
     first_token_ts: Optional[float] = None
     generated: List[int] = field(default_factory=list)
     preemptions: int = 0
+    trace: Optional[RequestTrace] = None
     # chunked-prefill state (paged mode): the context being prefilled
     # this admission and how many of its tokens are written; ``pending is
     # None`` means the slot is decoding (or dense mode)
@@ -142,14 +182,21 @@ class ContinuousBatchingScheduler:
     def __init__(self, engine: GenerationEngine, n_slots: int = 4, *,
                  starvation_ms: Optional[float] = None,
                  generator: Optional[torch.Generator] = None,
+                 replica: str = "0",
+                 slo: Union[SLOConfig, SLOTracker, None] = None,
+                 recorder_requests: int = 256,
+                 recorder_snapshots: int = 512,
+                 crash_dump_path: Optional[str] = None,
+                 trace_spans: bool = True,
+                 sample_obs_every: int = 32,
                  page_len: Optional[int] = None,
                  n_pages: Optional[int] = None,
                  prefix_cache: bool = False, **unported):
         for name in unported:
             if name in _UNPORTED_SCHEDULER_KNOBS:
                 raise NotImplementedError(
-                    f"ContinuousBatchingScheduler({name}=...) belongs to a "
-                    "serving plane that is not ported yet")
+                    f"ContinuousBatchingScheduler({name}=...) is not ported "
+                    "yet (int8 KV; the port takes generator= for key=)")
             raise TypeError(f"unexpected keyword argument {name!r}")
         if n_slots < 1:
             raise ValueError("need at least one decode slot")
@@ -159,7 +206,13 @@ class ContinuousBatchingScheduler:
         self.engine = engine
         self.n_slots = int(n_slots)
         self.starvation_ms = starvation_ms
+        self.replica = str(replica)
         self.paged = page_len is not None or n_pages is not None
+        # sampler observability: every Nth sampling event (decode sweeps
+        # and admission first tokens share one counter) observes the
+        # model's next-token entropy and top-k mass (0 disables)
+        self.sample_obs_every = max(0, int(sample_obs_every))
+        self._obs_events = 0
         if self.paged:
             plen = int(page_len if page_len is not None
                        else kvcache.DEFAULT_PAGE_LEN)
@@ -217,6 +270,12 @@ class ContinuousBatchingScheduler:
         self._final_res_sum = 0.0
         self._final_res_n = 0
         self._peak_active = 0
+        # the last published per-kind census, queue depth and allocated
+        # bytes: a step writes these gauges only when their values move
+        self._kind_census_pub: Dict[str, int] = {}
+        self._kinds_last: Optional[Dict[str, int]] = None
+        self._depth_pub: Optional[int] = None
+        self._kv_pub_alloc: Optional[float] = None
         self.slots: List[Optional[ServingRequest]] = [None] * self.n_slots
         self._queue: deque = deque()
         self._draining = False
@@ -230,13 +289,194 @@ class ContinuousBatchingScheduler:
         self._next_id = 0
         self._thread: Optional[threading.Thread] = None
         self._stop_evt = threading.Event()
-        # plain counters in place of the reference's metrics registry
-        # (decode_s: host wall time of the sweeps, each ending in the
-        # sampled tokens' device→host copy)
+        # a run's plain readings beside the registry (decode_s: host wall
+        # time of the sweeps, each ending in the sampled tokens'
+        # device→host copy)
         self.stats = {"requests": 0, "prefills": 0, "prefill_chunks": 0,
                       "decode_steps": 0, "decode_s": 0.0,
                       "decode_tokens": 0, "tokens": 0, "preemptions": 0,
                       "completions": 0, "cancelled": 0}
+        # the black box, per-request traces and the SLO tracker
+        self.flight_recorder = FlightRecorder(
+            capacity_requests=recorder_requests,
+            capacity_snapshots=recorder_snapshots, replica=self.replica,
+            crash_dump_path=crash_dump_path)
+        self.flight_recorder.extra_state = self._debug_extra
+        if isinstance(slo, SLOTracker):
+            self.slo: Optional[SLOTracker] = slo
+        elif slo is not None:
+            self.slo = SLOTracker(slo, replica=self.replica)
+        else:
+            self.slo = None
+        self.trace_spans = trace_spans
+        self._steps = 0
+        self._trace_overhead = 0.0
+        self._plane_s = dict.fromkeys(PLANE_PARTS, 0.0)
+        # every instrument resolved once, and the label sets the sweep
+        # and the snapshot write: a step never looks one up
+        self._mt = m = self._m()
+        self._ch = {name: m[name].labels(replica=self.replica)
+                    for name in ("occupancy", "queue_depth", "tokens_per_s",
+                                 "kv_alloc", "kv_res", "kv_waste",
+                                 "kv_shared", "kv_cached")}
+        self._ch_tokens = {k: m["wl_tokens"].labels(kind=k)
+                           for k in workloads.ALL_KINDS}
+        self._ch_active = {k: m["active_kind"].labels(replica=self.replica,
+                                                      kind=k)
+                           for k in workloads.ALL_KINDS}
+        # the pool's memory census, once (params and KV under this
+        # replica's label), and the allocated-bytes gauge; decoration
+        # only — a census failure must not take serving down
+        try:
+            emit_census({"params": engine.params, "kv_cache": self.cache},
+                        replica=self.replica, source="serving")
+            self._ch["kv_alloc"].set(float(self._kv_last_alloc))
+        except Exception:  # noqa: BLE001 — census is decoration
+            pass
+
+    # ------------------------------------------------------- metrics
+    @staticmethod
+    def _m():
+        reg = get_registry()
+        return {
+            "requests": reg.counter(
+                "dl4j_serving_requests_total",
+                "Requests submitted to the continuous-batching scheduler"),
+            "completions": reg.counter(
+                "dl4j_serving_completions_total",
+                "Requests completed, by finish reason",
+                labelnames=("reason",)),
+            "preemptions": reg.counter(
+                "dl4j_serving_preemptions_total",
+                "Active requests preempted (recompute on re-admission)"),
+            "prefills": reg.counter(
+                "dl4j_serving_prefills_total",
+                "Per-slot prefill admissions (includes re-admissions)"),
+            "decode_steps": reg.counter(
+                "dl4j_serving_decode_steps_total",
+                "Full-pool decode sweeps executed"),
+            "tokens": reg.counter(
+                "dl4j_serving_tokens_total",
+                "Tokens generated across all requests"),
+            # the same request flow by RequestKind
+            "wl_requests": reg.counter(
+                "dl4j_workload_requests_total",
+                "Requests submitted, by workload kind",
+                labelnames=("kind",)),
+            "wl_completions": reg.counter(
+                "dl4j_workload_completions_total",
+                "Requests completed (finish path), by workload kind",
+                labelnames=("kind",)),
+            "wl_tokens": reg.counter(
+                "dl4j_workload_tokens_total",
+                "Tokens processed per workload kind: generated tokens "
+                "for generate/constrained, beam candidates for beam, "
+                "prompt tokens scored/pooled for score/embed",
+                labelnames=("kind",)),
+            "active_kind": reg.gauge(
+                "dl4j_serving_active_requests",
+                "Admitted in-flight requests at the last snapshot, by "
+                "workload kind (a beam group counts once)",
+                labelnames=("replica", "kind")),
+            "occupancy": reg.gauge(
+                "dl4j_serving_slot_occupancy",
+                "Active slots / pool size at the last decode sweep "
+                "(0 when the pool is idle)",
+                labelnames=("replica",)),
+            "queue_depth": reg.gauge(
+                "dl4j_serving_queue_depth",
+                "Requests waiting for a decode slot",
+                labelnames=("replica",)),
+            "tokens_per_s": reg.gauge(
+                "dl4j_serving_tokens_per_second",
+                "Generated tokens per second over the last decode sweep "
+                "(0 when the pool is idle)",
+                labelnames=("replica",)),
+            "ttft": reg.histogram(
+                "dl4j_serving_ttft_seconds",
+                "Time from submit to first generated token"),
+            "queue_wait": reg.histogram(
+                "dl4j_serving_queue_wait_seconds",
+                "Time a request waited in the admission queue"),
+            "decode_s": reg.histogram(
+                "dl4j_serving_decode_step_seconds",
+                "Wall time of one full-pool decode sweep"),
+            "itl": reg.histogram(
+                "dl4j_serving_itl_seconds",
+                "Inter-token latency, derived per request from its "
+                "lifecycle trace (a preemption requeue gap is one "
+                "sample)"),
+            "latency": reg.histogram(
+                "dl4j_serving_request_latency_seconds",
+                "Time from submit to request completion"),
+            # KV residency: dense slots allocate max_len per slot, the
+            # paged pool only its MAPPED pages
+            "kv_alloc": reg.gauge(
+                "dl4j_kv_allocated_bytes",
+                "Allocated KV bytes: slots x max_len (dense slotting) "
+                "or mapped pages x page bytes (paged pool)",
+                labelnames=("replica",)),
+            "kv_res": reg.gauge(
+                "dl4j_kv_resident_bytes",
+                "KV bytes actually holding tokens (active slots' "
+                "prompt+generated counts x per-token bytes)",
+                labelnames=("replica",)),
+            "kv_waste": reg.gauge(
+                "dl4j_kv_waste_ratio",
+                "1 - resident/allocated (dense idle pool = 1.0; paged "
+                "counts mapped pages, so waste is only unfilled page "
+                "tails)", labelnames=("replica",)),
+            # the prefix cache's sharing census — shared pages count ONCE
+            # in kv_alloc above
+            "kv_shared": reg.gauge(
+                "dl4j_kv_shared_pages",
+                "Pool pages with more than one holder (slot mappings + "
+                "prefix-cache/session holds) at the last snapshot",
+                labelnames=("replica",)),
+            "kv_cached": reg.gauge(
+                "dl4j_kv_cached_pages",
+                "Pool pages resident only because the prefix cache "
+                "holds them — the LRU-evictable reclaim headroom",
+                labelnames=("replica",)),
+            "kv_cow": reg.counter(
+                "dl4j_kv_cow_copies_total",
+                "Copy-on-write page splits (device page copies) before "
+                "a slot scattered into a shared page"),
+            "kv_prefix_hits": reg.counter(
+                "dl4j_kv_prefix_hits_total",
+                "Admissions that mapped a shared resident prefix "
+                "instead of re-prefilling it"),
+            "kv_prefix_hit_tokens": reg.counter(
+                "dl4j_kv_prefix_hit_tokens_total",
+                "Prompt tokens skipped at prefill because their pages "
+                "were already resident (prefix/session hits)"),
+            "kv_prefix_evictions": reg.counter(
+                "dl4j_kv_prefix_evictions_total",
+                "Cached prefix pages freed by LRU eviction under page "
+                "pressure (before the preemption path)"),
+            "kv_final": reg.histogram(
+                "dl4j_kv_final_residency_ratio",
+                "Per-request final residency at completion: "
+                "(prompt+generated) / max_len under dense slotting, "
+                "/ mapped-page capacity under paging — how much of "
+                "what it reserved a request ever used",
+                buckets=tuple(i / 20 for i in range(1, 21))),
+            # the model's next-token distribution at the sampling sites
+            "sample_entropy": reg.histogram(
+                "dl4j_serving_sample_entropy",
+                "Per-observation mean entropy (nats) of the MODEL's "
+                "next-token distribution (softmax at temperature 1, "
+                "before per-request temperature/top-k shaping) over "
+                "active slots — the sharpness signal quantization "
+                "drift shows up in, meaningful for greedy pools too",
+                buckets=tuple(0.25 * i for i in range(1, 61))),
+            "topk_mass": reg.histogram(
+                "dl4j_serving_topk_mass",
+                "Per-observation mean probability mass (at temperature "
+                "1) the top-k truncation keeps, over active slots with "
+                "top_k > 0",
+                buckets=tuple(i / 20 for i in range(1, 21))),
+        }
 
     # -------------------------------------------------------- submit
     def submit(self, prompt_ids, max_new_tokens: int = 32, *,
@@ -389,9 +629,23 @@ class ContinuousBatchingScheduler:
                 token_mask=token_mask)
             if kind is RequestKind.BEAM:
                 req.beam = BeamState(width=beam_width)
+            req.trace = RequestTrace(request_id=req.id,
+                                     replica=self.replica,
+                                     kind=kind.value)
+            req.trace.event("submit", ts=now,
+                            prompt_tokens=int(prompt.size),
+                            max_new_tokens=int(max_new_tokens))
+            req.trace.event("queue", ts=now)
             self._next_id += 1
             self._queue.append(req)
             self.stats["requests"] += 1
+            m = self._mt
+            t_reg = time.perf_counter()
+            m["requests"].inc()
+            m["wl_requests"].inc(kind=kind.value)
+            self._depth_pub = len(self._queue)
+            m["queue_depth"].set(self._depth_pub, replica=self.replica)
+            self._plane_s["registry"] += time.perf_counter() - t_reg
         return fut
 
     # ---------------------------------------------------------- step
@@ -399,19 +653,31 @@ class ContinuousBatchingScheduler:
         """One scheduler iteration: preempt-if-starved, admit, decode.
         Returns True if any work happened (False = fully idle)."""
         with self._step_lock:
+            m = self._mt
             with self._lock:
-                did = self._maybe_preempt()
-                admissions = self._pop_admissions()
+                did = self._maybe_preempt(m)
+                admissions = self._pop_admissions(m)
             if self.paged:
                 # every prefilling slot advances ONE chunk, then the sweep
-                did = self._advance_prefills() or did
+                did = self._advance_prefills(m) or did
             else:
                 for slot, req in admissions:
-                    self._admit_one(slot, req)
+                    self._admit_one(slot, req, m)
             did = did or bool(admissions)
-            did = self._decode_sweep() or did
+            did = self._decode_sweep(m) or did
+            t_reg = time.perf_counter()
+            with self._lock:
+                depth = len(self._queue)
+                if depth != self._depth_pub:     # a write only on change
+                    self._depth_pub = depth
+                    self._ch["queue_depth"].set(depth)
+            self._plane_s["registry"] += time.perf_counter() - t_reg
             if did:
-                self._record_snapshot()
+                t_ov = time.perf_counter()
+                self._record_snapshot(m)
+                dt = time.perf_counter() - t_ov
+                self._trace_overhead += dt
+                self._plane_s["trace"] += dt
             else:
                 self._record_idle()
         return did
@@ -458,9 +724,14 @@ class ContinuousBatchingScheduler:
         return self
 
     def _fail_all(self, exc: BaseException):
-        """Resolve every queued and in-flight future with ``exc`` and
-        clear the pool (the serve-loop crash path)."""
+        """Resolve every queued and in-flight future with ``exc``, clear
+        the pool, and leave a black box: a crash snapshot of the dying
+        slot map and every doomed request's trace, dumped as JSONL (the
+        serve-loop crash path). The futures fail FIRST, and none of the
+        recording may mask ``exc``."""
         with self._lock:
+            slot_ids = [None if r is None else r.id for r in self.slots]
+            queued_ids = [r.id for r in self._queue]
             doomed, seen = [], set()
             for r in list(self.slots) + list(self._queue):
                 # a beam group occupies several lanes — fail it ONCE
@@ -480,6 +751,20 @@ class ContinuousBatchingScheduler:
                 req.future.set_exception(exc)
             except InvalidStateError:
                 pass
+        err = repr(exc)[:300]
+        try:
+            m = self._mt
+            self._steps += 1
+            self.flight_recorder.record_snapshot(
+                step=self._steps, crash=True, error=err, slots=slot_ids,
+                queue=queued_ids, queue_depth=len(queued_ids),
+                occupancy=sum(s is not None for s in slot_ids)
+                / self.n_slots)
+            for req in doomed:
+                self._close_trace(req, "fail", m, error=err)
+            self.flight_recorder.dump(reason="fail_all")
+        except Exception:  # noqa: BLE001 — a failed postmortem (full
+            pass           # disk, torn state) must not mask exc
 
     def stop(self):
         if self._thread is None:
@@ -506,6 +791,8 @@ class ContinuousBatchingScheduler:
             with self._lock:
                 leftover = list(self._queue)
                 self._queue.clear()
+                self._depth_pub = 0
+                self._ch["queue_depth"].set(0)
             return leftover
         finally:
             with self._lock:
@@ -551,7 +838,7 @@ class ContinuousBatchingScheduler:
         need = max(0, self._pages.pages_for(first_end) - len(shared))
         return shared, matched, need
 
-    def _preempt_slot(self, victim_slot: int) -> ServingRequest:
+    def _preempt_slot(self, victim_slot: int, m) -> ServingRequest:
         """Preempt the request in ``victim_slot`` (caller holds
         ``_lock``): free the lane and its pages, reset mid-prefill
         progress, and re-queue its context at the BACK. A beam request
@@ -576,8 +863,14 @@ class ContinuousBatchingScheduler:
         victim.done_tokens = 0
         victim.preemptions += 1
         victim.queued_ts = time.perf_counter()
+        if victim.trace is not None:
+            victim.trace.event("preempt", ts=victim.queued_ts,
+                               slot=victim_slot,
+                               generated=len(victim.generated))
+            victim.trace.event("requeue", ts=victim.queued_ts)
         self._queue.append(victim)
         self.stats["preemptions"] += 1
+        m["preemptions"].inc()
         return victim
 
     def _release_pages(self, slot: int) -> int:
@@ -608,7 +901,7 @@ class ContinuousBatchingScheduler:
                         req.session_id, ctx[:written], pages[:keep])
         return self._pages.release(slot)
 
-    def _maybe_preempt(self) -> bool:
+    def _maybe_preempt(self, m) -> bool:
         """Starvation guard: the queue head waited past the deadline and
         cannot admit (no free slot, or not enough free pages for its
         first chunk) → preempt the decoding request with the most
@@ -633,10 +926,10 @@ class ContinuousBatchingScheduler:
                     else len(victim.generated))
         if victim.remaining() <= 0 or not progress:
             return False       # nothing to save / about to finish anyway
-        self._preempt_slot(victim_slot)
+        self._preempt_slot(victim_slot, m)
         return True
 
-    def _pop_admissions(self):
+    def _pop_admissions(self, m):
         """Under the metadata lock: pair free slots with queued requests
         and reserve the slots. A request whose future was cancelled while
         queued is dropped here. Paged mode also gates on the head's first
@@ -662,9 +955,11 @@ class ContinuousBatchingScheduler:
                     # evict cold cached pages before refusing; the pages
                     # the head just matched are protected until mapped
                     if self._prefix is not None:
-                        self._prefix.evict(
+                        freed = self._prefix.evict(
                             need - (self._pages.free_pages - reserved),
                             protect=frozenset(shared))
+                        if freed:
+                            m["kv_prefix_evictions"].inc(freed)
                     if need > self._pages.free_pages - reserved:
                         break
             self._queue.popleft()
@@ -672,8 +967,14 @@ class ContinuousBatchingScheduler:
             if not req.future.running() and \
                     not req.future.set_running_or_notify_cancel():
                 self.stats["cancelled"] += 1
+                m["completions"].inc(reason="cancelled")
+                self._close_trace(req, "cancel", m)
                 continue
             slot = free[0]
+            now = time.perf_counter()
+            m["queue_wait"].observe(now - req.queued_ts)
+            if req.trace is not None:
+                req.trace.event("admit", ts=now, slot=slot)
             if self.paged:
                 req.pending = req.context()
                 req.done_tokens = 0
@@ -687,6 +988,13 @@ class ContinuousBatchingScheduler:
                     self._pages.note_fill(slot, matched)
                     req.done_tokens = matched
                     self._prefix.note_hit(matched)
+                    m["kv_prefix_hits"].inc()
+                    m["kv_prefix_hit_tokens"].inc(matched)
+                    if req.trace is not None:
+                        req.trace.event(
+                            "prefix_hit", ts=now,
+                            matched_tokens=int(matched),
+                            shared_pages=len(shared))
                 reserved += need
             if req.kind is RequestKind.BEAM:
                 # every lane of the group points at the one request;
@@ -700,16 +1008,21 @@ class ContinuousBatchingScheduler:
             out.append((slot, req))
         return out
 
-    def _admit_one(self, slot, req):
+    def _admit_one(self, slot, req, m):
         """Dense admission: prefill the whole context into the slot and
         sample the first token (TTFT)."""
         ctx = req.context()
         t0 = time.perf_counter()
-        logits, self.cache = self.engine.prefill_slot(self.cache, ctx, slot)
+        with self._span("serving.prefill",
+                        {"request": req.id, "slot": slot,
+                         "tokens": int(ctx.size)}):
+            logits, self.cache = self.engine.prefill_slot(self.cache, ctx,
+                                                          slot)
         req.prefill_s = time.perf_counter() - t0
-        self._first_token(slot, req, logits)
+        self._first_token(slot, req, logits, int(ctx.size), req.prefill_s,
+                          m)
 
-    def _advance_prefills(self) -> bool:
+    def _advance_prefills(self, m) -> bool:
         """Paged mode: advance every prefilling slot by ONE chunk. Pages
         for the chunk are mapped first (preempting under pressure) and
         shared pages it writes into are copied first. The final chunk
@@ -729,10 +1042,10 @@ class ContinuousBatchingScheduler:
                 ctx = req.pending
                 done = req.done_tokens
                 n = min(self.engine.chunk_len, len(ctx) - done)
-                ok = self._ensure_pages(slot, req, done + n)
+                ok = self._ensure_pages(slot, req, done + n, m)
                 # shared pages this chunk writes into split first:
                 # planned under the lock, copied on the device outside it
-                cows = self._plan_cow(slot, done, done + n) \
+                cows = self._plan_cow(slot, done, done + n, m) \
                     if ok and self.slots[slot] is req else []
                 ok = ok and self.slots[slot] is req
             did = True
@@ -742,19 +1055,24 @@ class ContinuousBatchingScheduler:
                 self.cache = self.engine.copy_page(self.cache, src, dst)
             self._pages.sync(self.cache)
             chunk = ctx[done:done + n]
+            attrs = {"request": req.id, "slot": slot, "start": int(done),
+                     "tokens": int(n)}
             t0 = time.perf_counter()
             logits = None
             if req.kind is RequestKind.SCORE:
-                rows, self.cache = self.engine.verify_chunk(
-                    self.cache, chunk, slot, start=done)
+                with self._span("serving.score_chunk", attrs):
+                    rows, self.cache = self.engine.verify_chunk(
+                        self.cache, chunk, slot, start=done)
                 self._score_rows(req, ctx, done, n, _host(rows))
             elif req.kind is RequestKind.EMBED:
-                rows, self.cache = self.engine.embed_chunk(
-                    self.cache, chunk, slot, start=done)
+                with self._span("serving.embed_chunk", attrs):
+                    rows, self.cache = self.engine.embed_chunk(
+                        self.cache, chunk, slot, start=done)
                 self._embed_rows(req, n, _host(rows))
             else:
-                logits, self.cache = self.engine.prefill_chunk(
-                    self.cache, chunk, slot, start=done)
+                with self._span("serving.prefill_chunk", attrs):
+                    logits, self.cache = self.engine.prefill_chunk(
+                        self.cache, chunk, slot, start=done)
             elapsed = time.perf_counter() - t0
             with self._lock:
                 req.prefill_s += elapsed
@@ -766,11 +1084,13 @@ class ContinuousBatchingScheduler:
                 self.stats["prefill_chunks"] += 1
             if final:
                 if req.kind in (RequestKind.SCORE, RequestKind.EMBED):
-                    self._finish_prefill_only(slot, req)
+                    self._finish_prefill_only(slot, req, m)
                 elif req.beam is not None:
-                    self._expand_beam(slot, req, logits, len(ctx))
+                    self._expand_beam(slot, req, logits, len(ctx),
+                                      req.prefill_s, m)
                 else:
-                    self._first_token(slot, req, logits)
+                    self._first_token(slot, req, logits, len(ctx),
+                                      req.prefill_s, m, chunks=req.chunks)
         return did
 
     @staticmethod
@@ -798,7 +1118,7 @@ class ContinuousBatchingScheduler:
         req.embed_acc = s if req.embed_acc is None else req.embed_acc + s
         req.embed_last = hid[-1]
 
-    def _ensure_pages(self, slot, req, tokens: int) -> bool:
+    def _ensure_pages(self, slot, req, tokens: int, m) -> bool:
         """Grow ``slot``'s mapping to cover ``tokens`` rows (caller holds
         ``_lock``). Cold cached pages are evicted first; then victims are
         preempted: decoding slots first, most remaining budget first;
@@ -806,7 +1126,7 @@ class ContinuousBatchingScheduler:
         ``req`` is never a victim (its preemption takes the whole group,
         ``slot`` included). If the pool still cannot cover the growth,
         ``req`` itself is preempted (False)."""
-        if self._try_map(slot, tokens):
+        if self._try_map(slot, tokens, m):
             return True
         while True:
             victim_slot = max(
@@ -819,13 +1139,13 @@ class ContinuousBatchingScheduler:
                 default=None)
             if victim_slot is None:
                 break
-            self._preempt_slot(victim_slot)
-            if self._try_map(slot, tokens):
+            self._preempt_slot(victim_slot, m)
+            if self._try_map(slot, tokens, m):
                 return True
-        self._preempt_slot(slot)
+        self._preempt_slot(slot, m)
         return False
 
-    def _try_map(self, slot, tokens: int) -> bool:
+    def _try_map(self, slot, tokens: int, m) -> bool:
         """``PageTable.map``; when the free list cannot cover the growth,
         LRU-evict cached prefix pages (a cold cache goes before a live
         request) and try once more. Caller holds ``_lock``."""
@@ -836,12 +1156,15 @@ class ContinuousBatchingScheduler:
             short = (self._pages.pages_for(tokens)
                      - int(self._pages.mapped[slot])
                      - self._pages.free_pages)
-            if short > 0 and self._prefix.evict(short) \
-                    and self._pages.map(slot, tokens):
-                return True
+            if short > 0:
+                freed = self._prefix.evict(short)
+                if freed:
+                    m["kv_prefix_evictions"].inc(freed)
+                if freed and self._pages.map(slot, tokens):
+                    return True
         return False
 
-    def _plan_cow(self, slot, start: int, end: int) -> list:
+    def _plan_cow(self, slot, start: int, end: int, m) -> list:
         """Split every page ``slot`` is about to write (context rows
         ``[start, end)``) that has other holders. Caller holds ``_lock``;
         returns the ``(src, dst)`` page copies the caller runs on the
@@ -868,9 +1191,12 @@ class ContinuousBatchingScheduler:
                     copies.append(split)
                     if self._prefix is not None:
                         self._prefix.cow_copies += 1
+                    m["kv_cow"].inc()
                     break
                 if self._prefix is not None:
-                    if self._prefix.evict(1):
+                    freed = self._prefix.evict(1)
+                    if freed:
+                        m["kv_prefix_evictions"].inc(freed)
                         continue
                     if self._prefix.release_page_holds(p):
                         continue               # may now be private
@@ -882,20 +1208,21 @@ class ContinuousBatchingScheduler:
                     None)
                 if other is None:              # refs must come from
                     break                      # somewhere: cannot happen
-                self._preempt_slot(other)
+                self._preempt_slot(other, m)
                 if self.slots[slot] is None:
                     # ``other`` was a beam sibling: the group preemption
                     # took this slot too — nothing left to plan
                     return copies
         return copies
 
-    def _first_token(self, slot, req, logits):
+    def _first_token(self, slot, req, logits, ctx_tokens: int,
+                     prefill_s: float, m, chunks: Optional[int] = None):
         """Shared admission tail: sample the first token (the TTFT
-        sample) — through the masked sampler for CONSTRAINED — then park
-        it for the next sweep or finish at once. With the prefix cache
-        the just-prefilled context's full blocks are registered, so that
-        CONCURRENT requests with the same prompt share them from their
-        own admission on."""
+        sample) — through the masked sampler for CONSTRAINED — record the
+        trace events, then park the token for the next sweep or finish at
+        once. With the prefix cache the just-prefilled context's full
+        blocks are registered, so that CONCURRENT requests with the same
+        prompt share them from their own admission on."""
         if req.kind is RequestKind.CONSTRAINED:
             mask = workloads.resolve_mask(
                 req.token_mask, req.generated,
@@ -907,25 +1234,102 @@ class ContinuousBatchingScheduler:
             toks = self.engine.sample(logits[None], req.temperature,
                                       req.top_k, self._gen)
         tok = int(self._read_tokens(toks)[0])
+        # the TTFT timestamp is taken BEFORE the sampler observation: its
+        # cost is booked to trace_overhead, not to the first token
         now = time.perf_counter()
+        obs_cost = self._maybe_sample_obs(m, lambda: logits, [req.top_k])
         with self._lock:
+            self._trace_overhead += obs_cost
             self.stats["prefills"] += 1
+            m["prefills"].inc()
             if req.first_token_ts is None:
                 req.first_token_ts = now
+                m["ttft"].observe(now - req.submitted_ts)
+            if req.trace is not None:
+                t_ov = time.perf_counter()
+                attrs = {} if chunks is None else {"chunks": chunks}
+                req.trace.event("prefill", ts=now, slot=slot,
+                                tokens=ctx_tokens, time_s=prefill_s,
+                                **attrs)
+                req.trace.event("token", ts=now, i=len(req.generated))
+                self._trace_cost(t_ov)
             if self.paged and self._prefix is not None:
                 ctx_now = req.context()
                 self._pages.note_fill(slot, ctx_now.size)
                 self._prefix.insert(ctx_now, self._pages.slot_pages(slot))
             req.generated.append(tok)
             self.stats["tokens"] += 1
+            m["tokens"].inc()
+            m["wl_tokens"].inc(kind=req.kind.value)
             if self._done(req, tok):
                 self.slots[slot] = None
                 released = self._retire_slot(slot, req)
-                self._finish(req, tok, mapped_pages=released)
+                self._finish(req, tok, m, mapped_pages=released)
             else:
                 self._last_tokens[slot] = tok
 
-    def _decode_sweep(self) -> bool:
+    def _trace_cost(self, t0: float, carved: float = 0.0) -> None:
+        """Book the trace bookkeeping since ``t0`` to trace_overhead,
+        and to the plane's ``trace`` share less what ``carved`` already
+        booked to another share (caller holds ``_lock``)."""
+        dt = time.perf_counter() - t0
+        self._trace_overhead += dt
+        self._plane_s["trace"] += dt - carved
+
+    def _span(self, name: str, attrs) -> "_DispatchSpan":
+        """A span around one dispatch (:class:`_DispatchSpan`)."""
+        return _DispatchSpan(self._plane_s, name, attrs)
+
+    def _maybe_sample_obs(self, m, rows_fn, topks) -> float:
+        """Shared sampler-observation cadence for admissions and sweeps
+        (one counter, one modulo): returns the self-timed cost to add to
+        trace_overhead. ``rows_fn`` defers reading the logits until the
+        cadence says observe."""
+        if not self.sample_obs_every:
+            return 0.0
+        self._obs_events += 1
+        if self._obs_events % self.sample_obs_every:
+            return 0.0
+        t_obs = time.perf_counter()
+        try:
+            self._sample_obs(m, rows_fn(), topks)
+        except Exception:  # noqa: BLE001 — observability must never
+            pass           # perturb the admission or sweep
+        dt = time.perf_counter() - t_obs
+        self._plane_s["sampler"] += dt
+        return dt
+
+    @staticmethod
+    def _sample_obs(m, logits_rows, topks):
+        """Sampler observability: the mean next-token entropy over the
+        given logit rows, and the mean probability mass the top-k filter
+        keeps over the rows with top_k > 0 — the reference's host formula
+        (softmax at temperature 1 in f32, ``-sum p log(p + 1e-30)``, the
+        k largest probabilities summed), reduced where the logits are: on
+        the card two floats come back, never the (rows, V) logits."""
+        lg = logits_rows.detach()
+        if lg.dim() == 1:
+            lg = lg[None]
+        if lg.numel() == 0:
+            return
+        p = torch.softmax(lg, dim=-1, dtype=torch.float32)
+        # -p log p, 0 at p = 0: the host formula's -p log(p + 1e-30) to
+        # within V * 1e-30 * 69 nats
+        ent = torch.special.entr(p).sum(dim=-1).mean()
+        ks = [min(int(k), lg.shape[-1]) for k in topks]
+        rows = [i for i, k in enumerate(ks) if k > 0]
+        if not rows:
+            m["sample_entropy"].observe(float(ent))
+            return
+        kk = torch.as_tensor([ks[i] for i in rows], device=lg.device)
+        top = torch.topk(p[rows], max(ks[i] for i in rows), dim=-1).values
+        keep = torch.arange(top.shape[-1], device=lg.device) < kk[:, None]
+        mass = (top * keep).sum() / len(rows)
+        ent_v, mass_v = torch.stack([ent, mass]).tolist()
+        m["sample_entropy"].observe(ent_v)
+        m["topk_mass"].observe(mass_v)
+
+    def _decode_sweep(self, m) -> bool:
         with self._lock:      # snapshot; only step() (serialized) mutates
             cows = []
             if self.paged:
@@ -943,12 +1347,12 @@ class ContinuousBatchingScheduler:
                     if req is None or req.pending is not None:
                         continue
                     w = self._slot_tokens(req)
-                    ok = self._ensure_pages(i, req, w)
+                    ok = self._ensure_pages(i, req, w, m)
                     if shared and ok and self.slots[i] is req:
                         # the sweep writes this slot's row w-1: split it
                         # first if shared (a session's append, beam
                         # siblings on one tail page)
-                        cows.extend(self._plan_cow(i, w - 1, w))
+                        cows.extend(self._plan_cow(i, w - 1, w, m))
             active = [i for i, r in enumerate(self.slots)
                       if r is not None and r.pending is None]
             if not active:
@@ -968,25 +1372,63 @@ class ContinuousBatchingScheduler:
                     masks[i] = workloads.resolve_mask(
                         self.slots[i].token_mask,
                         self.slots[i].generated, vocab)
+            active_kinds = [self.slots[i].kind._value_ for i in active]
             tokens_in = self._last_tokens.copy()
         if self.paged:
             for src, dst in cows:
                 self.cache = self.engine.copy_page(self.cache, src, dst)
             self._pages.sync(self.cache)
+        n = len(active)
+        ch = self._ch
         t0 = time.perf_counter()
-        logits, self.cache = self.engine.decode_step(self.cache, tokens_in)
-        if masks is None:
-            toks = self.engine.sample(logits, temps, topks, self._gen)
-        else:
-            toks = self.engine.sample_masked(logits, temps, topks,
-                                             self._gen, masks)
-        toks = self._read_tokens(toks)
+        with self._span("serving.decode", {"active": n}) as dspan:
+            logits, self.cache = self.engine.decode_step(self.cache,
+                                                         tokens_in)
+            if masks is None:
+                toks = self.engine.sample(logits, temps, topks, self._gen)
+            else:
+                toks = self.engine.sample_masked(logits, temps, topks,
+                                                 self._gen, masks)
+            # what needs no token, while the card runs the sweep: the
+            # span's record and the registry's writes
+            dspan.build()
+            t_reg = time.perf_counter()
+            m["decode_steps"].inc()
+            ch["occupancy"].set(n / self.n_slots)
+            m["tokens"].inc(n)
+            for kv in set(active_kinds):
+                self._ch_tokens[kv].inc(active_kinds.count(kv))
+            self._plane_s["registry"] += time.perf_counter() - t_reg
+            toks = self._read_tokens(toks)
         dt = time.perf_counter() - t0
+        t_reg = time.perf_counter()
+        m["decode_s"].observe(dt)
+        if dt > 0:
+            ch["tokens_per_s"].set(n / dt)
+        # the token timestamp BEFORE the sampler observation: its cost is
+        # booked to trace_overhead and must not skew the ITL samples
+        tok_ts = time.perf_counter()
+        self._plane_s["registry"] += tok_ts - t_reg
+        obs_cost = self._maybe_sample_obs(
+            m, lambda: logits if n == self.n_slots else logits[active],
+            [topks[i] for i in active])
         with self._lock:
             self.stats["decode_steps"] += 1
             self.stats["decode_s"] += dt
-            self.stats["decode_tokens"] += len(active)
-            self.stats["tokens"] += len(active)
+            self.stats["decode_tokens"] += n
+            self.stats["tokens"] += n
+            # trace bookkeeping first (self-timed): one token timestamp a
+            # sweep — the pool's tokens land together
+            self._trace_overhead += obs_cost
+            t_ov = time.perf_counter()
+            for i in active:
+                req = self.slots[i]
+                if req is not None and req.beam is None \
+                        and req.trace is not None:
+                    # RequestTrace.event's record, appended directly
+                    req.trace.events.append(
+                        ("token", tok_ts, {"i": len(req.generated)}))
+            self._trace_cost(t_ov)
             beams = []
             for i in active:
                 req = self.slots[i]
@@ -1003,12 +1445,12 @@ class ContinuousBatchingScheduler:
                 if self._done(req, tok):
                     self.slots[i] = None
                     released = self._retire_slot(i, req)
-                    self._finish(req, tok, mapped_pages=released)
+                    self._finish(req, tok, m, mapped_pages=released)
             if beams:
                 # only a sweep with a live beam group reads the logits
                 logits_np = _host(logits)
                 for req in beams:
-                    self._advance_beam(req, logits_np)
+                    self._advance_beam(req, logits_np, m, tok_ts)
         return True
 
     def _read_tokens(self, toks: torch.Tensor) -> np.ndarray:
@@ -1046,7 +1488,7 @@ class ContinuousBatchingScheduler:
 
     # ------------------------------------------------------ beam search
     def _expand_beam(self, root: int, req: ServingRequest, logits,
-                     ctx_tokens: int):
+                     ctx_tokens: int, prefill_s: float, m):
         """Fan the finished root prefill out into the beam group: rank
         the root's next-token log-probs (host f32, numpy's stable sort),
         give the top candidates one reserved lane each — the root keeps
@@ -1060,6 +1502,7 @@ class ContinuousBatchingScheduler:
         lsm = lg - np.log(np.exp(lg).sum())
         now = time.perf_counter()
         pos_fix = []
+        m["prefills"].inc()
         with self._lock:
             self.stats["prefills"] += 1
             beam = req.beam
@@ -1067,6 +1510,14 @@ class ContinuousBatchingScheduler:
                 return          # group preempted since the last chunk
             if req.first_token_ts is None:
                 req.first_token_ts = now
+                m["ttft"].observe(now - req.submitted_ts)
+            if req.trace is not None:
+                t_ov = time.perf_counter()
+                req.trace.event("prefill", ts=now, slot=root,
+                                tokens=ctx_tokens, time_s=prefill_s,
+                                chunks=req.chunks)
+                req.trace.event("token", ts=now, i=0)
+                self._trace_cost(t_ov)
             lanes = list(beam.slots)
             order = np.argsort(-lsm, kind="stable")[:len(lanes)]
             root_pages = self._pages.slot_pages(root)
@@ -1105,15 +1556,17 @@ class ContinuousBatchingScheduler:
                 alive_slots, alive_tokens, alive_scores
             beam.expanded = True
             self.stats["tokens"] += len(order)
+            m["tokens"].inc(len(order))
+            m["wl_tokens"].inc(len(order), kind=req.kind.value)
             if not alive_slots:
-                self._finish_beam(req)
+                self._finish_beam(req, m)
         if pos_fix:
             # sibling lanes were never prefilled: their cursors start at
             # the shared context's length (in place, before the sweep)
             self.cache = self.engine.set_positions(self.cache, pos_fix,
                                                    ctx_tokens)
 
-    def _advance_beam(self, req: ServingRequest, logits_np):
+    def _advance_beam(self, req: ServingRequest, logits_np, m, tok_ts):
         """One joint beam step after the sweep (caller holds ``_lock``):
         rank score + logprob over every (live beam, token) pair with
         numpy's stable sort, keep the top ``len(slots)``, and re-point
@@ -1137,6 +1590,10 @@ class ContinuousBatchingScheduler:
         order = np.argsort(-cand, axis=None, kind="stable")[:ka]
         parents = (order // vocab).astype(int)
         toks = (order % vocab).astype(int)
+        if req.trace is not None:
+            t_ov = time.perf_counter()
+            req.trace.event("token", ts=tok_ts, i=beam.progress())
+            self._trace_cost(t_ov)
         written = req.prompt.size + len(beam.tokens[0])
         # page lists taken BEFORE any release: a clone increfs its
         # parent's pages from this list
@@ -1188,13 +1645,15 @@ class ContinuousBatchingScheduler:
         beam.slots, beam.tokens, beam.scores = \
             alive_slots, alive_tokens, alive_scores
         if not alive_slots:
-            self._finish_beam(req)
+            self._finish_beam(req, m)
 
     # -------------------------------------------------- typed finishes
-    def _finish_prefill_only(self, slot: int, req: ServingRequest):
+    def _finish_prefill_only(self, slot: int, req: ServingRequest, m):
         """SCORE and EMBED retire at their final prefill chunk and never
         take decode-sweep time. The completion instant is also the
-        first-token instant (the prefill is the product)."""
+        first-token instant (the prefill is the product), and the
+        per-kind token counter books the prompt."""
+        m["prefills"].inc()
         now = time.perf_counter()
         with self._lock:
             self.stats["prefills"] += 1
@@ -1202,6 +1661,14 @@ class ContinuousBatchingScheduler:
                 return          # preempted between chunk and finish
             if req.first_token_ts is None:
                 req.first_token_ts = now
+                m["ttft"].observe(now - req.submitted_ts)
+            if req.trace is not None:
+                t_ov = time.perf_counter()
+                req.trace.event("prefill", ts=now, slot=slot,
+                                tokens=int(req.prompt.size),
+                                time_s=req.prefill_s, chunks=req.chunks)
+                req.trace.event("token", ts=now, i=0)
+                self._trace_cost(t_ov)
             self.slots[slot] = None
             released = self._release_pages(slot)
             n_tok = int(req.prompt.size)
@@ -1217,9 +1684,11 @@ class ContinuousBatchingScheduler:
                 result = EmbedResult(
                     embedding=np.asarray(emb, np.float32),
                     pooling=req.pooling, prompt_tokens=n_tok)
-            self._finish_workload(req, result, released, n_tok)
+            m["wl_tokens"].inc(n_tok, kind=req.kind.value)
+            self._finish_workload(req, result, "complete", m, released,
+                                  n_tok)
 
-    def _finish_beam(self, req: ServingRequest):
+    def _finish_beam(self, req: ServingRequest, m):
         """All hypotheses done (caller holds ``_lock``; lanes and pages
         were released as each finished): resolve the future with the
         :class:`BeamResult`, best first."""
@@ -1235,32 +1704,52 @@ class ContinuousBatchingScheduler:
                             beam_width=req.beam_width,
                             finish_reason=reason)
         resident = req.prompt.size + (seqs[0].size if seqs else 0)
-        self._finish_workload(req, result, req.released_pages, resident)
+        self._finish_workload(req, result, reason, m, req.released_pages,
+                              resident)
 
-    def _finish_workload(self, req: ServingRequest, result,
+    def _finish_workload(self, req: ServingRequest, result, reason, m,
                          mapped_pages: int, resident: int):
         """Completion tail of the typed results (SCORE, EMBED, BEAM):
-        timings, residency accounting and the future."""
+        timings, residency accounting, the trace's close-out and the
+        future — ``_finish``'s discipline with the result swapped."""
         now = time.perf_counter()
         self.stats["completions"] += 1
+        m["completions"].inc(reason=reason)
+        m["wl_completions"].inc(kind=req.kind.value)
+        m["latency"].observe(now - req.submitted_ts)
         result.latency_s = now - req.submitted_ts
         result.ttft_s = (None if req.first_token_ts is None
                          else req.first_token_ts - req.submitted_ts)
         result.prefill_s = req.prefill_s
-        self._note_final_residency(resident, mapped_pages)
+        t_ov = time.perf_counter()
+        ratio = self._note_final_residency(resident, mapped_pages, m)
+        carved = self._close_trace(
+            req, "finish", m, reason=reason,
+            resident_tokens=min(int(resident), self.engine.max_len),
+            residency_ratio=round(ratio, 6))
+        self._trace_cost(t_ov, carved)
         try:
             req.future.set_result(result)
         except InvalidStateError:
             pass   # the caller gave up on an in-flight request
 
-    def _finish(self, req: ServingRequest, last_tok: int,
+    def _finish(self, req: ServingRequest, last_tok: int, m,
                 mapped_pages: int = 0):
         reason = "eos" if (req.eos_id is not None
                            and last_tok == req.eos_id) else "length"
         now = time.perf_counter()
         self.stats["completions"] += 1
-        self._note_final_residency(req.prompt.size + len(req.generated),
-                                   mapped_pages)
+        m["completions"].inc(reason=reason)
+        m["wl_completions"].inc(kind=req.kind.value)
+        m["latency"].observe(now - req.submitted_ts)
+        t_ov = time.perf_counter()
+        resident = req.prompt.size + len(req.generated)
+        ratio = self._note_final_residency(resident, mapped_pages, m)
+        carved = self._close_trace(
+            req, "finish", m, reason=reason,
+            resident_tokens=min(int(resident), self.engine.max_len),
+            residency_ratio=round(ratio, 6))
+        self._trace_cost(t_ov, carved)
         try:
             req.future.set_result(GenerationResult(
                 tokens=np.asarray(req.generated, np.int32),
@@ -1273,34 +1762,89 @@ class ContinuousBatchingScheduler:
             pass   # the caller gave up on an in-flight request
 
     # ------------------------------------------------ KV accounting
-    def _note_final_residency(self, resident: int, mapped_pages: int):
+    def _note_final_residency(self, resident: int, mapped_pages: int,
+                              m) -> float:
         """A finished request's final residency: how much of what it
         reserved it used — the max_len slot under dense slotting, its
-        mapped pages under paging."""
+        mapped pages under paging. Returns the ratio."""
         resident = min(int(resident), self.engine.max_len)
         if self.paged:
             cap = max(1, mapped_pages) * self._pages.page_len
             ratio = min(1.0, resident / cap)
         else:
             ratio = resident / self.engine.max_len
+        m["kv_final"].observe(ratio)
         self._final_res_sum += ratio
         self._final_res_n += 1
+        return ratio
 
-    def _record_snapshot(self):
-        """Residency accounting of one working step (under ``_lock``, the
-        lock ``kv_report`` and ``reset_kv_window`` take). With the prefix
-        cache a shared page counts ONCE: allocated = pool pages with a
-        holder (slots or cache), resident = the per-page fill census,
-        refreshed here for the active slots."""
+    def _close_trace(self, req: ServingRequest, kind: str, m,
+                     **attrs) -> float:
+        """Terminal trace bookkeeping for one request: the terminal
+        event, its ITL samples into the histogram, the black-box record,
+        SLO accounting and the span tree. Returns the seconds booked to
+        the plane's ``slo`` and ``spans`` shares."""
+        tr = req.trace
+        if tr is None:
+            return 0.0
+        tr.event(kind, **attrs)
+        summary = tr.summary()    # computed once: histogram + SLO share
+        m["itl"].observe_many(summary["itl_s"])
+        self.flight_recorder.record_request(tr)
+        carved = 0.0
+        if self.slo is not None:
+            t0 = time.perf_counter()
+            self.slo.observe_summary(summary)
+            dt = time.perf_counter() - t0
+            self._plane_s["slo"] += dt
+            carved += dt
+        if self.trace_spans:
+            t0 = time.perf_counter()
+            tr.assemble_spans()
+            dt = time.perf_counter() - t0
+            self._plane_s["spans"] += dt
+            carved += dt
+        return carved
+
+    def _record_snapshot(self, m):
+        """One flight-recorder snapshot of a working step (under
+        ``_step_lock``), carrying the KV residency accounting, so that
+        the flight recorder is also the memory timeline. The accumulators
+        update under ``_lock`` (the lock ``kv_report`` and
+        ``reset_kv_window`` take). One pass over the slots gives the ids,
+        the active count, the per-kind census (a beam group's lanes count
+        its request once) and the resident tokens. With the prefix cache
+        a shared page counts ONCE: allocated = pool pages with a holder
+        (slots or cache), resident = the per-page fill census, refreshed
+        here for the active slots."""
         with self._lock:
+            queued_ids = [r.id for r in self._queue]
             max_len = self.engine.max_len
+            slot_ids: list = []
+            kinds: dict = {}
+            seen_ids: set = set()
             resident_tokens = 0
             n_active = 0
             for r in self.slots:
                 if r is None:
+                    slot_ids.append(None)
                     continue
+                rid = r.id
+                slot_ids.append(rid)
                 n_active += 1
-                t = self._slot_tokens(r)
+                if rid not in seen_ids:
+                    seen_ids.add(rid)
+                    # the member's plain value: Enum's .value and hash
+                    # run Python code, too slow for every slot of a step
+                    k = r.kind._value_
+                    kinds[k] = kinds.get(k, 0) + 1
+                # _slot_tokens, inlined: this runs every step
+                if r.pending is not None:
+                    t = r.done_tokens
+                elif r.beam is not None:
+                    t = r.prompt.size + r.beam.progress()
+                else:
+                    t = r.prompt.size + len(r.generated)
                 resident_tokens += t if t < max_len else max_len
             resident = resident_tokens * self._kv_token_bytes
             if n_active > self._peak_active:
@@ -1312,37 +1856,132 @@ class ContinuousBatchingScheduler:
                             i, self._slot_tokens(r)
                             - (0 if r.pending is not None else 1))
                 alloc = self._pages.used_pages * self._kv_page_bytes
+                mapped = self._pages.mapped_pages
                 resident = min(self._pages.resident_tokens
                                * self._kv_token_bytes, alloc)
             elif self.paged:
                 # a just-sampled token counts resident one sweep before
                 # its page is mapped: clamp
-                alloc = self._pages.mapped_pages * self._kv_page_bytes
+                mapped = self._pages.mapped_pages
+                alloc = mapped * self._kv_page_bytes
                 resident = min(resident, alloc)
             else:
                 alloc = self._kv_allocated
+                mapped = None
+            waste = (1.0 - resident / alloc) if alloc else 0.0
             self._kv_last_resident = resident
             self._kv_last_alloc = alloc
             self._kv_resident_sum += resident
             self._kv_alloc_sum += alloc
             self._kv_samples += 1
+        ch = self._ch
+        if alloc != self._kv_pub_alloc:
+            # the dense pool's allocation is static: written once
+            self._kv_pub_alloc = alloc
+            ch["kv_alloc"].set(float(alloc))
+        ch["kv_res"].set(float(resident))
+        ch["kv_waste"].set(waste)
+        if kinds != self._kinds_last:
+            self._kinds_last = kinds
+            for kv in workloads.ALL_KINDS:
+                # an idle kind reads 0, not a frozen last-busy value; only
+                # a CHANGED count pays a gauge write
+                n_kind = kinds.get(kv, 0)
+                if self._kind_census_pub.get(kv) != n_kind:
+                    self._kind_census_pub[kv] = n_kind
+                    self._ch_active[kv].set(float(n_kind))
+        self._steps += 1
+        paged_fields = {} if not self.paged else {
+            "kv_mapped_pages": mapped,
+            "kv_page_len": self._pages.page_len,
+            "kv_pool_bytes": self._kv_allocated,
+        }
+        if self._prefix is not None:
+            # the sharing census on every snapshot
+            shared = self._pages.shared_pages
+            cached = self._prefix.cached_pages
+            paged_fields.update(
+                kv_used_pages=self._pages.used_pages,
+                kv_shared_pages=shared,
+                kv_cached_pages=cached,
+                kv_cow_copies_total=self._prefix.cow_copies,
+                kv_prefix_hits_total=self._prefix.hits,
+                kv_prefix_hit_tokens_total=self._prefix.hit_tokens,
+            )
+            ch["kv_shared"].set(float(shared))
+            ch["kv_cached"].set(float(cached))
+        self.flight_recorder.record_snapshot(
+            step=self._steps, slots=slot_ids, queue=queued_ids,
+            queue_depth=len(queued_ids),
+            request_kinds=kinds,
+            occupancy=n_active / self.n_slots,
+            kv_allocated_bytes=alloc,
+            kv_resident_bytes=resident,
+            kv_token_bytes=self._kv_token_bytes,
+            kv_waste_ratio=round(waste, 6),
+            **paged_fields)
 
     def _record_idle(self):
-        """An idle step: a paged pool maps nothing, except what the prefix
-        cache still holds (real pool bytes until evicted)."""
-        with self._lock:
-            if self.paged and self._prefix is not None:
+        """An idle step: the occupancy and throughput gauges drop to 0
+        (not frozen at their last busy value), and residency drains — a
+        dense idle pool is all waste, a paged one maps nothing except
+        what the prefix cache still holds (real pool bytes until
+        evicted)."""
+        ch = self._ch
+        ch["occupancy"].set(0.0)
+        ch["tokens_per_s"].set(0.0)
+        if self.paged and self._prefix is not None:
+            with self._lock:
                 alloc = self._pages.used_pages * self._kv_page_bytes
+                resident = min(alloc, self._pages.resident_tokens
+                               * self._kv_token_bytes)
+                self._kv_last_resident = resident
                 self._kv_last_alloc = alloc
-                self._kv_last_resident = min(
-                    alloc, self._pages.resident_tokens
-                    * self._kv_token_bytes)
-            else:
-                self._kv_last_resident = 0
-                if self.paged:
-                    self._kv_last_alloc = 0
+                self._kv_pub_alloc = alloc
+            ch["kv_alloc"].set(float(alloc))
+            ch["kv_res"].set(float(resident))
+            ch["kv_waste"].set((1.0 - resident / alloc) if alloc else 0.0)
+            ch["kv_cached"].set(float(self._prefix.cached_pages))
+            ch["kv_shared"].set(float(self._pages.shared_pages))
+            return
+        ch["kv_res"].set(0.0)
+        if self.paged:
+            ch["kv_alloc"].set(0.0)
+            ch["kv_waste"].set(0.0)
+        else:
+            ch["kv_waste"].set(1.0)
+        with self._lock:
+            self._kv_last_resident = 0
+            if self.paged:
+                self._kv_last_alloc = 0
+                self._kv_pub_alloc = 0
+
+    def _debug_extra(self):
+        """Live state merged into ``flight_recorder.debug_state()``."""
+        with self._lock:
+            state = {
+                "n_slots": self.n_slots,
+                "occupancy": sum(r is not None for r in self.slots)
+                / self.n_slots,
+                "queue_depth": len(self._queue),
+                "slots": [None if r is None else r.id
+                          for r in self.slots],
+                "steps": self._steps,
+                "trace_overhead_seconds": round(self._trace_overhead, 6),
+            }
+        state["kv"] = self.kv_report()
+        state["compiles"] = self.engine.compile_report()
+        if self.slo is not None:
+            state["slo"] = self.slo.report()
+        return state
 
     # ---------------------------------------------------- inspection
+    @property
+    def trace_overhead_seconds(self) -> float:
+        """Cumulative host cost of the plane's bookkeeping (trace events,
+        snapshots, trace close-out, sampler observations), self-timed."""
+        return self._trace_overhead
+
     def queue_depth(self) -> int:
         with self._lock:
             return len(self._queue)
@@ -1423,6 +2062,39 @@ class ContinuousBatchingScheduler:
             return self._pages.check(
                 self._prefix.holds() if self._prefix is not None
                 else None)
+
+
+class _DispatchSpan:
+    """A ``serving.*`` span around one dispatch (the reference's
+    ``with span(...)``; nothing nests inside one, so it never becomes the
+    current span). Entering costs two clock reads; the span's ids and
+    record are made by :meth:`build` — on the decode sweep while the card
+    computes it — or at exit, and it is recorded at exit. Its own cost is
+    self-timed into the plane's ``spans`` share."""
+    __slots__ = ("plane", "name", "attrs", "start_ts", "t0", "sp")
+
+    def __init__(self, plane, name, attrs):
+        self.plane, self.name, self.attrs, self.sp = plane, name, attrs, None
+
+    def __enter__(self):
+        self.start_ts = time.time()
+        self.t0 = time.perf_counter()
+        return self
+
+    def build(self):
+        if self.sp is None:
+            t = time.perf_counter()
+            self.sp = get_tracer().new_span(self.name, self.attrs)
+            self.plane["spans"] += time.perf_counter() - t
+
+    def __exit__(self, *exc):
+        t_end = time.perf_counter()
+        self.build()
+        sp = self.sp
+        sp.start_ts, sp.time_s = self.start_ts, t_end - self.t0
+        get_tracer().add_span(sp)
+        self.plane["spans"] += time.perf_counter() - t_end
+        return False
 
 
 def _host(t: torch.Tensor) -> np.ndarray:

@@ -1642,3 +1642,144 @@ def test_replayed_output_equals_eager_and_stays_put(gen):
         for t, p in zip(y.argmax(-1).tolist(), o.argmax(-1).tolist()):
             conf[t, p] += 1
     assert (ev.confusion == conf.numpy()).all()
+
+
+# ------------------------------------------------- observability plane
+
+def test_span_sync_waits_on_its_streams_event(gen):
+    """A span's ``sync`` on CUDA tensors waits for their work (its end
+    timestamp covers the device), through an event on the tensor's
+    stream — a side stream's kernel is covered, not only the default
+    stream's."""
+    from deeplearning4j_tpu_torch.obs import Tracer
+    tracer = Tracer()
+    a = torch.randn((2048, 2048), generator=gen, device="cuda")
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        with tracer.span("side", sync={"out": [a @ a]}) as sp:
+            out = a @ a
+            for _ in range(8):
+                out = out @ a / 64
+            sp.set_sync(out)
+        # the span ended after the stream's work: nothing left to wait on
+        assert side.query()
+    assert sp.synced and sp.time_s > 0
+
+
+def test_span_never_waits_during_capture(gen):
+    """Inside a graph capture the span records, but never waits (a wait
+    would break the capture): it stays unsynced, and the graph replays."""
+    from deeplearning4j_tpu_torch.obs import Tracer
+    tracer = Tracer()
+    x = torch.randn((64, 64), generator=gen, device="cuda")
+    g = torch.cuda.CUDAGraph()
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        y = x @ x                        # warm the kernel off the capture
+    torch.cuda.current_stream().wait_stream(s)
+    with torch.cuda.graph(g):
+        with tracer.span("captured") as sp:
+            y = x @ x
+            sp.set_sync(y)
+    g.replay()
+    torch.cuda.synchronize()
+    assert not sp.synced
+    assert torch.equal(y, x @ x)
+
+
+def test_sampler_observation_replayed_equals_eager(gen):
+    """The sampler observation of a replayed decode sweep equals the one
+    of the same sweep run eagerly on a cloned cache, and both equal the
+    reference's host formula (numpy, f32) on the same logits."""
+    import numpy as np
+
+    import deeplearning4j_tpu_torch as tpkg
+    from deeplearning4j_tpu_torch.obs import MetricsRegistry
+    from deeplearning4j_tpu_torch.serving import (
+        ContinuousBatchingScheduler as Sched, PageTable)
+    eng = _serving_engine(torch.bfloat16)
+    cache = eng.init_paged_cache(4, 32, 8)
+    table = PageTable.for_cache(cache)
+    rng = np.random.default_rng(0)
+    for s in range(4):
+        p = rng.integers(0, 64, 20 + 3 * s).astype(np.int32)
+        table.map(s, len(p) + 3)
+        table.sync(cache)
+        for c0 in range(0, len(p), eng.chunk_len):
+            eng.prefill_chunk(cache, p[c0:c0 + eng.chunk_len], s, start=c0)
+    toks = rng.integers(0, 64, 4).astype(np.int32)
+    for _ in range(2):                    # eager, then capture: a graph
+        eng.decode_step(cache, toks)      # is a signature of its cache
+    twin = _twin(cache)
+    logits, _ = eng.decode_step(cache, toks)
+    assert eng.sentinels["decode_paged_kernel"].last == "replay"
+    with tpkg.disable_graphs():
+        eager, _ = eng.decode_step(twin, toks)
+    torch.cuda.synchronize()
+    assert torch.equal(logits, eager)
+
+    def observe(lg, topks):
+        reg = MetricsRegistry()
+        m = {"sample_entropy": reg.histogram("dl4j_e", ""),
+             "topk_mass": reg.histogram("dl4j_m", "")}
+        Sched._sample_obs(m, lg, topks)
+        return m["sample_entropy"].sum(), m["topk_mass"].sum()
+    topks = [0, 5, 2, 40]
+    rep, eag = observe(logits, topks), observe(eager, topks)
+    assert rep == eag
+    host = logits.float().cpu().numpy()
+    p = host - host.max(-1, keepdims=True)
+    p = np.exp(p)
+    p /= p.sum(-1, keepdims=True)
+    ent = float((-(p * np.log(p + 1e-30)).sum(-1)).mean())
+    mass = np.mean([np.partition(r, r.size - k)[r.size - k:].sum()
+                    for r, k in zip(p, topks) if k > 0])
+    assert abs(rep[0] - ent) <= 1e-4 and abs(rep[1] - mass) <= 1e-4
+
+
+def test_device_memory_stats_match_the_allocator(gen):
+    from deeplearning4j_tpu_torch.obs import device_memory_stats
+    keep = torch.empty((1 << 20,), device="cuda")
+    torch.cuda.synchronize()
+    got = device_memory_stats()
+    stats = torch.cuda.memory_stats()
+    assert got == {
+        "bytes_in_use": float(stats["allocated_bytes.all.current"]),
+        "peak_bytes_in_use": float(stats["allocated_bytes.all.peak"]),
+        "bytes_limit": float(torch.cuda.mem_get_info()[1])}
+    assert got["bytes_in_use"] == torch.cuda.memory_allocated() > 0
+    assert device_memory_stats("cpu") is None
+    del keep
+
+
+def test_sentinels_count_captures_as_compiles(gen):
+    """On the card a compile is a graph capture: a signature's eager call
+    compiles nothing, its capture counts one (into the registry and the
+    compile spans), its replays none; after ``mark_warm`` a new signature
+    warns at its capture, not at its eager call."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.obs import get_registry
+    eng = _serving_engine(torch.float32)
+    s = eng.sentinels["decode_step"]
+    reg = get_registry()
+    total = reg.get("dl4j_compile_total")
+    before = total.value(component="decode_step") if total else 0.0
+    cache = eng.init_cache(2)
+    toks = np.zeros((2,), np.int32)
+    kinds = []
+    for _ in range(4):
+        eng.decode_step(cache, toks)
+        kinds.append(s.last)
+    assert kinds == ["eager", "capture", "replay", "replay"]
+    assert s.compiles == 1
+    assert get_registry().get("dl4j_compile_total").value(
+        component="decode_step") == before + 1
+    s.mark_warm()
+    other = eng.init_cache(2)          # a new cache: a new signature
+    eng.decode_step(other, toks)       # eager: no compile yet
+    assert s.retraces_after_warm == 0
+    with pytest.warns(RuntimeWarning, match="retrace"):
+        eng.decode_step(other, toks)   # its capture
+    assert s.retraces_after_warm == 1 and s.overhead_seconds > 0

@@ -67,7 +67,9 @@ def test_port_has_modules_to_check():
             "nn/listeners.py", "eval/classification.py",
             "eval/regression.py", "eval/roc.py", "eval/calibration.py",
             "data/normalizers.py", "serde/model_serializer.py",
-            "serving/workloads.py"} <= names
+            "serving/workloads.py", "obs/registry.py", "obs/spans.py",
+            "obs/reqtrace.py", "obs/slo.py", "obs/memory.py",
+            "obs/fidelity.py", "obs/compiles.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -88,6 +90,9 @@ def test_importing_the_port_loads_no_jax():
             "import deeplearning4j_tpu_torch.eval\n"
             "import deeplearning4j_tpu_torch.serde\n"
             "import deeplearning4j_tpu_torch.nn.listeners\n"
+            "import deeplearning4j_tpu_torch.obs\n"
+            "import deeplearning4j_tpu_torch.obs.fidelity\n"
+            "import deeplearning4j_tpu_torch.obs.memory\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
             "print(bad)\n"

@@ -9,8 +9,9 @@ JAX package, on the CPU.
   before ``on_epoch_end``, and an exception mid-epoch still delivers the
   finished step without masking the error;
 - each listener's behaviour (score printing, checkpoints with retention,
-  evaluation, the NaN watchdog); the four that need the observability
-  plane raise and name it;
+  evaluation, the NaN watchdog); ``MetricsListener`` against the
+  reference's (counts, loss, census); the three that need unported parts
+  of the observability plane raise and name it;
 - ``output()`` runs its compiled step (a direct call on the CPU).
 """
 
@@ -186,11 +187,56 @@ def test_evaluative_listener_and_watchdog():
         tls.NanScoreWatchdog().iteration_done(tnet, 1, 0, float("inf"))
 
 
-@pytest.mark.parametrize("name", ["MetricsListener", "NumericsListener",
-                                  "ProfilingListener", "StatsListener"])
+@pytest.mark.parametrize("name", ["NumericsListener", "ProfilingListener",
+                                  "StatsListener"])
 def test_obs_listeners_raise_naming_what_is_missing(name):
     with pytest.raises(NotImplementedError, match="observability plane"):
         getattr(tls, name)()
+
+
+@pytest.mark.parametrize("kind", ["mln", "cg"])
+def test_metrics_listener_matches_the_reference(kind):
+    """MetricsListener on both nets, against the JAX net's on the same
+    data: the same counts (iterations, examples, epochs, step intervals),
+    the last loss within 1e-5, the census's params and states bytes equal
+    (the port's optimizer bytes: its own state's), and its self-timing
+    moving; the fit stays deferred."""
+    from deeplearning4j_tpu.obs import MetricsRegistry as JReg
+    from deeplearning4j_tpu.obs import tree_bytes as jtree_bytes
+    from deeplearning4j_tpu_torch.obs import MetricsRegistry, tree_bytes
+    jnet, tnet = _pair(kind)
+    data = _data()
+    jreg, treg = JReg(), MetricsRegistry()
+    jnet.set_listeners(jls.MetricsListener(registry=jreg,
+                                           memory_frequency=1))
+    ml = tls.MetricsListener(registry=treg, memory_frequency=1)
+    log = _Log()
+    tnet.set_listeners(ml, log)
+    jnet.fit([JDataSet(x, y) for x, y in data], epochs=2)
+    tnet.fit([DataSet(x, y) for x, y in data], epochs=2)
+    # deferred: step 1 reported once step 2 is queued
+    assert ml.deferred_score_ok and log.calls[0][1] == 1 \
+        and log.calls[0][4] == 2
+    for name in ("dl4j_train_iterations_total", "dl4j_train_examples_total",
+                 "dl4j_train_epochs_total"):
+        assert treg.get(name).value() == jreg.get(name).value() > 0, name
+    assert treg.get("dl4j_train_step_seconds").count() == \
+        jreg.get("dl4j_train_step_seconds").count() == 6
+    assert abs(treg.get("dl4j_train_loss").value()
+               - jreg.get("dl4j_train_loss").value()) < ATOL
+    tg, jg = treg.get("dl4j_mem_component_bytes"), \
+        jreg.get("dl4j_mem_component_bytes")
+    for comp in ("params", "states"):
+        assert tg.value(component=comp, replica="0") == \
+            jg.value(component=comp, replica="0")
+    assert tg.value(component="params", replica="0") == \
+        tree_bytes(tnet.params) == jtree_bytes(jnet.params) > 0
+    assert tg.value(component="optimizer", replica="0") == \
+        tree_bytes(tnet._opt_state) > 0
+    assert ml.overhead_seconds > 0
+    # the CPU has no allocator view: nothing under dl4j_device_memory_bytes
+    assert treg.get("dl4j_device_memory_bytes").value(
+        stat="bytes_in_use") == 0
 
 
 def test_output_runs_the_compiled_step():

@@ -474,8 +474,7 @@ def test_unported_knobs_raise(model, engine):
         GenerationEngine(tcfg, tp, device="cpu", quant_kv="on")
     with pytest.raises(NotImplementedError, match="int8"):
         GenerationEngine(tcfg, tp, device="cpu", quant_weights="int8")
-    for kw in ({"quant_kv": "int8"}, {"slo": object()},
-               {"trace_spans": False}, {"replica": "1"}):
+    for kw in ({"quant_kv": "int8"}, {"key": object()}):
         with pytest.raises(NotImplementedError, match="not ported"):
             ContinuousBatchingScheduler(engine, n_slots=1, page_len=4,
                                         **kw)

@@ -2,8 +2,9 @@
 ``deeplearning4j_tpu_torch.serving.workloads`` and the scheduler's
 ``submit(kind=...)``) against the JAX package's, on the CPU.
 
-The tests of ``tests/test_workloads.py`` that need neither the fleet, nor
-int8 KV, nor the metrics registry, ported to the port on the same tiny f32
+The tests of ``tests/test_workloads.py`` that need neither the fleet nor
+int8 KV (the metrics-and-census test runs on both schedulers), ported to
+the port on the same tiny f32
 model (vocab 61, d_model 32, 2 heads, 2 layers, max_seq 32,
 ``prefill_chunk=8``, page_len 4), weights drawn by the JAX package and
 shared through ``params_from_numpy``. The same requests go through the
@@ -405,3 +406,35 @@ def test_request_kind_coercion():
         vocab_mask([], VOCAB)
     np.testing.assert_array_equal(vocab_mask([1, 4], VOCAB),
                                   jworkloads.vocab_mask([1, 4], VOCAB))
+
+
+@pytest.mark.parametrize("which", ["port", "reference"])
+def test_workload_metrics_and_kind_census(engine, jengine, which):
+    """The reference's ``test_workload_metrics_and_kind_census`` on both
+    schedulers: a BEAM and a SCORE request add one each to
+    ``dl4j_workload_requests_total{kind}``, and the snapshot after the
+    beam's first step counts it once in ``request_kinds`` — the port's
+    registry and recorder read as the reference's do."""
+    if which == "port":
+        from deeplearning4j_tpu_torch.obs import get_registry
+        eng, cls, kinds = engine, ContinuousBatchingScheduler, \
+            workloads.ALL_KINDS
+    else:
+        from deeplearning4j_tpu.obs import get_registry
+        eng, cls, kinds = jengine, JSched, jworkloads.ALL_KINDS
+    reg = get_registry()
+    base = reg.counter("dl4j_workload_requests_total",
+                       "Typed serving requests, by kind",
+                       labelnames=("kind",))
+    before = {k: base.value(kind=k) for k in kinds}
+    sched = paged(eng, cls)
+    toks = _toks(12)
+    fut = sched.submit(toks, max_new_tokens=6, kind="beam", beam_width=2)
+    sched.step()
+    census = [s for s in sched.flight_recorder.snapshots()
+              if s.get("request_kinds")]
+    run(sched, ((toks,), dict(kind="score")))
+    fut.result(timeout=30)
+    assert base.value(kind="beam") == before["beam"] + 1
+    assert base.value(kind="score") == before["score"] + 1
+    assert census and census[-1]["request_kinds"].get("beam") == 1
