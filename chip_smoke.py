@@ -17,6 +17,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --k3-times ROOT  # only time the K3 reductions of
                                            # the port checked out at ROOT
     python3 chip_smoke.py --obs-only       # build + phase 14 only
+    python3 chip_smoke.py --quant-only     # build + phase 15 only
     python3 chip_smoke.py --sweep-times ROOT  # only time phase 4's steady
                                              # sweeps of the port at ROOT
                                              # (with its observability
@@ -277,6 +278,29 @@ Phases, each fatal on failure:
    under 2% of the wave's wall, best of 5 waves interleaved full /
    minimum. Printed: the cost split (registry, trace, spans, sampler,
    SLO, sentinels), wave walls and steady sweep walls full vs minimum;
+15. the quantization and speculation plane on phase 4's 120M engine at
+   its paged geometry (8 slots, page_len 16, 1024 pages), in a fresh
+   temporary autotune store: (a) the paged promotion race
+   (``decide(mode="race")``): kl_max <= 1e-3 and identical greedy tokens
+   of K2 against the gather path, not ``fallback_fidelity``, K2 launched,
+   both arms' times and the verdict; a second engine's ``decide`` serves
+   the record with no new race; (b) int8 KV: the scheduler with
+   ``quant_kv="on"`` beside a bf16 one on the same engine, each warmed on
+   other prompts of the same lengths, ``mark_warm()``, a replayed wave of
+   8 requests of 40-420 tokens, 64 new, each: 0 retraces, the page
+   invariants, K2 launched 0 times on the int8 wave and on the bf16 one;
+   on a fresh engine run eagerly, the int8 rows and scales a prefill and
+   4 decode steps wrote equal to ``quantize_rows`` of the bf16 rows the
+   engine wrote, code for code, every layer; ``race_kv`` (its bf16 arm
+   K2): verdict, kl_max, both arms' times, bytes a token (8704 vs
+   16384); (c) int8 weights: ``race_weights`` (verdict, kl_max, both
+   arms' times), then a wave of the same shape with ``quant_weights=
+   "on"``, 0 retraces; (d) ``race_spec`` with ``EngineDraft`` of a 2-layer
+   draft (``draft_params``) and ``NgramDraft``, k 4, 64 tokens:
+   accepted tokens a step, speedup, identity, verdicts; then the same
+   race of the LM in f32, where every arm must be token-identical to
+   ``plain_generate``; (e) ``sweep_serving_knobs`` over short candidate
+   lists, read back by ``recommended_serving_knobs``;
 5. a ``kernels`` JSON line (every hand-written kernel: its route,
    launches on each main path, largest error, times and bound at its
    path shape), then the result line (printed last).
@@ -4488,6 +4512,360 @@ def obs_plane(fa, pa, smi):
     return {"obs_paged": rep["launches"], "obs_dense": rep["dense_launches"]}
 
 
+# --------------------------------------------------------------- phase 15
+
+# the int8 waves: 8 GENERATE prompts of 40-420 tokens (chunk buckets 32
+# and 128), 64 new tokens each, on phase 4's paged geometry
+QUANT_LENS = (40, 90, 130, 180, 250, 300, 370, 420)
+QUANT_NEW = 64
+QUANT_PAGES = 8 * 128                    # phase 4's paged pool (max_seq 2048)
+SPEC_NEW = 64
+SPEC_K = 4
+SPEC_PROMPT = 96
+
+
+def quant_prompts(vocab, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n).astype(np.int32) for n in QUANT_LENS]
+
+
+def promotions(kernel):
+    """The races counted for ``kernel`` in the process registry."""
+    from deeplearning4j_tpu_torch.obs import get_registry
+    c = get_registry().get("dl4j_autotune_promotions_total")
+    return 0 if c is None else sum(
+        c.value(kernel=kernel, verdict=v)
+        for v in ("promoted", "fallback_slower", "fallback_fidelity"))
+
+
+def quant_race_paged(pa, cfg, params):
+    """(a) The paged promotion race at phase 4's geometry, then a second
+    engine's ``decide`` of the same geometry."""
+    from deeplearning4j_tpu_torch.kernels import autotune
+    from deeplearning4j_tpu_torch.serving import GenerationEngine
+    engine = GenerationEngine(cfg, params)
+    cache = engine.init_paged_cache(8, QUANT_PAGES, 16)
+    races0 = promotions("paged_decode")
+    pa.reset_launches()
+    t0 = time.perf_counter()
+    choice = pa.decide(engine, cache, mode="race")
+    race_s = time.perf_counter() - t0
+    k2 = pa.LAUNCHES
+    rec = autotune.lookup(pa.bucket_key(cfg, cache), sha=pa.kernel_sha())
+    races1 = promotions("paged_decode")
+    del engine
+    again = pa.decide(GenerationEngine(cfg, params), cache, mode="race")
+    out = {"choice": choice, "again": again, "race_s": race_s,
+           "k2_launches": k2, "races": races1 - races0,
+           "races_after_second": promotions("paged_decode") - races1,
+           "record": rec}
+    failed = []
+    meta = (rec or {}).get("meta") or {}
+    fid = meta.get("fidelity", {})
+    if rec is None or meta.get("verdict") == "fallback_fidelity":
+        failed.append(f"paged race verdict {meta.get('verdict')}")
+    if not fid.get("kl_max", 1.0) <= MAX_KL or \
+            fid.get("greedy_match_frac") != 1.0:
+        failed.append(f"paged race fidelity {fid}")
+    if k2 <= 0:
+        failed.append("the paged race launched no K2")
+    if out["races"] != 1 or out["races_after_second"] != 0 \
+            or again != choice:
+        failed.append(f"races {out['races']} then "
+                      f"{out['races_after_second']}, choices {choice} / "
+                      f"{again}")
+    return out, failed
+
+
+def check_int8_writes(cfg, params):
+    """(b) The int8 rows and scales an eager prefill (200 tokens, two
+    chunks) and 4 decode steps write into a fresh engine's int8 pool,
+    read back at their (page, offset), against ``quantize_rows`` of the
+    bf16 rows the engine quantized (recorded at the call), recomputed on
+    the card: equal code for code, every layer, k and v."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.serving import (GenerationEngine,
+                                                  PageTable, quant)
+    engine = GenerationEngine(cfg, params, quant_kv="on")
+    plen, n = 16, 200
+    cache = engine.init_paged_cache(1, 32, plen)
+    table = PageTable.for_cache(cache)
+    table.map(0, n + 4)
+    table.sync(cache)
+    prompt = np.random.default_rng(15).integers(
+        0, cfg.vocab_size, n).astype(np.int32)
+    seen, orig = [], quant.quantize_rows
+
+    def recording(rows):
+        q, sc = orig(rows)
+        seen.append((rows.clone(), q.clone(), sc.clone()))
+        return q, sc
+
+    positions = []
+    quant.quantize_rows = recording
+    try:
+        with disable_graphs():
+            for start in range(0, n, engine.chunk_len):
+                m = min(engine.chunk_len, n - start)
+                engine.prefill_chunk(cache, prompt[start:start + m], 0,
+                                     start)
+                positions.append(list(range(start, start + m)))
+            tok = [int(prompt[-1])]
+            for i in range(4):
+                engine.decode_step(cache, tok)
+                positions.append([n + i])
+    finally:
+        quant.quantize_rows = orig
+    _sync()
+    layers = cfg.n_layers
+    if len(seen) != 2 * layers * len(positions):
+        raise SystemExit(f"int8 writes: {len(seen)} quantizations, want "
+                         f"{2 * layers * len(positions)}")
+    codes = bad = 0
+    row = table.table[0]
+    for d, pos in enumerate(positions):
+        dev = cache["k"].device
+        pages = torch.tensor([int(row[p // plen]) for p in pos], device=dev)
+        offs = torch.tensor([p % plen for p in pos], device=dev)
+        for layer in range(layers):
+            for j, name in enumerate(("k", "v")):
+                rows, q, sc = seen[(d * layers + layer) * 2 + j]
+                q2, s2 = orig(rows)
+                m = len(pos)
+                got_q = cache[name][layer][pages, offs]
+                got_s = cache[name + "_scale"][layer][pages, offs]
+                ok = (torch.equal(q2, q) and torch.equal(s2, sc)
+                      and torch.equal(got_q, q2[:m])
+                      and torch.equal(got_s, s2[:m]))
+                codes += got_q.numel()
+                bad += 0 if ok else 1
+    return {"codes": codes, "bad_writes": bad,
+            "rows_dtype": str(seen[0][0].dtype)[6:]}
+
+
+def quant_waves(fa, pa, cfg, params):
+    """(b) int8 KV: one engine, the int8 scheduler and a bf16 one, each
+    warmed on other prompts of the same lengths, ``mark_warm()``, then a
+    counted replayed wave of each; ``race_kv`` first, on the same
+    engine."""
+    from deeplearning4j_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                                  GenerationEngine, kvcache,
+                                                  quant)
+    engine = GenerationEngine(cfg, params)
+    counts = StepLaunches({n: st._fn for n, st in engine.sentinels.items()},
+                          lambda: serving_counts(fa, pa))
+    pa.reset_launches()
+    race = quant.race_kv(engine, 8, QUANT_PAGES, 16)
+    race["k2_launches"] = pa.LAUNCHES
+    scheds = {mode: ContinuousBatchingScheduler(
+        engine, n_slots=8, page_len=16, quant_kv=mode)
+        for mode in ("on", "off")}
+    for seed in (151, 152):
+        for sched in scheds.values():
+            serve(sched, quant_prompts(cfg.vocab_size, seed), QUANT_NEW)
+    engine.mark_warm()
+    prompts = quant_prompts(cfg.vocab_size, 15)
+    out = {"race_kv": race}
+    for mode, sched in scheds.items():
+        _sync()
+        fa.reset_launches()
+        pa.reset_launches()
+        counts.reset()
+        res, tokens = serve(sched, prompts, QUANT_NEW)
+        out[mode] = {"wave": res, "launches": dict(counts.total),
+                     "dtype": sched.kv_report()["kv_dtype"],
+                     "token_bytes": kvcache.token_nbytes(sched.cache),
+                     "tokens": tokens}
+    out["compiles"] = compile_summary(engine)
+    del engine, scheds, counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def quant_weights_wave(fa, pa, cfg, params):
+    """(c) int8 weights: ``race_weights``, then the wave of (b) on a bf16
+    pool with ``quant_weights="on"``, warmed the same way."""
+    from deeplearning4j_tpu_torch.serving import (ContinuousBatchingScheduler,
+                                                  GenerationEngine, quant)
+    engine = GenerationEngine(cfg, params, quant_weights="on")
+    counts = StepLaunches({n: st._fn for n, st in engine.sentinels.items()},
+                          lambda: serving_counts(fa, pa))
+    race = quant.race_weights(engine)
+    sched = ContinuousBatchingScheduler(engine, n_slots=8, page_len=16)
+    for seed in (151, 152):
+        serve(sched, quant_prompts(cfg.vocab_size, seed), QUANT_NEW)
+    engine.mark_warm()
+    _sync()
+    fa.reset_launches()
+    pa.reset_launches()
+    counts.reset()
+    res, _ = serve(sched, quant_prompts(cfg.vocab_size, 15), QUANT_NEW)
+    out = {"race": race, "wave": res, "launches": dict(counts.total),
+           "weights": engine._decode_params(),
+           "compiles": compile_summary(engine)}
+    del engine, sched, counts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def spec_races(tfm, cfg, params):
+    """(d) ``race_spec`` of the bf16 LM and of the same LM in f32, each
+    with a 2-layer ``EngineDraft`` and an ``NgramDraft``."""
+    from deeplearning4j_tpu_torch.serving import (EngineDraft,
+                                                  GenerationEngine,
+                                                  NgramDraft, spec)
+    prompt = np.random.default_rng(16).integers(
+        0, cfg.vocab_size, SPEC_PROMPT).astype(np.int32)
+    out = {}
+    for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        c = dataclasses.replace(cfg, dtype=dt)
+        engine = GenerationEngine(c, params)
+        dcfg, dparams = tfm.draft_params(params, c, n_layers=2)
+        drafts = {"engine": EngineDraft(GenerationEngine(dcfg, dparams)),
+                  "ngram": NgramDraft(3)}
+        t0 = time.perf_counter()
+        res = spec.race_spec(engine, drafts, prompt, SPEC_NEW, k=SPEC_K)
+        res["host_s"] = time.perf_counter() - t0
+        out[tag] = res
+        del engine, drafts
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def knob_sweep(cfg, params):
+    """(e) The serving-knob sweep over short candidate lists, read
+    back."""
+    from deeplearning4j_tpu_torch.serving import GenerationEngine, tune
+    engine = GenerationEngine(cfg, params)
+    t0 = time.perf_counter()
+    knobs = tune.sweep_serving_knobs(engine, prompt_len=256,
+                                     page_lens=(16, 32),
+                                     prefill_chunks=(64, 128),
+                                     decode_slots=(4, 8))
+    host_s = time.perf_counter() - t0
+    recs = tune.recommended_serving_knobs(cfg)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return knobs, recs, host_s
+
+
+def quant_spec_plane(fa, pa, smi):
+    """Phase 15: the quantization and speculation plane on phase 4's 120M
+    engine (see the module docstring), in a fresh temporary autotune
+    store. Returns the counted waves' launch counts by path."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.kernels import autotune
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg, params = main_config(tfm)
+    saved = autotune._CACHE_PATH
+    failed = []
+    with tempfile.TemporaryDirectory() as tmp:
+        autotune._CACHE_PATH = Path(tmp) / "autotune.json"
+        autotune._memory_cache.clear()
+        try:
+            t0 = time.perf_counter()
+            paged, f = quant_race_paged(pa, cfg, params)
+            failed += f
+            t_a = time.perf_counter()
+            writes = check_int8_writes(cfg, params)
+            waves = quant_waves(fa, pa, cfg, params)
+            t_b = time.perf_counter()
+            wq = quant_weights_wave(fa, pa, cfg, params)
+            t_c = time.perf_counter()
+            races = spec_races(tfm, cfg, params)
+            t_d = time.perf_counter()
+            knobs, recs, sweep_s = knob_sweep(cfg, params)
+            t_e = time.perf_counter()
+        finally:
+            autotune._CACHE_PATH = saved
+            autotune._memory_cache.clear()
+    meta = paged["record"]["meta"]
+    log(f"quant (a) paged race ({smi}): verdict {meta['verdict']}, choice "
+        f"{paged['choice']}, gather {meta['gather_s'] * 1e3:.4f} ms vs K2 "
+        f"{meta['kernel_s'] * 1e3:.4f} ms a decode step (speedup "
+        f"{meta['speedup']}), fidelity {json.dumps(meta['fidelity'])}; K2 "
+        f"launches {paged['k2_launches']}; races {paged['races']}, then "
+        f"{paged['races_after_second']} for a second engine (its choice "
+        f"{paged['again']}); {paged['race_s']:.2f} s")
+    rk = waves["race_kv"]
+    log(f"quant (b) race_kv: verdict {rk['verdict']}, arms {rk['arms']}: "
+        f"bf16 {rk['bf16_s'] * 1e3:.4f} ms vs int8 {rk['int8_s'] * 1e3:.4f}"
+        f" ms a decode step (speedup {rk['speedup']}), kl_max "
+        f"{rk['fidelity']['kl_max']:.3e}, greedy "
+        f"{rk['fidelity']['greedy_match_frac']}, bytes a token "
+        f"{json.dumps(rk['bytes_per_token'])}; K2 launches "
+        f"{rk['k2_launches']}; int8 writes {json.dumps(writes)}")
+    for mode in ("on", "off"):
+        w = waves[mode]
+        log(f"quant (b) wave quant_kv={mode} ({w['dtype']}, "
+            f"{w['token_bytes']} B a token): {json.dumps(w['wave'])}; "
+            f"launches {json.dumps(w['launches'])}")
+    log(f"quant (b) compile report {json.dumps(waves['compiles'])}")
+    rw = wq["race"]
+    log(f"quant (c) race_weights: verdict {rw['verdict']}: bf16 "
+        f"{rw['bf16_s'] * 1e3:.4f} ms vs int8 {rw['int8_s'] * 1e3:.4f} ms "
+        f"a dense decode step (speedup {rw['speedup']}), kl_max "
+        f"{rw['fidelity']['kl_max']:.3e}; wave with int8 weights "
+        f"({wq['weights']}): {json.dumps(wq['wave'])}; launches "
+        f"{json.dumps(wq['launches'])}; compile report "
+        f"{json.dumps(wq['compiles'])}")
+    for tag, res in races.items():
+        log(f"quant (d) race_spec {tag}: choice {res['choice']}, plain "
+            f"{res['base_s']:.4f} s for {res['tokens']} tokens; " + "; ".join(
+                f"{name} {a['verdict']} {a['spec_s']:.4f} s (speedup "
+                f"{a['speedup']}, accepted a step {a['accepted_per_step']}"
+                f", identical {a['bit_identical']}, {json.dumps(a['stats'])})"
+                for name, a in res["arms"].items())
+            + f"; {res['host_s']:.1f} s")
+    log(f"quant (e) serving knobs {json.dumps(knobs)} in {sweep_s:.1f} s; "
+        f"records read back " + json.dumps(
+            {k: {"choice": r["choice"], "best_s": r["meta"]["best_s"],
+                 "measurements": r["meta"]["measurements"]}
+             for k, r in recs.items()}))
+    log(f"quant host seconds: (a) {t_a - t0:.1f}, (b) {t_b - t_a:.1f}, "
+        f"(c) {t_c - t_b:.1f}, (d) {t_d - t_c:.1f}, (e) {t_e - t_d:.1f}")
+    # the holds of (b)-(e)
+    if writes["bad_writes"] or writes["codes"] <= 0:
+        failed.append(f"int8 writes {writes}")
+    for name, comp in (("int8 KV", waves["compiles"]),
+                       ("int8 weights", wq["compiles"])):
+        retr = sum(c[2] for c in comp.values())
+        if retr:
+            failed.append(f"{name}: {retr} retraces after warm")
+    if waves["on"]["dtype"] != "int8" or waves["off"]["dtype"] == "int8":
+        failed.append("the pools' dtypes")
+    if waves["on"]["launches"].get("paged_attention", 0) != 0:
+        failed.append(f"K2 launched on the int8 wave: "
+                      f"{waves['on']['launches']}")
+    if waves["off"]["launches"].get("paged_attention", 0) <= 0 or \
+            rk["k2_launches"] <= 0:
+        failed.append("K2 not launched on the bf16 arm")
+    if (waves["on"]["token_bytes"], waves["off"]["token_bytes"]) != \
+            (8704, 16384):
+        failed.append("bytes a token")
+    if wq["weights"] != "int8" or \
+            wq["launches"].get("paged_attention", 0) <= 0:
+        failed.append(f"int8-weights wave: {wq['weights']}, "
+                      f"{wq['launches']}")
+    if not all(a["bit_identical"] for a in races["f32"]["arms"].values()):
+        failed.append("f32 speculation differs from plain_generate")
+    kinds = {k.split(":")[0]: r["choice"] for k, r in recs.items()}
+    if kinds != {"serving_page_len": [knobs["page_len"]],
+                 "serving_prefill_chunk": [knobs["prefill_chunk"]],
+                 "serving_decode_slots": [knobs["decode_slots"]]}:
+        failed.append(f"knob records {kinds} vs {knobs}")
+    if failed:
+        raise SystemExit(f"quant/spec plane: {failed}")
+    return {"quant_int8_kv": waves["on"]["launches"],
+            "quant_bf16_kv": waves["off"]["launches"],
+            "quant_int8_weights": wq["launches"]}
+
+
 def _values_equal(a, b):
     """Nested lists / numbers / arrays equal exactly."""
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
@@ -4524,6 +4902,10 @@ def main():
                     help="build the kernels and run phase 14 (the "
                          "observability plane) only (prints no result "
                          "line)")
+    ap.add_argument("--quant-only", action="store_true",
+                    help="build the kernels and run phase 15 (the "
+                         "quantization and speculation plane) only (prints "
+                         "no result line)")
     ap.add_argument("--sweep-times", metavar="ROOT",
                     help="only time phase 4's steady decode sweeps, dense "
                          "and paged, with their host split, for the port "
@@ -4567,6 +4949,9 @@ def main():
 
     if args.obs_only:
         obs_plane(fa, pa, smi)
+        return 0
+    if args.quant_only:
+        quant_spec_plane(fa, pa, smi)
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     k2 = {dt: check_paged(pa, dt, gen)
@@ -4672,6 +5057,9 @@ def main():
     by_path.update({p: {**serving_zero, **c}
                     for p, c in obs_plane(fa, pa, smi).items()})
     mark("14 obs plane")
+    by_path.update({p: {**serving_zero, **c}
+                    for p, c in quant_spec_plane(fa, pa, smi).items()})
+    mark("15 quant/spec plane")
     log(f"host seconds by phase (after the build): {json.dumps(seconds)}")
     # the stage-0 BN's shape (N = 128*56*56, C = 256) stands for K3
     main_k3 = k3[(torch.bfloat16, RESNET_BATCH * 56 * 56, 256)]

@@ -27,8 +27,23 @@ there, exactly as in the reference. Keep every position up to the cursor
 mapped and the two agree.
 
 Dispatch (:func:`decide`) is ``off`` → gather, ``on`` → kernel, ``auto``
-→ kernel on CUDA and gather on the CPU. The reference's fidelity-gated
-promotion race and its autotune store are not ported yet.
+→ kernel on CUDA and gather on the CPU, ``race`` → the fidelity-gated
+promotion race (:func:`race`): on probe caches of the live geometry the
+kernel's logits must hold ``kl_max`` under :data:`PROMOTION_MAX_KL` with
+greedy tokens identical to the gather path's, and then the faster arm
+wins. The verdict is a cost record in the port's autotune store
+(``kernels/autotune.py``, key :func:`bucket_key`) stamped with
+:func:`kernel_sha` — the bytes of ``csrc/paged_attention.cu`` and the
+wrapper's source — and counted in
+``dl4j_autotune_promotions_total{kernel,verdict}``.
+
+Where the port differs from the reference: ``auto`` never races (the
+reference races on the TPU). The main path takes K2 on a CUDA pool
+whatever a timing says; a race runs only when asked (``mode="race"``, the
+engine's ``paged_kernel="race"`` or ``$DL4J_PAGED_KERNEL=race``). A race
+catches nothing: a build or launch error of the kernel propagates, and
+``fallback_fidelity`` comes only from a measured ``kl_max`` or greedy
+mismatch.
 """
 
 from __future__ import annotations
@@ -36,16 +51,23 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import math
-from typing import Optional
+import os
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from . import _build
+from . import _build, autotune
 
 NEG_INF = -1e30
 
-#: the reference's promotion fidelity budget: max per-position KL, nats
+#: promotion fidelity budget: max per-position KL(gather ‖ kernel), nats —
+#: the reference's bound; greedy tokens must match as well
 PROMOTION_MAX_KL = 1e-3
+
+#: env knob for the dispatch mode when the engine pins none:
+#: auto (the kernel on CUDA, gather on the CPU) | race | on | off
+_MODE_ENV = "DL4J_PAGED_KERNEL"
 
 _SOURCE = "paged_attention"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -250,15 +272,162 @@ def paged_attention_reference(q, k_pages, v_pages, table, pos):
     return out.to(q.dtype)
 
 
+def kernel_sha() -> str:
+    """Fingerprint stamped on every ``paged_decode:*`` cost record: the
+    bytes of ``csrc/paged_attention.cu`` and the source of the wrapper
+    that plans and launches it. Editing either invalidates the stale
+    verdicts at their next lookup."""
+    return autotune.source_sha(_build.SRC_DIR / f"{_SOURCE}.cu",
+                               paged_attention, _paged_attention_cuda,
+                               split_plan, partial_smem)
+
+
+# --------------------------------------------------------- promotion --
+
+def bucket_key(cfg, cache, backend: Optional[str] = None) -> str:
+    """The shape-bucket cost-record key of one engine geometry: kernel
+    kind, model shape, pool geometry, dtype and backend (the pool's
+    device type unless given) — the JAX package's key where both run on
+    the CPU."""
+    if backend is None:
+        backend = cache["k"].device.type
+    npg, plen = cache["k"].shape[1], cache["k"].shape[2]
+    slots, per_slot = cache["pages"].shape
+    dt = autotune.dtype_name(cache["k"].dtype)
+    return (f"paged_decode:L{cfg.n_layers}H{cfg.n_heads}D{cfg.head_dim}"
+            f":PL{plen}:P{per_slot}:NP{npg}:S{slots}:{dt}:{backend}")
+
+
+def _probe_layout(slots: int, per_slot: int, npg: int, plen: int,
+                  device) -> Dict:
+    """The page table and cursors of a race's probe pool: every slot
+    mapped to ~3/4 of its table width with contiguous distinct pages
+    (while the pool lasts), its cursor mid-way into its last page."""
+    table = np.full((slots, per_slot), npg, np.int32)
+    nxt = 0
+    pos = np.zeros((slots,), np.int32)
+    for s in range(slots):
+        want = max(1, (3 * per_slot) // 4)
+        got = min(want, npg - nxt)
+        if got < 1:                       # pool exhausted: leave empty
+            continue
+        table[s, :got] = np.arange(nxt, nxt + got)
+        nxt += got
+        pos[s] = (got - 1) * plen + plen // 2
+    return {"pos": torch.from_numpy(pos).to(device),
+            "pages": torch.from_numpy(table).to(device)}
+
+
+def _probe_cache(cfg, cache) -> Tuple[Dict, torch.Tensor]:
+    """A probe cache of the live cache's exact shapes, on its device:
+    random k/v content (``np.random.default_rng(0)``, the reference's
+    draws) over :func:`_probe_layout`. Returns (cache, probe tokens)."""
+    rng = np.random.default_rng(0)
+    kshape = tuple(cache["k"].shape)
+    dev, dt = cache["k"].device, cache["k"].dtype
+    slots, per_slot = cache["pages"].shape
+
+    def pool():
+        return torch.from_numpy(rng.standard_normal(kshape)).to(dev).to(dt)
+    probe = dict(_probe_layout(slots, per_slot, kshape[1], kshape[2], dev),
+                 k=pool(), v=pool())
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (slots,))
+                            .astype(np.int64)).to(dev)
+    return probe, toks
+
+
+def _clone(tree):
+    return {k: v.clone() for k, v in tree.items()}
+
+
+def _timed(fn, probe, toks, wmode) -> float:
+    """:func:`autotune._time_once` of the decode entry point ``fn`` on its
+    own copy of ``probe`` (the race's arms run the same content)."""
+    from ..nn._compiled import Bound
+    state = _clone(probe)
+    return autotune._time_once(lambda: fn(Bound(state), toks, wmode))
+
+
+def _fid_compact(rep: Dict) -> Dict:
+    keep = ("max_abs_err", "mean_abs_err", "kl_mean", "kl_max",
+            "topk_agreement", "greedy_match_frac", "greedy_prefix_len",
+            "positions")
+    return {k: rep[k] for k in keep if k in rep}
+
+
+def race(engine, cache, *, max_kl: float = PROMOTION_MAX_KL) -> Dict:
+    """Race K2 against the gather path on probe caches of ``cache``'s
+    geometry; gate on fidelity; persist the verdict as a sha-stamped
+    cost record; count it in
+    ``dl4j_autotune_promotions_total{kernel,verdict}``.
+
+    Returns the record's meta with ``choice`` and ``key``: ``{verdict,
+    gather_s, kernel_s, speedup, max_kl, fidelity, backend}``. Verdicts:
+    ``promoted`` (fidelity holds and the kernel measured faster),
+    ``fallback_slower`` (fidelity holds, gather measured faster),
+    ``fallback_fidelity`` (``kl_max`` or greedy equivalence failed).
+    Both arms run on the full weights and are timed whatever the
+    fidelity says; the probes are new caches, so their graphs are their
+    own and go with them. Nothing is caught: a kernel that fails to
+    build or launch raises."""
+    from ..obs import get_registry
+    from ..obs.fidelity import FidelityProbe
+    from ..nn._compiled import Bound
+
+    cfg = engine.cfg
+    key = bucket_key(cfg, cache)
+    sha = kernel_sha()
+    arms = (("gather", engine._decode_paged),
+            ("kernel", engine._decode_paged_kernel))
+    # fidelity first: one step from IDENTICAL probe content through both
+    probe, toks = _probe_cache(cfg, cache)
+    logits = {name: fn(Bound(_clone(probe)), toks, "bf16")
+              for name, fn in arms}
+    fid = FidelityProbe("paged_kernel_vs_xla").compare(
+        logits["gather"].float(), logits["kernel"].float())
+    fidelity_ok = (fid["kl_max"] <= max_kl
+                   and fid["greedy_match_frac"] == 1.0)
+
+    # both arms are timed whatever the fidelity outcome: fidelity gates
+    # the promotion, never the measurement
+    timings = {name: _timed(fn, probe, toks, "bf16") for name, fn in arms}
+    if fidelity_ok:
+        chosen = ("kernel" if timings["kernel"] < timings["gather"]
+                  else "gather")
+        verdict = "promoted" if chosen == "kernel" else "fallback_slower"
+    else:
+        chosen, verdict = "gather", "fallback_fidelity"
+
+    meta = {
+        "verdict": verdict,
+        "gather_s": timings["gather"],
+        "kernel_s": timings["kernel"],
+        "speedup": round(timings["gather"] / timings["kernel"], 3),
+        "max_kl": max_kl,
+        "fidelity": _fid_compact(fid),
+        "backend": cache["k"].device.type,
+    }
+    autotune.put(key, (chosen,), meta=meta, sha=sha)
+    get_registry().counter(
+        "dl4j_autotune_promotions_total",
+        "Fidelity-gated kernel-vs-XLA promotion races, by verdict",
+        labelnames=("kernel", "verdict")).inc(
+            kernel="paged_decode", verdict=verdict)
+    return dict(meta, choice=chosen, key=key)
+
+
 def decide(engine, cache, mode: Optional[str] = None) -> str:
     """``"kernel"`` or ``"gather"`` for one engine × cache. ``mode`` (or
-    the engine's pinned mode, default ``auto``): ``off`` → gather, ``on``
-    → kernel, ``auto`` → the kernel when the pool lies on a CUDA device,
-    else gather. A CUDA pool the kernel cannot take (head dim past
-    ``MAX_HEAD_DIM``, 11621) is refused by the kernel's wrapper, never
-    handed to the gather path."""
+    the engine's pinned mode, or ``$DL4J_PAGED_KERNEL``, default
+    ``auto``): ``off`` → gather, ``on`` → kernel, ``auto`` → the kernel
+    when the pool lies on a CUDA device, else gather (never a race);
+    ``race`` → the cost record of this geometry while its sha matches
+    the kernel's source, else :func:`race`. A CUDA pool the kernel cannot
+    take (head dim past ``MAX_HEAD_DIM``, 11621) is refused by the
+    kernel's wrapper, never handed to the gather path."""
     if mode is None:
-        mode = getattr(engine, "paged_kernel_mode", None) or "auto"
+        mode = getattr(engine, "paged_kernel_mode", None) \
+            or os.environ.get(_MODE_ENV, "auto")
     mode = str(mode).lower()
     if mode in ("off", "0", "gather"):
         return "gather"
@@ -267,8 +436,10 @@ def decide(engine, cache, mode: Optional[str] = None) -> str:
     if mode == "auto":
         return "kernel" if cache["k"].device.type == "cuda" else "gather"
     if mode == "race":
-        raise NotImplementedError(
-            "the fidelity-gated promotion race is not ported yet; use "
-            "paged_kernel='on'|'off'|'auto'")
+        rec = autotune.lookup(bucket_key(engine.cfg, cache),
+                              sha=kernel_sha())
+        if rec is not None and rec["choice"]:
+            return str(rec["choice"][0])
+        return str(race(engine, cache)["choice"])
     raise ValueError(f"unknown paged-kernel mode {mode!r}; expected "
-                     "off|on|auto")
+                     "off|on|auto|race")

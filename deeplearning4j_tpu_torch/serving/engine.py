@@ -62,7 +62,23 @@ The sentinels feed the observability plane: every compile counts into
 after ``mark_warm()`` into ``dl4j_compile_retraces_total``, and each lands
 as a ``compile.<name>`` span on the process tracer.
 
-Not ported yet: int8 weights/KV (the ``quant_*`` knobs raise).
+**The quantization plane** (``serving/quant.py``). ``quant_kv`` and
+``quant_weights`` pin the modes (off|on|auto|race; None defers to
+``$DL4J_QUANT_KV`` / ``$DL4J_QUANT_W``, default auto = bf16).
+``init_paged_cache(quantized=None)`` asks ``quant.decide_kv``; an int8 pool
+quantizes rows where they are written and dequantizes them where the
+decode and chunk bodies gather them, in plain torch (the reference does it
+in XLA, outside its kernel). K2 reads compute-dtype pages only: it refuses
+an int8 pool, and ``decode_step`` sends such a pool to the gather-dequant
+body, a storage mode the caller chose. The decode-side entry points
+(``decode_step``, ``decode_paged``, ``decode_paged_kernel``,
+``verify_chunk``) take the weight set as a static argument — ``"bf16"``
+(the engine's weights) or ``"int8"`` (the block stack of
+``quant.quantize_block_weights``, dequantized a layer at a time by
+:func:`_wload`) — resolved once by ``quant.decide_weights``
+(:meth:`GenerationEngine._decode_params`); so a graph captured with one
+set never replays with the other. Prefills always run the engine's own
+weights, as in the reference.
 """
 
 from __future__ import annotations
@@ -78,7 +94,7 @@ from ..kernels import paged_attention as pa
 from ..nn._compiled import Bound, CompiledStep, copy_into, tensors
 from ..obs.compiles import CompileSentinel
 from ..zoo import transformer as tfm
-from . import kvcache
+from . import kvcache, quant
 
 DEFAULT_PREFILL_BUCKETS = (32, 128, 512, 1024, 2048, 4096, 8192)
 
@@ -150,10 +166,25 @@ def _sample_step(logits, temperature, top_k, generator):
 
 def _copy_page_step(cache, pages):
     """The ``copy_page`` entry point's body: pool page ``pages[0]``'s k/v
-    rows (every layer) into page ``pages[1]``."""
+    rows (every layer; an int8 pool's scales with them) into page
+    ``pages[1]``."""
     src, dst = pages[0:1], pages[1:2]
-    for name in ("k", "v"):
-        cache[name].index_copy_(1, dst, cache[name].index_select(1, src))
+    for name in ("k", "v", "k_scale", "v_scale"):
+        if name in cache:
+            cache[name].index_copy_(1, dst,
+                                    cache[name].index_select(1, src))
+
+
+def _wload(blocks, name, layer, dt):
+    """Layer ``layer``'s weight ``name`` in compute dtype ``dt``: an int8
+    block stack (``quant.quantize_block_weights``) carries one scale an
+    output channel under ``name + "_scale"`` and is dequantized here, so
+    storage is int8 and the matmul runs in ``dt``."""
+    w = blocks[name][layer]
+    s = blocks.get(name + "_scale")
+    if s is None:
+        return w
+    return (w.float() * s[layer].float()).to(dt)
 
 
 def _cached_attention(cfg, q, k, v, pos):
@@ -171,7 +202,7 @@ def _cached_attention(cfg, q, k, v, pos):
 
 
 def _masked_row_write(pool, idx, ok, rows):
-    """Scatter ``rows`` (N, H, Dh) into ``pool`` (R, H, Dh) at flat rows
+    """Scatter ``rows`` (N, ...) into ``pool`` (R, ...) at flat rows
     ``idx`` (N,), in range, where ``ok`` (N,) — the rows a JAX scatter
     would drop (``ok`` False) write nothing. Done without a host sync:
     a dropped row is redirected to the first live row's target carrying
@@ -187,7 +218,7 @@ def _masked_row_write(pool, idx, ok, rows):
     tgt = torch.where(ok, idx, idx_first)
     filler = torch.where(ok.any(), rows.index_select(0, first),
                          pool.index_select(0, idx_first))
-    src = torch.where(ok[:, None, None], rows, filler)
+    src = torch.where(ok.view(-1, *[1] * (rows.dim() - 1)), rows, filler)
     pool.index_put_((tgt,), src)
 
 
@@ -231,12 +262,6 @@ class GenerationEngine:
             raise NotImplementedError(
                 "ring attention is a sequence-parallel training path; "
                 "construct the engine with use_ring_attention=False")
-        for name, val in (("quant_kv", quant_kv),
-                          ("quant_weights", quant_weights)):
-            if val is not None and str(val).lower() != "off":
-                raise NotImplementedError(
-                    f"{name}={val!r}: int8 KV pages and weights are not "
-                    "ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_len = int(cfg.max_seq if max_len is None else max_len)
@@ -259,6 +284,14 @@ class GenerationEngine:
         # geometry (_paged_kernel_choice)
         self.paged_kernel_mode = paged_kernel
         self._paged_plan = {}
+        # the quantization plane's modes (off|on|auto|race; None defers
+        # to $DL4J_QUANT_KV / $DL4J_QUANT_W — serving.quant.decide_*); the
+        # decode weight set is resolved lazily, once, and the int8 block
+        # stack built only when it is chosen (or raced)
+        self.quant_kv_mode = quant_kv
+        self.quant_weights_mode = quant_weights
+        self._wchoice: Optional[str] = None
+        self._qrun = None
         self._default_gen = None
         self.params = None
         self.refresh(params)
@@ -266,18 +299,23 @@ class GenerationEngine:
         def weights():
             return tensors(self._run_params)
 
+        def decode_weights():
+            q = [] if self._qrun is None else tensors(self._qrun["blocks"])
+            return tensors(self._run_params) + q
+
         def entry(name, body, bindings=weights):
             return CompileSentinel(name, CompiledStep(body, bindings, name))
 
-        self._decode = entry("decode_step", self._decode_dense)
+        self._decode = entry("decode_step", self._decode_dense,
+                             decode_weights)
         self._decode_paged = entry(
             "decode_paged",
-            lambda cache, tokens: self._decode_paged_rows(cache, tokens,
-                                                          False))
+            lambda cache, tokens, wmode: self._decode_paged_rows(
+                cache, tokens, False, wmode), decode_weights)
         self._decode_paged_kernel = entry(
             "decode_paged_kernel",
-            lambda cache, tokens: self._decode_paged_rows(cache, tokens,
-                                                          True))
+            lambda cache, tokens, wmode: self._decode_paged_rows(
+                cache, tokens, True, wmode), decode_weights)
         self._prefill = entry("prefill", self._prefill_pool)
         self._prefill_slot = entry("prefill_slot", self._prefill_slot_rows)
         self._prefill_chunk = entry("prefill_chunk",
@@ -286,8 +324,9 @@ class GenerationEngine:
         # post-ln_f hidden rows (EMBED) in place of the last row's logits
         self._verify_chunk = entry(
             "verify_chunk",
-            lambda cache, tokens, meta: self._prefill_chunk_rows(
-                cache, tokens, meta, out="logits"))
+            lambda cache, tokens, meta, wmode: self._prefill_chunk_rows(
+                cache, tokens, meta, out="logits", wmode=wmode),
+            decode_weights)
         self._embed_chunk = entry(
             "embed_chunk",
             lambda cache, tokens, meta: self._prefill_chunk_rows(
@@ -308,10 +347,18 @@ class GenerationEngine:
                                   device=self.device)
 
     def init_paged_cache(self, n_slots: int, n_pages: int,
-                         page_len: int = kvcache.DEFAULT_PAGE_LEN):
+                         page_len: int = kvcache.DEFAULT_PAGE_LEN,
+                         quantized: Optional[bool] = None):
+        """Allocate the paged pool. ``quantized=None`` asks
+        ``quant.decide_kv`` (the engine's ``quant_kv`` mode: bf16 unless
+        pinned on or raced and promoted)."""
+        if quantized is None:
+            quantized = quant.decide_kv(self, n_slots, n_pages,
+                                        page_len) == "int8"
         return kvcache.init_paged_cache(self.cfg, n_slots, n_pages,
                                         page_len, self.max_len,
-                                        device=self.device)
+                                        device=self.device,
+                                        quantized=bool(quantized))
 
     def refresh(self, params):
         """Swap in new params. The engine keeps its own copies on its
@@ -320,7 +367,10 @@ class GenerationEngine:
         already holds, the new values are copied into the same tensors:
         the compiled steps keep their graphs (the reference's "no retrace
         as long as shapes match"). Any other change makes new tensors,
-        and the compiled steps drop their graphs on their next call."""
+        and the compiled steps drop their graphs on their next call. An
+        int8 block stack is derived state: re-quantized into its own
+        tensors at the same shapes, dropped (and rebuilt when next
+        needed) otherwise."""
         new = tree_to(params, self.device)
         if self.params is not None and _layout(new) == _layout(self.params):
             copy_into(self.params, new)
@@ -330,7 +380,13 @@ class GenerationEngine:
                     run["blocks"][name].copy_(own["blocks"][name])
             if "head" in run and run["head"] is not own["head"]:
                 run["head"].copy_(own["head"])
+            if self._qrun is not None:
+                fresh = quant.quantize_block_weights(own["blocks"])
+                for name, t in self._qrun["blocks"].items():
+                    if t is not fresh[name]:
+                        t.copy_(fresh[name])
             return self
+        self._qrun = None
         self.params = _owned(new, self.device)
         run = dict(self.params)
         blocks = dict(run["blocks"])
@@ -341,6 +397,31 @@ class GenerationEngine:
             run["head"] = run["head"].to(self.cfg.dtype)
         self._run_params = run
         return self
+
+    def _quantized_weights(self):
+        """The int8 weight set: the run params with the block stack's
+        matmul weights quantized (``quant.quantize_block_weights`` of the
+        engine's own weights), built once."""
+        if self._qrun is None:
+            self._qrun = dict(self._run_params,
+                              blocks=quant.quantize_block_weights(
+                                  self.params["blocks"]))
+        return self._qrun
+
+    def _decode_params(self) -> str:
+        """The weight set the decode-side entry points run: ``"int8"``
+        when ``quant.decide_weights`` picks it, else ``"bf16"`` (the
+        engine's weights). Resolved once an engine, lazily (a race needs
+        the compiled decode)."""
+        if self._wchoice is None:
+            self._wchoice = quant.decide_weights(self)
+        if self._wchoice == "int8":
+            self._quantized_weights()
+        return self._wchoice
+
+    def _weights(self, wmode):
+        """The params tree of weight set ``wmode`` ("bf16" | "int8")."""
+        return self._qrun if wmode == "int8" else self._run_params
 
     # -------------------------------------------------- compile plane
     def mark_warm(self):
@@ -375,33 +456,43 @@ class GenerationEngine:
         rows = p["pos_embed"][pos.long().clamp(0, cfg.max_seq - 1)]
         return x + rows.to(cfg.dtype)
 
-    def _blocks_with_cache(self, cache, x, *, write, attend):
+    def _blocks_with_cache(self, cache, x, *, write, attend,
+                           wmode="bf16"):
         """The ONE block body every cached entry point runs — they differ
         only in how k/v rows land in the layer cache (``write(layer_pool,
         rows)``, in place) and how the rows' queries see it
-        (``attend(q, kl, vl) -> (rows, H, Dh)``). Returns the block-stack
-        output rows."""
+        (``attend(q, kl, vl) -> (rows, H, Dh)``). An int8 pool hands each
+        closure a layer's ``(rows, scales)`` pair instead of its rows:
+        the closures own the quantize-at-append and dequantize-at-gather.
+        ``wmode`` picks the weight set. Returns the block-stack output
+        rows."""
         cfg = self.cfg
-        blocks = self._run_params["blocks"]
+        blocks = self._weights(wmode)["blocks"]
         n = x.shape[0]
         h_, dh = cfg.n_heads, cfg.head_dim
+        quantized = kvcache.is_quantized(cache)
         for l in range(cfg.n_layers):
             hh = tfm._rmsnorm(x, blocks["ln1"][l])
-            qkv = hh @ blocks["wqkv"][l]
+            qkv = hh @ _wload(blocks, "wqkv", l, hh.dtype)
             q, k, v = qkv.chunk(3, dim=-1)
-            kl, vl = cache["k"][l], cache["v"][l]
+            if quantized:
+                kl = (cache["k"][l], cache["k_scale"][l])
+                vl = (cache["v"][l], cache["v_scale"][l])
+            else:
+                kl, vl = cache["k"][l], cache["v"][l]
             write(kl, k.reshape(n, h_, dh))
             write(vl, v.reshape(n, h_, dh))
             a = attend(q.reshape(n, h_, dh), kl, vl).reshape(n, h_ * dh)
-            x = x + a @ blocks["wo"][l]
+            x = x + a @ _wload(blocks, "wo", l, hh.dtype)
             h2 = tfm._rmsnorm(x, blocks["ln2"][l])
-            x = x + tfm.gelu(h2 @ blocks["w_in"][l]) @ blocks["w_out"][l]
+            x = x + tfm.gelu(h2 @ _wload(blocks, "w_in", l, h2.dtype)) \
+                @ _wload(blocks, "w_out", l, h2.dtype)
         return x
 
     def _head(self, x):
         return tfm.head_logits_rows(self._run_params, self.cfg, x)
 
-    def _decode_dense(self, cache, tokens):
+    def _decode_dense(self, cache, tokens, wmode):
         """One decode step over dense lanes: each slot writes its token's
         k/v at its own cursor and attends to its own prefix. A slot past
         capacity writes nothing (the reference's dropped scatter); its
@@ -420,30 +511,58 @@ class GenerationEngine:
 
         x = self._blocks_with_cache(
             cache, x, write=write,
-            attend=lambda q, kl, vl: _cached_attention(cfg, q, kl, vl, pos))
+            attend=lambda q, kl, vl: _cached_attention(cfg, q, kl, vl, pos),
+            wmode=wmode)
         logits = self._head(x)
         pos.add_(1)
         return logits
 
     def _paged_write(self, cache, ent, off):
         """The write closure of the paged paths: rows land at (pool page
-        ``ent``, offset ``off``); an entry on the sentinel writes
-        nothing."""
+        ``ent``, offset ``off``); an entry on the sentinel writes nothing.
+        An int8 pool quantizes the rows here and writes their scales to
+        the same (page, offset)."""
         npg, plen = cache["k"].shape[1], cache["k"].shape[2]
         ok = ent < npg
         idx = ent.long().clamp(0, npg - 1) * plen + off.long()
 
-        def write(kl, rows):
+        def write_rows(kl, rows):
             _masked_row_write(kl.view(-1, *kl.shape[2:]), idx, ok, rows)
+
+        if not kvcache.is_quantized(cache):
+            return write_rows
+
+        def write(kc, rows):
+            qr, sc = quant.quantize_rows(rows)
+            write_rows(kc[0], qr)
+            write_rows(kc[1], sc)
         return write
 
-    def _decode_paged_rows(self, cache, tokens, use_kernel):
+    @staticmethod
+    def _dequant_gather(kc, idx, rows, h_, dh):
+        """An int8 layer pool's pages ``idx`` as f32 rows ``(-1, rows, H,
+        Dh)`` (the sentinel clamped to the last page, as a JAX gather
+        does): int8 × the per-row-per-head scale."""
+        kl, ks = kc
+        return kl[idx].reshape(-1, rows, h_, dh).float() \
+            * ks[idx].reshape(-1, rows, h_)[..., None]
+
+    def _decode_paged_rows(self, cache, tokens, use_kernel, wmode):
         """One decode step over the block-paged pool: each slot's k/v row
         scatters into (page, offset) through its table; attention either
         gathers the slot's table row, clamping the sentinel
-        (``paged_attention_reference``), or, with ``use_kernel``, runs
-        the paged-attention wrapper on one layer's pool slice — same
-        writes, block math and logits. Returns (B, V)."""
+        (``paged_attention_reference``; an int8 pool dequantizes what it
+        gathers), or, with ``use_kernel``, runs the paged-attention
+        wrapper on one layer's pool slice — same writes, block math and
+        logits. K2 reads compute-dtype pages: it refuses an int8 pool.
+        Returns (B, V)."""
+        quantized = kvcache.is_quantized(cache)
+        if use_kernel and quantized:
+            raise NotImplementedError(
+                "the paged-attention kernel reads compute-dtype pages; an "
+                "int8 pool decodes through the gather-dequant path "
+                "(decode_step routes it there)")
+        cfg = self.cfg
         pos = cache["pos"]
         table = cache["pages"]
         b = tokens.shape[0]
@@ -456,16 +575,27 @@ class GenerationEngine:
         write = self._paged_write(cache, ent, pos.long() % plen)
         x = self._embed_rows(tokens, pos)
         fn = pa.paged_attention if use_kernel else pa.paged_attention_reference
+        if quantized:
+            idx = table.long().clamp(0, npg - 1)
+            s_len = per_slot * plen
 
         def attend(q, kl, vl):
+            if quantized:
+                kg = self._dequant_gather(kl, idx, s_len, cfg.n_heads,
+                                          cfg.head_dim)
+                vg = self._dequant_gather(vl, idx, s_len, cfg.n_heads,
+                                          cfg.head_dim)
+                return _cached_attention(cfg, q, kg, vg, pos)
             return fn(q.contiguous(), kl, vl, table, pos)
 
-        x = self._blocks_with_cache(cache, x, write=write, attend=attend)
+        x = self._blocks_with_cache(cache, x, write=write, attend=attend,
+                                    wmode=wmode)
         logits = self._head(x)
         pos.add_(1)
         return logits
 
-    def _prefill_chunk_rows(self, cache, tokens, meta, out="last"):
+    def _prefill_chunk_rows(self, cache, tokens, meta, out="last",
+                            wmode="bf16"):
         """One chunked-prefill dispatch: ``tokens`` (C_bucket,) — the
         slot's context rows ``[start, start+length)`` padded — written
         into the slot's mapped pages, the chunk's queries attending
@@ -499,10 +629,15 @@ class GenerationEngine:
         mask = torch.arange(s_len, device=dev)[None, :] <= gpos[:, None]
         gidx = row.long().clamp(0, npg - 1)
         scale = 1.0 / math.sqrt(dh)
+        quantized = kvcache.is_quantized(cache)
 
         def attend(q, kl, vl):
-            kg = kl[gidx].reshape(s_len, h_, dh)
-            vg = vl[gidx].reshape(s_len, h_, dh)
+            if quantized:
+                kg = self._dequant_gather(kl, gidx, s_len, h_, dh)[0]
+                vg = self._dequant_gather(vl, gidx, s_len, h_, dh)[0]
+            else:
+                kg = kl[gidx].reshape(s_len, h_, dh)
+                vg = vl[gidx].reshape(s_len, h_, dh)
             scores = torch.einsum("qhd,shd->qhs", q.float() * scale,
                                   kg.float())
             scores = scores.masked_fill(~mask[:, None, :], _NEG_INF)
@@ -510,7 +645,8 @@ class GenerationEngine:
             return torch.einsum("qhs,shd->qhd", probs,
                                 vg.float()).to(cfg.dtype)
 
-        x = self._blocks_with_cache(cache, x, write=write, attend=attend)
+        x = self._blocks_with_cache(cache, x, write=write, attend=attend,
+                                    wmode=wmode)
         cache["pos"].index_copy_(0, slot, (start + length).to(torch.int32))
         if out == "logits":
             return self._head(x)
@@ -639,6 +775,15 @@ class GenerationEngine:
         toks, meta = self._stage(padded, [int(slot), n])
         return self._prefill_slot(Bound(cache), toks, meta), cache
 
+    def _paged_entry(self, cache):
+        """The paged decode entry point ``decode_step`` runs for ``cache``:
+        the gather-dequant body for an int8 pool, else K2's or the gather
+        body's by :meth:`_paged_kernel_choice`."""
+        if kvcache.is_quantized(cache) or \
+                self._paged_kernel_choice(cache) != "kernel":
+            return self._decode_paged
+        return self._decode_paged_kernel
+
     def _paged_kernel_choice(self, cache) -> str:
         """``"kernel"`` or ``"gather"`` for this cache geometry — resolved
         once per (pool shape, dtype, table shape, device) and memoized, so
@@ -654,19 +799,17 @@ class GenerationEngine:
     def decode_step(self, cache, tokens):
         """One token for every slot: tokens (B,) → (logits (B, V) f32,
         cache). Dispatches on the cache layout — dense lanes, or the
-        paged pool via the gather path or the CUDA kernel."""
+        paged pool via the gather path or the CUDA kernel (an int8 pool:
+        the gather-dequant path) — with the decode weight set
+        (:meth:`_decode_params`)."""
         (tokens,) = self._stage(np.asarray(tokens).reshape(-1))
         if tokens.shape[0] != kvcache.cache_slots(cache):
             raise ValueError(f"decode_step wants one token per slot "
                              f"({kvcache.cache_slots(cache)}), got "
                              f"{tokens.shape[0]}")
-        if kvcache.is_paged(cache):
-            fn = (self._decode_paged_kernel
-                  if self._paged_kernel_choice(cache) == "kernel"
-                  else self._decode_paged)
-        else:
-            fn = self._decode
-        return fn(Bound(cache), tokens), cache
+        fn = self._paged_entry(cache) if kvcache.is_paged(cache) \
+            else self._decode
+        return fn(Bound(cache), tokens, self._decode_params()), cache
 
     @torch.no_grad()
     def prefill_chunk(self, cache, tokens, slot: int, start: int = 0):
@@ -688,11 +831,15 @@ class GenerationEngine:
         next-token distribution after ``tokens[:i+1]`` (a SCORE request
         scores its prompt from them). Rows are written into the slot's
         mapped pages as in ``prefill_chunk``; rows past ``len(tokens)``
-        are garbage the caller slices off."""
+        are garbage the caller slices off. Runs the decode weight set
+        (:meth:`_decode_params`): the verify logits are the ones
+        ``decode_step`` would give, so greedy speculation stays
+        identical to plain decode."""
         if not kvcache.is_paged(cache):
             raise ValueError("verify_chunk needs a paged cache: rollback "
                              "is a page-table operation")
-        return self._chunk(self._verify_chunk, cache, tokens, slot, start)
+        return self._chunk(self._verify_chunk, cache, tokens, slot, start,
+                           self._decode_params())
 
     @torch.no_grad()
     def embed_chunk(self, cache, tokens, slot: int, start: int = 0):
@@ -704,9 +851,9 @@ class GenerationEngine:
                              "(init_paged_cache)")
         return self._chunk(self._embed_chunk, cache, tokens, slot, start)
 
-    def _chunk(self, fn, cache, tokens, slot, start):
+    def _chunk(self, fn, cache, tokens, slot, start, *static):
         """Check, pad to a chunk bucket and stage one chunk for ``fn`` (a
-        chunk entry point)."""
+        chunk entry point; ``static`` its trailing static arguments)."""
         tokens = np.asarray(tokens, np.int64).reshape(-1)
         n = tokens.shape[0]
         if n < 1:
@@ -724,7 +871,7 @@ class GenerationEngine:
         padded = np.zeros((bucket,), np.int64)
         padded[:n] = tokens
         toks, meta = self._stage(padded, [int(slot), int(start), n])
-        return fn(Bound(cache), toks, meta), cache
+        return fn(Bound(cache), toks, meta, *static), cache
 
     def make_generator(self, seed: int = 0) -> torch.Generator:
         """A ``torch.Generator`` on the engine's device."""

@@ -75,9 +75,15 @@ The bookkeeping self-times into ``trace_overhead_seconds`` as the
 reference's does (trace events, snapshots, close-out, sampler).
 ``stats`` and ``kv_report()`` stay the plain readings of a run.
 
-Not ported yet (each knob raises ``NotImplementedError``): int8 KV
-(``quant_kv``); ``key`` is the reference's JAX PRNG key, for which the
-port takes ``generator=``.
+``quant_kv`` (off|on|auto|race) pins the paged pool's storage through
+``serving.quant.decide_kv`` (the reference's ladder: int8 rows and scales
+when on, or raced and promoted); it needs the paged pool. Every path —
+CoW splits, prefix sharing, re-prefill, preemption — is blind to it: the
+scales ride the page axis. SCORE requests score through ``verify_chunk``,
+with the weights the engine decodes with.
+
+Not taken (raises ``NotImplementedError``): ``key``, the reference's JAX
+PRNG key, for which the port takes ``generator=``.
 """
 
 from __future__ import annotations
@@ -94,14 +100,14 @@ import torch
 
 from ..obs import (FlightRecorder, RequestTrace, SLOConfig, SLOTracker,
                    emit_census, get_registry, get_tracer)
-from . import kvcache, workloads
+from . import kvcache, quant, workloads
 from .engine import GenerationEngine
 from .workloads import (BeamResult, BeamState, EmbedResult, RequestKind,
                         ScoreResult)
 
-# reference knobs this port does not take: int8 KV is not ported yet, and
-# ``key`` is a JAX PRNG key (the port takes ``generator=``)
-_UNPORTED_SCHEDULER_KNOBS = ("quant_kv", "key")
+# the reference knob this port does not take: ``key`` is a JAX PRNG key
+# (the port takes ``generator=``)
+_UNPORTED_SCHEDULER_KNOBS = ("key",)
 # the parts of the plane's host cost the scheduler self-times
 # (``_plane_s``; ``trace_overhead_seconds`` is the reference's share)
 PLANE_PARTS = ("registry", "trace", "spans", "sampler", "slo")
@@ -191,17 +197,21 @@ class ContinuousBatchingScheduler:
                  sample_obs_every: int = 32,
                  page_len: Optional[int] = None,
                  n_pages: Optional[int] = None,
-                 prefix_cache: bool = False, **unported):
+                 prefix_cache: bool = False,
+                 quant_kv: Optional[str] = None, **unported):
         for name in unported:
             if name in _UNPORTED_SCHEDULER_KNOBS:
                 raise NotImplementedError(
                     f"ContinuousBatchingScheduler({name}=...) is not ported "
-                    "yet (int8 KV; the port takes generator= for key=)")
+                    "(the port takes generator= for key=)")
             raise TypeError(f"unexpected keyword argument {name!r}")
         if n_slots < 1:
             raise ValueError("need at least one decode slot")
         if prefix_cache and page_len is None and n_pages is None:
             raise ValueError("prefix_cache rides the paged pool: give "
+                             "page_len and/or n_pages")
+        if quant_kv is not None and page_len is None and n_pages is None:
+            raise ValueError("quant_kv quantizes the paged pool: give "
                              "page_len and/or n_pages")
         self.engine = engine
         self.n_slots = int(n_slots)
@@ -219,7 +229,14 @@ class ContinuousBatchingScheduler:
             per_slot = -(-engine.max_len // plen)
             np_ = int(n_pages if n_pages is not None
                       else self.n_slots * per_slot)
-            self.cache = engine.init_paged_cache(self.n_slots, np_, plen)
+            # int8 KV (quant_kv pins the mode; None defers to the
+            # engine's ladder in quant.decide_kv)
+            qz = None
+            if quant_kv is not None:
+                qz = quant.decide_kv(engine, self.n_slots, np_, plen,
+                                     mode=quant_kv) == "int8"
+            self.cache = engine.init_paged_cache(self.n_slots, np_, plen,
+                                                 quantized=qz)
             self._pages: Optional[kvcache.PageTable] = \
                 kvcache.PageTable.for_cache(self.cache)
             self._kv_page_bytes = kvcache.page_nbytes(self.cache)

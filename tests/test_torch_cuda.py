@@ -1218,6 +1218,58 @@ def test_serving_chunk_and_paged_decode_replay_equal_eager(gen, dtype,
     assert kinds == ["eager", "capture", "replay"]
 
 
+@pytest.mark.parametrize("kv,w", [("on", "off"), ("off", "on"),
+                                  ("on", "on")])
+def test_serving_int8_paths_replay_equal_eager(gen, kv, w):
+    """An int8 pool (quantized at append, dequantized at gather) and int8
+    weights (dequantized a layer at a time) through the compiled chunk,
+    paged decode and verify steps: every replay equals an eager call on a
+    cloned cache (scales included), bit for bit; a graph captured with
+    one weight set is never replayed with the other."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.nn._compiled import Bound
+    from deeplearning4j_tpu_torch.serving import PageTable
+    eng = _serving_engine(torch.bfloat16, quant_kv=kv, quant_weights=w)
+    cache = eng.init_paged_cache(3, 24, 4)
+    assert ("k_scale" in cache) == (kv == "on")
+    table = PageTable.for_cache(cache)
+    for slot in range(3):
+        table.map(slot, 20)
+    table.sync(cache)
+    rng = np.random.default_rng(2)
+    kinds = []
+    for slot in range(3):
+        toks = rng.integers(0, 64, 8)
+        kinds.append(_replay_and_eager(
+            eng, "prefill_chunk",
+            lambda c: eng.prefill_chunk(c, toks, slot, 0)[0], cache))
+    assert kinds == ["eager", "capture", "replay"]
+    name = "decode_paged" if kv == "on" else "decode_paged_kernel"
+    kinds = []
+    for _ in range(4):
+        toks = rng.integers(0, 64, 3)
+        kinds.append(_replay_and_eager(
+            eng, name, lambda c: eng.decode_step(c, toks)[0], cache))
+    assert kinds[2:] == ["replay"] * 2
+    kinds = []
+    for slot in range(3):
+        toks = rng.integers(0, 64, 5)
+        kinds.append(_replay_and_eager(
+            eng, "verify_chunk",
+            lambda c: eng.verify_chunk(c, toks, slot, 12)[0], cache))
+    assert kinds == ["eager", "capture", "replay"]
+    # the other weight set is another signature of the same cache
+    eng._quantized_weights()
+    other = "bf16" if eng._decode_params() == "int8" else "int8"
+    sentinel = eng.sentinels[name]
+    n = len(sentinel.signatures)
+    t = torch.zeros((3,), dtype=torch.int64, device="cuda")
+    for _ in range(2):
+        getattr(eng, "_" + name)(Bound(cache), t, other)
+    assert sentinel.last == "capture" and len(sentinel.signatures) == n + 1
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_serving_slot_prefill_and_dense_decode_replay_equal_eager(gen,
                                                                   dtype):

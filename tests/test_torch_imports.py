@@ -69,7 +69,8 @@ def test_port_has_modules_to_check():
             "data/normalizers.py", "serde/model_serializer.py",
             "serving/workloads.py", "obs/registry.py", "obs/spans.py",
             "obs/reqtrace.py", "obs/slo.py", "obs/memory.py",
-            "obs/fidelity.py", "obs/compiles.py"} <= names
+            "obs/fidelity.py", "obs/compiles.py", "kernels/autotune.py",
+            "serving/quant.py", "serving/spec.py", "serving/tune.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -93,6 +94,10 @@ def test_importing_the_port_loads_no_jax():
             "import deeplearning4j_tpu_torch.obs\n"
             "import deeplearning4j_tpu_torch.obs.fidelity\n"
             "import deeplearning4j_tpu_torch.obs.memory\n"
+            "import deeplearning4j_tpu_torch.kernels.autotune\n"
+            "import deeplearning4j_tpu_torch.serving.quant\n"
+            "import deeplearning4j_tpu_torch.serving.spec\n"
+            "import deeplearning4j_tpu_torch.serving.tune\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
             "print(bad)\n"

@@ -161,11 +161,17 @@ def test_paged_plain_bf16_pool_matches_jax():
                                atol=1e-2, rtol=1e-2)
 
 
-def test_paged_decide_modes():
+def test_paged_decide_modes(monkeypatch, tmp_path):
+    from types import SimpleNamespace
+
+    from deeplearning4j_tpu_torch.kernels import autotune as tat
+
     class Eng:
         paged_kernel_mode = None
+        cfg = SimpleNamespace(n_layers=1, n_heads=2, head_dim=8)
 
-    cpu_cache = {"k": torch.zeros((1, 2, 4, 2, 8))}
+    cpu_cache = {"k": torch.zeros((1, 2, 4, 2, 8)),
+                 "pages": torch.zeros((1, 2), dtype=torch.int32)}
     meta_cuda = {"k": torch.empty((1, 2, 4, 2, 8), device="meta")}
     assert tpa.decide(Eng(), cpu_cache, "off") == "gather"
     assert tpa.decide(Eng(), cpu_cache, "on") == "kernel"
@@ -173,10 +179,27 @@ def test_paged_decide_modes():
     assert tpa.decide(Eng(), meta_cuda, "auto") == "gather"
     Eng.paged_kernel_mode = "on"                # the engine's pinned mode
     assert tpa.decide(Eng(), cpu_cache) == "kernel"
-    with pytest.raises(NotImplementedError, match="race"):
-        tpa.decide(Eng(), cpu_cache, "race")
+    # race: the cost record while its sha matches, else one race (the
+    # race itself: tests/test_torch_autotune.py)
+    monkeypatch.setattr(tat, "_CACHE_PATH", tmp_path / "autotune.json")
+    tat._memory_cache.clear()
+    races = []
+
+    def race(engine, cache):
+        races.append(tpa.bucket_key(engine.cfg, cache))
+        tat.put(races[-1], ("gather",), sha=tpa.kernel_sha())
+        return {"choice": "gather"}
+
+    monkeypatch.setattr(tpa, "race", race)
+    assert tpa.decide(Eng(), cpu_cache, "race") == "gather"
+    assert tpa.decide(Eng(), cpu_cache, "race") == "gather"
+    assert races == ["paged_decode:L1H2D8:PL4:P2:NP2:S1:float32:cpu"]
+    Eng.paged_kernel_mode = None                # the env var's mode
+    monkeypatch.setenv("DL4J_PAGED_KERNEL", "off")
+    assert tpa.decide(Eng(), cpu_cache) == "gather"
     with pytest.raises(ValueError):
         tpa.decide(Eng(), cpu_cache, "bogus")
+    tat._memory_cache.clear()
 
 
 # ----------------------------------------------------- flash forward (K1)

@@ -469,15 +469,22 @@ def test_scheduler_rejects_what_could_never_run(engine):
 
 
 def test_unported_knobs_raise(model, engine):
+    """``key`` (a JAX PRNG key) is the one scheduler knob still refused.
+    The int8 knobs are ported: the engine's ``quant_kv``/
+    ``quant_weights`` and the scheduler's ``quant_kv`` give an int8 pool
+    and int8 decode weights (``tests/test_torch_quant.py``); a dense pool
+    stays in the compute dtype."""
     _, _, tcfg, tp = model
-    with pytest.raises(NotImplementedError, match="int8"):
-        GenerationEngine(tcfg, tp, device="cpu", quant_kv="on")
-    with pytest.raises(NotImplementedError, match="int8"):
-        GenerationEngine(tcfg, tp, device="cpu", quant_weights="int8")
-    for kw in ({"quant_kv": "int8"}, {"key": object()}):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            ContinuousBatchingScheduler(engine, n_slots=1, page_len=4,
-                                        **kw)
+    eng = GenerationEngine(tcfg, tp, device="cpu", quant_kv="on")
+    assert kvcache.is_quantized(eng.init_paged_cache(1, 4, 4))
+    eng = GenerationEngine(tcfg, tp, device="cpu", quant_weights="int8")
+    assert eng._decode_params() == "int8"
+    sched = ContinuousBatchingScheduler(engine, n_slots=1, page_len=4,
+                                        quant_kv="int8")
+    assert sched.kv_report()["kv_dtype"] == "int8"
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ContinuousBatchingScheduler(engine, n_slots=1, page_len=4,
+                                    key=object())
     with pytest.raises(TypeError):
         ContinuousBatchingScheduler(engine, n_slots=1, bogus=1)
     with pytest.raises(NotImplementedError, match="int8"):

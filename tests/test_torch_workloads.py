@@ -2,13 +2,13 @@
 ``deeplearning4j_tpu_torch.serving.workloads`` and the scheduler's
 ``submit(kind=...)``) against the JAX package's, on the CPU.
 
-The tests of ``tests/test_workloads.py`` that need neither the fleet nor
-int8 KV (the metrics-and-census test runs on both schedulers), ported to
-the port on the same tiny f32
-model (vocab 61, d_model 32, 2 heads, 2 layers, max_seq 32,
-``prefill_chunk=8``, page_len 4), weights drawn by the JAX package and
-shared through ``params_from_numpy``. The same requests go through the
-JAX scheduler: SCORE logprobs and EMBED vectors agree at atol 1e-5, BEAM
+The tests of ``tests/test_workloads.py`` that do not need the fleet (the
+metrics-and-census and the int8-KV SCORE tests run on both schedulers),
+ported to the port on the same tiny f32 model (vocab 61, d_model 32, 2
+heads, 2 layers, max_seq 32, ``prefill_chunk=8``, page_len 4), weights
+drawn by the JAX package and shared through ``params_from_numpy``. The
+same requests go through the JAX scheduler: SCORE logprobs (on the int8
+pool too) and EMBED vectors agree at atol 1e-5, BEAM
 sequences are identical and their logprobs agree at 1e-5, greedy
 CONSTRAINED tokens are identical, and malformed submits raise the same
 ``ValueError``. The reference's own oracles (the full forward, greedy
@@ -127,6 +127,30 @@ def test_score_matches_reference_every_position(model, engine, jengine, n,
         float(np.exp(-ref.mean())), rel=1e-3)
     assert res.finish_reason == "complete"
     assert res.prompt_tokens == n and res.tokens.size == 0
+
+
+@pytest.mark.parametrize("which", ["port", "reference"])
+def test_score_quantized_kv_stays_close(model, engine, jengine, which):
+    """The reference's ``test_score_quantized_kv_stays_close`` on both
+    schedulers: over an int8 pool SCORE scores with the pages (and
+    weights) it decodes with — bounded, not bit-exact, against the full
+    forward (atol 0.3) — and the port's logprobs equal the JAX
+    scheduler's int8 path within 1e-5."""
+    jcfg, jp, _, _ = model
+    toks = _toks(13, seed=3)
+    eng, cls = (engine, ContinuousBatchingScheduler) if which == "port" \
+        else (jengine, JSched)
+    (res,) = run(paged(eng, cls, quant_kv="int8"),
+                 ((toks,), dict(kind="score")))
+    lsm = full_logprobs(jp, jcfg, toks)
+    ref = lsm[np.arange(12), toks[1:]]
+    assert np.isfinite(res.perplexity)
+    np.testing.assert_allclose(res.logprobs, ref, atol=0.3)
+    if which == "port":
+        (jres,) = run(paged(jengine, JSched, quant_kv="int8"),
+                      ((toks,), dict(kind="score")))
+        np.testing.assert_allclose(res.logprobs, jres.logprobs, atol=PARITY,
+                                   rtol=0)
 
 
 # ----------------------------------------------------------- EMBED
