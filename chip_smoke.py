@@ -18,6 +18,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
                                            # the port checked out at ROOT
     python3 chip_smoke.py --obs-only       # build + phase 14 only
     python3 chip_smoke.py --quant-only     # build + phase 15 only
+    python3 chip_smoke.py --bert-only      # build + phase 16 only
     python3 chip_smoke.py --sweep-times ROOT  # only time phase 4's steady
                                              # sweeps of the port at ROOT
                                              # (with its observability
@@ -301,6 +302,33 @@ Phases, each fatal on failure:
    race of the LM in f32, where every arm must be token-identical to
    ``plain_generate``; (e) ``sweep_serving_knobs`` over short candidate
    lists, read back by ``recommended_serving_knobs``;
+16. BERT-base (d 768, 12 heads, 12 layers, d_ff 3072, vocab 30522, T 128,
+   seeded random weights) and ResNet-50, each part its own path (counts
+   set to 0 just before it): (a) the fine-tune of ``bench.py``'s bert row
+   (B128, remat "full", bf16 scores, ``bert_classifier_loss`` and AdamW
+   2e-5 with optax's defaults, capturable) for 10 steps on one batch,
+   compiled (eager, capture, 8 replays; steps 4-10 timed) and eager
+   (``disable_graphs()``) from identical params: losses and params bit
+   for bit equal, finite and falling; (b) MLM pretraining with
+   ``make_bert_mlm_train_step`` on ``BertIterator`` batches (B128 T128,
+   special ids, token types and the attention mask) of an in-script
+   corpus and WordPiece vocabulary padded to 30522 rows, 2 epochs of 4
+   batches, compiled and eager from identical params and generator
+   state: bit for bit equal, and two replays on one batch drew
+   different masks (recomputed from the generator states), never at a
+   special id; (c) BERT-base (bf16, no mask) served through
+   ``FunctionalInferenceModel`` + ``ParallelInference(max_batch=64)``:
+   batch-1 p50 and p99 of ``output()`` and the read of its result, the
+   sweep at 1, 8 and 16, the batch-1 dispatch, device ms and busy share,
+   the served logits equal to an eager forward's and within KL 1e-3 of
+   the f32 forward's, a burst of 8 one-row ``submit``s resolved by one
+   deadline flush that replays a captured graph; (d) ResNet-50 bf16
+   served the same way at 1, 8 and 32: rows equal to ``net.output()``'s,
+   K3's normalize launched 33 times a batch (a replay at its capture's),
+   every (dtype, N, C, activation) K3 ran at held against the plain
+   version (phase 7's set, else here), K3 timed at the batch-1 stem
+   shape; one capture a batch signature and 0 retraces after warm on
+   both served nets; BERT's paths launch no hand-written kernel;
 5. a ``kernels`` JSON line (every hand-written kernel: its route,
    launches on each main path, largest error, times and bound at its
    path shape), then the result line (printed last).
@@ -4866,6 +4894,564 @@ def quant_spec_plane(fa, pa, smi):
             "quant_int8_weights": wq["launches"]}
 
 
+# --------------------------------------------------------------- phase 16
+
+# BERT-base at bench.py's bert row (bench.py:519-531, batch 128 at :2152):
+# T 128, remat "full", bf16 scores; fine-tuned with AdamW(2e-5) mapped from
+# optax as make_train_step's docstring says (LM_ADAMW, capturable)
+BERT_BATCH = 128
+BERT_T = 128
+BERT_FT_STEPS = 10                       # eager, capture, 8 replays
+BERT_FT_WARM = 3                         # not timed: eager, capture, replay
+BERT_MLM_EPOCHS = 2                      # 4 BertIterator batches each
+BERT_MLM_SENTENCES = 512
+# bench.py's serving rows (bench.py:2015, :2049, :2074): batch-1 latency
+# then a batch sweep, through ParallelInference(max_batch=64)
+SERVE_LAT_ITERS = 200
+SERVE_SWEEP_ITERS = 5
+BERT_SERVE_BATCHES = (1, 8, 16)
+RESNET_SERVE_BATCHES = (1, 8, 32)
+SERVE_BURST = 8                          # one-row requests, one deadline
+SERVE_BURST_WAIT_MS = 20.0
+# the corpus BertIterator reads and the words of its WordPiece vocabulary
+BERT_WORDS = ("the quick brown fox jump over lazy dog a cat sat on mat "
+              "river bank money water tree light dark day night sun moon "
+              "star sky sea ship sail wind rain snow cold warm city road "
+              "car train walk run read write book page word line story "
+              "old new big small red blue green house door window").split()
+BERT_SUFFIXES = ("##s", "##ing", "##ed")
+
+
+def bert_vocab():
+    """BERT's five special tokens, the corpus words and their suffixes,
+    padded with unused entries to BERT-base's 30522 rows."""
+    toks = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *BERT_WORDS,
+            *BERT_SUFFIXES, ",", "."]
+    return toks + [f"[unused{i}]" for i in range(30522 - len(toks))]
+
+
+def bert_corpus(n, seed=0):
+    """``n`` sentences of 8-120 words drawn from ``BERT_WORDS`` (some
+    with a suffix, some past T 128, so that BertIterator pads and
+    truncates)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        words = [BERT_WORDS[i] + ("" if rng.random() < 0.8 else
+                                  rng.choice(["s", "ing", "ed"]))
+                 for i in rng.integers(0, len(BERT_WORDS),
+                                       rng.integers(8, 121))]
+        out.append(" ".join(words) + ".")
+    return out
+
+
+def bert_setup(tfm, seed=0, **kw):
+    """BERT-base (bench.py's row unless ``kw`` says otherwise) with seeded
+    random weights on the card; the zero classification head gets small
+    seeded values, so that the logits it serves carry the encoder."""
+    cfg = tfm.BertConfig(max_seq=BERT_T, **kw)
+    gen = torch.Generator().manual_seed(seed)
+    params = tfm.bert_init(cfg, gen, device="cuda")
+    with torch.no_grad():
+        params["cls"].copy_(0.02 * torch.randn(params["cls"].shape,
+                                               generator=gen))
+    return cfg, params
+
+
+def _clone_params(params):
+    return {k: (_clone_params(v) if isinstance(v, dict)
+                else v.detach().clone()) for k, v in params.items()}
+
+
+def _adamw(tfm, params, lr):
+    return torch.optim.AdamW(tfm.param_leaves(params), lr=lr,
+                             betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=1e-4, capturable=True, **LM_ADAMW)
+
+
+def bert_finetune_step(tfm, cfg, params, opt):
+    """bench.py's build_bert step on the port: ``bert_classifier_loss``,
+    its backward and AdamW, compiled as the port's steps are (a CUDA
+    graph per signature after an eager first call)."""
+    from deeplearning4j_tpu_torch.nn._compiled import CompiledStep, tensors
+
+    def static_step(ids, labels):
+        opt.zero_grad(set_to_none=True)
+        loss = tfm.bert_classifier_loss(params, cfg, ids, labels)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    def bindings():
+        groups = opt.param_groups
+        return [*tensors(params), *(p for g in groups for p in g["params"]),
+                *tensors(list(opt.state.values())),
+                *(g[k] for g in groups for k in sorted(g) if k != "params")]
+
+    return CompiledStep(static_step, bindings, "bert_finetune_step")
+
+
+def _launched(counts):
+    """The kernels of ``counts`` that launched, with their counts."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def bert_finetune(mods):
+    """Phase 16 (a): the fine-tune, replayed (the main path) and eager
+    from identical params on one fixed batch; bit for bit equal, finite,
+    falling, no hand-written kernel launched."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+
+    cfg, init = bert_setup(tfm, remat=True, attn_scores_bf16=True)
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                       (BERT_BATCH, BERT_T)), device="cuda")
+    labels = torch.as_tensor(rng.integers(0, cfg.num_labels, BERT_BATCH),
+                             device="cuda")
+    runs, counts = {}, None
+    for way, graphs in (("replayed", True), ("eager", False)):
+        params = _clone_params(init)
+        step = bert_finetune_step(tfm, cfg, params,
+                                  _adamw(tfm, params, 2e-5))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if graphs:
+            reset_all(*mods)
+        losses, secs, kinds = [], [], []
+        with contextlib.nullcontext() if graphs else disable_graphs():
+            for _ in range(BERT_FT_STEPS):
+                t0 = time.perf_counter()
+                loss = step(ids, labels)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(loss.item())
+                kinds.append(step.last)
+            if graphs:
+                counts = all_counts(*mods)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            final = [(n, p.detach().clone())
+                     for n, p in _named_leaves(params)]
+            prof = profile_step(lambda: step(ids, labels))
+        timed = list(range(BERT_FT_WARM, BERT_FT_STEPS))
+        wall = float(np.median([secs[i] for i in timed]))
+        rec = {"losses": losses, "step_kinds": kinds,
+               "timed_steps": [i + 1 for i in timed],
+               "wall_ms_per_step": wall * 1e3, "steps_per_s": 1 / wall,
+               "seq_per_s": BERT_BATCH / wall,
+               "tok_per_s": BERT_BATCH * BERT_T / wall,
+               "peak_alloc_gib": peak}
+        add_profile(rec, prof)
+        rec["top_kernels"] = prof["top_kernels"][:6]
+        log(f"bert fine-tune {way} (BERT-base B{BERT_BATCH} T{BERT_T} bf16, "
+            f"remat full, bf16 scores, AdamW 2e-5, "
+            f"{'graph replays' if graphs else 'eager'}): {json.dumps(rec)}")
+        runs[way] = (rec, final)
+        del params, step
+        torch.cuda.empty_cache()
+    (rr, rf), (er, ef) = runs["replayed"], runs["eager"]
+    diff = first_diff(ef, rf)
+    failed = []
+    if rr["step_kinds"] != ["eager", "capture",
+                            *["replay"] * (BERT_FT_STEPS - 2)]:
+        failed.append(f"steps {rr['step_kinds']} did not replay a graph")
+    if rr["losses"] != er["losses"] or diff is not None:
+        failed.append(f"replayed differ from eager (losses equal "
+                      f"{rr['losses'] == er['losses']}, first differing "
+                      f"leaf {diff})")
+    for way, (r, _) in runs.items():
+        if not (all(np.isfinite(r["losses"]))
+                and r["losses"][-1] < r["losses"][0]):
+            failed.append(f"{way}: loss not finite or not falling")
+    if _launched(counts):
+        failed.append(f"hand-written kernels launched: {counts}")
+    log(f"bert fine-tune replayed vs eager: losses equal "
+        f"{rr['losses'] == er['losses']}, params and AdamW state "
+        f"bit-identical {diff is None}; wall ms a step {rr['wall_ms_per_step']:.2f} "
+        f"vs {er['wall_ms_per_step']:.2f}; launches {json.dumps(counts)}")
+    if failed:
+        raise SystemExit(f"bert fine-tune: {failed}")
+    return counts
+
+
+def bert_mlm(mods):
+    """Phase 16 (b): MLM pretraining from ``BertIterator`` batches of an
+    in-script corpus (special ids and the attention mask fed), replayed
+    (the main path) and eager from identical params and generator
+    state: bit for bit equal; two replays on the same batch drew
+    different masks."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.nlp import BertIterator, \
+        BertWordPieceTokenizer
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+
+    tok = BertWordPieceTokenizer(bert_vocab())
+    it = BertIterator(tok, bert_corpus(BERT_MLM_SENTENCES),
+                      task=BertIterator.UNSUPERVISED, max_length=BERT_T,
+                      batch_size=BERT_BATCH, drop_last=True)
+    batches = [b for b in it]
+    cfg, init = bert_setup(tfm, seed=1, remat=True, attn_scores_bf16=True)
+    feed = [tuple(torch.as_tensor(a, device="cuda") for a in
+                  (b.features[0], b.features[1], b.features_masks[0]))
+            for b in batches] * BERT_MLM_EPOCHS
+    runs, counts = {}, None
+    for way, graphs in (("replayed", True), ("eager", False)):
+        params = _clone_params(init)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        step = tfm.make_bert_mlm_train_step(
+            cfg, _adamw(tfm, params, 1e-4), it.mask_id,
+            special_ids=it.special_ids, generator=gen)
+        if graphs:
+            reset_all(*mods)
+        losses, secs, kinds, states = [], [], [], []
+        with contextlib.nullcontext() if graphs else disable_graphs():
+            for ids, type_ids, mask in feed:
+                states.append(gen.get_state())
+                t0 = time.perf_counter()
+                loss = step(params, ids, type_ids, mask)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                losses.append(loss.item())
+                kinds.append(step.compiled.last)
+            if graphs:
+                counts = all_counts(*mods)
+            final = [(n, p.detach().clone())
+                     for n, p in _named_leaves(params)]
+            end_state = gen.get_state()
+            prof = profile_step(lambda: step(params, *feed[0]))
+        timed = [i for i, k in enumerate(kinds) if k == "replay"] or \
+            list(range(1, len(kinds)))
+        wall = float(np.median([secs[i] for i in timed]))
+        rec = {"losses": losses, "step_kinds": kinds,
+               "wall_ms_per_step": wall * 1e3, "steps_per_s": 1 / wall,
+               "seq_per_s": BERT_BATCH / wall,
+               "live_tokens_per_batch": [int(b.features_masks[0].sum())
+                                         for b in batches]}
+        add_profile(rec, prof)
+        rec["top_kernels"] = prof["top_kernels"][:6]
+        log(f"bert MLM pretrain {way} (BERT-base, {len(batches)} "
+            f"BertIterator batches of B{BERT_BATCH} T{BERT_T} x "
+            f"{BERT_MLM_EPOCHS} epochs, AdamW 1e-4, "
+            f"{'graph replays' if graphs else 'eager'}): {json.dumps(rec)}")
+        runs[way] = (rec, final, states, end_state)
+        del params, step
+        torch.cuda.empty_cache()
+    (rr, rf, _, rgen), (er, ef, states, egen) = runs["replayed"], \
+        runs["eager"]
+    diff = first_diff(ef, rf)
+    # the masks the replays at steps i and i + n_batches drew on the same
+    # batch, from the generator states the eager run recorded there (the
+    # same states, as the trajectories are equal)
+    n = len(batches)
+    i = next(k for k, kind in enumerate(rr["step_kinds"])
+             if kind == "replay" and k + n < len(feed))
+    specials = torch.tensor(it.special_ids, device="cuda")
+    weights = []
+    for k in (i, i + n):
+        g = torch.Generator(device="cuda")
+        g.set_state(states[k])
+        ids = feed[k][0]
+        _, _, w = tfm.bert_mask_tokens(g, ids, cfg, it.mask_id,
+                                       special_mask=torch.isin(ids, specials))
+        weights.append(w)
+    masks_differ = not torch.equal(weights[0], weights[1])
+    specials_kept = all(float((w * torch.isin(feed[i][0], specials)).sum())
+                        == 0.0 for w in weights)
+    failed = []
+    if rr["losses"] != er["losses"] or diff is not None:
+        failed.append(f"replayed differ from eager (losses equal "
+                      f"{rr['losses'] == er['losses']}, first differing "
+                      f"leaf {diff})")
+    if rr["step_kinds"][:3] != ["eager", "capture", "replay"]:
+        failed.append(f"steps {rr['step_kinds']} did not replay a graph")
+    if not all(np.isfinite(rr["losses"])):
+        failed.append("non-finite loss")
+    if not masks_differ or not specials_kept:
+        failed.append(f"replays {i + 1} and {i + n + 1} on one batch: masks "
+                      f"differ {masks_differ}, specials never selected "
+                      f"{specials_kept}")
+    if _launched(counts):
+        failed.append(f"hand-written kernels launched: {counts}")
+    log(f"bert MLM replayed vs eager: losses equal "
+        f"{rr['losses'] == er['losses']}, params bit-identical "
+        f"{diff is None}, generator state equal "
+        f"{torch.equal(rgen, egen)} (read, not held); replays {i + 1} and "
+        f"{i + n + 1} on batch {i % n}: masks differ {masks_differ} "
+        f"({int(weights[0].sum())} and {int(weights[1].sum())} selected), "
+        f"specials never selected {specials_kept}; launches "
+        f"{json.dumps(counts)}")
+    if failed:
+        raise SystemExit(f"bert MLM: {failed}")
+    return counts
+
+
+class _Served:
+    """The calls of one ``ParallelInference``: each call's kind and its
+    hand-written kernels' launches (a replay at its signature's
+    capture's), and the K3 cases it handed the wrappers."""
+
+    def __init__(self, pi, counts):
+        self.pi, self.counts = pi, counts
+        self.captured, self.per_call = {}, []
+
+    def __call__(self, x):
+        before = self.counts()
+        out = self.pi.output(x)
+        kind = self.pi._infer.last
+        sig = (tuple(x.shape), str(x.dtype))
+        d = {k: v - before[k] for k, v in self.counts().items()}
+        if kind == "capture":
+            self.captured[sig] = d
+        self.per_call.append(self.captured[sig] if kind == "replay" else d)
+        return out
+
+    def total(self):
+        return {k: sum(c[k] for c in self.per_call) for k in self.counts()}
+
+
+def served_kernels(fn, iters=10):
+    """The device launches of one ``fn`` call (kernels and copies, from a
+    ``torch.profiler`` trace of ``iters`` calls), their mean device µs,
+    and the five kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((_self_device_us(ev), ev.count, ev.key)
+                   for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and ev.count), reverse=True)
+    n = sum(r[1] for r in rows) / iters
+    return {"launches_per_call": n,
+            "mean_us_per_launch": sum(r[0] for r in rows) / iters / n,
+            "top": [{"name": k[:60], "us_per_call": us / iters,
+                     "calls_per_call": c / iters}
+                    for us, c, k in rows[:5]]}
+
+
+def serve_sweep(served, make_batch, batches, tag):
+    """bench.py's ``_latency_sweep`` on the port: every batch size warmed
+    (eager, capture, replay) and ``mark_warm()``; batch-1 p50 and p99 over
+    ``SERVE_LAT_ITERS`` calls, each the wall of ``output()`` and the read
+    of its result to the host; per batch size the samples/s of the best
+    of ``SERVE_SWEEP_ITERS``; the batch-1 split: dispatch (``output()``
+    returning), device ms (``torch.profiler``), busy share; retraces after
+    warm."""
+    from deeplearning4j_tpu_torch.obs import CompileSentinel
+
+    pi = served.pi
+    sentinel = CompileSentinel(f"serve_{tag}", pi._infer or pi._build())
+    xs = {b: make_batch(b) for b in batches}
+    for b in batches:
+        for _ in range(3):
+            served(xs[b]).cpu()
+    sentinel.mark_warm()
+    lat, disp = [], []
+    for _ in range(SERVE_LAT_ITERS):
+        t0 = time.perf_counter()
+        out = served(xs[1])
+        t1 = time.perf_counter()
+        out.cpu()
+        lat.append(time.perf_counter() - t1 + (t1 - t0))
+        disp.append(t1 - t0)
+    lat.sort()
+    p50 = lat[len(lat) // 2]
+    p99 = lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))]
+    sweep = {}
+    for b in batches:
+        times = []
+        for _ in range(SERVE_SWEEP_ITERS):
+            t0 = time.perf_counter()
+            served(xs[b]).cpu()
+            times.append(time.perf_counter() - t0)
+        sweep[str(b)] = b / min(times)
+    dev = device_ms(lambda: served(xs[1]), iters=20)
+    kernels = served_kernels(lambda: served(xs[1]))
+    return {"p50_ms": p50 * 1e3, "p99_ms": p99 * 1e3,
+            "iters": SERVE_LAT_ITERS,
+            "batch_sweep_samples_per_s": sweep,
+            "b1_dispatch_ms_p50": float(np.median(disp)) * 1e3,
+            "b1_device_ms": dev, "b1_busy_share": dev / (p50 * 1e3),
+            "b1_kernels": kernels,
+            "captures": pi._infer.calls["capture"],
+            "calls": dict(pi._infer.calls),
+            "retraces_after_warm": sentinel.retraces_after_warm}, xs
+
+
+def bert_serve(mods):
+    """Phase 16 (c): BERT-base served through ``FunctionalInferenceModel``
+    + ``ParallelInference`` (bench.py:2074-2101: the default bf16 config,
+    no mask): latency and the batch sweep, the served logits equal to an
+    eager forward's and within MAX_KL of the f32 forward's, then a burst
+    of one-row submits that one deadline flush resolves."""
+    from deeplearning4j_tpu_torch.obs import get_registry
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.serving import FunctionalInferenceModel
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+
+    cfg, params = bert_setup(tfm, seed=2)
+    model = FunctionalInferenceModel(
+        params, lambda p, ids: tfm.bert_forward(p, cfg, ids)[0])
+    rng = np.random.default_rng(0)
+
+    def make_batch(b):
+        return rng.integers(0, cfg.vocab_size, (b, BERT_T)).astype(np.int32)
+
+    reset_all(*mods)
+    pi = ParallelInference(model, max_batch=64)
+    served = _Served(pi, lambda: all_counts(*mods))
+    rec, xs = serve_sweep(served, make_batch, BERT_SERVE_BATCHES, "bert")
+    # the deadline flush: one-row requests of a warmed signature
+    pi2 = ParallelInference(model, max_batch=64,
+                            max_wait_ms=SERVE_BURST_WAIT_MS)
+    burst = make_batch(SERVE_BURST)
+    for _ in range(3):
+        pi2.output(burst).cpu()
+    captures = pi2._infer.calls["capture"]
+    reg = get_registry()
+    before = {n: (reg.get(n).value() if reg.get(n) else 0.0) for n in (
+        "dl4j_inference_deadline_flushes_total",
+        "dl4j_inference_batches_total")}
+    t0 = time.perf_counter()
+    futs = [pi2.submit(burst[i:i + 1]) for i in range(SERVE_BURST)]
+    parts = [f.result(timeout=60).cpu() for f in futs]
+    burst_s = time.perf_counter() - t0
+    flushes = {n: reg.get(n).value() - v for n, v in before.items()}
+    burst_ok = (torch.equal(torch.cat(parts), pi2.output(burst).cpu())
+                and pi2._infer.calls["capture"] == captures
+                and all(v == 1 for v in flushes.values()))
+    counts = served.total()
+    x8 = torch.as_tensor(xs[8], device="cuda")
+    served_out = pi.output(xs[8])
+    eager = tfm.bert_forward(params, cfg, x8)[0]
+    f32 = tfm.bert_forward(params, dataclasses.replace(
+        cfg, dtype=torch.float32), x8)[0]
+    kl = kl_rows(f32, served_out).max().item()
+    equal = torch.equal(served_out, eager)
+    rec.update({"burst": {"requests": SERVE_BURST,
+                          "max_wait_ms": SERVE_BURST_WAIT_MS,
+                          "resolved_s": burst_s, "flushes": flushes,
+                          "ok": burst_ok},
+                "served_equals_eager_forward": equal,
+                "kl_vs_f32_forward_max": kl, "launches": counts})
+    log(f"bert served (BERT-base T{BERT_T} bf16 through "
+        f"FunctionalInferenceModel + ParallelInference(max_batch=64)): "
+        f"{json.dumps(rec)}")
+    failed = []
+    if not equal or not kl <= MAX_KL:
+        failed.append(f"served logits: equal to the eager forward {equal}, "
+                      f"KL vs f32 {kl:.3e} (limit {MAX_KL})")
+    if not burst_ok:
+        failed.append("the burst was not resolved by one deadline flush "
+                      "of its captured signature")
+    if rec["retraces_after_warm"] or rec["captures"] != len(
+            BERT_SERVE_BATCHES):
+        failed.append(f"captures {rec['captures']}, retraces after warm "
+                      f"{rec['retraces_after_warm']}")
+    if _launched(counts):
+        failed.append(f"hand-written kernels launched: {counts}")
+    if failed:
+        raise SystemExit(f"bert serving: {failed}")
+    return counts, rec
+
+
+def resnet_serve(mods, fo, checked, gen):
+    """Phase 16 (d): ResNet-50 bf16 served through ``ParallelInference``
+    (bench.py:2049-2071): latency and the sweep at batch 1, 8 and 32, the
+    served rows equal to ``net.output()``'s, K3's normalize launched 33
+    times a batch, every K3 shape it ran held against the plain version
+    (here, where phase 7 did not hold it)."""
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
+
+    net = ResNet50(num_classes=1000, compute_dtype=torch.bfloat16).init()
+    rng = np.random.default_rng(0)
+
+    def make_batch(b):
+        return rng.random((b, RESNET_HW, RESNET_HW, 3), np.float32)
+
+    reset_all(*mods)
+    pi = ParallelInference(net, max_batch=64)
+    served = _Served(pi, lambda: all_counts(*mods))
+    with _k3_cases(fo) as cases:
+        rec, xs = serve_sweep(served, make_batch, RESNET_SERVE_BATCHES,
+                              "resnet50")
+    counts = served.total()
+    per_call = {"bn_act": 33, "bn_stats": 0, "bn_bwd_reduce": 0,
+                "bn_bwd_dx": 0}
+    calls_ok = all(_launched(c) == {"bn_act": 33}
+                   for c in served.per_call)
+    equal = {}
+    for b in RESNET_SERVE_BATCHES:
+        out = pi.output(xs[b])
+        want = net.output(xs[b])
+        equal[b] = bool(torch.equal(out, want))
+    finite = bool(torch.isfinite(out.float()).all())
+    sums = out.float().sum(-1)
+    rows_ok = bool(torch.allclose(sums, torch.ones_like(sums), atol=2e-2))
+    seen = sorted(set(cases), key=str)
+    new = {}
+    for dt, n, c, act in seen:
+        if (dt, n, c, act) not in checked:
+            new.setdefault((dt, n, c), []).append(act)
+    held = {}
+    for (dt, n, c), acts in new.items():
+        held[f"{str(dt)[6:]} N{n} C{c}"] = check_k3(
+            fo, dt, n, c, gen, acts=tuple(acts), time_it=False)[
+            "max_abs_err"]
+    # K3's normalize at the batch-1 stem shape, timed (row 5 at serving's
+    # smallest N)
+    b1 = check_k3(fo, torch.bfloat16, 112 * 112, 64, gen, hw=112)["bn_act"]
+    rec.update({"launches": counts, "launches_per_call_ok": calls_ok,
+                "served_equals_net_output": equal, "finite": finite,
+                "rows_sum_to_1": rows_ok,
+                "k3_cases": [f"{str(dt)[6:]} N{n} C{c} {a}"
+                             for dt, n, c, a in seen],
+                "k3_held_here": held,
+                "k3_b1_stem": {k: b1[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "max_abs_err")}})
+    log(f"resnet50 served (bf16, ParallelInference(max_batch=64), "
+        f"fused=auto): {json.dumps(rec)}")
+    failed = []
+    if not all(equal.values()) or not finite or not rows_ok:
+        failed.append(f"served rows: equal to net.output() {equal}, finite "
+                      f"{finite}, rows sum to 1 {rows_ok}")
+    if not calls_ok:
+        failed.append(f"K3 launches a call, want {per_call}")
+    if rec["retraces_after_warm"] or rec["captures"] != len(
+            RESNET_SERVE_BATCHES):
+        failed.append(f"captures {rec['captures']}, retraces after warm "
+                      f"{rec['retraces_after_warm']}")
+    if failed:
+        raise SystemExit(f"resnet50 serving: {failed}")
+    return counts, rec
+
+
+def bert_phase(fa, pa, fo, fl, k3_checked, gen):
+    """Phase 16: BERT fine-tuned, MLM-pretrained and served, and ResNet-50
+    served, each part its own path (counts set to 0 just before it).
+    Returns the launch counts by path."""
+    mods = (fa, pa, fo, fl)
+    t0 = time.perf_counter()
+    out = {"bert_finetune": bert_finetune(mods)}
+    t1 = time.perf_counter()
+    out["bert_mlm"] = bert_mlm(mods)
+    t2 = time.perf_counter()
+    out["bert_serve"], _ = bert_serve(mods)
+    t3 = time.perf_counter()
+    out["resnet_serve"], _ = resnet_serve(mods, fo, k3_checked, gen)
+    t4 = time.perf_counter()
+    log(f"phase 16 host seconds: fine-tune {t1 - t0:.1f}, MLM "
+        f"{t2 - t1:.1f}, BERT serving {t3 - t2:.1f}, ResNet-50 serving "
+        f"{t4 - t3:.1f}")
+    return out
+
+
 def _values_equal(a, b):
     """Nested lists / numbers / arrays equal exactly."""
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
@@ -4906,6 +5492,10 @@ def main():
                     help="build the kernels and run phase 15 (the "
                          "quantization and speculation plane) only (prints "
                          "no result line)")
+    ap.add_argument("--bert-only", action="store_true",
+                    help="build the kernels and run phase 16 (BERT trained "
+                         "and served, ResNet-50 served) only, holding every "
+                         "K3 shape it runs itself (prints no result line)")
     ap.add_argument("--sweep-times", metavar="ROOT",
                     help="only time phase 4's steady decode sweeps, dense "
                          "and paged, with their host split, for the port "
@@ -4954,6 +5544,9 @@ def main():
         quant_spec_plane(fa, pa, smi)
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.bert_only:
+        bert_phase(fa, pa, fo, fl, set(), gen)
+        return 0
     k2 = {dt: check_paged(pa, dt, gen)
           for dt in (torch.bfloat16, torch.float32)}
     # an LM of head dim 320 (d_model 640, 2 heads): past 256
@@ -5060,11 +5653,14 @@ def main():
     by_path.update({p: {**serving_zero, **c}
                     for p, c in quant_spec_plane(fa, pa, smi).items()})
     mark("15 quant/spec plane")
+    by_path.update(bert_phase(fa, pa, fo, fl, k3_checked, gen))
+    mark("16 BERT and serving")
     log(f"host seconds by phase (after the build): {json.dumps(seconds)}")
     # the stage-0 BN's shape (N = 128*56*56, C = 256) stands for K3
     main_k3 = k3[(torch.bfloat16, RESNET_BATCH * 56 * 56, 256)]
     resnet_paths = ("resnet_train", "resnet_output", "resnet_fitscan",
-                    "workflow_resnet_fit", "workflow_resnet_evaluate")
+                    "workflow_resnet_fit", "workflow_resnet_evaluate",
+                    "resnet_serve")
     main_k1 = k1[(torch.bfloat16, 1, 2048, 64)]    # a dense prefill's shape
     train_k1 = k1[(torch.bfloat16, 32, 1024, 64)]  # the train path's shape
     main_k2 = k2[torch.bfloat16]

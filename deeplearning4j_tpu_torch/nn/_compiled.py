@@ -231,7 +231,12 @@ class CompiledStep:
         self._watch[key] = [x if isinstance(x, torch.Generator)
                             else weakref.ref(x, gone) for x in leaves]
 
-    def __call__(self, *batch):
+    def __call__(self, *batch, capture=True):
+        """Run the step on ``batch``. With ``capture=False`` the call
+        never captures: where this signature's next call would capture,
+        it runs the eager stage again, and a later call that allows it
+        captures (a thread that must not capture, as a deadline timer's,
+        calls so)."""
         dev = _device(batch)
         key = signature(batch)
         if dev.type != "cuda" or not graphs_enabled():
@@ -243,7 +248,7 @@ class CompiledStep:
             self.reset()
             self._bound = bound
         g = self._graphs.get(key)
-        if g is None:
+        if g is None or (g is False and not capture):
             out = self._eager(dev, batch)
             # the step may have allocated state lazily (torch.optim's):
             # graphs captured before it would not see that state

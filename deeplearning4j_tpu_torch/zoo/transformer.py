@@ -20,8 +20,18 @@ logits, or the fused chunked cross-entropy that never holds the (N, V)
 f32 logits), per-block rematerialization over ``torch.utils.checkpoint``
 (:func:`_remat_wrap`), and :func:`make_train_step`, one AdamW step in
 place on the params dict. With flash attention engaged, the backward runs
-the port's dQ and dK/dV kernels. MoE, ring/sharded attention and BERT
-are not ported yet and raise ``NotImplementedError``.
+the port's dQ and dK/dV kernels. MoE and ring/sharded attention are not
+ported yet and raise ``NotImplementedError``.
+
+The BERT family (the reference's ``BertConfig`` through
+``make_bert_mlm_train_step``): the bidirectional encoder over the LM's
+block (learned positions and token types, no embedding scale, the
+padding mask as an additive bias on either attention arm), the
+classifier and MLM losses (the MLM decoder tied to ``embed``; the fused
+form over :func:`_chunked_ce`), on-device masking from a
+``torch.Generator``, and the compiled MLM pretrain step. It runs no
+hand-written kernel, as the reference's runs no Pallas one: at BERT's
+lengths both attention arms are plain torch ops.
 """
 
 from __future__ import annotations
@@ -183,12 +193,17 @@ def _attention(cfg, q, k, v):
     return out.reshape(b, t, cfg.n_heads * cfg.head_dim)
 
 
-def dot_product_attention(q, k, v, is_causal=True):
+def dot_product_attention(q, k, v, is_causal=True, bias=None):
     """The ``jax.nn.dot_product_attention`` arm: (B, T, H, D) in, logits
-    in f32 (at least), f32 softmax, probs cast to v's dtype."""
+    in f32 (at least), f32 softmax, probs cast to v's dtype. ``bias``
+    (broadcastable to (B, H, T, S), e.g. BERT's padding mask) is added to
+    the logits in their dtype after the scale, before the causal mask, as
+    JAX adds it."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     ldt = torch.promote_types(q.dtype, torch.float32)
     logits = torch.einsum("btnh,bsnh->bnts", q.to(ldt), k.to(ldt)) * scale
+    if bias is not None:
+        logits = logits + bias.to(ldt)
     if is_causal:
         t, s = logits.shape[2], logits.shape[3]
         mask = torch.tril(torch.ones((t, s), dtype=torch.bool,
@@ -199,14 +214,19 @@ def dot_product_attention(q, k, v, is_causal=True):
     return torch.einsum("bnts,bsnh->btnh", probs, v)
 
 
-def _xla_attention_bf16_scores(q, k, v, causal=True):
+def _xla_attention_bf16_scores(q, k, v, causal=True, bias=None):
     """Attention with the (B, H, T, S) scores materialized in bf16:
-    q pre-scaled in f32 then cast, QK^T stored bf16, masked at half the
-    bf16 minimum, softmax in f32, probs cast back. (B, T, H, D) in/out."""
+    q pre-scaled in f32 then cast, QK^T stored bf16, ``bias``
+    (broadcastable to (B, H, T, S)) cast to bf16 and added to the bf16
+    logits (BERT's padding −1e9 becomes −998244352, as in the reference),
+    then masked at half the bf16 minimum, softmax in f32, probs cast back.
+    (B, T, H, D) in/out."""
     t = q.shape[1]
     scale = 1.0 / math.sqrt(q.shape[-1])
     q = (q.float() * scale).to(q.dtype)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if bias is not None:
+        logits = logits + bias.to(torch.bfloat16)
     if causal:
         # half the bf16 minimum is a bf16 value: the fill is exact
         mask = torch.tril(torch.ones((t, t), dtype=torch.bool,
@@ -293,9 +313,23 @@ def _mlp_half(cfg, x, a, wo, ln2, w_in, w_out):
     return x + _dense_mlp(cfg, h2, w_in, w_out)
 
 
-def _block(cfg, x, w):
-    a = _attn_half(cfg, x, w["ln1"], w["wqkv"])[0]
-    return _mlp_half(cfg, x, a, w["wo"], w["ln2"], w["w_in"], w["w_out"])
+def _lm_attn(cfg, x, ln1, wqkv):
+    """The LM block's attention half (causal), its output only."""
+    return _attn_half(cfg, x, ln1, wqkv)[0]
+
+
+def _block_of(attn):
+    """The block ``(cfg, x, w) → x`` around the attention half
+    ``attn(cfg, x, ln1, wqkv) → a``: the LM's (:func:`_lm_attn`) or
+    BERT's (bidirectional, with its padding bias)."""
+    def block(cfg, x, w):
+        a = attn(cfg, x, w["ln1"], w["wqkv"])
+        return _mlp_half(cfg, x, a, w["wo"], w["ln2"], w["w_in"],
+                         w["w_out"])
+    return block
+
+
+_block = _block_of(_lm_attn)
 
 
 def _checkpoint(fn, *args, **kw):
@@ -315,9 +349,11 @@ def _save_ops(ops):
                              policy)
 
 
-def _remat_wrap(policy: str):
-    """The block ``(cfg, x, w) → x`` under ``torch.utils.checkpoint``
-    with one of the reference's rematerialization policies:
+def _remat_wrap(policy: str, attn=_lm_attn):
+    """The block ``(cfg, x, w) → x`` (:func:`_block_of` ``attn``: the
+    LM's by default, BERT's with its own attention half) under
+    ``torch.utils.checkpoint`` with one of the reference's
+    rematerialization policies:
 
     - ``"full"``: save only the block input, recompute everything;
     - ``"save_attn"``: also keep the attention output. The block is split
@@ -337,21 +373,30 @@ def _remat_wrap(policy: str):
     mm = {aten.mm.default, aten.addmm.default}
     dots = {"dots": mm | {aten.bmm.default, aten.baddbmm.default},
             "dots_no_batch": mm}
+    block = _block_of(attn)
     if policy == "full":
-        return lambda cfg, x, w: _checkpoint(_block, cfg, x, w)
+        return lambda cfg, x, w: _checkpoint(block, cfg, x, w)
     if policy == "save_attn":
         def run(cfg, x, w):
-            a = _checkpoint(lambda *xs: _attn_half(*xs)[0], cfg, x,
-                            w["ln1"], w["wqkv"])
+            a = _checkpoint(attn, cfg, x, w["ln1"], w["wqkv"])
             return _checkpoint(_mlp_half, cfg, x, a, w["wo"], w["ln2"],
                                w["w_in"], w["w_out"])
         return run
     if policy in dots:
         ctx = _save_ops(dots[policy])
-        return lambda cfg, x, w: _checkpoint(_block, cfg, x, w,
+        return lambda cfg, x, w: _checkpoint(block, cfg, x, w,
                                              context_fn=ctx)
     raise ValueError(f"Unknown remat_policy {policy!r}; expected one of "
                      f"{sorted(['full', 'save_attn', *dots])}")
+
+
+def _layers(blocks, n_layers):
+    """The stacked blocks as a list of per-layer dicts, the first
+    ``n_layers``; one unbind per leaf, so that its backward stacks the L
+    grads once."""
+    layers = [dict(zip(blocks, ws))
+              for ws in zip(*(w.unbind(0) for w in blocks.values()))]
+    return layers[:n_layers]
 
 
 def apply_blocks(blocks, cfg: TransformerConfig, x, *, return_kv=False):
@@ -363,10 +408,7 @@ def apply_blocks(blocks, cfg: TransformerConfig, x, *, return_kv=False):
     if cfg.n_experts:
         raise NotImplementedError("MoE blocks are not ported yet")
     b, t = x.shape[0], x.shape[1]
-    # one unbind per leaf: its backward stacks the L grads once
-    layers = [dict(zip(blocks, ws))
-              for ws in zip(*(w.unbind(0) for w in blocks.values()))]
-    layers = layers[:cfg.n_layers]
+    layers = _layers(blocks, cfg.n_layers)
     block = _block
     if cfg.remat and torch.is_grad_enabled() and not return_kv:
         block = _remat_wrap(cfg.remat_policy)
@@ -552,3 +594,281 @@ def generate(params, cfg: TransformerConfig, prompt_ids, max_new_tokens=32,
     return eng.generate(prompt_ids, max_new_tokens, generator=generator,
                         temperature=temperature, top_k=top_k,
                         eos_id=eos_id)
+
+
+# ------------------------------------------------------------- BERT family
+
+@dataclass(frozen=True)
+class BertConfig:
+    vocab_size: int = 30522
+    d_model: int = 768
+    n_heads: int = 12
+    n_layers: int = 12
+    d_ff: int = 3072
+    max_seq: int = 512
+    type_vocab: int = 2
+    num_labels: int = 2
+    dtype: Any = torch.bfloat16
+    param_dtype: Any = torch.float32
+    # per-block rematerialization when grad is enabled, under the LM's
+    # policies ("full" | "dots" | "dots_no_batch" | "save_attn")
+    remat: bool = False
+    remat_policy: str = "full"
+    # materialize bf16 scores (the bf16-scores arm; off = the
+    # jax.nn.dot_product_attention arm)
+    attn_scores_bf16: bool = False
+
+
+def bert_init(cfg: BertConfig, generator: Optional[torch.Generator] = None,
+              device=None):
+    """The BERT encoder's params with the reference's names and shapes:
+    learned positions and token types, stacked blocks, the pooler and a
+    zero classification head, and the MLM head (dense, norm scale,
+    decoder bias; the decoder weight is ``embed``, tied). Drawn from
+    ``generator`` as :func:`init_params` draws the LM's."""
+    dev = resolve_device(device)
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
+    pd = cfg.param_dtype
+
+    def norm(shape, fan_in):
+        x = torch.randn(shape, generator=generator, dtype=torch.float32)
+        return (x / math.sqrt(fan_in)).to(device=dev, dtype=pd)
+
+    def small(shape):
+        x = torch.randn(shape, generator=generator, dtype=torch.float32)
+        return (0.02 * x).to(device=dev, dtype=pd)
+
+    return {
+        "embed": norm((cfg.vocab_size, d), d),
+        "pos_embed": small((cfg.max_seq, d)),
+        "type_embed": small((cfg.type_vocab, d)),
+        "blocks": {
+            "ln1": torch.ones((L, d), dtype=pd, device=dev),
+            "wqkv": norm((L, d, 3 * d), d),
+            "wo": norm((L, d, d), d),
+            "ln2": torch.ones((L, d), dtype=pd, device=dev),
+            "w_in": norm((L, d, f), d),
+            "w_out": norm((L, f, d), f),
+        },
+        "pooler": norm((d, d), d),
+        "cls": torch.zeros((d, cfg.num_labels), dtype=pd, device=dev),
+        "mlm_dense": norm((d, d), d),
+        "mlm_ln": torch.ones((d,), dtype=pd, device=dev),
+        "mlm_bias": torch.zeros((cfg.vocab_size,), dtype=pd, device=dev),
+    }
+
+
+def bert_params_from_numpy(tree, cfg: BertConfig, device=None):
+    """The JAX package's BERT params, as numpy arrays, → the port's
+    tensors (as :func:`params_from_numpy`). The tree has no decoder
+    leaf: the MLM head projects on ``embed``, so the tie holds in the
+    port as one tensor."""
+    return params_from_numpy(tree, cfg, device)
+
+
+def _bert_attn(bias):
+    """BERT's attention half ``(cfg, x, ln1, wqkv) → a``: bidirectional,
+    the padding ``bias`` (None, or (B, 1, 1, T) f32) on the logits; the
+    bf16-scores arm when ``cfg.attn_scores_bf16`` and the compute dtype
+    is bf16, else the ``jax.nn.dot_product_attention`` arm."""
+    def attn(cfg, x, ln1, wqkv):
+        b, t = x.shape[0], x.shape[1]
+        nh = cfg.n_heads
+        hd = cfg.d_model // nh
+        h = _rmsnorm(x, ln1)
+        q, k, v = (h @ wqkv.to(h.dtype)).chunk(3, dim=-1)
+        q = q.reshape(b, t, nh, hd)
+        k = k.reshape(b, t, nh, hd)
+        v = v.reshape(b, t, nh, hd)
+        if cfg.attn_scores_bf16 and q.dtype == torch.bfloat16:
+            a = _xla_attention_bf16_scores(q, k, v, causal=False, bias=bias)
+        else:
+            a = dot_product_attention(q, k, v, is_causal=False, bias=bias)
+        return a.reshape(b, t, nh * hd)
+    return attn
+
+
+def bert_forward(params, cfg: BertConfig, ids, type_ids=None,
+                 attn_mask=None, *, train=False):
+    """ids (B, T) int → ``(logits, hidden)``: the classifier's (B,
+    num_labels) f32 logits (tanh pooler on position 0, then ``cls``) and
+    the final hidden states (B, T, d) in the compute dtype. Learned
+    positions and no embedding scale; ``type_ids`` (B, T) add the token
+    type embedding; ``attn_mask`` (B, T), > 0 where a token is real, masks
+    the padded keys with a −1e9 bias. Each block is rematerialized under
+    ``cfg.remat_policy`` when ``cfg.remat`` is on and grad is enabled.
+    Runs under ``torch.no_grad()`` unless ``train=True``."""
+    with contextlib.nullcontext() if train else torch.no_grad():
+        t = ids.shape[1]
+        # indexing, not F.embedding: on CUDA the latter's backward sums
+        # repeated ids in an order that varies from run to run, and a
+        # replayed step must equal the eager one bit for bit
+        x = params["embed"][ids.long()].to(cfg.dtype)
+        x = x + params["pos_embed"][:t].to(cfg.dtype)
+        if type_ids is not None:
+            x = x + params["type_embed"][type_ids.long()].to(cfg.dtype)
+        bias = None
+        if attn_mask is not None:
+            bias = torch.where(attn_mask[:, None, None, :] > 0, 0.0, -1e9
+                               ).to(torch.float32)
+        attn = _bert_attn(bias)
+        block = _block_of(attn)
+        if cfg.remat and torch.is_grad_enabled():
+            block = _remat_wrap(cfg.remat_policy, attn)
+        for w in _layers(params["blocks"], cfg.n_layers):
+            x = block(cfg, x, w)
+        pooled = torch.tanh(x[:, 0] @ params["pooler"].to(x.dtype))
+        logits = pooled @ params["cls"].to(x.dtype)
+        return logits.float(), x
+
+
+def bert_classifier_loss(params, cfg: BertConfig, ids, labels,
+                         type_ids=None, attn_mask=None):
+    """Mean NLL of ``labels``: integer class ids (B,) or one-hot (B,
+    num_labels), which ``BertIterator`` emits. Differentiable in the
+    params."""
+    logits, _ = bert_forward(params, cfg, ids, type_ids, attn_mask,
+                             train=True)
+    logp = torch.log_softmax(logits, dim=-1)
+    if labels.ndim == 2:
+        return -(logp * labels.to(logp.dtype)).sum(-1).mean()
+    return -logp.gather(-1, labels[:, None].long())[:, 0].mean()
+
+
+def _mlm_transform(params, hidden):
+    """The MLM head's dense + gelu + norm, in the compute dtype."""
+    h = gelu(hidden @ params["mlm_dense"].to(hidden.dtype))
+    return _rmsnorm(h, params["mlm_ln"])
+
+
+def bert_mlm_logits(params, cfg: BertConfig, hidden):
+    """The MLM decoder over the final hidden states: dense + gelu + norm,
+    then the projection on the tied ``embed`` plus ``mlm_bias`` in the
+    compute dtype → (B, T, vocab) f32."""
+    h = _mlm_transform(params, hidden)
+    logits = h @ params["embed"].to(h.dtype).T
+    return (logits + params["mlm_bias"].to(logits.dtype)).float()
+
+
+def bert_mask_tokens(generator, ids, cfg: BertConfig, mask_token_id,
+                     mask_prob: float = 0.15, special_mask=None):
+    """BERT's masking: each position is selected with ``mask_prob``
+    (never where ``special_mask`` (B, T) bool is set); of the selected,
+    80% become ``mask_token_id``, 10% a uniform random id and 10% stay.
+    Returns ``(masked_ids, labels, weights)``: labels are the original
+    ids, weights 1.0 at the selected positions (f32). Draws from
+    ``generator`` (on ``ids``' device), three draws over (B, T) in the
+    reference's order; static shapes, no host sync, so a captured step
+    draws afresh at every replay."""
+    dev = ids.device
+    sel = torch.rand(ids.shape, generator=generator, device=dev) < mask_prob
+    if special_mask is not None:
+        sel = sel & ~special_mask
+    op = torch.rand(ids.shape, generator=generator, device=dev)
+    rand_ids = torch.randint(0, cfg.vocab_size, ids.shape,
+                             generator=generator, device=dev,
+                             dtype=ids.dtype)
+    masked = torch.where(op < 0.8, mask_token_id,
+                         torch.where(op < 0.9, rand_ids, ids))
+    return torch.where(sel, masked, ids), ids, sel.float()
+
+
+def bert_mlm_loss(params, cfg: BertConfig, masked_ids, labels, weights,
+                  type_ids=None, attn_mask=None, fused: bool = True):
+    """Weighted cross-entropy over the selected positions, divided by
+    max(Σ weights, 1). ``fused`` runs the vocab projection through the
+    chunked cross-entropy (:func:`_chunked_ce`, chunks of 1024 rows, the
+    ``mlm_bias`` added in f32), so the (B, T, V) f32 logits never exist;
+    the head's dense + norm runs full size. Differentiable in the
+    params."""
+    _, hidden = bert_forward(params, cfg, masked_ids, type_ids, attn_mask,
+                             train=True)
+    denom = weights.sum().clamp_min(1.0)
+    if fused:
+        h = _mlm_transform(params, hidden)
+        b, t, d = h.shape
+        total = _chunked_ce(h.reshape(b * t, d),
+                            params["embed"].T.to(h.dtype),
+                            labels.reshape(b * t), 1024,
+                            weights=weights.reshape(b * t),
+                            bias=params["mlm_bias"])
+        return total / denom
+    logp = torch.log_softmax(bert_mlm_logits(params, cfg, hidden), dim=-1)
+    nll = -logp.gather(-1, labels[..., None].long())[..., 0]
+    return (nll * weights).sum() / denom
+
+
+def make_bert_mlm_train_step(cfg: BertConfig, optimizer, mask_token_id,
+                             mask_prob: float = 0.15, special_ids=None,
+                             generator=None):
+    """One MLM pretrain step: ``step(params, ids, type_ids=None,
+    attn_mask=None) → loss`` masks ``ids`` on the device
+    (:func:`bert_mask_tokens`, never at ``special_ids`` such as PAD, CLS
+    and SEP, which ``BertIterator.special_ids`` gives), runs
+    ``zero_grad(set_to_none=True)``, the backward of the fused
+    :func:`bert_mlm_loss` and ``optimizer.step()``, updating the params
+    dict's leaves in place. Pass ``attn_mask`` so that attention ignores
+    padding (``BertIterator`` gives it as the first features mask).
+
+    The masks come from ``generator`` (``step.generator``; by default a
+    generator on the params' device seeded with 0, made at the first
+    call). The step is compiled as :func:`make_train_step`'s is: on CUDA
+    one CUDA graph per (ids, type_ids, attn_mask) signature after an
+    eager first call, the optimizer then capturable (one that is not
+    raises), and the generator registered with every graph, so that each
+    replay draws fresh masks from the generator's state, as an eager
+    step from that state would."""
+    from ..nn._compiled import CompiledStep, graphs_enabled, tensors
+
+    bound = {"gen": generator}
+
+    def static_step(ids, type_ids, attn_mask):
+        optimizer.zero_grad(set_to_none=True)
+        special_mask = (None if bound["specials"] is None
+                        else torch.isin(ids, bound["specials"]))
+        masked, labels, weights = bert_mask_tokens(
+            bound["gen"], ids, cfg, mask_token_id, mask_prob,
+            special_mask=special_mask)
+        loss = bert_mlm_loss(bound["params"], cfg, masked, labels, weights,
+                             type_ids, attn_mask)
+        loss.backward()
+        optimizer.step()
+        return loss.detach()
+
+    def bindings():
+        groups = optimizer.param_groups
+        return [*tensors(bound["params"]), bound["gen"],
+                *(p for g in groups for p in g["params"]),
+                *tensors(list(optimizer.state.values())),
+                *(g[k] for g in groups for k in sorted(g) if k != "params")]
+
+    compiled = CompiledStep(static_step, bindings,
+                            "make_bert_mlm_train_step")
+
+    def step(params, ids, type_ids=None, attn_mask=None):
+        dev = params["embed"].device
+        if dev.type == "cuda" and graphs_enabled() and not all(
+                g.get("capturable", False) for g in optimizer.param_groups):
+            raise ValueError(
+                "make_bert_mlm_train_step captures the step as a CUDA graph "
+                f"on CUDA, and {type(optimizer).__name__} is not "
+                "capturable: build it with capturable=True, or run the "
+                "step under deeplearning4j_tpu_torch.disable_graphs()")
+        if "specials" not in bound:        # made once, outside any capture
+            if bound["gen"] is None:
+                bound["gen"] = torch.Generator(device=dev).manual_seed(0)
+            bound["specials"] = (None if special_ids is None else
+                                 torch.tensor(list(special_ids),
+                                              dtype=torch.long, device=dev))
+        bound["params"] = params
+        ids = torch.as_tensor(ids, device=dev).long()
+        type_ids = (None if type_ids is None
+                    else torch.as_tensor(type_ids, device=dev).long())
+        attn_mask = (None if attn_mask is None
+                     else torch.as_tensor(attn_mask, device=dev))
+        step.generator = bound["gen"]
+        return compiled(ids, type_ids, attn_mask)
+
+    step.compiled = compiled
+    step.generator = generator
+    return step

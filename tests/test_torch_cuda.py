@@ -27,6 +27,8 @@ bf16 ulps (5.9e-3 measured at B256 T60 H256, ``chip_smoke.py`` phase 9).
 
 from __future__ import annotations
 
+import contextlib
+
 import pytest
 import torch
 
@@ -1835,3 +1837,240 @@ def test_sentinels_count_captures_as_compiles(gen):
     with pytest.warns(RuntimeWarning, match="retrace"):
         eng.decode_step(other, toks)   # its capture
     assert s.retraces_after_warm == 1 and s.overhead_seconds > 0
+
+
+# ------------------------------------------------- BERT and ParallelInference
+
+# every (N, C) a relu BN of ResNet-50 hands K3's normalize at batch 1,
+# 224x224 (the stem's and each stage's a/b BNs)
+RESNET_B1_RELU_SHAPES = [(112 * 112, 64), (56 * 56, 64), (28 * 28, 128),
+                         (14 * 14, 256), (7 * 7, 512)]
+
+
+@pytest.mark.parametrize("n,c", RESNET_B1_RELU_SHAPES)
+def test_bn_act_kernel_at_resnet50_batch1_shapes(gen, n, c):
+    """K3's normalize at the shapes a ResNet-50 served at batch 1 gives
+    it: against its plain version, a second launch bit for bit equal."""
+    x, gamma, beta, _ = _bn_inputs(gen, n, c, torch.bfloat16)
+    y = fo.bn_act(x, gamma, beta, "relu")
+    ref = fo.bn_act_reference(x, gamma, beta, "relu").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y.float(), ref.float(),
+                               atol=ATOL[torch.bfloat16], rtol=0)
+    assert torch.equal(y, fo.bn_act(x, gamma, beta, "relu"))
+
+
+def _bert_small(tfm, **kw):
+    cfg = tfm.BertConfig(vocab_size=512, d_model=128, n_heads=2, n_layers=2,
+                         d_ff=256, max_seq=64, **kw)
+    params = tfm.bert_init(cfg, torch.Generator().manual_seed(0),
+                           device="cuda")
+    with torch.no_grad():
+        params["cls"].normal_(0.0, 0.02, generator=torch.Generator(
+            device="cuda").manual_seed(1))
+    return cfg, params
+
+
+def _clone_tree(t):
+    return {k: _clone_tree(v) if isinstance(v, dict) else v.detach().clone()
+            for k, v in t.items()}
+
+
+def _adamw(tfm, params, lr=1e-3):
+    return torch.optim.AdamW(tfm.param_leaves(params), lr=lr,
+                             weight_decay=1e-4, capturable=True)
+
+
+def test_bert_finetune_step_replay_equals_eager(gen):
+    """The classifier fine-tune (remat "full", bf16 scores, a padding
+    mask) compiled as the port's steps are: 4 steps replayed from a CUDA
+    graph equal 4 under ``disable_graphs()`` bit for bit."""
+    import deeplearning4j_tpu_torch as tpkg
+    from deeplearning4j_tpu_torch.nn._compiled import CompiledStep, tensors
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg, init = _bert_small(tfm, remat=True, attn_scores_bf16=True)
+    ids = torch.randint(0, 512, (8, 64), generator=gen, device="cuda")
+    mask = (torch.rand((8, 64), generator=gen, device="cuda") < 0.8).float()
+    labels = torch.randint(0, 2, (8,), generator=gen, device="cuda")
+    runs = {}
+    for way in ("eager", "graph"):
+        params = _clone_tree(init)
+        opt = _adamw(tfm, params)
+
+        def static_step(ids, labels, mask):
+            opt.zero_grad(set_to_none=True)
+            loss = tfm.bert_classifier_loss(params, cfg, ids, labels,
+                                            attn_mask=mask)
+            loss.backward()
+            opt.step()
+            return loss.detach()
+
+        step = CompiledStep(static_step, lambda: [
+            *tensors(params), *tfm.param_leaves(params),
+            *tensors(list(opt.state.values()))], "bert_finetune")
+        with (tpkg.disable_graphs() if way == "eager"
+              else contextlib.nullcontext()):
+            losses = [step(ids, labels, mask) for _ in range(4)]
+        torch.cuda.synchronize()
+        runs[way] = (losses, tfm.param_leaves(params), step.calls)
+    (le, pe, ce), (lg, pg, cg) = runs["eager"], runs["graph"]
+    assert ce["direct"] == 4
+    assert (cg["eager"], cg["capture"], cg["replay"]) == (1, 1, 2)
+    assert all(torch.equal(a, b) for a, b in zip(le, lg))
+    assert all(torch.equal(a, b) for a, b in zip(pe, pg))
+    assert all(torch.isfinite(x) for x in lg)
+
+
+def test_bert_mlm_step_replay_equals_eager_and_draws_fresh_masks(gen):
+    """``make_bert_mlm_train_step`` with special ids, token types (mostly
+    one id, so that their embedding's backward sums many repeats) and a
+    mask: 5 steps replayed equal 5 eager from the same generator state
+    bit for bit, and the generator moves at every replay."""
+    import deeplearning4j_tpu_torch as tpkg
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg, init = _bert_small(tfm, remat=True, attn_scores_bf16=True)
+    ids = torch.randint(5, 512, (8, 64), generator=gen, device="cuda")
+    ids[:, 0] = 2
+    ids[:, 50:] = 0
+    mask = (ids != 0).float()
+    type_ids = torch.zeros_like(ids)
+    type_ids[:, 30:50] = 1
+    runs = {}
+    for way in ("eager", "graph"):
+        params = _clone_tree(init)
+        g = torch.Generator(device="cuda").manual_seed(3)
+        step = tfm.make_bert_mlm_train_step(
+            cfg, _adamw(tfm, params), 4, special_ids=(0, 2, 3),
+            generator=g)
+        states = []
+        with (tpkg.disable_graphs() if way == "eager"
+              else contextlib.nullcontext()):
+            losses = []
+            for _ in range(5):
+                states.append(g.get_state())
+                losses.append(step(params, ids, type_ids, mask))
+        torch.cuda.synchronize()
+        runs[way] = (losses, tfm.param_leaves(params), step.compiled.calls,
+                     states)
+    (le, pe, _, se), (lg, pg, cg, _) = runs["eager"], runs["graph"]
+    assert (cg["eager"], cg["capture"], cg["replay"]) == (1, 1, 3)
+    assert all(torch.equal(a, b) for a, b in zip(le, lg))
+    assert all(torch.equal(a, b) for a, b in zip(pe, pg))
+    assert len({bytes(s.numpy()) for s in se}) == 5
+
+
+def test_bert_mlm_step_refuses_an_optimizer_that_is_not_capturable(gen):
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg, params = _bert_small(tfm)
+    opt = torch.optim.AdamW(tfm.param_leaves(params), lr=1e-3)
+    step = tfm.make_bert_mlm_train_step(cfg, opt, 4)
+    with pytest.raises(ValueError, match="capturable"):
+        step(params, torch.zeros((2, 64), dtype=torch.long, device="cuda"))
+
+
+def _served_bert(tfm, max_wait_ms=None):
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.serving import FunctionalInferenceModel
+    cfg, params = _bert_small(tfm)
+    model = FunctionalInferenceModel(
+        params, lambda p, ids: tfm.bert_forward(p, cfg, ids)[0])
+    return cfg, params, ParallelInference(model, max_batch=64,
+                                          max_wait_ms=max_wait_ms)
+
+
+def test_parallel_inference_captures_once_per_signature(gen):
+    """Three batch sizes, each warmed (eager, capture): one capture a
+    signature, every later call a replay, 0 retraces after warm, the
+    served logits equal the eager forward's."""
+    from deeplearning4j_tpu_torch.obs import CompileSentinel
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg, params, pi = _served_bert(tfm)
+    sentinel = CompileSentinel("served_bert", pi._build())
+    xs = {b: torch.randint(0, 512, (b, 64), generator=gen, device="cuda")
+          for b in (1, 4, 16)}
+    for x in xs.values():
+        pi.output(x)
+        pi.output(x)
+    sentinel.mark_warm()
+    for _ in range(3):
+        for b, x in xs.items():
+            assert torch.equal(pi.output(x),
+                               tfm.bert_forward(params, cfg, x)[0])
+            assert pi._infer.last == "replay"
+    assert pi._infer.calls["capture"] == 3
+    assert sentinel.retraces_after_warm == 0
+
+
+def test_parallel_inference_refresh_after_a_training_step(gen):
+    """Served weights are a snapshot: an in-place training step leaves
+    what is served unchanged; ``refresh()`` serves the new weights from
+    the same storage, through the same graph."""
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg, params, pi = _served_bert(tfm)
+    x = torch.randint(0, 512, (4, 64), generator=gen, device="cuda")
+    for _ in range(3):
+        before = pi.output(x)
+    labels = torch.tensor([0, 1, 0, 1], device="cuda")
+    opt = torch.optim.SGD(tfm.param_leaves(params), lr=0.5)
+    loss = tfm.bert_classifier_loss(params, cfg, x, labels)
+    loss.backward()
+    opt.step()
+    assert torch.equal(pi.output(x), before)
+    captures = pi._infer.calls["capture"]
+    after = pi.refresh().output(x)
+    assert not torch.equal(after, before)
+    assert torch.equal(after, tfm.bert_forward(params, cfg, x)[0])
+    assert pi._infer.calls["capture"] == captures
+    assert pi._infer.last == "replay"
+
+
+def test_parallel_inference_timer_never_captures(gen):
+    """The deadline timer's flush at a signature no caller captured runs
+    the eager stage (twice: no capture on the timer thread) while a
+    second thread runs its own CUDA work; a caller's ``output`` captures
+    it; the timer's next flush replays, the second thread busy again."""
+    import threading
+
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg, params, pi = _served_bert(tfm, max_wait_ms=5)
+    errors = []
+
+    @contextlib.contextmanager
+    def busy_thread():
+        stop = threading.Event()
+
+        def noise():
+            try:
+                a = torch.randn((512, 512), device="cuda")
+                while not stop.is_set():
+                    a = (a @ a).tanh()
+                    torch.empty((1 << 20,), device="cuda")
+                torch.cuda.synchronize()
+            except Exception as e:     # noqa: BLE001 — asserted below
+                errors.append(e)
+
+        t = threading.Thread(target=noise)
+        t.start()
+        try:
+            yield
+        finally:
+            stop.set()
+            t.join(timeout=60)
+        assert not t.is_alive()
+
+    x = torch.randint(0, 512, (3, 64), generator=gen, device="cuda")
+    want = tfm.bert_forward(params, cfg, x)[0]
+    kinds = []
+    with busy_thread():
+        for _ in range(2):
+            fut = pi.submit(x)
+            assert torch.equal(fut.result(timeout=60), want)
+            kinds.append(pi._infer.last)
+    assert kinds == ["eager", "eager"]
+    assert torch.equal(pi.output(x), want)
+    assert pi._infer.last == "capture"
+    with busy_thread():
+        fut = pi.submit(x)
+        assert torch.equal(fut.result(timeout=60), want)
+        assert pi._infer.last == "replay"
+    assert not errors

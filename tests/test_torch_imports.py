@@ -70,7 +70,9 @@ def test_port_has_modules_to_check():
             "serving/workloads.py", "obs/registry.py", "obs/spans.py",
             "obs/reqtrace.py", "obs/slo.py", "obs/memory.py",
             "obs/fidelity.py", "obs/compiles.py", "kernels/autotune.py",
-            "serving/quant.py", "serving/spec.py", "serving/tune.py"} <= names
+            "serving/quant.py", "serving/spec.py", "serving/tune.py",
+            "nlp/bert_iterator.py", "serving/adapter.py",
+            "parallel/wrapper.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -98,6 +100,9 @@ def test_importing_the_port_loads_no_jax():
             "import deeplearning4j_tpu_torch.serving.quant\n"
             "import deeplearning4j_tpu_torch.serving.spec\n"
             "import deeplearning4j_tpu_torch.serving.tune\n"
+            "import deeplearning4j_tpu_torch.nlp\n"
+            "import deeplearning4j_tpu_torch.parallel\n"
+            "import deeplearning4j_tpu_torch.serving.adapter\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
             "print(bad)\n"
