@@ -19,6 +19,11 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --obs-only       # build + phase 14 only
     python3 chip_smoke.py --quant-only     # build + phase 15 only
     python3 chip_smoke.py --bert-only      # build + phase 16 only
+    python3 chip_smoke.py --workflow2-only # build + phases 7, 9 and 17
+    python3 chip_smoke.py --prefetch-times ROOT  # only time LeNet's fit
+                                             # over host and device
+                                             # iterators and a host list
+                                             # with the port at ROOT
     python3 chip_smoke.py --sweep-times ROOT  # only time phase 4's steady
                                              # sweeps of the port at ROOT
                                              # (with its observability
@@ -329,6 +334,30 @@ Phases, each fatal on failure:
    version (phase 7's set, else here), K3 timed at the batch-1 stem
    shape; one capture a batch signature and 0 retraces after warm on
    both served nets; BERT's paths launch no hand-written kernel;
+17. the rest of the DL4J workflow, each part its own path: (a)
+   ResNet-50 B128 bf16 (Momentum, fused K3) trained with
+   ``remat_segments`` None, 3 and 5, each replayed (eager, capture, 3
+   replays) and eager: K3 launches a step by kernel (stats and normalize
+   twice the monolithic count under remat, the backward reduce and dx
+   once), step-1 loss equal and grads (the momentum trace) against the
+   monolithic step, replayed = eager bit for bit, 0 retraces after warm,
+   wall and device ms, busy share, peak GiB; (b) LeNet B512 through
+   ``MnistDataSetIterator`` (synthetic digits) and ``fit``'s async
+   prefetch, which must run on the native ring (built from ``native/``),
+   against ``fit`` over the same host batches in a list, bit for bit,
+   samples/s beside phase 11's; a device-resident ``ListDataSetIterator``
+   whose batches pass by reference (never packed through the host) while
+   its step is captured with the producer running; (c) the char-RNN
+   under ``EarlyStoppingTrainer`` (MaxEpochs + ScoreImprovementEpoch, a
+   held-out ``DataSetLossCalculator``): the best model's held-out score
+   and params against the record and the best epoch's snapshot, K4
+   launches (cluster route) in fit and in the calculator; the same net
+   as a ComputationGraph: ``output()`` equal to the MLN's,
+   ``rnn_time_step`` over 60 single steps and over 20 + 40 against the
+   full output (K4) within 2e-2, a cleared stream restarting; (d) a
+   LeNet checkpoint with its updater, saved after 3 steps, loaded and
+   trained 3 more, equal to 6 uninterrupted steps bit for bit; (e)
+   ``nd.jit_in_workspace`` replayed equal to eager;
 5. a ``kernels`` JSON line (every hand-written kernel: its route,
    launches on each main path, largest error, times and bound at its
    path shape), then the result line (printed last).
@@ -5452,6 +5481,594 @@ def bert_phase(fa, pa, fo, fl, k3_checked, gen):
     return out
 
 
+# --------------------------------------------------------------- phase 17
+
+# ResNet-50's remat sweep: the settings, and the fit steps of each (eager,
+# capture, replays)
+REMAT_SETTINGS = (None, 3, 5)
+REMAT_STEPS = 5
+# LeNet through MnistDataSetIterator: batches an epoch (synthetic digits
+# from the iterator's seed)
+PREFETCH_BATCHES = 16
+PREFETCH_READINGS, PREFETCH_EPOCHS = 5, 4    # timed fits, epochs a fit
+# the char-RNN under early stopping: train and held-out batches, epochs
+ES_TRAIN_BATCHES, ES_HELDOUT_BATCHES, ES_MAX_EPOCHS = 4, 2, 4
+RNN_STREAM_ATOL = 2e-2                   # bf16 stream against K4's output
+# step-1 grads under remat against the monolithic step (the momentum
+# trace after one step), per leaf; predicted bit for bit, the bound
+# leaves room for a cuDNN algorithm that differs between the two
+REMAT_GRAD_REL_L2 = 1e-3
+CKPT_STEPS = 3                           # k steps, saved, k more
+
+
+def _remat_resnet(fo, remat, graphs, x, y, steps, checked):
+    """ResNet-50 B128 bf16, Momentum, ``remat_segments=remat``: step 1
+    alone (its loss, and the momentum trace = its grads), then ``steps``
+    - 1 more; K3 launches a step (a replay at its capture's), wall and
+    peak memory, the step kinds, retraces after warm."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.train import Momentum
+    from deeplearning4j_tpu_torch.nn._compiled import tensors
+    from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
+
+    model = ResNet50(num_classes=1000, updater=Momentum(0.1, 0.9),
+                     compute_dtype=torch.bfloat16,
+                     input_shape=(RESNET_HW, RESNET_HW, 3))
+    net = ComputationGraph(model.conf())
+    _set_fused(net, True)
+    net.init()
+    net.remat_segments = remat
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ds = DataSet(x, y)
+    steplog = _StepLog(fo)
+    net.set_listeners(steplog)
+    sentinel = net._train_sentinel()
+    t0 = time.perf_counter()
+    with contextlib.nullcontext() if graphs else disable_graphs():
+        with _k3_cases(fo) as cases:
+            loss1 = net.fit([ds])
+            trace1 = [t.detach().clone() for t in tensors(
+                [s["trace"] for s in _traces(net._opt_state)])]
+            t1 = time.perf_counter()
+            net.fit([ds])
+            sentinel.mark_warm()
+            net.fit([ds] * (steps - 2))
+        torch.cuda.synchronize()
+        rec = way_summary(steplog.kinds(), steplog.step_s(t0, t1),
+                          RESNET_BATCH, "samples",
+                          torch.cuda.max_memory_allocated() / 2**30)
+        rec["losses"] = [r[0] for r in steplog.rows]
+        rec["k3_launches_per_step"] = steplog.launches_per_step()
+        final = _all_tensors(net)
+        if graphs:                       # one more replay, profiled
+            net.set_listeners()
+            add_profile(rec, profile_step(lambda: net.fit([ds])))
+    rec["retraces_after_warm"] = sentinel.retraces_after_warm
+    unchecked = set(cases) - checked
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, loss1, trace1, final, unchecked
+
+
+def _traces(opt_state):
+    """Momentum's trace states in an updater state tree (a chain)."""
+    if isinstance(opt_state, dict):
+        if "trace" in opt_state:
+            return [opt_state]
+        return [s for v in opt_state.values() for s in _traces(v)]
+    if isinstance(opt_state, (tuple, list)):
+        return [s for v in opt_state for s in _traces(v)]
+    return []
+
+
+def workflow2_resnet(fo, checked):
+    """ResNet-50 B128 bf16 trained replayed with remat_segments None, 3
+    and 5 (and each eager, for replayed = eager): step-1 loss and grads
+    against the monolithic step, K3 launches by kernel (stats and
+    normalize twice the monolithic count under remat, forward plus
+    recompute; the backward reduce and dx once), wall and device ms,
+    busy share, peak GiB."""
+    rng = np.random.default_rng(17)
+    x = torch.as_tensor(rng.random((RESNET_BATCH, RESNET_HW, RESNET_HW, 3),
+                                   np.float32), device="cuda")
+    y = torch.as_tensor(np.eye(1000, dtype=np.float32)[
+        rng.integers(0, 1000, RESNET_BATCH)], device="cuda")
+    runs, failed, counts = {}, [], {}
+    for remat in REMAT_SETTINGS:
+        rec, loss1, trace1, final, unch = _remat_resnet(
+            fo, remat, True, x, y, REMAT_STEPS, checked)
+        erec, eloss1, _, efinal, eunch = _remat_resnet(
+            fo, remat, False, x, y, REMAT_STEPS, checked)
+        diff = first_diff(efinal, final)
+        rec["replay_equals_eager"] = diff is None and \
+            rec["losses"] == erec["losses"]
+        rec["eager_wall_ms_per_step"] = erec["wall_ms_per_step"]
+        if unch | eunch:
+            failed.append(f"remat {remat}: K3 ran at {unch | eunch}, which "
+                          "phase 7 did not hold")
+        runs[remat] = (rec, loss1, trace1)
+        counts[remat] = rec["k3_launches_per_step"][1]      # the capture's
+        kinds = rec["step_kinds"]
+        if kinds != ["eager", "capture"] + ["replay"] * (REMAT_STEPS - 2):
+            failed.append(f"remat {remat}: steps ran {kinds}")
+        if not rec["replay_equals_eager"]:
+            failed.append(f"remat {remat}: replayed != eager (leaf {diff})")
+        if rec["retraces_after_warm"]:
+            failed.append(f"remat {remat}: retraces after warm")
+    mono = counts[None]
+    _, mloss, mtrace = runs[None]
+    report = {}
+    for remat in REMAT_SETTINGS:
+        rec, loss1, trace1 = runs[remat]
+        want = mono if remat is None else {
+            k: (2 * n if k in ("bn_stats", "bn_act") else n)
+            for k, n in mono.items()}
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(trace1, mtrace))
+        rel = max(rel_l2(a, b) for a, b in zip(trace1, mtrace))
+        rec["k3_launches_expected"] = want
+        rec["step1_loss_equal"] = loss1 == mloss
+        rec["step1_grads_bit_equal"] = all(torch.equal(a, b) for a, b in
+                                           zip(trace1, mtrace))
+        rec["step1_grads_max_abs_err"] = err
+        rec["step1_grads_max_rel_l2"] = rel
+        if counts[remat] != want:
+            failed.append(f"remat {remat}: K3 launches a step "
+                          f"{counts[remat]}, expected {want}")
+        if any(n == 0 for n in counts[remat].values()):
+            failed.append(f"remat {remat}: a K3 kernel never launched")
+        if remat is not None and not (loss1 == mloss
+                                      and rel <= REMAT_GRAD_REL_L2):
+            failed.append(f"remat {remat}: step 1 differs from the "
+                          f"monolithic step (loss {loss1} vs {mloss}, "
+                          f"grads max rel L2 {rel})")
+        report[str(remat)] = {k: rec[k] for k in (
+            "step_kinds", "wall_ms_per_step", "eager_wall_ms_per_step",
+            "samples_per_s", "device_ms_per_step", "busy_share",
+            "peak_alloc_gib", "k3_launches_per_step", "k3_launches_expected",
+            "step1_loss_equal", "step1_grads_bit_equal",
+            "step1_grads_max_abs_err", "step1_grads_max_rel_l2",
+            "replay_equals_eager",
+            "retraces_after_warm", "losses")}
+    log(f"phase 17 resnet50 remat sweep (B{RESNET_BATCH} {RESNET_HW}x"
+        f"{RESNET_HW} bf16, Momentum, fused K3): {json.dumps(report)}")
+    if failed:
+        raise SystemExit(f"phase 17 resnet50 remat: {failed}")
+    # the path's counts: the replayed run's, steps x a step's launches
+    return {f"workflow2_resnet_remat{remat}": {
+        k: sum(s[k] for s in runs[remat][0]["k3_launches_per_step"])
+        for k in mono} for remat in REMAT_SETTINGS}
+
+
+def _fit_rates(net, data, readings=PREFETCH_READINGS,
+               epochs=PREFETCH_EPOCHS):
+    """LeNet samples/s of ``net.fit(data, epochs=epochs)``, ``readings``
+    times (each fit timed whole: the prefetch's start and close
+    included)."""
+    rates = []
+    for _ in range(readings):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        net.fit(data, epochs=epochs)
+        torch.cuda.synchronize()
+        rates.append(LENET_BATCH * PREFETCH_BATCHES * epochs
+                     / (time.perf_counter() - t))
+    return rates
+
+
+def workflow2_prefetch(lenet_direct):
+    """LeNet B512 through ``MnistDataSetIterator`` (synthetic, from its
+    seed), wrapped by ``fit``'s async prefetch on the native ring (its
+    step captured while the producer runs), against ``fit`` over the same
+    host batches in a list (direct); a device-resident
+    ``ListDataSetIterator``, which ``fit`` must iterate directly, never
+    packing a batch."""
+    from deeplearning4j_tpu_torch.data import (DataSet, ListDataSetIterator,
+                                               MnistDataSetIterator)
+    from deeplearning4j_tpu_torch.data import async_iter
+    from deeplearning4j_tpu_torch.utils import native
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    failed = []
+    t0 = time.perf_counter()
+    it = MnistDataSetIterator(LENET_BATCH, num_examples=LENET_BATCH
+                              * PREFETCH_BATCHES, seed=17)
+    gen_s = time.perf_counter() - t0
+    host = list(it)
+    it.reset()
+    out = {"native_lib": str(native.lib_path()), "has_native":
+           native.has_native(), "digits_generated_s": gen_s}
+    nets = {}
+    for way, data in (("prefetch", it), ("direct", host)):
+        net = LeNet(num_classes=10, compute_dtype=torch.bfloat16).init()
+        net.fit(data)                        # eager, capture, replays
+        out[f"{way}_samples_per_s"] = _fit_rates(net, data)
+        out[f"{way}_steps"] = dict(net._step_fn.calls)
+        nets[way] = net
+    pf = nets["prefetch"]._prefetch
+    out["prefetch_buffer"], out["prefetch_counts"] = pf.buffer, pf.counts
+    out["prefetch_equals_direct"] = first_diff(
+        _all_tensors(nets["prefetch"]), _all_tensors(nets["direct"])) is None
+    per_fit = PREFETCH_BATCHES * PREFETCH_EPOCHS
+    if pf.buffer != "ring" or pf.counts != {"ring": per_fit, "queue": 0}:
+        failed.append(f"prefetch ran on {pf.buffer} {pf.counts}, not the "
+                      "native ring")
+    if nets["prefetch"]._step_fn.calls["capture"] != 1:
+        failed.append("the prefetched step was not captured once "
+                      f"({out['prefetch_steps']})")
+    if not out["prefetch_equals_direct"]:
+        failed.append("prefetched fit != direct fit")
+    if pf._thread.is_alive():
+        failed.append("the producer outlived fit")
+    out["phase11_direct_device_batch_samples_per_s"] = lenet_direct
+    # a device-resident iterator: iterated directly, never packed
+    x = torch.as_tensor(np.concatenate([d.features for d in host]),
+                        device="cuda")
+    y = torch.as_tensor(np.concatenate([d.labels for d in host]),
+                        device="cuda")
+    packed, real_pack = [], async_iter._pack
+
+    def spy(ds, *a):
+        packed.append(async_iter.on_device(ds))
+        return real_pack(ds, *a)
+    async_iter._pack = spy
+    try:
+        net = LeNet(num_classes=10, compute_dtype=torch.bfloat16).init()
+        dev_it = ListDataSetIterator(DataSet(x, y), LENET_BATCH)
+        net.fit(dev_it, epochs=2)
+        torch.cuda.synchronize()
+        rates = _fit_rates(net, dev_it)
+    finally:
+        async_iter._pack = real_pack
+    out["device_iterator"] = {"prefetch": repr(net._prefetch),
+                              "packed_device_batches": sum(packed),
+                              "steps": dict(net._step_fn.calls),
+                              "samples_per_s": rates}
+    if net._prefetch is not None or sum(packed) or \
+            net._step_fn.calls["capture"] != 1:
+        failed.append(f"device batches: {out['device_iterator']}")
+    log(f"phase 17 lenet prefetch (B{LENET_BATCH} bf16, "
+        f"{PREFETCH_BATCHES} batches an epoch, {PREFETCH_EPOCHS} epochs a "
+        f"reading): {json.dumps(out)}")
+    del nets, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"phase 17 prefetch: {failed}")
+    return out
+
+
+def prefetch_times(root):
+    """``--prefetch-times ROOT``: LeNet B512 bf16 samples/s of ``fit`` in
+    the port checked out at ROOT over the same 16 synthetic batches, held
+    three ways: a ``ListDataSetIterator`` over host numpy (prefetched where
+    ROOT's ``fit`` prefetches), a ``ListDataSetIterator`` over tensors on
+    the card, and a plain list of host batches; each warmed by one fit
+    (eager, capture, replays), then ``PREFETCH_READINGS`` fits of
+    ``PREFETCH_EPOCHS`` epochs, with the host's milliseconds a batch in
+    the prefetch's ``__next__`` (where ROOT has one) and in moving the
+    batch to the card (``_to_device``: it waits for the previous step).
+    Two versions are compared in one run: parent, change, change, parent.
+    Prints one JSON line."""
+    import importlib
+    sys.path.insert(0, str(root))
+    data = importlib.import_module("deeplearning4j_tpu_torch.data")
+    zoo = importlib.import_module("deeplearning4j_tpu_torch.zoo")
+    log(f"prefetch-times: the port from {data.__file__}")
+    rng = np.random.default_rng(0)
+    n = LENET_BATCH * PREFETCH_BATCHES
+    x = rng.random((n, 28, 28, 1), np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, n)]
+    sources = {
+        "host_iterator": lambda: data.ListDataSetIterator(
+            data.DataSet(x, y), LENET_BATCH),
+        "device_iterator": lambda: data.ListDataSetIterator(data.DataSet(
+            torch.as_tensor(x, device="cuda"),
+            torch.as_tensor(y, device="cuda")), LENET_BATCH),
+        "host_list": lambda: [data.DataSet(x[i:i + LENET_BATCH],
+                                           y[i:i + LENET_BATCH])
+                              for i in range(0, n, LENET_BATCH)]}
+    spent = {"next": 0.0, "to_device": 0.0}
+    wrapper = getattr(importlib.import_module(
+        "deeplearning4j_tpu_torch.data.async_iter"), "AsyncDataSetIterator",
+        None) if hasattr(data, "AsyncDataSetIterator") else None
+    if wrapper is not None:                  # the consumer's time a batch
+        real_next = wrapper.__next__
+
+        def timed_next(self):
+            t = time.perf_counter()
+            try:
+                return real_next(self)
+            finally:
+                spent["next"] += time.perf_counter() - t
+        wrapper.__next__ = timed_next
+    rows = {}
+    for name, make in sources.items():
+        net = zoo.LeNet(num_classes=10, compute_dtype=torch.bfloat16).init()
+        src = make()
+        net.fit(src)
+        real_to = net._to_device
+
+        def timed_to(a, real_to=real_to):
+            t = time.perf_counter()
+            try:
+                return real_to(a)
+            finally:
+                spent["to_device"] += time.perf_counter() - t
+        net._to_device = timed_to
+        spent.update(next=0.0, to_device=0.0)
+        t = time.perf_counter()
+        rates = _fit_rates(net, src)
+        steps = PREFETCH_READINGS * PREFETCH_EPOCHS * PREFETCH_BATCHES
+        rows[name] = {
+            "samples_per_s": rates,
+            "host_ms_a_batch": {
+                "step": 1e3 * (time.perf_counter() - t) / steps,
+                "prefetch_next": 1e3 * spent["next"] / steps,
+                "to_device": 1e3 * spent["to_device"] / steps},
+            "prefetch": repr(getattr(net, "_prefetch", None)),
+            "steps": dict(net._step_fn.calls)}
+        del net
+        torch.cuda.empty_cache()
+    log(json.dumps({"prefetch_times": rows, "root": str(root),
+                    "readings": PREFETCH_READINGS,
+                    "epochs_a_reading": PREFETCH_EPOCHS}))
+    return 0
+
+
+def _charnn_iter(rng, n):
+    """``n`` batches of random one-hot sequences on the card, iterated by
+    a ListDataSetIterator (which slices them there)."""
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+    eye = np.eye(CHARNN_VOCAB, dtype=np.float32)
+    shape = (n * CHARNN_BATCH, CHARNN_T)
+    return ListDataSetIterator(DataSet(
+        torch.as_tensor(eye[rng.integers(0, CHARNN_VOCAB, shape)],
+                        device="cuda"),
+        torch.as_tensor(eye[rng.integers(0, CHARNN_VOCAB, shape)],
+                        device="cuda")), CHARNN_BATCH)
+
+
+def workflow2_charnn(fl, checked):
+    """The char-RNN (B256 T60 H256 bf16, K4's cluster route) under
+    EarlyStoppingTrainer: MaxEpochs + ScoreImprovementEpoch on a held-out
+    DataSetLossCalculator; the restored best model's held-out score and
+    params against the record and the best epoch's snapshot; K4 launches
+    in fit and in the calculator. Then the same net as a
+    ComputationGraph: output() equal to the MLN's, rnn_time_step (60
+    single steps, then 20 + 40) against the full output (K4)."""
+    from deeplearning4j_tpu_torch.nn import (ComputationGraph, GravesLSTM,
+                                             RnnOutputLayer)
+    from deeplearning4j_tpu_torch.nn import early_stopping as es
+    from deeplearning4j_tpu_torch.nn._compiled import tensors
+    from deeplearning4j_tpu_torch.nn.conf import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.train import Adam
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+
+    rng = np.random.default_rng(18)
+    train_it = _charnn_iter(rng, ES_TRAIN_BATCHES)
+    held = _charnn_iter(rng, ES_HELDOUT_BATCHES)
+    zoo = TextGenerationLSTM(num_classes=CHARNN_VOCAB,
+                             input_shape=(CHARNN_T, CHARNN_VOCAB),
+                             units=CHARNN_H, compute_dtype=torch.bfloat16,
+                             updater=Adam(2e-3))
+    net = zoo.init()
+    _set_lstm_fused(net, True)
+    failed, snaps, calc_launches = [], {}, []
+
+    class Calc(es.DataSetLossCalculator):
+        """The held-out loss, with a snapshot of the params it scored and
+        the K4 launches it made (``score`` is eager: its wrappers count)."""
+
+        def calculate_score(self, model):
+            snaps[len(snaps)] = [t.detach().clone()
+                                 for t in tensors(model.params)]
+            before = dict(fl.LAUNCHES_BY_ROUTE)
+            s = super().calculate_score(model)
+            calc_launches.append({r: n - before[r] for r, n in
+                                  fl.LAUNCHES_BY_ROUTE.items()})
+            return s
+
+    fit_n = StepLaunches({"fit": net._compiled_step()},
+                         lambda: dict(fl.LAUNCHES_BY_ROUTE))
+    with _k4_cases(fl) as cases:
+        t0 = time.perf_counter()
+        res = es.EarlyStoppingTrainer(es.EarlyStoppingConfiguration(
+            epoch_termination_conditions=[
+                es.MaxEpochsTerminationCondition(ES_MAX_EPOCHS),
+                es.ScoreImprovementEpochTerminationCondition(1, 0.0)],
+            score_calculator=Calc(held)), net, train_it).fit()
+        es_s = time.perf_counter() - t0
+        best = res.best_model
+        rescore = es.DataSetLossCalculator(held).calculate_score(best)
+    best_equal = all(torch.equal(a, b) for a, b in zip(
+        tensors(best.params), snaps[res.best_model_epoch]))
+    calc_total = {r: sum(c[r] for c in calc_launches)
+                  for r in fl.LAUNCHES_BY_ROUTE}
+    es_rec = {"termination": res.termination_reason,
+              "total_epochs": res.total_epochs,
+              "best_epoch": res.best_model_epoch,
+              "best_score": res.best_model_score,
+              "score_vs_epoch": res.score_vs_epoch,
+              "best_model_rescored": rescore,
+              "best_params_equal_snapshot": best_equal,
+              "fit_k4_launches_by_route": fit_n.total,
+              "calculator_k4_launches_by_route": calc_total,
+              "fit_steps": dict(net._step_fn.calls),
+              "prefetch": repr(net._prefetch), "host_s": es_s}
+    log(f"phase 17 char-RNN early stopping (B{CHARNN_BATCH} T{CHARNN_T} "
+        f"H{CHARNN_H} bf16, K4 fused): {json.dumps(es_rec)}")
+    if rescore != res.best_model_score or not best_equal:
+        failed.append("the restored best model is not the best epoch's")
+    if not fit_n.total.get("cluster") or not calc_total["cluster"] or \
+            fit_n.total.get("block") or calc_total["block"]:
+        failed.append("K4 did not run on the cluster route in fit and in "
+                      "the calculator")
+    if net._step_fn.calls["replay"] < 1:
+        failed.append("the early-stopping fit never replayed a graph")
+
+    # the same net as a ComputationGraph, the MLN's weights copied in
+    b = NeuralNetConfiguration.builder().seed(zoo.seed).updater(Adam(2e-3))
+    b.data_type(torch.float32, torch.bfloat16)
+    g = b.graph_builder().add_inputs("in")
+    g.add_layer("l0", GravesLSTM(n_in=CHARNN_VOCAB, n_out=CHARNN_H,
+                                 fused=True), "in")
+    g.add_layer("l1", GravesLSTM(n_in=CHARNN_H, n_out=CHARNN_H,
+                                 fused=True), "l0")
+    g.add_layer("out", RnnOutputLayer(n_in=CHARNN_H, n_out=CHARNN_VOCAB,
+                                      activation="softmax", loss="mcxent"),
+                "l1")
+    g.set_outputs("out")
+    cg = ComputationGraph(g.build()).init([(CHARNN_T, CHARNN_VOCAB)])
+    with torch.no_grad():
+        for name, key in (("l0", "layer_0"), ("l1", "layer_1"),
+                          ("out", "layer_2")):
+            for k, t in cg.params[name].items():
+                t.copy_(best.params[key][k])
+    x = held._full.features[:CHARNN_BATCH]
+    reset_all(fl)
+    with _k4_cases(fl) as more:
+        full = cg.output(x)
+        torch.cuda.synchronize()
+        cg_k4 = dict(fl.LAUNCHES_BY_ROUTE)
+        mln_out = best.output(x)
+    torch.cuda.synchronize()
+    cases.extend(more)
+    cg.rnn_clear_previous_state()
+    t0 = time.perf_counter()
+    steps = [cg.rnn_time_step(x[:, t]) for t in range(CHARNN_T)]
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    stepped = torch.stack(steps, dim=1)
+    cg.rnn_clear_previous_state()
+    chunked = torch.cat([cg.rnn_time_step(x[:, :20]),
+                         cg.rnn_time_step(x[:, 20:])], dim=1)
+    cg.rnn_clear_previous_state()
+    again = cg.rnn_time_step(x[:, 0])
+    torch.cuda.synchronize()
+    err_step = float((stepped.float() - full.float()).abs().max())
+    err_chunk = float((chunked.float() - full.float()).abs().max())
+    rec = {"output_equals_mln": bool(torch.equal(full, mln_out)),
+           "output_k4_launches_by_route": cg_k4,
+           "stream_max_abs_err_single_steps": err_step,
+           "stream_max_abs_err_chunks_20_40": err_chunk,
+           "restart_equals_first_step": bool(torch.equal(again, steps[0])),
+           "stream_calls": dict(cg._rnn_stream_fn.calls),
+           "single_steps_host_s": stream_s, "atol": RNN_STREAM_ATOL}
+    log(f"phase 17 char-RNN as a ComputationGraph: {json.dumps(rec)}")
+    if not (rec["output_equals_mln"] and rec["restart_equals_first_step"]
+            and err_step <= RNN_STREAM_ATOL and err_chunk <= RNN_STREAM_ATOL
+            and cg_k4.get("cluster") and cg._rnn_stream_fn.calls["replay"]):
+        failed.append(f"CG rnn_time_step / output: {rec}")
+    unchecked = set(cases) - checked
+    if unchecked:
+        failed.append(f"K4 ran at {unchecked}, which phase 9 did not hold")
+    del net, best, cg
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"phase 17 char-RNN: {failed}")
+    k4 = lambda c: {"fused_lstm": sum(c.values()),  # noqa: E731
+                    **{f"fused_lstm_{r}": n for r, n in c.items()}}
+    return {"workflow2_charnn_es_fit": k4(fit_n.total),
+            "workflow2_charnn_es_calculator": k4(calc_total),
+            "workflow2_charnn_cg_output": k4(cg_k4)}
+
+
+def workflow2_checkpoint():
+    """A port checkpoint with its updater: LeNet B512 bf16, Adam, k steps,
+    saved, loaded into a fresh net, k more; against 2k uninterrupted
+    steps, bit for bit (params, states, updater, losses)."""
+    import tempfile
+
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.train import Adam
+    from deeplearning4j_tpu_torch.zoo import LeNet
+
+    rng = np.random.default_rng(19)
+    data = [DataSet(torch.as_tensor(rng.random((LENET_BATCH, 28, 28, 1),
+                                               np.float32), device="cuda"),
+                    torch.as_tensor(np.eye(10, dtype=np.float32)[
+                        rng.integers(0, 10, LENET_BATCH)], device="cuda"))
+            for _ in range(2 * CKPT_STEPS)]
+
+    def lenet():
+        return LeNet(num_classes=10, compute_dtype=torch.bfloat16,
+                     updater=Adam(1e-3)).init()
+    whole = lenet()
+    losses = [whole.fit(d) for d in data]
+    part = lenet()
+    first = [part.fit(d) for d in data[:CKPT_STEPS]]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "lenet.zip"
+        part.save(path, save_updater=True)
+        back = MultiLayerNetwork.load(path)
+    rest = [back.fit(d) for d in data[CKPT_STEPS:]]
+    diff = first_diff(_all_tensors(whole), _all_tensors(back))
+    rec = {"losses_equal": first + rest == losses, "first_diff": diff,
+           "resumed_steps": dict(back._step_fn.calls), "losses": losses}
+    log(f"phase 17 checkpoint resume (LeNet B{LENET_BATCH} bf16, Adam, "
+        f"{CKPT_STEPS} + {CKPT_STEPS} steps): {json.dumps(rec)}")
+    if not rec["losses_equal"] or diff is not None:
+        raise SystemExit("phase 17 checkpoint: the resumed net is not the "
+                         "uninterrupted one")
+
+
+def workflow2_nd():
+    """``nd.jit_in_workspace`` replayed against eager, and the workspace
+    readings (a few host seconds)."""
+    from deeplearning4j_tpu_torch import disable_graphs, nd
+
+    def step(acc, x, w):
+        acc.add_(torch.tanh(nd.mmul(x, w)).sum(0))
+        return acc.norm()
+    fn = nd.workspace.jit_in_workspace(step, donate_argnums=(0,))
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    w = torch.randn(256, 256, device="cuda", generator=gen)
+    xs = [torch.randn(64, 256, device="cuda", generator=gen)
+          for _ in range(4)]
+    acc, acc_e = nd.zeros(256), nd.zeros(256)
+    outs = [fn(acc, x, w) for x in xs]
+    with disable_graphs():
+        outs_e = [step(acc_e, x, w) for x in xs]
+    rec = {"calls": dict(fn.compiled.calls),
+           "equal": all(torch.equal(a, b) for a, b in zip(outs, outs_e))
+           and bool(torch.equal(acc, acc_e)),
+           "live_buffer_gib": nd.workspace.live_buffer_bytes() / 2**30,
+           "stats_devices": sorted(nd.workspace.device_memory_stats())}
+    log(f"phase 17 nd.jit_in_workspace: {json.dumps(rec)}")
+    if not rec["equal"] or rec["calls"]["replay"] != 2:
+        raise SystemExit(f"phase 17 nd: {rec}")
+
+
+def workflow2_path(fa, pa, fo, fl, k3_checked, k4_checked,
+                   lenet_direct=None):
+    """Phase 17: the rest of the DL4J workflow at full width (each part's
+    kernel counts set to 0 just before it, read after); host seconds by
+    part."""
+    counts, secs = {}, {}
+    for name, run in (
+            ("resnet_remat", lambda: workflow2_resnet(fo, k3_checked)),
+            ("prefetch", lambda: workflow2_prefetch(lenet_direct)),
+            ("charnn", lambda: workflow2_charnn(fl, k4_checked)),
+            ("checkpoint", workflow2_checkpoint), ("nd", workflow2_nd)):
+        reset_all(fa, pa, fo, fl)
+        t0 = time.perf_counter()
+        got = run()
+        secs[name] = round(time.perf_counter() - t0, 1)
+        if name in ("resnet_remat", "charnn"):
+            counts.update(got)
+    log(f"phase 17 host seconds: {json.dumps(secs)}")
+    return counts
+
+
 def _values_equal(a, b):
     """Nested lists / numbers / arrays equal exactly."""
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
@@ -5496,6 +6113,15 @@ def main():
                     help="build the kernels and run phase 16 (BERT trained "
                          "and served, ResNet-50 served) only, holding every "
                          "K3 shape it runs itself (prints no result line)")
+    ap.add_argument("--workflow2-only", action="store_true",
+                    help="build the kernels, hold K3 and K4 against their "
+                         "plain versions (phases 7, 9) and run phase 17 "
+                         "(the rest of the DL4J workflow) only (prints no "
+                         "result line)")
+    ap.add_argument("--prefetch-times", metavar="ROOT",
+                    help="only time LeNet's fit over host and device "
+                         "iterators and a host list, for the port checked "
+                         "out at ROOT (prints no result line)")
     ap.add_argument("--sweep-times", metavar="ROOT",
                     help="only time phase 4's steady decode sweeps, dense "
                          "and paged, with their host split, for the port "
@@ -5510,6 +6136,8 @@ def main():
         return flash_times(args.flash_times)
     if args.sweep_times:
         return sweep_times(args.sweep_times)
+    if args.prefetch_times:
+        return prefetch_times(args.prefetch_times)
     from deeplearning4j_tpu_torch.kernels import KERNEL_SOURCES, _build
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import fused_lstm as fl
@@ -5546,6 +6174,15 @@ def main():
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.bert_only:
         bert_phase(fa, pa, fo, fl, set(), gen)
+        return 0
+    if args.workflow2_only:
+        _, k3_checked = k3_phase(fo, gen)
+        _, k4_checked = k4_phase(fl, gen)
+        mark("7, 9 K3 and K4")
+        workflow2_path(fa, pa, fo, fl, k3_checked, k4_checked)
+        mark("17 DL4J workflow, the rest")
+        log(f"host seconds by phase (after the build): "
+            f"{json.dumps(seconds)}")
         return 0
     k2 = {dt: check_paged(pa, dt, gen)
           for dt in (torch.bfloat16, torch.float32)}
@@ -5634,7 +6271,7 @@ def main():
                              profile=args.profile_charnn)
     charnn_k4_ab(fl)
     mark("10 char-RNN")
-    lenet_path(fa, pa, fo, fl)
+    lenet_direct = lenet_path(fa, pa, fo, fl)["graph"]["samples_per_s"]
     mark("11 LeNet")
     workflow = workflow_path(fa, pa, fo, fl, k3_checked, k4_checked)
     # the workflow's ResNet-50 paths run K3 only: every other counter 0
@@ -5655,12 +6292,20 @@ def main():
     mark("15 quant/spec plane")
     by_path.update(bert_phase(fa, pa, fo, fl, k3_checked, gen))
     mark("16 BERT and serving")
+    workflow2 = workflow2_path(fa, pa, fo, fl, k3_checked, k4_checked,
+                               lenet_direct)
+    by_path.update({p: {**zero, **c} for p, c in workflow2.items()
+                    if p.startswith("workflow2_resnet")})
+    lstm_paths.update({p: c for p, c in workflow2.items()
+                       if p.startswith("workflow2_charnn")})
+    mark("17 DL4J workflow, the rest")
     log(f"host seconds by phase (after the build): {json.dumps(seconds)}")
     # the stage-0 BN's shape (N = 128*56*56, C = 256) stands for K3
     main_k3 = k3[(torch.bfloat16, RESNET_BATCH * 56 * 56, 256)]
     resnet_paths = ("resnet_train", "resnet_output", "resnet_fitscan",
                     "workflow_resnet_fit", "workflow_resnet_evaluate",
-                    "resnet_serve")
+                    "resnet_serve", *(f"workflow2_resnet_remat{r}"
+                                      for r in REMAT_SETTINGS))
     main_k1 = k1[(torch.bfloat16, 1, 2048, 64)]    # a dense prefill's shape
     train_k1 = k1[(torch.bfloat16, 32, 1024, 64)]  # the train path's shape
     main_k2 = k2[torch.bfloat16]

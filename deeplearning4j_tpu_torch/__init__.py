@@ -37,13 +37,21 @@ What is ported so far:
   ``load_params``), ``nn.listeners`` with the deferred score read,
   ``train.schedules`` and all twelve updaters, ``train.constraints``,
   ``train.anomaly``, ``nn.weightnoise`` and the dropout family, and
-  ``data.normalizers``.
+  ``data.normalizers``;
+- the rest of the DL4J workflow: ``nd`` (``ndarray/``: the ND4J
+  factory, indexing, random keys as ``torch.Generator``s, workspaces as
+  compiled callables), the data iterators with ``fit``'s async prefetch
+  on the native ring (``data.async_iter``, ``utils.native``), the JAX
+  package's updater state and normalizer read by ``serde.load_params`` /
+  ``restore_normalizer``, ``remat_segments`` on both nets and ResNet-50,
+  ``ComputationGraph.rnn_time_step`` and ``nn.early_stopping``.
 
 Entry points take ``device=None``, which means the CUDA card; without one
 they raise unless the caller passed ``device="cpu"``.
 """
 
+from . import ndarray as nd
 from ._device import resolve_device
 from .nn._compiled import disable_graphs
 
-__all__ = ["disable_graphs", "resolve_device"]
+__all__ = ["disable_graphs", "nd", "resolve_device"]

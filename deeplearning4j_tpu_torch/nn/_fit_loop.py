@@ -2,6 +2,15 @@
 ComputationGraph (reference: ``MultiLayerNetwork.fit``,
 ``deeplearning4j_tpu/nn/multi_layer_network.py:456-533``).
 
+An iterator that opts in (``async_supported()``, every
+``BaseDatasetIterator``) is wrapped in ``data/async_iter.py``'s
+:class:`AsyncDataSetIterator` for the loop, as the reference's ``fit``
+wraps it (``multi_layer_network.py:455-457``,
+``computation_graph.py:582-585``): the next batches are made on a
+producer thread while the card runs the step. The wrapper is reset
+between epochs only: after the last one it is closed (no producer starts
+for an epoch that never comes) and the source is reset.
+
 Per batch the loop queues one compiled step, then reports it:
 
 - **listeners.** When every listener takes deferred scores
@@ -20,6 +29,7 @@ Per batch the loop queues one compiled step, then reports it:
 from __future__ import annotations
 
 from .._device import HostRead
+from ..data.async_iter import maybe_wrap_async
 from ..train.anomaly import DelayedAnomalyCheck, stat_groups
 
 
@@ -44,8 +54,10 @@ def fit_epochs(net, iterator, epochs, step_batch):
                 listener.iteration_done(net, it, ep, score)
 
     last = None
+    iterator, wrapper = maybe_wrap_async(iterator)
+    net._prefetch = wrapper
     try:
-        for _ in range(epochs):
+        for epoch in range(epochs):
             for ds in iterator:
                 out = step_batch(ds)
                 net._step_count += 1
@@ -67,7 +79,11 @@ def fit_epochs(net, iterator, epochs, step_batch):
                         listener.iteration_done(net, net._step_count,
                                                 net.epoch_count, score)
             net.epoch_count += 1
-            if hasattr(iterator, "reset"):
+            if wrapper is not None and epoch + 1 == epochs:
+                wrapper.close()
+                if hasattr(wrapper.inner, "reset"):
+                    wrapper.inner.reset()
+            elif hasattr(iterator, "reset"):
                 iterator.reset()
             deliver()               # every iteration_done before epoch end
             for listener in net.listeners:
@@ -80,6 +96,8 @@ def fit_epochs(net, iterator, epochs, step_batch):
             deliver()
         except Exception:           # noqa: BLE001 — the original wins
             pass
+        if wrapper is not None:
+            wrapper.close()
     if check is not None:
         check.flush()
     return last

@@ -23,9 +23,16 @@ explicit ``"cpu"`` runs on the host. Params and states are nested dicts
 of tensors in the reference's layout, so :func:`params_from_numpy` takes
 the JAX net's ``net.params`` / ``net.states`` as numpy trees.
 
-Not ported yet (raise where the reference has the knob): remat segments,
-``rnn_time_step``, multi-input layers, and async prefetch of the iterator
-(``fit`` iterates directly).
+``remat_segments = n`` runs the train-time forward as n segments cut
+where the fewest activations cross (:meth:`_segment_plan`), each under
+``nn/_remat.py``'s checkpoint: loss, grads, states and dropout draws equal
+the monolithic walk's. ``fit`` prefetches a ``BaseDatasetIterator``
+through ``data/async_iter.py`` (``nn/_fit_loop.py``).
+:meth:`rnn_time_step` streams through the recurrent nodes, one compiled
+step per input signature, their carries on the device.
+
+Not ported yet (raises where the reference has the knob): multi-input
+layers.
 """
 
 from __future__ import annotations
@@ -41,10 +48,12 @@ from ..train.updaters import NoOp, build_optimizer, tree_leaves, tree_map
 from ..obs.compiles import CompileSentinel
 from ._compiled import CompiledStep, tensors
 from ._fit_loop import fit_epochs
+from ._remat import checkpoint_segment
 from ._scan_common import check_scan_listeners, replay_scan_listeners
 from .graph import ComputationGraphConfiguration
 from .layers.base import Ctx, Layer
 from .layers.core import LossLayer, OutputLayer, dropout_apply, keep_mask
+from .layers.recurrent import Bidirectional, LastTimeStep, TimeDistributed
 from .multi_layer_network import (_copy_params, _is_ff_layer, _unflatten,
                                   _update_in_place)
 from .preprocessors import CnnToFeedForwardPreProcessor
@@ -66,6 +75,14 @@ def params_from_numpy(params, states, device=None):
 
     return (tree_map(lambda a: conv(a, True), params),
             tree_map(lambda a: conv(a, False), states))
+
+
+def _like(like, leaves):
+    """A carry shaped like ``like`` (a tensor or a tuple of them) from an
+    iterator over tensors."""
+    if isinstance(like, tuple):
+        return tuple(next(leaves) for _ in like)
+    return next(leaves)
 
 
 class ComputationGraph:
@@ -90,6 +107,10 @@ class ComputationGraph:
         self._infer_fn = None
         self._anomaly_detector = None
         self._restored_opt_state = None
+        self._remat_plan_cache = {}
+        self._rnn_stream_fn = None
+        self._rnn_carries = None
+        self._rnn_carry_batch = None
 
     @property
     def remat_segments(self):
@@ -97,12 +118,19 @@ class ComputationGraph:
 
     @remat_segments.setter
     def remat_segments(self, n):
-        if n is not None:
-            raise NotImplementedError(
-                "ComputationGraph.remat_segments / _forward_remat "
-                "(deeplearning4j_tpu/nn/computation_graph.py) is not "
-                "ported yet")
+        """Changing the remat policy drops every compiled step that ran
+        the old forward."""
+        if self._remat_segments != n:
+            self._invalidate()
+            self._remat_plan_cache = {}
         self._remat_segments = n
+
+    def _invalidate(self):
+        """Drop the compiled steps (each is made anew on its next use)."""
+        self._step_fn = None
+        self._sentinel = None
+        self._infer_fn = None
+        self._rnn_stream_fn = None
 
     # ------------------------------------------------------------------ init
     def init(self, input_shapes=None, device=None):
@@ -204,7 +232,12 @@ class ComputationGraph:
 
     def _forward(self, params, states, inputs, *, train, rng,
                  fmask=None, lmask=None, stop_at_output_preact=False):
-        acts = dict(self._as_input_dict(inputs))
+        inputs = self._as_input_dict(inputs)
+        if train and self.remat_segments:
+            return self._forward_remat(
+                params, states, inputs, train=train, rng=rng, fmask=fmask,
+                lmask=lmask, stop_at_output_preact=stop_at_output_preact)
+        acts = dict(inputs)
         new_states = {}
         pre_acts = {}
         for name in self.conf.topo_order:
@@ -212,6 +245,94 @@ class ComputationGraph:
                              new_states, train=train, rng=rng, fmask=fmask,
                              lmask=lmask,
                              stop_at_output_preact=stop_at_output_preact)
+        return acts, pre_acts, new_states
+
+    # ------------------------------------------------------- segmented remat
+    def _segment_plan(self, n_segments, input_names):
+        """Partition topo_order into ``n_segments`` contiguous segments,
+        cutting where the cross-boundary live set is smallest (the
+        reference's plan).
+
+        Liveness: an activation is live after position i if its producer
+        is at <= i and some consumer is at > i (graph outputs live to the
+        end). Each cut carries exactly the live set, so any cut is valid;
+        the live set's size decides what the checkpoint keeps. On a chain
+        of residual blocks (ResNet) the minimal cuts land on block
+        boundaries, where one tensor crosses."""
+        order = self.conf.topo_order
+        n = len(order)
+        last_use = {}
+        for idx, name in enumerate(order):
+            for i in self.conf.nodes[name].inputs:
+                last_use[i] = idx
+        for o in self.conf.outputs:
+            last_use[o] = n
+        producers = list(input_names) + order
+        pos = {a: -1 for a in input_names}
+        pos.update({name: idx for idx, name in enumerate(order)})
+
+        def live_after(idx):
+            return [a for a in producers
+                    if pos[a] <= idx and last_use.get(a, -1) > idx]
+
+        cuts = []
+        span = n / n_segments
+        for k in range(1, n_segments):
+            ideal = int(round(k * span)) - 1
+            lo = max((cuts[-1] + 1) if cuts else 0, int(ideal - span // 2))
+            hi = min(n - 2, int(ideal + span // 2))
+            if lo > hi:
+                continue
+            best = min(range(lo, hi + 1),
+                       key=lambda i: (len(live_after(i)), abs(i - ideal)))
+            cuts.append(best)
+        if len(cuts) + 1 < n_segments:
+            import warnings
+            warnings.warn(
+                f"remat_segments={n_segments} exceeds what this "
+                f"{n}-node graph supports; using {len(cuts) + 1} "
+                "checkpoint segments (activation footprint will be larger "
+                "than configured)", stacklevel=3)
+        bounds = [-1] + cuts + [n - 1]
+        segments = []
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            nodes = [(i, order[i]) for i in range(a + 1, b + 1)]
+            carry_in = sorted(live_after(a)) if a >= 0 else \
+                sorted(input_names)
+            carry_out = sorted(live_after(b)) if b < n - 1 else \
+                sorted(set(self.conf.outputs))
+            segments.append({"nodes": nodes, "carry_in": carry_in,
+                             "carry_out": carry_out})
+        return segments
+
+    def _forward_remat(self, params, states, inputs, *, train, rng,
+                       fmask=None, lmask=None, stop_at_output_preact=False):
+        """:meth:`_forward` with each planned segment under
+        ``checkpoint_segment``: only the activations that cross a segment
+        boundary are kept for the backward; the rest is recomputed there."""
+        key = (int(self.remat_segments), tuple(sorted(inputs)))
+        plan = self._remat_plan_cache.get(key)
+        if plan is None:
+            plan = self._remat_plan_cache[key] = self._segment_plan(
+                self.remat_segments, sorted(inputs))
+        acts = dict(inputs)
+        pre_acts, new_states = {}, {}
+        for seg in plan:
+            def seg_fn(carry, _seg=seg):
+                a, pre, ns = dict(carry), {}, {}
+                for _, nm in _seg["nodes"]:
+                    self._apply_node(
+                        nm, params, states, a, pre, ns, train=train, rng=rng,
+                        fmask=fmask, lmask=lmask,
+                        stop_at_output_preact=stop_at_output_preact)
+                return ({k: a[k] for k in _seg["carry_out"] if k in a},
+                        ns, pre)
+
+            out, ns, pre = checkpoint_segment(
+                seg_fn, {k: acts[k] for k in seg["carry_in"]})
+            acts.update(out)
+            new_states.update(ns)
+            pre_acts.update(pre)
         return acts, pre_acts, new_states
 
     def _to_device(self, x):
@@ -240,13 +361,102 @@ class ComputationGraph:
                                          for x in inputs)))
         return outs[0] if len(outs) == 1 else outs
 
+    # ------------------------------------------------------- rnn streaming
     def rnn_time_step(self, *inputs):
-        raise NotImplementedError(
-            "ComputationGraph.rnn_time_step is not ported yet")
+        """Streaming inference through the DAG (reference
+        ComputationGraph.rnnTimeStep): a (B, T, C) chunk, or a (B, C) float
+        single step, per graph input; every recurrent node's carry stays
+        on the device across calls until :meth:`rnn_clear_previous_state`
+        (a new batch size restarts it). Each step runs the recurrent
+        layers' single-step ``step_apply`` (not K4), inside one compiled
+        step per input signature (``nn/_compiled.py``: a CUDA graph on the
+        card). Returns one tensor per graph output (a bare tensor for one
+        output)."""
+        from .layers.recurrent import BaseRecurrent
+        for name in self.conf.topo_order:
+            op = self.conf.nodes[name].op
+            if isinstance(op, (Bidirectional, LastTimeStep,
+                               TimeDistributed)):
+                raise NotImplementedError(
+                    f"rnn_time_step cannot stream through node '{name}' "
+                    f"({type(op).__name__}): it needs the full sequence "
+                    "(reference rnnTimeStep has the same limit)")
+        xs = [self._to_device(x) for x in inputs]
+        integer = not xs[0].is_floating_point()
+        single = (xs[0].dim() == 2 and not integer) or \
+            (xs[0].dim() == 1 and integer)
+        if single:
+            xs = [x[:, None] if x.dim() == 1 else x[:, None, :] for x in xs]
+        batch = xs[0].shape[0]
+        old = self._rnn_carries or {}
+        if self._rnn_carry_batch != batch:
+            old = {}                   # batch changed: stale state is void
+        carries = {}
+        for name in self.conf.topo_order:
+            op = self.conf.nodes[name].op
+            if isinstance(op, BaseRecurrent):
+                c = old.get(name)
+                carries[name] = c if c is not None else op.init_carry(
+                    batch, op.compute_dtype or (
+                        xs[0].dtype if not integer else torch.float32),
+                    self.device)
+        names = sorted(carries)
+        flat = tensors([carries[n] for n in names])
+        out = self._rnn_stream(names, carries)(*xs, *flat)
+        n_out = len(self.conf.outputs)
+        ys, new_flat = list(out[:n_out]), iter(out[n_out:])
+        self._rnn_carries = {n: _like(carries[n], new_flat) for n in names}
+        self._rnn_carry_batch = batch
+        ys = [y[:, 0] for y in ys] if single else ys
+        return ys[0] if len(ys) == 1 else ys
+
+    def _rnn_stream(self, names, like):
+        """The compiled stream: (inputs..., carries...) → (outputs...,
+        new carries...), the carries flattened in ``names`` order."""
+        if self._rnn_stream_fn is None:
+            from .layers.recurrent import BaseRecurrent
+            n_in = len(self.conf.inputs)
+
+            def stream(*flat):
+                xs = flat[:n_in]
+                rest = iter(flat[n_in:])
+                cs = {n: _like(like[n], rest) for n in names}
+                ys = []
+                with torch.no_grad():
+                    for t in range(xs[0].shape[1]):
+                        acts = {n: x[:, t] for n, x in
+                                zip(self.conf.inputs, xs)}
+                        for name in self.conf.topo_order:
+                            node = self.conf.nodes[name]
+                            vals = [acts[i] for i in node.inputs]
+                            if not isinstance(node.op, Layer):
+                                acts[name] = node.op.apply(vals)
+                                continue
+                            h = vals[0]
+                            if name in self._preprocessors:
+                                h = self._preprocessors[name](h)
+                            if isinstance(node.op, BaseRecurrent):
+                                h, cs[name] = node.op.step_apply(
+                                    self.params[name], cs[name], h,
+                                    Ctx(train=False))
+                            else:
+                                h, _ = node.op.apply(
+                                    self.params[name], self.states[name], h,
+                                    Ctx(train=False))
+                            acts[name] = h
+                        ys.append([acts[o] for o in self.conf.outputs])
+                outs = [torch.stack([y[i] for y in ys], dim=1)
+                        for i in range(len(self.conf.outputs))]
+                return tuple(outs) + tuple(tensors([cs[n] for n in names]))
+            self._rnn_stream_fn = CompiledStep(
+                stream, lambda: tensors((self.params, self.states)),
+                "ComputationGraph.rnn_time_step")
+        return self._rnn_stream_fn
 
     def rnn_clear_previous_state(self):
-        raise NotImplementedError(
-            "ComputationGraph.rnn_clear_previous_state is not ported yet")
+        """Reference rnnClearPreviousState: drop all streaming state."""
+        self._rnn_carries = None
+        self._rnn_carry_batch = None
 
     # ----------------------------------------------------------------- loss
     def _loss(self, params, states, inputs, labels, rng, fmask, lmask):
@@ -311,9 +521,8 @@ class ComputationGraph:
         with torch.no_grad():
             self._opt_state = self._optimizer.init(self.params)
         if self._restored_opt_state is not None:
-            from ..serde.model_serializer import restore_tree_
-            restore_tree_(self._opt_state, self._restored_opt_state,
-                          "updater")
+            from ..serde.model_serializer import restore_updater_
+            restore_updater_(self._opt_state, self._restored_opt_state)
             self._restored_opt_state = None
 
     def _apply_constraints(self):
@@ -541,7 +750,8 @@ class ComputationGraph:
     def clone(self):
         """A copy on the same device (reference clone()): config deep-
         copied, params and states real copies, its own compiled steps and
-        generator, loss weights copied; no updater state."""
+        generator, loss weights and ``remat_segments`` copied; no updater
+        state."""
         import copy
         net = ComputationGraph(copy.deepcopy(self.conf))
         if self.initialized:
@@ -552,6 +762,9 @@ class ComputationGraph:
             net.output_shapes = dict(self.output_shapes)
             net._init_shapes = list(self._init_shapes)
             net.initialized = True
+        # execution policy and loss weighting are config-level: copied
+        # for an uninitialized graph too (the reference's clone)
+        net.remat_segments = self.remat_segments
         net.output_loss_weights = dict(self.output_loss_weights)
         return net
 

@@ -38,8 +38,11 @@ A layer's Python attributes (``fused``, ``dropout``, …) are baked into a
 captured graph: after changing one, drop the graphs (``net._step_fn`` and
 ``net._infer_fn``'s ``reset()``).
 
-Not ported yet (raise where the reference has the knob): remat segments
-and async prefetch of the iterator (``fit`` iterates directly).
+``remat_segments = n`` runs the train-time forward as n even chunks of
+the layer list, each under ``nn/_remat.py``'s checkpoint (loss, grads,
+states and dropout draws equal the monolithic walk's); ``fit`` prefetches
+a ``BaseDatasetIterator`` through ``data/async_iter.py``
+(``nn/_fit_loop.py``).
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from ..train.updaters import (NoOp, apply_updates, build_optimizer,
 from ..obs.compiles import CompileSentinel
 from ._compiled import CompiledStep, copy_into, tensors
 from ._fit_loop import fit_epochs
+from ._remat import checkpoint_segment
 from ._scan_common import check_scan_listeners, replay_scan_listeners
 from .conf import MultiLayerConfiguration
 from .layers.base import Ctx, Layer
@@ -79,12 +83,6 @@ def _unflatten(like, leaves):
     if isinstance(like, dict):
         return {k: _unflatten(like[k], leaves) for k in sorted(like)}
     return next(leaves)
-
-
-def _not_ported(what):
-    raise NotImplementedError(
-        f"MultiLayerNetwork.{what} (deeplearning4j_tpu/nn/"
-        "multi_layer_network.py) is not ported yet")
 
 
 class MultiLayerNetwork:
@@ -119,8 +117,12 @@ class MultiLayerNetwork:
 
     @remat_segments.setter
     def remat_segments(self, n):
-        if n is not None:
-            _not_ported("remat_segments / _forward_remat")
+        """Changing the remat policy drops every compiled step that ran
+        the old forward."""
+        if self._remat_segments != n:
+            self._step_fn = None
+            self._sentinel = None
+            self._infer_fn = None
         self._remat_segments = n
 
     # ------------------------------------------------------------------ init
@@ -191,6 +193,10 @@ class MultiLayerNetwork:
     def _forward(self, params, states, x, *, train, rng, fmask=None,
                  lmask=None, stop_before_output=False):
         """Returns (activation, new_states)."""
+        if train and self.remat_segments:
+            return self._forward_remat(
+                params, states, x, train=train, rng=rng, fmask=fmask,
+                lmask=lmask, stop_before_output=stop_before_output)
         new_states = {}
         h = x
         for i in range(len(self.layers)):
@@ -200,6 +206,44 @@ class MultiLayerNetwork:
                 stop_before_output=stop_before_output)
             if stopped:
                 break
+        return h, new_states
+
+    def _forward_remat(self, params, states, x, *, train, rng, fmask=None,
+                       lmask=None, stop_before_output=False):
+        """:meth:`_forward` with contiguous layer chunks under
+        ``checkpoint_segment``: only chunk-boundary activations are kept
+        for the backward. The sequential counterpart of
+        ``ComputationGraph._forward_remat`` (one carried tensor, so the
+        plan is an even index split)."""
+        n = len(self.layers)
+        if int(self.remat_segments) > n:
+            import warnings
+            warnings.warn(
+                f"remat_segments={int(self.remat_segments)} exceeds what "
+                f"this {n}-layer net supports; using {n} checkpoint "
+                "segments (activation footprint will be larger than "
+                "configured)", stacklevel=3)
+        nseg = max(1, min(int(self.remat_segments), n))
+        bounds = [round(k * n / nseg) for k in range(nseg + 1)]
+        h = x
+        new_states = {}
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            if a == b:
+                continue
+
+            def seg_fn(hh, _a=a, _b=b):
+                ns = {}
+                for i in range(_a, _b):
+                    hh, stopped = self._apply_one(
+                        i, params, states, hh, ns, train=train, rng=rng,
+                        fmask=fmask, lmask=lmask,
+                        stop_before_output=stop_before_output)
+                    if stopped:
+                        break
+                return hh, ns
+
+            h, ns = checkpoint_segment(seg_fn, h)
+            new_states.update(ns)
         return h, new_states
 
     def _to_device(self, x):
@@ -309,9 +353,8 @@ class MultiLayerNetwork:
         with torch.no_grad():
             self._opt_state = self._optimizer.init(self.params)
         if self._restored_opt_state is not None:
-            from ..serde.model_serializer import restore_tree_
-            restore_tree_(self._opt_state, self._restored_opt_state,
-                          "updater")
+            from ..serde.model_serializer import restore_updater_
+            restore_updater_(self._opt_state, self._restored_opt_state)
             self._restored_opt_state = None
 
     def _apply_constraints(self):
@@ -609,7 +652,8 @@ class MultiLayerNetwork:
     def clone(self):
         """A copy on the same device (reference clone()): the config deep-
         copied, params and states real copies, its own compiled steps and
-        generator; the updater state is not copied (the reference's)."""
+        generator, and ``remat_segments``; the updater state is not copied
+        (the reference's)."""
         import copy
         net = MultiLayerNetwork(copy.deepcopy(self.conf))
         if self.initialized:
@@ -620,6 +664,7 @@ class MultiLayerNetwork:
             net._init_input_shape = self._init_input_shape
             net.output_shape = self.output_shape
             net.initialized = True
+        net.remat_segments = self.remat_segments
         return net
 
     def summary(self) -> str:

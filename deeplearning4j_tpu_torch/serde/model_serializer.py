@@ -12,13 +12,16 @@ A checkpoint is a zip with the reference's array layout:
   preprocessors, shapes, counters and the train step's generator state;
   and ``normalizer_torch.pkl`` when a normalizer is given.
 
-The JAX package writes ``conf.pkl`` / ``normalizer.pkl`` (and a pickled
-optax state, ``updater.pkl``): unpickling them would import that package
-and JAX, so this module never does. Such a zip's params and states load
-into a port net built from the equivalent port configuration with
-:func:`load_params`; :func:`load_model` of a zip without the port's
-record raises and names it. The optax state is not mapped onto the
-port's updaters yet.
+The JAX package writes ``conf.pkl`` (its configuration, whose classes
+import JAX: never unpickled here), ``normalizer.pkl`` and, with its
+updater, ``updater.pkl`` (a pickled optax state). Such a zip's params and
+states load into a port net built from the equivalent port configuration
+with :func:`load_params`; with ``updater=True`` its optax state is read
+without optax or JAX and mapped onto the port's updater state
+(``serde/jax_pickles.py``), so ``fit`` resumes where the JAX net would
+have; :func:`restore_normalizer` reads its normalizer the same way.
+:func:`load_model` of a zip without the port's record raises and names
+:func:`load_params`.
 
 :func:`load_model` builds a new net (no graphs yet). :func:`load_params`
 copies into an existing net's tensors in place, so graphs captured on
@@ -44,6 +47,8 @@ BF16 = "__bf16__"
 RECORD = "conf_torch.pkl"
 NORMALIZER = "normalizer_torch.pkl"
 JAX_RECORD = "conf.pkl"
+JAX_UPDATER = "updater.pkl"
+JAX_NORMALIZER = "normalizer.pkl"
 
 
 def flatten_with_paths(tree, prefix=""):
@@ -87,6 +92,17 @@ def _load_npz(zf, name):
             else:
                 out[k] = torch.from_numpy(z[k])
         return out
+
+
+def restore_updater_(opt_state, saved):
+    """Put a restored updater state into a built updater's state, in
+    place: a port checkpoint's ({path key: tensor}) or a JAX package's
+    (:class:`~.jax_pickles.JaxUpdaterState`)."""
+    from .jax_pickles import JaxUpdaterState, restore_optax_state_
+    if isinstance(saved, JaxUpdaterState):
+        restore_optax_state_(opt_state, saved.state)
+    else:
+        restore_tree_(opt_state, saved, "updater")
 
 
 def restore_tree_(tree, flat, what):
@@ -154,8 +170,12 @@ def save_model(model, path, save_updater: bool = False, normalizer=None):
         if save_updater:
             if model._opt_state is not None:
                 _save_npz(zf, "updater.npz", model._opt_state)
-            elif model._restored_opt_state is not None:
+            elif isinstance(model._restored_opt_state, dict):
                 _save_npz(zf, "updater.npz", model._restored_opt_state)
+            elif model._restored_opt_state is not None:
+                raise ValueError(
+                    "the net holds a JAX package's updater state that no "
+                    "updater has taken yet: build it (fit) before saving")
         if normalizer is not None:
             zf.writestr(NORMALIZER, pickle.dumps(normalizer))
     os.replace(tmp, path)
@@ -219,39 +239,38 @@ def load_params(net, path, updater: bool = False):
     captured on them stay valid). ``net`` is an initialized port net of
     the equivalent configuration; every one of its tensors must be in the
     zip, at its shape (values are cast to its dtypes). With ``updater``
-    the updater state of a port zip is restored too (into the built
-    updater, or when ``fit`` builds it); a JAX zip's optax state raises.
-    Returns ``net``."""
+    the updater state is restored too, a port zip's or a JAX zip's
+    (``updater.pkl``, mapped onto the port's updater of the same kind):
+    into the built updater, or when ``fit`` builds it. Returns ``net``."""
     with zipfile.ZipFile(path) as zf:
         names = zf.namelist()
         restore_tree_(net.params, _load_npz(zf, "params.npz"), "params")
         restore_tree_(net.states, _load_npz(zf, "states.npz"), "states")
         if updater:
             if "updater.npz" in names:
-                flat = _load_npz(zf, "updater.npz")
-                if net._opt_state is None:
-                    net._restored_opt_state = flat
-                else:
-                    restore_tree_(net._opt_state, flat, "updater")
-            elif JAX_RECORD in names:
-                raise NotImplementedError(
-                    f"{path}: the JAX package's updater state (optax's "
-                    "state tree, pickled in updater.pkl) is not mapped onto "
-                    "the port's updaters yet (ROADMAP.md)")
+                saved = _load_npz(zf, "updater.npz")
+            elif JAX_UPDATER in names:
+                from .jax_pickles import JaxUpdaterState, load_optax_state
+                saved = JaxUpdaterState(load_optax_state(
+                    zf.read(JAX_UPDATER)))
             else:
                 raise ValueError(f"{path} holds no updater state")
+            if net._opt_state is None:
+                net._restored_opt_state = saved
+            else:
+                restore_updater_(net._opt_state, saved)
     return net
 
 
 def restore_normalizer(path):
-    """The normalizer saved with the model at ``path`` (None without one).
-    A JAX-written ``normalizer.pkl`` is never unpickled."""
+    """The normalizer saved with the model at ``path`` (None without one):
+    the port's, or a JAX package's ``normalizer.pkl`` read as the port's
+    normalizer of the same class, without importing that package."""
     with zipfile.ZipFile(path) as zf:
         names = zf.namelist()
         if NORMALIZER in names:
             return pickle.loads(zf.read(NORMALIZER))
-        if "normalizer.pkl" in names:
-            raise ValueError(
-                f"{path}: its normalizer was pickled by the JAX package; "
-                "unpickling it would import that package")
+        if JAX_NORMALIZER in names:
+            from .jax_pickles import load_jax_normalizer
+            return load_jax_normalizer(zf.read(JAX_NORMALIZER))
     return None

@@ -37,7 +37,8 @@ class ResNet50(ZooModel):
     # equivalent 4x4/s1 conv on 12 channels in place of the 7x7/s2 stem
     # (weights folded by `fold_stem_weights_s2d`)
     stem_space_to_depth: bool = False
-    # the reference's jax.checkpoint segments; not ported yet (raises)
+    # n: the train-time forward runs as n checkpoint segments cut at
+    # block boundaries (ComputationGraph.remat_segments); None: monolithic
     remat_segments: "int | None" = None
 
     # (n_blocks, filters) per stage; first block of stages 2-4 downsamples

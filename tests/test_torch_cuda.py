@@ -2074,3 +2074,143 @@ def test_parallel_inference_timer_never_captures(gen):
         assert torch.equal(fut.result(timeout=60), want)
         assert pi._infer.last == "replay"
     assert not errors
+
+
+# ------------------------------------------- the rest of the DL4J workflow
+
+def _remat_graph(dropout):
+    """A small residual CG with dropout and fused K3 BNs, on the card."""
+    from deeplearning4j_tpu_torch import nn
+    b = nn.NeuralNetConfiguration.builder().seed(7)
+    g = b.graph_builder().add_inputs("in")
+    g.add_layer("stem", nn.ConvolutionLayer(
+        n_out=16, kernel_size=(3, 3), convolution_mode="same",
+        activation="identity"), "in")
+    g.add_layer("stem_bn", nn.BatchNormalization(activation="relu",
+                                                 fused=True), "stem")
+    x = "stem_bn"
+    for i in range(2):
+        g.add_layer(f"b{i}_conv", nn.ConvolutionLayer(
+            n_out=16, kernel_size=(3, 3), convolution_mode="same",
+            activation="identity", dropout=dropout), x)
+        g.add_layer(f"b{i}_bn", nn.BatchNormalization(activation="identity",
+                                                      fused=True),
+                    f"b{i}_conv")
+        g.add_vertex(f"b{i}_add", nn.ElementWiseVertex(op="add"),
+                     f"b{i}_bn", x)
+        g.add_layer(f"b{i}_out", nn.ActivationLayer(activation="relu"),
+                    f"b{i}_add")
+        x = f"b{i}_out"
+    g.add_layer("gap", nn.GlobalPoolingLayer(pooling_type="avg"), x)
+    g.add_layer("out", nn.OutputLayer(n_in=16, n_out=5, activation="softmax",
+                                      loss="mcxent"), "gap")
+    g.set_outputs("out")
+    g.set_input_types(nn.InputType.convolutional(16, 16, 3))
+    return nn.ComputationGraph(g.build()).init()
+
+
+def test_remat_with_dropout_replayed_equals_monolithic(gen):
+    """remat_segments=3 on a CG with dropout: 4 replayed steps (eager,
+    capture, replays) land bit for bit where the monolithic net's 4
+    replayed steps land, the dropout masks of each recompute being the
+    forward's; K3's stats and normalize launch twice as often."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn._compiled import tensors
+    x = torch.rand(8, 16, 16, 3, device="cuda", generator=gen)
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 5, (8,), device="cuda", generator=gen), 5).float()
+    runs = {}
+    for remat in (None, 3):
+        net = _remat_graph(0.3)
+        net.remat_segments = remat
+        fo.reset_launches()
+        losses = [net.fit(DataSet(x, y)) for _ in range(4)]
+        assert net._step_fn.calls == {"direct": 0, "eager": 1, "capture": 1,
+                                      "replay": 2}
+        runs[remat] = (losses, [t.detach().clone() for t in tensors(
+            (net.params, net.states, net._opt_state))],
+            (fo.LAUNCHES_STATS, fo.LAUNCHES, fo.LAUNCHES_BWD_DX))
+    assert runs[None][0] == runs[3][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[None][1], runs[3][1]))
+    (s0, n0, d0), (s1, n1, d1) = runs[None][2], runs[3][2]
+    assert (s1, n1, d1) == (2 * s0, 2 * n0, d0) and s0 > 0
+
+
+def test_async_prefetch_during_a_capture(gen):
+    """fit over a host ListDataSetIterator: the producer packs the next
+    batches (on the host, never touching the card) while the step is
+    captured, and the prefetched fit equals fit over the same batches in
+    a list, bit for bit; a device-resident iterator is iterated directly
+    (nothing to prefetch) and lands on the same params."""
+    from deeplearning4j_tpu_torch import nn, train
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+    x = torch.randn(64, 6, device="cuda", generator=gen)
+    y = torch.nn.functional.one_hot(torch.randint(
+        0, 3, (64,), device="cuda", generator=gen), 3).float()
+    xh, yh = x.cpu().numpy(), y.cpu().numpy()
+
+    def net():
+        conf = (nn.NeuralNetConfiguration.builder().seed(3)
+                .updater(train.Adam(1e-2)).list()
+                .layer(nn.DenseLayer(n_in=6, n_out=16, activation="tanh"))
+                .layer(nn.OutputLayer(n_in=16, n_out=3, activation="softmax",
+                                      loss="mcxent")).build())
+        return nn.MultiLayerNetwork(conf).init()
+    a, b, c = net(), net(), net()
+    a.fit(ListDataSetIterator(DataSet(xh, yh), 8), epochs=2)
+    b.fit([DataSet(x[i:i + 8], y[i:i + 8]) for i in range(0, 64, 8)],
+          epochs=2)
+    c.fit(ListDataSetIterator(DataSet(x, y), 8), epochs=2)
+    assert a._step_fn.calls["capture"] == 1
+    assert a._prefetch.counts[a._prefetch.buffer] == 16
+    assert c._prefetch is None and c._step_fn.calls["capture"] == 1
+    assert torch.equal(a.params_flat(), b.params_flat())
+    assert torch.equal(c.params_flat(), b.params_flat())
+
+
+def test_cg_rnn_time_step_on_the_k4_path(gen):
+    """A GravesLSTM graph (fused, K4 for the full sequence): rnn_time_step
+    over single steps (a replayed graph) and over two chunks against
+    output(), bf16 within 2e-2."""
+    from deeplearning4j_tpu_torch import nn
+    b = nn.NeuralNetConfiguration.builder().seed(4)
+    b.data_type(torch.float32, torch.bfloat16)
+    g = b.graph_builder().add_inputs("in")
+    g.add_layer("l0", nn.GravesLSTM(n_in=11, n_out=64, fused=True), "in")
+    g.add_layer("out", nn.RnnOutputLayer(n_in=64, n_out=11,
+                                         activation="softmax",
+                                         loss="mcxent"), "l0")
+    g.set_outputs("out")
+    net = nn.ComputationGraph(g.build()).init([(12, 11)])
+    x = torch.randn(4, 12, 11, device="cuda", generator=gen)
+    fl.reset_launches()
+    full = net.output(x)
+    assert fl.LAUNCHES >= 1
+    net.rnn_clear_previous_state()
+    stepped = torch.stack([net.rnn_time_step(x[:, t]) for t in range(12)], 1)
+    assert net._rnn_stream_fn.calls["replay"] == 10
+    net.rnn_clear_previous_state()
+    chunked = torch.cat([net.rnn_time_step(x[:, :5]),
+                         net.rnn_time_step(x[:, 5:])], 1)
+    for got in (stepped, chunked):
+        assert float((got.float() - full.float()).abs().max()) <= 2e-2
+
+
+def test_jit_in_workspace_replayed_equals_eager(gen):
+    from deeplearning4j_tpu_torch import disable_graphs, nd
+
+    def step(acc, x, w):
+        acc.add_(torch.tanh(x @ w).sum(0))
+        return acc.sum()
+    fn = nd.workspace.jit_in_workspace(step, donate_argnums=(0,))
+    w = torch.randn(32, 32, device="cuda", generator=gen)
+    xs = [torch.randn(8, 32, device="cuda", generator=gen) for _ in range(4)]
+    acc, acc_e = nd.zeros(32), nd.zeros(32)
+    outs = [fn(acc, x, w) for x in xs]
+    with disable_graphs():
+        outs_e = [step(acc_e, x, w) for x in xs]
+    assert fn.compiled.calls["replay"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(outs, outs_e))
+    assert torch.equal(acc, acc_e)
+    assert nd.workspace.live_buffer_bytes() > 0
+    assert "cuda:0" in nd.workspace.device_memory_stats()

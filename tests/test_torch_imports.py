@@ -72,7 +72,11 @@ def test_port_has_modules_to_check():
             "obs/fidelity.py", "obs/compiles.py", "kernels/autotune.py",
             "serving/quant.py", "serving/spec.py", "serving/tune.py",
             "nlp/bert_iterator.py", "serving/adapter.py",
-            "parallel/wrapper.py"} <= names
+            "parallel/wrapper.py", "ndarray/factory.py",
+            "ndarray/indexing.py", "ndarray/random.py",
+            "ndarray/workspace.py", "utils/native.py",
+            "data/async_iter.py", "nn/early_stopping.py", "nn/_remat.py",
+            "serde/jax_pickles.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -103,6 +107,12 @@ def test_importing_the_port_loads_no_jax():
             "import deeplearning4j_tpu_torch.nlp\n"
             "import deeplearning4j_tpu_torch.parallel\n"
             "import deeplearning4j_tpu_torch.serving.adapter\n"
+            "import deeplearning4j_tpu_torch.ndarray\n"
+            "from deeplearning4j_tpu_torch import nd\n"
+            "import deeplearning4j_tpu_torch.utils.native\n"
+            "import deeplearning4j_tpu_torch.data.async_iter\n"
+            "import deeplearning4j_tpu_torch.nn.early_stopping\n"
+            "import deeplearning4j_tpu_torch.serde.jax_pickles\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
             "print(bad)\n"
@@ -113,47 +123,81 @@ def test_importing_the_port_loads_no_jax():
 
 
 def test_loading_a_jax_zip_loads_no_jax(tmp_path):
-    """A zip the JAX package wrote (its ``conf.pkl`` pickles the reference
+    """Zips the JAX package wrote (its ``conf.pkl`` pickles the reference
     configuration, importing which loads jax): ``load_model`` raises and
-    names ``load_params``, ``restore_normalizer`` refuses the pickled
-    normalizer, and ``load_params`` copies its arrays, all without
-    unpickling either or importing jax."""
+    names ``load_params``; ``load_params`` copies the arrays; a pickled
+    updater state or normalizer that names anything but optax's state
+    classes, the reference's normalizers, numpy and plain builtins is
+    refused; a real one (written here by the JAX package) is read into the
+    port's updater and normalizer — all without importing jax."""
     import io
+    import pickle
     import zipfile
 
     import numpy as np
-    path = tmp_path / "jax.zip"
+    bad, good = tmp_path / "bad.zip", tmp_path / "good.zip"
+    jax_global = (b"\x80\x04\x95\x10\x00\x00\x00\x00\x00"
+                  b"\x00\x00\x8c\x03jax\x94\x8c\x05Array\x94\x93\x94.")
+    # the JAX package's own pickles, made in this process (which may
+    # import it); the subprocess that reads them must not
+    code = (
+        "import pickle, jax, numpy as np\n"
+        "from deeplearning4j_tpu.train import updaters as U\n"
+        "from deeplearning4j_tpu.data import normalizers as N, DataSet\n"
+        "p = {'layer_0': {'W': np.ones((3, 2), np.float32),\n"
+        "                 'b': np.zeros(2, np.float32)}}\n"
+        "st = U.build_optimizer(U.Adam(1e-2)).init(p)\n"
+        "x = np.arange(12, dtype=np.float32).reshape(4, 3)\n"
+        "nz = N.NormalizerStandardize().fit(DataSet(x, x))\n"
+        "import sys\n"
+        "sys.stdout.buffer.write(pickle.dumps((pickle.dumps(\n"
+        "    jax.tree_util.tree_map(np.asarray, st)), pickle.dumps(nz))))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, timeout=300,
+                         env={**__import__("os").environ,
+                              "JAX_PLATFORMS": "cpu"})
+    assert res.returncode == 0, res.stderr.decode()
+    updater_pkl, normalizer_pkl = pickle.loads(res.stdout)
     buf = io.BytesIO()
     np.savez(buf, **{"layer_0|W": np.ones((3, 2), np.float32),
                      "layer_0|b": np.zeros(2, np.float32)})
-    with zipfile.ZipFile(path, "w") as zf:
-        # pickles of a jax-only module: loading either would import it
-        zf.writestr("conf.pkl", b"\x80\x04\x95\x10\x00\x00\x00\x00\x00"
-                    b"\x00\x00\x8c\x03jax\x94\x8c\x05Array\x94\x93\x94.")
-        zf.writestr("normalizer.pkl", b"not for the port")
-        zf.writestr("params.npz", buf.getvalue())
-        buf = io.BytesIO()
-        np.savez(buf)
-        zf.writestr("states.npz", buf.getvalue())
-        zf.writestr("updater.pkl", b"optax state")
+    params = buf.getvalue()
+    buf = io.BytesIO()
+    np.savez(buf)
+    for path, upd, norm in ((bad, jax_global, jax_global),
+                            (good, updater_pkl, normalizer_pkl)):
+        with zipfile.ZipFile(path, "w") as zf:
+            zf.writestr("conf.pkl", jax_global)
+            zf.writestr("normalizer.pkl", norm)
+            zf.writestr("params.npz", params)
+            zf.writestr("states.npz", buf.getvalue())
+            zf.writestr("updater.pkl", upd)
     code = (
-        "import sys\n"
+        "import sys, pickle\n"
         "import pytest\n"
-        "from deeplearning4j_tpu_torch import nn, serde\n"
-        "conf = (nn.NeuralNetConfiguration.builder().list()\n"
+        "from deeplearning4j_tpu_torch import nn, serde, train\n"
+        "conf = (nn.NeuralNetConfiguration.builder()\n"
+        "        .updater(train.Adam(1e-2)).list()\n"
         "        .layer(nn.OutputLayer(n_in=3, n_out=2)).build())\n"
         "net = nn.MultiLayerNetwork(conf).init((3,), device='cpu')\n"
-        f"path = {str(path)!r}\n"
-        "with pytest.raises(ValueError, match='load_params'):\n"
-        "    serde.load_model(path, device='cpu')\n"
-        "with pytest.raises(ValueError, match='JAX'):\n"
-        "    serde.restore_normalizer(path)\n"
-        "serde.load_params(net, path)\n"
+        f"bad, good = {str(bad)!r}, {str(good)!r}\n"
+        "for path in (bad, good):\n"
+        "    with pytest.raises(ValueError, match='load_params'):\n"
+        "        serde.load_model(path, device='cpu')\n"
+        "with pytest.raises(pickle.UnpicklingError, match='jax.Array'):\n"
+        "    serde.restore_normalizer(bad)\n"
+        "with pytest.raises(pickle.UnpicklingError, match='jax.Array'):\n"
+        "    serde.load_params(net, bad, updater=True)\n"
+        "serde.load_params(net, good, updater=True)\n"
         "assert float(net.params['layer_0']['W'].sum()) == 6.0\n"
-        "with pytest.raises(NotImplementedError, match='optax'):\n"
-        "    serde.load_params(net, path, updater=True)\n"
+        "net._build_optimizer()\n"
+        "assert int(net._opt_state[1][0]['count']) == 0\n"
+        "nz = serde.restore_normalizer(good)\n"
+        "assert type(nz).__name__ == 'NormalizerStandardize'\n"
+        "assert type(nz).__module__.startswith('deeplearning4j_tpu_torch')\n"
+        "assert abs(float(nz._f.mean[0]) - 4.5) < 1e-9\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
+        "('jax', 'jaxlib', 'deeplearning4j_tpu', 'optax')]\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -125,8 +125,11 @@ def test_exception_mid_epoch_delivers_the_finished_step():
     tnet.set_listeners(log)
     x = np.concatenate([a for a, _ in _data()])
     y = np.concatenate([b for _, b in _data()])
-    with pytest.raises(RuntimeError, match="source failed"):
+    # fit prefetches the iterator: the source's error reaches the loop
+    # as the prefetch's, chained to it
+    with pytest.raises(RuntimeError, match="async data producer") as err:
         tnet.fit(_Boom(DataSet(x, y), 8))
+    assert "source failed" in str(err.value.__cause__)
     assert [c[1] for c in log.calls] == [1, 2]
 
 

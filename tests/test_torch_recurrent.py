@@ -23,6 +23,9 @@ the products summed in another order before it).
   in its four modes and with ``last_step``; LastTimeStep; TimeDistributed.
 - The nested-defaults repair: a global compute dtype reaches the layer
   inside Bidirectional and LastTimeStep, as in the reference.
+- ``ComputationGraph.rnn_time_step`` on every cell: single steps and
+  chunks reproduce ``output()`` and the JAX graph's stream (f32 1e-5;
+  bf16 2e-2), a new batch restarts it, Bidirectional is refused.
 """
 
 from __future__ import annotations
@@ -35,6 +38,10 @@ import numpy as np
 import pytest
 import torch
 
+import deeplearning4j_tpu.nn as jnn
+import deeplearning4j_tpu.train as jtrain
+import deeplearning4j_tpu_torch.nn as tnn
+import deeplearning4j_tpu_torch.train as ttrain
 from deeplearning4j_tpu.nn.conf import NeuralNetConfiguration as JNNC
 from deeplearning4j_tpu.nn.layers import core as jcore
 from deeplearning4j_tpu.nn.layers import recurrent as jrec
@@ -408,3 +415,92 @@ def test_global_defaults_reach_wrapped_layers():
     p, s, _ = layer.init(torch.Generator().manual_seed(0), (5, 3))
     y, _ = layer.apply(p, s, x, Ctx())
     assert y.dtype == torch.bfloat16
+
+
+# ------------------------------------------------ ComputationGraph streaming
+
+def _rnn_graph(m, t, make, seed=11, compute_dtype=None):
+    """in → recurrent node → RnnOutputLayer, as a ComputationGraph."""
+    b = m.NeuralNetConfiguration.builder().seed(seed).updater(t.Adam(1e-3))
+    if compute_dtype is not None:
+        b = b.data_type(jnp.float32 if m is jnn else torch.float32,
+                        compute_dtype)
+    g = b.graph_builder().add_inputs("in")
+    g.add_layer("rnn", make(m), "in")
+    g.add_layer("out", m.RnnOutputLayer(n_in=6, n_out=4,
+                                        activation="softmax",
+                                        loss="mcxent"), "rnn")
+    g.set_outputs("out")
+    return m.ComputationGraph(g.build())
+
+
+_CELLS = {"SimpleRnn": lambda m: m.SimpleRnn(n_in=3, n_out=6),
+          "LSTM": lambda m: m.LSTM(n_in=3, n_out=6),
+          "GravesLSTM": lambda m: m.GravesLSTM(n_in=3, n_out=6),
+          "GRU": lambda m: m.GRU(n_in=3, n_out=6)}
+
+
+def _graph_pair(cell, compute=(None, None)):
+    jnet = _rnn_graph(jnn, jtrain, _CELLS[cell],
+                      compute_dtype=compute[0]).init([(5, 3)])
+    tnet = _rnn_graph(tnn, ttrain, _CELLS[cell],
+                      compute_dtype=compute[1]).init([(5, 3)], device="cpu")
+    tnet.params, tnet.states = tnn.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, jnet.params),
+        jax.tree_util.tree_map(np.asarray, jnet.states), "cpu")
+    return jnet, tnet
+
+
+@pytest.mark.parametrize("cell", sorted(_CELLS))
+def test_cg_rnn_time_step_matches_full_forward(cell):
+    """ComputationGraph.rnn_time_step (tests/test_layers.py:249 on a
+    graph) fed one step at a time, then in two chunks, reproduces
+    output() over the whole sequence, and the JAX graph's stream."""
+    rng = np.random.default_rng(7)
+    jnet, net = _graph_pair(cell)
+    x = rng.standard_normal((2, 5, 3)).astype(np.float32)
+    full = _np(net.output(x))
+    np.testing.assert_allclose(full, np.asarray(jnet.output(x)), atol=ATOL)
+    net.rnn_clear_previous_state()
+    jnet.rnn_clear_previous_state()
+    got = np.stack([_np(net.rnn_time_step(x[:, t, :])) for t in range(5)], 1)
+    want = np.stack([np.asarray(jnet.rnn_time_step(x[:, t, :]))
+                     for t in range(5)], 1)
+    np.testing.assert_allclose(got, full, atol=ATOL)
+    np.testing.assert_allclose(got, want, atol=ATOL)
+    assert net._rnn_stream_fn.last == "direct"
+    net.rnn_clear_previous_state()
+    first = _np(net.rnn_time_step(x[:, :3, :]))
+    rest = _np(net.rnn_time_step(x[:, 3:, :]))
+    np.testing.assert_allclose(np.concatenate([first, rest], axis=1), full,
+                               atol=ATOL)
+    net.rnn_clear_previous_state()
+    again = _np(net.rnn_time_step(x[:, 0, :]))
+    np.testing.assert_allclose(again, full[:, 0], atol=ATOL)
+    # a new batch size restarts the stream
+    one = _np(net.rnn_time_step(x[:1, 0, :]))
+    np.testing.assert_allclose(one, full[:1, 0], atol=ATOL)
+
+
+def test_cg_rnn_time_step_bf16_and_refusals():
+    """tests/test_layers.py:288 on a graph: a bf16 compute dtype streams
+    (finite, within 2e-2 of the JAX graph's stream), and a Bidirectional
+    node is refused with the reference's message."""
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 5, 3)).astype(np.float32)
+    jnet, net = _graph_pair("LSTM", (jnp.bfloat16, torch.bfloat16))
+    y = net.rnn_time_step(x[:, 0, :])
+    assert y.shape == (2, 4) and bool(torch.isfinite(y.float()).all())
+    np.testing.assert_allclose(
+        _np(y), np.asarray(jnet.rnn_time_step(x[:, 0, :]), np.float32),
+        atol=BF16_ATOL)
+    b = tnn.NeuralNetConfiguration.builder().seed(2)
+    g = b.graph_builder().add_inputs("in")
+    g.add_layer("bi", tnn.Bidirectional(fwd=tnn.LSTM(n_in=3, n_out=6)), "in")
+    g.add_layer("out", tnn.RnnOutputLayer(n_in=12, n_out=4,
+                                          activation="softmax",
+                                          loss="mcxent"), "bi")
+    g.set_outputs("out")
+    netbi = tnn.ComputationGraph(g.build()).init([(5, 3)], device="cpu")
+    with pytest.raises(NotImplementedError, match="Bidirectional"):
+        netbi.rnn_time_step(x[:, 0, :])

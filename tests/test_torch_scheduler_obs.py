@@ -82,6 +82,9 @@ def _serve(engine, cls, obs, replica):
 
 
 def _delta(before, after, name):
+    """What moved: each label set's counter (or histogram count) change,
+    those that did not move left out (a label set another test of the
+    same process registered moves by 0 here)."""
     if name not in after:
         return None
     b = before.get(name, {})
@@ -91,7 +94,7 @@ def _delta(before, after, name):
             out[key] = v["count"] - b.get(key, {}).get("count", 0)
         else:
             out[key] = v - b.get(key, 0.0)
-    return out
+    return {k: v for k, v in out.items() if v}
 
 
 def _tokens(res):

@@ -6,6 +6,13 @@ package, on the CPU.
   built from the equivalent port config through ``load_params``:
   ``output()`` within 1e-5 of the JAX net's, MLN and CG, bf16 params
   included; ``load_model`` of it raises and names ``load_params``;
+- with ``updater=True`` its pickled optax state maps onto the port's
+  updater: a JAX net trained k steps and saved with its updater and a
+  normalizer, loaded into the port and trained k more, equals the JAX
+  net after 2k steps at 1e-5 (f32), for each of the fourteen updaters,
+  under a schedule, behind gradient normalization and L1/L2, and with
+  per-layer updaters and a frozen layer (``multi_transform``); the
+  normalizer comes back as the port's, transforming as the reference's;
 - a port round trip is bit-exact (params, states, ``output()``), and
   resuming after ``save_updater=True`` matches uninterrupted training bit
   for bit — with input dropout, whose generator state the zip keeps —
@@ -114,8 +121,14 @@ def test_jax_written_zip_loads_through_load_params(kind, tmp_path):
             np.array(leaf, np.float32)))
     with pytest.raises(ValueError, match="load_params"):
         serde.load_model(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="optax"):
-        serde.load_params(tnet, path, updater=True)
+    # its optax state maps onto the port's updater: one more step each
+    # lands together
+    serde.load_params(tnet, path, updater=True)
+    jnet.fit([JDataSet(*data[1])])
+    tnet.fit([DataSet(*data[1])])
+    np.testing.assert_allclose(
+        tnet.output(x).float().numpy(), np.asarray(jnet.output(x), np.float32),
+        atol=ATOL if kind != "mln_bf16" else 2e-2)
 
 
 def test_load_params_checks_shapes(tmp_path):
@@ -295,3 +308,98 @@ def test_composite_preprocessor_matches_reference():
     np.testing.assert_allclose(tc.pre_process(DataSet(x, y)).features,
                                jc.pre_process(JDataSet(x, y)).features,
                                atol=NORM_ATOL)
+
+
+# ------------------------------------------- resuming a JAX net's updater
+
+_UPDATERS = ["Sgd", "Nesterovs", "Momentum", "Adam", "AdamW", "AMSGrad",
+             "Nadam", "AdaMax", "AdaDelta", "AdaGrad", "RmsProp", "Lion",
+             "Lamb", "NoOp"]
+_LR = {"Sgd": 0.1, "Nesterovs": 0.05, "Momentum": 0.05, "AdaDelta": 1.0,
+       "AdaGrad": 0.1, "RmsProp": 1e-2, "Lion": 1e-3, "NoOp": None}
+
+
+def _resume_net(m, t, name, variant):
+    up = getattr(t, name)() if _LR.get(name, 1e-2) is None else \
+        getattr(t, name)(_LR.get(name, 1e-2))
+    if variant == "schedule":
+        up = up.with_lr(t.StepSchedule(initial_value=_LR.get(name, 1e-2),
+                                       decay_rate=0.5, step=2))
+    b = m.NeuralNetConfiguration.builder().seed(21).updater(up)
+    if variant == "gradnorm":
+        b = b.gradient_normalization("clip_l2_per_layer") \
+            .gradient_normalization_threshold(0.5).l2(1e-3).l1(1e-4)
+    dense = dict(n_out=6, activation="tanh")
+    if variant == "labels":
+        dense["updater"] = t.Sgd(0.05)
+    return m.MultiLayerNetwork(
+        b.list()
+        .layer(m.DenseLayer(n_in=4, n_out=8, activation="relu",
+                            frozen=(variant == "labels")))
+        .layer(m.DenseLayer(**dense))
+        .layer(m.OutputLayer(n_out=3, activation="softmax", loss="mcxent"))
+        .set_input_type(m.InputType.feed_forward(4)).build())
+
+
+@pytest.mark.parametrize("name,variant", [
+    *((n, "plain") for n in _UPDATERS),
+    ("Adam", "schedule"), ("RmsProp", "schedule"), ("Momentum", "gradnorm"),
+    ("AdaDelta", "gradnorm"), ("Adam", "labels"), ("Lamb", "labels")])
+def test_jax_updater_state_resumes_in_the_port(name, variant, tmp_path):
+    from deeplearning4j_tpu.serde.model_serializer import save_model
+    rng = np.random.default_rng(4)
+    data = [(rng.standard_normal((8, 4)).astype(np.float32),
+             np.eye(3, dtype=np.float32)[rng.integers(0, 3, 8)])
+            for _ in range(4)]
+    jnet = _resume_net(jnn, jtrain, name, variant).init()
+    tnet = _resume_net(tnn, ttrain, name, variant).init(device="cpu")
+    for x, y in data[:2]:
+        jnet.fit(JDataSet(x, y))
+    norm = jnorm.NormalizerStandardize().fit(JDataSet(data[0][0],
+                                                      data[0][1]))
+    path = tmp_path / "jax.zip"
+    save_model(jnet, path, save_updater=True, normalizer=norm)
+    serde.load_params(tnet, path, updater=True)
+    assert tnet._opt_state is None           # restored when fit builds it
+    for x, y in data[2:]:
+        jnet.fit(JDataSet(x, y))
+        tnet.fit(DataSet(x, y))
+    for (p, leaf) in jax.tree_util.tree_leaves_with_path(jnet.params):
+        k = [q.key for q in p]
+        np.testing.assert_allclose(
+            tnet.params[k[0]][k[1]].detach().numpy(), np.asarray(leaf),
+            atol=ATOL, err_msg=f"{name}/{variant} {k}")
+    got = serde.restore_normalizer(path)
+    assert type(got) is tnorm.NormalizerStandardize
+    x = data[3][0]
+    np.testing.assert_allclose(got.transform(DataSet(x, x)).features,
+                               norm.transform(JDataSet(x, x)).features,
+                               atol=1e-6)
+
+
+def test_jax_updater_state_into_a_built_updater(tmp_path):
+    """``load_params(updater=True)`` into a net whose updater exists copies
+    the optax state into its tensors in place."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((8, 4)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 8)]
+    jnet = _resume_net(jnn, jtrain, "Adam", "plain").init()
+    jnet.fit(JDataSet(x, y))
+    path = tmp_path / "jax.zip"
+    jnet.save(path, save_updater=True)
+    tnet = _resume_net(tnn, ttrain, "Adam", "plain").init(device="cpu")
+    tnet.fit(DataSet(x * 2, y))                  # builds its updater
+    ids = [id(t) for t in tensors(tnet._opt_state)]
+    serde.load_params(tnet, path, updater=True)
+    assert [id(t) for t in tensors(tnet._opt_state)] == ids
+    adam = jnet._opt_state[1][0]
+    assert int(tnet._opt_state[1][0]["count"]) == int(adam.count) == 1
+    for (p, leaf) in jax.tree_util.tree_leaves_with_path(adam.mu):
+        k = [q.key for q in p]
+        np.testing.assert_array_equal(
+            tnet._opt_state[1][0]["mu"][k[0]][k[1]].numpy(),
+            np.asarray(leaf))
+    wrong = _resume_net(tnn, ttrain, "Momentum", "plain").init(device="cpu")
+    wrong.fit(DataSet(x, y))
+    with pytest.raises((KeyError, ValueError)):
+        serde.load_params(wrong, path, updater=True)
