@@ -20,6 +20,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --quant-only     # build + phase 15 only
     python3 chip_smoke.py --bert-only      # build + phase 16 only
     python3 chip_smoke.py --workflow2-only # build + phases 7, 9 and 17
+    python3 chip_smoke.py --samediff-only  # build + phase 18 only
     python3 chip_smoke.py --prefetch-times ROOT  # only time LeNet's fit
                                              # over host and device
                                              # iterators and a host list
@@ -358,6 +359,23 @@ Phases, each fatal on failure:
    LeNet checkpoint with its updater, saved after 3 steps, loaded and
    trained 3 more, equal to 6 uninterrupted steps bit for bit; (e)
    ``nd.jit_in_workspace`` replayed equal to eager;
+18. SameDiff and the TF GraphDef importer at BERT-base width (f32, B32
+   T128, TF32 off): (a) ``bert_graphdef`` (the script's own protobuf
+   encoder; the card has no TensorFlow) writes BERT-base with seeded
+   weights as ``Const`` nodes, ``import_frozen_graph`` reads it, and
+   ``sd.eval`` of the logits and hidden states is held to
+   ``bert_forward`` (1e-3), replayed = eager bit for bit, 0 retraces after
+   warm, import seconds, wall and device ms and launches a forward;
+   (b) a classifier head of ``sd.var``s on the imported pooled output
+   (the encoder stays constants) fine-tuned by ``SameDiff.fit`` with
+   Adam for 5 steps, replayed and eager bit for bit; (c) BERT-base built
+   through the SameDiff API (every weight an ``sd.var``): step 1 held to
+   autograd of ``bert_classifier_loss`` (loss 1e-4 relative, grads 1e-3
+   rel-L2), then 5 ``fit`` steps replayed = eager bit for bit, beside the
+   zoo's f32 fine-tune step for reading; (d) a ``while_loop``/``cond``
+   graph, eager by structure, equal to its CPU value, a ``save`` →
+   ``load`` round trip equal, and every hand-written kernel's launch
+   count 0 over the phase;
 5. a ``kernels`` JSON line (every hand-written kernel: its route,
    launches on each main path, largest error, times and bound at its
    path shape), then the result line (printed last).
@@ -372,6 +390,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import math
 import re
 import subprocess
 import sys
@@ -6069,6 +6088,537 @@ def workflow2_path(fa, pa, fo, fl, k3_checked, k4_checked,
     return counts
 
 
+# --------------------------------------------------------------- phase 18
+# SameDiff and the TF GraphDef importer at BERT-base width (f32): the
+# graph is written by a protobuf encoder of the script's own (the card
+# has no TensorFlow), imported, served and fine-tuned.
+SD_BATCH, SD_T = 32, 128
+SD_STEPS = 5                              # eager, capture, 3 replays
+SD_FWD_ATOL = 1e-3                        # imported forward vs bert_forward
+SD_LOSS_REL = 1e-4                        # SameDiff-built step 1 vs autograd
+SD_GRAD_REL_L2 = 1e-3
+_TF_FLOAT, _TF_INT32 = 1, 3               # DataType enum values
+
+
+def _pb_varint(v):
+    v &= (1 << 64) - 1
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _pb_len(field, data):
+    return _pb_varint(field << 3 | 2) + _pb_varint(len(data)) + data
+
+
+def _pb_int(field, v):
+    return _pb_varint(field << 3) + _pb_varint(int(v))
+
+
+def _pb_shape(dims):
+    """TensorShapeProto: one ``dim`` (field 2) a dimension, its size in
+    field 1."""
+    return b"".join(_pb_len(2, _pb_int(1, d)) for d in dims)
+
+
+def _pb_attr(key, value):
+    """A NodeDef ``attr`` map entry (field 5): key 1, AttrValue 2."""
+    return _pb_len(5, _pb_len(1, key.encode()) + _pb_len(2, value))
+
+
+def _av_type(t):
+    return _pb_int(6, t)
+
+
+def _av_bool(b):
+    return _pb_int(5, 1 if b else 0)
+
+
+def _av_int(i):
+    return _pb_int(3, i)
+
+
+def _av_tensor(arr):
+    """AttrValue.tensor (8): TensorProto dtype 1, tensor_shape 2,
+    tensor_content 4."""
+    arr = np.asarray(arr, order="C")     # 0-d stays 0-d
+    dt = {np.dtype(np.float32): _TF_FLOAT,
+          np.dtype(np.int32): _TF_INT32}[arr.dtype]
+    proto = (_pb_int(1, dt) + _pb_len(2, _pb_shape(arr.shape))
+             + _pb_len(4, arr.tobytes()))
+    return _pb_len(8, proto)
+
+
+def _pb_node(name, op, inputs=(), attrs=()):
+    """A GraphDef ``node`` (field 1): NodeDef name 1, op 2, input 3,
+    attr 5."""
+    body = _pb_len(1, name.encode()) + _pb_len(2, op.encode())
+    body += b"".join(_pb_len(3, i.encode()) for i in inputs)
+    body += b"".join(_pb_attr(k, v) for k, v in attrs)
+    return _pb_len(1, body)
+
+
+class _GraphWriter:
+    """The nodes of a frozen GraphDef, f32 and int32 only."""
+
+    def __init__(self):
+        self.parts, self.n = [], 0
+
+    def fresh(self, base):
+        self.n += 1
+        return f"{base}_{self.n}"
+
+    def node(self, op, inputs, attrs=(), name=None, t=_TF_FLOAT):
+        name = name or self.fresh(op)
+        self.parts.append(_pb_node(name, op, inputs,
+                                   [("T", _av_type(t)), *attrs]))
+        return name
+
+    def const(self, arr, name=None):
+        arr = np.asarray(arr)
+        arr = arr.astype(np.int32 if arr.dtype.kind in "iu"
+                         else np.float32)
+        name = name or self.fresh("Const")
+        dt = _TF_INT32 if arr.dtype == np.int32 else _TF_FLOAT
+        self.parts.append(_pb_node(name, "Const", (), [
+            ("dtype", _av_type(dt)), ("value", _av_tensor(arr))]))
+        return name
+
+    def placeholder(self, name, shape, t):
+        self.parts.append(_pb_node(name, "Placeholder", (), [
+            ("dtype", _av_type(t)),
+            ("shape", _pb_len(7, _pb_shape(shape)))]))
+        return name
+
+    def bytes(self):
+        return b"".join(self.parts)
+
+
+def bert_graphdef(params, cfg, b, t):
+    """BERT's forward (``zoo/transformer.py`` ``bert_forward``, no token
+    types, no mask) as a frozen TF GraphDef of (B, T) int32 ``ids``, its
+    weights ``Const`` nodes: GatherV2 for the embedding, Mean/Square/
+    Rsqrt for the RMS norm, BatchMatMulV2 for the projections and the
+    attention, Softmax, and Tanh/Pow for the tanh GELU. Outputs
+    ``logits`` (B, num_labels) and ``hidden`` (B, T, D), and ``pooled``."""
+    def host(x):
+        return x.detach().float().cpu().numpy()
+
+    d, h = cfg.d_model, cfg.n_heads
+    hd = d // h
+    g = _GraphWriter()
+    ids = g.placeholder("ids", (b, t), _TF_INT32)
+    embed = g.const(host(params["embed"]), "embed")
+    x = g.node("GatherV2", [embed, ids, g.const(np.int32(0))],
+               [("Tparams", _av_type(_TF_FLOAT)),
+                ("Tindices", _av_type(_TF_INT32)),
+                ("Taxis", _av_type(_TF_INT32)), ("batch_dims", _av_int(0))])
+    x = g.node("AddV2", [x, g.const(host(params["pos_embed"][:t]), "pos")])
+    eps = g.const(np.float32(1e-6))
+    last = g.const(np.asarray([-1], np.int32))
+
+    def rmsnorm(v, scale):
+        sq = g.node("Square", [v])
+        ms = g.node("Mean", [sq, last], [("Tidx", _av_type(_TF_INT32)),
+                                         ("keep_dims", _av_bool(True))])
+        r = g.node("Rsqrt", [g.node("AddV2", [ms, eps])])
+        return g.node("Mul", [g.node("Mul", [v, r]), g.const(scale)])
+
+    def bmm(a, w, adj_y=False):
+        return g.node("BatchMatMulV2", [a, w], [
+            ("adj_x", _av_bool(False)), ("adj_y", _av_bool(adj_y))])
+
+    def reshape(v, shape):
+        return g.node("Reshape", [v, g.const(np.asarray(shape, np.int32))],
+                      [("Tshape", _av_type(_TF_INT32))])
+
+    def transpose(v, perm):
+        return g.node("Transpose", [v, g.const(np.asarray(perm, np.int32))],
+                      [("Tperm", _av_type(_TF_INT32))])
+
+    scale = g.const(np.float32(1.0 / math.sqrt(hd)))
+    half, one = g.const(np.float32(0.5)), g.const(np.float32(1.0))
+    c3, k1 = g.const(np.float32(3.0)), g.const(np.float32(0.044715))
+    k2 = g.const(np.float32(math.sqrt(2.0 / math.pi)))
+    axis2 = g.const(np.int32(2))
+    blocks = params["blocks"]
+    for layer in range(cfg.n_layers):
+        w = {k: host(v[layer]) for k, v in blocks.items()}
+        hn = rmsnorm(x, w["ln1"])
+        qkv = bmm(hn, g.const(w["wqkv"]))
+        split = g.node("Split", [axis2, qkv], [("num_split", _av_int(3))])
+        q, k, v = (transpose(reshape(f"{split}:{j}" if j else split,
+                                     (b, t, h, hd)), (0, 2, 1, 3))
+                   for j in range(3))
+        s = g.node("Mul", [bmm(q, k, adj_y=True), scale])
+        p = g.node("Softmax", [s])
+        ctx = reshape(transpose(bmm(p, v), (0, 2, 1, 3)), (b, t, d))
+        x = g.node("AddV2", [x, bmm(ctx, g.const(w["wo"]))])
+        h2 = rmsnorm(x, w["ln2"])
+        u = bmm(h2, g.const(w["w_in"]))
+        cube = g.node("Pow", [u, c3])
+        inner = g.node("Mul", [k2, g.node("AddV2", [
+            u, g.node("Mul", [k1, cube])])])
+        gl = g.node("Mul", [g.node("Mul", [half, u]), g.node(
+            "AddV2", [one, g.node("Tanh", [inner])])])
+        x = g.node("AddV2", [x, bmm(gl, g.const(w["w_out"]))])
+    hidden = g.node("Identity", [x], name="hidden")
+    x0 = g.node("StridedSlice", [
+        hidden, g.const(np.asarray([0, 0, 0], np.int32)),
+        g.const(np.asarray([0, 1, 0], np.int32)),
+        g.const(np.asarray([1, 1, 1], np.int32))], [
+        ("Index", _av_type(_TF_INT32)), ("begin_mask", _av_int(5)),
+        ("end_mask", _av_int(5)), ("ellipsis_mask", _av_int(0)),
+        ("new_axis_mask", _av_int(0)), ("shrink_axis_mask", _av_int(2))])
+    mm = [("transpose_a", _av_bool(False)), ("transpose_b", _av_bool(False))]
+    pooled = g.node("Tanh", [g.node("MatMul", [
+        x0, g.const(host(params["pooler"]), "pooler")], mm)], name="pooled")
+    g.node("MatMul", [pooled, g.const(host(params["cls"]), "cls")], mm,
+           name="logits")
+    return g.bytes()
+
+
+def _sd_timing(call, warm_check=None, iters=10):
+    """Median wall ms of ``call`` (synchronized each time) and one
+    profiled call's device ms and kernel launches."""
+    secs = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof, wall, 1)
+    launches = sum(ev.count for ev in prof.key_averages()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return {"wall_ms": float(np.median(secs)) * 1e3,
+            "device_ms": rows["device_ms_per_step"],
+            "launches": launches,
+            "top_kernels": rows["top_kernels"][:4]}
+
+
+def _sd_bert_graph(sd, params, cfg, b, t):
+    """BERT's classifier loss built through the SameDiff API, every
+    weight an ``sd.var`` holding ``params``' value: the same function as
+    ``bert_classifier_loss`` (one-hot labels, no token types, no mask).
+    Returns the names of the vars by leaf of ``params``."""
+    d, nh = cfg.d_model, cfg.n_heads
+    hd = d // nh
+    names = {}
+
+    def var(key, value):
+        names[key] = key
+        return sd.var(key, value=value.detach())
+
+    ids = sd.placeholder("ids", (b, t), torch.int32)
+    labels = sd.placeholder("labels", (b, cfg.num_labels))
+    x = sd.nn.embedding_lookup(var("embed", params["embed"]), ids)
+    x = x + sd.base.slice(var("pos_embed", params["pos_embed"]), (0, 0),
+                          (t, d))
+    for layer in range(cfg.n_layers):
+        w = {k: var(f"blocks/{k}/{layer}", v[layer])
+             for k, v in params["blocks"].items()}
+        h = sd.nn.rms_norm(x, w["ln1"])
+        qkv = h @ w["wqkv"]
+        q, k, v = (sd.base.slice(qkv, (0, 0, j * d), (b, t, d)).reshape(
+            b, t, nh, hd) for j in range(3))
+        a = sd.nn.dot_product_attention(q, k, v).reshape(b, t, d)
+        x = x + a @ w["wo"]
+        h2 = sd.nn.rms_norm(x, w["ln2"])
+        x = x + sd.nn.gelu(h2 @ w["w_in"]) @ w["w_out"]
+    x0 = sd.base.squeeze(sd.base.slice(x, (0, 0, 0), (b, 1, d)), 1)
+    pooled = sd.math.tanh(x0 @ var("pooler", params["pooler"]))
+    logits = (pooled @ var("cls", params["cls"])).rename("logits")
+    sd.loss.softmax_cross_entropy(labels, logits).rename("loss")
+    sd.set_loss_variables("loss")
+    return names
+
+
+class _SDStepLog:
+    """A fit listener: each step's loss, host time and how its compiled
+    step ran."""
+
+    def __init__(self, sd):
+        self.sd, self.rows = sd, []
+        self.t0 = time.perf_counter()
+
+    def iteration_done(self, model, it, epoch, loss):
+        self.rows.append((loss, time.perf_counter(),
+                          self.sd.fit_step().last))
+
+
+def _sd_fit_ways(sd, batches, train_vars, tag, rec_extra=None):
+    """``sd.fit`` over ``batches`` twice from the same start: replayed (the
+    main path) and eager; returns the two records and whether the
+    trajectories (losses and trained values) are bit for bit equal."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.data import DataSet
+    init = {n: sd._values[n].detach().clone() for n in train_vars}
+    runs = {}
+    for way, graphs in (("replayed", True), ("eager", False)):
+        with torch.no_grad():
+            for n in train_vars:
+                sd._values[n].copy_(init[n])
+        sd._optimizer = None            # a fresh Adam state each way
+        log_ = _SDStepLog(sd)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.nullcontext() if graphs else disable_graphs():
+            hist = sd.fit(iterator=[DataSet(*bt) for bt in batches],
+                          epochs=1, listeners=[log_])
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            step = sd.fit_step()
+            prof = profile_step(lambda: step(*batches[0]))
+        ends = [r[1] for r in log_.rows]
+        kinds = [r[2] for r in log_.rows]
+        rec = {"losses": hist.loss_curve,
+               **way_summary(kinds, [b_ - a_ for a_, b_ in zip(
+                   [log_.t0] + ends, ends)], batches[0][0].shape[0], "seq",
+                   peak)}
+        add_profile(rec, prof)
+        rec["top_kernels"] = prof["top_kernels"][:5]
+        runs[way] = (rec, [(n, sd._values[n].detach().clone())
+                           for n in train_vars])
+        log(f"samediff {tag} {way}: {json.dumps(rec)}")
+    (rr, rf), (er, ef) = runs["replayed"], runs["eager"]
+    same = rr["losses"] == er["losses"] and first_diff(rf, ef) is None
+    return rr, er, same
+
+
+def samediff_phase(fa, pa, fo, fl, smi):
+    """Phase 18: SameDiff and the TF importer at BERT-base width (f32, B32
+    T128): (a) a frozen GraphDef of BERT-base imported and served, held
+    to ``bert_forward``; (b) a classifier head fine-tuned through the
+    import; (c) BERT-base built through the SameDiff API and fine-tuned
+    whole, step 1 held to autograd of ``bert_classifier_loss``; (d) small
+    graphs on the card. No hand-written kernel runs. Returns the launch
+    counts of the phase (all 0)."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.autodiff import (SameDiff, TrainingConfig,
+                                                   import_frozen_graph)
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    mods = (fa, pa, fo, fl)
+    reset_all(*mods)
+    failed = []
+    t_phase = time.perf_counter()
+    log(f"phase 18 on {smi}: TF32 matmuls "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN TF32 "
+        f"{torch.backends.cudnn.allow_tf32}")
+    cfg = tfm.BertConfig(dtype=torch.float32, max_seq=SD_T)
+    gen = torch.Generator().manual_seed(18)
+    params = tfm.bert_init(cfg, gen, device="cuda")
+    with torch.no_grad():
+        params["cls"].copy_(0.02 * torch.randn(params["cls"].shape,
+                                               generator=gen))
+    rng = np.random.default_rng(18)
+    ids_np = rng.integers(0, cfg.vocab_size, (SD_BATCH, SD_T),
+                          dtype=np.int32)
+    ids = torch.as_tensor(ids_np, device="cuda")
+    onehot = torch.nn.functional.one_hot(torch.as_tensor(
+        rng.integers(0, cfg.num_labels, SD_BATCH)), cfg.num_labels).to(
+        device="cuda", dtype=torch.float32)
+
+    # (a) imported and served
+    t0 = time.perf_counter()
+    raw = bert_graphdef(params, cfg, SD_BATCH, SD_T)
+    t1 = time.perf_counter()
+    sd, _ = import_frozen_graph(raw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    graph_mb = len(raw) / 1e6
+    del raw
+    ref_logits, ref_hidden = tfm.bert_forward(params, cfg, ids)
+    outs = ["logits", "hidden"]
+    torch.cuda.reset_peak_memory_stats()
+    runner = sd.runner(outs, {"ids": ids})
+    got = [sd.eval(outs, {"ids": ids}) for _ in range(3)]
+    warm = dict(runner.compiled.calls)
+    with disable_graphs():
+        eager = sd.eval(outs, {"ids": ids})
+    err = max(float((got[-1][0] - ref_logits).abs().max()),
+              float((got[-1][1] - ref_hidden).abs().max()))
+    replayed_eq = all(torch.equal(a, b) for a, b in zip(got[-1], eager))
+    t_rep = _sd_timing(lambda: sd.eval(outs, {"ids": ids}))
+    with disable_graphs():
+        t_eag = _sd_timing(lambda: sd.eval(outs, {"ids": ids}), iters=5)
+    calls = dict(runner.compiled.calls)
+    retraces = (calls["eager"] - warm["eager"]) + (calls["capture"]
+                                                   - warm["capture"])
+    rec_a = {"graph_mb": graph_mb, "encode_s": t1 - t0, "import_s": t2 - t1,
+             "nodes": len(sd._vars), "host_nodes": sd.needs_host(outs),
+             "max_abs_err_vs_bert_forward": err, "calls": calls,
+             "retraces_after_warm": retraces,
+             "replayed_equals_eager": replayed_eq,
+             "replayed": t_rep, "eager": t_eag,
+             "peak_alloc_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"samediff (a) imported BERT-base B{SD_BATCH} T{SD_T} f32 served: "
+        f"{json.dumps(rec_a)}")
+    if not (err <= SD_FWD_ATOL and np.isfinite(err)):
+        failed.append(f"(a) imported forward off bert_forward by {err}")
+    if retraces or not replayed_eq or calls["replay"] < 1:
+        failed.append(f"(a) retraces {retraces}, replayed = eager "
+                      f"{replayed_eq}, calls {calls}")
+
+    # (b) fine-tuned through the import: the encoder stays constants, a
+    # classifier head of sd.vars on the pooled output
+    d = cfg.d_model
+    lab = sd.placeholder("labels", (SD_BATCH, cfg.num_labels))
+    head_w = sd.var("head_w", (d, cfg.num_labels), seed=18)
+    head_b = sd.var("head_b", value=np.zeros(cfg.num_labels, np.float32))
+    head = sd.nn.linear(sd.get_variable("pooled"), head_w, head_b)
+    sd.loss.softmax_cross_entropy(lab, head).rename("head_loss")
+    sd.set_loss_variables("head_loss")
+    sd.set_training_config(TrainingConfig(
+        updater=Adam(1e-3), data_set_feature_mapping=["ids"],
+        data_set_label_mapping=["labels"]))
+    batches = [(torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (SD_BATCH, SD_T), dtype=np.int32),
+        device="cuda"), onehot) for _ in range(SD_STEPS)]
+    rb, eb, same_b = _sd_fit_ways(sd, batches, ["head_w", "head_b"],
+                                  "(b) head fine-tune through the import")
+    log(f"samediff (b) replayed = eager bit for bit {same_b}; wall ms a "
+        f"step {rb['wall_ms_per_step']:.2f} vs {eb['wall_ms_per_step']:.2f}")
+    if not (all(np.isfinite(rb["losses"])) and same_b):
+        failed.append(f"(b) losses {rb['losses']} / {eb['losses']}, "
+                      f"bit-identical {same_b}")
+    if rb["step_kinds"] != ["eager", "capture",
+                            *["replay"] * (SD_STEPS - 2)]:
+        failed.append(f"(b) steps {rb['step_kinds']} did not replay")
+    del sd, runner, got, eager
+    torch.cuda.empty_cache()
+
+    # (c) BERT-base built through the SameDiff API, fine-tuned whole
+    sdc = SameDiff.create()
+    names = _sd_bert_graph(sdc, params, cfg, SD_BATCH, SD_T)
+    feeds = {"ids": ids, "labels": onehot}
+    loss_sd = float(sdc.eval("loss", feeds))
+    grads_sd = sdc.grad("loss", feeds=feeds)
+    leaves = {"embed": params["embed"], "pos_embed": params["pos_embed"],
+              "pooler": params["pooler"], "cls": params["cls"],
+              "blocks": params["blocks"]}
+    flat = [(k, v) for k, v in _named_leaves(leaves)]
+    ps = [v.detach().clone().requires_grad_(True) for _, v in flat]
+    rebuilt = {}
+    for (k, _), p in zip(flat, ps):
+        parts = k.strip("/").split("/")
+        node = rebuilt
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = p
+    full = dict(params, **rebuilt)
+    loss_ref = tfm.bert_classifier_loss(full, cfg, ids, onehot)
+    g_ref = torch.autograd.grad(loss_ref, ps)
+    loss_ref = loss_ref.item()
+    loss_rel = abs(loss_sd - loss_ref) / abs(loss_ref)
+    worst = (None, 0.0)
+    for (k, _), g in zip(flat, g_ref):
+        parts = k.strip("/").split("/")
+        if parts[0] == "blocks":
+            gs = torch.stack([grads_sd[f"blocks/{parts[1]}/{i}"]
+                              for i in range(cfg.n_layers)])
+        else:
+            gs = grads_sd[parts[0]]
+        r = rel_l2(gs, g)
+        if worst[0] is None or r > worst[1]:
+            worst = (k, r)
+    log(f"samediff (c) SameDiff-built BERT-base step 1 vs autograd of "
+        f"bert_classifier_loss: loss {loss_sd:.6f} vs {loss_ref:.6f} "
+        f"(rel {loss_rel:.2e}), {len(g_ref)} grad leaves, worst rel-L2 "
+        f"{worst[1]:.2e} ({worst[0]})")
+    if not loss_rel <= SD_LOSS_REL or not worst[1] <= SD_GRAD_REL_L2:
+        failed.append(f"(c) step 1 loss rel {loss_rel}, grad {worst}")
+    del g_ref, grads_sd, ps, full, loss_ref
+    torch.cuda.empty_cache()
+    sdc.set_training_config(TrainingConfig(
+        updater=Adam(1e-5), data_set_feature_mapping=["ids"],
+        data_set_label_mapping=["labels"]))
+    train_vars = sorted(names)
+    rc, ec, same_c = _sd_fit_ways(sdc, batches, train_vars,
+                                  "(c) SameDiff-built BERT-base fine-tune")
+    if not (all(np.isfinite(rc["losses"])) and same_c):
+        failed.append(f"(c) losses {rc['losses']} / {ec['losses']}, "
+                      f"bit-identical {same_c}")
+    if rc["step_kinds"] != ["eager", "capture",
+                            *["replay"] * (SD_STEPS - 2)]:
+        failed.append(f"(c) steps {rc['step_kinds']} did not replay")
+    del sdc
+    torch.cuda.empty_cache()
+    # for reading only: the zoo's f32 fine-tune step at this shape
+    zp = _clone_params(params)
+    zstep = bert_finetune_step(tfm, cfg, zp, _adamw(tfm, zp, 1e-5))
+    zlab = onehot.argmax(-1)
+    torch.cuda.reset_peak_memory_stats()
+    zsecs, zkinds = [], []
+    for _ in range(SD_STEPS):
+        t0 = time.perf_counter()
+        zstep(ids, zlab)
+        torch.cuda.synchronize()
+        zsecs.append(time.perf_counter() - t0)
+        zkinds.append(zstep.last)
+    zrec = way_summary(zkinds, zsecs, SD_BATCH, "seq",
+                       torch.cuda.max_memory_allocated() / 2**30)
+    add_profile(zrec, profile_step(lambda: zstep(ids, zlab)))
+    log(f"samediff (c) for reading: the zoo's f32 BERT-base fine-tune step "
+        f"(AdamW, capturable) at B{SD_BATCH} T{SD_T}: {json.dumps(zrec)}")
+    del zp, zstep
+    torch.cuda.empty_cache()
+
+    # (d) small graphs on the card
+    sdd = SameDiff.create()
+    x = sdd.var("x", value=np.asarray(1.0, np.float32))
+    w = sdd.while_loop(lambda v: v < 100.0, lambda v: v * 2.0, x)
+    c = sdd.cond(sdd.constant("p", True), lambda v: v + 1, lambda v: v - 1,
+                 sdd.constant("o", 10.0))
+    wl, cv = float(sdd.eval(w)), float(sdd.eval(c))
+    eager_by_structure = sdd.runner(w).compiled is None and \
+        sdd.runner(c).compiled is None
+    cpu = SameDiff.create(device="cpu")
+    xc = cpu.var("x", value=np.asarray(1.0, np.float32))
+    wl_cpu = float(cpu.eval(cpu.while_loop(lambda v: v < 100.0,
+                                           lambda v: v * 2.0, xc)))
+    sm = SameDiff.create()
+    xin = sm.placeholder("x", (4, 8))
+    sm.nn.softmax(sm.nn.linear(xin, sm.var("w", (8, 3), seed=1),
+                               sm.var("b", value=np.ones(3, np.float32))))\
+        .rename("out")
+    xv = rng.standard_normal((4, 8)).astype(np.float32)
+    path = Path("build") / "samediff_roundtrip.zip"
+    sm.save(path)
+    back = SameDiff.load(path)
+    rt_equal = torch.equal(sm.eval("out", {"x": xv}),
+                           back.eval("out", {"x": xv}))
+    counts = all_counts(*mods)
+    rec_d = {"while_loop": wl, "while_loop_cpu": wl_cpu, "cond": cv,
+             "eager_by_structure": eager_by_structure,
+             "save_load_eval_equal": rt_equal,
+             "kernel_launches": counts,
+             "phase_s": time.perf_counter() - t_phase}
+    log(f"samediff (d) small graphs: {json.dumps(rec_d)}")
+    if wl != wl_cpu or cv != 11.0 or not eager_by_structure:
+        failed.append(f"(d) control flow {rec_d}")
+    if not rt_equal:
+        failed.append("(d) save -> load changed eval")
+    if _launched(counts):
+        failed.append(f"hand-written kernels launched: {counts}")
+    if failed:
+        raise SystemExit(f"samediff phase: {failed}")
+    return counts
+
+
 def _values_equal(a, b):
     """Nested lists / numbers / arrays equal exactly."""
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
@@ -6118,6 +6668,10 @@ def main():
                          "plain versions (phases 7, 9) and run phase 17 "
                          "(the rest of the DL4J workflow) only (prints no "
                          "result line)")
+    ap.add_argument("--samediff-only", action="store_true",
+                    help="build the kernels and run phase 18 (SameDiff and "
+                         "the TF importer at BERT-base width) only (prints "
+                         "no result line)")
     ap.add_argument("--prefetch-times", metavar="ROOT",
                     help="only time LeNet's fit over host and device "
                          "iterators and a host list, for the port checked "
@@ -6170,6 +6724,12 @@ def main():
         return 0
     if args.quant_only:
         quant_spec_plane(fa, pa, smi)
+        return 0
+    if args.samediff_only:
+        samediff_phase(fa, pa, fo, fl, smi)
+        mark("18 SameDiff and the TF importer")
+        log(f"host seconds by phase (after the build): "
+            f"{json.dumps(seconds)}")
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
     if args.bert_only:
@@ -6299,6 +6859,10 @@ def main():
     lstm_paths.update({p: c for p, c in workflow2.items()
                        if p.startswith("workflow2_charnn")})
     mark("17 DL4J workflow, the rest")
+    sd_counts = samediff_phase(fa, pa, fo, fl, smi)
+    by_path["samediff"] = sd_counts
+    lstm_paths["samediff"] = sd_counts
+    mark("18 SameDiff and the TF importer")
     log(f"host seconds by phase (after the build): {json.dumps(seconds)}")
     # the stage-0 BN's shape (N = 128*56*56, C = 256) stands for K3
     main_k3 = k3[(torch.bfloat16, RESNET_BATCH * 56 * 56, 256)]

@@ -44,7 +44,10 @@ What is ported so far:
   on the native ring (``data.async_iter``, ``utils.native``), the JAX
   package's updater state and normalizer read by ``serde.load_params`` /
   ``restore_normalizer``, ``remat_segments`` on both nets and ResNet-50,
-  ``ComputationGraph.rnn_time_step`` and ``nn.early_stopping``.
+  ``ComputationGraph.rnn_time_step`` and ``nn.early_stopping``;
+- ``autodiff`` — SameDiff (the graph, all 739 ops of ``sd_ops``, grad,
+  ``fit`` on the compiled step, save/load that reads the JAX package's
+  zips, ``export``) and the TF GraphDef importer on its own wire reader.
 
 Entry points take ``device=None``, which means the CUDA card; without one
 they raise unless the caller passed ``device="cpu"``.

@@ -1,5 +1,6 @@
 """Reading the JAX package's pickles without JAX: its updater state
-(``updater.pkl``) and its normalizer (``normalizer.pkl``).
+(``updater.pkl``), its normalizer (``normalizer.pkl``) and the pickles of
+a SameDiff zip (:func:`load_samediff_pickle`).
 
 The reference pickles ``jax.tree_util.tree_map(np.asarray, opt_state)``
 (``deeplearning4j_tpu/serde/model_serializer.py:102-104``): optax's state
@@ -24,6 +25,7 @@ A JAX-written normalizer is read the same way, its classes mapped onto
 from __future__ import annotations
 
 import collections
+import importlib
 import io
 import pickle
 
@@ -201,3 +203,56 @@ class JaxUpdaterState:
 
     def __init__(self, state):
         self.state = state
+
+
+# --------------------------------------------------------------- SameDiff
+# A SameDiff zip (``autodiff/samediff.py``'s ``save``, the JAX package's or
+# the port's) pickles its replay records, its TrainingConfig (an updater
+# dataclass, maybe a schedule inside) and its updater state. Both
+# packages' classes map onto the port's; JAX's dtype scalar types onto
+# numpy's; optax states onto the stand-ins above.
+_JAX_PREFIX = "deeplearning4j_tpu."
+_PORT_PREFIX = "deeplearning4j_tpu_torch."
+_SD_MODULES = {"autodiff.samediff": ("TrainingConfig", "History"),
+               "train.updaters": None, "train.schedules": None}
+
+
+def _port_class(module, name):
+    """The port's class for a (module, name) of either package."""
+    for prefix in (_JAX_PREFIX, _PORT_PREFIX):
+        if not module.startswith(prefix):
+            continue
+        sub = module[len(prefix):]
+        if sub not in _SD_MODULES:
+            return None
+        allowed = _SD_MODULES[sub]
+        if allowed is not None and name not in allowed:
+            return None
+        mod = importlib.import_module(_PORT_PREFIX + sub)
+        obj = getattr(mod, name, None)
+        return obj if isinstance(obj, type) else None
+    return None
+
+
+def _samediff_class(module, name):
+    found = _port_class(module, name) or _optax_class(module, name)
+    if found is not None:
+        return found
+    if (module.startswith("jax") or module == "numpy") and \
+            name in _DTYPE_NAMES:
+        return getattr(np, name)
+    if module == "torch" and isinstance(getattr(torch, name, None),
+                                        torch.dtype):
+        return getattr(torch, name)
+    return None
+
+
+_DTYPE_NAMES = {"bool_", "int8", "int16", "int32", "int64", "uint8",
+                "uint16", "uint32", "uint64", "float16", "float32",
+                "float64", "complex64", "complex128"}
+
+
+def load_samediff_pickle(raw: bytes):
+    """A SameDiff zip's ``graph.pkl``, ``training.pkl`` or
+    ``updater.pkl``, written by either package."""
+    return _Restricted(raw, _samediff_class).load()

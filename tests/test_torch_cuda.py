@@ -29,8 +29,10 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import pytest
 import torch
+from torch_sd_cases import BP_CASES, CASES
 
 from deeplearning4j_tpu_torch.kernels import flash_attention as fa
 from deeplearning4j_tpu_torch.kernels import fused_lstm as fl
@@ -2214,3 +2216,214 @@ def test_jit_in_workspace_replayed_equals_eager(gen):
     assert torch.equal(acc, acc_e)
     assert nd.workspace.live_buffer_bytes() > 0
     assert "cuda:0" in nd.workspace.device_memory_stats()
+
+
+# ------------------------------------------------- SameDiff and the importer
+
+def _sd_mlp(SameDiff, device=None):
+    import numpy as np
+    sd = SameDiff.create(device)
+    x = sd.placeholder("input", (None, 4))
+    y = sd.placeholder("label", (None, 3))
+    w0 = sd.var("w0", (4, 16), seed=3)
+    b0 = sd.var("b0", value=np.zeros(16, np.float32))
+    w1 = sd.var("w1", (16, 3), seed=4)
+    h = sd.nn.relu(sd.nn.linear(x, w0, b0))
+    logits = sd.nn.linear(h, w1).rename("logits")
+    sd.nn.softmax(logits).rename("out")
+    sd.loss.softmax_cross_entropy(y, logits).rename("loss")
+    return sd
+
+
+def test_samediff_eval_and_fit_replayed_equal_eager(gen):
+    """eval: one capture a signature, then replays equal to the eager
+    walk bit for bit; fit: a replayed trajectory equal to the eager one
+    bit for bit; no hand-written kernel launched."""
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.autodiff import SameDiff, TrainingConfig
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.train.updaters import Adam
+    for m in (fa, pa, fo, fl):
+        m.reset_launches()
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((32, 4)).astype(np.float32)
+    labels = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 32)]
+    runs = []
+    for graphs in (True, False):
+        sd = _sd_mlp(SameDiff)
+        sd.set_loss_variables("loss")
+        sd.set_training_config(TrainingConfig(
+            updater=Adam(1e-2), data_set_feature_mapping=["input"],
+            data_set_label_mapping=["label"]))
+        ctx = contextlib.nullcontext() if graphs else disable_graphs()
+        with ctx:
+            outs = [sd.eval("out", {"input": feats}) for _ in range(4)]
+            hist = sd.fit(iterator=[DataSet(feats, labels)] * 5)
+        runs.append((outs, hist.loss_curve,
+                     {k: v.detach().clone() for k, v in sd._values.items()},
+                     sd))
+    (og, lg, vg, sdg), (oe, le, ve, _) = runs
+    calls = sdg.runner("out", {"input": feats}).compiled.calls
+    assert calls["capture"] == 1 and calls["replay"] >= 2, calls
+    for a in og:
+        assert torch.equal(a, oe[0])
+    assert lg == le
+    for k in vg:
+        assert torch.equal(vg[k], ve[k]), k
+    assert sdg.fit_step().calls["replay"] >= 3
+    assert (fa.LAUNCHES, pa.LAUNCHES, fl.LAUNCHES) == (0, 0, 0)
+
+
+def test_samediff_while_loop_runs_eagerly_by_structure(gen):
+    import numpy as np
+
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    sd = SameDiff.create()
+    x = sd.var("x", value=np.asarray(1.0, np.float32))
+    w = sd.while_loop(lambda v: v < 100.0, lambda v: v * 2.0, x)
+    y = (w * 3.0).rename("y")
+    assert sd.needs_host(y)
+    assert sd.runner(y).compiled is None
+    assert float(sd.eval(y)) == 384.0
+    plain = (x * 3.0).rename("plain")
+    assert sd.runner(plain).compiled is not None
+
+
+def test_phase18_holds_at_two_layers(gen):
+    """chip_smoke's phase 18 at 2 layers and narrow width: the imported
+    GraphDef's forward against ``bert_forward`` (1e-3), replayed = eager;
+    the SameDiff-built step 1 against autograd of
+    ``bert_classifier_loss`` (loss 1e-4 relative, grads 1e-3 rel-L2)."""
+    import importlib.util
+    from pathlib import Path
+
+    import numpy as np
+
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.autodiff import (SameDiff,
+                                                   import_frozen_graph)
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_cuda", path)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg = tfm.BertConfig(vocab_size=512, d_model=64, n_heads=4, n_layers=2,
+                         d_ff=128, max_seq=32, dtype=torch.float32)
+    g = torch.Generator().manual_seed(0)
+    params = tfm.bert_init(cfg, g, device="cuda")
+    with torch.no_grad():
+        params["cls"].copy_(0.1 * torch.randn(params["cls"].shape,
+                                              generator=g))
+    b, t = 4, 32
+    rng = np.random.default_rng(0)
+    ids = torch.as_tensor(rng.integers(0, 512, (b, t), dtype=np.int32),
+                          device="cuda")
+    sd, _ = import_frozen_graph(cs.bert_graphdef(params, cfg, b, t))
+    got = [sd.eval(["logits", "hidden"], {"ids": ids}) for _ in range(3)]
+    with disable_graphs():
+        eager = sd.eval(["logits", "hidden"], {"ids": ids})
+    ref = tfm.bert_forward(params, cfg, ids)
+    for a, e, r in zip(got[-1], eager, ref):
+        assert torch.equal(a, e)
+        assert float((a - r).abs().max()) <= 1e-3
+    onehot = torch.nn.functional.one_hot(torch.as_tensor(
+        rng.integers(0, 2, b)), 2).to("cuda", torch.float32)
+    sdc = SameDiff.create()
+    cs._sd_bert_graph(sdc, params, cfg, b, t)
+    feeds = {"ids": ids, "labels": onehot}
+    loss = float(sdc.eval("loss", feeds))
+    ref_loss = float(tfm.bert_classifier_loss(params, cfg, ids, onehot))
+    assert abs(loss - ref_loss) <= 1e-4 * abs(ref_loss)
+    grads = sdc.grad("loss", feeds=feeds)
+    leaves = dict(params)
+    ps = {k: v.detach().clone().requires_grad_(True)
+          for k, v in (("embed", params["embed"]),
+                       ("pooler", params["pooler"]),
+                       ("cls", params["cls"]))}
+    full = {**leaves, **ps}
+    rg = torch.autograd.grad(tfm.bert_classifier_loss(
+        full, cfg, ids, onehot), list(ps.values()))
+    for (k, _), r in zip(ps.items(), rg):
+        err = float((grads[k] - r).norm() / r.norm().clamp_min(1e-30))
+        assert err <= 1e-3, (k, err)
+
+
+# every SameDiff op case on the card: the op inside a graph, its first
+# call eager, its second captured, its third replayed (an op that needs
+# the host runs eagerly all three times), held to the same op on the
+# host; factorizations whose factors are defined up to sign or order are
+# held by shape and dtype only
+_SD_CARD_CASES = CASES + [("bp", op, args, kw, {"atol": 1e-4, "rtol": 1e-4})
+                          for op, args, kw in BP_CASES]
+_UP_TO_SIGN = {("linalg", n) for n in ("qr", "svd", "eigh", "lu",
+                                       "lu_factor", "orth", "null_space",
+                                       "sqrtm", "lstsq")}
+_NS_ATTR = {"updater": "updaters", "assert": "assertions"}
+
+
+def _on(a, device):
+    from deeplearning4j_tpu_torch.autodiff import sd_ops
+    if isinstance(a, (np.ndarray, np.generic)):
+        return sd_ops._t(a).to(device)
+    if isinstance(a, (tuple, list)) and any(
+            isinstance(v, (np.ndarray, np.generic)) for v in a):
+        return type(a)(_on(v, device) for v in a)
+    return a
+
+
+def _sd_leaves(x):
+    if isinstance(x, (tuple, list)):
+        return [leaf for v in x for leaf in _sd_leaves(v)]
+    return [x]
+
+
+@pytest.mark.parametrize("ns,op,args,kw,opts", _SD_CARD_CASES,
+                         ids=[f"{c[0]}.{c[1]}_{i}" for i, c in
+                              enumerate(_SD_CARD_CASES)])
+def test_sd_op_on_the_card_equals_the_host(gen, ns, op, args, kw, opts,
+                                           monkeypatch):
+    from deeplearning4j_tpu_torch.autodiff import SameDiff
+    # f32 convolutions and matmuls in f32, as on the host (TF32 would
+    # part from it by ~1e-3); cuDNN's deterministic algorithms, so that a
+    # replay can equal the eager call bit for bit (its default weight
+    # gradient sums with atomics)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    attr = _NS_ATTR.get(ns, ns)
+    host = SameDiff.create(device="cpu")
+    want = host.eval(getattr(getattr(host, attr), op)(
+        *[_on(a, "cpu") for a in args], **kw))
+    sd = SameDiff.create()
+    node = getattr(getattr(sd, attr), op)(*[_on(a, "cuda") for a in args],
+                                          **kw)
+    outs = [sd.eval(node) for _ in range(3)]
+    run = sd.runner(node)
+    if sd.needs_host(node):
+        assert run.compiled is None
+    else:
+        assert run.compiled.calls["capture"] == 1
+        assert run.compiled.calls["replay"] == 1
+    wl, gl = _sd_leaves(want), _sd_leaves(outs[-1])
+    assert len(wl) == len(gl)
+    for w, g, first in zip(wl, gl, _sd_leaves(outs[0])):
+        if not isinstance(w, torch.Tensor):
+            assert w == g
+            continue
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert tuple(g.shape) == tuple(w.shape)
+        # the replay is the eager call's kernels on the same inputs
+        assert torch.equal(g, first) or (
+            g.is_floating_point() and torch.equal(g.isnan(), first.isnan())
+            and torch.equal(g.nan_to_num(), first.nan_to_num()))
+        if (ns, op) in _UP_TO_SIGN:
+            continue
+        tol = max(opts.get("atol", 1e-5), 1e-4)
+        if w.dtype == torch.bool or not (w.is_floating_point()
+                                         or w.is_complex()):
+            assert torch.equal(g.cpu(), w), (g.cpu(), w)
+        else:
+            torch.testing.assert_close(g.cpu(), w, atol=tol, rtol=tol,
+                                       equal_nan=True)

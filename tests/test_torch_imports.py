@@ -203,3 +203,69 @@ def test_loading_a_jax_zip_loads_no_jax(tmp_path):
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+AUTODIFF = ("autodiff/__init__.py", "autodiff/samediff.py",
+            "autodiff/sd_ops.py", "autodiff/tf_import.py",
+            "autodiff/_protowire.py")
+# the TF importer reads the wire format itself: no TensorFlow, no protobuf
+AUTODIFF_FORBIDDEN = FORBIDDEN + ("tensorflow", "google", "optax", "onnx")
+# (the interpreter may load the empty ``google`` namespace at start-up;
+# a process is held to ``google.protobuf`` never being loaded)
+
+
+@pytest.mark.parametrize("rel", AUTODIFF)
+def test_autodiff_modules_import_no_jax_tf_or_protobuf(rel):
+    path = PORT / rel
+    assert path.exists(), rel
+    bad = [(name, line) for name, line in _imported_roots(path)
+           if name in AUTODIFF_FORBIDDEN]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_samediff_and_the_importer_load_no_jax_or_tf(tmp_path):
+    """Importing the autodiff package, reading a JAX-written SameDiff zip
+    and importing a GraphDef's bytes leave jax, tensorflow and protobuf
+    out of ``sys.modules``."""
+    code = (
+        "import numpy as np, jax\n"
+        "from deeplearning4j_tpu.autodiff import SameDiff, TrainingConfig\n"
+        "from deeplearning4j_tpu.train import Adam\n"
+        "sd = SameDiff.create()\n"
+        "x = sd.placeholder('x', (2, 3))\n"
+        "w = sd.var('w', value=np.ones((3, 2), np.float32))\n"
+        "sd.nn.relu(x.mmul(w)).rename('out')\n"
+        "sd.set_training_config(TrainingConfig(updater=Adam(1e-2)))\n"
+        f"sd.save({str(tmp_path / 'sd.zip')!r})\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env={**__import__("os").environ,
+                              "JAX_PLATFORMS": "cpu"})
+    assert res.returncode == 0, res.stderr
+    # a GraphDef's bytes, written by hand: one Placeholder, one Relu
+    def ln(field, data):
+        return bytes([field << 3 | 2, len(data)]) + data
+    ph = ln(1, b"x") + ln(2, b"Placeholder")
+    relu = ln(1, b"y") + ln(2, b"Relu") + ln(3, b"x")
+    (tmp_path / "g.pb").write_bytes(ln(1, ph) + ln(1, relu))
+    code = (
+        "import sys, numpy as np\n"
+        "from deeplearning4j_tpu_torch.autodiff import (SameDiff,\n"
+        "    import_frozen_graph)\n"
+        f"sd = SameDiff.load({str(tmp_path / 'sd.zip')!r}, device='cpu')\n"
+        "out = sd.eval('out', {'x': np.ones((2, 3), np.float32)})\n"
+        "assert out.tolist() == [[3.0, 3.0], [3.0, 3.0]], out\n"
+        "assert type(sd._training_config.updater).__module__.startswith(\n"
+        "    'deeplearning4j_tpu_torch')\n"
+        f"g, _ = import_frozen_graph({str(tmp_path / 'g.pb')!r},\n"
+        "                           device='cpu')\n"
+        "assert g.eval('y', {'x': np.asarray([-1.0, 2.0])}).tolist() == \\\n"
+        "    [0.0, 2.0]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'deeplearning4j_tpu', 'optax', 'tensorflow')\n"
+        "       or m.startswith('google.protobuf')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
