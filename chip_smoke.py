@@ -21,6 +21,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --bert-only      # build + phase 16 only
     python3 chip_smoke.py --workflow2-only # build + phases 7, 9 and 17
     python3 chip_smoke.py --samediff-only  # build + phase 18 only
+    python3 chip_smoke.py --zoo-only       # build + phase 19 only
     python3 chip_smoke.py --prefetch-times ROOT  # only time LeNet's fit
                                              # over host and device
                                              # iterators and a host list
@@ -376,6 +377,24 @@ Phases, each fatal on failure:
    graph, eager by structure, equal to its CPU value, a ``save`` →
    ``load`` round trip equal, and every hand-written kernel's launch
    count 0 over the phase;
+19. the layer and zoo breadth and the ONNX importer (TF32 off): (a)
+   YOLO2 at its defaults (608×608, 80 classes, 5 anchors, the
+   passthrough) trained at B8 f32 with the zoo's Adam, replayed (eager,
+   capture, 3 replays) and eager under cuDNN's deterministic algorithms,
+   bit for bit, 0 retraces after warm; a fresh net from the zoo's seed
+   served by ``output()`` at B1 and B8 with its BNs' ``fused=True`` (K3's
+   ``bn_act`` once per BN, 22 a forward; every K3 shape it ran held
+   against the plain version, one timed; the output equal to the plain
+   BN path's), its B8 raw volume decoded by ``get_predicted_objects`` and
+   ``nms``; (b) a MultiLayerNetwork with ``SelfAttentionLayer(n_out=512,
+   n_heads=8, impl="pallas")``, causal, B8 T2048, trained in f32 (K1, dQ,
+   dK/dV on the CUDA-core kernels) and in bf16 (the tensor-core ones),
+   replayed = eager, each kernel held against its plain version at the
+   path's shape (f32 timed); (c) a ResNet-50 of plain ``torch.nn``
+   modules exported to ONNX at B1 (opset 13, the TorchScript exporter
+   with an empty ``onnx`` stub), read by ``import_onnx`` and served on the
+   card at B1 and B32, held to the module's own output; wall and device
+   ms, samples/s, peak GiB and launches by kernel for each path;
 5. a ``kernels`` JSON line (every hand-written kernel: its route,
    launches on each main path, largest error, times and bound at its
    path shape), then the result line (printed last).
@@ -566,7 +585,10 @@ def device_ms(fn, iters=20, warmup=3):
     trace of 20 calls that recorded 19 launches), so each kernel or copy is
     counted at its mean recorded duration times its launches a call (its
     recorded count over ``iters``, rounded, at least 1). A trace with no
-    device time at all is taken again, twice at most."""
+    device time at all is taken again, twice at most; after three such
+    traces (late in a long run the profiler has recorded none) the call
+    is timed by CUDA events instead (:func:`cuda_ms`), and the log says
+    so."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
@@ -586,7 +608,9 @@ def device_ms(fn, iters=20, warmup=3):
             return us / 1e3
         log(f"torch.profiler recorded no device time (trace {attempt + 1} "
             "of 3)")
-    raise SystemExit("torch.profiler recorded no device time")
+    log("torch.profiler recorded no device time in 3 traces: this call is "
+        "timed by CUDA events")
+    return cuda_ms(fn, iters=iters, warmup=0)
 
 
 def _self_device_us(ev):
@@ -6619,6 +6643,532 @@ def samediff_phase(fa, pa, fo, fl, smi):
     return counts
 
 
+# ---------------------------------------------------------------- phase 19
+
+ZOO_BATCH = 8                           # YOLO2's train and output batch
+YOLO_HW = 608                           # the zoo default (yolov2.cfg)
+YOLO_OBJECTS = 6                        # boxes drawn per image
+ATTN_B, ATTN_T, ATTN_C, ATTN_H = 8, 2048, 512, 8   # D 64
+ATTN_CLASSES = 64
+ZOO_STEPS = 5                           # eager, capture, 3 replays
+ONNX_BATCHES = (1, 32)
+ONNX_HW = 224
+
+
+def path_counts(fa, pa, fo):
+    """Every hand-written kernel's counter, keyed as a path's counts are
+    (the flash kernels by family, K2, the four K3 kernels, K4 by
+    route)."""
+    from deeplearning4j_tpu_torch.kernels import fused_lstm as fl
+    return {**flash_counts(fa), "paged_attention": pa.LAUNCHES,
+            **k3_counts(fo), "fused_lstm": fl.LAUNCHES,
+            **{f"fused_lstm_{r}": n
+               for r, n in fl.LAUNCHES_BY_ROUTE.items()}}
+
+
+class _CountLog:
+    """A fit listener: loss, host time, every kernel counter and how the
+    compiled step ran at the end of each step (``fit`` reads the loss to
+    the host first, which waits for the step's kernels)."""
+    deferred_score_ok = False
+
+    def __init__(self, counts):
+        self.counts, self.rows = counts, []
+        self.base = counts()
+        self.t0 = time.perf_counter()
+
+    def iteration_done(self, net, it, epoch, loss):
+        self.rows.append((loss, time.perf_counter(), self.counts(),
+                          net._step_fn.last))
+
+    def per_step(self):
+        """Launches a step by counter, a replay at its capture's."""
+        before = [self.base] + [r[2] for r in self.rows[:-1]]
+        return replay_counts([{k: r[2][k] - b[k] for k in r[2]}
+                              for r, b in zip(self.rows, before)],
+                             [r[3] for r in self.rows])
+
+    def record(self, batch):
+        kinds = [r[3] for r in self.rows]
+        ends = [r[1] for r in self.rows]
+        return {"losses": [r[0] for r in self.rows],
+                **way_summary(kinds, [b - a for a, b in
+                                      zip([self.t0] + ends, ends)],
+                              batch, "samples",
+                              torch.cuda.max_memory_allocated() / 2**30)}
+
+
+def _zoo_fit_way(make_net, ds, graphs, counts, steps=ZOO_STEPS):
+    """Train a fresh net ``steps`` steps on one batch, replayed from a
+    CUDA graph (eager, capture, replays) or eager: losses, wall ms a step
+    and samples/s over the timed steps, peak GiB, the launches of every
+    hand-written kernel a step and over the run (a replay at its
+    capture's), retraces after warm, the final params, states and updater
+    state; the replayed way also profiles one more replay (device ms,
+    busy share)."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    net = make_net()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steplog = _CountLog(counts)
+    net.set_listeners(steplog)
+    sentinel = net._train_sentinel()
+    with contextlib.nullcontext() if graphs else disable_graphs():
+        net.fit([ds])
+        net.fit([ds])
+        sentinel.mark_warm()
+        net.fit([ds] * (steps - 2))
+        torch.cuda.synchronize()
+        rec = steplog.record(int(ds.features.shape[0]))
+        final = _all_tensors(net)
+        if graphs:
+            net.set_listeners()
+            add_profile(rec, profile_step(lambda: net.fit([ds])))
+    per = steplog.per_step()
+    rec["retraces_after_warm"] = sentinel.retraces_after_warm
+    rec["launches_per_step"] = {k: v for k, v in per[-1].items() if v}
+    total = {k: sum(p[k] for p in per) for k in per[0]}
+    return net, rec, total, final
+
+
+def _zoo_ways(tag, make_net, ds, counts, failed):
+    """:func:`_zoo_fit_way` replayed and eager; replayed = eager bit for
+    bit (losses and every final tensor), step kinds, 0 retraces after
+    warm. Returns (the replayed net, its record, its launches)."""
+    net, rec, total, final = _zoo_fit_way(make_net, ds, True, counts)
+    enet, erec, etotal, efinal = _zoo_fit_way(make_net, ds, False, counts)
+    del enet
+    diff = first_diff(efinal, final)
+    rec["replay_equals_eager"] = diff is None and \
+        rec["losses"] == erec["losses"]
+    rec["eager_wall_ms_per_step"] = erec["wall_ms_per_step"]
+    rec["eager_samples_per_s"] = erec["samples_per_s"]
+    rec["eager_launches_per_step"] = erec["launches_per_step"]
+    kinds = rec["step_kinds"]
+    if kinds != ["eager", "capture"] + ["replay"] * (ZOO_STEPS - 2):
+        failed.append(f"{tag}: steps ran {kinds}")
+    if not rec["replay_equals_eager"]:
+        failed.append(f"{tag}: replayed != eager (leaf {diff}, losses "
+                      f"{rec['losses']} vs {erec['losses']})")
+    if rec["retraces_after_warm"] or erec["retraces_after_warm"]:
+        failed.append(f"{tag}: retraces after warm")
+    if not all(math.isfinite(v) for v in rec["losses"]):
+        failed.append(f"{tag}: losses {rec['losses']}")
+    log(f"{tag}: {json.dumps(rec)}")
+    del final, efinal
+    return net, rec, total
+
+
+def yolo_labels(rng, b, grid, classes, n_objects):
+    """(B, grid, grid, 4 + classes) YOLO labels: ``n_objects`` boxes an
+    image in random cells, each centred in its cell, (w, h) 0.5-6 grid
+    units, a random class (one box a cell)."""
+    lab = np.zeros((b, grid, grid, 4 + classes), np.float32)
+    for bi in range(b):
+        cells = rng.choice(grid * grid, n_objects, replace=False)
+        for cell in cells:
+            cy, cx = divmod(int(cell), grid)
+            x, y = cx + rng.random(), cy + rng.random()
+            w, h = rng.uniform(0.5, 6.0, 2)
+            lab[bi, cy, cx, :4] = [x - w / 2, y - h / 2, x + w / 2,
+                                   y + h / 2]
+            lab[bi, cy, cx, 4 + rng.integers(0, classes)] = 1.0
+    return lab
+
+
+def zoo_yolo2(fa, pa, fo, gen, k3_checked, failed):
+    """Phase 19 (a): YOLO2 at 608×608, 80 classes, 5 anchors, the
+    passthrough: ``fit`` at B8 f32 with the zoo's Adam(1e-3) and its BNs
+    as configured (``fused="auto"``: plain BN in training), replayed and
+    eager (cuDNN deterministic, so that the two ways pick the same
+    algorithms); ``output()`` at B1 and B8 with the BNs' ``fused=True``
+    (``"auto"`` fuses only a BN that carries an activation, and YOLO2's
+    leaky ReLU is a layer of its own, as in the reference) on a fresh net
+    from the zoo's seed: K3's bn_act once per BN, 22 a forward, every K3
+    shape held against its plain version, replayed = eager, against the
+    plain BN path; ``get_predicted_objects`` + ``nms`` on its B8 raw
+    volume."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn.layers.objdetect import (
+        get_predicted_objects, nms)
+    from deeplearning4j_tpu_torch.zoo import YOLO2
+    counts = lambda: path_counts(fa, pa, fo)    # noqa: E731
+    model = YOLO2()
+    grid = YOLO_HW // 32
+    rng = np.random.default_rng(19)
+    x = torch.as_tensor(rng.random((ZOO_BATCH, YOLO_HW, YOLO_HW, 3),
+                                   np.float32), device="cuda")
+    lab = torch.as_tensor(yolo_labels(rng, ZOO_BATCH, grid,
+                                      model.num_classes, YOLO_OBJECTS),
+                          device="cuda")
+    ds = DataSet(x, lab)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        net, rec, train_total = _zoo_ways(
+            f"yolo2 fit {YOLO_HW}x{YOLO_HW} B{ZOO_BATCH} f32", model.init,
+            ds, counts, failed)
+    finally:
+        torch.cuda.synchronize()
+    # the trained net's losses ran away (the zoo's Adam(1e-3) on random
+    # weights and boxes; the reference's net does the same) and it learns
+    # to call no box: the served net is a fresh one from the zoo's seed
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    net = model.init()
+    # output() at B1 and B8: eager, capture, replay each; launches a call
+    _set_fused(net, True)
+    out_rec, outs, per_call = {}, {}, []
+    torch.cuda.reset_peak_memory_stats()
+    with _k3_cases(fo) as cases:
+        for b in (1, ZOO_BATCH):
+            xb = x[:b]
+            times = []
+            for _ in range(3):
+                before = counts()
+                t0 = time.perf_counter()
+                out = net.output(xb)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                kind = net._infer_fn.last
+                d = {k: v - before[k] for k, v in counts().items()}
+                per_call.append((b, kind, d))
+            outs[b] = out
+            with disable_graphs():
+                eager = net.output(xb)
+            out_rec[f"B{b}"] = {
+                "replay_equals_eager": bool(torch.equal(out, eager)),
+                "wall_ms_replayed": times[-1] * 1e3,
+                "samples_per_s": b / times[-1],
+                "device_ms": device_ms(lambda: net.output(xb), iters=5),
+                "finite": bool(torch.isfinite(out).all())}
+    out_total = {}
+    for b, kind, d in per_call:
+        for k, v in d.items():
+            out_total[k] = out_total.get(k, 0) + v
+        if kind in ("eager", "capture") and (
+                d["bn_act"] != 22 or d["bn_stats"] or d["bn_bwd_dx"]):
+            failed.append(f"yolo2 output B{b} {kind}: K3 launches {d}")
+    # a replay runs its capture's kernels: count each at the capture's
+    captured = {b: d for b, kind, d in per_call if kind == "capture"}
+    for b, kind, d in per_call:
+        if kind == "replay":
+            for k, v in captured[b].items():
+                out_total[k] += v
+    # against the plain BN path (fused off), the same params
+    _set_fused(net, False)
+    net._infer_fn = None
+    with torch.no_grad():
+        plain = {b: net.output(x[:b]) for b in (1, ZOO_BATCH)}
+    _set_fused(net, "auto")
+    net._infer_fn = None
+    plain_err = max((outs[b] - plain[b]).abs().max().item() for b in plain)
+    # K3 at every shape output() handed it, held here
+    seen = sorted(set(cases), key=str)
+    held = {}
+    for dt, n, c, act in seen:
+        if (dt, n, c, act) in k3_checked:
+            continue
+        held[f"{str(dt)[6:]} N{n} C{c} {act}"] = check_k3(
+            fo, dt, n, c, gen, acts=(act,), time_it=False)["max_abs_err"]
+    big = max(seen, key=lambda s: s[1] * s[2])
+    timed = check_k3(fo, big[0], big[1], big[2], gen, acts=(big[3],),
+                     hw=int(round(math.sqrt(big[1] // ZOO_BATCH))))
+    timed = {"shape": f"{str(big[0])[6:]} N{big[1]} C{big[2]} {big[3]}",
+             **{k: timed["bn_act"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "max_abs_err")}}
+    # detections on the B8 raw volume (the head's pre-activation)
+    layer = net.conf.nodes["out"].op
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, pre, _ = net._forward(net.params, net.states, {"in": x},
+                                 train=False, rng=None,
+                                 stop_at_output_preact=True)
+        dets = get_predicted_objects(layer, pre["out"], threshold=0.5)
+    kept = [nms(d, 0.45) for d in dets]
+    det_s = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = det
+    out_rec.update({
+        "k3_launches_by_call": [f"B{b} {kind}: {d['bn_act']}"
+                                for b, kind, d in per_call],
+        "launches": {k: v for k, v in out_total.items() if v},
+        "max_abs_err_vs_plain_bn": plain_err,
+        "k3_cases": [f"{str(dt)[6:]} N{n} C{c} {a}" for dt, n, c, a in seen],
+        "k3_held_here": held, "k3_timed": timed,
+        "peak_alloc_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "detections_before_nms": [len(d) for d in dets],
+        "detections_after_nms": [len(k) for k in kept],
+        "decode_nms_s": det_s})
+    log(f"yolo2 output (seeded weights, the BNs fused=True: K3 bn_act): "
+        f"{json.dumps(out_rec)}")
+    if not all(r["replay_equals_eager"] and r["finite"]
+               for k, r in out_rec.items() if k.startswith("B")):
+        failed.append("yolo2 output: replayed != eager or not finite")
+    if not plain_err <= ATOL[torch.float32]:
+        failed.append(f"yolo2 output vs plain BN: {plain_err}")
+    if not sum(len(k) for k in kept):
+        failed.append("yolo2: no detection after nms")
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ({"zoo_yolo2_fit": train_total, "zoo_yolo2_output": out_total},
+            {"fit": rec, "output": out_rec})
+
+
+def _attn_conf(dtype):
+    from deeplearning4j_tpu_torch import nn
+    from deeplearning4j_tpu_torch.train import Adam
+    b = nn.NeuralNetConfiguration.builder().seed(19).updater(Adam(1e-3))
+    if dtype == torch.bfloat16:
+        b.data_type(torch.float32, torch.bfloat16)
+    return (b.list()
+            .layer(nn.SelfAttentionLayer(n_out=ATTN_C, n_heads=ATTN_H,
+                                         is_causal=True, impl="pallas"))
+            .layer(nn.RnnOutputLayer(n_out=ATTN_CLASSES,
+                                     activation="softmax", loss="mcxent"))
+            .build())
+
+
+def zoo_attention(fa, pa, fo, gen, failed):
+    """Phase 19 (b): a MultiLayerNetwork with ``SelfAttentionLayer(n_out
+    512, n_heads 8, impl="pallas")``, causal, T 2048 B8, trained
+    replayed and eager in f32 (K1, dQ and dK/dV on the CUDA-core kernels)
+    and under ``compute_dtype=torch.bfloat16`` (the tensor-core ones);
+    each kernel held against its plain version at the path's shape (f32
+    timed)."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    counts = lambda: path_counts(fa, pa, fo)    # noqa: E731
+    rng = np.random.default_rng(19)
+    x = torch.as_tensor(rng.standard_normal((ATTN_B, ATTN_T, ATTN_C))
+                        .astype(np.float32), device="cuda")
+    y = torch.nn.functional.one_hot(torch.as_tensor(rng.integers(
+        0, ATTN_CLASSES, (ATTN_B, ATTN_T)), device="cuda"),
+        ATTN_CLASSES).float()
+    ds = DataSet(x, y)
+    d = ATTN_C // ATTN_H
+    paths, recs, held = {}, {}, {}
+    for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        fam = FAMILY_KEYS[fa.route(d, dtype, "fwd")]
+        net, rec, total = _zoo_ways(
+            f"attention net {key} B{ATTN_B} T{ATTN_T} C{ATTN_C} "
+            f"H{ATTN_H} (D {d}) causal", lambda dt=dtype: MultiLayerNetwork(
+                _attn_conf(dt)).init((ATTN_T, ATTN_C)), ds, counts, failed)
+        del net
+        for name in FLASH_NAMES.values():
+            if not rec["launches_per_step"].get(f"{name}_{fam}"):
+                failed.append(f"attention {key}: {name} on {fam} not "
+                              f"launched ({rec['launches_per_step']})")
+        paths[f"zoo_attention_{key}"] = total
+        recs[key] = rec
+        time_it = dtype == torch.float32
+        held[key] = {"fwd": check_flash(fa, dtype, ATTN_B, ATTN_T, gen,
+                                        h=ATTN_H, d=d, time_it=time_it),
+                     "bwd": check_flash_bwd(fa, dtype, ATTN_B, ATTN_T, True,
+                                            gen, h=ATTN_H, d=d,
+                                            time_it=time_it)}
+        gc.collect()
+        torch.cuda.empty_cache()
+    return paths, recs, held
+
+
+class _Bottleneck(torch.nn.Module):
+    """torchvision's ResNet-50 bottleneck, written out (no torchvision on
+    the card's machine)."""
+
+    def __init__(self, cin, mid, cout, stride):
+        super().__init__()
+        nn = torch.nn
+        self.conv1 = nn.Conv2d(cin, mid, 1, bias=False)
+        self.bn1 = nn.BatchNorm2d(mid)
+        self.conv2 = nn.Conv2d(mid, mid, 3, stride, 1, bias=False)
+        self.bn2 = nn.BatchNorm2d(mid)
+        self.conv3 = nn.Conv2d(mid, cout, 1, bias=False)
+        self.bn3 = nn.BatchNorm2d(cout)
+        self.down = None
+        if stride != 1 or cin != cout:
+            self.down = nn.Sequential(nn.Conv2d(cin, cout, 1, stride,
+                                                bias=False),
+                                      nn.BatchNorm2d(cout))
+
+    def forward(self, x):
+        r = torch.relu
+        out = r(self.bn1(self.conv1(x)))
+        out = r(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        return r(out + (x if self.down is None else self.down(x)))
+
+
+class ResNet50Module(torch.nn.Module):
+    """ResNet-50 (ImageNet, 1000 classes) as plain ``torch.nn`` modules."""
+
+    def __init__(self):
+        super().__init__()
+        nn = torch.nn
+        self.stem = nn.Sequential(nn.Conv2d(3, 64, 7, 2, 3, bias=False),
+                                  nn.BatchNorm2d(64), nn.ReLU(),
+                                  nn.MaxPool2d(3, 2, 1))
+        blocks, cin = [], 64
+        for n, mid, cout, stride in ((3, 64, 256, 1), (4, 128, 512, 2),
+                                     (6, 256, 1024, 2), (3, 512, 2048, 2)):
+            for i in range(n):
+                blocks.append(_Bottleneck(cin, mid, cout,
+                                          stride if i == 0 else 1))
+                cin = cout
+        self.blocks = nn.Sequential(*blocks)
+        self.fc = nn.Linear(2048, 1000)
+
+    def forward(self, x):
+        h = self.blocks(self.stem(x))
+        return self.fc(torch.flatten(torch.mean(h, dim=(2, 3),
+                                                keepdim=True), 1))
+
+
+@contextlib.contextmanager
+def _onnx_stub():
+    """The TorchScript exporter imports ``onnx`` only to splice in
+    custom-function protos, which this model has none of; the card's
+    machine has no onnx package, so an empty stub stands in while the
+    model is exported (the importer reads the wire format itself)."""
+    import types
+    had = sys.modules.get("onnx")
+    if had is None:
+        stub = types.ModuleType("onnx")
+        stub.load_model_from_string = lambda b: types.SimpleNamespace(
+            graph=types.SimpleNamespace(node=()))
+        sys.modules["onnx"] = stub
+    try:
+        yield
+    finally:
+        if had is None:
+            sys.modules.pop("onnx", None)
+
+
+def zoo_onnx(fa, pa, fo, failed):
+    """Phase 19 (c): ResNet-50 (plain torch modules, seeded weights and BN
+    statistics) exported to ONNX at B1 3×224×224 (opset 13, the
+    TorchScript exporter), imported with ``import_onnx`` into the port's
+    SameDiff on the card and served at B1 and B32: held to the module's
+    own output on the card (f32, TF32 off), replayed = eager, import
+    seconds, wall and device ms a call, no hand-written kernel."""
+    import io
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.autodiff import import_onnx
+    torch.manual_seed(19)
+    model = ResNet50Module().eval()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5)
+                m.bias.normal_(0.0, 0.1)
+                m.running_mean.normal_(0.0, 0.1)
+                m.running_var.uniform_(0.5, 1.5)
+    t0 = time.perf_counter()
+    buf = io.BytesIO()
+    with _onnx_stub(), torch.no_grad():
+        try:
+            torch.onnx.export(model, torch.zeros(1, 3, ONNX_HW, ONNX_HW),
+                              buf, opset_version=13, dynamo=False,
+                              input_names=["input"], output_names=["logits"])
+        except Exception as e:
+            raise SystemExit(f"onnx export failed on this torch "
+                             f"({torch.__version__}): {e!r}") from e
+    export_s = time.perf_counter() - t0
+    data = buf.getvalue()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd, outs = import_onnx(data)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    model = model.cuda()
+    rng = np.random.default_rng(19)
+    before = path_counts(fa, pa, fo)
+    rec = {"onnx_bytes": len(data), "export_s": export_s,
+           "import_s": import_s, "nodes": len(sd._vars)}
+    for b in ONNX_BATCHES:
+        xb = rng.random((b, 3, ONNX_HW, ONNX_HW), np.float32)
+        feeds = {"input": torch.as_tensor(xb, device="cuda")}
+        got = [sd.eval(outs[0], feeds) for _ in range(3)]
+        with disable_graphs():
+            eager = sd.eval(outs[0], feeds)
+        with torch.no_grad():
+            want = model(feeds["input"])
+        run = sd.runner(outs[0], feeds)
+        err = (got[-1] - want).abs().max().item()
+        scale = max(1.0, want.abs().max().item())
+        t0 = time.perf_counter()
+        for _ in range(5):
+            sd.eval(outs[0], feeds)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 5
+        rec[f"B{b}"] = {
+            "max_abs_err_vs_module": err, "module_logit_scale": scale,
+            "replay_equals_eager": bool(torch.equal(got[-1], eager)),
+            "calls": dict(run.compiled.calls) if run.compiled else None,
+            "wall_ms": wall * 1e3, "samples_per_s": b / wall,
+            "device_ms": device_ms(lambda: sd.eval(outs[0], feeds),
+                                   iters=5),
+            "module_device_ms": device_ms(lambda: model(feeds["input"]),
+                                          iters=5)}
+        if not err <= 1e-4 * scale:
+            failed.append(f"onnx resnet50 B{b}: error {err} vs the module "
+                          f"(scale {scale})")
+        if not rec[f"B{b}"]["replay_equals_eager"]:
+            failed.append(f"onnx resnet50 B{b}: replayed != eager")
+    after = path_counts(fa, pa, fo)
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    rec["launches"] = launched
+    if launched:
+        failed.append(f"onnx resnet50 launched {launched}")
+    log(f"onnx resnet50 (import_onnx, SameDiff on the card, f32): "
+        f"{json.dumps(rec)}")
+    del sd, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"zoo_onnx_resnet50": {k: after[k] - before[k]
+                                  for k in after}}, rec
+
+
+def zoo_phase(fa, pa, fo, fl, smi, gen, k3_checked=frozenset()):
+    """Phase 19: the layer and zoo breadth and the ONNX importer on the
+    card — YOLO2 trained and served (K3 in ``output()``), the DL4J
+    attention layer trained through the flash kernels in f32 and bf16,
+    ResNet-50 imported from ONNX and served. Returns (launch counts by
+    path, records, the flash checks at the attention path's shape)."""
+    reset_all(fa, pa, fo, fl)
+    failed = []
+    t_phase = time.perf_counter()
+    log(f"phase 19 on {smi}: TF32 matmuls "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN TF32 "
+        f"{torch.backends.cudnn.allow_tf32}")
+    paths, recs = {}, {}
+    t0 = time.perf_counter()
+    p, recs["yolo2"] = zoo_yolo2(fa, pa, fo, gen, k3_checked, failed)
+    paths.update(p)
+    recs["yolo2_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p, recs["attention"], held = zoo_attention(fa, pa, fo, gen, failed)
+    paths.update(p)
+    recs["attention_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p, recs["onnx"] = zoo_onnx(fa, pa, fo, failed)
+    paths.update(p)
+    recs["onnx_s"] = time.perf_counter() - t0
+    log(f"phase 19 host seconds: yolo2 {recs['yolo2_s']:.1f}, attention "
+        f"{recs['attention_s']:.1f}, onnx {recs['onnx_s']:.1f}, all "
+        f"{time.perf_counter() - t_phase:.1f}")
+    log(f"phase 19 launches by path: "
+        f"{json.dumps({k: {n: v for n, v in c.items() if v} for k, c in paths.items()})}")
+    if failed:
+        raise SystemExit(f"phase 19: {failed}")
+    return paths, recs, held
+
+
 def _values_equal(a, b):
     """Nested lists / numbers / arrays equal exactly."""
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
@@ -6672,6 +7222,11 @@ def main():
                     help="build the kernels and run phase 18 (SameDiff and "
                          "the TF importer at BERT-base width) only (prints "
                          "no result line)")
+    ap.add_argument("--zoo-only", action="store_true",
+                    help="build the kernels and run phase 19 (YOLO2, the "
+                         "DL4J attention layers and the ONNX importer) "
+                         "only, holding every K3 shape it runs itself "
+                         "(prints no result line)")
     ap.add_argument("--prefetch-times", metavar="ROOT",
                     help="only time LeNet's fit over host and device "
                          "iterators and a host list, for the port checked "
@@ -6732,6 +7287,12 @@ def main():
             f"{json.dumps(seconds)}")
         return 0
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if args.zoo_only:
+        zoo_phase(fa, pa, fo, fl, smi, gen)
+        mark("19 layer and zoo breadth, ONNX")
+        log(f"host seconds by phase (after the build): "
+            f"{json.dumps(seconds)}")
+        return 0
     if args.bert_only:
         bert_phase(fa, pa, fo, fl, set(), gen)
         return 0
@@ -6863,13 +7424,22 @@ def main():
     by_path["samediff"] = sd_counts
     lstm_paths["samediff"] = sd_counts
     mark("18 SameDiff and the TF importer")
+    zoo_paths, _, zoo_held = zoo_phase(fa, pa, fo, fl, smi, gen, k3_checked)
+    by_path.update(zoo_paths)
+    lstm_paths.update(zoo_paths)
+    for key, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        k1[(dt, ATTN_B, ATTN_T, ATTN_C // ATTN_H)] = zoo_held[key]["fwd"]
+        bwd[(dt, ATTN_B, ATTN_T, True, ATTN_C // ATTN_H)] = \
+            zoo_held[key]["bwd"]
+    mark("19 layer and zoo breadth, ONNX")
     log(f"host seconds by phase (after the build): {json.dumps(seconds)}")
     # the stage-0 BN's shape (N = 128*56*56, C = 256) stands for K3
     main_k3 = k3[(torch.bfloat16, RESNET_BATCH * 56 * 56, 256)]
     resnet_paths = ("resnet_train", "resnet_output", "resnet_fitscan",
                     "workflow_resnet_fit", "workflow_resnet_evaluate",
                     "resnet_serve", *(f"workflow2_resnet_remat{r}"
-                                      for r in REMAT_SETTINGS))
+                                      for r in REMAT_SETTINGS),
+                    "zoo_yolo2_fit", "zoo_yolo2_output")
     main_k1 = k1[(torch.bfloat16, 1, 2048, 64)]    # a dense prefill's shape
     train_k1 = k1[(torch.bfloat16, 32, 1024, 64)]  # the train path's shape
     main_k2 = k2[torch.bfloat16]
@@ -6997,7 +7567,7 @@ def main():
               more={"d512": k1[(torch.float32, 1, 1024, 512)]}),
         entry("fwd", "cuda-core", "_f32", "flash_fwd_kernel (f32 D <= 128, "
               "CUDA cores)", torch.float32, k1, "B1 H8 T2048 D64 f32",
-              f32_k1),
+              f32_k1, more={"attention_layer_path": zoo_held["f32"]["fwd"]}),
         entry("fwd", "general", "_general_f32", "flash_fwd_general_kernel "
               "(D past 512, bf16 D % 8 != 0; CUDA cores)", torch.float32, k1,
               "B1 H8 T1024 D520 f32", gen_k1),
@@ -7020,7 +7590,8 @@ def main():
                   lm=("B8 H2 T1024 D256 f32 causal", bwd[lm_bwd_f32])),
             entry(part, "cuda-core", "_f32", f"flash_bwd_{part}_kernel (f32 "
                   "D <= 128, CUDA cores)", torch.float32, bwd,
-                  "B1 H8 T2048 D64 f32 causal", f32_bwd),
+                  "B1 H8 T2048 D64 f32 causal", f32_bwd,
+                  more={"attention_layer_path": zoo_held["f32"]["bwd"]}),
             entry(part, "wgmma-wide", "_wide", {
                 "dq": "flash_bwd_dq_wgmma_split_kernel<DqSplitCfg<384, 32>|"
                       "<512, 16>> (bf16 D 264-512, two warpgroups that split "

@@ -20,9 +20,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 def tree_to(tree, device):
-    """Move every tensor leaf of a nested dict to ``device``."""
+    """Move every tensor leaf of nested dicts and lists to ``device``."""
     if isinstance(tree, dict):
         return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
     return tree.to(device=device)
 
 

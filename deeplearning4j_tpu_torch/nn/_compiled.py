@@ -112,6 +112,9 @@ def copy_into(dst, src):
     if isinstance(dst, dict):
         for k in dst:
             copy_into(dst[k], src[k])
+    elif isinstance(dst, list):
+        for d, s in zip(dst, src):
+            copy_into(d, s)
     elif src is not dst:
         dst.copy_(src)
 

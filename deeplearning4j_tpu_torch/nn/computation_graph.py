@@ -31,8 +31,9 @@ through ``data/async_iter.py`` (``nn/_fit_loop.py``).
 :meth:`rnn_time_step` streams through the recurrent nodes, one compiled
 step per input signature, their carries on the device.
 
-Not ported yet (raises where the reference has the knob): multi-input
-layers.
+A layer with ``multi_input`` (``AttentionVertex``) takes the list of its
+input nodes' activations, as in the reference; its input dropout draws
+one mask per input.
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ from .graph import ComputationGraphConfiguration
 from .layers.base import Ctx, Layer
 from .layers.core import LossLayer, OutputLayer, dropout_apply, keep_mask
 from .layers.recurrent import Bidirectional, LastTimeStep, TimeDistributed
+from .layers.wrappers import unwrap
 from .multi_layer_network import (_copy_params, _is_ff_layer, _unflatten,
                                   _update_in_place)
 from .preprocessors import CnnToFeedForwardPreProcessor
@@ -150,13 +152,13 @@ class ComputationGraph:
             in_shapes = [shapes[i] for i in node.inputs]
             if isinstance(node.op, Layer):
                 if getattr(node.op, "multi_input", False):
-                    raise NotImplementedError(
-                        "multi-input layers are not ported yet")
-                s = in_shapes[0]
-                if _is_ff_layer(node.op) and len(s) == 3:
-                    pp = CnnToFeedForwardPreProcessor()
-                    self._preprocessors[name] = pp
-                    s = pp.out_shape(s)
+                    s = in_shapes
+                else:
+                    s = in_shapes[0]
+                    if _is_ff_layer(node.op) and len(s) == 3:
+                        pp = CnnToFeedForwardPreProcessor()
+                        self._preprocessors[name] = pp
+                        s = pp.out_shape(s)
                 p, st, out = node.op.init(gen, s)
                 self.params[name] = tree_map(
                     lambda t: t.to(self.device).requires_grad_(
@@ -186,16 +188,21 @@ class ComputationGraph:
             new_states[name] = states[name]
             return
         op = node.op
-        h = xs[0]
-        if name in self._preprocessors:
-            h = self._preprocessors[name](h)
         noisy = train and rng is not None
-        if noisy and op.dropout > 0.0:
-            keep = 1.0 - op.dropout
-            h = dropout_apply(h, keep_mask(h.shape, keep, rng, h.device),
-                              keep)
+        keep = 1.0 - op.dropout
+        if getattr(op, "multi_input", False):
+            h = [dropout_apply(x, keep_mask(x.shape, keep, rng, x.device),
+                               keep) for x in xs] \
+                if noisy and op.dropout > 0.0 else xs
+        else:
+            h = xs[0]
+            if name in self._preprocessors:
+                h = self._preprocessors[name](h)
+            if noisy and op.dropout > 0.0:
+                h = dropout_apply(h, keep_mask(h.shape, keep, rng, h.device),
+                                  keep)
         if stop_at_output_preact and name in self.conf.outputs and \
-                isinstance(op, (OutputLayer, LossLayer)):
+                isinstance(unwrap(op), (OutputLayer, LossLayer)):
             pre_acts[name] = h
             new_states[name] = states[name]
             acts[name] = h
@@ -375,11 +382,13 @@ class ComputationGraph:
         from .layers.recurrent import BaseRecurrent
         for name in self.conf.topo_order:
             op = self.conf.nodes[name].op
-            if isinstance(op, (Bidirectional, LastTimeStep,
-                               TimeDistributed)):
+            if isinstance(op, Layer) and isinstance(
+                    unwrap(op), (Bidirectional, LastTimeStep,
+                                 TimeDistributed)):
                 raise NotImplementedError(
                     f"rnn_time_step cannot stream through node '{name}' "
-                    f"({type(op).__name__}): it needs the full sequence "
+                    f"({type(unwrap(op)).__name__}): it needs the full "
+                    "sequence "
                     "(reference rnnTimeStep has the same limit)")
         xs = [self._to_device(x) for x in inputs]
         integer = not xs[0].is_floating_point()
@@ -394,6 +403,7 @@ class ComputationGraph:
         carries = {}
         for name in self.conf.topo_order:
             op = self.conf.nodes[name].op
+            op = unwrap(op) if isinstance(op, Layer) else op
             if isinstance(op, BaseRecurrent):
                 c = old.get(name)
                 carries[name] = c if c is not None else op.init_carry(
@@ -432,11 +442,12 @@ class ComputationGraph:
                             if not isinstance(node.op, Layer):
                                 acts[name] = node.op.apply(vals)
                                 continue
-                            h = vals[0]
+                            h = vals if getattr(node.op, "multi_input",
+                                                False) else vals[0]
                             if name in self._preprocessors:
                                 h = self._preprocessors[name](h)
-                            if isinstance(node.op, BaseRecurrent):
-                                h, cs[name] = node.op.step_apply(
+                            if isinstance(unwrap(node.op), BaseRecurrent):
+                                h, cs[name] = unwrap(node.op).step_apply(
                                     self.params[name], cs[name], h,
                                     Ctx(train=False))
                             else:
@@ -466,7 +477,7 @@ class ComputationGraph:
             lmask=lmask, stop_at_output_preact=True)
         total = 0.0
         for name in self.conf.outputs:
-            op = self.conf.nodes[name].op
+            op = unwrap(self.conf.nodes[name].op)
             y = labels[name]
             w = self.output_loss_weights.get(name, 1.0)
             if isinstance(op, OutputLayer):

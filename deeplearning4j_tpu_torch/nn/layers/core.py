@@ -1,9 +1,11 @@
-"""Core feed-forward layers — port of the part of
-``deeplearning4j_tpu/nn/layers/core.py`` that ResNet-50, LeNet and the
-char-RNN need: ``DenseLayer``, ``ActivationLayer``, ``LossLayer``,
-``OutputLayer``, ``RnnOutputLayer``; and the dropout family
-(``DropoutLayer``, ``GaussianDropout``, ``GaussianNoise``,
-``AlphaDropout``, ``SpatialDropout``).
+"""Core feed-forward layers — port of
+``deeplearning4j_tpu/nn/layers/core.py``: ``DenseLayer``,
+``ActivationLayer``, the embeddings, ``ElementWiseMultiplicationLayer``,
+``PReLULayer``; the heads ``LossLayer``, ``OutputLayer``,
+``RnnOutputLayer``, ``CnnLossLayer``, ``CenterLossOutputLayer`` and
+``OCNNOutputLayer``; ``MaskLayer``, ``ReshapeLayer``, ``PermuteLayer``;
+and the dropout family (``DropoutLayer``, ``GaussianDropout``,
+``GaussianNoise``, ``AlphaDropout``, ``SpatialDropout``).
 
 Each random layer splits its work in two: a draw from the train step's
 generator (``ctx.rng``, a ``torch.Generator`` on the net's device) and a
@@ -11,9 +13,9 @@ plain ``*_apply`` function of the input and those draws, which the tests
 hold against the reference on the reference's own draws. The layers are
 the identity at inference and where no generator is threaded.
 
-Not ported yet: embeddings, ElementWiseMultiplication,
-PReLU and the other heads (CnnLoss, CenterLoss, OCNN), Mask, Reshape and
-Permute layers.
+``CenterLossOutputLayer`` and ``OCNNOutputLayer`` keep a running state
+(class centers; the margin r) that the network's loss updates from the
+batch (``update_state``), as the reference's does.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Optional
 
+import numpy as np
 import torch
 
 from .. import losses as _losses
@@ -271,3 +274,250 @@ class RnnOutputLayer(OutputLayer):
             else labels.reshape(b * t)
         return fused(flat_labels, logits.reshape(b * t, -1),
                      mask=None if mask is None else mask.reshape(b * t))
+
+
+# ---------------------------------------------------------- embeddings
+@dataclass
+class EmbeddingLayer(Layer):
+    """Index → vector. Input (B,) int ids (or (B, 1)); output (B, nOut)."""
+
+    n_in: Optional[int] = None   # vocab size
+    n_out: int = 0
+    has_bias: bool = False
+    activation: Any = "identity"
+
+    def init(self, gen, input_shape):
+        params = {"W": self._make_weight(gen, (self.n_in, self.n_out),
+                                         self.n_in, self.n_out)}
+        if self.has_bias:
+            params["b"] = self._make_bias((self.n_out,))
+        return params, {}, (self.n_out,)
+
+    def apply(self, params, state, x, ctx: Ctx):
+        ids = x.to(torch.int64)
+        if ids.dim() > 1 and ids.shape[-1] == 1:
+            ids = ids[..., 0]
+        y = params["W"][ids]
+        if self.has_bias:
+            y = y + params["b"]
+        return self.activation_fn()(y), state
+
+
+@dataclass
+class EmbeddingSequenceLayer(EmbeddingLayer):
+    """Sequence of ids (B, T) → (B, T, nOut) [NTC]."""
+
+    def init(self, gen, input_shape):
+        params, state, _ = super().init(gen, input_shape)
+        t = input_shape[0] if input_shape else None
+        return params, state, (t, self.n_out)
+
+
+@dataclass
+class ElementWiseMultiplicationLayer(Layer):
+    """y = act(x * w + b), elementwise learned scaling (nIn == nOut)."""
+
+    n_in: Optional[int] = None
+    n_out: int = 0
+    activation: Any = "identity"
+
+    def init(self, gen, input_shape):
+        n = self.n_out or self.n_in or input_shape[-1]
+        return ({"W": torch.ones((n,), dtype=self.dtype),
+                 "b": self._make_bias((n,))},
+                {}, tuple(input_shape[:-1]) + (n,))
+
+    def apply(self, params, state, x, ctx: Ctx):
+        return self.activation_fn()(x * params["W"] + params["b"]), state
+
+
+@dataclass
+class PReLULayer(Layer):
+    """Parametric ReLU with a learned alpha per feature; ``shared_axes``
+    (per-example dims, 0-based) share one alpha."""
+
+    alpha_init: float = 0.0
+    shared_axes: tuple = ()
+
+    def init(self, gen, input_shape):
+        shape = tuple(1 if i in self.shared_axes else s
+                      for i, s in enumerate(input_shape))
+        return ({"alpha": torch.full(shape, self.alpha_init,
+                                     dtype=self.dtype)}, {}, input_shape)
+
+    def apply(self, params, state, x, ctx: Ctx):
+        return torch.where(x >= 0, x, params["alpha"] * x), state
+
+
+# ---------------------------------------------------------------- heads
+@dataclass
+class CnnLossLayer(LossLayer):
+    """Per-pixel loss over (B, H, W, C) activations, no params
+    (CnnLossLayer). Labels are (B, H, W, C); a mask (B, H, W) drops
+    pixels. Space folds into the batch, so every loss sees (N, C)."""
+
+    def compute_loss(self, pre_activation, labels, mask=None):
+        c = pre_activation.shape[-1]
+        flat = pre_activation.reshape(-1, c)
+        flat_labels = labels.reshape(-1, labels.shape[-1])
+        flat_mask = mask.reshape(-1) if mask is not None else None
+        return super().compute_loss(flat, flat_labels, mask=flat_mask)
+
+
+@dataclass
+class CenterLossOutputLayer(OutputLayer):
+    """Softmax + center loss (intra-class compactness). The per-class
+    centers live in ``state`` and move toward each batch's features at
+    rate ``alpha`` (:meth:`update_state`)."""
+
+    alpha: float = 0.05
+    lambda_: float = 2e-4
+
+    def init(self, gen, input_shape):
+        params, state, out = super().init(gen, input_shape)
+        n_in = self.n_in or input_shape[-1]
+        state = dict(state)
+        state["centers"] = torch.zeros((self.n_out, n_in), dtype=self.dtype)
+        return params, state, out
+
+    def compute_loss(self, params, x, labels, mask=None, state=None):
+        base = super().compute_loss(params, x, labels, mask)
+        if state is None:
+            return base
+        cls = torch.argmax(labels, dim=-1)
+        diff = x - state["centers"][cls]
+        center_loss = 0.5 * torch.mean(torch.sum(diff * diff, dim=-1))
+        return base + self.lambda_ * center_loss
+
+    def update_state(self, state, x, labels):
+        cls = torch.argmax(labels, dim=-1)
+        centers = state["centers"]
+        diff = centers[cls] - x
+        counts = torch.zeros((self.n_out,), dtype=x.dtype,
+                             device=x.device).index_add(
+            0, cls, torch.ones_like(diff[:, 0]))
+        delta = torch.zeros_like(centers).index_add(0, cls, diff)
+        delta = delta / (1.0 + counts)[:, None]
+        return {**state, "centers": centers - self.alpha * delta}
+
+
+@dataclass
+class MaskLayer(Layer):
+    """Zeroes activations at masked steps (or examples) and otherwise
+    passes through (MaskLayer)."""
+
+    def init(self, gen, input_shape):
+        return {}, {}, input_shape
+
+    def apply(self, params, state, x, ctx: Ctx):
+        if ctx.mask is None:
+            return x, state
+        if x.dim() == 3:
+            return apply_time_mask(x, ctx.mask), state
+        m = ctx.mask.reshape((ctx.mask.shape[0],) + (1,) * (x.dim() - 1))
+        return x * m.to(x.dtype), state
+
+    def has_params(self):
+        return False
+
+
+@dataclass
+class OCNNOutputLayer(Layer):
+    """One-class neural network output layer for anomaly detection
+    (OCNNOutputLayer; Chalapathy et al. 2018).
+
+    score(x) = w · act(V x); loss = 0.5‖V‖² + 0.5‖w‖² + mean(relu(r −
+    score)) / nu − r. The margin r follows the nu-quantile of the batch
+    scores through an EMA held in ``state`` (:meth:`update_state`).
+    Labels are ignored; ``score < r`` marks an anomaly."""
+
+    n_in: Optional[int] = None
+    hidden_size: int = 32
+    nu: float = 0.04
+    activation: Any = "sigmoid"
+    window_size: int = 10000      # kept for the reference's API
+    initial_r_value: float = 0.1
+    r_update_rate: float = 0.1    # EMA rate of the quantile target
+
+    def init(self, gen, input_shape):
+        n_in = self.n_in or input_shape[-1]
+        params = {"V": self._make_weight(gen, (n_in, self.hidden_size)),
+                  "w": self._make_weight(gen, (self.hidden_size, 1))}
+        state = {"r": torch.tensor(self.initial_r_value, dtype=self.dtype)}
+        return params, state, (1,)
+
+    def ocnn_score(self, params, x):
+        h = self.activation_fn()(x @ params["V"])
+        return (h @ params["w"])[..., 0]
+
+    def apply(self, params, state, x, ctx: Ctx):
+        return self.ocnn_score(params, x)[:, None], state
+
+    def compute_loss(self, params, x, labels, mask=None, state=None):
+        score = self.ocnn_score(params, x)
+        r = state["r"] if state is not None else torch.tensor(
+            self.initial_r_value, dtype=score.dtype, device=score.device)
+        reg = 0.5 * torch.sum(params["V"] ** 2) \
+            + 0.5 * torch.sum(params["w"] ** 2)
+        hinge = torch.mean(torch.relu(r - score)) / self.nu
+        return reg + hinge - r
+
+    def update_state(self, state, x, params):
+        with torch.no_grad():
+            score = self.ocnn_score(params, x)
+            q = torch.quantile(score, self.nu)
+            r = state["r"] * (1.0 - self.r_update_rate) \
+                + self.r_update_rate * q
+        return {**state, "r": r.to(state["r"].dtype)}
+
+
+# --------------------------------------------------------------- shapes
+@dataclass
+class ReshapeLayer(Layer):
+    """Reshape each example's activations (keras Reshape); ``target_shape``
+    excludes the batch and may hold one -1."""
+
+    target_shape: Any = None
+
+    def init(self, gen, input_shape):
+        if self.target_shape is None:
+            raise ValueError("target_shape required")
+        tgt = tuple(int(t) for t in self.target_shape)
+        n_in = int(np.prod(input_shape))
+        if tgt.count(-1) > 1:
+            raise ValueError(f"at most one -1 wildcard allowed, got {tgt}")
+        if -1 in tgt:
+            known = int(-np.prod(tgt))      # product of the fixed dims
+            if known == 0 or n_in % known:
+                raise ValueError(f"cannot reshape {input_shape} -> {tgt}")
+            tgt = tuple(n_in // known if t == -1 else t for t in tgt)
+        elif int(np.prod(tgt)) != n_in:
+            raise ValueError(f"cannot reshape {input_shape} -> {tgt}")
+        return {}, {}, tgt
+
+    def apply(self, params, state, x, ctx: Ctx):
+        return x.reshape((x.shape[0],) + tuple(self.target_shape)), state
+
+    def has_params(self):
+        return False
+
+
+@dataclass
+class PermuteLayer(Layer):
+    """Permute each example's dims, 1-indexed like keras Permute((2, 1))."""
+
+    dims: Any = None
+
+    def init(self, gen, input_shape):
+        if self.dims is None:
+            raise ValueError("dims required")
+        d = tuple(int(i) for i in self.dims)
+        if sorted(d) != list(range(1, len(input_shape) + 1)):
+            raise ValueError(f"dims {d} must permute 1..{len(input_shape)}")
+        return {}, {}, tuple(input_shape[i - 1] for i in d)
+
+    def apply(self, params, state, x, ctx: Ctx):
+        return x.permute((0,) + tuple(self.dims)), state
+
+    def has_params(self):
+        return False

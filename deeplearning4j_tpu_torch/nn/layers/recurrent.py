@@ -1,6 +1,6 @@
 """Recurrent layers — port of ``deeplearning4j_tpu/nn/layers/recurrent.py``:
 SimpleRnn, LSTM, GravesLSTM (peepholes), GRU, Bidirectional,
-GravesBidirectionalLSTM, LastTimeStep, TimeDistributed.
+GravesBidirectionalLSTM, LastTimeStep, TimeDistributed, ConvLSTM2D.
 
 Layout is NTC (batch, time, channels). The input projection x @ W + b for
 all steps is one (B·T, nIn) × (nIn, gates·H) product up front; a Python
@@ -19,7 +19,10 @@ kernel: no mask, tanh/sigmoid, and the kernel's capacity predicate true.
 Masking: ``ctx.mask`` (B, T) freezes the state on padded steps and zeroes
 their outputs.
 
-Not ported yet: ``ConvLSTM2D``.
+``ConvLSTM2D`` hoists its input convolution over all steps into one
+(B·T) conv and loops over t for the recurrent conv (stride 1, SAME on
+the output grid), in plain torch as in the reference (K4 is a dense
+LSTM kernel).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 from .. import activations as _act
 from ...kernels import fused_lstm as _k4
 from .base import Ctx, Layer, apply_time_mask
+from .conv import _pair, conv_nd, nd_pads
 
 
 def _keep(mask_t, new, old):
@@ -368,3 +372,92 @@ class TimeDistributed(Layer):
         y, s = self.inner.apply(params, state,
                                 x.reshape((b * t,) + tuple(x.shape[2:])), ctx)
         return y.reshape((b, t) + tuple(y.shape[1:])), s
+
+
+@dataclass
+class ConvLSTM2D(Layer):
+    """Convolutional LSTM (Shi et al. 2015) over (B, T, H, W, C)
+    sequences (the keras ``ConvLSTM2D`` the reference imports). Gate order
+    [i, f, o, g]; W (kh, kw, C, 4F), RW (kh, kw, F, 4F), b (4F,) with the
+    forget gate's slice at ``forget_gate_bias``.
+
+    ``return_sequences=True`` yields (B, T, H', W', F); False yields the
+    (masked) last step (B, H', W', F)."""
+
+    n_in: Optional[int] = None
+    n_out: int = 0
+    kernel_size: Any = (3, 3)
+    stride: Any = (1, 1)
+    convolution_mode: str = "same"   # "same" | "truncate" (keras "valid")
+    activation: Any = "tanh"
+    gate_activation: Any = "sigmoid"
+    forget_gate_bias: float = 1.0
+    return_sequences: bool = True
+    has_bias: bool = True
+
+    def _out_hw(self, h, w):
+        kh, kw = _pair(self.kernel_size)
+        sh, sw = _pair(self.stride)
+        if self.convolution_mode == "same":
+            return -(-h // sh), -(-w // sw)
+        return (h - kh) // sh + 1, (w - kw) // sw + 1
+
+    def init(self, gen, input_shape):
+        t, h, w, c = input_shape
+        c = self.n_in or c
+        kh, kw = _pair(self.kernel_size)
+        f = self.n_out
+        params = {
+            "W": self._make_weight(gen, (kh, kw, c, 4 * f), kh * kw * c,
+                                   kh * kw * f),
+            "RW": self._make_weight(gen, (kh, kw, f, 4 * f), kh * kw * f,
+                                    kh * kw * f),
+        }
+        if self.has_bias:
+            b = torch.zeros((4 * f,), dtype=self.dtype)
+            b[f:2 * f] = self.forget_gate_bias
+            params["b"] = b
+        ho, wo = self._out_hw(h, w)
+        out = (t, ho, wo, f) if self.return_sequences else (ho, wo, f)
+        return params, {}, out
+
+    def apply(self, params, state, x, ctx: Ctx):
+        x = self._cast_in(x)
+        bsz, t = x.shape[0], x.shape[1]
+        f = self.n_out
+        kernel, stride = _pair(self.kernel_size), _pair(self.stride)
+        frames = x.reshape((bsz * t,) + tuple(x.shape[2:]))
+        pad = "same" if self.convolution_mode == "same" else "valid"
+        xw = conv_nd(frames, params["W"].to(x.dtype), stride, None,
+                     nd_pads(frames, kernel, stride, (1, 1), pad, pad))
+        if self.has_bias:
+            xw = xw + params["b"].to(x.dtype)
+        ho, wo = xw.shape[1], xw.shape[2]
+        xw = xw.reshape(bsz, t, ho, wo, 4 * f)
+        rw = params["RW"].to(x.dtype)
+        act, gate_act = self.activation_fn(), _act.get(self.gate_activation)
+        h = torch.zeros((bsz, ho, wo, f), dtype=x.dtype, device=x.device)
+        c = h
+        hs = []
+        for step in range(t):
+            z = xw[:, step] + conv_nd(h, rw, (1, 1), None,
+                                      nd_pads(h, kernel, (1, 1), (1, 1),
+                                              "same", "same"))
+            i = gate_act(z[..., :f])
+            fg = gate_act(z[..., f:2 * f])
+            o = gate_act(z[..., 2 * f:3 * f])
+            g = act(z[..., 3 * f:])
+            c_new = fg * c + i * g
+            h_new = o * act(c_new)
+            if ctx.mask is not None:
+                keep = ctx.mask[:, step, None, None, None] > 0
+                h_new = torch.where(keep, h_new, h)
+                c_new = torch.where(keep, c_new, c)
+            h, c = h_new, c_new
+            hs.append(h)
+        if not self.return_sequences:
+            return h, state    # masked steps froze the state
+        y = torch.stack(hs, dim=1)
+        if ctx.mask is not None:
+            y = y * ctx.mask[:, :, None, None, None].to(y.dtype)
+        return y, state

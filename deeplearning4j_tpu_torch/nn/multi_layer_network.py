@@ -63,25 +63,31 @@ from ._remat import checkpoint_segment
 from ._scan_common import check_scan_listeners, replay_scan_listeners
 from .conf import MultiLayerConfiguration
 from .layers.base import Ctx, Layer
-from .layers.core import (DenseLayer, LossLayer, OutputLayer, dropout_apply,
+from .layers.core import (CenterLossOutputLayer, DenseLayer,
+                          ElementWiseMultiplicationLayer, LossLayer,
+                          OCNNOutputLayer, OutputLayer, dropout_apply,
                           keep_mask)
 from .layers.recurrent import (BaseRecurrent, Bidirectional, LastTimeStep,
                                TimeDistributed)
+from .layers.wrappers import unwrap
 from .preprocessors import CnnToFeedForwardPreProcessor
 from .weightnoise import maybe_apply_weight_noise
 
 
 def _is_ff_layer(layer: Layer) -> bool:
-    """The reference's ``_is_ff_layer`` over the layers this port has
-    (output heads included: they are DenseLayers)."""
-    return isinstance(layer, DenseLayer)
+    """The reference's ``_is_ff_layer``: a dense-like layer under any
+    wrappers (output heads included: they are DenseLayers)."""
+    return isinstance(unwrap(layer), (DenseLayer,
+                                      ElementWiseMultiplicationLayer))
 
 
 def _unflatten(like, leaves):
-    """Nested dicts shaped like ``like`` from an iterator over leaves in
-    ``tree_leaves`` order (sorted keys)."""
+    """Nested dicts and lists shaped like ``like`` from an iterator over
+    leaves in ``tree_leaves`` order (sorted keys)."""
     if isinstance(like, dict):
         return {k: _unflatten(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, list):
+        return [_unflatten(v, leaves) for v in like]
     return next(leaves)
 
 
@@ -135,7 +141,7 @@ class MultiLayerNetwork:
             if self.conf.input_type is not None:
                 input_shape = tuple(self.conf.input_type[1])
             else:
-                n_in = getattr(self.layers[0], "n_in", None)
+                n_in = getattr(unwrap(self.layers[0]), "n_in", None)
                 if not n_in:
                     raise ValueError("Provide input_shape or set_input_type "
                                      "on the config")
@@ -174,7 +180,8 @@ class MultiLayerNetwork:
         layer = self.layers[i]
         key = f"layer_{i}"
         if stop_before_output and i == len(self.layers) - 1 and \
-                isinstance(layer, (OutputLayer, LossLayer)):
+                isinstance(unwrap(layer), (OutputLayer, LossLayer,
+                                           OCNNOutputLayer)):
             new_states[key] = states[key]
             return h, True
         if i in self._preprocessors:
@@ -288,15 +295,29 @@ class MultiLayerNetwork:
                                       fmask=fmask, lmask=lmask,
                                       stop_before_output=True)
         i = len(self.layers) - 1
-        return self._loss_tail(self.layers[i], i, params, new_states, h, y,
-                               lmask)
+        return self._loss_tail(unwrap(self.layers[i]), i, params, new_states,
+                               h, y, lmask)
 
     def _loss_tail(self, out_layer, i, params, new_states, h, y, lmask):
-        if isinstance(out_layer, OutputLayer):
-            if i in self._preprocessors:
-                h = self._preprocessors[i](h)
-            loss = out_layer.compute_loss(params[f"layer_{i}"], h, y,
-                                          mask=lmask)
+        """The output layer's loss. The forward stopped before it, so
+        ``new_states`` still holds its old state, which the heads with a
+        running state (center loss, OCNN) read and replace."""
+        key = f"layer_{i}"
+        if isinstance(out_layer, (OutputLayer, OCNNOutputLayer)) and \
+                i in self._preprocessors:
+            h = self._preprocessors[i](h)
+        if isinstance(out_layer, CenterLossOutputLayer):
+            loss = out_layer.compute_loss(params[key], h, y, mask=lmask,
+                                          state=new_states[key])
+            new_states[key] = out_layer.update_state(new_states[key],
+                                                     h.detach(), y)
+        elif isinstance(out_layer, OutputLayer):
+            loss = out_layer.compute_loss(params[key], h, y, mask=lmask)
+        elif isinstance(out_layer, OCNNOutputLayer):
+            loss = out_layer.compute_loss(params[key], h, y, mask=lmask,
+                                          state=new_states[key])
+            new_states[key] = out_layer.update_state(new_states[key], h,
+                                                     params[key])
         elif isinstance(out_layer, LossLayer):
             loss = out_layer.compute_loss(h, y, mask=lmask)
         else:
@@ -548,11 +569,12 @@ class MultiLayerNetwork:
         persists across calls until rnn_clear_previous_state(). Each step
         runs the layers' single-step ``step_apply`` (not K4)."""
         for layer in self.layers:
-            if isinstance(layer, (Bidirectional, LastTimeStep,
-                                  TimeDistributed)):
+            if isinstance(unwrap(layer), (Bidirectional, LastTimeStep,
+                                          TimeDistributed)):
                 raise NotImplementedError(
                     f"rnn_time_step cannot stream through "
-                    f"{type(layer).__name__}: it needs the full sequence "
+                    f"{type(unwrap(layer)).__name__}: it needs the full "
+                    "sequence "
                     "(reference rnnTimeStep has the same limit)")
         x = self._to_device(x)
         single = x.dim() == 2
@@ -564,13 +586,14 @@ class MultiLayerNetwork:
             old = {}                   # batch changed: stale state is void
         carries = {}
         for i, layer in enumerate(self.layers):
-            if isinstance(layer, BaseRecurrent):
+            ul = unwrap(layer)
+            if isinstance(ul, BaseRecurrent):
                 c = old.get(f"layer_{i}")
                 # the carry dtype is what the cell emits: the post-cast
                 # compute dtype
                 carries[f"layer_{i}"] = c if c is not None else \
-                    layer.init_carry(batch, layer.compute_dtype or x.dtype,
-                                     self.device)
+                    ul.init_carry(batch, ul.compute_dtype or x.dtype,
+                                  self.device)
         ys = []
         with torch.no_grad():
             for t in range(x.shape[1]):
@@ -579,8 +602,8 @@ class MultiLayerNetwork:
                     key = f"layer_{i}"
                     if i in self._preprocessors:
                         h = self._preprocessors[i](h)
-                    if isinstance(layer, BaseRecurrent):
-                        h, carries[key] = layer.step_apply(
+                    if isinstance(unwrap(layer), BaseRecurrent):
+                        h, carries[key] = unwrap(layer).step_apply(
                             self.params[key], carries[key], h,
                             Ctx(train=False))
                     else:

@@ -52,16 +52,22 @@ class GradientTransformation(NamedTuple):
 # ------------------------------------------------------------ tree helpers
 
 def tree_map(fn, tree, *rest):
-    """Map over the tensor leaves of nested dicts (``rest`` alike)."""
+    """Map over the tensor leaves of nested dicts and lists (``rest``
+    alike)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
 
 def tree_leaves(tree):
     if isinstance(tree, dict):
         return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 

@@ -1,12 +1,16 @@
 """ZooModel API — port of ``deeplearning4j_tpu/zoo/base.py``
 (``org.deeplearning4j.zoo.ZooModel``): ``conf()`` gives the network
-configuration and ``init(device=None)`` the initialized network, on the
-CUDA card unless the caller asks for the CPU. Pretrained loading (the
-model serializer and the Keras importer) is not ported yet.
+configuration, ``init(device=None)`` the initialized network (on the
+CUDA card unless the caller asks for the CPU), and
+``init_pretrained(path)`` a network with the weights of a local
+checkpoint: a zip the port's model serializer wrote, or one the JAX
+package's wrote (its params and states copied into this model's
+network). Nothing is downloaded.
 """
 
 from __future__ import annotations
 
+import zipfile
 from dataclasses import dataclass
 from typing import Any, Tuple
 
@@ -25,10 +29,19 @@ class ZooModel:
     def init(self, device=None):
         raise NotImplementedError
 
-    def init_pretrained(self, path):
-        raise NotImplementedError(
-            "ZooModel.init_pretrained (the model serializer and the Keras "
-            "importer) is not ported yet")
+    def init_pretrained(self, path, device=None):
+        """The network with the weights of the checkpoint at ``path``: the
+        port's zip loads whole (``serde.load_model``); a JAX package's zip
+        loads into ``self.init(device)`` (``serde.load_params``, the
+        equivalent configuration being this model's)."""
+        from ..serde.model_serializer import RECORD, load_model, load_params
+        with zipfile.ZipFile(path) as zf:
+            ours = RECORD in zf.namelist()
+        if ours:
+            return load_model(path, device=device)
+        net = self.init(device=device)
+        load_params(net, path)
+        return net
 
     def meta_data(self, device=None) -> dict:
         net = self.init(device=device)

@@ -2427,3 +2427,191 @@ def test_sd_op_on_the_card_equals_the_host(gen, ns, op, args, kw, opts,
         else:
             torch.testing.assert_close(g.cpu(), w, atol=tol, rtol=tol,
                                        equal_nan=True)
+
+
+# ------------------------------------------- layer and zoo breadth, ONNX
+def _net_tensors(net):
+    from deeplearning4j_tpu_torch.nn._compiled import tensors
+    return [t.detach().clone() for t in tensors((net.params, net.states,
+                                                 net._opt_state))]
+
+
+def _attn_conf(dtype, causal=True):
+    from deeplearning4j_tpu_torch import nn, train
+    b = nn.NeuralNetConfiguration.builder().seed(2).updater(train.Adam(1e-3))
+    if dtype == torch.bfloat16:
+        b.data_type(torch.float32, torch.bfloat16)
+    return (b.list()
+            .layer(nn.SelfAttentionLayer(n_out=128, n_heads=2,
+                                         is_causal=causal, impl="pallas"))
+            .layer(nn.RnnOutputLayer(n_out=8, activation="softmax",
+                                     loss="mcxent")).build())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_layer_flash_route_matches_host(gen, dtype):
+    """SelfAttentionLayer(impl="pallas") on the card launches K1, dQ and
+    dK/dV on the route of its dtype (f32 D 64: the CUDA-core kernels;
+    bf16: the tensor-core ones) and agrees with the same layer on the
+    host, forward and grads; a key mask takes the plain attention."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        SelfAttentionLayer
+    from deeplearning4j_tpu_torch.nn.layers.base import Ctx
+    layer = SelfAttentionLayer(n_in=128, n_out=128, n_heads=2,
+                               is_causal=True, impl="pallas",
+                               compute_dtype=dtype)
+    p, _, _ = layer.init(torch.Generator().manual_seed(0), (256, 128))
+    x = torch.randn((2, 256, 128), generator=torch.Generator()
+                    .manual_seed(1))
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        pd = {k: v.to(dev).requires_grad_(True) for k, v in p.items()}
+        xd = x.to(dev).requires_grad_(True)
+        fa.reset_launches()
+        y, _ = layer.apply(pd, {}, xd, Ctx())
+        grads = torch.autograd.grad(y.float().sum(), [xd, *pd.values()])
+        outs[dev] = (y.float().cpu(), [g.float().cpu() for g in grads])
+        if dev == "cuda":
+            fam = fa.route(64, dtype, "fwd")
+            assert fam == ("cuda-core" if dtype == torch.float32
+                           else "wgmma")
+            for k in ("fwd", "dq", "dkv"):
+                assert getattr(fa, fa.launch_counter(k, fam)) == 1
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], atol=tol,
+                               rtol=tol)
+    for a, b in zip(outs["cuda"][1], outs["cpu"][1]):
+        torch.testing.assert_close(a, b, atol=tol * 10, rtol=tol * 10)
+    fa.reset_launches()
+    mask = torch.ones((2, 256), device="cuda")
+    layer.apply({k: v.cuda() for k, v in p.items()}, {}, x.cuda(),
+                Ctx(mask=mask))
+    assert fa.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_net_replay_equals_eager(gen, dtype):
+    """Three fit steps of a MultiLayerNetwork through the flash route,
+    replayed from a CUDA graph and eager, bit for bit."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 256, 64)).astype(np.float32)
+    y = np.eye(8, dtype=np.float32)[rng.integers(0, 8, (2, 256))]
+    runs = []
+    for graphs in (True, False):
+        net = MultiLayerNetwork(_attn_conf(dtype)).init((256, 64))
+        with contextlib.nullcontext() if graphs else disable_graphs():
+            losses = [net.fit(DataSet(x, y)) for _ in range(3)]
+        runs.append((losses, _net_tensors(net), net._step_fn.last))
+    assert runs[0][2] == "replay" and runs[1][2] == "direct"
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+def test_yolo2_small_on_the_card(gen, monkeypatch):
+    """YOLO2 at 64×64 B2: with its BNs' ``fused=True`` (``"auto"`` leaves
+    an identity BN plain) output() launches K3's bn_act once per BN (22)
+    and agrees with the host; three fit steps replayed equal eager bit
+    for bit."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.zoo import YOLO2
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    model = YOLO2(num_classes=4, input_shape=(64, 64, 3))
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 64, 64, 3)).astype(np.float32)
+    host = model.init(device="cpu")
+    net = model.init()
+    for node in net.conf.nodes.values():
+        if type(node.op).__name__ == "BatchNormalization":
+            node.op.fused = True
+    fo.reset_launches()
+    out = net.output(x)
+    assert fo.LAUNCHES == 22
+    torch.testing.assert_close(out.cpu(), host.output(x), atol=1e-4,
+                               rtol=1e-4)
+    lab = np.zeros((2, 2, 2, 8), np.float32)
+    lab[0, 1, 1, :5] = [1.1, 1.2, 1.9, 1.8, 1.0]
+    runs = []
+    for graphs in (True, False):
+        n = model.init()
+        with contextlib.nullcontext() if graphs else disable_graphs():
+            losses = [n.fit(DataSet(x, lab)) for _ in range(3)]
+        runs.append((losses, _net_tensors(n)))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+def test_layer_breadth_on_the_card_equals_the_host(gen, monkeypatch):
+    """The conv breadth (1-D, 3-D, transposed, depthwise, separable,
+    locally connected) and ConvLSTM2D on the card against the host, f32
+    without TF32."""
+    from deeplearning4j_tpu_torch.nn.layers import conv, recurrent
+    from deeplearning4j_tpu_torch.nn.layers.base import Ctx
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cases = [
+        (conv.Convolution1DLayer(n_out=8, kernel_size=3, stride=2), (17, 4)),
+        (conv.Convolution3DLayer(n_out=4, kernel_size=(3, 3, 3)),
+         (5, 6, 7, 2)),
+        (conv.Deconvolution2D(n_out=4, kernel_size=(3, 3), stride=(2, 2),
+                              convolution_mode="same"), (5, 6, 3)),
+        (conv.Deconvolution3D(n_out=3, kernel_size=(2, 3, 3),
+                              stride=(2, 2, 2), convolution_mode="same"),
+         (3, 4, 5, 2)),
+        (conv.DepthwiseConvolution2D(depth_multiplier=2), (7, 8, 3)),
+        (conv.SeparableConvolution2D(n_out=5), (7, 8, 3)),
+        (conv.LocallyConnected2D(n_out=4, kernel_size=(3, 3)), (6, 7, 3)),
+        (recurrent.ConvLSTM2D(n_out=3), (4, 5, 6, 2)),
+    ]
+    for layer, shape in cases:
+        p, s, _ = layer.init(torch.Generator().manual_seed(0), shape)
+        x = torch.randn((2,) + shape, generator=torch.Generator()
+                        .manual_seed(1))
+        want, _ = layer.apply(p, s, x, Ctx())
+        got, _ = layer.apply({k: v.cuda() for k, v in p.items()}, s,
+                             x.cuda(), Ctx())
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_onnx_import_served_on_the_card(gen, monkeypatch):
+    """An ONNX CNN imported onto the card: eval agrees with the host
+    import, replays its graph, and launches no hand-written kernel."""
+    import io
+    import sys
+    import types
+    if "onnx" not in sys.modules:
+        stub = types.ModuleType("onnx")
+        stub.load_model_from_string = lambda b: types.SimpleNamespace(
+            graph=types.SimpleNamespace(node=()))
+        monkeypatch.setitem(sys.modules, "onnx", stub)
+    from deeplearning4j_tpu_torch.autodiff import import_onnx
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(
+        torch.nn.Conv2d(3, 8, 3, padding=1), torch.nn.BatchNorm2d(8),
+        torch.nn.ReLU(), torch.nn.MaxPool2d(2), torch.nn.Flatten(),
+        torch.nn.Linear(8 * 8 * 8, 10)).eval()
+    x = torch.randn(4, 3, 16, 16)
+    buf = io.BytesIO()
+    torch.onnx.export(model, x, buf, opset_version=13, dynamo=False,
+                      input_names=["input"], output_names=["out"])
+    sd_h, outs_h = import_onnx(buf.getvalue(), device="cpu")
+    sd, outs = import_onnx(buf.getvalue())
+    fa.reset_launches()
+    fo.reset_launches()
+    got = [sd.eval(outs[0], {"input": x.numpy()}) for _ in range(3)]
+    assert sd.runner(outs[0], {"input": x.numpy()}).compiled.calls[
+        "replay"] >= 1
+    assert fa.LAUNCHES == 0 and fo.LAUNCHES == 0
+    want = sd_h.eval(outs_h[0], {"input": x.numpy()})
+    assert torch.equal(got[1], got[2])
+    torch.testing.assert_close(got[-1].cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(want, model(x).detach(), atol=1e-4,
+                               rtol=1e-4)

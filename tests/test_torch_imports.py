@@ -76,7 +76,12 @@ def test_port_has_modules_to_check():
             "ndarray/indexing.py", "ndarray/random.py",
             "ndarray/workspace.py", "utils/native.py",
             "data/async_iter.py", "nn/early_stopping.py", "nn/_remat.py",
-            "serde/jax_pickles.py"} <= names
+            "serde/jax_pickles.py", "nn/layers/attention.py",
+            "nn/layers/objdetect.py", "nn/layers/wrappers.py",
+            "nn/layers/capsule.py", "nn/layers/variational.py",
+            "nn/transfer.py", "zoo/detection.py", "zoo/inception.py",
+            "zoo/nasnet.py", "zoo/unet.py",
+            "autodiff/onnx_import.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -113,6 +118,17 @@ def test_importing_the_port_loads_no_jax():
             "import deeplearning4j_tpu_torch.data.async_iter\n"
             "import deeplearning4j_tpu_torch.nn.early_stopping\n"
             "import deeplearning4j_tpu_torch.serde.jax_pickles\n"
+            "import deeplearning4j_tpu_torch.nn.transfer\n"
+            "import deeplearning4j_tpu_torch.nn.layers.attention\n"
+            "import deeplearning4j_tpu_torch.nn.layers.objdetect\n"
+            "import deeplearning4j_tpu_torch.nn.layers.wrappers\n"
+            "import deeplearning4j_tpu_torch.nn.layers.capsule\n"
+            "import deeplearning4j_tpu_torch.nn.layers.variational\n"
+            "import deeplearning4j_tpu_torch.zoo.detection\n"
+            "import deeplearning4j_tpu_torch.zoo.inception\n"
+            "import deeplearning4j_tpu_torch.zoo.nasnet\n"
+            "import deeplearning4j_tpu_torch.zoo.unet\n"
+            "import deeplearning4j_tpu_torch.autodiff.onnx_import\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
             "print(bad)\n"
