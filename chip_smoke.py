@@ -465,6 +465,11 @@ DQ_SPLIT_SHAPES = tuple((torch.bfloat16, 2, 200, c, d)
 # (a ragged last tile) at D 130, 160, 200 and 256, causal and not
 TF32_BWD_SHAPES = tuple((torch.float32, 2, 200, c, d)
                         for d in (130, 160, 200, 256) for c in (True, False))
+# the narrow split-TF32 dQ's and dK/dV's own holds beyond the D 64 and 80
+# shapes (dtype, B, T, causal, D): padded 64's smallest and 128's widest
+NARROW_BWD_SHAPES = ((torch.float32, 2, 200, True, 16),
+                     (torch.float32, 2, 200, False, 128),
+                     (torch.float32, 2, 1024, True, 128))
 # the wide dQ's and dK/dV's own holds (dtype, B, T, causal, D): every
 # padded width's edges (bf16 264-384 to 384, 392-512 to 512; f32 264-320
 # to 320, 328-384 to 384, 392-512 to 512), T 200, causal and not
@@ -1315,7 +1320,8 @@ FLASH_LINES = {"fwd": 51, "dq": 146, "dkv": 186}
 
 def flash_counts(fa):
     """Every flash launch counter, keyed as a path's counts are:
-    ``flash_attention_fwd`` (any family), ``flash_attention_fwd_tc``, ...
+    ``flash_attention_fwd`` (any family), ``flash_attention_fwd_tc``, ...,
+    and ``flash_attention_bwd_dq_tf32x3_narrow`` (the narrow kernels)
     """
     out = {}
     for kernel, name in FLASH_NAMES.items():
@@ -1323,6 +1329,9 @@ def flash_counts(fa):
         for fam, key in FAMILY_KEYS.items():
             out[f"{name}_{key}"] = getattr(fa, fa.launch_counter(kernel, fam),
                                            0)
+        if kernel != "fwd":
+            out[f"{name}_tf32x3_narrow"] = getattr(
+                fa, fa.launch_counter(kernel, "tf32x3", narrow=True))
     return out
 
 
@@ -1419,6 +1428,8 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
     for kn, name in FLASH_NAMES.items():
         kind = fa.route(cfg.head_dim, cfg.dtype, kn)
         want[name] = want[f"{name}_{FAMILY_KEYS[kind]}"] = per[kn]
+        if kind == "tf32x3" and kn != "fwd" and cfg.head_dim <= 128:
+            want[f"{name}_tf32x3_narrow"] = per[kn]
     failed = []
     if not finite or not rels[worst] <= TRAIN_GRAD_REL_L2:
         failed.append("step-1 grads disagree with the plain path")
@@ -1882,10 +1893,14 @@ def flash_times(root):
     the D 320 LM's B8 H2 T1024 D320, in bf16 and in f32, for the port
     checked out at ROOT (its kernels build under ROOT), on the kernel
     family its route picks there (a tree before the wide backward runs
-    the general dQ and dK/dV past 256); the D 256 and D 320 LMs' train
-    steps (phase 6's ``train_d256``, ``train_d320`` and their f32 twins)
-    profiled on ROOT's port in each dtype: device time a step and its
-    flash kernels' share; then
+    the general dQ and dK/dV past 256); f32 causal at head dim <= 128, at
+    B1 H8 T2048 D64, B8 H8 T2048 D64 (the attention layer's path) and B1
+    H8 T1024 D128, with SDPA's whole backward beside them; the D 256 and
+    D 320 LMs' train steps (phase 6's ``train_d256``, ``train_d320`` and
+    their f32 twins) profiled on ROOT's port in each dtype: device time a
+    step and its flash kernels' share; phase 19's attention net in f32
+    (B8 T2048 C512 H8, D 64), three replayed steps each profiled: device
+    ms a step and its flash kernels'; then
     digests of K1's outputs (O, lse) on every route and of the backward's
     (dQ, dK, dV), keyed by the route each ran, at B1 H2 T256 on seeded
     inputs, and of K2's outputs at Dh 64, 128 and 256 in bf16 and f32, so
@@ -1927,6 +1942,31 @@ def flash_times(root):
             rows.append(row)
             del q, k, v, do, o, lse, delta
             torch.cuda.empty_cache()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for b, h, t, d in ((1, 8, 2048, 64), (ATTN_B, ATTN_H, ATTN_T, 64),
+                       (1, 8, 1024, 128)):
+        q, k, v, do = (torch.randn((b, h, t, d), generator=gen,
+                                   device="cuda") for _ in range(4))
+        scale = d ** -0.5
+        o, lse = fa.flash_attention_lse(q, k, v, causal=True)
+        delta = (do * o).sum(-1).contiguous()
+        fns = {"fwd": lambda: fa.flash_attention_lse(q, k, v, causal=True),
+               "dq": lambda: fa.flash_attention_bwd_dq(
+                   q, k, v, do, lse, delta, scale, True),
+               "dkv": lambda: fa.flash_attention_bwd_dkv(
+                   q, k, v, do, lse, delta, scale, True)}
+        row = {"shape": f"B{b} H{h} T{t} D{d} float32 causal"}
+        for name, fn in fns.items():
+            row[name] = {"route": fa.route(d, torch.float32, name),
+                         "ms": device_ms(fn), "call_ms": cuda_ms(fn)}
+        qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
+        out = sdpa(qs, ks, vs, is_causal=True)
+        row["sdpa_bwd_ms"] = device_ms(lambda: torch.autograd.grad(
+            out, (qs, ks, vs), do, retain_graph=True), iters=10)
+        log(f"flash-times {json.dumps(row)}")
+        rows.append(row)
+        del q, k, v, do, o, lse, delta, qs, ks, vs, out
+        torch.cuda.empty_cache()
     steps = {}
     for dtype in (torch.bfloat16, torch.float32):
         for d_model, heads, lm in ((512, D256_LM_HEADS, "d256"),
@@ -1936,6 +1976,11 @@ def flash_times(root):
                                        d_model=d_model)
             log(f"flash-times {lm} LM step {json.dumps(steps[key])}")
             torch.cuda.empty_cache()
+    steps["attention f32"] = attention_step_times(torch.float32)
+    log(f"flash-times attention net step "
+        f"{json.dumps(steps['attention f32'])}")
+    torch.cuda.empty_cache()
+
     def digest(*ts):
         h = hashlib.sha256()
         for x in ts:
@@ -1972,6 +2017,35 @@ def flash_times(root):
     log(json.dumps({"flash_times": rows, "lm_steps": steps,
                     "digests": digests, "root": str(root)}))
     return 0
+
+
+def attention_step_times(dtype, replays=3):
+    """Phase 19's attention net (``SelfAttentionLayer(impl="pallas")``,
+    B8 T2048 C512 H8, causal) in ``dtype``, on the port on ``sys.path``:
+    three fit steps (eager, capture, replay), then ``replays`` replayed
+    steps, each profiled alone: device ms a step and its flash kernels'
+    device ms, by kernel."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    rng = np.random.default_rng(19)
+    x = torch.as_tensor(rng.standard_normal((ATTN_B, ATTN_T, ATTN_C))
+                        .astype(np.float32), device="cuda")
+    y = torch.nn.functional.one_hot(torch.as_tensor(rng.integers(
+        0, ATTN_CLASSES, (ATTN_B, ATTN_T)), device="cuda"),
+        ATTN_CLASSES).float()
+    ds = DataSet(x, y)
+    net = MultiLayerNetwork(_attn_conf(dtype)).init((ATTN_T, ATTN_C))
+    for _ in range(3):
+        net.fit([ds])
+    profs = [profile_step(lambda: net.fit([ds])) for _ in range(replays)]
+    out = {"shape": f"B{ATTN_B} T{ATTN_T} C{ATTN_C} H{ATTN_H} causal "
+                    f"{str(dtype)[6:]}", "way": net._step_fn.last,
+           "device_ms_per_step": [p["device_ms_per_step"] for p in profs],
+           "flash_device_ms": [p.get("flash_device_ms") for p in profs],
+           "flash_kernels_ms": profs[-1].get("flash_kernels_ms")}
+    del net, ds, x, y
+    gc.collect()
+    return out
 
 
 def lm_step_times(tfm, batch, n_heads, n_layers, dtype, steps=5,
@@ -6937,10 +7011,11 @@ def _attn_conf(dtype):
 def zoo_attention(fa, pa, fo, gen, failed):
     """Phase 19 (b): a MultiLayerNetwork with ``SelfAttentionLayer(n_out
     512, n_heads 8, impl="pallas")``, causal, T 2048 B8, trained
-    replayed and eager in f32 (K1, dQ and dK/dV on the CUDA-core kernels)
-    and under ``compute_dtype=torch.bfloat16`` (the tensor-core ones);
-    each kernel held against its plain version at the path's shape (f32
-    timed)."""
+    replayed and eager in f32 (K1 on the CUDA-core kernel, dQ and dK/dV
+    in split TF32) and under ``compute_dtype=torch.bfloat16`` (the
+    tensor-core ones); each kernel launched once a step on its own route's
+    family and on no other; each held against its plain version at the
+    path's shape (f32 timed)."""
     from deeplearning4j_tpu_torch.data import DataSet
     from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
     counts = lambda: path_counts(fa, pa, fo)    # noqa: E731
@@ -6954,16 +7029,22 @@ def zoo_attention(fa, pa, fo, gen, failed):
     d = ATTN_C // ATTN_H
     paths, recs, held = {}, {}, {}
     for dtype, key in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        fam = FAMILY_KEYS[fa.route(d, dtype, "fwd")]
         net, rec, total = _zoo_ways(
             f"attention net {key} B{ATTN_B} T{ATTN_T} C{ATTN_C} "
             f"H{ATTN_H} (D {d}) causal", lambda dt=dtype: MultiLayerNetwork(
                 _attn_conf(dt)).init((ATTN_T, ATTN_C)), ds, counts, failed)
         del net
-        for name in FLASH_NAMES.values():
-            if not rec["launches_per_step"].get(f"{name}_{fam}"):
-                failed.append(f"attention {key}: {name} on {fam} not "
-                              f"launched ({rec['launches_per_step']})")
+        per = rec["launches_per_step"]
+        for kernel, name in FLASH_NAMES.items():
+            fam = FAMILY_KEYS[fa.route(d, dtype, kernel)]
+            others = {f"{name}_{f}" for f in FAMILY_KEYS.values()} \
+                - {f"{name}_{fam}"}
+            if fam == "tf32x3" and kernel != "fwd":
+                fam = "tf32x3_narrow"  # the narrow kernel's own count
+            if per.get(name) != 1 or per.get(f"{name}_{fam}") != 1 \
+                    or any(per.get(o) for o in others):
+                failed.append(f"attention {key}: {name} not launched once "
+                              f"a step on {fam} alone ({per})")
         paths[f"zoo_attention_{key}"] = total
         recs[key] = rec
         time_it = dtype == torch.float32
@@ -7197,10 +7278,12 @@ def main():
                          "out at ROOT (prints no result line)")
     ap.add_argument("--flash-times", metavar="ROOT",
                     help="only time K1, dQ and dK/dV at head dims 256, 320 "
-                         "and 512 in bf16 and f32, profile the D 256 and D "
-                         "320 LMs' train steps and digest K1's, the "
-                         "backward's and K2's outputs, for the port checked "
-                         "out at ROOT (prints no result line)")
+                         "and 512 in bf16 and f32 and at 64 and 128 in "
+                         "f32, profile the D 256 and D 320 LMs' train "
+                         "steps and the attention net's replayed f32 step "
+                         "and digest K1's, the backward's and K2's "
+                         "outputs, for the port checked out at ROOT "
+                         "(prints no result line)")
     ap.add_argument("--obs-only", action="store_true",
                     help="build the kernels and run phase 14 (the "
                          "observability plane) only (prints no result "
@@ -7340,7 +7423,8 @@ def main():
             (torch.bfloat16, 32, 1024, False, 64),
             (torch.bfloat16, 32, 1024, True, 64),    # the train path's
             *((dt, b, t, True, d) for dt, b, t, d in WIDE_SHAPES),
-            *DQ_SPLIT_SHAPES, *TF32_BWD_SHAPES, *WIDE_BWD_SHAPES):
+            *DQ_SPLIT_SHAPES, *TF32_BWD_SHAPES, *NARROW_BWD_SHAPES,
+            *WIDE_BWD_SHAPES):
         bwd[(dt, b, t, causal, d)] = check_flash_bwd(
             fa, dt, b, t, causal, gen, d=d,
             time_it=(dt, b, t, causal, d) in TIMED_BWD)
@@ -7479,8 +7563,8 @@ def main():
     # the padded-256 kernels at B1 H8 T1024 D256 and the D 256 LM's, in
     # bf16 (tensor cores) and f32 (split TF32); the wide kernels at B1 H8
     # T1024 D320 and the D 320 LM's (D 512 beside them); the f32
-    # CUDA-core kernels at B1 H8 T2048 D64; the general kernels at a D
-    # they still serve (f32 D 520)
+    # CUDA-core K1 and the narrow split-TF32 dQ and dK/dV at B1 H8 T2048
+    # D64; the general kernels at a D they still serve (f32 D 520)
     d256 = (torch.bfloat16, 1, 1024, 256)
     wide_k1 = {"wgmma": k1[d256],
                "tf32x3": k1[(torch.float32, 1, 1024, 256)]}
@@ -7499,11 +7583,19 @@ def main():
 
     def launches_of(name, kind, wide=None):
         """Launches of ``name`` (a FLASH_NAMES value) on ``kind`` by path;
-        the tensor-core ones on the paths at head dim 256 (wide) or on
-        every other path."""
+        with ``wide``, of the padded-256 kernel (True) or of the kernel at
+        D <= 128 of the same family (False): the split-TF32 dQ's and
+        dK/dV's from the narrow kernels' own count, bf16's by the D 256
+        LMs' paths."""
         key = f"{name}_{FAMILY_KEYS[kind]}"
+        if kind == "tf32x3" and wide is not None and name != FLASH_NAMES[
+                "fwd"]:
+            narrow = f"{key}_narrow"
+            return {p: c.get(narrow, 0) if not wide
+                    else c.get(key, 0) - c.get(narrow, 0)
+                    for p, c in by_path.items()}
         return {p: c.get(key, 0) for p, c in by_path.items()
-                if wide is None or (p == "train_d256") == wide}
+                if wide is None or p.startswith("train_d256") == wide}
 
     def timed(r, part=None):
         r = r if part is None else {**r[part], "plain_ms": r["plain_ms"],
@@ -7586,11 +7678,13 @@ def main():
             entry(part, "tf32x3", "_tf32x3_f32", f"flash_bwd_{part}_tf32x3_"
                   "kernel (f32 D 129-256, split-TF32 tensor-core products, "
                   "padded D 256)", torch.float32, bwd,
-                  "B1 H8 T1024 D256 f32 causal", tf32_bwd,
+                  "B1 H8 T1024 D256 f32 causal", tf32_bwd, wide=True,
                   lm=("B8 H2 T1024 D256 f32 causal", bwd[lm_bwd_f32])),
-            entry(part, "cuda-core", "_f32", f"flash_bwd_{part}_kernel (f32 "
-                  "D <= 128, CUDA cores)", torch.float32, bwd,
-                  "B1 H8 T2048 D64 f32 causal", f32_bwd,
+            entry(part, "tf32x3", "_tf32x3_narrow_f32", f"flash_bwd_{part}_"
+                  "tf32x3_narrow_kernel (f32 D <= 128, split-TF32 "
+                  "tensor-core products, padded D 64 or 128, a warp owns "
+                  "16 whole rows)", torch.float32, bwd,
+                  "B1 H8 T2048 D64 f32 causal", f32_bwd, wide=False,
                   more={"attention_layer_path": zoo_held["f32"]["bwd"]}),
             entry(part, "wgmma-wide", "_wide", {
                 "dq": "flash_bwd_dq_wgmma_split_kernel<DqSplitCfg<384, 32>|"

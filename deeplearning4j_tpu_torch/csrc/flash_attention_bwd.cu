@@ -52,20 +52,18 @@
 // In both, only tiles that cross the diagonal or T are masked, and rows
 // >= T read as zeros.
 //
-// f32 up to D 128: the CUDA-core kernels of the first port (one TF32 pass
-// on the tensor cores would break the f32 atol of 1e-4; f32 at D 129..256
-// runs split-TF32 tensor-core kernels, below). The Pallas
-// grids (b*h, q-block, k-block) and (b*h, k-block, q-block) streamed the
-// other operand through VMEM in order with the accumulator in scratch; here
-// one block owns one (b*h, 64-row tile) of its output and a loop inside it
-// walks the other operand's tiles: the dq kernel the key tiles up to the
-// diagonal, the dkv kernel the query tiles from the diagonal down (the steps
-// the TPU skipped with pl.when are never visited). Each streamed tile goes
-// through shared memory as f32. TPR = D / 16 threads share a row, each
-// holding 16 of its dims (the row's operands and accumulators stay in
-// registers) in interleaved 4-float slices, so a warp's shared reads are
-// broadcast float4 loads without bank conflicts; shuffles complete each dot
-// product.
+// f32: every product on the tensor cores in split TF32 (three TF32
+// products per f32 product, mma.sync m16n8k8; one TF32 pass would break
+// the f32 atol of 1e-4), in the kernels below: at D 1..128 padded to 64 or
+// 128 (flash_bwd_dq_tf32x3_narrow_kernel,
+// flash_bwd_dkv_tf32x3_narrow_kernel: each warp owns 16 whole rows of its
+// outputs), past 128 padded to 256 or wider. The Pallas grids (b*h,
+// q-block, k-block) and (b*h, k-block, q-block) streamed the other
+// operand through VMEM in order with the accumulator in scratch; here, as
+// in bf16, one block owns one (b*h, row tile) of its output and a loop
+// inside it walks the other operand's tiles: the dq kernel the key tiles
+// up to the diagonal, the dkv kernel the query tiles from the diagonal
+// down (the steps the TPU skipped with pl.when are never visited).
 //
 // Keeping the TPU's two-pass schedule means no atomics, so all three
 // gradients are deterministic: a second launch is bit-identical. A T that
@@ -76,12 +74,13 @@
 // bases and strides (the Python wrapper checks them and raises).
 //
 // Head dims: any D whose tiles fit in a block's shared memory, as the
-// Pallas block (1, bq, d) takes any d. The kernels above take D up to 128
-// (bf16: a multiple of 8); each is instantiated on the padded width
-// DP = padded_dim(D) in {16, 32, 64, 128} and told the real D: loaders
-// fill the columns in [D, DP) with zeros (cp.async src-size 0 in bf16, a
-// guard in f32), which add nothing to any dot product, and stores write
-// only the D real columns. They keep their accumulators in registers, so
+// Pallas block (1, bq, d) takes any d. The bf16 kernels above take D up
+// to 128 (a multiple of 8), each instantiated on the padded width
+// DP = padded_dim(D) in {16, 32, 64, 128} and told the real D (the f32
+// narrow kernels: DP 64 or 128): loaders fill the columns in [D, DP) with
+// zeros (cp.async src-size 0), which add nothing to any dot product, and
+// stores write only the D real columns. They keep their accumulators in
+// registers, so
 // past 128 one warpgroup's f32 accumulators would need DP (dQ) or 2 DP
 // (dK/dV) registers a thread: bf16 dQ and dK/dV at D 136..256 (a multiple
 // of 8) run padded to 256 on two warpgroups that split the columns
@@ -108,243 +107,6 @@
 namespace {
 
 using dl4j_mma::Str;
-
-constexpr int kRows = 64;  // output rows (queries or keys) per block
-
-template <int D>
-struct Tiling {
-  static constexpr int TPR = D / 16;             // threads per row
-  static constexpr int DPT = D / TPR;            // dims per thread (16)
-  static constexpr int NC = DPT / 4;             // float4 slices per thread
-  static constexpr int THREADS = kRows * TPR;    // 64 .. 512
-  static constexpr int BT = D <= 64 ? 64 : 32;   // streamed rows per tile
-};
-
-// sum over the TPR consecutive lanes that share a row
-template <int TPR> __device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = TPR / 2; o > 0; o >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// the d-th dim of slice c, element e, of lane `part` of a row
-template <int D>
-__device__ __forceinline__ int dim_of(int c, int part, int e) {
-  return 4 * Tiling<D>::TPR * c + 4 * part + e;
-}
-
-// this thread's DPT dims of row `row` of x (zeros past T and past the
-// real head dim dr)
-template <int D>
-__device__ __forceinline__ void load_row(float* r, const float* base, Str s,
-                                         int row, int Tlen, int dr,
-                                         int part) {
-#pragma unroll
-  for (int c = 0; c < Tiling<D>::NC; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = dim_of<D>(c, part, e);
-      r[4 * c + e] = row < Tlen && d < dr ? base[row * s.t + d] : 0.f;
-    }
-}
-
-// this thread's dims of row `row`, the real ones (< dr) only
-template <int D>
-__device__ __forceinline__ void store_row(float* base, Str s, int row,
-                                          int dr, const float* r, int part) {
-#pragma unroll
-  for (int c = 0; c < Tiling<D>::NC; ++c)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = dim_of<D>(c, part, e);
-      if (d < dr) base[row * s.t + d] = r[4 * c + e];
-    }
-}
-
-// rows [r0, r0 + BT) of a and b into shared f32 tiles (zeros past T and
-// past dr)
-template <int D>
-__device__ __forceinline__ void load_tiles(float (*as)[D], float (*bs)[D],
-                                           const float* a, Str sa,
-                                           const float* b, Str sb, int r0,
-                                           int Tlen, int dr) {
-  using L = Tiling<D>;
-  for (int e = threadIdx.x; e < L::BT * D; e += L::THREADS) {
-    const int r = e / D;
-    const int d = e - r * D;
-    const int row = r0 + r;
-    float av = 0.f, bv = 0.f;
-    if (row < Tlen && d < dr) {
-      av = a[row * sa.t + d];
-      bv = b[row * sb.t + d];
-    }
-    as[r][d] = av;
-    bs[r][d] = bv;
-  }
-}
-
-// dQ: one block per (b*h, 64-query tile); walks the key tiles.
-template <int D>
-__global__ void __launch_bounds__(Tiling<D>::THREADS)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v,
-                    const float* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, float* __restrict__ dq,
-                    int H, int Tlen, int dr, Str sq, Str sk, Str sv,
-                    Str sdo, Str sdq, float scale, int causal) {
-  using L = Tiling<D>;
-  __shared__ __align__(16) float ks[L::BT][D];
-  __shared__ __align__(16) float vs[L::BT][D];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * kRows;
-  const int part = threadIdx.x % L::TPR;
-  const int qi = q0 + threadIdx.x / L::TPR;
-  const bool live = qi < Tlen;
-
-  const float* kb = k + b * sk.b + h * sk.h;
-  const float* vb = v + b * sv.b + h * sv.h;
-  float qr[L::DPT], dor[L::DPT], acc[L::DPT];
-  load_row<D>(qr, q + b * sq.b + h * sq.h, sq, qi, Tlen, dr, part);
-  load_row<D>(dor, dout + b * sdo.b + h * sdo.h, sdo, qi, Tlen, dr, part);
-#pragma unroll
-  for (int i = 0; i < L::DPT; ++i) acc[i] = 0.f;
-  const long long row = (long long)bh * Tlen + qi;
-  const float lse_i = live ? lse[row] : 0.f;
-  const float delta_i = live ? delta[row] : 0.f;
-
-  const int kend = causal ? min(Tlen, q0 + kRows) : Tlen;
-  for (int k0 = 0; k0 < kend; k0 += L::BT) {
-    __syncthreads();  // the previous tile is consumed
-    load_tiles<D>(ks, vs, kb, sk, vb, sv, k0, Tlen, dr);
-    __syncthreads();
-    const int jn = min(L::BT, kend - k0);
-#pragma unroll 2
-    for (int j = 0; j < jn; ++j) {
-      float4 kk[L::NC];
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int c = 0; c < L::NC; ++c) {
-        kk[c] = *reinterpret_cast<const float4*>(&ks[j][dim_of<D>(c, part, 0)]);
-        const float4 vv =
-            *reinterpret_cast<const float4*>(&vs[j][dim_of<D>(c, part, 0)]);
-        s += qr[4 * c] * kk[c].x + qr[4 * c + 1] * kk[c].y
-             + qr[4 * c + 2] * kk[c].z + qr[4 * c + 3] * kk[c].w;
-        dp += dor[4 * c] * vv.x + dor[4 * c + 1] * vv.y
-              + dor[4 * c + 2] * vv.z + dor[4 * c + 3] * vv.w;
-      }
-      s = row_sum<L::TPR>(s);
-      dp = row_sum<L::TPR>(dp);
-      const int kj = k0 + j;
-      const float p = (live && (!causal || kj <= qi))
-                          ? __expf(s * scale - lse_i) : 0.f;
-      const float ds = p * (dp - delta_i) * scale;
-#pragma unroll
-      for (int c = 0; c < L::NC; ++c) {
-        acc[4 * c] += ds * kk[c].x;
-        acc[4 * c + 1] += ds * kk[c].y;
-        acc[4 * c + 2] += ds * kk[c].z;
-        acc[4 * c + 3] += ds * kk[c].w;
-      }
-    }
-  }
-  if (live)
-    store_row<D>(dq + b * sdq.b + h * sdq.h, sdq, qi, dr, acc, part);
-}
-
-// dK, dV: one block per (b*h, 64-key tile); walks the query tiles from
-// the diagonal down.
-template <int D>
-__global__ void __launch_bounds__(Tiling<D>::THREADS)
-flash_bwd_dkv_kernel(const float* __restrict__ q,
-                     const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int H, int Tlen, int dr, Str sq,
-                     Str sk, Str sv, Str sdo, Str sdk, Str sdv, float scale,
-                     int causal) {
-  using L = Tiling<D>;
-  __shared__ __align__(16) float qs[L::BT][D];
-  __shared__ __align__(16) float dos[L::BT][D];
-  __shared__ float ls[L::BT];
-  __shared__ float dls[L::BT];
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int k0 = blockIdx.x * kRows;
-  const int part = threadIdx.x % L::TPR;
-  const int kj = k0 + threadIdx.x / L::TPR;
-  const bool live = kj < Tlen;
-
-  const float* qb = q + b * sq.b + h * sq.h;
-  const float* dob = dout + b * sdo.b + h * sdo.h;
-  const float* lseb = lse + (long long)bh * Tlen;
-  const float* deltab = delta + (long long)bh * Tlen;
-  float kr[L::DPT], vr[L::DPT], dka[L::DPT], dva[L::DPT];
-  load_row<D>(kr, k + b * sk.b + h * sk.h, sk, kj, Tlen, dr, part);
-  load_row<D>(vr, v + b * sv.b + h * sv.h, sv, kj, Tlen, dr, part);
-#pragma unroll
-  for (int i = 0; i < L::DPT; ++i) {
-    dka[i] = 0.f;
-    dva[i] = 0.f;
-  }
-
-  // causal: query rows above the tile's first key see none of its keys
-  for (int i0 = causal ? k0 : 0; i0 < Tlen; i0 += L::BT) {
-    __syncthreads();
-    load_tiles<D>(qs, dos, qb, sq, dob, sdo, i0, Tlen, dr);
-    for (int r = threadIdx.x; r < L::BT; r += L::THREADS) {
-      const int row = i0 + r;
-      ls[r] = row < Tlen ? lseb[row] : 0.f;
-      dls[r] = row < Tlen ? deltab[row] : 0.f;
-    }
-    __syncthreads();
-    const int in = min(L::BT, Tlen - i0);
-#pragma unroll 2
-    for (int i = 0; i < in; ++i) {
-      float4 qq[L::NC], dd[L::NC];
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int c = 0; c < L::NC; ++c) {
-        qq[c] = *reinterpret_cast<const float4*>(&qs[i][dim_of<D>(c, part, 0)]);
-        dd[c] =
-            *reinterpret_cast<const float4*>(&dos[i][dim_of<D>(c, part, 0)]);
-        s += kr[4 * c] * qq[c].x + kr[4 * c + 1] * qq[c].y
-             + kr[4 * c + 2] * qq[c].z + kr[4 * c + 3] * qq[c].w;
-        dp += vr[4 * c] * dd[c].x + vr[4 * c + 1] * dd[c].y
-              + vr[4 * c + 2] * dd[c].z + vr[4 * c + 3] * dd[c].w;
-      }
-      s = row_sum<L::TPR>(s);
-      dp = row_sum<L::TPR>(dp);
-      const int qi = i0 + i;
-      const float p = (live && (!causal || qi >= kj))
-                          ? __expf(s * scale - ls[i]) : 0.f;
-      const float ds = p * (dp - dls[i]) * scale;
-#pragma unroll
-      for (int c = 0; c < L::NC; ++c) {
-        dva[4 * c] += p * dd[c].x;
-        dva[4 * c + 1] += p * dd[c].y;
-        dva[4 * c + 2] += p * dd[c].z;
-        dva[4 * c + 3] += p * dd[c].w;
-        dka[4 * c] += ds * qq[c].x;
-        dka[4 * c + 1] += ds * qq[c].y;
-        dka[4 * c + 2] += ds * qq[c].z;
-        dka[4 * c + 3] += ds * qq[c].w;
-      }
-    }
-  }
-  if (live) {
-    store_row<D>(dk + b * sdk.b + h * sdk.h, sdk, kj, dr, dka, part);
-    store_row<D>(dv + b * sdv.b + h * sdv.h, sdv, kj, dr, dva, part);
-  }
-}
 
 // ----------------------------- bf16 dK/dV, warpgroup MMA (wgmma)
 
@@ -1495,12 +1257,14 @@ int launch_clusters(void (*kern)(Params...), dim3 grid, int threads,
   return (int)cudaGetLastError();
 }
 
+// bf16 only: f32 runs the split-TF32 kernels (launch_dq_tf32x3_any)
 template <typename T, int D>
 int launch_dq(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
               const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int H,
               const long long* s, float scale, int causal) {
-  if constexpr (sizeof(T) == 2 && D >= 256) {  // two warpgroups
+  static_assert(sizeof(T) == 2, "the bf16 kernels");
+  if constexpr (D >= 256) {  // two warpgroups
     // 64 keys a step at padded 256, 32 at 384, 16 at 512
     using C = DqSplitCfg<D, D == 256 ? 64 : D == 384 ? 32 : 16>;
     auto kern = flash_bwd_dq_wgmma_split_kernel<C>;
@@ -1514,7 +1278,7 @@ int launch_dq(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<T*>(dq), H, Tlen, dr, str_at(s, 0), str_at(s, 1),
         str_at(s, 2), str_at(s, 3), str_at(s, 4), scale, causal);
-  } else if constexpr (sizeof(T) == 2) {  // bf16: the tensor-core kernel
+  } else {  // bf16 D <= 128: one warpgroup
     using C = DqCfg<D>;
     static_assert(C::SMEM <= 232448, "227 KiB a block on sm_90");
     auto kern = flash_bwd_dq_wgmma_kernel<D>;
@@ -1528,24 +1292,18 @@ int launch_dq(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
         static_cast<const float*>(lse), static_cast<const float*>(delta),
         static_cast<T*>(dq), H, Tlen, dr, str_at(s, 0), str_at(s, 1),
         str_at(s, 2), str_at(s, 3), str_at(s, 4), scale, causal);
-  } else {  // f32: the CUDA-core kernel
-    const dim3 grid((Tlen + kRows - 1) / kRows, BH);
-    flash_bwd_dq_kernel<D><<<grid, Tiling<D>::THREADS, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dq), H, Tlen, dr, str_at(s, 0), str_at(s, 1),
-        str_at(s, 2), str_at(s, 3), str_at(s, 4), scale, causal);
   }
   return (int)cudaGetLastError();
 }
 
+// bf16 only: f32 runs the split-TF32 kernels (launch_dkv_tf32x3_any)
 template <typename T, int D>
 int launch_dkv(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
                const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int H,
                const long long* s, float scale, int causal) {
-  if constexpr (sizeof(T) == 2 && D > 256) {  // a cluster of two CTAs
+  static_assert(sizeof(T) == 2, "the bf16 kernels");
+  if constexpr (D > 256) {  // a cluster of two CTAs
     using C = DkvClusterCfg<D / 4>;
     auto kern = flash_bwd_dkv_wgmma_cluster_kernel<D / 4>;
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1561,7 +1319,7 @@ int launch_dkv(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
         static_cast<T*>(dv), H, Tlen, dr, str_at(s, 0), str_at(s, 1),
         str_at(s, 2), str_at(s, 3), str_at(s, 4), str_at(s, 5), scale,
         causal);
-  } else if constexpr (sizeof(T) == 2 && D == 256) {  // two warpgroups
+  } else if constexpr (D == 256) {  // two warpgroups
     using C = DkvSplitCfg;
     auto kern = flash_bwd_dkv_wgmma_split_kernel;
     const cudaError_t err = cudaFuncSetAttribute(
@@ -1575,7 +1333,7 @@ int launch_dkv(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
         static_cast<T*>(dk), static_cast<T*>(dv), H, Tlen, dr, str_at(s, 0),
         str_at(s, 1), str_at(s, 2), str_at(s, 3), str_at(s, 4),
         str_at(s, 5), scale, causal);
-  } else if constexpr (sizeof(T) == 2) {  // bf16: the tensor-core kernel
+  } else {  // bf16 D <= 128: one warpgroup
     using C = DkvCfg<D>;
     static_assert(C::SMEM <= 232448, "227 KiB a block on sm_90");
     auto kern = flash_bwd_dkv_wgmma_kernel<D>;
@@ -1585,15 +1343,6 @@ int launch_dkv(int BH, int Tlen, int dr, cudaStream_t st, const void* q,
     // key tiles on the slow dimension: the heaviest (first) go first
     const dim3 grid(BH, (Tlen + C::BKV - 1) / C::BKV);
     kern<<<grid, C::THREADS, C::SMEM, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout),
-        static_cast<const float*>(lse), static_cast<const float*>(delta),
-        static_cast<T*>(dk), static_cast<T*>(dv), H, Tlen, dr, str_at(s, 0),
-        str_at(s, 1), str_at(s, 2), str_at(s, 3), str_at(s, 4),
-        str_at(s, 5), scale, causal);
-  } else {  // f32: the CUDA-core kernel
-    const dim3 grid((Tlen + kRows - 1) / kRows, BH);
-    flash_bwd_dkv_kernel<D><<<grid, Tiling<D>::THREADS, 0, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout),
         static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -2223,9 +1972,451 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
     store_sum<2, NG>(out, ot, xo, w0, 2, c, lane, wkey, Tlen, dr);
 }
 
-// C as the kernels' (C::NC CTAs a cluster)
+// ------ f32 dQ and dK/dV at D <= 128, split-TF32 tensor-core products
+
+// Replace `_bwd_dq_kernel` and `_bwd_dkv_kernel` of
+// deeplearning4j_tpu/kernels/flash_attention.py (:146, :186) in f32 at
+// head dims 1..128, padded to DP = 64 (D 1..64) or 128 (D 65..128): the
+// loader zero-fills the columns past D, which are never stored. Every
+// product runs on the tensor cores in split TF32 (flash_tf32.cuh: three
+// mma.sync m16n8k8 a product, P and dS split too), in the fragment
+// layouts, k-index permutations and swizzle of the D-256 kernels above
+// (a_frags, mma_dims, mma_rows): swz permutes only a chunk index's low
+// three bits, so rows of 16 (DP 64) and 32 (DP 128) float4 chunks, like
+// rows of 64, meet all 8 bank groups in each quarter-warp in both read
+// patterns (over the head dim, and over a tile's rows).
+//
+// What bounds them on the card: the tensor cores' operations, three TF32
+// products per f32 multiply-add (495 TFLOP/s dense), and beside them the
+// instructions that split each operand (three a float) and the
+// shared-memory reads that feed the products. The D-256 plan (two row
+// groups x four key parts, each warp re-reading and re-splitting the
+// block's resident rows, partial sums traded between warps at the end)
+// was shaped by a 256-wide partial's registers. At D <= 128 a warp's 16
+// rows of an output are DP / 2 f32 registers a thread, so here each warp
+// owns 16 whole rows of its outputs for the whole loop: no exchange, no
+// partial sums, one fixed order of summation, and each resident row
+// (Q and dO for dQ, K and V for dK/dV) is read and split by the one warp
+// that owns it, once a sub-step, each A fragment then feeding the
+// sub-step's NB n-tiles. The streamed tiles are split as they are read,
+// by each warp that reads them. Both ways of splitting each operand only
+// once measured no faster on the H100 (PERF.md): the resident rows kept
+// split in registers for the whole loop (2 x 64 registers a thread at DP
+// 64, 256 at DP 128), and each landed stage split once into hi and lo
+// planes in shared memory (twice the streamed tiles' shared-memory reads,
+// a pass and a barrier a stage). Each output's long sum over T is added
+// once a sub-step in f32 (mma_rows_rn). Four warps a block (64 rows), two
+// blocks an SM at DP 64; the streamed tiles go through a double-buffered
+// cp.async ring (16-byte copies where every row is 16-byte aligned, else
+// 4-byte ones). A warp skips the sub-steps causal masking hides from all
+// of its rows, and the grid's slow dimension walks the heaviest tiles
+// first. No atomics, one owner a row: a second launch is bit-identical.
+// On the H100 they run at 3.1-3.2x their TF32 bound (PERF.md).
+
+// acc (16 x 32 NG, permuted columns) += Σ_n X_n·B_n as mma_rows adds one
+// term, X_n (NB accumulator fragments) summed over B's rows r0 + 8 n ..
+// r0 + 8 n + 7: the NB terms summed on the tensor cores into a zeroed
+// fragment, then added to acc by one f32 addition. The tensor cores'
+// accumulation truncates (rounds toward zero), so a sum over thousands
+// of keys or queries kept in their accumulator drifts by a bias that
+// grows with T (1.3e-4 at T 2048, past the f32 atol); added in f32 once
+// a sub-step, the long sum rounds to nearest.
+template <int LD, int NB, int NG = LD / 32>
+__device__ __forceinline__ void mma_rows_rn(float (&acc)[NG][4][4],
+                                            const float (&x)[NB][4],
+                                            const float* tile, int r0, int g,
+                                            int t4) {
+  using dl4j_tf32::split_tf32;
+#pragma unroll
+  for (int c = 0; c < NG; ++c) {
+    float part[4][4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[u][e] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      uint32_t xh[4], xl[4];
+      split_tf32(x[n][0], xh[0], xl[0]);  // row g, column 2t: k index t
+      split_tf32(x[n][2], xh[1], xl[1]);  // row g + 8, column 2t
+      split_tf32(x[n][1], xh[2], xl[2]);  // row g, 2t + 1: k index t + 4
+      split_tf32(x[n][3], xh[3], xl[3]);  // row g + 8, column 2t + 1
+      const int r = r0 + 8 * n + 2 * t4;
+      const float4 b0 = ld4<LD>(tile, r, 8 * c + g);
+      const float4 b1 = ld4<LD>(tile, r + 1, 8 * c + g);
+      const float x0[4] = {b0.x, b0.y, b0.z, b0.w};
+      const float x1[4] = {b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(x0[u], bh0, bl0);
+        split_tf32(x1[u], bh1, bl1);
+        dl4j_tf32::mma_3xtf32(part[u], xh, xl, bh0, bh1, bl0, bl1);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][u][e] += part[u][e];
+  }
+}
+
+// store a warp's 16 rows (row0 + g, row0 + g + 8: those < T) of an
+// output held as mma_rows accumulates it, the columns < dr
+template <int NG>
+__device__ __forceinline__ void store_rows(float* out, long long st,
+                                           const float (&acc)[NG][4][4],
+                                           int row0, int g, int t4,
+                                           int Tlen, int dr) {
+#pragma unroll
+  for (int c = 0; c < NG; ++c)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + g + 8 * (i >> 1);
+        const int col = 32 * c + 8 * t4 + 4 * (i & 1) + u;
+        if (row < Tlen && col < dr)  // the padded columns are never written
+          out[row * st + col] = acc[c][u][i];
+      }
+}
+
+// dQ: a block owns one (b*h, 64-query tile) and warp w its rows 16 w ..
+// 16 w + 15. K and V stream in stages of BK keys, each taken in sub-steps
+// of NB n-tiles of 8 keys: S = Q·Kᵀ and dP = dO·Vᵀ (16 x 8 NB), then
+// P = exp2(S·scale·log2 e - lse·log2 e) masked and dS = P∘(dP -
+// delta)·scale on S's fragments, then dQ += dS·K. Each thread keeps the
+// lse (times log2 e) and delta of its rows g and g + 8 in registers. DP
+// is the padded D.
+template <int DP_, int BK_, int NB_>
+struct Tf32NarrowDqCfg {
+  static constexpr int NC = 1;          // one CTA, no cluster
+  static constexpr int DP = DP_;
+  static constexpr int BQ = 64;         // query rows: 4 warps of 16
+  static constexpr int BK = BK_;        // keys a stage
+  static constexpr int NB = NB_;        // 8-key n-tiles a sub-step
+  static constexpr int THREADS = 128;
+  // Q, dO, then two stages of (K, V)
+  static constexpr int SMEM = (2 * BQ * DP + 2 * 2 * BK * DP) * 4;
+  static_assert(BK % (8 * NB) == 0, "whole sub-steps a stage");
+};
+
 template <typename C>
-int launch_dq_tf32x3(int BH, int Tlen, int dr, cudaStream_t st,
+__global__ void __launch_bounds__(C::THREADS, 2)
+flash_bwd_dq_tf32x3_narrow_kernel(const float* __restrict__ q,
+                                  const float* __restrict__ k,
+                                  const float* __restrict__ v,
+                                  const float* __restrict__ dout,
+                                  const float* __restrict__ lse,
+                                  const float* __restrict__ delta,
+                                  float* __restrict__ dq, int H, int Tlen,
+                                  int dr, Str sq, Str sk, Str sv, Str sdo,
+                                  Str sdq, float scale, int causal,
+                                  int vec) {
+  using namespace dl4j_mma;
+  using dl4j_tf32::load_f32_tile;
+  constexpr int DP = C::DP;
+  constexpr int BQ = C::BQ;
+  constexpr int BK = C::BK;
+  constexpr int NB = C::NB;
+  constexpr int KP = DP / 16;           // k-step pairs over the head dim
+  constexpr int NG = DP / 32;           // column groups of dQ
+  constexpr int NT = C::THREADS;
+  constexpr int SUB = 8 * NB;           // keys a sub-step
+  constexpr int STAGE = 2 * BK * DP;    // floats: K, then V
+  extern __shared__ __align__(16) float fsm[];
+  float* const qs = fsm;
+  float* const dos = qs + BQ * DP;
+  float* const kvs = dos + BQ * DP;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wr = (tid >> 5) * 16;       // this warp's rows of the tile
+  const int wrow = q0 + wr;             // and its first query
+  const float sl2 = scale * kLog2e;
+
+  const float* kb = k + b * sk.b + h * sk.h;
+  const float* vb = v + b * sv.b + h * sv.h;
+  const int kend = causal ? min(Tlen, q0 + BQ) : Tlen;
+  const int nkt = (kend + BK - 1) / BK;
+
+  load_f32_tile<BQ, DP, NT, true, DP>(qs, q + b * sq.b + h * sq.h, sq.t, q0,
+                                      Tlen, dr, vec, tid);
+  load_f32_tile<BQ, DP, NT, true, DP>(dos, dout + b * sdo.b + h * sdo.h,
+                                      sdo.t, q0, Tlen, dr, vec, tid);
+  cp_async_commit();
+  load_f32_tile<BK, DP, NT, true, DP>(kvs, kb, sk.t, 0, Tlen, dr, vec, tid);
+  load_f32_tile<BK, DP, NT, true, DP>(kvs + BK * DP, vb, sv.t, 0, Tlen, dr,
+                                      vec, tid);
+  cp_async_commit();
+
+  // the lse (times log2 e) and delta of this thread's rows g and g + 8
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wrow + g + 8 * r;
+    const bool ok = row < Tlen;
+    l2[r] = ok ? lse[(long long)bh * Tlen + row] * kLog2e : 0.f;
+    dl[r] = ok ? delta[(long long)bh * Tlen + row] : 0.f;
+  }
+  float acc[NG][4][4];
+#pragma unroll
+  for (int c = 0; c < NG; ++c)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][u][e] = 0.f;
+
+  for (int j = 0; j < nkt; ++j) {
+    if (j + 1 < nkt) {
+      float* nk = kvs + ((j + 1) & 1) * STAGE;
+      load_f32_tile<BK, DP, NT, true, DP>(nk, kb, sk.t, (j + 1) * BK, Tlen,
+                                          dr, vec, tid);
+      load_f32_tile<BK, DP, NT, true, DP>(nk + BK * DP, vb, sv.t,
+                                          (j + 1) * BK, Tlen, dr, vec, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // stage j (and Q, dO) have landed
+    __syncthreads();
+    const float* ks = kvs + (j & 1) * STAGE;
+    const float* vs = ks + BK * DP;
+#pragma unroll 1
+    for (int r0 = 0; r0 < BK; r0 += SUB) {
+      const int k0 = j * BK + r0;  // the sub-step's first key
+      // past T, or (causal) past every row of this warp: nothing left
+      if (k0 >= Tlen || (causal && k0 > wrow + 15)) break;
+
+      // S = Q·Kᵀ and dP = dO·Vᵀ over the sub-step's keys: n-tile n holds
+      // keys k0 + 8 n ..
+      float s[NB][4], dp[NB][4];
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int kp = 0; kp < KP; ++kp) {
+        uint32_t ah[2][4], al[2][4];
+        a_frags<DP>(qs, wr + g, kp, t4, ah, al);
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+          mma_dims<DP>(s[n], ks, r0 + 8 * n + g, kp, t4, ah, al);
+        a_frags<DP>(dos, wr + g, kp, t4, ah, al);
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+          mma_dims<DP>(dp[n], vs, r0 + 8 * n + g, kp, t4, ah, al);
+      }
+
+      // P and dS = P∘(dP - delta)·scale in s; only sub-steps that cross
+      // the diagonal or T are masked
+      const bool edge = k0 + SUB > Tlen || (causal && k0 + SUB - 1 > wrow);
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float p = exp2_approx(fmaf(s[n][e], sl2, -l2[r]));
+          if (edge) {
+            const int key = k0 + 8 * n + 2 * t4 + (e & 1);
+            if (key >= Tlen || (causal && key > wrow + g + 8 * r)) p = 0.f;
+          }
+          s[n][e] = p * (dp[n][e] - dl[r]) * scale;
+        }
+      // dQ += dS·K over the sub-step's keys (rows r0 .. of the stage)
+      mma_rows_rn<DP>(acc, s, ks, r0, g, t4);
+    }
+    __syncthreads();  // stage j & 1 is consumed before it is refilled
+  }
+  store_rows(dq + b * sdq.b + h * sdq.h, sdq.t, acc, wrow, g, t4, Tlen, dr);
+}
+
+// dK/dV: a block owns one (b*h, 64-key tile) and warp w its keys 16 w ..
+// 16 w + 15, of both dK and dV. Q, dO and the lse and delta rows stream
+// in stages of BQ queries (from the diagonal down when causal), each taken
+// in sub-steps of NB n-tiles of 8 queries: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ
+// (16 x 8 NB), then Pᵀ = exp2(Sᵀ·scale·log2 e - lse·log2 e) masked and
+// dSᵀ = Pᵀ∘(dPᵀ - delta)·scale, then dV += Pᵀ·dO and dK += dSᵀ·Q. DP the
+// padded D.
+template <int DP_, int BQ_, int NB_>
+struct Tf32NarrowDkvCfg {
+  static constexpr int NC = 1;          // one CTA, no cluster
+  static constexpr int DP = DP_;
+  static constexpr int BKV = 64;        // keys: 4 warps of 16
+  static constexpr int BQ = BQ_;        // query rows a stage
+  static constexpr int NB = NB_;        // 8-query n-tiles a sub-step
+  static constexpr int THREADS = 128;
+  // K, V, two stages of (Q, dO), then two stages of (lse, delta) rows
+  static constexpr int SMEM = (2 * BKV * DP + 4 * BQ * DP + 4 * BQ) * 4;
+  static_assert(BQ % (8 * NB) == 0, "whole sub-steps a stage");
+};
+
+template <typename C>
+__global__ void __launch_bounds__(C::THREADS, 2)
+flash_bwd_dkv_tf32x3_narrow_kernel(const float* __restrict__ q,
+                                   const float* __restrict__ k,
+                                   const float* __restrict__ v,
+                                   const float* __restrict__ dout,
+                                   const float* __restrict__ lse,
+                                   const float* __restrict__ delta,
+                                   float* __restrict__ dk,
+                                   float* __restrict__ dv, int H, int Tlen,
+                                   int dr, Str sq, Str sk, Str sv, Str sdo,
+                                   Str sdk, Str sdv, float scale, int causal,
+                                   int vec) {
+  using namespace dl4j_mma;
+  using dl4j_tf32::load_f32_tile;
+  constexpr int DP = C::DP;
+  constexpr int BKV = C::BKV;
+  constexpr int BQ = C::BQ;
+  constexpr int NB = C::NB;
+  constexpr int KP = DP / 16;           // k-step pairs over the head dim
+  constexpr int NG = DP / 32;           // column groups of dK and dV
+  constexpr int NT = C::THREADS;
+  constexpr int SUB = 8 * NB;           // queries a sub-step
+  constexpr int STAGE = 2 * BQ * DP;    // floats: Q, then dO
+  extern __shared__ __align__(16) float fsm[];
+  float* const ks = fsm;
+  float* const vs = ks + BKV * DP;
+  float* const ring = vs + BKV * DP;
+  float* const rows = ring + 2 * STAGE;  // stage st: lse, then delta
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * BKV;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wr = (tid >> 5) * 16;       // this warp's keys of the tile
+  const int wkey = k0 + wr;             // and its first key
+  const float sl2 = scale * kLog2e;
+
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lseb = lse + (long long)bh * Tlen;
+  const float* deltab = delta + (long long)bh * Tlen;
+  // causal: query tiles above the block's first key see none of its keys
+  const int first = causal ? k0 / BQ : 0;
+  const int nqt = (Tlen + BQ - 1) / BQ;
+
+  // query tile `it` into ring stage `st`: Q, dO, the lse and delta rows
+  auto fetch = [&](int it, int st) {
+    float* tq = ring + st * STAGE;
+    const int i0 = it * BQ;
+    load_f32_tile<BQ, DP, NT, true, DP>(tq, qb, sq.t, i0, Tlen, dr, vec,
+                                        tid);
+    load_f32_tile<BQ, DP, NT, true, DP>(tq + BQ * DP, dob, sdo.t, i0, Tlen,
+                                        dr, vec, tid);
+    for (int e = tid; e < 2 * BQ; e += NT) {
+      const int row = i0 + (e < BQ ? e : e - BQ);
+      const bool ok = row < Tlen;
+      const float* src = e < BQ ? lseb : deltab;
+      cp_async4(smem_u32(rows + st * 2 * BQ + e), src + (ok ? row : 0), ok);
+    }
+  };
+  load_f32_tile<BKV, DP, NT, true, DP>(ks, k + b * sk.b + h * sk.h, sk.t,
+                                       k0, Tlen, dr, vec, tid);
+  load_f32_tile<BKV, DP, NT, true, DP>(vs, v + b * sv.b + h * sv.h, sv.t,
+                                       k0, Tlen, dr, vec, tid);
+  cp_async_commit();
+  fetch(first, 0);
+  cp_async_commit();
+
+  float dka[NG][4][4], dva[NG][4][4];
+#pragma unroll
+  for (int c = 0; c < NG; ++c)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[c][u][e] = dva[c][u][e] = 0.f;
+
+  for (int it = first; it < nqt; ++it) {
+    const int st = (it - first) & 1;
+    if (it + 1 < nqt) fetch(it + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this stage (and K, V) have landed
+    __syncthreads();
+    const float* qst = ring + st * STAGE;
+    const float* dost = qst + BQ * DP;
+    const float* ls = rows + st * 2 * BQ;
+    const float* dls = ls + BQ;
+#pragma unroll 1
+    for (int r0 = 0; r0 < BQ; r0 += SUB) {
+      const int i0 = it * BQ + r0;  // the sub-step's first query
+      if (i0 >= Tlen) break;
+      // causal: every query of the sub-step is above this warp's keys
+      if (causal && i0 + SUB - 1 < wkey) continue;
+
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: n-tile n holds queries i0 + 8 n ..
+      float x[NB][4], y[NB][4];
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[n][e] = y[n][e] = 0.f;
+#pragma unroll
+      for (int kp = 0; kp < KP; ++kp) {
+        uint32_t ah[2][4], al[2][4];
+        a_frags<DP>(ks, wr + g, kp, t4, ah, al);
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+          mma_dims<DP>(x[n], qst, r0 + 8 * n + g, kp, t4, ah, al);
+        a_frags<DP>(vs, wr + g, kp, t4, ah, al);
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+          mma_dims<DP>(y[n], dost, r0 + 8 * n + g, kp, t4, ah, al);
+      }
+
+      // Pᵀ in x, dSᵀ in y; only sub-steps that cross the diagonal or T
+      // are masked
+      const bool edge = i0 + SUB > Tlen || wkey + 16 > Tlen
+                        || (causal && i0 < wkey + 15);
+#pragma unroll
+      for (int n = 0; n < NB; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = r0 + 8 * n + 2 * t4 + (e & 1);
+          float p = exp2_approx(fmaf(x[n][e], sl2, -ls[qi] * kLog2e));
+          if (edge) {
+            const int row = it * BQ + qi;
+            const int key = wkey + g + 8 * (e >> 1);
+            if (row >= Tlen || key >= Tlen || (causal && row < key))
+              p = 0.f;
+          }
+          x[n][e] = p;
+          y[n][e] = p * (y[n][e] - dls[qi]) * scale;
+        }
+      // dV += Pᵀ·dO and dK += dSᵀ·Q over the sub-step's queries (rows
+      // r0 .. of the stage)
+      mma_rows_rn<DP>(dva, x, dost, r0, g, t4);
+      mma_rows_rn<DP>(dka, y, qst, r0, g, t4);
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  store_rows(dk + b * sdk.b + h * sdk.h, sdk.t, dka, wkey, g, t4, Tlen, dr);
+  store_rows(dv + b * sdv.b + h * sdv.h, sdv.t, dva, wkey, g, t4, Tlen, dr);
+}
+
+// the narrow plans: (DP, keys or queries a stage, n-tiles a sub-step),
+// the fastest that -Xptxas -v shows in 255 registers with no spill
+// (scripts/flash_tf32_narrow_sweep.py; PERF.md): dQ 170 and 219
+// registers, dK/dV 218 and 255; shared memory 96 and 128 KiB (dQ), 97 and
+// 96.25 KiB (dK/dV)
+using NarrowDq64 = Tf32NarrowDqCfg<64, 64, 4>;
+using NarrowDq128 = Tf32NarrowDqCfg<128, 32, 4>;
+using NarrowDkv64 = Tf32NarrowDkvCfg<64, 64, 4>;
+using NarrowDkv128 = Tf32NarrowDkvCfg<128, 16, 2>;
+
+// kern: flash_bwd_dq_tf32x3_kernel<C> (C::NC CTAs a cluster) or
+// flash_bwd_dq_tf32x3_narrow_kernel<C> (one CTA)
+template <typename C, typename K>
+int launch_dq_tf32x3(K kern, int BH, int Tlen, int dr, cudaStream_t st,
                      const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int H, const long long* s, float scale,
@@ -2236,7 +2427,6 @@ int launch_dq_tf32x3(int BH, int Tlen, int dr, cudaStream_t st,
   const bool vec = dl4j_tf32::rows_16b(dr, {q, k, v, dout},
                                        {sq, sk, sv, sdo});
   constexpr int NC = C::NC;
-  auto kern = flash_bwd_dq_tf32x3_kernel<C>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -2250,8 +2440,8 @@ int launch_dq_tf32x3(int BH, int Tlen, int dr, cudaStream_t st,
       sq, sk, sv, sdo, str_at(s, 4), scale, causal, int(vec));
 }
 
-template <typename C>
-int launch_dkv_tf32x3(int BH, int Tlen, int dr, cudaStream_t st,
+template <typename C, typename K>
+int launch_dkv_tf32x3(K kern, int BH, int Tlen, int dr, cudaStream_t st,
                       const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dk, void* dv, int H, const long long* s,
@@ -2262,7 +2452,6 @@ int launch_dkv_tf32x3(int BH, int Tlen, int dr, cudaStream_t st,
   const bool vec = dl4j_tf32::rows_16b(dr, {q, k, v, dout},
                                        {sq, sk, sv, sdo});
   constexpr int NC = C::NC;
-  auto kern = flash_bwd_dkv_tf32x3_kernel<C>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -2277,21 +2466,26 @@ int launch_dkv_tf32x3(int BH, int Tlen, int dr, cudaStream_t st,
       str_at(s, 5), scale, causal, int(vec));
 }
 
-// f32 D 129..512: padded to 256 on one CTA, else to 320, 384 or 512 on a
-// cluster of two that split the columns
+// f32 D 1..512: padded to 64 or 128 on the narrow kernels, to 256 on one
+// CTA, else to 320, 384 or 512 on a cluster of two that split the columns
 int launch_dq_tf32x3_any(int BH, int Tlen, int dr, cudaStream_t st,
                          const void* q, const void* k, const void* v,
                          const void* dout, const void* lse,
                          const void* delta, void* dq, int H,
                          const long long* s, float scale, int causal) {
-#define DL4J_TF32_DQ(DP, NC)                                                 \
-  return launch_dq_tf32x3<Tf32DqCfg<DP, NC>>(BH, Tlen, dr, st, q, k, v,      \
-                                             dout, lse, delta, dq, H, s,     \
-                                             scale, causal)
-  if (dr <= 256) DL4J_TF32_DQ(256, 1);
-  if (dr <= 320) DL4J_TF32_DQ(320, 2);
-  if (dr <= 384) DL4J_TF32_DQ(384, 2);
-  if (dr <= 512) DL4J_TF32_DQ(512, 2);
+  using Dq256 = Tf32DqCfg<256, 1>;
+  using Dq320 = Tf32DqCfg<320, 2>;
+  using Dq384 = Tf32DqCfg<384, 2>;
+  using Dq512 = Tf32DqCfg<512, 2>;
+#define DL4J_TF32_DQ(KERNEL, C)                                              \
+  return launch_dq_tf32x3<C>(KERNEL<C>, BH, Tlen, dr, st, q, k, v, dout,     \
+                             lse, delta, dq, H, s, scale, causal)
+  if (dr <= 64) DL4J_TF32_DQ(flash_bwd_dq_tf32x3_narrow_kernel, NarrowDq64);
+  if (dr <= 128) DL4J_TF32_DQ(flash_bwd_dq_tf32x3_narrow_kernel, NarrowDq128);
+  if (dr <= 256) DL4J_TF32_DQ(flash_bwd_dq_tf32x3_kernel, Dq256);
+  if (dr <= 320) DL4J_TF32_DQ(flash_bwd_dq_tf32x3_kernel, Dq320);
+  if (dr <= 384) DL4J_TF32_DQ(flash_bwd_dq_tf32x3_kernel, Dq384);
+  if (dr <= 512) DL4J_TF32_DQ(flash_bwd_dq_tf32x3_kernel, Dq512);
 #undef DL4J_TF32_DQ
   return (int)cudaErrorInvalidValue;
 }
@@ -2301,14 +2495,20 @@ int launch_dkv_tf32x3_any(int BH, int Tlen, int dr, cudaStream_t st,
                           const void* dout, const void* lse,
                           const void* delta, void* dk, void* dv, int H,
                           const long long* s, float scale, int causal) {
-#define DL4J_TF32_DKV(DP, NC)                                                \
-  return launch_dkv_tf32x3<Tf32DkvCfg<DP, NC>>(BH, Tlen, dr, st, q, k, v,    \
-                                               dout, lse, delta, dk, dv, H,  \
-                                               s, scale, causal)
-  if (dr <= 256) DL4J_TF32_DKV(256, 1);
-  if (dr <= 320) DL4J_TF32_DKV(320, 2);
-  if (dr <= 384) DL4J_TF32_DKV(384, 2);
-  if (dr <= 512) DL4J_TF32_DKV(512, 2);
+  using Dkv256 = Tf32DkvCfg<256, 1>;
+  using Dkv320 = Tf32DkvCfg<320, 2>;
+  using Dkv384 = Tf32DkvCfg<384, 2>;
+  using Dkv512 = Tf32DkvCfg<512, 2>;
+#define DL4J_TF32_DKV(KERNEL, C)                                             \
+  return launch_dkv_tf32x3<C>(KERNEL<C>, BH, Tlen, dr, st, q, k, v, dout,    \
+                              lse, delta, dk, dv, H, s, scale, causal)
+  if (dr <= 64) DL4J_TF32_DKV(flash_bwd_dkv_tf32x3_narrow_kernel, NarrowDkv64);
+  if (dr <= 128)
+    DL4J_TF32_DKV(flash_bwd_dkv_tf32x3_narrow_kernel, NarrowDkv128);
+  if (dr <= 256) DL4J_TF32_DKV(flash_bwd_dkv_tf32x3_kernel, Dkv256);
+  if (dr <= 320) DL4J_TF32_DKV(flash_bwd_dkv_tf32x3_kernel, Dkv320);
+  if (dr <= 384) DL4J_TF32_DKV(flash_bwd_dkv_tf32x3_kernel, Dkv384);
+  if (dr <= 512) DL4J_TF32_DKV(flash_bwd_dkv_tf32x3_kernel, Dkv512);
 #undef DL4J_TF32_DKV
   return (int)cudaErrorInvalidValue;
 }
@@ -2521,24 +2721,21 @@ int launch_dkv_general(int BH, int Tlen, int D, cudaStream_t st,
 #undef DL4J_GEN_DKV
 }
 
-// the kernel for (dtype, D): dtype 0 = float32, 1 = bfloat16. D <= 128
-// (bf16: a multiple of 8, 16-byte rows) runs on the kernel instantiated
-// on the padded width padded_dim(D); every other D on the general kernel
-// (both entries take f32 D 129..512 to their split-TF32 kernels and bf16
-// D 136..512 to their two-warpgroup and cluster kernels first)
+// the kernel for (dtype, D) that the entries have not taken (they take
+// f32 D 1..512 to their split-TF32 kernels and bf16 D 136..512 to their
+// two-warpgroup and cluster kernels first): dtype 0 = float32, 1 =
+// bfloat16. bf16 D <= 128, a multiple of 8 (16-byte rows), runs on the
+// kernel instantiated on the padded width padded_dim(D); every other D on
+// the general kernel
 #define DL4J_BWD_DISPATCH(LAUNCH, LAUNCH_GENERAL, ...)                       \
-  if (D > 128 || (dtype == 1 && D % 8 != 0))                                 \
-    return dtype == 0 ? LAUNCH_GENERAL<float>(__VA_ARGS__)                   \
-                      : LAUNCH_GENERAL<__nv_bfloat16>(__VA_ARGS__);          \
-  switch (dtype * 1000 + dl4j_mma::padded_dim(D)) {                          \
-    case 16: return LAUNCH<float, 16>(__VA_ARGS__);                          \
-    case 32: return LAUNCH<float, 32>(__VA_ARGS__);                          \
-    case 64: return LAUNCH<float, 64>(__VA_ARGS__);                          \
-    case 128: return LAUNCH<float, 128>(__VA_ARGS__);                        \
-    case 1016: return LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__);                \
-    case 1032: return LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__);                \
-    case 1064: return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);                \
-    case 1128: return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);               \
+  if (dtype == 0) return LAUNCH_GENERAL<float>(__VA_ARGS__);                 \
+  if (D > 128 || D % 8 != 0)                                                 \
+    return LAUNCH_GENERAL<__nv_bfloat16>(__VA_ARGS__);                       \
+  switch (dl4j_mma::padded_dim(D)) {                                         \
+    case 16: return LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__);                  \
+    case 32: return LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__);                  \
+    case 64: return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);                  \
+    case 128: return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);                \
     default: return (int)cudaErrorInvalidValue;                              \
   }
 
@@ -2553,10 +2750,10 @@ extern "C" int dl4j_flash_attention_bwd_dq(
     const void* lse, const void* delta, void* dq, int B, int H, int T,
     int D, const long long* strides, float scale, int causal, int dtype,
     void* stream) {
-  if (B < 1 || H < 1 || T < 1 || (dtype != 0 && dtype != 1))
+  if (B < 1 || H < 1 || T < 1 || D < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D > 128 && D <= 512)
+  if (dtype == 0 && D <= 512)
     return launch_dq_tf32x3_any(B * H, T, D, st, q, k, v, dout, lse, delta,
                                 dq, H, strides, scale, causal);
   if (dtype == 1 && D > 128 && D <= 512 && D % 8 == 0) {
@@ -2578,10 +2775,10 @@ extern "C" int dl4j_flash_attention_bwd_dkv(
     const void* lse, const void* delta, void* dk, void* dv, int B, int H,
     int T, int D, const long long* strides, float scale, int causal,
     int dtype, void* stream) {
-  if (B < 1 || H < 1 || T < 1 || (dtype != 0 && dtype != 1))
+  if (B < 1 || H < 1 || T < 1 || D < 1 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && D > 128 && D <= 512)
+  if (dtype == 0 && D <= 512)
     return launch_dkv_tf32x3_any(B * H, T, D, st, q, k, v, dout, lse, delta,
                                  dk, dv, H, strides, scale, causal);
   if (dtype == 1 && D > 128 && D <= 512 && D % 8 == 0) {

@@ -1,6 +1,6 @@
-// Split-TF32 tensor-core products shared by the f32 flash kernels at head
-// dims 129..256 (K1 in flash_attention_fwd.cu; dQ and dK/dV in
-// flash_attention_bwd.cu) and of K1 at 257..512, sm_90a: the split of an
+// Split-TF32 tensor-core products shared by the f32 flash kernels (K1 in
+// flash_attention_fwd.cu at head dims 129..512; dQ and dK/dV in
+// flash_attention_bwd.cu at 1..512), sm_90a: the split of an
 // f32 operand into two TF32 halves, mma.sync m16n8k8 (TF32 -> f32) in one
 // and in three products, and the loader of a 256-column (or, for K1's
 // wide kernel, 384- or 512-column) f32 tile.
@@ -70,7 +70,8 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, ah, bh0, bh1);
 }
 
-// The backward's tile layout: rows of kD floats, unpadded, whose 16-byte
+// The backward's tile layout: rows of kD floats (the narrow kernels' 64
+// or 128, a wide kernel's CTA its half), unpadded, whose 16-byte
 // chunk c of row r sits at chunk c ^ swz(r). The backward reads every
 // streamed tile two ways as a float4 a thread, each quarter-warp (lanes
 // with g in {2j, 2j + 1}) at once: as the B operand of a product over the
@@ -79,7 +80,9 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
 // spreads both over the 8 bank groups of 16 bytes (D + 16 floats suits
 // the first, D + 4 the second); this swizzle does: swz(r) of rows 2t over
 // t, and of rows 2t + 1, are 0, 2, 4, 6 in some order, and rows 2j and
-// 2j + 1 differ in bit 2.
+// 2j + 1 differ in bit 2. It permutes only a chunk index's low three
+// bits, so it serves any row of a whole number of 8-chunk bank lines
+// (16 chunks at 64 floats, 32 at 128).
 __device__ __forceinline__ int swz(int r) { return (r & 6) ^ ((r & 1) << 2); }
 
 // rows [r0, r0 + R) of a (T, dr) f32 operand (time stride st) into a

@@ -21,7 +21,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional, Tuple
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 SRC_DIR = PKG_DIR / "csrc"
@@ -72,9 +72,42 @@ def _target(name: str) -> Path:
     return build_dir() / f"{name}-{h.hexdigest()[:12]}.so"
 
 
-def _nvcc_cmd(name: str, out: Path):
-    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out),
-            str(SRC_DIR / f"{name}.cu")]
+def _nvcc_cmd(name: str, out: Path, src: Optional[Path] = None):
+    """nvcc's command for ``csrc/<name>.cu`` or, where given, for ``src``,
+    an edited copy of it elsewhere (its ``csrc`` headers found through
+    ``-I``)."""
+    inc = [] if src is None else [f"-I{SRC_DIR}"]
+    return [nvcc_path(), *NVCC_FLAGS, *inc, "-o", str(out),
+            str(SRC_DIR / f"{name}.cu" if src is None else src)]
+
+
+def compile_sources(jobs: Dict[str, Tuple[str, Optional[Path], Path]],
+                    verbose: bool = False) -> Dict[str, str]:
+    """One ``nvcc`` per job, all started together. A job (key → (source
+    name, edited copy or None, library)) builds into a temporary file
+    that becomes the library once nvcc succeeds; ``verbose`` adds
+    ``-Xptxas=-v``. Returns key → the compiler's output. Raises with the
+    output of every build that failed."""
+    procs = {}
+    for key, (name, src, out) in jobs.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = _nvcc_cmd(name, tmp, src)
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        procs[key] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, out)
+    logs, failed = {}, []
+    for key, (proc, tmp, out) in procs.items():
+        logs[key], _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- nvcc {key} (rc {proc.returncode})\n"
+                          f"{logs[key]}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return logs
 
 
 def build(names: Iterable[str], verbose: bool = False) -> Dict[str, Path]:
@@ -84,29 +117,20 @@ def build(names: Iterable[str], verbose: bool = False) -> Dict[str, Path]:
     names = list(names)
     build_dir().mkdir(parents=True, exist_ok=True)
     targets = {n: _target(n) for n in names}
-    procs = {}
-    for n, out in targets.items():
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = _nvcc_cmd(n, tmp)
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
-        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                     stderr=subprocess.STDOUT, text=True),
-                    tmp)
-    failed = []
-    for n, (proc, tmp) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"--- nvcc {n}.cu (rc {proc.returncode})\n{log}")
-            continue
+    logs = compile_sources({n: (n, None, out) for n, out in targets.items()
+                            if not out.exists()}, verbose)
+    for n, log in logs.items():
         if verbose and log.strip():
             print(f"--- nvcc {n}.cu\n{log.rstrip()}")
-        os.replace(tmp, targets[n])
-    if failed:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return targets
+
+
+def use(name: str, path: Path) -> ctypes.CDLL:
+    """Serve ``csrc/<name>.cu``'s kernels from the library at ``path`` (a
+    build of an edited copy, :func:`compile_sources`) from now on."""
+    with _lock:
+        _libs[name] = ctypes.CDLL(str(path))
+        return _libs[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -25,12 +25,15 @@ f32 sums, operands copied into shared memory by 16-byte ``cp.async``;
 counted in ``LAUNCHES_TC``, ``LAUNCHES_BWD_DQ_TC`` and
 ``LAUNCHES_BWD_DKV_TC`` besides ``LAUNCHES``, ``LAUNCHES_BWD_DQ`` and
 ``LAUNCHES_BWD_DKV``); their operands must pass
-:func:`check_tc_alignment`, or the call raises. float32 runs the
-CUDA-core kernels up to D 128 (``LAUNCHES_CUDA_CORE``,
-``LAUNCHES_BWD_DQ_CUDA_CORE``, ``LAUNCHES_BWD_DKV_CUDA_CORE``). f32 K1, dQ
-and dK/dV at D 129-256 run on the tensor cores in split TF32
-(``LAUNCHES_TF32X3``, ``LAUNCHES_BWD_DQ_TF32X3``,
-``LAUNCHES_BWD_DKV_TF32X3``): each f32 operand x becomes hi = tf32(x) and
+:func:`check_tc_alignment`, or the call raises. float32 K1 runs the
+CUDA-core kernel up to D 128 (``LAUNCHES_CUDA_CORE``). f32 dQ and dK/dV
+at D 1-256, and f32 K1 at D 129-256, run on the tensor cores in split
+TF32 (``LAUNCHES_TF32X3``, ``LAUNCHES_BWD_DQ_TF32X3``,
+``LAUNCHES_BWD_DKV_TF32X3``; dQ and dK/dV padded to 64 or 128 up to D
+128, each warp owning 16 whole rows of its outputs, and counted also in
+``LAUNCHES_BWD_DQ_TF32X3_NARROW`` and ``LAUNCHES_BWD_DKV_TF32X3_NARROW``,
+else to 256): each
+f32 operand x becomes hi = tf32(x) and
 lo = x − hi (read as TF32), and each product hi·hi + hi·lo + lo·hi,
 summed in f32; the probabilities and dS split too. One TF32 product keeps
 10 mantissa bits, an error near 1e-3, past the f32 tolerance of 1e-4; the
@@ -46,8 +49,9 @@ padded widths 16, 32, 64 and 128 (bf16 also 256; K1's wide kernels 384
 and 512, f32 also 320) and zero-fill the
 columns past D inside the kernel — bf16 on the tensor cores when D is a
 multiple of 8 (its rows whole 16-byte chunks), up to 256 (dQ and dK/dV
-past 128 on two warpgroups that split the columns); f32 on the CUDA
-cores up to 128, and in split TF32 up to 256. Past 256, up to 512, all
+past 128 on two warpgroups that split the columns); f32 K1 on the CUDA
+cores up to 128 and in split TF32 up to 256, f32 dQ and dK/dV in split
+TF32 up to 256 (padded to 64, 128 or 256). Past 256, up to 512, all
 three run their wide kernels, padded to 384 or 512 (f32 also 320), in
 the families ``"wgmma-wide"`` (bf16, a multiple of 8; 16-byte alignment
 as above) and ``"tf32x3-wide"`` (f32, any strides), counted in
@@ -81,13 +85,15 @@ _SOURCE = "flash_attention_fwd"
 _BWD_SOURCE = "flash_attention_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the largest head dim of the fast kernels; each D up to it runs on the
-#: kernel instantiated for the smallest of 16, 32, 64, 128 that holds it,
-#: the columns past D zero-filled inside the kernel
+#: kernel instantiated for the smallest of 16, 32, 64, 128 that holds it
+#: (the f32 dQ and dK/dV: of 64, 128), the columns past D zero-filled
+#: inside the kernel
 FAST_MAX_HEAD_DIM = 128
 #: the largest bf16 head dim the tensor-core kernels take: past 128 they
 #: run instantiated on the padded width 256
 TC_MAX_HEAD_DIM = 256
-#: the largest f32 head dim of the split-TF32 kernels (padded to 256)
+#: the largest f32 head dim of the split-TF32 kernels (padded to 256; f32
+#: dQ and dK/dV at D <= 128 to 64 or 128)
 TF32X3_MAX_HEAD_DIM = 256
 #: the largest head dim of the wide kernels of K1, dQ and dK/dV (padded to
 #: 384 or 512, f32 also 320): each output's columns split between two
@@ -104,9 +110,11 @@ GENERAL_ROWS = (64, 32, 16, 8)
 #: launches of each CUDA kernel since the last reset (the plain versions
 #: on CPU tensors do not count): K1, the dQ kernel, the dK/dV kernel (any
 #: route), and of those each family's (:data:`FAMILY_SUFFIX`): the bf16
-#: tensor-core, the f32 CUDA-core, the f32 split-TF32 and the
-#: head-dim-general K1, dQ and dK/dV kernels, and the wide K1, dQ and dK/dV
-#: kernels (bf16, f32 split TF32) past D 256
+#: tensor-core, the f32 CUDA-core (K1 only: no dQ or dK/dV runs there),
+#: the f32 split-TF32 and the head-dim-general K1, dQ and dK/dV kernels,
+#: and the wide K1, dQ and dK/dV kernels (bf16, f32 split TF32) past D
+#: 256; of the split-TF32 dQ's and dK/dV's, the narrow kernels' (D <= 128,
+#: :func:`launch_counter` with ``narrow``)
 LAUNCHES = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_BWD_DKV = 0
@@ -114,11 +122,11 @@ LAUNCHES_TC = 0
 LAUNCHES_BWD_DQ_TC = 0
 LAUNCHES_BWD_DKV_TC = 0
 LAUNCHES_CUDA_CORE = 0
-LAUNCHES_BWD_DQ_CUDA_CORE = 0
-LAUNCHES_BWD_DKV_CUDA_CORE = 0
 LAUNCHES_TF32X3 = 0
 LAUNCHES_BWD_DQ_TF32X3 = 0
 LAUNCHES_BWD_DKV_TF32X3 = 0
+LAUNCHES_BWD_DQ_TF32X3_NARROW = 0
+LAUNCHES_BWD_DKV_TF32X3_NARROW = 0
 LAUNCHES_GENERAL = 0
 LAUNCHES_BWD_DQ_GENERAL = 0
 LAUNCHES_BWD_DKV_GENERAL = 0
@@ -147,16 +155,22 @@ def reset_launches():
         globals()[name] = 0
 
 
-def launch_counter(kernel: str, family: Optional[str] = None) -> str:
+def launch_counter(kernel: str, family: Optional[str] = None,
+                   narrow: bool = False) -> str:
     """The name of the counter of ``kernel`` ("fwd", "dq" or "dkv") on
-    kernel ``family`` (a :func:`route` name), or on any family."""
-    return f"LAUNCHES{_KERNEL[kernel]}{FAMILY_SUFFIX.get(family, '')}"
+    kernel ``family`` (a :func:`route` name), or on any family; with
+    ``narrow``, of the split-TF32 dQ's or dK/dV's narrow kernel (D <=
+    128) alone."""
+    name = f"LAUNCHES{_KERNEL[kernel]}{FAMILY_SUFFIX.get(family, '')}"
+    return name + "_NARROW" if narrow else name
 
 
-def _count(kernel: str, family: str):
+def _count(kernel: str, family: str, d: int):
     g = globals()
     g[launch_counter(kernel)] += 1
     g[launch_counter(kernel, family)] += 1
+    if family == "tf32x3" and kernel != "fwd" and d <= FAST_MAX_HEAD_DIM:
+        g[launch_counter(kernel, family, narrow=True)] += 1
 
 
 def flash_attention(q, k, v, scale: Optional[float] = None,
@@ -261,13 +275,15 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
 def route(d: int, dtype, kernel: str) -> str:
     """The kernel family head dim ``d`` runs in ``dtype`` for ``kernel``
     ("fwd", "dq" or "dkv"): ``"wgmma"`` (bf16, a multiple of 8 up to
-    ``TC_MAX_HEAD_DIM``), ``"cuda-core"`` (f32, D <= 128), ``"tf32x3"``
-    (f32, D 129..256), ``"wgmma-wide"`` (bf16, a multiple of 8 in
-    264..``WIDE_MAX_HEAD_DIM``), ``"tf32x3-wide"`` (f32, D 257..512), or
-    ``"general"`` (every other D); the same in all three kernels."""
+    ``TC_MAX_HEAD_DIM``), ``"cuda-core"`` (f32 K1, D <= 128),
+    ``"tf32x3"`` (f32 dQ and dK/dV at D 1..256, f32 K1 at D 129..256),
+    ``"wgmma-wide"`` (bf16, a multiple of 8 in 264..``WIDE_MAX_HEAD_DIM``),
+    ``"tf32x3-wide"`` (f32, D 257..512), or ``"general"`` (every other
+    D). Only f32 D <= 128 differs between the three kernels: K1 on the
+    CUDA cores, dQ and dK/dV in split TF32."""
     wide = d <= WIDE_MAX_HEAD_DIM
     if dtype == torch.float32:
-        if d <= FAST_MAX_HEAD_DIM:
+        if d <= FAST_MAX_HEAD_DIM and kernel == "fwd":
             return "cuda-core"
         if d <= TF32X3_MAX_HEAD_DIM:
             return "tf32x3"
@@ -402,7 +418,7 @@ def _flash_cuda(q, k, v, scale, causal, layout):
         lse.data_ptr(), b, h, t, d, *strides, scale, int(bool(causal)),
         _DTYPES[q.dtype], stream)
     _build.check(rc, "flash_attention_fwd")
-    _count("fwd", kind)
+    _count("fwd", kind, d)
     return out, lse
 
 
@@ -428,7 +444,7 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta, scale, causal,
         _strides(q_, k_, v_, do_, dq_), float(scale), int(bool(causal)),
         _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention_bwd_dq")
-    _count("dq", kind)
+    _count("dq", kind, bhtd[3])
     return dq
 
 
@@ -456,7 +472,7 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta, scale, causal,
         int(bool(causal)), _DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "flash_attention_bwd_dkv")
-    _count("dkv", kind)
+    _count("dkv", kind, bhtd[3])
     return dk, dv
 
 

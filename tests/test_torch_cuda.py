@@ -318,6 +318,52 @@ def test_flash_tf32x3_bwd_matches_plain_over_many_waves(gen):
         assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [1, 63, 200, 2048])
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+def test_flash_tf32x3_narrow_bwd_matches_plain(gen, d, t, causal, aligned):
+    """f32 dQ and dK/dV at D <= 128 in split TF32 (the narrow kernels,
+    padded to 64 or 128) on strided (B, T, H, D) views of one qkv buffer,
+    16-byte aligned rows (16-byte copies) or a buffer one float in (4-byte
+    copies), T 1, 63, 200 (ragged tiles) and 2048, causal and not: within
+    the f32 atol 1e-4 of the plain backward, counted as split-TF32
+    launches of the narrow kernels (no other family's counter moves), and
+    a second launch repeats the first bit for bit."""
+    b, h = (1, 2) if t == 2048 else (2, 3)
+    scale = d ** -0.5
+    off = 0 if aligned else 1
+    raw = torch.randn((b, t, 3 * h * d + off), generator=gen, device="cuda")
+    q, k, v = (raw[..., off + i * h * d:off + (i + 1) * h * d]
+               .reshape(b, t, h, d) for i in range(3))
+    do = torch.randn((b, t, h, d), generator=gen, device="cuda")
+    qh, kh, vh, doh = (x.transpose(1, 2) for x in (q, k, v, do))
+    o, lse = fa.mha_reference_lse(qh, kh, vh, causal=causal)
+    delta = (doh * o).sum(-1).contiguous()
+    ref = fa.flash_attention_bwd_reference(qh, kh, vh, doh, lse, delta,
+                                           scale, causal)
+    assert fa.route(d, torch.float32, "dq") == "tf32x3"
+    assert fa.route(d, torch.float32, "dkv") == "tf32x3"
+    narrow = [fa.launch_counter(kn, "tf32x3", narrow=True)
+              for kn in ("dq", "dkv")]
+    before = _counts("dq"), _counts("dkv")
+    narrow_before = [getattr(fa, n) for n in narrow]
+    runs = [(fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale,
+                                       causal, "bthd"),
+             *fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale,
+                                         causal, "bthd")) for _ in range(2)]
+    torch.cuda.synchronize()
+    for kernel, was in zip(("dq", "dkv"), before):
+        moved = [a - b_ for a, b_ in zip(_counts(kernel), was)]
+        assert moved == [2 * x for x in _added(kernel, d, torch.float32)]
+    assert [getattr(fa, n) - b_ for n, b_ in zip(narrow, narrow_before)] \
+        == [2, 2]
+    for got, again, want in zip(*runs, ref):
+        torch.testing.assert_close(got.transpose(1, 2), want, atol=1e-4,
+                                   rtol=0)
+        assert torch.equal(got, again)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t,causal", [(200, True), (200, False),
                                       (1000, True)])
@@ -2451,9 +2497,10 @@ def _attn_conf(dtype, causal=True):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_layer_flash_route_matches_host(gen, dtype):
     """SelfAttentionLayer(impl="pallas") on the card launches K1, dQ and
-    dK/dV on the route of its dtype (f32 D 64: the CUDA-core kernels;
-    bf16: the tensor-core ones) and agrees with the same layer on the
-    host, forward and grads; a key mask takes the plain attention."""
+    dK/dV once each, each on its own route (f32 D 64: K1 on the CUDA
+    cores, dQ and dK/dV in split TF32; bf16: all three on the tensor
+    cores) and agrees with the same layer on the host, forward and grads;
+    a key mask takes the plain attention."""
     from deeplearning4j_tpu_torch.nn.layers.attention import \
         SelfAttentionLayer
     from deeplearning4j_tpu_torch.nn.layers.base import Ctx
@@ -2472,11 +2519,11 @@ def test_attention_layer_flash_route_matches_host(gen, dtype):
         grads = torch.autograd.grad(y.float().sum(), [xd, *pd.values()])
         outs[dev] = (y.float().cpu(), [g.float().cpu() for g in grads])
         if dev == "cuda":
-            fam = fa.route(64, dtype, "fwd")
-            assert fam == ("cuda-core" if dtype == torch.float32
-                           else "wgmma")
-            for k in ("fwd", "dq", "dkv"):
-                assert getattr(fa, fa.launch_counter(k, fam)) == 1
+            want = (("cuda-core", "tf32x3", "tf32x3")
+                    if dtype == torch.float32 else ("wgmma",) * 3)
+            for k, fam in zip(("fwd", "dq", "dkv"), want):
+                assert fa.route(64, dtype, k) == fam
+                assert _counts(k) == _added(k, 64, dtype)
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], atol=tol,
                                rtol=tol)
@@ -2492,7 +2539,8 @@ def test_attention_layer_flash_route_matches_host(gen, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_net_replay_equals_eager(gen, dtype):
     """Three fit steps of a MultiLayerNetwork through the flash route,
-    replayed from a CUDA graph and eager, bit for bit."""
+    replayed from a CUDA graph and eager, bit for bit; the eager steps
+    launch K1, dQ and dK/dV once a step each, each on its own route."""
     from deeplearning4j_tpu_torch import disable_graphs
     from deeplearning4j_tpu_torch.data import DataSet
     from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
@@ -2502,9 +2550,12 @@ def test_attention_net_replay_equals_eager(gen, dtype):
     runs = []
     for graphs in (True, False):
         net = MultiLayerNetwork(_attn_conf(dtype)).init((256, 64))
+        fa.reset_launches()
         with contextlib.nullcontext() if graphs else disable_graphs():
             losses = [net.fit(DataSet(x, y)) for _ in range(3)]
         runs.append((losses, _net_tensors(net), net._step_fn.last))
+    for k in ("fwd", "dq", "dkv"):
+        assert _counts(k) == [3 * n for n in _added(k, 64, dtype)]
     assert runs[0][2] == "replay" and runs[1][2] == "direct"
     assert runs[0][0] == runs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

@@ -447,10 +447,11 @@ def test_flash_kernel_refuses_grad_and_bad_inputs():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernels_take_every_head_dim_up_to_128(d, dtype):
     """Up to 128 the fast kernels run: the checks pass every D in both
-    layouts and for each kernel, bf16 multiples of 8 on the tensor cores
-    and f32 on the CUDA-core kernels; a D that is not a multiple of 8
-    runs the CUDA-core kernel in f32 and the general kernel in bf16
-    (rows that are not whole 16-byte chunks)."""
+    layouts and for each kernel, bf16 multiples of 8 on the tensor cores,
+    f32 K1 on the CUDA-core kernel and f32 dQ and dK/dV in split TF32
+    (padded to 64 or 128); a D that is not a multiple of 8 runs the same
+    f32 kernels and the general kernel in bf16 (rows that are not whole
+    16-byte chunks). Each kernel's route is its own."""
     q = torch.zeros((1, 2, 8, d), dtype=dtype)
     for kernel in ("fwd", "dq", "dkv"):
         for layout in ("bhtd", "bthd"):
@@ -459,11 +460,11 @@ def test_flash_kernels_take_every_head_dim_up_to_128(d, dtype):
             assert dd == d and len(views) == 4
     bf16 = dtype == torch.bfloat16
     for kernel in ("fwd", "dq", "dkv"):
-        assert tfa.route(d, dtype, kernel) == ("wgmma" if bf16
-                                               else "cuda-core")
+        f32 = "cuda-core" if kernel == "fwd" else "tf32x3"
+        assert tfa.route(d, dtype, kernel) == ("wgmma" if bf16 else f32)
         tfa.check_head_dim(d - 3, dtype, kernel)
         assert tfa.route(d - 3, dtype, kernel) == ("general" if bf16
-                                                   else "cuda-core")
+                                                   else f32)
 
 
 def test_flash_head_dim_rule_bounds():
@@ -524,8 +525,10 @@ _TCW, _TFW = "wgmma-wide", "tf32x3-wide"
     (324, torch.bfloat16, (_GN, _GN, _GN)),
     (512, torch.bfloat16, (_TCW, _TCW, _TCW)),
     (520, torch.bfloat16, (_GN, _GN, _GN)),
-    (12, torch.float32, (_CC, _CC, _CC)),
-    (128, torch.float32, (_CC, _CC, _CC)),
+    (12, torch.float32, (_CC, _TF, _TF)),
+    (64, torch.float32, (_CC, _TF, _TF)),
+    (80, torch.float32, (_CC, _TF, _TF)),
+    (128, torch.float32, (_CC, _TF, _TF)),
     (129, torch.float32, (_TF, _TF, _TF)),
     (160, torch.float32, (_TF, _TF, _TF)),
     (256, torch.float32, (_TF, _TF, _TF)),
@@ -535,8 +538,9 @@ _TCW, _TFW = "wgmma-wide", "tf32x3-wide"
     (513, torch.float32, (_GN, _GN, _GN))])
 def test_flash_route_by_head_dim_and_dtype(d, dtype, kinds):
     """Which kernel family a (D, dtype) runs in K1, dQ and dK/dV: bf16
-    on the tensor cores up to 256 (multiples of 8); f32 K1, dQ and dK/dV
-    in split TF32 at 129..256; all three past 256 up to 512 on their wide
+    on the tensor cores up to 256 (multiples of 8); f32 K1 on the CUDA
+    cores up to 128 and in split TF32 at 129..256, f32 dQ and dK/dV in
+    split TF32 at 1..256; all three past 256 up to 512 on their wide
     kernels (bf16 multiples of 8 on the tensor cores, f32 in split TF32),
     general past 512; only the bf16 tensor-core routes
     check 16-byte alignment, so a general bf16 D and every f32 D take any
@@ -1069,19 +1073,20 @@ def test_one_tf32_product_misses_the_backward_bar():
 
 # The backward's swizzled tiles (csrc/flash_tf32.cuh swz, and ld4 in
 # csrc/flash_attention_bwd.cu): chunk c of row r at chunk c ^ swz(r) of a
-# row of 256 floats.
+# row of ``ld`` floats (256; the narrow kernels' 64 and 128).
 
 def _swz(r):
     return (r & 6) ^ ((r & 1) << 2)
 
 
-def _ld4(r, c):
-    """Float offsets (physical) of the float4 ``ld4(tile, r, c)`` reads."""
-    return [r * 256 + 4 * (c ^ _swz(r)) + i for i in range(4)]
+def _ld4(r, c, ld=256):
+    """Float offsets (physical) of the float4 ``ld4<ld>(tile, r, c)``
+    reads."""
+    return [r * ld + 4 * (c ^ _swz(r)) + i for i in range(4)]
 
 
-def _phys_to_logical(off):
-    r, x = divmod(off, 256)
+def _phys_to_logical(off, ld=256):
+    r, x = divmod(off, ld)
     return r, 4 * ((x // 4) ^ _swz(r)) + x % 4
 
 
@@ -1115,42 +1120,34 @@ def _quarter_conflicts(reads):
     return extra
 
 
-def test_tf32x3_bwd_fragments_read_what_the_products_need():
-    """The split-TF32 backward's fragment reads, lane by lane, from the
-    swizzled tiles through the hardware's m16n8k8 fragment layout: over the
-    head dim (a_frags on rows r, r + 8 and mma_dims on row r of B, the
-    permuted k indices 4t, 4t+1 | 4t+2, 4t+3 of each 16 dims) every lane's
-    accumulators are S = A·Bᵀ at (g, 2t), (g, 2t + 1), (g + 8, ..); over a
-    tile's rows (mma_rows: S's accumulators as A fragments, B's rows 2t and
-    2t + 1 at columns 32 c + 4 g + u) they are X·B at the permuted columns
-    32 c + 8 t + u and 32 c + 8 t + 4 + u that store_sum writes. Every
-    float4 read of either pattern meets all 8 bank groups in each
-    quarter-warp; a padded row of D + 16 floats (K1's Q and K) would leave
-    3 extra wavefronts a quarter-warp on the second, D + 4 (K1's V) 1 on
-    the first."""
-    rng = np.random.default_rng(15)
-    a = rng.integers(-4, 5, (32, 256)).astype(np.float64)
-    bt = rng.integers(-4, 5, (32, 256)).astype(np.float64)
+def _check_fragment_reads(rng, ld):
+    """The split-TF32 backward's fragment reads, lane by lane, from
+    swizzled tiles of rows of ``ld`` floats through the hardware's
+    m16n8k8 layout (as the tests below describe): every lane's
+    accumulators are the products they feed, and every float4 read
+    meets all 8 bank groups in each quarter-warp."""
+    a = rng.integers(-4, 5, (32, ld)).astype(np.float64)
+    bt = rng.integers(-4, 5, (32, ld)).astype(np.float64)
     # the tiles as the loader lays them out: logical (r, col) at its
     # swizzled offset
-    phys_a, phys_b = np.zeros(32 * 256), np.zeros(32 * 256)
+    phys_a, phys_b = np.zeros(32 * ld), np.zeros(32 * ld)
     for r in range(32):
-        for col in range(256):
-            off = _ld4(r, col // 4)[col % 4]
-            assert _phys_to_logical(off) == (r, col)
+        for col in range(ld):
+            off = _ld4(r, col // 4, ld)[col % 4]
+            assert _phys_to_logical(off, ld) == (r, col)
             phys_a[off], phys_b[off] = a[r, col], bt[r, col]
 
     # S = A·Bᵀ over the head dim: A rows ra, ra + 8; B rows rb .. rb + 7
     for ra, rb in ((0, 8), (16, 24), (16, 0)):
         acc = [(0.0,) * 4] * 32
-        for kp in range(16):
+        for kp in range(ld // 16):
             a_regs = [[], []]
             b_regs = [[], []]
             reads = {"a": {}, "a8": {}, "b": {}}
             for lane, g, t in _lanes():
-                x = _ld4(ra + g, 4 * kp + t)
-                y = _ld4(ra + g + 8, 4 * kp + t)
-                z = _ld4(rb + g, 4 * kp + t)
+                x = _ld4(ra + g, 4 * kp + t, ld)
+                y = _ld4(ra + g + 8, 4 * kp + t, ld)
+                z = _ld4(rb + g, 4 * kp + t, ld)
                 reads["a"][lane], reads["a8"][lane], reads["b"][lane] = \
                     x, y, z
                 xa, ya, zb = phys_a[x], phys_a[y], phys_b[z]
@@ -1168,16 +1165,16 @@ def test_tf32x3_bwd_fragments_read_what_the_products_need():
             assert acc[lane] == (want[g, 2 * t], want[g, 2 * t + 1],
                                  want[g + 8, 2 * t], want[g + 8, 2 * t + 1])
 
-    # acc (16 x 256) += X·B over B's rows r0 .. r0 + 7, X an accumulator
+    # acc (16 x ld) += X·B over B's rows r0 .. r0 + 7, X an accumulator
     x = rng.integers(-4, 5, (16, 8)).astype(np.float64)
     for r0 in (0, 8, 24):
-        out = np.zeros((16, 256))
+        out = np.zeros((16, ld))
         xa = [(x[g, 2 * t], x[g + 8, 2 * t], x[g, 2 * t + 1],
                x[g + 8, 2 * t + 1]) for _, g, t in _lanes()]
-        for c in range(8):
-            reads0 = {lane: _ld4(r0 + 2 * t, 8 * c + g)
+        for c in range(ld // 32):
+            reads0 = {lane: _ld4(r0 + 2 * t, 8 * c + g, ld)
                       for lane, g, t in _lanes()}
-            reads1 = {lane: _ld4(r0 + 2 * t + 1, 8 * c + g)
+            reads1 = {lane: _ld4(r0 + 2 * t + 1, 8 * c + g, ld)
                       for lane, g, t in _lanes()}
             assert _quarter_conflicts(reads0) == 0
             assert _quarter_conflicts(reads1) == 0
@@ -1191,6 +1188,22 @@ def test_tf32x3_bwd_fragments_read_what_the_products_need():
                         out[g + 8 * (i >> 1), col] = d[lane][i]
         np.testing.assert_array_equal(out, x @ bt[r0:r0 + 8])
 
+
+def test_tf32x3_bwd_fragments_read_what_the_products_need():
+    """The split-TF32 backward's fragment reads, lane by lane, from the
+    swizzled tiles through the hardware's m16n8k8 fragment layout: over the
+    head dim (a_frags on rows r, r + 8 and mma_dims on row r of B, the
+    permuted k indices 4t, 4t+1 | 4t+2, 4t+3 of each 16 dims) every lane's
+    accumulators are S = A·Bᵀ at (g, 2t), (g, 2t + 1), (g + 8, ..); over a
+    tile's rows (mma_rows: S's accumulators as A fragments, B's rows 2t and
+    2t + 1 at columns 32 c + 4 g + u) they are X·B at the permuted columns
+    32 c + 8 t + u and 32 c + 8 t + 4 + u that store_sum writes. Every
+    float4 read of either pattern meets all 8 bank groups in each
+    quarter-warp; a padded row of D + 16 floats (K1's Q and K) would leave
+    3 extra wavefronts a quarter-warp on the second, D + 4 (K1's V) 1 on
+    the first."""
+    _check_fragment_reads(np.random.default_rng(15), 256)
+
     def padded(ld, rows_of, chunk_of):
         return _quarter_conflicts({lane: [rows_of(g, t) * ld
                                           + 4 * chunk_of(g, t)]
@@ -1199,6 +1212,159 @@ def test_tf32x3_bwd_fragments_read_what_the_products_need():
     assert padded(272, lambda g, t: 2 * t, lambda g, t: g) == 12
     assert padded(260, lambda g, t: g, lambda g, t: t) == 4
     assert padded(260, lambda g, t: 2 * t, lambda g, t: g) == 0
+
+
+@pytest.mark.parametrize("ld", [64, 128])
+def test_tf32x3_narrow_bwd_fragments_read_what_the_products_need(ld):
+    """The narrow split-TF32 dQ and dK/dV (f32 D <= 128) read tiles of
+    rows of 64 (D 1-64) or 128 (D 65-128) floats, 16 or 32 float4 chunks,
+    under the same swizzle and fragment layouts as the D-256 kernels:
+    lane by lane through the hardware's m16n8k8, the A fragments of a
+    warp's resident rows (rows g, g + 8, split once), the B reads over the
+    head dim and over a tile's rows give the products they feed, and
+    every float4 read meets all 8 bank groups in each quarter-warp. Rows
+    left unswizzled would put the over-rows read's four rows on one bank
+    group pair: 12 extra wavefronts a warp."""
+    _check_fragment_reads(np.random.default_rng(15), ld)
+    plain = _quarter_conflicts({lane: [2 * t * ld + 4 * g]
+                                for lane, g, t in _lanes()})
+    assert plain == 12
+
+
+def _narrow_pad(d):
+    """The narrow kernels' padded width: 64 up to D 64, else 128."""
+    return 64 if d <= 64 else 128
+
+
+# rows (keys for dQ, queries for dK/dV) of a sub-step of the narrow
+# kernels' plans (csrc/flash_attention_bwd.cu NarrowDq64 ..: 8 x the
+# n-tiles a sub-step), by kernel and padded width
+NARROW_SUB = {("dq", 64): 32, ("dq", 128): 32, ("dkv", 64): 32,
+              ("dkv", 128): 16}
+
+
+def _narrow_plans():
+    """The narrow kernels' plans as csrc/flash_attention_bwd.cu names them:
+    (kernel, DP) -> (rows a stage, n-tiles a sub-step)."""
+    src = (_CSRC / "flash_attention_bwd.cu").read_text()
+    plans = re.findall(r"using Narrow(Dq|Dkv)(64|128) = Tf32Narrow\w+Cfg<"
+                       r"\d+, (\d+), (\d+)>;", src)
+    return {(k.lower(), int(dp)): (int(rows), int(nb))
+            for k, dp, rows, nb in plans}
+
+
+@pytest.mark.parametrize("kernel,dp,kib", [("dq", 64, 96), ("dq", 128, 128),
+                                           ("dkv", 64, 97),
+                                           ("dkv", 128, 96.25)])
+def test_tf32x3_narrow_plans_fit_and_match_the_emulation(kernel, dp, kib):
+    """The narrow split-TF32 dQ and dK/dV plans, read from the csrc text:
+    their shared memory (dQ: Q, dO, two stages of K and V; dK/dV: K, V,
+    two stages of Q, dO and the lse and delta rows) fits the 227 KiB a
+    block may use (two blocks an SM at DP 64), and the sub-step the
+    emulation sums by (``NARROW_SUB``) is the plan's 8 x its n-tiles."""
+    rows, nb = _narrow_plans()[(kernel, dp)]
+    struct = "Tf32NarrowDqCfg" if kernel == "dq" else "Tf32NarrowDkvCfg"
+    smem = _csrc_smem(struct, DP_=dp, BK_=rows, BQ_=rows, NB_=nb)
+    assert smem == kib * 1024 <= tfa.SMEM_PER_BLOCK
+    if dp == 64:
+        assert 2 * smem <= 228 * 1024
+    assert NARROW_SUB[(kernel, dp)] == 8 * nb and rows % (8 * nb) == 0
+
+
+def _tf32x3_narrow_bwd_emulation(q, k, v, do, lse, delta, scale, causal,
+                                 passes=3):
+    """``flash_bwd_dq_tf32x3_narrow_kernel``'s and
+    ``flash_bwd_dkv_tf32x3_narrow_kernel``'s schedules in torch on f32
+    (B, H, T, D), D <= 128, columns zero-padded to 64 or 128; every
+    product in split TF32 (P and dS split too). Each warp owns whole rows
+    of its outputs, so a row's sum runs in one fixed order: dQ over the
+    keys in sub-steps of ``NARROW_SUB`` keys from key 0 (up to the
+    diagonal when causal), S = Q·Kᵀ and dP = dO·Vᵀ, P = exp2(S·scale·log2
+    e − lse·log2 e) masked, dS = P∘(dP − delta)·scale, and the
+    sub-step's dS·K added to dQ; dK/dV over the queries in sub-steps,
+    Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, Pᵀ masked, dSᵀ = Pᵀ∘(dPᵀ − delta)·scale,
+    the sub-step's Pᵀ·dO and dSᵀ·Q added to dV and dK. (A sub-step that
+    causal masking hides from a warp, which the kernels skip, adds exact
+    zeros.) Returns dq, dk, dv."""
+    b, h, t, d = q.shape
+    dp_ = _narrow_pad(d)
+    qf, kf, vf, dof = (torch.nn.functional.pad(x, (0, dp_ - d))
+                       for x in (q, k, v, do))
+    log2e = math.log2(math.e)
+    sl2, l2 = scale * log2e, lse * log2e
+    zero = torch.zeros(())
+    rows = torch.arange(t)
+
+    def mm(a, b_):
+        return _mm_tf32(a, b_, passes)
+
+    dq = torch.zeros((b, h, t, dp_))
+    sub = NARROW_SUB[("dq", dp_)]
+    for j0 in range(0, t, sub):
+        js = slice(j0, min(j0 + sub, t))
+        idx = torch.arange(js.start, js.stop)
+        kt = kf[..., js, :]
+        s = mm(qf, kt.transpose(-1, -2))
+        dpm = mm(dof, vf[..., js, :].transpose(-1, -2))
+        p = torch.exp2(s * sl2 - l2[..., None])
+        if causal:
+            p = torch.where(idx[None, :] <= rows[:, None], p, zero)
+        dq += mm(p * (dpm - delta[..., None]) * scale, kt)
+    dk = torch.zeros((b, h, t, dp_))
+    dv = torch.zeros((b, h, t, dp_))
+    sub = NARROW_SUB[("dkv", dp_)]
+    for j0 in range(0, t, sub):
+        js = slice(j0, min(j0 + sub, t))
+        idx = torch.arange(js.start, js.stop)
+        qt, dot = qf[..., js, :], dof[..., js, :]
+        pt = torch.exp2(mm(kf, qt.transpose(-1, -2)) * sl2
+                        - l2[..., None, js])
+        if causal:
+            pt = torch.where(idx[None, :] >= rows[:, None], pt, zero)
+        dpt = mm(vf, dot.transpose(-1, -2))
+        dv += mm(pt, dot)
+        dk += mm(pt * (dpt - delta[..., None, js]) * scale, qt)
+    return dq[..., :d], dk[..., :d], dv[..., :d]
+
+
+@pytest.mark.parametrize("d", [12, 64, 80, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tf32x3_narrow_backward_meets_the_f32_bars(d, causal):
+    """The narrow split-TF32 f32 dQ and dK/dV (D <= 128, padded to 64 or
+    128), emulated on their own schedules (each row's sum in sub-steps,
+    in order), at T 200 (a ragged last tile) and D 12, 64, 80
+    and 128: dq, dk and dv within the f32 atol 1e-4 of
+    ``flash_attention_bwd_reference`` and of jax.vjp through the JAX
+    package's Pallas backward kernels (interpret mode, 40-row blocks), on
+    the same numpy-seeded inputs."""
+    arrays, (q, k, v, do), lse, delta = _bwd_case(d, causal)
+    scale = d ** -0.5
+    got = _tf32x3_narrow_bwd_emulation(q, k, v, do, lse, delta, scale,
+                                       causal)
+    plain = tfa.flash_attention_bwd_reference(q, k, v, do, lse, delta,
+                                              scale, causal)
+    pallas = _jax_vjp(jfa.flash_attention, arrays[:3],
+                      jnp.asarray(arrays[3]), causal=causal, block_q=40,
+                      block_k=40, interpret=True)
+    for g, p, j in zip(got, plain, pallas):
+        assert g.shape == p.shape
+        assert (g - p).abs().max().item() <= 1e-4
+        np.testing.assert_allclose(g.numpy(), j, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_one_tf32_product_misses_the_narrow_backward_bar(d):
+    """One TF32 product instead of three (P and dS rounded to one TF32)
+    misses the f32 atol 1e-4 at D 64 and 128 as well: the narrow
+    backward needs the split."""
+    _, (q, k, v, do), lse, delta = _bwd_case(d, True)
+    scale = d ** -0.5
+    plain = tfa.flash_attention_bwd_reference(q, k, v, do, lse, delta,
+                                              scale, True)
+    one = _tf32x3_narrow_bwd_emulation(q, k, v, do, lse, delta, scale,
+                                       True, passes=1)
+    assert max((g - p).abs().max().item() for g, p in zip(one, plain)) \
+        > 1e-4
 
 
 # --------------------------------------------- K2 split-K plan (CPU side)
