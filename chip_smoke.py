@@ -48,10 +48,11 @@ Phases, each fatal on failure:
    second launch bit for bit equal; device time of both passes
    (``torch.profiler``) with a call timed by CUDA events beside it;
 3. K1 (causal flash forward; bf16 on the tensor-core kernel up to D 256
-   and on its two-warpgroup wide kernel at 264-512, f32 on the CUDA-core
-   one up to 128, in split TF32 on the tensor cores at 129-256 and on the
-   wide split-TF32 kernel (warp pairs that split O's columns) at
-   257-512, every other head dim on the general CUDA-core kernel)
+   and on its two-warpgroup wide kernel at 264-512, f32 in split TF32 on
+   the tensor cores: the narrow kernel (a warp owns 16 whole rows) up to
+   128, the padded-256 one at 129-256 and the wide one (warp pairs that
+   split O's columns) at 257-512, every other head dim on the general
+   CUDA-core kernel)
    against ``mha_reference``, O and lse, at T 1024/2048, at head dim 80
    (padded to 128 inside the kernel) in both dtypes, at the train path's
    B32 T1024 bf16, at D 160 and 256 in bf16 (padded to 256 on the tensor
@@ -388,9 +389,9 @@ Phases, each fatal on failure:
    BN path's), its B8 raw volume decoded by ``get_predicted_objects`` and
    ``nms``; (b) a MultiLayerNetwork with ``SelfAttentionLayer(n_out=512,
    n_heads=8, impl="pallas")``, causal, B8 T2048, trained in f32 (K1, dQ,
-   dK/dV on the CUDA-core kernels) and in bf16 (the tensor-core ones),
-   replayed = eager, each kernel held against its plain version at the
-   path's shape (f32 timed); (c) a ResNet-50 of plain ``torch.nn``
+   dK/dV on the narrow split-TF32 kernels) and in bf16 (the tensor-core
+   ones), replayed = eager, each kernel held against its plain version at
+   the path's shape (f32 timed); (c) a ResNet-50 of plain ``torch.nn``
    modules exported to ONNX at B1 (opset 13, the TorchScript exporter
    with an empty ``onnx`` stub), read by ``import_onnx`` and served on the
    card at B1 and B32, held to the module's own output; wall and device
@@ -470,6 +471,11 @@ TF32_BWD_SHAPES = tuple((torch.float32, 2, 200, c, d)
 NARROW_BWD_SHAPES = ((torch.float32, 2, 200, True, 16),
                      (torch.float32, 2, 200, False, 128),
                      (torch.float32, 2, 1024, True, 128))
+# the narrow split-TF32 K1's own holds beyond the D 64 and 80 shapes
+# (dtype, B, T, D): padded 64's smallest and 128's widest, T 200 (a ragged
+# last tile)
+NARROW_K1_SHAPES = ((torch.float32, 2, 200, 16),
+                    (torch.float32, 2, 200, 128))
 # the wide dQ's and dK/dV's own holds (dtype, B, T, causal, D): every
 # padded width's edges (bf16 264-384 to 384, 392-512 to 512; f32 264-320
 # to 320, 328-384 to 384, 392-512 to 512), T 200, causal and not
@@ -491,9 +497,9 @@ D320_D_MODEL = 640
 # the phase 3/3b shapes whose times the kernels line and PERF.md's kernel
 # table report (every other shape is held, not timed): a dense prefill's
 # and the train path's, padded 256 and split TF32 at B1 H8 T1024 D256,
-# the f32 CUDA-core kernels at T2048 D64, the wide kernels at D 320 and
-# 512, the general kernels at D 520 (the D 256 and D 320 LMs' B8 H2
-# shapes are always timed)
+# the f32 narrow split-TF32 kernels at T2048 D64, the wide kernels at D
+# 320 and 512, the general kernels at D 520 (the D 256 and D 320 LMs' B8
+# H2 shapes are always timed)
 TIMED_K1 = {(torch.bfloat16, 1, 2048, 64), (torch.bfloat16, 32, 1024, 64),
             (torch.bfloat16, 1, 1024, 256), (torch.float32, 1, 1024, 256),
             (torch.float32, 1, 2048, 64), (torch.float32, 1, 1024, 320),
@@ -1311,9 +1317,8 @@ def lm_setup(tfm, batch, n_heads, n_layers, dtype, d_model=512):
 # launches in a path's counts
 FLASH_NAMES = {"fwd": "flash_attention_fwd", "dq": "flash_attention_bwd_dq",
                "dkv": "flash_attention_bwd_dkv"}
-FAMILY_KEYS = {"wgmma": "tc", "cuda-core": "cuda_core", "tf32x3": "tf32x3",
-               "general": "general", "wgmma-wide": "tc_wide",
-               "tf32x3-wide": "tf32x3_wide"}
+FAMILY_KEYS = {"wgmma": "tc", "tf32x3": "tf32x3", "general": "general",
+               "wgmma-wide": "tc_wide", "tf32x3-wide": "tf32x3_wide"}
 # the TPU kernel each replaces: deeplearning4j_tpu/kernels/flash_attention.py
 FLASH_LINES = {"fwd": 51, "dq": 146, "dkv": 186}
 
@@ -1329,9 +1334,8 @@ def flash_counts(fa):
         for fam, key in FAMILY_KEYS.items():
             out[f"{name}_{key}"] = getattr(fa, fa.launch_counter(kernel, fam),
                                            0)
-        if kernel != "fwd":
-            out[f"{name}_tf32x3_narrow"] = getattr(
-                fa, fa.launch_counter(kernel, "tf32x3", narrow=True))
+        out[f"{name}_tf32x3_narrow"] = getattr(
+            fa, fa.launch_counter(kernel, "tf32x3", narrow=True))
     return out
 
 
@@ -1394,10 +1398,12 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
             paged = pa.LAUNCHES
             final = [(n, p.detach().clone()) for n, p in
                      _named_leaves(params)] if path != "plain" else None
+            launches = replay_counts(per_step, kinds)
             prof = None if path == "plain" else profile_step(
-                lambda: step(params, ids, tgt))
+                lambda: step(params, ids, tgt),
+                expect=expected_flash(launches[-1]))
         run = {"losses": losses, "step_s": secs,
-               "launches_per_step": replay_counts(per_step, kinds),
+               "launches_per_step": launches,
                "paged_launches": paged,
                **way_summary(kinds, secs, tokens, "tok", peak)}
         if prof is not None:
@@ -1428,7 +1434,7 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
     for kn, name in FLASH_NAMES.items():
         kind = fa.route(cfg.head_dim, cfg.dtype, kn)
         want[name] = want[f"{name}_{FAMILY_KEYS[kind]}"] = per[kn]
-        if kind == "tf32x3" and kn != "fwd" and cfg.head_dim <= 128:
+        if kind == "tf32x3" and cfg.head_dim <= 128:
             want[f"{name}_tf32x3_narrow"] = per[kn]
     failed = []
     if not finite or not rels[worst] <= TRAIN_GRAD_REL_L2:
@@ -1549,7 +1555,8 @@ def add_profile(rec, prof):
     rec["device_ms_per_step"] = prof["device_ms_per_step"]
     rec["busy_share"] = prof["device_ms_per_step"] / rec["wall_ms_per_step"]
     for key in ("k4_device_ms", "k4_share_of_device", "flash_device_ms",
-                "flash_share_of_device", "flash_kernels_ms"):
+                "flash_share_of_device", "flash_kernels_ms",
+                "profile_tries", "device_ms_from"):
         if key in prof:
             rec[key] = prof[key]
 
@@ -1575,22 +1582,79 @@ def flash_kernel_ms(prof, steps=1):
             for k, (us, n) in flash.items()}
 
 
-def profile_step(fn, k4=False):
+# each flash kernel's name in a trace starts with its kind's prefix
+FLASH_TRACE_PREFIX = {"fwd": "flash_fwd_", "dq": "flash_bwd_dq_",
+                      "dkv": "flash_bwd_dkv_"}
+# traces profile_step takes before it falls back to CUDA events: the
+# first trace of a replayed step has lacked its first kernels (K1 among
+# them) in some processes, and a second trace held them all
+PROFILE_TRIES = 3
+
+
+def _flash_launches():
+    """The flash launch counters of the port on ``sys.path``, by kind."""
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    return {k: getattr(fa, c) for k, c in (
+        ("fwd", "LAUNCHES"), ("dq", "LAUNCHES_BWD_DQ"),
+        ("dkv", "LAUNCHES_BWD_DKV"))}
+
+
+def expected_flash(counts):
+    """The flash launches by kind in a path's counts (``FLASH_NAMES``
+    keys), as :func:`profile_step` takes them."""
+    return {k: counts.get(name, 0) for k, name in FLASH_NAMES.items()}
+
+
+def profile_step(fn, k4=False, expect=None):
     """One call of ``fn`` under ``torch.profiler``: wall and device ms
     (kernels and copies, graph replays' included), busy share, top
     kernels, the flash kernels' device ms by kernel and their share of
     the device time where any ran; with ``k4`` also K4's device ms and
-    share of the device time."""
+    share of the device time. The trace is held against the launch
+    counters: it must hold each flash kind (K1, dQ, dK/dV) as many times
+    as the wrappers launched it during the call or, for a replay (which
+    moves no counter), as ``expect`` says (launches by kind, its
+    capture's). A trace that holds fewer is taken again (the call runs
+    again), ``PROFILE_TRIES`` times in all; ``profile_tries`` says how
+    many it took. After that many short traces no trace is reported: the
+    call is timed once more by CUDA events (its span on the device, idle
+    gaps included), ``device_ms_from`` says so, and the log too."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for attempt in range(1, PROFILE_TRIES + 1):
+        before = _flash_launches()
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        flash = flash_kernel_ms(prof)
+        want = expect or {k: n - before[k]
+                          for k, n in _flash_launches().items()}
+        traced = {k: sum(v["calls_per_step"] for name, v in flash.items()
+                         if name.startswith(pre))
+                  for k, pre in FLASH_TRACE_PREFIX.items()}
+        short = {k: (traced[k], n) for k, n in want.items() if traced[k] < n}
+        if not short:
+            break
+        log(f"profile_step: trace {attempt} of {PROFILE_TRIES} holds "
+            f"fewer flash kernels than launched (traced, launched): "
+            f"{short}")
+    else:
+        log(f"profile_step: {PROFILE_TRIES} traces held fewer flash "
+            f"kernels than launched: this call is timed by CUDA events")
+        t0 = time.perf_counter()
+        span = cuda_ms(fn, iters=1, warmup=0)
         wall = time.perf_counter() - t0
+        return {"steps": 1, "wall_ms_per_step": wall * 1e3,
+                "device_ms_per_step": span,
+                "device_busy_share": span / (wall * 1e3),
+                "top_kernels": [], "profile_tries": PROFILE_TRIES,
+                "device_ms_from": "CUDA events: the call's span on the "
+                                  "device, the traces having lost kernels"}
     out = device_rows(prof, wall, 1)
-    flash = flash_kernel_ms(prof)
+    out["profile_tries"] = attempt
     if flash:
         out["flash_kernels_ms"] = {k: v["ms_per_step"]
                                    for k, v in flash.items()}
@@ -1894,17 +1958,20 @@ def flash_times(root):
     checked out at ROOT (its kernels build under ROOT), on the kernel
     family its route picks there (a tree before the wide backward runs
     the general dQ and dK/dV past 256); f32 causal at head dim <= 128, at
-    B1 H8 T2048 D64, B8 H8 T2048 D64 (the attention layer's path) and B1
-    H8 T1024 D128, with SDPA's whole backward beside them; the D 256 and
-    D 320 LMs' train steps (phase 6's ``train_d256``, ``train_d320`` and
-    their f32 twins) profiled on ROOT's port in each dtype: device time a
-    step and its flash kernels' share; phase 19's attention net in f32
-    (B8 T2048 C512 H8, D 64), three replayed steps each profiled: device
-    ms a step and its flash kernels'; then
-    digests of K1's outputs (O, lse) on every route and of the backward's
-    (dQ, dK, dV), keyed by the route each ran, at B1 H2 T256 on seeded
-    inputs, and of K2's outputs at Dh 64, 128 and 256 in bf16 and f32, so
-    that two trees' kernels are held bit for bit where their routes agree.
+    B1 H8 T2048 D64, B8 H8 T2048 D64 (the attention layer's path), B1
+    H8 T1024 D128 and B1 H8 T2048 D16 and D32 (the narrowest, padded to
+    64), with SDPA's forward and whole backward beside them;
+    the D 256 and D 320 LMs' train steps (phase 6's ``train_d256``,
+    ``train_d320`` and their f32 twins) profiled on ROOT's port in each
+    dtype: device time a step and its flash kernels' share; phase 19's
+    attention net in f32 (B8 T2048 C512 H8, D 64), three replayed steps
+    each profiled (each trace held against the capture's launches):
+    device ms a step and its flash kernels'; then digests
+    of K1's outputs (O, lse) on every route and of the backward's (dQ,
+    dK, dV) from K1's and from the plain forward's O and lse, keyed by
+    the route each ran, at B1 H2 T256 on seeded inputs, and of K2's
+    outputs at Dh 64, 128 and 256 in bf16 and f32, so that two trees'
+    kernels are held bit for bit where their routes agree.
     Two versions are compared in one run: parent, change, change, parent.
     Prints one JSON line."""
     import hashlib
@@ -1944,7 +2011,8 @@ def flash_times(root):
             torch.cuda.empty_cache()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     for b, h, t, d in ((1, 8, 2048, 64), (ATTN_B, ATTN_H, ATTN_T, 64),
-                       (1, 8, 1024, 128)):
+                       (1, 8, 1024, 128), (1, 8, 2048, 16),
+                       (1, 8, 2048, 32)):
         q, k, v, do = (torch.randn((b, h, t, d), generator=gen,
                                    device="cuda") for _ in range(4))
         scale = d ** -0.5
@@ -1959,6 +2027,8 @@ def flash_times(root):
         for name, fn in fns.items():
             row[name] = {"route": fa.route(d, torch.float32, name),
                          "ms": device_ms(fn), "call_ms": cuda_ms(fn)}
+        row["sdpa_fwd_ms"] = device_ms(lambda: sdpa(q, k, v,
+                                                    is_causal=True))
         qs, ks, vs = (x.clone().requires_grad_(True) for x in (q, k, v))
         out = sdpa(qs, ks, vs, is_causal=True)
         row["sdpa_bwd_ms"] = device_ms(lambda: torch.autograd.grad(
@@ -1990,7 +2060,8 @@ def flash_times(root):
     digests = {}
     for dtype, d in ((torch.bfloat16, 64), (torch.bfloat16, 256),
                      (torch.bfloat16, 12), (torch.bfloat16, 320),
-                     (torch.float32, 64), (torch.float32, 130),
+                     (torch.float32, 64), (torch.float32, 128),
+                     (torch.float32, 130),
                      (torch.float32, 256), (torch.float32, 320)):
         g2 = torch.Generator(device="cuda").manual_seed(d)
         q, k, v, do = (torch.randn((1, 2, 256, d), generator=g2,
@@ -2008,6 +2079,16 @@ def flash_times(root):
         # forward's route too
         digests[f"bwd {tag} {fa.route(d, dtype, 'dq')} (k1 "
                 f"{fa.route(d, dtype, 'fwd')})"] = digest(dq, dk, dv)
+        # and from the plain forward's O and lse: the backward alone, held
+        # whatever K1's route
+        o, lse = fa.mha_reference_lse(q, k, v, causal=True)
+        delta = (do.float() * o.float()).sum(-1).contiguous()
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, d ** -0.5,
+                                       True)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                            d ** -0.5, True)
+        digests[f"bwd {tag} {fa.route(d, dtype, 'dq')} (plain forward)"] = \
+            digest(dq, dk, dv)
     for dtype in (torch.bfloat16, torch.float32):
         for dh in (64, 128, 256):
             g2 = torch.Generator(device="cuda").manual_seed(dh)
@@ -2023,8 +2104,9 @@ def attention_step_times(dtype, replays=3):
     """Phase 19's attention net (``SelfAttentionLayer(impl="pallas")``,
     B8 T2048 C512 H8, causal) in ``dtype``, on the port on ``sys.path``:
     three fit steps (eager, capture, replay), then ``replays`` replayed
-    steps, each profiled alone: device ms a step and its flash kernels'
-    device ms, by kernel."""
+    steps, each profiled alone and its trace held against the capture's
+    launches: device ms a step and its flash kernels' device ms, by
+    kernel."""
     from deeplearning4j_tpu_torch.data import DataSet
     from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
     rng = np.random.default_rng(19)
@@ -2035,13 +2117,21 @@ def attention_step_times(dtype, replays=3):
         ATTN_CLASSES).float()
     ds = DataSet(x, y)
     net = MultiLayerNetwork(_attn_conf(dtype)).init((ATTN_T, ATTN_C))
-    for _ in range(3):
-        net.fit([ds])
-    profs = [profile_step(lambda: net.fit([ds])) for _ in range(replays)]
+    net.fit([ds])
+    # a replay launches what its capture launched
+    before = _flash_launches()
+    net.fit([ds])
+    captured = {k: n - before[k] for k, n in _flash_launches().items()}
+    net.fit([ds])
+    profs = [profile_step(lambda: net.fit([ds]), expect=captured)
+             for _ in range(replays)]
     out = {"shape": f"B{ATTN_B} T{ATTN_T} C{ATTN_C} H{ATTN_H} causal "
                     f"{str(dtype)[6:]}", "way": net._step_fn.last,
            "device_ms_per_step": [p["device_ms_per_step"] for p in profs],
            "flash_device_ms": [p.get("flash_device_ms") for p in profs],
+           "profile_tries": [p["profile_tries"] for p in profs],
+           "device_ms_from": [p.get("device_ms_from", "trace")
+                              for p in profs],
            "flash_kernels_ms": profs[-1].get("flash_kernels_ms")}
     del net, ds, x, y
     gc.collect()
@@ -6797,10 +6887,11 @@ def _zoo_fit_way(make_net, ds, graphs, counts, steps=ZOO_STEPS):
         torch.cuda.synchronize()
         rec = steplog.record(int(ds.features.shape[0]))
         final = _all_tensors(net)
-        if graphs:
-            net.set_listeners()
-            add_profile(rec, profile_step(lambda: net.fit([ds])))
     per = steplog.per_step()
+    if graphs:
+        net.set_listeners()
+        add_profile(rec, profile_step(lambda: net.fit([ds]),
+                                      expect=expected_flash(per[-1])))
     rec["retraces_after_warm"] = sentinel.retraces_after_warm
     rec["launches_per_step"] = {k: v for k, v in per[-1].items() if v}
     total = {k: sum(p[k] for p in per) for k in per[0]}
@@ -7011,8 +7102,8 @@ def _attn_conf(dtype):
 def zoo_attention(fa, pa, fo, gen, failed):
     """Phase 19 (b): a MultiLayerNetwork with ``SelfAttentionLayer(n_out
     512, n_heads 8, impl="pallas")``, causal, T 2048 B8, trained
-    replayed and eager in f32 (K1 on the CUDA-core kernel, dQ and dK/dV
-    in split TF32) and under ``compute_dtype=torch.bfloat16`` (the
+    replayed and eager in f32 (K1, dQ and dK/dV on the narrow split-TF32
+    kernels) and under ``compute_dtype=torch.bfloat16`` (the
     tensor-core ones); each kernel launched once a step on its own route's
     family and on no other; each held against its plain version at the
     path's shape (f32 timed)."""
@@ -7039,7 +7130,7 @@ def zoo_attention(fa, pa, fo, gen, failed):
             fam = FAMILY_KEYS[fa.route(d, dtype, kernel)]
             others = {f"{name}_{f}" for f in FAMILY_KEYS.values()} \
                 - {f"{name}_{fam}"}
-            if fam == "tf32x3" and kernel != "fwd":
+            if fam == "tf32x3":
                 fam = "tf32x3_narrow"  # the narrow kernel's own count
             if per.get(name) != 1 or per.get(f"{name}_{fam}") != 1 \
                     or any(per.get(o) for o in others):
@@ -7401,7 +7492,7 @@ def main():
             (torch.float32, 1, 2048, 64), (torch.float32, 2, 2048, 64),
             (torch.bfloat16, 2, 1024, 80), (torch.float32, 2, 1024, 80),
             (torch.bfloat16, 32, 1024, 64),      # the train path's
-            *WIDE_SHAPES, *WIDE_K1_SHAPES):
+            *NARROW_K1_SHAPES, *WIDE_SHAPES, *WIDE_K1_SHAPES):
         k1[(dt, b, t, d)] = check_flash(
             fa, dt, b, t, gen, d=d, time_it=(dt, b, t, d) in TIMED_K1)
         torch.cuda.empty_cache()
@@ -7562,9 +7653,9 @@ def main():
                    if route == "cluster" else {})}
     # the padded-256 kernels at B1 H8 T1024 D256 and the D 256 LM's, in
     # bf16 (tensor cores) and f32 (split TF32); the wide kernels at B1 H8
-    # T1024 D320 and the D 320 LM's (D 512 beside them); the f32
-    # CUDA-core K1 and the narrow split-TF32 dQ and dK/dV at B1 H8 T2048
-    # D64; the general kernels at a D they still serve (f32 D 520)
+    # T1024 D320 and the D 320 LM's (D 512 beside them); the narrow
+    # split-TF32 K1, dQ and dK/dV at B1 H8 T2048 D64; the general kernels
+    # at a D they still serve (f32 D 520)
     d256 = (torch.bfloat16, 1, 1024, 256)
     wide_k1 = {"wgmma": k1[d256],
                "tf32x3": k1[(torch.float32, 1, 1024, 256)]}
@@ -7584,12 +7675,11 @@ def main():
     def launches_of(name, kind, wide=None):
         """Launches of ``name`` (a FLASH_NAMES value) on ``kind`` by path;
         with ``wide``, of the padded-256 kernel (True) or of the kernel at
-        D <= 128 of the same family (False): the split-TF32 dQ's and
-        dK/dV's from the narrow kernels' own count, bf16's by the D 256
-        LMs' paths."""
+        D <= 128 of the same family (False): the split-TF32 kernels'
+        from the narrow kernels' own count, bf16's by the D 256 LMs'
+        paths."""
         key = f"{name}_{FAMILY_KEYS[kind]}"
-        if kind == "tf32x3" and wide is not None and name != FLASH_NAMES[
-                "fwd"]:
+        if kind == "tf32x3" and wide is not None:
             narrow = f"{key}_narrow"
             return {p: c.get(narrow, 0) if not wide
                     else c.get(key, 0) - c.get(narrow, 0)
@@ -7643,7 +7733,7 @@ def main():
         entry("fwd", "tf32x3", "_tf32x3_f32", "flash_fwd_tf32x3_kernel (f32 "
               "D 129-256, split-TF32 tensor-core products, padded D 256)",
               torch.float32, k1, "B1 H8 T1024 D256 f32", wide_k1["tf32x3"],
-              lm=("B8 H2 T1024 D256 f32", wide_k1_lm["tf32x3"])),
+              wide=True, lm=("B8 H2 T1024 D256 f32", wide_k1_lm["tf32x3"])),
         entry("fwd", "wgmma-wide", "_wide", "flash_fwd_wgmma_kernel<384|512, "
               "32> (bf16 D 264-512, two warpgroups that split O's "
               "columns)", torch.bfloat16, k1, "B1 H8 T1024 D320 bf16",
@@ -7657,9 +7747,12 @@ def main():
               k1[(torch.float32, 1, 1024, 320)],
               lm=("B8 H2 T1024 D320 f32", k1[D320_LM_F32]),
               more={"d512": k1[(torch.float32, 1, 1024, 512)]}),
-        entry("fwd", "cuda-core", "_f32", "flash_fwd_kernel (f32 D <= 128, "
-              "CUDA cores)", torch.float32, k1, "B1 H8 T2048 D64 f32",
-              f32_k1, more={"attention_layer_path": zoo_held["f32"]["fwd"]}),
+        entry("fwd", "tf32x3", "_tf32x3_narrow_f32", "flash_fwd_tf32x3_"
+              "narrow_kernel (f32 D <= 128, split-TF32 tensor-core "
+              "products, padded D 64 or 128, a warp owns 16 whole rows)",
+              torch.float32, k1, "B1 H8 T2048 D64 f32 causal", f32_k1,
+              wide=False,
+              more={"attention_layer_path": zoo_held["f32"]["fwd"]}),
         entry("fwd", "general", "_general_f32", "flash_fwd_general_kernel "
               "(D past 512, bf16 D % 8 != 0; CUDA cores)", torch.float32, k1,
               "B1 H8 T1024 D520 f32", gen_k1),

@@ -107,6 +107,11 @@
 namespace {
 
 using dl4j_mma::Str;
+using dl4j_tf32::a_frags;
+using dl4j_tf32::ld4;
+using dl4j_tf32::mma_dims;
+using dl4j_tf32::mma_rows_rn;
+using dl4j_tf32::store_rows;
 
 // ----------------------------- bf16 dK/dV, warpgroup MMA (wgmma)
 
@@ -1447,53 +1452,6 @@ __device__ __forceinline__ void add4(float (&x)[4], float4 y) {
   x[3] += y.w;
 }
 
-// the float4 at chunk c of row r of a swizzled tile of rows of LD floats
-// (a multiple of 32: every row starts on bank 0)
-template <int LD = dl4j_tf32::kD>
-__device__ __forceinline__ float4 ld4(const float* tile, int r, int c) {
-  static_assert(LD % 32 == 0, "rows of whole 32-float bank lines");
-  return *reinterpret_cast<const float4*>(
-      tile + r * LD + 4 * (c ^ dl4j_tf32::swz(r)));
-}
-
-// the A fragments of a pair of k-steps (16 dims at 16 kp) of rows r and
-// r + 8 of a swizzled tile, split: k-step 0 takes dims 4t, 4t+1, k-step 1
-// 4t+2, 4t+3
-template <int LD = dl4j_tf32::kD>
-__device__ __forceinline__ void a_frags(const float* tile, int r, int kp,
-                                        int t4, uint32_t (&ah)[2][4],
-                                        uint32_t (&al)[2][4]) {
-  using dl4j_tf32::split_tf32;
-  const float4 x = ld4<LD>(tile, r, 4 * kp + t4);
-  const float4 y = ld4<LD>(tile, r + 8, 4 * kp + t4);
-  split_tf32(x.x, ah[0][0], al[0][0]);
-  split_tf32(y.x, ah[0][1], al[0][1]);
-  split_tf32(x.y, ah[0][2], al[0][2]);
-  split_tf32(y.y, ah[0][3], al[0][3]);
-  split_tf32(x.z, ah[1][0], al[1][0]);
-  split_tf32(y.z, ah[1][1], al[1][1]);
-  split_tf32(x.w, ah[1][2], al[1][2]);
-  split_tf32(y.w, ah[1][3], al[1][3]);
-}
-
-// d (16 x 8) += A·Bᵀ over that pair of k-steps, with B's row r of a
-// swizzled tile (column g of the product) at the same dims
-template <int LD = dl4j_tf32::kD>
-__device__ __forceinline__ void mma_dims(float (&d)[4], const float* tile,
-                                         int r, int kp, int t4,
-                                         const uint32_t (&ah)[2][4],
-                                         const uint32_t (&al)[2][4]) {
-  using dl4j_tf32::split_tf32;
-  const float4 x = ld4<LD>(tile, r, 4 * kp + t4);
-  uint32_t bh[4], bl[4];
-  split_tf32(x.x, bh[0], bl[0]);
-  split_tf32(x.y, bh[1], bl[1]);
-  split_tf32(x.z, bh[2], bl[2]);
-  split_tf32(x.w, bh[3], bl[3]);
-  dl4j_tf32::mma_3xtf32(d, ah[0], al[0], bh[0], bh[1], bl[0], bl[1]);
-  dl4j_tf32::mma_3xtf32(d, ah[1], al[1], bh[2], bh[3], bl[2], bl[3]);
-}
-
 // acc (16 x 32 NG, permuted columns) += X·B, X an accumulator fragment
 // (16 x 8: rows g, g + 8 of columns 2t, 2t + 1) summed over B's rows
 // r0 .. r0 + 7 of a swizzled tile: column 2t of X is k index t (B's row
@@ -1981,10 +1939,11 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
 // product runs on the tensor cores in split TF32 (flash_tf32.cuh: three
 // mma.sync m16n8k8 a product, P and dS split too), in the fragment
 // layouts, k-index permutations and swizzle of the D-256 kernels above
-// (a_frags, mma_dims, mma_rows): swz permutes only a chunk index's low
-// three bits, so rows of 16 (DP 64) and 32 (DP 128) float4 chunks, like
-// rows of 64, meet all 8 bank groups in each quarter-warp in both read
-// patterns (over the head dim, and over a tile's rows).
+// (a_frags and mma_dims of flash_tf32.cuh, mma_rows): swz permutes only
+// a chunk index's low three bits, so rows of 16 (DP 64) and 32 (DP 128)
+// float4 chunks, like rows of 64, meet all 8 bank groups in each
+// quarter-warp in both read patterns (over the head dim, and over a
+// tile's rows).
 //
 // What bounds them on the card: the tensor cores' operations, three TF32
 // products per f32 multiply-add (495 TFLOP/s dense), and beside them the
@@ -2004,82 +1963,15 @@ flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
 // split in registers for the whole loop (2 x 64 registers a thread at DP
 // 64, 256 at DP 128), and each landed stage split once into hi and lo
 // planes in shared memory (twice the streamed tiles' shared-memory reads,
-// a pass and a barrier a stage). Each output's long sum over T is added
-// once a sub-step in f32 (mma_rows_rn). Four warps a block (64 rows), two
-// blocks an SM at DP 64; the streamed tiles go through a double-buffered
-// cp.async ring (16-byte copies where every row is 16-byte aligned, else
-// 4-byte ones). A warp skips the sub-steps causal masking hides from all
-// of its rows, and the grid's slow dimension walks the heaviest tiles
-// first. No atomics, one owner a row: a second launch is bit-identical.
-// On the H100 they run at 3.1-3.2x their TF32 bound (PERF.md).
-
-// acc (16 x 32 NG, permuted columns) += Σ_n X_n·B_n as mma_rows adds one
-// term, X_n (NB accumulator fragments) summed over B's rows r0 + 8 n ..
-// r0 + 8 n + 7: the NB terms summed on the tensor cores into a zeroed
-// fragment, then added to acc by one f32 addition. The tensor cores'
-// accumulation truncates (rounds toward zero), so a sum over thousands
-// of keys or queries kept in their accumulator drifts by a bias that
-// grows with T (1.3e-4 at T 2048, past the f32 atol); added in f32 once
-// a sub-step, the long sum rounds to nearest.
-template <int LD, int NB, int NG = LD / 32>
-__device__ __forceinline__ void mma_rows_rn(float (&acc)[NG][4][4],
-                                            const float (&x)[NB][4],
-                                            const float* tile, int r0, int g,
-                                            int t4) {
-  using dl4j_tf32::split_tf32;
-#pragma unroll
-  for (int c = 0; c < NG; ++c) {
-    float part[4][4];
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[u][e] = 0.f;
-#pragma unroll
-    for (int n = 0; n < NB; ++n) {
-      uint32_t xh[4], xl[4];
-      split_tf32(x[n][0], xh[0], xl[0]);  // row g, column 2t: k index t
-      split_tf32(x[n][2], xh[1], xl[1]);  // row g + 8, column 2t
-      split_tf32(x[n][1], xh[2], xl[2]);  // row g, 2t + 1: k index t + 4
-      split_tf32(x[n][3], xh[3], xl[3]);  // row g + 8, column 2t + 1
-      const int r = r0 + 8 * n + 2 * t4;
-      const float4 b0 = ld4<LD>(tile, r, 8 * c + g);
-      const float4 b1 = ld4<LD>(tile, r + 1, 8 * c + g);
-      const float x0[4] = {b0.x, b0.y, b0.z, b0.w};
-      const float x1[4] = {b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        uint32_t bh0, bl0, bh1, bl1;
-        split_tf32(x0[u], bh0, bl0);
-        split_tf32(x1[u], bh1, bl1);
-        dl4j_tf32::mma_3xtf32(part[u], xh, xl, bh0, bh1, bl0, bl1);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[c][u][e] += part[u][e];
-  }
-}
-
-// store a warp's 16 rows (row0 + g, row0 + g + 8: those < T) of an
-// output held as mma_rows accumulates it, the columns < dr
-template <int NG>
-__device__ __forceinline__ void store_rows(float* out, long long st,
-                                           const float (&acc)[NG][4][4],
-                                           int row0, int g, int t4,
-                                           int Tlen, int dr) {
-#pragma unroll
-  for (int c = 0; c < NG; ++c)
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = row0 + g + 8 * (i >> 1);
-        const int col = 32 * c + 8 * t4 + 4 * (i & 1) + u;
-        if (row < Tlen && col < dr)  // the padded columns are never written
-          out[row * st + col] = acc[c][u][i];
-      }
-}
+// a pass and a barrier a stage). Each output's long sum over T is added once
+// a sub-step in f32 (mma_rows_rn, flash_tf32.cuh). Four warps a block (64
+// rows), two blocks an SM at DP 64; the streamed tiles go through a
+// double-buffered cp.async ring (16-byte copies where every row is 16-byte
+// aligned, else 4-byte ones). A warp skips the sub-steps causal masking
+// hides from all of its rows, and the grid's slow dimension walks the
+// heaviest tiles first. No atomics, one owner a row: a second launch is
+// bit-identical. On the H100 they run at 3.1-3.2x their TF32 bound
+// (PERF.md).
 
 // dQ: a block owns one (b*h, 64-query tile) and warp w its rows 16 w ..
 // 16 w + 15. K and V stream in stages of BK keys, each taken in sub-steps

@@ -1,8 +1,8 @@
 // Causal flash-attention forward (K1) for Hopper (sm_90a), plain C
 // interface: a bf16 kernel on the tensor cores (warpgroup MMA; two
-// warpgroups past D 256), an f32 kernel on the CUDA cores up to D 128 and
-// an f32 kernel of split-TF32 tensor-core products at D 129..256 and its
-// column-split form at 257..512, chosen by dtype and head dim.
+// warpgroups past D 256) and f32 kernels of split-TF32 tensor-core
+// products (one warp a 16-row group up to D 128, a key split at D
+// 129..256, a column split at 257..512), chosen by dtype and head dim.
 //
 // Replaces the TPU kernel `_fwd_kernel` of
 // deeplearning4j_tpu/kernels/flash_attention.py (launched by `_fwd`):
@@ -60,12 +60,11 @@
 // steps would take 240 KiB there). A half starts on a 64-column panel,
 // so D 264..384 pads to 384 and 392..512 to 512.
 //
-// f32 up to D 128 (flash_fwd_kernel): the CUDA-core kernel of the first
-// port, two threads per query row, K/V tiles through shared memory as f32,
-// f32 FMAs. f32 at D 129..256 (flash_fwd_tf32x3_kernel): the tensor cores
-// in three TF32 products per f32 product (hi·hi + hi·lo + lo·hi of each
-// operand's split into two TF32 halves), whose error stays near f32's own
-// and inside the f32 tolerance of 1e-4 that one TF32 product would break.
+// f32 up to D 128 (flash_fwd_tf32x3_narrow_kernel) and at D 129..256
+// (flash_fwd_tf32x3_kernel): the tensor cores in three TF32 products per f32
+// product (hi·hi + hi·lo + lo·hi of each operand's split into two TF32
+// halves), whose error stays near f32's own and inside the f32 tolerance of
+// 1e-4 that one TF32 product would break.
 //
 // All take the batch, head and time strides of q, k, v and o (the last
 // dimension contiguous), so the (B, T, H, D) views of one qkv buffer the
@@ -73,23 +72,23 @@
 // bases and strides (the Python wrapper checks them and raises).
 //
 // Head dims: like the Pallas block (1, bq, d), any D whose tiles fit in a
-// block's shared memory. The bf16 kernel takes D up to 512 and the f32
-// CUDA-core kernel D up to 128 (bf16: a multiple of 8, 16-byte rows); each is
-// instantiated on the padded width DP in {16, 32, 64, 128} (bf16 also 256,
-// 384, 512; padded_dim, wide_padded_dim) and told the real D: loaders fill the columns in [D, DP) with
-// zeros (the cp.async src-size 0 of flash_mma.cuh in bf16, a guard in f32),
-// the zeros add nothing to Q·Kᵀ, the padded columns of O stay zero and are
-// never stored, and the scale is the real 1/sqrt(D) the wrapper passes. At
-// DP 256, O is 128 f32 accumulators a thread (m64n256k16, four 64-column
-// panels of V in one product) beside S's 32. The split-TF32 kernel runs
-// padded to 256 too and takes any f32 D in 129..256 and any strides
-// (element-wise copies where rows are not whole 16-byte chunks); f32 D
-// 257..512 runs its column-split form (flash_fwd_tf32x3_wide_kernel,
-// padded to 320, 384 or 512). Every other D (past 512, or bf16 not a
-// multiple of 8) runs the head-dim-
-// general CUDA-core kernel (flash_fwd_general_kernel, flash_general.cuh):
-// tiles and the O accumulator in dynamic shared memory, R = 64..8 query and
-// key rows by D, element-by-element loads in the input dtype, f32 math.
+// block's shared memory. The bf16 kernel takes D up to 512 (a multiple of 8,
+// 16-byte rows), instantiated on the padded width DP in {16, 32, 64, 128,
+// 256, 384, 512} (padded_dim, wide_padded_dim); the narrow f32 kernel D up
+// to 128 on DP 64 or 128. Each is told the real D: loaders fill the columns
+// in [D, DP) with zeros (the cp.async src-size 0 of flash_mma.cuh), the
+// zeros add nothing to Q·Kᵀ, the padded columns of O stay zero and are never
+// stored, and the scale is the real 1/sqrt(D) the wrapper passes. At DP 256,
+// O is 128 f32 accumulators a thread (m64n256k16, four 64-column panels of V
+// in one product) beside S's 32. The D 129..256 split-TF32 kernel runs
+// padded to 256 too; the f32 kernels take any strides (element-wise copies
+// where rows are not whole 16-byte chunks); f32 D 257..512 runs its
+// column-split form (flash_fwd_tf32x3_wide_kernel, padded to 320, 384 or
+// 512). Every other D (past 512, or bf16 not a multiple of 8) runs the
+// head-dim-general CUDA-core kernel (flash_fwd_general_kernel,
+// flash_general.cuh): tiles and the O accumulator in dynamic shared memory,
+// R = 64..8 query and key rows by D, element-by-element loads in the input
+// dtype, f32 math.
 
 #include "flash_general.cuh"
 #include "flash_mma.cuh"
@@ -333,144 +332,251 @@ int launch_bf16(int D, int BH, int Tlen, cudaStream_t s, const void* q,
 #undef DL4J_WGMMA
 }
 
-// --------------------------------------------------- f32, CUDA cores
+// ------------- f32 at D 1..128, split TF32, a warp owns 16 whole rows
 
-constexpr int kThreads = 128;
-constexpr int kBQ = 64;  // query rows per block (two threads per row)
+// Three TF32 products for each f32 product (flash_tf32.cuh), padded to
+// DP = 64 (D 1..64) or 128 (D 65..128): the loaders zero-fill the columns
+// past D, which add nothing to Q·Kᵀ, stay zero in O and are never stored.
+//
+// What bounds it on the card: the tensor cores' operations, three TF32
+// products per f32 multiply-add (495 TFLOP/s dense; 3 x 4·D per live
+// (query, key) pair), and beside them the instructions that split each
+// operand (three a float) and the shared-memory reads that feed the
+// products. The D 129..256 kernel below splits every step's keys between
+// two warps of each 16-row group and merges their (max, sum, O) at the
+// end, a plan shaped by a 256-wide O's 128 registers a thread; at D <= 128
+// a warp's 16 rows of O are DP / 2 f32 registers a thread, so here, as in
+// the narrow dQ and dK/dV (flash_attention_bwd.cu), warp w owns query
+// rows 16 w .. 16 w + 15 whole for the whole loop: no key split, no merge,
+// each row's sum taken in one fixed order.
+//
+// A block owns one (b*h, 64-query tile), four warps. Q stays in shared
+// memory; K and V stream in stages of BK keys through a double-buffered
+// cp.async ring (16-byte copies where every row is 16-byte aligned, else
+// 4-byte ones), every tile in rows of DP floats under the swizzle of
+// flash_tf32.cuh. A stage is taken in sub-steps of NB n-tiles of 8 keys:
+//   S (16 x 8 NB) = Q·Kᵀ in split TF32, Q's rows g and g + 8 read and
+//     split by the warp that owns them once a sub-step (a_frags), each A
+//     fragment feeding the NB n-tiles, K split as it is read (mma_dims);
+//   S scaled into log2 units (scale·log2 e folded in), masked where the
+//     sub-step crosses the diagonal or T;
+//   the online softmax on S's fragments in f32: the running max and sum
+//     of rows g and g + 8 in registers, exp2, the row sums over the f32 P;
+//   O = O·corr + P·V: P splits into hi and lo as the A fragments of P·V
+//     (S's accumulators as they stand: key 2t is k index t, 2t + 1 is
+//     t + 4) over V's rows of the sub-step (mma_rows_rn); the sub-step's
+//     terms are summed on the tensor cores into a zeroed fragment and
+//     added to O in f32, since the tensor cores' accumulation truncates
+//     and a 2048-key sum kept in it drifts past the f32 atol.
+// A warp skips the sub-steps that causal masking hides from all of its
+// rows; the block stops at the diagonal, and the grid's slow dimension
+// walks the query tiles heaviest first. No atomics: a second launch is
+// bit-identical. The plans (BK and NB) are the NarrowFwd64 and
+// NarrowFwd128 lines below; the launch bounds ask for as many blocks an
+// SM as the shared memory allows, at most 2, which caps the registers a
+// thread. On the H100 it runs at 3.4x its TF32
+// bound at B8 H8 T2048 D64 causal, 0.6x SDPA's forward (PERF.md).
+template <int DP_, int BK_, int NB_>
+struct Tf32NarrowFwdCfg {
+  static constexpr int DP = DP_;
+  static constexpr int BQ = 64;         // query rows: 4 warps of 16
+  static constexpr int BK = BK_;        // keys a stage
+  static constexpr int NB = NB_;        // 8-key n-tiles a sub-step
+  static constexpr int THREADS = 128;
+  // Q, then two stages of (K, V)
+  static constexpr int SMEM = (BQ * DP + 2 * 2 * BK * DP) * 4;
+  // blocks an SM the shared memory allows (228 KiB an SM, 1 KiB of it
+  // reserved a block)
+  static constexpr int FIT = 233472 / (SMEM + 1024);
+  // the launch bounds' blocks an SM
+  static constexpr int BLOCKS_SM = FIT < 2 ? FIT : 2;
+  static_assert(BK % (8 * NB) == 0, "whole sub-steps a stage");
+  static_assert(BLOCKS_SM >= 1, "a block fits an SM");
+};
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int H, int Tlen, int dr, Str sq,
-                 Str sk, Str sv, Str so, float scale, int causal) {
-  constexpr int BK = (D <= 64) ? 64 : 32;  // key rows per tile
-  constexpr int HALF = D / 2;              // dims held per thread
-  constexpr int NC = D / 8;                // 4-float slices per thread
-  __shared__ __align__(16) float ks[BK][D];
-  __shared__ __align__(16) float vs[BK][D];
+template <typename C>
+__global__ void __launch_bounds__(C::THREADS, C::BLOCKS_SM)
+flash_fwd_tf32x3_narrow_kernel(const float* __restrict__ q,
+                               const float* __restrict__ k,
+                               const float* __restrict__ v,
+                               float* __restrict__ o,
+                               float* __restrict__ lse, int H, int Tlen,
+                               int dr, Str sq, Str sk, Str sv, Str so,
+                               float scale_log2, int causal, int vec) {
+  constexpr int DP = C::DP;
+  constexpr int BQ = C::BQ;
+  constexpr int BK = C::BK;
+  constexpr int NB = C::NB;
+  constexpr int KP = DP / 16;           // k-step pairs over the head dim
+  constexpr int NG = DP / 32;           // column groups of O
+  constexpr int NT = C::THREADS;
+  constexpr int SUB = 8 * NB;           // keys a sub-step
+  constexpr int STAGE = 2 * BK * DP;    // floats: K, then V
+  extern __shared__ __align__(16) float fsm[];
+  float* const qs = fsm;
+  float* const kvs = qs + BQ * DP;
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
-  const int q0 = blockIdx.x * kBQ;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
   const int tid = threadIdx.x;
-  const int part = tid & 1;
-  const int qi = q0 + (tid >> 1);
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int wr = (tid >> 5) * 16;       // this warp's rows of the tile
+  const int wrow = q0 + wr;             // and its first query
 
-  const float* qb = q + b * sq.b + h * sq.h;
   const float* kb = k + b * sk.b + h * sk.h;
   const float* vb = v + b * sv.b + h * sv.h;
+  const int kend = causal ? min(Tlen, q0 + BQ) : Tlen;
+  const int nkt = (kend + BK - 1) / BK;
 
-  float qr[HALF];
-  float acc[HALF];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = 8 * c + 4 * part + e;
-      qr[4 * c + e] = qi < Tlen && d < dr ? qb[qi * sq.t + d] : 0.f;
-      acc[4 * c + e] = 0.f;
-    }
-  }
-  float m = -INFINITY;
-  float l = 0.f;
+  load_f32_tile<BQ, DP, NT, true, DP>(qs, q + b * sq.b + h * sq.h, sq.t, q0,
+                                      Tlen, dr, vec, tid);
+  load_f32_tile<BK, DP, NT, true, DP>(kvs, kb, sk.t, 0, Tlen, dr, vec, tid);
+  load_f32_tile<BK, DP, NT, true, DP>(kvs + BK * DP, vb, sv.t, 0, Tlen, dr,
+                                      vec, tid);
+  cp_async_commit();
 
-  const int kend = causal ? min(Tlen, q0 + kBQ) : Tlen;
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int e = tid; e < BK * D; e += kThreads) {
-      const int r = e / D;
-      const int d = e - r * D;
-      const int kj = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (kj < Tlen && d < dr) {
-        kv = kb[kj * sk.t + d];
-        vv = vb[kj * sv.t + d];
-      }
-      ks[r][d] = kv;
-      vs[r][d] = vv;
+  float acc[NG][4][4];
+#pragma unroll
+  for (int c = 0; c < NG; ++c)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][u][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of s·scale·log2 e
+  float l[2] = {0.f, 0.f};              // this lane's share of the row sum
+
+  for (int j = 0; j < nkt; ++j) {
+    if (j + 1 < nkt) {
+      float* nk = kvs + ((j + 1) & 1) * STAGE;
+      load_f32_tile<BK, DP, NT, true, DP>(nk, kb, sk.t, (j + 1) * BK, Tlen,
+                                          dr, vec, tid);
+      load_f32_tile<BK, DP, NT, true, DP>(nk + BK * DP, vb, sv.t,
+                                          (j + 1) * BK, Tlen, dr, vec, tid);
     }
+    cp_async_commit();
+    cp_async_wait<1>();  // stage j (and Q) have landed
     __syncthreads();
+    const float* ks = kvs + (j & 1) * STAGE;
+    const float* vs = ks + BK * DP;
+#pragma unroll 1
+    for (int r0 = 0; r0 < BK; r0 += SUB) {
+      const int k0 = j * BK + r0;  // the sub-step's first key
+      // past T, or (causal) past every row of this warp: nothing left
+      if (k0 >= Tlen || (causal && k0 > wrow + 15)) break;
 
-    float s[BK];
-    float mt = -INFINITY;
+      // S = Q·Kᵀ over the sub-step's keys: n-tile n holds keys k0 + 8 n ..
+      float s[NB][4];
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float p = 0.f;
+      for (int n = 0; n < NB; ++n)
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float4 kk =
-            *reinterpret_cast<const float4*>(&ks[j][8 * c + 4 * part]);
-        p += qr[4 * c] * kk.x + qr[4 * c + 1] * kk.y
-             + qr[4 * c + 2] * kk.z + qr[4 * c + 3] * kk.w;
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int kp = 0; kp < KP; ++kp) {
+        uint32_t ah[2][4], al[2][4];
+        a_frags<DP>(qs, wr + g, kp, t4, ah, al);
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+          mma_dims<DP>(s[n], ks, r0 + 8 * n + g, kp, t4, ah, al);
       }
-      p += __shfl_xor_sync(0xffffffffu, p, 1);
-      const int kj = k0 + j;
-      const bool ok = kj < Tlen && (!causal || kj <= qi);
-      s[j] = ok ? p * scale : -INFINITY;
-      mt = fmaxf(mt, s[j]);
-    }
-    const float mn = fmaxf(m, mt);
-    if (mn != -INFINITY) {  // the row has a live key so far
-      const float corr = __expf(m - mn);
-      l *= corr;
+
+      // in log2 units; only sub-steps that cross the diagonal or T are
+      // masked
+      const bool edge = k0 + SUB > Tlen || (causal && k0 + SUB - 1 > wrow);
 #pragma unroll
-      for (int i = 0; i < HALF; ++i) acc[i] *= corr;
+      for (int n = 0; n < NB; ++n)
 #pragma unroll
-      for (int j = 0; j < BK; ++j) {
-        const float pj = __expf(s[j] - mn);
-        l += pj;
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float4 vv =
-              *reinterpret_cast<const float4*>(&vs[j][8 * c + 4 * part]);
-          acc[4 * c] += pj * vv.x;
-          acc[4 * c + 1] += pj * vv.y;
-          acc[4 * c + 2] += pj * vv.z;
-          acc[4 * c + 3] += pj * vv.w;
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] *= scale_log2;
+          if (edge) {
+            const int key = k0 + 8 * n + 2 * t4 + (e & 1);
+            if (key >= Tlen || (causal && key > wrow + g + 8 * (e >> 1)))
+              s[n][e] = -INFINITY;
+          }
         }
+      // the online softmax, rows g (r = 0) and g + 8 (r = 1): P in s
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+          mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+        const float mn = fmaxf(m[r], quad_max(mx));
+        const float base = mn == -INFINITY ? 0.f : mn;  // no live key yet
+        const float corr = exp2_approx(m[r] - base);
+        m[r] = mn;
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < NB; ++n)
+#pragma unroll
+          for (int e = 2 * r; e < 2 * r + 2; ++e) {
+            s[n][e] = exp2_approx(s[n][e] - base);
+            sum += s[n][e];
+          }
+        l[r] = l[r] * corr + sum;
+#pragma unroll
+        for (int c = 0; c < NG; ++c)
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            acc[c][u][2 * r] *= corr;
+            acc[c][u][2 * r + 1] *= corr;
+          }
       }
-      m = mn;
+      // O += P·V over the sub-step's keys (rows r0 .. of the stage)
+      mma_rows_rn<DP>(acc, s, vs, r0, g, t4);
     }
+    __syncthreads();  // stage j & 1 is consumed before it is refilled
   }
 
-  if (qi < Tlen) {
-    const float ls = l == 0.f ? 1.f : l;
-    const float inv = 1.f / ls;
-    float* ob = o + b * so.b + h * so.h + qi * so.t;
+  // O / l and the lse of rows g and g + 8 (a row past T is not written)
+  float inv[2];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (8 * c + 4 * part + e < dr)
-          ob[8 * c + 4 * part + e] = acc[4 * c + e] * inv;
-    }
-    if (part == 0) lse[(long long)bh * Tlen + qi] = m + logf(ls);
+  for (int r = 0; r < 2; ++r) {
+    float lt = quad_sum(l[r]);
+    if (lt == 0.f) lt = 1.f;
+    inv[r] = 1.f / lt;
+    const int row = wrow + g + 8 * r;
+    if (t4 == 0 && row < Tlen)
+      lse[(long long)bh * Tlen + row] = (m[r] + log2f(lt)) * kLn2;
   }
+#pragma unroll
+  for (int c = 0; c < NG; ++c)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][u][e] *= inv[e >> 1];
+  store_rows(o + b * so.b + h * so.h, so.t, acc, wrow, g, t4, Tlen, dr);
 }
 
-int launch_f32(int D, int BH, int Tlen, cudaStream_t s, const void* q,
-               const void* k, const void* v, void* o, void* lse, int H,
-               Str sq, Str sk, Str sv, Str so, float scale, int causal) {
-  const dim3 grid((Tlen + kBQ - 1) / kBQ, BH);
-#define DL4J_FLASH_CASE(DD)                                                  \
-  case DD:                                                                   \
-    flash_fwd_kernel<DD><<<grid, kThreads, 0, s>>>(                          \
-        static_cast<const float*>(q), static_cast<const float*>(k),          \
-        static_cast<const float*>(v), static_cast<float*>(o),                \
-        static_cast<float*>(lse), H, Tlen, D, sq, sk, sv, so, scale,         \
-        causal);                                                             \
-    break;
-  switch (padded_dim(D)) {
-    DL4J_FLASH_CASE(16)
-    DL4J_FLASH_CASE(32)
-    DL4J_FLASH_CASE(64)
-    DL4J_FLASH_CASE(128)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef DL4J_FLASH_CASE
+// the narrow plans: (DP, keys a stage, n-tiles a sub-step), the fastest
+// that -Xptxas -v shows with no spill (scripts/flash_tf32_narrow_sweep.py;
+// PERF.md): 216 and 237 registers, 80 and 96 KiB of shared memory, two
+// blocks an SM
+using NarrowFwd64 = Tf32NarrowFwdCfg<64, 64, 8>;
+using NarrowFwd128 = Tf32NarrowFwdCfg<128, 32, 4>;
+
+template <typename C>
+int launch_tf32x3_narrow(int BH, int Tlen, int dr, cudaStream_t s,
+                         const void* q, const void* k, const void* v,
+                         void* o, void* lse, int H, Str sq, Str sk, Str sv,
+                         Str so, float scale, int causal) {
+  static_assert(C::SMEM <= 232448, "227 KiB a block on sm_90");
+  const bool vec = rows_16b(dr, {q, k, v}, {sq, sk, sv});
+  auto kern = flash_fwd_tf32x3_narrow_kernel<C>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  // query tiles on the slow dimension: the heaviest (last) go first
+  const dim3 grid(BH, (Tlen + C::BQ - 1) / C::BQ);
+  kern<<<grid, C::THREADS, C::SMEM, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), H, Tlen, dr, sq, sk, sv, so, scale * kLog2e,
+      causal, int(vec));
   return (int)cudaGetLastError();
 }
 
@@ -1239,8 +1345,9 @@ int launch_general(int D, int BH, int Tlen, cudaStream_t s, const void* q,
 
 // q, k, v, o: (B, H, T, D) addressed by the given element strides (the D
 // stride is 1); lse: contiguous (B, H, T) f32. dtype: 0 = float32 (the
-// CUDA-core kernel for D <= 128, the split-TF32 kernel for D <= 256 and
-// its column-split wide kernel for D <= 512), 1 = bfloat16 (the
+// narrow split-TF32 kernel for D <= 128, padded to 64 or 128, the
+// split-TF32 kernel for D <= 256 and its column-split wide kernel for
+// D <= 512), 1 = bfloat16 (the
 // tensor-core kernel for D <= 512, a multiple of 8, on two warpgroups
 // past 256); every other D runs the head-dim-general
 // kernel in its dtype. Returns cudaGetLastError() after the launch.
@@ -1255,9 +1362,14 @@ extern "C" int dl4j_flash_attention_fwd(
   const Str sq{sqb, sqh, sqt}, sk{skb, skh, skt}, sv{svb, svh, svt},
       so{sob, soh, sot};
   if (dtype == 0) {
+    if (D <= 64)
+      return launch_tf32x3_narrow<NarrowFwd64>(B * H, T, D, s, q, k, v, o,
+                                               lse, H, sq, sk, sv, so, scale,
+                                               causal);
     if (D <= 128)
-      return launch_f32(D, B * H, T, s, q, k, v, o, lse, H, sq, sk, sv, so,
-                        scale, causal);
+      return launch_tf32x3_narrow<NarrowFwd128>(B * H, T, D, s, q, k, v, o,
+                                                lse, H, sq, sk, sv, so,
+                                                scale, causal);
     if (D <= 256)
       return launch_tf32x3(B * H, T, D, s, q, k, v, o, lse, H, sq, sk, sv,
                            so, scale, causal);

@@ -25,15 +25,14 @@ f32 sums, operands copied into shared memory by 16-byte ``cp.async``;
 counted in ``LAUNCHES_TC``, ``LAUNCHES_BWD_DQ_TC`` and
 ``LAUNCHES_BWD_DKV_TC`` besides ``LAUNCHES``, ``LAUNCHES_BWD_DQ`` and
 ``LAUNCHES_BWD_DKV``); their operands must pass
-:func:`check_tc_alignment`, or the call raises. float32 K1 runs the
-CUDA-core kernel up to D 128 (``LAUNCHES_CUDA_CORE``). f32 dQ and dK/dV
-at D 1-256, and f32 K1 at D 129-256, run on the tensor cores in split
-TF32 (``LAUNCHES_TF32X3``, ``LAUNCHES_BWD_DQ_TF32X3``,
-``LAUNCHES_BWD_DKV_TF32X3``; dQ and dK/dV padded to 64 or 128 up to D
-128, each warp owning 16 whole rows of its outputs, and counted also in
+:func:`check_tc_alignment`, or the call raises. float32 K1, dQ and dK/dV
+at D 1-256 run on the tensor cores in split TF32 (``LAUNCHES_TF32X3``,
+``LAUNCHES_BWD_DQ_TF32X3``, ``LAUNCHES_BWD_DKV_TF32X3``; padded to 64 or
+128 up to D 128, each warp owning 16 whole rows of its outputs, and
+counted also in ``LAUNCHES_TF32X3_NARROW``,
 ``LAUNCHES_BWD_DQ_TF32X3_NARROW`` and ``LAUNCHES_BWD_DKV_TF32X3_NARROW``,
-else to 256): each
-f32 operand x becomes hi = tf32(x) and
+else to 256; no f32 flash kernel runs on the CUDA cores below D 513):
+each f32 operand x becomes hi = tf32(x) and
 lo = x − hi (read as TF32), and each product hi·hi + hi·lo + lo·hi,
 summed in f32; the probabilities and dS split too. One TF32 product keeps
 10 mantissa bits, an error near 1e-3, past the f32 tolerance of 1e-4; the
@@ -49,10 +48,9 @@ padded widths 16, 32, 64 and 128 (bf16 also 256; K1's wide kernels 384
 and 512, f32 also 320) and zero-fill the
 columns past D inside the kernel — bf16 on the tensor cores when D is a
 multiple of 8 (its rows whole 16-byte chunks), up to 256 (dQ and dK/dV
-past 128 on two warpgroups that split the columns); f32 K1 on the CUDA
-cores up to 128 and in split TF32 up to 256, f32 dQ and dK/dV in split
-TF32 up to 256 (padded to 64, 128 or 256). Past 256, up to 512, all
-three run their wide kernels, padded to 384 or 512 (f32 also 320), in
+past 128 on two warpgroups that split the columns); f32 K1, dQ and dK/dV
+in split TF32 up to 256 (padded to 64, 128 or 256). Past 256, up to 512,
+all three run their wide kernels, padded to 384 or 512 (f32 also 320), in
 the families ``"wgmma-wide"`` (bf16, a multiple of 8; 16-byte alignment
 as above) and ``"tf32x3-wide"`` (f32, any strides), counted in
 ``LAUNCHES_TC_WIDE``, ``LAUNCHES_BWD_DQ_TC_WIDE``,
@@ -86,14 +84,14 @@ _BWD_SOURCE = "flash_attention_bwd"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the largest head dim of the fast kernels; each D up to it runs on the
 #: kernel instantiated for the smallest of 16, 32, 64, 128 that holds it
-#: (the f32 dQ and dK/dV: of 64, 128), the columns past D zero-filled
+#: (the f32 narrow kernels: of 64, 128), the columns past D zero-filled
 #: inside the kernel
 FAST_MAX_HEAD_DIM = 128
 #: the largest bf16 head dim the tensor-core kernels take: past 128 they
 #: run instantiated on the padded width 256
 TC_MAX_HEAD_DIM = 256
-#: the largest f32 head dim of the split-TF32 kernels (padded to 256; f32
-#: dQ and dK/dV at D <= 128 to 64 or 128)
+#: the largest f32 head dim of the split-TF32 kernels (padded to 256; at
+#: D <= 128 the narrow kernels, to 64 or 128)
 TF32X3_MAX_HEAD_DIM = 256
 #: the largest head dim of the wide kernels of K1, dQ and dK/dV (padded to
 #: 384 or 512, f32 also 320): each output's columns split between two
@@ -110,19 +108,18 @@ GENERAL_ROWS = (64, 32, 16, 8)
 #: launches of each CUDA kernel since the last reset (the plain versions
 #: on CPU tensors do not count): K1, the dQ kernel, the dK/dV kernel (any
 #: route), and of those each family's (:data:`FAMILY_SUFFIX`): the bf16
-#: tensor-core, the f32 CUDA-core (K1 only: no dQ or dK/dV runs there),
-#: the f32 split-TF32 and the head-dim-general K1, dQ and dK/dV kernels,
-#: and the wide K1, dQ and dK/dV kernels (bf16, f32 split TF32) past D
-#: 256; of the split-TF32 dQ's and dK/dV's, the narrow kernels' (D <= 128,
-#: :func:`launch_counter` with ``narrow``)
+#: tensor-core, the f32 split-TF32 and the head-dim-general K1, dQ and
+#: dK/dV kernels, and the wide K1, dQ and dK/dV kernels (bf16, f32 split
+#: TF32) past D 256; of the split-TF32 K1's, dQ's and dK/dV's, the narrow
+#: kernels' (D <= 128, :func:`launch_counter` with ``narrow``)
 LAUNCHES = 0
 LAUNCHES_BWD_DQ = 0
 LAUNCHES_BWD_DKV = 0
 LAUNCHES_TC = 0
 LAUNCHES_BWD_DQ_TC = 0
 LAUNCHES_BWD_DKV_TC = 0
-LAUNCHES_CUDA_CORE = 0
 LAUNCHES_TF32X3 = 0
+LAUNCHES_TF32X3_NARROW = 0
 LAUNCHES_BWD_DQ_TF32X3 = 0
 LAUNCHES_BWD_DKV_TF32X3 = 0
 LAUNCHES_BWD_DQ_TF32X3_NARROW = 0
@@ -137,8 +134,7 @@ LAUNCHES_TF32X3_WIDE = 0
 LAUNCHES_BWD_DQ_TF32X3_WIDE = 0
 LAUNCHES_BWD_DKV_TF32X3_WIDE = 0
 #: each kernel family's counter suffix (:func:`launch_counter`)
-FAMILY_SUFFIX = {"wgmma": "_TC", "cuda-core": "_CUDA_CORE",
-                 "tf32x3": "_TF32X3", "general": "_GENERAL",
+FAMILY_SUFFIX = {"wgmma": "_TC", "tf32x3": "_TF32X3", "general": "_GENERAL",
                  "wgmma-wide": "_TC_WIDE", "tf32x3-wide": "_TF32X3_WIDE"}
 #: the families whose operands :func:`check_tc_alignment` holds
 TC_FAMILIES = ("wgmma", "wgmma-wide")
@@ -159,8 +155,8 @@ def launch_counter(kernel: str, family: Optional[str] = None,
                    narrow: bool = False) -> str:
     """The name of the counter of ``kernel`` ("fwd", "dq" or "dkv") on
     kernel ``family`` (a :func:`route` name), or on any family; with
-    ``narrow``, of the split-TF32 dQ's or dK/dV's narrow kernel (D <=
-    128) alone."""
+    ``narrow``, of the split-TF32 kernel's narrow form (D <= 128)
+    alone."""
     name = f"LAUNCHES{_KERNEL[kernel]}{FAMILY_SUFFIX.get(family, '')}"
     return name + "_NARROW" if narrow else name
 
@@ -169,7 +165,7 @@ def _count(kernel: str, family: str, d: int):
     g = globals()
     g[launch_counter(kernel)] += 1
     g[launch_counter(kernel, family)] += 1
-    if family == "tf32x3" and kernel != "fwd" and d <= FAST_MAX_HEAD_DIM:
+    if family == "tf32x3" and d <= FAST_MAX_HEAD_DIM:
         g[launch_counter(kernel, family, narrow=True)] += 1
 
 
@@ -274,17 +270,13 @@ def flash_attention_bwd(q, k, v, dout, lse, delta, scale, causal,
 
 def route(d: int, dtype, kernel: str) -> str:
     """The kernel family head dim ``d`` runs in ``dtype`` for ``kernel``
-    ("fwd", "dq" or "dkv"): ``"wgmma"`` (bf16, a multiple of 8 up to
-    ``TC_MAX_HEAD_DIM``), ``"cuda-core"`` (f32 K1, D <= 128),
-    ``"tf32x3"`` (f32 dQ and dK/dV at D 1..256, f32 K1 at D 129..256),
-    ``"wgmma-wide"`` (bf16, a multiple of 8 in 264..``WIDE_MAX_HEAD_DIM``),
-    ``"tf32x3-wide"`` (f32, D 257..512), or ``"general"`` (every other
-    D). Only f32 D <= 128 differs between the three kernels: K1 on the
-    CUDA cores, dQ and dK/dV in split TF32."""
+    ("fwd", "dq" or "dkv"; the three agree): ``"wgmma"`` (bf16, a
+    multiple of 8 up to ``TC_MAX_HEAD_DIM``), ``"tf32x3"`` (f32, D
+    1..256; the narrow kernels up to 128), ``"wgmma-wide"`` (bf16, a
+    multiple of 8 in 264..``WIDE_MAX_HEAD_DIM``), ``"tf32x3-wide"`` (f32,
+    D 257..512), or ``"general"`` (every other D)."""
     wide = d <= WIDE_MAX_HEAD_DIM
     if dtype == torch.float32:
-        if d <= FAST_MAX_HEAD_DIM and kernel == "fwd":
-            return "cuda-core"
         if d <= TF32X3_MAX_HEAD_DIM:
             return "tf32x3"
         return "tf32x3-wide" if wide else "general"

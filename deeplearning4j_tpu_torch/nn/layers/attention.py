@@ -7,11 +7,11 @@
 (``kernels/flash_attention.py``: ``flash_attention_ntc`` on the (B, T, H,
 D) views of the projections) where the reference takes its kernel: no
 key mask and Tq == Tk. On a CUDA tensor that is K1 forward and dQ, dK/dV
-backward (the f32 CUDA-core kernels up to D 128, the bf16 tensor-core
-kernels under ``compute_dtype=torch.bfloat16``), with no fallback; on a
-CPU tensor the wrapper's plain version. Every other case — ``impl=None``,
-a key mask, Tq != Tk — runs the plain softmax(QKᵀ/√d)·V, the reference's
-``jax.nn.dot_product_attention`` branch.
+backward (in f32 the narrow split-TF32 kernels up to D 128, the bf16
+tensor-core kernels under ``compute_dtype=torch.bfloat16``), with no
+fallback; on a CPU tensor the wrapper's plain version. Every other case —
+``impl=None``, a key mask, Tq != Tk — runs the plain softmax(QKᵀ/√d)·V,
+the reference's ``jax.nn.dot_product_attention`` branch.
 """
 
 from __future__ import annotations

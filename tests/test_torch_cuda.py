@@ -130,7 +130,7 @@ HEAD_DIMS = [8, 16, 24, 32, 64, 80, 120, 128]
 # 256 (130: rows of whole elements, not 16-byte chunks; 136-256); at 320
 # all three on their wide kernels (bf16 padded to 384, f32 to 320); every
 # kernel general past 512 (520) and for bf16 rows that are not whole
-# 16-byte chunks (12, 130; f32 runs its CUDA-core kernel at 12)
+# 16-byte chunks (12, 130; f32 runs the narrow split-TF32 kernel at 12)
 GENERAL_HEAD_DIMS = [12, 130, 136, 160, 200, 256, 320, 520]
 # the wide kernels of K1, dQ and dK/dV: bf16 padded to 384 (264, 320, 328,
 # 384) and to 512 (392, 512); f32 to 320 (264, 320), 384 (328, 384) and
@@ -162,8 +162,8 @@ def _moved(before, kernel, d, dtype):
 @pytest.mark.parametrize("t,causal", FLASH_GRID)
 @pytest.mark.parametrize("d", HEAD_DIMS + GENERAL_HEAD_DIMS)
 def test_flash_kernel_matches_plain(gen, dtype, t, causal, d):
-    """K1 (the tensor-core kernel in bf16 up to 256, the CUDA-core one in
-    f32 up to 128, the split-TF32 one in f32 at 129-256, the general
+    """K1 (the tensor-core kernel in bf16 up to 256, the narrow split-TF32
+    one in f32 up to 128, the split-TF32 one in f32 at 129-256, the general
     kernel past them and for bf16 rows of odd chunks) at every head dim,
     in the (B, H, T, D) layout and through strided (B, T, H, D) views of
     one qkv buffer; a second launch repeats the first bit for bit; the
@@ -364,6 +364,39 @@ def test_flash_tf32x3_narrow_bwd_matches_plain(gen, d, t, causal, aligned):
         assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [1, 63, 200, 2048])
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+def test_flash_tf32x3_narrow_fwd_matches_plain(gen, d, t, causal, aligned):
+    """f32 K1 at D <= 128 in split TF32 (the narrow kernel, padded to 64
+    or 128) on strided (B, T, H, D) views of one qkv buffer, 16-byte
+    aligned rows (16-byte copies) or a buffer one float in (4-byte
+    copies), T 1, 63, 200 (ragged tiles) and 2048, causal and not: O
+    within the f32 atol 1e-4 and the lse within 1e-3 of the plain
+    version, counted as a split-TF32 launch of the narrow kernel (no other
+    family's counter moves), and a second launch repeats the first bit
+    for bit."""
+    b, h = (1, 2) if t == 2048 else (2, 3)
+    off = 0 if aligned else 1
+    raw = torch.randn((b, t, 3 * h * d + off), generator=gen, device="cuda")
+    qkv = [raw[..., off + i * h * d:off + (i + 1) * h * d]
+           .reshape(b, t, h, d).transpose(1, 2) for i in range(3)]
+    ref, ref_lse = fa.mha_reference_lse(*qkv, causal=causal)
+    assert fa.route(d, torch.float32, "fwd") == "tf32x3"
+    narrow = fa.launch_counter("fwd", "tf32x3", narrow=True)
+    before, narrow_before = _counts("fwd"), getattr(fa, narrow)
+    runs = [fa.flash_attention_lse(*qkv, causal=causal) for _ in range(2)]
+    torch.cuda.synchronize()
+    moved = [a - b_ for a, b_ in zip(_counts("fwd"), before)]
+    assert moved == [2 * x for x in _added("fwd", d, torch.float32)]
+    assert getattr(fa, narrow) - narrow_before == 2
+    (out, lse), (again, lse_again) = runs
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    assert torch.equal(out, again) and torch.equal(lse, lse_again)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("t,causal", [(200, True), (200, False),
                                       (1000, True)])
@@ -440,7 +473,7 @@ def test_flash_wide_bwd_over_many_waves(gen):
 def test_flash_misaligned_bf16_views_raise_before_launch(gen):
     """A bf16 view that starts off a 16-byte boundary (or has a time
     stride of an odd number of elements) raises in K1, in dQ and in
-    dK/dV, and nothing is launched; the CUDA-core kernels (f32) take
+    dK/dV, and nothing is launched; the f32 kernels (split TF32) take
     it."""
     b, t, h, d = 1, 70, 2, 16
     buf = torch.randn((b, t, 3 * h * d + 1), generator=gen, device="cuda")
@@ -487,8 +520,9 @@ def _close(got, ref, dtype):
 @pytest.mark.parametrize("d", HEAD_DIMS + GENERAL_HEAD_DIMS)
 def test_flash_bwd_kernels_match_plain(gen, dtype, t, causal, d):
     """dQ and dK/dV (on the tensor cores in bf16 up to 256, each on two
-    warpgroups that split the columns past 128; f32 on the CUDA-core
-    kernels up to 128 and in split TF32 at 129-256; the wide kernels at
+    warpgroups that split the columns past 128; f32 in split TF32, on
+    the narrow kernels up to 128 and padded to 256 at 129-256; the wide
+    kernels at
     257-512; the general kernels past them) against the plain
     backward on the same inputs, in the (B, H, T, D) layout and through
     strided (B, T, H, D) views of one qkv buffer (the transformer's
@@ -2497,9 +2531,9 @@ def _attn_conf(dtype, causal=True):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_attention_layer_flash_route_matches_host(gen, dtype):
     """SelfAttentionLayer(impl="pallas") on the card launches K1, dQ and
-    dK/dV once each, each on its own route (f32 D 64: K1 on the CUDA
-    cores, dQ and dK/dV in split TF32; bf16: all three on the tensor
-    cores) and agrees with the same layer on the host, forward and grads;
+    dK/dV once each, each on its own route (f32 D 64: all three in split
+    TF32 on the narrow kernels; bf16: all three on the tensor cores) and
+    agrees with the same layer on the host, forward and grads;
     a key mask takes the plain attention."""
     from deeplearning4j_tpu_torch.nn.layers.attention import \
         SelfAttentionLayer
@@ -2519,8 +2553,8 @@ def test_attention_layer_flash_route_matches_host(gen, dtype):
         grads = torch.autograd.grad(y.float().sum(), [xd, *pd.values()])
         outs[dev] = (y.float().cpu(), [g.float().cpu() for g in grads])
         if dev == "cuda":
-            want = (("cuda-core", "tf32x3", "tf32x3")
-                    if dtype == torch.float32 else ("wgmma",) * 3)
+            want = (("tf32x3",) * 3 if dtype == torch.float32
+                    else ("wgmma",) * 3)
             for k, fam in zip(("fwd", "dq", "dkv"), want):
                 assert fa.route(64, dtype, k) == fam
                 assert _counts(k) == _added(k, 64, dtype)

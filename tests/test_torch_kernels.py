@@ -448,10 +448,10 @@ def test_flash_kernel_refuses_grad_and_bad_inputs():
 def test_flash_kernels_take_every_head_dim_up_to_128(d, dtype):
     """Up to 128 the fast kernels run: the checks pass every D in both
     layouts and for each kernel, bf16 multiples of 8 on the tensor cores,
-    f32 K1 on the CUDA-core kernel and f32 dQ and dK/dV in split TF32
-    (padded to 64 or 128); a D that is not a multiple of 8 runs the same
-    f32 kernels and the general kernel in bf16 (rows that are not whole
-    16-byte chunks). Each kernel's route is its own."""
+    f32 K1, dQ and dK/dV in split TF32 (the narrow kernels, padded to 64
+    or 128); a D that is not a multiple of 8 runs the same f32 kernels and
+    the general kernel in bf16 (rows that are not whole 16-byte chunks).
+    Each kernel's route is its own."""
     q = torch.zeros((1, 2, 8, d), dtype=dtype)
     for kernel in ("fwd", "dq", "dkv"):
         for layout in ("bhtd", "bthd"):
@@ -460,11 +460,10 @@ def test_flash_kernels_take_every_head_dim_up_to_128(d, dtype):
             assert dd == d and len(views) == 4
     bf16 = dtype == torch.bfloat16
     for kernel in ("fwd", "dq", "dkv"):
-        f32 = "cuda-core" if kernel == "fwd" else "tf32x3"
-        assert tfa.route(d, dtype, kernel) == ("wgmma" if bf16 else f32)
+        assert tfa.route(d, dtype, kernel) == ("wgmma" if bf16 else "tf32x3")
         tfa.check_head_dim(d - 3, dtype, kernel)
         assert tfa.route(d - 3, dtype, kernel) == ("general" if bf16
-                                                   else f32)
+                                                   else "tf32x3")
 
 
 def test_flash_head_dim_rule_bounds():
@@ -509,7 +508,7 @@ def test_flash_general_rows_shrink_as_head_dim_grows(d, rows):
         assert ld % 2 == 1 if r >= 32 else ld % 32 == (4 if r == 16 else 16)
 
 
-_TC, _GN, _CC, _TF = "wgmma", "general", "cuda-core", "tf32x3"
+_TC, _GN, _TF = "wgmma", "general", "tf32x3"
 _TCW, _TFW = "wgmma-wide", "tf32x3-wide"
 
 
@@ -525,10 +524,10 @@ _TCW, _TFW = "wgmma-wide", "tf32x3-wide"
     (324, torch.bfloat16, (_GN, _GN, _GN)),
     (512, torch.bfloat16, (_TCW, _TCW, _TCW)),
     (520, torch.bfloat16, (_GN, _GN, _GN)),
-    (12, torch.float32, (_CC, _TF, _TF)),
-    (64, torch.float32, (_CC, _TF, _TF)),
-    (80, torch.float32, (_CC, _TF, _TF)),
-    (128, torch.float32, (_CC, _TF, _TF)),
+    (12, torch.float32, (_TF, _TF, _TF)),
+    (64, torch.float32, (_TF, _TF, _TF)),
+    (80, torch.float32, (_TF, _TF, _TF)),
+    (128, torch.float32, (_TF, _TF, _TF)),
     (129, torch.float32, (_TF, _TF, _TF)),
     (160, torch.float32, (_TF, _TF, _TF)),
     (256, torch.float32, (_TF, _TF, _TF)),
@@ -538,9 +537,9 @@ _TCW, _TFW = "wgmma-wide", "tf32x3-wide"
     (513, torch.float32, (_GN, _GN, _GN))])
 def test_flash_route_by_head_dim_and_dtype(d, dtype, kinds):
     """Which kernel family a (D, dtype) runs in K1, dQ and dK/dV: bf16
-    on the tensor cores up to 256 (multiples of 8); f32 K1 on the CUDA
-    cores up to 128 and in split TF32 at 129..256, f32 dQ and dK/dV in
-    split TF32 at 1..256; all three past 256 up to 512 on their wide
+    on the tensor cores up to 256 (multiples of 8); f32 K1, dQ and dK/dV
+    in split TF32 at 1..256 (the narrow kernels up to 128); all three
+    past 256 up to 512 on their wide
     kernels (bf16 multiples of 8 on the tensor cores, f32 in split TF32),
     general past 512; only the bf16 tensor-core routes
     check 16-byte alignment, so a general bf16 D and every f32 D take any
@@ -1071,9 +1070,9 @@ def test_one_tf32_product_misses_the_backward_bar():
         > 1e-4
 
 
-# The backward's swizzled tiles (csrc/flash_tf32.cuh swz, and ld4 in
-# csrc/flash_attention_bwd.cu): chunk c of row r at chunk c ^ swz(r) of a
-# row of ``ld`` floats (256; the narrow kernels' 64 and 128).
+# The swizzled tiles of the backward and of the narrow K1
+# (csrc/flash_tf32.cuh swz and ld4): chunk c of row r at chunk c ^ swz(r)
+# of a row of ``ld`` floats (256; the narrow kernels' 64 and 128).
 
 def _swz(r):
     return (r & 6) ^ ((r & 1) << 2)
@@ -1236,35 +1235,43 @@ def _narrow_pad(d):
     return 64 if d <= 64 else 128
 
 
-# rows (keys for dQ, queries for dK/dV) of a sub-step of the narrow
-# kernels' plans (csrc/flash_attention_bwd.cu NarrowDq64 ..: 8 x the
-# n-tiles a sub-step), by kernel and padded width
-NARROW_SUB = {("dq", 64): 32, ("dq", 128): 32, ("dkv", 64): 32,
-              ("dkv", 128): 16}
+# rows (keys for K1 and dQ, queries for dK/dV) of a sub-step of the
+# narrow kernels' plans (csrc/flash_attention_fwd.cu NarrowFwd64 ..,
+# csrc/flash_attention_bwd.cu NarrowDq64 ..: 8 x the n-tiles a sub-step),
+# by kernel and padded width
+NARROW_SUB = {("fwd", 64): 64, ("fwd", 128): 32, ("dq", 64): 32,
+              ("dq", 128): 32, ("dkv", 64): 32, ("dkv", 128): 16}
+NARROW_STRUCTS = {"fwd": "Tf32NarrowFwdCfg", "dq": "Tf32NarrowDqCfg",
+                  "dkv": "Tf32NarrowDkvCfg"}
 
 
 def _narrow_plans():
-    """The narrow kernels' plans as csrc/flash_attention_bwd.cu names them:
-    (kernel, DP) -> (rows a stage, n-tiles a sub-step)."""
-    src = (_CSRC / "flash_attention_bwd.cu").read_text()
-    plans = re.findall(r"using Narrow(Dq|Dkv)(64|128) = Tf32Narrow\w+Cfg<"
-                       r"\d+, (\d+), (\d+)>;", src)
+    """The narrow kernels' plans as csrc/flash_attention_fwd.cu and
+    csrc/flash_attention_bwd.cu name them: (kernel, DP) -> (rows a stage,
+    n-tiles a sub-step)."""
+    src = "".join((_CSRC / f"flash_attention_{x}.cu").read_text()
+                  for x in ("fwd", "bwd"))
+    plans = re.findall(r"using Narrow(Fwd|Dq|Dkv)(64|128) = "
+                       r"Tf32Narrow\w+Cfg<\d+, (\d+), (\d+)>;",
+                       src)
     return {(k.lower(), int(dp)): (int(rows), int(nb))
             for k, dp, rows, nb in plans}
 
 
-@pytest.mark.parametrize("kernel,dp,kib", [("dq", 64, 96), ("dq", 128, 128),
+@pytest.mark.parametrize("kernel,dp,kib", [("fwd", 64, 80), ("fwd", 128, 96),
+                                           ("dq", 64, 96), ("dq", 128, 128),
                                            ("dkv", 64, 97),
                                            ("dkv", 128, 96.25)])
 def test_tf32x3_narrow_plans_fit_and_match_the_emulation(kernel, dp, kib):
-    """The narrow split-TF32 dQ and dK/dV plans, read from the csrc text:
-    their shared memory (dQ: Q, dO, two stages of K and V; dK/dV: K, V,
-    two stages of Q, dO and the lse and delta rows) fits the 227 KiB a
-    block may use (two blocks an SM at DP 64), and the sub-step the
-    emulation sums by (``NARROW_SUB``) is the plan's 8 x its n-tiles."""
+    """The narrow split-TF32 K1, dQ and dK/dV plans, read from the csrc
+    text: their shared memory (K1: Q, two stages of K and V; dQ: Q, dO,
+    two stages of K and V; dK/dV: K, V, two stages of Q, dO and the lse
+    and delta rows) fits the 227 KiB a block may use (two blocks an SM at
+    DP 64), and the sub-step the emulations sum by (``NARROW_SUB``) is
+    the plan's 8 x its n-tiles."""
     rows, nb = _narrow_plans()[(kernel, dp)]
-    struct = "Tf32NarrowDqCfg" if kernel == "dq" else "Tf32NarrowDkvCfg"
-    smem = _csrc_smem(struct, DP_=dp, BK_=rows, BQ_=rows, NB_=nb)
+    smem = _csrc_smem(NARROW_STRUCTS[kernel], DP_=dp, BK_=rows, BQ_=rows,
+                      NB_=nb)
     assert smem == kib * 1024 <= tfa.SMEM_PER_BLOCK
     if dp == 64:
         assert 2 * smem <= 228 * 1024
@@ -1365,6 +1372,218 @@ def test_one_tf32_product_misses_the_narrow_backward_bar(d):
                                        True, passes=1)
     assert max((g - p).abs().max().item() for g, p in zip(one, plain)) \
         > 1e-4
+
+
+def _tf32x3_narrow_fwd_emulation(q, k, v, scale, causal, passes=3):
+    """``flash_fwd_tf32x3_narrow_kernel``'s schedule in torch on f32 (B,
+    H, T, D), D <= 128, columns zero-padded to 64 or 128. Each warp owns
+    whole query rows, so each row's sum runs in one fixed order: over the
+    keys in sub-steps of ``NARROW_SUB`` keys from key 0, S = Q·Kᵀ in split
+    TF32 scaled into log2 units and masked; an online softmax a sub-step
+    (the running max, corr = exp2(m_old − m_new), the row sum over the f32
+    P); P split for P·V, and the sub-step's P·V summed apart and added to
+    O·corr in f32; at the end O / l and lse = (m + log2 l)·ln 2. (A
+    sub-step that causal masking hides from all of a warp's rows, which
+    the kernel skips, changes nothing here: corr 1, P 0.) Returns O and
+    the lse."""
+    b, h, t, d = q.shape
+    dp_ = _narrow_pad(d)
+    qf, kf, vf = (torch.nn.functional.pad(x, (0, dp_ - d))
+                  for x in (q, k, v))
+    sl2 = scale * math.log2(math.e)
+    rows = torch.arange(t)
+    m = torch.full((b, h, t), -math.inf)
+    l = torch.zeros((b, h, t))
+    acc = torch.zeros((b, h, t, dp_))
+    sub = NARROW_SUB[("fwd", dp_)]
+    for j0 in range(0, t, sub):
+        js = slice(j0, min(j0 + sub, t))
+        idx = torch.arange(js.start, js.stop)
+        s = _mm_tf32(qf, kf[..., js, :].transpose(-1, -2), passes) * sl2
+        if causal:
+            s = torch.where(idx[None, :] <= rows[:, None], s,
+                            torch.tensor(-math.inf))
+        mn = torch.maximum(m, s.max(-1).values)
+        base = torch.where(mn == -math.inf, torch.zeros(()), mn)
+        corr = torch.exp2(m - base)
+        p = torch.exp2(s - base[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + _mm_tf32(p, vf[..., js, :], passes)
+        m = mn
+    lt = torch.where(l == 0, torch.ones(()), l)
+    return (acc / lt[..., None])[..., :d], (m + torch.log2(lt)) * math.log(2.0)
+
+
+def _fwd_case(d, t, h, seed=16):
+    """Seeded f32 (1, H, T, D) q, k, v as numpy arrays and as tensors."""
+    rng = np.random.default_rng(seed)
+    arrays = [rng.standard_normal((1, h, t, d)).astype(np.float32)
+              for _ in range(3)]
+    return arrays, [_t(a) for a in arrays]
+
+
+@pytest.mark.parametrize("t,h", [(200, 2), (2048, 1)])
+@pytest.mark.parametrize("d", [12, 64, 80, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_tf32x3_narrow_forward_meets_the_f32_bars(d, causal, t, h):
+    """The narrow split-TF32 f32 K1 (D <= 128, padded to 64 or 128),
+    emulated on its own schedule (each row's sum in sub-steps, in order,
+    an online softmax a sub-step, each sub-step's P·V added in f32 after
+    the rescale), at D 12, 64, 80 and 128, causal and not, at T 200 (a
+    ragged last tile) and at B1 H1 T2048 (the longest sum): O within the
+    f32 atol 1e-4 and the lse within 1e-3 of ``mha_reference_lse`` and of
+    the JAX package's Pallas forward (interpret mode, 40- and 128-row
+    blocks) on the same numpy-seeded inputs."""
+    arrays, (q, k, v) = _fwd_case(d, t, h)
+    scale = d ** -0.5
+    o, lse = _tf32x3_narrow_fwd_emulation(q, k, v, scale, causal)
+    ref, ref_lse = tfa.mha_reference_lse(q, k, v, scale, causal)
+    assert o.shape == ref.shape and lse.shape == ref_lse.shape
+    assert (o - ref).abs().max().item() <= 1e-4
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    blk = 40 if t == 200 else 128
+    jo, jlse = jfa.flash_attention_lse(
+        *(jnp.asarray(a) for a in arrays), scale=scale, causal=causal,
+        block_q=blk, block_k=blk, interpret=True)
+    np.testing.assert_allclose(o.numpy(), np.asarray(jo), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(jlse), rtol=0,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_one_tf32_product_misses_the_narrow_forward_bar(d):
+    """One TF32 product instead of three (P rounded to one TF32 too)
+    misses the f32 atol 1e-4 on O at D 64 and 128: the narrow K1 needs
+    the split."""
+    _, (q, k, v) = _fwd_case(d, 200, 2)
+    scale = d ** -0.5
+    ref, _ = tfa.mha_reference_lse(q, k, v, scale, True)
+    one, _ = _tf32x3_narrow_fwd_emulation(q, k, v, scale, True, passes=1)
+    assert (one - ref).abs().max().item() > 1e-4
+
+
+def _quad(vals, op):
+    """Each lane's value reduced over its quad (lanes 4g .. 4g + 3, one
+    accumulator row) as two xor shuffles, by 1 and by 2, reduce it."""
+    for x in (1, 2):
+        vals = [op(vals[lane], vals[lane ^ x]) for lane in range(32)]
+    return vals
+
+
+@pytest.mark.parametrize("ld", [64, 128])
+def test_tf32x3_narrow_fwd_fragments_read_what_the_products_need(ld):
+    """The narrow split-TF32 K1 (f32 D <= 128), one warp's sub-step of 4
+    n-tiles lane by lane through the hardware's m16n8k8 layout, from
+    swizzled tiles of rows of 64 or 128 floats: S = Q·Kᵀ from the warp's
+    rows g and g + 8 (a_frags) and K's rows 8 n + g (mma_dims); each row's
+    max and sum over the quad that holds it (lanes 4g .. 4g + 3, xor
+    shuffles by 1 and 2) on S's fragments; P's fragments, as they stand,
+    as the A operand of P·V over V's rows 8 n + 2t and 8 n + 2t + 1
+    (mma_rows_rn); O stored at the columns 32 c + 8 t + 4 e + u
+    (store_rows). The warp's O tile and row sums equal exp(S − max)·V and
+    its sums computed whole, and every float4 read of Q, K and V meets all
+    8 bank groups in each quarter-warp."""
+    rng = np.random.default_rng(17)
+    nb = 4
+    q = rng.integers(-4, 5, (16, ld)).astype(np.float64)
+    kt = rng.integers(-4, 5, (8 * nb, ld)).astype(np.float64)
+    vt = rng.integers(-4, 5, (8 * nb, ld)).astype(np.float64)
+
+    def phys(a):        # a tile as the loader lays it out
+        out = np.zeros(a.size)
+        for r in range(a.shape[0]):
+            for col in range(ld):
+                out[_ld4(r, col // 4, ld)[col % 4]] = a[r, col]
+        return out
+    pq, pk, pv = phys(q), phys(kt), phys(vt)
+
+    s = [[np.zeros(4) for _ in range(32)] for _ in range(nb)]
+    for kp in range(ld // 16):
+        reads = {lane: _ld4(g, 4 * kp + t, ld) for lane, g, t in _lanes()}
+        reads8 = {lane: _ld4(g + 8, 4 * kp + t, ld)
+                  for lane, g, t in _lanes()}
+        assert _quarter_conflicts(reads) == _quarter_conflicts(reads8) == 0
+        a_regs = [[], []]
+        for lane in range(32):
+            x, y = pq[reads[lane]], pq[reads8[lane]]
+            a_regs[0].append((x[0], y[0], x[1], y[1]))
+            a_regs[1].append((x[2], y[2], x[3], y[3]))
+        for n in range(nb):
+            kr = {lane: _ld4(8 * n + g, 4 * kp + t, ld)
+                  for lane, g, t in _lanes()}
+            assert _quarter_conflicts(kr) == 0
+            zb = [pk[kr[lane]] for lane in range(32)]
+            b_regs = [[(z[0], z[1]) for z in zb], [(z[2], z[3]) for z in zb]]
+            for st in (0, 1):
+                for lane, frag in enumerate(_mma_m16n8k8(a_regs[st],
+                                                         b_regs[st])):
+                    s[n][lane] += frag
+    scale = 1.0 / 16
+    p = [[np.zeros(4) for _ in range(32)] for _ in range(nb)]
+    sums = []
+    for r in (0, 1):
+        mx = _quad([max(s[n][lane][2 * r + e] for n in range(nb)
+                        for e in (0, 1)) for lane in range(32)], max)
+        for n in range(nb):
+            for lane in range(32):
+                for e in (0, 1):
+                    p[n][lane][2 * r + e] = math.exp(
+                        (s[n][lane][2 * r + e] - mx[lane]) * scale)
+        sums.append(_quad([sum(p[n][lane][2 * r + e] for n in range(nb)
+                               for e in (0, 1)) for lane in range(32)],
+                          lambda a, b_: a + b_))
+
+    out = np.zeros((16, ld))
+    for c in range(ld // 32):
+        acc = [[np.zeros(4) for _ in range(32)] for _ in range(4)]
+        for n in range(nb):
+            xa = [(p[n][lane][0], p[n][lane][2], p[n][lane][1], p[n][lane][3])
+                  for lane in range(32)]
+            r0 = {lane: _ld4(8 * n + 2 * t, 8 * c + g, ld)
+                  for lane, g, t in _lanes()}
+            r1 = {lane: _ld4(8 * n + 2 * t + 1, 8 * c + g, ld)
+                  for lane, g, t in _lanes()}
+            assert _quarter_conflicts(r0) == _quarter_conflicts(r1) == 0
+            for u in range(4):
+                b_regs = [(pv[r0[lane][u]], pv[r1[lane]][u])
+                          for lane in range(32)]
+                for lane, frag in enumerate(_mma_m16n8k8(xa, b_regs)):
+                    acc[u][lane] += frag
+        for u in range(4):
+            for lane, g, t in _lanes():
+                for i in range(4):
+                    out[g + 8 * (i >> 1), 32 * c + 8 * t + 4 * (i & 1) + u] \
+                        = acc[u][lane][i]
+    sc = q @ kt.T
+    pw = np.exp((sc - sc.max(1, keepdims=True)) * scale)
+    np.testing.assert_allclose(out, pw @ vt, rtol=1e-12, atol=0)
+    for lane, g, t in _lanes():
+        for r in (0, 1):
+            assert math.isclose(sums[r][lane], pw[g + 8 * r].sum(),
+                                rel_tol=1e-12)
+
+
+def test_f32_k1_runs_split_tf32_at_every_head_dim_up_to_256():
+    """f32 K1 takes the split-TF32 family at every D in 1..256, as dQ and
+    dK/dV do: no CUDA-core family or counter is left, and a launch of the
+    family at D <= 128 counts in K1's narrow counter too, past 128 not."""
+    for d in range(1, 257):
+        assert tfa.route(d, torch.float32, "fwd") == "tf32x3"
+    assert "cuda-core" not in tfa.FAMILY_SUFFIX
+    assert not any("CUDA_CORE" in n for n in tfa.COUNTERS)
+    narrow = tfa.launch_counter("fwd", "tf32x3", narrow=True)
+    assert narrow == "LAUNCHES_TF32X3_NARROW" and narrow in tfa.COUNTERS
+    saved = {n: getattr(tfa, n) for n in tfa.COUNTERS}
+    try:
+        tfa.reset_launches()
+        for d in (12, 64, 128, 129, 256):
+            tfa._count("fwd", tfa.route(d, torch.float32, "fwd"), d)
+        assert (tfa.LAUNCHES, tfa.LAUNCHES_TF32X3,
+                tfa.LAUNCHES_TF32X3_NARROW) == (5, 5, 3)
+        assert tfa.LAUNCHES_BWD_DQ_TF32X3_NARROW == 0
+    finally:
+        for n, x in saved.items():
+            setattr(tfa, n, x)
 
 
 # --------------------------------------------- K2 split-K plan (CPU side)
