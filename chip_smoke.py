@@ -22,6 +22,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --workflow2-only # build + phases 7, 9 and 17
     python3 chip_smoke.py --samediff-only  # build + phase 18 only
     python3 chip_smoke.py --zoo-only       # build + phase 19 only
+    python3 chip_smoke.py --import-only    # build + phase 20 only
     python3 chip_smoke.py --prefetch-times ROOT  # only time LeNet's fit
                                              # over host and device
                                              # iterators and a host list
@@ -396,6 +397,25 @@ Phases, each fatal on failure:
    with an empty ``onnx`` stub), read by ``import_onnx`` and served on the
    card at B1 and B32, held to the module's own output; wall and device
    ms, samples/s, peak GiB and launches by kernel for each path;
+20. a DL4J user's import path (TF32 off): (a) the script's own HDF5
+   writer (superblock 0, symbol-table groups, version-1 headers,
+   contiguous data, variable-length string attributes in a global heap;
+   the card has no h5py); (b) the Keras ResNet50 (``tests/
+   torch_keras_resnet50.json``: the config Keras 3.13.1 writes, 224×224×3,
+   1000 classes, 53 BNs) written with seeded weights, read by
+   ``import_keras_model`` onto the card, its BNs ``fused=True``, served at
+   B32 f32 by ``output()`` (eager, capture, replay: 53 ``bn_act`` a
+   forward) against the eager call and the plain BN path, fine-tuned 3
+   steps with ``fit`` (its Dense head an OutputLayer through
+   ``TransferLearning``, SGD) replayed and eager bit for bit, 53 launches
+   of each K3 kernel a step; host seconds of the write and the import,
+   device ms of a forward and a step beside the zoo ResNet-50's; (c) the
+   zoo's char-RNN (T60, vocab 77, 2×GravesLSTM 256, Adam, f32) fitted 2
+   steps, written as an upstream DL4J zip with its Adam state, restored by
+   ``load_model``'s auto-detection: ``output()`` and step 3 equal to the
+   writer's bit for bit, K4 on the cluster route (2 a forward, 2 a step);
+   (d) a SameDiffLayer MLN fitted 5 steps, replayed = eager; every K3 and
+   K4 shape these paths ran held against the plain version;
 5. a ``kernels`` JSON line (every hand-written kernel: its route,
    launches on each main path, largest error, times and bound at its
    path shape), then the result line (printed last).
@@ -6898,12 +6918,13 @@ def _zoo_fit_way(make_net, ds, graphs, counts, steps=ZOO_STEPS):
     return net, rec, total, final
 
 
-def _zoo_ways(tag, make_net, ds, counts, failed):
+def _zoo_ways(tag, make_net, ds, counts, failed, steps=ZOO_STEPS):
     """:func:`_zoo_fit_way` replayed and eager; replayed = eager bit for
     bit (losses and every final tensor), step kinds, 0 retraces after
     warm. Returns (the replayed net, its record, its launches)."""
-    net, rec, total, final = _zoo_fit_way(make_net, ds, True, counts)
-    enet, erec, etotal, efinal = _zoo_fit_way(make_net, ds, False, counts)
+    net, rec, total, final = _zoo_fit_way(make_net, ds, True, counts, steps)
+    enet, erec, etotal, efinal = _zoo_fit_way(make_net, ds, False, counts,
+                                              steps)
     del enet
     diff = first_diff(efinal, final)
     rec["replay_equals_eager"] = diff is None and \
@@ -6912,7 +6933,7 @@ def _zoo_ways(tag, make_net, ds, counts, failed):
     rec["eager_samples_per_s"] = erec["samples_per_s"]
     rec["eager_launches_per_step"] = erec["launches_per_step"]
     kinds = rec["step_kinds"]
-    if kinds != ["eager", "capture"] + ["replay"] * (ZOO_STEPS - 2):
+    if kinds != ["eager", "capture"] + ["replay"] * (steps - 2):
         failed.append(f"{tag}: steps ran {kinds}")
     if not rec["replay_equals_eager"]:
         failed.append(f"{tag}: replayed != eager (leaf {diff}, losses "
@@ -7341,6 +7362,675 @@ def zoo_phase(fa, pa, fo, fl, smi, gen, k3_checked=frozenset()):
     return paths, recs, held
 
 
+# ---------------------------------------------------------------- phase 20
+
+IMPORT_BATCH = 32                       # the Keras ResNet50's batch
+IMPORT_HW = 224                         # its published input (224x224x3)
+IMPORT_BNS = 53                         # its BatchNormalization layers
+IMPORT_STEPS = 3                        # eager, capture, replay
+IMPORT_LR = 1e-2                        # Keras SGD's default
+CHARNN_ZIP_STEPS = 2                    # fitted before the zip is written
+SDL_BATCH, SDL_STEPS = 64, 5            # the SameDiffLayer MLN's fit
+KERAS_RESNET50 = (Path(__file__).resolve().parent / "tests"
+                  / "torch_keras_resnet50.json")
+
+# The layout Keras's legacy .h5 save writes (through h5py, libver
+# "earliest"): superblock version 0, groups as symbol tables (a version-1
+# B-tree over symbol table nodes, names in a local heap), version-1 object
+# headers, contiguous little-endian datasets, and string attributes as
+# variable-length UTF-8 strings in one global heap collection. The card
+# has no h5py: phase 20 writes its Keras file with this.
+_H5_UNDEF = b"\xff" * 8
+_H5_LEAF_K = 4                          # a symbol table node: 2K entries
+_H5_GCOL_MIN = 4096                     # HDF5's least heap collection
+
+
+class H5Group:
+    """A group to write: ``attrs`` (name → str, list of str, or a numeric
+    numpy array or scalar) and ``members`` (name → H5Group or numpy
+    array)."""
+
+    def __init__(self, attrs=None, members=None):
+        self.attrs = dict(attrs or {})
+        self.members = dict(members or {})
+
+
+def _h5_pad(b, n=8):
+    return b + b"\0" * (-len(b) % n)
+
+
+def _h5_dtype_msg(dt):
+    """A datatype message for a little-endian numeric numpy dtype."""
+    import struct
+    dt = np.dtype(dt)
+    if dt.kind == "f":
+        sign, mant, exp, bias = {2: (15, 10, 5, 15), 4: (31, 23, 8, 127),
+                                 8: (63, 52, 11, 1023)}[dt.itemsize]
+        return (bytes([0x11, 0x20, sign, 0]) + struct.pack("<I", dt.itemsize)
+                + struct.pack("<HHBBBBI", 0, 8 * dt.itemsize, mant, exp, 0,
+                              mant, bias))
+    if dt.kind in "iu":
+        return (bytes([0x10, 0x08 if dt.kind == "i" else 0, 0, 0])
+                + struct.pack("<IHH", dt.itemsize, 0, 8 * dt.itemsize))
+    raise ValueError(f"the HDF5 writer has no datatype for {dt}")
+
+
+def _h5_vlen_str_msg():
+    """Variable-length UTF-8 string, over a 1-byte unsigned base."""
+    import struct
+    base = bytes([0x10, 0, 0, 0]) + struct.pack("<IHH", 1, 0, 8)
+    return bytes([0x19, 0x01, 0x01, 0]) + struct.pack("<I", 16) + base
+
+
+def _h5_space_msg(shape):
+    import struct
+    return (bytes([1, len(shape), 0, 0]) + b"\0" * 4
+            + b"".join(struct.pack("<Q", d) for d in shape))
+
+
+class _H5Out:
+    def __init__(self):
+        self.buf = bytearray(96)        # the superblock, written last
+        self.heap = {}                  # string → global heap index
+        self.gcol = None
+
+    def alloc(self, b):
+        self.buf += b"\0" * (-len(self.buf) % 8)
+        at = len(self.buf)
+        self.buf += b
+        return at
+
+    def header(self, msgs):
+        """A version-1 object header of (type, data) messages."""
+        import struct
+        body = b"".join(struct.pack("<HHB3x", t, len(_h5_pad(d)), 0)
+                        + _h5_pad(d) for t, d in msgs)
+        return self.alloc(struct.pack("<BBHII", 1, 0, len(msgs), 1,
+                                      len(body)) + b"\0" * 4 + body)
+
+    def attr_msg(self, name, value):
+        import struct
+        if isinstance(value, str) or (isinstance(value, (list, tuple))
+                                      and all(isinstance(s, str)
+                                              for s in value)):
+            items = [value] if isinstance(value, str) else list(value)
+            shape = () if isinstance(value, str) else (len(items),)
+            dtype = _h5_vlen_str_msg()
+            data = b"".join(struct.pack("<IQI", len(s.encode("utf-8")),
+                                        self.gcol, self.heap[s])
+                            for s in items)
+        else:
+            arr = np.array(value, order="C")
+            arr = arr.astype(arr.dtype.newbyteorder("<"))
+            shape, dtype = arr.shape, _h5_dtype_msg(arr.dtype)
+            data = arr.tobytes()
+        nm = name.encode("utf-8") + b"\0"
+        space = _h5_space_msg(shape)
+        return (0x0C, struct.pack("<BBHHH", 1, 0, len(nm), len(dtype),
+                                  len(space))
+                + _h5_pad(nm) + _h5_pad(dtype) + _h5_pad(space) + data)
+
+    def dataset(self, arr):
+        import struct
+        arr = np.array(arr, order="C")
+        arr = arr.astype(arr.dtype.newbyteorder("<"))
+        at = self.alloc(arr.tobytes()) if arr.size else None
+        layout = (bytes([3, 1]) + (_H5_UNDEF if at is None
+                                   else struct.pack("<Q", at))
+                  + struct.pack("<Q", arr.nbytes))
+        return self.header([(0x01, _h5_space_msg(arr.shape)),
+                            (0x03, _h5_dtype_msg(arr.dtype)),
+                            (0x05, bytes([2, 1, 2, 0])),    # fill: none
+                            (0x08, layout)])
+
+    def group(self, g, internal_k):
+        """Write ``g`` and everything under it; returns (header, B-tree,
+        local heap) addresses."""
+        import struct
+        names = sorted(g.members, key=lambda s: s.encode("utf-8"))
+        addrs = [self.group(g.members[n], internal_k)[0]
+                 if isinstance(g.members[n], H5Group)
+                 else self.dataset(g.members[n]) for n in names]
+        heap = bytearray(8)             # offset 0: the empty name
+        offs = []
+        for n in names:
+            offs.append(len(heap))
+            heap += _h5_pad(n.encode("utf-8") + b"\0")
+        free = len(heap)
+        heap += struct.pack("<QQ", 1, 16)   # one free block, the list's end
+        data = self.alloc(bytes(heap))
+        lheap = self.alloc(b"HEAP\0\0\0\0" + struct.pack(
+            "<QQQ", len(heap), free, data))
+        entry = 2 * 8 + 24
+        snods, keys = [], [0]
+        for i in range(0, len(names), 2 * _H5_LEAF_K):
+            chunk = range(i, min(i + 2 * _H5_LEAF_K, len(names)))
+            body = b"".join(struct.pack("<QQII16x", offs[j], addrs[j], 0, 0)
+                            for j in chunk)
+            body += b"\0" * (2 * _H5_LEAF_K * entry - len(body))
+            snods.append(self.alloc(b"SNOD\x01\x00" + struct.pack(
+                "<H", len(chunk)) + body))
+            keys.append(offs[chunk[-1]])
+        tree = b"TREE\x00\x00" + struct.pack("<H", len(snods)) + \
+            _H5_UNDEF + _H5_UNDEF
+        for i, s in enumerate(snods):
+            tree += struct.pack("<QQ", keys[i], s)
+        tree += struct.pack("<Q", keys[len(snods)])
+        tree += b"\0" * (8 + 16 + (2 * internal_k + 1) * 8
+                         + 2 * internal_k * 8 - len(tree))
+        btree = self.alloc(tree)
+        msgs = [(0x11, struct.pack("<QQ", btree, lheap))]
+        msgs += [self.attr_msg(k, v) for k, v in g.attrs.items()]
+        return self.header(msgs), btree, lheap
+
+
+def write_h5(path, root: H5Group):
+    """Write the tree under ``root`` as an HDF5 file at ``path``: every
+    group is one B-tree node over full symbol table nodes (the superblock's
+    internal K is raised to hold the widest group)."""
+    import struct
+
+    def widest(g):
+        n = -(-len(g.members) // (2 * _H5_LEAF_K))
+        return max([n] + [widest(m) for m in g.members.values()
+                          if isinstance(m, H5Group)])
+
+    def strings(g):
+        for v in g.attrs.values():
+            for s in [v] if isinstance(v, str) else (
+                    v if isinstance(v, (list, tuple)) else []):
+                out.heap.setdefault(s, len(out.heap) + 1)
+        for m in g.members.values():
+            if isinstance(m, H5Group):
+                strings(m)
+
+    internal_k = max(16, -(-widest(root) // 2))
+    out = _H5Out()
+    strings(root)
+    # the global heap first: every string attribute value, then free space
+    body = b""
+    for i, s in enumerate(out.heap, start=1):
+        raw = s.encode("utf-8")
+        body += struct.pack("<HH4xQ", i, 1, len(raw)) + _h5_pad(raw)
+    size = max(_H5_GCOL_MIN, 16 + len(body) + 16)
+    body += struct.pack("<HH4xQ", 0, 0, size - 16 - len(body))
+    out.gcol = out.alloc(b"GCOL\x01\0\0\0" + struct.pack("<Q", size) + body
+                         + b"\0" * (size - 16 - len(body)))
+    hdr, btree, lheap = out.group(root, internal_k)
+    buf = out.buf
+    buf[:96] = (b"\x89HDF\r\n\x1a\n" + bytes([0, 0, 0, 0, 0, 8, 8, 0])
+                + struct.pack("<HHI", _H5_LEAF_K, internal_k, 0)
+                + struct.pack("<Q", 0) + _H5_UNDEF
+                + struct.pack("<Q", len(buf)) + _H5_UNDEF
+                + struct.pack("<QQII", 0, hdr, 1, 0)
+                + struct.pack("<QQ", btree, lheap))
+    with open(path, "wb") as fh:
+        fh.write(buf)
+
+
+def _keras_inbound(kc):
+    """The inbound layer names of a Keras 3 functional layer config."""
+    out = []
+
+    def walk(o):
+        if isinstance(o, dict):
+            if o.get("class_name") == "__keras_tensor__":
+                out.append(o["config"]["keras_history"][0])
+                return
+            for v in o.values():
+                walk(v)
+        elif isinstance(o, list):
+            for v in o:
+                walk(v)
+    walk(kc.get("inbound_nodes", []))
+    return out
+
+
+_KERAS_WEIGHTLESS = {"ZeroPadding2D", "Activation", "MaxPooling2D", "Add",
+                     "GlobalAveragePooling2D"}
+
+
+def keras_resnet50_weights(layers, seed):
+    """{layer name: [(variable, array)]} in Keras's variable order for the
+    ResNet50 config's layers, drawn from ``seed``: He-normal conv kernels,
+    small biases, BN gamma about 1, beta and moving mean about 0, moving
+    variance in [0.5, 1.5] (positive), a Glorot-scaled Dense."""
+    rng = np.random.default_rng(seed)
+    chans, out = {}, {}
+
+    def normal(shape, std):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    for kc in layers:
+        cls, c = kc["class_name"], kc["config"]
+        name = c["name"]
+        ins = [chans[n] for n in _keras_inbound(kc)]
+        ws = []
+        if cls == "InputLayer":
+            chans[name] = c["batch_shape"][-1]
+        elif cls == "Conv2D":
+            kh, kw = c["kernel_size"]
+            cin, cout = ins[0], c["filters"]
+            ws.append(("kernel", normal((kh, kw, cin, cout),
+                                        math.sqrt(2.0 / (kh * kw * cin)))))
+            if c.get("use_bias", True):
+                ws.append(("bias", normal((cout,), 0.01)))
+            chans[name] = cout
+        elif cls == "BatchNormalization":
+            n = ins[0]
+            ws += [("gamma", (1.0 + normal((n,), 0.1))),
+                   ("beta", normal((n,), 0.1)),
+                   ("moving_mean", normal((n,), 0.1)),
+                   ("moving_variance",
+                    rng.uniform(0.5, 1.5, n).astype(np.float32))]
+            chans[name] = n
+        elif cls == "Dense":
+            cin, cout = ins[0], c["units"]
+            ws += [("kernel", normal((cin, cout),
+                                     math.sqrt(2.0 / (cin + cout)))),
+                   ("bias", normal((cout,), 0.01))]
+            chans[name] = cout
+        elif cls in _KERAS_WEIGHTLESS:
+            chans[name] = ins[0]
+        else:
+            raise ValueError(f"Keras ResNet50 writer: no weights rule for "
+                             f"{cls} ({name})")
+        out[name] = ws
+    return out
+
+
+def write_keras_resnet50(path, hw=IMPORT_HW, seed=20):
+    """The Keras ResNet50 as a legacy .h5 at ``path``: the committed
+    ``model_config`` and ``training_config`` that Keras 3.13.1 writes for
+    ``ResNet50(weights=None)`` compiled with SGD and categorical
+    cross-entropy (its input set to ``hw``×``hw``×3), the weights drawn
+    from ``seed`` in Keras's groups (``model_weights/<layer>/<layer>/
+    <variable>``, ``layer_names`` and ``weight_names`` as Keras writes
+    them). Returns the model config."""
+    spec = json.loads(KERAS_RESNET50.read_text())
+    cfg = spec["model_config"]
+    layers = cfg["config"]["layers"]
+    for kc in layers:
+        if kc["class_name"] == "InputLayer":
+            kc["config"]["batch_shape"] = [None, hw, hw, 3]
+    weights = keras_resnet50_weights(layers, seed)
+    meta = {"backend": spec["backend"], "keras_version": spec["keras_version"]}
+    groups = {}
+    for name, ws in weights.items():
+        groups[name] = H5Group(
+            {"weight_names": [f"{name}/{v}" for v, _ in ws]},
+            {name: H5Group(members=dict(ws))} if ws else {})
+    write_h5(path, H5Group(
+        {**meta, "model_config": json.dumps(cfg),
+         "training_config": json.dumps(spec["training_config"])},
+        {"model_weights": H5Group(
+            {**meta, "layer_names": [kc["config"]["name"] for kc in layers]},
+            groups)}))
+    return cfg
+
+
+def keras_finetune_net(src, lr=IMPORT_LR):
+    """The imported graph made trainable as a DL4J user does it: its
+    ``predictions`` Dense becomes an OutputLayer (softmax, MCXENT) with
+    the imported weights, through ``TransferLearning.GraphBuilder`` with
+    SGD (Keras's own default rate)."""
+    from deeplearning4j_tpu_torch import nn
+    from deeplearning4j_tpu_torch.train import Sgd
+    head = src.conf.nodes["predictions"]
+    w = src.params["predictions"]["W"]
+    net = (nn.TransferLearning.GraphBuilder(src)
+           .fine_tune_configuration(nn.FineTuneConfiguration(
+               updater=Sgd(lr)))
+           .remove_vertex_and_connections("predictions")
+           .add_layer("predictions", nn.OutputLayer(
+               n_in=w.shape[0], n_out=w.shape[1], activation="softmax",
+               loss="mcxent"), *head.inputs)
+           .set_outputs("predictions").build())
+    with torch.no_grad():
+        for k in ("W", "b"):
+            net.params["predictions"][k].copy_(src.params["predictions"][k])
+    return net
+
+
+def _k3_held(fo, gen, seen, k3_checked):
+    """Every K3 (dtype, N, C, activation) of ``seen`` not held yet, held
+    against the plain versions here: the largest error by shape."""
+    held = {}
+    for dt, n, c, act in seen:
+        if (dt, n, c, act) not in k3_checked:
+            held[f"{str(dt)[6:]} N{n} C{c} {act}"] = check_k3(
+                fo, dt, n, c, gen, acts=(act,), time_it=False)["max_abs_err"]
+    return held
+
+
+def import_resnet50(fa, pa, fo, gen, k3_checked, failed, tmp):
+    """Phase 20 (b): the Keras ResNet50 written (seeded weights) and
+    imported onto the card, its 53 BNs ``fused=True``; ``output()`` at B32
+    f32 (eager, capture, replay: 53 ``bn_act`` a forward) against the eager
+    call and the plain BN path; fine-tuned 3 steps through ``fit``,
+    replayed and eager, bit for bit (53 launches a step of each K3
+    kernel); the zoo's ResNet-50 at the same batch beside it."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.import_ import import_keras_model
+    from deeplearning4j_tpu_torch.nn.layers.norm import BatchNormalization
+    from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
+    counts = lambda: path_counts(fa, pa, fo)     # noqa: E731
+    b = IMPORT_BATCH
+    path = tmp / "resnet50.h5"
+    rec = {}
+    t0 = time.perf_counter()
+    write_keras_resnet50(path)
+    rec["write_h5_s"] = time.perf_counter() - t0
+    rec["h5_bytes"] = path.stat().st_size
+    t0 = time.perf_counter()
+    net = import_keras_model(path)
+    torch.cuda.synchronize()
+    rec["import_s"] = time.perf_counter() - t0
+    bns = [n for n, d in net.conf.nodes.items()
+           if isinstance(d.op, BatchNormalization)]
+    rec["batch_norms"] = len(bns)
+    if len(bns) != IMPORT_BNS:
+        failed.append(f"keras resnet50: {len(bns)} BNs imported")
+    _set_fused(net, True)
+    rng = np.random.default_rng(20)
+    x = torch.as_tensor(rng.random((b, IMPORT_HW, IMPORT_HW, 3), np.float32),
+                        device="cuda")
+    y = torch.as_tensor(np.eye(1000, dtype=np.float32)[
+        rng.integers(0, 1000, b)], device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    per_call = []
+    with _k3_cases(fo) as cases:
+        for _ in range(3):
+            before = counts()
+            out = net.output(x)
+            torch.cuda.synchronize()
+            per_call.append((net._infer_fn.last,
+                             {k: v - before[k] for k, v in counts().items()}))
+        with disable_graphs():
+            eager = net.output(x)
+    out_total = dict.fromkeys(per_call[0][1], 0)
+    captured = {}
+    for kind, d in per_call:
+        if kind == "capture":
+            captured = d
+        for k in out_total:
+            out_total[k] += captured[k] if kind == "replay" else d[k]
+        if kind in ("eager", "capture") and (
+                d["bn_act"] != IMPORT_BNS or d["bn_stats"]
+                or d["bn_bwd_reduce"] or d["bn_bwd_dx"]):
+            failed.append(f"keras resnet50 output {kind}: K3 launches {d}")
+    if [k for k, _ in per_call] != ["eager", "capture", "replay"]:
+        failed.append(f"keras resnet50 output ran "
+                      f"{[k for k, _ in per_call]}")
+    serve = {"replay_equals_eager": bool(torch.equal(out, eager)),
+             "finite": bool(torch.isfinite(out).all()),
+             "rows_sum_to_1": bool(torch.allclose(
+                 out.sum(-1), torch.ones(b, device="cuda"), atol=1e-4)),
+             "device_ms": device_ms(lambda: net.output(x), iters=5),
+             "k3_launches_by_call": [f"{kind}: {d['bn_act']}"
+                                     for kind, d in per_call],
+             "peak_alloc_gib": torch.cuda.max_memory_allocated() / 2**30}
+    _set_fused(net, False)
+    net._infer_fn = None
+    plain = net.output(x)
+    serve["max_abs_err_vs_plain_bn"] = (out - plain).abs().max().item()
+    if not (serve["replay_equals_eager"] and serve["finite"]
+            and serve["rows_sum_to_1"]):
+        failed.append(f"keras resnet50 output: {serve}")
+    if not serve["max_abs_err_vs_plain_bn"] <= ATOL[torch.float32]:
+        failed.append(f"keras resnet50 output vs plain BN: "
+                      f"{serve['max_abs_err_vs_plain_bn']}")
+    del net, out, eager, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def make_net():
+        src = import_keras_model(path)
+        _set_fused(src, True)
+        return keras_finetune_net(src)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with _k3_cases(fo) as tcases:
+            fnet, fit, fit_total = _zoo_ways(
+                f"keras resnet50 fine-tune {IMPORT_HW}x{IMPORT_HW} B{b} f32",
+                make_net, DataSet(x, y), counts, failed, steps=IMPORT_STEPS)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    step = fit["launches_per_step"]
+    if any(step.get(k) != IMPORT_BNS for k in K3_LINES):
+        failed.append(f"keras resnet50 fit: K3 launches a step {step}")
+    del fnet
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the zoo's ResNet-50 (conv without bias, BN + ReLU fused in one
+    # launch) at the same batch, f32, BNs fused=True
+    znet = ResNet50(num_classes=1000).init()
+    _set_fused(znet, True)
+    zoo = {"output_device_ms": device_ms(lambda: znet.output(x), iters=5)}
+    znet.fit([DataSet(x, y)] * IMPORT_STEPS)
+    zoo["step_device_ms"] = profile_step(
+        lambda: znet.fit([DataSet(x, y)]))["device_ms_per_step"]
+    del znet
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = _k3_held(fo, gen, sorted(set(cases) | set(tcases), key=str),
+                    k3_checked)
+    rec.update({"output": serve, "fit": fit, "zoo_resnet50": zoo,
+                "k3_held_here": held,
+                "k3_cases": sorted({f"{str(dt)[6:]} N{n} C{c} {a}"
+                                    for dt, n, c, a in set(cases)
+                                    | set(tcases)})})
+    log(f"keras resnet50 (seeded weights, B{b} f32, the BNs fused=True): "
+        f"write {rec['write_h5_s']:.2f} s ({rec['h5_bytes']} bytes), import "
+        f"{rec['import_s']:.2f} s, forward {serve['device_ms']:.3f} device ms"
+        f" (zoo ResNet-50 {zoo['output_device_ms']:.3f}), step "
+        f"{fit.get('device_ms_per_step', float('nan')):.3f} device ms (zoo "
+        f"{zoo['step_device_ms']:.3f}); {json.dumps(rec)}")
+    return {"import_resnet50_output": out_total,
+            "import_resnet50_fit": fit_total}, rec
+
+
+def import_charnn(fa, pa, fo, fl, gen, k4_checked, failed, tmp):
+    """Phase 20 (c): the zoo's char-RNN (T60, vocab 77, 2×GravesLSTM 256,
+    Adam, f32, ``fused=True``) fitted 2 steps, written as an upstream DL4J
+    zip with its Adam state, restored through ``load_model``'s
+    auto-detection: its ``output()`` equal to the writer's bit for bit,
+    its step 3 equal to the writer's step 3 (params, states and updater
+    state); K4 on the cluster route, 2 launches a forward and a step."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.serde import (load_model,
+                                                write_model_upstream_format)
+    from deeplearning4j_tpu_torch.train import Adam
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    counts = lambda: path_counts(fa, pa, fo)     # noqa: E731
+    b, t, v = CHARNN_BATCH, CHARNN_T, CHARNN_VOCAB
+    rng = np.random.default_rng(20)
+    eye = np.eye(v, dtype=np.float32)
+    x = torch.as_tensor(eye[rng.integers(0, v, (b, t))], device="cuda")
+    y = torch.as_tensor(eye[rng.integers(0, v, (b, t))], device="cuda")
+    ds = DataSet(x, y)
+    net = TextGenerationLSTM(num_classes=v, input_shape=(t, v),
+                             units=CHARNN_H, updater=Adam(1e-3)).init()
+    _set_lstm_fused(net, True)
+    total = dict.fromkeys(counts(), 0)
+    calls = []
+
+    def run(tag, fn, kind_of):
+        before = counts()
+        got = fn()
+        torch.cuda.synchronize()
+        d = {k: n - before[k] for k, n in counts().items()}
+        kind = kind_of()
+        calls.append((tag, kind, d))
+        return got, kind, d
+
+    rec = {}
+    with _k4_cases(fl) as cases:
+        for i in range(CHARNN_ZIP_STEPS):
+            run(f"fit {i + 1}", lambda: net.fit([ds]),
+                lambda: net._step_fn.last)
+        path = tmp / "charnn_upstream.zip"
+        t0 = time.perf_counter()
+        write_model_upstream_format(net, path, save_updater=True)
+        rec["write_zip_s"] = time.perf_counter() - t0
+        rec["zip_bytes"] = path.stat().st_size
+        t0 = time.perf_counter()
+        restored = load_model(path)
+        rec["restore_s"] = time.perf_counter() - t0
+        _set_lstm_fused(restored, True)
+        out_r, _, _ = run("restored output", lambda: restored.output(x),
+                          lambda: restored._infer_fn.last)
+        out_w, _, _ = run("writer output", lambda: net.output(x),
+                          lambda: net._infer_fn.last)
+        loss_w, _, _ = run("writer fit 3", lambda: net.fit([ds]),
+                           lambda: net._step_fn.last)
+        loss_r, _, _ = run("restored fit 3", lambda: restored.fit([ds]),
+                           lambda: restored._step_fn.last)
+        torch.cuda.synchronize()
+    captured = {}
+    for tag, kind, d in calls:
+        if kind == "capture":
+            captured[tag.split()[0]] = d
+        src = captured["fit"] if kind == "replay" else d
+        for k in total:
+            total[k] += src[k]
+        if kind != "replay" and (d["fused_lstm"] != 2
+                                 or d["fused_lstm_cluster"] != 2):
+            failed.append(f"charnn upstream {tag} ({kind}): K4 {d}")
+    diff = first_diff(_all_tensors(net), _all_tensors(restored))
+    rec.update({
+        "restored_type": type(restored).__name__,
+        "restored_step_count": restored._step_count,
+        "output_equal": bool(torch.equal(out_r, out_w)),
+        "step3_losses": [loss_w, loss_r],
+        "step3_equal": diff is None and loss_w == loss_r,
+        "calls": [f"{tag} ({kind}): K4 {d['fused_lstm']} "
+                  f"cluster {d['fused_lstm_cluster']}"
+                  for tag, kind, d in calls],
+        "k4_cases": sorted({f"{str(dt)[6:]} B{bb} H{h} {r}"
+                            for dt, bb, h, r in cases})})
+    if not rec["output_equal"]:
+        failed.append("charnn upstream: restored output != the writer's")
+    if not rec["step3_equal"]:
+        failed.append(f"charnn upstream: step 3 differs (leaf {diff}, "
+                      f"losses {loss_w} vs {loss_r})")
+    held = {}
+    for dt, bb, h, route in sorted(set(cases), key=str):
+        if (dt, bb, h, route) not in k4_checked:
+            held[f"{str(dt)[6:]} B{bb} H{h} {route}"] = check_lstm(
+                fl, dt, bb, t, h, gen, route=route, grads=True)[
+                    "max_abs_err"]
+    rec["k4_held_here"] = held
+    log(f"charnn upstream zip (B{b} T{t} H{CHARNN_H} V{v}, f32, Adam): "
+        f"{json.dumps(rec)}")
+    del net, restored
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"import_charnn": total}, rec
+
+
+def import_samediff_layer(failed):
+    """Phase 20 (d): an MLN of a SameDiffLayer (dense + ReLU as a user
+    graph) and an OutputLayer, fitted 5 steps replayed and eager: equal
+    bit for bit, no retrace after warm."""
+    from deeplearning4j_tpu_torch import disable_graphs, nn
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.train import Adam
+
+    @dataclasses.dataclass
+    class SDDense(nn.SameDiffLayer):
+        n_in: int = 784
+        n_out: int = 256
+
+        def define_parameters(self, p):
+            p.add_weight_param("W", self.n_in, self.n_out)
+            p.add_bias_param("b", self.n_out)
+
+        def define_layer(self, sd, x, params, mask=None):
+            return sd.nn.relu(sd.nn.linear(x, params["W"], params["b"]))
+
+    rng = np.random.default_rng(20)
+    x = torch.as_tensor(rng.standard_normal((SDL_BATCH, 784), np.float32),
+                        device="cuda")
+    y = torch.as_tensor(np.eye(10, dtype=np.float32)[
+        rng.integers(0, 10, SDL_BATCH)], device="cuda")
+    runs = {}
+    for graphs in (True, False):
+        conf = (nn.NeuralNetConfiguration.builder().seed(20)
+                .updater(Adam(1e-3)).list()
+                .layer(SDDense())
+                .layer(nn.OutputLayer(n_in=256, n_out=10,
+                                      activation="softmax", loss="mcxent"))
+                .build())
+        net = nn.MultiLayerNetwork(conf).init((784,))
+        sentinel = net._train_sentinel()
+        kinds, losses = [], []
+        with contextlib.nullcontext() if graphs else disable_graphs():
+            for i in range(SDL_STEPS):
+                losses.append(net.fit(DataSet(x, y)))
+                kinds.append(net._step_fn.last)
+                if i == 1:
+                    sentinel.mark_warm()
+            out = net.output(x)
+        runs[graphs] = (losses, kinds, _all_tensors(net), out,
+                        sentinel.retraces_after_warm)
+    diff = first_diff(runs[False][2], runs[True][2])
+    rec = {"losses": runs[True][0], "step_kinds": runs[True][1],
+           "replay_equals_eager": diff is None
+           and runs[True][0] == runs[False][0]
+           and bool(torch.equal(runs[True][3], runs[False][3])),
+           "retraces_after_warm": runs[True][4]}
+    log(f"SameDiffLayer MLN (B{SDL_BATCH} 784-256-10, Adam): "
+        f"{json.dumps(rec)}")
+    if rec["step_kinds"] != ["eager", "capture"] + ["replay"] * (
+            SDL_STEPS - 2) or not rec["replay_equals_eager"] \
+            or rec["retraces_after_warm"]:
+        failed.append(f"SameDiffLayer MLN: {rec}")
+    return rec
+
+
+def import_phase(fa, pa, fo, fl, smi, gen, k3_checked=frozenset(),
+                 k4_checked=frozenset()):
+    """Phase 20: a DL4J user's import path on the card — the Keras
+    ResNet50 written at its published shape, imported, served and
+    fine-tuned (K3), the zoo's char-RNN through an upstream DL4J zip and
+    back (K4), a SameDiffLayer MLN fitted. Returns (launch counts by path,
+    records)."""
+    import tempfile
+    reset_all(fa, pa, fo, fl)
+    failed, paths, recs = [], {}, {}
+    t_phase = time.perf_counter()
+    log(f"phase 20 on {smi}: TF32 matmuls "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN TF32 "
+        f"{torch.backends.cudnn.allow_tf32}")
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        t0 = time.perf_counter()
+        p, recs["resnet50"] = import_resnet50(fa, pa, fo, gen, k3_checked,
+                                              failed, tmp)
+        paths.update(p)
+        recs["resnet50_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        p, recs["charnn"] = import_charnn(fa, pa, fo, fl, gen, k4_checked,
+                                          failed, tmp)
+        paths.update(p)
+        recs["charnn_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    recs["samediff_layer"] = import_samediff_layer(failed)
+    recs["samediff_layer_s"] = time.perf_counter() - t0
+    log(f"phase 20 host seconds: keras resnet50 {recs['resnet50_s']:.1f}, "
+        f"charnn {recs['charnn_s']:.1f}, SameDiffLayer "
+        f"{recs['samediff_layer_s']:.1f}, all "
+        f"{time.perf_counter() - t_phase:.1f}")
+    log(f"phase 20 launches by path: "
+        f"{json.dumps({k: {n: v for n, v in c.items() if v} for k, c in paths.items()})}")
+    if failed:
+        raise SystemExit(f"phase 20: {failed}")
+    return paths, recs
+
+
 def _values_equal(a, b):
     """Nested lists / numbers / arrays equal exactly."""
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
@@ -7401,6 +8091,11 @@ def main():
                          "DL4J attention layers and the ONNX importer) "
                          "only, holding every K3 shape it runs itself "
                          "(prints no result line)")
+    ap.add_argument("--import-only", action="store_true",
+                    help="build + phase 20 (the Keras importer, upstream "
+                         "DL4J zips and SameDiff layers) only, holding "
+                         "every K3 and K4 shape it runs itself (prints no "
+                         "result line)")
     ap.add_argument("--prefetch-times", metavar="ROOT",
                     help="only time LeNet's fit over host and device "
                          "iterators and a host list, for the port checked "
@@ -7464,6 +8159,12 @@ def main():
     if args.zoo_only:
         zoo_phase(fa, pa, fo, fl, smi, gen)
         mark("19 layer and zoo breadth, ONNX")
+        log(f"host seconds by phase (after the build): "
+            f"{json.dumps(seconds)}")
+        return 0
+    if args.import_only:
+        import_phase(fa, pa, fo, fl, smi, gen)
+        mark("20 Keras importer, upstream zips, SameDiff layers")
         log(f"host seconds by phase (after the build): "
             f"{json.dumps(seconds)}")
         return 0
@@ -7607,6 +8308,11 @@ def main():
         bwd[(dt, ATTN_B, ATTN_T, True, ATTN_C // ATTN_H)] = \
             zoo_held[key]["bwd"]
     mark("19 layer and zoo breadth, ONNX")
+    import_paths, _ = import_phase(fa, pa, fo, fl, smi, gen, k3_checked,
+                                   k4_checked)
+    by_path.update(import_paths)
+    lstm_paths["import_charnn"] = import_paths["import_charnn"]
+    mark("20 Keras importer, upstream zips, SameDiff layers")
     log(f"host seconds by phase (after the build): {json.dumps(seconds)}")
     # the stage-0 BN's shape (N = 128*56*56, C = 256) stands for K3
     main_k3 = k3[(torch.bfloat16, RESNET_BATCH * 56 * 56, 256)]
@@ -7614,7 +8320,8 @@ def main():
                     "workflow_resnet_fit", "workflow_resnet_evaluate",
                     "resnet_serve", *(f"workflow2_resnet_remat{r}"
                                       for r in REMAT_SETTINGS),
-                    "zoo_yolo2_fit", "zoo_yolo2_output")
+                    "zoo_yolo2_fit", "zoo_yolo2_output",
+                    "import_resnet50_output", "import_resnet50_fit")
     main_k1 = k1[(torch.bfloat16, 1, 2048, 64)]    # a dense prefill's shape
     train_k1 = k1[(torch.bfloat16, 32, 1024, 64)]  # the train path's shape
     main_k2 = k2[torch.bfloat16]

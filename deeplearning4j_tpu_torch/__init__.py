@@ -47,7 +47,10 @@ What is ported so far:
   ``ComputationGraph.rnn_time_step`` and ``nn.early_stopping``;
 - ``autodiff`` — SameDiff (the graph, all 739 ops of ``sd_ops``, grad,
   ``fit`` on the compiled step, save/load that reads the JAX package's
-  zips, ``export``) and the TF GraphDef importer on its own wire reader.
+  zips, ``export``) and the TF GraphDef importer on its own wire reader;
+- ``import_`` — the Keras importer (``.h5`` and ``.keras``) on the port's
+  own HDF5 reader; ``serde.upstream_dl4j`` — the zips the Java DL4J
+  writes, both ways; the SameDiff layers of ``nn``.
 
 Entry points take ``device=None``, which means the CUDA card; without one
 they raise unless the caller passed ``device="cpu"``.

@@ -301,18 +301,9 @@ __device__ __forceinline__ uint32_t peer_addr(uint32_t addr, uint32_t rank) {
   return r;
 }
 
-// an asynchronous 4-byte store into a peer's shared memory that, once it
-// lands, counts its bytes off the peer's mbarrier `bar` (complete_tx)
-__device__ __forceinline__ void st_async(uint32_t addr, uint32_t v,
-                                         uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, "
-      "[%2];" ::"r"(addr),
-      "r"(v), "r"(bar)
-      : "memory");
-}
-
-// the same for 16 bytes (addr 16-byte aligned)
+// an asynchronous 16-byte store (addr 16-byte aligned) into a peer's
+// shared memory that, once it lands, counts its bytes off the peer's
+// mbarrier `bar` (complete_tx)
 __device__ __forceinline__ void st_async(uint32_t addr, uint4 v,
                                          uint32_t bar) {
   asm volatile(

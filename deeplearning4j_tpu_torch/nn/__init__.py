@@ -39,6 +39,10 @@ from .layers.recurrent import (GRU, LSTM, Bidirectional, BidirectionalMode,
                                ConvLSTM2D, GravesBidirectionalLSTM,
                                GravesLSTM, LastTimeStep, SimpleRnn,
                                TimeDistributed)
+from .layers.samediff_layer import (SameDiffLambdaLayer,
+                                    SameDiffLambdaVertex, SameDiffLayer,
+                                    SameDiffOutputLayer, SameDiffVertex,
+                                    SDLayerParams)
 from .layers.variational import VariationalAutoencoder
 from .layers.wrappers import (FrozenLayer, FrozenLayerWithBackprop,
                               MaskZeroLayer, RepeatVector,

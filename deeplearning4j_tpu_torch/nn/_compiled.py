@@ -38,7 +38,9 @@ next call of each signature starts again with an eager step.
 A failed capture raises :class:`CaptureError` chained to the error of the
 op that failed (a host sync, a pageable copy, an allocation the capture
 forbids). Nothing falls back to eager on its own: the eager path on CUDA
-is only ever :func:`disable_graphs`.
+is only ever :func:`disable_graphs`, or a step made with ``eager=True``
+(a network whose SameDiff layer needs the host while it runs, known
+before the first call, as ``SameDiff.eval`` knows it of a graph).
 
 The Python launch counters of the kernel wrappers do not move during a
 replay (the wrappers do not run): a capture counts one replay's launches.
@@ -195,8 +197,9 @@ class CompiledStep:
     "capture" call also replays once) and ``calls`` counts each kind.
     ``hooks`` are called after every call with ``(kind, signature)``."""
 
-    def __init__(self, step, bindings, name):
+    def __init__(self, step, bindings, name, eager=False):
         self.step, self.bindings, self.name = step, bindings, name
+        self.eager = eager
         self.last = None
         self.calls = dict.fromkeys(("direct", "eager", "capture", "replay"),
                                    0)
@@ -242,7 +245,7 @@ class CompiledStep:
         calls so)."""
         dev = _device(batch)
         key = signature(batch)
-        if dev.type != "cuda" or not graphs_enabled():
+        if dev.type != "cuda" or not graphs_enabled() or self.eager:
             out = self.step(*_unbind(batch))
             self._note("direct", key)
             return out

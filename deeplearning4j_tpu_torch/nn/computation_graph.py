@@ -55,6 +55,7 @@ from .graph import ComputationGraphConfiguration
 from .layers.base import Ctx, Layer
 from .layers.core import LossLayer, OutputLayer, dropout_apply, keep_mask
 from .layers.recurrent import Bidirectional, LastTimeStep, TimeDistributed
+from .layers.samediff_layer import SameDiffOutputLayer, needs_host
 from .layers.wrappers import unwrap
 from .multi_layer_network import (_copy_params, _is_ff_layer, _unflatten,
                                   _update_in_place)
@@ -126,6 +127,11 @@ class ComputationGraph:
             self._invalidate()
             self._remat_plan_cache = {}
         self._remat_segments = n
+
+    def _needs_host(self):
+        """A node's SameDiff graph needs the host while it runs: every
+        step runs eagerly (``layers/samediff_layer.py``)."""
+        return needs_host(node.op for node in self.conf.nodes.values())
 
     def _invalidate(self):
         """Drop the compiled steps (each is made anew on its next use)."""
@@ -202,7 +208,8 @@ class ComputationGraph:
                 h = dropout_apply(h, keep_mask(h.shape, keep, rng, h.device),
                                   keep)
         if stop_at_output_preact and name in self.conf.outputs and \
-                isinstance(unwrap(op), (OutputLayer, LossLayer)):
+                isinstance(unwrap(op), (OutputLayer, LossLayer,
+                                        SameDiffOutputLayer)):
             pre_acts[name] = h
             new_states[name] = states[name]
             acts[name] = h
@@ -358,7 +365,7 @@ class ComputationGraph:
                 return tuple(acts[o] for o in self.conf.outputs)
             self._infer_fn = CompiledStep(
                 infer, lambda: tensors((self.params, self.states)),
-                "ComputationGraph.output")
+                "ComputationGraph.output", eager=self._needs_host())
         return self._infer_fn
 
     def output(self, *inputs):
@@ -480,7 +487,7 @@ class ComputationGraph:
             op = unwrap(self.conf.nodes[name].op)
             y = labels[name]
             w = self.output_loss_weights.get(name, 1.0)
-            if isinstance(op, OutputLayer):
+            if isinstance(op, (OutputLayer, SameDiffOutputLayer)):
                 total = total + w * op.compute_loss(
                     params[name], pre_acts[name], y, mask=lmask)
             elif isinstance(op, LossLayer):
@@ -574,7 +581,8 @@ class ComputationGraph:
             self._step_fn = CompiledStep(
                 step,
                 lambda: tensors((self.params, self.states, self._opt_state))
-                + [self._gen], "ComputationGraph")
+                + [self._gen], "ComputationGraph",
+                eager=self._needs_host())
         return self._step_fn
 
     def _train_sentinel(self):

@@ -8,12 +8,16 @@ policy) are defaults that individual layers may override. The dtype
 policy takes torch dtypes: params in f32, compute in bf16 with
 ``.data_type(torch.float32, torch.bfloat16)``.
 
-Not ported yet: the JSON and upstream serde of a configuration (raise).
+``MultiLayerConfiguration.to_json`` writes the configuration's fields as
+JSON (dtypes by name); ``to_upstream_json`` / ``from_upstream_json``
+(``fromJson``) are the upstream DL4J format of ``serde/upstream_dl4j.py``.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, List, Optional
 
@@ -225,17 +229,38 @@ class MultiLayerConfiguration:
             resolve_layer_defaults(lyr, self.globals_)
 
     def to_json(self) -> str:
-        raise NotImplementedError(
-            "MultiLayerConfiguration.to_json (deeplearning4j_tpu/nn/conf.py)"
-            " is not ported yet")
+        """The configuration as JSON: each dataclass as its fields and
+        ``__class__``, tensors as ``{"__array__": true}``, dtypes by name."""
+        def enc(o):
+            if dataclasses.is_dataclass(o) and not isinstance(o, type):
+                d = {"__class__": type(o).__name__}
+                for f in dataclasses.fields(o):
+                    d[f.name] = enc(getattr(o, f.name))
+                return d
+            if isinstance(o, (list, tuple)):
+                return [enc(v) for v in o]
+            if isinstance(o, dict):
+                return {k: enc(v) for k, v in o.items()}
+            if isinstance(o, torch.dtype):
+                return {"__dtype__": str(o).rsplit(".", 1)[-1]}
+            if hasattr(o, "dtype") and hasattr(o, "shape"):
+                return {"__array__": True}
+            return o
+        return json.dumps({"globals": enc(self.globals_),
+                           "input_type": self.input_type,
+                           "layers": [enc(l) for l in self.layers]},
+                          indent=2, default=str)
 
     def to_upstream_json(self) -> str:
-        raise NotImplementedError(
-            "MultiLayerConfiguration.to_upstream_json (deeplearning4j_tpu/"
-            "serde/upstream_dl4j.py) is not ported yet")
+        """Upstream ``MultiLayerConfiguration.toJson()``-format JSON
+        (serde/upstream_dl4j.py, supported-layer subset)."""
+        from ..serde.upstream_dl4j import mln_conf_to_upstream_json
+        return mln_conf_to_upstream_json(self)
 
     @staticmethod
     def from_upstream_json(data: str) -> "MultiLayerConfiguration":
-        raise NotImplementedError(
-            "MultiLayerConfiguration.from_upstream_json (deeplearning4j_tpu/"
-            "serde/upstream_dl4j.py) is not ported yet")
+        """Upstream ``MultiLayerConfiguration.fromJson()`` analogue."""
+        from ..serde.upstream_dl4j import mln_conf_from_upstream_json
+        return mln_conf_from_upstream_json(data)
+
+    fromJson = from_upstream_json      # reference naming

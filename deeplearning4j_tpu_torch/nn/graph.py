@@ -1,8 +1,9 @@
 """ComputationGraphConfiguration builder — port of
 ``deeplearning4j_tpu/nn/graph.py`` (``GraphBuilder``: addInputs /
 addLayer / addVertex / setOutputs / setInputTypes). The DAG is validated
-and topologically sorted at build time. The upstream JSON serde is not
-ported yet.
+and topologically sorted at build time; ``to_upstream_json`` /
+``from_upstream_json`` are the upstream DL4J format
+(``serde/upstream_dl4j.py``).
 """
 
 from __future__ import annotations
@@ -33,15 +34,16 @@ class ComputationGraphConfiguration:
     input_types: Optional[List] = None
 
     def to_upstream_json(self) -> str:
-        raise NotImplementedError(
-            "ComputationGraphConfiguration.to_upstream_json "
-            "(deeplearning4j_tpu/serde/upstream_dl4j.py) is not ported yet")
+        """Upstream ``ComputationGraphConfiguration.toJson()``-format JSON
+        (serde/upstream_dl4j.py, supported layer/vertex subset)."""
+        from ..serde.upstream_dl4j import cg_conf_to_upstream_json
+        return cg_conf_to_upstream_json(self)
 
     @staticmethod
     def from_upstream_json(data: str) -> "ComputationGraphConfiguration":
-        raise NotImplementedError(
-            "ComputationGraphConfiguration.from_upstream_json "
-            "(deeplearning4j_tpu/serde/upstream_dl4j.py) is not ported yet")
+        """Upstream ``ComputationGraphConfiguration.fromJson()`` analogue."""
+        from ..serde.upstream_dl4j import cg_conf_from_upstream_json
+        return cg_conf_from_upstream_json(data)
 
     fromJson = from_upstream_json      # reference naming
 

@@ -69,6 +69,7 @@ from .layers.core import (CenterLossOutputLayer, DenseLayer,
                           keep_mask)
 from .layers.recurrent import (BaseRecurrent, Bidirectional, LastTimeStep,
                                TimeDistributed)
+from .layers.samediff_layer import SameDiffOutputLayer, needs_host
 from .layers.wrappers import unwrap
 from .preprocessors import CnnToFeedForwardPreProcessor
 from .weightnoise import maybe_apply_weight_noise
@@ -181,7 +182,8 @@ class MultiLayerNetwork:
         key = f"layer_{i}"
         if stop_before_output and i == len(self.layers) - 1 and \
                 isinstance(unwrap(layer), (OutputLayer, LossLayer,
-                                           OCNNOutputLayer)):
+                                           OCNNOutputLayer,
+                                           SameDiffOutputLayer)):
             new_states[key] = states[key]
             return h, True
         if i in self._preprocessors:
@@ -268,7 +270,7 @@ class MultiLayerNetwork:
                 return y
             self._infer_fn = CompiledStep(
                 infer, lambda: tensors((self.params, self.states)),
-                "MultiLayerNetwork.output")
+                "MultiLayerNetwork.output", eager=needs_host(self.layers))
         return self._infer_fn
 
     def output(self, x, train: bool = False):
@@ -311,7 +313,7 @@ class MultiLayerNetwork:
                                           state=new_states[key])
             new_states[key] = out_layer.update_state(new_states[key],
                                                      h.detach(), y)
-        elif isinstance(out_layer, OutputLayer):
+        elif isinstance(out_layer, (OutputLayer, SameDiffOutputLayer)):
             loss = out_layer.compute_loss(params[key], h, y, mask=lmask)
         elif isinstance(out_layer, OCNNOutputLayer):
             loss = out_layer.compute_loss(params[key], h, y, mask=lmask,
@@ -416,7 +418,8 @@ class MultiLayerNetwork:
             self._step_fn = CompiledStep(
                 self._train_step,
                 lambda: tensors((self.params, self.states, self._opt_state))
-                + [self._gen], "MultiLayerNetwork")
+                + [self._gen], "MultiLayerNetwork",
+                eager=needs_host(self.layers))
         return self._step_fn
 
     def _train_sentinel(self):

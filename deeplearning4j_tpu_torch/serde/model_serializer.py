@@ -20,8 +20,11 @@ with :func:`load_params`; with ``updater=True`` its optax state is read
 without optax or JAX and mapped onto the port's updater state
 (``serde/jax_pickles.py``), so ``fit`` resumes where the JAX net would
 have; :func:`restore_normalizer` reads its normalizer the same way.
-:func:`load_model` of a zip without the port's record raises and names
-:func:`load_params`.
+:func:`load_model` also restores an upstream DL4J zip
+(``configuration.json`` + ``coefficients.bin``, the format the Java DL4J
+writes: ``serde/upstream_dl4j.py``) and a SameDiff zip (``graph.pkl``);
+a JAX package's zip, which holds neither nor the port's record, raises
+and names :func:`load_params`.
 
 :func:`load_model` builds a new net (no graphs yet). :func:`load_params`
 copies into an existing net's tensors in place, so graphs captured on
@@ -49,6 +52,8 @@ NORMALIZER = "normalizer_torch.pkl"
 JAX_RECORD = "conf.pkl"
 JAX_UPDATER = "updater.pkl"
 JAX_NORMALIZER = "normalizer.pkl"
+UPSTREAM_CONF = "configuration.json"
+UPSTREAM_NORMALIZER = "normalizer.bin"
 
 
 def flatten_with_paths(tree, prefix=""):
@@ -96,11 +101,15 @@ def _load_npz(zf, name):
 
 def restore_updater_(opt_state, saved):
     """Put a restored updater state into a built updater's state, in
-    place: a port checkpoint's ({path key: tensor}) or a JAX package's
-    (:class:`~.jax_pickles.JaxUpdaterState`)."""
+    place: a port checkpoint's ({path key: tensor}), a JAX package's
+    (:class:`~.jax_pickles.JaxUpdaterState`) or an upstream DL4J zip's
+    Adam m/v (:class:`~.upstream_dl4j.UpstreamAdamState`)."""
     from .jax_pickles import JaxUpdaterState, restore_optax_state_
+    from .upstream_dl4j import UpstreamAdamState, graft_adam_state
     if isinstance(saved, JaxUpdaterState):
         restore_optax_state_(opt_state, saved.state)
+    elif isinstance(saved, UpstreamAdamState):
+        graft_adam_state(opt_state, saved)
     else:
         restore_tree_(opt_state, saved, "updater")
 
@@ -192,12 +201,26 @@ def _not_ours(path):
 def load_model(path, device=None):
     """A new net from a zip :func:`save_model` wrote, on ``device`` (None →
     CUDA). Its updater state, if saved, is put into the updater when
-    ``fit`` builds it; a saved normalizer is ``net.normalizer``."""
+    ``fit`` builds it; a saved normalizer is ``net.normalizer``. An
+    upstream DL4J zip (MultiLayerNetwork or ComputationGraph) and a
+    SameDiff zip are recognized and restored too."""
     from ..nn.computation_graph import ComputationGraph
     from ..nn.multi_layer_network import MultiLayerNetwork
     dev = resolve_device(device)
     with zipfile.ZipFile(path) as zf:
         names = zf.namelist()
+        if RECORD not in names and "graph.pkl" in names:
+            from ..autodiff.samediff import SameDiff
+            return SameDiff.load(path, device=dev)
+        if RECORD not in names and UPSTREAM_CONF in names:
+            import json
+            from .upstream_dl4j import (
+                restore_upstream_computation_graph,
+                restore_upstream_multi_layer_network)
+            conf = json.loads(zf.read(UPSTREAM_CONF))
+            if "vertices" in conf:
+                return restore_upstream_computation_graph(path, device=dev)
+            return restore_upstream_multi_layer_network(path, device=dev)
         if RECORD not in names:
             raise _not_ours(path)
         meta = pickle.loads(zf.read(RECORD))
@@ -264,8 +287,9 @@ def load_params(net, path, updater: bool = False):
 
 def restore_normalizer(path):
     """The normalizer saved with the model at ``path`` (None without one):
-    the port's, or a JAX package's ``normalizer.pkl`` read as the port's
-    normalizer of the same class, without importing that package."""
+    the port's, a JAX package's ``normalizer.pkl`` read as the port's
+    normalizer of the same class, without importing that package, or an
+    upstream DL4J zip's ``normalizer.bin``."""
     with zipfile.ZipFile(path) as zf:
         names = zf.namelist()
         if NORMALIZER in names:
@@ -273,4 +297,8 @@ def restore_normalizer(path):
         if JAX_NORMALIZER in names:
             from .jax_pickles import load_jax_normalizer
             return load_jax_normalizer(zf.read(JAX_NORMALIZER))
+        if UPSTREAM_NORMALIZER in names:
+            from .upstream_dl4j import read_normalizer_upstream_format
+            return read_normalizer_upstream_format(
+                zf.read(UPSTREAM_NORMALIZER))
     return None

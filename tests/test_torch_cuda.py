@@ -2700,3 +2700,108 @@ def test_onnx_import_served_on_the_card(gen, monkeypatch):
     torch.testing.assert_close(got[-1].cpu(), want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(want, model(x).detach(), atol=1e-4,
                                rtol=1e-4)
+
+
+def _chip_smoke_module(name):
+    import importlib.util
+    import sys
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    cs = importlib.util.module_from_spec(spec)
+    # registered, so that the dataclasses the script defines resolve
+    sys.modules[name] = cs
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def test_phase20_keras_resnet50_small(gen, monkeypatch, tmp_path):
+    """chip_smoke's phase 20 Keras ResNet50 at 64×64 B2: imported onto
+    the card (53 BNs), ``output()`` with the BNs ``fused=True`` launches
+    K3's bn_act 53 times and agrees with the host import and with the
+    plain BN path (1e-4); three fine-tune steps replayed equal eager bit
+    for bit, each eager step launching every K3 kernel 53 times."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.import_ import import_keras_model
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cs = _chip_smoke_module("chip_smoke_phase20")
+    path = tmp_path / "resnet50.h5"
+    cs.write_keras_resnet50(path, hw=64)
+    rng = np.random.default_rng(0)
+    x = rng.random((2, 64, 64, 3)).astype(np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, 2)]
+    host = import_keras_model(path, device="cpu")
+    net = import_keras_model(path)
+    cs._set_fused(net, True)
+    fo.reset_launches()
+    out = net.output(x)
+    torch.cuda.synchronize()
+    assert fo.LAUNCHES == 53 and fo.LAUNCHES_STATS == 0
+    torch.testing.assert_close(out.cpu(), host.output(x), atol=1e-4,
+                               rtol=1e-4)
+    cs._set_fused(net, False)
+    net._infer_fn = None
+    torch.testing.assert_close(out, net.output(x), atol=1e-4, rtol=1e-4)
+    runs = []
+    for graphs in (True, False):
+        src = import_keras_model(path)
+        cs._set_fused(src, True)
+        n = cs.keras_finetune_net(src)
+        fo.reset_launches()
+        with contextlib.nullcontext() if graphs else disable_graphs():
+            losses = [n.fit(DataSet(x, y)) for _ in range(3)]
+        torch.cuda.synchronize()
+        if not graphs:
+            assert (fo.LAUNCHES, fo.LAUNCHES_STATS, fo.LAUNCHES_BWD_REDUCE,
+                    fo.LAUNCHES_BWD_DX) == (3 * 53,) * 4
+        runs.append((losses, _net_tensors(n)))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+def test_phase20_charnn_upstream_zip_small(gen, tmp_path):
+    """The char-RNN (T 8) fitted 2 steps on K4, written as an upstream
+    DL4J zip with its Adam state and restored by ``load_model``: its
+    output equals the writer's bit for bit, K4 twice a forward, and its
+    step 3 equals the writer's (params, states, updater state)."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.serde import (load_model,
+                                                write_model_upstream_format)
+    from deeplearning4j_tpu_torch.train import Adam
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    v, t = 11, 8
+    rng = np.random.default_rng(0)
+    eye = np.eye(v, dtype=np.float32)
+    x = eye[rng.integers(0, v, (16, t))]
+    y = eye[rng.integers(0, v, (16, t))]
+    net = TextGenerationLSTM(num_classes=v, input_shape=(t, v), units=32,
+                             updater=Adam(1e-3)).init()
+    for layer in net.layers[:2]:
+        layer.fused = True
+    for _ in range(2):
+        net.fit(DataSet(x, y))
+    path = tmp_path / "charnn.zip"
+    write_model_upstream_format(net, path, save_updater=True)
+    restored = load_model(path)
+    assert type(restored).__name__ == "MultiLayerNetwork"
+    for layer in restored.layers[:2]:
+        layer.fused = True
+    fl.reset_launches()
+    out = restored.output(x)
+    torch.cuda.synchronize()
+    assert fl.LAUNCHES == 2
+    assert torch.equal(out, net.output(x))
+    assert net.fit(DataSet(x, y)) == restored.fit(DataSet(x, y))
+    assert all(torch.equal(a, b) for a, b in zip(_net_tensors(net),
+                                                 _net_tensors(restored)))
+
+
+def test_phase20_samediff_layer_mln_replay_equals_eager(gen):
+    cs = _chip_smoke_module("chip_smoke_phase20_sd")
+    failed = []
+    rec = cs.import_samediff_layer(failed)
+    assert not failed, failed
+    assert rec["replay_equals_eager"]

@@ -81,7 +81,9 @@ def test_port_has_modules_to_check():
             "nn/layers/capsule.py", "nn/layers/variational.py",
             "nn/transfer.py", "zoo/detection.py", "zoo/inception.py",
             "zoo/nasnet.py", "zoo/unet.py",
-            "autodiff/onnx_import.py"} <= names
+            "autodiff/onnx_import.py", "import_/__init__.py",
+            "import_/_hdf5.py", "import_/keras.py",
+            "serde/upstream_dl4j.py", "nn/layers/samediff_layer.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():
@@ -129,8 +131,12 @@ def test_importing_the_port_loads_no_jax():
             "import deeplearning4j_tpu_torch.zoo.nasnet\n"
             "import deeplearning4j_tpu_torch.zoo.unet\n"
             "import deeplearning4j_tpu_torch.autodiff.onnx_import\n"
+            "import deeplearning4j_tpu_torch.import_\n"
+            "import deeplearning4j_tpu_torch.import_._hdf5\n"
+            "import deeplearning4j_tpu_torch.serde.upstream_dl4j\n"
+            "import deeplearning4j_tpu_torch.nn.layers.samediff_layer\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'deeplearning4j_tpu')]\n"
+            "('jax', 'jaxlib', 'deeplearning4j_tpu', 'h5py', 'tensorflow')]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -284,4 +290,88 @@ def test_samediff_and_the_importer_load_no_jax_or_tf(tmp_path):
         "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+IMPORTERS = ("import_/__init__.py", "import_/_hdf5.py", "import_/keras.py",
+             "serde/upstream_dl4j.py", "serde/model_serializer.py",
+             "nn/layers/samediff_layer.py", "zoo/base.py")
+# the Keras importer reads HDF5 itself: no h5py, no TensorFlow
+IMPORTERS_FORBIDDEN = FORBIDDEN + ("h5py", "tensorflow", "keras")
+
+
+@pytest.mark.parametrize("path", [PORT / r for r in IMPORTERS]
+                         + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: p.name)
+def test_importer_modules_import_no_h5py_or_tf(path):
+    assert path.exists(), path
+    bad = [(name, line) for name, line in _imported_roots(path)
+           if name in IMPORTERS_FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_keras_files_and_upstream_zips_import_without_h5py_or_tf(tmp_path):
+    """The card's case: with ``h5py`` and ``tensorflow`` blocked in
+    ``sys.modules``, a Keras .h5 (Sequential and Functional), a Keras 3
+    .keras zip and upstream DL4J zips (MultiLayerNetwork and
+    ComputationGraph) import and give the outputs Keras and the writing
+    net gave; neither jax nor h5py nor tensorflow is loaded."""
+    tf = pytest.importorskip("tensorflow")
+    import numpy as np
+    keras = tf.keras
+    from deeplearning4j_tpu_torch import nn, serde, train
+    x8 = np.random.default_rng(0).random((3, 8)).astype(np.float32)
+    seq = keras.Sequential([keras.layers.Input((8,)),
+                            keras.layers.Dense(6, activation="relu"),
+                            keras.layers.Dense(3, activation="softmax")])
+    inp = keras.layers.Input((8,))
+    func = keras.Model(inp, keras.layers.Dense(3)(keras.layers.Add()(
+        [keras.layers.Dense(4)(inp), keras.layers.Dense(4)(inp)])))
+    cases = {}
+    for name, m, how in (("seq.h5", seq, "sequential"),
+                         ("func.h5", func, "model"),
+                         ("seq.keras", seq, "sequential")):
+        m.save(tmp_path / name)
+        cases[name] = (how, m.predict(x8, verbose=0))
+    mln = nn.MultiLayerNetwork(
+        nn.NeuralNetConfiguration.builder().updater(train.Adam(1e-2)).list()
+        .layer(nn.DenseLayer(n_in=8, n_out=5, activation="tanh"))
+        .layer(nn.OutputLayer(n_in=5, n_out=3)).build()).init(device="cpu")
+    cg = nn.ComputationGraph(
+        nn.NeuralNetConfiguration.builder().graph_builder()
+        .add_inputs("in")
+        .add_layer("d", nn.DenseLayer(n_in=8, n_out=5), "in")
+        .add_layer("out", nn.OutputLayer(n_in=5, n_out=3), "d")
+        .set_outputs("out").build()).init([(8,)], device="cpu")
+    for name, net in (("mln.zip", mln), ("cg.zip", cg)):
+        serde.write_model_upstream_format(net, tmp_path / name,
+                                          save_updater=True)
+        cases[name] = ("zip", net.output(x8).detach().numpy())
+    np.save(tmp_path / "x.npy", x8)
+    np.save(tmp_path / "want.npy", np.stack([w for _, w in cases.values()]))
+    code = (
+        "import sys\n"
+        "sys.modules['h5py'] = None\n"
+        "sys.modules['tensorflow'] = None\n"
+        "import numpy as np\n"
+        "from deeplearning4j_tpu_torch import serde\n"
+        "from deeplearning4j_tpu_torch.import_ import (\n"
+        "    import_keras_model, import_keras_sequential)\n"
+        f"d = {str(tmp_path)!r}\n"
+        "x = np.load(d + '/x.npy')\n"
+        "want = np.load(d + '/want.npy')\n"
+        f"for i, (name, how) in enumerate({[(n, h) for n, (h, _) in cases.items()]!r}):\n"
+        "    p = d + '/' + name\n"
+        "    net = {'sequential': import_keras_sequential,\n"
+        "           'model': import_keras_model,\n"
+        "           'zip': serde.load_model}[how](p, device='cpu')\n"
+        "    got = net.output(x).detach().numpy()\n"
+        "    assert np.allclose(got, want[i], atol=1e-5), name\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'deeplearning4j_tpu') or (m.split('.')[0] in "
+        "('h5py', 'tensorflow') and sys.modules[m] is not None)]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stdout + res.stderr
