@@ -23,6 +23,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --samediff-only  # build + phase 18 only
     python3 chip_smoke.py --zoo-only       # build + phase 19 only
     python3 chip_smoke.py --import-only    # build + phase 20 only
+    python3 chip_smoke.py --parallel-only  # build + phases 7 and 21 only
     python3 chip_smoke.py --prefetch-times ROOT  # only time LeNet's fit
                                              # over host and device
                                              # iterators and a host list
@@ -416,6 +417,26 @@ Phases, each fatal on failure:
    writer's bit for bit, K4 on the cluster route (2 a forward, 2 a step);
    (d) a SameDiffLayer MLN fitted 5 steps, replayed = eager; every K3 and
    K4 shape these paths ran held against the plain version;
+21. the collective half of ``parallel/`` (TF32 off): (a) ResNet-50 B128
+   bf16 through ``ParallelWrapper(net, make_mesh(dp=1))`` on the NCCL
+   world of one that ``make_mesh`` starts (no launcher), 5 steps replayed
+   — K3's four kernels 53 times each a step from the capture, the BN
+   sums' all-reduce inside the graph — and eager, bit for bit; step 1
+   (bf16, and f32 with its grads) against the plain path within phase
+   8's bars; wall and device ms a step beside plain ``fit``'s; (b) dp 2
+   over gloo on the one card: two spawned ranks of this script
+   (``--dp-rank``; the port only) on ``cuda:0`` each train B64 of the
+   B128 batch one f32 step, K3's sums reduced across them, held to the
+   monolithic step (loss, grads, running stats); (c) the 120M LM with 8
+   experts a block (top-2, capacity 1.25) trained B32 T1024 bf16 through
+   ``make_train_step`` (``AdamW(capturable=True, fused=True)``), replayed
+   = eager bit for bit, step 1 against the plain path, K1, dQ and dK/dV
+   counted from the capture, the tokens the capacity dropped, device ms
+   and peak beside phase 6's dense LM; (d) ``make_ring_train_step`` on
+   the NCCL world of one against ``make_train_step`` on the same batch,
+   and ``ring_hop`` over 4 chunks of a B8 H8 T4096 D64 bf16 causal
+   sequence against one K1 (output, and the q/k/v grads through the
+   merges), K1 and its backward counted;
 5. a ``kernels`` JSON line (every hand-written kernel: its route,
    launches on each main path, largest error, times and bound at its
    path shape), then the result line (printed last).
@@ -431,7 +452,9 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1314,14 +1337,19 @@ def _named_leaves(tree, prefix=""):
     return [(prefix, tree)]
 
 
-def lm_setup(tfm, batch, n_heads, n_layers, dtype, d_model=512):
+def lm_setup(tfm, batch, n_heads, n_layers, dtype, d_model=512,
+             n_experts=0, capacity_factor=1.25):
     """The LM of ``bench.py``'s transformer row (bench.py:594-598; T 1024,
     d_model 512) at the given heads, depth, compute dtype and width
-    (``d_model`` 640 at 2 heads: the LM of head dim 320): its config,
-    params from seed 0 and one batch of seeded ids and targets."""
+    (``d_model`` 640 at 2 heads: the LM of head dim 320), with
+    ``n_experts`` MoE experts a block (top-2, at ``capacity_factor``: the
+    reference's default 1.25) where given: its config, params from seed 0
+    and one batch of seeded ids and targets."""
     cfg = tfm.TransformerConfig(vocab_size=32000, d_model=d_model,
                                 n_heads=n_heads, n_layers=n_layers,
                                 d_ff=2048, max_seq=1024,
+                                n_experts=n_experts,
+                                capacity_factor=capacity_factor,
                                 dtype=dtype, fused_loss=True,
                                 remat=True, remat_policy="save_attn",
                                 attn_scores_bf16=dtype == torch.bfloat16)
@@ -1359,9 +1387,45 @@ def flash_counts(fa):
     return out
 
 
+# each train_path run's kernel-path record, by tag (phase 21 reads phase
+# 6's dense LM beside the MoE LM)
+TRAIN_RECORDS = {}
+
+
+class PinnedRouting:
+    """Wraps the transformer's ``_moe_mlp`` while a check runs: in
+    ``"record"`` mode each MoE block takes the router's top-k and keeps
+    it (the block keyed by its router's offset in the stacked params),
+    in ``"pin"`` mode it takes the choices recorded, and with no mode it
+    routes as always."""
+
+    def __init__(self, tfm):
+        self.tfm, self.mlp, self.mode, self.choices = tfm, tfm._moe_mlp, \
+            None, {}
+
+    def __enter__(self):
+        self.tfm._moe_mlp = self
+        return self
+
+    def __exit__(self, *exc):
+        self.tfm._moe_mlp = self.mlp
+
+    def __call__(self, cfg, x, router, we_in, we_out):
+        key, topi = router.storage_offset(), None
+        if self.mode == "record":
+            gates = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                  @ router.float(), dim=-1)
+            topi = self.choices.setdefault(
+                key, self.tfm._top_k(gates, cfg.expert_top_k)[1])
+        elif self.mode == "pin":
+            topi = self.choices[key]
+        return self.mlp(cfg, x, router, we_in, we_out, topi=topi)
+
+
 def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
                n_layers=8, tag="train", dtype=torch.bfloat16,
-               foreach_adamw=False, d_model=512):
+               foreach_adamw=False, d_model=512, n_experts=0,
+               capacity_factor=1.25):
     """The LM of ``bench.py``'s transformer row trained at full width (T
     1024, d_model 512; ``n_heads``, ``n_layers``, the compute dtype and
     ``d_model`` as given) from identical params on one batch, three ways:
@@ -1371,12 +1435,20 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
     each with ``LM_ADAMW``. ``foreach_adamw`` adds a fourth: the kernel
     path replayed with the capturable AdamW of the ``foreach`` form.
     The eager way's losses and params must equal the replayed way's bit
-    for bit."""
+    for bit.
+
+    With ``n_experts`` the blocks are MoE (see ``lm_setup``). Routing is
+    discrete: a rounding that flips a near tie moves every later token's
+    slot in its expert's buffer and so which ones the capacity drops.
+    So the plain path's step 1 takes the kernel path's step-1 choices
+    (:class:`PinnedRouting`; the gates, the capacity and the drops
+    follow from them on each path), its loss and grads are held, and
+    the losses after step 1, routed freely, are printed, not held."""
     from deeplearning4j_tpu_torch import disable_graphs
     from deeplearning4j_tpu_torch.zoo import transformer as tfm
 
     cfg, init, ids, tgt = lm_setup(tfm, batch, n_heads, n_layers, dtype,
-                                   d_model)
+                                   d_model, n_experts, capacity_factor)
     plain_cfg = dataclasses.replace(cfg, use_flash_attention=False,
                                     attn_scores_bf16=False)
     tokens = batch * cfg.max_seq
@@ -1385,6 +1457,7 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
     if foreach_adamw:
         ways.insert(1, ("kernel_foreach_adamw", cfg, True, {}))
     runs = {}
+    pin = PinnedRouting(tfm) if n_experts else contextlib.nullcontext()
     for path, c, graphs, opt_kw in ways:
         params = {k: (v.clone() if torch.is_tensor(v)
                       else {n: w.clone() for n, w in v.items()})
@@ -1399,9 +1472,13 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
             fa.reset_launches()
             pa.reset_launches()
         losses, secs, per_step, kinds = [], [], [], []
-        with contextlib.nullcontext() if graphs else disable_graphs():
+        with contextlib.nullcontext() if graphs else disable_graphs(), \
+                pin:
             for i in range(steps):
                 before = flash_counts(fa)
+                if n_experts:
+                    pin.mode = {"kernel": "record", "plain": "pin"}.get(
+                        path) if i == 0 else None
                 t0 = time.perf_counter()
                 loss = step(params, ids, tgt)
                 torch.cuda.synchronize()
@@ -1464,6 +1541,7 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
             continue
         r = runs[path][0]
         dloss = [abs(a - b) for a, b in zip(r["losses"], pr["losses"])]
+        held = dloss[:1] if n_experts else dloss
         falls = steps == 1 or (r["losses"][-1] < r["losses"][0]
                                and pr["losses"][-1] < pr["losses"][0])
         counts_ok = all(c == want for c in r["launches_per_step"])
@@ -1480,7 +1558,7 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
                f"{r['losses'] == kr['losses']}, params bit-identical "
                f"{diff is None}"
                + ("" if diff is None else f" (first differing leaf {diff})")))
-        if not max(dloss) <= TRAIN_LOSS_ATOL or not falls:
+        if not max(held) <= TRAIN_LOSS_ATOL or not falls:
             failed.append(f"{path}: losses disagree with the plain path or "
                           "do not fall")
         if not counts_ok:
@@ -1493,9 +1571,16 @@ def train_path(fa, pa, steps=5, batch=32, profile=False, n_heads=8,
             failed.append("eager: losses or params differ from the replayed "
                           "kernel path's")
     log(f"{tag} kernel vs plain: step-1 grad rel L2 max {rels[worst]:.3e} "
-        f"({worst}; limit {TRAIN_GRAD_REL_L2}), all finite {finite}")
+        f"({worst}; limit {TRAIN_GRAD_REL_L2}), all finite {finite}"
+        + (f"; step 1 on the kernel path's routing ({len(pin.choices)} "
+           "blocks pinned), losses held at step 1 only" if n_experts
+           else ""))
+    if n_experts and len(pin.choices) != cfg.n_layers:
+        failed.append("the plain path's step 1 was not pinned to every "
+                      "block's routing")
     if failed:
         raise SystemExit(f"{tag} path: {failed}")
+    TRAIN_RECORDS[tag] = kr
     total = {n: sum(c.get(n, 0) for c in kr["launches_per_step"])
              for n in flash_counts(fa)}
     return {**total, "paged_attention": kr["paged_launches"]}
@@ -1634,11 +1719,15 @@ def profile_step(fn, k4=False, expect=None):
     counters: it must hold each flash kind (K1, dQ, dK/dV) as many times
     as the wrappers launched it during the call or, for a replay (which
     moves no counter), as ``expect`` says (launches by kind, its
-    capture's). A trace that holds fewer is taken again (the call runs
-    again), ``PROFILE_TRIES`` times in all; ``profile_tries`` says how
-    many it took. After that many short traces no trace is reported: the
-    call is timed once more by CUDA events (its span on the device, idle
-    gaps included), ``device_ms_from`` says so, and the log too."""
+    capture's); it must hold some device time, and with ``k4`` some of
+    K4's (every call profiled with ``k4`` launches it; late in a long run
+    the profiler has recorded a trace with no device event at all). A
+    trace that holds less is taken again (the call runs again),
+    ``PROFILE_TRIES`` times in all; ``profile_tries`` says how many it
+    took. After that many short traces no trace is reported: the call is
+    timed once more by CUDA events (its span on the device, idle gaps
+    included; K4's own ms and share are then None), ``device_ms_from``
+    says so, and the log too."""
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(1, PROFILE_TRIES + 1):
         before = _flash_launches()
@@ -1656,14 +1745,20 @@ def profile_step(fn, k4=False, expect=None):
                          if name.startswith(pre))
                   for k, pre in FLASH_TRACE_PREFIX.items()}
         short = {k: (traced[k], n) for k, n in want.items() if traced[k] < n}
+        out = device_rows(prof, wall, 1)
+        if not out["device_ms_per_step"]:
+            short["device time"] = 0
+        if k4:
+            out["k4_device_ms"] = k4_device_ms(prof)
+            if not out["k4_device_ms"]:
+                short["k4 device time"] = 0
         if not short:
             break
-        log(f"profile_step: trace {attempt} of {PROFILE_TRIES} holds "
-            f"fewer flash kernels than launched (traced, launched): "
-            f"{short}")
+        log(f"profile_step: trace {attempt} of {PROFILE_TRIES} is short "
+            f"(flash kinds as (traced, launched)): {short}")
     else:
-        log(f"profile_step: {PROFILE_TRIES} traces held fewer flash "
-            f"kernels than launched: this call is timed by CUDA events")
+        log(f"profile_step: {PROFILE_TRIES} traces were short: this call "
+            "is timed by CUDA events")
         t0 = time.perf_counter()
         span = cuda_ms(fn, iters=1, warmup=0)
         wall = time.perf_counter() - t0
@@ -1671,9 +1766,10 @@ def profile_step(fn, k4=False, expect=None):
                 "device_ms_per_step": span,
                 "device_busy_share": span / (wall * 1e3),
                 "top_kernels": [], "profile_tries": PROFILE_TRIES,
+                **({"k4_device_ms": None, "k4_share_of_device": None}
+                   if k4 else {}),
                 "device_ms_from": "CUDA events: the call's span on the "
                                   "device, the traces having lost kernels"}
-    out = device_rows(prof, wall, 1)
     out["profile_tries"] = attempt
     if flash:
         out["flash_kernels_ms"] = {k: v["ms_per_step"]
@@ -1682,7 +1778,6 @@ def profile_step(fn, k4=False, expect=None):
         out["flash_share_of_device"] = (out["flash_device_ms"]
                                         / out["device_ms_per_step"])
     if k4:
-        out["k4_device_ms"] = k4_device_ms(prof)
         out["k4_share_of_device"] = (out["k4_device_ms"]
                                      / out["device_ms_per_step"])
     return out
@@ -2235,13 +2330,13 @@ class _StepLog:
     net at the reported step, so it takes no deferred scores."""
     deferred_score_ok = False
 
-    def __init__(self, fo):
-        self.fo, self.rows = fo, []
+    def __init__(self, fo, step_of=lambda net: net._step_fn):
+        self.fo, self.rows, self.step_of = fo, [], step_of
         self.base = k3_counts(fo)
 
     def iteration_done(self, net, it, epoch, loss):
         self.rows.append((loss, time.perf_counter(), k3_counts(self.fo),
-                          net._step_fn.last))
+                          self.step_of(net).last))
 
     def kinds(self):
         return [r[3] for r in self.rows]
@@ -2277,9 +2372,10 @@ def _k3_cases(fo):
     cases = []
     train_bn, infer_bn = fo.fused_bn_act_train, fo.fused_bn_act
 
-    def train(x2d, gamma, beta, center, eps=1e-5, activation="identity"):
+    def train(x2d, gamma, beta, center, eps=1e-5, activation="identity",
+              group=None):
         cases.append((x2d.dtype, *x2d.shape, activation))
-        return train_bn(x2d, gamma, beta, center, eps, activation)
+        return train_bn(x2d, gamma, beta, center, eps, activation, group)
 
     def infer(x2d, scale, shift, activation="identity"):
         cases.append((x2d.dtype, *x2d.shape, activation))
@@ -2292,15 +2388,18 @@ def _k3_cases(fo):
         fo.fused_bn_act_train, fo.fused_bn_act = train_bn, infer_bn
 
 
-def _resnet_run(model, fused, x, y, steps, fo, graphs=True):
+def _resnet_run(model, fused, x, y, steps, fo, graphs=True, mesh=None,
+                profile=False):
     """Train a fresh ResNet-50 (identical params: the same seed) for
     ``steps`` steps on one batch, every BN's ``fused`` set as given, its
-    steps replayed from a CUDA graph or (``graphs`` False) eager. Returns
-    the net, its record (losses, K3 launches per step, how each step ran,
-    wall ms a step and samples/s over the timed steps, peak device
-    memory), the step-1 grads (Momentum's trace after one step from v0 =
-    0), the running stats after step 1 and the final params, states and
-    trace (for the bit-for-bit comparison of two runs)."""
+    steps replayed from a CUDA graph or (``graphs`` False) eager; with a
+    ``mesh``, through ``ParallelWrapper(net, mesh)``; with ``profile``,
+    one more step under the profiler for its device ms. Returns the net,
+    its record (losses, K3 launches per step, how each step ran, wall ms
+    a step and samples/s over the timed steps, peak device memory), the
+    step-1 grads (Momentum's trace after one step from v0 = 0), the
+    running stats after step 1 and the final params, states and trace
+    (for the bit-for-bit comparison of two runs)."""
     from deeplearning4j_tpu_torch import disable_graphs
     from deeplearning4j_tpu_torch.data import DataSet
     from deeplearning4j_tpu_torch.nn import ComputationGraph
@@ -2309,21 +2408,26 @@ def _resnet_run(model, fused, x, y, steps, fo, graphs=True):
     net = ComputationGraph(model.conf())
     _set_fused(net, fused)
     net.init()
+    trainer = net
     steplog = _StepLog(fo)
+    if mesh is not None:
+        from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+        trainer = ParallelWrapper(net, mesh)
+        steplog = _StepLog(fo, step_of=lambda _: trainer._step)
     net.set_listeners(steplog)
     ds = DataSet(x, y)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with contextlib.nullcontext() if graphs else disable_graphs():
         t0 = time.perf_counter()
-        net.fit(ds)
+        trainer.fit([ds])
         grads = {f"{n}/{k}": t.clone() for n, p in
                  net._opt_state[1][0]["trace"].items() for k, t in p.items()}
         states1 = {f"{n}/{k}": t.clone() for n, p in net.states.items()
                    for k, t in p.items()}
         t1 = time.perf_counter()
         if steps > 1:
-            net.fit([ds] * (steps - 1))
+            trainer.fit([ds] * (steps - 1))
     secs = steplog.step_s(t0, t1)       # step 1's clones left out
     rec = {"losses": [r[0] for r in steplog.rows],
            "k3_launches_per_step": steplog.launches_per_step(),
@@ -2331,6 +2435,9 @@ def _resnet_run(model, fused, x, y, steps, fo, graphs=True):
                          torch.cuda.max_memory_allocated() / 2**30)}
     final = [(f"{i}", t.detach().clone()) for i, t in enumerate(
         tensors((net.params, net.states, net._opt_state)))]
+    if profile:
+        with contextlib.nullcontext() if graphs else disable_graphs():
+            add_profile(rec, profile_step(lambda: trainer.fit([ds])))
     return net, rec, grads, states1, final
 
 
@@ -2646,14 +2753,52 @@ def profile_resnet_step(net, ds, fo):
     the step (the four kernels' bounds summed over the (N, C) rows each
     BN layer of the step hands them)."""
     from torch.profiler import ProfilerActivity, profile
-    before = k3_counts(fo)
-    with _k3_cases(fo) as rows, profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        net.fit(ds)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    calls = {k: v - before[k] for k, v in k3_counts(fo).items()}
+    for attempt in range(1, PROFILE_TRIES + 1):
+        before = k3_counts(fo)
+        with _k3_cases(fo) as rows, profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            net.fit(ds)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        calls = {k: v - before[k] for k, v in k3_counts(fo).items()}
+        out, launches, shares = _resnet_trace(prof, wall)
+        want = {"bn_act_kernel": calls["bn_act"],
+                "bn_reduce_kernel": calls["bn_stats"]
+                + calls["bn_bwd_reduce"],
+                "bn_dx_kernel": calls["bn_bwd_dx"]}
+        # the profiler loses events now and then: fewer launches in the
+        # trace than the wrappers made is a short trace, taken again
+        if all(launches[k] >= n for k, n in want.items()):
+            break
+        log(f"resnet50 profile: trace {attempt} of {PROFILE_TRIES} is "
+            f"short: K3 device launches {launches}, wrappers {want}")
+    else:
+        log(f"resnet50 profile: {PROFILE_TRIES} traces were short; the "
+            "step is not traced (the wrappers' counts are held elsewhere)")
+        return
+    busy = sum(shares.values())
+    out["device_ms_by_class"] = {k: v / 1e3 for k, v in shares.items()}
+    out["share_of_device"] = {k: v / busy for k, v in shares.items()}
+    out["k3_bn_layers"] = len(rows)
+    out["k3_bound_ms"] = sum(k3_bound(k, n, c, dt)[0]
+                             for dt, n, c, _ in rows for k in K3_OPS)
+    out["k3_ms_over_bound"] = shares["k3"] / 1e3 / out["k3_bound_ms"]
+    out["k3_device_launches"] = launches
+    out["k3_wrapper_calls"] = calls
+    out["profile_tries"] = attempt
+    log(f"profile (resnet50 train step, B{RESNET_BATCH}, kernel path): "
+        + json.dumps(out))
+    if launches != want or not calls["bn_stats"]:
+        raise SystemExit(f"resnet50 profile: K3 device launches {launches}, "
+                         f"want one a wrapper call {want}")
+
+
+def _resnet_trace(prof, wall):
+    """A ResNet-50 step's trace: its device rows, K3's device launches by
+    kernel, and the device µs of K3, the convolutions and GEMMs, and the
+    rest."""
     out = device_rows(prof, wall, 1)
     shares = {"k3": 0.0, "conv_gemm": 0.0, "other": 0.0}
     launches = dict.fromkeys(K3_KERNELS, 0)
@@ -2673,23 +2818,7 @@ def profile_resnet_step(net, ds, fo):
             shares["conv_gemm"] += us
         else:
             shares["other"] += us
-    busy = sum(shares.values())
-    out["device_ms_by_class"] = {k: v / 1e3 for k, v in shares.items()}
-    out["share_of_device"] = {k: v / busy for k, v in shares.items()}
-    out["k3_bn_layers"] = len(rows)
-    out["k3_bound_ms"] = sum(k3_bound(k, n, c, dt)[0]
-                             for dt, n, c, _ in rows for k in K3_OPS)
-    out["k3_ms_over_bound"] = shares["k3"] / 1e3 / out["k3_bound_ms"]
-    out["k3_device_launches"] = launches
-    out["k3_wrapper_calls"] = calls
-    log(f"profile (resnet50 train step, B{RESNET_BATCH}, kernel path): "
-        + json.dumps(out))
-    want = {"bn_act_kernel": calls["bn_act"],
-            "bn_reduce_kernel": calls["bn_stats"] + calls["bn_bwd_reduce"],
-            "bn_dx_kernel": calls["bn_bwd_dx"]}
-    if launches != want or not calls["bn_stats"]:
-        raise SystemExit(f"resnet50 profile: K3 device launches {launches}, "
-                         f"want one a wrapper call {want}")
+    return out, launches, shares
 
 
 # ---------------------------------------------------------------- phase 9
@@ -3082,17 +3211,7 @@ def charnn_path(fa, pa, fo, fl, checked, steps=5, profile=False):
 def profile_charnn_step(net, ds, fl):
     """One kernel-path char-RNN train step under ``torch.profiler``: wall
     and device time, the device-busy share, K4's share, the top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        net.fit(ds)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    out = device_rows(prof, wall, 1)
-    out["k4_device_ms"] = k4_device_ms(prof)
-    out["k4_share_of_device"] = (out["k4_device_ms"]
-                                 / out["device_ms_per_step"])
+    out = profile_step(lambda: net.fit(ds), k4=True)
     log(f"profile (charnn train step, B{CHARNN_BATCH} T{CHARNN_T}, kernel "
         "path): " + json.dumps(out))
 
@@ -5472,15 +5591,24 @@ def served_kernels(fn, iters=10):
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = sorted(((_self_device_us(ev), ev.count, ev.key)
-                   for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and ev.count), reverse=True)
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = sorted(((_self_device_us(ev), ev.count, ev.key)
+                       for ev in prof.key_averages()
+                       if ev.device_type == torch.autograd.DeviceType.CUDA
+                       and ev.count), reverse=True)
+        if rows:
+            break
+        log(f"served_kernels: trace {attempt} of {PROFILE_TRIES} holds no "
+            "device event")
+    else:
+        return {"launches_per_call": None, "mean_us_per_launch": None,
+                "top": [], "not_traced": f"{PROFILE_TRIES} traces held no "
+                                         "device event"}
     n = sum(r[1] for r in rows) / iters
     return {"launches_per_call": n,
             "mean_us_per_launch": sum(r[0] for r in rows) / iters / n,
@@ -8041,6 +8169,519 @@ def _values_equal(a, b):
     return a == b
 
 
+# ---------------------------------------------------------------- phase 21
+
+PARALLEL_STEPS = 5
+MOE_EXPERTS = 8
+RING_SHAPE = (8, 4096, 8, 64)           # B, T, H, D of the chunked ring
+RING_CHUNKS = 4
+RING_LM_BATCH = 8
+RING_LOSS_ATOL = 1e-5                    # the reference's dry-run case K
+DP_RANKS = 2
+DP_RANK_TIMEOUT_S = 600
+# (N, C, activation) of the two-rank K3 check: the global batch's rows of
+# ResNet-50's first stage (B128 56×56, C 64) and of its last (B128 7×7).
+# Smooth activations: a rounding of the statistics flips relu's mask on
+# a pre-activation next to 0, which moves that element's dx by O(1)
+# (1-3 elements of 12.8M at N401408 C64); the cross-rank sums do not
+# depend on the activation
+DP_BN_CASES = ((RESNET_BATCH * 56 * 56, 64, "identity"),
+               (RESNET_BATCH * 7 * 7, 2048, "sigmoid"))
+DP_BN_REL = 1e-5            # two ranks vs one K3 call, over the largest entry
+
+
+def parallel_resnet(fa, pa, fo, checked):
+    """(a) ResNet-50 B128 through ``ParallelWrapper(net, make_mesh(dp=1))``
+    on an NCCL world of one that ``make_mesh`` starts itself: bf16,
+    ``PARALLEL_STEPS`` steps replayed (the main path: K3's four kernels 53
+    times each a step, counted from the capture; its BN sums all-reduced
+    over the dp group, the all-reduce inside the graph) and eager (bit for
+    bit equal); step 1 held to the plain path (BN ``fused=False``, eager,
+    plain ``fit``) within phase 8's bars, the f32 grads too; wall and
+    device ms a step beside plain ``fit``'s replayed kernel path (the dp
+    machinery's cost at one rank). Returns the path's counts."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.train import Momentum
+    from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
+
+    mesh = make_mesh(dp=1)
+    log(f"parallel: make_mesh(dp=1) started a world of "
+        f"{dist.get_world_size()} over {dist.get_backend()} on "
+        f"{mesh.device}")
+    if dist.get_backend() != "nccl":
+        raise SystemExit("parallel: the card's world of one is not NCCL")
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(
+        rng.random((RESNET_BATCH, RESNET_HW, RESNET_HW, 3), np.float32),
+        device="cuda")
+    y = torch.as_tensor(np.eye(1000, dtype=np.float32)[
+        rng.integers(0, 1000, RESNET_BATCH)], device="cuda")
+    failed, seen, counts, records = [], set(), None, {}
+    for dtype, n_steps, loss_atol, state_atol, grad_limit in (
+            (torch.bfloat16, PARALLEL_STEPS, RESNET_LOSS_ATOL,
+             RESNET_STATE_REL_L2, None),
+            (torch.float32, 1, RESNET_F32_LOSS_ATOL,
+             RESNET_F32_STATE_REL_L2, RESNET_GRAD_REL_L2)):
+        model = ResNet50(num_classes=1000, updater=Momentum(0.1, 0.9),
+                         compute_dtype=torch.bfloat16
+                         if dtype == torch.bfloat16 else None,
+                         input_shape=(RESNET_HW, RESNET_HW, 3))
+        runs = {}
+        ways = [("dp1", True, n_steps, True, mesh),
+                ("plain", False, 1, False, None)]
+        if n_steps > 1:
+            ways[1:1] = [("dp1_eager", True, n_steps, False, mesh),
+                         ("fit", True, n_steps, True, None)]
+        for path, fused, path_steps, graphs, m in ways:
+            main = dtype == torch.bfloat16 and path == "dp1"
+            if main:
+                reset_all(fa, pa, fo)
+            with _k3_cases(fo) as cases:
+                net, rec, g, s1, final = _resnet_run(
+                    model, fused, x, y, path_steps, fo, graphs, mesh=m,
+                    profile=path in ("dp1", "fit") and n_steps > 1)
+            seen |= set(cases)
+            if main:
+                counts = {**path_counts(fa, pa, fo), **{
+                    k: sum(per[k] for per in rec["k3_launches_per_step"])
+                    for k in k3_counts(fo)}}
+                if not all(n == 53 for per in rec["k3_launches_per_step"]
+                           for n in per.values()):
+                    failed.append("K3 launch counts")
+                if rec["step_kinds"] != ["eager", "capture",
+                                         *["replay"] * (n_steps - 2)]:
+                    failed.append("the dp step did not replay a graph")
+            log(f"parallel resnet50 {path} (B{RESNET_BATCH} "
+                f"{str(dtype)[6:]}, BN fused={fused}, "
+                f"{'graph replays' if graphs else 'eager'}"
+                f"{', ParallelWrapper dp=1' if m is not None else ''}): "
+                f"{json.dumps(rec)}")
+            runs[path] = (rec, g, s1, final)
+            del net
+            torch.cuda.empty_cache()
+        tag = str(dtype)[6:]
+        if "dp1_eager" in runs:
+            (kr, *_, kf), (er, *_, ef) = runs["dp1"], runs["dp1_eager"]
+            diff = first_diff(ef, kf)
+            log(f"parallel resnet50 dp1 replays vs eager: losses equal "
+                f"{kr['losses'] == er['losses']}, params, stats and trace "
+                f"bit-identical {diff is None}; wall ms a step "
+                f"{kr['wall_ms_per_step']:.2f} (plain fit, replayed "
+                f"{runs['fit'][0]['wall_ms_per_step']:.2f}), device ms "
+                f"{kr.get('device_ms_per_step')} (plain fit "
+                f"{runs['fit'][0].get('device_ms_per_step')})")
+            if diff is not None or kr["losses"] != er["losses"]:
+                failed.append("replayed != eager")
+            records.update(dp1=kr, fit=runs["fit"][0])
+        kp = _step1(runs, "dp1", "plain")
+        log(f"parallel resnet50 step 1, dp1 vs plain ({tag}): |loss delta| "
+            f"{kp[0]:.3e} (limit {loss_atol}); running stats rel L2 max "
+            f"{kp[1][0]:.3e} ({kp[1][2]}) (limit {state_atol}); grads rel "
+            f"L2 median {kp[2][1]:.3e} max {kp[2][0]:.3e} ({kp[2][2]}) "
+            f"(limit {grad_limit or 'none: not held'})")
+        if not kp[0] <= loss_atol:
+            failed.append(f"{tag} step-1 loss")
+        if not kp[1][0] <= state_atol:
+            failed.append(f"{tag} running stats")
+        if grad_limit is not None and not kp[2][0] <= grad_limit:
+            failed.append(f"{tag} step-1 grads")
+        del runs
+    unchecked = sorted(f"{str(dt)[6:]} N{n} C{c} {act}"
+                       for dt, n, c, act in seen - checked)
+    if unchecked:
+        failed.append(f"K3 ran at {unchecked}, not held in phase 7")
+    if failed:
+        raise SystemExit(f"parallel resnet50 dp1: {failed}")
+    return counts, records
+
+
+def _dp_inputs():
+    """Phase 8's batch: B128 224×224×3 from seed 0, and its labels."""
+    rng = np.random.default_rng(0)
+    x = rng.random((RESNET_BATCH, RESNET_HW, RESNET_HW, 3), np.float32)
+    y = np.eye(1000, dtype=np.float32)[rng.integers(0, 1000, RESNET_BATCH)]
+    return x, y
+
+
+def _f32_resnet(fo):
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.train import Momentum
+    from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
+    net = ComputationGraph(ResNet50(
+        num_classes=1000, updater=Momentum(0.1, 0.9),
+        input_shape=(RESNET_HW, RESNET_HW, 3)).conf())
+    _set_fused(net, True)
+    return net.init()
+
+
+def _step1_of(net):
+    """(grads: Momentum's trace after one step from v0 = 0, running
+    stats), as name → CPU tensor."""
+    grads = {f"{n}/{k}": t.detach().cpu() for n, p in
+             net._opt_state[1][0]["trace"].items() for k, t in p.items()}
+    states = {f"{n}/{k}": t.detach().cpu() for n, p in net.states.items()
+              for k, t in p.items()}
+    return grads, states
+
+
+def dp_rank_bn_check(fo, group):
+    """K3's global-batch path over the gloo ranks, one f32 BN at a time:
+    this rank's half of the rows (the halves drawn apart, so that a
+    rank's own statistics differ from the batch's) through
+    ``fused_bn_act_train`` with the dp group, against one K3 call on all
+    the rows in this process: y and dx on the rank's rows, mean and var,
+    dgamma and dbeta summed over the ranks; each as its max abs error
+    over the reference's largest entry. ``dx_local_corr`` is dx with the
+    backward's sums left this rank's own, which ``DP_BN_REL`` must
+    reject."""
+    out = {}
+    for n, c, act in DP_BN_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(n + c)
+        x = torch.randn((n, c), generator=gen, device="cuda") * 2 + 1.5
+        x[n // 2:] = x[n // 2:] * 1.5 + 0.5
+        gy = torch.randn((n, c), generator=gen, device="cuda")
+        gamma = torch.rand((c,), generator=gen, device="cuda") * 1.5 + 0.5
+        beta = torch.randn((c,), generator=gen, device="cuda")
+        center = torch.randn((c,), generator=gen, device="cuda") * 0.1
+        lo, hi = group.slice_of(n)
+
+        def run(rows, grp):
+            xs, gs, bs = (t.clone().requires_grad_()
+                          for t in (x[rows], gamma, beta))
+            y, mean, var = fo.fused_bn_act_train(xs, gs, bs, center, 1e-5,
+                                                 act, grp)
+            return (y, mean, var,
+                    *torch.autograd.grad(y, (xs, gs, bs), gy[rows]))
+
+        full = run(slice(None), None)
+        y, mean, var, dx, dgamma, dbeta = run(slice(lo, hi), group)
+        dgamma, dbeta = group.all_reduce_(torch.stack([dgamma, dbeta]))
+        inv = torch.rsqrt(var + 1e-5)
+        scale, shift = fo._scale_shift(gamma, beta, mean, inv)
+        xh, gh = x[lo:hi].contiguous(), gy[lo:hi].contiguous()
+        r = fo.bn_bwd_reduce(xh, gh, scale, shift, mean, inv, act)
+        dx_local = fo.bn_bwd_dx(xh, gh, scale, shift, mean, inv, r[2:], act)
+        pairs = {"y": (y, full[0][lo:hi]), "mean": (mean, full[1]),
+                 "var": (var, full[2]), "dx": (dx, full[3][lo:hi]),
+                 "dgamma": (dgamma, full[4]), "dbeta": (dbeta, full[5]),
+                 "dx_local_corr": (dx_local, full[3][lo:hi])}
+        out[f"N{n} C{c} {act}"] = {
+            k: ((a.float() - b.float()).abs().max()
+                / b.float().abs().max()).item()
+            for k, (a, b) in pairs.items()}
+        del x, gy, full
+        torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank_main(rank, workdir):
+    """One rank of phase 21(b): joins a gloo world of ``DP_RANKS`` on
+    ``cuda:0`` (every rank on the one card), trains the f32 ResNet-50 one
+    eager step through ``ParallelWrapper`` over ``make_mesh(dp=2)`` on
+    its half of phase 8's B128 batch and writes its loss, step-1 grads,
+    running stats, K3 launches and how the step ran. Imports the port
+    only."""
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.kernels import fused_ops as fo
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper, make_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(workdir, "store"),
+        rank=rank, world_size=DP_RANKS)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(dp=DP_RANKS)
+    bn = dp_rank_bn_check(fo, mesh.group("dp"))
+    net = _f32_resnet(fo)
+    pw = ParallelWrapper(net, mesh)
+    x, y = _dp_inputs()
+    fo.reset_launches()
+    loss = pw.fit([DataSet(x, y)])
+    torch.cuda.synchronize()
+    grads, states = _step1_of(net)
+    torch.save({"bn": bn, "loss": loss, "grads": grads, "states": states,
+                "k3": k3_counts(fo), "graphs": pw.graphs,
+                "last": pw._step.last, "audit": pw.audit_drift()},
+               os.path.join(workdir, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_dp2_gloo(fo):
+    """(b) dp 2 on the one card over gloo: two spawned ranks (this script,
+    ``--dp-rank``; they import the port only), both on ``cuda:0``, each
+    training its B64 of the B128 batch one eager f32 step through
+    ``ParallelWrapper`` — K3's stats and backward sums summed over the two
+    ranks — held against the monolithic B128 step (K3 in one process):
+    loss, step-1 grads and the new running stats within the f32 bars, the
+    two ranks equal to each other."""
+    import tempfile
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.data import DataSet
+    x, y = _dp_inputs()
+    net = _f32_resnet(fo)
+    with disable_graphs():
+        mono_loss = net.fit(DataSet(torch.as_tensor(x, device="cuda"),
+                                    torch.as_tensor(y, device="cuda")))
+    mono_g, mono_s = _step1_of(net)
+    del net
+    torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="dl4j_dp2_")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+         "--dp-dir", work], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(DP_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=DP_RANK_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise SystemExit(f"parallel dp2 over gloo: rank(s) {bad} failed:\n"
+                         + "\n".join(outs[r][-4000:] for r in bad))
+    res = [torch.load(os.path.join(work, f"rank{r}.pt"))
+           for r in range(DP_RANKS)]
+    shutil.rmtree(work, ignore_errors=True)
+    failed = []
+    for r, got in enumerate(res):
+        dl = abs(got["loss"] - mono_loss)
+        g = _worst(got["grads"], mono_g)
+        st = _worst(got["states"], mono_s)
+        log(f"parallel dp2 over gloo, rank {r} vs the monolithic B128 step "
+            f"(f32): |loss delta| {dl:.3e} (limit {RESNET_F32_LOSS_ATOL}); "
+            f"running stats rel L2 max {st[0]:.3e} ({st[2]}) (limit "
+            f"{RESNET_F32_STATE_REL_L2}); grads rel L2 median {g[1]:.3e} "
+            f"max {g[0]:.3e} ({g[2]}) (limit {RESNET_GRAD_REL_L2}); K3 "
+            f"{json.dumps(got['k3'])}; step {got['last']} "
+            f"({got['graphs']}); drift audit {json.dumps(got['audit'])}")
+        if not dl <= RESNET_F32_LOSS_ATOL:
+            failed.append(f"rank {r} loss")
+        if not st[0] <= RESNET_F32_STATE_REL_L2:
+            failed.append(f"rank {r} running stats")
+        if not g[0] <= RESNET_GRAD_REL_L2:
+            failed.append(f"rank {r} grads")
+        if any(n != 53 for n in got["k3"].values()):
+            failed.append(f"rank {r} K3 launch counts")
+        if not got["audit"]["bit_identical"]:
+            failed.append(f"rank {r}: the replicas drifted")
+        log(f"parallel dp2 over gloo, rank {r}: K3 over the two ranks vs "
+            f"one K3 call on all the rows (f32), max abs error over the "
+            f"largest entry (limit {DP_BN_REL}; dx_local_corr, the "
+            f"backward's sums left local, must exceed it): "
+            f"{json.dumps(got['bn'])}")
+        for case, errs in got["bn"].items():
+            bad_keys = [k for k, e in errs.items()
+                        if k != "dx_local_corr" and not e <= DP_BN_REL]
+            if bad_keys:
+                failed.append(f"rank {r} K3 {case} {bad_keys}")
+            if not errs["dx_local_corr"] > DP_BN_REL:
+                failed.append(f"rank {r} K3 {case}: the bar does not see "
+                              "a local corr")
+    log(f"parallel dp2 over gloo: two ranks on {torch.cuda.get_device_name(0)}"
+        f" in {secs:.1f} host s (spawn, build, one step)")
+    if failed:
+        raise SystemExit(f"parallel dp2 over gloo: {failed}")
+    return {k: sum(got["k3"][k] for got in res) for k in res[0]["k3"]}
+
+
+def moe_routing(tfm, cfg, params, ids):
+    """Each MoE block's routing on one forward of ``ids``: the (N, K)
+    expert choices and whether the capacity keeps each (an expert keeps
+    at most C = capacity_factor · N · K / E rows, in token-major
+    order)."""
+    out = []
+    with torch.no_grad():
+        x = tfm.embed(params, cfg, ids)
+        for w in tfm._layers(params["blocks"], cfg.n_layers):
+            a = tfm._attn_half(cfg, x, w["ln1"], w["wqkv"])[0]
+            h = tfm._rmsnorm(x + a @ w["wo"].to(x.dtype), w["ln2"])
+            n = h.shape[0] * h.shape[1]
+            gates = torch.softmax(h.reshape(n, -1).float()
+                                  @ w["router"].float(), -1)
+            _, topi = tfm._top_k(gates, cfg.expert_top_k)
+            onehot = torch.nn.functional.one_hot(topi, cfg.n_experts)
+            pos = torch.cumsum(onehot.reshape(-1, cfg.n_experts), 0) \
+                .reshape(onehot.shape).gather(-1, topi[..., None])[..., 0]
+            cap = max(1, int(cfg.capacity_factor * n * cfg.expert_top_k
+                             / cfg.n_experts))
+            out.append((topi, pos <= cap))
+            x, _ = tfm._mlp_half(cfg, x, a, w["wo"], w["ln2"],
+                                 *tfm._mlp_weights(w))
+    return out
+
+
+def parallel_moe(fa, pa):
+    """(c) the 120M LM of phase 6 with ``MOE_EXPERTS`` experts a block
+    (top-2, capacity 1.25) trained B32 T1024 bf16 through
+    ``make_train_step`` (``train_path``: replayed = eager bit for bit, step
+    1 against the plain path at phase 6's bars, K1, dQ and dK/dV counted
+    from the capture); the tokens the capacity dropped on step 1's batch
+    and the device ms a step beside phase 6's dense LM."""
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    counts = train_path(fa, pa, steps=PARALLEL_STEPS, batch=32,
+                        tag="train MoE", n_experts=MOE_EXPERTS,
+                        profile=True)
+    # f32 too, at the same capacity (its drops taken), one step each way
+    train_path(fa, pa, steps=1, batch=32, tag="train MoE f32",
+               dtype=torch.float32, n_experts=MOE_EXPERTS)
+    cfg, init, ids, _ = lm_setup(tfm, 32, 8, 8, torch.bfloat16,
+                                 n_experts=MOE_EXPERTS)
+    route = moe_routing(tfm, cfg, init, ids)
+    plain = moe_routing(tfm, dataclasses.replace(
+        cfg, use_flash_attention=False, attn_scores_bf16=False), init, ids)
+    drops = [(k.numel(), int((~k).sum())) for _, k in route]
+    flips = [(int((a != b).any(-1).sum()), int((ka != kb).sum()))
+             for (a, ka), (b, kb) in zip(route, plain)]
+    moe, dense = TRAIN_RECORDS["train MoE"], TRAIN_RECORDS.get("train")
+    keys = ("wall_ms_per_step", "device_ms_per_step", "tok_per_s",
+            "peak_alloc_gib")
+    log(f"parallel MoE LM (E{MOE_EXPERTS} top-2 capacity 1.25, B32 T1024 "
+        f"bf16): {json.dumps({k: moe.get(k) for k in keys})}; dense LM "
+        f"(phase 6): "
+        + (json.dumps({k: dense.get(k) for k in keys}) if dense else
+           "not run in this call")
+        + f"; (routed, dropped) rows by block on step 1's batch {drops} "
+        f"({sum(d for _, d in drops) / sum(r for r, _ in drops):.4f} "
+        f"dropped); against the plain path's forward, (tokens whose "
+        f"choices differ, rows whose keep differs) by block {flips}")
+    del init
+    torch.cuda.empty_cache()
+    return counts
+
+
+def parallel_ring(fa, pa):
+    """(d) the ring: ``make_ring_train_step`` on the NCCL world of one
+    (dp 1, sp 1: one hop, K1 through its lse) against ``make_train_step``
+    on the same batch (the reference's dry-run case K), both replayed;
+    then ``ring_hop`` over ``RING_CHUNKS`` chunks of a B8 H8 T4096 D64
+    bf16 causal sequence on one device against one monolithic K1: the
+    output at bf16's atol, and the q/k/v grads through the merges (each
+    partial weighted by exp(lse_i − lse): a nonzero lse cotangent into
+    dQ and dK/dV). Returns the two paths' counts."""
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.parallel.ring_attention import ring_hop
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    mesh = make_mesh(dp=1, sp=1)
+    cfg, init, ids, tgt = lm_setup(tfm, RING_LM_BATCH, 8, 8, torch.bfloat16)
+    ring_cfg = dataclasses.replace(cfg, use_ring_attention=True)
+    runs, failed = {}, []
+    for name, make in (
+            ("ring", lambda o: tfm.make_ring_train_step(ring_cfg, o, mesh)),
+            ("mono", lambda o: tfm.make_train_step(cfg, o))):
+        params = {k: (v.clone() if torch.is_tensor(v)
+                      else {n: w.clone() for n, w in v.items()})
+                  for k, v in init.items()}
+        opt = torch.optim.AdamW(tfm.param_leaves(params), lr=3e-4,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=1e-4, capturable=True,
+                                **LM_ADAMW)
+        step = make(opt)
+        fa.reset_launches()
+        losses, per_step, kinds = [], [], []
+        for _ in range(3):
+            before = flash_counts(fa)
+            losses.append(step(params, ids, tgt).item())
+            per_step.append({n: c - before[n] for n, c in
+                             flash_counts(fa).items() if c - before[n]})
+            kinds.append(step.compiled.last)
+        runs[name] = {"losses": losses, "steps": kinds,
+                      "launches_per_step": replay_counts(per_step, kinds),
+                      "final": [(n, p.detach().clone())
+                                for n, p in _named_leaves(params)]}
+        del params, opt, step
+        torch.cuda.empty_cache()
+    dl = [abs(a - b) for a, b in zip(runs["ring"]["losses"],
+                                     runs["mono"]["losses"])]
+    diff = first_diff(runs["ring"]["final"], runs["mono"]["final"])
+    per = {"flash_attention_fwd": 2 * cfg.n_layers,
+           "flash_attention_bwd_dq": cfg.n_layers,
+           "flash_attention_bwd_dkv": cfg.n_layers}
+    ring_launch = runs["ring"]["launches_per_step"]
+    log(f"parallel ring step (dp1 sp1, NCCL) vs make_train_step (B"
+        f"{RING_LM_BATCH} T1024 bf16): losses {runs['ring']['losses']} vs "
+        f"{runs['mono']['losses']}, |delta| {dl} (limit {RING_LOSS_ATOL}), "
+        f"params bit-identical {diff is None}; steps "
+        f"{runs['ring']['steps']}; launches a step {ring_launch}")
+    if not max(dl) <= RING_LOSS_ATOL:
+        failed.append("ring step losses")
+    if runs["ring"]["steps"] != ["eager", "capture", "replay"]:
+        failed.append("the ring step did not replay a graph")
+    if any({k: c.get(k, 0) for k in per} != per for c in ring_launch):
+        failed.append("ring step flash launches")
+    ring_counts = {n: sum(c.get(n, 0) for c in ring_launch)
+                   for n in flash_counts(fa)}
+    del runs, init
+    torch.cuda.empty_cache()
+
+    # the per-hop function over the chunks of one sequence
+    b, t, h, d = RING_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v, g = (torch.randn((b, t, h, d), generator=gen, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(4))
+    q, k, v = (a.requires_grad_() for a in (q, k, v))
+    c = t // RING_CHUNKS
+    fa.reset_launches()
+    outs = []
+    for i in range(RING_CHUNKS):
+        acc = None
+        for j in range(i, -1, -1):         # the ring's order of blocks
+            acc = ring_hop(acc, q[:, i * c:(i + 1) * c],
+                           k[:, j * c:(j + 1) * c], v[:, j * c:(j + 1) * c],
+                           "diag" if j == i else "full", use_flash=True)
+        outs.append(acc[0].to(q.dtype))
+    out = torch.cat(outs, 1)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    hop_counts = flash_counts(fa)
+    ref = fa.flash_attention_ntc(q, k, v, causal=True)
+    ref_grads = torch.autograd.grad(ref, (q, k, v), g)
+    err = (out.float() - ref.float()).abs().max().item()
+    g_ok = [grad_ok(a, r, torch.bfloat16) for a, r in zip(grads, ref_grads)]
+    g_rel = [f"{rel_l2(a, r):.3e}" for a, r in zip(grads, ref_grads)]
+    n_hops = RING_CHUNKS * (RING_CHUNKS + 1) // 2
+    log(f"parallel ring_hop over {RING_CHUNKS} chunks (B{b} H{h} T{t} D{d} "
+        f"bf16 causal) vs one K1: out max abs err {err:.3e} (atol "
+        f"{ATOL[torch.bfloat16]}); q/k/v grads rel L2 {g_rel} (limit "
+        f"{BWD_BF16_REL_L2}); K1 / dQ / dK-dV "
+        f"launches {hop_counts['flash_attention_fwd']} / "
+        f"{hop_counts['flash_attention_bwd_dq']} / "
+        f"{hop_counts['flash_attention_bwd_dkv']} (want {n_hops} each)")
+    if not err <= ATOL[torch.bfloat16]:
+        failed.append("ring hops' output")
+    if not all(g_ok):
+        failed.append("ring hops' grads")
+    if any(hop_counts[n] != n_hops for n in FLASH_NAMES.values()):
+        failed.append("ring hops' flash launches")
+    if failed:
+        raise SystemExit(f"parallel ring: {failed}")
+    return ring_counts, hop_counts
+
+
+def parallel_phase(fa, pa, fo, k3_checked):
+    """Phase 21: (a)-(d). Returns the paths' counts."""
+    counts, _ = parallel_resnet(fa, pa, fo, k3_checked)
+    zero = dict.fromkeys(path_counts(fa, pa, fo), 0)
+    paths = {"parallel_resnet_dp1": counts,
+             "parallel_resnet_dp2_gloo": {**zero,
+                                          **parallel_dp2_gloo(fo)}}
+    paths["parallel_moe_lm"] = {**zero, **parallel_moe(fa, pa)}
+    ring, hops = parallel_ring(fa, pa)
+    paths["parallel_ring_step"] = {**zero, **ring}
+    paths["parallel_ring_hops"] = {**zero, **hops}
+    log(f"parallel: launches by path {json.dumps(paths)}")
+    return paths
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -8096,6 +8737,13 @@ def main():
                          "DL4J zips and SameDiff layers) only, holding "
                          "every K3 and K4 shape it runs itself (prints no "
                          "result line)")
+    ap.add_argument("--parallel-only", action="store_true",
+                    help="build + phases 7 and 21 (ParallelWrapper on the "
+                         "NCCL world of one and over two gloo ranks on the "
+                         "card, the MoE LM, the ring) only (prints no "
+                         "result line)")
+    ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-dir", help=argparse.SUPPRESS)
     ap.add_argument("--prefetch-times", metavar="ROOT",
                     help="only time LeNet's fit over host and device "
                          "iterators and a host list, for the port checked "
@@ -8108,6 +8756,8 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.dp_rank is not None:
+        return dp_rank_main(args.dp_rank, args.dp_dir)
     if args.k3_times:
         return k3_times(args.k3_times)
     if args.flash_times:
@@ -8170,6 +8820,14 @@ def main():
         return 0
     if args.bert_only:
         bert_phase(fa, pa, fo, fl, set(), gen)
+        return 0
+    if args.parallel_only:
+        _, k3_checked = k3_phase(fo, gen)
+        mark("7 K3")
+        parallel_phase(fa, pa, fo, k3_checked)
+        mark("21 parallel")
+        log(f"host seconds by phase (after the build): "
+            f"{json.dumps(seconds)}")
         return 0
     if args.workflow2_only:
         _, k3_checked = k3_phase(fo, gen)
@@ -8313,6 +8971,8 @@ def main():
     by_path.update(import_paths)
     lstm_paths["import_charnn"] = import_paths["import_charnn"]
     mark("20 Keras importer, upstream zips, SameDiff layers")
+    by_path.update(parallel_phase(fa, pa, fo, k3_checked))
+    mark("21 parallel")
     log(f"host seconds by phase (after the build): {json.dumps(seconds)}")
     # the stage-0 BN's shape (N = 128*56*56, C = 256) stands for K3
     main_k3 = k3[(torch.bfloat16, RESNET_BATCH * 56 * 56, 256)]
@@ -8321,7 +8981,8 @@ def main():
                     "resnet_serve", *(f"workflow2_resnet_remat{r}"
                                       for r in REMAT_SETTINGS),
                     "zoo_yolo2_fit", "zoo_yolo2_output",
-                    "import_resnet50_output", "import_resnet50_fit")
+                    "import_resnet50_output", "import_resnet50_fit",
+                    "parallel_resnet_dp1", "parallel_resnet_dp2_gloo")
     main_k1 = k1[(torch.bfloat16, 1, 2048, 64)]    # a dense prefill's shape
     train_k1 = k1[(torch.bfloat16, 32, 1024, 64)]  # the train path's shape
     main_k2 = k2[torch.bfloat16]

@@ -28,6 +28,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from .. import _dist
 from . import _build
 
 _SOURCE = "fused_bn_act"
@@ -114,12 +115,15 @@ def bn_act_reference(x2d, scale, shift, activation: str):
     return _ACTS[activation](x2d * scale[None, :] + shift[None, :])
 
 
-def train_stats_reference(x2d, center):
+def train_stats_reference(x2d, center, group=None):
     """One-pass shifted batch moments: mean = c + E[x−c],
-    var = max(E[(x−c)²] − E[x−c]², 0)."""
+    var = max(E[(x−c)²] − E[x−c]², 0); over the global batch with a batch
+    ``group`` (:func:`global_moments`)."""
     d = x2d.float() - center[None, :]
-    return _finish_moments(torch.sum(d, dim=0), torch.sum(d * d, dim=0),
-                           center, x2d.shape[0])
+    s1, s2 = torch.sum(d, dim=0), torch.sum(d * d, dim=0)
+    if group is not None:
+        return global_moments(s1, s2, center, x2d.shape[0], group)
+    return _finish_moments(s1, s2, center, x2d.shape[0])
 
 
 def _finish_moments(s1, s2, center, n):
@@ -136,17 +140,23 @@ def _scale_shift(gamma, beta, mean, inv):
     return scale, beta.float() - mean * scale
 
 
-def bn_act_train_reference(x2d, gamma, beta, center, eps, activation):
-    """Batch-stats BN + activation → (y in x's dtype, mean, var)."""
-    mean, var = train_stats_reference(x2d, center)
+def bn_act_train_reference(x2d, gamma, beta, center, eps, activation,
+                           group=None):
+    """Batch-stats BN + activation → (y in x's dtype, mean, var); the
+    global batch's statistics with a batch ``group``."""
+    mean, var = train_stats_reference(x2d, center, group)
     scale, shift = _scale_shift(gamma, beta, mean, torch.rsqrt(var + eps))
     y = _ACTS[activation](x2d.float() * scale + shift)
     return y.to(x2d.dtype), mean, var
 
 
-def bn_bwd_reference(x2d, g, gamma, beta, mean, inv, activation):
+def bn_bwd_reference(x2d, g, gamma, beta, mean, inv, activation,
+                     group=None):
     """The reference's plain BN backward (fused_ops.py:292-302) →
-    (dx in x's dtype, dgamma, dbeta in the params' dtypes)."""
+    (dx in x's dtype, dgamma, dbeta in the params' dtypes). With a batch
+    ``group`` the statistics were the global batch's: dx takes the sums
+    of every rank, dgamma and dbeta stay this rank's (the gradient
+    all-reduce adds them)."""
     n = x2d.shape[0]
     scale, shift = _scale_shift(gamma, beta, mean, inv)
     xf = x2d.float()
@@ -155,9 +165,22 @@ def bn_bwd_reference(x2d, g, gamma, beta, mean, inv, activation):
     xhat = (xf - mean[None, :]) * inv[None, :]
     dbeta = torch.sum(dz, dim=0)
     dgamma = torch.sum(dz * xhat, dim=0)
-    dx = scale[None, :] * (dz - dbeta[None, :] / n
-                           - xhat * dgamma[None, :] / n)
+    sb, sg = dbeta, dgamma
+    if group is not None:
+        sb, sg = group.all_reduce_(torch.stack([dbeta, dgamma]))
+        n = n * group.size
+    dx = scale[None, :] * (dz - sb[None, :] / n - xhat * sg[None, :] / n)
     return dx.to(x2d.dtype), dgamma.to(gamma.dtype), dbeta.to(beta.dtype)
+
+
+def global_moments(s1, s2, center, n, group):
+    """mean and var of the global batch from this rank's shifted sums
+    over its ``n`` rows (every rank of ``group`` holds as many). The sums
+    are summed over the group with a gradient (their cotangents summed
+    back), so the plain BN differentiates through it; the fused BN calls
+    it inside its forward, where nothing is recorded."""
+    s = _dist.all_reduce_sum(torch.stack([s1, s2]), group)
+    return _finish_moments(s[0], s[1], center, n * group.size)
 
 
 # --------------------------------------------------------------- autograd
@@ -169,14 +192,22 @@ def fused_bn_act(x2d, scale, shift, activation: str = "identity"):
 
 
 def fused_bn_act_train(x2d, gamma, beta, center, eps: float = 1e-5,
-                       activation: str = "identity"):
+                       activation: str = "identity", group=None):
     """(N, C) training BN → ``(y, mean, var)``; mean/var are the batch
     statistics (f32) for the caller's running averages and carry no
     gradient. ``center`` (the running mean) shifts the one-pass moments;
-    its gradient is zero."""
+    its gradient is zero.
+
+    With a batch ``group`` (``_dist.Group``; every rank's x has N rows)
+    the statistics are the global batch's: the stats kernel's shifted
+    sums (rows 0-1) are summed over the group before mean, var, scale
+    and shift are finished, and in the backward the reduce kernel's two
+    sums are, before the dx kernel; dgamma and dbeta stay this rank's
+    sums. The running mean, the shift of every rank's sums, is the same
+    on every rank."""
     _check_act(activation, supported_train_activation)
     return _FusedBnActTrain.apply(x2d, gamma, beta, center.detach(),
-                                  float(eps), activation)
+                                  float(eps), activation, group)
 
 
 def _check_act(activation, supported):
@@ -215,40 +246,50 @@ class _FusedBnAct(torch.autograd.Function):
 class _FusedBnActTrain(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, x2d, gamma, beta, center, eps, activation):
+    def forward(ctx, x2d, gamma, beta, center, eps, activation, group):
         if x2d.device.type == "cpu":
             y, mean, var = bn_act_train_reference(x2d, gamma, beta, center,
-                                                  eps, activation)
+                                                  eps, activation, group)
             inv = torch.rsqrt(var + eps)
             scale = shift = None
         else:
             st = bn_stats(x2d, center.float(), gamma.float(), beta.float(),
                           eps)
-            mean, var, inv, scale, shift = st[2:]
+            if group is None:
+                mean, var, inv, scale, shift = st[2:]
+            else:
+                mean, var = global_moments(st[0], st[1], center.float(),
+                                           x2d.shape[0], group)
+                inv = torch.rsqrt(var + eps)
+                scale, shift = _scale_shift(gamma, beta, mean, inv)
             y = bn_act(x2d, scale, shift, activation)
         ctx.save_for_backward(x2d, gamma, beta, mean, inv, scale, shift)
-        ctx.activation = activation
+        ctx.activation, ctx.group = activation, group
         ctx.mark_non_differentiable(mean, var)
         return y, mean, var
 
     @staticmethod
     def backward(ctx, g, _dmean, _dvar):
         x2d, gamma, beta, mean, inv, scale, shift = ctx.saved_tensors
-        act = ctx.activation
+        act, group = ctx.activation, ctx.group
         if g is None:
             g = torch.zeros_like(x2d)
         if x2d.device.type == "cpu":
             dx, dgamma, dbeta = bn_bwd_reference(x2d, g, gamma, beta, mean,
-                                                 inv, act)
+                                                 inv, act, group)
         else:
             # autograd may hand a strided or expanded cotangent; the
             # kernels read contiguous rows (copied only in that case)
             g = g.contiguous()
             r = bn_bwd_reduce(x2d, g, scale, shift, mean, inv, act)
-            dx = bn_bwd_dx(x2d, g, scale, shift, mean, inv, r[2:], act)
+            corr = r[2:]
+            if group is not None:
+                corr = group.all_reduce_(r[:2].clone()) \
+                    / (x2d.shape[0] * group.size)
+            dx = bn_bwd_dx(x2d, g, scale, shift, mean, inv, corr, act)
             # f32 sums: no cast unless the params are in another dtype
             dbeta, dgamma = r[0].to(beta.dtype), r[1].to(gamma.dtype)
-        return dx, dgamma, dbeta, None, None, None
+        return dx, dgamma, dbeta, None, None, None, None
 
 
 # ------------------------------------------------------------ CUDA wrappers

@@ -43,6 +43,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from .. import _dist
 from .._device import resolve_device, tree_to
 from ..train.constraints import apply_constraints_
 from ..train.updaters import NoOp, build_optimizer, tree_leaves, tree_map
@@ -186,7 +187,8 @@ class ComputationGraph:
 
     # -------------------------------------------------------------- forward
     def _apply_node(self, name, params, states, acts, pre_acts, new_states,
-                    *, train, rng, fmask, lmask, stop_at_output_preact):
+                    *, train, rng, fmask, lmask, stop_at_output_preact,
+                    groups=_dist.NONE):
         node = self.conf.nodes[name]
         xs = [acts[i] for i in node.inputs]
         if not isinstance(node.op, Layer):
@@ -215,7 +217,8 @@ class ComputationGraph:
             acts[name] = h
             return
         p_n = maybe_apply_weight_noise(op, params[name], rng, noisy)
-        ctx = Ctx(train=train, rng=rng, mask=fmask, label_mask=lmask)
+        ctx = Ctx(train=train, rng=rng, mask=fmask, label_mask=lmask,
+                  groups=groups)
         h, s_new = op.apply(p_n, states[name], h, ctx)
         new_states[name] = s_new
         acts[name] = h
@@ -245,12 +248,16 @@ class ComputationGraph:
         return {self.conf.outputs[0]: labels}
 
     def _forward(self, params, states, inputs, *, train, rng,
-                 fmask=None, lmask=None, stop_at_output_preact=False):
+                 fmask=None, lmask=None, stop_at_output_preact=False,
+                 groups=_dist.NONE):
+        """(acts, pre_acts, new_states). ``groups``: a parallel step's
+        (``_dist.Groups``), handed to every node's ``Ctx``."""
         inputs = self._as_input_dict(inputs)
         if train and self.remat_segments:
             return self._forward_remat(
                 params, states, inputs, train=train, rng=rng, fmask=fmask,
-                lmask=lmask, stop_at_output_preact=stop_at_output_preact)
+                lmask=lmask, stop_at_output_preact=stop_at_output_preact,
+                groups=groups)
         acts = dict(inputs)
         new_states = {}
         pre_acts = {}
@@ -258,7 +265,8 @@ class ComputationGraph:
             self._apply_node(name, params, states, acts, pre_acts,
                              new_states, train=train, rng=rng, fmask=fmask,
                              lmask=lmask,
-                             stop_at_output_preact=stop_at_output_preact)
+                             stop_at_output_preact=stop_at_output_preact,
+                             groups=groups)
         return acts, pre_acts, new_states
 
     # ------------------------------------------------------- segmented remat
@@ -320,7 +328,8 @@ class ComputationGraph:
         return segments
 
     def _forward_remat(self, params, states, inputs, *, train, rng,
-                       fmask=None, lmask=None, stop_at_output_preact=False):
+                       fmask=None, lmask=None, stop_at_output_preact=False,
+                       groups=_dist.NONE):
         """:meth:`_forward` with each planned segment under
         ``checkpoint_segment``: only the activations that cross a segment
         boundary are kept for the backward; the rest is recomputed there."""
@@ -338,7 +347,8 @@ class ComputationGraph:
                     self._apply_node(
                         nm, params, states, a, pre, ns, train=train, rng=rng,
                         fmask=fmask, lmask=lmask,
-                        stop_at_output_preact=stop_at_output_preact)
+                        stop_at_output_preact=stop_at_output_preact,
+                        groups=groups)
                 return ({k: a[k] for k in _seg["carry_out"] if k in a},
                         ns, pre)
 
@@ -477,29 +487,37 @@ class ComputationGraph:
         self._rnn_carry_batch = None
 
     # ----------------------------------------------------------------- loss
-    def _loss(self, params, states, inputs, labels, rng, fmask, lmask):
+    def _loss(self, params, states, inputs, labels, rng, fmask, lmask,
+              groups=_dist.NONE):
+        """(loss, new states); under a parallel step's ``groups`` this
+        rank's share of the global batch's loss."""
         labels = self._as_label_dict(labels)
+        group = groups.batch
         acts, pre_acts, new_states = self._forward(
             params, states, inputs, train=True, rng=rng, fmask=fmask,
-            lmask=lmask, stop_at_output_preact=True)
+            lmask=lmask, stop_at_output_preact=True, groups=groups)
         total = 0.0
         for name in self.conf.outputs:
             op = unwrap(self.conf.nodes[name].op)
             y = labels[name]
             w = self.output_loss_weights.get(name, 1.0)
-            if isinstance(op, (OutputLayer, SameDiffOutputLayer)):
+            if isinstance(op, OutputLayer):
                 total = total + w * op.compute_loss(
-                    params[name], pre_acts[name], y, mask=lmask)
+                    params[name], pre_acts[name], y, mask=lmask,
+                    groups=groups)
+            elif isinstance(op, SameDiffOutputLayer):
+                total = total + w * _dist.share(op.compute_loss(
+                    params[name], pre_acts[name], y, mask=lmask), group)
             elif isinstance(op, LossLayer):
                 total = total + w * op.compute_loss(
-                    pre_acts[name], y, mask=lmask)
+                    pre_acts[name], y, mask=lmask, groups=groups)
             else:
                 raise ValueError(
                     f"output node '{name}' is not an output/loss layer")
-        total = total + self._reg_score(params)
+        total = total + self._reg_score(params, group)
         return total, new_states
 
-    def _reg_score(self, params):
+    def _reg_score(self, params, group=None):
         reg = 0.0
         for name, node in self.conf.nodes.items():
             op = node.op
@@ -512,7 +530,7 @@ class ComputationGraph:
                     reg = reg + op.l1 * torch.sum(torch.abs(w))
                 if op.l2:
                     reg = reg + 0.5 * op.l2 * torch.sum(torch.square(w))
-        return reg
+        return _dist.share(reg, group)
 
     # ------------------------------------------------------------ optimizer
     def _build_optimizer(self, ipe=1):

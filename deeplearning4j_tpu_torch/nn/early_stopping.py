@@ -10,8 +10,11 @@ params and states are snapshotted on the device, and the result's
 ``best_model`` is a clone of the net holding that snapshot, as the
 reference restores it.
 
-``EarlyStoppingParallelTrainer`` needs ``ParallelWrapper`` (ROADMAP
-queue 1, item 6) and raises until it is ported.
+``EarlyStoppingParallelTrainer`` runs the same loop around a parallel
+trainer (``parallel.ParallelWrapper`` or
+``parallel.ParameterAveragingTrainer``): each epoch is one
+``trainer.fit``, and the scores and the snapshots are taken on the
+trainer's net, whose params every rank holds whole.
 """
 
 from __future__ import annotations
@@ -188,12 +191,19 @@ class EarlyStoppingTrainer:
 
 class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
     """Early stopping around a multi-device trainer (reference:
-    ``EarlyStoppingParallelTrainer`` wrapping ``ParallelWrapper``). Not
-    ported yet: it needs ``ParallelWrapper``, ROADMAP queue 1 item 6."""
+    ``org.deeplearning4j.earlystopping.trainer.EarlyStoppingParallelTrainer``
+    wrapping ParallelWrapper). Accepts any trainer with
+    ``fit(iterator, epochs=1)`` and a ``.net`` (ParallelWrapper,
+    ParameterAveragingTrainer); scoring and the conditions run on the
+    wrapped net, whose params the trainer keeps in sync."""
 
     def __init__(self, config: EarlyStoppingConfiguration, trainer,
                  train_iterator):
-        raise NotImplementedError(
-            "EarlyStoppingParallelTrainer needs ParallelWrapper "
-            "(deeplearning4j_tpu/parallel/wrapper.py), which is not ported "
-            "yet (ROADMAP.md queue 1, item 6)")
+        if not hasattr(trainer, "net") or not hasattr(trainer, "fit"):
+            raise TypeError("trainer must expose .net and .fit (e.g. "
+                            "ParallelWrapper / ParameterAveragingTrainer)")
+        super().__init__(config, trainer.net, train_iterator)
+        self.trainer = trainer
+
+    def _fit_epoch(self):
+        self.trainer.fit(self.iterator, epochs=1)

@@ -25,6 +25,7 @@ from typing import Any, Optional
 
 import torch
 
+from ... import _dist
 from .. import activations as _act
 from .. import weights as _winit
 
@@ -32,12 +33,15 @@ from .. import weights as _winit
 @dataclass
 class Ctx:
     """Per-call context threaded through apply(): train flag, rng (a
-    ``torch.Generator``), masks."""
+    ``torch.Generator``), masks, and a parallel step's groups
+    (``_dist.Groups``: BatchNormalization's statistics span the batch
+    group, the layers of ``parallel/tp.py`` split over the tp group)."""
 
     train: bool = False
     rng: Any = None
     mask: Any = None          # feature/time mask (B,) or (B, T)
     label_mask: Any = None
+    groups: _dist.Groups = _dist.NONE
 
 
 class InputType:

@@ -26,6 +26,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ... import _dist
 from .. import losses as _losses
 from .base import Ctx, Layer, apply_time_mask
 
@@ -210,12 +211,17 @@ class LossLayer(Layer):
     def apply(self, params, state, x, ctx: Ctx):
         return self.activation_fn()(x), state
 
-    def compute_loss(self, pre_activation, labels, mask=None):
+    def compute_loss(self, pre_activation, labels, mask=None,
+                     groups=_dist.NONE):
+        """The loss; under a parallel step's ``groups`` this rank's share
+        of the global batch's (``nn.losses.score``)."""
         fused = _logits_loss(self.loss, self.activation)
         if fused is not None:
-            return fused(labels, pre_activation, mask=mask)
-        return _losses.get(self.loss)(
-            labels, self.activation_fn()(pre_activation), mask=mask)
+            return fused(labels, pre_activation, mask=mask,
+                         group=groups.batch)
+        return _losses.score(self.loss, labels,
+                             self.activation_fn()(pre_activation), mask,
+                             groups.batch)
 
     def has_params(self):
         return False
@@ -239,13 +245,21 @@ class OutputLayer(DenseLayer):
             y = y + params["b"].to(x.dtype)
         return y
 
-    def compute_loss(self, params, x, labels, mask=None):
-        logits = self.pre_activation(params, x)
+    def compute_loss(self, params, x, labels, mask=None,
+                     groups=_dist.NONE):
+        """The loss; under a parallel step's ``groups`` this rank's share
+        of the global batch's (``nn.losses.score``)."""
+        return self.logits_loss(self.pre_activation(params, x), labels,
+                                mask, groups.batch)
+
+    def logits_loss(self, logits, labels, mask=None, group=None):
+        """The loss of the pre-activation ``logits``, over the batch
+        ``group``."""
         fused = _logits_loss(self.loss, self.activation)
         if fused is not None:
-            return fused(labels, logits, mask=mask)
-        return _losses.get(self.loss)(labels, self.activation_fn()(logits),
-                                      mask=mask)
+            return fused(labels, logits, mask=mask, group=group)
+        return _losses.score(self.loss, labels, self.activation_fn()(logits),
+                             mask, group)
 
 
 @dataclass
@@ -263,17 +277,19 @@ class RnnOutputLayer(OutputLayer):
         y, state = DenseLayer.apply(self, params, state, x, ctx)
         return apply_time_mask(y, ctx.mask), state
 
-    def compute_loss(self, params, x, labels, mask=None):
-        logits = self.pre_activation(params, x)           # (B, T, C)
+    def logits_loss(self, logits, labels, mask=None, group=None):
+        """The loss of the (B, T, C) ``logits``, over the batch
+        ``group``."""
         fused = _logits_loss(self.loss, self.activation)
         if fused is None:
-            return _losses.get(self.loss)(
-                labels, self.activation_fn()(logits), mask=mask)
+            return _losses.score(self.loss, labels,
+                                 self.activation_fn()(logits), mask, group)
         b, t = logits.shape[0], logits.shape[1]
         flat_labels = labels.reshape(b * t, -1) if labels.dim() == 3 \
             else labels.reshape(b * t)
         return fused(flat_labels, logits.reshape(b * t, -1),
-                     mask=None if mask is None else mask.reshape(b * t))
+                     mask=None if mask is None else mask.reshape(b * t),
+                     group=group)
 
 
 # ---------------------------------------------------------- embeddings
@@ -356,12 +372,14 @@ class CnnLossLayer(LossLayer):
     (CnnLossLayer). Labels are (B, H, W, C); a mask (B, H, W) drops
     pixels. Space folds into the batch, so every loss sees (N, C)."""
 
-    def compute_loss(self, pre_activation, labels, mask=None):
+    def compute_loss(self, pre_activation, labels, mask=None,
+                     groups=_dist.NONE):
         c = pre_activation.shape[-1]
         flat = pre_activation.reshape(-1, c)
         flat_labels = labels.reshape(-1, labels.shape[-1])
         flat_mask = mask.reshape(-1) if mask is not None else None
-        return super().compute_loss(flat, flat_labels, mask=flat_mask)
+        return super().compute_loss(flat, flat_labels, mask=flat_mask,
+                                    groups=groups)
 
 
 @dataclass
@@ -380,14 +398,16 @@ class CenterLossOutputLayer(OutputLayer):
         state["centers"] = torch.zeros((self.n_out, n_in), dtype=self.dtype)
         return params, state, out
 
-    def compute_loss(self, params, x, labels, mask=None, state=None):
-        base = super().compute_loss(params, x, labels, mask)
+    def compute_loss(self, params, x, labels, mask=None, state=None,
+                     groups=_dist.NONE):
+        base = super().compute_loss(params, x, labels, mask, groups)
         if state is None:
             return base
         cls = torch.argmax(labels, dim=-1)
         diff = x - state["centers"][cls]
         center_loss = 0.5 * torch.mean(torch.sum(diff * diff, dim=-1))
-        return base + self.lambda_ * center_loss
+        return base + self.lambda_ * _dist.share(center_loss,
+                                                 groups.batch)
 
     def update_state(self, state, x, labels):
         cls = torch.argmax(labels, dim=-1)

@@ -13,6 +13,14 @@ train steps and used verbatim at inference. Dispatch of ``fused``:
 - ``"auto"`` (default): the inference kernel when the activation is not
   identity and x is a CUDA tensor; training stays on the plain path, as
   in the reference.
+
+Inside a parallel step (a batch group on ``ctx.groups``) the training
+statistics are the global batch's, as the reference's BN over a
+dp-sharded batch computes them: each rank's shifted sums (the plain
+path's, and K3's stats kernel's rows 0-1) are summed over the group
+before ``fused_ops.global_moments`` finishes them, and their cotangents
+in the backward. The running mean, which shifts the sums, is the same on every
+rank, so the running statistics stay replicated.
 """
 
 from __future__ import annotations
@@ -91,10 +99,12 @@ class BatchNormalization(Layer):
         axes = tuple(range(x.dim() - 1))
         if ctx.train:
             c = state["mean"].detach()
+            group = ctx.groups.batch
             if self._can_fuse_train(x):
                 gamma, beta = self._gamma_beta(params, x.shape[-1], x.device)
                 y, mean, var = fused_ops.fused_bn_act_train(
-                    self._rows(x), gamma, beta, c, self.eps, self.activation)
+                    self._rows(x), gamma, beta, c, self.eps, self.activation,
+                    group)
                 new_state = {
                     "mean": self.decay * state["mean"]
                             + (1 - self.decay) * mean,
@@ -108,10 +118,15 @@ class BatchNormalization(Layer):
             # roundoff while c is still cold
             xf = x.float()
             d = xf - c
-            dmean = torch.mean(d, dim=axes)
-            d2mean = torch.mean(d * d, dim=axes)
-            mean = c + dmean
-            var = torch.clamp(d2mean - dmean * dmean, min=0.0)
+            if group is None:
+                dmean = torch.mean(d, dim=axes)
+                d2mean = torch.mean(d * d, dim=axes)
+                mean = c + dmean
+                var = torch.clamp(d2mean - dmean * dmean, min=0.0)
+            else:
+                mean, var = fused_ops.global_moments(
+                    torch.sum(d, dim=axes), torch.sum(d * d, dim=axes), c,
+                    d.numel() // d.shape[-1], group)
             new_state = {
                 "mean": (self.decay * state["mean"]
                          + (1 - self.decay) * mean).detach(),

@@ -23,6 +23,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ... import _dist
 from .base import Ctx
 from .core import LossLayer
 
@@ -103,7 +104,12 @@ class Yolo2OutputLayer(LossLayer):
         out = torch.cat([xy, wh, conf[..., None], cls], dim=-1)
         return out.reshape(b, h, w, a * (5 + c)), state
 
-    def compute_loss(self, pre_activation, labels, mask=None):
+    def compute_loss(self, pre_activation, labels, mask=None,
+                     groups=_dist.NONE):
+        """The YOLOv2 loss over the batch's objects; under a parallel
+        step's ``groups`` this rank's sums over the global batch's object
+        count."""
+        group = groups.batch
         xy, wh, conf, cls, tcls = self._split(pre_activation)
         b, h, w, a, c = cls.shape
         labels = labels.float()
@@ -131,7 +137,9 @@ class Yolo2OutputLayer(LossLayer):
                                  px + wh[..., 0] / 2, py + wh[..., 1] / 2],
                                 dim=-1)
         iou = box_iou_xyxy(pred_xyxy, gt_xyxy[..., None, :]).detach()
-        n_obj = torch.clamp(torch.sum(obj), min=1.0)
+        n_obj = torch.sum(obj) if group is None else \
+            _dist.global_count(torch.sum(obj), group)
+        n_obj = torch.clamp(n_obj, min=1.0)
         pos = (torch.sum((xy - gt_off[..., None, :]) ** 2, dim=-1)
                + torch.sum((torch.sqrt(torch.clamp(wh, min=1e-9))
                             - torch.sqrt(torch.clamp(gt_wh[..., None, :],

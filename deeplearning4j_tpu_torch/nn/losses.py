@@ -1,7 +1,9 @@
 """Loss functions — port of ``deeplearning4j_tpu/nn/losses.py``
 (``LossFunctions``).
 
-Every loss is ``fn(labels, preds, weights=None, mask=None) -> scalar``.
+Every loss is ``fn(labels, preds, weights=None, mask=None, group=None)
+-> scalar``; with a parallel step's batch ``group`` it is this rank's
+share of the global batch's loss (the ranks' shares sum to it).
 ``preds`` are the layer's *activated* outputs (DL4J convention) except
 the ``*_with_logits`` variants. DL4J reduction: score = sum over output
 units, mean over (unmasked) examples. Mixed dtypes promote as in the
@@ -14,6 +16,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from .. import _dist
 
 _EPS = 1e-7
 
@@ -29,10 +33,15 @@ def _reduce(per_unit, mask):
     return per_unit.reshape(per_unit.shape[0], -1).sum(dim=1)
 
 
-def _mean(per_ex, mask):
-    if mask is None:
+def _mean(per_ex, mask, g=None):
+    """Mean over the (unmasked) examples. With a parallel step's batch
+    group ``g`` this rank's share of the global batch's mean."""
+    m = None if mask is None else \
+        mask.reshape(mask.shape[0], -1).amax(dim=1)  # example present at all?
+    if g is not None:
+        return _dist.global_mean(per_ex, m, g)
+    if m is None:
         return per_ex.mean()
-    m = mask.reshape(mask.shape[0], -1).amax(dim=1)  # example present at all?
     return (per_ex * m).sum() / torch.clamp(m.sum(), min=1.0)
 
 
@@ -67,10 +76,10 @@ def mcxent_per_unit(labels, preds, weights=None, mask=None):
     return _apply_mask(_weighted(per_unit, weights), mask)
 
 
-def mcxent(labels, preds, weights=None, mask=None):
+def mcxent(labels, preds, weights=None, mask=None, group=None):
     """Multi-class cross entropy vs softmax output (LossMCXENT)."""
     per_unit = mcxent_per_unit(labels, preds, weights, mask)
-    return _mean(_reduce(per_unit, mask), mask)
+    return _mean(_reduce(per_unit, mask), mask, group)
 
 
 negative_log_likelihood = mcxent  # DL4J NEGATIVELOGLIKELIHOOD == MCXENT vs softmax
@@ -80,7 +89,7 @@ def _take_last(t, labels):
     return torch.gather(t, -1, labels.long()[..., None])[..., 0]
 
 
-def sparse_mcxent(labels, preds, weights=None, mask=None):
+def sparse_mcxent(labels, preds, weights=None, mask=None, group=None):
     """Labels are int class ids (SparseMCXENT)."""
     p = torch.clamp(_take_last(preds, labels), _EPS, 1.0)
     per_unit = -torch.log(p)
@@ -91,133 +100,143 @@ def sparse_mcxent(labels, preds, weights=None, mask=None):
         per_ex = per_unit
     else:
         per_ex = per_unit.reshape(per_unit.shape[0], -1).sum(dim=1)
-    return _mean(per_ex, mask)
+    return _mean(per_ex, mask, group)
 
 
-def softmax_cross_entropy_with_logits(labels, logits, weights=None, mask=None):
+def softmax_cross_entropy_with_logits(labels, logits, weights=None, mask=None,
+                                      group=None):
     """Numerically-stable fused path (what the OutputLayer trains through):
     log_softmax in the logits' dtype, then promotion by the labels."""
     logp = torch.log_softmax(logits, dim=-1)
     per_unit = _apply_mask(_weighted(-labels * logp, weights), mask)
-    return _mean(_reduce(per_unit, mask), mask)
+    return _mean(_reduce(per_unit, mask), mask, group)
 
 
-def sparse_softmax_cross_entropy_with_logits(labels, logits, weights=None, mask=None):
+def sparse_softmax_cross_entropy_with_logits(labels, logits, weights=None, mask=None,
+                                             group=None):
     logp = torch.log_softmax(logits, dim=-1)
     per_unit = -_take_last(logp, labels)
     per_unit = _apply_mask(per_unit, mask)
     per_ex = per_unit if per_unit.dim() == 1 \
         else per_unit.reshape(per_unit.shape[0], -1).sum(dim=1)
-    return _mean(per_ex, mask)
+    return _mean(per_ex, mask, group)
 
 
-def binary_xent(labels, preds, weights=None, mask=None):
+def binary_xent(labels, preds, weights=None, mask=None, group=None):
     """LossBinaryXENT vs sigmoid output."""
     p = torch.clamp(preds, _EPS, 1.0 - _EPS)
     per_unit = -(labels * torch.log(p) + (1.0 - labels) * torch.log1p(-p))
     per_unit = _apply_mask(_weighted(per_unit, weights), mask)
-    return _mean(_reduce(per_unit, mask), mask)
+    return _mean(_reduce(per_unit, mask), mask, group)
 
 
-def sigmoid_cross_entropy_with_logits(labels, logits, weights=None, mask=None):
+def sigmoid_cross_entropy_with_logits(labels, logits, weights=None, mask=None,
+                                      group=None):
     z = F.relu(logits) - logits * labels \
         + torch.log1p(torch.exp(-torch.abs(logits)))
     per_unit = _apply_mask(_weighted(z, weights), mask)
-    return _mean(_reduce(per_unit, mask), mask)
+    return _mean(_reduce(per_unit, mask), mask, group)
 
 
-def hinge(labels, preds, weights=None, mask=None):
+def hinge(labels, preds, weights=None, mask=None, group=None):
     """Labels in {-1,1} (LossHinge)."""
     per_unit = F.relu(1.0 - labels * preds)
     per_unit = _apply_mask(_weighted(per_unit, weights), mask)
-    return _mean(_reduce(per_unit, mask), mask)
+    return _mean(_reduce(per_unit, mask), mask, group)
 
 
-def squared_hinge(labels, preds, weights=None, mask=None):
+def squared_hinge(labels, preds, weights=None, mask=None, group=None):
     per_unit = torch.square(F.relu(1.0 - labels * preds))
     per_unit = _apply_mask(_weighted(per_unit, weights), mask)
-    return _mean(_reduce(per_unit, mask), mask)
+    return _mean(_reduce(per_unit, mask), mask, group)
 
 
-def fmeasure(labels, preds, beta=1.0, weights=None, mask=None):
+def fmeasure(labels, preds, beta=1.0, weights=None, mask=None, group=None):
     """LossFMeasure — differentiable soft-F_beta (binary). Returns 1 - F."""
     preds = _apply_mask(preds, mask)
     labels = _apply_mask(labels, mask)
     tp = torch.sum(labels * preds)
     fp = torch.sum((1.0 - labels) * preds)
     fn = torch.sum(labels * (1.0 - preds))
+    if group is not None:       # the global batch's counts
+        tp, fp, fn = _dist.all_reduce_sum(torch.stack([tp, fp, fn]), group)
     b2 = beta * beta
     f = (1.0 + b2) * tp / torch.clamp((1.0 + b2) * tp + b2 * fn + fp,
                                       min=_EPS)
-    return 1.0 - f
+    return 1.0 - f if group is None else (1.0 - f) / group.size
 
 
 # --- regression ------------------------------------------------------------
 
-def mse(labels, preds, weights=None, mask=None):
+def mse(labels, preds, weights=None, mask=None, group=None):
     per_unit = _apply_mask(_weighted(torch.square(preds - labels), weights), mask)
-    return _mean(_reduce(per_unit, mask), mask)
+    return _mean(_reduce(per_unit, mask), mask, group)
 
 
 l2 = mse  # DL4J LossL2 = sum of squares (no mean over units); score matches via _reduce
 
 
-def rmse(labels, preds, weights=None, mask=None):
-    return torch.sqrt(mse(labels, preds, weights, mask))
+def rmse(labels, preds, weights=None, mask=None, group=None):
+    if group is None:
+        return torch.sqrt(mse(labels, preds, weights, mask))
+    # the global batch's root, in a 1/size share a rank
+    share = mse(labels, preds, weights, mask, group).reshape(1)
+    return torch.sqrt(_dist.all_reduce_sum(share, group))[0] / group.size
 
 
-def mae(labels, preds, weights=None, mask=None):
+def mae(labels, preds, weights=None, mask=None, group=None):
     per_unit = _apply_mask(_weighted(torch.abs(preds - labels), weights), mask)
-    return _mean(_reduce(per_unit, mask), mask)
+    return _mean(_reduce(per_unit, mask), mask, group)
 
 
 l1 = mae
 
 
-def msle(labels, preds, weights=None, mask=None):
+def msle(labels, preds, weights=None, mask=None, group=None):
     per_unit = torch.square(torch.log1p(torch.clamp(preds, min=-1 + _EPS))
                             - torch.log1p(torch.clamp(labels, min=-1 + _EPS)))
     per_unit = _apply_mask(_weighted(per_unit, weights), mask)
-    return _mean(_reduce(per_unit, mask), mask)
+    return _mean(_reduce(per_unit, mask), mask, group)
 
 
-def mape(labels, preds, weights=None, mask=None):
+def mape(labels, preds, weights=None, mask=None, group=None):
     per_unit = 100.0 * torch.abs((preds - labels)
                                  / torch.clamp(torch.abs(labels), min=_EPS))
     per_unit = _apply_mask(_weighted(per_unit, weights), mask)
-    return _mean(_reduce(per_unit, mask), mask)
+    return _mean(_reduce(per_unit, mask), mask, group)
 
 
-def kl_divergence(labels, preds, weights=None, mask=None):
+def kl_divergence(labels, preds, weights=None, mask=None, group=None):
     p = torch.clamp(labels, _EPS, 1.0)
     q = torch.clamp(preds, _EPS, 1.0)
     per_unit = _apply_mask(_weighted(p * (torch.log(p) - torch.log(q)),
                                      weights), mask)
-    return _mean(_reduce(per_unit, mask), mask)
+    return _mean(_reduce(per_unit, mask), mask, group)
 
 
-def poisson(labels, preds, weights=None, mask=None):
+def poisson(labels, preds, weights=None, mask=None, group=None):
     per_unit = preds - labels * torch.log(torch.clamp(preds, min=_EPS))
     per_unit = _apply_mask(_weighted(per_unit, weights), mask)
-    return _mean(_reduce(per_unit, mask), mask)
+    return _mean(_reduce(per_unit, mask), mask, group)
 
 
-def cosine_proximity(labels, preds, weights=None, mask=None):
+def cosine_proximity(labels, preds, weights=None, mask=None, group=None):
     ln = labels / torch.clamp(torch.linalg.norm(labels, dim=-1, keepdim=True),
                               min=_EPS)
     pn = preds / torch.clamp(torch.linalg.norm(preds, dim=-1, keepdim=True),
                              min=_EPS)
     per_unit = _apply_mask(_weighted(-ln * pn, weights), mask)
-    return _mean(_reduce(per_unit, mask), mask)
+    return _mean(_reduce(per_unit, mask), mask, group)
 
 
-def wasserstein(labels, preds, weights=None, mask=None):
+def wasserstein(labels, preds, weights=None, mask=None, group=None):
     """LossWasserstein: mean(labels * preds) — critic loss for WGAN."""
     per_unit = _apply_mask(_weighted(labels * preds, weights), mask)
-    return _mean(_reduce(per_unit, mask), mask)
+    return _mean(_reduce(per_unit, mask), mask, group)
 
 
-def mixture_density(labels, preds, n_mixtures, weights=None, mask=None):
+def mixture_density(labels, preds, n_mixtures, weights=None, mask=None,
+                    group=None):
     """LossMixtureDensity: negative log-likelihood of a GMM head.
 
     preds packs [alpha_logits(K), mu(K*D), log_sigma(K)] along the last axis.
@@ -234,10 +253,10 @@ def mixture_density(labels, preds, n_mixtures, weights=None, mask=None):
     nll = -_logsumexp(log_prob, -1)
     nll = _apply_mask(_weighted(nll, weights), mask)
     per_ex = nll if nll.dim() == 1 else nll.reshape(nll.shape[0], -1).sum(dim=1)
-    return _mean(per_ex, mask)
+    return _mean(per_ex, mask, group)
 
 
-def multi_label(labels, preds, weights=None, mask=None):
+def multi_label(labels, preds, weights=None, mask=None, group=None):
     """LossMultiLabel: pairwise ranking loss over (positive, negative)
     label pairs per example, in log space —
     ``exp(logsumexp_l(o_l) + logsumexp_k(-o_k)) / (|Y||Ybar|)``. Examples
@@ -265,7 +284,7 @@ def multi_label(labels, preds, weights=None, mask=None):
                          torch.zeros_like(log_loss))
     if per_ex.dim() > 1:  # time-distributed (B, T) -> sum over time
         per_ex = per_ex.reshape(per_ex.shape[0], -1).sum(dim=1)
-    return _mean(per_ex, ex_mask)
+    return _mean(per_ex, ex_mask, group)
 
 
 class Loss:
@@ -314,6 +333,20 @@ LOGITS_VARIANTS = {
     "binary_xent": sigmoid_cross_entropy_with_logits,
     "xent": sigmoid_cross_entropy_with_logits,
 }
+
+
+def score(loss, labels, preds, mask=None, group=None):
+    """``loss`` (a name or a callable) of ``preds`` against ``labels``.
+    With a batch ``group`` the port's losses give this rank's share of
+    the global batch's; a callable of the user's, which takes no group,
+    gives its rows' loss over the group's size (the share of a mean over
+    examples, every rank holding as many rows)."""
+    fn = get(loss)
+    if group is None:
+        return fn(labels, preds, mask=mask)
+    if fn in _REGISTRY.values():
+        return fn(labels, preds, mask=mask, group=group)
+    return _dist.share(fn(labels, preds, mask=mask), group)
 
 
 def get(name_or_fn):

@@ -51,6 +51,7 @@ from typing import Any, Dict, List
 
 import torch
 
+from .. import _dist
 from .._device import resolve_device, tree_to
 from ..train.anomaly import gate_, grad_stats, save_for_gate
 from ..train.constraints import apply_constraints_
@@ -176,7 +177,7 @@ class MultiLayerNetwork:
 
     # -------------------------------------------------------------- forward
     def _apply_one(self, i, params, states, h, new_states, *, train, rng,
-                   fmask, lmask, stop_before_output):
+                   fmask, lmask, stop_before_output, groups=_dist.NONE):
         """Apply layer ``i`` to ``h``; returns (h, stopped)."""
         layer = self.layers[i]
         key = f"layer_{i}"
@@ -195,30 +196,34 @@ class MultiLayerNetwork:
                 h = dropout_apply(h, keep_mask(h.shape, keep, rng, h.device),
                                   keep)
             p_i = maybe_apply_weight_noise(layer, p_i, rng, train)
-        ctx = Ctx(train=train, rng=rng, mask=fmask, label_mask=lmask)
+        ctx = Ctx(train=train, rng=rng, mask=fmask, label_mask=lmask,
+                  groups=groups)
         h, new_states[key] = layer.apply(p_i, states[key], h, ctx)
         return h, False
 
     def _forward(self, params, states, x, *, train, rng, fmask=None,
-                 lmask=None, stop_before_output=False):
-        """Returns (activation, new_states)."""
+                 lmask=None, stop_before_output=False, groups=_dist.NONE):
+        """Returns (activation, new_states). ``groups``: a parallel
+        step's (``_dist.Groups``), handed to every layer's ``Ctx``."""
         if train and self.remat_segments:
             return self._forward_remat(
                 params, states, x, train=train, rng=rng, fmask=fmask,
-                lmask=lmask, stop_before_output=stop_before_output)
+                lmask=lmask, stop_before_output=stop_before_output,
+                groups=groups)
         new_states = {}
         h = x
         for i in range(len(self.layers)):
             h, stopped = self._apply_one(
                 i, params, states, h, new_states, train=train, rng=rng,
                 fmask=fmask, lmask=lmask,
-                stop_before_output=stop_before_output)
+                stop_before_output=stop_before_output, groups=groups)
             if stopped:
                 break
         return h, new_states
 
     def _forward_remat(self, params, states, x, *, train, rng, fmask=None,
-                       lmask=None, stop_before_output=False):
+                       lmask=None, stop_before_output=False,
+                       groups=_dist.NONE):
         """:meth:`_forward` with contiguous layer chunks under
         ``checkpoint_segment``: only chunk-boundary activations are kept
         for the backward. The sequential counterpart of
@@ -246,7 +251,8 @@ class MultiLayerNetwork:
                     hh, stopped = self._apply_one(
                         i, params, states, hh, ns, train=train, rng=rng,
                         fmask=fmask, lmask=lmask,
-                        stop_before_output=stop_before_output)
+                        stop_before_output=stop_before_output,
+                        groups=groups)
                     if stopped:
                         break
                 return hh, ns
@@ -292,42 +298,53 @@ class MultiLayerNetwork:
         return acts
 
     # ----------------------------------------------------------------- loss
-    def _loss(self, params, states, x, y, rng, fmask, lmask):
+    def _loss(self, params, states, x, y, rng, fmask, lmask,
+              groups=_dist.NONE):
+        """(loss, new states); under a parallel step's ``groups`` this
+        rank's share of the global batch's loss."""
         h, new_states = self._forward(params, states, x, train=True, rng=rng,
                                       fmask=fmask, lmask=lmask,
-                                      stop_before_output=True)
+                                      stop_before_output=True, groups=groups)
         i = len(self.layers) - 1
         return self._loss_tail(unwrap(self.layers[i]), i, params, new_states,
-                               h, y, lmask)
+                               h, y, lmask, groups)
 
-    def _loss_tail(self, out_layer, i, params, new_states, h, y, lmask):
+    def _loss_tail(self, out_layer, i, params, new_states, h, y, lmask,
+                   groups=_dist.NONE):
         """The output layer's loss. The forward stopped before it, so
         ``new_states`` still holds its old state, which the heads with a
-        running state (center loss, OCNN) read and replace."""
+        running state (center loss, OCNN) read and replace. ``groups``: a
+        parallel step's."""
+        group = groups.batch
         key = f"layer_{i}"
         if isinstance(out_layer, (OutputLayer, OCNNOutputLayer)) and \
                 i in self._preprocessors:
             h = self._preprocessors[i](h)
         if isinstance(out_layer, CenterLossOutputLayer):
             loss = out_layer.compute_loss(params[key], h, y, mask=lmask,
-                                          state=new_states[key])
+                                          state=new_states[key],
+                                          groups=groups)
             new_states[key] = out_layer.update_state(new_states[key],
                                                      h.detach(), y)
-        elif isinstance(out_layer, (OutputLayer, SameDiffOutputLayer)):
-            loss = out_layer.compute_loss(params[key], h, y, mask=lmask)
-        elif isinstance(out_layer, OCNNOutputLayer):
+        elif isinstance(out_layer, OutputLayer):
             loss = out_layer.compute_loss(params[key], h, y, mask=lmask,
-                                          state=new_states[key])
+                                          groups=groups)
+        elif isinstance(out_layer, SameDiffOutputLayer):
+            loss = _dist.share(out_layer.compute_loss(params[key], h, y,
+                                                      mask=lmask), group)
+        elif isinstance(out_layer, OCNNOutputLayer):
+            loss = _dist.share(out_layer.compute_loss(
+                params[key], h, y, mask=lmask, state=new_states[key]), group)
             new_states[key] = out_layer.update_state(new_states[key], h,
                                                      params[key])
         elif isinstance(out_layer, LossLayer):
-            loss = out_layer.compute_loss(h, y, mask=lmask)
+            loss = out_layer.compute_loss(h, y, mask=lmask, groups=groups)
         else:
             raise ValueError("Last layer must be an OutputLayer or LossLayer "
                              "for fit()")
-        return loss + self._reg_score(params), new_states
+        return loss + self._reg_score(params, group), new_states
 
-    def _reg_score(self, params):
+    def _reg_score(self, params, group=None):
         reg = 0.0
         for i, layer in enumerate(self.layers):
             if layer.l1 == 0.0 and layer.l2 == 0.0:
@@ -339,7 +356,7 @@ class MultiLayerNetwork:
                     reg = reg + layer.l1 * torch.sum(torch.abs(w))
                 if layer.l2:
                     reg = reg + 0.5 * layer.l2 * torch.sum(torch.square(w))
-        return reg
+        return _dist.share(reg, group)
 
     # ------------------------------------------------------------ optimizer
     def _param_labels(self):

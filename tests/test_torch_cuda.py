@@ -2805,3 +2805,216 @@ def test_phase20_samediff_layer_mln_replay_equals_eager(gen):
     rec = cs.import_samediff_layer(failed)
     assert not failed, failed
     assert rec["replay_equals_eager"]
+
+
+# ------------------------------------------------ parallel (one card)
+
+def _world_of_one():
+    """``make_mesh(dp=1)``: the NCCL world of one it starts (or the world
+    already started)."""
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    return make_mesh(dp=1)
+
+
+@pytest.mark.parametrize("act", ["relu", "identity"])
+def test_parallel_global_bn_k3_sums_on_a_world_of_one(gen, act):
+    """K3's global-batch path over the NCCL world of one: its summed
+    stats and backward sums are the kernel's own (mean, var, y, dx,
+    dgamma, dbeta equal to the local path), inside a captured graph too
+    (replay equal to the eager call bit for bit)."""
+    import torch.distributed as dist
+    mesh = _world_of_one()
+    assert dist.get_backend() == "nccl"
+    group = mesh.group("dp")
+    n, c = 4096, 256
+    x = torch.randn((n, c), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    gamma, beta, center = (torch.randn(c, generator=gen, device="cuda")
+                           for _ in range(3))
+    gy = torch.randn((n, c), generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+
+    def run(grp):
+        xs, gs, bs = (t.detach().clone().requires_grad_()
+                      for t in (x, gamma, beta))
+        y, mean, var = fo.fused_bn_act_train(xs, gs, bs, center, 1e-5, act,
+                                             grp)
+        return (y, mean, var, *torch.autograd.grad(y, (xs, gs, bs), gy))
+
+    local, glob = run(None), run(group)
+    for a, b in zip(local, glob):
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-5,
+                                   atol=1e-5)
+    # captured: the all-reduces inside the graph
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = run(group)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    # on the stream the eager call ran on: K3's arrival counters are
+    # allocated per stream, before a capture
+    with torch.cuda.graph(graph, stream=side):
+        static = run(group)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(eager, static):
+        assert torch.equal(a, b)
+
+
+def test_parallel_wrapper_replays_bn_net_on_a_world_of_one(gen):
+    """ParallelWrapper over make_mesh(dp=1) (NCCL) trains a conv + fused BN
+    graph with its steps replayed from a CUDA graph, bit for bit the
+    eager steps', K3's four kernels once each a step."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import (BatchNormalization,
+                                             ComputationGraph,
+                                             ConvolutionLayer, InputType,
+                                             NeuralNetConfiguration,
+                                             OutputLayer)
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.train import Sgd
+    mesh = _world_of_one()
+
+    def net():
+        g = (NeuralNetConfiguration.builder().seed(3).updater(Sgd(0.1))
+             .graph_builder().add_inputs("in"))
+        g.add_layer("c", ConvolutionLayer(n_out=64, kernel_size=(3, 3),
+                                          convolution_mode="same"), "in")
+        g.add_layer("bn", BatchNormalization(activation="relu", fused=True),
+                    "c")
+        g.add_layer("out", OutputLayer(n_out=10, activation="softmax",
+                                       loss="mcxent"), "bn")
+        g.set_outputs("out")
+        g.set_input_types(InputType.convolutional(16, 16, 8))
+        return ComputationGraph(g.build()).init()
+
+    x = torch.randn((32, 16, 16, 8), generator=gen, device="cuda")
+    y = torch.eye(10, device="cuda")[torch.randint(
+        0, 10, (32,), generator=gen, device="cuda")]
+    ds = DataSet(x, y)
+    a, b = net(), net()
+    pa_, pb_ = ParallelWrapper(a, mesh), ParallelWrapper(b, mesh)
+    assert pa_.graphs.startswith("captured")
+    fo.reset_launches()
+    losses_a = [pa_.fit([ds]) for _ in range(4)]
+    assert pa_._step.calls["replay"] == 2
+    assert (fo.LAUNCHES, fo.LAUNCHES_STATS, fo.LAUNCHES_BWD_REDUCE,
+            fo.LAUNCHES_BWD_DX) == (2, 2, 2, 2)   # eager step + capture
+    with disable_graphs():
+        losses_b = [pb_.fit([ds]) for _ in range(4)]
+    assert losses_a == losses_b
+    from deeplearning4j_tpu_torch.nn._compiled import tensors
+    for s, t in zip(tensors((a.params, a.states)),
+                    tensors((b.params, b.states))):
+        assert torch.equal(s, t)
+
+
+@pytest.mark.parametrize("t,use_flash", [(2048, True), (512, "auto"),
+                                         (256, False)])
+def test_parallel_ring_hop_merge_on_k1(gen, t, use_flash):
+    """ring_hop over two chunks of a causal sequence (K1 through its lse,
+    merged by logaddexp) against one K1: output, lse and the q/k/v
+    gradients of a loss that reads both (a nonzero lse cotangent into dQ
+    and dK/dV). K1 runs on CUDA tensors at any chunk length and
+    ``use_flash``."""
+    from deeplearning4j_tpu_torch.parallel.ring_attention import ring_hop
+    b, h, d = 2, 4, 64
+    q, k, v, go = (torch.randn((b, t, h, d), generator=gen, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    gl = torch.randn((b, h, t), generator=gen, device="cuda")
+    q, k, v = (a.requires_grad_() for a in (q, k, v))
+    c = t // 2
+    fa.reset_launches()
+    parts = []
+    for i in range(2):
+        acc = None
+        for j in range(i, -1, -1):
+            acc = ring_hop(acc, q[:, i * c:(i + 1) * c],
+                           k[:, j * c:(j + 1) * c], v[:, j * c:(j + 1) * c],
+                           "diag" if i == j else "full",
+                           use_flash=use_flash)
+        parts.append(acc)
+    out = torch.cat([p[0] for p in parts], 1)
+    lse = torch.cat([p[1] for p in parts], 2)
+    grads = torch.autograd.grad((out * go.float()).sum() + (lse * gl).sum(),
+                                (q, k, v))
+    assert (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == \
+        (3, 3, 3)
+    ref, ref_lse = fa._dispatch(q, k, v, None, True, "bthd")
+    ref_grads = torch.autograd.grad(
+        (ref.float() * go.float()).sum() + (ref_lse * gl).sum(), (q, k, v))
+    assert (out - ref.float()).abs().max().item() <= ATOL[torch.bfloat16]
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    for a, r in zip(grads, ref_grads):
+        rel = ((a.float() - r.float()).norm() / r.float().norm()).item()
+        assert rel <= 1e-2, rel
+
+
+def test_parallel_offset_causal_attention_runs_k1(gen):
+    """A sequence-split block's attention over the gathered keys (the sp
+    path without the ring): block 2 of 4 at T 256 a block, as the ring's
+    hops over blocks 2, 1 and 0 on K1, equals those rows of one causal K1
+    over the whole sequence, output and q/k/v grads."""
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    b, t, h, d, n, idx = 2, 256, 4, 64, 4, 2
+    q, k, v, go = (torch.randn((b, n * t, h, d), generator=gen,
+                               device="cuda", dtype=torch.bfloat16)
+                   for _ in range(4))
+    q, k, v = (a.requires_grad_() for a in (q, k, v))
+    rows = slice(idx * t, (idx + 1) * t)
+    fa.reset_launches()
+    out = tfm._offset_causal_attention(q[:, rows], k, v, idx)
+    grads = torch.autograd.grad(out, (q, k, v), go[:, rows])
+    assert (fa.LAUNCHES, fa.LAUNCHES_BWD_DQ, fa.LAUNCHES_BWD_DKV) == \
+        (idx + 1,) * 3
+    ref = fa.flash_attention_ntc(q, k, v, causal=True)[:, rows]
+    ref_grads = torch.autograd.grad(ref, (q, k, v), go[:, rows])
+    assert (out.float() - ref.float()).abs().max().item() \
+        <= ATOL[torch.bfloat16]
+    for a, r in zip(grads, ref_grads):
+        rel = ((a.float() - r.float()).norm() / r.float().norm()).item()
+        assert rel <= 1e-2, rel
+
+
+def test_parallel_ring_inner_without_a_group_runs_k1(gen):
+    """ring_attention_inner with no sp group active: one K1 over the whole
+    sequence, whatever ``use_flash``."""
+    from deeplearning4j_tpu_torch.parallel.ring_attention import \
+        ring_attention_inner
+    q, k, v = (torch.randn((2, 128, 4, 64), generator=gen, device="cuda",
+                           dtype=torch.bfloat16) for _ in range(3))
+    fa.reset_launches()
+    out = ring_attention_inner(q, k, v, causal=True, use_flash=False)
+    assert fa.LAUNCHES == 1
+    assert torch.equal(out, fa.flash_attention_ntc(q, k, v, causal=True))
+
+
+def test_parallel_moe_train_step_replay_equals_eager(gen):
+    """The MoE LM's compiled step (index dispatch, flash attention) on the
+    card: replayed from a CUDA graph, bit for bit its eager steps."""
+    from deeplearning4j_tpu_torch import disable_graphs
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg = tfm.TransformerConfig(vocab_size=512, d_model=128, n_heads=2,
+                                n_layers=2, d_ff=256, max_seq=256,
+                                n_experts=4, use_flash_attention=True)
+    init = tfm.init_params(cfg, torch.Generator().manual_seed(0))
+    ids = torch.randint(0, 512, (4, 256), generator=gen, device="cuda")
+    tgt = torch.randint(0, 512, (4, 256), generator=gen, device="cuda")
+    runs = []
+    for graphs in (True, False):
+        params = {kk: (vv.clone() if torch.is_tensor(vv) else
+                       {n: w.clone() for n, w in vv.items()})
+                  for kk, vv in init.items()}
+        opt = torch.optim.AdamW(tfm.param_leaves(params), lr=1e-3,
+                                capturable=True, fused=True)
+        step = tfm.make_train_step(cfg, opt)
+        with contextlib.nullcontext() if graphs else disable_graphs():
+            losses = [step(params, ids, tgt).item() for _ in range(4)]
+        if graphs:
+            assert step.compiled.calls["replay"] == 2
+        runs.append((losses, [p.detach().clone()
+                              for p in tfm.param_leaves(params)]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

@@ -4,8 +4,9 @@ CPU, from the same initial weights and data: the per-epoch held-out
 scores agree at 1e-5 (f32), the termination reason and epoch are the
 reference's, and the restored best model holds the best epoch's params
 bit for bit and scores the recorded best score. The two parallel cases
-(``:101``, ``:115``) wait for ``ParallelWrapper`` (ROADMAP item 6): the
-port's ``EarlyStoppingParallelTrainer`` raises and says so.
+(``:101``, ``:115``) run the port's ``EarlyStoppingParallelTrainer``
+around ``ParallelWrapper`` over two gloo ranks spawned for the file
+(``torch_parallel_ranks.RankPool``).
 """
 
 from __future__ import annotations
@@ -166,6 +167,52 @@ def test_best_model_holds_the_best_epochs_params():
 
 
 def test_parallel_trainer_waits_for_parallel_wrapper():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    """The parallel trainer takes a trainer with ``.net`` and ``.fit``
+    (``ParallelWrapper``, ``ParameterAveragingTrainer``); anything else
+    is refused, as in the reference."""
+    with pytest.raises(TypeError, match="ParallelWrapper"):
         tes.EarlyStoppingParallelTrainer(tes.EarlyStoppingConfiguration(),
                                          object(), _iters()[0])
+
+
+@pytest.fixture(scope="module")
+def pool():
+    from torch_parallel_ranks import RankPool
+    p = RankPool(2)
+    yield p
+    p.close()
+
+
+def test_early_stopping_parallel_trainer(pool):
+    """``tests/test_early_stopping.py:101`` and ``:115``: the parallel
+    trainer around ``ParallelWrapper`` over dp2 (gloo, two spawned ranks)
+    of an MLN and of a ComputationGraph runs its epochs, and each epoch's
+    held-out score is the JAX single-device trainer's (dp equals one
+    device) at 1e-5; the MLN's best score beats its first."""
+    from torch_parallel_ranks import build
+    import deeplearning4j_tpu.parallel as jpar
+    pkg = (jnn, jtrain, jpar, False)
+    nets = {name: build(pkg, name) for name in ("es_mlp", "es_cg")}
+    epochs = {"es_mlp": 6, "es_cg": 5}
+    xs = [X[i * 24:(i + 1) * 24] for i in range(4)]
+    ys = [Y[i * 24:(i + 1) * 24] for i in range(4)]
+    payload = {name: {"params": jax.tree_util.tree_map(np.asarray,
+                                                       n.params),
+                      "states": jax.tree_util.tree_map(np.asarray,
+                                                       n.states)}
+               for name, n in nets.items()}
+    r = pool.run("early_stopping_parallel",
+                 dict(payload, xs=xs, ys=ys, epochs=epochs))
+    for name, net in nets.items():
+        j = jes.EarlyStoppingTrainer(jes.EarlyStoppingConfiguration(
+            epoch_termination_conditions=[
+                jes.MaxEpochsTerminationCondition(epochs[name])],
+            score_calculator=jes.DataSetLossCalculator(_iters()[1])),
+            net, _iters()[1]).fit()
+        want = [j.score_vs_epoch[k] for k in sorted(j.score_vs_epoch)]
+        for x in r:
+            assert x[name]["epochs"] == epochs[name] == j.total_epochs
+            np.testing.assert_allclose(x[name]["scores"], want, atol=ATOL)
+            assert np.isfinite(x[name]["best"])
+    assert r[0]["es_mlp"]["best"] < r[0]["es_mlp"]["scores"][0]
+    assert all(x["type"] for x in r)

@@ -83,7 +83,10 @@ def test_port_has_modules_to_check():
             "zoo/nasnet.py", "zoo/unet.py",
             "autodiff/onnx_import.py", "import_/__init__.py",
             "import_/_hdf5.py", "import_/keras.py",
-            "serde/upstream_dl4j.py", "nn/layers/samediff_layer.py"} <= names
+            "serde/upstream_dl4j.py", "nn/layers/samediff_layer.py",
+            "_dist.py", "parallel/mesh.py", "parallel/tp.py",
+            "parallel/param_avg.py", "parallel/ring_attention.py",
+            "parallel/pipeline.py", "parallel/pipeline_generic.py"} <= names
 
 
 def test_importing_the_port_loads_no_jax():

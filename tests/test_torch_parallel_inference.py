@@ -10,7 +10,9 @@ flushes, batches, the occupancy gauge, queue-wait observations) are
 equal. Then the port's own contracts: the served snapshot and
 ``refresh``, the capture rule (only a caller's thread may capture; the
 deadline timer's flush calls its step with ``capture=False``), and a
-clean interpreter exit with an armed timer and a live scheduler.
+clean interpreter exit with an armed timer and a live scheduler. The
+mesh half runs over four gloo ranks spawned for the file
+(``torch_parallel_ranks.RankPool``).
 """
 
 from __future__ import annotations
@@ -338,12 +340,50 @@ def test_multi_input_multi_output_graph():
 # ------------------------------------------------- the port's contracts
 
 def test_mesh_and_missing_card_raise(mlp):
+    """Without a card a mesh on it (``make_mesh``'s default device) and
+    a ParallelInference on it both raise; nothing falls back to the CPU.
+    Serving over a CPU mesh: ``test_parallel_inference_over_a_mesh``."""
     _, tnet = mlp
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        TPI(tnet, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
+        from deeplearning4j_tpu_torch.parallel import make_mesh
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh(dp=1)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             TPI(tnet)
+
+
+@pytest.fixture(scope="module")
+def pool():
+    from torch_parallel_ranks import RankPool
+    p = RankPool(4)
+    yield p
+    p.close()
+
+
+def test_parallel_inference_over_a_mesh(pool):
+    """The mesh half (reference ``parallel/wrapper.py:349-559``): over a
+    dp4 mesh of gloo ranks a 10-row batch pads to 12, each rank serves
+    its rows and every rank gets all of them back; over dp2 × tp2 the tp
+    layers split their products. Served rows equal the JAX net's output;
+    futures and ``flush`` parts too. A deadline timer is refused over
+    several ranks."""
+    from torch_parallel_ranks import build
+    import deeplearning4j_tpu.parallel as jpar
+    net = build((jnn, jtrain, jpar, False), "tp_mlp", jnn.DenseLayer,
+                jnn.DenseLayer)
+    x = np.random.default_rng(0).random((10, 32), np.float32)
+    want = np.asarray(net.output(jnp.asarray(x)))
+    r = pool.run("pi_mesh", {
+        "params": jax.tree_util.tree_map(np.asarray, net.params),
+        "states": jax.tree_util.tree_map(np.asarray, net.states), "x": x})
+    for got in r:
+        for key in ("{'dp': 4}", "{'dp': 2, 'tp': 2}"):
+            np.testing.assert_allclose(got[key], want, atol=ATOL)
+        np.testing.assert_allclose(np.concatenate(got["futures"]), want[:7],
+                                   atol=ATOL)
+        np.testing.assert_allclose(np.concatenate(got["flushed"]),
+                                   want[:7], atol=ATOL)
+        assert got["timer"]
 
 
 def test_a_failed_flush_fails_every_future():

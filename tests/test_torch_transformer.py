@@ -253,9 +253,11 @@ def test_flash_engages_gate():
         cfg, use_flash_attention=True), 8, "cpu")
     assert not ttfm.flash_engages(dataclasses.replace(
         cfg, use_flash_attention=False), 4096, "cuda")
-    with pytest.raises(NotImplementedError, match="ring"):
-        ttfm.flash_engages(dataclasses.replace(cfg, use_ring_attention=True),
-                           8, "cpu")
+    # ring wins over flash (the reference's gate): the ring runs K1 per hop
+    ring = dataclasses.replace(cfg, use_ring_attention=True)
+    assert not ttfm.flash_engages(ring, 4096, "cuda")
+    assert not ttfm.flash_engages(dataclasses.replace(
+        ring, use_flash_attention=True), 8, "cpu")
 
 
 def test_draft_params_share_prefix(shared):
