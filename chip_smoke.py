@@ -24,6 +24,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py --zoo-only       # build + phase 19 only
     python3 chip_smoke.py --import-only    # build + phase 20 only
     python3 chip_smoke.py --parallel-only  # build + phases 7 and 21 only
+    python3 chip_smoke.py --fleet-only     # build + phase 22 only
     python3 chip_smoke.py --prefetch-times ROOT  # only time LeNet's fit
                                              # over host and device
                                              # iterators and a host list
@@ -437,6 +438,40 @@ Phases, each fatal on failure:
    and ``ring_hop`` over 4 chunks of a B8 H8 T4096 D64 bf16 causal
    sequence against one K1 (output, and the q/k/v grads through the
    merges), K1 and its backward counted;
+22. the socket half of ``parallel/`` and the serving fleet (TF32 off):
+   (a) the 120M LM of bench.py's fleet row (bf16, max_seq 256) behind a
+   ``FleetRouter``, 4 slots a replica, a paged pool with the prefix
+   cache: R (requests a second of one warm replica in a closed loop of
+   prompts of 8/16/32 tokens and 6-8 new), t0 (warm single-request TTFT)
+   and s0 (steady sweep) measured first; then one ``run_episode`` (base
+   0.3 R, a burst of 4 R from 1 to 2 s, 30 s, 8 sessions, seed 1, SLO 5
+   t0 / 5 s0 times the 3 replicas one host thread steps, in 2 s windows,
+   the bench's autoscaler, the busiest replica killed at 3 s; if the
+   trace saw no scale-down, the idle router is stepped on for at most
+   10 s): every future resolved, a scale-up and a scale-down, the killed
+   replica the only one dead, a re-prefill and no ghost, every lease
+   done, every live page table whole, K2 counted from the captures, no
+   compile after warm on the warm replica; goodput and p99 TTFT/ITL from the port's own replay of
+   the dump, decode tok/s, the replica range, compiles a replica, each
+   replica's first TTFT apart, peak GiB; the same LM in f32 on 2
+   replicas, the busiest killed mid-decode: it alone dead, tokens equal
+   to ``engine.generate``'s; (b) ``SparkComputationGraph`` of ResNet-50
+   224² bf16 on 2 worker threads (each its own clone's compiled step),
+   4 shards of B32 × 2 epochs, averaging every step: a worker killed
+   after 1 step and respawned (rejoins, leases all done, K3's four
+   kernels 53 times a non-replayed worker step, every applied mean the
+   hub's bit for bit, a finite loss), then the master killed after
+   round 2 and resumed by a second ``fit`` (only the unfinished items
+   re-run, the rounds continue); host seconds a round by part and the
+   bytes moved, the checkpoint's seconds, a solo step's device ms; (c)
+   the threshold codec: a ``GradientExchangeServer`` on TCP loopback and
+   2 spawned ranks (``--codec-rank``) on the card, each the char-RNN
+   (B128 of the B256 batch, T60, H256, bf16, K4) through
+   ``gradient_and_score`` and ``DistributedGradientWorker.step(lr·grad)``
+   for 20 steps: the ranks' params bit-identical after every step, K4
+   counted, the loss falling; host ms a step by part beside the device
+   ms of ``gradient_and_score``, the encoded share, the threshold's
+   path;
 5. a ``kernels`` JSON line (every hand-written kernel: its route,
    launches on each main path, largest error, times and bound at its
    path shape), then the result line (printed last).
@@ -458,6 +493,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -8682,6 +8718,988 @@ def parallel_phase(fa, pa, fo, k3_checked):
     return paths
 
 
+# ---------------------------------------------------------------- phase 22
+
+# (a) the fleet: bench.py:927-940's 120M LM at max_seq 256 (its fleet row
+# serves it so), 4 slots a replica (bench.py:2170 "inference_fleet": (4,
+# 6)), a paged pool with the prefix cache, the row's prompt lengths
+FLEET_LM = dict(vocab_size=32000, d_model=512, n_heads=8, n_layers=8,
+                d_ff=2048, max_seq=256)
+FLEET_SLOTS = 4
+FLEET_SCHED = {"page_len": 16, "prefix_cache": True}
+FLEET_PROMPT_LENS = (8, 16, 32)
+FLEET_NEW = (6, 8)
+# the warm waves also reach the chunk bucket past 32 tokens, which a
+# re-prefilled context (prompt + generated) takes
+FLEET_WARM_LENS = (8, 16, 32, 40)
+# requests timed for the service rate R: about 1-2 s of one replica's
+# work, through the planes the episode's replicas run (the SLO tracker,
+# the sessions' retention); a 48-request loop (0.2-0.4 s) read R 110
+# and 239 requests/s in two runs of one tree on the H100
+FLEET_CLOSED_LOOP = 192
+FLEET_TTFT_RUNS = 5             # single requests for t0, the median
+# the episode: base 0.3 R, a burst of 4 R from 1.0 to 2.0 s, 30 s, 8
+# sessions, seed 1, the busiest replica killed at 3.0 s; SLO 5 t0 / 5 s0
+# times the replicas one host thread may step (its latency floor: a
+# token waits for every live replica's step, an admission for a whole
+# round of them; at 5 t0 / 5 s0 alone the calm tail with 3 replicas kept
+# burning at 1-20 in one H100 run of two, and never scaled down).
+# One host thread steps every replica, and the sessions pin traffic to
+# the replicas that saw them first, so the fleet sustains about 0.7 R
+# however many replicas live (H100 runs: R 209-239, the episode's fleet
+# 150-170 requests/s): a 3 s burst leaves ~10 R·s of backlog, which
+# drains at ~0.4 R past a 20 s trace and leaves no calm for a
+# scale-down; a 1 s burst drains by ~10 s, and 30 s leave ~20 s of calm
+# under the base rate. Should the trace still end with no scale-down,
+# the idle router is stepped on (``FLEET_TAIL_S`` at most) until the
+# autoscaler retires a replica or the fleet is at its minimum: a burn
+# goes stale after one quiet window
+FLEET_BASE, FLEET_BURST = 0.3, 4.0
+FLEET_BURST_S = (1.0, 2.0)
+FLEET_DURATION_S = 30.0
+FLEET_TAIL_S = 10.0
+FLEET_SESSIONS = 8
+FLEET_KILL_S = 3.0
+FLEET_SLO_X = 5.0
+FLEET_SLO_WINDOW_S = 2.0
+FLEET_AUTOSCALER = dict(min_replicas=1, max_replicas=3, high_burn=1.0,
+                        low_burn=0.5, high_queue=3.0, patience=2,
+                        cooldown=3)
+FLEET_MAX_WALL_S = 120.0
+FLEET_F32_REQUESTS = 8
+FLEET_F32_NEW = 8
+FLEET_BF16_ORACLE = 8           # re-prefilled bf16 requests compared
+# (b) the scale-out job: ResNet-50 at phase 8's 224² in bf16, 2 worker
+# threads, 4 shards of B32, averaging every step
+SCALEOUT_SHARDS, SCALEOUT_BATCH, SCALEOUT_EPOCHS = 4, 32, 2
+SCALEOUT_WORKERS = 2
+SCALEOUT_TIMEOUT_S = 120.0
+SCALEOUT_BACKOFF_S = 0.1        # the workers' first retry after the master
+# dies after round 2: a lease's DONE reaches the hub after its round's
+# mean, so round 1's stamp holds no finished item and round 2's holds
+# round 1's — the resume then skips them
+SCALEOUT_MASTER_DIES = 2
+# (c) the codec: 2 subprocess ranks on the card, each the char-RNN of
+# phase 10 on its B128 half of the B256 batch, 20 steps of lr·grad
+CODEC_RANKS, CODEC_STEPS, CODEC_LR = 2, 20, 1.0
+CODEC_RANK_TIMEOUT_S = 300
+
+
+def fleet_engine(dtype, device=None):
+    """The fleet's LM (``FLEET_LM``) from seed 0, in ``dtype``, served by
+    one engine."""
+    from deeplearning4j_tpu_torch.serving import GenerationEngine
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg = tfm.TransformerConfig(**FLEET_LM, dtype=dtype, remat=False)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                             device=device)
+    return GenerationEngine(cfg, params, device=device)
+
+
+def fleet_prompts(vocab, lens, n, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, vocab, int(lens[i % len(lens)])).astype(np.int32)
+            for i in range(n)]
+
+
+class ReplicaCompiles:
+    """The compiles (a new signature's eager call and its capture; a
+    direct call's new signature on the host) of an engine's entry points,
+    by the replica whose pool or generator the signature binds
+    (``by_rid``: rid → {kind: n}); ``after_warm`` counts those after
+    :meth:`mark`. Read through the sentinels' ``hooks``; :meth:`close`
+    takes the hook off."""
+
+    def __init__(self, engine):
+        self.router, self.by_rid, self.after_warm = None, {}, {}
+        self._warm = False
+        self._seen = set()
+        self._fns = [s._fn for s in engine.sentinels.values()]
+        for fn in self._fns:
+            fn.hooks.append(self._on)
+
+    def close(self):
+        for fn in self._fns:
+            fn.hooks.remove(self._on)
+
+    def mark(self):
+        self._warm = True
+
+    def _on(self, kind, key):
+        if kind == "replay" or self.router is None:
+            return
+        if kind == "direct":
+            if key in self._seen:
+                return
+            self._seen.add(key)
+        ids = {leaf[0] for part in key if isinstance(part, tuple) and part
+               and part[0] == "bound" for leaf in part[1:]}
+        if not ids:
+            return
+        # a scheduler warms its page copy and samplers while it is made,
+        # before the router lists its replica: rids run 0, 1, ... and a
+        # replica stays listed dead or retired, so it is the next rid
+        owner = len(self.router.replicas)
+        for rid, rep in list(self.router.replicas.items()):
+            s = rep.scheduler
+            if s.cache is not None and ids & (
+                    {id(t) for t in s.cache.values()
+                     if isinstance(t, torch.Tensor)} | {id(s._gen)}):
+                owner = rid
+                break
+        for d in (self.by_rid, *((self.after_warm,) if self._warm
+                                 else ())):
+            c = d.setdefault(owner, {})
+            c[kind] = c.get(kind, 0) + 1
+
+
+def fleet_warm(router, rid, vocab, seed, waves=2):
+    """``waves`` waves of the warm mix (every prompt length, the session
+    path) straight through replica ``rid``'s scheduler: on the card the
+    first wave runs each signature eagerly, the second captures it."""
+    sched = router.replicas[rid].scheduler
+    for w in range(waves):
+        prompts = fleet_prompts(vocab, FLEET_WARM_LENS,
+                                len(FLEET_WARM_LENS), seed + w)
+        futs = [sched.submit(p, max(FLEET_NEW), session_id=f"warm{i}")
+                for i, p in enumerate(prompts)]
+        sched.run_until_idle()
+        for f in futs:
+            f.result(timeout=60)
+    for i in range(len(FLEET_WARM_LENS)):
+        sched.drop_session(f"warm{i}")
+
+
+def fleet_service(engine):
+    """The warm service of one replica: R, the requests a second it
+    completes in a closed loop of the episode's mix (``FLEET_SLOTS`` in
+    flight, the episode's sessions, an SLO tracker as the episode's
+    replicas keep); s0, the host seconds of its steady decode sweep; t0,
+    the median TTFT of a single request on the idle replica."""
+    from deeplearning4j_tpu_torch.serving import FleetRouter, SLOConfig
+    vocab = engine.cfg.vocab_size
+    router = FleetRouter(engine, n_replicas=1, n_slots=FLEET_SLOTS,
+                         slo=SLOConfig(window_s=FLEET_SLO_WINDOW_S),
+                         scheduler_kwargs=FLEET_SCHED)
+    fleet_warm(router, 0, vocab, 100)
+    sched = router.replicas[0].scheduler
+    rng = np.random.default_rng(101)
+    prompts = fleet_prompts(vocab, FLEET_PROMPT_LENS, FLEET_CLOSED_LOOP,
+                            102)
+    st0 = dict(sched.stats)
+    inflight, done, nxt = [], 0, 0
+    t0 = time.perf_counter()
+    while done < FLEET_CLOSED_LOOP:
+        while len(inflight) < FLEET_SLOTS and nxt < len(prompts):
+            inflight.append(router.submit(
+                prompts[nxt], int(rng.choice(FLEET_NEW)),
+                session_id=f"s{nxt % FLEET_SESSIONS}"))
+            nxt += 1
+        router.step()
+        for f in [f for f in inflight if f.done()]:
+            f.result(timeout=60)
+            inflight.remove(f)
+            done += 1
+        if time.perf_counter() - t0 > 60:
+            raise SystemExit("fleet: the closed loop did not finish")
+    wall = time.perf_counter() - t0
+    st = {k: sched.stats[k] - st0[k] for k in ("decode_s", "decode_steps",
+                                                "decode_tokens")}
+    ttfts = []
+    for p in fleet_prompts(vocab, (16,), FLEET_TTFT_RUNS, 103):
+        f = router.submit(p, 2)
+        router.run_until_idle()
+        ttfts.append(f.result(timeout=60).ttft_s)
+    router.replicas[0].release()
+    return {"R_rps": FLEET_CLOSED_LOOP / wall,
+            "s0_s": st["decode_s"] / st["decode_steps"],
+            "t0_s": float(np.median(ttfts)),
+            "closed_loop_decode_tok_per_s": st["decode_tokens"]
+            / st["decode_s"], "closed_loop_wall_s": wall}
+
+
+def fleet_replay(path, slo):
+    """The dump replayed through the port's own SLO tracker (window: the
+    whole dump), as ``scripts/slo_report.py --fleet`` replays it: the
+    FLEET row's report, by replica too, and the replica range."""
+    from deeplearning4j_tpu_torch.obs import (SLOConfig, SLOTracker,
+                                              load_flight_records)
+    recs = load_flight_records(path)
+    offline = SLOConfig(ttft_s=slo.ttft_s, itl_s=slo.itl_s,
+                        quantile=slo.quantile, window_s=math.inf,
+                        window_max=1 << 20)
+    latest = {}
+    for rec in recs:
+        if rec.get("kind") == "reqtrace":
+            latest[(str(rec.get("replica")), rec.get("request_id"),
+                    rec.get("t0_epoch"))] = rec
+    fleet = SLOTracker(offline, replica="FLEET", registry=False)
+    per = {}
+    for (replica, _, _), rec in sorted(latest.items(),
+                                       key=lambda kv: kv[0][1] or 0):
+        tr = per.setdefault(replica, SLOTracker(offline, replica=replica,
+                                                registry=False))
+        for t in (tr, fleet):
+            t.observe_summary(rec.get("summary") or {},
+                              ts=rec.get("t0_epoch"))
+    live = [r["replicas_live"] for r in recs if r.get("kind") == "snapshot"
+            and r.get("replica") == "fleet"
+            and r.get("replicas_live") is not None]
+    return fleet.report(), {k: t.report() for k, t in per.items()}, \
+        (min(live), max(live)) if live else None
+
+
+def fleet_first_ttft(router):
+    """Each replica's first request's TTFT and the rest's median, from
+    its flight recorder (dead and retired replicas keep theirs)."""
+    out = {}
+    for rid, rep in sorted(router.replicas.items()):
+        traces = sorted(rep.scheduler.flight_recorder.requests(),
+                        key=lambda t: t.t0_perf)
+        ttft = [t.ttft_s() for t in traces if t.ttft_s() is not None]
+        out[rep.replica] = {
+            "status": rep.status, "requests": len(ttft),
+            "first_ttft_s": ttft[0] if ttft else None,
+            "rest_ttft_median_s": float(np.median(ttft[1:]))
+            if len(ttft) > 1 else None}
+    return out
+
+
+def fleet_bf16_episode(fa, pa, engine, launches, compiles, svc, tmp):
+    """Phase 22(a), the bf16 episode (see the module docstring)."""
+    from deeplearning4j_tpu_torch.serving import (AutoscalerConfig,
+                                                  FleetRouter, SLOConfig,
+                                                  TrafficConfig,
+                                                  poisson_arrivals,
+                                                  run_episode)
+    vocab = engine.cfg.vocab_size
+    rate, t0, s0 = svc["R_rps"], svc["t0_s"], svc["s0_s"]
+    x = FLEET_SLO_X * FLEET_AUTOSCALER["max_replicas"]
+    slo = SLOConfig(ttft_s=x * t0, itl_s=x * s0, window_s=FLEET_SLO_WINDOW_S)
+    router = FleetRouter(engine, n_replicas=1, n_slots=FLEET_SLOTS, slo=slo,
+                         autoscaler=AutoscalerConfig(**FLEET_AUTOSCALER),
+                         autoscale_every=4, scheduler_kwargs=FLEET_SCHED)
+    compiles.router = router
+    fleet_warm(router, 0, vocab, 200)
+    engine.mark_warm()
+    compiles.mark()
+    tc = TrafficConfig(rate_rps=FLEET_BASE * rate,
+                       duration_s=FLEET_DURATION_S,
+                       prompt_lens=FLEET_PROMPT_LENS,
+                       max_new_tokens=FLEET_NEW, vocab=vocab,
+                       burst_start_s=FLEET_BURST_S[0],
+                       burst_end_s=FLEET_BURST_S[1],
+                       burst_mult=FLEET_BURST / FLEET_BASE,
+                       sessions=FLEET_SESSIONS, seed=1)
+    dump = os.path.join(tmp, "fleet_episode.jsonl")
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    with warnings.catch_warnings():
+        # a replica spawned under traffic compiles its own signatures
+        # (the engine counts them as retraces after mark_warm)
+        warnings.simplefilter("ignore", RuntimeWarning)
+        rep = run_episode(router, tc, kill_at_s=FLEET_KILL_S,
+                          max_wall_s=FLEET_MAX_WALL_S)
+        downs_in_trace = router.scale_downs
+        tail = fleet_calm_tail(router)
+    compiles.router = None
+    counts = dict(launches.total)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if engine.device.type == "cuda" else None
+    router.dump(dump)
+    fleet_rep, per_rep, rng_ = fleet_replay(dump, slo)
+    dead = sorted(r.rid for r in router.replicas.values()
+                  if r.status == "dead")
+    rs = [f.result(timeout=60) for f in rep.futures
+          if f.done() and f.exception() is None]
+    dec_tok = sum(r.scheduler.stats["decode_tokens"]
+                  for r in router.replicas.values())
+    dec_s = sum(r.scheduler.stats["decode_s"]
+                for r in router.replicas.values())
+    moved = [(f, a) for f, a in zip(rs, poisson_arrivals(tc))
+             if f.reprefills]
+    match, total = 0, 0
+    for res, a in moved[:FLEET_BF16_ORACLE]:
+        want = np.asarray(engine.generate(a.prompt, a.max_new_tokens)
+                          ).reshape(-1)
+        n = min(len(want), len(res.tokens))
+        match += int((want[:n] == res.tokens[:n]).sum())
+        total += len(want)
+    live = [r for r in router.replicas.values() if r.status == "live"]
+    out = {
+        "submitted": rep.submitted, "completed": rep.completed,
+        "failed": rep.failed, "wall_s": rep.wall_s,
+        "killed": rep.killed_rid, "dead": dead,
+        "scale_ups": router.scale_ups,
+        "scale_downs": router.scale_downs,
+        "scale_downs_in_trace": downs_in_trace, "calm_tail_s": tail,
+        "reprefills": router.reprefills,
+        "ghost_results": router.ghost_results,
+        "leases": router.leases.counts(),
+        "replica_range": rng_, "replicas": len(router.replicas),
+        "fleet_goodput": fleet_rep["goodput"],
+        "ttft_p99_s": fleet_rep["ttft"]["p99_s"],
+        "itl_p99_s": fleet_rep["itl"]["p99_s"],
+        "slo": {"ttft_s": slo.ttft_s, "itl_s": slo.itl_s,
+                "window_s": slo.window_s},
+        "decode_tok_per_s": dec_tok / dec_s if dec_s else None,
+        "peak_gib": peak,
+        "compiles_by_replica": compiles.by_rid,
+        "compiles_after_warm": compiles.after_warm,
+        "engine_retraces_after_warm": sum(
+            r["retraces_after_warm"]
+            for r in engine.compile_report().values()),
+        "first_ttft_by_replica": fleet_first_ttft(router),
+        "bf16_reprefilled_token_match": (match / total) if total else None,
+        "bf16_reprefilled_compared": len(moved[:FLEET_BF16_ORACLE]),
+        "launches": counts,
+        "per_replica_goodput": {k: v["goodput"] for k, v in
+                                per_rep.items()},
+        "timeline": fleet_timeline(router)}
+    failed = []
+    if rep.failed or rep.completed != rep.submitted:
+        failed.append("a future failed or never resolved")
+    if router.scale_ups < 1 or router.scale_downs < 1:
+        failed.append("no scale-up or no scale-down")
+    # a replica whose step raised is killed by the router and its
+    # requests re-prefilled: only the injected kill may be a death
+    if rep.killed_rid is None or dead != [rep.killed_rid]:
+        failed.append(f"replicas dead {dead}, not only the killed "
+                      f"{rep.killed_rid}")
+    if router.reprefills < 1 or router.ghost_results:
+        failed.append("no re-prefill, or a ghost result")
+    if not router.leases.all_done():
+        failed.append("a lease is not done")
+    if not all(r.scheduler.check_pages() for r in live):
+        failed.append("a live replica's page table is broken")
+    if counts.get("paged_attention", 0) < 1 and \
+            engine.device.type == "cuda":
+        failed.append("K2 was not launched")
+    if compiles.after_warm.get(0):
+        failed.append(f"the warm replica compiled after warm: "
+                      f"{compiles.after_warm[0]}")
+    compiles.close()
+    for r in live:
+        r.release()
+    return out, failed
+
+
+def fleet_calm_tail(router):
+    """Steps the idle router after the trace, if the trace saw no
+    scale-down, until the autoscaler retires a replica or the fleet is at
+    its minimum (``FLEET_TAIL_S`` at most). Returns the tail's seconds."""
+    t0 = time.perf_counter()
+    low = router.autoscaler.config.min_replicas
+    while router.scale_downs < 1 and router.n_live() > low and \
+            time.perf_counter() - t0 < FLEET_TAIL_S:
+        if not router.step():
+            time.sleep(0.001)
+    return time.perf_counter() - t0
+
+
+def fleet_timeline(router, every_s=1.0):
+    """(s since the first snapshot, live replicas, max burn, queue a
+    replica) from the fleet recorder's periodic snapshots, about one a
+    second, and every scale event."""
+    snaps = [s for s in router.recorder.snapshots() if "ts" in s]
+    if not snaps:
+        return []
+    t0, last, out = snaps[0]["ts"], -every_s, []
+    for s in snaps:
+        t = s["ts"] - t0
+        if s.get("scale_event") or (s.get("step") is not None
+                                    and t - last >= every_s):
+            out.append([round(t, 2), s.get("replicas_live"), s.get("burn"),
+                        s.get("queue_per_replica"),
+                        s.get("scale_event") or ""])
+            if not s.get("scale_event"):
+                last = t
+    return out
+
+
+def fleet_f32_kill(device=None):
+    """Phase 22(a), f32: two replicas of the f32 LM; the busiest killed
+    mid-decode; every request's tokens equal ``engine.generate``'s."""
+    from deeplearning4j_tpu_torch.serving import FleetRouter
+    engine = fleet_engine(torch.float32, device=device)
+    vocab = engine.cfg.vocab_size
+    router = FleetRouter(engine, n_replicas=2, n_slots=FLEET_SLOTS,
+                         scheduler_kwargs=FLEET_SCHED)
+    prompts = fleet_prompts(vocab, FLEET_PROMPT_LENS, FLEET_F32_REQUESTS, 300)
+    futs = [router.submit(p, FLEET_F32_NEW) for p in prompts]
+    for _ in range(4):
+        router.step()
+    held = {}
+    for rec in router.outstanding.values():
+        held[rec.rid] = held.get(rec.rid, 0) + 1
+    killed = max(held, key=lambda r: held[r]) if held else None
+    moved = router.kill_replica(killed) if held else []
+    router.run_until_idle()
+    dead = sorted(r.rid for r in router.replicas.values()
+                  if r.status == "dead")
+    same = [np.array_equal(f.result(timeout=60).tokens, np.asarray(
+        engine.generate(p, FLEET_F32_NEW)).reshape(-1))
+        for p, f in zip(prompts, futs)]
+    for r in router.replicas.values():
+        if r.status == "live":
+            r.release()
+    failed = [] if moved and all(same) else [
+        "f32 kill: no request moved, or a token differs from generate"]
+    if dead != [killed]:
+        # a replica whose step raised is killed by the router too
+        failed.append(f"f32 kill: replicas dead {dead}, not only the "
+                      f"killed {killed}")
+    return {"requests": len(prompts), "moved": len(moved),
+            "killed": killed, "dead": dead, "identical": sum(same)}, failed
+
+
+def fleet_phase(fa, pa, smi, tmp):
+    """Phase 22(a). Returns the episode's launch counts."""
+    engine = fleet_engine(torch.bfloat16)
+    launches = StepLaunches({n: s._fn for n, s in engine.sentinels.items()},
+                            lambda: serving_counts(fa, pa))
+    compiles = ReplicaCompiles(engine)
+    t0 = time.perf_counter()
+    svc = fleet_service(engine)
+    log(f"fleet (120M bf16, {FLEET_SLOTS} slots, page_len "
+        f"{FLEET_SCHED['page_len']}, prefix cache): one warm replica in a "
+        f"closed loop of prompts {FLEET_PROMPT_LENS} x {FLEET_NEW} new: "
+        f"{json.dumps(svc)} ({smi})")
+    out, failed = fleet_bf16_episode(fa, pa, engine, launches, compiles, svc,
+                                     tmp)
+    log(f"fleet episode (base {FLEET_BASE} R, burst {FLEET_BURST} R "
+        f"{FLEET_BURST_S[0]}-{FLEET_BURST_S[1]} s, {FLEET_DURATION_S} s, "
+        f"{FLEET_SESSIONS} sessions, kill at {FLEET_KILL_S} s): "
+        f"{json.dumps(out)}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32, f32_failed = fleet_f32_kill()
+    log(f"fleet f32 (2 replicas, the busiest killed mid-decode): "
+        f"{json.dumps(f32)}; phase 22(a) {time.perf_counter() - t0:.1f} "
+        "host s")
+    failed += f32_failed
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"fleet: {failed}")
+    return out["launches"]
+
+
+class ScaleoutProbe:
+    """Measures a ``SparkDl4jMultiLayer`` job from outside. The job's own
+    ``scaleout_round`` and ``scaleout_worker_fit`` spans give the round
+    and fit seconds, and the hub's ``on_round`` callback (wrapped where
+    the job makes its checkpointer) gives each round's mean and the
+    checkpoint's seconds. The parts with no seam of their own are timed
+    by wrappers that ``__exit__`` restores: the workers' card-to-host
+    reads (``host_params``), their socket round trips
+    (``WorkerClient.average``, which waits for the slowest worker), the
+    hub's mean (``ParamAveragingHub._close_round_locked``), the
+    host-to-card writes (each clone's ``set_params_flat``) and the
+    workers' failures (``worker_main``). :meth:`applied_ok` holds every
+    mean a worker applied against the hub's mean of that round."""
+
+    def __init__(self, spark):
+        import threading
+        from deeplearning4j_tpu_torch.obs import get_tracer
+        from deeplearning4j_tpu_torch.parallel import scaleout
+        self.spark, self.mod, self.tracer = spark, scaleout, get_tracer()
+        self.t = {k: [] for k in ("d2h", "socket", "mean", "h2d", "ckpt")}
+        self.hub_means, self.applied, self.clones = {}, [], []
+        self.errors, self.spans = [], []
+        self._tl = threading.local()
+        self._saved = []
+
+    def _patch(self, owner, name, new):
+        self._saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, new)
+
+    def _timed(self, key, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                self.t[key].append(time.perf_counter() - t)
+        return run
+
+    def __enter__(self):
+        mod, spark, probe = self.mod, self.spark, self
+        self.read = mod.host_params         # the check's own, untimed
+        self._patch(mod, "host_params", self._timed("d2h", mod.host_params))
+        work = mod.worker_main
+
+        def worker_main(*a, **k):
+            try:
+                return work(*a, **k)
+            except BaseException as e:
+                if "injected" not in str(e):
+                    import traceback
+                    probe.errors.append(traceback.format_exc()[-2000:])
+                raise
+        self._patch(mod, "worker_main", worker_main)
+        avg = mod.WorkerClient.average
+
+        def average(client, flat):
+            t = time.perf_counter()
+            out = avg(client, flat)
+            probe.t["socket"].append(time.perf_counter() - t)
+            probe._tl.round = client.last_round
+            return out
+        self._patch(mod.WorkerClient, "average", average)
+        self._patch(mod.ParamAveragingHub, "_close_round_locked",
+                    self._timed("mean",
+                                mod.ParamAveragingHub._close_round_locked))
+        ckpt = spark._checkpoint
+
+        def checkpoint(template, table):
+            save = ckpt(template, table)
+
+            def on_round(mean, rnd):
+                probe.hub_means[rnd] = mean
+                if save is not None:
+                    probe._timed("ckpt", save)(mean, rnd)
+            return on_round
+        self._patch(spark, "_checkpoint", checkpoint)
+        clone = spark.net.clone
+
+        def cloned():
+            c = clone()
+            probe.clones.append(c)
+            set_flat = c.set_params_flat
+
+            def set_params_flat(flat):
+                rnd = getattr(probe._tl, "round", None)
+                probe._tl.round = None
+                if rnd is None:         # a rejoin's, or the checkpoint's
+                    return set_flat(flat)
+                t = time.perf_counter()
+                set_flat(flat)
+                if c.device.type == "cuda":
+                    # this stream only: a whole-device synchronize would
+                    # invalidate another worker's capture
+                    torch.cuda.current_stream(c.device).synchronize()
+                probe.t["h2d"].append(time.perf_counter() - t)
+                probe.applied.append((rnd, np.array_equal(probe.read(c),
+                                                          flat), flat))
+            c.set_params_flat = set_params_flat
+            return c
+        self._patch(spark.net, "clone", cloned)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, old in reversed(self._saved):
+            if owner is self.spark or owner is self.spark.net:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, old)
+        # the job's spans share its root span's trace id; the newest
+        # root is this job's (it closes as ``fit`` returns or raises)
+        spans = self.tracer.spans()
+        jobs = [sp for sp in spans if sp.name == "scaleout_job"]
+        self.spans = [sp for sp in spans
+                      if jobs and sp.trace_id == jobs[-1].trace_id]
+        return False
+
+    def span_s(self, name):
+        """The seconds of this job's spans called ``name``."""
+        return [sp.time_s for sp in self.spans if sp.name == name]
+
+    def applied_ok(self):
+        """Every applied mean read back as written, and equal to the
+        hub's mean of its round."""
+        return bool(self.applied) and all(
+            ok and rnd in self.hub_means and
+            np.array_equal(self.hub_means[rnd], flat)
+            for rnd, ok, flat in self.applied)
+
+    def worker_calls(self):
+        """How the workers' compiled steps ran, summed over the clones."""
+        out = {}
+        for c in self.clones:
+            if c._step_fn is not None:
+                for k, n in c._step_fn.calls.items():
+                    out[k] = out.get(k, 0) + n
+        return out
+
+
+def scaleout_resnet(make_net, shards, tm_kw, fo, tmp, device="cuda"):
+    """Phase 22(b) on ``make_net()`` (ResNet-50 on the card): run 1, a
+    worker killed after one step and respawned; run 2, the master killed
+    after round 1, then resumed by a second ``fit``. Returns the record,
+    the K3 launches of run 1 and the failures."""
+    from deeplearning4j_tpu_torch.parallel import (
+        MasterDiedError, ParameterAveragingTrainingMaster,
+        SparkComputationGraph, read_resume_state)
+    failed, rec = [], {}
+    net = make_net()
+    tm = ParameterAveragingTrainingMaster(
+        **tm_kw, checkpoint_dir=os.path.join(tmp, "run1"))
+    spark = SparkComputationGraph(net, tm)
+    k3_0 = k3_counts(fo)
+    t0 = time.perf_counter()
+    with ScaleoutProbe(spark) as probe, warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the injected death warns
+        spark.fit(shards, fail_worker=1, fail_after_steps=1,
+                  respawn_failed=True)
+    wall = time.perf_counter() - t0
+    k3 = {k: v - k3_0[k] for k, v in k3_counts(fo).items()}
+    calls = probe.worker_calls()
+    # a replay launches nothing through the wrappers: every other worker
+    # step (eager, capture) must have launched each K3 kernel 53 times
+    fresh = sum(n for k, n in calls.items() if k != "replay")
+    steps = sum(calls.values())
+    per_step = {k: v / fresh if fresh else None for k, v in k3.items()}
+    loss = float(net.score(shards[0]))
+    n_params = int(net.params_flat().numel())
+    fits = probe.span_s("scaleout_worker_fit")
+    rec["run1"] = {
+        "rounds": spark.rounds, "rejoins": spark.rejoins,
+        "dropped": spark.dropped_workers,
+        "leases": spark.lease_table.counts(), "wall_s": wall,
+        "worker_steps": steps, "step_kinds": calls,
+        "k3_launches": k3, "k3_per_fresh_step": per_step,
+        "applied_means": len(probe.applied),
+        "applied_bit_identical": probe.applied_ok(),
+        "final_loss": loss, "params": n_params,
+        "bytes_a_round": 2 * SCALEOUT_WORKERS * 4 * n_params + 8,
+        "host_s_a_round": wall / max(spark.rounds, 1),
+        **{f"{k}_s_median": float(np.median(v)) if v else None
+           for k, v in probe.t.items()},
+        "round_span_s_median": float(np.median(
+            probe.span_s("scaleout_round")))
+        if probe.span_s("scaleout_round") else None,
+        "fit_s_median": float(np.median(fits)) if fits else None,
+        "fit_s_max": max(fits) if fits else None,
+        "worker_errors": probe.errors}
+    if probe.errors:
+        failed.append("run 1: a worker failed (worker_errors)")
+    if not spark.lease_table.all_done():
+        failed.append("run 1: a lease is not done")
+    if spark.rejoins < 1:
+        failed.append("run 1: the killed worker did not rejoin")
+    if device == "cuda" and (not fresh or any(
+            v != 53 * fresh for v in k3.values())):
+        failed.append(f"run 1: K3 launches {k3} over {fresh} non-replayed "
+                      "worker steps, not 53 each")
+    if device == "cuda" and not calls.get("replay"):
+        failed.append("run 1: no worker step replayed a graph")
+    if not rec["run1"]["applied_bit_identical"]:
+        failed.append("run 1: a worker's applied mean is not the hub's")
+    if not math.isfinite(loss):
+        failed.append("run 1: the final loss is not finite")
+    # run 2: the master dies after round SCALEOUT_MASTER_DIES; a second
+    # fit resumes
+    ck = os.path.join(tmp, "run2")
+    tm2 = ParameterAveragingTrainingMaster(**tm_kw, checkpoint_dir=ck)
+    spark = SparkComputationGraph(make_net(), tm2)
+    t0 = time.perf_counter()
+    died = False
+    with ScaleoutProbe(spark) as probe1, warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            spark.fit(shards, fail_master_after_rounds=SCALEOUT_MASTER_DIES)
+        except MasterDiedError:
+            died = True
+    stamp = read_resume_state(ck)
+    before = set(json.loads(stamp[1])["completed"]) if stamp else set()
+    spark2 = SparkComputationGraph(make_net(), tm2)
+    with ScaleoutProbe(spark2) as probe2, warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        spark2.fit(shards)
+    n_items = SCALEOUT_SHARDS * tm_kw["epochs_per_fit"]
+    # a leased item is one worker fit: the resumed job's fit spans count
+    # the items it ran
+    rerun = len(probe2.span_s("scaleout_worker_fit"))
+    rec["run2"] = {
+        "died": died, "stamp_round": stamp[0] if stamp else None,
+        "completed_before": sorted(before), "rerun": rerun,
+        "resumed": spark2.resumed, "rounds_before": spark.rounds,
+        "rounds_after": spark2.rounds,
+        "leases": spark2.lease_table.counts(),
+        "wall_s": time.perf_counter() - t0,
+        "ckpt_s_median": float(np.median(probe1.t["ckpt"] + probe2.t[
+            "ckpt"])) if probe1.t["ckpt"] + probe2.t["ckpt"] else None,
+        "final_loss": float(spark2.net.score(shards[0])),
+        # the first fit's workers lose their hub when it dies: only the
+        # resumed fit's must not fail
+        "worker_errors": probe2.errors}
+    if probe2.errors:
+        failed.append("run 2: a worker of the resumed fit failed")
+    if not died or stamp is None or not before:
+        failed.append("run 2: the master did not die, or its stamp holds "
+                      "no finished item")
+    if not spark2.resumed or spark2.rounds <= spark.rounds:
+        failed.append("run 2: no resume, or the rounds did not continue")
+    if rerun != n_items - len(before) or \
+            set(spark2.lease_table.completed) != set(range(n_items)):
+        failed.append(f"run 2: {rerun} items re-run against "
+                      f"{sorted(before)} of {n_items} done")
+    if not spark2.lease_table.all_done():
+        failed.append("run 2: a lease is not done")
+    return rec, k3, failed
+
+
+def scaleout_phase(fo, gen, k3_checked, smi):
+    """Phase 22(b). Returns its K3 launches."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.train import Momentum
+    from deeplearning4j_tpu_torch.zoo.resnet import ResNet50
+    import tempfile
+    model = ResNet50(num_classes=1000, updater=Momentum(0.1, 0.9),
+                     compute_dtype=torch.bfloat16,
+                     input_shape=(RESNET_HW, RESNET_HW, 3))
+
+    def make():
+        net = ComputationGraph(model.conf())
+        _set_fused(net, True)
+        return net.init()
+
+    rng = np.random.default_rng(0)
+    shards = [DataSet(
+        torch.as_tensor(rng.random((SCALEOUT_BATCH, RESNET_HW, RESNET_HW,
+                                    3), np.float32), device="cuda"),
+        torch.as_tensor(np.eye(1000, dtype=np.float32)[
+            rng.integers(0, 1000, SCALEOUT_BATCH)], device="cuda"))
+        for _ in range(SCALEOUT_SHARDS)]
+    tm_kw = dict(n_workers=SCALEOUT_WORKERS, averaging_frequency=1,
+                 epochs_per_fit=SCALEOUT_EPOCHS,
+                 worker_timeout=SCALEOUT_TIMEOUT_S, worker_retries=3,
+                 worker_backoff=SCALEOUT_BACKOFF_S)
+    tmp = tempfile.mkdtemp(prefix="dl4j_scaleout_")
+    t0 = time.perf_counter()
+    try:
+        with _k3_cases(fo) as cases:
+            rec, k3, failed = scaleout_resnet(make, shards, tm_kw, fo, tmp)
+        # a worker step alone: a clone's replayed fit, device ms
+        solo = make()
+        rec["solo_step_device_ms"] = device_ms(
+            lambda: solo.fit(shards[0]), iters=5)
+        del solo
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # every K3 shape the job ran, held against the plain version here
+    # (check_k3 fails the run on a disagreement)
+    rec["k3_held_here"] = _k3_held(fo, gen, sorted(set(cases), key=str),
+                                   k3_checked)
+    log(f"scale-out job (SparkComputationGraph, ResNet-50 {RESNET_HW}² bf16,"
+        f" {SCALEOUT_WORKERS} worker threads, {SCALEOUT_SHARDS} shards of "
+        f"B{SCALEOUT_BATCH} x {SCALEOUT_EPOCHS} epochs, averaging every "
+        f"step; {smi}): {json.dumps(rec)}; phase 22(b) "
+        f"{time.perf_counter() - t0:.1f} host s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    if failed:
+        raise SystemExit(f"scale-out: {failed}")
+    return k3
+
+
+def _flat_grads(grads):
+    from deeplearning4j_tpu_torch.train.updaters import tree_leaves
+    return torch.cat([g.detach().reshape(-1).float()
+                      for g in tree_leaves(grads)])
+
+
+def codec_rank_run(rank, port, device):
+    """One rank of phase 22(c): the char-RNN (K4 on ``fused=True``) on
+    this rank's half of the batch, ``CODEC_STEPS`` steps of ``gradient_
+    and_score`` → ``DistributedGradientWorker.step(lr·grad)`` over the
+    socket hub at ``port``, the mean update subtracted from the params.
+    Returns
+    the per-step losses, params digests, host seconds by part, device ms
+    of ``gradient_and_score``, the encoded share and the threshold's
+    path."""
+    import hashlib
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.kernels import fused_lstm as fl
+    from deeplearning4j_tpu_torch.parallel import transport as tr
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    b, t, v = CHARNN_BATCH, CHARNN_T, CHARNN_VOCAB
+    net = TextGenerationLSTM(num_classes=v, input_shape=(t, v),
+                             units=CHARNN_H,
+                             compute_dtype=torch.bfloat16).init(
+        device=device)
+    _set_lstm_fused(net, True)
+    rng = np.random.default_rng(0)
+    eye = np.eye(v, dtype=np.float32)
+    x = eye[rng.integers(0, v, (b, t))]
+    y = eye[rng.integers(0, v, (b, t))]
+    half = slice(rank * b // CODEC_RANKS, (rank + 1) * b // CODEC_RANKS)
+    ds = DataSet(torch.as_tensor(x[half], device=device),
+                 torch.as_tensor(y[half], device=device))
+    n = int(net.params_flat().numel())
+    parts = {k: [] for k in ("d2h", "encode", "exchange", "decode", "h2d")}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            s = time.perf_counter()
+            out = fn(*a, **k)
+            parts[key].append(time.perf_counter() - s)
+            return out
+        return run
+    enc, dec = tr.threshold_encode, tr.threshold_decode
+    tr.threshold_encode = timed("encode", enc)
+    tr.threshold_decode = timed("decode", dec)
+    transport = tr.SocketGradientTransport(("127.0.0.1", port), timeout=120)
+    transport.exchange = timed("exchange", transport.exchange)
+    worker = tr.DistributedGradientWorker(n, transport, threshold=1e-3)
+    cuda = device == "cuda"
+    digest = lambda: hashlib.sha1(                       # noqa: E731
+        net.params_flat().detach().cpu().numpy().tobytes()).hexdigest()
+    out = {"losses": [], "digests": [digest()], "event_ms": [],
+           "encoded": [], "threshold": [worker.threshold], "params": n}
+    k4_0 = (fl.LAUNCHES, dict(fl.LAUNCHES_BY_ROUTE))
+    try:
+        for _ in range(CODEC_STEPS):
+            if cuda:
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+            grads, score = net.gradient_and_score(ds)
+            if cuda:
+                e1.record()
+            s = time.perf_counter()
+            upd = (_flat_grads(grads) * CODEC_LR).cpu().numpy()
+            parts["d2h"].append(time.perf_counter() - s)
+            if cuda:
+                out["event_ms"].append(e0.elapsed_time(e1))
+            mean = worker.step(upd)
+            s = time.perf_counter()
+            net.set_params_flat(net.params_flat() - torch.from_numpy(
+                mean).to(net.params_flat().device))
+            if cuda:
+                torch.cuda.synchronize()
+            parts["h2d"].append(time.perf_counter() - s)
+            out["losses"].append(score)
+            out["digests"].append(digest())
+            out["encoded"].append(worker.last_encoded)
+            out["threshold"].append(worker.threshold)
+    finally:
+        transport.close()
+        tr.threshold_encode, tr.threshold_decode = enc, dec
+    parts["decode"] = [sum(parts["decode"][i:i + CODEC_RANKS]) for i in
+                       range(0, len(parts["decode"]), CODEC_RANKS)]
+    out["parts_ms_median"] = {k: 1e3 * float(np.median(v))
+                              for k, v in parts.items() if v}
+    out["k4"] = fl.LAUNCHES - k4_0[0]
+    out["k4_by_route"] = {r: c - k4_0[1][r]
+                          for r, c in fl.LAUNCHES_BY_ROUTE.items()}
+    if cuda:        # device time alone, without the host's gaps
+        out["device_ms"] = device_ms(lambda: net.gradient_and_score(ds),
+                                     iters=3, warmup=1)
+    return out
+
+
+def codec_rank_main(rank, workdir, port):
+    """A phase 22(c) rank (``--codec-rank``): on ``cuda:0``, imports the
+    port only, writes its record to ``workdir``."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rec = codec_rank_run(rank, port, "cuda")
+    with open(os.path.join(workdir, f"codec{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def codec_phase(fl, gen, k4_checked, smi):
+    """Phase 22(c). Returns the ranks' K4 launches by route."""
+    import tempfile
+    from deeplearning4j_tpu_torch.parallel import GradientExchangeServer
+    b = CHARNN_BATCH // CODEC_RANKS
+    failed = []
+    if (torch.bfloat16, b, CHARNN_H, "cluster") not in k4_checked:
+        r = check_lstm(fl, torch.bfloat16, b, CHARNN_T, CHARNN_H, gen)
+        log(f"codec: K4 at a rank's shape B{b} T{CHARNN_T} H{CHARNN_H} bf16 "
+            f"({r['route']} route) against its plain version: max abs err "
+            f"{r['max_abs_err']:.3e}")
+    work = tempfile.mkdtemp(prefix="dl4j_codec_")
+    server = GradientExchangeServer(n_workers=CODEC_RANKS).start()
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--codec-rank",
+             str(r), "--codec-dir", work, "--codec-port",
+             str(server.address[1])], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(CODEC_RANKS)]
+        outs = [p.communicate(timeout=CODEC_RANK_TIMEOUT_S)[0]
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        server.stop()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        shutil.rmtree(work, ignore_errors=True)
+        raise SystemExit(f"codec: rank(s) {bad} failed:\n"
+                         + "\n".join(outs[r][-4000:] for r in bad))
+    recs = []
+    for r in range(CODEC_RANKS):
+        with open(os.path.join(work, f"codec{r}.json")) as f:
+            recs.append(json.load(f))
+    shutil.rmtree(work, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    same = all(a == b_ for a, b_ in zip(recs[0]["digests"],
+                                        recs[1]["digests"]))
+    r0 = recs[0]
+    summary = {
+        "steps": CODEC_STEPS, "rounds": server.rounds,
+        "params": r0["params"], "bit_identical_every_step": same,
+        "losses": [rec["losses"] for rec in recs],
+        "k4": [rec["k4"] for rec in recs],
+        "k4_by_route": [rec["k4_by_route"] for rec in recs],
+        "host_ms_a_step": [rec["parts_ms_median"] for rec in recs],
+        "grad_and_score_device_ms": [rec["device_ms"] for rec in recs],
+        "grad_and_score_event_ms_median": [
+            float(np.median(rec["event_ms"])) for rec in recs],
+        "encoded_share": [float(np.mean(rec["encoded"])) / r0["params"]
+                          for rec in recs],
+        "threshold_path": r0["threshold"], "wall_s": secs}
+    log(f"codec (GradientExchangeServer on TCP loopback, {CODEC_RANKS} "
+        f"ranks on the card, char-RNN B{b} T{CHARNN_T} H{CHARNN_H} bf16 a "
+        f"rank, lr {CODEC_LR}; {smi}): {json.dumps(summary)}")
+    if not same:
+        failed.append("the ranks' params parted")
+    if any(rec["k4"] < 1 for rec in recs):
+        failed.append("K4 was not launched")
+    if any(not rec["losses"][-1] < rec["losses"][0] for rec in recs):
+        failed.append("the loss did not fall")
+    if server.rounds != CODEC_STEPS:
+        failed.append(f"the hub served {server.rounds} rounds")
+    if failed:
+        raise SystemExit(f"codec: {failed}")
+    return {k: sum(rec["k4_by_route"][k] for rec in recs)
+            for k in recs[0]["k4_by_route"]}
+
+
+def fleet_scaleout_phase(fa, pa, fo, fl, smi, gen, k3_checked=frozenset(),
+                         k4_checked=frozenset()):
+    """Phase 22: (a) the fleet, (b) the scale-out job, (c) the codec.
+    Returns the paths' counts: by_path entries and the K4 path."""
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="dl4j_fleet_")
+    try:
+        fleet = fleet_phase(fa, pa, smi, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    k3 = scaleout_phase(fo, gen, k3_checked, smi)
+    k4 = codec_phase(fl, gen, k4_checked, smi)
+    zero = dict.fromkeys(path_counts(fa, pa, fo), 0)
+    paths = {"fleet_episode": {**zero, **fleet},
+             "scaleout_resnet": {**zero, **k3}}
+    lstm = {"codec_charnn": {f"fused_lstm_{r}": n for r, n in k4.items()}}
+    log(f"fleet and scale-out: launches by path {json.dumps(paths)}, "
+        f"{json.dumps(lstm)}")
+    return paths, lstm
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -8742,6 +9760,14 @@ def main():
                          "NCCL world of one and over two gloo ranks on the "
                          "card, the MoE LM, the ring) only (prints no "
                          "result line)")
+    ap.add_argument("--fleet-only", action="store_true",
+                    help="build + phase 22 (the serving fleet with its "
+                         "traffic episode, the scale-out job, the "
+                         "threshold codec over sockets) only (prints no "
+                         "result line)")
+    ap.add_argument("--codec-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--codec-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--codec-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dp-dir", help=argparse.SUPPRESS)
     ap.add_argument("--prefetch-times", metavar="ROOT",
@@ -8758,6 +9784,9 @@ def main():
         return 2
     if args.dp_rank is not None:
         return dp_rank_main(args.dp_rank, args.dp_dir)
+    if args.codec_rank is not None:
+        return codec_rank_main(args.codec_rank, args.codec_dir,
+                               args.codec_port)
     if args.k3_times:
         return k3_times(args.k3_times)
     if args.flash_times:
@@ -8820,6 +9849,12 @@ def main():
         return 0
     if args.bert_only:
         bert_phase(fa, pa, fo, fl, set(), gen)
+        return 0
+    if args.fleet_only:
+        fleet_scaleout_phase(fa, pa, fo, fl, smi, gen)
+        mark("22 fleet, scale-out, codec")
+        log(f"host seconds by phase (after the build): "
+            f"{json.dumps(seconds)}")
         return 0
     if args.parallel_only:
         _, k3_checked = k3_phase(fo, gen)
@@ -8973,6 +10008,11 @@ def main():
     mark("20 Keras importer, upstream zips, SameDiff layers")
     by_path.update(parallel_phase(fa, pa, fo, k3_checked))
     mark("21 parallel")
+    fleet_paths, fleet_lstm = fleet_scaleout_phase(
+        fa, pa, fo, fl, smi, gen, k3_checked, k4_checked)
+    by_path.update(fleet_paths)
+    lstm_paths.update(fleet_lstm)
+    mark("22 fleet, scale-out, codec")
     log(f"host seconds by phase (after the build): {json.dumps(seconds)}")
     # the stage-0 BN's shape (N = 128*56*56, C = 256) stands for K3
     main_k3 = k3[(torch.bfloat16, RESNET_BATCH * 56 * 56, 256)]
@@ -8982,7 +10022,8 @@ def main():
                                       for r in REMAT_SETTINGS),
                     "zoo_yolo2_fit", "zoo_yolo2_output",
                     "import_resnet50_output", "import_resnet50_fit",
-                    "parallel_resnet_dp1", "parallel_resnet_dp2_gloo")
+                    "parallel_resnet_dp1", "parallel_resnet_dp2_gloo",
+                    "scaleout_resnet")
     main_k1 = k1[(torch.bfloat16, 1, 2048, 64)]    # a dense prefill's shape
     train_k1 = k1[(torch.bfloat16, 32, 1024, 64)]  # the train path's shape
     main_k2 = k2[torch.bfloat16]

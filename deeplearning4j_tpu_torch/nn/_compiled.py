@@ -35,6 +35,18 @@ bakes in) are checked by identity: after a rebinding (``net.params = ...``,
 a new optimizer, a changed learning rate) every graph is dropped and the
 next call of each signature starts again with an eager step.
 
+Several threads may run compiled steps at once (the scale-out job's
+worker threads each fit their own ``net.clone()``). A capture runs in
+CUDA's thread-local capture mode, so that another thread's eager step,
+host read or replay is neither refused nor recorded into it, and captures
+are serialized by one process-wide lock, under which the cyclic
+collector stays off (``gc`` is process-wide: a collection during a
+capture could free another step's graph). What CUDA forbids while any
+stream captures stays forbidden in every thread: a whole-device
+``torch.cuda.synchronize()`` (or ``empty_cache()``) from another thread
+invalidates the capture. Such code holds :data:`CAPTURE_LOCK`; a
+stream's or an event's own synchronize is safe.
+
 A failed capture raises :class:`CaptureError` chained to the error of the
 op that failed (a host sync, a pageable copy, an allocation the capture
 forbids). Nothing falls back to eager on its own: the eager path on CUDA
@@ -69,11 +81,14 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import threading
 import weakref
 
 import torch
 
 _DISABLED = 0
+# one capture at a time in the process (see CompiledStep._capture)
+CAPTURE_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
@@ -216,6 +231,16 @@ class CompiledStep:
         self._watch = {}
         self._bound = None
 
+    def drop_bound(self, obj):
+        """Drop every graph whose bound arguments include ``obj`` (a
+        generator is held by its graphs, so a caller that retires one
+        drops them here)."""
+        for key, watch in list(self._watch.items()):
+            if any((w if isinstance(w, torch.Generator) else w()) is obj
+                   for w in watch):
+                self._graphs.pop(key, None)
+                self._watch.pop(key, None)
+
     def _note(self, kind, key):
         self.last = kind
         self.calls[kind] += 1
@@ -309,7 +334,9 @@ class CompiledStep:
         prev = torch.cuda.current_stream(dev)
         # no cyclic collection during the capture: one could free another
         # step's graph, which a capturing stream does not permit, and so
-        # invalidate this capture
+        # invalidate this capture. Captures take turns, so that one
+        # thread's capture never re-enables the collector under another's
+        CAPTURE_LOCK.acquire()
         collecting = gc.isenabled()
         gc.disable()
         try:
@@ -317,7 +344,8 @@ class CompiledStep:
                 if isinstance(gen, torch.Generator):
                     g.graph.register_generator_state(gen)
             with torch.cuda.graph(g.graph, pool=self._pool,
-                                  stream=self._side_stream(dev)):
+                                  stream=self._side_stream(dev),
+                                  capture_error_mode="thread_local"):
                 try:
                     g.out = self.step(*_unbind(inputs))
                 except Exception as e:      # noqa: BLE001 — re-raised below
@@ -335,4 +363,5 @@ class CompiledStep:
         finally:
             if collecting:
                 gc.enable()
+            CAPTURE_LOCK.release()
         return g

@@ -2,9 +2,17 @@
 rethought for SPMD ranks over ``torch.distributed``): the mesh and its
 groups, ``ParallelWrapper`` (dp, fsdp, tp) and ``ParallelInference``, the
 tensor-parallel layers, parameter averaging, ring attention and the
-pipelines. The socket half of the reference's ``parallel`` — gradient
-sharing over a transport, leases, the scale-out master and workers — is
-not ported yet (ROADMAP.md queue 1)."""
+pipelines; and the socket half — threshold-encoded gradient sharing
+(``grad_sharing``) over a socket hub (``transport``, which holds every
+wire format), the lease tables (``leases``) and the elastic scale-out job
+(``scaleout``: ``SparkDl4jMultiLayer`` / ``SparkComputationGraph`` over a
+parameter-averaging hub, with worker rejoin, master resume and leased
+partitions). The socket half is host Python and numpy; a net on the card
+crosses to the host once a round."""
+
+from .grad_sharing import AdaptiveThreshold, GradientSharingAccumulator
+from .transport import (DistributedGradientWorker, GradientExchangeServer,
+                        SocketGradientTransport)
 
 from .mesh import (MeshSpec, batch_sharding, bootstrap_distributed,
                    data_parallel_mesh, hybrid_mesh_2d, make_mesh, replicated,
@@ -23,21 +31,32 @@ from .tp import (ChannelShardedConvolution, ColumnParallelDense,
 from .ring_attention import (ring_attention, ring_attention_inner,
                              ring_attention_sharded, ring_hop)
 from .param_avg import ParameterAveragingTrainer
+from .leases import LeaseTable, RequestLeaseTable
+from .scaleout import (MasterDiedError, ParamAveragingHub,
+                       ParameterAveragingTrainingMaster,
+                       SparkComputationGraph, SparkDl4jMultiLayer,
+                       TrainingMaster, WorkerClient, read_resume_state,
+                       worker_main)
 from .wrapper import ParallelInference, ParallelWrapper
 
 __all__ = [
-    "MeshSpec", "batch_sharding", "bootstrap_distributed",
-    "data_parallel_mesh", "hybrid_mesh_2d", "make_mesh", "replicated",
-    "shard_params_fsdp",
+    "AdaptiveThreshold", "GradientSharingAccumulator", "MeshSpec",
+    "batch_sharding", "bootstrap_distributed", "data_parallel_mesh",
+    "hybrid_mesh_2d", "make_mesh", "replicated", "shard_params_fsdp",
     "make_pipeline_loss", "make_pipeline_train_step",
     "place_params_for_pipeline", "ring_attention", "ring_attention_inner",
     "ring_attention_sharded", "ring_hop", "ParallelInference",
-    "ParallelWrapper", "ParameterAveragingTrainer",
-    "ColumnParallelDense", "ColumnParallelOutputLayer", "RowParallelDense",
-    "RowShardedEmbedding", "RowShardedEmbeddingSequence",
-    "ChannelShardedConvolution", "InputChannelShardedConvolution",
-    "ShardedSelfAttention", "network_param_shardings",
-    "make_mln_pipeline_loss", "make_mln_pipeline_train_step",
-    "shard_params_pp", "make_cg_pipeline_train_step",
-    "microbatches", "partition_layers",
+    "ParallelWrapper", "ParameterAveragingTrainer", "ColumnParallelDense",
+    "ColumnParallelOutputLayer", "RowParallelDense", "RowShardedEmbedding",
+    "RowShardedEmbeddingSequence", "ChannelShardedConvolution",
+    "InputChannelShardedConvolution", "ShardedSelfAttention",
+    "network_param_shardings", "make_mln_pipeline_loss",
+    "make_mln_pipeline_train_step", "shard_params_pp",
+    "make_cg_pipeline_train_step", "microbatches", "partition_layers",
+    "DistributedGradientWorker", "GradientExchangeServer",
+    "SocketGradientTransport", "TrainingMaster",
+    "ParameterAveragingTrainingMaster", "SparkDl4jMultiLayer",
+    "SparkComputationGraph", "ParamAveragingHub", "WorkerClient",
+    "worker_main", "LeaseTable", "RequestLeaseTable", "MasterDiedError",
+    "read_resume_state",
 ]

@@ -3,10 +3,13 @@
 also restores upstream DL4J zips and SameDiff zips), ``load_params`` for
 a zip of either package into an existing net, ``restore_normalizer``,
 and the upstream DL4J format both ways (``upstream_dl4j``).
-``ModelSerializer`` is the DL4J-shaped static facade over them."""
+``ModelSerializer`` is the DL4J-shaped static facade over them.
+``OrbaxCheckpointer`` / ``PreemptionWatchdog`` (``orbax_ckpt``) are the
+async per-rank checkpoints on ``torch.distributed.checkpoint``."""
 
 from .model_serializer import (load_model, load_params, restore_normalizer,
                                save_model)
+from .orbax_ckpt import OrbaxCheckpointer, PreemptionWatchdog
 from .upstream_dl4j import (is_upstream_format,
                             restore_upstream_computation_graph,
                             restore_upstream_multi_layer_network,
@@ -35,7 +38,8 @@ class ModelSerializer:
 
 
 __all__ = [
-    "ModelSerializer", "is_upstream_format", "load_model", "load_params",
+    "ModelSerializer", "OrbaxCheckpointer", "PreemptionWatchdog",
+    "is_upstream_format", "load_model", "load_params",
     "restore_normalizer", "restore_upstream_computation_graph",
     "restore_upstream_multi_layer_network", "save_model",
     "write_computation_graph_upstream_format", "write_model_upstream_format",

@@ -437,6 +437,12 @@ class GenerationEngine:
         retraces_after_warm}}."""
         return {name: s.report() for name, s in self.sentinels.items()}
 
+    def release_bound(self, obj):
+        """Drop every entry point's graphs bound to ``obj`` (a cache
+        leaf or a generator that is going away for good)."""
+        for s in self.sentinels.values():
+            s.drop_bound(obj)
+
     # ----------------------------------------------------- step bodies
     def _prefill_trunk(self, tokens):
         """Shared prompt pass: embedded tokens through the block stack

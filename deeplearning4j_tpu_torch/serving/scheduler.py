@@ -670,6 +670,8 @@ class ContinuousBatchingScheduler:
         """One scheduler iteration: preempt-if-starved, admit, decode.
         Returns True if any work happened (False = fully idle)."""
         with self._step_lock:
+            if self.cache is None:
+                raise RuntimeError("scheduler released: its pool is freed")
             m = self._mt
             with self._lock:
                 did = self._maybe_preempt(m)
@@ -1999,9 +2001,34 @@ class ContinuousBatchingScheduler:
         snapshots, trace close-out, sampler observations), self-timed."""
         return self._trace_overhead
 
+    def occupancy(self) -> float:
+        with self._lock:
+            return sum(r is not None for r in self.slots) / self.n_slots
+
     def queue_depth(self) -> int:
         with self._lock:
             return len(self._queue)
+
+    def release(self):
+        """Free this scheduler's device state for good (a fleet replica
+        that died or retired): the KV pool, its page table and prefix
+        cache, and the pinned token buffer. A graph's signature holds its
+        cache weakly, so every graph captured on the pool goes with it;
+        the graphs bound to this scheduler's generator (the samplers') are
+        dropped explicitly. The flight recorder stays, for the dump, and
+        the scheduler cannot step again."""
+        with self._step_lock, self._lock:
+            gen, self._gen = self._gen, None
+            self.cache = None
+            self._pages = None
+            self._prefix = None
+            self._host_tokens = None
+            self._read_done = None
+            self.slots = [None] * self.n_slots
+            self._queue.clear()
+            self.flight_recorder.extra_state = None
+        if gen is not None:
+            self.engine.release_bound(gen)
 
     def reset_kv_window(self):
         """Restart the KV residency accumulators (running means and

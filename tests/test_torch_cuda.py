@@ -3018,3 +3018,186 @@ def test_parallel_moe_train_step_replay_equals_eager(gen):
                               for p in tfm.param_leaves(params)]))
     assert runs[0][0] == runs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+# ------------------------------------------- scale-out threads, the fleet
+
+def _bn_cg(seed=3):
+    from deeplearning4j_tpu_torch.nn import (BatchNormalization,
+                                             ComputationGraph,
+                                             ConvolutionLayer, InputType,
+                                             NeuralNetConfiguration,
+                                             OutputLayer)
+    from deeplearning4j_tpu_torch.train import Sgd
+    g = (NeuralNetConfiguration.builder().seed(seed).updater(Sgd(0.1))
+         .graph_builder().add_inputs("in"))
+    g.add_layer("c", ConvolutionLayer(n_out=64, kernel_size=(3, 3),
+                                      convolution_mode="same"), "in")
+    g.add_layer("bn", BatchNormalization(activation="relu", fused=True),
+                "c")
+    g.add_layer("out", OutputLayer(n_out=10, activation="softmax",
+                                   loss="mcxent"), "bn")
+    g.set_outputs("out")
+    g.set_input_types(InputType.convolutional(16, 16, 8))
+    return ComputationGraph(g.build()).init()
+
+
+def test_scaleout_threads_capture_and_replay_bit_identical(gen):
+    """Two threads each fit their own clone through eager, capture and
+    replay at the same time, with their schedules offset by one step:
+    thread B first takes an eager step on a batch of another shape, so
+    that a barrier before every step starts A's capture with B's first
+    eager step of A's shape (its allocations and its loss's host read),
+    and B's capture with A's replay. Every clone ends bit for bit where
+    the same fits run one after the other end, and each captured once."""
+    import threading
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.nn._compiled import tensors
+    net = _bn_cg()
+
+    def batch(n):
+        return DataSet(torch.randn((n, 16, 16, 8), generator=gen,
+                                   device="cuda"),
+                       torch.eye(10, device="cuda")[torch.randint(
+                           0, 10, (n,), generator=gen, device="cuda")])
+    batches = [[batch(32) for _ in range(6)],
+               [batch(16)] + [batch(32) for _ in range(5)]]
+
+    def fit(clone, mine, barrier=None):
+        out = []
+        for ds in mine:
+            if barrier is not None:
+                barrier.wait(timeout=60)
+            out.append(clone.fit(ds))
+        return out
+
+    seq = [net.clone(), net.clone()]
+    seq_losses = [fit(c, b) for c, b in zip(seq, batches)]
+    par = [net.clone(), net.clone()]
+    par_losses, errs = [None, None], []
+    barrier = threading.Barrier(2)
+
+    def run(i):
+        try:
+            par_losses[i] = fit(par[i], batches[i], barrier)
+        except BaseException as e:          # noqa: BLE001 — asserted
+            errs.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True)
+               for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads) and errs == [], errs
+    assert par_losses == seq_losses
+    for a, b in zip(seq, par):
+        for s, t in zip(tensors((a.params, a.states)),
+                        tensors((b.params, b.states))):
+            assert torch.equal(s, t)
+    # A: eager, capture, 4 replays; B: one eager step at B16, then at B32
+    # eager, capture, 3 replays
+    want = [{"eager": 1, "capture": 1, "replay": 4},
+            {"eager": 2, "capture": 1, "replay": 3}]
+    for b, w in zip(par, want):
+        calls = b._step_fn.calls
+        assert {k: calls[k] for k in w} == w, calls
+
+
+def _fleet_engine(dtype=torch.float32):
+    from deeplearning4j_tpu_torch.serving import GenerationEngine
+    from deeplearning4j_tpu_torch.zoo import transformer as tfm
+    cfg = tfm.TransformerConfig(vocab_size=61, d_model=64, n_heads=2,
+                                n_layers=2, d_ff=128, max_seq=64,
+                                dtype=dtype, remat=False,
+                                attn_scores_bf16=False)
+    params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cuda")
+    return GenerationEngine(cfg, params, device="cuda")
+
+
+def _fleet_prompts(n, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(1, 61, size=int(rng.integers(4, 20)))
+            .astype(np.int32) for _ in range(n)]
+
+
+def test_fleet_kill_reprefills_to_the_oracle_on_the_card(gen):
+    """An f32 fleet of two paged replicas on the card (decode through K2):
+    the busier replica killed mid-decode (the only replica dead after),
+    its requests re-prefilled on the survivor, every request's tokens
+    equal ``engine.generate``'s."""
+    from deeplearning4j_tpu_torch.serving import FleetRouter
+    eng = _fleet_engine()
+    router = FleetRouter(eng, n_replicas=2, n_slots=4,
+                         scheduler_kwargs={"page_len": 8, "n_pages": 64})
+    prompts = _fleet_prompts(8, seed=1)
+    pa.reset_launches()
+    futs = [router.submit(p, 10) for p in prompts]
+    for _ in range(4):
+        router.step()
+    held = {}
+    for rec in router.outstanding.values():
+        held[rec.rid] = held.get(rec.rid, 0) + 1
+    killed = max(held, key=lambda r: held[r])
+    moved = router.kill_replica(killed)
+    assert moved
+    router.run_until_idle()
+    # the router kills a replica whose step raises: none but this one
+    assert [r.rid for r in router.replicas.values()
+            if r.status == "dead"] == [killed]
+    assert pa.LAUNCHES > 0
+    for p, f in zip(prompts, futs):
+        np.testing.assert_array_equal(
+            f.result(timeout=60).tokens,
+            np.asarray(eng.generate(p, 10)).reshape(-1))
+    assert router.leases.all_done() and router.ghost_results == 0
+
+
+def test_fleet_spawn_kill_retire_frees_pools_and_graphs(gen):
+    """A replica spawned, served (its signatures captured on its own
+    pool), then killed or retired, three times: each time its pool's
+    tensors are freed, the engine's graphs fall back to the live
+    replica's, and the card's allocated memory does not grow."""
+    import gc
+    import weakref
+    from deeplearning4j_tpu_torch.serving import FleetRouter
+    eng = _fleet_engine()
+    # a pool of 4 MiB, so that a leaked one shows against the slack
+    router = FleetRouter(eng, n_replicas=1, n_slots=4,
+                         scheduler_kwargs={"page_len": 8, "n_pages": 512})
+
+    def serve(seed):
+        futs = [router.submit(p, 6) for p in _fleet_prompts(4, seed)]
+        router.run_until_idle()
+        assert all(f.result(timeout=60).finish_reason in ("eos", "length")
+                   for f in futs)
+
+    def graphs():
+        return sum(len(s._graphs) for s in eng.sentinels.values())
+
+    for seed in range(2):               # the live replica: warm, captured
+        serve(seed)
+    gc.collect()
+    base_graphs, base_mem = graphs(), None
+    for cycle in range(3):
+        with router._lock:
+            rid = router._spawn_locked(reason="test")
+        pool = [weakref.ref(t) for t in router.replicas[rid].scheduler
+                .cache.values() if isinstance(t, torch.Tensor)]
+        for seed in range(3):
+            serve(10 * cycle + seed)
+        assert graphs() > base_graphs
+        if cycle % 2:
+            router.retire_replica(rid)
+        else:
+            router.kill_replica(rid)
+        gc.collect()
+        torch.cuda.synchronize()
+        assert all(r() is None for r in pool), cycle
+        assert graphs() == base_graphs, (cycle, graphs(), base_graphs)
+        mem = torch.cuda.memory_allocated()
+        if base_mem is None:
+            base_mem = mem
+        assert mem <= base_mem + (256 << 10), (cycle, mem, base_mem)

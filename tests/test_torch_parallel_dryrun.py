@@ -7,9 +7,9 @@ devices, so A is dense dp2 × tp2, B the MoE dp2 × tp2 (plus dp2 × ep2
 here, so that its experts split), C/H the pipelined LM over pp2 × dp2,
 D the tp MLN and the generic pipeline, E the CG pipeline, F remat under
 dp, G fsdp (and a net whose first layer fsdp splits), I a checkpoint and
-resume under dp, K the ring step over dp2 × sp2, M the serving plane.
-Case L, the elastic scale-out job, belongs to the socket half of
-``parallel/`` (``scaleout.py``), which the port does not have yet.
+resume under dp, K the ring step over dp2 × sp2, L the elastic scale-out
+job (one process: its workers are threads over the socket hub), M the
+serving plane.
 """
 
 from __future__ import annotations
@@ -178,6 +178,50 @@ def test_dryrun_wrapper_cases(pool):
         if rank < 2:
             assert abs(x_["F"][0] - x_["F"][1]) < 1e-5
             assert abs(x_["I"][0] - x_["I"][1]) < 1e-5
+
+
+def test_dryrun_elastic_scaleout():
+    """L: the elastic scale-out job on the dry run's MLP — 4 shards, 2
+    workers averaging every step, worker 1 killed after one step and
+    respawned: it rejoins, the lease table re-covers every (epoch, shard)
+    item, and the averaged net's loss is finite. The job's start is the
+    JAX net's weights; the same job on the JAX package lands within the
+    reference's own loss tolerance of the port's."""
+    import math
+    import warnings
+
+    import deeplearning4j_tpu_torch.nn as tnn
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.parallel import (
+        ParameterAveragingTrainingMaster, SparkDl4jMultiLayer)
+    from torch_parallel_ranks import _port
+    x, y = _mlp_data()
+    jnet, w = _jmlp()
+    net = build(_port(), "dry_mlp", tnn.DenseLayer, tnn.DenseLayer)
+    net.params, net.states = tnn.params_from_numpy(w["params"], w["states"],
+                                                   "cpu")
+    shards = [DataSet(x[i * 2 * A:(i + 1) * 2 * A],
+                      y[i * 2 * A:(i + 1) * 2 * A]) for i in range(4)]
+    kw = dict(n_workers=2, averaging_frequency=1, epochs_per_fit=1,
+              worker_timeout=60.0, worker_retries=2)
+    spark = SparkDl4jMultiLayer(net, ParameterAveragingTrainingMaster(**kw))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")     # the injected kill warns
+        spark.fit(shards, fail_worker=1, fail_after_steps=1,
+                  respawn_failed=True)
+    assert spark.lease_table.all_done(), spark.lease_table.counts()
+    assert spark.rejoins >= 1, "killed worker did not rejoin"
+    loss = float(net.score(DataSet(x, y)))
+    assert math.isfinite(loss), loss
+    jspark = jpar.SparkDl4jMultiLayer(
+        jnet, jpar.ParameterAveragingTrainingMaster(**kw))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        jspark.fit([JDataSet(np.asarray(d.features), np.asarray(d.labels))
+                    for d in shards], fail_worker=1, fail_after_steps=1,
+                   respawn_failed=True)
+    assert jspark.lease_table.all_done() and jspark.rejoins >= 1
+    assert abs(loss - float(jnet.score(JDataSet(x, y)))) < 0.15
 
 
 def test_dryrun_serving_plane():

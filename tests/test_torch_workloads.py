@@ -2,9 +2,9 @@
 ``deeplearning4j_tpu_torch.serving.workloads`` and the scheduler's
 ``submit(kind=...)``) against the JAX package's, on the CPU.
 
-The tests of ``tests/test_workloads.py`` that do not need the fleet (the
-metrics-and-census and the int8-KV SCORE tests run on both schedulers),
-ported to the port on the same tiny f32 model (vocab 61, d_model 32, 2
+The tests of ``tests/test_workloads.py`` (the metrics-and-census and the
+int8-KV SCORE tests run on both schedulers; the three fleet tests run
+every kind through the port's ``FleetRouter``), ported to the port on the same tiny f32 model (vocab 61, d_model 32, 2
 heads, 2 layers, max_seq 32, ``prefill_chunk=8``, page_len 4), weights
 drawn by the JAX package and shared through ``params_from_numpy``. The
 same requests go through the JAX scheduler: SCORE logprobs (on the int8
@@ -28,8 +28,8 @@ from deeplearning4j_tpu.serving import (
 from deeplearning4j_tpu.serving import workloads as jworkloads
 from deeplearning4j_tpu.zoo import transformer as jtfm
 from deeplearning4j_tpu_torch.serving import (
-    BeamResult, ContinuousBatchingScheduler, EmbedResult, GenerationEngine,
-    RequestKind, ScoreResult, vocab_mask, workloads)
+    BeamResult, ContinuousBatchingScheduler, EmbedResult, FleetRouter,
+    GenerationEngine, RequestKind, ScoreResult, vocab_mask, workloads)
 from deeplearning4j_tpu_torch.zoo import transformer as ttfm
 
 torch.set_num_threads(2)
@@ -462,3 +462,61 @@ def test_workload_metrics_and_kind_census(engine, jengine, which):
     assert base.value(kind="beam") == before["beam"] + 1
     assert base.value(kind="score") == before["score"] + 1
     assert census and census[-1]["request_kinds"].get("beam") == 1
+
+
+# ------------------------------------------------------- fleet wire
+
+@pytest.fixture(scope="module")
+def fleet(engine):
+    return FleetRouter(engine, n_replicas=2, n_slots=4,
+                       scheduler_kwargs={"page_len": 4, "n_pages": 32})
+
+
+def test_fleet_roundtrips_every_kind(fleet):
+    toks = _toks(12, seed=20)
+    futs = {
+        "generate": fleet.submit(toks, max_new_tokens=5),
+        "score": fleet.submit(toks, kind="score"),
+        "embed": fleet.submit(toks, kind="embed", pooling="last"),
+        "beam": fleet.submit(toks, max_new_tokens=5, kind="beam",
+                             beam_width=3),
+        "constrained": fleet.submit(toks, max_new_tokens=5,
+                                    kind="constrained",
+                                    allowed_ids=[3, 5, 7]),
+    }
+    fleet.run_until_idle()
+    res = {k: f.result(timeout=30) for k, f in futs.items()}
+    for kind, r in res.items():
+        assert r.kind == kind, (kind, r.kind)
+    assert len(res["score"].logprobs) == toks.size - 1
+    assert len(res["embed"].embedding) == 32
+    assert np.isfinite(res["beam"].best_logprob)
+    assert len(res["beam"].tokens) == 5
+    assert set(res["constrained"].tokens.tolist()) <= {3, 5, 7}
+    assert res["generate"].logprobs is None
+    assert res["generate"].embedding is None
+
+
+def test_fleet_constrained_is_allowlist_only(fleet):
+    with pytest.raises(ValueError, match="allowed_ids"):
+        fleet.submit(_toks(10), kind="constrained")
+    with pytest.raises(ValueError, match="CONSTRAINED knob"):
+        fleet.submit(_toks(10), allowed_ids=[1, 2])
+
+
+def test_fleet_kill_reprefills_mid_flight_beam(engine):
+    fl = FleetRouter(engine, n_replicas=2, n_slots=4,
+                     scheduler_kwargs={"page_len": 4, "n_pages": 32})
+    fut = fl.submit(_toks(12, seed=21), max_new_tokens=8, kind="beam",
+                    beam_width=3)
+    for _ in range(3):
+        fl.step()
+    rid = next(rec.rid for rec in fl.outstanding.values())
+    fl.kill_replica(rid)
+    fl.run_until_idle()
+    res = fut.result(timeout=30)
+    assert res.kind == "beam" and res.reprefills == 1
+    assert len(res.tokens) == 8 and np.isfinite(res.best_logprob)
+    for rep in fl.replicas.values():
+        if rep.status == "live":
+            assert rep.scheduler.check_pages()

@@ -778,3 +778,43 @@ def pi_mesh(rank, world, p):
     out["timer"] = _raises(lambda: par.ParallelInference(
         net, mesh=cpu_mesh(dp=world), max_wait_ms=5), ValueError)
     return out
+
+
+# ------------------------------------------------------ checkpointing
+
+@case
+def orbax_fsdp(rank, world, p):
+    """The per-rank checkpoint under fsdp (the updater state split over
+    the ranks): two steps, an async save while two more steps run, then
+    a fresh net resumed from the save takes the same two steps."""
+    import os
+    from deeplearning4j_tpu_torch.serde.orbax_ckpt import (
+        CheckpointingTrainerMixin, OrbaxCheckpointer)
+    par = _par()
+    batch = ds(p["wx"], p["wy"])
+
+    def fresh():
+        net = port_net("wide_mlp", dict(params=p["wide_params"],
+                                         states=p["wide_states"]))
+        return net, par.ParallelWrapper(net, mesh=cpu_mesh(fsdp=world),
+                                        use_fsdp=True)
+
+    net, pw = fresh()
+    first = [pw.fit([batch]) for _ in range(2)]
+    ck = OrbaxCheckpointer(p["dir"], max_to_keep=2, async_=True)
+    assert ck.save(net._step_count, net.params, net.states, net._opt_state,
+                   metadata={"step_count": net._step_count,
+                             "epoch_count": net.epoch_count})
+    state_then = np_tree(net._opt_state)
+    straight = [pw.fit([batch]) for _ in range(2)]
+    ck.wait()
+    net2, pw2 = fresh()
+    pw2.fit([batch])                 # builds the (split) updater state
+    step = CheckpointingTrainerMixin.resume(net2, ck)
+    restored = np_tree(net2._opt_state)
+    resumed = [pw2.fit([batch]) for _ in range(2)]
+    ck.close()
+    files = sorted(os.listdir(os.path.join(p["dir"], str(step))))
+    return dict(first=first, straight=straight, resumed=resumed, step=step,
+                state_then=state_then, restored=restored, files=files,
+                params=np_tree(net.params), params2=np_tree(net2.params))
